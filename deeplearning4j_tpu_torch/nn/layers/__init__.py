@@ -1,0 +1,9 @@
+"""Layer implementations. Importing this package registers every impl."""
+
+from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
+    LayerImpl,
+    get_impl,
+    register_impl,
+)
+import deeplearning4j_tpu_torch.nn.layers.feedforward  # noqa: F401
+import deeplearning4j_tpu_torch.nn.layers.attention  # noqa: F401

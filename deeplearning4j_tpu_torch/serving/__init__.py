@@ -1,0 +1,16 @@
+"""Generation serving (JAX counterpart deeplearning4j_tpu/serving):
+
+* `buckets.py`  — the padding-bucket lattice every prompt chunk is padded
+  into;
+* `kvcache.py`  — page-block KV-cache accounting (`CachePlan`,
+  `PagePool`);
+* `batcher.py`  — the generation request and decode-slot state machine;
+* `engine.py`   — `GenerationEngine`: chunked prefill interleaved with
+  continuous-batching greedy decode over the paged cache.
+"""
+
+from deeplearning4j_tpu_torch.serving.buckets import BucketLattice  # noqa: F401
+from deeplearning4j_tpu_torch.serving.engine import (  # noqa: F401
+    GenerationEngine,
+    QueueFullError,
+)

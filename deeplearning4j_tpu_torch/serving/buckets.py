@@ -1,0 +1,76 @@
+"""The padding-bucket lattice — the shape contract between requests and
+the serving workers: the generation subset of the JAX package's
+serving/buckets.py. `Bucket`, `select` and the CLI's `from_spec` come
+with `InferenceEngine` and the CLI in later slices.
+
+Every prompt chunk is padded UP to the smallest lattice seq length that
+fits, so the worker sees a small fixed set of shapes: in the JAX package
+that bounds the compiles, here it bounds the kernel shapes and keeps
+prefill's flash/dense dispatch a function of the lattice alone.
+Selection is a pure function of the request shapes (no clock, no state).
+
+The JAX package's `validate_attention` checks long buckets against its
+chunked flash tier, which comes with the long-context slice of the port.
+
+Pure stdlib.
+"""
+
+from __future__ import annotations
+
+
+class BucketLattice:
+    """The fixed (batch, seq) grid. `batch_sizes` sorted ascending;
+    `seq_lens` is None for fixed-shape (non-sequence) models."""
+
+    def __init__(self, batch_sizes=(1, 2, 4, 8), seq_lens=None):
+        sizes = sorted({int(b) for b in batch_sizes})
+        if not sizes or sizes[0] < 1:
+            raise ValueError(f"batch sizes must be >= 1, got {batch_sizes}")
+        self.batch_sizes = tuple(sizes)
+        self.seq_lens = None
+        if seq_lens is not None:
+            lens = sorted({int(t) for t in seq_lens})
+            if not lens or lens[0] < 1:
+                raise ValueError(f"seq lens must be >= 1, got {seq_lens}")
+            self.seq_lens = tuple(lens)
+
+    # --------------------------------------------------------- selection
+    @property
+    def max_seq(self) -> int | None:
+        return None if self.seq_lens is None else self.seq_lens[-1]
+
+    def seq_bucket(self, t: int) -> int:
+        """Smallest lattice seq len >= t; a prompt longer than the
+        lattice max is a client error (HTTP 400), not a retrace."""
+        if self.seq_lens is None:
+            raise ValueError("lattice has no seq dimension (fixed-shape "
+                             "model); construct with seq_lens to serve "
+                             "sequences")
+        if t > self.seq_lens[-1]:
+            raise ValueError(f"sequence length {t} exceeds lattice max "
+                             f"{self.seq_lens[-1]}")
+        for s in self.seq_lens:
+            if s >= t:
+                return s
+        raise AssertionError  # unreachable: guarded above
+
+    def prefill_buckets(self, chunk: int) -> list[int]:
+        """The generation engine's prefill warmup set: every seq bucket
+        up to the chunk length (a long prompt arrives as a sequence of
+        exactly these shapes). The chunk must itself be a lattice
+        point."""
+        if self.seq_lens is None:
+            raise ValueError("generation needs a sequence lattice "
+                             "(construct with seq_lens)")
+        if chunk not in self.seq_lens:
+            raise ValueError(
+                f"prefill chunk {chunk} must be a lattice seq bucket "
+                f"{list(self.seq_lens)} — chunks are warmed shapes")
+        return [t for t in self.seq_lens if t <= chunk]
+
+    def describe(self) -> dict:
+        """JSON-able summary for /healthz and telemetry meta."""
+        return {"batch_sizes": list(self.batch_sizes),
+                "seq_lens": (None if self.seq_lens is None
+                             else list(self.seq_lens))}
+

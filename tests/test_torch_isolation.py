@@ -1,0 +1,70 @@
+"""The port stands alone: no file of deeplearning4j_tpu_torch/ nor
+chip_smoke.py imports jax or the JAX package, the whole package imports
+with jax made unimportable, and an entry point called without a device
+asks for CUDA (no silent CPU fallback)."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+
+pytestmark = pytest.mark.port
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['deeplearning4j_tpu'] = None\n"
+        "import deeplearning4j_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_entry_point_defaults_to_cuda():
+    net = transformer_lm(vocab_size=32, d_model=64, n_heads=1, n_layers=1,
+                         d_ff=64, max_length=64)
+    assert net.device == torch.device("cuda")
+    if torch.cuda.is_available():
+        net.init(0)
+        assert all(t.is_cuda for p in net.params.values()
+                   for t in p.values())
+    else:
+        # no card: the first allocation fails instead of carrying on
+        # on the CPU
+        with pytest.raises((RuntimeError, AssertionError)):
+            net.init(0)
