@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (deeplearning4j_tpu_torch/) on one
-NVIDIA GPU (written for the H100).
+NVIDIA GPU (written for the H100): serving and training the flagship
+Transformer LM through the port's hand-written kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -12,12 +13,23 @@ Phases, each of which exits non-zero when it fails:
    off for matrix products and convolutions. Builds every kernel source
    in deeplearning4j_tpu_torch/csrc/ with nvcc (one process per source,
    started together).
-2. Kernel vs plain version: the flash-forward kernel through its K1
-   (flat, masked) and K2 (packed qkv) wrappers at the shapes serving and
-   the full forward give it, in float32 and bfloat16, against
-   `_flash_fwd_reference` on the same inputs; the kernel, the plain
-   version and `scaled_dot_product_attention` (the library yardstick,
-   which the port never calls) are timed with CUDA events.
+2. Forward kernels vs plain version: the flash-forward kernel as K1
+   (flat, masked), K2 (packed qkv) and K3 (packed, head_dim 64) at the
+   shapes serving, the full forward and training give it (K1 at
+   BH=2 T<=1024, BH=96 T=512 D=64 and BH=8 T=4096; K2/K3 at B=8 and
+   B=32), in float32 and bfloat16, against `_flash_fwd_reference` on
+   the same inputs; the kernel, the plain version and
+   `scaled_dot_product_attention` (the library yardstick, which the
+   port never calls) are timed with CUDA events.
+2b. Training kernels vs plain version, f32 and bf16: the flash backward
+   (K6 packed B=32 T=512 H=2 D=128, K7 packed H=4 D=64, K4 flat T=512
+   at BH=96 D=64 and BH=8 D=128, K5 flat BH=8 at T=2048 and T=4096,
+   the flat cases masked with one all-masked row) against
+   `_flash_bwd_reference`, timed against the backward of
+   `scaled_dot_product_attention`; the softmax-xent head (K8 forward,
+   K9 backward) at N=16384 d=256 V=10000 and a ragged N=300 V=2100
+   against `_xent_fwd_reference` / `_xent_bwd_reference`, timed against
+   `F.cross_entropy(x @ W + b)` forward and backward.
 3. Serving: `transformer_lm` at the repo's flagship width (vocab 10000,
    d_model 256, 2 heads of 128, 6 layers, d_ff 1024, bf16) answers 8
    requests through `GenerationEngine`; every request must complete with
@@ -29,11 +41,23 @@ Phases, each of which exits non-zero when it fails:
 5. Step times (one 1024-token prefill chunk, one 4-slot decode step)
    and a profile of the serving loop (torch.profiler), when the
    profiler reports device time.
+6. Flagship training (bench.py mode "transformer": the same model,
+   T=512, batch 32, bf16, random tokens from numpy seed 0, labels
+   shifted by one): `fit_scanned` for 20 steps; the loss is finite at
+   every step and falls; launches exactly K2 = K6 = 6 x 20 and K8 =
+   K9 = 20; step time, tokens/s, MFU, peak memory and a profile of one
+   step.
+7. The other training routes at 2 layers and 2 steps: "transformer_d64"
+   (K3/K7), the flat route at T=512 with 3 heads of 64 (K1/K4) and
+   "longcontext" T=4096 batch 4 with the padding mask (K1/K5).
+8. f32 gradient oracle: one step's gradients of a 2-layer flagship-width
+   LM through the kernels and through the plain versions (called
+   directly) agree.
 
-The last lines are a `{"kernels": [...]}` JSON line, the card's name and
-power limit as nvidia-smi gives them, and `{"ok": true, "device": ...}`.
-With no CUDA device, or outside a checkout, it exits non-zero and prints
-no result.
+The last lines are a `{"kernels": [...]}` JSON line (K1-K9), the card's
+name and power limit as nvidia-smi gives them, and `{"ok": true,
+"device": ...}`. With no CUDA device, or outside a checkout, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -43,6 +67,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -121,7 +147,7 @@ def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops):
 def check_kernels(torch, fa):
     """Each case in both dtypes: the kernel against the plain version on
     the same inputs, then (bf16, the serving dtype) the timings.
-    Returns per-kernel records for the kernels line."""
+    Returns per-kernel lists of records for the kernels line."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -136,17 +162,28 @@ def check_kernels(torch, fa):
             m[r, :int(torch.randint(T // 4, T, (1,), generator=gen))] = 1
         return m.to(dev)
 
-    records = {"K1": [], "K2": []}
+    records = {"K1": [], "K2": [], "K3": []}
     cases = []
     for T in (512, 1024):  # chunked prefill: masked, causal, BH = 1 * 2
         cases.append(("K1", f"flat masked causal BH=2 T={T} D=128",
                       dict(BH=2, T=T, D=128, masked=True)))
     cases.append(("K1", "flat unmasked causal BH=2 T=1024 D=128",
                   dict(BH=2, T=1024, D=128, masked=False)))
-    cases.append(("K2", "packed B=8 T=512 H=2 D=128",
-                  dict(B=8, T=512, H=2, D=128)))
-    cases.append(("K2", "packed B=8 T=512 H=4 D=64 (K3's forward)",
-                  dict(B=8, T=512, H=4, D=64)))
+    # training: the flat route at T = 512 (batch 32, 3 heads of 64; the
+    # masked case adds the all-masked row) and long context (batch 4 x 2
+    # heads, T = 4096, padding mask)
+    for masked in (False, True):
+        cases.append(("K1", f"flat {'masked' if masked else 'unmasked'} "
+                            "causal BH=96 T=512 D=64",
+                      dict(BH=96, T=512, D=64, masked=masked)))
+    cases.append(("K1", "flat masked causal BH=8 T=4096 D=128",
+                  dict(BH=8, T=4096, D=128, masked=True)))
+    # packed: B = 8, and the training batch B = 32
+    for B in (8, 32):
+        cases.append(("K2", f"packed B={B} T=512 H=2 D=128",
+                      dict(B=B, T=512, H=2, D=128)))
+        cases.append(("K3", f"packed B={B} T=512 H=4 D=64",
+                      dict(B=B, T=512, H=4, D=64)))
 
     for kern, label, c in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -222,9 +259,252 @@ def check_kernels(torch, fa):
     return records
 
 
+# ------------------------------------------------------------ phase 2b
+
+# kernel vs plain version for the training kernels, relative to the
+# largest |plain| entry. f32: the same f32 math summed in another order
+# -> 1e-4. bf16: both read the same bf16 inputs and compute in f32; the
+# gradients are rounded to bf16 once at the end, which is up to one bf16
+# ulp (2^-8 = 3.9e-3 of the value) -> 2e-2.
+REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def errs(x, ref):
+    """(max |x - ref|, that over max |ref|)."""
+    ref = ref.float()
+    err = float((x.float() - ref).abs().max())
+    return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def grad_ms(torch, out, inputs, cot):
+    """CUDA-event time of one backward through an autograd graph kept
+    alive (retain_graph), for a library yardstick."""
+    return time_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, cot, retain_graph=True))
+
+
+def flash_bwd_bound_ms(BH, T, D, elem_bytes, masked, B):
+    """Least time for the backward function: q, k, v, o, do read and dq,
+    dk, dv written once (lse read; the key mask read) over the memory
+    rate, against its five causal T x T x D products (s, dp, dv, dk, dq
+    on every 64 x 64 tile up to the diagonal) over the bf16 peak."""
+    tiles = T // 64
+    pairs = tiles * (tiles + 1) // 2
+    flops = BH * pairs * 64 * 64 * D * 2 * 5
+    nbytes = BH * T * D * elem_bytes * 8 + BH * T * 4 + (B * T * 4
+                                                          if masked else 0)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash_backward(torch, fa):
+    """The backward kernel (csrc/flash_bwd.cu) through its K4-K7
+    wrappers against `_flash_bwd_reference` on the same inputs, f32 and
+    bf16; o and lse come from the plain forward. bf16 cases are timed
+    against the backward of scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 10)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    # the flagship (K6) and D = 64 (K7) training batches; the flat route
+    # at T = 512 (batch 32 x 3 heads of 64, K4) and long context (batch 4
+    # x 2 heads, T = 4096, K5), masked with one all-masked row; K4 at
+    # D = 128 and K5 at T = 2048 besides
+    cases = [("K6", "packed B=32 T=512 H=2 D=128", dict(B=32, T=512, H=2,
+                                                         D=128)),
+             ("K7", "packed B=32 T=512 H=4 D=64", dict(B=32, T=512, H=4,
+                                                        D=64)),
+             ("K4", "flat masked BH=96 T=512 D=64", dict(BH=96, T=512,
+                                                          D=64)),
+             ("K4", "flat masked BH=8 T=512 D=128", dict(BH=8, T=512,
+                                                          D=128)),
+             ("K5", "flat masked BH=8 T=2048 D=128", dict(BH=8, T=2048,
+                                                           D=128)),
+             ("K5", "flat masked BH=8 T=4096 D=128", dict(BH=8, T=4096,
+                                                           D=128))]
+    records, worst = {}, {}
+    for kern, label, c in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            T, D = c["T"], c["D"]
+            scale = D ** -0.5
+            if "B" in c:
+                B, H = c["B"], c["H"]
+                n = H * D
+                qkv = rand(B, T, 3 * n).to(dtype)
+                do = rand(B, T, n).to(dtype)
+                o, lse = fa._flash_fwd_qkv_reference(qkv, H, None, scale,
+                                                     True)
+                grads = [fa._flash_bwd_qkv(qkv, o, lse, do, H, None, scale,
+                                           True)]
+                refs = [fa._flash_bwd_qkv_reference(qkv, o, lse, do, H,
+                                                    None, scale, True)]
+                run = lambda: fa._flash_bwd_qkv(  # noqa: E731
+                    qkv, o, lse, do, H, None, scale, True)
+                plain = lambda: fa._flash_bwd_qkv_reference(  # noqa: E731
+                    qkv, o, lse, do, H, None, scale, True)
+                lib_q, lib_k, lib_v = (
+                    t.unflatten(-1, (H, D)).transpose(1, 2).contiguous()
+                    .requires_grad_() for t in qkv.split(n, dim=-1))
+                lib_out = F.scaled_dot_product_attention(
+                    lib_q, lib_k, lib_v, is_causal=True)
+                lib_do = do.unflatten(-1, (H, D)).transpose(1, 2)
+                bh, masked, nb = B * H, False, B
+            else:
+                BH = c["BH"]
+                q, k, v, do = (rand(BH, T, D).to(dtype) for _ in range(4))
+                km = torch.zeros(BH, T, device=dev)
+                for r in range(BH - 1):  # the last row stays all masked
+                    km[r, :int(torch.randint(T // 4, T, (1,),
+                                             generator=gen))] = 1
+                km3 = km[:, None, :]
+                o, lse = fa._flash_fwd_reference(q, k, v, km, scale, True)
+                grads = list(fa._flash_bwd_impl(q, k, v, o, lse, do, km3,
+                                                scale, True))
+                refs = list(fa._flash_bwd_reference(q, k, v, o, lse, do, km,
+                                                    scale, True))
+                run = lambda: fa._flash_bwd_impl(  # noqa: E731
+                    q, k, v, o, lse, do, km3, scale, True)
+                plain = lambda: fa._flash_bwd_reference(  # noqa: E731
+                    q, k, v, o, lse, do, km, scale, True)
+                lib_q, lib_k, lib_v = (t[None].clone().requires_grad_()
+                                       for t in (q, k, v))
+                allowed = (torch.ones(T, T, dtype=torch.bool, device=dev)
+                           .tril()[None] & (km[:, None, :] > 0))
+                lib_out = F.scaled_dot_product_attention(
+                    lib_q, lib_k, lib_v, attn_mask=allowed[None])
+                lib_do = do[None]
+                bh, masked, nb = BH, True, BH
+            torch.cuda.synchronize()
+            err_abs, err = (max(e) for e in zip(
+                *(errs(g, r) for g, r in zip(grads, refs))))
+            worst[kern] = max(worst.get(kern, 0.0), err_abs)
+            ok = err <= REL_TOL[dname] and all(
+                bool(torch.isfinite(g.float()).all()) for g in grads)
+            if masked:  # the all-masked row gets zero gradients
+                ok = ok and all(bool((g[-1] == 0).all()) for g in grads)
+            log(f"check {kern} flash bwd {label} {dname}: max rel err "
+                f"{err:.3e} (tol {REL_TOL[dname]}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed("2b", f"{kern} {label} {dname} disagrees "
+                                        "with its plain version")
+            if dtype is not torch.bfloat16:
+                continue
+            ms = time_ms(torch, run)
+            plain_ms = time_ms(torch, plain)
+            lib_ms = grad_ms(torch, lib_out, (lib_q, lib_k, lib_v), lib_do)
+            bound_ms, bound_by = flash_bwd_bound_ms(bh, T, D, 2, masked, nb)
+            log(f"time  {kern} flash bwd {label} bf16: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by})")
+            records.setdefault(kern, []).append(dict(
+                label=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by))
+    for kern, recs in records.items():
+        for rec in recs:
+            rec["err"] = worst[kern]
+    return records
+
+
+def xent_bound_ms(N, d, V, elem_bytes, backward):
+    """Least time for the head's function. Forward: x, W, b, labels read
+    and loss, lse written once, against 2*N*d*V FLOPs (the logits).
+    Backward: x, W, b, labels, lse, g read and dx, dW, db written once,
+    against 6*N*d*V FLOPs (the logits once, then G @ W^T and x^T @ G)."""
+    nbytes = (N * d + d * V + V) * elem_bytes + N * 4
+    if backward:
+        nbytes += N * 8 + (N * d + d * V) * elem_bytes + V * 4
+        flops = 6 * N * d * V
+    else:
+        nbytes += N * 8
+        flops = 2 * N * d * V
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_xent(torch, fsx):
+    """K8 and K9 (csrc/softmax_xent.cu) against `_xent_fwd_reference`
+    and `_xent_bwd_reference` at the flagship head (N = 32 x 512 tokens,
+    d = 256, V = 10000) and at a ragged N = 300, V = 2100, in f32 and
+    bf16. The flagship bf16 case is timed against F.cross_entropy on
+    x @ W + b (forward, and its backward through autograd)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 20)
+    records, worst = {}, {"K8": 0.0, "K9": 0.0}
+    for label, (N, d, V) in (("flagship N=16384 d=256 V=10000",
+                              (16384, 256, 10000)),
+                             ("ragged N=300 d=256 V=2100", (300, 256, 2100))):
+        x32 = torch.randn(N, d, generator=gen).to(dev)
+        w32 = (0.05 * torch.randn(d, V, generator=gen)).to(dev)
+        b32 = (0.01 * torch.randn(V, generator=gen)).to(dev)
+        labels = torch.randint(0, V, (N,), generator=gen).to(
+            dev, torch.int32)
+        g = (torch.rand(N, generator=gen) / N).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x, w, b = (t.to(dtype) for t in (x32, w32, b32))
+            loss, lse = fsx._fused_fwd(x, w, b, labels)
+            rloss, rlse = fsx._xent_fwd_reference(x, w, b, labels)
+            grads = fsx._fused_bwd(x, w, b, labels, rlse, g)
+            refs = fsx._xent_bwd_reference(x, w, b, labels, rlse, g)
+            torch.cuda.synchronize()
+            abs_f, err_f = (max(e) for e in zip(errs(loss, rloss),
+                                                errs(lse, rlse)))
+            abs_b, err_b = (max(e) for e in zip(
+                *(errs(a, r) for a, r in zip(grads, refs))))
+            worst["K8"] = max(worst["K8"], abs_f)
+            worst["K9"] = max(worst["K9"], abs_b)
+            ok = (err_f <= REL_TOL[dname] and err_b <= REL_TOL[dname]
+                  and bool(torch.isfinite(loss).all()))
+            log(f"check K8/K9 xent {label} {dname}: max rel err loss/lse "
+                f"{err_f:.3e}, dx/dW/db {err_b:.3e} (tol {REL_TOL[dname]}) "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed("2b", f"K8/K9 {label} {dname} disagrees "
+                                        "with its plain version")
+            if dtype is not torch.bfloat16 or N != 16384:
+                continue
+            fwd_ms = time_ms(torch, lambda: fsx._fused_fwd(x, w, b, labels))
+            fwd_plain = time_ms(torch, lambda: fsx._xent_fwd_reference(
+                x, w, b, labels))
+            lab64 = labels.long()
+            fwd_lib = time_ms(torch, lambda: F.cross_entropy(
+                x @ w + b, lab64, reduction="none"))
+            bwd_ms = time_ms(torch, lambda: fsx._fused_bwd(
+                x, w, b, labels, rlse, g), windows=3, per_window=5)
+            bwd_plain = time_ms(torch, lambda: fsx._xent_bwd_reference(
+                x, w, b, labels, rlse, g), windows=3, per_window=5)
+            lx, lw, lb = (t.clone().requires_grad_() for t in (x, w, b))
+            lib_loss = F.cross_entropy(lx @ lw + lb, lab64, reduction="none")
+            bwd_lib = grad_ms(torch, lib_loss, (lx, lw, lb), g)
+            for kern, ms, plain_ms, lib_ms, backward in (
+                    ("K8", fwd_ms, fwd_plain, fwd_lib, False),
+                    ("K9", bwd_ms, bwd_plain, bwd_lib, True)):
+                bound_ms, bound_by = xent_bound_ms(N, d, V, 2, backward)
+                log(f"time  {kern} xent {label} bf16: kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, F.cross_entropy "
+                    f"{'bwd' if backward else 'fwd'} {lib_ms:.4f} ms, bound "
+                    f"{bound_ms:.5f} ms ({bound_by})")
+                records[kern] = [dict(label=label, ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)]
+    for kern in ("K8", "K9"):
+        records[kern][0]["err"] = worst[kern]
+    return records
+
+
 # ------------------------------------------------------------- phase 3
 
-def serve_flagship(torch, fa, transformer_lm, GenerationEngine,
+def serve_flagship(torch, counters, transformer_lm, GenerationEngine,
                    BucketLattice, card):
     net = transformer_lm(**LM, dtype="bfloat16", device="cuda").init(SEED)
     engine = GenerationEngine(net, BucketLattice((1,), seq_lens=(64, 512,
@@ -238,7 +518,7 @@ def serve_flagship(torch, fa, transformer_lm, GenerationEngine,
     rng = torch.Generator().manual_seed(SEED + 1)
     prompts = [torch.randint(0, LM["vocab_size"], (n,), generator=rng)
                .numpy() for n in (40, 300, 700, 1000) * 2]
-    fa._flash_fwd.launches = fa._flash_fwd_qkv.launches = 0
+    counters.reset()
     torch.cuda.reset_peak_memory_stats()
     engine.start()
     t0 = time.perf_counter()
@@ -248,8 +528,7 @@ def serve_flagship(torch, fa, transformer_lm, GenerationEngine,
             raise PhaseFailed(3, f"request {r.request_id} timed out")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": fa._flash_fwd.launches,
-                "K2": fa._flash_fwd_qkv.launches}
+    launches = counters.read()
     engine.drain()
     stats = engine.stats()
     for r in reqs:
@@ -284,7 +563,7 @@ def serve_flagship(torch, fa, transformer_lm, GenerationEngine,
 
 # ------------------------------------------------------------- phase 4
 
-def oracle_f32(torch, fa, net, transformer_lm, GenerationEngine,
+def oracle_f32(torch, counters, net, transformer_lm, GenerationEngine,
                BucketLattice):
     net32 = transformer_lm(**LM, dtype="float32", device="cuda")
     net32.params = {layer: {k: t.float() for k, t in p.items()}
@@ -298,7 +577,7 @@ def oracle_f32(torch, fa, net, transformer_lm, GenerationEngine,
     rng = torch.Generator().manual_seed(SEED + 2)
     prompts = [torch.randint(0, LM["vocab_size"], (n,), generator=rng)
                .numpy() for n in (505, 1017)]
-    fa._flash_fwd.launches = fa._flash_fwd_qkv.launches = 0
+    counters.reset()
     engine.start()
     emitted = [engine.generate(p, 8, timeout=600) for p in prompts]
     engine.drain()
@@ -312,8 +591,7 @@ def oracle_f32(torch, fa, net, transformer_lm, GenerationEngine,
                                      f"is {tok}, full forward gives {ref}")
             seq.append(tok)
     torch.cuda.synchronize()
-    launches = {"K1": fa._flash_fwd.launches,
-                "K2": fa._flash_fwd_qkv.launches}
+    launches = counters.read()
     if not (launches["K1"] and launches["K2"]):
         raise PhaseFailed(4, f"the oracle did not drive both kernels: "
                              f"{launches}")
@@ -379,21 +657,298 @@ def profile_serving(torch, net, GenerationEngine, BucketLattice, prompts):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     engine.drain()
+    device_profile(torch, prof, wall, "profile")
+
+
+# ------------------------------------------------------------ phase 6+
+
+# bench.py LM_MODE_DIMS: the flagship training config and the reduced
+# other paths (depth and steps cut to fit the time limit)
+TRAIN = dict(vocab_size=10000, d_model=256, n_heads=2, n_layers=6,
+             d_ff=1024, seq=512, batch=32)
+TRAIN_STEPS = 20
+
+
+def lm_batch(DataSet, vocab, batch, seq, masked=False):
+    """Random tokens from numpy seed 0, labels the tokens shifted by one
+    (bench.py lm_mode_net_ds); with `masked`, the padding mask of the
+    "masked" mode (valid lengths uniform in [seq/2, seq])."""
+    rng = np.random.default_rng(SEED)
+    toks = np.asarray(rng.integers(0, vocab, (batch, seq)), np.int32)
+    kw = {}
+    if masked:
+        lengths = rng.integers(seq // 2, seq + 1, batch)
+        kw["features_mask"] = (np.arange(seq)[None, :]
+                               < lengths[:, None]).astype(np.float32)
+    return DataSet(toks, np.roll(toks, -1, axis=1), **kw)
+
+
+class Counters:
+    """The launch counts of the K1-K9 wrappers (the LAUNCHES tables of
+    ops/flash_attention.py and ops/fused_softmax_xent.py): reset() sets
+    every one to 0, read() returns them."""
+
+    def __init__(self, fa, fsx):
+        self.tables = (fa.LAUNCHES, fsx.LAUNCHES)
+
+    def reset(self):
+        for table in self.tables:
+            for k in table:
+                table[k] = 0
+
+    def read(self):
+        return {k: n for table in self.tables for k, n in table.items()}
+
+
+def device_profile(torch, prof, wall, tag, top=12):
+    """Log the device busy time (sum of kernel times), the idle share of
+    the window and the top kernels by device time; return (idle share,
+    rows) or (None, []) when the profiler reported no device time."""
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
+        # kernels only: a host op that launches a ctypes kernel (the
+        # autograd Functions) also reports that kernel's time as its own
+        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0)
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     if not rows:
-        log("profile: the profiler reported no device time (not measured)")
-        return
+        log(f"{tag}: the profiler reported no device time (not measured)")
+        return None, []
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"profile: window {wall:.4f} s, device busy {busy:.4f} s "
-        f"(sum of kernel times; idle share {1 - busy / wall:.4f})")
-    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"profile:   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}")
+    idle = 1 - busy / wall
+    log(f"{tag}: window {wall:.4f} s, device busy {busy:.4f} s "
+        f"(sum of kernel times; idle share {idle:.4f})")
+    rows.sort(reverse=True)
+    for dev_us, count, key in rows[:top]:
+        log(f"{tag}:   {dev_us / 1e3:10.3f} ms  {count:6d}x  {key[:90]}")
+    return idle, rows
+
+
+def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
+    """fit_scanned of the flagship LM for TRAIN_STEPS steps on one batch;
+    exact launch counts; step time, tokens/s, MFU, memory, profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = TRAIN
+    net = transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                         n_heads=c["n_heads"], n_layers=c["n_layers"],
+                         d_ff=c["d_ff"], max_length=c["seq"],
+                         dtype="bfloat16", device="cuda").init(SEED)
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    net.fit_scanned(ds, epochs=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    losses = net._step_losses.float().flatten().cpu().tolist()
+    S, L = TRAIN_STEPS, c["n_layers"]
+    want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S}
+    log(f"train: fit_scanned {S} steps in {wall:.3f} s (first steps "
+        f"included); losses {[round(x, 4) for x in losses]}; launches "
+        f"{launches}; peak device memory {peak_mib:.1f} MiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise PhaseFailed(6, f"the loss is not finite and falling: {losses}")
+    if launches != want:
+        raise PhaseFailed(6, f"launches {launches}, expected {want}")
+
+    def one_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    step_s = statistics.median(one_step() for _ in range(7))
+    tokens = c["batch"] * c["seq"]
+    fpt, fpt_exec = flops
+    tok_s = tokens / step_s
+    log(f"train: step {step_s * 1e3:.3f} ms (host clock to synchronize, "
+        f"median of 7 fit() calls) -> {tok_s:.1f} tokens/s; model FLOPs "
+        f"per token {fpt} (executed {fpt_exec}); MFU "
+        f"{fpt * tok_s / PEAK_BF16_FLOPS:.5f} (executed "
+        f"{fpt_exec * tok_s / PEAK_BF16_FLOPS:.5f}) against "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; card {card}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, rows = device_profile(torch, prof, wall, "train profile (one step)",
+                             top=15)
+    if rows:
+        # the profiler's host cost stretches the profiled window; against
+        # the unprofiled median step the same kernel time leaves this idle
+        busy = sum(r[0] for r in rows) / 1e6
+        log(f"train: device idle share of the unprofiled median step "
+            f"{1 - busy / step_s:.4f} (kernel time {busy * 1e3:.3f} ms of "
+            f"{step_s * 1e3:.3f} ms)")
+    return launches
+
+
+def train_other_paths(torch, counters, transformer_lm, DataSet):
+    """The other attention routes at reduced depth (2 layers, 2 steps):
+    packed head_dim 64 (K3/K7), the flat route at T = 512 with an odd
+    head count (K1/K4), and long context T = 4096 with the padding mask
+    (K1/K5)."""
+    # (label, config, launches each must show over 2 layers x 2 steps);
+    # d_model 192 is not a multiple of 128, so that run scores on the
+    # dense head and launches no K8/K9
+    runs = [
+        ("transformer_d64", dict(d_model=256, n_heads=4, seq=512, batch=32,
+                                 masked=False),
+         {"K3": 4, "K7": 4, "K8": 2, "K9": 2}),
+        ("flat T=512 (3 heads of 64)", dict(d_model=192, n_heads=3, seq=512,
+                                            batch=32, masked=False),
+         {"K1": 4, "K4": 4}),
+        ("longcontext masked", dict(d_model=256, n_heads=2, seq=4096,
+                                    batch=4, masked=True),
+         {"K1": 4, "K5": 4, "K8": 2, "K9": 2}),
+    ]
+    totals = {}
+    for label, c, want in runs:
+        net = transformer_lm(vocab_size=TRAIN["vocab_size"],
+                             d_model=c["d_model"], n_heads=c["n_heads"],
+                             n_layers=2, d_ff=TRAIN["d_ff"],
+                             max_length=c["seq"], dtype="bfloat16",
+                             device="cuda").init(SEED)
+        ds = lm_batch(DataSet, TRAIN["vocab_size"], c["batch"], c["seq"],
+                      masked=c["masked"])
+        counters.reset()
+        t0 = time.perf_counter()
+        net.fit_scanned(ds, epochs=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        losses = net._step_losses.float().flatten().cpu().tolist()
+        log(f"train {label}: 2 layers, 2 steps in {wall:.3f} s; losses "
+            f"{[round(x, 4) for x in losses]}; launches {launches}")
+        if not all(np.isfinite(losses)):
+            raise PhaseFailed(7, f"{label}: loss not finite: {losses}")
+        for k, n in want.items():
+            if launches[k] != n:
+                raise PhaseFailed(7, f"{label}: {k} launched "
+                                     f"{launches[k]} times, expected {n}")
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+    return totals
+
+
+def _plain_flash_qkv(torch, fa):
+    """flash_attention_qkv (causal, unmasked) over the plain versions,
+    called directly."""
+    class F(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv, H, scale):
+            o, lse = fa._flash_fwd_qkv_reference(qkv, H, None, scale, True)
+            ctx.save_for_backward(qkv, o, lse)
+            ctx.H, ctx.scale = H, scale
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            qkv, o, lse = ctx.saved_tensors
+            return (fa._flash_bwd_qkv_reference(qkv, o, lse, do, ctx.H, None,
+                                                ctx.scale, True),
+                    None, None)
+
+    def flash_attention_qkv(qkv, H, *, causal=True, mask=None, dropout=0.0):
+        if not causal or mask is not None or dropout:
+            raise ValueError("the oracle runs causal, unmasked attention")
+        return F.apply(qkv, H, (qkv.shape[-1] // 3 // H) ** -0.5)
+
+    return flash_attention_qkv
+
+
+def _plain_head(torch, fsx):
+    """softmax_xent_head over the plain versions, called directly."""
+    class F(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, b, labels):
+            loss, lse = fsx._xent_fwd_reference(x, w, b, labels)
+            ctx.save_for_backward(x, w, b, labels, lse)
+            return loss
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w, b, labels, lse = ctx.saved_tensors
+            dx, dw, db = fsx._xent_bwd_reference(x, w, b, labels, lse,
+                                                 g.float())
+            return dx, dw, db.to(b.dtype), None
+
+    def softmax_xent_head(x, w, b, labels):
+        lead = x.shape[:-1]
+        return F.apply(x.reshape(-1, x.shape[-1]), w, b,
+                       labels.reshape(-1)).reshape(lead)
+
+    return softmax_xent_head
+
+
+# f32 gradients through the kernels against the same gradients through
+# the plain versions, relative to the largest |plain| entry of each
+# parameter's gradient: both are f32 throughout but sum in other orders,
+# and the differences compound through two layers of backward -> 1e-3.
+GRAD_REL_TOL = 1e-3
+
+
+def grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx):
+    """One step's f32 gradients of a 2-layer flagship-width LM with the
+    fused routes (packed flash K2/K6, head K8/K9), through the kernels
+    and through the plain versions, on the card."""
+    import deeplearning4j_tpu_torch.nn.layers.attention as attn
+
+    net = transformer_lm(vocab_size=TRAIN["vocab_size"],
+                         d_model=TRAIN["d_model"], n_heads=TRAIN["n_heads"],
+                         n_layers=2, d_ff=TRAIN["d_ff"], max_length=512,
+                         dtype="float32", device="cuda").init(SEED)
+    batch = net._batch_dict(net._to_mds(lm_batch(
+        DataSet, TRAIN["vocab_size"], 8, 512)))
+
+    def grads():
+        leaves = {lay: {n: t.detach().requires_grad_() for n, t in p.items()}
+                  for lay, p in net.params.items()}
+        loss, _ = net._loss(leaves, net.state, None, batch, train=False)
+        keys = [(lay, n) for lay in leaves for n in leaves[lay]]
+        gs = torch.autograd.grad(loss, [leaves[k][n] for k, n in keys])
+        return float(loss.detach()), dict(zip(keys, gs))
+
+    counters.reset()
+    k_loss, k_grads = grads()
+    kernel_launches = counters.read()
+    saved = attn.flash_attention_qkv, fsx.softmax_xent_head
+    attn.flash_attention_qkv = _plain_flash_qkv(torch, fa)
+    fsx.softmax_xent_head = _plain_head(torch, fsx)
+    try:
+        counters.reset()
+        p_loss, p_grads = grads()
+        plain_launches = counters.read()
+    finally:
+        attn.flash_attention_qkv, fsx.softmax_xent_head = saved
+    torch.cuda.synchronize()
+    worst = max(errs(k_grads[k], p_grads[k])[1] for k in p_grads)
+    log(f"grad oracle: f32 loss kernels {k_loss:.6f} plain {p_loss:.6f}; "
+        f"max gradient error {worst:.3e} of the largest entry (tol "
+        f"{GRAD_REL_TOL}); launches with kernels {kernel_launches}, with "
+        f"plain versions {plain_launches}")
+    if not (kernel_launches["K2"] and kernel_launches["K6"]
+            and kernel_launches["K8"] and kernel_launches["K9"]):
+        raise PhaseFailed(8, "the kernel run did not launch K2/K6/K8/K9")
+    if any(plain_launches.values()):
+        raise PhaseFailed(8, "the plain run launched a kernel")
+    if worst > GRAD_REL_TOL or abs(k_loss - p_loss) > 1e-4 * abs(p_loss):
+        raise PhaseFailed(8, "kernel gradients disagree with the plain "
+                             "versions'")
 
 
 # ----------------------------------------------------------------- main
@@ -406,9 +961,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_flops_per_token,
+        transformer_flops_per_token_executed,
+        transformer_lm,
+    )
     from deeplearning4j_tpu_torch.ops import cuda_build
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
     from deeplearning4j_tpu_torch.serving import (BucketLattice,
                                                   GenerationEngine)
 
@@ -433,32 +994,75 @@ def main() -> int:
                 log(f"build: {src}: {line.strip()}")
 
     records = check_kernels(torch, fa)
+    records.update(check_flash_backward(torch, fa))
+    records.update(check_xent(torch, fsx))
+    counters = Counters(fa, fsx)
     net, _, prompts, serve_launches = serve_flagship(
-        torch, fa, transformer_lm, GenerationEngine, BucketLattice,
+        torch, counters, transformer_lm, GenerationEngine, BucketLattice,
         name_power)
-    oracle_launches = oracle_f32(torch, fa, net, transformer_lm,
+    oracle_launches = oracle_f32(torch, counters, net, transformer_lm,
                                  GenerationEngine, BucketLattice)
     time_steps(torch, net)
     profile_serving(torch, net, GenerationEngine, BucketLattice, prompts)
+    del net
+    flops = tuple(f(TRAIN["vocab_size"], TRAIN["d_model"], TRAIN["n_layers"],
+                    TRAIN["d_ff"], TRAIN["seq"])
+                  for f in (transformer_flops_per_token,
+                            transformer_flops_per_token_executed))
+    train_launches = train_flagship(torch, counters, transformer_lm,
+                                    DataSet, flops, name_power)
+    other_launches = train_other_paths(torch, counters, transformer_lm,
+                                       DataSet)
+    grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx)
 
-    # one entry per TPU kernel, timed at the main path's heaviest shape:
-    # K1 at the 1024 prefill chunk, K2 at the 512 full forward
-    picks = {"K1": "flat masked causal BH=2 T=1024 D=128",
-             "K2": "packed B=8 T=512 H=2 D=128"}
-    replaces = {"K1": "deeplearning4j_tpu/ops/flash_attention.py:368",
-                "K2": "deeplearning4j_tpu/ops/flash_attention.py:1077"}
-    names = {"K1": "K1 flash_fwd flat (_flash_fwd -> _fwd_kernel)",
-             "K2": "K2 flash_fwd packed qkv (_flash_fwd_qkv)"}
+    # one entry per TPU kernel, timed at the heaviest shape a path gives
+    # it; launches summed over the paths' runs (serving, its f32 oracle,
+    # flagship training and the other training paths), each counted
+    # from 0 just before it and read just after
+    launches = {k: serve_launches[k] + oracle_launches[k]
+                + train_launches[k] + other_launches[k]
+                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                          "K9")}
+    picks = {"K1": "flat masked causal BH=8 T=4096 D=128",
+             "K2": "packed B=32 T=512 H=2 D=128",
+             "K3": "packed B=32 T=512 H=4 D=64",
+             "K4": "flat masked BH=96 T=512 D=64",
+             "K5": "flat masked BH=8 T=4096 D=128",
+             "K6": "packed B=32 T=512 H=2 D=128",
+             "K7": "packed B=32 T=512 H=4 D=64",
+             "K8": "flagship N=16384 d=256 V=10000",
+             "K9": "flagship N=16384 d=256 V=10000"}
+    fa_src = "deeplearning4j_tpu/ops/flash_attention.py"
+    xent_src = "deeplearning4j_tpu/ops/fused_softmax_xent.py"
+    table = {
+        "K1": ("flash_fwd flat (_flash_fwd -> _fwd_kernel)", "flash_fwd.cu",
+               f"{fa_src}:368"),
+        "K2": ("flash_fwd packed qkv (_flash_fwd_qkv)", "flash_fwd.cu",
+               f"{fa_src}:1077"),
+        "K3": ("flash_fwd packed head_dim 64 (_flash_fwd_qkv_pair)",
+               "flash_fwd.cu", f"{fa_src}:992"),
+        "K4": ("flash_bwd flat single block (_flash_bwd_fused)",
+               "flash_bwd.cu", f"{fa_src}:624"),
+        "K5": ("flash_bwd flat split (_flash_bwd_impl)", "flash_bwd.cu",
+               f"{fa_src}:663"),
+        "K6": ("flash_bwd packed qkv (_flash_bwd_qkv)", "flash_bwd.cu",
+               f"{fa_src}:1123"),
+        "K7": ("flash_bwd packed head_dim 64 (_flash_bwd_qkv_pair)",
+               "flash_bwd.cu", f"{fa_src}:1037"),
+        "K8": ("softmax_xent fwd (_fused_fwd)", "softmax_xent.cu",
+               f"{xent_src}:116"),
+        "K9": ("softmax_xent bwd dx + dW/db (_fused_bwd)", "softmax_xent.cu",
+               f"{xent_src}:212"),
+    }
     kernels = []
-    for kern in ("K1", "K2"):
+    for kern, (name, src, replaces) in table.items():
         rec = next(r for r in records[kern] if r["label"] == picks[kern])
+        err = max(r["err"] for r in records[kern])
         kernels.append({
-            "name": names[kern], "route": "cuda",
-            "source": "deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": replaces[kern],
-            "launches": serve_launches[kern] + oracle_launches[kern],
-            "max_abs_err": max(r["err"] for r in records[kern]),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "name": f"{kern} {name}", "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[kern],
+            "max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["label"]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,10 @@ deeplearning4j_tpu/models/transformer.py). Pre-norm blocks:
     → LN → RnnOutput(softmax over vocab)
 
 Same layer names, shapes and config fields as the JAX package's
-`transformer_lm`, so its params copy across by name (weights_io.py). The
-MoE variant and the sequence-parallel options come with later slices.
+`transformer_lm`, so its params copy across by name (weights_io.py), and
+the same FLOP accounting (`transformer_flops_per_token[_executed]`). The
+MoE variant, `remat` and the sequence-parallel options come with later
+slices.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ def transformer_lm(vocab_size: int = 10000, d_model: int = 256,
                    dtype: str = "float32", attention_dropout: float = None,
                    device=None) -> ComputationGraph:
     """The dense-FF LM on `device` (CUDA unless the caller names
-    another). `dropout` and `learning_rate` are recorded in the config
-    for the training slice; inference ignores them."""
+    another), trained with Adam at `learning_rate`; `dropout` drops the
+    attention and FF inputs and (unless `attention_dropout` says
+    otherwise) the attention weights while training."""
     g = (
         NeuralNetConfiguration.builder()
         .seed(seed)
@@ -86,9 +89,10 @@ def transformer_lm(vocab_size: int = 10000, d_model: int = 256,
 
 def transformer_flops_per_token(vocab_size, d_model, n_layers, d_ff, seq_len,
                                 attention_factor=1.0):
-    """Analytic forward+backward FLOPs per token (backward ≈ 2x forward),
-    the attention quadratic term counted on the full [T, T] matrix and
-    scaled by `attention_factor` (the JAX package's accounting)."""
+    """Analytic forward+backward FLOPs per token for MFU accounting
+    (backward ≈ 2x forward), the attention quadratic term counted on the
+    full [T, T] matrix and scaled by `attention_factor` — the JAX
+    package's formula, so both report the same model FLOPs."""
     per_layer = (
         4 * 2 * d_model * d_model  # qkv + out proj: 4 [d,d] matmuls
         + 2 * 2 * d_model * d_ff  # two FF matmuls
@@ -96,3 +100,20 @@ def transformer_flops_per_token(vocab_size, d_model, n_layers, d_ff, seq_len,
     )
     fwd = n_layers * per_layer + 2 * d_model * vocab_size  # + LM head
     return int(3 * fwd)
+
+
+def causal_attention_factor(seq_len: int) -> float:
+    """Executed fraction of the dense [T, T] attention matrix under a
+    causal mask: T(T+1)/2 visible (query, key) pairs out of T*T."""
+    return (seq_len + 1) / (2.0 * seq_len)
+
+
+def transformer_flops_per_token_executed(vocab_size, d_model, n_layers,
+                                         d_ff, seq_len, causal=True):
+    """FLOPs per token counting the attention term at the T(T+1)/2 causal
+    pairs the kernels execute (`causal_attention_factor`), not the full
+    [T, T] matrix."""
+    return transformer_flops_per_token(
+        vocab_size, d_model, n_layers, d_ff, seq_len,
+        attention_factor=causal_attention_factor(seq_len) if causal
+        else 1.0)

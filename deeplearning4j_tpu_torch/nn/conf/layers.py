@@ -165,11 +165,14 @@ class SelfAttentionLayer(BaseRecurrentLayer):
 
 
 def validate_layer_names(layer_conf) -> None:
-    """Eagerly resolve a layer conf's string-named activation so a typo'd
-    name fails at build() with a named ValueError. Loss names are checked
-    by the training slice, which ports ops/losses.py."""
+    """Eagerly resolve a layer conf's string-named activation / loss so a
+    typo'd name fails at init() with a named ValueError."""
     from deeplearning4j_tpu_torch.ops.activations import get_activation
+    from deeplearning4j_tpu_torch.ops.losses import validate_loss
 
     act = getattr(layer_conf, "activation", None)
     if act is not None:
         get_activation(act)
+    loss = getattr(layer_conf, "loss_function", None)
+    if loss is not None:
+        validate_loss(loss)

@@ -1,28 +1,57 @@
-"""ComputationGraph — the DAG container, inference parts (JAX counterpart
-deeplearning4j_tpu/nn/graph.py; reference nn/graph/ComputationGraph.java).
+"""ComputationGraph — the DAG container (JAX counterpart
+deeplearning4j_tpu/nn/graph.py; reference nn/graph/ComputationGraph.java
+init:219-231, fit:545-672, forward over topo order:886).
 
 The forward walks the configuration's topological order eagerly on the
 net's device. Parameters are a plain dict {layer: {name: tensor}} in the
 configuration's `param_dtype`, each layer's cast to the compute `dtype`
-as it runs — the JAX package's dtype policy. Training (`fit`, the
-optimizer, meshes) comes with the training slice.
+as it runs — the JAX package's dtype policy — and the optimizer state
+sits beside them in the same dtype. Training is SGD-family: `fit`,
+`fit_scanned`, `score` and `score_examples`, the backward by autograd
+through the layers (nn/training.py). Randomness (dropout) comes from one
+`torch.Generator` on the net's device, seeded from the configuration's
+seed, where the JAX package splits a PRNG key per step (`_next_rng`).
+
+Not carried by this slice, and raising NotImplementedError: layerwise
+pretraining, truncated BPTT, the non-SGD optimization algorithms (the
+Solver path) and `remat`, which come with the rest of `nn/` (ROADMAP
+Queue A item 6); meshes (`set_mesh`) with the parallel slice (item 7).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.datasets.api import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
     ElementWiseVertexConf,
     LayerVertexConf,
 )
+from deeplearning4j_tpu_torch.nn.conf.enums import (
+    BackpropType,
+    OptimizationAlgorithm,
+)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import validate_layer_names
-from deeplearning4j_tpu_torch.nn.layers import get_impl
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    BaseOutputLayer,
+    validate_layer_names,
+)
+from deeplearning4j_tpu_torch.nn.layers import (
+    get_impl,
+    l1_l2_penalty,
+    pop_aux_losses,
+)
+from deeplearning4j_tpu_torch.nn.training import make_train_step
+from deeplearning4j_tpu_torch.nn.updater import (
+    build_optimizer,
+    named_layer_confs,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
@@ -70,6 +99,13 @@ class ComputationGraph:
                       for name, v in self.layer_vertices.items()}
         self.params = None
         self.state = None
+        self.opt_state = None
+        self.tx = None
+        self.listeners = []
+        self.iteration_count = 0
+        self.score_value = float("nan")
+        self._train_step = None
+        self._generator = None
 
     @property
     def compute_dtype(self):
@@ -82,9 +118,12 @@ class ComputationGraph:
     def init(self, seed: Optional[int] = None):
         """Sample every layer's params from one `torch.Generator` seeded
         with `seed` (default: the configuration's), in sorted layer
-        order, and place them on the net's device."""
+        order, and place them on the net's device; build the optimizer
+        and its state, and the device generator that dropout draws
+        from."""
         g = self.conf.conf
-        gen = torch.Generator().manual_seed(g.seed if seed is None else seed)
+        seed = g.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(seed)
         params, state = {}, {}
         for name in sorted(self.layer_vertices):
             v = self.layer_vertices[name]
@@ -94,7 +133,15 @@ class ComputationGraph:
             state[name] = s
         self.params = params
         self.state = state
+        self._generator = torch.Generator(device=self.device).manual_seed(
+            seed + 1)
+        self.tx = build_optimizer(g, named_layer_confs(self))
+        self.opt_state = self.tx.init(params)
+        self._train_step = None
         return self
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
 
     # --------------------------------------------------------------- forward
     def _time_preserving(self, vconf, T):
@@ -109,15 +156,18 @@ class ComputationGraph:
             return ot.kind == "recurrent" and ot.timeseries_length == T
         return False
 
-    def _forward(self, params, state, input_dict, masks=None):
-        """Inference forward over the topological order. Returns the list
-        of network outputs."""
+    def _forward(self, params, state, input_dict, masks=None, *,
+                 train=False, generator=None, collect=False):
+        """Forward over the topological order. Returns the list of
+        network outputs, or (acts {vertex: activation}, new_state) when
+        `collect`. `train` turns dropout on, drawing from `generator`."""
         masks = dict(masks) if masks else {}
         cdtype = self.compute_dtype
         acts = {}
         for k, v in input_dict.items():
             v = torch.as_tensor(v, device=self.device)
             acts[k] = v.to(cdtype) if v.is_floating_point() else v
+        new_state = {}
         for name in self.topo:
             if name in self.conf.network_inputs:
                 continue
@@ -131,8 +181,9 @@ class ComputationGraph:
                 if cdtype != self.param_dtype:
                     p = cast_params(p, cdtype)
                 in_mask = masks.get(self.conf.vertex_inputs[name][0])
-                acts[name], _ = self.impls[name].apply(
-                    vconf.layer, p, state.get(name, {}), x, mask=in_mask)
+                acts[name], new_state[name] = self.impls[name].apply(
+                    vconf.layer, p, state.get(name, {}), x, train=train,
+                    generator=generator, mask=in_mask)
             else:
                 acts[name] = vertex_forward(vconf, inputs)
             m = masks.get(self.conf.vertex_inputs[name][0])
@@ -141,7 +192,212 @@ class ComputationGraph:
                     and tuple(y.shape[:2]) == tuple(m.shape)
                     and self._time_preserving(vconf, m.shape[1])):
                 masks[name] = m
+        if collect:
+            for n in self.layer_vertices:
+                new_state.setdefault(n, state.get(n, {}))
+            return acts, new_state
         return [acts[o] for o in self.conf.network_outputs]
+
+    def _output_losses(self, params, acts, batch, *, train, generator,
+                       per_example=False):
+        """Sum over the output layers of their losses on `acts`, each
+        output layer's params cast to the compute dtype as the forward
+        casts every other layer's."""
+        total = 0.0
+        labels_list = batch["labels"]
+        lmasks = batch.get("labels_masks") or [None] * len(labels_list)
+        cdtype = self.compute_dtype
+        for out_name, labels, lmask in zip(self.conf.network_outputs,
+                                           labels_list, lmasks):
+            vconf = self.conf.vertices[out_name]
+            if not isinstance(vconf, LayerVertexConf) or not isinstance(
+                    vconf.layer, BaseOutputLayer):
+                raise ValueError(f"Output '{out_name}' is not an output "
+                                 "layer")
+            x = acts[self.conf.vertex_inputs[out_name][0]]
+            if vconf.preprocessor is not None:
+                x = vconf.preprocessor.pre_process(x)
+            p_out = params[out_name]
+            if cdtype != self.param_dtype:
+                p_out = cast_params(p_out, cdtype)
+            total = total + self.impls[out_name].loss(
+                vconf.layer, p_out, x, labels, train=train,
+                generator=generator, mask=lmask, per_example=per_example)
+        return total
+
+    def _input_masks(self, batch):
+        if batch.get("features_masks") is None:
+            return {}
+        return {k: m for k, m in zip(self.conf.network_inputs,
+                                     batch["features_masks"])
+                if m is not None}
+
+    def _penalty(self, params):
+        pen = 0.0
+        for name, v in self.layer_vertices.items():
+            pen = pen + l1_l2_penalty(v.layer, params[name])
+        return pen
+
+    def _loss(self, params, state, generator, batch, train=True):
+        """Sum of output-layer losses + L1/L2 (reference
+        computeGradientAndScore:816). Returns (loss, (new_state, {}))."""
+        acts, new_state = self._forward(
+            params, state, dict(zip(self.conf.network_inputs,
+                                    batch["features"])),
+            self._input_masks(batch), train=train, generator=generator,
+            collect=True)
+        loss = self._output_losses(params, acts, batch, train=train,
+                                   generator=generator)
+        loss = loss + self._penalty(params)
+        aux, new_state = pop_aux_losses(new_state)
+        if train:
+            loss = loss + aux
+        return loss, (new_state, {})
+
+    # ------------------------------------------------------------------- fit
+    @staticmethod
+    def _to_mds(ds):
+        if isinstance(ds, MultiDataSet):
+            return ds
+        return MultiDataSet(
+            [ds.features], [ds.labels],
+            None if ds.features_mask is None else [ds.features_mask],
+            None if ds.labels_mask is None else [ds.labels_mask])
+
+    def _batch_dict(self, mds: MultiDataSet):
+        """A MultiDataSet's arrays as tensors on the net's device."""
+        def dev(a):
+            return None if a is None else torch.as_tensor(
+                np.asarray(a), device=self.device)
+
+        b = {"features": tuple(dev(f) for f in mds.features),
+             "labels": tuple(dev(lab) for lab in mds.labels)}
+        if mds.features_masks is not None:
+            b["features_masks"] = tuple(dev(m) for m in mds.features_masks)
+        if mds.labels_masks is not None:
+            b["labels_masks"] = tuple(dev(m) for m in mds.labels_masks)
+        return b
+
+    def _check_trainable(self):
+        """Raise for what this slice of the port does not train."""
+        g = self.conf.conf
+        if self.conf.pretrain:
+            raise NotImplementedError(
+                "layerwise pretraining is not ported yet (ROADMAP Queue A "
+                "item 6, with the pretrain layers)")
+        if str(g.optimization_algo) != str(
+                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT):
+            raise NotImplementedError(
+                f"optimization algorithm {g.optimization_algo!r} (the "
+                "Solver path, optimize/solvers.py) is not ported yet "
+                "(ROADMAP Queue A item 6); use stochastic gradient descent")
+        if str(self.conf.backprop_type) in (str(BackpropType.TRUNCATED_BPTT),
+                                            "truncated_bptt"):
+            raise NotImplementedError(
+                "truncated BPTT is not ported yet (ROADMAP Queue A item 6, "
+                "with the recurrent layers)")
+        if g.remat:
+            raise NotImplementedError(
+                "remat (recomputing activations in the backward) is not "
+                "ported yet (ROADMAP Queue A item 6)")
+
+    def set_mesh(self, mesh, **kwargs):
+        """Meshes (data, tensor, pipeline, expert and sequence
+        parallelism) come with the parallel slice of the port."""
+        raise NotImplementedError(
+            "meshes are not ported yet (ROADMAP Queue A item 7, parallel "
+            "and distributed)")
+
+    def _get_train_step(self):
+        if self._train_step is None:
+            self._train_step = make_train_step(self._loss, self.tx,
+                                               named_layer_confs(self))
+        return self._train_step
+
+    def fit(self, data, labels=None, epochs: int = 1):
+        """Train (reference ComputationGraph.fit:545-672): one optimizer
+        pass per batch (times the config's `iterations`) over a DataSet,
+        a MultiDataSet or an iterator of them, `epochs` times."""
+        if self.params is None:
+            self.init()
+        if labels is not None:
+            data = DataSet(data, labels)
+        if isinstance(data, (DataSet, MultiDataSet)):
+            data = ListDataSetIterator([data])
+        self._check_trainable()
+        if not self.conf.backprop:
+            return self
+        step = self._get_train_step()
+        g = self.conf.conf
+        for _ in range(epochs):
+            data.reset()
+            for ds in data:
+                batch = self._batch_dict(self._to_mds(ds))
+                for _i in range(max(1, g.iterations)):
+                    self.params, self.opt_state, self.state, loss, _ = step(
+                        self.params, self.opt_state, self.state,
+                        self._generator, batch)
+                    self.score_value = loss
+                    self.iteration_count += 1
+                    for lst in self.listeners:
+                        lst.iteration_done(self, self.iteration_count)
+        return self
+
+    def fit_scanned(self, data, labels=None, epochs: int = 1):
+        """Whole-epoch training over a list of uniform batches (the JAX
+        package scans them in one dispatch; here a loop that reads no
+        loss back until the end — nn/training.fused_fit)."""
+        from deeplearning4j_tpu_torch.nn.training import fused_fit
+
+        if self.params is None:
+            self.init()
+        if labels is not None:
+            data = DataSet(data, labels)
+        if isinstance(data, (DataSet, MultiDataSet)):
+            data = ListDataSetIterator([data])
+        batches = [self._batch_dict(self._to_mds(ds)) for ds in data]
+        return fused_fit(self, batches, epochs)
+
+    # score_value is read lazily: a step leaves a device scalar, and
+    # converting it at once would synchronize with the card every step
+    @property
+    def score_value(self):
+        v = self._score_raw
+        if not isinstance(v, float):
+            v = float(v)
+            self._score_raw = v
+        return v
+
+    @score_value.setter
+    def score_value(self, v):
+        self._score_raw = v
+
+    @torch.no_grad()
+    def score(self, ds=None, training: bool = False):
+        """The loss of a DataSet (no update), or the last training score
+        when `ds` is None."""
+        if ds is None:
+            return self.score_value
+        loss, _ = self._loss(self.params, self.state, None,
+                             self._batch_dict(self._to_mds(ds)),
+                             train=training)
+        return float(loss)
+
+    @torch.no_grad()
+    def score_examples(self, ds, add_regularization: bool = False):
+        """One score PER EXAMPLE [batch], summed across all output layers
+        (reference ScoreExamplesFunction); inference-mode forward.
+        `add_regularization` adds the network L1/L2 penalty to each."""
+        batch = self._batch_dict(self._to_mds(ds))
+        acts, _ = self._forward(
+            self.params, self.state,
+            dict(zip(self.conf.network_inputs, batch["features"])),
+            self._input_masks(batch), collect=True)
+        per = self._output_losses(self.params, acts, batch, train=False,
+                                  generator=None, per_example=True)
+        if add_regularization:
+            per = per + self._penalty(self.params)
+        return per.float().cpu().numpy()
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()

@@ -3,6 +3,8 @@
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     LayerImpl,
     get_impl,
+    l1_l2_penalty,
+    pop_aux_losses,
     register_impl,
 )
 import deeplearning4j_tpu_torch.nn.layers.feedforward  # noqa: F401

@@ -1,11 +1,17 @@
 """Transformer building blocks: LayerNormalization, PositionalEncoding,
 SelfAttention (JAX counterpart deeplearning4j_tpu/nn/layers/attention.py).
 
-Inference forward only. SelfAttention keeps the JAX package's dispatch
-ladder: the packed-projection flash kernel when `supports_qkv`, the flat
-flash kernel when `supports`, the dense f32-softmax attention otherwise.
-The chunked tier for T beyond the flash envelope, sequence parallelism,
-ring attention and dropout come with later slices.
+Forward for inference and training, differentiable by autograd.
+SelfAttention keeps the JAX package's dispatch ladder: the
+packed-projection flash kernels when `supports_qkv`, the flat flash
+kernels when `supports`, the dense f32-softmax attention otherwise; the
+flash routes carry their hand-written backward kernels
+(ops/flash_attention.py). Dropout on the layer input and, on the dense
+route, on the attention weights draws from the caller's
+`torch.Generator`. Still to come with later slices: in-kernel attention
+dropout on the flash routes (a nonzero rate there raises), the chunked
+tier for T beyond the flash envelope, sequence parallelism and ring
+attention.
 """
 
 from __future__ import annotations
@@ -17,7 +23,11 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     PositionalEncodingLayer,
     SelfAttentionLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.base import LayerImpl, register_impl
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    LayerImpl,
+    apply_dropout,
+    register_impl,
+)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.flash_attention import (
@@ -38,7 +48,8 @@ class LayerNormImpl(LayerImpl):
         return {"gamma": torch.ones(n, dtype=dtype),
                 "beta": torch.zeros(n, dtype=dtype)}, {}
 
-    def apply(self, conf, params, state, x, *, mask=None):
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
         # jnp.var is the population variance
         mu = x.mean(-1, keepdim=True)
         var = x.var(-1, keepdim=True, unbiased=False)
@@ -76,7 +87,8 @@ class PositionalEncodingImpl(LayerImpl):
             return {"pe": pe}, {}
         return {}, {}
 
-    def apply(self, conf, params, state, x, *, mask=None):
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
         T, d = x.shape[1], x.shape[2]
         if conf.learned:
             pe = params["pe"][:T]
@@ -85,10 +97,11 @@ class PositionalEncodingImpl(LayerImpl):
         return x + pe, state
 
 
-def dot_product_attention(q, k, v, *, causal, mask=None):
+def dot_product_attention(q, k, v, *, causal, mask=None, dropout=0.0,
+                          generator=None, train=False):
     """q, k, v: [B, H, T, D] -> [B, H, T, D]. Scores and softmax in f32,
     the weights cast to v's dtype for the product (the JAX package's
-    `dot_product_attention`)."""
+    `dot_product_attention`); attention-weight dropout while training."""
     d = q.shape[-1]
     scores = (q.float() @ k.float().transpose(-1, -2)) / (float(d) ** 0.5)
     T = q.shape[2]
@@ -98,6 +111,8 @@ def dot_product_attention(q, k, v, *, causal, mask=None):
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None, :].bool(), NEG_INF)
     w = torch.softmax(scores, dim=-1)
+    if dropout and train and generator is not None:
+        w = apply_dropout(w, dropout, generator, train=True)
     return (w.to(v.dtype) @ v).to(q.dtype)
 
 
@@ -114,24 +129,30 @@ class SelfAttentionImpl(LayerImpl):
             "bo": torch.zeros(n, dtype=dtype),
         }, {}
 
-    def apply(self, conf, params, state, x, *, mask=None):
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
+        if conf.dropout:
+            x = apply_dropout(x, conf.dropout, generator, train=train)
         B, T, _ = x.shape
         H = conf.n_heads
         n = conf.n_out
         D = n // H
         qkv = x @ params["Wqkv"] + params["bqkv"]              # [B, T, 3n]
+        drop_attn = conf.attention_dropout if train else 0.0
         use_flash = conf.use_flash
         act = get_activation(conf.activation or "identity")
-        if use_flash and flash_supports_qkv(B, T, n, H, dropout=0.0):
-            # packed path: the kernel reads each head's column slice of
-            # the projection in place, no [B,T,H,D] relayout
-            out = flash_attention_qkv(qkv, H, causal=conf.causal, mask=mask)
+        if use_flash and flash_supports_qkv(B, T, n, H, dropout=drop_attn):
+            # packed path: the kernels read each head's column slice of
+            # the projection in place, no [B,T,H,D] relayout either way
+            out = flash_attention_qkv(qkv, H, causal=conf.causal, mask=mask,
+                                      dropout=drop_attn)
             return act(out @ params["Wo"] + params["bo"]), state
         qh, kh, vh = (t.unflatten(-1, (H, D)).transpose(1, 2)
                       for t in qkv.split(n, dim=-1))
         if use_flash and flash_supports(qh.shape, causal=conf.causal,
-                                        dropout=0.0, mask=mask):
-            out = flash_attention(qh, kh, vh, causal=conf.causal, mask=mask)
+                                        dropout=drop_attn, mask=mask):
+            out = flash_attention(qh, kh, vh, causal=conf.causal, mask=mask,
+                                  dropout=drop_attn)
         elif use_flash and T > MAX_FLASH_T:
             # the JAX package tiles these lengths with its chunked flash
             # loop; dense [T, T] scores here would exhaust device memory
@@ -140,7 +161,9 @@ class SelfAttentionImpl(LayerImpl):
                 "flash tier, which comes with the long-context slice of "
                 "the port")
         else:
-            out = dot_product_attention(qh, kh, vh, causal=conf.causal,
-                                        mask=mask)
+            out = dot_product_attention(
+                qh, kh, vh, causal=conf.causal, mask=mask,
+                dropout=conf.attention_dropout, generator=generator,
+                train=train)
         out = out.transpose(1, 2).reshape(B, T, n)
         return act(out @ params["Wo"] + params["bo"]), state

@@ -27,3 +27,16 @@ def params_from_jax(np_params: dict, device) -> dict:
     the same dict of tensors on `device`, dtypes kept."""
     return {layer: {name: _tensor(a, device) for name, a in p.items()}
             for layer, p in np_params.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's {layer: {name: tensor}} params -> the same dict of
+    numpy arrays on the host, for comparing with a JAX net's
+    `np.asarray` params. bfloat16 widens to float32 (exactly): numpy has
+    no bfloat16."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {layer: {name: arr(t) for name, t in p.items()}
+            for layer, p in params.items()}

@@ -1,0 +1,171 @@
+"""The port's flash-attention backward (deeplearning4j_tpu_torch/ops/
+flash_attention.py, the K4-K7 wrappers over csrc/flash_bwd.cu) against
+the JAX package's Pallas backward kernels on the CPU: `jax.vjp` through
+`flash_attention_qkv` / `flash_attention` against torch autograd
+through the port's, on the same inputs and the same output cotangent.
+
+The JAX kernels run in interpret mode, as the JAX package's own tests
+run them; `autotune.override` forces the JAX package's split dq/dkv
+route (K5) at T = 512, where it would otherwise take the single-block
+kernel (K4). On CPU tensors the port computes `_flash_bwd_reference`,
+the function its CUDA kernel computes on the card (chip_smoke.py holds
+the two together there).
+
+Tolerance: float32 on both sides, summed in another order: 2e-5
+absolute on gradients whose entries are O(1).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.ops import autotune
+from deeplearning4j_tpu.ops import flash_attention as jfa
+from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+pytestmark = pytest.mark.port
+
+ATOL = 2e-5
+
+
+def _ragged_mask(rng, rows, T):
+    """[rows, T] key mask: ragged valid prefixes, the last row all
+    zero."""
+    m = np.zeros((rows, T), np.float32)
+    for r in range(rows - 1):
+        m[r, :rng.integers(T // 4, T)] = 1.0
+    return m
+
+
+def _torch_grads(fn, inputs, cot):
+    ts = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    out = fn(*ts)
+    out.backward(torch.from_numpy(cot))
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _jax_grads(fn, inputs, cot):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in inputs))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("H,D,masked", [(1, 128, False), (1, 128, True),
+                                        (2, 64, False), (2, 64, True)])
+def test_packed_backward_matches_jax(H, D, masked):
+    """K6 (D = 128) and K7 (D = 64, the JAX package's head-pair kernel):
+    dqkv of the packed route, read and written as [B, T, 3n]."""
+    rng = np.random.default_rng(100 + D + masked)
+    B, T = 2, 512
+    n = H * D
+    qkv = rng.standard_normal((B, T, 3 * n)).astype(np.float32)
+    cot = rng.standard_normal((B, T, n)).astype(np.float32)
+    mask = _ragged_mask(rng, B, T) if masked else None
+    jo, (jg,) = _jax_grads(
+        lambda x: jfa.flash_attention_qkv(
+            x, H, mask=None if mask is None else jnp.asarray(mask)),
+        [qkv], cot)
+    to, (tg,) = _torch_grads(
+        lambda x: tfa.flash_attention_qkv(
+            x, H, mask=None if mask is None else torch.from_numpy(mask)),
+        [qkv], cot)
+    _close([to, tg], [jo, jg])
+    if masked:  # the all-masked row: no gradient reaches it
+        assert np.all(tg[-1] == 0.0)
+
+
+@pytest.mark.parametrize("T,split", [(512, False), (512, True),
+                                     (1024, True)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flat_backward_matches_jax(T, split, masked):
+    """The flat route's backward: at T = 512 against the JAX package's
+    single-block kernel (K4) and, forced, its dq/dkv split (K5); at
+    T = 1024 against the split, which the port's K5 wrapper serves."""
+    rng = np.random.default_rng(T + 10 * split + masked)
+    B, H, D = 1, 2, 128
+    q, k, v, cot = (rng.standard_normal((B, H, T, D)).astype(np.float32)
+                    for _ in range(4))
+    mask = _ragged_mask(rng, B + 1, T)[:B] if masked else None
+
+    def jfn(q, k, v):
+        return jfa.flash_attention(
+            q, k, v, causal=True,
+            mask=None if mask is None else jnp.asarray(mask))
+
+    ov = {"flash_bwd": {"block_q": 128, "block_k": 128}} if split else {}
+    with autotune.override(ov):
+        jo, jg = _jax_grads(jfn, [q, k, v], cot)
+    to, tg = _torch_grads(
+        lambda q, k, v: tfa.flash_attention(
+            q, k, v, causal=True,
+            mask=None if mask is None else torch.from_numpy(mask)),
+        [q, k, v], cot)
+    _close([to] + tg, [jo] + jg)
+
+
+def test_all_masked_rows_get_zero_gradients():
+    """A batch row whose keys are all masked: its queries see no keys,
+    so o = 0 there and no gradient reaches q, k or v of that row — in
+    both packages."""
+    rng = np.random.default_rng(7)
+    B, H, T, D = 2, 1, 512, 128
+    q, k, v, cot = (rng.standard_normal((B, H, T, D)).astype(np.float32)
+                    for _ in range(4))
+    mask = np.ones((B, T), np.float32)
+    mask[1] = 0.0
+    jo, jg = _jax_grads(
+        lambda q, k, v: jfa.flash_attention(q, k, v, mask=jnp.asarray(mask)),
+        [q, k, v], cot)
+    to, tg = _torch_grads(
+        lambda q, k, v: tfa.flash_attention(q, k, v,
+                                            mask=torch.from_numpy(mask)),
+        [q, k, v], cot)
+    _close([to] + tg, [jo] + jg)
+    for g in tg:
+        assert np.all(g[1] == 0.0) and np.all(np.isfinite(g))
+
+
+def test_plain_backward_is_the_gradient_of_the_plain_forward():
+    """`_flash_bwd_reference` (written out: ds = p * (dp - delta)) equals
+    autograd through the plain forward `_flash_fwd_reference`."""
+    rng = np.random.default_rng(3)
+    BH, T, D = 2, 256, 64
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((BH, T, D))
+                                    .astype(np.float32)) for _ in range(4))
+    km = torch.from_numpy(_ragged_mask(rng, BH, T))
+    scale = D ** -0.5
+    o, lse = tfa._flash_fwd_reference(q, k, v, km, scale, True)
+    got = tfa._flash_bwd_reference(q, k, v, o, lse, do, km, scale, True)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa._flash_fwd_reference(*ts, km, scale, True)[0].backward(do)
+    for g, t in zip(got, ts):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), atol=ATOL,
+                                   rtol=0)
+
+
+def test_dropout_on_flash_raises():
+    """The in-kernel dropout hash is a later slice: a nonzero rate on a
+    flash entry point raises instead of being ignored."""
+    x = torch.zeros(1, 512, 3 * 128)
+    with pytest.raises(NotImplementedError, match="attention dropout"):
+        tfa.flash_attention_qkv(x, 1, dropout=0.1)
+    q = torch.zeros(1, 1, 512, 128)
+    with pytest.raises(NotImplementedError, match="attention dropout"):
+        tfa.flash_attention(q, q, q, dropout=0.1)
+
+
+def test_backward_launch_refuses_cpu_tensors():
+    """The backward launcher takes CUDA tensors only: handed CPU tensors
+    it raises before loading the library, and nothing falls back."""
+    B, H, T, D = 1, 1, 128, 128
+    t = torch.zeros(B, H, T, D)
+    lse = torch.zeros(B * H, T)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa._launch_bwd(t, t, t, t, t, lse, None, t.clone(), t.clone(),
+                        t.clone(), 1.0, True)
