@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (deeplearning4j_tpu_torch/) on one
 NVIDIA GPU (written for the H100): serving and training the flagship
-Transformer LM through the port's hand-written kernels.
+Transformer LM, and training Word2Vec through the embedding engine,
+through the port's hand-written kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -53,9 +54,31 @@ Phases, each of which exits non-zero when it fails:
 8. f32 gradient oracle: one step's gradients of a 2-layer flagship-width
    LM through the kernels and through the plain versions (called
    directly) agree.
+9. Word2Vec and LayerNorm kernels vs plain version, f32 and bf16: K13
+   (csrc/neg_softmax.cu) at B=2048 K=5 D=128 (the Word2Vec path),
+   B=1024 K=5 D=64 (the engine feed) and a ragged B=1000 K=7 D=100
+   against `_neg_softmax_reference`, timed against sigmoid(bmm); K10/K11
+   (csrc/layernorm.cu) through the `fused_layer_norm` autograd Function
+   at N=16384 C=256 and a ragged N=1000 C=200 against
+   `_ln_fwd_reference` / `_ln_bwd_reference`, timed against
+   F.layer_norm forward and backward.
+10. Word2Vec at the repo's config (bench.py `_quality_w2v`: layer 128,
+   window 5, negative 5, one epoch, seed 1, batch 2048) on the first
+   8000 sentences of bench.py's topic corpus (vocab 10000, 1,000,000
+   words, sentences of 25, numpy seed 0): vocab 9878, 531 steps and
+   exactly 531 K13 launches, first loss 6 ln 2, last loss within 5% of
+   2.1863, topic separation >= 0.50; words/s, steps/s, the host's
+   share in pair generation and a profiled window's device idle share.
+11. The embedding engine driven directly (bench.py's embed training at
+   ep=1: 131072 x 64 tables, batch 1024, window 5, sequences of 25,
+   through the prefetched pair feed): 1 + 20 steps, exactly 21 K13
+   launches, finite losses; pairs/s and table bytes.
+12. f32 oracle: 50 engine steps through K13 and 50 through the plain
+   version, from the same tables and batches, agree within 1e-4 of the
+   largest table entry.
 
-The last lines are a `{"kernels": [...]}` JSON line (K1-K9), the card's
-name and power limit as nvidia-smi gives them, and `{"ok": true,
+The last lines are a `{"kernels": [...]}` JSON line (K1-K11, K13), the
+card's name and power limit as nvidia-smi gives them, and `{"ok": true,
 "device": ...}`. With no CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -684,12 +707,13 @@ def lm_batch(DataSet, vocab, batch, seq, masked=False):
 
 
 class Counters:
-    """The launch counts of the K1-K9 wrappers (the LAUNCHES tables of
-    ops/flash_attention.py and ops/fused_softmax_xent.py): reset() sets
+    """The launch counts of the kernel wrappers (the LAUNCHES tables of
+    ops/flash_attention.py, ops/fused_softmax_xent.py,
+    ops/fused_neg_softmax.py and ops/fused_layernorm.py): reset() sets
     every one to 0, read() returns them."""
 
-    def __init__(self, fa, fsx):
-        self.tables = (fa.LAUNCHES, fsx.LAUNCHES)
+    def __init__(self, *modules):
+        self.tables = tuple(m.LAUNCHES for m in modules)
 
     def reset(self):
         for table in self.tables:
@@ -753,7 +777,8 @@ def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
     losses = net._step_losses.float().flatten().cpu().tolist()
     S, L = TRAIN_STEPS, c["n_layers"]
     want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
-            "K7": 0, "K8": S, "K9": S, "K9 dW": S}
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
+            "K13": 0}
     log(f"train: fit_scanned {S} steps in {wall:.3f} s (first steps "
         f"included); losses {[round(x, 4) for x in losses]}; launches "
         f"{launches}; peak device memory {peak_mib:.1f} MiB")
@@ -951,6 +976,445 @@ def grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx):
                              "versions'")
 
 
+# ------------------------------------------------------------- phase 9
+
+# K13, K10, K11 against their plain versions, relative to the largest
+# |plain| entry. f32: the same f32 math summed in another order -> 1e-5.
+# bf16: both read the same bf16 inputs, compute in f32 and round once;
+# one f32 difference can flip a rounding. K13's scores lie in (0, 1), so
+# one bf16 ulp is at most 2^-8 = 3.9e-3 -> 8e-3 (two ulps); LayerNorm's
+# outputs and gradients exceed 1 -> 2e-2, as for the flash kernels.
+K13_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+LN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+# the card's peak for the arithmetic a kernel runs: f32 on the CUDA
+# cores for f32 inputs, the bf16 tensor-core rate for bf16 inputs
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": PEAK_BF16_FLOPS}
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+def kernel_device_ms(torch, fn, calls=20):
+    """Mean device time per call of the kernels `fn` launches (the sum
+    of their times over `calls` calls, from torch.profiler), or None
+    when the profiler reports no device time. At these sizes the CUDA
+    event time of back-to-back calls is bounded by the host's launch
+    path; this is the kernels' own time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return total_us / calls / 1e3 if total_us else None
+
+
+def bound(nbytes, flops, dname):
+    """(least ms, what bounds it) for `nbytes` moved and `flops` done."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_neg_softmax(torch, fns):
+    """K13 (csrc/neg_softmax.cu) against `_neg_softmax_reference` at the
+    Word2Vec path's shape, the engine feed's and a ragged one, f32 and
+    bf16; each f32 case (the paths' dtype) timed against one
+    sigmoid(bmm) over the same rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    records, worst = [], 0.0
+    for label, (B, K, D) in (("word2vec B=2048 K=5 D=128", (2048, 5, 128)),
+                             ("engine feed B=1024 K=5 D=64", (1024, 5, 64)),
+                             ("ragged B=1000 K=7 D=100", (1000, 7, 100))):
+        c32, pos32 = ((0.3 * torch.randn(B, D, generator=gen)).to(dev)
+                      for _ in range(2))
+        neg32 = (0.3 * torch.randn(B, K, D, generator=gen)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            c, pos, neg = (t.to(dtype) for t in (c32, pos32, neg32))
+            got = fns.neg_softmax_scores(c, pos, neg)
+            ref = fns._neg_softmax_reference(c, pos, neg)
+            torch.cuda.synchronize()
+            abs_err, err = (max(e) for e in zip(
+                *(errs(g, r) for g, r in zip(got, ref))))
+            worst = max(worst, abs_err)
+            ok = err <= K13_TOL[dname] and all(
+                g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+                for g in got)
+            log(f"check K13 neg_softmax {label} {dname}: max rel err "
+                f"{err:.3e} (tol {K13_TOL[dname]}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed(9, f"K13 {label} {dname} disagrees with "
+                                     "its plain version")
+            if dtype is not torch.float32:
+                continue
+            run = lambda: fns.neg_softmax_scores(c, pos, neg)  # noqa: E731
+            ms = time_ms(torch, run)
+            dev_ms = kernel_device_ms(torch, run)
+            plain_ms = time_ms(torch, lambda: fns._neg_softmax_reference(
+                c, pos, neg))
+            lib_ms = time_ms(torch, lambda: torch.sigmoid(torch.bmm(
+                torch.cat([pos[:, None], neg], 1), c[..., None])))
+            # c, pos, neg read and both scores written once; 2 (K+1) D
+            # FLOPs per row
+            bound_ms, bound_by = bound((2 * B * D + B * K * D + B * (K + 1))
+                                       * 4, 2 * (K + 1) * B * D, dname)
+            log(f"time  K13 neg_softmax {label} f32: kernel {ms:.4f} ms "
+                f"(device time {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+                f"sigmoid(bmm) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by})")
+            records.append(dict(label=label, ms=ms, device_ms=dev_ms,
+                                plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=bound_ms, bound_by=bound_by))
+    for rec in records:
+        rec["err"] = worst
+    return {"K13": records}
+
+
+def check_layernorm(torch, fln):
+    """K10 and K11 (csrc/layernorm.cu) through the `fused_layer_norm`
+    autograd Function against `_ln_fwd_reference` / `_ln_bwd_reference`
+    at the flagship LM's LayerNorm input (N = 32 x 512 tokens, C = 256)
+    and a ragged N=1000 C=200, f32 and bf16; the flagship bf16 case
+    timed against F.layer_norm forward and backward."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    eps = 1e-5
+    records, worst = {"K10": [], "K11": []}, {"K10": 0.0, "K11": 0.0}
+    for label, (N, C) in (("flagship N=16384 C=256", (16384, 256)),
+                          ("ragged N=1000 C=200", (1000, 200))):
+        x32 = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dev)
+        g32 = (1 + 0.2 * torch.randn(C, generator=gen)).to(dev)
+        b32 = (0.1 * torch.randn(C, generator=gen)).to(dev)
+        dy32 = torch.randn(N, C, generator=gen).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x, g, b, dy = (t.to(dtype) for t in (x32, g32, b32, dy32))
+            leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+            y = fln.fused_layer_norm(*leaves, eps=eps)
+            grads = torch.autograd.grad(y, leaves, dy)
+            ry, mu, rstd = fln._ln_fwd_reference(x, g, b, eps)
+            rdx, rdg, rdb = fln._ln_bwd_reference(x, g, mu, rstd, dy)
+            refs = (rdx, rdg.to(dtype), rdb.to(dtype))
+            torch.cuda.synchronize()
+            abs_f, err_f = errs(y.detach(), ry)
+            abs_b, err_b = (max(e) for e in zip(
+                *(errs(a, r) for a, r in zip(grads, refs))))
+            worst["K10"] = max(worst["K10"], abs_f)
+            worst["K11"] = max(worst["K11"], abs_b)
+            ok = (err_f <= LN_TOL[dname] and err_b <= LN_TOL[dname]
+                  and y.dtype == dtype
+                  and bool(torch.isfinite(y.float()).all()))
+            log(f"check K10/K11 layernorm {label} {dname}: max rel err y "
+                f"{err_f:.3e}, dx/dgamma/dbeta {err_b:.3e} (tol "
+                f"{LN_TOL[dname]}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed(9, f"K10/K11 {label} {dname} disagrees "
+                                     "with its plain version")
+            if dtype is not torch.bfloat16 or N != 16384:
+                continue
+            fwd = lambda: fln._ln_fwd(x, g, b, eps)  # noqa: E731
+            bwd = lambda: fln._ln_bwd(x, g, mu, rstd, dy)  # noqa: E731
+            fwd_ms = time_ms(torch, fwd)
+            fwd_plain = time_ms(torch, lambda: fln._ln_fwd_reference(
+                x, g, b, eps))
+            fwd_lib = time_ms(torch, lambda: F.layer_norm(x, (C,), g, b,
+                                                          eps))
+            bwd_ms = time_ms(torch, bwd)
+            bwd_plain = time_ms(torch, lambda: fln._ln_bwd_reference(
+                x, g, mu, rstd, dy))
+            lx, lg, lb = (t.clone().requires_grad_() for t in (x, g, b))
+            bwd_lib = grad_ms(torch, F.layer_norm(lx, (C,), lg, lb, eps),
+                              (lx, lg, lb), dy)
+            e = 2
+            # forward: x, gamma, beta read, y, mu, rstd written once,
+            # about 8 FLOPs per element; backward: x, dy, gamma, mu,
+            # rstd read, dx, dgamma, dbeta written once, about 12
+            for kern, fn, ms, plain_ms, lib_ms, nbytes, flops in (
+                    ("K10", fwd, fwd_ms, fwd_plain, fwd_lib,
+                     2 * N * C * e + 2 * C * e + 8 * N, 8 * N * C),
+                    ("K11", bwd, bwd_ms, bwd_plain, bwd_lib,
+                     3 * N * C * e + 3 * C * e + 8 * N, 12 * N * C)):
+                bound_ms, bound_by = bound(nbytes, flops, dname)
+                dev_ms = kernel_device_ms(torch, fn)
+                log(f"time  {kern} layernorm {label} bf16: kernel "
+                    f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
+                    f"{plain_ms:.4f} ms, F.layer_norm "
+                    f"{'bwd' if kern == 'K11' else 'fwd'} {lib_ms:.4f} ms, "
+                    f"bound {bound_ms:.5f} ms ({bound_by})")
+                records[kern].append(dict(
+                    label=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
+    for kern, recs in records.items():
+        for rec in recs:
+            rec["err"] = worst[kern]
+    return records
+
+
+# ------------------------------------------------------------ phase 10
+
+# bench.py `_quality_w2v` on the first 8000 sentences of its topic
+# corpus: the numbers the JAX package's reference path gives there
+# (vocab, steps, the first loss 6 ln 2 that a zero syn1neg fixes, the
+# last loss) and the quality floor of this phase
+W2V_SENTENCES = 8000
+W2V_VOCAB = 9878
+W2V_STEPS = 531
+W2V_LAST_LOSS = 2.1863
+W2V_MIN_SEPARATION = 0.50
+
+
+def topic_corpus(rng, vocab, n_words, sent_len, n_topics=20):
+    """bench.py `_topic_corpus`: zipf-frequency corpus with planted
+    topic structure (word i belongs to topic i % n_topics; each sentence
+    draws from one topic's word slice)."""
+    words = [f"w{i}" for i in range(vocab)]
+    per = vocab // n_topics
+    zipf = 1.0 / np.arange(1, per + 1)
+    p = zipf / zipf.sum()
+    n_sents = n_words // sent_len
+    topics = rng.integers(0, n_topics, n_sents)
+    ranks = rng.choice(per, size=(n_sents, sent_len), p=p)
+    ids = ranks * n_topics + topics[:, None]
+    return [[words[j] for j in row] for row in ids]
+
+
+def topic_separation(w2v, n_topics=20, top_ranks=10):
+    """bench.py `_topic_separation`: mean within-topic cosine minus mean
+    across-topic cosine over the most frequent words of each topic
+    (random vectors score about 0)."""
+    vecs = {}
+    for t in range(n_topics):
+        rows = []
+        for r in range(top_ranks):
+            v = w2v.word_vector(f"w{r * n_topics + t}")
+            if v is not None:
+                v = np.asarray(v, np.float64)
+                n = np.linalg.norm(v)
+                if n > 0:
+                    rows.append(v / n)
+        vecs[t] = np.stack(rows)
+    within, across = [], []
+    for t in range(n_topics):
+        sim = vecs[t] @ vecs[t].T
+        iu = np.triu_indices(len(vecs[t]), 1)
+        within.append(sim[iu].mean())
+        u = (t + 1) % n_topics
+        across.append((vecs[t] @ vecs[u].T).mean())
+    return float(np.mean(within) - np.mean(across))
+
+
+def _timed(fn, acc):
+    """fn, adding its wall time to acc[0] on every call."""
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+    return wrapped
+
+
+def train_word2vec(torch, counters, Word2Vec, card):
+    """The call bench.py `_quality_w2v(sub, use_device_pipeline=False)`
+    makes, on CUDA through the port's engine; the checks of phase 10."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000,
+                         25)[:W2V_SENTENCES]
+    w2v = (Word2Vec.builder().layer_size(128).window_size(5)
+           .min_word_frequency(1).negative_sample(5).epochs(1).seed(1)
+           .device("cuda").build())
+    w2v.build_vocab(sents)
+    log(f"word2vec: corpus and vocab in {time.perf_counter() - t0:.3f} s")
+    pair_s, flush_s = [0.0], [0.0]
+    w2v._pairs_for_sequence = _timed(w2v._pairs_for_sequence, pair_s)
+    w2v._flush_sg = _timed(w2v._flush_sg, flush_s)
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    w2v.fit(sents)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    losses = w2v.loss_history
+    vocab = w2v.vocab.num_words()
+    words = w2v.vocab.total_word_occurrences
+    sep = topic_separation(w2v)
+    near = w2v.words_nearest("w0", 10)
+    log(f"word2vec: vocab {vocab}, {len(losses)} steps in {wall:.4f} s -> "
+        f"{words / wall:.1f} words/s, {len(losses) / wall:.2f} steps/s; "
+        f"host time in pair generation {pair_s[0]:.4f} s "
+        f"({pair_s[0] / wall:.4f} of the fit), in the step calls "
+        f"(negative draws, copies, enqueue) {flush_s[0]:.4f} s "
+        f"({flush_s[0] / wall:.4f}); loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; topic separation {sep:.4f}; nearest to w0 "
+        f"{near}; launches {launches}; card {card}")
+    failures = []
+    if vocab != W2V_VOCAB:
+        failures.append(f"vocab {vocab} != {W2V_VOCAB}")
+    if not len(losses) == launches["K13"] == W2V_STEPS:
+        failures.append(f"{len(losses)} steps and {launches['K13']} K13 "
+                        f"launches, expected {W2V_STEPS} of each")
+    if any(n for k, n in launches.items() if k != "K13"):
+        failures.append(f"another kernel launched: {launches}")
+    if not abs(losses[0] - 6 * np.log(2)) <= 1e-5:
+        failures.append(f"first loss {losses[0]} != 6 ln 2")
+    if not abs(losses[-1] - W2V_LAST_LOSS) <= 0.05 * W2V_LAST_LOSS:
+        failures.append(f"last loss {losses[-1]} not within 5% of "
+                        f"{W2V_LAST_LOSS}")
+    if not sep >= W2V_MIN_SEPARATION:
+        failures.append(f"topic separation {sep} < {W2V_MIN_SEPARATION}")
+    if len(near) != 10 or not all(w2v.has_word(w) for w in near):
+        failures.append(f"words_nearest('w0') gave {near}")
+    if failures:
+        raise PhaseFailed(10, "; ".join(failures))
+
+    # a profiled window of the same host loop (400 more sentences, so
+    # about 30 more steps), for the device idle share
+    total = w2v.vocab.total_word_occurrences
+    torch.cuda.synchronize()
+    n0 = len(w2v.loss_history)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        w2v._train_corpus(sents[:400], total, words_done=total)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    device_profile(torch, prof, pwall,
+                   f"word2vec profile ({len(w2v.loss_history) - n0} steps)")
+    return launches
+
+
+# ------------------------------------------------------------ phase 11
+
+# bench.py EMBED_DIMS: the engine's training half at ep=1
+EMBED = dict(vocab=131072, dim=64, batch=1024, negative=5, window=5,
+             seq_len=25, train_steps=20, lr=0.025, seed=0)
+
+
+def engine_feed(E, steps, seed):
+    """bench.py's embed feed: random index sequences through
+    sequence_pair_batches + with_negatives (uniform unigram table),
+    prefetched; enough sequences for `steps` + 2 batches."""
+    from deeplearning4j_tpu_torch.embedding.corpus import (
+        prefetched,
+        sequence_pair_batches,
+        with_negatives,
+    )
+
+    v, b, w = E["vocab"], E["batch"], E["window"]
+    rng = np.random.default_rng(seed)
+    pairs_per_seq = 2 * w * E["seq_len"] - w * (w + 1)
+    n_seq = (steps + 2) * b // pairs_per_seq + 3
+    seqs = [rng.integers(0, v, size=E["seq_len"]) for _ in range(n_seq)]
+    cum = np.arange(1, v + 1, dtype=np.float64) / v
+    return prefetched(with_negatives(
+        sequence_pair_batches(seqs, batch_size=b, window=w, seed=seed + 5),
+        cum, E["negative"], seed=seed + 7), depth=4)
+
+
+def train_engine(torch, counters, ShardedEmbeddingEngine, card):
+    """One warm-up step, then `train_steps` timed steps of the engine
+    fed by the prefetched pair feed; exactly 1 + steps K13 launches."""
+    E = EMBED
+    eng = ShardedEmbeddingEngine(E["vocab"], E["dim"],
+                                 negative=E["negative"], seed=3,
+                                 device="cuda")
+    feed = engine_feed(E, E["train_steps"], E["seed"])
+    torch.cuda.synchronize()
+    counters.reset()
+    try:
+        eng.sgns_step(*next(feed), E["lr"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(E["train_steps"]):
+            eng.sgns_step(*next(feed), E["lr"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        feed.close()
+    launches = counters.read()
+    losses = torch.stack(eng.loss_history).cpu().tolist()
+    log(f"engine: {E['train_steps']} steps of {E['batch']} pairs in "
+        f"{wall:.4f} s -> {E['train_steps'] * E['batch'] / wall:.1f} "
+        f"pairs/s; table bytes {eng.table_bytes_per_device()}; losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches {launches}; card "
+        f"{card}")
+    want = E["train_steps"] + 1
+    if launches["K13"] != want:
+        raise PhaseFailed(11, f"K13 launched {launches['K13']} times, "
+                              f"expected {want}")
+    if not all(np.isfinite(losses)):
+        raise PhaseFailed(11, f"a loss is not finite: {losses}")
+    return launches
+
+
+# ------------------------------------------------------------ phase 12
+
+# f32 tables after 50 steps through K13 against 50 through the plain
+# version, relative to the largest table entry: the scores agree to a
+# few f32 ulps, and index_add_'s atomics sum duplicate rows in an order
+# that changes from run to run -> 1e-4
+ENGINE_ORACLE_TOL = 1e-4
+ENGINE_ORACLE_STEPS = 50
+
+
+def engine_oracle(torch, counters, ShardedEmbeddingEngine, fns):
+    """The same batches through two engines from the same init: one
+    scored by the kernel, one by `_neg_softmax_reference` called
+    directly."""
+    import deeplearning4j_tpu_torch.embedding.engine as engine_mod
+
+    E, S = EMBED, ENGINE_ORACLE_STEPS
+    feed = engine_feed(E, S, E["seed"] + 100)
+    try:
+        batches = [next(feed) for _ in range(S)]
+    finally:
+        feed.close()
+
+    def run():
+        eng = ShardedEmbeddingEngine(E["vocab"], E["dim"],
+                                     negative=E["negative"], seed=3,
+                                     device="cuda")
+        counters.reset()
+        for batch in batches:
+            eng.sgns_step(*batch, E["lr"])
+        torch.cuda.synchronize()
+        return eng, counters.read()["K13"]
+
+    k_eng, k_launches = run()
+    engine_mod.neg_softmax_scores = fns._neg_softmax_reference
+    try:
+        p_eng, p_launches = run()
+    finally:
+        engine_mod.neg_softmax_scores = fns.neg_softmax_scores
+    worst = max(errs(getattr(k_eng, n), getattr(p_eng, n))[1]
+                for n in ("syn0", "syn1neg"))
+    log(f"engine oracle: {S} f32 steps, max table error {worst:.3e} of the "
+        f"largest entry (tol {ENGINE_ORACLE_TOL}); K13 launches with the "
+        f"kernel {k_launches}, with the plain version {p_launches}")
+    if k_launches != S or p_launches != 0:
+        raise PhaseFailed(12, f"launches {k_launches} / {p_launches}, "
+                              f"expected {S} / 0")
+    if not worst <= ENGINE_ORACLE_TOL:
+        raise PhaseFailed(12, "kernel tables disagree with the plain "
+                              "version's")
+
+
 # ----------------------------------------------------------------- main
 
 def main() -> int:
@@ -962,13 +1426,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.embedding import ShardedEmbeddingEngine
     from deeplearning4j_tpu_torch.models.transformer import (
         transformer_flops_per_token,
         transformer_flops_per_token_executed,
         transformer_lm,
     )
     from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_layernorm as fln
+    from deeplearning4j_tpu_torch.ops import fused_neg_softmax as fns
     from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
     from deeplearning4j_tpu_torch.serving import (BucketLattice,
                                                   GenerationEngine)
@@ -996,7 +1464,9 @@ def main() -> int:
     records = check_kernels(torch, fa)
     records.update(check_flash_backward(torch, fa))
     records.update(check_xent(torch, fsx))
-    counters = Counters(fa, fsx)
+    records.update(check_neg_softmax(torch, fns))
+    records.update(check_layernorm(torch, fln))
+    counters = Counters(fa, fsx, fns, fln)
     net, _, prompts, serve_launches = serve_flagship(
         torch, counters, transformer_lm, GenerationEngine, BucketLattice,
         name_power)
@@ -1014,15 +1484,20 @@ def main() -> int:
     other_launches = train_other_paths(torch, counters, transformer_lm,
                                        DataSet)
     grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx)
+    w2v_launches = train_word2vec(torch, counters, Word2Vec, name_power)
+    engine_launches = train_engine(torch, counters, ShardedEmbeddingEngine,
+                                   name_power)
+    engine_oracle(torch, counters, ShardedEmbeddingEngine, fns)
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
     # it; launches summed over the paths' runs (serving, its f32 oracle,
-    # flagship training and the other training paths), each counted
-    # from 0 just before it and read just after
-    launches = {k: serve_launches[k] + oracle_launches[k]
-                + train_launches[k] + other_launches[k]
+    # flagship training, the other training paths, Word2Vec and the
+    # engine), each counted from 0 just before it and read just after
+    runs = (serve_launches, oracle_launches, train_launches, other_launches,
+            w2v_launches, engine_launches)
+    launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
-                          "K9")}
+                          "K9", "K10", "K11", "K13")}
     picks = {"K1": "flat masked causal BH=8 T=4096 D=128",
              "K2": "packed B=32 T=512 H=2 D=128",
              "K3": "packed B=32 T=512 H=4 D=64",
@@ -1031,9 +1506,13 @@ def main() -> int:
              "K6": "packed B=32 T=512 H=2 D=128",
              "K7": "packed B=32 T=512 H=4 D=64",
              "K8": "flagship N=16384 d=256 V=10000",
-             "K9": "flagship N=16384 d=256 V=10000"}
+             "K9": "flagship N=16384 d=256 V=10000",
+             "K10": "flagship N=16384 C=256",
+             "K11": "flagship N=16384 C=256",
+             "K13": "word2vec B=2048 K=5 D=128"}
     fa_src = "deeplearning4j_tpu/ops/flash_attention.py"
     xent_src = "deeplearning4j_tpu/ops/fused_softmax_xent.py"
+    ln_src = "deeplearning4j_tpu/ops/fused_layernorm.py"
     table = {
         "K1": ("flash_fwd flat (_flash_fwd -> _fwd_kernel)", "flash_fwd.cu",
                f"{fa_src}:368"),
@@ -1053,6 +1532,12 @@ def main() -> int:
                f"{xent_src}:116"),
         "K9": ("softmax_xent bwd dx + dW/db (_fused_bwd)", "softmax_xent.cu",
                f"{xent_src}:212"),
+        "K10": ("layernorm fwd (_ln_fwd)", "layernorm.cu", f"{ln_src}:94"),
+        "K11": ("layernorm bwd dx + dgamma/dbeta (_ln_bwd)", "layernorm.cu",
+                f"{ln_src}:121"),
+        "K13": ("neg_softmax SGNS scores (_neg_softmax_pallas)",
+                "neg_softmax.cu", "deeplearning4j_tpu/ops/fused_neg_softmax.py"
+                ":76"),
     }
     kernels = []
     for kern, (name, src, replaces) in table.items():
@@ -1064,7 +1549,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kern],
             "max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "shape": rec["label"]})
+            "library_ms": rec["library_ms"], "shape": rec["label"],
+            **({"device_ms": rec["device_ms"]} if "device_ms" in rec
+               else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

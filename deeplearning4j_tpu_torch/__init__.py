@@ -1,27 +1,32 @@
-"""PyTorch + CUDA port of deeplearning4j_tpu on an NVIDIA H100, slices 1
-and 2: serving the Transformer LM through
-`serving.engine.GenerationEngine`, and training it through
+"""PyTorch + CUDA port of deeplearning4j_tpu on an NVIDIA H100, slices
+1-3: serving the Transformer LM through
+`serving.engine.GenerationEngine`; training it through
 `ComputationGraph.fit` / `fit_scanned` (nn/graph.py, nn/training.py,
-nn/updater.py, ops/losses.py, datasets/).
+nn/updater.py, ops/losses.py, datasets/); and training Word2Vec through
+`SequenceVectors` and the embedding engine (nlp/, embedding/, data/).
 
 The package mirrors the JAX package's module layout and public names
 (`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/decode.py`, `ops/`,
-`models/`, `serving/`, `datasets/`), so each counterpart is found by
-path. It imports `torch` and never `jax`, nor anything of
-`deeplearning4j_tpu`.
+`models/`, `serving/`, `datasets/`, `nlp/`, `embedding/`, `data/`), so
+each counterpart is found by path. It imports `torch` and never `jax`,
+nor anything of `deeplearning4j_tpu`.
 
 Entry points place tensors on CUDA unless the caller passes
 `device="cpu"`. The hand-written kernels, built by nvcc for sm_90a at
 first use (ops/cuda_build.py), take the place of the JAX package's
-Pallas kernels (K1-K9 in PERF.md):
+Pallas kernels (K1-K11 and K13 in PERF.md):
 
 * csrc/flash_fwd.cu — flash attention forward, flat and packed (K1-K3);
 * csrc/flash_bwd.cu — flash attention backward, flat and packed (K4-K7);
 * csrc/softmax_xent.cu — the fused softmax cross-entropy head, forward
-  and backward (K8, K9).
+  and backward (K8, K9);
+* csrc/layernorm.cu — fused LayerNorm forward and backward (K10, K11),
+  an op on no path (ops/fused_layernorm.py);
+* csrc/neg_softmax.cu — the skip-gram negative-sampling scores (K13).
 
 On CPU tensors their wrappers (ops/flash_attention.py,
-ops/fused_softmax_xent.py) compute the plain PyTorch versions; on CUDA
+ops/fused_softmax_xent.py, ops/fused_layernorm.py,
+ops/fused_neg_softmax.py) compute the plain PyTorch versions; on CUDA
 tensors they launch the kernels or raise.
 """
 

@@ -4,7 +4,10 @@ Both packages keep a layer's weights as named tensors in the same layout
 (`W` is [n_in, n_out] and layers compute `x @ W`; `Wqkv` is
 [n_in, 3n] with q|k|v column blocks), so a JAX net's params become the
 port's by a move of dtype and device alone, and both then compute the
-same function.
+same function. The same holds for an embedding lookup table's `syn0`,
+`syn1` and `syn1neg` rows [V, D]. The two packages initialise with
+different random bits (jax.random against a torch.Generator), so a
+comparison copies the JAX tables or params in first.
 """
 
 from __future__ import annotations
@@ -40,3 +43,21 @@ def params_to_numpy(params: dict) -> dict:
 
     return {layer: {name: arr(t) for name, t in p.items()}
             for layer, p in params.items()}
+
+
+TABLES = ("syn0", "syn1", "syn1neg")
+
+
+def tables_from_jax(arrays: dict, device) -> dict:
+    """`{"syn0", "syn1", "syn1neg"}` numpy arrays (a JAX lookup table's
+    rows after `np.asarray`) -> the same dict of tensors on `device`.
+    Assign them to an `InMemoryLookupTable`, a `ShardedEmbeddingEngine`
+    or an `EngineLookupView` of the port by attribute."""
+    return {name: _tensor(a, device) for name, a in arrays.items()}
+
+
+def tables_to_numpy(table) -> dict:
+    """A port lookup table's (or engine's, or view's) `syn0`, `syn1`,
+    `syn1neg` -> numpy arrays on the host."""
+    return {name: getattr(table, name).detach().to("cpu", copy=True).numpy()
+            for name in TABLES}

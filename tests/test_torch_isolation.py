@@ -68,3 +68,41 @@ def test_entry_point_defaults_to_cuda():
         # on the CPU
         with pytest.raises((RuntimeError, AssertionError)):
             net.init(0)
+
+
+def _word2vec():
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    model = Word2Vec.builder().layer_size(8).build()
+    assert model.device == torch.device("cuda")
+    model.build_vocab([["a", "b", "c"], ["b", "c", "d"]])
+    return [model.lookup_table.syn0, model.lookup_table.syn1neg]
+
+
+def _engine():
+    from deeplearning4j_tpu_torch.embedding.engine import (
+        ShardedEmbeddingEngine,
+    )
+
+    eng = ShardedEmbeddingEngine(16, 8)
+    return [eng.syn0, eng.syn1, eng.syn1neg]
+
+
+def _lookup_table():
+    from deeplearning4j_tpu_torch.nlp.lookup import InMemoryLookupTable
+
+    t = InMemoryLookupTable(16, 8)
+    return [t.syn0, t.syn1, t.syn1neg]
+
+
+@pytest.mark.parametrize("make", [_word2vec, _engine, _lookup_table],
+                         ids=["Word2Vec", "ShardedEmbeddingEngine",
+                              "InMemoryLookupTable"])
+def test_embedding_entry_points_default_to_cuda(make):
+    """The same rule as test_entry_point_defaults_to_cuda for the
+    Word2Vec slice: with no device named, the tables go to CUDA."""
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in make())
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
