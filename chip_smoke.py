@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (deeplearning4j_tpu_torch/) on one
-NVIDIA GPU (written for the H100): serving and training the flagship
-Transformer LM, and training Word2Vec through the embedding engine,
-through the port's hand-written kernels.
+NVIDIA GPU (written for the H100): serving the flagship Transformer LM
+(greedy, speculative and over the int8 cache, in process and over HTTP)
+and training it, training Word2Vec through the embedding engine, and
+the speculative traffic replay, through the port's hand-written
+kernels.
 
 Run from the root of a checkout, with no arguments:
 
@@ -76,8 +78,36 @@ Phases, each of which exits non-zero when it fails:
 12. f32 oracle: 50 engine steps through K13 and 50 through the plain
    version, from the same tables and batches, agree within 1e-4 of the
    largest table entry.
+13. Sampling kernel vs plain version (run with the other kernel checks,
+   after phase 9): K12 (csrc/sampling.cu) at the replay's [8, 128], the
+   flagship's [4, 10000] (slots x vocab), [32, 10000] and, for the top-p
+   match rate, [1024, 10000], f32 and bf16 logits, in five modes
+   (temperature 1; 0.8 with top_k 8; top_p 0.9; top_k 8 with top_p 0.9;
+   top_k 1000 with top_p 0.5) against `_select_reference` on the same
+   Gumbel noise: every row equal without top-p, at most 0.1% of rows
+   apart with it (the nucleus mass is a float sum in another order);
+   kernel, device, plain and bound times, and the Gumbel argmax call for
+   the temperature-only mode.
+14. Serving over HTTP (run after phase 5, on the phase-3 LM): the
+   flagship behind `ServingServer` in three arms (speculative k=4, the
+   int8 cache, both), each serving phase 3's 8 requests over POST
+   /generate: tokens/s and TTFT from the arm's telemetry log
+   (`reconstruct_generation`), acceptance, bytes per slot, trace_count
+   frozen after warmup, the page pool empty at the end, the /metrics
+   families present.
+15. Speculative oracle (after phase 14): with the phase-3 params in f32,
+   the speculative k=4 stream must equal plain greedy except where the
+   top-2 log-probability margin at the first difference is below 1e-4;
+   the int8 cache's stream against the f32 cache's is reported the same
+   way.
+16. The speculative traffic replay (`run_speculative_replay`) at
+   bench.py's `serving_speculative` settings (24 requests, burst 2, 4 ms
+   gaps, prompts 8/16/32, outputs 4/8/16, 4 slots, page 16, k 4, 2
+   rounds of 3 arms): every metric line printed, both parity rows 0, and
+   exactly 21 K12 launches (the sampling microbench's warm call and 20
+   timed ones).
 
-The last lines are a `{"kernels": [...]}` JSON line (K1-K11, K13), the
+The last lines are a `{"kernels": [...]}` JSON line (K1-K13), the
 card's name and power limit as nvidia-smi gives them, and `{"ok": true,
 "device": ...}`. With no CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -528,12 +558,13 @@ def check_xent(torch, fsx):
 # ------------------------------------------------------------- phase 3
 
 def serve_flagship(torch, counters, transformer_lm, GenerationEngine,
-                   BucketLattice, card):
+                   BucketLattice, Recorder, card):
     net = transformer_lm(**LM, dtype="bfloat16", device="cuda").init(SEED)
+    rec = Recorder(path=None)
     engine = GenerationEngine(net, BucketLattice((1,), seq_lens=(64, 512,
                                                                  1024)),
                               slots=4, max_new_tokens=64, page_size=16,
-                              prefill_chunk=1024)
+                              prefill_chunk=1024, recorder=rec)
     t0 = time.perf_counter()
     warm = engine.warmup()
     torch.cuda.synchronize()
@@ -568,7 +599,9 @@ def serve_flagship(torch, counters, transformer_lm, GenerationEngine,
     # mean gap between a request's output tokens after its first
     gaps = sorted((r.t_done - r.t_first_token) / (len(r.emitted) - 1)
                   for r in reqs)
-    pool = stats["page_pool"]
+    (pool,) = stats["page_pools"]
+    chunks = sum(1 for e in rec.events if e.get("event") == "span"
+                 and e.get("name") == "prefill_chunk")
     log(f"serve: {len(reqs)} requests, {tokens} tokens in {wall:.4f} s -> "
         f"{tokens / wall:.2f} tokens/s; TTFT p50 "
         f"{statistics.median(ttft) * 1e3:.2f} ms, max "
@@ -577,8 +610,8 @@ def serve_flagship(torch, counters, transformer_lm, GenerationEngine,
         f"{gaps[-1] * 1e3:.2f} ms; peak KV pages {pool['pages_peak']}/"
         f"{pool['pages_total']} "
         f"({pool['pages_peak'] / pool['pages_total']:.4f}); "
-        f"prefill chunks {stats['prefill_chunks']}, decode steps "
-        f"{stats['decode_steps']}; peak device memory "
+        f"prefill chunks {chunks}, decode steps "
+        f"{stats['fleet'][0]['decode_steps_run']}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
         f"during serving {launches}; card {card}")
     return net, engine, prompts, launches
@@ -709,8 +742,9 @@ def lm_batch(DataSet, vocab, batch, seq, masked=False):
 class Counters:
     """The launch counts of the kernel wrappers (the LAUNCHES tables of
     ops/flash_attention.py, ops/fused_softmax_xent.py,
-    ops/fused_neg_softmax.py and ops/fused_layernorm.py): reset() sets
-    every one to 0, read() returns them."""
+    ops/fused_neg_softmax.py, ops/fused_layernorm.py and
+    ops/fused_sampling.py): reset() sets every one to 0, read() returns
+    them."""
 
     def __init__(self, *modules):
         self.tables = tuple(m.LAUNCHES for m in modules)
@@ -778,7 +812,7 @@ def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
     S, L = TRAIN_STEPS, c["n_layers"]
     want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
             "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
-            "K13": 0}
+            "K12": 0, "K13": 0}
     log(f"train: fit_scanned {S} steps in {wall:.3f} s (first steps "
         f"included); losses {[round(x, 4) for x in losses]}; launches "
         f"{launches}; peak device memory {peak_mib:.1f} MiB")
@@ -1415,6 +1449,346 @@ def engine_oracle(torch, counters, ShardedEmbeddingEngine, fns):
                               "version's")
 
 
+# ------------------------------------------------------------ phase 13
+
+# K12 against its plain version: greedy-free modes whose kept set is a
+# count (temperature only, top-k only) are the same f32 operations in
+# both and must agree on every row; modes with a top-p nucleus sum the
+# mass in another order, so a row whose nucleus mass lies within an ulp
+# of top_p can keep one boundary token more or less -> at most 0.1% of
+# their rows may differ
+SAMPLE_MODES = (
+    ("T=1.0", dict(temperature=1.0)),
+    ("T=0.8 top_k=8", dict(temperature=0.8, top_k=8)),
+    ("T=1.0 top_p=0.9", dict(temperature=1.0, top_p=0.9)),
+    ("T=1.0 top_k=8 top_p=0.9", dict(temperature=1.0, top_k=8,
+                                       top_p=0.9)),
+    ("T=1.0 top_k=1000 top_p=0.5", dict(temperature=1.0, top_k=1000,
+                                          top_p=0.5)),
+)
+# the replay's microbench block, the flagship's slots x vocab, a 32-row
+# batch, and 1024 rows that give the top-p match rate its resolution
+SAMPLE_SHAPES = ((8, 128), (4, 10000), (32, 10000), (1024, 10000))
+SAMPLE_TIMED = SAMPLE_SHAPES[:3]
+SAMPLE_TOP_P_MAX_RATE = 1e-3
+
+
+def sample_bound(B, V, elem_bytes, mode):
+    """Least time for K12's function: logits and noise read and the ids
+    written once, against the per-element work at the f32 CUDA-core rate:
+    3 operations for z and the score, a compare and an add per bisection
+    pass (24 each for top-k and top-p, when on) and one exp for top-p."""
+    k = 0 < mode.get("top_k", 0) < V
+    p = mode.get("top_p", 1.0) < 1.0
+    passes = 24 * (k + p)
+    ops = B * V * (3 + 2 * passes + (1 if p else 0))
+    return bound(B * V * (elem_bytes + 4) + B * 4, ops, "float32")
+
+
+def check_sampling(torch, fsm):
+    """K12 (csrc/sampling.cu) against `_select_reference` on the card at
+    every shape and mode above, f32 and bf16 logits, the same Gumbel
+    noise; kernel ms (CUDA events), device ms (profiler), plain ms and
+    the bound at the timed shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    records, rows_off, rows_all, worst = [], {}, {}, 0.0
+    for B, V in SAMPLE_SHAPES:
+        logits32 = 3.0 * torch.randn(B, V, generator=gen, device=dev)
+        noise = fsm.gumbel_noise(gen, B, V, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            logits = logits32.to(dtype)
+            for mlabel, mode in SAMPLE_MODES:
+                got = fsm.fused_sample(logits, noise, **mode)
+                ref = fsm._select_reference(logits, noise, **mode)
+                torch.cuda.synchronize()
+                diff = int((got != ref).sum())
+                err = float((got.long() - ref.long()).abs().max())
+                worst = max(worst, err)
+                rows_off[mlabel] = rows_off.get(mlabel, 0) + diff
+                rows_all[mlabel] = rows_all.get(mlabel, 0) + B
+                ok = (got.dtype == torch.int32 and bool(
+                    ((got >= 0) & (got < V)).all()))
+                if "top_p" not in mode:
+                    ok = ok and diff == 0
+                log(f"check K12 sample [{B},{V}] {dname} {mlabel}: "
+                    f"{diff} of {B} rows differ from the plain version -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise PhaseFailed(13, f"K12 [{B},{V}] {dname} {mlabel} "
+                                          "disagrees with its plain version")
+                if (B, V) not in SAMPLE_TIMED:
+                    continue
+                run = lambda: fsm.fused_sample(  # noqa: E731
+                    logits, noise, **mode)
+                ms = time_ms(torch, run)
+                dev_ms = kernel_device_ms(torch, run)
+                plain_ms = time_ms(torch, lambda: fsm._select_reference(
+                    logits, noise, **mode), windows=3, per_window=5)
+                lib_ms = None
+                if list(mode) == ["temperature"]:
+                    # the nearest single call: the Gumbel argmax of the
+                    # scaled logits, no filters
+                    t = mode["temperature"]
+                    lib_ms = time_ms(torch, lambda: torch.argmax(
+                        (logits.float() - logits.float().amax(
+                            -1, keepdim=True)) / t + noise, -1))
+                bound_ms, bound_by = sample_bound(
+                    B, V, logits.element_size(), mode)
+                log(f"time  K12 sample [{B},{V}] {dname} {mlabel}: kernel "
+                    f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
+                    f"{plain_ms:.4f} ms, argmax call {fmt_ms(lib_ms)}, "
+                    f"bound {bound_ms:.6f} ms ({bound_by})")
+                records.append(dict(
+                    label=f"[{B},{V}] {dname} {mlabel}", ms=ms,
+                    device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=bound_by))
+    for mlabel, _ in SAMPLE_MODES:
+        rate = rows_off[mlabel] / rows_all[mlabel]
+        log(f"check K12 {mlabel}: {rows_off[mlabel]} of {rows_all[mlabel]} "
+            f"rows differ over every shape and dtype (rate {rate:.5f})")
+        if rate > SAMPLE_TOP_P_MAX_RATE:
+            raise PhaseFailed(13, f"K12 {mlabel}: {rows_off[mlabel]} rows "
+                                  "differ, above the top-p allowance")
+    for rec in records:
+        rec["err"] = worst
+    return {"K12": records}
+
+
+# ------------------------------------------------------------ phase 14
+
+SERVE_PROMPTS = (40, 300, 700, 1000) * 2
+SERVE_NEW = 32
+METRIC_FAMILIES = ("serving_requests_total",
+                   "serving_request_latency_seconds", "serving_ttft_seconds",
+                   "serving_queue_depth", "serving_page_pool_pages",
+                   "serving_page_occupancy_ratio", "serving_trace_count",
+                   "serving_replica_up", "serving_weight_generation",
+                   "serving_speculative_accepted_tokens_per_step",
+                   "serving_speculative_acceptance_rate",
+                   "serving_hbm_live_bytes", "serving_mfu_live")
+
+
+def serve_http_arms(torch, counters, net, GenerationEngine, BucketLattice,
+                    card):
+    """The phase-3 LM and lattice behind ServingServer in three arms
+    (speculative k=4; the int8 cache; both), each serving phase 3's 8
+    requests over POST /generate; the scoreboard from each arm's own
+    telemetry log."""
+    import re
+    import tempfile
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.nn.decode import attention_specs
+    from deeplearning4j_tpu_torch.serving import replay
+    from deeplearning4j_tpu_torch.serving.server import ServingServer
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+
+    rng = torch.Generator().manual_seed(SEED + 1)
+    prompts = [torch.randint(0, LM["vocab_size"], (n,), generator=rng)
+               .numpy() for n in SERVE_PROMPTS]
+    trace = [(0.0, len(p), SERVE_NEW) for p in prompts]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    totals, byte_rows = {}, {}
+    for arm, k, kv in (("speculative k=4", 4, "f32"),
+                       ("int8 cache", 0, "int8"),
+                       ("int8 + speculative k=4", 4, "int8")):
+        tpath = tmp / f"{kv}_k{k}.jsonl"
+        rec = Recorder(str(tpath))
+        engine = GenerationEngine(
+            net, BucketLattice((1,), seq_lens=(64, 512, 1024)), slots=4,
+            max_new_tokens=64, page_size=16, prefill_chunk=1024,
+            speculative_k=k, kv_dtype=kv, recorder=rec)
+        engine.warmup()
+        torch.cuda.synchronize()
+        traced = engine.trace_count
+        server = ServingServer(engine, port=0).start()
+        counters.reset()
+        try:
+            client = replay.replay_generate_http(
+                server.url, trace, make_prompt=lambda i, n: prompts[i],
+                timeout_s=600, collect_tokens=True)
+            with urllib.request.urlopen(f"{server.url}/metrics",
+                                        timeout=60) as resp:
+                metrics = resp.read().decode()
+            torch.cuda.synchronize()
+            launches = counters.read()
+        finally:
+            server.stop()
+            rec.close()
+        stats = engine.stats()
+        sb = replay.reconstruct_generation(str(tpath))
+        families = set(re.findall(r"^# TYPE (\S+) ", metrics, re.M))
+        missing = [f for f in METRIC_FAMILIES if f not in families]
+        spec = stats["speculative"]
+        bps = engine.plan.bytes_per_slot(attention_specs(net))
+        byte_rows[kv] = bps
+        (pool,) = stats["page_pools"]
+        log(f"serve http {arm}: {client['ok']} of {client['sent']} "
+            f"requests, {sb['total_tokens']} tokens, {sb['tokens_per_sec']} "
+            f"tokens/s, TTFT p50 {sb['ttft_p50_ms']} ms p99 "
+            f"{sb['ttft_p99_ms']} ms, accepted_tokens_per_step "
+            f"{spec.get('accepted_tokens_per_step', 'off')}, "
+            f"draft_acceptance_rate "
+            f"{spec.get('draft_acceptance_rate', 'off')}, verify steps "
+            f"{spec.get('verify_steps', 0)}, decode steps "
+            f"{stats['fleet'][0]['decode_steps_run']}; bytes per slot "
+            f"{bps}; trace_count {traced} -> {stats['trace_count']}; "
+            f"recompiles after warmup {sb['recompiles_after_warmup']}; "
+            f"pool {pool}; /metrics families {len(families)} (missing "
+            f"{missing}); launches {launches}; card {card}")
+        failures = []
+        if client["ok"] != len(prompts) or sb["n_ok"] != len(prompts):
+            failures.append(f"served {client['ok']} / {sb['n_ok']} of "
+                            f"{len(prompts)}: {client['errors']}")
+        if any(len(t) != SERVE_NEW or not all(
+                0 <= x < LM["vocab_size"] for x in t)
+                for t in client.get("tokens", {}).values()):
+            failures.append("a stream is not 32 in-vocabulary tokens")
+        if stats["trace_count"] != traced or sb["recompiles_after_warmup"]:
+            failures.append("a step shape escaped warmup")
+        if pool["pages_in_use"] != 0:
+            failures.append(f"pages left in the pool: {pool}")
+        if missing:
+            failures.append(f"/metrics lacks {missing}")
+        if k and not spec.get("verify_steps"):
+            failures.append("no verify step ran")
+        if launches["K1"] == 0:
+            failures.append("prefill never launched K1")
+        if failures:
+            raise PhaseFailed(14, f"{arm}: " + "; ".join(failures))
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+    plan_f32 = byte_rows["f32"]
+    log(f"serve http: bytes per slot (6 layers, capacity 1088) f32-kind "
+        f"(bf16 compute dtype) {plan_f32}, int8 {byte_rows['int8']} -> "
+        f"{plan_f32 / byte_rows['int8']:.4f}x slots per device byte")
+    return totals
+
+
+# ------------------------------------------------------------ phase 15
+
+ORACLE_MARGIN_TOL = 1e-4
+
+
+def speculative_oracle(torch, net, transformer_lm, GenerationEngine,
+                       BucketLattice):
+    """f32 params of the phase-3 LM: the plain greedy stream against the
+    speculative k=4 stream, and the int8 cache's against the f32 cache's;
+    at a first difference, the top-2 log-probability margin there (the
+    full forward over the plain stream's prefix)."""
+    net32 = transformer_lm(**LM, dtype="float32", device="cuda")
+    net32.params = {layer: {k: t.float() for k, t in p.items()}
+                    for layer, p in net.params.items()}
+    net32.state = net.state
+    rng = torch.Generator().manual_seed(SEED + 3)
+    prompts = [torch.randint(0, LM["vocab_size"], (n,), generator=rng)
+               .numpy() for n in (40, 300, 700, 1000)]
+
+    def streams(k, kv):
+        engine = GenerationEngine(
+            net32, BucketLattice((1,), seq_lens=(64, 512, 1024)), slots=4,
+            max_new_tokens=32, page_size=16, prefill_chunk=1024,
+            speculative_k=k, kv_dtype=kv)
+        engine.warmup()
+        engine.start()
+        reqs = [engine.submit_generate(p, SERVE_NEW) for p in prompts]
+        out = []
+        for r in reqs:
+            if not r.wait(600) or r.error is not None:
+                raise PhaseFailed(15, f"request failed: {r.error}")
+            out.append(list(r.emitted))
+        engine.drain()
+        return out
+
+    def first_difference(a, b):
+        """[(request, position, top-2 margin)] where streams a and b
+        first part."""
+        found = []
+        for i, (x, y) in enumerate(zip(a, b)):
+            pos = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v),
+                       None)
+            if pos is None:
+                continue
+            seq = np.concatenate([prompts[i], np.asarray(x[:pos])])
+            probs = net32.output(seq[None])[0, -1].float()
+            top2 = torch.topk(torch.log(probs), 2).values
+            found.append((i, pos, float(top2[0] - top2[1])))
+        return found
+
+    plain = streams(0, "f32")
+    results = {}
+    for label, k, kv in (("speculative k=4", 4, "f32"),
+                         ("int8 cache", 0, "int8")):
+        diffs = first_difference(plain, streams(k, kv))
+        results[label] = diffs
+        log(f"oracle {label} vs plain greedy (f32 params): "
+            + ("streams equal" if not diffs else
+               "; ".join(f"request {i} (prompt {len(prompts[i])}) first "
+                         f"differs at token {pos}, top-2 log-prob margin "
+                         f"there {m:.3e}" for i, pos, m in diffs)))
+    bad = [d for d in results["speculative k=4"]
+           if not d[2] < ORACLE_MARGIN_TOL]
+    if bad:
+        raise PhaseFailed(15, f"the speculative stream leaves plain greedy "
+                              f"where the top-2 margin is {bad} (>= "
+                              f"{ORACLE_MARGIN_TOL})")
+    return results
+
+
+# ------------------------------------------------------------ phase 16
+
+# bench.py `serving_speculative` (run_speculative_replay's settings there)
+SPEC_REPLAY = dict(seed=0, n_requests=24, burst=2, mean_gap_s=0.004,
+                   prompt_lengths=(8, 16, 32), output_lengths=(4, 8, 16),
+                   slots=4, page_size=16, speculative_k=4, repeats=2)
+# one warm call and 20 timed ones in `_sample_microbench_us`
+SPEC_REPLAY_K12 = 21
+
+
+def speculative_replay(torch, counters, card):
+    """run_speculative_replay at bench.py's own settings on the card:
+    every metric line printed; both parity rows 0; exactly 21 K12
+    launches."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving.replay import (
+        run_speculative_replay,
+    )
+
+    tpath = Path(tempfile.mkdtemp(prefix="chip_smoke_spec_")) / "t.jsonl"
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    out = run_speculative_replay(telemetry_path=str(tpath), device="cuda",
+                                 **SPEC_REPLAY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    for line in out["lines"]:
+        log(f"replay: {json.dumps(line)}")
+    rows = {line["metric"]: line["value"] for line in out["lines"]}
+    log(f"replay: 3 arms x {SPEC_REPLAY['repeats']} rounds of "
+        f"{SPEC_REPLAY['n_requests']} requests in {wall:.3f} s; launches "
+        f"{launches}; card {card}")
+    failures = []
+    for row in ("serving_speculative_parity_mismatches",
+                "serving_quantized_parity_mismatches"):
+        if rows[row] != 0:
+            failures.append(f"{row} = {rows[row]}")
+    if launches["K12"] != SPEC_REPLAY_K12:
+        failures.append(f"K12 launched {launches['K12']} times, expected "
+                        f"{SPEC_REPLAY_K12}")
+    n_ok = out["n_ok"]  # each arm's log holds every round
+    want = 3 * SPEC_REPLAY["repeats"] * SPEC_REPLAY["n_requests"]
+    if n_ok != want:
+        failures.append(f"{n_ok} of {want} requests served")
+    if failures:
+        raise PhaseFailed(16, "; ".join(failures))
+    return launches
+
+
 # ----------------------------------------------------------------- main
 
 def main() -> int:
@@ -1437,9 +1811,11 @@ def main() -> int:
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import fused_layernorm as fln
     from deeplearning4j_tpu_torch.ops import fused_neg_softmax as fns
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
     from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
     from deeplearning4j_tpu_torch.serving import (BucketLattice,
                                                   GenerationEngine)
+    from deeplearning4j_tpu_torch.telemetry import Recorder
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1466,14 +1842,19 @@ def main() -> int:
     records.update(check_xent(torch, fsx))
     records.update(check_neg_softmax(torch, fns))
     records.update(check_layernorm(torch, fln))
-    counters = Counters(fa, fsx, fns, fln)
+    records.update(check_sampling(torch, fsm))
+    counters = Counters(fa, fsx, fns, fln, fsm)
     net, _, prompts, serve_launches = serve_flagship(
         torch, counters, transformer_lm, GenerationEngine, BucketLattice,
-        name_power)
+        Recorder, name_power)
     oracle_launches = oracle_f32(torch, counters, net, transformer_lm,
                                  GenerationEngine, BucketLattice)
     time_steps(torch, net)
     profile_serving(torch, net, GenerationEngine, BucketLattice, prompts)
+    http_launches = serve_http_arms(torch, counters, net, GenerationEngine,
+                                    BucketLattice, name_power)
+    speculative_oracle(torch, net, transformer_lm, GenerationEngine,
+                       BucketLattice)
     del net
     flops = tuple(f(TRAIN["vocab_size"], TRAIN["d_model"], TRAIN["n_layers"],
                     TRAIN["d_ff"], TRAIN["seq"])
@@ -1488,16 +1869,19 @@ def main() -> int:
     engine_launches = train_engine(torch, counters, ShardedEmbeddingEngine,
                                    name_power)
     engine_oracle(torch, counters, ShardedEmbeddingEngine, fns)
+    replay_launches = speculative_replay(torch, counters, name_power)
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
-    # it; launches summed over the paths' runs (serving, its f32 oracle,
-    # flagship training, the other training paths, Word2Vec and the
-    # engine), each counted from 0 just before it and read just after
-    runs = (serve_launches, oracle_launches, train_launches, other_launches,
-            w2v_launches, engine_launches)
+    # it (K12 at the replay's microbench block); launches summed over the
+    # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
+    # training, the other training paths, Word2Vec, the engine and the
+    # speculative replay), each counted from 0 just before it and read
+    # just after
+    runs = (serve_launches, oracle_launches, http_launches, train_launches,
+            other_launches, w2v_launches, engine_launches, replay_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
-                          "K9", "K10", "K11", "K13")}
+                          "K9", "K10", "K11", "K12", "K13")}
     picks = {"K1": "flat masked causal BH=8 T=4096 D=128",
              "K2": "packed B=32 T=512 H=2 D=128",
              "K3": "packed B=32 T=512 H=4 D=64",
@@ -1509,6 +1893,7 @@ def main() -> int:
              "K9": "flagship N=16384 d=256 V=10000",
              "K10": "flagship N=16384 C=256",
              "K11": "flagship N=16384 C=256",
+             "K12": "[8,128] float32 T=1.0 top_k=8 top_p=0.9",
              "K13": "word2vec B=2048 K=5 D=128"}
     fa_src = "deeplearning4j_tpu/ops/flash_attention.py"
     xent_src = "deeplearning4j_tpu/ops/fused_softmax_xent.py"
@@ -1535,6 +1920,9 @@ def main() -> int:
         "K10": ("layernorm fwd (_ln_fwd)", "layernorm.cu", f"{ln_src}:94"),
         "K11": ("layernorm bwd dx + dgamma/dbeta (_ln_bwd)", "layernorm.cu",
                 f"{ln_src}:121"),
+        "K12": ("fused sampling (_sample_pallas -> _sample_kernel)",
+                "sampling.cu", "deeplearning4j_tpu/ops/fused_sampling.py"
+                ":121"),
         "K13": ("neg_softmax SGNS scores (_neg_softmax_pallas)",
                 "neg_softmax.cu", "deeplearning4j_tpu/ops/fused_neg_softmax.py"
                 ":76"),

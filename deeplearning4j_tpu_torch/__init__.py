@@ -1,20 +1,23 @@
 """PyTorch + CUDA port of deeplearning4j_tpu on an NVIDIA H100, slices
-1-3: serving the Transformer LM through
-`serving.engine.GenerationEngine`; training it through
+1-4: serving the Transformer LM through
+`serving.engine.GenerationEngine` (greedy, speculative, over an f32 or
+int8 paged cache, behind the HTTP `serving.server.ServingServer`, with
+the telemetry recorder and the traffic replays); training it through
 `ComputationGraph.fit` / `fit_scanned` (nn/graph.py, nn/training.py,
 nn/updater.py, ops/losses.py, datasets/); and training Word2Vec through
 `SequenceVectors` and the embedding engine (nlp/, embedding/, data/).
 
 The package mirrors the JAX package's module layout and public names
 (`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/decode.py`, `ops/`,
-`models/`, `serving/`, `datasets/`, `nlp/`, `embedding/`, `data/`), so
+`models/`, `serving/`, `telemetry/`, `datasets/`, `nlp/`, `embedding/`,
+`data/`), so
 each counterpart is found by path. It imports `torch` and never `jax`,
 nor anything of `deeplearning4j_tpu`.
 
 Entry points place tensors on CUDA unless the caller passes
 `device="cpu"`. The hand-written kernels, built by nvcc for sm_90a at
 first use (ops/cuda_build.py), take the place of the JAX package's
-Pallas kernels (K1-K11 and K13 in PERF.md):
+Pallas kernels (K1-K13 in PERF.md):
 
 * csrc/flash_fwd.cu — flash attention forward, flat and packed (K1-K3);
 * csrc/flash_bwd.cu — flash attention backward, flat and packed (K4-K7);
@@ -22,12 +25,13 @@ Pallas kernels (K1-K11 and K13 in PERF.md):
   and backward (K8, K9);
 * csrc/layernorm.cu — fused LayerNorm forward and backward (K10, K11),
   an op on no path (ops/fused_layernorm.py);
+* csrc/sampling.cu — fused temperature / top-k / top-p sampling (K12);
 * csrc/neg_softmax.cu — the skip-gram negative-sampling scores (K13).
 
 On CPU tensors their wrappers (ops/flash_attention.py,
 ops/fused_softmax_xent.py, ops/fused_layernorm.py,
-ops/fused_neg_softmax.py) compute the plain PyTorch versions; on CUDA
-tensors they launch the kernels or raise.
+ops/fused_sampling.py, ops/fused_neg_softmax.py) compute the plain
+PyTorch versions; on CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations

@@ -12,14 +12,30 @@ counterpart deeplearning4j_tpu/nn/decode.py).
   else `_dense_lse`; the cross-chunk half (chunk queries against the
   cache prefix written by earlier chunks) runs through `cache_attention`,
   and the two merge by the two-way lse combine.
+* ``make_verify_fn(net)`` — ``verify(params, state, cache, tokens, pos)
+  -> (probs, cache)``, the speculative verification step: K tokens per
+  row at positions ``pos..pos+K-1`` in one fixed-shape call. All K keys
+  are written before attending and query row i attends with ``key_limit
+  = pos+i+1`` (causal, self included), so row i equals what i+1
+  sequential decode steps give on the same inputs. A rejected draft's
+  stale K/V stays invisible (key_limit) until the next window, which
+  starts at or before it, overwrites it.
 * ``init_cache(net, batch, capacity)`` — zeroed per-attention-layer K/V
-  ``{layer: {"k": [B, S, H, D], "v": ...}}`` in the net's compute dtype
-  (the JAX package's "f32" cache kind, as opposed to its int8 cache,
-  which comes with a later slice together with ``make_verify_fn``).
+  ``{layer: {"k": [B, S, H, D], "v": ...}}`` in the net's compute dtype.
 
-Unlike the JAX functions, which are pure, both steps write the cache in
+Every entry fn and ``init_cache`` take ``kv_dtype`` ("f32" | "int8") and
+``page_size``: the int8 paged cache stores codes plus per-(row, page,
+head) f32 scales (``{"k", "k_scale", "v", "v_scale"}`` entries), writes
+through ops/decode_attention.quantized_cache_update and attends through
+`cache_attention_q8`.
+
+Unlike the JAX functions, which are pure, the steps write the cache in
 place and return the same dict: the cache is the largest tensor serving
-holds, and a copy per step would double its traffic.
+holds, and a copy per step would double its traffic. Positions past the
+cache's capacity (the inactive rows' scratch never is; a verify window
+near the end of a row can be) are dropped, as JAX's scatter drops them.
+Which writes survive is worked out once per step on the host, from the
+positions the caller passes, so no layer waits on the device for it.
 
 Supported graphs: single-input/single-output stacks of time-pointwise
 layers (dense / embedding / layernorm / output heads) plus causal
@@ -29,6 +45,7 @@ Anything else raises at build time, naming the layer.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
@@ -47,7 +64,11 @@ from deeplearning4j_tpu_torch.nn.graph import cast_params, vertex_forward
 from deeplearning4j_tpu_torch.nn.layers.attention import sinusoidal
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.activations import get_activation
-from deeplearning4j_tpu_torch.ops.decode_attention import cache_attention
+from deeplearning4j_tpu_torch.ops.decode_attention import (
+    cache_attention,
+    cache_attention_q8,
+    quantized_cache_update,
+)
 
 _POINTWISE = (DenseLayer, EmbeddingLayer, LayerNormalization,
               BaseOutputLayer)
@@ -121,38 +142,100 @@ def attention_specs(net):
                                                  SelfAttentionLayer)]
 
 
-def init_cache(net, batch: int, capacity: int):
+def init_cache(net, batch: int, capacity: int, kv_dtype: str = "f32",
+               page_size: int = 16):
     """Zeroed KV cache {layer: {"k": [batch, capacity, H, D], "v": ...}}
     in the net's compute dtype, on the net's device. `capacity` is the
     per-row key budget (prompt + generated, page-quantized by the
-    serving layer)."""
+    serving layer). kv_dtype="int8" stores int8 codes plus per-(row,
+    page, head) f32 scales ({"k", "k_scale", "v", "v_scale"}); capacity
+    must then sit on the page grid."""
+    dev = net.device
+    if kv_dtype == "int8":
+        if capacity % page_size != 0:
+            raise ValueError(
+                f"int8 cache needs page-quantized capacity; {capacity} "
+                f"is not a multiple of page_size {page_size}")
+        n_pages = capacity // page_size
+        return {name: {
+            "k": torch.zeros((batch, capacity, H, D), dtype=torch.int8,
+                             device=dev),
+            "k_scale": torch.zeros((batch, n_pages, H), device=dev),
+            "v": torch.zeros((batch, capacity, H, D), dtype=torch.int8,
+                             device=dev),
+            "v_scale": torch.zeros((batch, n_pages, H), device=dev)}
+            for name, H, D in attention_specs(net)}
     dtype = net.compute_dtype
     return {name: {"k": torch.zeros((batch, capacity, H, D), dtype=dtype,
-                                    device=net.device),
+                                    device=dev),
                    "v": torch.zeros((batch, capacity, H, D), dtype=dtype,
-                                    device=net.device)}
+                                    device=dev)}
             for name, H, D in attention_specs(net)}
 
 
-def _cache_write(entry, k_new, v_new, rows, positions):
-    """Write k_new/v_new [b, T, H, D] at (rows x positions [b, T]), in
-    place. Positions past the cache's capacity are dropped, as the JAX
-    scatter drops out-of-bounds indices."""
-    S = entry["k"].shape[1]
-    r = rows[:, None].expand_as(positions)
-    keep = positions < S
-    if not bool(keep.all()):
-        r, positions = r[keep], positions[keep]
-        k_new, v_new = k_new[keep], v_new[keep]
-    entry["k"][r, positions] = k_new.to(entry["k"].dtype)
-    entry["v"][r, positions] = v_new.to(entry["v"].dtype)
+def _host(x) -> np.ndarray:
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
 
 
-def _cache_attend(entry, qh, key_limit, rows=None):
+class _Writes:
+    """Where one step's new K/V rows go: `rows` [b] and `positions`
+    [b, T] on the device (the int8 update takes them as they are and
+    drops out-of-range positions itself), and the flat (row, position)
+    pairs that survive the capacity, with `sel` picking their values out
+    of the flattened [b * T] new rows (None: all survive). Built on the
+    host from host positions, once per step."""
+
+    __slots__ = ("rows", "positions", "flat_rows", "flat_pos", "sel")
+
+    def __init__(self, rows, positions, capacity: int, device):
+        rows, positions = _host(rows), _host(positions)
+        r = np.repeat(rows, positions.shape[1])
+        p = positions.reshape(-1)
+        keep = p < capacity
+        self.sel = None
+        if not keep.all():
+            self.sel = torch.as_tensor(np.flatnonzero(keep), device=device)
+            r, p = r[keep], p[keep]
+        self.rows = torch.as_tensor(rows, dtype=torch.long, device=device)
+        self.positions = torch.as_tensor(positions, dtype=torch.long,
+                                         device=device)
+        self.flat_rows = torch.as_tensor(r, dtype=torch.long, device=device)
+        self.flat_pos = torch.as_tensor(p, dtype=torch.long, device=device)
+
+
+def _capacity(cache) -> int:
+    return next(iter(cache.values()))["k"].shape[1]
+
+
+def _cache_write(entry, k_new, v_new, writes: _Writes, kv_dtype,
+                 page_size):
+    """Write k_new/v_new [b, T, H, D] at `writes`, in place —
+    dtype-dispatched. Positions past the capacity are dropped on both
+    paths."""
+    if kv_dtype == "int8":
+        quantized_cache_update(entry["k"], entry["k_scale"], k_new,
+                               writes.rows, writes.positions, page_size)
+        quantized_cache_update(entry["v"], entry["v_scale"], v_new,
+                               writes.rows, writes.positions, page_size)
+        return
+    for key, new in (("k", k_new), ("v", v_new)):
+        flat = new.reshape(-1, *new.shape[2:])
+        if writes.sel is not None:
+            flat = flat[writes.sel]
+        entry[key][writes.flat_rows, writes.flat_pos] = flat.to(
+            entry[key].dtype)
+
+
+def _cache_attend(entry, qh, key_limit, kv_dtype, page_size, rows=None):
     """Attend qh [b, H, Tq, D] against a cache entry with per-query
-    visible-key bounds; `rows` gathers a row subset first (the prefill
-    cross-chunk path)."""
+    visible-key bounds — dtype-dispatched; `rows` gathers a row subset
+    first (the prefill cross-chunk path)."""
     k, v = entry["k"], entry["v"]
+    if kv_dtype == "int8":
+        ks, vs = entry["k_scale"], entry["v_scale"]
+        if rows is not None:
+            k, v, ks, vs = k[rows], v[rows], ks[rows], vs[rows]
+        return cache_attention_q8(qh, k, v, ks, vs, key_limit, page_size)
     if rows is not None:
         k, v = k[rows], v[rows]
     return cache_attention(qh, k, v, key_limit)
@@ -265,7 +348,7 @@ def _as_tensor(x, net, dtype=None):
 
 # ------------------------------------------------------------ entry fns
 
-def make_decode_fn(net):
+def make_decode_fn(net, kv_dtype: str = "f32", page_size: int = 16):
     """-> ``step(params, state, cache, token, pos) -> (probs, cache)``.
     token [B] int; pos [B] int is the position the token OCCUPIES
     (0-based: a row whose prompt filled [0, L) decodes its first
@@ -276,11 +359,12 @@ def make_decode_fn(net):
 
     @torch.no_grad()
     def step(params, state, cache, token, pos):
+        B = len(token)
+        pos_h = _host(pos)
+        writes = _Writes(np.arange(B), pos_h[:, None], _capacity(cache),
+                         net.device)
         token = _as_tensor(token, net, torch.long)
-        pos = _as_tensor(pos, net, torch.long)
-        B = token.shape[0]
-        rows = torch.arange(B, device=net.device)
-        positions = pos[:, None]                            # [B, 1]
+        positions = writes.positions                        # [B, 1]
 
         def attn(name, conf, p, x):
             H, n = conf.n_heads, conf.n_out
@@ -290,9 +374,10 @@ def make_decode_fn(net):
             q, k_new, v_new = qkv.split(n, dim=-1)
             entry = cache[name]
             _cache_write(entry, k_new.reshape(B, 1, H, Dh),
-                         v_new.reshape(B, 1, H, Dh), rows, positions)
+                         v_new.reshape(B, 1, H, Dh), writes, kv_dtype,
+                         page_size)
             o, _ = _cache_attend(entry, q.reshape(B, H, 1, Dh),
-                                 (pos + 1)[:, None])
+                                 positions + 1, kv_dtype, page_size)
             y = o[:, :, 0, :].reshape(B, n) @ p["Wo"] + p["bo"]
             return get_activation(conf.activation or "identity")(
                 y)[:, None, :]
@@ -308,7 +393,7 @@ def make_decode_fn(net):
     return step
 
 
-def make_prefill_fn(net):
+def make_prefill_fn(net, kv_dtype: str = "f32", page_size: int = 16):
     """-> ``prefill(params, state, cache, tokens, kmask, rows, start,
     last_idx) -> (probs_last, cache)``. tokens [b, Tc] int (a
     bucket-shaped prompt chunk, zero-padded); kmask [b, Tc] (1 = real
@@ -323,14 +408,16 @@ def make_prefill_fn(net):
     @torch.no_grad()
     def prefill(params, state, cache, tokens, kmask, rows, start,
                 last_idx):
+        b, Tc = np.shape(tokens)
+        start_h = _host(start)
+        writes = _Writes(_host(rows), start_h[:, None] + np.arange(Tc),
+                         _capacity(cache), net.device)
         tokens = _as_tensor(tokens, net, torch.long)
         kmask = _as_tensor(kmask, net, torch.float32)
-        rows = _as_tensor(rows, net, torch.long)
-        start = _as_tensor(start, net, torch.long)
+        rows = writes.rows
+        positions = writes.positions                        # [b, Tc]
+        start = positions[:, 0]
         last_idx = _as_tensor(last_idx, net, torch.long)
-        b, Tc = tokens.shape
-        local = torch.arange(Tc, device=net.device)
-        positions = start[:, None] + local[None, :]         # [b, Tc]
 
         def attn(name, conf, p, x):
             H, n = conf.n_heads, conf.n_out
@@ -340,7 +427,8 @@ def make_prefill_fn(net):
             keep = kmask[..., None, None].to(k.dtype)
             entry = cache[name]
             _cache_write(entry, _split_heads(k, H) * keep,
-                         _split_heads(v, H) * keep, rows, positions)
+                         _split_heads(v, H) * keep, writes, kv_dtype,
+                         page_size)
             qh = _split_heads(q, H).transpose(1, 2)         # [b, H, Tc, Dh]
             kh = _split_heads(k, H).transpose(1, 2)
             vh = _split_heads(v, H).transpose(1, 2)
@@ -349,7 +437,8 @@ def make_prefill_fn(net):
             # wrote before `start` (empty on the first chunk: its lse
             # sits at the floor and merges to weight zero)
             limit = start[:, None].expand(b, Tc)
-            o2, lse2 = _cache_attend(entry, qh, limit, rows=rows)
+            o2, lse2 = _cache_attend(entry, qh, limit, kv_dtype, page_size,
+                                     rows=rows)
             o = _merge_lse(o1, lse1, o2, lse2)
             y = o.transpose(1, 2).reshape(b, Tc, n)
             y = y @ p["Wo"] + p["bo"]
@@ -364,3 +453,48 @@ def make_prefill_fn(net):
         return probs[torch.arange(b, device=net.device), last_idx, :], cache
 
     return prefill
+
+
+def make_verify_fn(net, kv_dtype: str = "f32", page_size: int = 16):
+    """-> ``verify(params, state, cache, tokens, pos) -> (probs, cache)``,
+    the speculative verification step. tokens [B, K] int is each row's
+    candidate window (its true last token, then K-1 drafts); pos [B] is
+    the position the FIRST token occupies. probs [B, K, V]: row i is the
+    output after consuming tokens[:, :i+1] — what i+1 sequential
+    `make_decode_fn` steps give, because all K K/Vs are written first and
+    query row i attends with key_limit pos+i+1. Positions past the
+    capacity are dropped; their rows' outputs are never accepted."""
+    in_name, out_name, ops = _plan(net)
+
+    @torch.no_grad()
+    def verify(params, state, cache, tokens, pos):
+        B, K = np.shape(tokens)
+        writes = _Writes(np.arange(B), _host(pos)[:, None] + np.arange(K),
+                         _capacity(cache), net.device)
+        tokens = _as_tensor(tokens, net, torch.long)
+        positions = writes.positions                        # [B, K]
+
+        def attn(name, conf, p, x):
+            H, n = conf.n_heads, conf.n_out
+            x = _as_seq(x)
+            qkv = x @ p["Wqkv"] + p["bqkv"]                 # [B, K, 3n]
+            q, k, v = qkv.split(n, dim=-1)
+            entry = cache[name]
+            _cache_write(entry, _split_heads(k, H), _split_heads(v, H),
+                         writes, kv_dtype, page_size)
+            qh = _split_heads(q, H).transpose(1, 2)         # [B, H, K, Dh]
+            o, _ = _cache_attend(entry, qh, positions + 1, kv_dtype,
+                                 page_size)
+            y = o.transpose(1, 2).reshape(B, K, n)
+            y = y @ p["Wo"] + p["bo"]
+            return get_activation(conf.activation or "identity")(y)
+
+        def posenc(name, conf, p, x):
+            x = _as_seq(x)
+            return x + _positional(conf, p, x, positions)
+
+        probs = _walk(net, ops, in_name, out_name, params, state, tokens,
+                      attn, posenc)
+        return probs, cache
+
+    return verify

@@ -428,25 +428,36 @@ class ComputationGraph:
             return self._forward(params, state, {name: x}, masks)[0]
         return fwd
 
-    def incremental_decode_fn(self):
+    def incremental_decode_fn(self, kv_dtype: str = "f32",
+                              page_size: int = 16):
         """The decode step ``(params, state, cache, token, pos) -> (probs,
-        cache)`` over the KV cache (nn/decode.make_decode_fn)."""
+        cache)`` over the KV cache (nn/decode.make_decode_fn);
+        kv_dtype="int8" reads and writes the quantized paged cache."""
         from deeplearning4j_tpu_torch.nn.decode import make_decode_fn
 
-        return make_decode_fn(self)
+        return make_decode_fn(self, kv_dtype, page_size)
 
-    def prefill_fn(self):
+    def prefill_fn(self, kv_dtype: str = "f32", page_size: int = 16):
         """The chunked-prefill step ``(params, state, cache, tokens, kmask,
         rows, start, last_idx) -> (probs_last, cache)``
         (nn/decode.make_prefill_fn)."""
         from deeplearning4j_tpu_torch.nn.decode import make_prefill_fn
 
-        return make_prefill_fn(self)
+        return make_prefill_fn(self, kv_dtype, page_size)
 
-    def init_kv_cache(self, batch: int, capacity: int):
+    def verify_decode_fn(self, kv_dtype: str = "f32", page_size: int = 16):
+        """The speculative verification step ``(params, state, cache,
+        tokens [B, K], pos) -> (probs [B, K, V], cache)``: K candidate
+        tokens per row checked in one fixed-shape call
+        (nn/decode.make_verify_fn)."""
+        from deeplearning4j_tpu_torch.nn.decode import make_verify_fn
+
+        return make_verify_fn(self, kv_dtype, page_size)
+
+    def init_kv_cache(self, batch: int, capacity: int,
+                      kv_dtype: str = "f32", page_size: int = 16):
         """Zeroed decode cache for `batch` rows of `capacity` key slots
         (nn/decode.init_cache)."""
         from deeplearning4j_tpu_torch.nn.decode import init_cache
 
-        return init_cache(self, batch, capacity)
-
+        return init_cache(self, batch, capacity, kv_dtype, page_size)

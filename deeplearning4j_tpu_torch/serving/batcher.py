@@ -8,6 +8,7 @@ a later slice.
 from __future__ import annotations
 
 import itertools
+import queue
 import threading
 from dataclasses import dataclass, field
 
@@ -19,9 +20,9 @@ _req_counter = itertools.count()
 @dataclass
 class GenRequest:
     """One admitted generation request: the raw prompt tokens, the
-    output budget, timing marks and the emitted-token record. (The JAX
-    package's per-request stream queue feeds its HTTP front end, which
-    comes with a later slice.)"""
+    output budget, timing marks and the emitted-token record. `stream`
+    carries each token as it is emitted and ends with None at `finish`:
+    the HTTP handler drains it into the streamed body."""
 
     tokens: np.ndarray            # [L] int prompt
     max_new_tokens: int = 16
@@ -33,6 +34,7 @@ class GenRequest:
     emitted: list = field(default_factory=list)
     error: str | None = None
     done: threading.Event = field(default_factory=threading.Event)
+    stream: queue.Queue = field(default_factory=queue.Queue)
 
     @property
     def prompt_len(self) -> int:
@@ -45,10 +47,12 @@ class GenRequest:
         if not self.emitted:
             self.t_first_token = now
         self.emitted.append(int(token))
+        self.stream.put(int(token))
 
     def finish(self, now: float, error: str | None = None) -> None:
         self.error = error
         self.t_done = now
+        self.stream.put(None)  # end-of-stream sentinel
         self.done.set()
 
 

@@ -9,8 +9,10 @@ that bounds the compiles, here it bounds the kernel shapes and keeps
 prefill's flash/dense dispatch a function of the lattice alone.
 Selection is a pure function of the request shapes (no clock, no state).
 
-The JAX package's `validate_attention` checks long buckets against its
-chunked flash tier, which comes with the long-context slice of the port.
+`validate_attention` checks every seq bucket against the attention
+dispatch at server start: the port's flash kernels serve T <= 8192, and
+the JAX package's chunked flash tier for longer T is not ported yet, so
+a longer bucket fails there instead of mid-traffic.
 
 Pure stdlib.
 """
@@ -67,6 +69,25 @@ class BucketLattice:
                 f"prefill chunk {chunk} must be a lattice seq bucket "
                 f"{list(self.seq_lens)} — chunks are warmed shapes")
         return [t for t in self.seq_lens if t <= chunk]
+
+    def validate_attention(self, head_dim: int, *, causal: bool = True,
+                           dropout: bool = False,
+                           masked: bool = True) -> None:
+        """Check every seq bucket against the attention dispatch envelope
+        so a bucket no path can serve fails at server start-up, not
+        mid-traffic. No-op for fixed-shape lattices."""
+        if self.seq_lens is None:
+            return
+        from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+        for t in self.seq_lens:
+            if t > fa.MAX_FLASH_T:
+                raise ValueError(
+                    f"seq bucket {t} is outside the attention dispatch "
+                    f"envelope (head_dim {head_dim}, "
+                    f"{'causal' if causal else 'non-causal'}): sequences "
+                    f"past T={fa.MAX_FLASH_T} need the chunked flash tier, "
+                    "which the port does not have yet")
 
     def describe(self) -> dict:
         """JSON-able summary for /healthz and telemetry meta."""

@@ -1,4 +1,4 @@
-"""Autoregressive generation serving: `GenerationEngine` and its worker
+"""Autoregressive generation serving: `GenerationEngine` and its workers
 (JAX counterpart deeplearning4j_tpu/serving/engine.py `GenerationEngine`,
 `_GenWorker`).
 
@@ -10,11 +10,29 @@ prefill plus N single-token steps, not N full-sequence forwards. Page
 accounting, and exhaustion that queues instead of crashing, live in
 serving/kvcache.py.
 
-Left out of this slice: `InferenceEngine`, the HTTP `ServingServer`,
-replicas and the fleet (hot-swap, reap/respawn, fault injection),
-speculative decoding, the int8 cache, and the telemetry recorder with its
-cost and memory books. A plain dict of counters (`stats()`) takes the
-recorder's place.
+What the engine takes beyond that:
+
+* `replicas` — workers dealt requests round-robin on the one card, each
+  with its own cache, page pool, slot machine and thread;
+* `speculative_k` (0, or >= 2) — the decode step becomes a fixed-shape
+  verify step over [n_slots, k] windows: each active slot's true last
+  token followed by k-1 host-side n-gram drafts
+  (serving/speculative.py); the greedy acceptance mask turns the k
+  verify rows into 1..k emitted tokens, each a model argmax given
+  exactly its prefix;
+* `kv_dtype` ("f32" | "int8") — the int8 paged cache (codes plus
+  per-page scales) through the same three step functions;
+* `recorder` — the telemetry recorder (default `telemetry.get_default()`):
+  `compile`, `prefill_chunk`, `decode_step` and `verify_step` spans and
+  `page_pool`, `draft` and `request` events with the JAX package's fields.
+
+PyTorch has no jit to count, so `trace_count` counts the first time each
+step shape (a prefill bucket, the decode step, the verify step) reaches
+a step function: warmup runs every shape the traffic can give, so after
+it the count is frozen, as the JAX contract says. The fleet (`checkpoint`
+restore, `faults` injection, reap/respawn, autoscaling) waits for the
+port's fleet slice; the memory sampler and the cost book for its
+telemetry slice (`stats()["memory"]` is None, `peak_flops` 0).
 """
 
 from __future__ import annotations
@@ -30,56 +48,107 @@ import torch
 from deeplearning4j_tpu_torch.serving.batcher import (DecodeSlots, GenRequest,
                                                       _req_counter)
 from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
+from deeplearning4j_tpu_torch.serving.fleet import WeightStore
 from deeplearning4j_tpu_torch.serving.kvcache import CachePlan
+from deeplearning4j_tpu_torch.serving.speculative import (NgramProposer,
+                                                          accept_greedy)
+
+_FLEET_SLICE = "waits for the port's fleet slice (ROADMAP Queue A item 6)"
 
 
 class QueueFullError(RuntimeError):
     """Generation admission refused: the page pool and the pending queue
-    are both full — a graceful refusal, never a crash."""
+    are both full — a graceful refusal (HTTP 503), never a crash."""
+
+
+def _token_ids(probs: torch.Tensor) -> np.ndarray:
+    """The argmax token ids of a step's output rows, fetched to the host:
+    the step's one batch-boundary sync."""
+    return probs.argmax(-1).to(torch.int32).cpu().numpy()
 
 
 class _GenWorker:
-    """The generation worker: its KV-cache allocation, page pool,
-    decode-slot state machine and the prefill and decode steps.
+    """One generation replica: its KV-cache allocation, page pool,
+    decode-slot state machine, step functions and thread.
 
     The loop interleaves chunked prefills into the running decode batch:
     each iteration admits what the pool allows, runs at most ONE prompt
-    chunk, then one decode step over all slots. The decode step's shape
-    is fixed — [n_slots] tokens and positions against the [n_slots,
-    capacity] cache; inactive rows decode a dummy token whose K/V write
-    goes to the scratch position (capacity - 1), which any real tenant
-    overwrites before it can be attended (a token's own K/V lands at its
-    position in the same step that reads it)."""
+    chunk, then one decode (or verify) step over all slots. The step's
+    shape is fixed — [n_slots] tokens (or [n_slots, k] windows) against
+    the [n_slots, capacity] cache; inactive rows decode a dummy token
+    whose K/V write goes to the scratch position (capacity - 1), which
+    any real tenant overwrites before it can be attended."""
 
-    def __init__(self, net, lattice: BucketLattice, plan: CachePlan,
-                 prefill_chunk: int, max_queue: int):
+    def __init__(self, index: int, net, lattice: BucketLattice,
+                 plan: CachePlan, prefill_chunk: int, max_queue: int,
+                 recorder, weights: WeightStore, speculative_k: int = 0):
+        self.index = index
         self.net = net
         self.lattice = lattice
         self.plan = plan
         self.prefill_chunk = prefill_chunk
         self.max_queue = max_queue
+        self.recorder = recorder
+        self.weights = weights
         self.pool = plan.make_pool()
         self.slots = DecodeSlots(plan.n_slots)
-        self.cache = net.init_kv_cache(plan.n_slots, plan.capacity)
-        self._prefill = net.prefill_fn()
-        self._decode = net.incremental_decode_fn()
+        self.speculative_k = int(speculative_k)
+        self.cache = net.init_kv_cache(plan.n_slots, plan.capacity,
+                                       plan.kv_dtype, plan.page_size)
         # guards the counters (worker-thread updates vs stats() reads);
         # never held across a device call or a queue wait
         self._mu = threading.Lock()
-        self.counters = {"served": 0, "failed": 0, "tokens_out": 0,
-                         "prefill_chunks": 0, "decode_steps": 0}
+        self.trace_count = 0
+        self.served = 0
+        self.failed = 0
+        self.tokens_out = 0
+        self.decode_steps_run = 0
+        self.verify_steps_run = 0
+        self.slot_steps = 0  # (active slot, verify step) pairs
+        self.accepted_tokens = 0
+        self.drafted_tokens = 0
+        self.draft_overhead_s = 0.0
+        self.proposer = NgramProposer()
+        self.alive = True
+        self.lifecycle = "warming"
+        self.last_beat = 0.0
+        self._seen_shapes: set = set()
         self.pending: deque[GenRequest] = deque()
         self._cv = threading.Condition()
         self._closed = False
         self._thread: threading.Thread | None = None
+        self._prefill = net.prefill_fn(plan.kv_dtype, plan.page_size)
+        self._decode = net.incremental_decode_fn(plan.kv_dtype,
+                                                 plan.page_size)
+        self._verify = (net.verify_decode_fn(plan.kv_dtype, plan.page_size)
+                        if self.speculative_k >= 2 else None)
 
-    def _count(self, key: str, n: int = 1) -> None:
+    # ------------------------------------------------------------ steps
+    def _first_sight(self, key) -> bool:
+        """Whether step shape `key` runs for the first time; the first
+        sight bumps the trace count (the JAX package's trace-time bump)."""
+        if key in self._seen_shapes:
+            return False
+        self._seen_shapes.add(key)
         with self._mu:
-            self.counters[key] += n
+            self.trace_count += 1
+        return True
 
-    def _dev(self, a, dtype=torch.long) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.net.device)
+    def _run_prefill(self, ws, tokens, kmask, rows, start, last_idx):
+        probs, self.cache = self._prefill(ws.params, ws.state, self.cache,
+                                          tokens, kmask, rows, start,
+                                          last_idx)
+        return _token_ids(probs)
+
+    def _run_decode(self, ws, tokens, pos):
+        probs, self.cache = self._decode(ws.params, ws.state, self.cache,
+                                         tokens, pos)
+        return _token_ids(probs)
+
+    def _run_verify(self, ws, windows, pos):
+        probs, self.cache = self._verify(ws.params, ws.state, self.cache,
+                                         windows, pos)
+        return _token_ids(probs)  # [B, k]: the acceptance mask's input
 
     # ---------------------------------------------------------- planning
     def chunk_buckets(self) -> list:
@@ -95,28 +164,41 @@ class _GenWorker:
 
     # ------------------------------------------------------------ warmup
     def warmup(self) -> int:
-        """Run every prefill bucket and the decode step once before
-        traffic (an all-zero key mask into row 0, dummy tokens into the
-        scratch position), so the kernels are built and loaded and the
-        allocator holds its working set. Returns the number of calls."""
-        net = self.net
-        rows = self._dev([0])
-        start = self._dev([0])
-        calls = 0
+        """Run every prefill bucket and the step this worker uses (decode,
+        or verify in speculative mode) once before traffic — an all-zero
+        key mask into row 0, dummy tokens into the scratch position — so
+        the kernels are built and loaded and the trace count is frozen.
+        Returns the number of shapes run."""
+        ws = self.weights.current
+        rows = np.zeros(1, np.int64)
+        compiles = 0
         for Tb in self.chunk_buckets():
-            probs, self.cache = self._prefill(
-                net.params, net.state, self.cache, self._dev(
-                    np.zeros((1, Tb))), self._dev(np.zeros((1, Tb)),
-                                                  torch.float32),
-                rows, start, self._dev([Tb - 1]))
-            probs.argmax(-1).cpu()
-            calls += 1
+            if not self._first_sight(("prefill", Tb)):
+                continue
+            with self.recorder.span("compile", kind="prefill",
+                                    bucket=[1, Tb], replica=self.index,
+                                    warmup=True):
+                self._run_prefill(ws, np.zeros((1, Tb), np.int64),
+                                  np.zeros((1, Tb), np.float32), rows, rows,
+                                  np.asarray([Tb - 1]))
+            compiles += 1
         B = self.plan.n_slots
-        probs, self.cache = self._decode(
-            net.params, net.state, self.cache, self._dev(np.zeros(B)),
-            self._dev(np.full(B, self.plan.capacity - 1)))
-        probs.argmax(-1).cpu()
-        return calls + 1
+        scratch = np.full(B, self.plan.capacity - 1, np.int64)
+        if self._verify is not None:
+            if self._first_sight("verify"):
+                K = self.speculative_k
+                with self.recorder.span("compile", kind="verify",
+                                        shape=[B, K, self.plan.capacity],
+                                        replica=self.index, warmup=True):
+                    self._run_verify(ws, np.zeros((B, K), np.int64), scratch)
+                compiles += 1
+        elif self._first_sight("decode"):
+            with self.recorder.span("compile", kind="decode",
+                                    shape=[B, self.plan.capacity],
+                                    replica=self.index, warmup=True):
+                self._run_decode(ws, np.zeros(B, np.int64), scratch)
+            compiles += 1
+        return compiles
 
     # --------------------------------------------------------- admission
     def submit(self, req: GenRequest) -> None:
@@ -124,9 +206,9 @@ class _GenWorker:
             self.lattice.seq_bucket(req.prompt_len), req.max_new_tokens)
         if pages > self.pool.n_pages:
             raise ValueError(
-                f"request needs {pages} cache pages but the pool holds "
-                f"{self.pool.n_pages} — prompt + max_new_tokens exceed "
-                "the cache geometry")
+                f"request needs {pages} cache pages but the replica pool "
+                f"holds {self.pool.n_pages} — prompt + max_new_tokens "
+                "exceed the cache geometry")
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is draining; request refused")
@@ -153,11 +235,20 @@ class _GenWorker:
                 self.pending.popleft()
                 req.t_admitted = clock()
                 self.slots.admit(idx, req, pages)
+                self.recorder.event("page_pool", replica=self.index,
+                                    **self.pool.describe())
 
     # ----------------------------------------------------------- compute
     def _prefill_chunk(self, slot_idx: int, clock) -> None:
-        """One bucket-shaped prompt chunk for one slot. The only host
-        fetch is the next-token id."""
+        """One bucket-shaped prompt chunk for one slot, under the
+        request's trace context: its spans and events correlate to the
+        request id the final `request` event carries."""
+        req = self.slots.slots[slot_idx].request
+        with self.recorder.trace(req.request_id):
+            self._prefill_chunk_inner(slot_idx, clock)
+
+    def _prefill_chunk_inner(self, slot_idx: int, clock) -> None:
+        """The chunk itself. The only host fetch is the next-token id."""
         slot = self.slots.slots[slot_idx]
         req = slot.request
         L = req.prompt_len
@@ -169,26 +260,32 @@ class _GenWorker:
         bucket_kmask = np.zeros((1, Tc), np.float32)
         bucket_kmask[0, :n_real] = 1.0
         final = slot.start + n_real >= L
-        net = self.net
+        ws = self.weights.current
+        args = (ws, padded_tokens, bucket_kmask, np.asarray([slot_idx]),
+                np.asarray([slot.start]), np.asarray([n_real - 1]))
         try:
-            probs, self.cache = self._prefill(
-                net.params, net.state, self.cache, self._dev(padded_tokens),
-                self._dev(bucket_kmask, torch.float32),
-                self._dev([slot_idx]), self._dev([slot.start]),
-                self._dev([n_real - 1]))
-            tok = int(probs.argmax(-1).cpu()[0])
+            with self.recorder.span("prefill_chunk", bucket=[1, Tc],
+                                    start=slot.start, replica=self.index,
+                                    final=final):
+                if self._first_sight(("prefill", Tc)):
+                    with self.recorder.span("compile", kind="prefill",
+                                            bucket=[1, Tc],
+                                            replica=self.index):
+                        toks = self._run_prefill(*args)
+                else:
+                    toks = self._run_prefill(*args)
         except Exception as exc:  # the request fails; the worker serves on
             self._fail_slot(slot_idx, exc, clock)
             return
-        self._count("prefill_chunks")
         slot.start += n_real
         if final:
             # the prompt's last forward row IS the first generated token:
             # TTFT is this chunk's completion
             slot.pos = L
-            slot.last_token = tok
-            req.emit(tok, clock())
-            self._count("tokens_out")
+            slot.last_token = int(toks[0])
+            req.emit(slot.last_token, clock())
+            with self._mu:
+                self.tokens_out += 1
             self._maybe_complete(slot_idx, clock)
 
     def _decode_batch_step(self, active: list, clock) -> None:
@@ -202,25 +299,103 @@ class _GenWorker:
             slot = self.slots.slots[i]
             padded_tokens[i] = slot.last_token
             pos[i] = slot.pos
-        net = self.net
+        ws = self.weights.current
+        with self._mu:
+            self.decode_steps_run += 1
         try:
-            probs, self.cache = self._decode(
-                net.params, net.state, self.cache, self._dev(padded_tokens),
-                self._dev(pos))
-            toks = probs.argmax(-1).cpu().numpy()
+            with self.recorder.span("decode_step", replica=self.index,
+                                    n_active=len(active)):
+                if self._first_sight("decode"):
+                    with self.recorder.span("compile", kind="decode",
+                                            shape=[B, self.plan.capacity],
+                                            replica=self.index):
+                        toks = self._run_decode(ws, padded_tokens, pos)
+                else:
+                    toks = self._run_decode(ws, padded_tokens, pos)
         except Exception as exc:  # the batch's requests fail; serve on
             for i in active:
                 self._fail_slot(i, exc, clock)
             return
-        self._count("decode_steps")
         now = clock()
         for i in active:
             slot = self.slots.slots[i]
             slot.pos += 1
             slot.last_token = int(toks[i])
             slot.request.emit(slot.last_token, now)
-            self._count("tokens_out")
+            with self._mu:
+                self.tokens_out += 1
             self._maybe_complete(i, clock)
+
+    def _speculative_batch_step(self, active: list, clock) -> None:
+        """One fixed-shape VERIFY step over every slot row: each active
+        row's window is [last_token, d_1..d_{k-1}] (host-side n-gram
+        drafts); inactive rows ride the scratch position. One host fetch
+        of the [n_slots, k] argmax matrix; the greedy acceptance mask then
+        emits 1..k tokens per slot. The proposer's host time is metered
+        (`draft_overhead_us`) and each step's `draft` event is what the
+        replay's accepted_tokens_per_step reconstructs from."""
+        B, K = self.plan.n_slots, self.speculative_k
+        padded_windows = np.zeros((B, K), np.int64)
+        pos = np.full(B, self.plan.capacity - 1, np.int64)  # scratch
+        t_draft = time.perf_counter()
+        drafts: dict = {}
+        for i in active:
+            slot = self.slots.slots[i]
+            req = slot.request
+            d = self.proposer.propose(
+                list(req.tokens) + list(req.emitted), K - 1)
+            drafts[i] = d
+            padded_windows[i, 0] = slot.last_token
+            padded_windows[i, 1:] = d
+            pos[i] = slot.pos
+        draft_s = time.perf_counter() - t_draft
+        ws = self.weights.current
+        with self._mu:
+            self.decode_steps_run += 1
+            self.verify_steps_run += 1
+        try:
+            with self.recorder.span("verify_step", replica=self.index,
+                                    n_active=len(active), k=K):
+                if self._first_sight("verify"):
+                    with self.recorder.span(
+                            "compile", kind="verify",
+                            shape=[B, K, self.plan.capacity],
+                            replica=self.index):
+                        toks = self._run_verify(ws, padded_windows, pos)
+                else:
+                    toks = self._run_verify(ws, padded_windows, pos)
+        except Exception as exc:
+            for i in active:
+                self._fail_slot(i, exc, clock)
+            return
+        now = clock()
+        step_emitted = 0
+        step_accepted = 0
+        for i in active:
+            slot = self.slots.slots[i]
+            req = slot.request
+            budget = req.max_new_tokens - len(req.emitted)
+            _n_acc, emitted = accept_greedy(drafts[i], toks[i])
+            take = min(len(emitted), budget)
+            for t in emitted[:take]:
+                req.emit(int(t), now)
+                with self._mu:
+                    self.tokens_out += 1
+            slot.pos += take
+            slot.last_token = int(emitted[take - 1])
+            step_emitted += take
+            step_accepted += take - 1  # drafts accepted (bonus aside)
+            self._maybe_complete(i, clock)
+        with self._mu:
+            self.accepted_tokens += step_emitted
+            self.drafted_tokens += (K - 1) * len(active)
+            self.slot_steps += len(active)
+            self.draft_overhead_s += draft_s
+        self.recorder.event("draft", replica=self.index, k=K,
+                            n_active=len(active), emitted=step_emitted,
+                            accepted=step_accepted,
+                            drafted=(K - 1) * len(active),
+                            overhead_us=round(draft_s * 1e6, 2))
 
     # -------------------------------------------------------- lifecycle
     def _maybe_complete(self, slot_idx: int, clock) -> None:
@@ -228,22 +403,52 @@ class _GenWorker:
         if len(req.emitted) < req.max_new_tokens:
             return
         self.pool.release(self.slots.release(slot_idx))
+        self.recorder.event("page_pool", replica=self.index,
+                            **self.pool.describe())
         req.finish(clock())
-        self._count("served")
+        with self._mu:
+            self.served += 1
+        self._request_event(req, ok=True)
 
     def _fail_slot(self, slot_idx: int, exc: Exception, clock) -> None:
         """The slot's request fails with the error, its pages are
         released, and the worker keeps serving."""
         req = self.slots.slots[slot_idx].request
         self.pool.release(self.slots.release(slot_idx))
-        req.finish(clock(), error="".join(
-            traceback.format_exception(type(exc), exc,
-                                       exc.__traceback__)).strip())
-        self._count("failed")
+        self.recorder.event("page_pool", replica=self.index,
+                            **self.pool.describe())
+        self.recorder.error(f"gen-replica:{self.index}", exc=exc)
+        err = "".join(traceback.format_exception_only(type(exc),
+                                                      exc)).strip()
+        req.finish(clock(), error=err)
+        with self._mu:
+            self.failed += 1
+        self._request_event(req, ok=False, error=err)
+
+    def _request_event(self, req: GenRequest, *, ok,
+                       error: str | None = None) -> None:
+        fields = dict(
+            ok=ok, kind="generate", replica=self.index,
+            # the generation trace key: the prefill_chunk spans carry the
+            # same id
+            trace_id=req.request_id,
+            prompt_len=req.prompt_len,
+            prompt_bucket=self.lattice.seq_bucket(req.prompt_len),
+            new_tokens=len(req.emitted),
+            queue_s=round(req.t_admitted - req.t_enqueue, 6),
+            total_s=round(req.t_done - req.t_enqueue, 6))
+        if req.t_first_token:
+            fields["ttft_s"] = round(req.t_first_token - req.t_enqueue, 6)
+        if error:
+            fields["error"] = error
+        self.recorder.request(req.request_id, **fields)
 
     def start(self, clock) -> None:
+        self.last_beat = clock()
+
         def loop():
             while True:
+                self.last_beat = clock()
                 self._admit(clock)
                 progressed = False
                 pi = self.slots.next_prefill()
@@ -252,19 +457,24 @@ class _GenWorker:
                     progressed = True
                 active = self.slots.decoding()
                 if active:
-                    self._decode_batch_step(active, clock)
+                    if self._verify is not None:
+                        self._speculative_batch_step(active, clock)
+                    else:
+                        self._decode_batch_step(active, clock)
                     progressed = True
                 if progressed:
                     continue
                 with self._cv:
                     if (self._closed and not self.pending
                             and not self.slots.busy()):
+                        self.lifecycle = "retired"
                         return
                     if not self.pending or self.slots.free_index() is None:
                         self._cv.wait(timeout=0.05)
 
+        self.lifecycle = "serving"
         self._thread = threading.Thread(target=loop, daemon=True,
-                                        name="gen-worker")
+                                        name=f"gen-replica-{self.index}")
         self._thread.start()
 
     def close(self) -> None:
@@ -281,57 +491,118 @@ class _GenWorker:
         with self._cv:
             return len(self.pending)
 
+    def describe(self, now: float | None = None) -> dict:
+        with self._mu:
+            out = {"index": self.index, "state": self.lifecycle,
+                   "alive": self.alive, "served": self.served,
+                   "failed": self.failed,
+                   "decode_steps_run": self.decode_steps_run}
+            if self.speculative_k >= 2:
+                out["verify_steps_run"] = self.verify_steps_run
+                out["accepted_tokens"] = self.accepted_tokens
+                out["drafted_tokens"] = self.drafted_tokens
+        if now is not None:
+            out["last_beat_age_s"] = round(max(0.0, now - self.last_beat),
+                                           3)
+        return out
+
 
 class GenerationEngine:
     """Autoregressive generation serving: prefill/decode split over a
     paged KV cache, continuous batching across decode slots, greedy
-    decoding.
+    decoding (optionally speculative, optionally over an int8 cache).
 
-    `lattice` fixes the prompt-chunk shapes; `slots` is the decode
-    batch; the cache holds `slots` rows of the largest prompt bucket plus
-    `max_new_tokens`, quantized to `page_size`; `pool_pages` (default:
-    the whole allocation) is the page budget admission reserves from;
-    `prefill_chunk` (a lattice seq length, default the largest) is the
-    longest prompt piece run between two decode steps."""
+    `lattice` fixes the prompt-chunk shapes; `slots` is the decode batch
+    of each replica; the cache holds `slots` rows of the largest prompt
+    bucket plus `max_new_tokens`, quantized to `page_size`; `pool_pages`
+    (default: the whole allocation) is the page budget admission
+    reserves from; `prefill_chunk` (a lattice seq length, default the
+    largest) is the longest prompt piece run between two decode steps;
+    `replicas` workers share the card, each with its own cache."""
 
     def __init__(self, net, lattice: BucketLattice, *, slots: int = 4,
                  max_new_tokens: int = 16, page_size: int = 16,
                  pool_pages: int | None = None,
-                 prefill_chunk: int | None = None, max_queue: int = 64):
+                 prefill_chunk: int | None = None, max_queue: int = 64,
+                 replicas: int = 1, checkpoint: str | None = None,
+                 speculative_k: int = 0, kv_dtype: str = "f32",
+                 faults=None, recorder=None):
+        if checkpoint is not None:
+            raise NotImplementedError(
+                f"GenerationEngine(checkpoint=...) {_FLEET_SLICE}")
+        if faults is not None:
+            raise NotImplementedError(
+                f"GenerationEngine(faults=...) {_FLEET_SLICE}")
+        if recorder is None:
+            from deeplearning4j_tpu_torch.telemetry import get_default
+
+            recorder = get_default()
+        self.recorder = recorder
         if lattice.seq_lens is None:
             raise ValueError("generation needs a sequence lattice "
                              "(BucketLattice with seq_lens)")
         if net.params is None:
             net.init()
+        self.restored_step = 0
         self.net = net
+        self.weights = WeightStore(net.params, net.state)
         self.lattice = lattice
         chunk = (lattice.max_seq if prefill_chunk is None
                  else int(prefill_chunk))
         lattice.prefill_buckets(chunk)  # raises on a non-lattice chunk
         self.prefill_chunk = chunk
+        self.speculative_k = int(speculative_k)
+        if self.speculative_k == 1 or self.speculative_k < 0:
+            raise ValueError(
+                "speculative_k is 0 (off) or >= 2 (a window of the true "
+                f"last token plus k-1 drafts); got {speculative_k}")
+        if self.speculative_k > int(max_new_tokens):
+            raise ValueError(
+                f"speculative_k {speculative_k} exceeds max_new_tokens "
+                f"{max_new_tokens} — a window can never be used whole")
         self.plan = CachePlan(lattice.max_seq, max_new_tokens,
                               max(1, int(slots)), page_size,
-                              pool_pages=pool_pages)
+                              pool_pages=pool_pages, kv_dtype=kv_dtype)
         self._clock = time.monotonic
-        self._worker = _GenWorker(net, lattice, self.plan, chunk, max_queue)
+        self._workers = [
+            _GenWorker(i, net, lattice, self.plan, chunk, max_queue,
+                       recorder, self.weights,
+                       speculative_k=self.speculative_k)
+            for i in range(max(1, int(replicas)))]
+        # set by the telemetry slice (cost book, memory sampler)
+        self.peak_flops = 0.0
+        self._rr = 0
+        self._rr_lock = threading.Lock()
         self._started = False
+        recorder.meta(role="generation-engine",
+                      replicas=len(self._workers),
+                      lattice=lattice.describe(),
+                      cache=self.plan.describe(),
+                      prefill_chunk=chunk,
+                      speculative_k=self.speculative_k,
+                      restored_step=self.restored_step)
 
+    # ------------------------------------------------------------- warmup
     def warmup(self) -> int:
-        """Run every prefill bucket and the decode step once; returns the
-        number of warmup calls."""
-        return self._worker.warmup()
+        """Run every (replica, prefill bucket) and (replica, step) shape
+        once; returns the count. After this the trace count is frozen."""
+        return sum(w.warmup() for w in self._workers)
 
+    # ------------------------------------------------------------ serving
     def start(self) -> "GenerationEngine":
-        if not self._started:
-            self._started = True
-            self._worker.start(self._clock)
+        if self._started:
+            return self
+        self._started = True
+        for w in self._workers:
+            w.start(self._clock)
         return self
 
     def submit_generate(self, tokens, max_new_tokens: int | None = None,
                         request_id: str | None = None) -> GenRequest:
         """Admit one generation request. Validates the prompt against
-        the lattice and the output budget against the cache geometry; a
-        saturated pool + full queue raises QueueFullError."""
+        the lattice (a too-long prompt is the client's 400) and the
+        output budget against the cache geometry; a saturated pool and
+        full queue raise QueueFullError (HTTP 503)."""
         toks = np.asarray(tokens)
         if toks.ndim != 1:
             raise ValueError(
@@ -347,7 +618,10 @@ class GenerationEngine:
                          max_new_tokens=max_new,
                          request_id=request_id or f"g{next(_req_counter)}",
                          t_enqueue=self._clock())
-        self._worker.submit(req)
+        with self._rr_lock:  # HTTP handler threads submit concurrently
+            worker = self._workers[self._rr % len(self._workers)]
+            self._rr += 1
+        worker.submit(req)
         return req
 
     def generate(self, tokens, max_new_tokens: int | None = None,
@@ -365,25 +639,76 @@ class GenerationEngine:
 
     def drain(self, timeout: float = 30.0) -> None:
         """Refuse new requests, finish the admitted and queued ones, and
-        stop the worker thread."""
-        self._worker.close()
-        self._worker.join(timeout)
+        stop the worker threads."""
+        for w in self._workers:
+            w.close()
+        for w in self._workers:
+            w.join(timeout)
+        self.recorder.event("span", name="drain", ok=True, seconds=0.0,
+                            served=self.served, failed=self.failed)
+
+    # -------------------------------------------------------------- stats
+    @property
+    def trace_count(self) -> int:
+        return sum(w.trace_count for w in self._workers)
 
     @property
     def served(self) -> int:
-        return self.stats()["served"]
+        return sum(w.served for w in self._workers)
 
     @property
     def failed(self) -> int:
-        return self.stats()["failed"]
+        return sum(w.failed for w in self._workers)
 
-    def stats(self) -> dict:
-        w = self._worker
-        with w._mu:
-            counters = dict(w.counters)
-        return {**counters,
-                "queue_depth": w.depth,
+    def describe(self) -> dict:
+        """The engine's configuration: replicas, lattice, cache plan,
+        prefill chunk and speculation width."""
+        return {"replicas": len(self._workers),
                 "lattice": self.lattice.describe(),
                 "cache": self.plan.describe(),
-                "page_pool": w.pool.describe(),
-                "prefill_chunk": self.prefill_chunk}
+                "prefill_chunk": self.prefill_chunk,
+                "speculative_k": self.speculative_k}
+
+    def stats(self) -> dict:
+        now = self._clock()
+        return {
+            "replicas": len(self._workers),
+            "served": self.served,
+            "failed": self.failed,
+            "tokens_out": sum(w.tokens_out for w in self._workers),
+            "queue_depth": sum(w.depth for w in self._workers),
+            "trace_count": self.trace_count,
+            "restored_step": self.restored_step,
+            "lattice": self.lattice.describe(),
+            "cache": self.plan.describe(),
+            "page_pools": [w.pool.describe() for w in self._workers],
+            "fleet": [w.describe(now) for w in self._workers],
+            "weights": self.weights.describe(),
+            "generate": True,
+            "speculative": self._speculative_stats(),
+            "memory": None,
+            "peak_flops": self.peak_flops,
+        }
+
+    def _speculative_stats(self) -> dict:
+        """Emitted tokens per verify step per active slot (the headline),
+        the draft acceptance rate and the proposer's host overhead — off
+        when speculative decoding is."""
+        if self.speculative_k < 2:
+            return {"enabled": False, "k": 0}
+        steps = sum(w.verify_steps_run for w in self._workers)
+        slot_steps = sum(w.slot_steps for w in self._workers)
+        accepted = sum(w.accepted_tokens for w in self._workers)
+        drafted = sum(w.drafted_tokens for w in self._workers)
+        # tokens beyond the 1-per-slot-step a plain decode would emit
+        bonus = accepted - slot_steps
+        overhead = sum(w.draft_overhead_s for w in self._workers)
+        return {
+            "enabled": True, "k": self.speculative_k,
+            "verify_steps": steps,
+            "accepted_tokens_per_step": (round(accepted / slot_steps, 4)
+                                         if slot_steps else 0.0),
+            "draft_acceptance_rate": (round(bonus / drafted, 4)
+                                      if drafted else 0.0),
+            "draft_overhead_us_total": round(overhead * 1e6, 1),
+        }

@@ -15,8 +15,11 @@ page-granular accounting overlay on that allocation.
   at admission, where the request waits in the queue, never mid-decode.
 * The pool tracks pages in use and the high-water mark (`peak_in_use`),
   the occupancy the engine reports.
-
-The int8 cache and its byte accounting come with a later slice.
+* The cache dtype is part of the accounting: an ``int8`` paged cache
+  stores 1-byte codes plus one f32 scale per (page, head), so a slot's
+  device-memory bill shrinks about 4x against f32. `bytes_per_slot` is
+  the one home of that arithmetic; the speculative replay's
+  ``slots_per_hbm_byte`` ratio is computed from it.
 
 Pure stdlib.
 """
@@ -26,6 +29,35 @@ from __future__ import annotations
 import threading
 
 DEFAULT_PAGE_SIZE = 16
+
+KV_DTYPES = ("f32", "int8")
+
+
+def validate_kv_dtype(kv_dtype: str) -> str:
+    """The serving cache dtype ('f32' | 'int8'), validated at the engine
+    front door so a typo fails at construction."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(
+            f"kv_dtype must be one of {KV_DTYPES}, got {kv_dtype!r}")
+    return kv_dtype
+
+
+def bytes_per_slot(capacity: int, attention_specs, kv_dtype: str = "f32",
+                   page_size: int = DEFAULT_PAGE_SIZE) -> int:
+    """Device bytes one decode slot's K+V rows cost across all attention
+    layers. `attention_specs` is nn/decode.py's list of (name, n_heads,
+    head_dim). f32: capacity*H*D*4 per tensor. int8: 1-byte codes plus
+    one f32 scale per (page, head) per tensor."""
+    validate_kv_dtype(kv_dtype)
+    total = 0
+    for _name, H, D in attention_specs:
+        if kv_dtype == "f32":
+            per_tensor = capacity * H * D * 4
+        else:
+            per_tensor = (capacity * H * D
+                          + (capacity // int(page_size)) * H * 4)
+        total += 2 * per_tensor  # K and V
+    return total
 
 
 def pages_for(n_tokens: int, page_size: int) -> int:
@@ -108,17 +140,23 @@ class CachePlan:
 
     def __init__(self, max_seq_bucket: int, max_new_tokens: int,
                  n_slots: int, page_size: int = DEFAULT_PAGE_SIZE,
-                 pool_pages: int | None = None):
+                 pool_pages: int | None = None, kv_dtype: str = "f32"):
         if n_slots < 1:
             raise ValueError(f"need n_slots >= 1, got {n_slots}")
         self.page_size = int(page_size)
         self.max_new_tokens = int(max_new_tokens)
         self.n_slots = int(n_slots)
+        self.kv_dtype = validate_kv_dtype(kv_dtype)
         self.capacity = quantize(max_seq_bucket + max_new_tokens,
                                  page_size)
         self.pages_per_slot = self.capacity // self.page_size
         self.pool_pages = (self.n_slots * self.pages_per_slot
                            if pool_pages is None else int(pool_pages))
+
+    def bytes_per_slot(self, attention_specs) -> int:
+        """This plan's per-slot device bytes (module `bytes_per_slot`)."""
+        return bytes_per_slot(self.capacity, attention_specs,
+                              self.kv_dtype, self.page_size)
 
     def make_pool(self) -> PagePool:
         return PagePool(self.pool_pages, self.page_size)
@@ -134,4 +172,5 @@ class CachePlan:
                 "page_size": self.page_size,
                 "pages_per_slot": self.pages_per_slot,
                 "pool_pages": self.pool_pages,
-                "max_new_tokens": self.max_new_tokens}
+                "max_new_tokens": self.max_new_tokens,
+                "kv_dtype": self.kv_dtype}

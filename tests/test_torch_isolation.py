@@ -106,3 +106,37 @@ def test_embedding_entry_points_default_to_cuda(make):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             make()
+
+
+def _generation_engine():
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+
+    net = transformer_lm(vocab_size=32, d_model=32, n_heads=2, n_layers=1,
+                         d_ff=32, max_length=32)
+    assert net.device == torch.device("cuda")
+    eng = GenerationEngine(net, BucketLattice((1,), seq_lens=(8,)),
+                           slots=1, max_new_tokens=4, page_size=4,
+                           kv_dtype="int8")
+    return [t for entry in eng._workers[0].cache.values()
+            for t in entry.values()]
+
+
+def _gumbel_noise():
+    from deeplearning4j_tpu_torch.ops.fused_sampling import gumbel_noise
+
+    gen = torch.Generator(device="cuda" if torch.cuda.is_available()
+                          else "cpu")
+    return [gumbel_noise(gen, 2, 8)]
+
+
+@pytest.mark.parametrize("make", [_generation_engine, _gumbel_noise],
+                         ids=["GenerationEngine", "gumbel_noise"])
+def test_serving_entry_points_default_to_cuda(make):
+    """The same rule for the speculative and int8 serving slice: with no
+    device named, the engine's cache and the sampling noise go to CUDA."""
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in make())
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.serving import (
     GenerationEngine,
     QueueFullError,
 )
+from deeplearning4j_tpu_torch.telemetry import Recorder as PortRecorder
 from deeplearning4j_tpu_torch.weights_io import params_from_jax
 
 pytestmark = pytest.mark.port
@@ -74,10 +75,11 @@ def _serve(engine, prompts):
 @pytest.fixture(scope="module")
 def port_tokens(nets):
     _, tnet = nets
+    rec = PortRecorder(path=None)
     engine = GenerationEngine(tnet, BucketLattice((1,), seq_lens=SEQ_LENS),
                               slots=2, max_new_tokens=8, page_size=16,
-                              prefill_chunk=512)
-    return _serve(engine, _prompts()), engine.stats()
+                              prefill_chunk=512, recorder=rec)
+    return _serve(engine, _prompts()), engine.stats(), rec
 
 
 def test_engine_tokens_match_jax_engine(nets, port_tokens):
@@ -103,13 +105,17 @@ def test_engine_tokens_match_full_forward_argmax(nets, port_tokens):
 
 
 def test_engine_stats_account_every_token(port_tokens):
-    _, stats = port_tokens
+    _, stats, rec = port_tokens
     assert stats["served"] == len(PROMPT_LENS) and stats["failed"] == 0
     assert stats["tokens_out"] == len(PROMPT_LENS) * NEW_TOKENS
     # the 300-token prompt is one 512 chunk, the short ones one 16 chunk
-    assert stats["prefill_chunks"] == len(PROMPT_LENS)
-    pool = stats["page_pool"]
+    chunks = [e for e in rec.events if e.get("event") == "span"
+              and e.get("name") == "prefill_chunk"]
+    assert len(chunks) == len(PROMPT_LENS)
+    assert sorted(e["bucket"][1] for e in chunks) == [16, 16, 512]
+    (pool,) = stats["page_pools"]
     assert pool["pages_in_use"] == 0 and pool["pages_peak"] > 0
+    assert stats["fleet"][0]["decode_steps_run"] > 0
 
 
 def test_page_accounting_matches_jax():
@@ -178,7 +184,7 @@ def test_tight_pool_serializes_requests(nets):
     for r in reqs:
         assert r.wait(60) and r.error is None and len(r.emitted) == 8
     engine.drain()
-    pool = engine.stats()["page_pool"]
+    (pool,) = engine.stats()["page_pools"]
     assert pool["pages_peak"] == 3 and pool["pages_in_use"] == 0
     # the second request was admitted only after the first finished
     assert reqs[1].t_admitted >= reqs[0].t_done
