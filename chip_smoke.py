@@ -15,7 +15,7 @@ Phases, each of which exits non-zero when it fails:
 1. Environment: CUDA and nvcc versions, the card, its power limit; TF32
    off for matrix products and convolutions. Builds every kernel source
    in deeplearning4j_tpu_torch/csrc/ with nvcc (one process per source,
-   started together).
+   started together) and logs each kernel's registers and spills.
 2. Forward kernels vs plain version: the flash-forward kernel as K1
    (flat, masked), K2 (packed qkv) and K3 (packed, head_dim 64) at the
    shapes serving, the full forward and training give it (K1 at
@@ -32,7 +32,10 @@ Phases, each of which exits non-zero when it fails:
    `scaled_dot_product_attention`; the softmax-xent head (K8 forward,
    K9 backward) at N=16384 d=256 V=10000 and a ragged N=300 V=2100
    against `_xent_fwd_reference` / `_xent_bwd_reference`, timed against
-   `F.cross_entropy(x @ W + b)` forward and backward.
+   `F.cross_entropy(x @ W + b)` forward and backward. Each bf16 backward
+   (K4-K7 and K9, on the tensor cores) runs a second time and must
+   repeat bit for bit; each timing line gives the achieved TFLOP/s and
+   the roofline share beside the card's name and power limit.
 3. Serving: `transformer_lm` at the repo's flagship width (vocab 10000,
    d_model 256, 2 heads of 128, 6 layers, d_ff 1024, bf16) answers 8
    requests through `GenerationEngine`; every request must complete with
@@ -195,6 +198,27 @@ def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def build_report(out):
+    """`-Xptxas -v` output condensed to one line per kernel: its
+    (demangled where c++filt is found) name, registers, shared memory
+    and spills."""
+    lines, name = [], None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif name and ("registers" in line or "spill" in line):
+            lines.append((name, line.split(":", 1)[-1].strip()))
+    names = sorted({n for n, _ in lines})
+    try:
+        demangled = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   timeout=60).stdout.splitlines()
+        pretty = dict(zip(names, demangled))
+    except (OSError, subprocess.SubprocessError):
+        pretty = {}
+    return [f"{pretty.get(n, n)}: {info}" for n, info in lines]
+
+
 # ------------------------------------------------------------- phase 2
 
 def check_kernels(torch, fa):
@@ -340,7 +364,8 @@ def flash_bwd_bound_ms(BH, T, D, elem_bytes, masked, B):
     """Least time for the backward function: q, k, v, o, do read and dq,
     dk, dv written once (lse read; the key mask read) over the memory
     rate, against its five causal T x T x D products (s, dp, dv, dk, dq
-    on every 64 x 64 tile up to the diagonal) over the bf16 peak."""
+    on every 64 x 64 tile up to the diagonal) over the bf16 peak.
+    Returns (ms, what bounds it, the FLOPs counted)."""
     tiles = T // 64
     pairs = tiles * (tiles + 1) // 2
     flops = BH * pairs * 64 * 64 * D * 2 * 5
@@ -348,14 +373,36 @@ def flash_bwd_bound_ms(BH, T, D, elem_bytes, masked, B):
                                                           if masked else 0)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
-def check_flash_backward(torch, fa):
+def rate_note(flops, ms, bound_ms, card):
+    """The achieved rate of a timed kernel (the bound's own FLOP count
+    over its time) and its roofline share (bound over time), against the
+    published peaks, with the card's name and power limit."""
+    return (f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved, roofline "
+            f"share {bound_ms / ms:.4f} (against "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s and "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s; {card})")
+
+
+def same_bits(torch, first, second):
+    """Whether two runs' outputs (sequences of tensors) agree bit for
+    bit."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return all(a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+        for a, b in zip(first, second))
+
+
+def check_flash_backward(torch, fa, card):
     """The backward kernel (csrc/flash_bwd.cu) through its K4-K7
     wrappers against `_flash_bwd_reference` on the same inputs, f32 and
-    bf16; o and lse come from the plain forward. bf16 cases are timed
-    against the backward of scaled_dot_product_attention."""
+    bf16; o and lse come from the plain forward. bf16 cases run twice
+    and must agree bit for bit (the dq pass recomputes instead of adding
+    with atomics), and are timed against the backward of
+    scaled_dot_product_attention."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -449,13 +496,22 @@ def check_flash_backward(torch, fa):
                                         "with its plain version")
             if dtype is not torch.bfloat16:
                 continue
+            again = run()
+            again = list(again) if isinstance(again, tuple) else [again]
+            same = same_bits(torch, grads, again)
+            log(f"check {kern} flash bwd {label} bf16: a second run is "
+                f"{'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise PhaseFailed("2b", f"{kern} {label}: two runs differ")
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, plain)
             lib_ms = grad_ms(torch, lib_out, (lib_q, lib_k, lib_v), lib_do)
-            bound_ms, bound_by = flash_bwd_bound_ms(bh, T, D, 2, masked, nb)
+            bound_ms, bound_by, flops = flash_bwd_bound_ms(bh, T, D, 2,
+                                                           masked, nb)
             log(f"time  {kern} flash bwd {label} bf16: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.5f} ms ({bound_by})")
+                f"{bound_ms:.5f} ms ({bound_by}); "
+                f"{rate_note(flops, ms, bound_ms, card)}")
             records.setdefault(kern, []).append(dict(
                 label=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by))
@@ -469,7 +525,8 @@ def xent_bound_ms(N, d, V, elem_bytes, backward):
     """Least time for the head's function. Forward: x, W, b, labels read
     and loss, lse written once, against 2*N*d*V FLOPs (the logits).
     Backward: x, W, b, labels, lse, g read and dx, dW, db written once,
-    against 6*N*d*V FLOPs (the logits once, then G @ W^T and x^T @ G)."""
+    against 6*N*d*V FLOPs (the logits once, then G @ W^T and x^T @ G).
+    Returns (ms, what bounds it, the FLOPs counted)."""
     nbytes = (N * d + d * V + V) * elem_bytes + N * 4
     if backward:
         nbytes += N * 8 + (N * d + d * V) * elem_bytes + V * 4
@@ -479,15 +536,17 @@ def xent_bound_ms(N, d, V, elem_bytes, backward):
         flops = 2 * N * d * V
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
-def check_xent(torch, fsx):
+def check_xent(torch, fsx, card):
     """K8 and K9 (csrc/softmax_xent.cu) against `_xent_fwd_reference`
     and `_xent_bwd_reference` at the flagship head (N = 32 x 512 tokens,
     d = 256, V = 10000) and at a ragged N = 300, V = 2100, in f32 and
-    bf16. The flagship bf16 case is timed against F.cross_entropy on
-    x @ W + b (forward, and its backward through autograd)."""
+    bf16. bf16 backward runs twice and must agree bit for bit (dW's
+    slices of N are summed in a fixed order, no atomics). The flagship
+    bf16 case is timed against F.cross_entropy on x @ W + b (forward,
+    and its backward through autograd)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -524,7 +583,15 @@ def check_xent(torch, fsx):
             if not ok:
                 raise PhaseFailed("2b", f"K8/K9 {label} {dname} disagrees "
                                         "with its plain version")
-            if dtype is not torch.bfloat16 or N != 16384:
+            if dtype is not torch.bfloat16:
+                continue
+            same = same_bits(torch, grads,
+                             fsx._fused_bwd(x, w, b, labels, rlse, g))
+            log(f"check K9 xent {label} bf16: a second run is "
+                f"{'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise PhaseFailed("2b", f"K9 {label}: two runs differ")
+            if N != 16384:
                 continue
             fwd_ms = time_ms(torch, lambda: fsx._fused_fwd(x, w, b, labels))
             fwd_plain = time_ms(torch, lambda: fsx._xent_fwd_reference(
@@ -542,11 +609,13 @@ def check_xent(torch, fsx):
             for kern, ms, plain_ms, lib_ms, backward in (
                     ("K8", fwd_ms, fwd_plain, fwd_lib, False),
                     ("K9", bwd_ms, bwd_plain, bwd_lib, True)):
-                bound_ms, bound_by = xent_bound_ms(N, d, V, 2, backward)
+                bound_ms, bound_by, flops = xent_bound_ms(N, d, V, 2,
+                                                          backward)
                 log(f"time  {kern} xent {label} bf16: kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, F.cross_entropy "
                     f"{'bwd' if backward else 'fwd'} {lib_ms:.4f} ms, bound "
-                    f"{bound_ms:.5f} ms ({bound_by})")
+                    f"{bound_ms:.5f} ms ({bound_by}); "
+                    f"{rate_note(flops, ms, bound_ms, card)}")
                 records[kern] = [dict(label=label, ms=ms, plain_ms=plain_ms,
                                       library_ms=lib_ms, bound_ms=bound_ms,
                                       bound_by=bound_by)]
@@ -1833,13 +1902,12 @@ def main() -> int:
     log(f"build: {sorted(outputs) or 'up to date'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for src, out in outputs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {src}: {line.strip()}")
+        for line in build_report(out):
+            log(f"build: {src}: {line}")
 
     records = check_kernels(torch, fa)
-    records.update(check_flash_backward(torch, fa))
-    records.update(check_xent(torch, fsx))
+    records.update(check_flash_backward(torch, fa, name_power))
+    records.update(check_xent(torch, fsx, name_power))
     records.update(check_neg_softmax(torch, fns))
     records.update(check_layernorm(torch, fln))
     records.update(check_sampling(torch, fsm))

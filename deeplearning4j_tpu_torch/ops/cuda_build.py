@@ -52,9 +52,13 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether lib<name>.so is missing or older than its source or than
+    any header in csrc/ (the sources include them by name)."""
     lib = lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (SRC_DIR / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [SRC_DIR / f"{name}.cu", *SRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names=None, *, verbose: bool = False) -> dict[str, str]:

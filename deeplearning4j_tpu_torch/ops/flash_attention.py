@@ -38,7 +38,8 @@ reads any [BH, T, D] view whose last dimension is contiguous.
 Dispatch is by the tensor's device only. On a CPU tensor each wrapper
 computes its plain PyTorch version (`_flash_fwd_reference`,
 `_flash_bwd_reference`: f32 softmax math, the backward written out as
-ds = p * (dp - delta)) — this is what the CPU tests run. On a CUDA
+ds = p * (dp - delta), with p and ds rounded to the operand dtype where
+the JAX kernels round them) — this is what the CPU tests run. On a CUDA
 tensor it launches the kernel or raises; nothing falls back. The
 wrappers count kernel launches in `LAUNCHES` (one entry per TPU kernel,
 K1-K7) so a run can show that its main path went through the kernels.
@@ -70,6 +71,10 @@ MAX_FLASH_T = 8192
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_TILE = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the bf16 backward kernels copy tiles into shared memory 16 bytes at a
+# time (csrc/flash_bwd.cu)
+_ALIGN = 16
 
 _MASK_FLOOR = -1e20
 _L_FLOOR = 1e-30
@@ -129,13 +134,18 @@ def _flash_bwd_reference(q, k, v, o, lse, do, kmask, sm_scale, causal):
     """Plain PyTorch version of the backward kernel's function, written
     out (not autograd): q, k, v, o, do [BH, T, D]; lse [BH, T] from the
     forward; kmask [BH, T] or None. In f32: p = exp(s - lse), delta =
-    rowsum(do * o), ds = p * (dp - delta) * sm_scale; returns (dq = ds.k,
-    dk = ds^T.q, dv = p^T.do) in the dtypes of q, k, v."""
+    rowsum(do * o), ds = p * (dp - delta) * sm_scale; p and ds rounded to
+    the operand dtype, then dq = ds.k, dk = ds^T.q, dv = p^T.do (f32
+    sums) in the dtypes of q, k, v."""
     qf, kf, gf = q.float(), k.float(), do.float()
     p = torch.exp(_scores(q, k, kmask, sm_scale, causal) - lse[..., None])
     delta = (gf * o.float()).sum(-1)
     dp = gf @ v.float().transpose(-1, -2)
     ds = p * (dp - delta[..., None]) * sm_scale
+    # P and dS rounded to the operand dtype for the second products, as
+    # the JAX split kernels round them (`_dq_kernel`, `_dkv_kernel`);
+    # the identity in f32
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     return ((ds @ kf).to(q.dtype), (ds.transpose(-1, -2) @ qf).to(k.dtype),
             (p.transpose(-1, -2) @ gf).to(v.dtype))
 
@@ -238,6 +248,28 @@ def _check_launch(views, lse, kmask):
         raise ValueError("flash kernel: kmask must be [B, T] f32 contiguous")
 
 
+def _check_alignment(views):
+    """Raise on what the bf16 kernels cannot copy 16 bytes at a time.
+    views: {name: (data_ptr, shape, element strides, element size)}; a
+    base pointer must be 16-byte aligned, and so must the stride of every
+    dimension but the last of more than one element."""
+    for name, (ptr, shape, strides, size) in views.items():
+        if ptr % _ALIGN:
+            raise ValueError(f"flash kernel: the base pointer of {name} "
+                             f"({ptr:#x}) is not {_ALIGN}-byte aligned")
+        for dim, (n, st) in enumerate(zip(shape[:-1], strides[:-1])):
+            if n > 1 and (st * size) % _ALIGN:
+                raise ValueError(f"flash kernel: {name}'s stride {st} in "
+                                 f"dimension {dim} is {st * size} bytes, "
+                                 f"not a multiple of {_ALIGN}")
+
+
+def _layout(t):
+    """(data_ptr, shape, strides, element size) of a tensor, as
+    `_check_alignment` takes it."""
+    return t.data_ptr(), tuple(t.shape), t.stride(), t.element_size()
+
+
 def _bht(t):
     """Element strides of the b, h and t dimensions of a [B, H, T, D]
     view."""
@@ -278,6 +310,11 @@ def _launch_bwd(q, k, v, o, do, lse, kmask, dq, dk, dv, sm_scale, causal):
     views = {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq, "dk": dk,
              "dv": dv}
     _check_launch(views, lse, kmask)
+    if q.dtype == torch.bfloat16:
+        extra = {"lse": lse} if kmask is None else {"lse": lse,
+                                                    "kmask": kmask}
+        _check_alignment({name: _layout(t)
+                          for name, t in {**views, **extra}.items()})
     B, H, T, D = q.shape
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(

@@ -19,10 +19,13 @@ counterpart here.
 
 Dispatch is by the tensor's device only. On a CPU tensor each wrapper
 computes its plain PyTorch version (`_xent_fwd_reference`,
-`_xent_bwd_reference`: f32 softmax math), which is what the CPU tests
-run. On a CUDA tensor it launches its kernel or raises; nothing falls
-back. The wrappers count their launches in `LAUNCHES` ("K8" the
-forward, "K9" the dx kernel, "K9 dW" the dW/db kernel).
+`_xent_bwd_reference`: f32 softmax math, G rounded to the operand
+dtype for the products as the JAX kernels round it), which is what the
+CPU tests run. On a CUDA tensor it launches its kernel or raises;
+nothing falls back. The wrappers count their launches in `LAUNCHES` ("K8" the
+forward, "K9" the dx kernel, "K9 dW" the dW/db kernel; in bf16 the
+latter splits N into slices whose f32 partials, in a workspace allocated
+here, a second small kernel sums in a fixed order).
 
 What bounds the kernels on the H100 and what their design does about
 it: see the note at the top of csrc/softmax_xent.cu.
@@ -77,14 +80,17 @@ def _xent_fwd_reference(x, w, b, labels):
 
 def _xent_bwd_reference(x, w, b, labels, lse, g):
     """Plain version of K9: G = (softmax(x @ W + b) - onehot) * g in f32,
-    then dx = G @ W^T (x's dtype), dW = x^T @ G (W's dtype) and db =
-    column sums of G (f32)."""
+    rounded to the operand dtype for the two products as the JAX kernels
+    round it (`g.astype(w.dtype)` in `_dx_kernel`, `g.astype(x.dtype)` in
+    `_dwdb_kernel`; the identity in f32); then dx = G @ W^T (x's dtype),
+    dW = x^T @ G (W's dtype) and db = column sums of the f32 G."""
     z = _logits_f32(x, w, b)
     G = torch.exp(z - lse[:, None])
     G[torch.arange(G.shape[0], device=G.device), labels.long()] -= 1.0
     G = G * g.float()[:, None]
-    dx = (G @ w.float().t()).to(x.dtype)
-    dw = (x.float().t() @ G).to(w.dtype)
+    Gr = G.to(x.dtype).float()
+    dx = (Gr @ w.float().t()).to(x.dtype)
+    dw = (x.float().t() @ Gr).to(w.dtype)
     return dx, dw, G.sum(0)
 
 
@@ -95,9 +101,14 @@ _FN_ARGTYPES = {
     + [ctypes.c_void_p],
     "xent_bwd_dx": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
-    "xent_bwd_dwdb": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    "xent_bwd_dwdb": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "xent_dw_slices": [ctypes.c_int] * 3,
 }
+
+# the bf16 kernels copy x and W into shared memory 16 bytes at a time
+# (narrower copies of W where V % 8 != 0, in the same kernel)
+_ALIGN = 16
 
 
 def _kernel(name):
@@ -138,6 +149,16 @@ def _check(x, w, b, labels, *rows):
         raise ValueError("softmax-xent kernel: tensors must be contiguous")
 
 
+def _check_alignment(pointers):
+    """Raise on a base pointer that the bf16 kernels cannot copy 16 bytes
+    at a time. pointers: {name: data_ptr}."""
+    for name, ptr in pointers.items():
+        if ptr % _ALIGN:
+            raise ValueError(f"softmax-xent kernel: the base pointer of "
+                             f"{name} ({ptr:#x}) is not {_ALIGN}-byte "
+                             "aligned")
+
+
 def _run(name, args, x):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -163,10 +184,11 @@ def _fused_fwd(x, w, b, labels):
     return loss, lse
 
 
-
 def _xent_dx(x, w, b, labels, lse, g):
     """K9, first kernel: dx [N, d] in x's dtype."""
     _check(x, w, b, labels, lse, g)
+    if x.dtype == torch.bfloat16:
+        _check_alignment({"x": x.data_ptr(), "W": w.data_ptr()})
     N, d = x.shape
     dx = torch.empty_like(x)
     _run("xent_bwd_dx", [x.data_ptr(), w.data_ptr(), b.data_ptr(),
@@ -177,20 +199,40 @@ def _xent_dx(x, w, b, labels, lse, g):
     return dx
 
 
+def _dw_workspace(x, V):
+    """The bf16 dW/db kernel's f32 workspace: one [d + 1, Vw] partial
+    (dW, then db) per slice of the N reduction, which its reduce kernel
+    sums in a fixed order. Returns (workspace, slices); (None, 0) for
+    f32, whose kernel needs none."""
+    if x.dtype != torch.bfloat16:
+        return None, 0
+    N, d = x.shape
+    with torch.cuda.device(x.device):
+        slices = _kernel("xent_dw_slices")(N, d, V)
+    if slices < 1:
+        raise RuntimeError(f"xent_dw_slices refused N={N} d={d} V={V}")
+    vw = -(-V // 64) * 64
+    return (torch.empty(slices * (d + 1) * vw, dtype=torch.float32,
+                        device=x.device), slices)
+
 
 def _xent_dwdb(x, w, b, labels, lse, g):
     """K9, second kernel: (dW [d, V] in W's dtype, db [V] f32)."""
     _check(x, w, b, labels, lse, g)
+    if x.dtype == torch.bfloat16:
+        _check_alignment({"x": x.data_ptr(), "W": w.data_ptr()})
     N, d = x.shape
     dw = torch.empty_like(w)
     db = torch.empty(w.shape[1], dtype=torch.float32, device=x.device)
+    work, slices = _dw_workspace(x, w.shape[1])
     _run("xent_bwd_dwdb", [x.data_ptr(), w.data_ptr(), b.data_ptr(),
                            labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
                            dw.data_ptr(), db.data_ptr(),
-                           _KERNEL_DTYPES[x.dtype], N, d, w.shape[1]], x)
+                           None if work is None else work.data_ptr(),
+                           slices, _KERNEL_DTYPES[x.dtype], N, d,
+                           w.shape[1]], x)
     LAUNCHES["K9 dW"] += 1
     return dw, db
-
 
 
 def _fused_bwd(x, w, b, labels, lse, g):

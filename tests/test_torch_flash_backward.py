@@ -12,7 +12,11 @@ the function its CUDA kernel computes on the card (chip_smoke.py holds
 the two together there).
 
 Tolerance: float32 on both sides, summed in another order: 2e-5
-absolute on gradients whose entries are O(1).
+absolute on gradients whose entries are O(1). In bfloat16 the JAX split
+kernels round P and dS to bf16 before the second products, and so does
+the port: a gradient entry may then differ by one bf16 rounding (2^-8
+of the largest entry) where an f32 sum differs in its last bit, on at
+most 1% of the entries; without the rounding 12-20% differ.
 """
 
 import jax
@@ -109,6 +113,43 @@ def test_flat_backward_matches_jax(T, split, masked):
     _close([to] + tg, [jo] + jg)
 
 
+@pytest.mark.parametrize("D,masked", [(128, False), (128, True),
+                                      (64, True)])
+def test_split_backward_bf16_matches_jax(D, masked):
+    """bf16 operands: the port's flat backward (`_flash_bwd_impl`, K5's
+    wrapper) against the JAX package's dq/dkv split kernels (interpret
+    mode, forced by `autotune.override`) on the same q, k, v, o, lse and
+    do, where both round P and dS to bf16."""
+    rng = np.random.default_rng(40 + D + masked)
+    BH, T = 2, 256
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((BH, T, D))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    km = _ragged_mask(rng, BH, T) if masked else None
+    tkm = None if km is None else torch.from_numpy(km)
+    scale = D ** -0.5
+    o, lse = tfa._flash_fwd_reference(q, k, v, tkm, scale, True)
+
+    def jx(t):
+        a = jnp.asarray(t.float().numpy())
+        return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+
+    with autotune.override({"flash_bwd": {"block_q": 128, "block_k": 128}}):
+        want = jfa._flash_bwd_impl(
+            jx(q), jx(k), jx(v), jx(o), jx(lse), jx(do),
+            None if km is None else jnp.asarray(km)[:, None, :], scale, True)
+    got = tfa._flash_bwd_impl(q, k, v, o, lse, do,
+                              None if tkm is None else tkm[:, None, :], scale,
+                              True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        assert np.abs(g - w).max() <= 2.0 ** -8 * np.abs(w).max()
+        assert (g != w).mean() <= 0.01
+        if masked:  # the all-masked row: no gradient reaches it
+            assert np.all(g[-1] == 0.0)
+
+
 def test_all_masked_rows_get_zero_gradients():
     """A batch row whose keys are all masked: its queries see no keys,
     so o = 0 there and no gradient reaches q, k or v of that row — in
@@ -169,3 +210,31 @@ def test_backward_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         tfa._launch_bwd(t, t, t, t, t, lse, None, t.clone(), t.clone(),
                         t.clone(), 1.0, True)
+
+
+def _layout(ptr=0x7f0000000000, shape=(2, 2, 512, 128),
+            strides=(512 * 768, 128, 768, 1), size=2):
+    """A [B, H, T, D] bf16 view as `_check_alignment` takes it: by
+    default a head of the packed [B, T, 3n] projection (n = 256)."""
+    return ptr, shape, strides, size
+
+
+@pytest.mark.parametrize("view,match", [
+    (_layout(ptr=0x7f0000000008), "base pointer of q "),
+    (_layout(strides=(512 * 772, 128, 772, 1)), "stride 772 in dimension 2"),
+    (_layout(strides=(512 * 768 + 4, 128, 768, 1)),
+     "stride 393220 in dimension 0"),
+    (_layout(strides=(512 * 768, 132, 768, 1)), "stride 132 in dimension 1"),
+])
+def test_bf16_backward_refuses_misaligned_views(view, match):
+    """The bf16 backward copies rows 16 bytes at a time: a base pointer
+    or a batch, head or token stride off a 16-byte boundary raises a
+    ValueError that names it. A packed projection's head views pass, and
+    so does any stride of a dimension of size 1 (the flat route's
+    [BH, 1, T, D] views)."""
+    tfa._check_alignment({"q": _layout(), "k": _layout(ptr=0x7f0000000200),
+                          "lse": (0x7f0000010000, (4, 512), (512, 1), 4)})
+    tfa._check_alignment({"q": _layout(shape=(4, 1, 512, 64),
+                                       strides=(512 * 64, 3, 64, 1))})
+    with pytest.raises(ValueError, match=match):
+        tfa._check_alignment({"q": view})

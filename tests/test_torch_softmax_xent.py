@@ -12,7 +12,12 @@ vocab chunk).
 
 Tolerance: float32 on both sides, summed in another order: 1e-5
 relative on the loss and 1e-4 relative (1e-6 absolute) on the
-gradients, as the JAX package's own head tests state.
+gradients, as the JAX package's own head tests state. In bfloat16 both
+round G to bf16 before the two products (the JAX kernels' `g.astype`)
+and the results once at the end, so a gradient entry may differ by one
+bf16 rounding (2^-8 of the largest entry) where an f32 sum differs in
+its last bit, on at most 1% of the entries; without the rounding of G
+about a quarter of dx differs.
 """
 
 import jax
@@ -63,6 +68,29 @@ def test_head_matches_jax(head):
     np.testing.assert_allclose(tl, np.asarray(jl), rtol=1e-5, atol=0)
     for a, r in zip(tg, jg):
         np.testing.assert_allclose(a, np.asarray(r), rtol=1e-4, atol=1e-6)
+
+
+def test_head_matches_jax_bf16(head):
+    """bf16 x, W, b: loss and dx, dW, db of the fused head against the
+    JAX package's fused head (interpret mode), where both round G to
+    bf16 for the products."""
+    x, w, b, lab, g = head
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w, b)]
+    jl, vjp = jax.vjp(lambda x, w, b: jax_head(x, w, b, jnp.asarray(lab)),
+                      *jb)
+    jg = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(np.array(a.astype(jnp.float32)))
+          .to(torch.bfloat16).requires_grad_() for a in jb]
+    loss = tfsx.softmax_xent_head(*ts, torch.from_numpy(lab))
+    loss.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl),
+                               rtol=1e-5, atol=0)
+    for t, r in zip(ts, jg):
+        assert t.grad.dtype == torch.bfloat16
+        got = t.grad.float().numpy()
+        want = np.asarray(r.astype(jnp.float32))
+        assert np.abs(got - want).max() <= 2.0 ** -8 * np.abs(want).max()
+        assert (got != want).mean() <= 0.01
 
 
 def test_head_matches_dense_loss(head):
@@ -130,6 +158,17 @@ def test_kernel_wrappers_refuse_cpu_tensors(head):
         tfsx._xent_dx(x, w, b, lab, lse, g)
     with pytest.raises(ValueError, match="CUDA device"):
         tfsx._xent_dwdb(x, w, b, lab, lse, g)
+
+
+@pytest.mark.parametrize("name,ptr", [("x", 0x7f0000000008),
+                                      ("W", 0x7f0000000004)])
+def test_bf16_kernels_refuse_misaligned_base_pointers(name, ptr):
+    """The bf16 kernels copy x and W 16 bytes at a time: a base pointer
+    off a 16-byte boundary raises a ValueError that names the operand;
+    aligned ones pass."""
+    tfsx._check_alignment({"x": 0x7f0000000000, "W": 0x7f0000000100})
+    with pytest.raises(ValueError, match=f"base pointer of {name} "):
+        tfsx._check_alignment({name: ptr})
 
 
 _LOSSES = sorted(jlosses.KNOWN_LOSSES)
