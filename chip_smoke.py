@@ -20,15 +20,23 @@ Phases, each of which exits non-zero when it fails:
    (flat, masked), K2 (packed qkv) and K3 (packed, head_dim 64) at the
    shapes serving, the full forward and training give it (K1 at
    BH=2 T<=1024, BH=96 T=512 D=64 and BH=8 T=4096; K2/K3 at B=8 and
-   B=32), in float32 and bfloat16, against `_flash_fwd_reference` on
-   the same inputs; the kernel, the plain version and
+   B=32), at head dims 32 and 256 (K1 BH=16 T=1024 D=32 and BH=4 T=1024
+   D=256, masked; K2 B=8 T=512 H=2 D=256) and at B*H = 65600 (T=64
+   D=32), in float32 and bfloat16, against `_flash_fwd_reference` on
+   the same inputs. Each bf16 case runs a second time and must repeat
+   bit for bit; the kernel, the plain version and
    `scaled_dot_product_attention` (the library yardstick, which the
-   port never calls) are timed with CUDA events.
+   port never calls) are timed with CUDA events, the kernel and SDPA
+   also by their device time per launch (torch.profiler), with the
+   achieved TFLOP/s and roofline share beside the card's name and power
+   limit.
 2b. Training kernels vs plain version, f32 and bf16: the flash backward
    (K6 packed B=32 T=512 H=2 D=128, K7 packed H=4 D=64, K4 flat T=512
    at BH=96 D=64 and BH=8 D=128, K5 flat BH=8 at T=2048 and T=4096,
-   the flat cases masked with one all-masked row) against
-   `_flash_bwd_reference`, timed against the backward of
+   K5 flat BH=16 T=1024 D=32 and BH=4 T=1024 D=256, K6 packed B=8 T=512
+   H=2 D=256, K4 flat BH=65600 T=64 D=32; the flat cases masked with
+   one all-masked row) against `_flash_bwd_reference`, timed (CUDA
+   events and device time per launch) against the backward of
    `scaled_dot_product_attention`; the softmax-xent head (K8 forward,
    K9 backward) at N=16384 d=256 V=10000 and a ragged N=300 V=2100
    against `_xent_fwd_reference` / `_xent_bwd_reference`, timed against
@@ -54,8 +62,12 @@ Phases, each of which exits non-zero when it fails:
    K9 = 20; step time, tokens/s, MFU, peak memory and a profile of one
    step.
 7. The other training routes at 2 layers and 2 steps: "transformer_d64"
-   (K3/K7), the flat route at T=512 with 3 heads of 64 (K1/K4) and
-   "longcontext" T=4096 batch 4 with the padding mask (K1/K5).
+   (K3/K7), the flat route at T=512 with 3 heads of 64 (K1/K4),
+   "longcontext" T=4096 batch 4 with the padding mask (K1/K5), and the
+   head dims of fault C1 at T=512 batch 32: 8 heads of 32 at d_model
+   256 (the flat route, K1/K4) and 2 heads of 256 at d_model 512 (the
+   packed route, K2/K6). Every flash launch count is exact, and K8/K9
+   launch once a step where the fused head takes the shape.
 8. f32 gradient oracle: one step's gradients of a 2-layer flagship-width
    LM through the kernels and through the plain versions (called
    directly) agree.
@@ -109,6 +121,9 @@ Phases, each of which exits non-zero when it fails:
    rounds of 3 arms): every metric line printed, both parity rows 0, and
    exactly 21 K12 launches (the sampling microbench's warm call and 20
    timed ones).
+
+After phases 3-16, no attention call on the card may have taken the
+dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13), the
 card's name and power limit as nvidia-smi gives them, and `{"ok": true,
@@ -187,15 +202,15 @@ def time_ms(torch, fn, windows=5, per_window=20):
 def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops):
     """Least time for the function: q, k, v read and o written once (lse
     written, the key mask read) over the memory rate, against the
-    operations the kernel executes over the peak rate: QK^T and PV on
-    every 64 x 64 tile up to the causal bound."""
-    tiles = T // 64
-    pairs = tiles * (tiles + 1) // 2 if causal else tiles * tiles
-    flops = BH * pairs * 64 * 64 * D * 4
+    function's own operations over the peak rate: QK^T and PV over the
+    T(T+1)/2 visible (query, key) pairs when causal, all T^2 otherwise,
+    2D each. Returns (ms, what bounds it, the FLOPs counted)."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    flops = BH * pairs * D * 4
     nbytes = BH * T * D * elem_bytes * 4 + BH * T * 4 * (2 if masked else 1)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
 def build_report(out):
@@ -221,10 +236,14 @@ def build_report(out):
 
 # ------------------------------------------------------------- phase 2
 
-def check_kernels(torch, fa):
+def check_kernels(torch, fa, card):
     """Each case in both dtypes: the kernel against the plain version on
-    the same inputs, then (bf16, the serving dtype) the timings.
-    Returns per-kernel lists of records for the kernels line."""
+    the same inputs; then, in bf16 (the serving and training dtype), a
+    second run that must repeat bit for bit (the forward has no atomics)
+    and the timings: CUDA-event time of the kernel, the plain version
+    and SDPA, the device time per launch of the kernel and of SDPA, and
+    the achieved rate on the device time. Returns per-kernel lists of
+    records for the kernels line."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -261,6 +280,16 @@ def check_kernels(torch, fa):
                       dict(B=B, T=512, H=2, D=128)))
         cases.append(("K3", f"packed B={B} T=512 H=4 D=64",
                       dict(B=B, T=512, H=4, D=64)))
+    # head dims 32 and 256 (fault C1), and B*H past the 65535 blocks of a
+    # grid's y dimension
+    cases += [("K1", "flat masked causal BH=16 T=1024 D=32",
+               dict(BH=16, T=1024, D=32, masked=True)),
+              ("K1", "flat masked causal BH=4 T=1024 D=256",
+               dict(BH=4, T=1024, D=256, masked=True)),
+              ("K2", "packed B=8 T=512 H=2 D=256",
+               dict(B=8, T=512, H=2, D=256)),
+              ("K1", "flat unmasked causal BH=65600 T=64 D=32",
+               dict(BH=65600, T=64, D=32, masked=False))]
 
     for kern, label, c in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -272,28 +301,34 @@ def check_kernels(torch, fa):
                 q, k, v = (rand(BH, T, D).to(dtype) for _ in range(3))
                 km = ragged_mask(BH, T) if c["masked"] else None
                 km3 = None if km is None else km[:, None, :]
-                o, lse = fa.flash_attention_lse_masked(q, k, v, km3, scale,
-                                                       True)
-                ro, rlse = fa._flash_fwd_reference(q, k, v, km, scale, True)
-                run = lambda: fa.flash_attention_lse_masked(  # noqa: E731
+                fwd = lambda: fa.flash_attention_lse_masked(  # noqa: E731
                     q, k, v, km3, scale, True)
+                o, lse = fwd()
+                ro, rlse = fa._flash_fwd_reference(q, k, v, km, scale, True)
+                run = fwd
                 plain = lambda: fa._flash_fwd_reference(  # noqa: E731
                     q, k, v, km, scale, True)
+                # SDPA on [2, BH/2, T, D] views: no grid dimension of its
+                # kernels then meets B*H = 65600
+                q4, k4, v4 = (t.view(2, BH // 2, T, D) for t in (q, k, v))
                 if km is None:
                     lib = lambda: F.scaled_dot_product_attention(  # noqa
-                        q, k, v, is_causal=True)
+                        q4, k4, v4, is_causal=True)
                 else:
                     allowed = torch.ones(T, T, dtype=torch.bool,
                                          device=dev).tril()[None] \
                         & (km[:, None, :] > 0)
+                    allowed = allowed.view(2, BH // 2, T, T)
                     lib = lambda: F.scaled_dot_product_attention(  # noqa
-                        q, k, v, attn_mask=allowed)
+                        q4, k4, v4, attn_mask=allowed)
                 bh, masked = BH, km is not None
             else:
                 B, H = c["B"], c["H"]
                 n = H * D
                 qkv = rand(B, T, 3 * n).to(dtype)
-                o, lse = fa._flash_fwd_qkv(qkv, H, None, scale, True)
+                fwd = lambda: fa._flash_fwd_qkv(  # noqa: E731
+                    qkv, H, None, scale, True)
+                o, lse = fwd()
                 ro, rlse = fa._flash_fwd_qkv_reference(qkv, H, None, scale,
                                                        True)
                 run = lambda: fa.flash_attention_qkv(qkv, H)  # noqa: E731
@@ -322,17 +357,28 @@ def check_kernels(torch, fa):
                                      "with its plain version")
             if dtype is not torch.bfloat16:
                 continue
+            same = same_bits(torch, (o, lse), fwd())
+            log(f"check {kern} {label} bf16: a second run is "
+                f"{'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise PhaseFailed(2, f"{kern} {label}: two runs differ")
             ms = time_ms(torch, run)
+            dev_ms = kernel_device_ms(torch, run)
             plain_ms = time_ms(torch, plain)
             lib_ms = time_ms(torch, lib)
-            bound_ms, bound_by = flash_bound_ms(bh, T, D, 2, True, masked,
-                                                PEAK_BF16_FLOPS)
-            log(f"time  {kern} {label} bf16: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.5f} ms ({bound_by})")
-            records[kern].append(dict(label=label, err=err_o, ms=ms,
-                                      plain_ms=plain_ms, library_ms=lib_ms,
-                                      bound_ms=bound_ms, bound_by=bound_by))
+            lib_dev_ms = kernel_device_ms(torch, lib)
+            bound_ms, bound_by, flops = flash_bound_ms(
+                bh, T, D, 2, True, masked, PEAK_BF16_FLOPS)
+            log(f"time  {kern} {label} bf16: kernel {ms:.4f} ms (device "
+                f"{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)}), bound "
+                f"{bound_ms:.5f} ms ({bound_by}); "
+                f"{rate_on(flops, ms, dev_ms, bound_ms, card)}")
+            records[kern].append(dict(
+                label=label, err=err_o, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
     return records
 
 
@@ -364,11 +410,10 @@ def flash_bwd_bound_ms(BH, T, D, elem_bytes, masked, B):
     """Least time for the backward function: q, k, v, o, do read and dq,
     dk, dv written once (lse read; the key mask read) over the memory
     rate, against its five causal T x T x D products (s, dp, dv, dk, dq
-    on every 64 x 64 tile up to the diagonal) over the bf16 peak.
-    Returns (ms, what bounds it, the FLOPs counted)."""
-    tiles = T // 64
-    pairs = tiles * (tiles + 1) // 2
-    flops = BH * pairs * 64 * 64 * D * 2 * 5
+    over the T(T+1)/2 visible (query, key) pairs, 2D each) over the bf16
+    peak. Returns (ms, what bounds it, the FLOPs counted)."""
+    pairs = T * (T + 1) // 2
+    flops = BH * pairs * D * 2 * 5
     nbytes = BH * T * D * elem_bytes * 8 + BH * T * 4 + (B * T * 4
                                                           if masked else 0)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
@@ -384,6 +429,14 @@ def rate_note(flops, ms, bound_ms, card):
             f"share {bound_ms / ms:.4f} (against "
             f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s and "
             f"{PEAK_BYTES / 1e12:.2f} TB/s; {card})")
+
+
+def rate_on(flops, ms, dev_ms, bound_ms, card):
+    """`rate_note` on the device time per launch where the profiler gave
+    one, else on the CUDA-event time, saying which."""
+    on = "device" if dev_ms else "event"
+    return f"on the {on} time: " + rate_note(flops, dev_ms or ms, bound_ms,
+                                              card)
 
 
 def same_bits(torch, first, second):
@@ -415,6 +468,8 @@ def check_flash_backward(torch, fa, card):
     # at T = 512 (batch 32 x 3 heads of 64, K4) and long context (batch 4
     # x 2 heads, T = 4096, K5), masked with one all-masked row; K4 at
     # D = 128 and K5 at T = 2048 besides
+    # head dims 32 and 256 (fault C1) on both layouts, and B*H past the
+    # 65535 blocks of a grid's y dimension
     cases = [("K6", "packed B=32 T=512 H=2 D=128", dict(B=32, T=512, H=2,
                                                          D=128)),
              ("K7", "packed B=32 T=512 H=4 D=64", dict(B=32, T=512, H=4,
@@ -426,7 +481,15 @@ def check_flash_backward(torch, fa, card):
              ("K5", "flat masked BH=8 T=2048 D=128", dict(BH=8, T=2048,
                                                            D=128)),
              ("K5", "flat masked BH=8 T=4096 D=128", dict(BH=8, T=4096,
-                                                           D=128))]
+                                                           D=128)),
+             ("K5", "flat masked BH=16 T=1024 D=32", dict(BH=16, T=1024,
+                                                           D=32)),
+             ("K5", "flat masked BH=4 T=1024 D=256", dict(BH=4, T=1024,
+                                                           D=256)),
+             ("K6", "packed B=8 T=512 H=2 D=256", dict(B=8, T=512, H=2,
+                                                        D=256)),
+             ("K4", "flat masked BH=65600 T=64 D=32", dict(BH=65600, T=64,
+                                                            D=32))]
     records, worst = {}, {}
     for kern, label, c in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -472,13 +535,16 @@ def check_flash_backward(torch, fa, card):
                     q, k, v, o, lse, do, km3, scale, True)
                 plain = lambda: fa._flash_bwd_reference(  # noqa: E731
                     q, k, v, o, lse, do, km, scale, True)
-                lib_q, lib_k, lib_v = (t[None].clone().requires_grad_()
-                                       for t in (q, k, v))
+                # SDPA on [2, BH/2, T, D] copies (see phase 2)
+                lib_q, lib_k, lib_v = (
+                    t.view(2, BH // 2, T, D).clone().requires_grad_()
+                    for t in (q, k, v))
                 allowed = (torch.ones(T, T, dtype=torch.bool, device=dev)
                            .tril()[None] & (km[:, None, :] > 0))
                 lib_out = F.scaled_dot_product_attention(
-                    lib_q, lib_k, lib_v, attn_mask=allowed[None])
-                lib_do = do[None]
+                    lib_q, lib_k, lib_v,
+                    attn_mask=allowed.view(2, BH // 2, T, T))
+                lib_do = do.view(2, BH // 2, T, D)
                 bh, masked, nb = BH, True, BH
             torch.cuda.synchronize()
             err_abs, err = (max(e) for e in zip(
@@ -504,16 +570,22 @@ def check_flash_backward(torch, fa, card):
             if not same:
                 raise PhaseFailed("2b", f"{kern} {label}: two runs differ")
             ms = time_ms(torch, run)
+            dev_ms = kernel_device_ms(torch, run)
             plain_ms = time_ms(torch, plain)
-            lib_ms = grad_ms(torch, lib_out, (lib_q, lib_k, lib_v), lib_do)
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                lib_out, (lib_q, lib_k, lib_v), lib_do, retain_graph=True)
+            lib_ms = time_ms(torch, lib_bwd)
+            lib_dev_ms = kernel_device_ms(torch, lib_bwd)
             bound_ms, bound_by, flops = flash_bwd_bound_ms(bh, T, D, 2,
                                                            masked, nb)
-            log(f"time  {kern} flash bwd {label} bf16: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
+            log(f"time  {kern} flash bwd {label} bf16: kernel {ms:.4f} ms "
+                f"(device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa "
+                f"bwd {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)}), bound "
                 f"{bound_ms:.5f} ms ({bound_by}); "
-                f"{rate_note(flops, ms, bound_ms, card)}")
+                f"{rate_on(flops, ms, dev_ms, bound_ms, card)}")
             records.setdefault(kern, []).append(dict(
-                label=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                label=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
                 bound_ms=bound_ms, bound_by=bound_by))
     for kern, recs in records.items():
         for rec in recs:
@@ -925,24 +997,35 @@ def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
     return launches
 
 
-def train_other_paths(torch, counters, transformer_lm, DataSet):
+def train_other_paths(torch, counters, transformer_lm, DataSet, fsx):
     """The other attention routes at reduced depth (2 layers, 2 steps):
     packed head_dim 64 (K3/K7), the flat route at T = 512 with an odd
-    head count (K1/K4), and long context T = 4096 with the padding mask
-    (K1/K5)."""
-    # (label, config, launches each must show over 2 layers x 2 steps);
-    # d_model 192 is not a multiple of 128, so that run scores on the
-    # dense head and launches no K8/K9
+    head count (K1/K4), long context T = 4096 with the padding mask
+    (K1/K5), and the head dims of fault C1: 8 heads of 32 (the flat
+    route, K1/K4) and 2 heads of 256 (the packed route, K2/K6)."""
+    # (label, config, launches each must show over 2 layers x 2 steps;
+    # every other flash kernel must show none). K8/K9 launch once a step
+    # where the fused head takes the shape: d_model 192 is not a multiple
+    # of 128, so that run scores on the dense head; the head's `supports`
+    # must agree with each run's count
     runs = [
         ("transformer_d64", dict(d_model=256, n_heads=4, seq=512, batch=32,
                                  masked=False),
          {"K3": 4, "K7": 4, "K8": 2, "K9": 2}),
         ("flat T=512 (3 heads of 64)", dict(d_model=192, n_heads=3, seq=512,
                                             batch=32, masked=False),
-         {"K1": 4, "K4": 4}),
+         {"K1": 4, "K4": 4, "K8": 0, "K9": 0}),
         ("longcontext masked", dict(d_model=256, n_heads=2, seq=4096,
                                     batch=4, masked=True),
          {"K1": 4, "K5": 4, "K8": 2, "K9": 2}),
+        ("head dim 32 (8 heads of 32)", dict(d_model=256, n_heads=8,
+                                             seq=512, batch=32,
+                                             masked=False),
+         {"K1": 4, "K4": 4, "K8": 2, "K9": 2}),
+        ("head dim 256 (2 heads of 256)", dict(d_model=512, n_heads=2,
+                                               seq=512, batch=32,
+                                               masked=False),
+         {"K2": 4, "K6": 4, "K8": 2, "K9": 2}),
     ]
     totals = {}
     for label, c, want in runs:
@@ -953,6 +1036,12 @@ def train_other_paths(torch, counters, transformer_lm, DataSet):
                              device="cuda").init(SEED)
         ds = lm_batch(DataSet, TRAIN["vocab_size"], c["batch"], c["seq"],
                       masked=c["masked"])
+        fused = fsx.supports(c["batch"] * c["seq"], c["d_model"],
+                             TRAIN["vocab_size"])
+        if fused != (want["K8"] > 0):
+            raise PhaseFailed(7, f"{label}: the fused head's supports says "
+                                 f"{fused}, expected {want['K8'] > 0}")
+        want = {**{f"K{i}": 0 for i in range(1, 8)}, **want}
         counters.reset()
         t0 = time.perf_counter()
         net.fit_scanned(ds, epochs=2)
@@ -1905,7 +1994,7 @@ def main() -> int:
         for line in build_report(out):
             log(f"build: {src}: {line}")
 
-    records = check_kernels(torch, fa)
+    records = check_kernels(torch, fa, name_power)
     records.update(check_flash_backward(torch, fa, name_power))
     records.update(check_xent(torch, fsx, name_power))
     records.update(check_neg_softmax(torch, fns))
@@ -1931,13 +2020,19 @@ def main() -> int:
     train_launches = train_flagship(torch, counters, transformer_lm,
                                     DataSet, flops, name_power)
     other_launches = train_other_paths(torch, counters, transformer_lm,
-                                       DataSet)
+                                       DataSet, fsx)
     grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx)
     w2v_launches = train_word2vec(torch, counters, Word2Vec, name_power)
     engine_launches = train_engine(torch, counters, ShardedEmbeddingEngine,
                                    name_power)
     engine_oracle(torch, counters, ShardedEmbeddingEngine, fns)
     replay_launches = speculative_replay(torch, counters, name_power)
+    # every path above runs head dims the kernels take: none may have
+    # been sent to the dense attention for its head dim
+    log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
+    if fa.DENSE_ROUTES["head_dim"]:
+        raise PhaseFailed("3-16", f"{fa.DENSE_ROUTES['head_dim']} attention "
+                              "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
     # it (K12 at the replay's microbench block); launches summed over the
@@ -2006,8 +2101,8 @@ def main() -> int:
             "max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["label"],
-            **({"device_ms": rec["device_ms"]} if "device_ms" in rec
-               else {})})
+            **{k: rec[k] for k in ("device_ms", "library_device_ms")
+               if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

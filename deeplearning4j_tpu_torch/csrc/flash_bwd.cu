@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): one source for the flat
-// [BH, T, D] layout and the packed [B, T, 3n] projection layout, at any
-// T that is a multiple of 64.
+// [BH, T, D] layout and the packed [B, T, 3n] projection layout, at head
+// dims 32, 64, 128 and 256 and any T that is a multiple of 64.
 //
 // Replaces the TPU kernels (deeplearning4j_tpu/ops/flash_attention.py)
 //   `_flash_bwd_fused` -> `_bwd_fused_kernel` (flat, T <= 512; K4),
@@ -33,6 +33,9 @@
 // the packed route reads q|k|v as column slices of [B, T, 3n] and writes
 // dq|dk|dv into one [B, T, 3n] gradient in place (no concatenate). lse
 // and the delta scratch are [B*H, T] f32; the key mask is [B, T] f32.
+// The grids are one dimension: block x is (b*h, tile) with the tile in
+// the low bits (the heaviest causal tile first), so B*H is bounded only
+// by 2^31 blocks.
 //
 // Design: the FA2 split, three launches on one stream, in both types.
 //   1. delta: one warp per (b, h, t) row.
@@ -67,18 +70,29 @@
 // the A fragments of dv += P^T dO and dk += dS^T Q; dk and dv stay in
 // registers (2 x 16 x D f32 per warp: 128 a thread at D = 128). dq
 // keeps 16 x D f32 per warp. Shared memory: six [64][D] bf16 tiles
-// (96 KB at D = 128, 48 KB at D = 64) and 1 KB of row data: two blocks
-// an SM at D = 128. Registers a thread (ptxas, no spills): dk/dv 249
-// and dq 244 at D = 128, 196 and 217 at D = 64, so two blocks of 128
-// threads an SM. The wrapper checks that every base pointer and stride
-// is 16-byte aligned, as the copies need.
+// (96 KB at D = 128, 48 KB at D = 64, 24 KB at D = 32) and 1 KB of row
+// data: two blocks an SM at D = 128. Registers a thread (ptxas, no
+// spills): dk/dv 249 and dq 244 at D = 128, 196 and 217 at D = 64, so
+// two blocks of 128 threads an SM. The wrapper checks that every base
+// pointer and stride is 16-byte aligned, as the copies need. At D = 32
+// the tiles' rows are 64 bytes, which `tc::swz` swizzles within their 4
+// chunks.
 //
 // f32 (`dkv_kernel`, `dq_kernel`): scalar kernels on the CUDA cores,
 // kept because TF32 tensor cores would not hold f32's 1e-4 agreement.
 // 256 threads;
-// K and V (or Q and dO) resident as f32, the 64 x 64 score and dp tiles
-// formed with scalar FMAs (4 x 4 a thread), p and ds exchanged through
-// shared memory, rows padded by one float against bank conflicts.
+// K and V (or Q and dO) resident as f32, the BT x BT score and dp tiles
+// formed with scalar FMAs (BT/16 x BT/16 a thread), p and ds exchanged
+// through shared memory, rows padded by one float against bank
+// conflicts. BT = 64, except at D = 256, where four [64][257] f32 tiles
+// (263 KB) would not fit a block and the tensor-core kernels would hold
+// 256 f32 of dk and dv a thread: there both types take these scalar
+// kernels with BT = 32 (140,416 bytes of shared memory), and in bf16
+// they round p and ds to bf16 before the second products as the tensor-
+// core kernels do. That D = 256 pair is right, not fast: its redesign is
+// queued (ROADMAP Queue B).
+
+#include <climits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,8 +101,6 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
 constexpr int NTHREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
@@ -100,6 +112,16 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and back (the identity in f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
 }
 
 // element strides (batch, head, token) of one tensor
@@ -161,92 +183,109 @@ __global__ void __launch_bounds__(NTHREADS) delta_kernel(Args a) {
   if (lane == 0) a.delta[row] = s;
 }
 
-// a [64, D] tile of rows r0.. of a strided tensor into shared memory (f32)
-template <typename T, int D>
+// (b*h, tile index) of this block: tiles in the low bits, in launch
+// order `tile` (ascending) or its reverse
+struct BlockTile {
+  int bh, b, h, tile;
+};
+
+__device__ __forceinline__ BlockTile block_tile(const Args& a, int n_t,
+                                                bool reverse) {
+  const int i = (int)(blockIdx.x % n_t);
+  const int bh = (int)(blockIdx.x / n_t);
+  return BlockTile{bh, bh / a.H, bh % a.H, reverse ? n_t - 1 - i : i};
+}
+
+// a [BT, D] tile of rows r0.. of a strided tensor into shared memory (f32)
+template <typename T, int D, int BT>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long st, int r0) {
-  for (int i = threadIdx.x; i < 64 * D; i += NTHREADS) {
+  for (int i = threadIdx.x; i < BT * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] = to_float(src[(long long)(r0 + r) * st + c]);
   }
 }
 
-// s = Qt . Kt^T and dp = dOt . Vt^T on a 64 x 64 tile: rows ty + 16i,
-// columns tx + 16j. Then p and ds into shared memory ([row][col]).
-template <int D>
+// s = Qt . Kt^T and dp = dOt . Vt^T on a BT x BT tile: rows ty + 16i,
+// columns tx + 16j. Then p and ds (rounded to T, as the tensor-core
+// kernels round them) into shared memory ([row][col]).
+template <typename T, int D, int BT>
 __device__ __forceinline__ void p_ds_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* dl_s, const float* km_s, float* Ps,
     float* dSs, int q0, int k0, bool masked, const Args& a) {
+  constexpr int R = BT / 16;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[4], gv[4], kv[4], vv[4];
+    float qv[R], gv[R], kv[R], vv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
       gv[i] = dOs[(ty + 16 * i) * (D + 1) + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
       vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int c = tx + 16 * j;
       float x = a.sm_scale * s[i][j];
       if (a.causal && k0 + c > q0 + r) x = NEG_INF;
       if (masked && !(km_s[c] > 0.f)) x = NEG_INF;
       const float p = expf(x - lse_s[r]);
-      Ps[r * (BK + 1) + c] = p;
-      dSs[r * (BK + 1) + c] = p * (dp[i][j] - dl_s[r]) * a.sm_scale;
+      Ps[r * (BT + 1) + c] = round_to<T>(p);
+      dSs[r * (BT + 1) + c] =
+          round_to<T>(p * (dp[i][j] - dl_s[r]) * a.sm_scale);
     }
   }
 }
 
-template <int D>
+template <int D, int BT>
 constexpr size_t smem_bytes() {
-  // four [64][D+1] tiles, p and ds [64][65], lse, delta, key mask
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * (BK + 1) + 3 * 64);
+  // four [BT][D+1] tiles, p and ds [BT][BT+1], lse, delta, key mask
+  return sizeof(float) * (4 * BT * (D + 1) + 2 * BT * (BT + 1) + 3 * BT);
 }
 
-template <typename T, int D>
+template <typename T, int D, int BT>
 __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   constexpr int NJ = D / 16;
+  constexpr int R = BT / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * (D + 1);
-  float* Qs = Vs + BK * (D + 1);
-  float* dOs = Qs + BQ * (D + 1);
-  float* Ps = dOs + BQ * (D + 1);
-  float* dSs = Ps + BQ * (BK + 1);
-  float* lse_s = dSs + BQ * (BK + 1);
-  float* dl_s = lse_s + BQ;
-  float* km_s = dl_s + BQ;
+  float* Vs = Ks + BT * (D + 1);
+  float* Qs = Vs + BT * (D + 1);
+  float* dOs = Qs + BT * (D + 1);
+  float* Ps = dOs + BT * (D + 1);
+  float* dSs = Ps + BT * (BT + 1);
+  float* lse_s = dSs + BT * (BT + 1);
+  float* dl_s = lse_s + BT;
+  float* km_s = dl_s + BT;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int kt = blockIdx.x;
-  const int k0 = kt * BK;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
+  const int n_t = a.T / BT;
+  // key tile 0 meets the most causal query tiles: ascending order
+  const BlockTile bt = block_tile(a, n_t, false);
+  const int kt = bt.tile, k0 = kt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
 
   const T* qp = at<T>(a.q, a.st[Q], b, h);
@@ -254,47 +293,46 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   const T* vp = at<T>(a.v, a.st[V], b, h);
   const T* gp = at<T>(a.dout, a.st[DO], b, h);
 
-  load_tile<T, D>(Ks, kp, a.st[K].t, k0);
-  load_tile<T, D>(Vs, vp, a.st[V].t, k0);
-  if (tid < BK)
+  load_tile<T, D, BT>(Ks, kp, a.st[K].t, k0);
+  load_tile<T, D, BT>(Vs, vp, a.st[V].t, k0);
+  if (tid < BT)
     km_s[tid] = masked ? a.kmask[(long long)b * a.T + k0 + tid] : 1.f;
 
-  float dk[4][NJ], dv[4][NJ];
+  float dk[R][NJ], dv[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int n_qt = a.T / BQ;
-  for (int qt = a.causal ? kt : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
+  for (int qt = a.causal ? kt : 0; qt < n_t; ++qt) {
+    const int q0 = qt * BT;
     __syncthreads();  // the previous tile's readers of Qs, dOs, Ps are done
-    load_tile<T, D>(Qs, qp, a.st[Q].t, q0);
-    load_tile<T, D>(dOs, gp, a.st[DO].t, q0);
-    if (tid < BQ) {
+    load_tile<T, D, BT>(Qs, qp, a.st[Q].t, q0);
+    load_tile<T, D, BT>(dOs, gp, a.st[DO].t, q0);
+    if (tid < BT) {
       lse_s[tid] = a.lse[(long long)bh * a.T + q0 + tid];
       dl_s[tid] = a.delta[(long long)bh * a.T + q0 + tid];
     }
     __syncthreads();
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
-                 masked, a);
+    p_ds_tile<T, D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
+                        masked, a);
     __syncthreads();
     // dv[c] += sum_r p[r][c] do[r];  dk[c] += sum_r ds[r][c] q[r]
     // (keys c = ty + 16i, head columns tx + 16j)
 #pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      float pv[4], sv[4];
+    for (int r = 0; r < BT; ++r) {
+      float pv[R], sv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * (BK + 1) + ty + 16 * i];
-        sv[i] = dSs[r * (BK + 1) + ty + 16 * i];
+      for (int i = 0; i < R; ++i) {
+        pv[i] = Ps[r * (BT + 1) + ty + 16 * i];
+        sv[i] = dSs[r * (BT + 1) + ty + 16 * i];
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float g = dOs[r * (D + 1) + tx + 16 * j];
         const float qv = Qs[r * (D + 1) + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           dv[i][j] = fmaf(pv[i], g, dv[i][j]);
           dk[i][j] = fmaf(sv[i], qv, dk[i][j]);
         }
@@ -305,7 +343,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   T* dkp = at_mut<T>(a.dk, a.st[DK], b, h);
   T* dvp = at_mut<T>(a.dv, a.st[DV], b, h);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const long long t = k0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -315,73 +353,74 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int BT>
 __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   constexpr int NJ = D / 16;
+  constexpr int R = BT / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BQ * (D + 1);
-  float* Ks = dOs + BQ * (D + 1);
-  float* Vs = Ks + BK * (D + 1);
-  float* Ps = Vs + BK * (D + 1);
-  float* dSs = Ps + BQ * (BK + 1);
-  float* lse_s = dSs + BQ * (BK + 1);
-  float* dl_s = lse_s + BQ;
-  float* km_s = dl_s + BQ;
+  float* dOs = Qs + BT * (D + 1);
+  float* Ks = dOs + BT * (D + 1);
+  float* Vs = Ks + BT * (D + 1);
+  float* Ps = Vs + BT * (D + 1);
+  float* dSs = Ps + BT * (BT + 1);
+  float* lse_s = dSs + BT * (BT + 1);
+  float* dl_s = lse_s + BT;
+  float* km_s = dl_s + BT;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int qt = blockIdx.x;
-  const int q0 = qt * BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
+  const int n_t = a.T / BT;
+  // the last query tile meets the most causal key tiles: reverse order
+  const BlockTile bt = block_tile(a, n_t, true);
+  const int qt = bt.tile, q0 = qt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
 
   const T* kp = at<T>(a.k, a.st[K], b, h);
   const T* vp = at<T>(a.v, a.st[V], b, h);
-  load_tile<T, D>(Qs, at<T>(a.q, a.st[Q], b, h), a.st[Q].t, q0);
-  load_tile<T, D>(dOs, at<T>(a.dout, a.st[DO], b, h), a.st[DO].t, q0);
-  if (tid < BQ) {
+  load_tile<T, D, BT>(Qs, at<T>(a.q, a.st[Q], b, h), a.st[Q].t, q0);
+  load_tile<T, D, BT>(dOs, at<T>(a.dout, a.st[DO], b, h), a.st[DO].t, q0);
+  if (tid < BT) {
     lse_s[tid] = a.lse[(long long)bh * a.T + q0 + tid];
     dl_s[tid] = a.delta[(long long)bh * a.T + q0 + tid];
   }
 
-  float dq[4][NJ];
+  float dq[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dq[i][j] = 0.f;
 
-  const int n_kt = a.causal ? qt + 1 : a.T / BK;
+  const int n_kt = a.causal ? qt + 1 : n_t;
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * BT;
     __syncthreads();  // the previous tile's readers of Ks, Vs, dSs are done
-    load_tile<T, D>(Ks, kp, a.st[K].t, k0);
-    load_tile<T, D>(Vs, vp, a.st[V].t, k0);
-    if (tid < BK)
+    load_tile<T, D, BT>(Ks, kp, a.st[K].t, k0);
+    load_tile<T, D, BT>(Vs, vp, a.st[V].t, k0);
+    if (tid < BT)
       km_s[tid] = masked ? a.kmask[(long long)b * a.T + k0 + tid] : 1.f;
     __syncthreads();
-    p_ds_tile<D>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
-                 masked, a);
+    p_ds_tile<T, D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
+                        masked, a);
     __syncthreads();
     // dq[r] += sum_c ds[r][c] k[c]  (rows r = ty + 16i, columns tx + 16j)
 #pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float sv[4];
+    for (int c = 0; c < BT; ++c) {
+      float sv[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * (BK + 1) + c];
+      for (int i = 0; i < R; ++i) sv[i] = dSs[(ty + 16 * i) * (BT + 1) + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const float kv = Ks[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][j] = fmaf(sv[i], kv, dq[i][j]);
+        for (int i = 0; i < R; ++i) dq[i][j] = fmaf(sv[i], kv, dq[i][j]);
       }
     }
   }
 
   T* dqp = at_mut<T>(a.dq, a.st[DQ], b, h);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const long long t = q0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -389,30 +428,35 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   }
 }
 
+// delta = rowsum(do * o): one warp a row
 template <typename T, int D>
-int launch(const Args& a, cudaStream_t stream) {
+int launch_delta(const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.H * a.T;
   const long long warps_per_block = NTHREADS / 32;
   delta_kernel<T, D>
       <<<(unsigned)((rows + warps_per_block - 1) / warps_per_block),
          NTHREADS, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
-  constexpr size_t smem = smem_bytes<D>();
-  err = cudaFuncSetAttribute(dkv_kernel<T, D>,
+template <typename T, int D, int BT>
+int launch(const Args& a, cudaStream_t stream) {
+  int rc = launch_delta<T, D>(a, stream);
+  if (rc != 0) return rc;
+  constexpr size_t smem = smem_bytes<D, BT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel<T, D, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dq_kernel<T, D, BT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.T / 64, a.B * a.H);
-  dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(a);
+  const unsigned blocks = (unsigned)((long long)a.B * a.H * (a.T / BT));
+  dkv_kernel<T, D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(a);
+  dq_kernel<T, D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -521,8 +565,8 @@ __global__ void __launch_bounds__(NTH, 2) dkv_tc(Args a) {
   float* Dl = Ls + 2 * BT;                                 // 2 x BT
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kt = blockIdx.x, k0 = kt * BT, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
+  const BlockTile bt = block_tile(a, a.T / BT, false);
+  const int kt = bt.tile, k0 = kt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bf16* qp = at<bf16>(a.q, a.st[Q], b, h);
   const bf16* gp = at<bf16>(a.dout, a.st[DO], b, h);
   const float* lse = a.lse + (long long)bh * a.T;
@@ -619,8 +663,8 @@ __global__ void __launch_bounds__(NTH, 2) dq_tc(Args a) {
   float* Ms = reinterpret_cast<float*>(Vs + 2 * BT * D);  // 2 x BT
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int qt = blockIdx.x, q0 = qt * BT, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
+  const BlockTile bt = block_tile(a, a.T / BT, true);
+  const int qt = bt.tile, q0 = qt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
   const bf16* kp = at<bf16>(a.k, a.st[K], b, h);
   const bf16* vp = at<bf16>(a.v, a.st[V], b, h);
@@ -690,15 +734,10 @@ __global__ void __launch_bounds__(NTH, 2) dq_tc(Args a) {
 
 template <int D>
 int launch(const Args& a, cudaStream_t stream) {
-  const long long rows = (long long)a.B * a.H * a.T;
-  const long long warps_per_block = NTHREADS / 32;
-  delta_kernel<bf16, D>
-      <<<(unsigned)((rows + warps_per_block - 1) / warps_per_block),
-         NTHREADS, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int rc = launch_delta<bf16, D>(a, stream);
+  if (rc != 0) return rc;
   constexpr size_t smem = smem_bytes<D>();
-  err = cudaFuncSetAttribute(dkv_tc<D>,
+  cudaError_t err = cudaFuncSetAttribute(dkv_tc<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -706,11 +745,11 @@ int launch(const Args& a, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.T / BT, a.B * a.H);
-  dkv_tc<D><<<grid, NTH, smem, stream>>>(a);
+  const unsigned blocks = (unsigned)((long long)a.B * a.H * (a.T / BT));
+  dkv_tc<D><<<blocks, NTH, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_tc<D><<<grid, NTH, smem, stream>>>(a);
+  dq_tc<D><<<blocks, NTH, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -728,7 +767,10 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          void* dk, void* dv, int dtype, int D, int B, int H,
                          int T, const long long* strides, float sm_scale,
                          int causal, void* stream) {
-  if (T <= 0 || T % 64 != 0 || B <= 0 || H <= 0 || B * H > 65535)
+  // blocks of the widest grid (32-row tiles) and of the delta pass
+  if (T <= 0 || T % 64 != 0 || B <= 0 || H <= 0 ||
+      (long long)B * H * (T / 32) > INT_MAX ||
+      (long long)B * H * T / (NTHREADS / 32) > INT_MAX)
     return -1;
   Args a{};
   a.q = q;
@@ -750,9 +792,20 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   a.sm_scale = sm_scale;
   a.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return launch<float, 128>(a, s);
-  if (dtype == 0 && D == 64) return launch<float, 64>(a, s);
-  if (dtype == 1 && D == 128) return tcf::launch<128>(a, s);
-  if (dtype == 1 && D == 64) return tcf::launch<64>(a, s);
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch<float, 32, 64>(a, s);
+      case 64: return launch<float, 64, 64>(a, s);
+      case 128: return launch<float, 128, 64>(a, s);
+      case 256: return launch<float, 256, 32>(a, s);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return tcf::launch<32>(a, s);
+      case 64: return tcf::launch<64>(a, s);
+      case 128: return tcf::launch<128>(a, s);
+      case 256: return launch<__nv_bfloat16, 256, 32>(a, s);
+    }
+  }
   return -1;
 }

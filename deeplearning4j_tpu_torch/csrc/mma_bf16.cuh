@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the bf16 kernels of
-// flash_bwd.cu and softmax_xent.cu (sm_80 instructions, which sm_90a
-// runs): cp.async copies into shared memory, ldmatrix fragment loads and
-// the mma.sync m16n8k16 bf16 x bf16 -> f32 product.
+// flash_fwd.cu, flash_bwd.cu and softmax_xent.cu (sm_80 instructions,
+// which sm_90a runs): cp.async copies into shared memory, ldmatrix
+// fragment loads and the mma.sync m16n8k16 bf16 x bf16 -> f32 product.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16: a0 = (row g, cols 2t, 2t+1), a1 = (row g+8, same cols),
@@ -15,7 +15,10 @@
 // Tiles in shared memory are row-major with rows of a multiple of 64
 // bf16 (8 chunks of 16 bytes) and the chunk index XOR-ed with the row
 // (`swz`): the eight row addresses of one ldmatrix matrix then fall in
-// eight different bank groups, with no padding.
+// eight different bank groups, with no padding. A row of 32 bf16 has 4
+// chunks and rows r and r + 1 share one 128-byte bank line, so there
+// the chunk is XOR-ed with row / 2 within its 4: still a bijection
+// within the row, and eight consecutive rows again hit eight groups.
 
 #pragma once
 
@@ -30,8 +33,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // element offset of (row, col) in a swizzled tile of `width` bf16 a row
-// (width a multiple of 64)
+// (width a multiple of 64, or 32)
 __device__ __forceinline__ int swz(int row, int col, int width) {
+  if (width == 32)
+    return row * 32 + (((col >> 3) ^ (row >> 1)) & 3) * 8 + (col & 7);
   return row * width + ((((col >> 3) ^ row) & 7) | ((col >> 3) & ~7)) * 8 +
          (col & 7);
 }

@@ -263,7 +263,8 @@ def _chunk_self_lse(qh, kh, vh, kmask):
     """Within-chunk causal attention (out, lse), through the flash
     kernel when the chunk is inside its envelope."""
     b, H, T, D = qh.shape
-    if fa.supports(qh.shape, causal=True, dropout=0.0, mask=kmask):
+    if fa.supports(qh.shape, causal=True, dropout=0.0, mask=kmask,
+                   device=qh.device):
         # the flat [b*H, T, D] layout is b-major, so the key mask repeats
         # per head within each batch row
         km = kmask.float().repeat_interleave(H, dim=0)[:, None, :]

@@ -150,7 +150,8 @@ class SelfAttentionImpl(LayerImpl):
         qh, kh, vh = (t.unflatten(-1, (H, D)).transpose(1, 2)
                       for t in qkv.split(n, dim=-1))
         if use_flash and flash_supports(qh.shape, causal=conf.causal,
-                                        dropout=drop_attn, mask=mask):
+                                        dropout=drop_attn, mask=mask,
+                                        device=qh.device):
             out = flash_attention(qh, kh, vh, causal=conf.causal, mask=mask,
                                   dropout=drop_attn)
         elif use_flash and T > MAX_FLASH_T:

@@ -15,6 +15,12 @@ Forward (csrc/flash_fwd.cu):
   head-pair kernel (`_flash_fwd_qkv_pair`) for its 128-lane tile; here
   `_flash_fwd_qkv` on the same kernel, instantiated at D = 64.
 
+Both sources take head dims 32, 64, 128 and 256 (`KERNEL_HEAD_DIMS`).
+`supports` and `supports_qkv` keep the JAX package's envelope but for
+one difference: they send every other head dim to the dense path, where
+the JAX package would run its flash kernels. On CUDA tensors `supports`
+counts each such call in `DENSE_ROUTES` and warns the first time.
+
 Backward (csrc/flash_bwd.cu, one source for all four TPU kernels):
 
 * K4 — `_flash_bwd_impl` at T <= 512 (the TPU's single-block
@@ -38,11 +44,12 @@ reads any [BH, T, D] view whose last dimension is contiguous.
 Dispatch is by the tensor's device only. On a CPU tensor each wrapper
 computes its plain PyTorch version (`_flash_fwd_reference`,
 `_flash_bwd_reference`: f32 softmax math, the backward written out as
-ds = p * (dp - delta), with p and ds rounded to the operand dtype where
-the JAX kernels round them) — this is what the CPU tests run. On a CUDA
-tensor it launches the kernel or raises; nothing falls back. The
-wrappers count kernel launches in `LAUNCHES` (one entry per TPU kernel,
-K1-K7) so a run can show that its main path went through the kernels.
+ds = p * (dp - delta), with p (forward and backward) and ds rounded to
+the operand dtype where the JAX kernels round them) — this is what the
+CPU tests run. On a CUDA tensor it launches the kernel or raises;
+nothing falls back. The wrappers count kernel launches in `LAUNCHES`
+(one entry per TPU kernel, K1-K7) so a run can show that its main path
+went through the kernels.
 
 What bounds the kernels on the H100 and what their design does about
 it: see the notes at the top of csrc/flash_fwd.cu and csrc/flash_bwd.cu.
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 
 import torch
 
@@ -66,36 +74,61 @@ BLOCK_Q_MAX = 512
 MIN_FLASH_SEQ = 512
 MAX_FLASH_T = 8192
 
-# what the CUDA kernel takes (csrc/flash_fwd.cu): head dims it is
-# instantiated for, its query/key tile, and the element types
-KERNEL_HEAD_DIMS = (64, 128)
+# what the CUDA kernels take (csrc/flash_fwd.cu, csrc/flash_bwd.cu): head
+# dims they are instantiated for, their query/key tile, and the element
+# types
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_TILE = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the bf16 backward kernels copy tiles into shared memory 16 bytes at a
-# time (csrc/flash_bwd.cu)
+# the bf16 kernels copy tiles into shared memory 16 bytes at a time
 _ALIGN = 16
 
 _MASK_FLOOR = -1e20
 _L_FLOOR = 1e-30
 
+# calls on CUDA tensors inside the JAX package's flash envelope whose
+# head dim no kernel is instantiated for: they take the dense path
+DENSE_ROUTES = {"head_dim": 0}
+_dense_warned = False
 
-def supports(q_shape, *, causal, dropout, mask) -> bool:
+
+def supports(q_shape, *, causal, dropout, mask, device=None) -> bool:
     """Whether the flat fused kernel handles this case. q_shape is
-    [B, H, T, D] — T at index 2. Same envelope as the JAX package."""
-    T = q_shape[2]
-    return MIN_FLASH_SEQ <= T <= MAX_FLASH_T and T % BLOCK == 0
+    [B, H, T, D] — T at index 2. The JAX package's envelope, but for a
+    head dim outside `KERNEL_HEAD_DIMS`, which takes the dense path: on a
+    CUDA `device` that call is counted in `DENSE_ROUTES` and warned of
+    once. The packed route's misses fall through to this check, so each
+    attention call is counted at most once."""
+    global _dense_warned
+    _, _, T, D = q_shape
+    if not (MIN_FLASH_SEQ <= T <= MAX_FLASH_T and T % BLOCK == 0):
+        return False
+    if D in KERNEL_HEAD_DIMS:
+        return True
+    if device is not None and torch.device(device).type == "cuda":
+        DENSE_ROUTES["head_dim"] += 1
+        if not _dense_warned:
+            _dense_warned = True
+            warnings.warn(
+                f"flash attention: no kernel takes head dim {D} (only "
+                f"{KERNEL_HEAD_DIMS}); these calls take the dense path, "
+                "counted in DENSE_ROUTES", stacklevel=2)
+    return False
 
 
 def supports_qkv(B, T, n, H, *, dropout) -> bool:
     """Envelope of the packed no-relayout path: head_dim a multiple of
     128, or exactly 64 with an even head count, and a single-block
-    sequence length. Same envelope as the JAX package."""
+    sequence length. The JAX package's envelope, but for a head dim
+    outside `KERNEL_HEAD_DIMS` (a multiple of 128 past 256), which takes
+    the dense path."""
     if n % H:
         return False
     D = n // H
     dim_ok = D % 128 == 0 or (D == 64 and H % 2 == 0)
-    return dim_ok and MIN_FLASH_SEQ <= T <= BLOCK_Q_MAX and T % BLOCK == 0
+    return (dim_ok and D in KERNEL_HEAD_DIMS
+            and MIN_FLASH_SEQ <= T <= BLOCK_Q_MAX and T % BLOCK == 0)
 
 
 # ------------------------------------------------------- plain version
@@ -118,7 +151,9 @@ def _flash_fwd_reference(q, k, v, kmask, sm_scale, causal):
     """Plain PyTorch version of the forward kernel's function. q, k, v
     [BH, T, D]; kmask [BH, T] (> 0 = visible key) or None. Returns
     (o [BH, T, D] in q's dtype, lse [BH, T] f32). Scores, softmax and
-    the P.V product are f32; a fully masked row gives o = 0 and
+    the P.V sums are f32, with p rounded to the operand dtype for P.V
+    (the identity in f32) where the JAX blocked kernel rounds it, and l
+    summed from the unrounded p; a fully masked row gives o = 0 and
     lse ~= -1e20, as the kernel and the JAX package do."""
     s = _scores(q, k, kmask, sm_scale, causal)
     m = s.amax(-1)
@@ -126,7 +161,7 @@ def _flash_fwd_reference(q, k, v, kmask, sm_scale, causal):
         m = m.clamp_min(_MASK_FLOOR)
     p = torch.exp(s - m[..., None])
     l = p.sum(-1).clamp_min(_L_FLOOR)
-    o = (p @ v.float()) / l[..., None]
+    o = (p.to(v.dtype).float() @ v.float()) / l[..., None]
     return o.to(q.dtype), m + torch.log(l)
 
 
@@ -286,11 +321,23 @@ def _call(fn, q, *args):
         return fn(*args, stream)
 
 
+def _check_bf16_alignment(views, lse, kmask):
+    """`_check_alignment` on the [B, H, T, D] views, lse and the key
+    mask of a bf16 launch (the f32 kernels read element by element)."""
+    if next(iter(views.values())).dtype != torch.bfloat16:
+        return
+    extra = {"lse": lse} if kmask is None else {"lse": lse, "kmask": kmask}
+    _check_alignment({name: _layout(t)
+                      for name, t in {**views, **extra}.items()})
+
+
 def _launch(q, k, v, kmask, o, lse, sm_scale, causal):
     """Launch csrc/flash_fwd.cu on [B, H, T, D] views (any strides, last
     dimension contiguous). kmask: [B, T] f32 contiguous or None; o: a
     [B, H, T, D] view to write; lse: [B*H, T] f32 contiguous."""
-    _check_launch({"q": q, "k": k, "v": v, "o": o}, lse, kmask)
+    views = {"q": q, "k": k, "v": v, "o": o}
+    _check_launch(views, lse, kmask)
+    _check_bf16_alignment(views, lse, kmask)
     B, H, T, D = q.shape
     rc = _call(_kernel("flash_fwd", _FWD_ARGTYPES), q,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kmask),
@@ -310,11 +357,7 @@ def _launch_bwd(q, k, v, o, do, lse, kmask, dq, dk, dv, sm_scale, causal):
     views = {"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq, "dk": dk,
              "dv": dv}
     _check_launch(views, lse, kmask)
-    if q.dtype == torch.bfloat16:
-        extra = {"lse": lse} if kmask is None else {"lse": lse,
-                                                    "kmask": kmask}
-        _check_alignment({name: _layout(t)
-                          for name, t in {**views, **extra}.items()})
+    _check_bf16_alignment(views, lse, kmask)
     B, H, T, D = q.shape
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
@@ -480,8 +523,8 @@ def _no_dropout(dropout):
         raise NotImplementedError(
             f"attention dropout {dropout} on a flash route: the in-kernel "
             "dropout hash (the JAX package's `_keep_mask`) is not ported "
-            "yet; it comes with the next slice of the port (ROADMAP Queue "
-            "A item 3a). Train with attention_dropout=0, or with "
+            "yet; it comes with a later slice of the port (ROADMAP Queue "
+            "A item 2). Train with attention_dropout=0, or with "
             "use_flash=False for the dense route, which drops attention "
             "weights")
 

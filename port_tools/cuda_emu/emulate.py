@@ -1,0 +1,208 @@
+"""Run the port's flash kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) on
+the CPU through an emulation of the CUDA they use, and hold them against
+their plain PyTorch versions, so that fragment addresses, swizzles,
+masks and pipelines can be checked where there is no nvcc and no card.
+
+    python3 port_tools/cuda_emu/emulate.py [--dims 32 64 128 256]
+        [--src DIR]
+
+Each source is compiled by g++ (C++20) with this directory's headers in
+front of CUDA's: `kernel<<<grid, block, smem, stream>>>(...)` becomes
+`emu_launch(kernel, grid, block, smem, ...)`, and the inline-PTX helpers
+of csrc/mma_bf16.cuh (cp.async, ldmatrix, mma.sync) are replaced by
+emulations of their PTX semantics (emu_tc.h); everything else of the
+header (the swizzle, the fragment addressing, the bf16 packing) is
+compiled as written. Each CUDA thread is a host thread and the blocks
+of a grid run one after another, so use small shapes (T = 128 and 192
+here; a full run of the four head dims takes a few minutes). The
+emulation says nothing about speed, registers or what nvcc accepts.
+`--src` points at another copy of csrc/ (for a deliberately broken
+copy, to see a check fail). Exits 1 if any case disagrees.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
+sys.path.insert(0, str(ROOT))
+
+from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+BUILD = ROOT / "deeplearning4j_tpu_torch" / "_build" / "emu"
+ASM_HELPERS = ("smem_addr", "cp_async", "cp_async_commit", "cp_async_wait",
+               "ldsm_x4", "ldsm_x4_t", "mma")
+LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<\s*(.+?)\s*,\s*(\w+)\s*,"
+                    r"\s*(\w+)\s*,\s*(\w+)\s*>>>\s*\(", re.S)
+DEFS = """
+namespace { alignas(128) float smem[232448 / 4];
+namespace tcf { alignas(128) unsigned char smem_raw[232448]; } }
+thread_local uint3e threadIdx, blockIdx;
+dim3 blockDim, gridDim;
+EmuBlock* g_blk;
+thread_local std::deque<std::vector<tc::EmuCopy>> tc::emu_groups;
+thread_local std::vector<tc::EmuCopy> tc::emu_open;
+static void poison() {
+  std::memset(smem, 0xff, sizeof smem);
+  std::memset(tcf::smem_raw, 0xff, sizeof tcf::smem_raw);
+}
+void (*emu_poison)() = poison;
+"""
+
+
+def emulated_header(src_dir):
+    """csrc/mma_bf16.cuh with its inline-PTX helpers swapped for
+    emu_tc.h."""
+    text = (src_dir / "mma_bf16.cuh").read_text()
+    head = re.compile(r"^(template <[^\n]*>\n)?__device__ __forceinline__ "
+                      r"[^\n(]*?\b(\w+)\(", re.M)
+    out, last, placed = [], 0, False
+    for m in head.finditer(text):
+        if m.group(2) not in ASM_HELPERS:
+            continue
+        depth, j = 0, text.index("{", m.end())
+        while True:
+            depth += {"{": 1, "}": -1}.get(text[j], 0)
+            j += 1
+            if depth == 0:
+                break
+        out.append(text[last:m.start()])
+        if not placed:
+            out.append('#include "emu_tc.h"\n')
+            placed = True
+        last = j
+    out.append(text[last:])
+    return "".join(out)
+
+
+def build(name, src_dir, out_dir=BUILD):
+    """csrc/<name>.cu compiled for the emulation into out_dir, loaded."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "mma_bf16.cuh").write_text(emulated_header(src_dir))
+    src = (src_dir / f"{name}.cu").read_text()
+    src = src.replace('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : '
+                      '"f"(x));', "y = std::exp2(x);")
+    src = LAUNCH.sub(lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, "
+                     f"{m.group(3)}, {m.group(4)}, ", src)
+    cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}.so"
+    cpp.write_text(src + DEFS)
+    out = subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
+         f"-I{out_dir}", f"-I{HERE}", "-o", str(lib), str(cpp)],
+        capture_output=True, text=True)
+    if out.returncode:
+        raise SystemExit(f"g++ failed for {name}.cu:\n{out.stderr[:6000]}")
+    return ctypes.CDLL(str(lib))
+
+
+def bht(t):
+    return fa._bht(t)
+
+
+def run_case(fwd, bwd, D, dtype, causal, masked, packed, T, gen):
+    """One forward and one backward through the emulated kernels against
+    `_flash_fwd_reference` and `_flash_bwd_reference`; returns (ok,
+    report line)."""
+    B, H = (2, 2) if packed else (3, 1)
+    if packed:
+        qkv = torch.randn(B, T, 3 * H * D, generator=gen).to(dtype)
+        q, k, v = (t.unflatten(-1, (H, D)).transpose(1, 2)
+                   for t in qkv.split(H * D, -1))
+    else:
+        q, k, v = (torch.randn(B, H, T, D, generator=gen).to(dtype)
+                   for _ in range(3))
+    km = None
+    if masked:  # ragged rows, the last one all masked
+        km = torch.zeros(B, T)
+        for r in range(B - 1):
+            km[r, :int(torch.randint(T // 4, T, (1,), generator=gen))] = 1
+    kmr = None if km is None else km.repeat_interleave(H, 0)
+
+    def flat(t):
+        return t.reshape(B * H, T, D)
+
+    scale = D ** -0.5
+    dt = fa._KERNEL_DTYPES[dtype]
+    kmp = None if km is None else km.data_ptr()
+
+    o = torch.empty(B, T, H, D, dtype=dtype).transpose(1, 2)
+    lse = torch.empty(B * H, T)
+    rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmp, o.data_ptr(),
+             lse.data_ptr(), dt, D, B, H, T, *bht(q), *bht(k), *bht(v),
+             *bht(o), scale, int(causal), None)
+    ro, rlse = fa._flash_fwd_reference(flat(q), flat(k), flat(v), kmr,
+                                       scale, causal)
+    err_o = float((flat(o).float() - ro.float()).abs().max())
+    err_l = float((lse - rlse).abs().max())
+    tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    ok = rc == 0 and err_o <= tol[0] and err_l <= tol[1]
+    if masked:
+        ok = ok and bool((o[-1] == 0).all()) \
+            and float(lse.view(B * H, T)[-1].max()) < -1e19
+
+    do = torch.randn(B, H, T, D, generator=gen).to(dtype)
+    ro4 = ro.reshape(B, H, T, D)
+    grads = [torch.empty(B, H, T, D, dtype=dtype) for _ in range(3)]
+    delta = torch.empty(B * H, T)
+    views = [q, k, v, ro4, do] + grads
+    st = (ctypes.c_longlong * 24)(*[s for t in views for s in bht(t)])
+    rc_b = bwd(*(t.data_ptr() for t in (q, k, v, ro4, do)), rlse.data_ptr(),
+               kmp, delta.data_ptr(),
+               *(g.data_ptr() for g in grads), dt, D, B, H, T, st, scale,
+               int(causal), None)
+    refs = fa._flash_bwd_reference(flat(q), flat(k), flat(v), ro, rlse,
+                                   flat(do), kmr, scale, causal)
+    err_b = max(float((flat(g).float() - r.float()).abs().max())
+                / float(r.float().abs().max()) for g, r in zip(grads, refs))
+    ok_b = rc_b == 0 and err_b <= (1e-4 if dtype == torch.float32 else 2e-2)
+    line = (f"D={D} T={T} {str(dtype)[6:]} causal={causal} masked={masked} "
+            f"packed={packed}: fwd |o| {err_o:.2e} |lse| {err_l:.2e} "
+            f"{'ok' if ok else 'FAIL'}; bwd rel {err_b:.2e} "
+            f"{'ok' if ok_b else 'FAIL'}")
+    return ok and ok_b, line
+
+
+def entry_points(src_dir, out_dir=BUILD):
+    """(flash_fwd, flash_bwd) of the emulated sources, typed as the
+    wrappers in ops/flash_attention.py call them."""
+    fwd = build("flash_fwd", src_dir, out_dir).flash_fwd
+    bwd = build("flash_bwd", src_dir, out_dir).flash_bwd
+    fwd.restype = bwd.restype = ctypes.c_int
+    fwd.argtypes, bwd.argtypes = fa._FWD_ARGTYPES, fa._BWD_ARGTYPES
+    return fwd, bwd
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dims", type=int, nargs="*",
+                    default=[32, 64, 128, 256])
+    ap.add_argument("--src", type=Path,
+                    default=ROOT / "deeplearning4j_tpu_torch" / "csrc")
+    args = ap.parse_args()
+    fwd, bwd = entry_points(args.src)
+    gen = torch.Generator().manual_seed(0)
+    failed = 0
+    for D in args.dims:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal, masked, packed in ((True, True, False),
+                                           (True, False, True),
+                                           (False, False, False)):
+                for T in (128, 192):
+                    ok, line = run_case(fwd, bwd, D, dtype, causal, masked,
+                                        packed, T, gen)
+                    print(line, flush=True)
+                    failed += not ok
+    print(f"{failed} case(s) failed")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""The CUDA sources of the flash kernels (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu) run on the CPU through port_tools/cuda_emu, an
+emulation of the CUDA they use compiled by g++ (ldmatrix, mma.sync,
+shuffles and cp.async groups from their PTX semantics), and agree with
+the plain versions that chip_smoke.py holds the compiled kernels to on
+the card: so a fragment address, a swizzle or a mask that is wrong
+fails here, before a card sees it. One causal case a head dim and
+dtype, at T = 128 (the flat layout, a ragged key mask with one
+all-masked row) and T = 192 (the packed layout, unmasked); tolerances
+are phase 2's (o 2e-2 and lse 1e-2 in bf16, 1e-4 in f32) and phase
+2b's (2e-2 and 1e-4 of the largest gradient entry)."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.port
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location(
+    "emulate", ROOT / "port_tools" / "cuda_emu" / "emulate.py")
+emulate = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(emulate)
+
+
+@pytest.fixture(scope="module")
+def kernels(tmp_path_factory):
+    return emulate.entry_points(ROOT / "deeplearning4j_tpu_torch" / "csrc",
+                                tmp_path_factory.mktemp("emu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("T,masked,packed", [(128, True, False),
+                                             (192, False, True)])
+def test_emulated_flash_kernels_match_plain_versions(kernels, D, dtype, T,
+                                                     masked, packed):
+    gen = torch.Generator().manual_seed(D + T)
+    ok, line = emulate.run_case(*kernels, D, dtype, True, masked, packed, T,
+                                gen)
+    assert ok, line

@@ -150,6 +150,33 @@ def test_split_backward_bf16_matches_jax(D, masked):
             assert np.all(g[-1] == 0.0)
 
 
+@pytest.mark.parametrize("D", [32, 256])
+@pytest.mark.parametrize("masked", [False, True])
+def test_head_dims_32_and_256_backward_matches_jax(D, masked):
+    """The flat route's gradients at the head dims the CUDA kernels took
+    last (fault C1): 8 heads of 32 or 2 heads of 256 at T = 512, in f32
+    to 1e-5 (the JAX package's single-block backward, K4's
+    counterpart)."""
+    rng = np.random.default_rng(70 + D + masked)
+    B, T = 1, 512
+    H = 8 if D == 32 else 2
+    q, k, v, cot = (rng.standard_normal((B, H, T, D)).astype(np.float32)
+                    for _ in range(4))
+    mask = _ragged_mask(rng, B + 1, T)[:B] if masked else None
+    jo, jg = _jax_grads(
+        lambda q, k, v: jfa.flash_attention(
+            q, k, v, causal=True,
+            mask=None if mask is None else jnp.asarray(mask)),
+        [q, k, v], cot)
+    to, tg = _torch_grads(
+        lambda q, k, v: tfa.flash_attention(
+            q, k, v, causal=True,
+            mask=None if mask is None else torch.from_numpy(mask)),
+        [q, k, v], cot)
+    for g, w in zip([to] + tg, [jo] + jg):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+
+
 def test_all_masked_rows_get_zero_gradients():
     """A batch row whose keys are all masked: its queries see no keys,
     so o = 0 there and no gradient reaches q, k or v of that row — in
@@ -194,7 +221,8 @@ def test_dropout_on_flash_raises():
     """The in-kernel dropout hash is a later slice: a nonzero rate on a
     flash entry point raises instead of being ignored."""
     x = torch.zeros(1, 512, 3 * 128)
-    with pytest.raises(NotImplementedError, match="attention dropout"):
+    with pytest.raises(NotImplementedError,
+                       match="attention dropout.*ROADMAP Queue A item 2\\)"):
         tfa.flash_attention_qkv(x, 1, dropout=0.1)
     q = torch.zeros(1, 1, 512, 128)
     with pytest.raises(NotImplementedError, match="attention dropout"):
