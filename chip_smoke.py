@@ -10,12 +10,19 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+or, to time phase 6 against another checkout (e.g. the parent commit
+unpacked by `git archive` into a git-ignored directory) on the same
+card, in turns other, this, this, other, each its own process:
+
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+
 Phases, each of which exits non-zero when it fails:
 
 1. Environment: CUDA and nvcc versions, the card, its power limit; TF32
    off for matrix products and convolutions. Builds every kernel source
    in deeplearning4j_tpu_torch/csrc/ with nvcc (one process per source,
-   started together) and logs each kernel's registers and spills.
+   started together) and logs each kernel's registers and spills; a
+   tensor-core kernel (namespaces tcf, tcx) that spills fails.
 2. Forward kernels vs plain version: the flash-forward kernel as K1
    (flat, masked), K2 (packed qkv) and K3 (packed, head_dim 64) at the
    shapes serving, the full forward and training give it (K1 at
@@ -40,10 +47,12 @@ Phases, each of which exits non-zero when it fails:
    `scaled_dot_product_attention`; the softmax-xent head (K8 forward,
    K9 backward) at N=16384 d=256 V=10000 and a ragged N=300 V=2100
    against `_xent_fwd_reference` / `_xent_bwd_reference`, timed against
-   `F.cross_entropy(x @ W + b)` forward and backward. Each bf16 backward
-   (K4-K7 and K9, on the tensor cores) runs a second time and must
-   repeat bit for bit; each timing line gives the achieved TFLOP/s and
-   the roofline share beside the card's name and power limit.
+   `F.cross_entropy(x @ W + b)` forward and backward. Each bf16 kernel
+   (K4-K7 at every head dim, K8 and K9, on the tensor cores) runs a
+   second time and must repeat bit for bit; each timing line names the
+   kernels that ran (a scalar kernel in bf16 fails) and gives their and
+   the library's device time a launch, the achieved TFLOP/s and the
+   roofline share beside the card's name and power limit.
 3. Serving: `transformer_lm` at the repo's flagship width (vocab 10000,
    d_model 256, 2 heads of 128, 6 layers, d_ff 1024, bf16) answers 8
    requests through `GenerationEngine`; every request must complete with
@@ -134,6 +143,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -211,6 +221,12 @@ def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+# a ptxas spill line, and a tensor-core kernel's name (namespaces tcf,
+# tcx) demangled or mangled
+SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+TC_KERNEL = re.compile(r"\btc[fx]::|\dtc[fx]\d")
 
 
 def build_report(out):
@@ -390,6 +406,12 @@ def check_kernels(torch, fa, card):
 # gradients are rounded to bf16 once at the end, which is up to one bf16
 # ulp (2^-8 = 3.9e-3 of the value) -> 2e-2.
 REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# K8's loss and lse are f32 in both kernel and plain version, from f32
+# products of the same operands (a bf16 product is exact in f32) and f32
+# softmax math, summed in another order -> 1e-4 in both dtypes. bf16's
+# 2e-2 would pass a kernel that dropped the bias (0.01 x randn here,
+# about 5e-3 of the largest loss).
+XENT_FWD_TOL = 1e-4
 
 
 def errs(x, ref):
@@ -570,7 +592,15 @@ def check_flash_backward(torch, fa, card):
             if not same:
                 raise PhaseFailed("2b", f"{kern} {label}: two runs differ")
             ms = time_ms(torch, run)
-            dev_ms = kernel_device_ms(torch, run)
+            names = []
+            dev_ms = kernel_device_ms(torch, run, names=names)
+            names = sorted({short_name(k) for k in names})
+            # bf16 runs on the tensor cores at every head dim: the delta
+            # pass and tcf:: kernels only, no scalar pair
+            if not names or not all("tcf::" in k or "delta_kernel" in k
+                                    for k in names):
+                raise PhaseFailed("2b", f"{kern} {label} bf16 launched "
+                                        f"{names}")
             plain_ms = time_ms(torch, plain)
             lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
                 lib_out, (lib_q, lib_k, lib_v), lib_do, retain_graph=True)
@@ -578,7 +608,9 @@ def check_flash_backward(torch, fa, card):
             lib_dev_ms = kernel_device_ms(torch, lib_bwd)
             bound_ms, bound_by, flops = flash_bwd_bound_ms(bh, T, D, 2,
                                                            masked, nb)
-            log(f"time  {kern} flash bwd {label} bf16: kernel {ms:.4f} ms "
+            log(f"time  {kern} flash bwd {label} bf16 "
+                f"({', '.join(names)}): kernel "
+                f"{ms:.4f} ms "
                 f"(device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa "
                 f"bwd {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)}), bound "
                 f"{bound_ms:.5f} ms ({bound_by}); "
@@ -615,10 +647,11 @@ def check_xent(torch, fsx, card):
     """K8 and K9 (csrc/softmax_xent.cu) against `_xent_fwd_reference`
     and `_xent_bwd_reference` at the flagship head (N = 32 x 512 tokens,
     d = 256, V = 10000) and at a ragged N = 300, V = 2100, in f32 and
-    bf16. bf16 backward runs twice and must agree bit for bit (dW's
-    slices of N are summed in a fixed order, no atomics). The flagship
-    bf16 case is timed against F.cross_entropy on x @ W + b (forward,
-    and its backward through autograd)."""
+    bf16. bf16 forward and backward run twice and must agree bit for bit
+    (no atomics; dW's slices of N are summed in a fixed order). The
+    flagship bf16 case is timed against F.cross_entropy on x @ W + b
+    (forward, and its backward through autograd), by CUDA events and by
+    device time a launch."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -647,50 +680,66 @@ def check_xent(torch, fsx, card):
                 *(errs(a, r) for a, r in zip(grads, refs))))
             worst["K8"] = max(worst["K8"], abs_f)
             worst["K9"] = max(worst["K9"], abs_b)
-            ok = (err_f <= REL_TOL[dname] and err_b <= REL_TOL[dname]
+            ok = (err_f <= XENT_FWD_TOL and err_b <= REL_TOL[dname]
                   and bool(torch.isfinite(loss).all()))
             log(f"check K8/K9 xent {label} {dname}: max rel err loss/lse "
-                f"{err_f:.3e}, dx/dW/db {err_b:.3e} (tol {REL_TOL[dname]}) "
-                f"-> {'ok' if ok else 'FAIL'}")
+                f"{err_f:.3e} (tol {XENT_FWD_TOL}), dx/dW/db {err_b:.3e} "
+                f"(tol {REL_TOL[dname]}) -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise PhaseFailed("2b", f"K8/K9 {label} {dname} disagrees "
                                         "with its plain version")
             if dtype is not torch.bfloat16:
                 continue
-            same = same_bits(torch, grads,
-                             fsx._fused_bwd(x, w, b, labels, rlse, g))
-            log(f"check K9 xent {label} bf16: a second run is "
-                f"{'bit-identical' if same else 'DIFFERENT'}")
-            if not same:
-                raise PhaseFailed("2b", f"K9 {label}: two runs differ")
+            for kern, first, again in (
+                    ("K8", (loss, lse), fsx._fused_fwd(x, w, b, labels)),
+                    ("K9", grads, fsx._fused_bwd(x, w, b, labels, rlse,
+                                                 g))):
+                same = same_bits(torch, first, again)
+                log(f"check {kern} xent {label} bf16: a second run is "
+                    f"{'bit-identical' if same else 'DIFFERENT'}")
+                if not same:
+                    raise PhaseFailed("2b", f"{kern} {label}: two runs "
+                                            "differ")
             if N != 16384:
                 continue
-            fwd_ms = time_ms(torch, lambda: fsx._fused_fwd(x, w, b, labels))
-            fwd_plain = time_ms(torch, lambda: fsx._xent_fwd_reference(
-                x, w, b, labels))
             lab64 = labels.long()
-            fwd_lib = time_ms(torch, lambda: F.cross_entropy(
-                x @ w + b, lab64, reduction="none"))
-            bwd_ms = time_ms(torch, lambda: fsx._fused_bwd(
-                x, w, b, labels, rlse, g), windows=3, per_window=5)
-            bwd_plain = time_ms(torch, lambda: fsx._xent_bwd_reference(
-                x, w, b, labels, rlse, g), windows=3, per_window=5)
             lx, lw, lb = (t.clone().requires_grad_() for t in (x, w, b))
             lib_loss = F.cross_entropy(lx @ lw + lb, lab64, reduction="none")
-            bwd_lib = grad_ms(torch, lib_loss, (lx, lw, lb), g)
-            for kern, ms, plain_ms, lib_ms, backward in (
-                    ("K8", fwd_ms, fwd_plain, fwd_lib, False),
-                    ("K9", bwd_ms, bwd_plain, bwd_lib, True)):
+            fns = {
+                "K8": (lambda: fsx._fused_fwd(x, w, b, labels),
+                       lambda: fsx._xent_fwd_reference(x, w, b, labels),
+                       lambda: F.cross_entropy(x @ w + b, lab64,
+                                               reduction="none")),
+                "K9": (lambda: fsx._fused_bwd(x, w, b, labels, rlse, g),
+                       lambda: fsx._xent_bwd_reference(x, w, b, labels,
+                                                       rlse, g),
+                       lambda: torch.autograd.grad(
+                           lib_loss, (lx, lw, lb), g, retain_graph=True))}
+            for kern, (run, plain, lib) in fns.items():
+                backward = kern == "K9"
+                win = dict(windows=3, per_window=5) if backward else {}
+                ms, plain_ms, lib_ms = (time_ms(torch, f, **win)
+                                        for f in (run, plain, lib))
+                names = []
+                dev_ms = kernel_device_ms(torch, run, names=names)
+                names = sorted({short_name(k) for k in names})
+                if not names or not all("tcx::" in k for k in names):
+                    raise PhaseFailed("2b", f"{kern} bf16 launched {names}")
+                lib_dev_ms = kernel_device_ms(torch, lib)
                 bound_ms, bound_by, flops = xent_bound_ms(N, d, V, 2,
                                                           backward)
-                log(f"time  {kern} xent {label} bf16: kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, F.cross_entropy "
-                    f"{'bwd' if backward else 'fwd'} {lib_ms:.4f} ms, bound "
-                    f"{bound_ms:.5f} ms ({bound_by}); "
-                    f"{rate_note(flops, ms, bound_ms, card)}")
-                records[kern] = [dict(label=label, ms=ms, plain_ms=plain_ms,
-                                      library_ms=lib_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)]
+                log(f"time  {kern} xent {label} bf16 "
+                    f"({', '.join(names)}): kernel "
+                    f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
+                    f"{plain_ms:.4f} ms, F.cross_entropy "
+                    f"{'bwd' if backward else 'fwd'} {lib_ms:.4f} ms "
+                    f"(device {fmt_ms(lib_dev_ms)}), bound {bound_ms:.5f} "
+                    f"ms ({bound_by}); "
+                    f"{rate_on(flops, ms, dev_ms, bound_ms, card)}")
+                records[kern] = [dict(label=label, ms=ms, device_ms=dev_ms,
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      library_device_ms=lib_dev_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)]
     for kern in ("K8", "K9"):
         records[kern][0]["err"] = worst[kern]
     return records
@@ -931,7 +980,10 @@ def device_profile(torch, prof, wall, tag, top=12):
 
 def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
     """fit_scanned of the flagship LM for TRAIN_STEPS steps on one batch;
-    exact launch counts; step time, tokens/s, MFU, memory, profile."""
+    exact launch counts; step time, tokens/s, MFU, memory, profile.
+    Returns the launches and {"step_ms", "kernel_ms", "top"}: the median
+    step, the kernel time of the profiled step (None when the profiler
+    reports none) and its largest kernels as [name, ms, calls]."""
     from torch.profiler import ProfilerActivity, profile
 
     c = TRAIN
@@ -987,14 +1039,17 @@ def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
         wall = time.perf_counter() - t0
     _, rows = device_profile(torch, prof, wall, "train profile (one step)",
                              top=15)
+    busy = sum(r[0] for r in rows) / 1e6
     if rows:
         # the profiler's host cost stretches the profiled window; against
         # the unprofiled median step the same kernel time leaves this idle
-        busy = sum(r[0] for r in rows) / 1e6
         log(f"train: device idle share of the unprofiled median step "
             f"{1 - busy / step_s:.4f} (kernel time {busy * 1e3:.3f} ms of "
             f"{step_s * 1e3:.3f} ms)")
-    return launches
+    return launches, {
+        "step_ms": step_s * 1e3, "kernel_ms": busy * 1e3 if rows else None,
+        "top": [[short_name(key)[:60], us / 1e3, count]
+                for us, count, key in rows[:8]]}
 
 
 def train_other_paths(torch, counters, transformer_lm, DataSet, fsx):
@@ -1188,12 +1243,13 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.5f} ms"
 
 
-def kernel_device_ms(torch, fn, calls=20):
+def kernel_device_ms(torch, fn, calls=20, names=None):
     """Mean device time per call of the kernels `fn` launches (the sum
     of their times over `calls` calls, from torch.profiler), or None
     when the profiler reports no device time. At these sizes the CUDA
     event time of back-to-back calls is bounded by the host's launch
-    path; this is the kernels' own time."""
+    path; this is the kernels' own time. `names`, a list, receives the
+    names of the kernels that ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1203,10 +1259,20 @@ def kernel_device_ms(torch, fn, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and getattr(e, "self_device_time_total", 0) > 0]
+    if names is not None:
+        names.extend(e.key for e in events)
+    total_us = sum(e.self_device_time_total for e in events)
     return total_us / calls / 1e3 if total_us else None
+
+
+def short_name(key):
+    """A profiler's kernel name without its return type, its argument
+    list and the anonymous namespace."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(", 1)[0]
 
 
 def bound(nbytes, flops, dname):
@@ -1949,13 +2015,88 @@ def speculative_replay(torch, counters, card):
 
 # ----------------------------------------------------------------- main
 
+# ------------------------------------------------------------------ A/B
+
+def ab_turn(root):
+    """One turn of `--ab`: phase 6 with the port of the checkout at
+    `root`, in this process; prints its result as one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(root))
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_flops_per_token,
+        transformer_flops_per_token_executed,
+        transformer_lm,
+    )
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_layernorm as fln
+    from deeplearning4j_tpu_torch.ops import fused_neg_softmax as fns
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
+    from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
+
+    if not Path(fsx.__file__).resolve().is_relative_to(root):
+        raise SystemExit(f"chip_smoke: imported {fsx.__file__}, not the "
+                         f"port of {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cuda_build.build()
+    build_s = time.perf_counter() - t0
+    card = nvidia_smi("name,power.limit")
+    flops = tuple(f(TRAIN["vocab_size"], TRAIN["d_model"], TRAIN["n_layers"],
+                    TRAIN["d_ff"], TRAIN["seq"])
+                  for f in (transformer_flops_per_token,
+                            transformer_flops_per_token_executed))
+    _, stats = train_flagship(torch, Counters(fa, fsx, fns, fln, fsm),
+                              transformer_lm, DataSet, flops, card)
+    print(json.dumps({"root": str(root), "card": card, "build_s": build_s,
+                      **stats}), flush=True)
+
+
+def ab(other):
+    """`--ab OTHER`: phase 6 (the flagship training step, its launch
+    counts checked) with the port of the checkout at OTHER against this
+    checkout's, on one card, in turns: other, this, this, other. Each
+    turn is its own process that imports the port from its checkout and
+    runs this file's phase 6 on it. Prints each turn's log and JSON
+    line, then the step time and kernel time of both checkouts, two
+    turns each."""
+    turns = []
+    for root in (other, ROOT, ROOT, other):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--ab-turn",
+             str(root)], stdout=subprocess.PIPE, text=True, timeout=900)
+        log(proc.stdout.rstrip())
+        if proc.returncode:
+            log(f"ab: the turn of {root} failed ({proc.returncode})")
+            return proc.returncode
+        turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    log(f"ab: card {turns[0]['card']}")
+    for key in ("step_ms", "kernel_ms"):
+        log(f"ab: {key}: other ({other}) {[turns[0][key], turns[3][key]]}, "
+            f"this ({ROOT}) {[turns[1][key], turns[2][key]]}")
+    return 0
+
+
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] not in ("--ab", "--ab-turn")):
+        print("usage: chip_smoke.py [--ab OTHER_CHECKOUT]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
+    if args:
+        root = Path(args[1]).resolve()
+        if args[0] == "--ab-turn":
+            ab_turn(root)
+            return 0
+        return ab(root)
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.embedding import ShardedEmbeddingEngine
@@ -1990,9 +2131,19 @@ def main() -> int:
     outputs = cuda_build.build(verbose=True)
     log(f"build: {sorted(outputs) or 'up to date'} in "
         f"{time.perf_counter() - t0:.2f} s")
+    tc_reports = 0
     for src, out in outputs.items():
         for line in build_report(out):
             log(f"build: {src}: {line}")
+            spill = SPILL.search(line)
+            if TC_KERNEL.search(line) and spill:
+                tc_reports += 1
+                if any(int(n) for n in spill.groups()):
+                    raise PhaseFailed(1, f"a tensor-core kernel spills: "
+                                         f"{line}")
+    if outputs and not tc_reports:
+        raise PhaseFailed(1, "the build log reports no tensor-core kernel's "
+                             "spills")
 
     records = check_kernels(torch, fa, name_power)
     records.update(check_flash_backward(torch, fa, name_power))
@@ -2017,8 +2168,8 @@ def main() -> int:
                     TRAIN["d_ff"], TRAIN["seq"])
                   for f in (transformer_flops_per_token,
                             transformer_flops_per_token_executed))
-    train_launches = train_flagship(torch, counters, transformer_lm,
-                                    DataSet, flops, name_power)
+    train_launches, _ = train_flagship(torch, counters, transformer_lm,
+                                       DataSet, flops, name_power)
     other_launches = train_other_paths(torch, counters, transformer_lm,
                                        DataSet, fsx)
     grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx)

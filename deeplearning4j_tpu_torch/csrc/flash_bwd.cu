@@ -37,7 +37,8 @@
 // the low bits (the heaviest causal tile first), so B*H is bounded only
 // by 2^31 blocks.
 //
-// Design: the FA2 split, three launches on one stream, in both types.
+// Design: the FA2 split, three launches on one stream (two in bf16 at
+// D = 256, where both passes share one launch), in both types.
 //   1. delta: one warp per (b, h, t) row.
 //   2. dk/dv: one block per (64-key tile, b*h). K and V stay resident;
 //      64-query tiles of Q and dO stream through from the causal bound
@@ -56,8 +57,8 @@
 // T = 512 (the flagship's K6, bound by memory), above it at T = 4096
 // (K5, bound by the tensor cores).
 //
-// bf16 (`tcf::dkv_tc`, `tcf::dq_tc`): every product is mma.sync
-// m16n8k16 bf16 x bf16 -> f32, fed by ldmatrix (.trans for the
+// bf16 at D <= 128 (`tcf::dkv_tc`, `tcf::dq_tc`): every product is
+// mma.sync m16n8k16 bf16 x bf16 -> f32, fed by ldmatrix (.trans for the
 // operands stored K-major) from bf16 tiles in shared memory whose
 // 16-byte chunks are XOR-swizzled by row (no padding, no bank
 // conflicts). cp.async fills them in two stages: the next Q/dO (or
@@ -78,6 +79,24 @@
 // the tiles' rows are 64 bytes, which `tc::swz` swizzles within their 4
 // chunks.
 //
+// bf16 at D = 256 (`tcf::bwd256_tc`). The design above does not fit:
+// dk and dv would take 2 x 16 x 256 f32 a warp (256 registers a thread)
+// and six [64][256] bf16 tiles 192 KB (one 4-warp block an SM). So a
+// block owns 32 rows (keys in dk/dv, queries in dq) and streams 32-row
+// tiles of the other side, and two warps share each 16-row block: warps
+// 0-1 form S^T (S in dq) and P, warps 2-3 dP^T (dP); P crosses shared
+// memory as f32 (for dS) and as bf16 (for dv), dS as bf16; then each
+// warp adds its rows' share of dv and dk (or dq) over half the head's
+// columns, 16 x 128 f32 each (128 registers a thread in dk/dv). Every
+// product runs once per tile pair, as at D <= 128, with no atomics, so
+// a run repeats bit for bit. Six [32][256] bf16 tiles, the row data and
+// the exchange take 108,032 bytes: two blocks an SM. Both passes go in
+// one launch (blocks below B*H*T/32 are dk/dv tiles, the rest dq tiles),
+// so K6 at B*H = 16, T = 512 has 512 blocks for the card's 264 slots.
+// 242 registers a thread (ptxas, no spills). Four barriers a tile
+// bracket the exchange; with 8 warps an SM each warp's instruction rate
+// and latency bound it, as at D <= 128.
+//
 // f32 (`dkv_kernel`, `dq_kernel`): scalar kernels on the CUDA cores,
 // kept because TF32 tensor cores would not hold f32's 1e-4 agreement.
 // 256 threads;
@@ -85,12 +104,8 @@
 // formed with scalar FMAs (BT/16 x BT/16 a thread), p and ds exchanged
 // through shared memory, rows padded by one float against bank
 // conflicts. BT = 64, except at D = 256, where four [64][257] f32 tiles
-// (263 KB) would not fit a block and the tensor-core kernels would hold
-// 256 f32 of dk and dv a thread: there both types take these scalar
-// kernels with BT = 32 (140,416 bytes of shared memory), and in bf16
-// they round p and ds to bf16 before the second products as the tensor-
-// core kernels do. That D = 256 pair is right, not fast: its redesign is
-// queued (ROADMAP Queue B).
+// (263 KB) would not fit a block: there BT = 32 (140,416 bytes of shared
+// memory).
 
 #include <climits>
 
@@ -107,21 +122,6 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back (the identity in f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
 }
 
 // element strides (batch, head, token) of one tensor
@@ -196,20 +196,19 @@ __device__ __forceinline__ BlockTile block_tile(const Args& a, int n_t,
   return BlockTile{bh, bh / a.H, bh % a.H, reverse ? n_t - 1 - i : i};
 }
 
-// a [BT, D] tile of rows r0.. of a strided tensor into shared memory (f32)
-template <typename T, int D, int BT>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// a [BT, D] tile of rows r0.. of a strided f32 tensor into shared memory
+template <int D, int BT>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long st, int r0) {
   for (int i = threadIdx.x; i < BT * D; i += NTHREADS) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = to_float(src[(long long)(r0 + r) * st + c]);
+    dst[r * (D + 1) + c] = src[(long long)(r0 + r) * st + c];
   }
 }
 
 // s = Qt . Kt^T and dp = dOt . Vt^T on a BT x BT tile: rows ty + 16i,
-// columns tx + 16j. Then p and ds (rounded to T, as the tensor-core
-// kernels round them) into shared memory ([row][col]).
-template <typename T, int D, int BT>
+// columns tx + 16j. Then p and ds into shared memory ([row][col]).
+template <int D, int BT>
 __device__ __forceinline__ void p_ds_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* dl_s, const float* km_s, float* Ps,
@@ -252,9 +251,9 @@ __device__ __forceinline__ void p_ds_tile(
       if (a.causal && k0 + c > q0 + r) x = NEG_INF;
       if (masked && !(km_s[c] > 0.f)) x = NEG_INF;
       const float p = expf(x - lse_s[r]);
-      Ps[r * (BT + 1) + c] = round_to<T>(p);
+      Ps[r * (BT + 1) + c] = p;
       dSs[r * (BT + 1) + c] =
-          round_to<T>(p * (dp[i][j] - dl_s[r]) * a.sm_scale);
+          p * (dp[i][j] - dl_s[r]) * a.sm_scale;
     }
   }
 }
@@ -265,7 +264,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * BT * (D + 1) + 2 * BT * (BT + 1) + 3 * BT);
 }
 
-template <typename T, int D, int BT>
+template <int D, int BT>
 __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int R = BT / 16;
@@ -288,13 +287,13 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   const int kt = bt.tile, k0 = kt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
 
-  const T* qp = at<T>(a.q, a.st[Q], b, h);
-  const T* kp = at<T>(a.k, a.st[K], b, h);
-  const T* vp = at<T>(a.v, a.st[V], b, h);
-  const T* gp = at<T>(a.dout, a.st[DO], b, h);
+  const float* qp = at<float>(a.q, a.st[Q], b, h);
+  const float* kp = at<float>(a.k, a.st[K], b, h);
+  const float* vp = at<float>(a.v, a.st[V], b, h);
+  const float* gp = at<float>(a.dout, a.st[DO], b, h);
 
-  load_tile<T, D, BT>(Ks, kp, a.st[K].t, k0);
-  load_tile<T, D, BT>(Vs, vp, a.st[V].t, k0);
+  load_tile<D, BT>(Ks, kp, a.st[K].t, k0);
+  load_tile<D, BT>(Vs, vp, a.st[V].t, k0);
   if (tid < BT)
     km_s[tid] = masked ? a.kmask[(long long)b * a.T + k0 + tid] : 1.f;
 
@@ -307,14 +306,14 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   for (int qt = a.causal ? kt : 0; qt < n_t; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();  // the previous tile's readers of Qs, dOs, Ps are done
-    load_tile<T, D, BT>(Qs, qp, a.st[Q].t, q0);
-    load_tile<T, D, BT>(dOs, gp, a.st[DO].t, q0);
+    load_tile<D, BT>(Qs, qp, a.st[Q].t, q0);
+    load_tile<D, BT>(dOs, gp, a.st[DO].t, q0);
     if (tid < BT) {
       lse_s[tid] = a.lse[(long long)bh * a.T + q0 + tid];
       dl_s[tid] = a.delta[(long long)bh * a.T + q0 + tid];
     }
     __syncthreads();
-    p_ds_tile<T, D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
+    p_ds_tile<D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
                         masked, a);
     __syncthreads();
     // dv[c] += sum_r p[r][c] do[r];  dk[c] += sum_r ds[r][c] q[r]
@@ -340,20 +339,20 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
     }
   }
 
-  T* dkp = at_mut<T>(a.dk, a.st[DK], b, h);
-  T* dvp = at_mut<T>(a.dv, a.st[DV], b, h);
+  float* dkp = at_mut<float>(a.dk, a.st[DK], b, h);
+  float* dvp = at_mut<float>(a.dv, a.st[DV], b, h);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const long long t = k0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      dkp[t * a.st[DK].t + tx + 16 * j] = from_float<T>(dk[i][j]);
-      dvp[t * a.st[DV].t + tx + 16 * j] = from_float<T>(dv[i][j]);
+      dkp[t * a.st[DK].t + tx + 16 * j] = dk[i][j];
+      dvp[t * a.st[DV].t + tx + 16 * j] = dv[i][j];
     }
   }
 }
 
-template <typename T, int D, int BT>
+template <int D, int BT>
 __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int R = BT / 16;
@@ -376,10 +375,10 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   const int qt = bt.tile, q0 = qt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
 
-  const T* kp = at<T>(a.k, a.st[K], b, h);
-  const T* vp = at<T>(a.v, a.st[V], b, h);
-  load_tile<T, D, BT>(Qs, at<T>(a.q, a.st[Q], b, h), a.st[Q].t, q0);
-  load_tile<T, D, BT>(dOs, at<T>(a.dout, a.st[DO], b, h), a.st[DO].t, q0);
+  const float* kp = at<float>(a.k, a.st[K], b, h);
+  const float* vp = at<float>(a.v, a.st[V], b, h);
+  load_tile<D, BT>(Qs, at<float>(a.q, a.st[Q], b, h), a.st[Q].t, q0);
+  load_tile<D, BT>(dOs, at<float>(a.dout, a.st[DO], b, h), a.st[DO].t, q0);
   if (tid < BT) {
     lse_s[tid] = a.lse[(long long)bh * a.T + q0 + tid];
     dl_s[tid] = a.delta[(long long)bh * a.T + q0 + tid];
@@ -395,12 +394,12 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // the previous tile's readers of Ks, Vs, dSs are done
-    load_tile<T, D, BT>(Ks, kp, a.st[K].t, k0);
-    load_tile<T, D, BT>(Vs, vp, a.st[V].t, k0);
+    load_tile<D, BT>(Ks, kp, a.st[K].t, k0);
+    load_tile<D, BT>(Vs, vp, a.st[V].t, k0);
     if (tid < BT)
       km_s[tid] = masked ? a.kmask[(long long)b * a.T + k0 + tid] : 1.f;
     __syncthreads();
-    p_ds_tile<T, D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
+    p_ds_tile<D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
                         masked, a);
     __syncthreads();
     // dq[r] += sum_c ds[r][c] k[c]  (rows r = ty + 16i, columns tx + 16j)
@@ -418,13 +417,13 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
     }
   }
 
-  T* dqp = at_mut<T>(a.dq, a.st[DQ], b, h);
+  float* dqp = at_mut<float>(a.dq, a.st[DQ], b, h);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const long long t = q0 + ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      dqp[t * a.st[DQ].t + tx + 16 * j] = from_float<T>(dq[i][j]);
+      dqp[t * a.st[DQ].t + tx + 16 * j] = dq[i][j];
   }
 }
 
@@ -439,24 +438,24 @@ int launch_delta(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, int BT>
+template <int D, int BT>
 int launch(const Args& a, cudaStream_t stream) {
-  int rc = launch_delta<T, D>(a, stream);
+  int rc = launch_delta<float, D>(a, stream);
   if (rc != 0) return rc;
   constexpr size_t smem = smem_bytes<D, BT>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<T, D, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_kernel<D, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<T, D, BT>,
+  err = cudaFuncSetAttribute(dq_kernel<D, BT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)a.B * a.H * (a.T / BT));
-  dkv_kernel<T, D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
+  dkv_kernel<D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<T, D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
+  dq_kernel<D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -470,21 +469,22 @@ using bf16 = __nv_bfloat16;
 constexpr int BT = 64;    // queries or keys per tile (16 rows per warp)
 constexpr int NTH = 128;  // 4 warps
 
-// rows r0 .. r0+63 of a strided [T, D] operand into a swizzled tile
-template <int D>
+// rows r0 .. r0+ROWS-1 of a strided [T, D] operand into a swizzled tile
+template <int D, int ROWS = BT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long st, int r0) {
   constexpr int VPR = D / 8;
-  for (int i = threadIdx.x; i < BT * VPR; i += NTH) {
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NTH) {
     const int r = i / VPR, c = (i % VPR) * 8;
     tc::cp_async<16>(dst + tc::swz(r, c, D),
                      src + (long long)(r0 + r) * st + c, true);
   }
 }
 
-// 64 consecutive f32 (lse, delta or the key mask of one tile)
+// ROWS consecutive f32 (lse, delta or the key mask of one tile)
+template <int ROWS = BT>
 __device__ __forceinline__ void load_row(float* dst, const float* src) {
-  if (threadIdx.x < BT / 4)
+  if (threadIdx.x < ROWS / 4)
     tc::cp_async<16>(dst + 4 * threadIdx.x, src + 4 * threadIdx.x, true);
 }
 
@@ -732,6 +732,324 @@ __global__ void __launch_bounds__(NTH, 2) dq_tc(Args a) {
   store_rows<D>(at_mut<bf16>(a.dq, a.st[DQ], b, h), a.st[DQ].t, dq, qrow, t);
 }
 
+// ---- D = 256: 32-row blocks, each row block shared by two warps
+//
+// Rows r of a block are keys (dk/dv) or queries (dq); warp w owns rows
+// 16 (w & 1) .. + 15 and, in the products, head columns 128 (w >> 1) ..
+// + 127. Per streamed 32-row tile, warps 0-1 form S (or S^T) and P,
+// warps 2-3 dP (or dP^T); P crosses in shared memory as f32 for dS and
+// as bf16 for dv, dS as bf16; then every warp adds its 16 x 128 share
+// of dv and dk (or dq).
+
+constexpr int BR = 32;        // rows of a block, and of a streamed tile
+constexpr int DH = 256;       // the head dim of these kernels
+constexpr int PF = BR + 8;    // row stride of the f32 P tile (no conflicts)
+
+constexpr size_t smem256() {
+  // six [BR][DH] bf16 tiles; lse and delta (or the key mask), two
+  // stages each; P as f32; P and dS as bf16
+  return sizeof(bf16) * (6 * BR * DH + 2 * BR * BR) +
+         sizeof(float) * (4 * BR + BR * PF);
+}
+
+// s += A[rows r0 .. r0 + 15] . B[32 rows]^T over DH (A row-major
+// [rows][DH], B stored [n][DH])
+__device__ __forceinline__ void score256(float (&s)[4][4], const bf16* A,
+                                         int r0, const bf16* B, int lane) {
+#pragma unroll
+  for (int kb = 0; kb < DH / 16; ++kb) {
+    uint32_t aa[4];
+    tc::ldsm_x4(aa, A + tc::a_rowmajor(r0, kb * 16, DH, lane));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bb[4];
+      tc::ldsm_x4(bb, B + tc::b_nk(np * 16, kb * 16, DH, lane));
+      tc::mma(s[2 * np], aa, bb[0], bb[1]);
+      tc::mma(s[2 * np + 1], aa, bb[2], bb[3]);
+    }
+  }
+}
+
+// acc[16 rows][128 columns from c0] += a[16 rows][32] . B[32][DH] (B a
+// tile stored [k][DH])
+__device__ __forceinline__ void acc_half(float (&acc)[16][4],
+                                         const uint32_t (&a)[2][4],
+                                         const bf16* B, int c0, int lane) {
+#pragma unroll
+  for (int np = 0; np < 8; ++np)
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) {
+      uint32_t bb[4];
+      tc::ldsm_x4_t(bb, B + tc::b_kn(kb * 16, c0 + np * 16, DH, lane));
+      tc::mma(acc[2 * np], a[kb], bb[0], bb[1]);
+      tc::mma(acc[2 * np + 1], a[kb], bb[2], bb[3]);
+    }
+}
+
+// the A fragments of this warp's 16 rows from a [BR][BR] bf16 tile
+__device__ __forceinline__ void frag_rows(uint32_t (&f)[2][4], const bf16* X,
+                                          int r0, int lane) {
+#pragma unroll
+  for (int kb = 0; kb < 2; ++kb)
+    tc::ldsm_x4(f[kb], X + tc::a_rowmajor(r0, kb * 16, BR, lane));
+}
+
+// dk, dv of one 32-key tile (block `blk` of the dk/dv grid): K and V
+// resident, Q and dO tiles (with lse and delta) double-buffered from the
+// causal bound to T.
+__device__ __forceinline__ void dkv256(const Args& a, int blk,
+                                       unsigned char* smem_raw) {
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BR][DH]
+  bf16* Vs = Ks + BR * DH;
+  bf16* Qs = Vs + BR * DH;                        // 2 x [BR][DH]
+  bf16* Gs = Qs + 2 * BR * DH;                    // dO, 2 x [BR][DH]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * BR * DH);  // 2 x BR
+  float* Dl = Ls + 2 * BR;                                  // 2 x BR
+  float* Pf = Dl + 2 * BR;                                  // [BR][PF]
+  bf16* Pb = reinterpret_cast<bf16*>(Pf + BR * PF);         // [BR][BR]
+  bf16* Sb = Pb + BR * BR;                                  // [BR][BR]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 1) * 16, role = warp >> 1;
+  const int n_t = a.T / BR;
+  // key tile 0 meets the most causal query tiles: ascending order
+  const int kt = blk % n_t, bh = blk / n_t, b = bh / a.H, h = bh % a.H;
+  const int k0 = kt * BR, qt0 = a.causal ? kt : 0;
+  const bf16* qp = at<bf16>(a.q, a.st[Q], b, h);
+  const bf16* gp = at<bf16>(a.dout, a.st[DO], b, h);
+  const float* lse = a.lse + (long long)bh * a.T;
+  const float* dl = a.delta + (long long)bh * a.T;
+
+  load_tile<DH, BR>(Ks, at<bf16>(a.k, a.st[K], b, h), a.st[K].t, k0);
+  load_tile<DH, BR>(Vs, at<bf16>(a.v, a.st[V], b, h), a.st[V].t, k0);
+  load_tile<DH, BR>(Qs, qp, a.st[Q].t, qt0 * BR);
+  load_tile<DH, BR>(Gs, gp, a.st[DO].t, qt0 * BR);
+  load_row<BR>(Ls, lse + qt0 * BR);
+  load_row<BR>(Dl, dl + qt0 * BR);
+  tc::cp_async_commit();
+
+  int key[2];
+  bool kok[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = k0 + r0 + g + 8 * hh;
+    kok[hh] = a.kmask == nullptr ||
+              a.kmask[(long long)b * a.T + key[hh]] > 0.f;
+  }
+  float dk[16][4], dv[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int qt = qt0; qt < n_t; ++qt) {
+    const int buf = (qt - qt0) & 1, q0 = qt * BR;
+    if (qt + 1 < n_t) {
+      const int nb = buf ^ 1;
+      load_tile<DH, BR>(Qs + nb * BR * DH, qp, a.st[Q].t, q0 + BR);
+      load_tile<DH, BR>(Gs + nb * BR * DH, gp, a.st[DO].t, q0 + BR);
+      load_row<BR>(Ls + nb * BR, lse + q0 + BR);
+      load_row<BR>(Dl + nb * BR, dl + q0 + BR);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qc = Qs + buf * BR * DH;
+    const bf16* Gc = Gs + buf * BR * DH;
+    const float* Lc = Ls + buf * BR;
+    const float* Dc = Dl + buf * BR;
+
+    // S^T = K Q^T (warps 0-1) or dP^T = V dO^T (warps 2-3): rows this
+    // warp's keys, columns the tile's queries
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    score256(s, role ? Vs : Ks, r0, role ? Gc : Qc, lane);
+    if (role == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh, c = j * 8 + 2 * t;
+          float p[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float x = a.sm_scale * s[j][2 * hh + i];
+            if ((a.causal && key[hh] > q0 + c + i) || !kok[hh]) x = NEG_INF;
+            p[i] = expf(x - Lc[c + i]);
+          }
+          *reinterpret_cast<float2*>(Pf + r * PF + c) =
+              make_float2(p[0], p[1]);
+          // P rounded to bf16 for dv, as the reference rounds it
+          *reinterpret_cast<uint32_t*>(Pb + tc::swz(r, c, BR)) =
+              tc::pack_bf16(p[0], p[1]);
+        }
+    }
+    __syncthreads();
+    if (role == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh, c = j * 8 + 2 * t;
+          const float2 p = *reinterpret_cast<const float2*>(Pf + r * PF + c);
+          // dS rounded to bf16 for dk, as the reference rounds it
+          *reinterpret_cast<uint32_t*>(Sb + tc::swz(r, c, BR)) =
+              tc::pack_bf16(p.x * (s[j][2 * hh] - Dc[c]) * a.sm_scale,
+                            p.y * (s[j][2 * hh + 1] - Dc[c + 1]) *
+                                a.sm_scale);
+        }
+    }
+    __syncthreads();
+    uint32_t pa[2][4], sa[2][4];
+    frag_rows(pa, Pb, r0, lane);
+    frag_rows(sa, Sb, r0, lane);
+    acc_half(dv, pa, Gc, role * 128, lane);  // dv += P^T dO
+    acc_half(dk, sa, Qc, role * 128, lane);  // dk += dS^T Q
+    __syncthreads();  // Qc, Gc, Pb, Sb are rewritten
+  }
+  store_rows<128>(at_mut<bf16>(a.dk, a.st[DK], b, h) + role * 128,
+                  a.st[DK].t, dk, key, t);
+  store_rows<128>(at_mut<bf16>(a.dv, a.st[DV], b, h) + role * 128,
+                  a.st[DV].t, dv, key, t);
+}
+
+// dq of one 32-query tile (block `blk` of the dq grid): Q and dO
+// resident, K and V tiles (with the key mask) double-buffered up to the
+// causal bound.
+__device__ __forceinline__ void dq256(const Args& a, int blk,
+                                      unsigned char* smem_raw) {
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][DH]
+  bf16* Gs = Qs + BR * DH;                        // dO
+  bf16* Ks = Gs + BR * DH;                        // 2 x [BR][DH]
+  bf16* Vs = Ks + 2 * BR * DH;                    // 2 x [BR][DH]
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * BR * DH);  // 2 x BR
+  float* Pf = Ms + 4 * BR;                                  // [BR][PF]
+  bf16* Sb = reinterpret_cast<bf16*>(Pf + BR * PF);         // [BR][BR]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 1) * 16, role = warp >> 1;
+  const int n_t = a.T / BR;
+  // the last query tile meets the most causal key tiles: reverse order
+  const int qt = n_t - 1 - blk % n_t, bh = blk / n_t, b = bh / a.H,
+            h = bh % a.H;
+  const int q0 = qt * BR, nk = a.causal ? qt + 1 : n_t;
+  const bool masked = a.kmask != nullptr;
+  const bf16* kp = at<bf16>(a.k, a.st[K], b, h);
+  const bf16* vp = at<bf16>(a.v, a.st[V], b, h);
+  const float* km = masked ? a.kmask + (long long)b * a.T : nullptr;
+
+  load_tile<DH, BR>(Qs, at<bf16>(a.q, a.st[Q], b, h), a.st[Q].t, q0);
+  load_tile<DH, BR>(Gs, at<bf16>(a.dout, a.st[DO], b, h), a.st[DO].t, q0);
+  load_tile<DH, BR>(Ks, kp, a.st[K].t, 0);
+  load_tile<DH, BR>(Vs, vp, a.st[V].t, 0);
+  if (masked) load_row<BR>(Ms, km);
+  tc::cp_async_commit();
+
+  int qrow[2];
+  float lse[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    qrow[hh] = q0 + r0 + g + 8 * hh;
+    lse[hh] = a.lse[(long long)bh * a.T + qrow[hh]];
+    dl[hh] = a.delta[(long long)bh * a.T + qrow[hh]];
+  }
+  float dq[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1, k0 = kt * BR;
+    if (kt + 1 < nk) {
+      const int nb = buf ^ 1;
+      load_tile<DH, BR>(Ks + nb * BR * DH, kp, a.st[K].t, k0 + BR);
+      load_tile<DH, BR>(Vs + nb * BR * DH, vp, a.st[V].t, k0 + BR);
+      if (masked) load_row<BR>(Ms + nb * BR, km + k0 + BR);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kc = Ks + buf * BR * DH;
+    const bf16* Vc = Vs + buf * BR * DH;
+    const float* Mc = Ms + buf * BR;
+
+    // S = Q K^T (warps 0-1) or dP = dO V^T (warps 2-3): rows this
+    // warp's queries, columns the tile's keys
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    score256(s, role ? Gs : Qs, r0, role ? Vc : Kc, lane);
+    if (role == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh, c = j * 8 + 2 * t;
+          float p[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float x = a.sm_scale * s[j][2 * hh + i];
+            if ((a.causal && k0 + c + i > qrow[hh]) ||
+                (masked && !(Mc[c + i] > 0.f)))
+              x = NEG_INF;
+            p[i] = expf(x - lse[hh]);
+          }
+          *reinterpret_cast<float2*>(Pf + r * PF + c) =
+              make_float2(p[0], p[1]);
+        }
+    }
+    __syncthreads();
+    if (role == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh, c = j * 8 + 2 * t;
+          const float2 p = *reinterpret_cast<const float2*>(Pf + r * PF + c);
+          // dS rounded to bf16 for dq, as the reference rounds it
+          *reinterpret_cast<uint32_t*>(Sb + tc::swz(r, c, BR)) =
+              tc::pack_bf16(p.x * (s[j][2 * hh] - dl[hh]) * a.sm_scale,
+                            p.y * (s[j][2 * hh + 1] - dl[hh]) * a.sm_scale);
+        }
+    }
+    __syncthreads();
+    uint32_t sa[2][4];
+    frag_rows(sa, Sb, r0, lane);
+    acc_half(dq, sa, Kc, role * 128, lane);  // dq += dS K
+    __syncthreads();  // Kc, Vc, Mc, Sb are rewritten
+  }
+  store_rows<128>(at_mut<bf16>(a.dq, a.st[DQ], b, h) + role * 128,
+                  a.st[DQ].t, dq, qrow, t);
+}
+
+// One launch for both passes, which depend only on delta: blocks below
+// n_dkv are dk/dv tiles, the rest dq tiles.
+__global__ void __launch_bounds__(NTH, 2) bwd256_tc(Args a, int n_dkv) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  if ((int)blockIdx.x < n_dkv)
+    dkv256(a, (int)blockIdx.x, smem_raw);
+  else
+    dq256(a, (int)blockIdx.x - n_dkv, smem_raw);
+}
+
+int launch256(const Args& a, cudaStream_t stream) {
+  int rc = launch_delta<bf16, DH>(a, stream);
+  if (rc != 0) return rc;
+  constexpr size_t smem = smem256();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd256_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n = (int)((long long)a.B * a.H * (a.T / BR));
+  bwd256_tc<<<2 * n, NTH, smem, stream>>>(a, n);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const Args& a, cudaStream_t stream) {
   int rc = launch_delta<bf16, D>(a, stream);
@@ -767,9 +1085,10 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          void* dk, void* dv, int dtype, int D, int B, int H,
                          int T, const long long* strides, float sm_scale,
                          int causal, void* stream) {
-  // blocks of the widest grid (32-row tiles) and of the delta pass
+  // blocks of the widest grid (both D = 256 passes of 32-row tiles in
+  // one launch) and of the delta pass
   if (T <= 0 || T % 64 != 0 || B <= 0 || H <= 0 ||
-      (long long)B * H * (T / 32) > INT_MAX ||
+      2LL * B * H * (T / 32) > INT_MAX ||
       (long long)B * H * T / (NTHREADS / 32) > INT_MAX)
     return -1;
   Args a{};
@@ -794,17 +1113,17 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (D) {
-      case 32: return launch<float, 32, 64>(a, s);
-      case 64: return launch<float, 64, 64>(a, s);
-      case 128: return launch<float, 128, 64>(a, s);
-      case 256: return launch<float, 256, 32>(a, s);
+      case 32: return launch<32, 64>(a, s);
+      case 64: return launch<64, 64>(a, s);
+      case 128: return launch<128, 64>(a, s);
+      case 256: return launch<256, 32>(a, s);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 32: return tcf::launch<32>(a, s);
       case 64: return tcf::launch<64>(a, s);
       case 128: return tcf::launch<128>(a, s);
-      case 256: return launch<__nv_bfloat16, 256, 32>(a, s);
+      case 256: return tcf::launch256(a, s);
     }
   }
   return -1;

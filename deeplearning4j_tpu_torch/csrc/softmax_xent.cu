@@ -25,21 +25,39 @@
 // above the bf16 ridge, so the card's least time is set by operations,
 // on the tensor cores.
 //
-// The forward (K8) and the f32 backward: scalar f32 FMA kernels. A
-// logits tile of 64 rows x 64 vocab columns is formed in registers (4x4
-// per thread of 256) from 32-wide slices of x and W staged in shared
-// memory as f32; the forward keeps the running max, sum and label logit
-// per row over the chunks; dx and dW/db blocks form G in shared memory
-// and accumulate its products in registers. f32 stays on them because
-// TF32 tensor cores would not hold f32's 1e-4 agreement.
+// f32 (all three kernels): scalar f32 FMA. A logits tile of 64 rows x
+// 64 vocab columns is formed in registers (4x4 per thread of 256) from
+// 32-wide slices of x and W staged in shared memory as f32; the forward
+// keeps the running max, sum and label logit per row over the chunks;
+// dx and dW/db blocks form G in shared memory and accumulate its
+// products in registers. f32 stays on them because TF32 tensor cores
+// would not hold f32's 1e-4 agreement.
 //
-// The bf16 backward runs on the tensor cores: every product is
-// mma.sync m16n8k16 bf16 x bf16 -> f32, fed by ldmatrix from bf16 tiles
-// in shared memory (rows of 64 or 256 bf16, 16-byte chunks XOR-swizzled
-// by row, so no padding and no bank conflicts) that cp.async fills. G is
-// rounded to bf16 for the two products, where the JAX kernels round it
+// bf16 runs on the tensor cores: every product is mma.sync m16n8k16
+// bf16 x bf16 -> f32, fed by ldmatrix from bf16 tiles in shared memory
+// (rows of 64 or 256 bf16, 16-byte chunks XOR-swizzled by row, so no
+// padding and no bank conflicts) that cp.async fills. G is rounded to
+// bf16 for the two products, where the JAX kernels round it
 // (`g.astype(w.dtype)`, `g.astype(x.dtype)`); db sums the f32 G. Blocks
 // are 4 warps; a warp owns 16 rows of N of each 64 x 64 logits tile.
+//   forward (`xent_fwd_tc`, K8): one block of 8 warps per 128 rows.
+//     Each block streams all of W from L2, so the row tile sets that
+//     traffic: 128 rows read 0.66 GB at the flagship, half of what 64
+//     would. x's rows [128][256] pass once through shared memory into A
+//     fragments that stay in registers (16 x 256 bf16 a warp, 64
+//     registers a thread), so their space is then the ring of W's vocab
+//     chunks [256][64], three stages deep: one barrier a chunk, the
+//     next two chunks loading while one multiplies. A chunk costs a
+//     warp 64 ldmatrix of W and 128 mma.sync; its 16 x 64 logits plus
+//     bias then fold, in registers, into a running max in log2 units
+//     (the same for the 4 lanes of a row, which meet by two shuffles),
+//     this thread's share of the sum (one MUFU.EX2 an element) and the
+//     label's logit; lse = m ln 2 + ln(the shares' sum) and the loss are
+//     written once a row at the end. No atomics: a run repeats bit for
+//     bit. 177 registers a thread (ptxas, no spills), 96.75 KB of shared
+//     memory: one block an SM, 128 blocks (one wave) at the flagship.
+//     Eight warps an SM issuing mma.sync leave the tensor cores far from
+//     full; wgmma is the next step.
 //   dx (`xent_dx_tc`): one block per (64 rows, 256-column slice of d).
 //     Its x rows stay resident (32 KB); W's vocab chunks [256][64] come
 //     in through two stages (2 x 32 KB), the next loading while the
@@ -59,14 +77,15 @@
 //     dW and db to a workspace the wrapper allocates; `xent_dw_reduce`
 //     sums the slices in a fixed order and casts, so a run is
 //     reproducible bit for bit. 105 KB: two blocks an SM.
-//   Both use 243-255 registers a thread (ptxas, no spills): 2 blocks of
-//   128 threads fill an SM's 64K registers, as their shared memory does.
+//   dx and dW/db use 243-255 registers a thread (ptxas, no spills): 2
+//   blocks of 128 threads fill an SM's 64K registers, as their shared
+//   memory does.
 // W is copied 16 bytes at a time where V % 8 == 0 and in 8-, 4- or
 // 2-byte pieces otherwise (a row of W is then not 16-byte aligned; plain
 // loads when V is odd), in the same kernels. At d > 256 a block also
 // forms the logits over the rest of d from 64-deep slices of x and W
-// loaded one at a time (off the main path; the logits are recomputed
-// once per slice of d).
+// loaded one at a time (off the main path; dx and dW recompute the
+// logits once per slice of d).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,16 +101,6 @@ constexpr int DT = 256;   // d columns per dx / dW block
 constexpr int NTHREADS = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr float L_FLOOR = 1e-30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
 
 struct Args {
   const void* x;
@@ -110,14 +119,13 @@ struct Args {
 
 // logits of rows n0.., columns v0.. into s (rows ty + 16i, columns
 // tx + 16j); columns past V get NEG_INF, rows past N are zero.
-template <typename T>
 __device__ __forceinline__ void logits_tile(const Args& a, int n0, int v0,
                                             float* Xs, float* Ws,
                                             float s[4][4]) {
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -128,13 +136,13 @@ __device__ __forceinline__ void logits_tile(const Args& a, int n0, int v0,
       const int r = i / KS, c = i % KS;
       const int n = n0 + r;
       Xs[r * (KS + 1) + c] =
-          n < a.N ? to_float(x[(long long)n * a.d + k0 + c]) : 0.f;
+          n < a.N ? x[(long long)n * a.d + k0 + c] : 0.f;
     }
     for (int i = tid; i < KS * BV; i += NTHREADS) {
       const int r = i / BV, c = i % BV;
       const int v = v0 + c;
       Ws[r * (BV + 1) + c] =
-          v < a.V ? to_float(w[(long long)(k0 + r) * a.V + v]) : 0.f;
+          v < a.V ? w[(long long)(k0 + r) * a.V + v] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -150,11 +158,11 @@ __device__ __forceinline__ void logits_tile(const Args& a, int n0, int v0,
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(xv[i], wv[j], s[i][j]);
     }
   }
-  const T* bias = static_cast<const T*>(a.b);
+  const float* bias = static_cast<const float*>(a.b);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int v = v0 + tx + 16 * j;
-    const float bj = v < a.V ? to_float(bias[v]) : 0.f;
+    const float bj = v < a.V ? bias[v] : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[i][j] = v < a.V ? s[i][j] + bj : NEG_INF;
   }
@@ -201,7 +209,6 @@ constexpr size_t logits_smem() {
   return sizeof(float) * (BN * (KS + 1) + KS * (BV + 1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS) xent_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   float* Xs = smem;
@@ -220,7 +227,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_fwd_kernel(Args a) {
   }
   for (int v0 = 0; v0 < a.V; v0 += BV) {
     float s[4][4];
-    logits_tile<T>(a, n0, v0, Xs, Ws, s);
+    logits_tile(a, n0, v0, Xs, Ws, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int lab = lab_s[ty + 16 * i];
@@ -262,7 +269,6 @@ constexpr size_t dx_smem() {
          sizeof(float) * (BN * (BV + 1) + DT * (BV + 1) + 3 * BN);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS) xent_dx_kernel(Args a) {
   constexpr int NJ = DT / 16;
   extern __shared__ float smem[];
@@ -277,7 +283,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_dx_kernel(Args a) {
   const int tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * BN;
   const int c0 = blockIdx.y * DT;
-  const T* w = static_cast<const T*>(a.w);
+  const float* w = static_cast<const float*>(a.w);
   load_rows(a, n0, lab_s, lse_s, g_s);
 
   float acc[4][NJ];
@@ -288,13 +294,13 @@ __global__ void __launch_bounds__(NTHREADS) xent_dx_kernel(Args a) {
 
   for (int v0 = 0; v0 < a.V; v0 += BV) {
     float s[4][4];
-    logits_tile<T>(a, n0, v0, Xs, Ws, s);
+    logits_tile(a, n0, v0, Xs, Ws, s);
     grad_tile(a, n0, v0, s, lab_s, lse_s, g_s, Gs);
     for (int i = tid; i < DT * BV; i += NTHREADS) {
       const int cc = i / BV, vv = i % BV;
       const int c = c0 + cc, v = v0 + vv;
       Wt[cc * (BV + 1) + vv] =
-          (c < a.d && v < a.V) ? to_float(w[(long long)c * a.V + v]) : 0.f;
+          (c < a.d && v < a.V) ? w[(long long)c * a.V + v] : 0.f;
     }
     __syncthreads();
     // acc[r][c] += sum_v G[r][v] * W[c][v]
@@ -312,7 +318,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_dx_kernel(Args a) {
     }
     // the next chunk's logits_tile syncs before Gs and Wt are rewritten
   }
-  T* dx = static_cast<T*>(a.dx);
+  float* dx = static_cast<float*>(a.dx);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = n0 + ty + 16 * i;
@@ -320,7 +326,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_dx_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = c0 + tx + 16 * j;
-      if (c < a.d) dx[(long long)n * a.d + c] = from_float<T>(acc[i][j]);
+      if (c < a.d) dx[(long long)n * a.d + c] = acc[i][j];
     }
   }
 }
@@ -330,7 +336,6 @@ constexpr size_t dw_smem() {
          sizeof(float) * (BN * (BV + 1) + BN * (DT + 1) + 3 * BN);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS) xent_dwdb_kernel(Args a) {
   constexpr int NI = DT / 16;
   extern __shared__ float smem[];
@@ -345,7 +350,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_dwdb_kernel(Args a) {
   const int tx = tid & 15, ty = tid >> 4;
   const int v0 = blockIdx.x * BV;
   const int c0 = blockIdx.y * DT;
-  const T* x = static_cast<const T*>(a.x);
+  const float* x = static_cast<const float*>(a.x);
 
   // dW[c0 + ty + 16i][v0 + tx + 16j]
   float acc[NI][4];
@@ -360,13 +365,13 @@ __global__ void __launch_bounds__(NTHREADS) xent_dwdb_kernel(Args a) {
     // __syncthreads before its product
     load_rows(a, n0, lab_s, lse_s, g_s);
     float s[4][4];
-    logits_tile<T>(a, n0, v0, Xs, Ws, s);
+    logits_tile(a, n0, v0, Xs, Ws, s);
     grad_tile(a, n0, v0, s, lab_s, lse_s, g_s, Gs);
     for (int i = tid; i < BN * DT; i += NTHREADS) {
       const int r = i / DT, cc = i % DT;
       const int n = n0 + r, c = c0 + cc;
       Xt[r * (DT + 1) + cc] =
-          (n < a.N && c < a.d) ? to_float(x[(long long)n * a.d + c]) : 0.f;
+          (n < a.N && c < a.d) ? x[(long long)n * a.d + c] : 0.f;
     }
     __syncthreads();
     if (tid < BV) {
@@ -388,7 +393,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_dwdb_kernel(Args a) {
     }
     __syncthreads();  // readers of lab_s, Gs and Xt are done
   }
-  T* dw = static_cast<T*>(a.dw);
+  float* dw = static_cast<float*>(a.dw);
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
     const int c = c0 + ty + 16 * i;
@@ -396,7 +401,7 @@ __global__ void __launch_bounds__(NTHREADS) xent_dwdb_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int v = v0 + tx + 16 * j;
-      if (v < a.V) dw[(long long)c * a.V + v] = from_float<T>(acc[i][j]);
+      if (v < a.V) dw[(long long)c * a.V + v] = acc[i][j];
     }
   }
   if (blockIdx.y == 0 && tid < BV && v0 + tid < a.V) a.db[v0 + tid] = db;
@@ -419,12 +424,12 @@ constexpr int NTH = 128;  // 4 warps
 // tile of width `cols`, VEC elements a copy (8: 16-byte cp.async; 4, 2:
 // 8- and 4-byte cp.async; 1: plain loads). Rows at or past nr and
 // columns at or past nc are zero-filled.
-template <int VEC>
+template <int VEC, int NT = NTH>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long ld, int rows, int cols,
                                           int nr, int nc) {
   const int vpr = cols / VEC;
-  for (int i = threadIdx.x; i < rows * vpr; i += NTH) {
+  for (int i = threadIdx.x; i < rows * vpr; i += NT) {
     const int r = i / vpr, c = (i % vpr) * VEC;
     const bool ok = r < nr && c < nc;
     const bf16* s = ok ? src + r * ld + c : src;
@@ -456,18 +461,19 @@ __device__ __forceinline__ void s_accum(float (&s)[8][4], const bf16* X,
 }
 
 // The logits outside the block's d slice [c0, c0 + DT) (d > DT only):
-// 64-deep slices of x and W through XR / WR, one at a time.
-template <int VEC>
+// 64-deep slices of x (ROWS rows from n0) and W through XR / WR, one at
+// a time, by the block's NT threads.
+template <int VEC, int ROWS = BN, int NT = NTH>
 __device__ void s_outside(float (&s)[8][4], const Args& a, int n0, int v0,
                           int c0, bf16* XR, bf16* WR, int warp, int lane) {
   const bf16* x = static_cast<const bf16*>(a.x);
   const bf16* w = static_cast<const bf16*>(a.w);
   for (int k0 = 0; k0 < a.d; k0 += RK) {
     if (k0 >= c0 && k0 < c0 + DT) continue;
-    load_tile<8>(XR, x + (long long)n0 * a.d + k0, a.d, BN, RK, a.N - n0,
-                 a.d - k0);
-    load_tile<VEC>(WR, w + (long long)k0 * a.V + v0, a.V, RK, BV, a.d - k0,
-                   a.V - v0);
+    load_tile<8, NT>(XR, x + (long long)n0 * a.d + k0, a.d, ROWS, RK,
+                     a.N - n0, a.d - k0);
+    load_tile<VEC, NT>(WR, w + (long long)k0 * a.V + v0, a.V, RK, BV,
+                       a.d - k0, a.V - v0);
     tc::cp_async_commit();
     tc::cp_async_wait<0>();
     __syncthreads();
@@ -521,9 +527,166 @@ __device__ __forceinline__ void load_row_data(const Args& a, int n0,
   }
 }
 
+// xent_dx_tc: x's rows, two stages of W, the bias
 size_t dx_smem(int d) {
   return sizeof(bf16) * (BN * DT + 2 * DT * BV) + sizeof(float) * BV +
          (d > DT ? sizeof(bf16) * (BN * RK + RK * BV) : 0);
+}
+
+// the forward: 8 warps (128 rows) a block, W's chunks three stages deep
+constexpr int FW = 8;
+constexpr int FROWS = 16 * FW;
+constexpr int FNTH = 32 * FW;
+constexpr int FST = 3;
+
+// x's rows [FROWS][DT] share the ring's space (they are read once,
+// before the first chunk arrives)
+size_t fwd_smem(int d) {
+  return sizeof(bf16) * FST * DT * BV + sizeof(float) * FST * BV +
+         (d > DT ? sizeof(bf16) * (FROWS * RK + RK * BV) : 0);
+}
+static_assert(FROWS * DT <= FST * DT * BV, "x's rows fit the W ring");
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x (MUFU.EX2; inputs below -126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// W's vocab chunk i (and its bias) into stage i % FST
+template <int VEC>
+__device__ __forceinline__ void load_chunk(const Args& a, int i, bf16* Wb,
+                                           float* bs) {
+  const int v0 = i * BV;
+  load_tile<VEC, FNTH>(Wb + (i % FST) * DT * BV,
+                       static_cast<const bf16*>(a.w) + v0, a.V, DT, BV, a.d,
+                       a.V - v0);
+  load_bias(bs + (i % FST) * BV, a, v0);
+}
+
+// loss and lse of rows n0 .. n0+127: x's first DT columns go once into
+// registers as A fragments; W's vocab chunks come through a ring of FST
+// stages, so one barrier a chunk suffices; per chunk a warp forms its
+// 16 x 64 logits and folds them into a running max (log2 units,
+// quad-uniform), this thread's share of the sum and the label's logit.
+template <int VEC>
+__global__ void __launch_bounds__(FNTH, 1) xent_fwd_tc(Args a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Wb = reinterpret_cast<bf16*>(smem_raw);  // FST x [DT][BV]
+  float* bs = reinterpret_cast<float*>(Wb + FST * DT * BV);  // FST x [BV]
+  bf16* XR = reinterpret_cast<bf16*>(bs + FST * BV);  // [FROWS][RK], d > DT
+  bf16* WR = XR + FROWS * RK;                         // [RK][BV], d > DT
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * FROWS;
+  const int dc = min(DT, a.d);
+  const int nch = (a.V + BV - 1) / BV;
+
+  // x's rows through the ring's space into registers
+  load_tile<8, FNTH>(Wb, static_cast<const bf16*>(a.x) + (long long)n0 * a.d,
+                     a.d, FROWS, DT, a.N - n0, a.d);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t xa[DT / 16][4];
+#pragma unroll
+  for (int kb = 0; kb < DT / 16; ++kb)
+    if (kb * 16 < dc)
+      tc::ldsm_x4(xa[kb], Wb + tc::a_rowmajor(warp * 16, kb * 16, DT, lane));
+  __syncthreads();  // every warp holds its fragments before W lands there
+
+#pragma unroll
+  for (int i = 0; i < FST - 1; ++i) {
+    if (i < nch) load_chunk<VEC>(a, i, Wb, bs);
+    tc::cp_async_commit();
+  }
+
+  int lab[2];
+  float m[2], l[2], ll[2];  // running max (log2 units), sum share, label
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + warp * 16 + g + 8 * h;
+    lab[h] = n < a.N ? a.labels[n] : -1;
+    m[h] = NEG_INF;
+    l[h] = ll[h] = 0.f;
+  }
+
+  for (int i = 0; i < nch; ++i) {
+    const int v0 = i * BV;
+    tc::cp_async_wait<FST - 2>();  // chunk i has landed
+    __syncthreads();  // ... for every thread; chunk i - 1's readers are done
+    if (i + FST - 1 < nch) load_chunk<VEC>(a, i + FST - 1, Wb, bs);
+    tc::cp_async_commit();
+    const bf16* Wc = Wb + (i % FST) * DT * BV;
+    const float* bc = bs + (i % FST) * BV;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < DT / 16; ++kb) {
+      if (kb * 16 >= dc) break;
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        tc::ldsm_x4_t(bf, Wc + tc::b_kn(kb * 16, np * 16, BV, lane));
+        tc::mma(s[2 * np], xa[kb], bf[0], bf[1]);
+        tc::mma(s[2 * np + 1], xa[kb], bf[2], bf[3]);
+      }
+    }
+    if (a.d > DT)
+      s_outside<VEC, FROWS, FNTH>(s, a, n0, v0, 0, XR, WR, warp, lane);
+
+    // logits + bias; the label's logit; log2 units, NEG_INF past V
+    const bool ragged = v0 + BV > a.V;
+    float cm[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, c = nb * 8 + 2 * t + (e & 1);
+        const float z = s[nb][e] + bc[c];
+        if (v0 + c == lab[h]) ll[h] += z;
+        const float u = ragged && v0 + c >= a.V ? NEG_INF : z * LOG2E;
+        s[nb][e] = u;
+        cm[h] = fmaxf(cm[h], u);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cm[h] = fmaxf(cm[h], __shfl_xor_sync(0xffffffffu, cm[h], 1));
+      cm[h] = fmaxf(cm[h], __shfl_xor_sync(0xffffffffu, cm[h], 2));
+      const float m_new = fmaxf(m[h], cm[h]);
+      l[h] *= ex2(m[h] - m_new);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += ex2(s[nb][e] - m[e >> 1]);
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h], lab_z = ll[h];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      lab_z += __shfl_xor_sync(0xffffffffu, lab_z, off);
+    }
+    const int n = n0 + warp * 16 + g + 8 * h;
+    if (t == 0 && n < a.N) {
+      const float lse = m[h] * LN2 + logf(fmaxf(sum, L_FLOOR));
+      a.lse_out[n] = lse;
+      a.loss[n] = lse - lab_z;
+    }
+  }
 }
 
 // dx[n0 .. n0+64][c0 .. c0+DT): x's rows resident (Xf), W's vocab
@@ -833,26 +996,33 @@ int launch_vec(int V, dim3 grid, size_t smem, cudaStream_t stream,
                const Args& a, Extra... extra) {
   switch (tcx::vec_of(V)) {
     case 8:
-      return launch(Pick<8>::kernel(), grid, smem, stream, tcx::NTH, a,
-                    extra...);
+      return launch(Pick<8>::kernel(), grid, smem, stream,
+                    Pick<8>::threads, a, extra...);
     case 4:
-      return launch(Pick<4>::kernel(), grid, smem, stream, tcx::NTH, a,
-                    extra...);
+      return launch(Pick<4>::kernel(), grid, smem, stream,
+                    Pick<4>::threads, a, extra...);
     case 2:
-      return launch(Pick<2>::kernel(), grid, smem, stream, tcx::NTH, a,
-                    extra...);
+      return launch(Pick<2>::kernel(), grid, smem, stream,
+                    Pick<2>::threads, a, extra...);
     default:
-      return launch(Pick<1>::kernel(), grid, smem, stream, tcx::NTH, a,
-                    extra...);
+      return launch(Pick<1>::kernel(), grid, smem, stream,
+                    Pick<1>::threads, a, extra...);
   }
 }
 
 template <int VEC>
+struct FwdTc {
+  static constexpr int threads = tcx::FNTH;
+  static auto kernel() { return tcx::xent_fwd_tc<VEC>; }
+};
+template <int VEC>
 struct DxTc {
+  static constexpr int threads = tcx::NTH;
   static auto kernel() { return tcx::xent_dx_tc<VEC>; }
 };
 template <int VEC>
 struct DwTc {
+  static constexpr int threads = tcx::NTH;
   static auto kernel() { return tcx::xent_dwdb_tc<VEC>; }
 };
 
@@ -877,13 +1047,13 @@ extern "C" int xent_fwd(const void* x, const void* w, const void* b,
   a.d = d;
   a.V = V;
   const dim3 grid((N + BN - 1) / BN);
-  const size_t smem = logits_smem() + sizeof(int) * BN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(xent_fwd_kernel<float>, grid, smem, s, NTHREADS, a);
+    return launch(xent_fwd_kernel, grid,
+                  logits_smem() + sizeof(int) * BN, s, NTHREADS, a);
   if (dtype == 1)
-    return launch(xent_fwd_kernel<__nv_bfloat16>, grid, smem, s, NTHREADS,
-                  a);
+    return launch_vec<FwdTc>(V, dim3((N + tcx::FROWS - 1) / tcx::FROWS),
+                             tcx::fwd_smem(d), s, a);
   return -1;
 }
 
@@ -906,7 +1076,7 @@ extern "C" int xent_bwd_dx(const void* x, const void* w, const void* b,
   const dim3 grid((N + BN - 1) / BN, (d + DT - 1) / DT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(xent_dx_kernel<float>, grid, dx_smem(), s, NTHREADS, a);
+    return launch(xent_dx_kernel, grid, dx_smem(), s, NTHREADS, a);
   if (dtype == 1)
     return launch_vec<DxTc>(V, grid, tcx::dx_smem(d), s, a);
   return -1;
@@ -940,7 +1110,7 @@ extern "C" int xent_bwd_dwdb(const void* x, const void* w, const void* b,
   a.V = V;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(xent_dwdb_kernel<float>,
+    return launch(xent_dwdb_kernel,
                   dim3((V + BV - 1) / BV, (d + DT - 1) / DT), dw_smem(), s,
                   NTHREADS, a);
   if (dtype != 1 || work == nullptr || slices < 1 ||

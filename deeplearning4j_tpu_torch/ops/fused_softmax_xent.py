@@ -7,7 +7,7 @@ the JAX package's ops/fused_softmax_xent.py on hand-written CUDA kernels
 computed without writing the [N, V] logits to device memory:
 
 * K8 — `_fused_fwd` (TPU `_fused_fwd` -> `_fwd_kernel`): per-token loss
-  and lse, online over vocab chunks.
+  and lse, online over vocab chunks (`_xent_fwd`).
 * K9 — `_fused_bwd` (TPU `_fused_bwd` -> `_dx_kernel`, `_dwdb_kernel`):
   dx, dW and db recomputed chunk by chunk from (x, W, b, lse), two
   kernels as on the TPU (`_xent_dx`, `_xent_dwdb`).
@@ -106,8 +106,9 @@ _FN_ARGTYPES = {
     "xent_dw_slices": [ctypes.c_int] * 3,
 }
 
-# the bf16 kernels copy x and W into shared memory 16 bytes at a time
-# (narrower copies of W where V % 8 != 0, in the same kernel)
+# the bf16 kernels (K8 and both of K9) copy x and W into shared memory
+# 16 bytes at a time (narrower copies of W where V % 8 != 0, in the same
+# kernel)
 _ALIGN = 16
 
 
@@ -173,7 +174,14 @@ def _fused_fwd(x, w, b, labels):
     lse [N]) f32."""
     if x.device.type == "cpu":
         return _xent_fwd_reference(x, w, b, labels)
+    return _xent_fwd(x, w, b, labels)
+
+
+def _xent_fwd(x, w, b, labels):
+    """K8's kernel: (loss [N], lse [N]) f32."""
     _check(x, w, b, labels)
+    if x.dtype == torch.bfloat16:
+        _check_alignment({"x": x.data_ptr(), "W": w.data_ptr()})
     N, d = x.shape
     loss = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)

@@ -31,14 +31,32 @@ struct dim3 {
 extern thread_local uint3e threadIdx, blockIdx;
 extern dim3 blockDim, gridDim;
 
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaDevAttrMultiProcessorCount = 16
+};
 template <typename F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+// an H100's 132 SMs
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 132;
+  return 0;
+}
 
 using std::max;
 using std::min;
@@ -73,13 +91,15 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 
 // kernel<<<grid, block, smem>>>(args...), rewritten by emulate.py
 template <typename... P, typename... A>
-void emu_launch(void (*k)(P...), unsigned grid, int block, size_t smem,
+void emu_launch(void (*k)(P...), dim3 grid, int block, size_t smem,
                 A... args) {
   if (smem > 232448) throw std::runtime_error("shared memory over 227 KB");
-  gridDim = dim3(grid);
+  gridDim = grid;
   blockDim = dim3((unsigned)block);
   const unsigned n = (unsigned)block;
-  for (unsigned bx = 0; bx < grid; ++bx) {
+  for (unsigned bi = 0; bi < grid.x * grid.y * grid.z; ++bi) {
+    const unsigned bx = bi % grid.x, by = bi / grid.x % grid.y,
+                   bz = bi / grid.x / grid.y;
     EmuBlock blk;
     std::barrier<> bb(n);
     std::vector<std::barrier<>*> wb;
@@ -91,9 +111,9 @@ void emu_launch(void (*k)(P...), unsigned grid, int block, size_t smem,
     emu_poison();
     std::vector<std::thread> th;
     for (unsigned tx = 0; tx < n; ++tx)
-      th.emplace_back([&, tx, bx] {
+      th.emplace_back([&, tx, bx, by, bz] {
         threadIdx = {tx, 0, 0};
-        blockIdx = {bx, 0, 0};
+        blockIdx = {bx, by, bz};
         k(args...);
       });
     for (auto& t : th) t.join();

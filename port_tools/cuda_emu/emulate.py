@@ -1,10 +1,11 @@
-"""Run the port's flash kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) on
-the CPU through an emulation of the CUDA they use, and hold them against
-their plain PyTorch versions, so that fragment addresses, swizzles,
-masks and pipelines can be checked where there is no nvcc and no card.
+"""Run the port's tensor-core kernels (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu, csrc/softmax_xent.cu) on the CPU through an
+emulation of the CUDA they use, and hold them against their plain
+PyTorch versions, so that fragment addresses, swizzles, masks and
+pipelines can be checked where there is no nvcc and no card.
 
     python3 port_tools/cuda_emu/emulate.py [--dims 32 64 128 256]
-        [--src DIR]
+        [--kernels flash xent] [--src DIR]
 
 Each source is compiled by g++ (C++20) with this directory's headers in
 front of CUDA's: `kernel<<<grid, block, smem, stream>>>(...)` becomes
@@ -14,8 +15,10 @@ emulations of their PTX semantics (emu_tc.h); everything else of the
 header (the swizzle, the fragment addressing, the bf16 packing) is
 compiled as written. Each CUDA thread is a host thread and the blocks
 of a grid run one after another, so use small shapes (T = 128 and 192
-here; a full run of the four head dims takes a few minutes). The
-emulation says nothing about speed, registers or what nvcc accepts.
+for the flash kernels, a full run of the four head dims taking a few
+minutes; N = 144 rows and V = 200 or 203 for the bf16 softmax-xent
+head, K8 and both K9 kernels, at d = 256 and 384). The emulation says
+nothing about speed, registers or what nvcc accepts.
 `--src` points at another copy of csrc/ (for a deliberately broken
 copy, to see a check fail). Exits 1 if any case disagrees.
 """
@@ -36,6 +39,8 @@ ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT))
 
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from deeplearning4j_tpu_torch.ops import (  # noqa: E402
+    fused_softmax_xent as fsx)
 
 BUILD = ROOT / "deeplearning4j_tpu_torch" / "_build" / "emu"
 ASM_HELPERS = ("smem_addr", "cp_async", "cp_async_commit", "cp_async_wait",
@@ -44,7 +49,8 @@ LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<\s*(.+?)\s*,\s*(\w+)\s*,"
                     r"\s*(\w+)\s*,\s*(\w+)\s*>>>\s*\(", re.S)
 DEFS = """
 namespace { alignas(128) float smem[232448 / 4];
-namespace tcf { alignas(128) unsigned char smem_raw[232448]; } }
+namespace tcf { alignas(128) unsigned char smem_raw[232448]; }
+namespace tcx { alignas(128) unsigned char smem_raw[232448]; } }
 thread_local uint3e threadIdx, blockIdx;
 dim3 blockDim, gridDim;
 EmuBlock* g_blk;
@@ -53,6 +59,7 @@ thread_local std::vector<tc::EmuCopy> tc::emu_open;
 static void poison() {
   std::memset(smem, 0xff, sizeof smem);
   std::memset(tcf::smem_raw, 0xff, sizeof tcf::smem_raw);
+  std::memset(tcx::smem_raw, 0xff, sizeof tcx::smem_raw);
 }
 void (*emu_poison)() = poison;
 """
@@ -180,17 +187,86 @@ def entry_points(src_dir, out_dir=BUILD):
     return fwd, bwd
 
 
+def xent_entry_points(src_dir, out_dir=BUILD):
+    """The C entry points of the emulated csrc/softmax_xent.cu by name,
+    typed as ops/fused_softmax_xent.py calls them."""
+    lib = build("softmax_xent", src_dir, out_dir)
+    fns = {}
+    for name, types in fsx._FN_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, types
+        fns[name] = fn
+    return fns
+
+
+def rel_err(x, ref):
+    """max |x - ref| over max |ref|."""
+    ref = ref.float()
+    return float((x.float() - ref).abs().max()) / float(ref.abs().max())
+
+
+def run_xent_case(fns, N, d, V, gen):
+    """The bf16 head through the emulated kernels: K8 (`xent_fwd`)
+    against `_xent_fwd_reference`, and K9 (`xent_bwd_dx`,
+    `xent_bwd_dwdb` with its slices and reduce) against
+    `_xent_bwd_reference` on the reference's lse; each output within
+    phase 2b's limit of its largest entry: 1e-4 for K8's loss and lse
+    (f32 in both, from the same exact products), 2e-2 for K9's bf16
+    gradients. Returns (ok, report line)."""
+    x = torch.randn(N, d, generator=gen).bfloat16()
+    w = (0.05 * torch.randn(d, V, generator=gen)).bfloat16()
+    b = (0.01 * torch.randn(V, generator=gen)).bfloat16()
+    labels = torch.randint(0, V, (N,), generator=gen, dtype=torch.int32)
+    g = torch.rand(N, generator=gen) / N
+    ptr = [t.data_ptr() for t in (x, w, b, labels)]
+
+    loss, lse = torch.empty(N), torch.empty(N)
+    rc = fns["xent_fwd"](*ptr, loss.data_ptr(), lse.data_ptr(), 1, N, d, V,
+                         None)
+    rloss, rlse = fsx._xent_fwd_reference(x, w, b, labels)
+    err_f = max(rel_err(loss, rloss), rel_err(lse, rlse))
+
+    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty(V)
+    slices = fns["xent_dw_slices"](N, d, V)
+    work = torch.empty(max(slices, 1) * (d + 1) * (-(-V // 64) * 64))
+    rc_b = [fns["xent_bwd_dx"](*ptr, rlse.data_ptr(), g.data_ptr(),
+                               dx.data_ptr(), 1, N, d, V, None),
+            fns["xent_bwd_dwdb"](*ptr, rlse.data_ptr(), g.data_ptr(),
+                                 dw.data_ptr(), db.data_ptr(),
+                                 work.data_ptr(), slices, 1, N, d, V, None)]
+    refs = fsx._xent_bwd_reference(x, w, b, labels, rlse, g)
+    err_b = max(rel_err(a, r) for a, r in zip((dx, dw, db), refs))
+    ok = rc == 0 and err_f <= 1e-4 and bool(torch.isfinite(loss).all())
+    ok_b = rc_b == [0, 0] and slices >= 1 and err_b <= 2e-2
+    line = (f"xent N={N} d={d} V={V} bf16: K8 loss/lse rel {err_f:.2e} "
+            f"{'ok' if ok else 'FAIL'}; K9 dx/dW/db rel {err_b:.2e} "
+            f"({slices} slices) {'ok' if ok_b else 'FAIL'}")
+    return ok and ok_b, line
+
+
+XENT_SHAPES = ((144, 256, 200), (144, 256, 203), (144, 384, 200))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dims", type=int, nargs="*",
                     default=[32, 64, 128, 256])
+    ap.add_argument("--kernels", nargs="*", choices=["flash", "xent"],
+                    default=["flash", "xent"])
     ap.add_argument("--src", type=Path,
                     default=ROOT / "deeplearning4j_tpu_torch" / "csrc")
     args = ap.parse_args()
-    fwd, bwd = entry_points(args.src)
     gen = torch.Generator().manual_seed(0)
     failed = 0
-    for D in args.dims:
+    if "xent" in args.kernels:
+        fns = xent_entry_points(args.src)
+        for N, d, V in XENT_SHAPES:
+            ok, line = run_xent_case(fns, N, d, V, gen)
+            print(line, flush=True)
+            failed += not ok
+    fwd, bwd = entry_points(args.src) if "flash" in args.kernels else (
+        None, None)
+    for D in args.dims if "flash" in args.kernels else ():
         for dtype in (torch.bfloat16, torch.float32):
             for causal, masked, packed in ((True, True, False),
                                            (True, False, True),

@@ -1,14 +1,20 @@
-"""The CUDA sources of the flash kernels (csrc/flash_fwd.cu,
-csrc/flash_bwd.cu) run on the CPU through port_tools/cuda_emu, an
-emulation of the CUDA they use compiled by g++ (ldmatrix, mma.sync,
-shuffles and cp.async groups from their PTX semantics), and agree with
-the plain versions that chip_smoke.py holds the compiled kernels to on
-the card: so a fragment address, a swizzle or a mask that is wrong
-fails here, before a card sees it. One causal case a head dim and
-dtype, at T = 128 (the flat layout, a ragged key mask with one
-all-masked row) and T = 192 (the packed layout, unmasked); tolerances
-are phase 2's (o 2e-2 and lse 1e-2 in bf16, 1e-4 in f32) and phase
-2b's (2e-2 and 1e-4 of the largest gradient entry)."""
+"""The CUDA sources of the tensor-core kernels (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu, csrc/softmax_xent.cu) run on the CPU through
+port_tools/cuda_emu, an emulation of the CUDA they use compiled by g++
+(ldmatrix, mma.sync, shuffles and cp.async groups from their PTX
+semantics), and agree with the plain versions that chip_smoke.py holds
+the compiled kernels to on the card: so a fragment address, a swizzle
+or a mask that is wrong fails here, before a card sees it. Flash: one
+causal case a head dim and dtype, at T = 128 (the flat layout, a ragged
+key mask with one all-masked row) and T = 192 (the packed layout,
+unmasked); tolerances are phase 2's (o 2e-2 and lse 1e-2 in bf16, 1e-4
+in f32) and phase 2b's (2e-2 and 1e-4 of the largest gradient entry).
+The bf16 softmax-xent head (K8, and K9's dx and dW/db kernels): N = 144
+(a ragged last row block in each kernel: 128-row blocks in K8, 64-row
+in K9), V = 200 (16-byte copies of W, a ragged
+last chunk), V = 203 (odd V: plain loads) and d = 384 (the logits past
+the first 256 columns of d), within phase 2b's limits of the largest
+entry: 1e-4 for K8's f32 loss and lse, 2e-2 for K9's bf16 gradients."""
 
 import importlib.util
 from pathlib import Path
@@ -41,4 +47,18 @@ def test_emulated_flash_kernels_match_plain_versions(kernels, D, dtype, T,
     gen = torch.Generator().manual_seed(D + T)
     ok, line = emulate.run_case(*kernels, D, dtype, True, masked, packed, T,
                                 gen)
+    assert ok, line
+
+
+@pytest.fixture(scope="module")
+def xent_kernels(tmp_path_factory):
+    return emulate.xent_entry_points(
+        ROOT / "deeplearning4j_tpu_torch" / "csrc",
+        tmp_path_factory.mktemp("emu_xent"))
+
+
+@pytest.mark.parametrize("N,d,V", emulate.XENT_SHAPES)
+def test_emulated_xent_kernels_match_plain_versions(xent_kernels, N, d, V):
+    gen = torch.Generator().manual_seed(N + d + V)
+    ok, line = emulate.run_xent_case(xent_kernels, N, d, V, gen)
     assert ok, line

@@ -150,10 +150,13 @@ def test_fused_head_gate(force, d, V, labels_int, want):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(head):
-    """The K9 wrappers take CUDA tensors only: handed CPU tensors they
-    raise before loading the library; nothing falls back."""
+    """The K8 and K9 kernel wrappers take CUDA tensors only: handed CPU
+    tensors they raise before loading the library; nothing falls
+    back."""
     x, w, b, lab, g = (torch.from_numpy(a) for a in head)
     lse = torch.zeros(x.shape[0])
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfsx._xent_fwd(x, w, b, lab)
     with pytest.raises(ValueError, match="CUDA device"):
         tfsx._xent_dx(x, w, b, lab, lse, g)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -169,6 +172,30 @@ def test_bf16_kernels_refuse_misaligned_base_pointers(name, ptr):
     tfsx._check_alignment({"x": 0x7f0000000000, "W": 0x7f0000000100})
     with pytest.raises(ValueError, match=f"base pointer of {name} "):
         tfsx._check_alignment({name: ptr})
+
+
+@pytest.mark.parametrize("name", ["x", "W"])
+def test_bf16_forward_refuses_misaligned_base_pointers(name, monkeypatch):
+    """K8's bf16 kernel copies x and W 16 bytes at a time too: its
+    wrapper raises a ValueError naming the operand whose base pointer is
+    off a 16-byte boundary, before any launch (the device check is
+    stubbed so that CPU tensors reach the alignment guard)."""
+    monkeypatch.setattr(tfsx, "_check", lambda *a: None)
+    N, d, V = 4, 32, 24
+
+    def operand(shape, skew):
+        flat = torch.zeros(shape[0] * shape[1] + 8, dtype=torch.bfloat16)
+        base = (-flat.data_ptr() // 2) % 8  # elements to a 16-byte boundary
+        return flat[base + skew:base + skew + shape[0] * shape[1]].view(
+            shape)
+
+    x = operand((N, d), 1 if name == "x" else 0)
+    w = operand((d, V), 1 if name == "W" else 0)
+    assert (x.data_ptr() % 16 != 0) == (name == "x")
+    assert (w.data_ptr() % 16 != 0) == (name == "W")
+    with pytest.raises(ValueError, match=f"base pointer of {name} "):
+        tfsx._xent_fwd(x, w, torch.zeros(V, dtype=torch.bfloat16),
+                       torch.zeros(N, dtype=torch.int32))
 
 
 _LOSSES = sorted(jlosses.KNOWN_LOSSES)
