@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (deeplearning4j_tpu_torch/) on one
 NVIDIA GPU (written for the H100): serving the flagship Transformer LM
 (greedy, speculative and over the int8 cache, in process and over HTTP)
-and training it, training Word2Vec through the embedding engine, and
+and training it (also with attention dropout and at T = 32768 through
+the chunked tier), training Word2Vec through the embedding engine, and
 the speculative traffic replay, through the port's hand-written
 kernels.
 
@@ -30,29 +31,42 @@ Phases, each of which exits non-zero when it fails:
    B=32), at head dims 32 and 256 (K1 BH=16 T=1024 D=32 and BH=4 T=1024
    D=256, masked; K2 B=8 T=512 H=2 D=256) and at B*H = 65600 (T=64
    D=32), in float32 and bfloat16, against `_flash_fwd_reference` on
-   the same inputs. Each bf16 case runs a second time and must repeat
+   the same inputs, each also with in-kernel dropout (rate 0.1, a fixed
+   seed; K1 at BH=8 T=4096 hashed at window origin (8192, 4096) of a
+   sequence of 16384). Each bf16 case runs a second time and must repeat
    bit for bit; the kernel, the plain version and
    `scaled_dot_product_attention` (the library yardstick, which the
-   port never calls) are timed with CUDA events, the kernel and SDPA
-   also by their device time per launch (torch.profiler), with the
-   achieved TFLOP/s and roofline share beside the card's name and power
-   limit.
+   port never calls; with dropout_p=0.1 for the dropout arm) are timed
+   with CUDA events, the kernel and SDPA also by their device time per
+   launch (torch.profiler), with the achieved TFLOP/s and roofline share
+   beside the card's name and power limit, and the dropout arm's device
+   time against the no-dropout arm's.
 2b. Training kernels vs plain version, f32 and bf16: the flash backward
    (K6 packed B=32 T=512 H=2 D=128, K7 packed H=4 D=64, K4 flat T=512
    at BH=96 D=64 and BH=8 D=128, K5 flat BH=8 at T=2048 and T=4096,
    K5 flat BH=16 T=1024 D=32 and BH=4 T=1024 D=256, K6 packed B=8 T=512
    H=2 D=256, K4 flat BH=65600 T=64 D=32; the flat cases masked with
-   one all-masked row) against `_flash_bwd_reference`, timed (CUDA
-   events and device time per launch) against the backward of
-   `scaled_dot_product_attention`; the softmax-xent head (K8 forward,
+   one all-masked row) against `_flash_bwd_reference`, each also with
+   dropout (as in phase 2) and the flat cases (K4, K5) with an lse
+   cotangent (dlse), timed (CUDA events and device time per launch)
+   against the backward of `scaled_dot_product_attention` (with
+   dropout_p=0.1 for the dropout arm); the softmax-xent head (K8 forward,
    K9 backward) at N=16384 d=256 V=10000 and a ragged N=300 V=2100
    against `_xent_fwd_reference` / `_xent_bwd_reference`, timed against
    `F.cross_entropy(x @ W + b)` forward and backward. Each bf16 kernel
-   (K4-K7 at every head dim, K8 and K9, on the tensor cores) runs a
-   second time and must repeat bit for bit; each timing line names the
-   kernels that ran (a scalar kernel in bf16 fails) and gives their and
-   the library's device time a launch, the achieved TFLOP/s and the
-   roofline share beside the card's name and power limit.
+   (K4-K7 at every head dim and in every arm, K8 and K9, on the tensor
+   cores) runs a second time and must repeat bit for bit; each timing
+   line names the kernels that ran (a scalar kernel in bf16 fails) and
+   gives their and the library's device time a launch, the achieved
+   TFLOP/s and the roofline share beside the card's name and power
+   limit.
+2c. The chunked tier (`chunked_flash_attention`) at T=16384 (B=1, H=2,
+   D=128), f32 and bf16, without and with the padding mask and dropout:
+   forward and gradients against a plain computation in 1024-row query
+   blocks with the port's torch keep mask, and tiles of 4096 against
+   tiles of 8192 (the same keep mask); then the device time of the long
+   modes' tiles (BH=16, c=8192, D=128: the diagonal and a full tile, K1
+   and K5 with dlse, without and with dropout) against their bounds.
 3. Serving: `transformer_lm` at the repo's flagship width (vocab 10000,
    d_model 256, 2 heads of 128, 6 layers, d_ff 1024, bf16) answers 8
    requests through `GenerationEngine`; every request must complete with
@@ -70,8 +84,17 @@ Phases, each of which exits non-zero when it fails:
    every step and falls; launches exactly K2 = K6 = 6 x 20 and K8 =
    K9 = 20; step time, tokens/s, MFU, peak memory and a profile of one
    step.
+6b. The flagship's bench modes at their own dims (6 layers): "dropout"
+   (T=512, batch 32, masked, attention dropout 0.1; 20 steps, exactly
+   K2 = K6 = 120 and K8 = K9 = 20), "longcontext_chunked" (T=32768,
+   batch 8, 2 steps: tiles of 8192, 10 causal tile pairs a layer, so
+   exactly K1 = K5 = 120 and K8 = K9 = 2) and
+   "longcontext_chunked_dropout" (the same, masked, dropout 0.1): finite
+   losses, no dense route; step time, tokens/s, MFU, peak memory and a
+   profile of one step each.
 7. The other training routes at 2 layers and 2 steps: "transformer_d64"
-   (K3/K7), the flat route at T=512 with 3 heads of 64 (K1/K4),
+   (K3/K7) and the flat route at T=512 with 3 heads of 64 (K1/K4), each
+   also with attention dropout 0.1,
    "longcontext" T=4096 batch 4 with the padding mask (K1/K5), and the
    head dims of fault C1 at T=512 batch 32: 8 heads of 32 at d_model
    256 (the flat route, K1/K4) and 2 heads of 256 at d_model 512 (the
@@ -223,6 +246,37 @@ def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops):
             "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
+# the dropout arm of the flash kernels: rate and step seed, and the
+# cases hashed at a nonzero window origin (q_origin, k_origin, hash_t),
+# as the chunked tier's tile (2, 1) of T = 16384 in tiles of 4096 is
+DROP_RATE = 0.1
+DROP_SEED = 1234567
+DROP_ORIGINS = {"flat masked causal BH=8 T=4096 D=128": (8192, 4096, 16384),
+                "flat masked BH=8 T=4096 D=128": (8192, 4096, 16384)}
+# integer operations of the keep decision an element (csrc/dropout.cuh:
+# an add, two multiplies, two shifts, two xors and a compare), on the
+# CUDA cores (67e12 operations/s, the f32 row of the peaks)
+HASH_OPS = 8
+PEAK_CUDA_CORE_OPS = 67e12
+
+
+def with_hash_bound(bound_ms, bound_by, elements):
+    """A flash bound with the dropout arm's keep hash: the larger of the
+    no-dropout bound and the hash's operations on the CUDA cores, which
+    run beside the tensor cores."""
+    t_hash = elements * HASH_OPS / PEAK_CUDA_CORE_OPS * 1e3
+    return (bound_ms, bound_by) if bound_ms >= t_hash else (t_hash,
+                                                            "operations")
+
+
+def drop_for(torch, fa, label, T, dev):
+    """The phase's `_Drop` for a case: DROP_SEED as a device int32,
+    DROP_RATE, and the window of DROP_ORIGINS or origin 0."""
+    qo, ko, ht = DROP_ORIGINS.get(label, (0, 0, T))
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    return fa._Drop(seed, DROP_RATE, qo, ko, ht)
+
+
 # a ptxas spill line, and a tensor-core kernel's name (namespaces tcf,
 # tcx) demangled or mangled
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -253,13 +307,15 @@ def build_report(out):
 # ------------------------------------------------------------- phase 2
 
 def check_kernels(torch, fa, card):
-    """Each case in both dtypes: the kernel against the plain version on
-    the same inputs; then, in bf16 (the serving and training dtype), a
-    second run that must repeat bit for bit (the forward has no atomics)
-    and the timings: CUDA-event time of the kernel, the plain version
-    and SDPA, the device time per launch of the kernel and of SDPA, and
-    the achieved rate on the device time. Returns per-kernel lists of
-    records for the kernels line."""
+    """Each case in both dtypes, without and with dropout (DROP_RATE,
+    DROP_SEED; one case at a nonzero window origin): the kernel against
+    the plain version on the same inputs; then, in bf16 (the serving and
+    training dtype), a second run that must repeat bit for bit (the
+    forward has no atomics) and the timings: CUDA-event time of the
+    kernel, the plain version and SDPA (with dropout_p for the dropout
+    arm), the device time per launch of the kernel and of SDPA, and the
+    achieved rate on the device time. Returns per-kernel lists of records
+    for the kernels line (the dropout arm's under "dropout")."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -275,6 +331,7 @@ def check_kernels(torch, fa, card):
         return m.to(dev)
 
     records = {"K1": [], "K2": [], "K3": []}
+    drop_worst = {}
     cases = []
     for T in (512, 1024):  # chunked prefill: masked, causal, BH = 1 * 2
         cases.append(("K1", f"flat masked causal BH=2 T={T} D=128",
@@ -312,6 +369,7 @@ def check_kernels(torch, fa, card):
             dname = str(dtype).split(".")[-1]
             D, T = c["D"], c["T"]
             scale = D ** -0.5
+            drop = drop_for(torch, fa, label, T, dev)
             if kern == "K1":
                 BH = c["BH"]
                 q, k, v = (rand(BH, T, D).to(dtype) for _ in range(3))
@@ -337,6 +395,14 @@ def check_kernels(torch, fa, card):
                     allowed = allowed.view(2, BH // 2, T, T)
                     lib = lambda: F.scaled_dot_product_attention(  # noqa
                         q4, k4, v4, attn_mask=allowed)
+                fwd_d = lambda: fa._flash_fwd(  # noqa: E731
+                    q, k, v, km3, scale, True, drop)
+                plain_d = lambda: fa._flash_fwd_reference(  # noqa: E731
+                    q, k, v, km, scale, True, drop)
+                sdpa_kw = (dict(is_causal=True) if km is None
+                           else dict(attn_mask=allowed))
+                lib_d = lambda: F.scaled_dot_product_attention(  # noqa
+                    q4, k4, v4, dropout_p=DROP_RATE, **sdpa_kw)
                 bh, masked = BH, km is not None
             else:
                 B, H = c["B"], c["H"]
@@ -354,6 +420,12 @@ def check_kernels(torch, fa, card):
                               for t in qkv.split(n, dim=-1))
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     qh, kh, vh, is_causal=True)
+                fwd_d = lambda: fa._flash_fwd_qkv(  # noqa: E731
+                    qkv, H, None, scale, True, drop)
+                plain_d = lambda: fa._flash_fwd_qkv_reference(  # noqa: E731
+                    qkv, H, None, scale, True, drop)
+                lib_d = lambda: F.scaled_dot_product_attention(  # noqa
+                    qh, kh, vh, is_causal=True, dropout_p=DROP_RATE)
                 bh, masked = B * H, False
             torch.cuda.synchronize()
             err_o = float((o.float() - ro.float()).abs().max())
@@ -371,6 +443,23 @@ def check_kernels(torch, fa, card):
             if not ok:
                 raise PhaseFailed(2, f"{kern} {label} {dname} disagrees "
                                      "with its plain version")
+            od, lsed = fwd_d()
+            rod, rlsed = plain_d()
+            torch.cuda.synchronize()
+            err_od = float((od.float() - rod.float()).abs().max())
+            err_ld = float((lsed - rlsed).abs().max())
+            drop_worst[kern] = max(drop_worst.get(kern, 0.0), err_od)
+            okd = (err_od <= tol["o"] and err_ld <= tol["lse"]
+                   and bool(torch.isfinite(od.float()).all()))
+            if km is not None and kern == "K1":
+                okd = okd and bool((od[-1] == 0).all())
+            log(f"check {kern} {label} {dname} dropout {DROP_RATE} "
+                f"(origin {drop.q_origin}, {drop.k_origin}; hash_t "
+                f"{drop.hash_t}): max|o-plain|={err_od:.3e} "
+                f"max|lse-plain|={err_ld:.3e} -> {'ok' if okd else 'FAIL'}")
+            if not okd:
+                raise PhaseFailed(2, f"{kern} {label} {dname} dropout "
+                                     "disagrees with its plain version")
             if dtype is not torch.bfloat16:
                 continue
             same = same_bits(torch, (o, lse), fwd())
@@ -394,8 +483,50 @@ def check_kernels(torch, fa, card):
                 label=label, err=err_o, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-                bound_by=bound_by))
+                bound_by=bound_by,
+                dropout=drop_arm_record(
+                    torch, kern, label, (od, lsed), fwd_d, plain_d, lib_d,
+                    dev_ms, with_hash_bound(bound_ms, bound_by,
+                                            bh * T * (T + 1) // 2),
+                    flops, card)))
+    for kern, recs in records.items():
+        for rec in recs:
+            rec["dropout"]["err"] = drop_worst[kern]
     return records
+
+
+def drop_arm_record(torch, kern, label, first, run, plain, lib, dev_ms,
+                    bound, flops, card, what="fwd"):
+    """The dropout arm of a bf16 case: a second run must repeat `first`
+    bit for bit; then the CUDA-event and device times of the kernel, of
+    the plain version and of the library call with dropout, logged
+    beside the no-dropout arm's device time `dev_ms`. Returns the
+    record."""
+    again = run()
+    again = list(again) if isinstance(again, (tuple, list)) else [again]
+    first = list(first) if isinstance(first, (tuple, list)) else [first]
+    same = same_bits(torch, first, again)
+    log(f"check {kern} {what} {label} bf16 dropout: a second run is "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise PhaseFailed(2 if what == "fwd" else "2b",
+                          f"{kern} {label} dropout: two runs differ")
+    ms = time_ms(torch, run)
+    dev = kernel_device_ms(torch, run)
+    plain_ms = time_ms(torch, plain)
+    lib_ms = time_ms(torch, lib)
+    lib_dev = kernel_device_ms(torch, lib)
+    bound_ms, bound_by = bound
+    ratio = (f"{dev / dev_ms:.3f}x the no-dropout arm's device time"
+             if dev and dev_ms else "ratio not measured")
+    log(f"time  {kern} {what} {label} bf16 dropout {DROP_RATE}: kernel "
+        f"{ms:.4f} ms (device {fmt_ms(dev)}; {ratio}), plain "
+        f"{plain_ms:.4f} ms, sdpa dropout_p={DROP_RATE} {lib_ms:.4f} ms "
+        f"(device {fmt_ms(lib_dev)}), bound {bound_ms:.5f} ms "
+        f"({bound_by}); {rate_on(flops, ms, dev, bound_ms, card)}")
+    return dict(label=label, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=lib_ms, library_device_ms=lib_dev,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ------------------------------------------------------------ phase 2b
@@ -428,13 +559,14 @@ def grad_ms(torch, out, inputs, cot):
         out, inputs, cot, retain_graph=True))
 
 
-def flash_bwd_bound_ms(BH, T, D, elem_bytes, masked, B):
+def flash_bwd_bound_ms(BH, T, D, elem_bytes, masked, B, causal=True):
     """Least time for the backward function: q, k, v, o, do read and dq,
     dk, dv written once (lse read; the key mask read) over the memory
-    rate, against its five causal T x T x D products (s, dp, dv, dk, dq
-    over the T(T+1)/2 visible (query, key) pairs, 2D each) over the bf16
-    peak. Returns (ms, what bounds it, the FLOPs counted)."""
-    pairs = T * (T + 1) // 2
+    rate, against its five T x T x D products (s, dp, dv, dk, dq over
+    the T(T+1)/2 visible (query, key) pairs when causal, all T^2
+    otherwise, 2D each) over the bf16 peak. Returns (ms, what bounds it,
+    the FLOPs counted)."""
+    pairs = T * (T + 1) // 2 if causal else T * T
     flops = BH * pairs * D * 2 * 5
     nbytes = BH * T * D * elem_bytes * 8 + BH * T * 4 + (B * T * 4
                                                           if masked else 0)
@@ -474,10 +606,13 @@ def same_bits(torch, first, second):
 def check_flash_backward(torch, fa, card):
     """The backward kernel (csrc/flash_bwd.cu) through its K4-K7
     wrappers against `_flash_bwd_reference` on the same inputs, f32 and
-    bf16; o and lse come from the plain forward. bf16 cases run twice
-    and must agree bit for bit (the dq pass recomputes instead of adding
-    with atomics), and are timed against the backward of
-    scaled_dot_product_attention."""
+    bf16, without and with dropout (DROP_RATE, DROP_SEED; one case at a
+    nonzero window origin) and, on the flat layout (K4, K5), with an lse
+    cotangent (dlse); o and lse come from the plain forward. bf16 cases
+    run twice and must agree bit for bit (the dq pass recomputes instead
+    of adding with atomics), and are timed against the backward of
+    scaled_dot_product_attention (with dropout_p for the dropout
+    arm)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -512,12 +647,14 @@ def check_flash_backward(torch, fa, card):
                                                         D=256)),
              ("K4", "flat masked BH=65600 T=64 D=32", dict(BH=65600, T=64,
                                                             D=32))]
-    records, worst = {}, {}
+    records, worst, worst_d, worst_l = {}, {}, {}, {}
     for kern, label, c in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             T, D = c["T"], c["D"]
             scale = D ** -0.5
+            drop = drop_for(torch, fa, label, T, dev)
+            arms = {}  # name: (grads, refs, run, plain, lib out)
             if "B" in c:
                 B, H = c["B"], c["H"]
                 n = H * D
@@ -540,6 +677,16 @@ def check_flash_backward(torch, fa, card):
                     lib_q, lib_k, lib_v, is_causal=True)
                 lib_do = do.unflatten(-1, (H, D)).transpose(1, 2)
                 bh, masked, nb = B * H, False, B
+                od, lsed = fa._flash_fwd_qkv_reference(qkv, H, None, scale,
+                                                       True, drop)
+                run_d = lambda: fa._flash_bwd_qkv(  # noqa: E731
+                    qkv, od, lsed, do, H, None, scale, True, drop)
+                plain_d = lambda: fa._flash_bwd_qkv_reference(  # noqa
+                    qkv, od, lsed, do, H, None, scale, True, drop)
+                arms["dropout"] = ([run_d()], [plain_d()], run_d, plain_d,
+                                   F.scaled_dot_product_attention(
+                                       lib_q, lib_k, lib_v, is_causal=True,
+                                       dropout_p=DROP_RATE))
             else:
                 BH = c["BH"]
                 q, k, v, do = (rand(BH, T, D).to(dtype) for _ in range(4))
@@ -568,6 +715,24 @@ def check_flash_backward(torch, fa, card):
                     attn_mask=allowed.view(2, BH // 2, T, T))
                 lib_do = do.view(2, BH // 2, T, D)
                 bh, masked, nb = BH, True, BH
+                od, lsed = fa._flash_fwd_reference(q, k, v, km, scale, True,
+                                                   drop)
+                run_d = lambda: fa._flash_bwd_impl(  # noqa: E731
+                    q, k, v, od, lsed, do, km3, scale, True, drop=drop)
+                plain_d = lambda: fa._flash_bwd_reference(  # noqa: E731
+                    q, k, v, od, lsed, do, km, scale, True, drop=drop)
+                arms["dropout"] = (
+                    list(run_d()), list(plain_d()), run_d, plain_d,
+                    F.scaled_dot_product_attention(
+                        lib_q, lib_k, lib_v, dropout_p=DROP_RATE,
+                        attn_mask=allowed.view(2, BH // 2, T, T)))
+                dl = rand(BH, T)
+                run_l = lambda: fa._flash_bwd_impl(  # noqa: E731
+                    q, k, v, o, lse, do, km3, scale, True, dlse=dl)
+                plain_l = lambda: fa._flash_bwd_reference(  # noqa: E731
+                    q, k, v, o, lse, do, km, scale, True, dlse=dl)
+                arms["dlse"] = (list(run_l()), list(plain_l()), run_l,
+                                plain_l, None)
             torch.cuda.synchronize()
             err_abs, err = (max(e) for e in zip(
                 *(errs(g, r) for g, r in zip(grads, refs))))
@@ -582,6 +747,27 @@ def check_flash_backward(torch, fa, card):
             if not ok:
                 raise PhaseFailed("2b", f"{kern} {label} {dname} disagrees "
                                         "with its plain version")
+            for arm, (a_grads, a_refs, *_rest) in arms.items():
+                torch.cuda.synchronize()
+                a_abs, a_err = (max(e) for e in zip(
+                    *(errs(g, r) for g, r in zip(a_grads, a_refs))))
+                table = worst_d if arm == "dropout" else worst_l
+                table[kern] = max(table.get(kern, 0.0), a_abs)
+                a_ok = a_err <= REL_TOL[dname] and all(
+                    bool(torch.isfinite(g.float()).all()) for g in a_grads)
+                if masked:
+                    a_ok = a_ok and all(bool((g[-1] == 0).all())
+                                        for g in a_grads)
+                log(f"check {kern} flash bwd {label} {dname} {arm}"
+                    + (f" {DROP_RATE} (origin {drop.q_origin}, "
+                       f"{drop.k_origin}; hash_t {drop.hash_t})"
+                       if arm == "dropout" else "")
+                    + f": max rel err {a_err:.3e} -> "
+                    f"{'ok' if a_ok else 'FAIL'}")
+                if not a_ok:
+                    raise PhaseFailed("2b", f"{kern} {label} {dname} {arm} "
+                                            "disagrees with its plain "
+                                            "version")
             if dtype is not torch.bfloat16:
                 continue
             again = run()
@@ -615,14 +801,201 @@ def check_flash_backward(torch, fa, card):
                 f"bwd {lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)}), bound "
                 f"{bound_ms:.5f} ms ({bound_by}); "
                 f"{rate_on(flops, ms, dev_ms, bound_ms, card)}")
-            records.setdefault(kern, []).append(dict(
-                label=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, library_device_ms=lib_dev_ms,
-                bound_ms=bound_ms, bound_by=bound_by))
+            rec = dict(label=label, ms=ms, device_ms=dev_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            a_grads, _, run_d, plain_d, lib_out_d = arms["dropout"]
+            rec["dropout"] = drop_arm_record(
+                torch, kern, label, a_grads, run_d, plain_d,
+                lambda: torch.autograd.grad(
+                    lib_out_d, (lib_q, lib_k, lib_v), lib_do,
+                    retain_graph=True),
+                dev_ms, with_hash_bound(bound_ms, bound_by,
+                                        bh * T * (T + 1) // 2),
+                flops, card, what="flash bwd")
+            if "dlse" in arms:
+                l_grads, _, run_l, _, _ = arms["dlse"]
+                again = list(run_l())
+                same = same_bits(torch, l_grads, again)
+                l_dev = kernel_device_ms(torch, run_l)
+                log(f"check {kern} flash bwd {label} bf16 dlse: a second "
+                    f"run is {'bit-identical' if same else 'DIFFERENT'}; "
+                    f"device {fmt_ms(l_dev)} (no dlse {fmt_ms(dev_ms)})")
+                if not same:
+                    raise PhaseFailed("2b", f"{kern} {label} dlse: two runs "
+                                            "differ")
+                rec["dlse"] = dict(label=label, device_ms=l_dev)
+            records.setdefault(kern, []).append(rec)
     for kern, recs in records.items():
         for rec in recs:
             rec["err"] = worst[kern]
+            rec["dropout"]["err"] = worst_d[kern]
+            if "dlse" in rec:
+                rec["dlse"]["err"] = worst_l[kern]
     return records
+
+
+# ------------------------------------------------------------ phase 2c
+
+# the chunked tier against a plain computation: at T = 16384 (B = 1, H =
+# 2, D = 128) the kernels run tiles of 8192 (pick_chunk) and 4096; the
+# plain version forms 1024-row query blocks with the port's torch keep
+# mask. f32: the same f32 math in another order, merged tile by tile ->
+# 1e-4 of the largest entry; bf16: REL_TOL, the tiles' o rounded to bf16
+# before their merge.
+CHUNK_T = 16384
+CHUNK_ROWS = 1024
+
+
+def plain_attention_blocks(torch, fa, q, k, v, mask, drop, do):
+    """Causal attention over [BH, T, D] and its gradients for the output
+    cotangent `do`, written out in CHUNK_ROWS-row query blocks (f32 math,
+    the operands' rounding points of `_flash_fwd_reference` and
+    `_flash_bwd_reference`): returns (o, dq, dk, dv). mask: [BH, T] or
+    None; drop: a `_Drop` (origin 0, hash_t T) or None."""
+    BH, T, D = q.shape
+    scale = D ** -0.5
+    dev = q.device
+    o = torch.empty_like(q)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(BH, T, D, device=dev)
+    dv = torch.zeros(BH, T, D, device=dev)
+    bh = torch.arange(BH, device=dev)
+    for r0 in range(0, T, CHUNK_ROWS):
+        r1 = r0 + CHUNK_ROWS
+        qi, gi = q[:, r0:r1].float(), do[:, r0:r1].float()
+        kk, vv = k[:, :r1].float(), v[:, :r1].float()
+        s = scale * (qi @ kk.transpose(-1, -2))
+        vis = (torch.arange(r1, device=dev)[None, :]
+               <= torch.arange(r0, r1, device=dev)[:, None])[None]
+        if mask is not None:
+            vis = vis & (mask[:, None, :r1] > 0)
+        s = s.masked_fill(~vis, fa.NEG_INF)
+        m = s.amax(-1)
+        if mask is not None:
+            m = m.clamp_min(-1e20)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(-1).clamp_min(1e-30)
+        ks = (torch.ones_like(p) if drop is None else
+              fa._keep_mask(drop.seed, bh, r0, 0, CHUNK_ROWS, r1, T,
+                            drop.rate).float() * fa.keep_scale(drop.rate))
+        oi = ((p * ks).to(q.dtype).float() @ vv) / l[..., None]
+        o[:, r0:r1] = oi.to(q.dtype)
+        lse = m + torch.log(l)
+        p = torch.exp(s - lse[..., None])
+        delta = (gi * o[:, r0:r1].float()).sum(-1)
+        dp = (gi @ vv.transpose(-1, -2)) * ks
+        ds = p * (dp - delta[..., None]) * scale
+        dsr = ds.to(q.dtype).float()
+        dq[:, r0:r1] = (dsr @ kk).to(q.dtype)
+        dk[:, :r1] += dsr.transpose(-1, -2) @ qi
+        dv[:, :r1] += (p * ks).to(q.dtype).float().transpose(-1, -2) @ gi
+    return o, dq, dk.to(q.dtype), dv.to(q.dtype)
+
+
+def check_chunked(torch, fa, card):
+    """`chunked_flash_attention` at T = 16384 (B = 1, H = 2, D = 128), f32
+    and bf16, without and with the padding mask and dropout: forward and
+    gradients against `plain_attention_blocks` on the card, and tiles of
+    4096 against tiles of 8192 (the keep mask must not depend on the
+    tiling). Returns the largest gradient error a dtype."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    B, H, T, D = 1, 2, CHUNK_T, 128
+    assert fa.pick_chunk(T, True, head_dim=D) == 8192
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = 1e-4 if dtype == torch.float32 else REL_TOL[dname]
+        q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        mask = torch.ones(B, T, device=dev)
+        mask[:, T - T // 5:] = 0  # the last fifth of the keys padded
+        for masked, dropout in ((False, False), (True, False), (False, True),
+                                (True, True)):
+            mk = mask if masked else None
+            outs = []
+            chunks = (8192, 4096)
+            for chunk in chunks:
+                ts = [t.clone().requires_grad_() for t in (q, k, v)]
+                gen_d = torch.Generator(device=dev).manual_seed(SEED)
+                counts = dict(fa.LAUNCHES)
+                out = fa.chunked_flash_attention(
+                    *ts, mask=mk, chunk=chunk,
+                    dropout=DROP_RATE if dropout else 0.0, generator=gen_d)
+                out.backward(do)
+                torch.cuda.synchronize()
+                n = T // chunk
+                want = n * (n + 1) // 2
+                if (fa.LAUNCHES["K1"] - counts["K1"] != want
+                        or fa.LAUNCHES["K5"] - counts["K5"] != want):
+                    raise PhaseFailed("2c", f"chunk {chunk}: K1/K5 "
+                                            f"launched other than {want}x")
+                outs.append([out.detach()] + [t.grad for t in ts])
+            seed = fa._step_seed(torch.Generator(device=dev).manual_seed(
+                SEED))
+            drop = fa._Drop(seed, DROP_RATE, 0, 0, T) if dropout else None
+            flat = [t.reshape(B * H, T, D) for t in (q, k, v, do)]
+            refs = plain_attention_blocks(
+                torch, fa, *flat[:3],
+                None if mk is None else mk.repeat_interleave(H, 0), drop,
+                flat[3])
+            err = max(errs(g.reshape(B * H, T, D), r)[1]
+                      for g, r in zip(outs[0], refs))
+            inv = max(errs(a, b)[1] for a, b in zip(outs[1], outs[0]))
+            worst[dname] = max(worst.get(dname, 0.0), err)
+            ok = (err <= tol and inv <= tol
+                  and all(bool(torch.isfinite(g.float()).all())
+                          for g in outs[0]))
+            log(f"check chunked T={T} BH={B * H} D={D} {dname} "
+                f"masked={masked} dropout={DROP_RATE if dropout else 0}: "
+                f"o and dq/dk/dv against the plain {CHUNK_ROWS}-row blocks "
+                f"max rel err {err:.3e}, tiles of {chunks[1]} against "
+                f"{chunks[0]} {inv:.3e} (tol {tol}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed("2c", f"chunked {dname} masked={masked} "
+                                        f"dropout={dropout} disagrees")
+    # the tiles of the long modes at their shape (BH = 16, c = 8192,
+    # D = 128, bf16, the key mask): the diagonal tile (causal) and a full
+    # one, without and with dropout at the tile's origin in T = 32768.
+    # Timed by CUDA events: at a millisecond a launch the host's launch
+    # path is noise, and the profiler's sum over a few launches of these
+    # long kernels read low (less than half of the events' time on an
+    # H100)
+    BH, c = 16, 8192
+    scale = D ** -0.5
+    q, k, v, do = (torch.randn(BH, c, D, generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    km3 = torch.ones(BH, 1, c, device=dev)
+    dl = torch.randn(BH, c, generator=gen).to(dev)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    for causal, origin in ((True, (16384, 16384)), (False, (24576, 8192))):
+        times = {}
+        for dropping in (False, True):
+            drop = (fa._Drop(seed, DROP_RATE, *origin, 4 * c) if dropping
+                    else None)
+            o, lse = fa._flash_fwd(q, k, v, km3, scale, causal, drop)
+            times[dropping] = tuple(
+                time_ms(torch, fn, windows=3, per_window=5) for fn in (
+                    lambda: fa._flash_fwd(q, k, v, km3, scale, causal, drop),
+                    lambda: fa._flash_bwd_impl(q, k, v, o, lse, do, km3,
+                                               scale, causal, dl, drop)))
+        pairs = c * (c + 1) // 2 if causal else c * c
+        fb = flash_bound_ms(BH, c, D, 2, causal, True, PEAK_BF16_FLOPS)[:2]
+        bb = flash_bwd_bound_ms(BH, c, D, 2, True, BH, causal)[:2]
+        fbd = with_hash_bound(*fb, BH * pairs)
+        bbd = with_hash_bound(*bb, BH * pairs)
+        log(f"time  chunk tile BH={BH} c={c} D={D} bf16 masked "
+            f"{'diagonal (causal)' if causal else 'full'} (CUDA events): K1 "
+            f"{fmt_ms(times[False][0])}, with dropout "
+            f"{fmt_ms(times[True][0])} (bound {fb[0]:.5f} ms {fb[1]}, "
+            f"{fbd[0]:.5f} with the hash); K5 with dlse "
+            f"{fmt_ms(times[False][1])}, with dropout "
+            f"{fmt_ms(times[True][1])} (bound {bb[0]:.5f} ms {bb[1]}, "
+            f"{bbd[0]:.5f} with the hash); card {card}")
+    return worst
 
 
 def xent_bound_ms(N, d, V, elem_bytes, backward):
@@ -1052,10 +1425,124 @@ def train_flagship(torch, counters, transformer_lm, DataSet, flops, card):
                 for us, count, key in rows[:8]]}
 
 
+# bench.py LM_MODE_DIMS: the three modes of this phase, at their own
+# dims (6 layers, vocab 10000); steps: fit_scanned's, then the median of
+# `timed` fit() calls
+BENCH_MODES = {
+    "dropout": dict(seq=512, batch=32, steps=TRAIN_STEPS, timed=7,
+                    masked=True, attention_dropout=0.1),
+    "longcontext_chunked": dict(seq=32768, batch=8, steps=2, timed=3,
+                                masked=False, attention_dropout=None),
+    "longcontext_chunked_dropout": dict(seq=32768, batch=8, steps=2,
+                                        timed=3, masked=True,
+                                        attention_dropout=0.1),
+}
+
+
+def train_bench_modes(torch, counters, transformer_lm, DataSet, fa,
+                      flops_per_token, card):
+    """The flagship's bench modes "dropout" (T = 512, masked, attention
+    dropout 0.1: the packed route with the keep mask, K2/K6),
+    "longcontext_chunked" and "longcontext_chunked_dropout" (T = 32768,
+    batch 8: the chunked tier in tiles of 8192, 10 causal tile pairs a
+    layer, K1/K5), each through fit_scanned from lm_batch with exact
+    launch counts and finite losses; then the step time (the median of
+    fit() calls), tokens/s, MFU, peak memory and the kernel time of one
+    profiled step (MFU on `flops_per_token`, the executed causal
+    FLOPs). Returns the launches summed over the modes and {mode:
+    stats}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c0 = TRAIN
+    totals, stats = {}, {}
+    for mode, c in BENCH_MODES.items():
+        S, L = c["steps"], c0["n_layers"]
+        net = transformer_lm(vocab_size=c0["vocab_size"],
+                             d_model=c0["d_model"], n_heads=c0["n_heads"],
+                             n_layers=L, d_ff=c0["d_ff"], max_length=c["seq"],
+                             attention_dropout=c["attention_dropout"],
+                             dtype="bfloat16", device="cuda").init(SEED)
+        ds = lm_batch(DataSet, c0["vocab_size"], c["batch"], c["seq"],
+                      masked=c["masked"])
+        if c["seq"] > fa.MAX_FLASH_T:
+            n = c["seq"] // fa.pick_chunk(c["seq"], True,
+                                          head_dim=c0["d_model"]
+                                          // c0["n_heads"])
+            attn = {"K1": L * S * n * (n + 1) // 2,
+                    "K5": L * S * n * (n + 1) // 2}
+        else:
+            attn = {"K2": L * S, "K6": L * S}
+        want = {**{f"K{i}": 0 for i in range(1, 14)}, "K9 dW": S, **attn,
+                "K8": S, "K9": S}
+        dense = fa.DENSE_ROUTES["head_dim"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        net.fit_scanned(ds, epochs=S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        losses = net._step_losses.float().flatten().cpu().tolist()
+        log(f"train {mode}: fit_scanned {S} steps at batch {c['batch']} x "
+            f"T={c['seq']} (masked={c['masked']}, attention dropout "
+            f"{c['attention_dropout']}) in {wall:.3f} s; losses "
+            f"{[round(x, 4) for x in losses]}; launches {launches}; peak "
+            f"device memory {peak_mib:.1f} MiB")
+        if not all(np.isfinite(losses)):
+            raise PhaseFailed("6b", f"{mode}: loss not finite: {losses}")
+        if launches != want:
+            raise PhaseFailed("6b", f"{mode}: launches {launches}, "
+                                    f"expected {want}")
+        if fa.DENSE_ROUTES["head_dim"] != dense:
+            raise PhaseFailed("6b", f"{mode}: an attention call took the "
+                                    "dense path")
+        for k, n in launches.items():
+            totals[k] = totals.get(k, 0) + n
+
+        def one_step():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        step_s = statistics.median(one_step() for _ in range(c["timed"]))
+        fpt = flops_per_token(c0["vocab_size"], c0["d_model"], L,
+                              c0["d_ff"], c["seq"])
+        tok_s = c["batch"] * c["seq"] / step_s
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        _, rows = device_profile(torch, prof, pwall,
+                                 f"train {mode} profile (one step)", top=10)
+        busy = sum(r[0] for r in rows) / 1e6
+        kernel_ms = busy * 1e3 if rows else None
+        log(f"train {mode}: step {step_s * 1e3:.3f} ms (host clock to "
+            f"synchronize, median of {c['timed']} fit() calls) -> "
+            f"{tok_s:.1f} tokens/s; executed model FLOPs per token {fpt}; "
+            f"MFU {fpt * tok_s / PEAK_BF16_FLOPS:.5f} against "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; kernels of the profiled "
+            f"step {fmt_ms(kernel_ms)}"
+            + (f", device idle share of the median step "
+               f"{1 - busy / step_s:.4f}" if rows else "")
+            + f"; peak device memory {peak_mib:.1f} MiB; card {card}")
+        stats[mode] = dict(step_ms=step_s * 1e3, kernel_ms=kernel_ms,
+                           peak_mib=peak_mib, tokens_s=tok_s)
+        del net
+        torch.cuda.empty_cache()
+    return totals, stats
+
+
 def train_other_paths(torch, counters, transformer_lm, DataSet, fsx):
     """The other attention routes at reduced depth (2 layers, 2 steps):
     packed head_dim 64 (K3/K7), the flat route at T = 512 with an odd
-    head count (K1/K4), long context T = 4096 with the padding mask
+    head count (K1/K4), both also with attention dropout 0.1 (the keep
+    mask in the kernels), long context T = 4096 with the padding mask
     (K1/K5), and the head dims of fault C1: 8 heads of 32 (the flat
     route, K1/K4) and 2 heads of 256 (the packed route, K2/K6)."""
     # (label, config, launches each must show over 2 layers x 2 steps;
@@ -1069,6 +1556,14 @@ def train_other_paths(torch, counters, transformer_lm, DataSet, fsx):
          {"K3": 4, "K7": 4, "K8": 2, "K9": 2}),
         ("flat T=512 (3 heads of 64)", dict(d_model=192, n_heads=3, seq=512,
                                             batch=32, masked=False),
+         {"K1": 4, "K4": 4, "K8": 0, "K9": 0}),
+        ("transformer_d64 dropout", dict(d_model=256, n_heads=4, seq=512,
+                                         batch=32, masked=False,
+                                         attention_dropout=0.1),
+         {"K3": 4, "K7": 4, "K8": 2, "K9": 2}),
+        ("flat T=512 (3 heads of 64) dropout",
+         dict(d_model=192, n_heads=3, seq=512, batch=32, masked=False,
+              attention_dropout=0.1),
          {"K1": 4, "K4": 4, "K8": 0, "K9": 0}),
         ("longcontext masked", dict(d_model=256, n_heads=2, seq=4096,
                                     batch=4, masked=True),
@@ -1087,8 +1582,9 @@ def train_other_paths(torch, counters, transformer_lm, DataSet, fsx):
         net = transformer_lm(vocab_size=TRAIN["vocab_size"],
                              d_model=c["d_model"], n_heads=c["n_heads"],
                              n_layers=2, d_ff=TRAIN["d_ff"],
-                             max_length=c["seq"], dtype="bfloat16",
-                             device="cuda").init(SEED)
+                             max_length=c["seq"],
+                             attention_dropout=c.get("attention_dropout"),
+                             dtype="bfloat16", device="cuda").init(SEED)
         ds = lm_batch(DataSet, TRAIN["vocab_size"], c["batch"], c["seq"],
                       masked=c["masked"])
         fused = fsx.supports(c["batch"] * c["seq"], c["d_model"],
@@ -1135,7 +1631,8 @@ def _plain_flash_qkv(torch, fa):
                                                 ctx.scale, True),
                     None, None)
 
-    def flash_attention_qkv(qkv, H, *, causal=True, mask=None, dropout=0.0):
+    def flash_attention_qkv(qkv, H, *, causal=True, mask=None, dropout=0.0,
+                            generator=None):
         if not causal or mask is not None or dropout:
             raise ValueError("the oracle runs causal, unmasked attention")
         return F.apply(qkv, H, (qkv.shape[-1] // 3 // H) ** -0.5)
@@ -2147,6 +2644,7 @@ def main() -> int:
 
     records = check_kernels(torch, fa, name_power)
     records.update(check_flash_backward(torch, fa, name_power))
+    chunked_err = check_chunked(torch, fa, name_power)
     records.update(check_xent(torch, fsx, name_power))
     records.update(check_neg_softmax(torch, fns))
     records.update(check_layernorm(torch, fln))
@@ -2170,6 +2668,9 @@ def main() -> int:
                             transformer_flops_per_token_executed))
     train_launches, _ = train_flagship(torch, counters, transformer_lm,
                                        DataSet, flops, name_power)
+    mode_launches, _ = train_bench_modes(
+        torch, counters, transformer_lm, DataSet, fa,
+        transformer_flops_per_token_executed, name_power)
     other_launches = train_other_paths(torch, counters, transformer_lm,
                                        DataSet, fsx)
     grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx)
@@ -2188,11 +2689,14 @@ def main() -> int:
     # one entry per TPU kernel, timed at the heaviest shape a path gives
     # it (K12 at the replay's microbench block); launches summed over the
     # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
-    # training, the other training paths, Word2Vec, the engine and the
-    # speculative replay), each counted from 0 just before it and read
-    # just after
+    # training, the three bench modes, the other training paths,
+    # Word2Vec, the engine and the speculative replay), each counted from
+    # 0 just before it and read just after. K1-K7 carry their dropout
+    # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
+    # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
-            other_launches, w2v_launches, engine_launches, replay_launches)
+            mode_launches, other_launches, w2v_launches, engine_launches,
+            replay_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}
@@ -2253,7 +2757,12 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["label"],
             **{k: rec[k] for k in ("device_ms", "library_device_ms")
-               if k in rec}})
+               if k in rec},
+            **{arm: {"max_abs_err": rec[arm]["err"],
+                     **{k: v for k, v in rec[arm].items() if k != "err"}}
+               for arm in ("dropout", "dlse") if arm in rec}})
+        if kern in ("K1", "K5"):
+            kernels[-1]["chunked_max_rel_err"] = chunked_err
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,20 @@
 // exp(-1e30 + 1e20) = 0 and its gradients are zero;
 // a masked key gets p = 0 in every row, so its dk and dv are zero.
 //
+// The lse cotangent (`dlse`, nullable): the chunked tier merges tiles
+// by their lse, so its gradient reaches each tile's lse; d lse_i / d s_ij
+// = p_ij, so ds = p * (dp - delta + dlse): the delta pass subtracts dlse
+// (the JAX package's fold, `_flash_bwd_impl`), and the kernels run
+// unchanged.
+//
+// Attention dropout (DROP = true instantiations, csrc/dropout.cuh): each
+// pass regenerates the forward's keep mask from the seed and the
+// element's global coordinates, then dp <- dp * keep * 1/(1 - rate) and
+// dv takes p * keep * 1/(1 - rate), while ds = p * (dp - delta) *
+// sm_scale keeps the undropped p (the JAX `_dkv_kernel`). At D = 256 both
+// warps of a row block (the one forming P, the one forming dP) hash the
+// same elements. DROP = false compiles to the kernels without dropout.
+//
 // Layouts: q, k, v, o, do, dq, dk, dv are addressed as
 // base + b*sb + h*sh + t*st + d with element strides from the caller, so
 // the packed route reads q|k|v as column slices of [B, T, 3n] and writes
@@ -112,6 +126,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "dropout.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -147,6 +162,13 @@ struct Args {
   Strides st[NT];
   float sm_scale;
   int causal;
+  const float* dlse;  // [B*H, T] or null: the lse cotangent, folded into delta
+  // attention dropout (dropout.cuh), read by the DROP instantiations
+  // only: the step seed in device memory, the call's global window
+  // origin, the global sequence length, the keep threshold and scale
+  const int* seed;
+  uint32_t q_origin, k_origin, hash_t, thr;
+  float keep_scale;
 };
 
 template <typename T>
@@ -161,7 +183,8 @@ __device__ __forceinline__ T* at_mut(void* base, const Strides& s, int b,
   return static_cast<T*>(base) + b * s.b + h * s.h;
 }
 
-// delta[bh, t] = sum_d do[t, d] * o[t, d]: one warp per row
+// delta[bh, t] = sum_d do[t, d] * o[t, d] - dlse[bh, t] (dlse when
+// given): one warp per row
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS) delta_kernel(Args a) {
   const long long row =
@@ -180,7 +203,8 @@ __global__ void __launch_bounds__(NTHREADS) delta_kernel(Args a) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) a.delta[row] = s;
+  // the lse cotangent: d lse / d s = p, so ds = p * (dp - delta + dlse)
+  if (lane == 0) a.delta[row] = a.dlse ? s - a.dlse[row] : s;
 }
 
 // (b*h, tile index) of this block: tiles in the low bits, in launch
@@ -207,12 +231,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 }
 
 // s = Qt . Kt^T and dp = dOt . Vt^T on a BT x BT tile: rows ty + 16i,
-// columns tx + 16j. Then p and ds into shared memory ([row][col]).
-template <int D, int BT>
+// columns tx + 16j. Then p and ds into shared memory ([row][col]); with
+// dropout, p * keep * scale (for dv) and ds = p * (dp * keep * scale -
+// delta) * sm_scale. key: the slice's dropout key.
+template <int D, int BT, bool DROP>
 __device__ __forceinline__ void p_ds_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
     const float* lse_s, const float* dl_s, const float* km_s, float* Ps,
-    float* dSs, int q0, int k0, bool masked, const Args& a) {
+    float* dSs, int q0, int k0, bool masked, uint32_t key, const Args& a) {
   constexpr int R = BT / 16;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float s[R][R], dp[R][R];
@@ -251,9 +277,20 @@ __device__ __forceinline__ void p_ds_tile(
       if (a.causal && k0 + c > q0 + r) x = NEG_INF;
       if (masked && !(km_s[c] > 0.f)) x = NEG_INF;
       const float p = expf(x - lse_s[r]);
-      Ps[r * (BT + 1) + c] = p;
-      dSs[r * (BT + 1) + c] =
-          p * (dp[i][j] - dl_s[r]) * a.sm_scale;
+      if constexpr (DROP) {
+        const float ks =
+            drop::keep(key + (a.q_origin + q0 + r) * a.hash_t + a.k_origin +
+                           k0 + c,
+                       a.thr)
+                ? a.keep_scale
+                : 0.f;
+        Ps[r * (BT + 1) + c] = p * ks;
+        dSs[r * (BT + 1) + c] = p * (dp[i][j] * ks - dl_s[r]) * a.sm_scale;
+      } else {
+        Ps[r * (BT + 1) + c] = p;
+        dSs[r * (BT + 1) + c] =
+            p * (dp[i][j] - dl_s[r]) * a.sm_scale;
+      }
     }
   }
 }
@@ -264,7 +301,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (4 * BT * (D + 1) + 2 * BT * (BT + 1) + 3 * BT);
 }
 
-template <int D, int BT>
+template <int D, int BT, bool DROP>
 __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int R = BT / 16;
@@ -286,6 +323,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   const BlockTile bt = block_tile(a, n_t, false);
   const int kt = bt.tile, k0 = kt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
+  const uint32_t key = DROP ? drop::slice_key(a.seed, bh) : 0u;
 
   const float* qp = at<float>(a.q, a.st[Q], b, h);
   const float* kp = at<float>(a.k, a.st[K], b, h);
@@ -313,8 +351,8 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
       dl_s[tid] = a.delta[(long long)bh * a.T + q0 + tid];
     }
     __syncthreads();
-    p_ds_tile<D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
-                        masked, a);
+    p_ds_tile<D, BT, DROP>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0,
+                           k0, masked, key, a);
     __syncthreads();
     // dv[c] += sum_r p[r][c] do[r];  dk[c] += sum_r ds[r][c] q[r]
     // (keys c = ty + 16i, head columns tx + 16j)
@@ -352,7 +390,7 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   }
 }
 
-template <int D, int BT>
+template <int D, int BT, bool DROP>
 __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   constexpr int NJ = D / 16;
   constexpr int R = BT / 16;
@@ -374,6 +412,7 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
   const BlockTile bt = block_tile(a, n_t, true);
   const int qt = bt.tile, q0 = qt * BT, bh = bt.bh, b = bt.b, h = bt.h;
   const bool masked = a.kmask != nullptr;
+  const uint32_t key = DROP ? drop::slice_key(a.seed, bh) : 0u;
 
   const float* kp = at<float>(a.k, a.st[K], b, h);
   const float* vp = at<float>(a.v, a.st[V], b, h);
@@ -399,8 +438,8 @@ __global__ void __launch_bounds__(NTHREADS) dq_kernel(Args a) {
     if (tid < BT)
       km_s[tid] = masked ? a.kmask[(long long)b * a.T + k0 + tid] : 1.f;
     __syncthreads();
-    p_ds_tile<D, BT>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0, k0,
-                        masked, a);
+    p_ds_tile<D, BT, DROP>(Qs, dOs, Ks, Vs, lse_s, dl_s, km_s, Ps, dSs, q0,
+                           k0, masked, key, a);
     __syncthreads();
     // dq[r] += sum_c ds[r][c] k[c]  (rows r = ty + 16i, columns tx + 16j)
 #pragma unroll 2
@@ -438,24 +477,24 @@ int launch_delta(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, int BT>
+template <int D, int BT, bool DROP>
 int launch(const Args& a, cudaStream_t stream) {
   int rc = launch_delta<float, D>(a, stream);
   if (rc != 0) return rc;
   constexpr size_t smem = smem_bytes<D, BT>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<D, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkv_kernel<D, BT, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_kernel<D, BT>,
+  err = cudaFuncSetAttribute(dq_kernel<D, BT, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)a.B * a.H * (a.T / BT));
-  dkv_kernel<D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
+  dkv_kernel<D, BT, DROP><<<blocks, NTHREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_kernel<D, BT><<<blocks, NTHREADS, smem, stream>>>(a);
+  dq_kernel<D, BT, DROP><<<blocks, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -554,7 +593,7 @@ constexpr size_t smem_bytes() {
 // dk, dv of one 64-key tile: K and V resident, Q and dO tiles (with
 // their lse and delta) double-buffered from the causal bound to T.
 // Warp w owns keys 16w .. 16w+15 and forms S^T and dP^T for them.
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(NTH, 2) dkv_tc(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BT][D]
@@ -583,11 +622,16 @@ __global__ void __launch_bounds__(NTH, 2) dkv_tc(Args a) {
 
   int key[2];
   bool kok[2];
+  // dropout: the hash coordinate of this thread's keys at query 0 (the
+  // query adds gq * hash_t)
+  uint32_t hkey[2];
+  const uint32_t skey = DROP ? drop::slice_key(a.seed, bh) : 0u;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     key[hh] = k0 + warp * 16 + g + 8 * hh;
     kok[hh] = a.kmask == nullptr ||
               a.kmask[(long long)b * a.T + key[hh]] > 0.f;
+    hkey[hh] = skey + a.q_origin * a.hash_t + a.k_origin + key[hh];
   }
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -632,8 +676,18 @@ __global__ void __launch_bounds__(NTH, 2) dkv_tc(Args a) {
           float x = a.sm_scale * s[j][e];
           if ((a.causal && key[hh] > q0 + qi) || !kok[hh]) x = NEG_INF;
           const float p = expf(x - Lc[qi]);
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - Dc[qi]) * a.sm_scale;
+          if constexpr (DROP) {
+            // dv takes p * keep * scale, dS the dropped dP
+            const float ks =
+                drop::keep(hkey[hh] + (uint32_t)(q0 + qi) * a.hash_t, a.thr)
+                    ? a.keep_scale
+                    : 0.f;
+            s[j][e] = p * ks;
+            dp[j][e] = p * (dp[j][e] * ks - Dc[qi]) * a.sm_scale;
+          } else {
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - Dc[qi]) * a.sm_scale;
+          }
         }
       // P and dS rounded to bf16 for the products, as the reference
       // rounds them
@@ -653,7 +707,7 @@ __global__ void __launch_bounds__(NTH, 2) dkv_tc(Args a) {
 // key mask) double-buffered up to the causal bound; the FA2 split,
 // recomputing P and dS rather than adding dq with atomics, so a run is
 // reproducible bit for bit.
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(NTH, 2) dq_tc(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BT][D]
@@ -680,11 +734,17 @@ __global__ void __launch_bounds__(NTH, 2) dq_tc(Args a) {
 
   int qrow[2];
   float lse[2], dl[2];
+  // dropout: the hash coordinate of this thread's first key in each row,
+  // at key tile 0
+  uint32_t hrow[2];
+  const uint32_t skey = DROP ? drop::slice_key(a.seed, bh) : 0u;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     qrow[hh] = q0 + warp * 16 + g + 8 * hh;
     lse[hh] = a.lse[(long long)bh * a.T + qrow[hh]];
     dl[hh] = a.delta[(long long)bh * a.T + qrow[hh]];
+    hrow[hh] =
+        skey + (a.q_origin + qrow[hh]) * a.hash_t + a.k_origin + 2 * t;
   }
   float dq[D / 8][4];
 #pragma unroll
@@ -722,7 +782,15 @@ __global__ void __launch_bounds__(NTH, 2) dq_tc(Args a) {
         if ((a.causal && k0 + kj > qrow[hh]) || (masked && !(Mc[kj] > 0.f)))
           x = NEG_INF;
         const float p = expf(x - lse[hh]);
-        dp[j][e] = p * (dp[j][e] - dl[hh]) * a.sm_scale;
+        if constexpr (DROP) {
+          const float ks =
+              drop::keep(hrow[hh] + k0 + j * 8 + (e & 1), a.thr)
+                  ? a.keep_scale
+                  : 0.f;
+          dp[j][e] = p * (dp[j][e] * ks - dl[hh]) * a.sm_scale;
+        } else {
+          dp[j][e] = p * (dp[j][e] - dl[hh]) * a.sm_scale;
+        }
       }
     uint32_t sa[4][4];  // dS rounded to bf16, as the reference rounds it
     tc::c_to_a<4>(dp, sa);
@@ -797,6 +865,7 @@ __device__ __forceinline__ void frag_rows(uint32_t (&f)[2][4], const bf16* X,
 // dk, dv of one 32-key tile (block `blk` of the dk/dv grid): K and V
 // resident, Q and dO tiles (with lse and delta) double-buffered from the
 // causal bound to T.
+template <bool DROP>
 __device__ __forceinline__ void dkv256(const Args& a, int blk,
                                        unsigned char* smem_raw) {
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BR][DH]
@@ -830,11 +899,16 @@ __device__ __forceinline__ void dkv256(const Args& a, int blk,
 
   int key[2];
   bool kok[2];
+  // dropout: the hash coordinate of this thread's keys at query 0 (the
+  // query adds gq * hash_t); both roles need the keep mask
+  uint32_t hkey[2];
+  const uint32_t skey = DROP ? drop::slice_key(a.seed, bh) : 0u;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     key[hh] = k0 + r0 + g + 8 * hh;
     kok[hh] = a.kmask == nullptr ||
               a.kmask[(long long)b * a.T + key[hh]] > 0.f;
+    hkey[hh] = skey + a.q_origin * a.hash_t + a.k_origin + key[hh];
   }
   float dk[16][4], dv[16][4];
 #pragma unroll
@@ -882,6 +956,15 @@ __device__ __forceinline__ void dkv256(const Args& a, int blk,
           }
           *reinterpret_cast<float2*>(Pf + r * PF + c) =
               make_float2(p[0], p[1]);
+          if constexpr (DROP) {
+            // dv takes p * keep * scale
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              p[i] *= drop::keep(hkey[hh] + (uint32_t)(q0 + c + i) * a.hash_t,
+                                 a.thr)
+                          ? a.keep_scale
+                          : 0.f;
+          }
           // P rounded to bf16 for dv, as the reference rounds it
           *reinterpret_cast<uint32_t*>(Pb + tc::swz(r, c, BR)) =
               tc::pack_bf16(p[0], p[1]);
@@ -895,11 +978,20 @@ __device__ __forceinline__ void dkv256(const Args& a, int blk,
         for (int hh = 0; hh < 2; ++hh) {
           const int r = r0 + g + 8 * hh, c = j * 8 + 2 * t;
           const float2 p = *reinterpret_cast<const float2*>(Pf + r * PF + c);
+          float dp[2] = {s[j][2 * hh], s[j][2 * hh + 1]};
+          if constexpr (DROP) {
+            // dS takes the dropped dP
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              dp[i] *= drop::keep(hkey[hh] + (uint32_t)(q0 + c + i) * a.hash_t,
+                                  a.thr)
+                           ? a.keep_scale
+                           : 0.f;
+          }
           // dS rounded to bf16 for dk, as the reference rounds it
           *reinterpret_cast<uint32_t*>(Sb + tc::swz(r, c, BR)) =
-              tc::pack_bf16(p.x * (s[j][2 * hh] - Dc[c]) * a.sm_scale,
-                            p.y * (s[j][2 * hh + 1] - Dc[c + 1]) *
-                                a.sm_scale);
+              tc::pack_bf16(p.x * (dp[0] - Dc[c]) * a.sm_scale,
+                            p.y * (dp[1] - Dc[c + 1]) * a.sm_scale);
         }
     }
     __syncthreads();
@@ -919,6 +1011,7 @@ __device__ __forceinline__ void dkv256(const Args& a, int blk,
 // dq of one 32-query tile (block `blk` of the dq grid): Q and dO
 // resident, K and V tiles (with the key mask) double-buffered up to the
 // causal bound.
+template <bool DROP>
 __device__ __forceinline__ void dq256(const Args& a, int blk,
                                       unsigned char* smem_raw) {
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BR][DH]
@@ -950,11 +1043,15 @@ __device__ __forceinline__ void dq256(const Args& a, int blk,
 
   int qrow[2];
   float lse[2], dl[2];
+  // dropout: the hash coordinate of this thread's rows at key 0
+  uint32_t hrow[2];
+  const uint32_t skey = DROP ? drop::slice_key(a.seed, bh) : 0u;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     qrow[hh] = q0 + r0 + g + 8 * hh;
     lse[hh] = a.lse[(long long)bh * a.T + qrow[hh]];
     dl[hh] = a.delta[(long long)bh * a.T + qrow[hh]];
+    hrow[hh] = skey + (a.q_origin + qrow[hh]) * a.hash_t + a.k_origin;
   }
   float dq[16][4];
 #pragma unroll
@@ -1012,10 +1109,19 @@ __device__ __forceinline__ void dq256(const Args& a, int blk,
         for (int hh = 0; hh < 2; ++hh) {
           const int r = r0 + g + 8 * hh, c = j * 8 + 2 * t;
           const float2 p = *reinterpret_cast<const float2*>(Pf + r * PF + c);
+          float dp[2] = {s[j][2 * hh], s[j][2 * hh + 1]};
+          if constexpr (DROP) {
+            // dS takes the dropped dP
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              dp[i] *= drop::keep(hrow[hh] + k0 + c + i, a.thr)
+                           ? a.keep_scale
+                           : 0.f;
+          }
           // dS rounded to bf16 for dq, as the reference rounds it
           *reinterpret_cast<uint32_t*>(Sb + tc::swz(r, c, BR)) =
-              tc::pack_bf16(p.x * (s[j][2 * hh] - dl[hh]) * a.sm_scale,
-                            p.y * (s[j][2 * hh + 1] - dl[hh]) * a.sm_scale);
+              tc::pack_bf16(p.x * (dp[0] - dl[hh]) * a.sm_scale,
+                            p.y * (dp[1] - dl[hh]) * a.sm_scale);
         }
     }
     __syncthreads();
@@ -1030,61 +1136,90 @@ __device__ __forceinline__ void dq256(const Args& a, int blk,
 
 // One launch for both passes, which depend only on delta: blocks below
 // n_dkv are dk/dv tiles, the rest dq tiles.
+template <bool DROP>
 __global__ void __launch_bounds__(NTH, 2) bwd256_tc(Args a, int n_dkv) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   if ((int)blockIdx.x < n_dkv)
-    dkv256(a, (int)blockIdx.x, smem_raw);
+    dkv256<DROP>(a, (int)blockIdx.x, smem_raw);
   else
-    dq256(a, (int)blockIdx.x - n_dkv, smem_raw);
+    dq256<DROP>(a, (int)blockIdx.x - n_dkv, smem_raw);
 }
 
+template <bool DROP>
 int launch256(const Args& a, cudaStream_t stream) {
   int rc = launch_delta<bf16, DH>(a, stream);
   if (rc != 0) return rc;
   constexpr size_t smem = smem256();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd256_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bwd256_tc<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n = (int)((long long)a.B * a.H * (a.T / BR));
-  bwd256_tc<<<2 * n, NTH, smem, stream>>>(a, n);
+  bwd256_tc<DROP><<<2 * n, NTH, smem, stream>>>(a, n);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch(const Args& a, cudaStream_t stream) {
   int rc = launch_delta<bf16, D>(a, stream);
   if (rc != 0) return rc;
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(dkv_tc<D>,
+  cudaError_t err = cudaFuncSetAttribute(dkv_tc<D, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dq_tc<D>,
+  err = cudaFuncSetAttribute(dq_tc<D, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)a.B * a.H * (a.T / BT));
-  dkv_tc<D><<<blocks, NTH, smem, stream>>>(a);
+  dkv_tc<D, DROP><<<blocks, NTH, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dq_tc<D><<<blocks, NTH, smem, stream>>>(a);
+  dq_tc<D, DROP><<<blocks, NTH, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tcf
 
+template <bool DROP>
+int dispatch(const Args& a, int dtype, int D, cudaStream_t s) {
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch<32, 64, DROP>(a, s);
+      case 64: return launch<64, 64, DROP>(a, s);
+      case 128: return launch<128, 64, DROP>(a, s);
+      case 256: return launch<256, 32, DROP>(a, s);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return tcf::launch<32, DROP>(a, s);
+      case 64: return tcf::launch<64, DROP>(a, s);
+      case 128: return tcf::launch<128, DROP>(a, s);
+      case 256: return tcf::launch256<DROP>(a, s);
+    }
+  }
+  return -1;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 24 element strides, (batch,
-// head, token) for q, k, v, o, do, dq, dk, dv in that order. Returns 0 on
-// success, a cudaError_t from a launch, or -1 for arguments the kernels
-// do not take.
+// head, token) for q, k, v, o, do, dq, dk, dv in that order. dlse: the
+// lse cotangent [B*H, T] f32, or null. seed: the int32 step seed in
+// device memory, or null for no dropout; with it, q_origin, k_origin,
+// hash_t, thr and keep_scale define the keep mask (dropout.cuh). Returns
+// 0 on success, a cudaError_t from a launch, or -1 for arguments the
+// kernels do not take.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
                          const float* kmask, float* delta, void* dq,
                          void* dk, void* dv, int dtype, int D, int B, int H,
                          int T, const long long* strides, float sm_scale,
-                         int causal, void* stream) {
+                         int causal, const float* dlse, const int* seed,
+                         uint32_t q_origin, uint32_t k_origin,
+                         uint32_t hash_t, uint32_t thr, float keep_scale,
+                         void* stream) {
   // blocks of the widest grid (both D = 256 passes of 32-row tiles in
   // one launch) and of the delta pass
   if (T <= 0 || T % 64 != 0 || B <= 0 || H <= 0 ||
@@ -1110,21 +1245,13 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
     a.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   a.sm_scale = sm_scale;
   a.causal = causal;
+  a.dlse = dlse;
+  a.seed = seed;
+  a.q_origin = q_origin;
+  a.k_origin = k_origin;
+  a.hash_t = hash_t;
+  a.thr = thr;
+  a.keep_scale = keep_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (D) {
-      case 32: return launch<32, 64>(a, s);
-      case 64: return launch<64, 64>(a, s);
-      case 128: return launch<128, 64>(a, s);
-      case 256: return launch<256, 32>(a, s);
-    }
-  } else if (dtype == 1) {
-    switch (D) {
-      case 32: return tcf::launch<32>(a, s);
-      case 64: return tcf::launch<64>(a, s);
-      case 128: return tcf::launch<128>(a, s);
-      case 256: return tcf::launch256(a, s);
-    }
-  }
-  return -1;
+  return seed ? dispatch<true>(a, dtype, D, s) : dispatch<false>(a, dtype, D, s);
 }

@@ -21,6 +21,15 @@
 //   for the P.V product, where the JAX blocked kernel rounds it
 //   (`pd.astype(vb.dtype)`), and l sums the unrounded f32 p, as there.
 //
+// Attention dropout (the JAX kernels' `dropout` arm, `_keep_mask`): with
+// a seed, each kernel is instantiated with DROP = true and multiplies p
+// by keep * 1/(1 - rate) for P.V, after l has summed the undropped p, as
+// the JAX kernels do; keep is the counter hash of csrc/dropout.cuh on the
+// element's GLOBAL (b*h, query, key) coordinates, so every tile and
+// kernel draws the same mask. A thread folds its row's hash base into
+// one register a row; the per-element cost is the hash tail and a
+// select. DROP = false compiles to the kernels without dropout.
+//
 // Layouts: q, k, v and o are addressed as base + b*sb + h*sh + t*st + d,
 // with element strides passed by the caller. The flat layout passes H = 1
 // (sh unused); the packed layout passes the [B, T, 3n] strides with k and
@@ -82,6 +91,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "dropout.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -105,6 +115,12 @@ struct Args {
   long long o_sb, o_sh, o_st;
   float sm_scale;
   int causal;
+  // attention dropout (dropout.cuh), read by the DROP instantiations
+  // only: the step seed in device memory, the call's global window
+  // origin, the global sequence length, the keep threshold and scale
+  const int* seed;
+  uint32_t q_origin, k_origin, hash_t, thr;
+  float keep_scale;
 };
 
 // (b*h, query tile) of this block, the heaviest causal tile first
@@ -131,7 +147,7 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 3 * BQ + BK);
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Args a) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int NJ = D / 16;
@@ -151,6 +167,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Args a) {
   const Tile tile = block_tile(a);
   const int q0 = tile.q0, bh = tile.bh, b = tile.b, h = tile.h;
   const bool masked = a.kmask != nullptr;
+  const uint32_t key = DROP ? drop::slice_key(a.seed, bh) : 0u;
 
   const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
@@ -232,10 +249,16 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Args a) {
       float m_new = fmaxf(m_old, mx);
       if (masked) m_new = fmaxf(m_new, MASK_FLOOR);
       float sum = 0.f;
+      // dropout: P.V takes p * keep * scale, l the undropped p
+      const uint32_t hrow = key + (a.q_origin + q0 + r) * a.hash_t +
+                            a.k_origin + k0 + part * 16;
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const float p = expf(prow[c] - m_new);
-        prow[c] = p;
+        if constexpr (DROP)
+          prow[c] = drop::keep(hrow + c, a.thr) ? p * a.keep_scale : 0.f;
+        else
+          prow[c] = p;
         sum += p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -285,15 +308,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32(Args a) {
         m_s[tid] + logf(fmaxf(l_s[tid], L_FLOOR));
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch_f32(const Args& a, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)B * a.H * (a.T / BQ));
-  flash_fwd_f32<D><<<blocks, NTHREADS, smem, stream>>>(a);
+  flash_fwd_f32<D, DROP><<<blocks, NTHREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -338,7 +361,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(NTH, 2) fwd_tc(Args a) {
   constexpr int BKT = KEY_TILE<D>;
   constexpr int KB = BKT / 16;     // 16-key blocks of a key tile
@@ -375,11 +398,16 @@ __global__ void __launch_bounds__(NTH, 2) fwd_tc(Args a) {
   const int r_lo = q0 + warp * 16;
   int row[2];
   float m[2], l[2];  // running max (log2 units), this thread's share of l
+  // dropout: the hash coordinate of this thread's first element in each
+  // row, at key tile 0
+  uint32_t hrow[2];
+  const uint32_t key = DROP ? drop::slice_key(a.seed, tile.bh) : 0u;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     row[hh] = r_lo + g + 8 * hh;
     m[hh] = NEG_INF;
     l[hh] = 0.f;
+    hrow[hh] = key + (a.q_origin + row[hh]) * a.hash_t + a.k_origin + 2 * t;
   }
   float acc[D / 8][4];
 #pragma unroll
@@ -482,6 +510,11 @@ __global__ void __launch_bounds__(NTH, 2) fwd_tc(Args a) {
         const float p = ex2(s[j][e] - m[e >> 1]);
         s[j][e] = p;
         l[e >> 1] += p;  // the unrounded p, as the reference sums it
+        // dropout: P.V takes p * keep * scale, l the undropped p
+        if constexpr (DROP)
+          s[j][e] = drop::keep(hrow[e >> 1] + k0 + j * 8 + (e & 1), a.thr)
+                        ? p * a.keep_scale
+                        : 0.f;
       }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -519,23 +552,48 @@ __global__ void __launch_bounds__(NTH, 2) fwd_tc(Args a) {
   }
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch(const Args& a, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fwd_tc<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((long long)B * a.H * (a.T / BQ));
-  fwd_tc<D><<<blocks, NTH, smem, stream>>>(a);
+  fwd_tc<D, DROP><<<blocks, NTH, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tcf
 
+template <bool DROP>
+int dispatch(const Args& a, int dtype, int D, int B, cudaStream_t s) {
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch_f32<32, DROP>(a, B, s);
+      case 64: return launch_f32<64, DROP>(a, B, s);
+      case 128: return launch_f32<128, DROP>(a, B, s);
+      case 256: return launch_f32<256, DROP>(a, B, s);
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: return tcf::launch<32, DROP>(a, B, s);
+      case 64: return tcf::launch<64, DROP>(a, B, s);
+      case 128: return tcf::launch<128, DROP>(a, B, s);
+      case 256: return tcf::launch<256, DROP>(a, B, s);
+    }
+  }
+  return -1;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on success, a cudaError_t
-// from the launch, or -1 for arguments the kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. seed: the int32 step seed in device
+// memory, or null for no dropout; with it, q_origin, k_origin (the
+// call's window in the global sequence), hash_t (the global sequence
+// length), thr and keep_scale (dropout.cuh) define the keep mask.
+// Returns 0 on success, a cudaError_t from the launch, or -1 for
+// arguments the kernel does not take.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const float* kmask, void* o, float* lse, int dtype,
                          int D, int B, int H, int T, long long q_sb,
@@ -543,28 +601,17 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          long long k_sh, long long k_st, long long v_sb,
                          long long v_sh, long long v_st, long long o_sb,
                          long long o_sh, long long o_st, float sm_scale,
-                         int causal, void* stream) {
+                         int causal, const int* seed, uint32_t q_origin,
+                         uint32_t k_origin, uint32_t hash_t, uint32_t thr,
+                         float keep_scale, void* stream) {
   if (T <= 0 || T % BQ != 0 || B <= 0 || H <= 0) return -1;
   const long long blocks = (long long)B * H * (T / BQ);
   if (blocks > INT_MAX) return -1;
   Args a{q,    k,    v,    kmask, o,    lse,  H,    T,        q_sb,
          q_sh, q_st, k_sb, k_sh,  k_st, v_sb, v_sh, v_st,     o_sb,
-         o_sh, o_st, sm_scale, causal};
+         o_sh, o_st, sm_scale, causal, seed, q_origin, k_origin, hash_t,
+         thr,  keep_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (D) {
-      case 32: return launch_f32<32>(a, B, s);
-      case 64: return launch_f32<64>(a, B, s);
-      case 128: return launch_f32<128>(a, B, s);
-      case 256: return launch_f32<256>(a, B, s);
-    }
-  } else if (dtype == 1) {
-    switch (D) {
-      case 32: return tcf::launch<32>(a, B, s);
-      case 64: return tcf::launch<64>(a, B, s);
-      case 128: return tcf::launch<128>(a, B, s);
-      case 256: return tcf::launch<256>(a, B, s);
-    }
-  }
-  return -1;
+  return seed ? dispatch<true>(a, dtype, D, B, s)
+              : dispatch<false>(a, dtype, D, B, s);
 }

@@ -4,14 +4,15 @@ SelfAttention (JAX counterpart deeplearning4j_tpu/nn/layers/attention.py).
 Forward for inference and training, differentiable by autograd.
 SelfAttention keeps the JAX package's dispatch ladder: the
 packed-projection flash kernels when `supports_qkv`, the flat flash
-kernels when `supports`, the dense f32-softmax attention otherwise; the
-flash routes carry their hand-written backward kernels
-(ops/flash_attention.py). Dropout on the layer input and, on the dense
-route, on the attention weights draws from the caller's
-`torch.Generator`. Still to come with later slices: in-kernel attention
-dropout on the flash routes (a nonzero rate there raises), the chunked
-tier for T beyond the flash envelope, sequence parallelism and ring
-attention.
+kernels when `supports`, the chunked flash tier past MAX_FLASH_T when
+`supports_chunked`, the whole-sequence kernels for the lengths of
+`supports_monolithic_fallback`, a ValueError for any other length past
+MAX_FLASH_T, and the dense f32-softmax attention otherwise; the flash
+routes carry their hand-written backward kernels
+(ops/flash_attention.py). Dropout on the layer input and on the
+attention weights draws from the caller's `torch.Generator`: on the
+flash routes inside the kernels, from one step seed a call. Still to
+come with later slices: sequence parallelism and ring attention.
 """
 
 from __future__ import annotations
@@ -32,9 +33,13 @@ from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     MAX_FLASH_T,
+    chunked_flash_attention,
+    chunked_unsupported_reason,
     flash_attention,
     flash_attention_qkv,
     supports as flash_supports,
+    supports_chunked as flash_supports_chunked,
+    supports_monolithic_fallback as flash_supports_monolithic_fallback,
     supports_qkv as flash_supports_qkv,
 )
 
@@ -143,24 +148,37 @@ class SelfAttentionImpl(LayerImpl):
         act = get_activation(conf.activation or "identity")
         if use_flash and flash_supports_qkv(B, T, n, H, dropout=drop_attn):
             # packed path: the kernels read each head's column slice of
-            # the projection in place, no [B,T,H,D] relayout either way
+            # the projection in place, no [B,T,H,D] relayout either way;
+            # attention dropout runs in the kernels
             out = flash_attention_qkv(qkv, H, causal=conf.causal, mask=mask,
-                                      dropout=drop_attn)
+                                      dropout=drop_attn, generator=generator)
             return act(out @ params["Wo"] + params["bo"]), state
         qh, kh, vh = (t.unflatten(-1, (H, D)).transpose(1, 2)
                       for t in qkv.split(n, dim=-1))
+        flash_kw = dict(causal=conf.causal, mask=mask, dropout=drop_attn,
+                        generator=generator)
         if use_flash and flash_supports(qh.shape, causal=conf.causal,
                                         dropout=drop_attn, mask=mask,
                                         device=qh.device):
-            out = flash_attention(qh, kh, vh, causal=conf.causal, mask=mask,
-                                  dropout=drop_attn)
+            out = flash_attention(qh, kh, vh, **flash_kw)
+        elif use_flash and flash_supports_chunked(
+                qh.shape, causal=conf.causal, dropout=drop_attn, mask=mask):
+            # T beyond the whole-sequence envelope: chunk-length tiles
+            # merged by their lse; masks and dropout ride the tiles
+            out = chunked_flash_attention(qh, kh, vh, **flash_kw)
+        elif (use_flash and T > MAX_FLASH_T
+              and flash_supports_monolithic_fallback(
+                  qh.shape, causal=conf.causal, dropout=drop_attn,
+                  mask=mask)):
+            # a length no tiling takes, at D <= 128: the whole-sequence
+            # kernels
+            out = flash_attention(qh, kh, vh, **flash_kw)
         elif use_flash and T > MAX_FLASH_T:
-            # the JAX package tiles these lengths with its chunked flash
-            # loop; dense [T, T] scores here would exhaust device memory
-            raise NotImplementedError(
-                f"attention at T={T} > {MAX_FLASH_T} needs the chunked "
-                "flash tier, which comes with the long-context slice of "
-                "the port")
+            # dense [T, T] scores at these lengths would exhaust device
+            # memory: fail with the reason instead
+            raise ValueError(chunked_unsupported_reason(
+                T, dropout=drop_attn, mask=mask, causal=conf.causal,
+                head_dim=D))
         else:
             out = dot_product_attention(
                 qh, kh, vh, causal=conf.causal, mask=mask,

@@ -10,9 +10,10 @@ prefill's flash/dense dispatch a function of the lattice alone.
 Selection is a pure function of the request shapes (no clock, no state).
 
 `validate_attention` checks every seq bucket against the attention
-dispatch at server start: the port's flash kernels serve T <= 8192, and
-the JAX package's chunked flash tier for longer T is not ported yet, so
-a longer bucket fails there instead of mid-traffic.
+dispatch at server start (`servable_seq`: the flash kernels up to
+T = 8192, the chunked tier and the monolithic fallback past it), so a
+bucket no path serves fails there, with the dispatch's own reason,
+instead of mid-traffic.
 
 Pure stdlib.
 """
@@ -81,13 +82,14 @@ class BucketLattice:
         from deeplearning4j_tpu_torch.ops import flash_attention as fa
 
         for t in self.seq_lens:
-            if t > fa.MAX_FLASH_T:
+            if not fa.servable_seq(t, head_dim, causal=causal,
+                                   dropout=dropout, mask=masked):
                 raise ValueError(
                     f"seq bucket {t} is outside the attention dispatch "
-                    f"envelope (head_dim {head_dim}, "
-                    f"{'causal' if causal else 'non-causal'}): sequences "
-                    f"past T={fa.MAX_FLASH_T} need the chunked flash tier, "
-                    "which the port does not have yet")
+                    "envelope: "
+                    + fa.chunked_unsupported_reason(
+                        t, dropout=dropout, mask=masked, causal=causal,
+                        head_dim=head_dim))
 
     def describe(self) -> dict:
         """JSON-able summary for /healthz and telemetry meta."""

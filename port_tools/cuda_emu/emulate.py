@@ -15,8 +15,9 @@ emulations of their PTX semantics (emu_tc.h); everything else of the
 header (the swizzle, the fragment addressing, the bf16 packing) is
 compiled as written. Each CUDA thread is a host thread and the blocks
 of a grid run one after another, so use small shapes (T = 128 and 192
-for the flash kernels, a full run of the four head dims taking a few
-minutes; N = 144 rows and V = 200 or 203 for the bf16 softmax-xent
+for the flash kernels, each without and with the dropout keep mask and
+the lse cotangent, a full run of the four head dims taking
+several minutes; N = 144 rows and V = 200 or 203 for the bf16 softmax-xent
 head, K8 and both K9 kernels, at d = 256 and 384). The emulation says
 nothing about speed, registers or what nvcc accepts.
 `--src` points at another copy of csrc/ (for a deliberately broken
@@ -103,7 +104,8 @@ def build(name, src_dir, out_dir=BUILD):
     cpp.write_text(src + DEFS)
     out = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-         f"-I{out_dir}", f"-I{HERE}", "-o", str(lib), str(cpp)],
+         f"-I{out_dir}", f"-I{HERE}", f"-I{src_dir}", "-o", str(lib),
+         str(cpp)],
         capture_output=True, text=True)
     if out.returncode:
         raise SystemExit(f"g++ failed for {name}.cu:\n{out.stderr[:6000]}")
@@ -114,10 +116,14 @@ def bht(t):
     return fa._bht(t)
 
 
-def run_case(fwd, bwd, D, dtype, causal, masked, packed, T, gen):
+def run_case(fwd, bwd, D, dtype, causal, masked, packed, T, gen,
+             dropout=False, dlse=False):
     """One forward and one backward through the emulated kernels against
     `_flash_fwd_reference` and `_flash_bwd_reference`; returns (ok,
-    report line)."""
+    report line). `dropout`: the keep mask at rate 0.1 (the flat layout
+    at the window origin (T, 0) of a sequence of 4T, as a chunk tile
+    sees it; the packed layout at origin 0), in both the kernels and the
+    plain versions. `dlse`: a random lse cotangent into the backward."""
     B, H = (2, 2) if packed else (3, 1)
     if packed:
         qkv = torch.randn(B, T, 3 * H * D, generator=gen).to(dtype)
@@ -139,14 +145,21 @@ def run_case(fwd, bwd, D, dtype, causal, masked, packed, T, gen):
     scale = D ** -0.5
     dt = fa._KERNEL_DTYPES[dtype]
     kmp = None if km is None else km.data_ptr()
+    drop = None
+    if dropout:
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=gen,
+                             dtype=torch.int32)
+        drop = (fa._Drop(seed, 0.1) if packed
+                else fa._Drop(seed, 0.1, T, 0, 4 * T))
+    drop_args = fa._drop_args(drop, T)
 
     o = torch.empty(B, T, H, D, dtype=dtype).transpose(1, 2)
     lse = torch.empty(B * H, T)
     rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmp, o.data_ptr(),
              lse.data_ptr(), dt, D, B, H, T, *bht(q), *bht(k), *bht(v),
-             *bht(o), scale, int(causal), None)
+             *bht(o), scale, int(causal), *drop_args, None)
     ro, rlse = fa._flash_fwd_reference(flat(q), flat(k), flat(v), kmr,
-                                       scale, causal)
+                                       scale, causal, drop)
     err_o = float((flat(o).float() - ro.float()).abs().max())
     err_l = float((lse - rlse).abs().max())
     tol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
@@ -159,19 +172,22 @@ def run_case(fwd, bwd, D, dtype, causal, masked, packed, T, gen):
     ro4 = ro.reshape(B, H, T, D)
     grads = [torch.empty(B, H, T, D, dtype=dtype) for _ in range(3)]
     delta = torch.empty(B * H, T)
+    dl = torch.randn(B * H, T, generator=gen) if dlse else None
     views = [q, k, v, ro4, do] + grads
     st = (ctypes.c_longlong * 24)(*[s for t in views for s in bht(t)])
     rc_b = bwd(*(t.data_ptr() for t in (q, k, v, ro4, do)), rlse.data_ptr(),
                kmp, delta.data_ptr(),
                *(g.data_ptr() for g in grads), dt, D, B, H, T, st, scale,
-               int(causal), None)
+               int(causal), None if dl is None else dl.data_ptr(),
+               *drop_args, None)
     refs = fa._flash_bwd_reference(flat(q), flat(k), flat(v), ro, rlse,
-                                   flat(do), kmr, scale, causal)
+                                   flat(do), kmr, scale, causal, dl, drop)
     err_b = max(float((flat(g).float() - r.float()).abs().max())
                 / float(r.float().abs().max()) for g, r in zip(grads, refs))
     ok_b = rc_b == 0 and err_b <= (1e-4 if dtype == torch.float32 else 2e-2)
     line = (f"D={D} T={T} {str(dtype)[6:]} causal={causal} masked={masked} "
-            f"packed={packed}: fwd |o| {err_o:.2e} |lse| {err_l:.2e} "
+            f"packed={packed} dropout={dropout} dlse={dlse}: fwd |o| "
+            f"{err_o:.2e} |lse| {err_l:.2e} "
             f"{'ok' if ok else 'FAIL'}; bwd rel {err_b:.2e} "
             f"{'ok' if ok_b else 'FAIL'}")
     return ok and ok_b, line
@@ -272,10 +288,12 @@ def main():
                                            (True, False, True),
                                            (False, False, False)):
                 for T in (128, 192):
-                    ok, line = run_case(fwd, bwd, D, dtype, causal, masked,
-                                        packed, T, gen)
-                    print(line, flush=True)
-                    failed += not ok
+                    for on in (False, True):
+                        ok, line = run_case(fwd, bwd, D, dtype, causal,
+                                            masked, packed, T, gen,
+                                            dropout=on, dlse=on and not packed)
+                        print(line, flush=True)
+                        failed += not ok
     print(f"{failed} case(s) failed")
     return 1 if failed else 0
 

@@ -9,7 +9,11 @@ causal case a head dim and dtype, at T = 128 (the flat layout, a ragged
 key mask with one all-masked row) and T = 192 (the packed layout,
 unmasked); tolerances are phase 2's (o 2e-2 and lse 1e-2 in bf16, 1e-4
 in f32) and phase 2b's (2e-2 and 1e-4 of the largest gradient entry).
-The bf16 softmax-xent head (K8, and K9's dx and dW/db kernels): N = 144
+The dropout arm of both flash sources (the keep mask of
+csrc/dropout.cuh at every fragment coordinate) and the lse cotangent of
+the backward, at the same tolerances: a keep decision read at a
+transposed coordinate changes 18% of the kept elements at rate 0.1 and
+fails them. The bf16 softmax-xent head (K8, and K9's dx and dW/db kernels): N = 144
 (a ragged last row block in each kernel: 128-row blocks in K8, 64-row
 in K9), V = 200 (16-byte copies of W, a ragged
 last chunk), V = 203 (odd V: plain loads) and d = 384 (the logits past
@@ -47,6 +51,25 @@ def test_emulated_flash_kernels_match_plain_versions(kernels, D, dtype, T,
     gen = torch.Generator().manual_seed(D + T)
     ok, line = emulate.run_case(*kernels, D, dtype, True, masked, packed, T,
                                 gen)
+    assert ok, line
+
+
+@pytest.mark.parametrize("D,dtype,T,causal,masked,packed", [
+    (64, torch.bfloat16, 128, True, True, False),
+    (256, torch.bfloat16, 192, True, False, True),
+    (128, torch.bfloat16, 192, False, False, False),
+    (32, torch.float32, 128, True, True, False)],
+    ids=["bf16-64-flat", "bf16-256-packed", "bf16-128-noncausal",
+         "f32-32-flat"])
+def test_emulated_flash_dropout_and_dlse_arms(kernels, D, dtype, T, causal,
+                                              masked, packed):
+    """The kernels' dropout arm (rate 0.1; the flat layout at window
+    origin (T, 0) of a sequence of 4T) and, on the flat layout, the lse
+    cotangent folded into delta, against the plain versions with the
+    same keep mask and dlse, within the tolerances above."""
+    gen = torch.Generator().manual_seed(7 * D + T)
+    ok, line = emulate.run_case(*kernels, D, dtype, causal, masked, packed,
+                                T, gen, dropout=True, dlse=not packed)
     assert ok, line
 
 

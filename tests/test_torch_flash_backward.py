@@ -218,15 +218,19 @@ def test_plain_backward_is_the_gradient_of_the_plain_forward():
 
 
 def test_dropout_on_flash_raises():
-    """The in-kernel dropout hash is a later slice: a nonzero rate on a
-    flash entry point raises instead of being ignored."""
+    """A nonzero dropout rate on a flash entry point with no generator to
+    draw its step seed from raises instead of being ignored, as the JAX
+    package's raises without `dropout_rng`; with one it runs in the
+    kernels (tests/test_torch_flash_dropout.py)."""
     x = torch.zeros(1, 512, 3 * 128)
-    with pytest.raises(NotImplementedError,
-                       match="attention dropout.*ROADMAP Queue A item 2\\)"):
+    with pytest.raises(ValueError, match="dropout > 0 requires a generator"):
         tfa.flash_attention_qkv(x, 1, dropout=0.1)
     q = torch.zeros(1, 1, 512, 128)
-    with pytest.raises(NotImplementedError, match="attention dropout"):
+    with pytest.raises(ValueError, match="dropout > 0 requires a generator"):
         tfa.flash_attention(q, q, q, dropout=0.1)
+    with pytest.raises(ValueError, match="requires dropout_rng"):
+        jfa.flash_attention(jnp.zeros((1, 1, 512, 128)), jnp.zeros(
+            (1, 1, 512, 128)), jnp.zeros((1, 1, 512, 128)), dropout=0.1)
 
 
 def test_backward_launch_refuses_cpu_tensors():

@@ -189,13 +189,25 @@ def test_score_matches_jax(fused_on):
 
 
 def test_attention_dropout_on_flash_route_raises():
-    """A nonzero attention dropout on a flash route raises instead of
-    training without it (the in-kernel dropout is a later slice)."""
-    tnet = torch_lm(**CFG, max_length=512, attention_dropout=0.1,
-                    device="cpu").init()
+    """Attention dropout on the flash route (packed, T = 512) runs in the
+    kernels from the net's generator: fit trains, the same seed gives the
+    same loss and dropout changes it. Called without a generator, the
+    layer raises instead of training without dropout."""
     toks, labels, _ = _tokens(40, 2, 512)
-    with pytest.raises(NotImplementedError, match="attention dropout"):
-        tnet.fit(TDataSet(toks, labels))
+
+    def loss(rate):
+        net = torch_lm(**CFG, max_length=512, attention_dropout=rate,
+                       device="cpu").init(5)
+        net.fit(TDataSet(toks, labels))
+        return net, net.score_value
+
+    (net, a), (_, b), (_, c) = loss(0.1), loss(0.1), loss(None)
+    assert np.isfinite(a) and a == b and a != c
+    attn = net.layer_vertices["blk0_attn"].layer
+    impl = net.impls["blk0_attn"]
+    x = torch.zeros(2, 512, CFG["d_model"])
+    with pytest.raises(ValueError, match="dropout > 0 requires a generator"):
+        impl.apply(attn, net.params["blk0_attn"], {}, x, train=True)
 
 
 def test_dropout_dense_route_trains_and_is_seeded():
