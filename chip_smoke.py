@@ -23,7 +23,8 @@ Phases, each of which exits non-zero when it fails:
    off for matrix products and convolutions. Builds every kernel source
    in deeplearning4j_tpu_torch/csrc/ with nvcc (one process per source,
    started together) and logs each kernel's registers and spills; a
-   tensor-core kernel (namespaces tcf, tcx) that spills fails.
+   tensor-core kernel (namespaces tcf, tcx), K10's vector forward (lnv)
+   or K12 (smp) that spills fails.
 2. Forward kernels vs plain version: the flash-forward kernel as K1
    (flat, masked), K2 (packed qkv) and K3 (packed, head_dim 64) at the
    shapes serving, the full forward and training give it (K1 at
@@ -108,9 +109,13 @@ Phases, each of which exits non-zero when it fails:
    B=1024 K=5 D=64 (the engine feed) and a ragged B=1000 K=7 D=100
    against `_neg_softmax_reference`, timed against sigmoid(bmm); K10/K11
    (csrc/layernorm.cu) through the `fused_layer_norm` autograd Function
-   at N=16384 C=256 and a ragged N=1000 C=200 against
-   `_ln_fwd_reference` / `_ln_bwd_reference`, timed against
-   F.layer_norm forward and backward.
+   at N=16384 C=256, N=16383 (ragged rows), a ragged N=1000 C=200 and
+   an x one element off its 16-byte boundary, against
+   `_ln_fwd_reference` / `_ln_bwd_reference`, each run twice to repeat
+   bit for bit, K10 through the instantiation `_fwd_plan` must pick (the
+   vector kernel, or the general one for C=200 and the unaligned x),
+   timed against F.layer_norm forward and backward (event and device
+   time), with the host microseconds of each part of K10's launch path.
 10. Word2Vec at the repo's config (bench.py `_quality_w2v`: layer 128,
    window 5, negative 5, one epoch, seed 1, batch 2048) on the first
    8000 sentences of bench.py's topic corpus (vocab 10000, 1,000,000
@@ -133,8 +138,12 @@ Phases, each of which exits non-zero when it fails:
    top_k 1000 with top_p 0.5) against `_select_reference` on the same
    Gumbel noise: every row equal without top-p, at most 0.1% of rows
    apart with it (the nucleus mass is a float sum in another order);
-   kernel, device, plain and bound times, and the Gumbel argmax call for
-   the temperature-only mode.
+   every launch run twice (the second writing its thresholds) to repeat
+   bit for bit, the top-k thresholds equal to the plain binary walk's bit
+   for bit; kernel, device, plain and bound times, the Gumbel argmax
+   call's event and device time for the temperature-only mode, and the
+   device time of each launch plan (threads, cluster) at [4, 10000] and
+   [32, 10000] with both filters.
 14. Serving over HTTP (run after phase 5, on the phase-3 LM): the
    flagship behind `ServingServer` in three arms (speculative k=4, the
    int8 cache, both), each serving phase 3's 8 requests over POST
@@ -157,7 +166,9 @@ Phases, each of which exits non-zero when it fails:
 After phases 3-16, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
-The last lines are a `{"kernels": [...]}` JSON line (K1-K13), the
+The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
+[4, 10000] with top_k 8 and top_p 0.9, the replay's [8, 128] and the
+temperature-only mode beside it), the
 card's name and power limit as nvidia-smi gives them, and `{"ok": true,
 "device": ...}`. With no CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -277,10 +288,11 @@ def drop_for(torch, fa, label, T, dev):
     return fa._Drop(seed, DROP_RATE, qo, ko, ht)
 
 
-# a ptxas spill line, and a tensor-core kernel's name (namespaces tcf,
-# tcx) demangled or mangled
+# a ptxas spill line, and the name of a kernel that must not spill,
+# demangled or mangled: the tensor-core kernels (namespaces tcf, tcx),
+# K10's vector forward (lnv) and K12 (smp)
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-TC_KERNEL = re.compile(r"\btc[fx]::|\dtc[fx]\d")
+TC_KERNEL = re.compile(r"\b(?:tc[fx]|lnv|smp)::|\d(?:tc[fx]|lnv|smp)\d")
 
 
 def build_report(out):
@@ -1752,13 +1764,16 @@ def kernel_device_ms(torch, fn, calls=20, names=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA
-              and getattr(e, "self_device_time_total", 0) > 0]
+    for _ in range(3):  # a window the profiler misses is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and getattr(e, "self_device_time_total", 0) > 0]
+        if sum(e.count for e in events) >= calls:
+            break
     if names is not None:
         names.extend(e.key for e in events)
     total_us = sum(e.self_device_time_total for e in events)
@@ -1836,20 +1851,90 @@ def check_neg_softmax(torch, fns):
     return {"K13": records}
 
 
+# K10's cases: the flagship LM's LayerNorm input (N = 32 x 512 tokens,
+# C = 256), its rows less one (no multiple of a block's 8 rows), the
+# ragged C = 200, and x one element past a 16-byte boundary (a view of a
+# flat buffer), which `_fwd_plan` must send to the general kernel
+LN_CASES = (("flagship N=16384 C=256", 16384, 256, False),
+            ("ragged rows N=16383 C=256", 16383, 256, False),
+            ("ragged N=1000 C=200", 1000, 200, False),
+            ("misaligned N=1000 C=256", 1000, 256, True))
+
+
+def ln_host_path(torch, fln, x, g, b, eps, calls=500):
+    """Host microseconds a call of each part of K10's launch path
+    (`_ln_fwd` on the card), of the whole, of F.layer_norm's forward, and
+    of the parts the path no longer takes (the device context, a Stream
+    object, the build lock), each the mean of `calls` calls between two
+    host clocks (the device queue drained before and after)."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    N, C = x.shape
+    y = torch.empty_like(x)
+    stats = torch.empty((2, N), dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr())
+    fn = cuda_build.entry("layernorm", "ln_fwd", fln._FN_ARGTYPES["ln_fwd"])
+    dev = x.get_device()
+    args = [*ptrs, stats.data_ptr(), fln._KERNEL_DTYPES[x.dtype],
+            fln._fwd_plan(C, x.element_size(), ptrs), N, C, float(eps),
+            cuda_build.stream_handle(dev)]
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    parts = {
+        "checks": lambda: fln._check(x, (g, b)),
+        "allocations": lambda: (torch.empty_like(x), torch.empty(
+            (2, N), dtype=torch.float32, device=x.device)),
+        "pointers and plan": lambda: fln._fwd_plan(C, x.element_size(), (
+            x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr())),
+        "entry lookup": lambda: cuda_build.entry(
+            "layernorm", "ln_fwd", fln._FN_ARGTYPES["ln_fwd"]),
+        "device and stream": lambda: (
+            x.get_device() == torch.cuda.current_device(),
+            cuda_build.stream_handle(dev)),
+        "ctypes call and launch": lambda: fn(*args),
+        "mu, rstd views": lambda: stats.unbind(0),
+        "(alternative) allocations by new_empty": lambda: (
+            x.new_empty((N, C)), x.new_empty((2, N), dtype=torch.float32)),
+        "(alternative) views by index": lambda: (stats[0], stats[1]),
+        "whole _ln_fwd": lambda: fln._ln_fwd(x, g, b, eps),
+        "F.layer_norm fwd": lambda: F.layer_norm(x, (C,), g, b, eps),
+        "(not taken) device context": device_context,
+        "(not taken) Stream object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "(not taken) build lock": lambda: cuda_build.load("layernorm"),
+    }
+    out = {}
+    for name, part in parts.items():
+        for _ in range(20):
+            part()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            part()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def check_layernorm(torch, fln):
     """K10 and K11 (csrc/layernorm.cu) through the `fused_layer_norm`
     autograd Function against `_ln_fwd_reference` / `_ln_bwd_reference`
-    at the flagship LM's LayerNorm input (N = 32 x 512 tokens, C = 256)
-    and a ragged N=1000 C=200, f32 and bf16; the flagship bf16 case
-    timed against F.layer_norm forward and backward."""
+    at LN_CASES, f32 and bf16, each run twice to repeat bit for bit, K10
+    through the instantiation `_fwd_plan` picks (the vector kernel at C =
+    256 when aligned, the general one otherwise); the flagship bf16 case
+    timed against F.layer_norm forward and backward (CUDA events and
+    device time), with the host path's parts (`ln_host_path`)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 40)
     eps = 1e-5
     records, worst = {"K10": [], "K11": []}, {"K10": 0.0, "K11": 0.0}
-    for label, (N, C) in (("flagship N=16384 C=256", (16384, 256)),
-                          ("ragged N=1000 C=200", (1000, 200))):
+    for label, N, C, misaligned in LN_CASES:
         x32 = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dev)
         g32 = (1 + 0.2 * torch.randn(C, generator=gen)).to(dev)
         b32 = (0.1 * torch.randn(C, generator=gen)).to(dev)
@@ -1857,61 +1942,91 @@ def check_layernorm(torch, fln):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             x, g, b, dy = (t.to(dtype) for t in (x32, g32, b32, dy32))
-            leaves = [t.clone().requires_grad_() for t in (x, g, b)]
-            y = fln.fused_layer_norm(*leaves, eps=eps)
-            grads = torch.autograd.grad(y, leaves, dy)
+            if misaligned:
+                x = torch.empty(N * C + 1, dtype=dtype,
+                                device=dev)[1:].view(N, C).copy_(x)
+            plan = fln._fwd_plan(C, x.element_size(), (
+                x.data_ptr(), g.data_ptr(), b.data_ptr(),
+                torch.empty_like(x).data_ptr()))
+            want_plan = 0 if misaligned or C % 128 else (
+                1 if dtype is torch.bfloat16 else 2)
+            runs = []
+            for _ in range(2):
+                leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+                if misaligned:
+                    leaves[0] = torch.empty(N * C + 1, dtype=dtype,
+                                            device=dev)[1:].view(N, C)
+                    leaves[0].copy_(x).requires_grad_()
+                y = fln.fused_layer_norm(*leaves, eps=eps)
+                runs.append((y.detach(),) + torch.autograd.grad(
+                    y, leaves, dy))
             ry, mu, rstd = fln._ln_fwd_reference(x, g, b, eps)
             rdx, rdg, rdb = fln._ln_bwd_reference(x, g, mu, rstd, dy)
             refs = (rdx, rdg.to(dtype), rdb.to(dtype))
             torch.cuda.synchronize()
-            abs_f, err_f = errs(y.detach(), ry)
+            y, grads = runs[0][0], runs[0][1:]
+            abs_f, err_f = errs(y, ry)
             abs_b, err_b = (max(e) for e in zip(
                 *(errs(a, r) for a, r in zip(grads, refs))))
             worst["K10"] = max(worst["K10"], abs_f)
             worst["K11"] = max(worst["K11"], abs_b)
+            repeat = same_bits(torch, runs[0], runs[1])
             ok = (err_f <= LN_TOL[dname] and err_b <= LN_TOL[dname]
-                  and y.dtype == dtype
+                  and y.dtype == dtype and plan == want_plan and repeat
                   and bool(torch.isfinite(y.float()).all()))
-            log(f"check K10/K11 layernorm {label} {dname}: max rel err y "
-                f"{err_f:.3e}, dx/dgamma/dbeta {err_b:.3e} (tol "
-                f"{LN_TOL[dname]}) -> {'ok' if ok else 'FAIL'}")
+            log(f"check K10/K11 layernorm {label} {dname}: K10 "
+                f"{'vector nv=' + str(plan) if plan else 'general'} "
+                f"kernel, max rel err y {err_f:.3e}, dx/dgamma/dbeta "
+                f"{err_b:.3e} (tol {LN_TOL[dname]}), two runs "
+                f"{'equal bit for bit' if repeat else 'DIFFER'} -> "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise PhaseFailed(9, f"K10/K11 {label} {dname} disagrees "
-                                     "with its plain version")
+                                     "with its plain version, takes the "
+                                     f"wrong kernel ({plan}) or does not "
+                                     "repeat")
             if dtype is not torch.bfloat16 or N != 16384:
                 continue
             fwd = lambda: fln._ln_fwd(x, g, b, eps)  # noqa: E731
             bwd = lambda: fln._ln_bwd(x, g, mu, rstd, dy)  # noqa: E731
-            fwd_ms = time_ms(torch, fwd)
-            fwd_plain = time_ms(torch, lambda: fln._ln_fwd_reference(
-                x, g, b, eps))
-            fwd_lib = time_ms(torch, lambda: F.layer_norm(x, (C,), g, b,
-                                                          eps))
-            bwd_ms = time_ms(torch, bwd)
-            bwd_plain = time_ms(torch, lambda: fln._ln_bwd_reference(
-                x, g, mu, rstd, dy))
+            lib_fwd = lambda: F.layer_norm(x, (C,), g, b, eps)  # noqa: E731
             lx, lg, lb = (t.clone().requires_grad_() for t in (x, g, b))
-            bwd_lib = grad_ms(torch, F.layer_norm(lx, (C,), lg, lb, eps),
-                              (lx, lg, lb), dy)
+            lout = F.layer_norm(lx, (C,), lg, lb, eps)
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                lout, (lx, lg, lb), dy, retain_graph=True)
             e = 2
             # forward: x, gamma, beta read, y, mu, rstd written once,
             # about 8 FLOPs per element; backward: x, dy, gamma, mu,
             # rstd read, dx, dgamma, dbeta written once, about 12
-            for kern, fn, ms, plain_ms, lib_ms, nbytes, flops in (
-                    ("K10", fwd, fwd_ms, fwd_plain, fwd_lib,
+            for kern, fn, lib, nbytes, flops in (
+                    ("K10", fwd, lib_fwd,
                      2 * N * C * e + 2 * C * e + 8 * N, 8 * N * C),
-                    ("K11", bwd, bwd_ms, bwd_plain, bwd_lib,
+                    ("K11", bwd, lib_bwd,
                      3 * N * C * e + 3 * C * e + 8 * N, 12 * N * C)):
+                ms = time_ms(torch, fn)
+                plain_ms = time_ms(torch, (lambda: fln._ln_fwd_reference(
+                    x, g, b, eps)) if kern == "K10" else (
+                    lambda: fln._ln_bwd_reference(x, g, mu, rstd, dy)))
+                lib_ms = time_ms(torch, lib)
                 bound_ms, bound_by = bound(nbytes, flops, dname)
-                dev_ms = kernel_device_ms(torch, fn)
+                names = []
+                dev_ms = kernel_device_ms(torch, fn, names=names)
+                lib_dev = kernel_device_ms(torch, lib)
                 log(f"time  {kern} layernorm {label} bf16: kernel "
-                    f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
+                    f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}; "
+                    f"{sorted({short_name(n) for n in names})}), plain "
                     f"{plain_ms:.4f} ms, F.layer_norm "
-                    f"{'bwd' if kern == 'K11' else 'fwd'} {lib_ms:.4f} ms, "
-                    f"bound {bound_ms:.5f} ms ({bound_by})")
+                    f"{'bwd' if kern == 'K11' else 'fwd'} {lib_ms:.4f} ms "
+                    f"(device time {fmt_ms(lib_dev)}), bound "
+                    f"{bound_ms:.5f} ms ({bound_by})")
                 records[kern].append(dict(
                     label=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
+                    library_ms=lib_ms, library_device_ms=lib_dev,
+                    bound_ms=bound_ms, bound_by=bound_by))
+            host = ln_host_path(torch, fln, x, g, b, eps)
+            log("time  K10 host path, microseconds a call: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in host.items()))
+            records["K10"][-1]["host_us"] = host
     for kern, recs in records.items():
         for rec in recs:
             rec["err"] = worst[kern]
@@ -2206,11 +2321,23 @@ def sample_bound(B, V, elem_bytes, mode):
     return bound(B * V * (elem_bytes + 4) + B * 4, ops, "float32")
 
 
+# launch plans (threads a block, blocks a row's cluster) timed against
+# `_plan`'s at the flagship's slots and at 32 rows, in these modes
+SAMPLE_PLANS = ((128, 1), (128, 2), (128, 4), (128, 8), (256, 1), (256, 2),
+                (256, 4), (256, 8))
+SAMPLE_PLAN_MODES = ("T=0.8 top_k=8", "T=1.0 top_k=8 top_p=0.9")
+
+
 def check_sampling(torch, fsm):
     """K12 (csrc/sampling.cu) against `_select_reference` on the card at
     every shape and mode above, f32 and bf16 logits, the same Gumbel
-    noise; kernel ms (CUDA events), device ms (profiler), plain ms and
-    the bound at the timed shapes."""
+    noise; each launch run a second time (with the thresholds written
+    out) and must repeat bit for bit, its top-k thresholds equal to the
+    plain version's binary walk (`_thresholds_reference`) bit for bit;
+    kernel ms (CUDA events), device ms (profiler), plain ms and the
+    bound at the timed shapes, the Gumbel argmax call's event and device
+    time for the temperature-only mode, and the device time of each
+    launch plan in SAMPLE_PLANS in the SAMPLE_PLAN_MODES."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     records, rows_off, rows_all, worst = [], {}, {}, 0.0
@@ -2222,23 +2349,34 @@ def check_sampling(torch, fsm):
             logits = logits32.to(dtype)
             for mlabel, mode in SAMPLE_MODES:
                 got = fsm.fused_sample(logits, noise, **mode)
+                k, p = fsm._modes(logits, mode.get("top_k", 0),
+                                  mode.get("top_p", 1.0))
+                again, thr = fsm._launch(logits, noise, mode["temperature"],
+                                         k, p, thresholds=True)
                 ref = fsm._select_reference(logits, noise, **mode)
+                ref_k, _ = fsm._thresholds_reference(
+                    logits, mode["temperature"], k, p)
                 torch.cuda.synchronize()
                 diff = int((got != ref).sum())
                 err = float((got.long() - ref.long()).abs().max())
                 worst = max(worst, err)
                 rows_off[mlabel] = rows_off.get(mlabel, 0) + diff
                 rows_all[mlabel] = rows_all.get(mlabel, 0) + B
-                ok = (got.dtype == torch.int32 and bool(
-                    ((got >= 0) & (got < V)).all()))
+                repeat = bool(torch.equal(got, again))
+                same_k = same_bits(torch, (thr[:, 0],), (ref_k,))
+                ok = (got.dtype == torch.int32 and repeat and same_k
+                      and bool(((got >= 0) & (got < V)).all()))
                 if "top_p" not in mode:
                     ok = ok and diff == 0
                 log(f"check K12 sample [{B},{V}] {dname} {mlabel}: "
-                    f"{diff} of {B} rows differ from the plain version -> "
-                    f"{'ok' if ok else 'FAIL'}")
+                    f"{diff} of {B} rows differ from the plain version, "
+                    f"two runs {'equal' if repeat else 'DIFFER'}, top-k "
+                    f"thresholds {'equal' if same_k else 'DIFFER'} bit for "
+                    f"bit -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise PhaseFailed(13, f"K12 [{B},{V}] {dname} {mlabel} "
-                                          "disagrees with its plain version")
+                                          "disagrees with its plain version "
+                                          "or does not repeat")
                 if (B, V) not in SAMPLE_TIMED:
                     continue
                 run = lambda: fsm.fused_sample(  # noqa: E731
@@ -2247,24 +2385,42 @@ def check_sampling(torch, fsm):
                 dev_ms = kernel_device_ms(torch, run)
                 plain_ms = time_ms(torch, lambda: fsm._select_reference(
                     logits, noise, **mode), windows=3, per_window=5)
-                lib_ms = None
+                lib_ms = lib_dev = None
                 if list(mode) == ["temperature"]:
                     # the nearest single call: the Gumbel argmax of the
                     # scaled logits, no filters
                     t = mode["temperature"]
-                    lib_ms = time_ms(torch, lambda: torch.argmax(
+                    lib = lambda: torch.argmax(  # noqa: E731
                         (logits.float() - logits.float().amax(
-                            -1, keepdim=True)) / t + noise, -1))
+                            -1, keepdim=True)) / t + noise, -1)
+                    lib_ms = time_ms(torch, lib)
+                    lib_dev = kernel_device_ms(torch, lib)
                 bound_ms, bound_by = sample_bound(
                     B, V, logits.element_size(), mode)
                 log(f"time  K12 sample [{B},{V}] {dname} {mlabel}: kernel "
                     f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
-                    f"{plain_ms:.4f} ms, argmax call {fmt_ms(lib_ms)}, "
-                    f"bound {bound_ms:.6f} ms ({bound_by})")
+                    f"{plain_ms:.4f} ms, argmax call {fmt_ms(lib_ms)} "
+                    f"(device time {fmt_ms(lib_dev)}), bound "
+                    f"{bound_ms:.6f} ms ({bound_by})")
                 records.append(dict(
                     label=f"[{B},{V}] {dname} {mlabel}", ms=ms,
                     device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms, bound_by=bound_by))
+                    library_device_ms=lib_dev, bound_ms=bound_ms,
+                    bound_by=bound_by))
+            if dtype is not torch.float32 or V != 10000 or B > 32:
+                continue
+            for mlabel in SAMPLE_PLAN_MODES:
+                mode = dict(SAMPLE_MODES)[mlabel]
+                k, p = fsm._modes(logits, mode.get("top_k", 0),
+                                  mode.get("top_p", 1.0))
+                timings = []
+                for plan in SAMPLE_PLANS:
+                    plan_ms = kernel_device_ms(torch, lambda: fsm._launch(
+                        logits, noise, mode["temperature"], k, p, plan))
+                    timings.append(f"{plan} {fmt_ms(plan_ms)}")
+                log(f"time  K12 plans [{B},{V}] f32 {mlabel} (threads, "
+                    f"cluster): device time {'; '.join(timings)}; `_plan` "
+                    f"takes {fsm._plan(B, V)}")
     for mlabel, _ in SAMPLE_MODES:
         rate = rows_off[mlabel] / rows_all[mlabel]
         log(f"check K12 {mlabel}: {rows_off[mlabel]} of {rows_all[mlabel]} "
@@ -2636,7 +2792,8 @@ def main() -> int:
             if TC_KERNEL.search(line) and spill:
                 tc_reports += 1
                 if any(int(n) for n in spill.groups()):
-                    raise PhaseFailed(1, f"a tensor-core kernel spills: "
+                    raise PhaseFailed(1, f"a kernel that must not spill "
+                                         f"(tcf, tcx, lnv, smp) spills: "
                                          f"{line}")
     if outputs and not tc_reports:
         raise PhaseFailed(1, "the build log reports no tensor-core kernel's "
@@ -2687,7 +2844,8 @@ def main() -> int:
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
-    # it (K12 at the replay's microbench block); launches summed over the
+    # it (K12 at the flagship's slots x vocab with both filters, the
+    # replay's microbench block beside it); launches summed over the
     # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
     # training, the three bench modes, the other training paths,
     # Word2Vec, the engine and the speculative replay), each counted from
@@ -2711,7 +2869,7 @@ def main() -> int:
              "K9": "flagship N=16384 d=256 V=10000",
              "K10": "flagship N=16384 C=256",
              "K11": "flagship N=16384 C=256",
-             "K12": "[8,128] float32 T=1.0 top_k=8 top_p=0.9",
+             "K12": "[4,10000] float32 T=1.0 top_k=8 top_p=0.9",
              "K13": "word2vec B=2048 K=5 D=128"}
     fa_src = "deeplearning4j_tpu/ops/flash_attention.py"
     xent_src = "deeplearning4j_tpu/ops/fused_softmax_xent.py"
@@ -2763,6 +2921,18 @@ def main() -> int:
                for arm in ("dropout", "dlse") if arm in rec}})
         if kern in ("K1", "K5"):
             kernels[-1]["chunked_max_rel_err"] = chunked_err
+        if kern == "K10":
+            kernels[-1]["host_us"] = rec["host_us"]
+        if kern == "K12":
+            # beside the headline: the replay's microbench block, and the
+            # temperature-only mode against the Gumbel argmax call
+            for key, label in (
+                    ("replay_block", "[8,128] float32 T=1.0 top_k=8 "
+                                     "top_p=0.9"),
+                    ("temperature_only", "[4,10000] float32 T=1.0")):
+                other = next(r for r in records[kern] if r["label"] == label)
+                kernels[-1][key] = {k: v for k, v in other.items()
+                                    if k != "err"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ slowest.
 
 Nothing here runs at import: the CPU tests import every module, and the
 machines without a card have no `nvcc`.
+
+`entry` and `stream_handle` are the lean launch path of a wrapper: the
+typed C entry point is looked up once and then read from a dict without
+a lock, and the current stream's handle is read without building a
+`torch.cuda.Stream` object.
 """
 
 from __future__ import annotations
@@ -95,6 +100,36 @@ def build(names=None, *, verbose: bool = False) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return outputs
+
+
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def entry(name: str, fn: str, argtypes):
+    """The C function `fn` of csrc/<name>.cu, typed with `argtypes` and
+    an int result; built and loaded on first use, then cached."""
+    found = _entries.get((name, fn))
+    if found is None:
+        found = getattr(load(name), fn)
+        found.restype = ctypes.c_int
+        found.argtypes = list(argtypes)
+        _entries[(name, fn)] = found
+    return found
+
+
+_raw_stream = None
+
+
+def stream_handle(device_index: int) -> int:
+    """The handle of device `device_index`'s current CUDA stream (what
+    `torch.cuda.current_stream(device).cuda_stream` gives)."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _raw_stream(device_index)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,7 +18,15 @@ Dispatch is by the tensor's device only. On a CPU tensor each wrapper
 computes its plain PyTorch version (`_ln_fwd_reference`,
 `_ln_bwd_reference`), which is what the CPU tests run. On a CUDA tensor
 it launches its kernel or raises; nothing falls back. Launches are
-counted in `LAUNCHES` ("K10", "K11").
+counted in `LAUNCHES` ("K10", "K11"). On the card K10 has two
+instantiations, the one-pass vector kernel and the general one;
+`_fwd_plan` picks by shape and alignment before the launch.
+
+The launch path is lean, since at these sizes the host's time per call
+exceeds the kernel's: the checks build text only when they raise, the
+typed C entry is cached (`cuda_build.entry`), the stream handle is read
+raw (`cuda_build.stream_handle`), no device context is entered when x
+is on the current device, and mu and rstd are one allocation.
 
 What bounds the kernels on the H100 and what their design does about
 it: see the note at the top of csrc/layernorm.cu.
@@ -69,91 +77,130 @@ def _ln_bwd_reference(x2d, gamma, mu, rstd, dy):
 # --------------------------------------------------------- the launches
 
 _FN_ARGTYPES = {
-    "ln_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    "ln_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p],
     "ln_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
 }
 
-
-def _kernel(name):
-    """A C entry point of csrc/layernorm.cu, built on first use."""
-    fn = getattr(cuda_build.load("layernorm"), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _FN_ARGTYPES[name]
-    return fn
+# the vector forward's most 16-byte vectors a lane (csrc/layernorm.cu
+# lnv::MAX_NV): C up to 1024 in bf16, 512 in f32
+MAX_VEC_PER_LANE = 4
 
 
-def _check(x2d, gamma, *others, stats=()):
-    """Raise on what the kernels do not take: CUDA tensors on one device,
-    x [N, C] (and dy, beta) of x's float32/bfloat16 dtype, gamma [C],
-    f32 statistics [N], all contiguous."""
-    tensors = (x2d, gamma) + others + tuple(stats)
+def _fwd_plan(C, elem_bytes, ptrs):
+    """K10's instantiation for a row of C elements of `elem_bytes` bytes
+    and the data pointers of x, gamma, beta and y: the vector kernel's
+    16-byte vectors a lane (1 to MAX_VEC_PER_LANE), when a warp's lanes
+    cover the row in whole vectors and every pointer is 16-byte aligned;
+    else 0, the general kernel. Dispatch by shape: both instantiations
+    compute the same function, and a launch that fails raises."""
+    nv, rem = divmod(C, 32 * (16 // elem_bytes))
+    if rem or not 1 <= nv <= MAX_VEC_PER_LANE:
+        return 0
+    for ptr in ptrs:
+        if ptr & 15:
+            return 0
+    return nv
+
+
+def _ok(x2d, vectors, mats=(), stats=()):
+    """Whether the kernels take these tensors: CUDA tensors on x's
+    device, x [N, C] float32/bfloat16 with N, C >= 1, `vectors` [C] and
+    `mats` [N, C] of x's dtype, `stats` f32 [N], all contiguous."""
+    if x2d.dim() != 2:
+        return False
+    N, C = x2d.shape
+    dev, dt = x2d.get_device(), x2d.dtype
+    if dev < 0 or dt not in _KERNEL_DTYPES or N < 1 or C < 1 \
+            or not x2d.is_contiguous():
+        return False
+    for ts, dtype, shape in ((vectors, dt, (C,)), (mats, dt, (N, C)),
+                             (stats, torch.float32, (N,))):
+        for t in ts:
+            if t.dtype != dtype or t.get_device() != dev \
+                    or t.shape != shape or not t.is_contiguous():
+                return False
+    return True
+
+
+def _check(x2d, vectors, mats=(), stats=()):
+    """Raise, naming what is wrong, unless `_ok`."""
+    if _ok(x2d, vectors, mats, stats):
+        return
+    tensors = (x2d,) + tuple(vectors) + tuple(mats) + tuple(stats)
     if any(t.device.type != "cuda" or t.device != x2d.device
            for t in tensors):
         raise ValueError("layernorm kernel: every tensor must be on the "
                          "same CUDA device; got "
                          f"{[str(t.device) for t in tensors]}")
-    N, C = x2d.shape
-    if x2d.dtype not in _KERNEL_DTYPES or any(
-            t.dtype != x2d.dtype for t in (gamma,) + others):
+    same = (x2d,) + tuple(vectors) + tuple(mats)
+    if x2d.dtype not in _KERNEL_DTYPES or any(t.dtype != x2d.dtype
+                                              for t in same):
         raise ValueError("layernorm kernel takes float32 or bfloat16 x, "
                          "gamma, beta, dy of one dtype; got "
-                         f"{[t.dtype for t in (x2d, gamma) + others]}")
-    if gamma.shape != (C,) or any(
-            t.shape not in ((C,), (N, C)) for t in others):
-        raise ValueError(f"layernorm kernel: shapes x {tuple(x2d.shape)}, "
-                         f"{[tuple(t.shape) for t in (gamma,) + others]} "
-                         "disagree")
-    if any(t.dtype != torch.float32 or t.shape != (N,) for t in stats):
+                         f"{[t.dtype for t in same]}")
+    if any(t.dtype != torch.float32 for t in stats):
         raise ValueError("layernorm kernel: mu and rstd must be f32 [N]")
-    if N < 1 or C < 1 or not all(t.is_contiguous() for t in tensors):
-        raise ValueError("layernorm kernel: tensors must be non-empty and "
-                         "contiguous")
+    raise ValueError(f"layernorm kernel: shapes x {tuple(x2d.shape)}, "
+                     f"{[tuple(t.shape) for t in same[1:] + tuple(stats)]} "
+                     "disagree, or a tensor is empty or not contiguous")
 
 
-def _run(name, args, x):
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel(name)(*args, stream)
+def _run(name, x, *args):
+    """Launch `name` with `args` on x's device and current stream; raise
+    if the C entry refuses or the launch fails."""
+    fn = cuda_build.entry("layernorm", name, _FN_ARGTYPES[name])
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        rc = fn(*args, cuda_build.stream_handle(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, cuda_build.stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed (code {rc}) at "
                            f"x {tuple(x.shape)} dtype={x.dtype}")
 
 
 def _ln_fwd(x2d, gamma, beta, eps):
-    """K10. x [N, C], gamma/beta [C] -> (y, mu f32 [N], rstd f32 [N])."""
-    if x2d.device.type == "cpu":
+    """K10. x [N, C], gamma/beta [C] -> (y, mu f32 [N], rstd f32 [N]);
+    mu and rstd are the two rows of one [2, N] tensor."""
+    if x2d.is_cpu:
         return _ln_fwd_reference(x2d, gamma, beta, eps)
-    _check(x2d, gamma, beta)
+    _check(x2d, (gamma, beta))
     N, C = x2d.shape
     y = torch.empty_like(x2d)
-    mu = torch.empty(N, dtype=torch.float32, device=x2d.device)
-    rstd = torch.empty(N, dtype=torch.float32, device=x2d.device)
-    _run("ln_fwd", [x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                    y.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-                    _KERNEL_DTYPES[x2d.dtype], N, C, float(eps)], x2d)
+    stats = torch.empty((2, N), dtype=torch.float32, device=x2d.device)
+    xp, gp, bp, yp = (x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                      y.data_ptr())
+    _run("ln_fwd", x2d, xp, gp, bp, yp, stats.data_ptr(),
+         _KERNEL_DTYPES[x2d.dtype],
+         _fwd_plan(C, x2d.element_size(), (xp, gp, bp, yp)), N, C,
+         float(eps))
     LAUNCHES["K10"] += 1
+    mu, rstd = stats.unbind(0)
     return y, mu, rstd
 
 
 def _ln_bwd(x2d, gamma, mu, rstd, dy):
     """K11. -> (dx in x's dtype, dgamma f32 [C], dbeta f32 [C])."""
-    if x2d.device.type == "cpu":
+    if x2d.is_cpu:
         return _ln_bwd_reference(x2d, gamma, mu, rstd, dy)
-    _check(x2d, gamma, dy, stats=(mu, rstd))
+    _check(x2d, (gamma,), (dy,), (mu, rstd))
     N, C = x2d.shape
     dx = torch.empty_like(x2d)
     parts = -(-N // PARTIAL_ROWS)
-    dgp = torch.empty(parts, C, dtype=torch.float32, device=x2d.device)
-    dbp = torch.empty(parts, C, dtype=torch.float32, device=x2d.device)
-    _run("ln_bwd", [x2d.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
-                    rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                    dgp.data_ptr(), dbp.data_ptr(),
-                    _KERNEL_DTYPES[x2d.dtype], N, C, PARTIAL_ROWS], x2d)
+    # the dgamma and dbeta partials, [parts, C] each, in one tensor
+    dgbp = torch.empty((2, parts, C), dtype=torch.float32,
+                       device=x2d.device)
+    dg_ptr = dgbp.data_ptr()
+    _run("ln_bwd", x2d, x2d.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
+         rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg_ptr,
+         dg_ptr + parts * C * 4, _KERNEL_DTYPES[x2d.dtype], N, C,
+         PARTIAL_ROWS)
     LAUNCHES["K11"] += 1
-    return dx, dgp.sum(0), dbp.sum(0)
+    dg, db = dgbp.sum(1).unbind(0)
+    return dx, dg, db
 
 
 class _FusedLayerNorm(torch.autograd.Function):

@@ -23,3 +23,6 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return {__float2bfloat16(lo), __float2bfloat16(hi)};
 }
+inline float2 __bfloat1622float2(__nv_bfloat162 h) {
+  return {__bfloat162float(h.x), __bfloat162float(h.y)};
+}

@@ -1,11 +1,12 @@
-"""Run the port's tensor-core kernels (csrc/flash_fwd.cu,
-csrc/flash_bwd.cu, csrc/softmax_xent.cu) on the CPU through an
-emulation of the CUDA they use, and hold them against their plain
-PyTorch versions, so that fragment addresses, swizzles, masks and
-pipelines can be checked where there is no nvcc and no card.
+"""Run the port's hand-written kernels (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu, csrc/softmax_xent.cu, csrc/layernorm.cu,
+csrc/sampling.cu) on the CPU through an emulation of the CUDA they use,
+and hold them against their plain PyTorch versions, so that fragment
+addresses, swizzles, masks, pipelines and cluster reductions can be
+checked where there is no nvcc and no card.
 
     python3 port_tools/cuda_emu/emulate.py [--dims 32 64 128 256]
-        [--kernels flash xent] [--src DIR]
+        [--kernels flash xent ln sample] [--src DIR]
 
 Each source is compiled by g++ (C++20) with this directory's headers in
 front of CUDA's: `kernel<<<grid, block, smem, stream>>>(...)` becomes
@@ -14,12 +15,18 @@ of csrc/mma_bf16.cuh (cp.async, ldmatrix, mma.sync) are replaced by
 emulations of their PTX semantics (emu_tc.h); everything else of the
 header (the swizzle, the fragment addressing, the bf16 packing) is
 compiled as written. Each CUDA thread is a host thread and the blocks
-of a grid run one after another, so use small shapes (T = 128 and 192
-for the flash kernels, each without and with the dropout keep mask and
-the lse cotangent, a full run of the four head dims taking
-several minutes; N = 144 rows and V = 200 or 203 for the bf16 softmax-xent
-head, K8 and both K9 kernels, at d = 256 and 384). The emulation says
-nothing about speed, registers or what nvcc accepts.
+of a grid run one after another, except the blocks of a thread-block
+cluster (a cudaLaunchKernelEx launch, csrc/sampling.cu), which run
+together, each with its own dynamic shared memory, with cluster.sync()
+a barrier of all their threads and map_shared_rank the address in
+another block's (cooperative_groups.h). Use small shapes (T = 128 and
+192 for the flash kernels, each without and with the dropout keep mask
+and the lse cotangent, a full run of the four head dims taking several
+minutes; N = 144 rows and V = 200 or 203 for the bf16 softmax-xent head,
+K8 and both K9 kernels, at d = 256 and 384; LN_CASES for K10 and K11;
+SAMPLE_SHAPES and SAMPLE_PLANS for K12, in every mode of chip_smoke.py's
+SAMPLE_MODES, a few seconds). The emulation says nothing about speed,
+registers or what nvcc accepts.
 `--src` points at another copy of csrc/ (for a deliberately broken
 copy, to see a check fail). Exits 1 if any case disagrees.
 """
@@ -39,13 +46,22 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import LN_TOL, SAMPLE_MODES  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from deeplearning4j_tpu_torch.ops import fused_layernorm as fln  # noqa: E402
+from deeplearning4j_tpu_torch.ops import fused_sampling as fsm  # noqa: E402
 from deeplearning4j_tpu_torch.ops import (  # noqa: E402
     fused_softmax_xent as fsx)
 
 BUILD = ROOT / "deeplearning4j_tpu_torch" / "_build" / "emu"
 ASM_HELPERS = ("smem_addr", "cp_async", "cp_async_commit", "cp_async_wait",
                "ldsm_x4", "ldsm_x4_t", "mma")
+# csrc/sampling.cu's accessor of the block's dynamic shared memory, which
+# the emulation gives each block of a cluster its own of
+BLOCK_SMEM = """__device__ __forceinline__ uint32_t* block_smem() {
+  extern __shared__ __align__(16) uint32_t smem_words[];
+  return smem_words;
+}"""
 LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<\s*(.+?)\s*,\s*(\w+)\s*,"
                     r"\s*(\w+)\s*,\s*(\w+)\s*>>>\s*\(", re.S)
 DEFS = """
@@ -54,15 +70,22 @@ namespace tcf { alignas(128) unsigned char smem_raw[232448]; }
 namespace tcx { alignas(128) unsigned char smem_raw[232448]; } }
 thread_local uint3e threadIdx, blockIdx;
 dim3 blockDim, gridDim;
-EmuBlock* g_blk;
-thread_local std::deque<std::vector<tc::EmuCopy>> tc::emu_groups;
-thread_local std::vector<tc::EmuCopy> tc::emu_open;
+thread_local EmuBlock* g_blk;
+thread_local EmuCluster* g_cluster;
+thread_local unsigned g_rank;
+thread_local unsigned char* g_smem;
 static void poison() {
   std::memset(smem, 0xff, sizeof smem);
   std::memset(tcf::smem_raw, 0xff, sizeof tcf::smem_raw);
   std::memset(tcx::smem_raw, 0xff, sizeof tcx::smem_raw);
 }
 void (*emu_poison)() = poison;
+"""
+# the cp.async groups of emu_tc.h, for the sources that include
+# csrc/mma_bf16.cuh
+TC_DEFS = """
+thread_local std::deque<std::vector<tc::EmuCopy>> tc::emu_groups;
+thread_local std::vector<tc::EmuCopy> tc::emu_open;
 """
 
 
@@ -98,10 +121,12 @@ def build(name, src_dir, out_dir=BUILD):
     src = (src_dir / f"{name}.cu").read_text()
     src = src.replace('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : '
                       '"f"(x));', "y = std::exp2(x);")
+    src = src.replace(BLOCK_SMEM, "inline uint32_t* block_smem() {\n"
+                      "  return static_cast<uint32_t*>(emu_block_smem());\n}")
     src = LAUNCH.sub(lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, "
                      f"{m.group(3)}, {m.group(4)}, ", src)
     cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}.so"
-    cpp.write_text(src + DEFS)
+    cpp.write_text(src + DEFS + (TC_DEFS if '"mma_bf16.cuh"' in src else ""))
     out = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
          f"-I{out_dir}", f"-I{HERE}", f"-I{src_dir}", "-o", str(lib),
@@ -263,17 +288,167 @@ def run_xent_case(fns, N, d, V, gen):
 XENT_SHAPES = ((144, 256, 200), (144, 256, 203), (144, 384, 200))
 
 
+def ln_entry_points(src_dir, out_dir=BUILD):
+    """The C entry points of the emulated csrc/layernorm.cu by name,
+    typed as ops/fused_layernorm.py calls them."""
+    lib = build("layernorm", src_dir, out_dir)
+    fns = {}
+    for name, types in fln._FN_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, types
+        fns[name] = fn
+    return fns
+
+
+def run_ln_case(fns, N, C, dtype, gen, misaligned=False, nv=None):
+    """K10 and K11 through the emulated kernels against
+    `_ln_fwd_reference` and `_ln_bwd_reference`: y, mu, rstd, dx,
+    dgamma and dbeta within phase 9's LN_TOL of their largest entry (mu
+    and rstd, f32 in both, within the f32 limit). K10's instantiation is
+    `_fwd_plan`'s (or `nv`, to force one); `misaligned` puts x one
+    element past a 16-byte boundary, which `_fwd_plan` must send to the
+    general kernel. Returns (ok, report line)."""
+    dname = str(dtype).split(".")[-1]
+    x0 = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dtype)
+    if misaligned:
+        x = torch.empty(N * C + 1, dtype=dtype)[1:].view(N, C)
+        x.copy_(x0)
+    else:
+        x = x0
+    g = (1 + 0.2 * torch.randn(C, generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(C, generator=gen)).to(dtype)
+    dy = torch.randn(N, C, generator=gen).to(dtype)
+    y, stats = torch.empty(N, C, dtype=dtype), torch.empty(2, N)
+    ptrs = tuple(t.data_ptr() for t in (x, g, b, y))
+    plan = fln._fwd_plan(C, x.element_size(), ptrs) if nv is None else nv
+    dt = fln._KERNEL_DTYPES[dtype]
+    rc = fns["ln_fwd"](*ptrs, stats.data_ptr(), dt, plan, N, C, 1e-5, None)
+    ry, rmu, rrstd = fln._ln_fwd_reference(x, g, b, 1e-5)
+    err_f = rel_err(y, ry)
+    err_s = max(rel_err(stats[0], rmu), rel_err(stats[1], rrstd))
+
+    parts = -(-N // fln.PARTIAL_ROWS)
+    dx, dgbp = torch.empty_like(x), torch.empty(2, parts, C)
+    rc_b = fns["ln_bwd"](x.data_ptr(), g.data_ptr(), rmu.data_ptr(),
+                         rrstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                         dgbp[0].data_ptr(), dgbp[1].data_ptr(), dt, N, C,
+                         fln.PARTIAL_ROWS, None)
+    refs = fln._ln_bwd_reference(x, g, rmu, rrstd, dy)
+    err_b = max(rel_err(a, r) for a, r in zip((dx, *dgbp.sum(1)), refs))
+    tol = LN_TOL[dname]
+    ok = rc == 0 and err_f <= tol and err_s <= LN_TOL["float32"]
+    ok_b = rc_b == 0 and err_b <= tol
+    kind = f"vector nv={plan}" if plan else "general"
+    line = (f"ln N={N} C={C} {dname}{' misaligned' if misaligned else ''} "
+            f"({kind}): K10 y rel {err_f:.2e} mu/rstd {err_s:.2e} "
+            f"{'ok' if ok else 'FAIL'}; K11 rel {err_b:.2e} "
+            f"{'ok' if ok_b else 'FAIL'}")
+    return ok and ok_b, line
+
+
+# K10: both instantiations (bf16 C = 256 and f32 C = 256: 1 and 2
+# vectors a lane; the same shape forced onto the general kernel), rows
+# that are no multiple of a block's 8, the ragged C = 200 and C = 7, and
+# an x one element off its 16-byte boundary
+LN_CASES = ((40, 256, torch.bfloat16, False, None),
+            (40, 256, torch.float32, False, None),
+            (40, 256, torch.bfloat16, False, 0),
+            (13, 512, torch.bfloat16, False, None),
+            (13, 200, torch.float32, False, None),
+            (13, 200, torch.bfloat16, False, None),
+            (5, 7, torch.float32, False, None),
+            (11, 256, torch.bfloat16, True, None))
+
+
+def sample_entry_point(src_dir, out_dir=BUILD):
+    """The emulated csrc/sampling.cu `fused_sample`, typed as
+    ops/fused_sampling.py calls it."""
+    fn = build("sampling", src_dir, out_dir).fused_sample
+    fn.restype, fn.argtypes = ctypes.c_int, fsm._FN_ARGTYPES
+    return fn
+
+
+def run_sample_case(fn, B, V, dtype, mode, gen, plan=None, ties=0):
+    """K12 through the emulated kernel against `_select_reference` on
+    the same Gumbel noise, in `plan` (threads, cluster; `_plan(B, V)` by
+    default): every row's id equal (phase 13 allows a top-p row apart
+    only where the nucleus mass lies within an ulp of top_p, which these
+    rows do not reach), and the top-k thresholds the kernel writes equal
+    `_thresholds_reference`'s binary walk bit for bit. `ties`: that
+    many of each row's first logits set to the row's max (more than CAP
+    at the top: the top-k walk runs every round). Returns (ok, report
+    line)."""
+    logits = 3.0 * torch.randn(B, V, generator=gen)
+    if ties:
+        logits[:, :ties] = logits.amax(-1, keepdim=True)
+    logits = logits.to(dtype)
+    noise = fsm.gumbel_noise(gen, B, V, "cpu")
+    temperature = mode.get("temperature", 1.0)
+    k, p = fsm._modes(logits, mode.get("top_k", 0), mode.get("top_p", 1.0))
+    threads, cluster = fsm._plan(B, V) if plan is None else plan
+    out, thr = torch.empty(B, dtype=torch.int32), torch.empty(B, 2)
+    rc = fn(logits.data_ptr(), noise.data_ptr(), out.data_ptr(),
+            thr.data_ptr(), fsm._KERNEL_DTYPES[dtype], B, V, temperature,
+            k, p, threads, cluster, None)
+    ref = fsm._select_reference(logits, noise, **mode)
+    rk, _ = fsm._thresholds_reference(logits, temperature, k, p)
+    diff = int((out != ref).sum())
+    same_k = bool(torch.equal(thr[:, 0], rk))
+    ok = rc == 0 and diff == 0 and same_k
+    line = (f"sample [{B},{V}] {str(dtype)[6:]} {mode} plan "
+            f"{(threads, cluster)}{f' ties {ties}' if ties else ''}: "
+            f"{diff} of {B} rows differ, top-k "
+            f"thresholds {'equal' if same_k else 'DIFFER'} -> "
+            f"{'ok' if ok else 'FAIL'}")
+    return ok, line
+
+
+# K12: `_plan`'s one block at V = 128 (no round over the cluster: every
+# element is finished by one warp) and V = 1000, a cluster of 5 at V =
+# 4099,
+# clusters forced at V = 1000, and a row whose slice overflows shared
+# memory (z, P and the score recomputed from global memory)
+SAMPLE_SHAPES = ((8, 128), (3, 1000), (2, 4099))
+SAMPLE_PLANS = (((3, 1000), (128, 4)), ((2, 1000), (256, 2)),
+                ((1, 17500), (128, 1)))
+# rows with 200 logits tied at the max, in a cluster of 4
+SAMPLE_TIES = ((2, 1000), (128, 4), 200)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dims", type=int, nargs="*",
                     default=[32, 64, 128, 256])
-    ap.add_argument("--kernels", nargs="*", choices=["flash", "xent"],
-                    default=["flash", "xent"])
+    ap.add_argument("--kernels", nargs="*",
+                    choices=["flash", "xent", "ln", "sample"],
+                    default=["flash", "xent", "ln", "sample"])
     ap.add_argument("--src", type=Path,
                     default=ROOT / "deeplearning4j_tpu_torch" / "csrc")
     args = ap.parse_args()
     gen = torch.Generator().manual_seed(0)
     failed = 0
+    if "ln" in args.kernels:
+        fns = ln_entry_points(args.src)
+        for N, C, dtype, misaligned, nv in LN_CASES:
+            ok, line = run_ln_case(fns, N, C, dtype, gen, misaligned, nv)
+            print(line, flush=True)
+            failed += not ok
+    if "sample" in args.kernels:
+        fn = sample_entry_point(args.src)
+        cases = [((B, V), dtype, mode, None) for B, V in SAMPLE_SHAPES
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for _, mode in SAMPLE_MODES]
+        cases += [(shape, torch.float32, mode, plan)
+                  for shape, plan in SAMPLE_PLANS
+                  for _, mode in SAMPLE_MODES[1:4:2]]
+        (B, V), plan, ties = SAMPLE_TIES
+        cases += [((B, V), torch.float32, mode, plan, ties)
+                  for _, mode in SAMPLE_MODES[1:4:2]]
+        for (B, V), dtype, mode, plan, *ties in cases:
+            ok, line = run_sample_case(fn, B, V, dtype, mode, gen, plan,
+                                       *ties)
+            print(line, flush=True)
+            failed += not ok
     if "xent" in args.kernels:
         fns = xent_entry_points(args.src)
         for N, d, V in XENT_SHAPES:

@@ -107,3 +107,56 @@ def test_reference_statistics_are_f32_and_dtype_kept():
     xs = [t.clone().requires_grad_() for t in (x, gamma, beta)]
     tln.fused_layer_norm(*xs).backward(dy)
     assert all(t.grad.dtype == torch.bfloat16 for t in xs)
+
+
+def _fwd_ptrs(x, gamma, beta):
+    y = torch.empty_like(x)
+    return tuple(t.data_ptr() for t in (x, gamma, beta, y))
+
+
+@pytest.mark.parametrize("C,dtype,want", [
+    (256, torch.bfloat16, 1), (256, torch.float32, 2),
+    (512, torch.bfloat16, 2), (1024, torch.bfloat16, 4),
+    (512, torch.float32, 4), (128, torch.float32, 1),
+    (2048, torch.bfloat16, 0), (1024, torch.float32, 0),
+    (200, torch.bfloat16, 0), (200, torch.float32, 0), (7, torch.float32, 0),
+    (384, torch.bfloat16, 0)])
+def test_fwd_plan_picks_the_instantiation_by_shape(C, dtype, want):
+    """K10's dispatch by shape: the one-pass vector kernel when a warp's
+    32 lanes cover the row in whole 16-byte vectors, 1 to
+    MAX_VEC_PER_LANE of them (256 bf16 or 128 f32 columns each), else
+    the general kernel (0)."""
+    x = torch.zeros(8, C, dtype=dtype)
+    g, b = torch.ones(C, dtype=dtype), torch.zeros(C, dtype=dtype)
+    assert tln._fwd_plan(C, x.element_size(), _fwd_ptrs(x, g, b)) == want
+
+
+@pytest.mark.parametrize("which", ["x", "gamma", "beta"])
+def test_fwd_plan_sends_an_unaligned_tensor_to_the_general_kernel(which):
+    """A contiguous [N, 256] bf16 view one element into a flat buffer
+    (2 bytes past a 16-byte boundary), as x, gamma or beta: the general
+    kernel, never a 16-byte load from an unaligned address."""
+    N, C = 4, 256
+    t = {"x": (N, C), "gamma": (C,), "beta": (C,)}
+    ts = {k: torch.zeros(*shape, dtype=torch.bfloat16)
+          for k, shape in t.items()}
+    flat = torch.zeros(N * C + 1, dtype=torch.bfloat16)
+    ts[which] = flat[1:1 + ts[which].numel()].view(t[which])
+    assert ts[which].is_contiguous() and ts[which].data_ptr() % 16
+    aligned = {k: v for k, v in ts.items() if k != which}
+    assert all(v.data_ptr() % 16 == 0 for v in aligned.values())
+    assert tln._fwd_plan(C, 2, _fwd_ptrs(ts["x"], ts["gamma"],
+                                         ts["beta"])) == 0
+
+
+def test_launch_check_names_what_the_kernels_do_not_take():
+    """The lean launch path's checks build their text only when they
+    raise, and still name the fault: CPU tensors, which no kernel takes,
+    as the forward's and as the backward's arguments."""
+    x, gamma, beta, dy = (torch.from_numpy(a) for a in _inputs((8, 64), 4))
+    assert not tln._ok(x, (gamma, beta))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tln._check(x, (gamma, beta))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tln._check(x, (gamma,), (dy,), (x[:, 0].contiguous(),) * 2)
+    assert tln.LAUNCHES == {"K10": 0, "K11": 0}

@@ -101,3 +101,108 @@ def test_supports_any_nonempty_shape():
     assert tfs.supports(1, 1) and tfs.supports(4, 10000)
     assert tfs.supports(8, 128) == jfs.supports(8, 128)
     assert not tfs.supports(0, 128) and not tfs.supports(4, 0)
+
+
+def _binary_walk(logits, temperature=1.0, top_k=0, top_p=1.0):
+    """The two bisection loops of `_select_reference`, as written there,
+    returning the final lo of each: the thresholds the plain version
+    keeps (0 where a filter is off)."""
+    k, p_top = tfs._modes(logits, top_k, top_p)
+    lf = logits.float()
+    B, V = lf.shape
+    t = torch.full((1, 1), float(temperature), dtype=torch.float32)
+    z = torch.div(lf - lf.amax(-1, keepdim=True), t)
+    thr_k = thr_p = torch.zeros(B)
+    if k:
+        lo = z.amin(-1) - 1.0
+        hi = torch.full((B,), 1e-6, dtype=torch.float32)
+        for _ in range(tfs.BISECT_STEPS):
+            mid = 0.5 * (lo + hi)
+            cnt = (z >= mid[:, None]).sum(-1)
+            ge = cnt >= k
+            lo = torch.where(ge, mid, lo)
+            hi = torch.where(ge, hi, mid)
+        thr_k = lo
+    if p_top < 1.0:
+        e = torch.exp(z)
+        p = torch.div(e, e.sum(-1, keepdim=True))
+        lo = torch.zeros(B, dtype=torch.float32)
+        hi = p.amax(-1) + 1e-6
+        top = torch.full((B,), p_top, dtype=torch.float32)
+        for _ in range(tfs.BISECT_STEPS):
+            mid = 0.5 * (lo + hi)
+            mass = torch.where(p >= mid[:, None], p, 0.0).sum(-1)
+            ge = mass >= top
+            lo = torch.where(ge, mid, lo)
+            hi = torch.where(ge, hi, mid)
+        thr_p = lo
+    return thr_k, thr_p
+
+
+WALK_MODES = [m for m in MODES if m.get("top_k") or m.get("top_p")]
+
+
+@pytest.mark.parametrize("mode", WALK_MODES,
+                         ids=lambda m: "-".join(f"{k}{v}"
+                                                for k, v in m.items()))
+def test_tree_walk_gives_the_plain_thresholds(mode):
+    """K12 walks the bisections 4 levels a round: `_tree_bisect` (the
+    plain model of that walk) at levels = 4 reaches `_select_reference`'s
+    top-k and top-p thresholds bit for bit over 300 seeded rows."""
+    rng = np.random.default_rng(11)
+    logits = torch.from_numpy((3.0 * rng.normal(size=(300, 1000)))
+                              .astype(np.float32))
+    want = _binary_walk(logits, **mode)
+    got = tfs._thresholds_reference(logits, levels=tfs.LEVELS, **mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(tfs._thresholds_reference(logits, levels=1, **mode)[0],
+                       want[0])
+
+
+@pytest.mark.parametrize("mode", WALK_MODES,
+                         ids=lambda m: "-".join(f"{k}{v}"
+                                                for k, v in m.items()))
+@pytest.mark.parametrize("shape", [(300, 1000), (12, 10000), (20, 100)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernel_walk_model_gives_the_plain_thresholds(shape, mode):
+    """The plain model of the kernel's whole walk (`_walk_model`: rounds
+    of 4 levels while more than CAP = 128 elements lie in [lo, hi), then
+    the last levels from the k-th largest z, or from where the running
+    top-p sum reaches top_p) against `_select_reference`'s loops: the
+    top-k thresholds bit for bit, and on these seeded rows the top-p ones
+    too (they may part only where a mass lies within an ulp of top_p),
+    at V = 1000 and 10000 (rounds, then the finish) and V = 100 (no
+    round: at most CAP elements from the start)."""
+    B, V = shape
+    rng = np.random.default_rng(B + V)
+    logits = torch.from_numpy((3.0 * rng.normal(size=shape))
+                              .astype(np.float32))
+    want = _binary_walk(logits, **mode)
+    got = tfs._walk_model(logits, **mode)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_plan_spreads_a_row_over_a_cluster():
+    """8 blocks a row at the flagship's V = 10000, of 256 threads while
+    every block of the launch has an SM of its own ([4, 10000]) and of
+    128 beyond ([32, 10000]); one block of 128 up to V = 1024, about 8
+    elements a thread in between."""
+    assert tfs._plan(8, 128) == (128, 1) and tfs._plan(4, 1024) == (128, 1)
+    assert tfs._plan(2, 4099) == (128, 5)
+    assert tfs._plan(4, 10000) == (256, 8)
+    assert tfs._plan(16, 10000) == (256, 8)
+    assert tfs._plan(32, 10000) == (128, 8)
+    assert tfs._plan(1, 1 << 20) == (256, tfs.MAX_CLUSTER)
+    assert all(t in tfs.PLAN_THREADS for t, _ in (
+        tfs._plan(b, v) for b in (1, 64) for v in (1, 5000, 99999)))
+
+
+def test_launch_check_names_what_the_kernel_does_not_take():
+    """The launch path's check builds its text only when it raises; on
+    tensors the kernel does not take it still names the fault."""
+    logits, noise = (torch.from_numpy(a) for a in _inputs(4, 128))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfs._check(logits, noise)
+    assert tfs.LAUNCHES["K12"] == 0
