@@ -23,8 +23,8 @@ Phases, each of which exits non-zero when it fails:
    off for matrix products and convolutions. Builds every kernel source
    in deeplearning4j_tpu_torch/csrc/ with nvcc (one process per source,
    started together) and logs each kernel's registers and spills; a
-   tensor-core kernel (namespaces tcf, tcx), K10's vector forward (lnv)
-   or K12 (smp) that spills fails.
+   tensor-core kernel (namespaces tcf, tcx), K10's and K11's vector
+   kernels and K11's column sum (lnv) or K12 (smp) that spills fails.
 2. Forward kernels vs plain version: the flash-forward kernel as K1
    (flat, masked), K2 (packed qkv) and K3 (packed, head_dim 64) at the
    shapes serving, the full forward and training give it (K1 at
@@ -112,10 +112,12 @@ Phases, each of which exits non-zero when it fails:
    at N=16384 C=256, N=16383 (ragged rows), a ragged N=1000 C=200 and
    an x one element off its 16-byte boundary, against
    `_ln_fwd_reference` / `_ln_bwd_reference`, each run twice to repeat
-   bit for bit, K10 through the instantiation `_fwd_plan` must pick (the
-   vector kernel, or the general one for C=200 and the unaligned x),
-   timed against F.layer_norm forward and backward (event and device
-   time), with the host microseconds of each part of K10's launch path.
+   bit for bit, through the instantiations `_fwd_plan` and `_bwd_plan`
+   must pick (the vector kernels, K11 on 264 blocks at N=16384, or the
+   general path for C=200 and the unaligned x), timed against
+   F.layer_norm forward and backward (event and device time, K11's by
+   kernel; a call that runs any kernel but layernorm.cu's fails), with
+   the host microseconds of each part of K10's launch path.
 10. Word2Vec at the repo's config (bench.py `_quality_w2v`: layer 128,
    window 5, negative 5, one epoch, seed 1, batch 2048) on the first
    8000 sentences of bench.py's topic corpus (vocab 10000, 1,000,000
@@ -290,7 +292,8 @@ def drop_for(torch, fa, label, T, dev):
 
 # a ptxas spill line, and the name of a kernel that must not spill,
 # demangled or mangled: the tensor-core kernels (namespaces tcf, tcx),
-# K10's vector forward (lnv) and K12 (smp)
+# K10's and K11's vector kernels and K11's column sum (lnv) and K12
+# (smp)
 SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 TC_KERNEL = re.compile(r"\b(?:tc[fx]|lnv|smp)::|\d(?:tc[fx]|lnv|smp)\d")
 
@@ -1752,13 +1755,14 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.5f} ms"
 
 
-def kernel_device_ms(torch, fn, calls=20, names=None):
+def kernel_device_ms(torch, fn, calls=20, names=None, by_name=None):
     """Mean device time per call of the kernels `fn` launches (the sum
     of their times over `calls` calls, from torch.profiler), or None
     when the profiler reports no device time. At these sizes the CUDA
     event time of back-to-back calls is bounded by the host's launch
     path; this is the kernels' own time. `names`, a list, receives the
-    names of the kernels that ran."""
+    names of the kernels that ran; `by_name`, a dict, each one's device
+    ms a call under its `short_name`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1776,6 +1780,11 @@ def kernel_device_ms(torch, fn, calls=20, names=None):
             break
     if names is not None:
         names.extend(e.key for e in events)
+    if by_name is not None:
+        for e in events:
+            key = short_name(e.key)
+            by_name[key] = (by_name.get(key, 0.0)
+                            + e.self_device_time_total / calls / 1e3)
     total_us = sum(e.self_device_time_total for e in events)
     return total_us / calls / 1e3 if total_us else None
 
@@ -1851,10 +1860,11 @@ def check_neg_softmax(torch, fns):
     return {"K13": records}
 
 
-# K10's cases: the flagship LM's LayerNorm input (N = 32 x 512 tokens,
-# C = 256), its rows less one (no multiple of a block's 8 rows), the
-# ragged C = 200, and x one element past a 16-byte boundary (a view of a
-# flat buffer), which `_fwd_plan` must send to the general kernel
+# K10's and K11's cases: the flagship LM's LayerNorm input (N = 32 x 512
+# tokens, C = 256), its rows less one (no multiple of a block's 8 rows),
+# the ragged C = 200, and x one element past a 16-byte boundary (a view
+# of a flat buffer), which `_fwd_plan` and `_bwd_plan` must send to the
+# general path
 LN_CASES = (("flagship N=16384 C=256", 16384, 256, False),
             ("ragged rows N=16383 C=256", 16383, 256, False),
             ("ragged N=1000 C=200", 1000, 200, False),
@@ -1923,11 +1933,13 @@ def ln_host_path(torch, fln, x, g, b, eps, calls=500):
 def check_layernorm(torch, fln):
     """K10 and K11 (csrc/layernorm.cu) through the `fused_layer_norm`
     autograd Function against `_ln_fwd_reference` / `_ln_bwd_reference`
-    at LN_CASES, f32 and bf16, each run twice to repeat bit for bit, K10
-    through the instantiation `_fwd_plan` picks (the vector kernel at C =
-    256 when aligned, the general one otherwise); the flagship bf16 case
-    timed against F.layer_norm forward and backward (CUDA events and
-    device time), with the host path's parts (`ln_host_path`)."""
+    at LN_CASES, f32 and bf16, each run twice to repeat bit for bit,
+    through the instantiations `_fwd_plan` and `_bwd_plan` must pick (the
+    vector kernels at C = 256 when aligned, K11 on min(BWD_BLOCKS, N / 8)
+    blocks; the general path otherwise); the flagship bf16 case timed
+    against F.layer_norm forward and backward (CUDA events and device
+    time, K11's by kernel), where a call may run layernorm.cu's kernels
+    and no other, with the host path's parts (`ln_host_path`)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1948,8 +1960,14 @@ def check_layernorm(torch, fln):
             plan = fln._fwd_plan(C, x.element_size(), (
                 x.data_ptr(), g.data_ptr(), b.data_ptr(),
                 torch.empty_like(x).data_ptr()))
+            bwd_plan = fln._bwd_plan(N, C, x.element_size(), (
+                x.data_ptr(), g.data_ptr(), dy.data_ptr(),
+                torch.empty_like(x).data_ptr()))
             want_plan = 0 if misaligned or C % 128 else (
                 1 if dtype is torch.bfloat16 else 2)
+            # K11: 264 blocks of 8 rows, or partials of 64 rows
+            want_bwd = (want_plan, min(264, -(-N // 8)) if want_plan
+                        else -(-N // 64))
             runs = []
             for _ in range(2):
                 leaves = [t.clone().requires_grad_() for t in (x, g, b)]
@@ -1972,19 +1990,24 @@ def check_layernorm(torch, fln):
             worst["K11"] = max(worst["K11"], abs_b)
             repeat = same_bits(torch, runs[0], runs[1])
             ok = (err_f <= LN_TOL[dname] and err_b <= LN_TOL[dname]
-                  and y.dtype == dtype and plan == want_plan and repeat
+                  and y.dtype == dtype and plan == want_plan
+                  and bwd_plan == want_bwd and repeat
                   and bool(torch.isfinite(y.float()).all()))
+            bwd_kind = (f"vector nv={bwd_plan[0]}" if bwd_plan[0]
+                        else "general")
             log(f"check K10/K11 layernorm {label} {dname}: K10 "
                 f"{'vector nv=' + str(plan) if plan else 'general'} "
-                f"kernel, max rel err y {err_f:.3e}, dx/dgamma/dbeta "
-                f"{err_b:.3e} (tol {LN_TOL[dname]}), two runs "
+                f"kernel, K11 {bwd_kind} path with {bwd_plan[1]} "
+                f"partials, max rel err y "
+                f"{err_f:.3e}, dx/dgamma/dbeta {err_b:.3e} (tol "
+                f"{LN_TOL[dname]}), two runs "
                 f"{'equal bit for bit' if repeat else 'DIFFER'} -> "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise PhaseFailed(9, f"K10/K11 {label} {dname} disagrees "
                                      "with its plain version, takes the "
-                                     f"wrong kernel ({plan}) or does not "
-                                     "repeat")
+                                     f"wrong kernel ({plan}, {bwd_plan}) or "
+                                     "does not repeat")
             if dtype is not torch.bfloat16 or N != 16384:
                 continue
             fwd = lambda: fln._ln_fwd(x, g, b, eps)  # noqa: E731
@@ -2009,20 +2032,30 @@ def check_layernorm(torch, fln):
                     lambda: fln._ln_bwd_reference(x, g, mu, rstd, dy)))
                 lib_ms = time_ms(torch, lib)
                 bound_ms, bound_by = bound(nbytes, flops, dname)
-                names = []
-                dev_ms = kernel_device_ms(torch, fn, names=names)
+                by_name = {}
+                dev_ms = kernel_device_ms(torch, fn, by_name=by_name)
                 lib_dev = kernel_device_ms(torch, lib)
                 log(f"time  {kern} layernorm {label} bf16: kernel "
-                    f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}; "
-                    f"{sorted({short_name(n) for n in names})}), plain "
-                    f"{plain_ms:.4f} ms, F.layer_norm "
+                    f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}; by kernel "
+                    + ", ".join(f"{k} {v:.5f}" for k, v in
+                                sorted(by_name.items()))
+                    + f"), plain {plain_ms:.4f} ms, F.layer_norm "
                     f"{'bwd' if kern == 'K11' else 'fwd'} {lib_ms:.4f} ms "
                     f"(device time {fmt_ms(lib_dev)}), bound "
                     f"{bound_ms:.5f} ms ({bound_by})")
+                # a call runs the planned layernorm.cu kernels and nothing
+                # else (no PyTorch kernel around them)
+                want = ({"lnv::bwd_vec", "lnv::colsum"} if kern == "K11"
+                        else {"lnv::fwd_vec"})
+                ran = {k.split("<", 1)[0] for k in by_name}
+                if by_name and ran != want:
+                    raise PhaseFailed(9, f"{kern} ran {sorted(by_name)}, not "
+                                         f"only {sorted(want)}")
                 records[kern].append(dict(
                     label=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     library_ms=lib_ms, library_device_ms=lib_dev,
-                    bound_ms=bound_ms, bound_by=bound_by))
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    device_ms_by_kernel=by_name))
             host = ln_host_path(torch, fln, x, g, b, eps)
             log("time  K10 host path, microseconds a call: " + ", ".join(
                 f"{k} {v:.2f}" for k, v in host.items()))
@@ -2914,8 +2947,8 @@ def main() -> int:
             "max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["label"],
-            **{k: rec[k] for k in ("device_ms", "library_device_ms")
-               if k in rec},
+            **{k: rec[k] for k in ("device_ms", "library_device_ms",
+                                   "device_ms_by_kernel") if k in rec},
             **{arm: {"max_abs_err": rec[arm]["err"],
                      **{k: v for k, v in rec[arm].items() if k != "err"}}
                for arm in ("dropout", "dlse") if arm in rec}})

@@ -7,8 +7,9 @@ package runs these kernels.
 * K10 — `_ln_fwd` (TPU `_ln_fwd` -> `_fwd_kernel`): y in x's dtype, and
   the per-row mu and rstd in f32.
 * K11 — `_ln_bwd` (TPU `_ln_bwd` -> `_bwd_kernel`): dx in x's dtype and
-  f32 per-block dgamma/dbeta partials, summed here as the TPU wrapper
-  sums its partials outside its kernel.
+  f32 dgamma/dbeta. The kernels write per-block partials and sum them
+  on the card in the same C entry (the TPU wrapper sums its partials
+  outside its kernel); no PyTorch kernel runs in a call.
 
 `fused_layer_norm` is a `torch.autograd.Function` over the two (the JAX
 package's custom VJP). The kernels take any N and C; the TPU envelope
@@ -18,15 +19,17 @@ Dispatch is by the tensor's device only. On a CPU tensor each wrapper
 computes its plain PyTorch version (`_ln_fwd_reference`,
 `_ln_bwd_reference`), which is what the CPU tests run. On a CUDA tensor
 it launches its kernel or raises; nothing falls back. Launches are
-counted in `LAUNCHES` ("K10", "K11"). On the card K10 has two
-instantiations, the one-pass vector kernel and the general one;
-`_fwd_plan` picks by shape and alignment before the launch.
+counted in `LAUNCHES` ("K10", "K11"). On the card each direction has
+two instantiations, a one-pass vector kernel with the row in registers
+and a general path; `_fwd_plan` and `_bwd_plan` pick by shape and
+alignment before the launch.
 
 The launch path is lean, since at these sizes the host's time per call
 exceeds the kernel's: the checks build text only when they raise, the
 typed C entry is cached (`cuda_build.entry`), the stream handle is read
 raw (`cuda_build.stream_handle`), no device context is entered when x
-is on the current device, and mu and rstd are one allocation.
+is on the current device, mu and rstd are one allocation, and so are
+dgamma, dbeta and the backward's partials.
 
 What bounds the kernels on the H100 and what their design does about
 it: see the note at the top of csrc/layernorm.cu.
@@ -42,8 +45,17 @@ from deeplearning4j_tpu_torch.ops import cuda_build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# rows summed into one dgamma/dbeta partial by the backward kernel
+# rows summed into one dgamma/dbeta partial by the backward's general
+# column pass
 PARTIAL_ROWS = 64
+# the backward's vector kernel: warps a block, and blocks (each one
+# partial): 2 blocks on each of an H100's 132 SMs, a constant so that the
+# sums' order, and so their bits, do not depend on the card
+BWD_WARPS = 8
+BWD_BLOCKS = 264
+# its most 16-byte vectors a lane (csrc/layernorm.cu lnv::MAX_BWD_NV): C
+# up to 512 in bf16, 256 in f32; wider rows take the general path
+MAX_BWD_VEC_PER_LANE = 2
 
 # launches counted where a wrapper launches its kernel, and nowhere else
 LAUNCHES = {"K10": 0, "K11": 0}
@@ -79,7 +91,7 @@ def _ln_bwd_reference(x2d, gamma, mu, rstd, dy):
 _FN_ARGTYPES = {
     "ln_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p],
-    "ln_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    "ln_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
 
@@ -102,6 +114,22 @@ def _fwd_plan(C, elem_bytes, ptrs):
         if ptr & 15:
             return 0
     return nv
+
+
+def _bwd_plan(N, C, elem_bytes, ptrs):
+    """K11's instantiation for N rows of C elements of `elem_bytes` bytes
+    and the data pointers of x, gamma, dy and dx: (nv, blocks). The
+    vector kernel (nv its 16-byte vectors a lane) when a warp's lanes
+    cover the row in 1 to MAX_BWD_VEC_PER_LANE whole vectors each and
+    every pointer is 16-byte aligned, on a grid of
+    min(BWD_BLOCKS, ceil(N / BWD_WARPS)) blocks; else (0, the general
+    column pass's partials, ceil(N / PARTIAL_ROWS)). Each block or chunk
+    writes one partial; the C entry sums them."""
+    nv, rem = divmod(C, 32 * (16 // elem_bytes))
+    if rem or not 1 <= nv <= MAX_BWD_VEC_PER_LANE \
+            or any(ptr & 15 for ptr in ptrs):
+        return 0, -(-N // PARTIAL_ROWS)
+    return nv, min(BWD_BLOCKS, -(-N // BWD_WARPS))
 
 
 def _ok(x2d, vectors, mats=(), stats=()):
@@ -183,23 +211,23 @@ def _ln_fwd(x2d, gamma, beta, eps):
 
 
 def _ln_bwd(x2d, gamma, mu, rstd, dy):
-    """K11. -> (dx in x's dtype, dgamma f32 [C], dbeta f32 [C])."""
+    """K11. -> (dx in x's dtype, dgamma f32 [C], dbeta f32 [C]); dgamma
+    and dbeta are the two rows of one tensor that also holds the
+    kernels' partials."""
     if x2d.is_cpu:
         return _ln_bwd_reference(x2d, gamma, mu, rstd, dy)
     _check(x2d, (gamma,), (dy,), (mu, rstd))
     N, C = x2d.shape
     dx = torch.empty_like(x2d)
-    parts = -(-N // PARTIAL_ROWS)
-    # the dgamma and dbeta partials, [parts, C] each, in one tensor
-    dgbp = torch.empty((2, parts, C), dtype=torch.float32,
+    xp, gp, dyp, dxp = (x2d.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                        dx.data_ptr())
+    nv, blocks = _bwd_plan(N, C, x2d.element_size(), (xp, gp, dyp, dxp))
+    dgdb = torch.empty((1 + blocks, 2, C), dtype=torch.float32,
                        device=x2d.device)
-    dg_ptr = dgbp.data_ptr()
-    _run("ln_bwd", x2d, x2d.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
-         rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg_ptr,
-         dg_ptr + parts * C * 4, _KERNEL_DTYPES[x2d.dtype], N, C,
-         PARTIAL_ROWS)
+    _run("ln_bwd", x2d, xp, gp, mu.data_ptr(), rstd.data_ptr(), dyp, dxp,
+         dgdb.data_ptr(), _KERNEL_DTYPES[x2d.dtype], nv, blocks, N, C)
     LAUNCHES["K11"] += 1
-    dg, db = dgbp.sum(1).unbind(0)
+    dg, db = dgdb[0].unbind(0)
     return dx, dg, db
 
 

@@ -46,7 +46,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import LN_TOL, SAMPLE_MODES  # noqa: E402
+from chip_smoke import LN_TOL, SAMPLE_MODES, same_bits  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from deeplearning4j_tpu_torch.ops import fused_layernorm as fln  # noqa: E402
 from deeplearning4j_tpu_torch.ops import fused_sampling as fsm  # noqa: E402
@@ -300,24 +300,33 @@ def ln_entry_points(src_dir, out_dir=BUILD):
     return fns
 
 
-def run_ln_case(fns, N, C, dtype, gen, misaligned=False, nv=None):
+def _offset(t):
+    """A contiguous copy of t one element past a 16-byte boundary (a view
+    of a flat buffer)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
     """K10 and K11 through the emulated kernels against
     `_ln_fwd_reference` and `_ln_bwd_reference`: y, mu, rstd, dx,
     dgamma and dbeta within phase 9's LN_TOL of their largest entry (mu
     and rstd, f32 in both, within the f32 limit). K10's instantiation is
-    `_fwd_plan`'s (or `nv`, to force one); `misaligned` puts x one
-    element past a 16-byte boundary, which `_fwd_plan` must send to the
-    general kernel. Returns (ok, report line)."""
+    `_fwd_plan`'s (or `nv`, to force one), K11's `_bwd_plan`'s, its
+    block count forced to `blocks` where given (several rows a warp and
+    partials from several blocks at a small N). `misaligned` ("x" or
+    "dy") puts that tensor one element past a 16-byte boundary, which
+    the plans must send to the general path. K11 runs twice and must
+    repeat bit for bit. Returns (ok, report line)."""
     dname = str(dtype).split(".")[-1]
-    x0 = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dtype)
-    if misaligned:
-        x = torch.empty(N * C + 1, dtype=dtype)[1:].view(N, C)
-        x.copy_(x0)
-    else:
-        x = x0
+    x = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dtype)
+    if misaligned == "x":
+        x = _offset(x)
     g = (1 + 0.2 * torch.randn(C, generator=gen)).to(dtype)
     b = (0.1 * torch.randn(C, generator=gen)).to(dtype)
     dy = torch.randn(N, C, generator=gen).to(dtype)
+    if misaligned == "dy":
+        dy = _offset(dy)
     y, stats = torch.empty(N, C, dtype=dtype), torch.empty(2, N)
     ptrs = tuple(t.data_ptr() for t in (x, g, b, y))
     plan = fln._fwd_plan(C, x.element_size(), ptrs) if nv is None else nv
@@ -327,37 +336,61 @@ def run_ln_case(fns, N, C, dtype, gen, misaligned=False, nv=None):
     err_f = rel_err(y, ry)
     err_s = max(rel_err(stats[0], rmu), rel_err(stats[1], rrstd))
 
-    parts = -(-N // fln.PARTIAL_ROWS)
-    dx, dgbp = torch.empty_like(x), torch.empty(2, parts, C)
-    rc_b = fns["ln_bwd"](x.data_ptr(), g.data_ptr(), rmu.data_ptr(),
-                         rrstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                         dgbp[0].data_ptr(), dgbp[1].data_ptr(), dt, N, C,
-                         fln.PARTIAL_ROWS, None)
+    runs, rc_b = [], []
+    for _ in range(2):
+        dx = torch.empty_like(x)
+        bnv, nblocks = fln._bwd_plan(N, C, x.element_size(), tuple(
+            t.data_ptr() for t in (x, g, dy, dx)))
+        nblocks = nblocks if blocks is None else blocks
+        dgdb = torch.full((1 + nblocks, 2, C), float("nan"))
+        rc_b.append(fns["ln_bwd"](x.data_ptr(), g.data_ptr(), rmu.data_ptr(),
+                                  rrstd.data_ptr(), dy.data_ptr(),
+                                  dx.data_ptr(), dgdb.data_ptr(), dt, bnv,
+                                  nblocks, N, C, None))
+        runs.append((dx, dgdb[0, 0], dgdb[0, 1]))
     refs = fln._ln_bwd_reference(x, g, rmu, rrstd, dy)
-    err_b = max(rel_err(a, r) for a, r in zip((dx, *dgbp.sum(1)), refs))
+    err_b = max(rel_err(a, r) for a, r in zip(runs[0], refs))
+    repeat = same_bits(torch, *runs)
     tol = LN_TOL[dname]
     ok = rc == 0 and err_f <= tol and err_s <= LN_TOL["float32"]
-    ok_b = rc_b == 0 and err_b <= tol
+    ok_b = rc_b == [0, 0] and err_b <= tol and repeat
     kind = f"vector nv={plan}" if plan else "general"
-    line = (f"ln N={N} C={C} {dname}{' misaligned' if misaligned else ''} "
-            f"({kind}): K10 y rel {err_f:.2e} mu/rstd {err_s:.2e} "
-            f"{'ok' if ok else 'FAIL'}; K11 rel {err_b:.2e} "
+    bkind = f"vector nv={bnv}" if bnv else "general"
+    line = (f"ln N={N} C={C} {dname}"
+            f"{f' misaligned {misaligned}' if misaligned else ''}: K10 "
+            f"({kind}) y rel {err_f:.2e} mu/rstd {err_s:.2e} "
+            f"{'ok' if ok else 'FAIL'}; K11 ({bkind}, {nblocks} partials) "
+            f"rel {err_b:.2e}, two runs "
+            f"{'equal bit for bit' if repeat else 'DIFFER'} "
             f"{'ok' if ok_b else 'FAIL'}")
     return ok and ok_b, line
 
 
-# K10: both instantiations (bf16 C = 256 and f32 C = 256: 1 and 2
-# vectors a lane; the same shape forced onto the general kernel), rows
-# that are no multiple of a block's 8, the ragged C = 200 and C = 7, and
-# an x one element off its 16-byte boundary
-LN_CASES = ((40, 256, torch.bfloat16, False, None),
-            (40, 256, torch.float32, False, None),
-            (40, 256, torch.bfloat16, False, 0),
-            (13, 512, torch.bfloat16, False, None),
-            (13, 200, torch.float32, False, None),
-            (13, 200, torch.bfloat16, False, None),
-            (5, 7, torch.float32, False, None),
-            (11, 256, torch.bfloat16, True, None))
+# (N, C, dtype, misaligned, K10's nv, K11's blocks). K10: both
+# instantiations (bf16 C = 256 and f32 C = 256: 1 and 2 vectors a lane;
+# the same shape forced onto the general kernel), rows that are no
+# multiple of a block's 8, the ragged C = 200 and C = 7, and an x one
+# element off its 16-byte boundary. K11 on the same cases, its vector
+# kernel at bf16 C = 256 and 512 and f32 C = 256 (1, 2 and 2 vectors a
+# lane), 3 blocks at N = 40 (warps of several rows, the sum over
+# blocks), N = 1 and N = 5 (fewer rows than a block's 8 warps), and its
+# general path for C = 200, C = 7, f32 C = 512 and bf16 C = 1024 (past 2
+# vectors a lane) and an unaligned x or dy
+LN_CASES = ((40, 256, torch.bfloat16, "", None, None),
+            (40, 256, torch.float32, "", None, None),
+            (40, 256, torch.bfloat16, "", 0, None),
+            (13, 512, torch.bfloat16, "", None, None),
+            (13, 200, torch.float32, "", None, None),
+            (13, 200, torch.bfloat16, "", None, None),
+            (5, 7, torch.float32, "", None, None),
+            (11, 256, torch.bfloat16, "x", None, None),
+            (40, 256, torch.bfloat16, "", None, 3),
+            (40, 256, torch.float32, "", None, 3),
+            (1, 256, torch.bfloat16, "", None, None),
+            (5, 256, torch.float32, "", None, None),
+            (13, 512, torch.float32, "", None, None),
+            (9, 1024, torch.bfloat16, "", None, None),
+            (11, 256, torch.bfloat16, "dy", None, None))
 
 
 def sample_entry_point(src_dir, out_dir=BUILD):
@@ -429,8 +462,9 @@ def main():
     failed = 0
     if "ln" in args.kernels:
         fns = ln_entry_points(args.src)
-        for N, C, dtype, misaligned, nv in LN_CASES:
-            ok, line = run_ln_case(fns, N, C, dtype, gen, misaligned, nv)
+        for N, C, dtype, misaligned, nv, blocks in LN_CASES:
+            ok, line = run_ln_case(fns, N, C, dtype, gen, misaligned, nv,
+                                   blocks)
             print(line, flush=True)
             failed += not ok
     if "sample" in args.kernels:

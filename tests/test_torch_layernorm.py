@@ -149,6 +149,51 @@ def test_fwd_plan_sends_an_unaligned_tensor_to_the_general_kernel(which):
                                          ts["beta"])) == 0
 
 
+def _bwd_ptrs(x, gamma, dy):
+    dx = torch.empty_like(x)
+    return tuple(t.data_ptr() for t in (x, gamma, dy, dx))
+
+
+@pytest.mark.parametrize("N,C,dtype,want", [
+    (16384, 256, torch.bfloat16, (1, 264)), (16384, 256, torch.float32,
+                                             (2, 264)),
+    (16384, 512, torch.bfloat16, (2, 264)), (16384, 512, torch.float32,
+                                             (0, 256)),
+    (16384, 128, torch.float32, (1, 264)), (40, 256, torch.bfloat16, (1, 5)),
+    (1, 256, torch.bfloat16, (1, 1)), (2112, 256, torch.bfloat16, (1, 264)),
+    (2105, 256, torch.bfloat16, (1, 264)),
+    (16384, 1024, torch.bfloat16, (0, 256)),
+    (16384, 768, torch.float32, (0, 256)),
+    (1000, 200, torch.bfloat16, (0, 16)), (13, 7, torch.float32, (0, 1)),
+    (100, 384, torch.bfloat16, (0, 2))])
+def test_bwd_plan_picks_the_instantiation_by_shape(N, C, dtype, want):
+    """K11's dispatch by shape: the one-pass vector kernel when a warp's
+    32 lanes cover the row in 1 to MAX_BWD_VEC_PER_LANE whole 16-byte
+    vectors each (C = 256 or 512 in bf16, 128 or 256 in f32), on
+    min(BWD_BLOCKS, ceil(N / 8)) blocks; else the general path with
+    ceil(N / PARTIAL_ROWS) column partials (nv = 0)."""
+    x = torch.zeros(4, C, dtype=dtype)
+    g = torch.ones(C, dtype=dtype)
+    assert tln._bwd_plan(N, C, x.element_size(),
+                         _bwd_ptrs(x, g, torch.zeros_like(x))) == want
+
+
+@pytest.mark.parametrize("which", ["x", "gamma", "dy"])
+def test_bwd_plan_sends_an_unaligned_tensor_to_the_general_path(which):
+    """A contiguous [N, 256] bf16 view one element into a flat buffer
+    as x, gamma or dy: the general path, never a 16-byte load from an
+    unaligned address."""
+    N, C = 4, 256
+    t = {"x": (N, C), "gamma": (C,), "dy": (N, C)}
+    ts = {k: torch.zeros(*shape, dtype=torch.bfloat16)
+          for k, shape in t.items()}
+    flat = torch.zeros(N * C + 1, dtype=torch.bfloat16)
+    ts[which] = flat[1:1 + ts[which].numel()].view(t[which])
+    assert ts[which].is_contiguous() and ts[which].data_ptr() % 16
+    assert tln._bwd_plan(N, C, 2, _bwd_ptrs(ts["x"], ts["gamma"],
+                                            ts["dy"])) == (0, 1)
+
+
 def test_launch_check_names_what_the_kernels_do_not_take():
     """The lean launch path's checks build their text only when they
     raise, and still name the fault: CPU tensors, which no kernel takes,
