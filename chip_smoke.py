@@ -3,9 +3,10 @@
 NVIDIA GPU (written for the H100): serving the flagship Transformer LM
 (greedy, speculative and over the int8 cache, in process and over HTTP)
 and training it (also with attention dropout and at T = 32768 through
-the chunked tier), training Word2Vec through the embedding engine, and
-the speculative traffic replay, through the port's hand-written
-kernels.
+the chunked tier), training Word2Vec through the embedding engine, the
+speculative traffic replay, through the port's hand-written kernels,
+and training the image models (LeNet-5, VGG-16, ResNet-20), which run
+none of them.
 
 Run from the root of a checkout, with no arguments:
 
@@ -117,7 +118,13 @@ Phases, each of which exits non-zero when it fails:
    general path for C=200 and the unaligned x), timed against
    F.layer_norm forward and backward (event and device time, K11's by
    kernel; a call that runs any kernel but layernorm.cu's fails), with
-   the host microseconds of each part of K10's launch path.
+   the host microseconds of each part of K10's launch path. Fault C2:
+   K13 on strided views of c, pos and neg (equal to the launch on
+   contiguous copies bit for bit, and to the plain version), and K10/K11
+   with bf16 x and f32 gamma/beta at N=16384 C=256 (the vector kernels)
+   and N=1000 C=200 (the general path): within LN_TOL of the plain
+   version with the f32 gamma, repeating bit for bit, and nearer to it
+   than to the plain version with gamma rounded to bf16.
 10. Word2Vec at the repo's config (bench.py `_quality_w2v`: layer 128,
    window 5, negative 5, one epoch, seed 1, batch 2048) on the first
    8000 sentences of bench.py's topic corpus (vocab 10000, 1,000,000
@@ -145,7 +152,11 @@ Phases, each of which exits non-zero when it fails:
    for bit; kernel, device, plain and bound times, the Gumbel argmax
    call's event and device time for the temperature-only mode, and the
    device time of each launch plan (threads, cluster) at [4, 10000] and
-   [32, 10000] with both filters.
+   [32, 10000] with both filters. Fault C2: logits the last position of
+   a [B, 3, V] output and noise from a wider buffer (strided views) at
+   [8, 128] and [4, 10000], f32 and bf16, every mode: equal to the
+   launch on contiguous copies, and (without top-p) to the plain
+   version.
 14. Serving over HTTP (run after phase 5, on the phase-3 LM): the
    flagship behind `ServingServer` in three arms (speculative k=4, the
    int8 cache, both), each serving phase 3's 8 requests over POST
@@ -164,6 +175,20 @@ Phases, each of which exits non-zero when it fails:
    rounds of 3 arms): every metric line printed, both parity rows 0, and
    exactly 21 K12 launches (the sampling microbench's warm call and 20
    timed ones).
+17. The image models at bench.py's sizes: the f32 LeNet-5, VGG-16 and
+   ResNet-20 on the card against the same models on the CPU with the
+   card's params (8 images, softmax outputs within 1e-4, TF32 off);
+   LeNet-5 (batch 512, bf16) trained through `fit_scanned` and `fit` on
+   100 batches of the synthetic MNIST, its loss falling and its
+   accuracy on the synthetic test split at least 0.99; then LeNet-5,
+   VGG-16 (batch 256, bf16) and ResNet-20 (batch 64, f32 and bf16): 5
+   fit() steps on one batch (the loss falls, the params stay finite),
+   batch norm's running statistics moved and used by `output`, the
+   median CUDA-event time of 20 fit() steps, images/s, FLOPs a step
+   (2 B Ho Wo Cout Cin kh kw a convolution, times 3), MFU against 989
+   TFLOP/s, peak memory and a profiled step's idle share and five
+   largest kernels, beside the card's name and power limit. The image
+   path launches none of K1-K13: every count reads 0.
 
 After phases 3-16, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -1855,6 +1880,33 @@ def check_neg_softmax(torch, fns):
             records.append(dict(label=label, ms=ms, device_ms=dev_ms,
                                 plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=bound_ms, bound_by=bound_by))
+    # fault C2: c and pos two columns of one [B, 2, D] buffer and neg the
+    # first K of K + 2 rows a triple, equal to the launch on contiguous
+    # copies bit for bit and to the plain version within K13_TOL
+    B, K, D = 2048, 5, 128
+    both = (0.3 * torch.randn(B, 2, D, generator=gen)).to(dev)
+    wide = (0.3 * torch.randn(B, K + 2, D, generator=gen)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        c, pos = both.to(dtype).unbind(1)
+        neg = wide.to(dtype)[:, :K]
+        got = fns.neg_softmax_scores(c, pos, neg)
+        flat = fns.neg_softmax_scores(c.contiguous(), pos.contiguous(),
+                                      neg.contiguous())
+        ref = fns._neg_softmax_reference(c, pos, neg)
+        torch.cuda.synchronize()
+        abs_err, err = (max(e) for e in zip(
+            *(errs(g, r) for g, r in zip(got, ref))))
+        worst = max(worst, abs_err)
+        same = same_bits(torch, got, flat)
+        ok = (err <= K13_TOL[dname] and same
+              and not any(t.is_contiguous() for t in (c, pos, neg)))
+        log(f"check K13 neg_softmax strided B={B} K={K} D={D} {dname}: max "
+            f"rel err {err:.3e} (tol {K13_TOL[dname]}), "
+            f"{'equal' if same else 'NOT equal'} to the contiguous "
+            f"launch bit for bit -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed(9, f"K13 on strided views {dname} disagrees")
     for rec in records:
         rec["err"] = worst
     return {"K13": records}
@@ -1887,6 +1939,7 @@ def ln_host_path(torch, fln, x, g, b, eps, calls=500):
     fn = cuda_build.entry("layernorm", "ln_fwd", fln._FN_ARGTYPES["ln_fwd"])
     dev = x.get_device()
     args = [*ptrs, stats.data_ptr(), fln._KERNEL_DTYPES[x.dtype],
+            fln._KERNEL_DTYPES[g.dtype],
             fln._fwd_plan(C, x.element_size(), ptrs), N, C, float(eps),
             cuda_build.stream_handle(dev)]
 
@@ -2060,10 +2113,88 @@ def check_layernorm(torch, fln):
             log("time  K10 host path, microseconds a call: " + ", ".join(
                 f"{k} {v:.2f}" for k, v in host.items()))
             records["K10"][-1]["host_us"] = host
+    for kern, err in check_layernorm_f32_params(torch, fln, gen).items():
+        worst[kern] = max(worst[kern], err)
     for kern, recs in records.items():
         for rec in recs:
             rec["err"] = worst[kern]
     return records
+
+
+def check_layernorm_f32_params(torch, fln, gen):
+    """Fault C2: bf16 x with f32 gamma and beta (the kernels' second
+    parameter type) through `fused_layer_norm` at the flagship's N =
+    16384, C = 256 (both vector kernels, K11 on 264 blocks) and the
+    ragged N = 1000, C = 200 (the general path), run twice to repeat bit
+    for bit, against the plain versions with the f32 gamma within
+    LN_TOL; dgamma and dbeta come back in f32. gamma is read in f32, not
+    rounded to bf16: y differs from the plain version's in fewer
+    elements than from the plain version's with gamma and beta rounded
+    to bf16. Returns the largest absolute errors {"K10", "K11"}."""
+    dev, eps, tol = torch.device("cuda"), 1e-5, LN_TOL["bfloat16"]
+    worst = {"K10": 0.0, "K11": 0.0}
+    for label, N, C in (("flagship N=16384 C=256", 16384, 256),
+                        ("ragged N=1000 C=200", 1000, 200)):
+        x = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dev).bfloat16()
+        g = (1 + 0.2 * torch.randn(C, generator=gen)).to(dev)
+        b = (0.1 * torch.randn(C, generator=gen)).to(dev)
+        dy = torch.randn(N, C, generator=gen).to(dev).bfloat16()
+        out = torch.empty_like(x).data_ptr()
+        plan = fln._fwd_plan(C, 2, (x.data_ptr(), g.data_ptr(),
+                                    b.data_ptr(), out))
+        bwd_plan = fln._bwd_plan(N, C, 2, (x.data_ptr(), g.data_ptr(),
+                                           dy.data_ptr(), out), True)
+        want = (1, (1, 264)) if C == 256 else (0, (0, -(-N // 64)))
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in (x, g, b)]
+            y = fln.fused_layer_norm(*leaves, eps=eps)
+            runs.append((y.detach(),) + torch.autograd.grad(y, leaves, dy))
+        ry, mu, rstd = fln._ln_fwd_reference(x, g, b, eps)
+        refs = fln._ln_bwd_reference(x, g, mu, rstd, dy)
+        rounded, _, _ = fln._ln_fwd_reference(x, g.bfloat16(), b.bfloat16(),
+                                              eps)
+        torch.cuda.synchronize()
+        y, grads = runs[0][0], runs[0][1:]
+        abs_f, err_f = errs(y, ry)
+        abs_b, err_b = (max(e) for e in zip(
+            *(errs(a, r) for a, r in zip(grads, refs))))
+        worst["K10"], worst["K11"] = (max(worst["K10"], abs_f),
+                                      max(worst["K11"], abs_b))
+        off, off_rounded = (float((y != r).float().mean())
+                            for r in (ry, rounded))
+        repeat = same_bits(torch, runs[0], runs[1])
+        ok = (err_f <= tol and err_b <= tol and repeat
+              and y.dtype == torch.bfloat16
+              and grads[1].dtype == grads[2].dtype == torch.float32
+              and (plan, bwd_plan) == want and off < off_rounded
+              and bool(torch.isfinite(y.float()).all()))
+        log(f"check K10/K11 layernorm {label} bf16 x, f32 gamma/beta: plans "
+            f"{plan}, {bwd_plan}, max rel err y {err_f:.3e}, dx/dgamma/dbeta "
+            f"{err_b:.3e} (tol {tol}); y differs from the plain version in "
+            f"{off:.5f} of its elements, from the plain version with gamma "
+            f"rounded to bf16 in {off_rounded:.5f}; two runs "
+            f"{'equal bit for bit' if repeat else 'DIFFER'} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed(9, f"K10/K11 {label} with f32 gamma/beta "
+                                 "disagrees, takes the wrong kernel or does "
+                                 "not repeat")
+        if C != 256:
+            continue
+        # device time a call against the same shape with bf16 gamma/beta
+        g16, b16 = g.bfloat16(), b.bfloat16()
+        times = {}
+        for kind, gg, bb in (("f32", g, b), ("bf16", g16, b16)):
+            times[kind] = (
+                kernel_device_ms(torch, lambda: fln._ln_fwd(x, gg, bb, eps)),
+                kernel_device_ms(torch, lambda: fln._ln_bwd(x, gg, mu, rstd,
+                                                            dy)))
+        log(f"time  K10/K11 layernorm {label} bf16 x: device time a call "
+            f"with f32 gamma/beta K10 {fmt_ms(times['f32'][0])}, K11 "
+            f"{fmt_ms(times['f32'][1])}; with bf16 gamma/beta K10 "
+            f"{fmt_ms(times['bf16'][0])}, K11 {fmt_ms(times['bf16'][1])}")
+    return worst
 
 
 # ------------------------------------------------------------ phase 10
@@ -2454,6 +2585,7 @@ def check_sampling(torch, fsm):
                 log(f"time  K12 plans [{B},{V}] f32 {mlabel} (threads, "
                     f"cluster): device time {'; '.join(timings)}; `_plan` "
                     f"takes {fsm._plan(B, V)}")
+    check_sampling_strided(torch, fsm, gen)
     for mlabel, _ in SAMPLE_MODES:
         rate = rows_off[mlabel] / rows_all[mlabel]
         log(f"check K12 {mlabel}: {rows_off[mlabel]} of {rows_all[mlabel]} "
@@ -2464,6 +2596,37 @@ def check_sampling(torch, fsm):
     for rec in records:
         rec["err"] = worst
     return {"K12": records}
+
+
+def check_sampling_strided(torch, fsm, gen):
+    """Fault C2: K12 on strided views, the last position of a [B, 3, V]
+    output and noise taken from a wider buffer, at [8, 128] and
+    [4, 10000], f32 and bf16, in every mode: equal to the kernel on
+    contiguous copies of the same rows, and (without top-p) to
+    `_select_reference`."""
+    dev = torch.device("cuda")
+    for B, V in SAMPLE_TIMED[:2]:
+        out32 = 3.0 * torch.randn(B, 3, V, generator=gen, device=dev)
+        noise = fsm.gumbel_noise(gen, 2 * B, V, dev).view(B, 2, V)[:, 1]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            logits = out32.to(dtype)[:, -1, :]
+            for mlabel, mode in SAMPLE_MODES:
+                got = fsm.fused_sample(logits, noise, **mode)
+                flat = fsm.fused_sample(logits.contiguous(),
+                                        noise.contiguous(), **mode)
+                ref = fsm._select_reference(logits, noise, **mode)
+                torch.cuda.synchronize()
+                ok = (not logits.is_contiguous() and not noise.is_contiguous()
+                      and torch.equal(got, flat)
+                      and ("top_p" in mode or torch.equal(got, ref)))
+                log(f"check K12 sample strided [{B},{V}] {dname} {mlabel}: "
+                    f"{int((got != flat).sum())} rows differ from the "
+                    f"contiguous rows' launch, {int((got != ref).sum())} "
+                    f"from the plain version -> {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise PhaseFailed(13, f"K12 on strided logits [{B},{V}] "
+                                          f"{dname} {mlabel} disagrees")
 
 
 # ------------------------------------------------------------ phase 14
@@ -2699,6 +2862,268 @@ def speculative_replay(torch, counters, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 17
+
+# the image models at bench.py's sizes on the TPU: LeNet-5 batch 512 bf16
+# (bench.py:357-384) on the synthetic MNIST, VGG-16 batch 256 bf16
+# (:387-416) and ResNet-20 batch 64 (the single-card arm of :619-700), in
+# f32 and bf16, on the synthetic CIFAR-10
+IMAGE_MODELS = (("lenet5", "bfloat16", 512), ("vgg16", "bfloat16", 256),
+                ("resnet20", "float32", 64), ("resnet20", "bfloat16", 64))
+# LeNet-5's training: fit_scanned over LENET_BATCHES batches, then fit
+# over the same; the JAX package's LeNet-5 reaches accuracy 1.0 on the
+# synthetic test split at these steps (f32 and bf16, CPU), so the port
+# must clear LENET_MIN_ACC
+LENET_BATCHES = 100
+LENET_MIN_ACC = 0.99
+# train steps on one repeated batch (the loss must fall), warm-up steps,
+# timed steps
+IMAGE_REPEAT = 5
+IMAGE_WARM = 5
+IMAGE_TIMED = 20
+# the f32 forward on the card against the same port model on the CPU
+# with the same params, 8 images, TF32 off: convolutions summed in
+# another order by cuDNN, so the softmax outputs agree to 1e-4
+IMAGE_F32_TOL = 1e-4
+IMAGE_F32_BATCH = 8
+
+
+def image_flops(net, x):
+    """Analytic FLOPs of one training step on x: 2·B·Ho·Wo·Cout·Cin·kh·kw
+    for each convolution forward and 2·B·n_in·n_out for each dense or
+    output layer, times 3 (forward, and the two products of the
+    backward); the output shapes read from an inference forward of one
+    image."""
+    from deeplearning4j_tpu_torch.nn.conf import (ConvolutionLayer,
+                                                  FeedForwardLayer,
+                                                  BatchNormalization)
+
+    one = x[:1]
+    if hasattr(net, "layer_confs"):  # MultiLayerNetwork
+        acts, _ = net._forward(net.params, net.state, one, collect=True)
+        pairs = zip(net.layer_confs, acts)
+    else:
+        acts, _ = net._forward(net.params, net.state, {"input": one},
+                               collect=True)
+        pairs = ((v.layer, acts[n]) for n, v in net.layer_vertices.items())
+    fwd = 0
+    for lc, y in pairs:
+        if isinstance(lc, ConvolutionLayer):
+            kh, kw = lc.kernel_size
+            fwd += 2 * y.shape[1] * y.shape[2] * lc.n_out * lc.n_in * kh * kw
+        elif isinstance(lc, FeedForwardLayer) and not isinstance(
+                lc, BatchNormalization):
+            fwd += 2 * lc.n_in * lc.n_out
+    return 3 * fwd * x.shape[0]
+
+
+def image_data(name, batch, n_batches=None, train=True):
+    """The synthetic MNIST (NHWC 28x28x1) or CIFAR-10 (32x32x3) iterator
+    of `n_batches` batches (default: the whole split)."""
+    from deeplearning4j_tpu_torch.datasets import (CifarDataSetIterator,
+                                                   MnistDataSetIterator)
+
+    n = None if n_batches is None else batch * n_batches
+    if name == "lenet5":
+        it = MnistDataSetIterator(batch, num_examples=n, train=train,
+                                  reshape_images=True)
+    else:
+        it = CifarDataSetIterator(batch, num_examples=n, train=train)
+    if not it.synthetic:
+        raise PhaseFailed(17, f"{name}: expected the synthetic set")
+    return it
+
+
+def check_image_f32(torch, models, name):
+    """The f32 model on the card against the same port model on the CPU
+    with the card's params and state: the softmax outputs of
+    IMAGE_F32_BATCH images within IMAGE_F32_TOL. Returns the error."""
+    build = getattr(models, name)
+    card = build(dtype="float32", device="cuda").init(SEED)
+    host = build(dtype="float32", device="cpu").init(SEED)
+    host.params = {k: {n: t.cpu() for n, t in p.items()}
+                   for k, p in card.params.items()}
+    host.state = {k: {n: t.cpu() for n, t in p.items()}
+                  for k, p in card.state.items()}
+    x = image_data(name, IMAGE_F32_BATCH, 1).next().features
+    got = card.output(x)
+    want = host.output(x)
+    err = float((got.cpu() - want).abs().max())
+    ok = got.is_cuda and got.shape == want.shape and err <= IMAGE_F32_TOL
+    log(f"image {name} f32: output on the card against the CPU, "
+        f"{IMAGE_F32_BATCH} images, max abs err {err:.3e} (tol "
+        f"{IMAGE_F32_TOL}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed(17, f"{name}: the f32 forward on the card "
+                              "disagrees with the CPU")
+    return err
+
+
+def check_batch_norm_state(torch, net, name, x, steps):
+    """Batch norm's running statistics moved in training (count = steps,
+    mean and var off their initial 0 and 1) and `output` uses them: the
+    output changes when they are reset."""
+    bn = {k: s for k, s in net.state.items() if s}
+    if not bn:
+        return
+    moved = all(float(s["count"]) == steps and bool(s["mean"].abs().sum())
+                and bool((s["var"] - 1).abs().sum()) for s in bn.values())
+    out = net.output(x)
+    kept = net.state
+    net.state = {k: ({"mean": torch.zeros_like(s["mean"]),
+                      "var": torch.ones_like(s["var"]),
+                      "count": torch.zeros_like(s["count"])} if s else s)
+                 for k, s in kept.items()}
+    reset = net.output(x)
+    net.state = kept
+    used = float((out.float() - reset.float()).abs().max())
+    ok = moved and used > 1e-3
+    log(f"image {name}: {len(bn)} batch norms, running statistics "
+        f"{'moved' if moved else 'NOT moved'} over {steps} steps; output "
+        f"with them against reset ones: max abs difference {used:.4f} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed(17, f"{name}: batch norm's running statistics do "
+                              "not move or are not used by output()")
+
+
+def train_image_model(torch, models, name, dtype, batch, card):
+    """One image model on the card: LeNet-5 through fit_scanned and fit
+    on the synthetic MNIST, then `evaluate` on its test split; every
+    model then IMAGE_REPEAT fit() steps on one repeated batch (the loss
+    falls), batch norm's state checked, IMAGE_TIMED timed fit() steps
+    after IMAGE_WARM warm-up ones (CUDA events a step), peak memory, and
+    one profiled step. Returns its record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = f"image {name} {dtype} B={batch}"
+    net = getattr(models, name)(dtype=dtype, device="cuda").init(SEED)
+    if not all(t.is_cuda for p in net.params.values() for t in p.values()):
+        raise PhaseFailed(17, f"{tag}: params not on the card")
+    rec = {"model": name, "dtype": dtype, "batch": batch}
+    if name == "lenet5":
+        it = image_data(name, batch, LENET_BATCHES)
+        t0 = time.perf_counter()
+        net.fit_scanned(it)
+        first = float(net._step_losses[0, 0])
+        net.fit(it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        test = image_data(name, 512, train=False)
+        acc = net.evaluate(test).accuracy()
+        last = net.score_value
+        ok = np.isfinite(last) and last < first and acc >= LENET_MIN_ACC
+        log(f"{tag}: fit_scanned {LENET_BATCHES} steps then fit "
+            f"{LENET_BATCHES} steps in {wall:.2f} s; loss {first:.4f} -> "
+            f"{last:.6f}; accuracy on {test.total_examples()} synthetic "
+            f"test images {acc:.4f} (min {LENET_MIN_ACC}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed(17, f"{tag}: the loss did not fall or the "
+                                  "accuracy is below its minimum")
+        rec["accuracy"] = acc
+        net = getattr(models, name)(dtype=dtype, device="cuda").init(SEED)
+    ds = image_data(name, batch, 1).next()
+    losses = []
+    for _ in range(IMAGE_REPEAT):
+        net.fit(ds)
+        losses.append(net.score_value)
+    params_ok = all(bool(torch.isfinite(t).all()) for p in net.params.values()
+                    for t in p.values())
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0] and params_ok
+    log(f"{tag}: {IMAGE_REPEAT} fit() steps on one batch, losses "
+        f"{[round(x, 4) for x in losses]}, params finite {params_ok} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed(17, f"{tag}: the loss is not finite and falling")
+    if name != "lenet5":
+        check_batch_norm_state(torch, net, name, ds.features, IMAGE_REPEAT)
+    for _ in range(IMAGE_WARM):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(IMAGE_TIMED)]
+    t0 = time.perf_counter()
+    for a, b in events:
+        a.record()
+        net.fit(ds)
+        b.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / IMAGE_TIMED * 1e3
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if not np.isfinite(net.score_value):
+        raise PhaseFailed(17, f"{tag}: a timed step's loss is not finite")
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit_scanned(ListDataSetIterator([ds]), epochs=IMAGE_TIMED)
+    torch.cuda.synchronize()
+    scanned_ms = (time.perf_counter() - t0) / IMAGE_TIMED * 1e3
+    flops = image_flops(net, torch.as_tensor(ds.features))
+    ips = batch / (step_ms / 1e3)
+    mfu = flops / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, rows = device_profile(torch, prof, wall, f"{tag} profile (one "
+                                f"step)", top=5)
+    busy_ms = sum(r[0] for r in rows) / 1e3 if rows else None
+    log(f"{tag}: step {step_ms:.3f} ms (median CUDA-event time of "
+        f"{IMAGE_TIMED} fit() steps; host clock {host_ms:.3f} ms a step; "
+        f"fit_scanned of the batch staged once {scanned_ms:.3f} ms a step) "
+        f"-> {ips:.1f} images/s; {flops / 1e9:.3f} GFLOP a step; MFU "
+        f"{mfu:.5f} against {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s"
+        + (f" ({flops / (step_ms / 1e3) / PEAK_FLOPS['float32']:.5f} "
+           f"against the f32 CUDA-core 67 TFLOP/s)"
+           if dtype == "float32" else "")
+        + f"; peak device memory {peak_mib:.1f} MiB; device idle share of "
+        f"the profiled step {'not measured' if idle is None else f'{idle:.4f}'}"
+        + (f", of the median step {1 - busy_ms / step_ms:.4f}"
+           if busy_ms is not None else "") + f"; card {card}")
+    rec.update(step_ms=step_ms, host_ms=host_ms, scanned_ms=scanned_ms,
+               images_per_s=ips,
+               gflop_per_step=flops / 1e9, mfu=mfu, peak_mib=peak_mib,
+               idle_profiled=idle, kernel_ms=busy_ms,
+               idle_median=(None if busy_ms is None
+                            else 1 - busy_ms / step_ms),
+               top5=[[short_name(key)[:70], us / 1e3, count]
+                     for us, count, key in rows[:5]])
+    return rec
+
+
+def train_image_models(torch, counters, card):
+    """Phase 17: the f32 forward of each model on the card against the
+    CPU, then each model of IMAGE_MODELS trained on the card
+    (`train_image_model`). The image path runs none of K1-K13: the
+    JAX image models reach no Pallas kernel (their convolutions and
+    pooling are XLA's), so the port's are cuDNN's and plain PyTorch;
+    every launch count must read 0."""
+    from deeplearning4j_tpu_torch import models
+
+    t0 = time.perf_counter()
+    errs_f32 = {name: check_image_f32(torch, models, name)
+                for name in ("lenet5", "vgg16", "resnet20")}
+    counters.reset()
+    records = [train_image_model(torch, models, name, dtype, batch, card)
+               for name, dtype, batch in IMAGE_MODELS]
+    launches = counters.read()
+    log(f"image models: launches of K1-K13 {launches}")
+    if any(launches.values()):
+        raise PhaseFailed(17, f"the image path launched a kernel of K1-K13: "
+                              f"{launches}")
+    log("image_models: " + json.dumps({"card": card, "f32_forward_err":
+                                       errs_f32, "runs": records}))
+    log(f"image models: phase 17 in {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 # ----------------------------------------------------------------- main
 
 # ------------------------------------------------------------------ A/B
@@ -2802,6 +3227,7 @@ def main() -> int:
                                                   GenerationEngine)
     from deeplearning4j_tpu_torch.telemetry import Recorder
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name_power = nvidia_smi("name,power.limit")
@@ -2869,6 +3295,8 @@ def main() -> int:
                                    name_power)
     engine_oracle(torch, counters, ShardedEmbeddingEngine, fns)
     replay_launches = speculative_replay(torch, counters, name_power)
+    train_image_models(torch, counters, name_power)
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")

@@ -1,16 +1,20 @@
-"""PyTorch + CUDA port of deeplearning4j_tpu on an NVIDIA H100, slices
-1-4: serving the Transformer LM through
-`serving.engine.GenerationEngine` (greedy, speculative, over an f32 or
-int8 paged cache, behind the HTTP `serving.server.ServingServer`, with
-the telemetry recorder and the traffic replays); training it through
+"""PyTorch + CUDA port of deeplearning4j_tpu on an NVIDIA H100: serving
+the Transformer LM through `serving.engine.GenerationEngine` (greedy,
+speculative, over an f32 or int8 paged cache, behind the HTTP
+`serving.server.ServingServer`, with the telemetry recorder and the
+traffic replays); training it through
 `ComputationGraph.fit` / `fit_scanned` (nn/graph.py, nn/training.py,
-nn/updater.py, ops/losses.py, datasets/); and training Word2Vec through
-`SequenceVectors` and the embedding engine (nlp/, embedding/, data/).
+nn/updater.py, ops/losses.py, datasets/); training Word2Vec through
+`SequenceVectors` and the embedding engine (nlp/, embedding/, data/);
+and training the image models, LeNet-5 through `MultiLayerNetwork`
+(nn/multilayer.py) and VGG-16 and ResNet-20 through `ComputationGraph`,
+with the CNN layers (nn/layers/convolution.py), `evaluate` (eval/) and
+the MNIST and CIFAR-10 iterators.
 
 The package mirrors the JAX package's module layout and public names
-(`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/decode.py`, `ops/`,
-`models/`, `serving/`, `telemetry/`, `datasets/`, `nlp/`, `embedding/`,
-`data/`), so
+(`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/multilayer.py`,
+`nn/decode.py`, `ops/`, `models/`, `serving/`, `telemetry/`,
+`datasets/`, `eval/`, `nlp/`, `embedding/`, `data/`), so
 each counterpart is found by path. It imports `torch` and never `jax`,
 nor anything of `deeplearning4j_tpu`.
 

@@ -11,19 +11,24 @@
 //     sum_rows dy, reduced here (the TPU wrapper sums its per-block
 //     partials outside its kernel; this entry does it on the card).
 //
-// Shapes: x, dy, y, dx [N, C]; gamma, beta [C]; all one type (f32 or
-// bf16), row-major contiguous; mu, rstd [N] f32; dgamma and dbeta [2, C]
-// f32 followed by the backward's per-block partials [parts, 2, C]. Any
+// Shapes: x, dy, y, dx [N, C] of one type T (f32 or bf16); gamma, beta
+// [C] of the parameter type P, which is T or, for bf16 x, f32 (the
+// reference casts gamma and beta to f32 inside its kernels, so an f32
+// gamma is read as it is, never rounded to bf16); all row-major
+// contiguous; mu, rstd [N] f32; dgamma and dbeta [2, C] f32 followed by
+// the backward's per-block partials [parts, 2, C]. Any
 // N >= 1 and C >= 1: the TPU's envelope (C % 128 == 0, N % 8 == 0, a
 // lane-legal row block) has no counterpart.
 //
-// Both directions have a vector instantiation, lnv::fwd_vec<T, NV> and
-// lnv::bwd_vec<T, NV>, for C = 32 * NV * 16 / sizeof(T) (NV 16-byte
+// Both directions have a vector instantiation, lnv::fwd_vec<T, P, NV> and
+// lnv::bwd_vec<T, P, NV>, for C = 32 * NV * 16 / sizeof(T) (NV 16-byte
 // vectors a lane: 256 bf16 or 128 f32 columns each) with every [N, C] and
 // [C] operand 16-byte aligned, and a general path for every other shape
 // (C = 200, C = 7, an unaligned view). The wrapper chooses before the
 // launch (`_fwd_plan`, `_bwd_plan` in ops/fused_layernorm.py) and passes
-// the choice here as `nv` (0 = general).
+// the choice here as `nv` (0 = general). An f32 gamma beside bf16 x
+// (P = f32) is held as two 16-byte vectors for each of x's (PVec); the
+// instantiations with P = T compute as before, with the same code.
 //
 // The forward (K10). lnv::fwd_vec (NV <= 4): one pass over the row from
 // registers. One warp per row; lane l holds the row's 16-byte vectors l,
@@ -112,10 +117,10 @@ __device__ __forceinline__ float* dyn_smem() {
   return smem;
 }
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(NTHREADS)
-    ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                  const T* __restrict__ beta, T* __restrict__ y,
+    ln_fwd_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
+                  const P* __restrict__ beta, T* __restrict__ y,
                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
                   int N, int C, float eps) {
   const int lane = threadIdx.x & 31;
@@ -189,21 +194,38 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
+// the parameters (P) of the columns of one 16-byte vector of T: W
+// 16-byte vectors of P, one when P is T, two when P is f32 and T bf16
+template <typename T, typename P> struct PVec {
+  static constexpr int W = sizeof(P) / sizeof(T);
+  static_assert(W == 1 || W == 2, "P is T, or f32 beside bf16 T");
+  // vector v of the [C] parameters into u[0, W)
+  __device__ __forceinline__ static void load(const P* p, int v, uint4* u) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) u[j] = reinterpret_cast<const uint4*>(p)[v * W + j];
+  }
+  __device__ __forceinline__ static void unpack(const uint4* u, float* f) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) Vec<P>::unpack(u[j], f + j * Vec<P>::N);
+  }
+};
+
 // K10 for C = 32 * NV * Vec<T>::N: one warp a row, the row in registers
-template <typename T, int NV>
+template <typename T, typename P, int NV>
 __global__ void __launch_bounds__(NTHREADS)
-    fwd_vec(const T* __restrict__ x, const T* __restrict__ gamma,
-            const T* __restrict__ beta, T* __restrict__ y,
+    fwd_vec(const T* __restrict__ x, const P* __restrict__ gamma,
+            const P* __restrict__ beta, T* __restrict__ y,
             float* __restrict__ mu_out, float* __restrict__ rstd_out, int N,
             float eps) {
   constexpr int E = Vec<T>::N;
   constexpr int C = 32 * NV * E;
+  constexpr int W = PVec<T, P>::W;
   const int lane = threadIdx.x & 31;
-  uint4 g[NV], b[NV];
+  uint4 g[NV * W], b[NV * W];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
-    g[i] = reinterpret_cast<const uint4*>(gamma)[lane + 32 * i];
-    b[i] = reinterpret_cast<const uint4*>(beta)[lane + 32 * i];
+    PVec<T, P>::load(gamma, lane + 32 * i, g + i * W);
+    PVec<T, P>::load(beta, lane + 32 * i, b + i * W);
   }
   const int stride = gridDim.x * WARPS;
   for (int n = blockIdx.x * WARPS + (threadIdx.x >> 5); n < N;
@@ -231,8 +253,8 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       float gf[E], bf[E], o[E];
-      Vec<T>::unpack(g[i], gf);
-      Vec<T>::unpack(b[i], bf);
+      PVec<T, P>::unpack(g + i * W, gf);
+      PVec<T, P>::unpack(b + i * W, bf);
 #pragma unroll
       for (int k = 0; k < E; ++k)
         o[k] = (f[i][k] - mu) * rstd * gf[k] + bf[k];
@@ -262,18 +284,18 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T, int NV>
+template <typename T, typename P, int NV>
 int launch(const void* x, const void* gamma, const void* beta, void* y,
            float* mu, float* rstd, int N, float eps, cudaStream_t s) {
   const int rows = (N + WARPS - 1) / WARPS, cap = sm_count() * BLOCKS_PER_SM;
   const int blocks = rows < cap ? rows : cap;
-  fwd_vec<T, NV><<<blocks, NTHREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<T*>(y), mu, rstd, N, eps);
+  fwd_vec<T, P, NV><<<blocks, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const P*>(gamma),
+      static_cast<const P*>(beta), static_cast<T*>(y), mu, rstd, N, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 int fwd(const void* x, const void* gamma, const void* beta, void* y,
         float* mu, float* rstd, int nv, int N, int C, float eps,
         cudaStream_t s) {
@@ -281,10 +303,10 @@ int fwd(const void* x, const void* gamma, const void* beta, void* y,
       !aligned16(beta) || !aligned16(y))
     return -1;
   switch (nv) {
-    case 1: return launch<T, 1>(x, gamma, beta, y, mu, rstd, N, eps, s);
-    case 2: return launch<T, 2>(x, gamma, beta, y, mu, rstd, N, eps, s);
-    case 3: return launch<T, 3>(x, gamma, beta, y, mu, rstd, N, eps, s);
-    case 4: return launch<T, 4>(x, gamma, beta, y, mu, rstd, N, eps, s);
+    case 1: return launch<T, P, 1>(x, gamma, beta, y, mu, rstd, N, eps, s);
+    case 2: return launch<T, P, 2>(x, gamma, beta, y, mu, rstd, N, eps, s);
+    case 3: return launch<T, P, 3>(x, gamma, beta, y, mu, rstd, N, eps, s);
+    case 4: return launch<T, P, 4>(x, gamma, beta, y, mu, rstd, N, eps, s);
   }
   return -1;
 }
@@ -311,19 +333,19 @@ __device__ __forceinline__ void load_row(const T* __restrict__ x,
 
 // K11 for C = 32 * NV * Vec<T>::N: one warp a row, the row in registers;
 // the block's dgamma / dbeta partial to part[blockIdx.x] ([2, C])
-template <typename T, int NV>
+template <typename T, typename P, int NV>
 __global__ void __launch_bounds__(NTHREADS, BWD_BLOCKS_PER_SM)
-    bwd_vec(const T* __restrict__ x, const T* __restrict__ gamma,
+    bwd_vec(const T* __restrict__ x, const P* __restrict__ gamma,
             const float* __restrict__ mu, const float* __restrict__ rstd,
             const T* __restrict__ dy, T* __restrict__ dx,
             float* __restrict__ part, int N) {
   constexpr int E = Vec<T>::N;
   constexpr int C = 32 * NV * E;
+  constexpr int W = PVec<T, P>::W;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint4 g[NV];
+  uint4 g[NV * W];
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
-    g[i] = reinterpret_cast<const uint4*>(gamma)[lane + 32 * i];
+  for (int i = 0; i < NV; ++i) PVec<T, P>::load(gamma, lane + 32 * i, g + i * W);
   float dg[NV][E], db[NV][E];
 #pragma unroll
   for (int i = 0; i < NV; ++i)
@@ -346,7 +368,7 @@ __global__ void __launch_bounds__(NTHREADS, BWD_BLOCKS_PER_SM)
       float xf[E], df[E], gf[E];
       Vec<T>::unpack(xv[i], xf);
       Vec<T>::unpack(dv[i], df);
-      Vec<T>::unpack(g[i], gf);
+      PVec<T, P>::unpack(g + i * W, gf);
 #pragma unroll
       for (int k = 0; k < E; ++k) {
         const float xn = (xf[k] - m) * r;
@@ -367,7 +389,7 @@ __global__ void __launch_bounds__(NTHREADS, BWD_BLOCKS_PER_SM)
       float xf[E], df[E], gf[E], o[E];
       Vec<T>::unpack(xv[i], xf);
       Vec<T>::unpack(dv[i], df);
-      Vec<T>::unpack(g[i], gf);
+      PVec<T, P>::unpack(g + i * W, gf);
 #pragma unroll
       for (int k = 0; k < E; ++k) {
         const float xn = (xf[k] - m) * r;
@@ -440,39 +462,49 @@ int launch_colsum(const float* part, float* out, int parts, int C,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NV>
+template <typename T, typename P, int NV>
 int launch_bwd(const void* x, const void* gamma, const float* mu,
                const float* rstd, const void* dy, void* dx, float* part,
                int blocks, int N, cudaStream_t s) {
   constexpr int C = 32 * NV * Vec<T>::N;
   const int smem = WARPS * 2 * C * (int)sizeof(float);
-  bwd_vec<T, NV><<<blocks, NTHREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), mu, rstd,
+  bwd_vec<T, P, NV><<<blocks, NTHREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const P*>(gamma), mu, rstd,
       static_cast<const T*>(dy), static_cast<T*>(dx), part, N);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// the vector backward's most vectors a lane for parameters of type P: an
+// f32 gamma beside bf16 x doubles its registers, so one (C = 256) keeps
+// the kernel inside the 128 registers of 2 blocks an SM
+template <typename T, typename P>
+constexpr int max_bwd_nv() {
+  return PVec<T, P>::W == 1 ? MAX_BWD_NV : 1;
+}
+
+template <typename T, typename P>
 int bwd(const void* x, const void* gamma, const float* mu, const float* rstd,
         const void* dy, void* dx, float* part, int nv, int blocks, int N,
         int C, cudaStream_t s) {
-  if (C != 32 * nv * Vec<T>::N || !aligned16(x) || !aligned16(gamma) ||
-      !aligned16(dy) || !aligned16(dx))
+  if (C != 32 * nv * Vec<T>::N || nv > max_bwd_nv<T, P>() ||
+      !aligned16(x) || !aligned16(gamma) || !aligned16(dy) || !aligned16(dx))
     return -1;
   switch (nv) {
-    case 1: return launch_bwd<T, 1>(x, gamma, mu, rstd, dy, dx, part, blocks,
-                                    N, s);
-    case 2: return launch_bwd<T, 2>(x, gamma, mu, rstd, dy, dx, part, blocks,
-                                    N, s);
+    case 1: return launch_bwd<T, P, 1>(x, gamma, mu, rstd, dy, dx, part,
+                                       blocks, N, s);
+    case 2:
+      if constexpr (max_bwd_nv<T, P>() >= 2)
+        return launch_bwd<T, P, 2>(x, gamma, mu, rstd, dy, dx, part, blocks,
+                                   N, s);
   }
   return -1;
 }
 
 }  // namespace lnv
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(NTHREADS)
-    ln_dx_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+    ln_dx_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
                  const float* __restrict__ mu, const float* __restrict__ rstd,
                  const T* __restrict__ dy, T* __restrict__ dx, int N, int C) {
   const int lane = threadIdx.x & 31;
@@ -521,21 +553,21 @@ __global__ void __launch_bounds__(COLS)
   out[C + c] = db;
 }
 
-template <typename T>
+template <typename T, typename P>
 int fwd(const void* x, const void* gamma, const void* beta, void* y,
         float* mu, float* rstd, int N, int C, float eps, cudaStream_t s) {
-  ln_fwd_kernel<T><<<(N + WARPS - 1) / WARPS, NTHREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<T*>(y), mu, rstd, N, C, eps);
+  ln_fwd_kernel<T, P><<<(N + WARPS - 1) / WARPS, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const P*>(gamma),
+      static_cast<const P*>(beta), static_cast<T*>(y), mu, rstd, N, C, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 int bwd(const void* x, const void* gamma, const float* mu, const float* rstd,
         const void* dy, void* dx, float* part, int N, int C, int chunk,
         cudaStream_t s) {
-  ln_dx_kernel<T><<<(N + WARPS - 1) / WARPS, NTHREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(gamma), mu, rstd,
+  ln_dx_kernel<T, P><<<(N + WARPS - 1) / WARPS, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const P*>(gamma), mu, rstd,
       static_cast<const T*>(dy), static_cast<T*>(dx), N, C);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -548,61 +580,86 @@ int bwd(const void* x, const void* gamma, const float* mu, const float* rstd,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns 0 on success, a
-// cudaError_t from a launch, or -1 for arguments the kernels do not take.
+// dtype (x's, dy's) and pdtype (gamma's, beta's): 0 = float32, 1 =
+// bfloat16; pdtype is dtype, or 0 beside dtype 1. Each returns 0 on
+// success, a cudaError_t from a launch, or -1 for arguments the kernels do
+// not take.
+
+namespace {
+
+// the kernels' (T, P) for (dtype, pdtype): 0 f32 x and gamma, 1 bf16 x and
+// gamma, 2 bf16 x with f32 gamma; -1 for another pair
+int types_of(int dtype, int pdtype) {
+  if (dtype == pdtype && (dtype == 0 || dtype == 1)) return dtype;
+  return dtype == 1 && pdtype == 0 ? 2 : -1;
+}
+
+}  // namespace
 
 // K10. `nv` (from the wrapper's `_fwd_plan`): 0 for the general kernel,
 // else the vector kernel's 16-byte vectors a lane, which must fit C and
 // the pointers' alignment. stats [2, N] f32: mu, then rstd.
 extern "C" int ln_fwd(const void* x, const void* gamma, const void* beta,
-                      void* y, float* stats, int dtype, int nv, int N, int C,
-                      float eps, void* stream) {
-  if (N <= 0 || C <= 0 || nv < 0 || nv > lnv::MAX_NV) return -1;
+                      void* y, float* stats, int dtype, int pdtype, int nv,
+                      int N, int C, float eps, void* stream) {
+  const int types = types_of(dtype, pdtype);
+  if (N <= 0 || C <= 0 || nv < 0 || nv > lnv::MAX_NV || types < 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* mu = stats;
   float* rstd = stats + N;
   if (nv > 0) {
-    if (dtype == 0)
-      return lnv::fwd<float>(x, gamma, beta, y, mu, rstd, nv, N, C, eps, s);
-    if (dtype == 1)
-      return lnv::fwd<__nv_bfloat16>(x, gamma, beta, y, mu, rstd, nv, N, C,
-                                     eps, s);
-    return -1;
+    if (types == 0)
+      return lnv::fwd<float, float>(x, gamma, beta, y, mu, rstd, nv, N, C,
+                                    eps, s);
+    if (types == 1)
+      return lnv::fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mu,
+                                                    rstd, nv, N, C, eps, s);
+    return lnv::fwd<__nv_bfloat16, float>(x, gamma, beta, y, mu, rstd, nv, N,
+                                          C, eps, s);
   }
-  if (dtype == 0)
-    return fwd<float>(x, gamma, beta, y, mu, rstd, N, C, eps, s);
-  if (dtype == 1)
-    return fwd<__nv_bfloat16>(x, gamma, beta, y, mu, rstd, N, C, eps, s);
-  return -1;
+  if (types == 0)
+    return fwd<float, float>(x, gamma, beta, y, mu, rstd, N, C, eps, s);
+  if (types == 1)
+    return fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mu, rstd, N,
+                                             C, eps, s);
+  return fwd<__nv_bfloat16, float>(x, gamma, beta, y, mu, rstd, N, C, eps, s);
 }
 
 // K11. `nv` and `blocks` (from the wrapper's `_bwd_plan`): nv = 0 for the
 // general path, whose column pass then takes ceil(N / blocks) rows a
 // partial; else the vector kernel's 16-byte vectors a lane, which must fit
-// C and the pointers' alignment, on a grid of `blocks` blocks, one partial
-// each. dgdb [1 + blocks, 2, C] f32: dgamma and dbeta, then the partials,
-// which a second launch sums into them.
+// C, the pointers' alignment and (for f32 gamma beside bf16 x) one vector
+// a lane, on a grid of `blocks` blocks, one partial each. dgdb [1 +
+// blocks, 2, C] f32: dgamma and dbeta, then the partials, which a second
+// launch sums into them.
 extern "C" int ln_bwd(const void* x, const void* gamma, const float* mu,
                       const float* rstd, const void* dy, void* dx,
-                      float* dgdb, int dtype, int nv, int blocks, int N,
-                      int C, void* stream) {
+                      float* dgdb, int dtype, int pdtype, int nv, int blocks,
+                      int N, int C, void* stream) {
+  const int types = types_of(dtype, pdtype);
   if (N <= 0 || C <= 0 || blocks <= 0 || nv < 0 || nv > lnv::MAX_NV ||
-      (dtype != 0 && dtype != 1))
+      types < 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = dgdb + 2 * (size_t)C;
   int parts = blocks, rc;
   if (nv > 0) {
-    rc = dtype == 0 ? lnv::bwd<float>(x, gamma, mu, rstd, dy, dx, part, nv,
-                                      blocks, N, C, s)
-                    : lnv::bwd<__nv_bfloat16>(x, gamma, mu, rstd, dy, dx,
+    rc = types == 0 ? lnv::bwd<float, float>(x, gamma, mu, rstd, dy, dx, part,
+                                             nv, blocks, N, C, s)
+         : types == 1
+             ? lnv::bwd<__nv_bfloat16, __nv_bfloat16>(
+                   x, gamma, mu, rstd, dy, dx, part, nv, blocks, N, C, s)
+             : lnv::bwd<__nv_bfloat16, float>(x, gamma, mu, rstd, dy, dx,
                                               part, nv, blocks, N, C, s);
   } else {
     const int chunk = (N + blocks - 1) / blocks;
     parts = (N + chunk - 1) / chunk;
-    rc = dtype == 0 ? bwd<float>(x, gamma, mu, rstd, dy, dx, part, N, C,
-                                 chunk, s)
-                    : bwd<__nv_bfloat16>(x, gamma, mu, rstd, dy, dx, part, N,
+    rc = types == 0 ? bwd<float, float>(x, gamma, mu, rstd, dy, dx, part, N,
+                                        C, chunk, s)
+         : types == 1
+             ? bwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, mu, rstd, dy, dx,
+                                                 part, N, C, chunk, s)
+             : bwd<__nv_bfloat16, float>(x, gamma, mu, rstd, dy, dx, part, N,
                                          C, chunk, s);
   }
   if (rc != 0) return rc;

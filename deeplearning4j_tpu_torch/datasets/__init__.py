@@ -1,5 +1,5 @@
-"""Data containers and iterators (JAX counterpart
-deeplearning4j_tpu/datasets). The dataset loaders (MNIST, CIFAR, Iris,
+"""Data containers, iterators and the MNIST and CIFAR-10 loaders (JAX
+counterpart deeplearning4j_tpu/datasets). The other loaders (Iris,
 ...), the async, multiple-epoch and sampling iterators come with later
 slices."""
 
@@ -9,4 +9,9 @@ from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     DataSetIterator,
     ExistingDataSetIterator,
     ListDataSetIterator,
+)
+from deeplearning4j_tpu_torch.datasets.cifar import CifarDataSetIterator  # noqa: F401
+from deeplearning4j_tpu_torch.datasets.mnist import (  # noqa: F401
+    MnistDataFetcher,
+    MnistDataSetIterator,
 )

@@ -1,11 +1,13 @@
 """Declarative network configuration (JAX counterpart
-deeplearning4j_tpu/nn/conf) — the classes the slice carries."""
+deeplearning4j_tpu/nn/conf) — the classes the port carries."""
 
 from deeplearning4j_tpu_torch.nn.conf.enums import (  # noqa: F401
     BackpropType,
+    ConvolutionMode,
     GradientNormalization,
     LearningRatePolicy,
     OptimizationAlgorithm,
+    PoolingType,
     Updater,
     WeightInit,
 )
@@ -18,19 +20,28 @@ from deeplearning4j_tpu_torch.nn.conf.distributions import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
+    ActivationLayer,
     BaseOutputLayer,
     BaseRecurrentLayer,
+    BatchNormalization,
+    ConvolutionLayer,
     DenseLayer,
+    DropoutLayer,
     EmbeddingLayer,
     FeedForwardLayer,
     Layer,
     LayerNormalization,
+    LocalResponseNormalization,
+    OutputLayer,
     PositionalEncodingLayer,
     RnnOutputLayer,
     SelfAttentionLayer,
+    SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (  # noqa: F401
     Builder,
+    ListBuilder,
+    MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
@@ -41,6 +52,8 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
     LayerVertexConf,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (  # noqa: F401
+    CnnToFeedForwardPreProcessor,
+    FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor,
     InputPreProcessor,
     RnnToFeedForwardPreProcessor,

@@ -3,9 +3,11 @@ counterpart deeplearning4j_tpu/nn/conf/graph_conf.py; reference
 nn/conf/ComputationGraphConfiguration.java GraphBuilder:446).
 
 The DAG is declared as {name: (vertex_conf, [input names])}; the
-ComputationGraph container walks it in topological order. The slice
-carries the vertices the Transformer LM uses: layer and elementwise;
-the other vertex kinds come with later slices.
+ComputationGraph container walks it in topological order. The port
+carries the vertices the Transformer LM and ResNet-20 use: layer and
+elementwise; the other vertex kinds come with later slices. With input
+types set, `build()` infers each layer's n_in and inserts the shape
+adapters, CNN ones included (`_infer_graph_shapes`).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Layer configuration dataclasses — the subset the Transformer LM uses,
-with their bases (reference conf/layers/*; JAX counterpart
+"""Layer configuration dataclasses — the subset the Transformer LM and
+the image models (LeNet-5, VGG-16, ResNet-20) use, with their bases
+(reference conf/layers/*; JAX counterpart
 deeplearning4j_tpu/nn/conf/layers.py).
 
 Each config is a declarative, JSON-serializable description with the
@@ -15,6 +16,7 @@ import dataclasses
 from typing import Optional
 
 from deeplearning4j_tpu_torch.nn.conf.distributions import Distribution
+from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode, PoolingType
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.serde import register_config
 
@@ -80,6 +82,12 @@ class BaseOutputLayer(FeedForwardLayer):
 
 @register_config
 @dataclasses.dataclass
+class OutputLayer(BaseOutputLayer):
+    """Output layer with loss (reference conf/layers/OutputLayer.java)."""
+
+
+@register_config
+@dataclasses.dataclass
 class RnnOutputLayer(BaseOutputLayer):
     """Per-timestep output layer (reference layers/recurrent/RnnOutputLayer.java).
     Input [batch, time, n_in] → output [batch, time, n_out]."""
@@ -90,11 +98,106 @@ class RnnOutputLayer(BaseOutputLayer):
 
 @register_config
 @dataclasses.dataclass
+class ActivationLayer(Layer):
+    """Pure activation layer (reference conf/layers/ActivationLayer.java)."""
+
+
+@register_config
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout layer."""
+
+
+@register_config
+@dataclasses.dataclass
 class EmbeddingLayer(FeedForwardLayer):
     """Index → vector lookup (reference layers/feedforward/embedding/EmbeddingLayer.java).
     Input is int indices [batch] or [batch, 1]."""
 
     has_bias: bool = True
+
+
+@register_config
+@dataclasses.dataclass
+class ConvolutionLayer(FeedForwardLayer):
+    """2-D convolution over NHWC activations with HWIO weights
+    (reference layers/convolution/ConvolutionLayer.java). n_in = input
+    channels, n_out = output channels."""
+
+    kernel_size: tuple = (5, 5)
+    stride: tuple = (1, 1)
+    padding: tuple = (0, 0)
+    convolution_mode: str = ConvolutionMode.STRICT
+    dilation: tuple = (1, 1)
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if self.n_in == 0 and input_type.kind in ("convolutional",
+                                                  "convolutional_flat"):
+            self.n_in = input_type.channels
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        h, w = _conv_out_hw(
+            input_type.height, input_type.width, self.kernel_size,
+            self.stride, self.padding, self.convolution_mode, self.dilation)
+        return InputType.convolutional(h, w, self.n_out)
+
+
+@register_config
+@dataclasses.dataclass
+class SubsamplingLayer(Layer):
+    """Pooling layer (reference
+    layers/convolution/subsampling/SubsamplingLayer.java)."""
+
+    pooling_type: str = PoolingType.MAX
+    kernel_size: tuple = (2, 2)
+    stride: tuple = (2, 2)
+    padding: tuple = (0, 0)
+    convolution_mode: str = ConvolutionMode.STRICT
+    pnorm: int = 2
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        h, w = _conv_out_hw(
+            input_type.height, input_type.width, self.kernel_size,
+            self.stride, self.padding, self.convolution_mode, (1, 1))
+        return InputType.convolutional(h, w, input_type.channels)
+
+
+@register_config
+@dataclasses.dataclass
+class BatchNormalization(FeedForwardLayer):
+    """Batch normalization (reference
+    layers/normalization/BatchNormalization.java). The running mean and
+    variance live in the network's `state`, not in its params."""
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+    lock_gamma_beta: bool = False
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if self.n_in == 0:
+            if input_type.kind == "convolutional":
+                self.n_in = input_type.channels
+            else:
+                self.n_in = input_type.flat_size()
+        if self.n_out == 0:
+            self.n_out = self.n_in
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+
+@register_config
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """LRN across channels (reference
+    layers/normalization/LocalResponseNormalization.java)."""
+
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
 
 
 @register_config
@@ -162,6 +265,22 @@ class SelfAttentionLayer(BaseRecurrentLayer):
             self.n_in = input_type.flat_size()
         if self.n_out == 0:
             self.n_out = self.n_in
+
+
+def _conv_out_hw(h, w, kernel, stride, padding, mode, dilation):
+    """Output height and width of a convolution or pooling window: SAME
+    gives ceil(h / stride); VALID the windows that fit; STRICT (explicit
+    `padding` on both sides) the windows that fit the padded input."""
+    kh = (kernel[0] - 1) * dilation[0] + 1
+    kw = (kernel[1] - 1) * dilation[1] + 1
+    if mode == ConvolutionMode.SAME or mode == "same":
+        return -(-h // stride[0]), -(-w // stride[1])
+    if mode == ConvolutionMode.VALID or mode == "valid":
+        return (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+    return (
+        (h + 2 * padding[0] - kh) // stride[0] + 1,
+        (w + 2 * padding[1] - kw) // stride[1] + 1,
+    )
 
 
 def validate_layer_names(layer_conf) -> None:

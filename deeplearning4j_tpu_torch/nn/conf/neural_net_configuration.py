@@ -11,8 +11,12 @@ Dtype policy: `param_dtype` is what parameters are stored in,
 `dtype` what the forward computes in — each layer's params are cast to
 the compute dtype as it runs (nn/graph.py `_forward`).
 
-The slice ports `graph_builder()`. `.list()` and MultiLayerConfiguration
-come with the MultiLayerNetwork slice.
+`.graph_builder()` wires a DAG (graph_conf.py); `.list()` a sequential
+stack, built into a MultiLayerConfiguration by ListBuilder. With an
+input type set, both infer every layer's n_in and insert the shape
+adapters (preprocessors.py) where layer kinds change (`_infer_shapes`,
+`_adapter`): a convolution's NHWC output becomes a dense layer's flat
+input through CnnToFeedForwardPreProcessor, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,18 +37,28 @@ from deeplearning4j_tpu_torch.nn.conf.enums import (
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    ActivationLayer,
     BaseRecurrentLayer,
+    BatchNormalization,
+    ConvolutionLayer,
+    DropoutLayer,
     Layer,
+    LocalResponseNormalization,
     PositionalEncodingLayer,
     RnnOutputLayer,
     SelfAttentionLayer,
+    SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor,
+    FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor,
+    InputPreProcessor,
     RnnToFeedForwardPreProcessor,
 )
 
-__all__ = ["BackpropType", "Builder", "NeuralNetConfiguration"]
+__all__ = ["BackpropType", "Builder", "ListBuilder",
+           "MultiLayerConfiguration", "NeuralNetConfiguration"]
 
 
 @serde.register_config
@@ -121,10 +135,40 @@ class NeuralNetConfiguration:
         return serde.from_json(s)
 
 
+@serde.register_config
+@dataclasses.dataclass
+class MultiLayerConfiguration:
+    """Sequential-stack config (reference
+    nn/conf/MultiLayerConfiguration.java)."""
+
+    conf: NeuralNetConfiguration = dataclasses.field(
+        default_factory=NeuralNetConfiguration)
+    layers: list = dataclasses.field(default_factory=list)
+    input_pre_processors: dict = dataclasses.field(
+        default_factory=dict)  # {str(idx): proc}
+    backprop: bool = True
+    pretrain: bool = False
+    backprop_type: str = BackpropType.STANDARD
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    input_type: Optional[InputType] = None
+
+    def to_json(self) -> str:
+        return serde.to_json(self)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return serde.from_json(s)
+
+    def get_preprocessor(self, idx: int):
+        return self.input_pre_processors.get(str(idx))
+
+
 class Builder:
     """Fluent builder matching NeuralNetConfiguration.Builder's method
     surface: one snake_case setter per config field, each returning self;
-    `.graph_builder()` moves to DAG wiring."""
+    `.list()` moves to layer wiring (ListBuilder), `.graph_builder()` to
+    DAG wiring."""
 
     def __init__(self):
         self._c = NeuralNetConfiguration()
@@ -145,32 +189,160 @@ class Builder:
     def build(self) -> NeuralNetConfiguration:
         return copy.deepcopy(self._c)
 
+    def list(self) -> "ListBuilder":
+        return ListBuilder(self.build())
+
     def graph_builder(self):
         from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
 
         return GraphBuilder(self.build())
 
 
+class ListBuilder:
+    """Layer-stack wiring (reference NeuralNetConfiguration.ListBuilder)."""
+
+    def __init__(self, conf: NeuralNetConfiguration):
+        self._conf = conf
+        self._layers: list = []
+        self._preprocessors: dict[int, InputPreProcessor] = {}
+        self._backprop = True
+        self._pretrain = False
+        self._backprop_type = BackpropType.STANDARD
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
+        self._input_type: Optional[InputType] = None
+
+    def layer(self, idx_or_layer, layer: Optional[Layer] = None
+              ) -> "ListBuilder":
+        """`layer(conf)` appends; `layer(idx, conf)` sets index idx."""
+        if layer is None:
+            self._layers.append(idx_or_layer)
+        else:
+            idx = idx_or_layer
+            while len(self._layers) <= idx:
+                self._layers.append(None)
+            self._layers[idx] = layer
+        return self
+
+    def input_pre_processor(self, idx: int, proc: InputPreProcessor
+                            ) -> "ListBuilder":
+        self._preprocessors[idx] = proc
+        return self
+
+    def backprop(self, flag: bool) -> "ListBuilder":
+        self._backprop = flag
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        self._pretrain = flag
+        return self
+
+    def backprop_type(self, t) -> "ListBuilder":
+        self._backprop_type = _coerce_enum(t)
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "ListBuilder":
+        self._tbptt_fwd = n
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "ListBuilder":
+        self._tbptt_back = n
+        return self
+
+    def set_input_type(self, t: InputType) -> "ListBuilder":
+        self._input_type = t
+        return self
+
+    input_type = set_input_type
+
+    def build(self) -> MultiLayerConfiguration:
+        if any(lc is None for lc in self._layers):
+            raise ValueError("Layer list has gaps — set every index")
+        layers = [self._conf.resolve_layer(lc) for lc in self._layers]
+        _validate_names(layers)
+        pre = {int(k): v for k, v in self._preprocessors.items()}
+        if self._input_type is not None:
+            _infer_shapes(layers, pre, self._input_type)
+        return MultiLayerConfiguration(
+            conf=self._conf,
+            layers=layers,
+            input_pre_processors={str(k): v for k, v in pre.items()},
+            backprop=self._backprop,
+            pretrain=self._pretrain,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
+            input_type=self._input_type,
+        )
+
+
+def _validate_names(layers) -> None:
+    """Fail at build() on a typo'd activation or loss name, naming the
+    layer."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import validate_layer_names
+
+    for i, layer in enumerate(layers):
+        try:
+            validate_layer_names(layer)
+        except ValueError as e:
+            raise ValueError(f"layer {i} ({type(layer).__name__}): {e}") \
+                from None
+
+
 def _expected_kind(layer: Layer) -> str:
+    if isinstance(layer, (ConvolutionLayer, SubsamplingLayer,
+                          LocalResponseNormalization)):
+        return "convolutional"
     if isinstance(layer, (BaseRecurrentLayer, RnnOutputLayer,
                           SelfAttentionLayer)):
         return "recurrent"
-    if isinstance(layer, PositionalEncodingLayer):
+    if isinstance(layer, (BatchNormalization, ActivationLayer, DropoutLayer,
+                          PositionalEncodingLayer)):
         return "any"  # shape-preserving: accept any input kind
     return "feedforward"
 
 
 def _adapter(from_type: InputType, to_kind: str):
     """Auto-insert shape adapters (reference ConvolutionLayerSetup
-    behavior) for the sequence/feed-forward kinds this slice carries."""
+    behavior)."""
     if to_kind == "any" or from_type.kind == to_kind:
         return None
+    if from_type.kind == "convolutional_flat" and to_kind == "convolutional":
+        return FeedForwardToCnnPreProcessor(
+            height=from_type.height, width=from_type.width,
+            channels=from_type.channels)
+    if from_type.kind == "convolutional_flat" and to_kind == "feedforward":
+        return None  # already flat
+    if from_type.kind == "convolutional" and to_kind == "feedforward":
+        return CnnToFeedForwardPreProcessor(
+            height=from_type.height, width=from_type.width,
+            channels=from_type.channels)
+    if from_type.kind == "feedforward" and to_kind == "convolutional":
+        raise ValueError(
+            "Cannot infer CNN shape from a flat feed-forward input; set an "
+            "explicit FeedForwardToCnnPreProcessor")
     if from_type.kind == "feedforward" and to_kind == "recurrent":
         return FeedForwardToRnnPreProcessor()
     if from_type.kind == "recurrent" and to_kind == "feedforward":
         return RnnToFeedForwardPreProcessor()
-    raise ValueError(f"No adapter {from_type.kind} → {to_kind} in this port "
-                     "(convolutional layouts come with the LeNet slice)")
+    raise ValueError(f"No adapter {from_type.kind} → {to_kind}")
+
+
+def _infer_shapes(layers, preprocessors, input_type: InputType):
+    """Propagate InputType through the stack: set n_in everywhere, and
+    insert preprocessors where layer kinds change
+    (ConvolutionLayerSetup.java analogue)."""
+    cur = input_type
+    for i, layer in enumerate(layers):
+        proc = preprocessors.get(i)
+        if proc is None:
+            proc = _adapter(cur, _expected_kind(layer))
+            if proc is not None:
+                preprocessors[i] = proc
+        if proc is not None:
+            cur = proc.get_output_type(cur)
+        layer.set_n_in(cur)
+        cur = layer.get_output_type(cur)
 
 
 def _coerce_enum(v):

@@ -8,14 +8,16 @@ configuration's `param_dtype`, each layer's cast to the compute `dtype`
 as it runs — the JAX package's dtype policy — and the optimizer state
 sits beside them in the same dtype. Training is SGD-family: `fit`,
 `fit_scanned`, `score` and `score_examples`, the backward by autograd
-through the layers (nn/training.py). Randomness (dropout) comes from one
-`torch.Generator` on the net's device, seeded from the configuration's
-seed, where the JAX package splits a PRNG key per step (`_next_rng`).
+through the layers (nn/training.py); `evaluate` scores the first output.
+Randomness (dropout) comes from one `torch.Generator` on the net's
+device, seeded from the configuration's seed, where the JAX package
+splits a PRNG key per step (`_next_rng`).
 
 Not carried by this slice, and raising NotImplementedError: layerwise
 pretraining, truncated BPTT, the non-SGD optimization algorithms (the
 Solver path) and `remat`, which come with the rest of `nn/` (ROADMAP
-Queue A item 6); meshes (`set_mesh`) with the parallel slice (item 7).
+Queue A item A6, `nn/training.check_trainable`); meshes (`set_mesh`)
+with the parallel slice (item 7).
 """
 
 from __future__ import annotations
@@ -33,10 +35,6 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ElementWiseVertexConf,
     LayerVertexConf,
 )
-from deeplearning4j_tpu_torch.nn.conf.enums import (
-    BackpropType,
-    OptimizationAlgorithm,
-)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     BaseOutputLayer,
@@ -47,7 +45,11 @@ from deeplearning4j_tpu_torch.nn.layers import (
     l1_l2_penalty,
     pop_aux_losses,
 )
-from deeplearning4j_tpu_torch.nn.training import make_train_step
+from deeplearning4j_tpu_torch.nn.training import (
+    LazyScore,
+    check_trainable,
+    make_train_step,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer,
     named_layer_confs,
@@ -87,7 +89,7 @@ def vertex_forward(vconf, inputs):
                      "port")
 
 
-class ComputationGraph:
+class ComputationGraph(LazyScore):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
@@ -118,7 +120,8 @@ class ComputationGraph:
     def init(self, seed: Optional[int] = None):
         """Sample every layer's params from one `torch.Generator` seeded
         with `seed` (default: the configuration's), in sorted layer
-        order, and place them on the net's device; build the optimizer
+        order, and place them and the layers' state (batch norm's running
+        statistics) on the net's device; build the optimizer
         and its state, and the device generator that dropout draws
         from."""
         g = self.conf.conf
@@ -130,7 +133,7 @@ class ComputationGraph:
             validate_layer_names(v.layer)
             p, s = self.impls[name].init(v.layer, gen, self.param_dtype)
             params[name] = {k: t.to(self.device) for k, t in p.items()}
-            state[name] = s
+            state[name] = {k: t.to(self.device) for k, t in s.items()}
         self.params = params
         self.state = state
         self._generator = torch.Generator(device=self.device).manual_seed(
@@ -278,29 +281,6 @@ class ComputationGraph:
             b["labels_masks"] = tuple(dev(m) for m in mds.labels_masks)
         return b
 
-    def _check_trainable(self):
-        """Raise for what this slice of the port does not train."""
-        g = self.conf.conf
-        if self.conf.pretrain:
-            raise NotImplementedError(
-                "layerwise pretraining is not ported yet (ROADMAP Queue A "
-                "item 6, with the pretrain layers)")
-        if str(g.optimization_algo) != str(
-                OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT):
-            raise NotImplementedError(
-                f"optimization algorithm {g.optimization_algo!r} (the "
-                "Solver path, optimize/solvers.py) is not ported yet "
-                "(ROADMAP Queue A item 6); use stochastic gradient descent")
-        if str(self.conf.backprop_type) in (str(BackpropType.TRUNCATED_BPTT),
-                                            "truncated_bptt"):
-            raise NotImplementedError(
-                "truncated BPTT is not ported yet (ROADMAP Queue A item 6, "
-                "with the recurrent layers)")
-        if g.remat:
-            raise NotImplementedError(
-                "remat (recomputing activations in the backward) is not "
-                "ported yet (ROADMAP Queue A item 6)")
-
     def set_mesh(self, mesh, **kwargs):
         """Meshes (data, tensor, pipeline, expert and sequence
         parallelism) come with the parallel slice of the port."""
@@ -324,7 +304,7 @@ class ComputationGraph:
             data = DataSet(data, labels)
         if isinstance(data, (DataSet, MultiDataSet)):
             data = ListDataSetIterator([data])
-        self._check_trainable()
+        check_trainable(self.conf)
         if not self.conf.backprop:
             return self
         step = self._get_train_step()
@@ -358,20 +338,6 @@ class ComputationGraph:
         batches = [self._batch_dict(self._to_mds(ds)) for ds in data]
         return fused_fit(self, batches, epochs)
 
-    # score_value is read lazily: a step leaves a device scalar, and
-    # converting it at once would synchronize with the card every step
-    @property
-    def score_value(self):
-        v = self._score_raw
-        if not isinstance(v, float):
-            v = float(v)
-            self._score_raw = v
-        return v
-
-    @score_value.setter
-    def score_value(self, v):
-        self._score_raw = v
-
     @torch.no_grad()
     def score(self, ds=None, training: bool = False):
         """The loss of a DataSet (no update), or the last training score
@@ -398,6 +364,25 @@ class ComputationGraph:
         if add_regularization:
             per = per + self._penalty(self.params)
         return per.float().cpu().numpy()
+
+    def evaluate(self, it, top_n: int = 1):
+        """Classification evaluation of the first output against the
+        first labels over a DataSet, a MultiDataSet or an iterator of
+        them; top_n > 1 also tracks top-N accuracy."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        ev = Evaluation(top_n=top_n)
+        if isinstance(it, (DataSet, MultiDataSet)):
+            it = ListDataSetIterator([it])
+        it.reset()
+        while it.has_next():
+            mds = self._to_mds(it.next())
+            out = self.output(*mds.features)
+            outs = out if isinstance(out, list) else [out]
+            ev.eval(mds.labels[0], outs[0].float().cpu().numpy(),
+                    mask=None if mds.labels_masks is None
+                    else mds.labels_masks[0])
+        return ev
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()

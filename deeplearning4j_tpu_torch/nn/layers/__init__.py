@@ -9,3 +9,4 @@ from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
 )
 import deeplearning4j_tpu_torch.nn.layers.feedforward  # noqa: F401
 import deeplearning4j_tpu_torch.nn.layers.attention  # noqa: F401
+import deeplearning4j_tpu_torch.nn.layers.convolution  # noqa: F401

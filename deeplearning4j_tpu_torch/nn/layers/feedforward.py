@@ -1,5 +1,6 @@
-"""Feed-forward layer implementations: Dense, Output/RnnOutput and
-Embedding (JAX counterpart deeplearning4j_tpu/nn/layers/feedforward.py;
+"""Feed-forward layer implementations: Dense, Output/RnnOutput,
+Activation, Dropout and Embedding (JAX counterpart
+deeplearning4j_tpu/nn/layers/feedforward.py;
 reference DenseLayer.java via BaseLayer.java preOutput:361,
 EmbeddingLayer.java).
 
@@ -17,8 +18,10 @@ import math
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    ActivationLayer,
     BaseOutputLayer,
     DenseLayer,
+    DropoutLayer,
     EmbeddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import (
@@ -123,6 +126,22 @@ class OutputImpl(LayerImpl):
         if not fsx.supports(n, x.shape[-1], params["W"].shape[-1]):
             return False
         return bool(fsx.FORCE_FUSED) or x.device.type == "cuda"
+
+
+@register_impl(ActivationLayer)
+class ActivationImpl(LayerImpl):
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
+        if conf.dropout:
+            x = apply_dropout(x, conf.dropout, generator, train=train)
+        return get_activation(conf.activation)(x), state
+
+
+@register_impl(DropoutLayer)
+class DropoutImpl(LayerImpl):
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
+        return apply_dropout(x, conf.dropout, generator, train=train), state
 
 
 @register_impl(EmbeddingLayer)

@@ -19,10 +19,60 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.enums import (
+    BackpropType,
+    OptimizationAlgorithm,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
     apply_updates,
     normalize_gradients,
 )
+
+
+class LazyScore:
+    """`score_value` of a container: the last training score, kept as the
+    device scalar a step leaves and converted to a float on first read
+    (converting it at once would synchronize with the card every
+    step)."""
+
+    @property
+    def score_value(self):
+        v = self._score_raw
+        if not isinstance(v, float):
+            v = float(v)
+            self._score_raw = v
+        return v
+
+    @score_value.setter
+    def score_value(self, v):
+        self._score_raw = v
+
+
+def check_trainable(conf):
+    """Raise NotImplementedError for what the port does not train yet,
+    given a container's configuration (a MultiLayerConfiguration or a
+    ComputationGraphConfiguration): layerwise pretraining, the Solver
+    path, truncated BPTT and remat (ROADMAP Queue A item A6)."""
+    g = conf.conf
+    if conf.pretrain:
+        raise NotImplementedError(
+            "layerwise pretraining is not ported yet (ROADMAP Queue A item "
+            "A6, with the pretrain layers)")
+    if str(g.optimization_algo) != str(
+            OptimizationAlgorithm.STOCHASTIC_GRADIENT_DESCENT):
+        raise NotImplementedError(
+            f"optimization algorithm {g.optimization_algo!r} (the Solver "
+            "path, optimize/solvers.py) is not ported yet (ROADMAP Queue A "
+            "item A6); use stochastic gradient descent")
+    if str(conf.backprop_type) in (str(BackpropType.TRUNCATED_BPTT),
+                                   "truncated_bptt"):
+        raise NotImplementedError(
+            "truncated BPTT is not ported yet (ROADMAP Queue A item A6, with "
+            "the recurrent layers)")
+    if g.remat:
+        raise NotImplementedError(
+            "remat (recomputing activations in the backward) is not ported "
+            "yet (ROADMAP Queue A item A6)")
 
 
 def make_train_step(loss_fn, tx, layer_confs_by_name):
@@ -59,12 +109,12 @@ def make_train_step(loss_fn, tx, layer_confs_by_name):
 
 
 def fused_fit(net, batches, epochs):
-    """The `fit_scanned` engine: raises for what the port does not train
-    (`ComputationGraph._check_trainable`) and for what only `fit()`
+    """The `fit_scanned` engine of both containers: raises for what the
+    port does not train (`check_trainable`) and for what only `fit()`
     runs, checks that every batch has one structure and shape, runs the
     steps, and updates the iteration/epoch counters and listeners per
     epoch with that epoch's mean score."""
-    net._check_trainable()
+    check_trainable(net.conf)
     if not net.conf.backprop:
         raise ValueError("fit_scanned needs backprop=True")
     if getattr(net.conf.conf, "iterations", 1) > 1:
@@ -73,9 +123,13 @@ def fused_fit(net, batches, epochs):
     if not batches:
         return net
 
+    def shapes(v):  # a tensor (MultiLayerNetwork) or a tuple (graph)
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape)
+        return tuple(None if t is None else tuple(t.shape) for t in v)
+
     def layout(b):
-        return tuple((k, tuple(None if t is None else tuple(t.shape)
-                               for t in v)) for k, v in sorted(b.items()))
+        return tuple((k, shapes(v)) for k, v in sorted(b.items()))
 
     if len({layout(b) for b in batches}) > 1:
         raise ValueError(

@@ -13,7 +13,11 @@ package runs these kernels.
 
 `fused_layer_norm` is a `torch.autograd.Function` over the two (the JAX
 package's custom VJP). The kernels take any N and C; the TPU envelope
-(C % 128 == 0, N % 8 == 0) does not bind them.
+(C % 128 == 0, N % 8 == 0) does not bind them. gamma and beta are of x's
+dtype or, beside bf16 x, f32: the JAX kernels cast them to f32 inside, so
+an f32 gamma is read as it is (never rounded to bf16); the Function
+widens a gamma or beta of another dtype than x's to f32 (`_params`),
+which is exact from bf16.
 
 Dispatch is by the tensor's device only. On a CPU tensor each wrapper
 computes its plain PyTorch version (`_ln_fwd_reference`,
@@ -89,9 +93,9 @@ def _ln_bwd_reference(x2d, gamma, mu, rstd, dy):
 # --------------------------------------------------------- the launches
 
 _FN_ARGTYPES = {
-    "ln_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    "ln_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_void_p],
-    "ln_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    "ln_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -116,26 +120,35 @@ def _fwd_plan(C, elem_bytes, ptrs):
     return nv
 
 
-def _bwd_plan(N, C, elem_bytes, ptrs):
+def _bwd_plan(N, C, elem_bytes, ptrs, wide_params=False):
     """K11's instantiation for N rows of C elements of `elem_bytes` bytes
     and the data pointers of x, gamma, dy and dx: (nv, blocks). The
     vector kernel (nv its 16-byte vectors a lane) when a warp's lanes
-    cover the row in 1 to MAX_BWD_VEC_PER_LANE whole vectors each and
-    every pointer is 16-byte aligned, on a grid of
+    cover the row in 1 to MAX_BWD_VEC_PER_LANE whole vectors each (1
+    with `wide_params`, an f32 gamma beside bf16 x, whose registers
+    double) and every pointer is 16-byte aligned, on a grid of
     min(BWD_BLOCKS, ceil(N / BWD_WARPS)) blocks; else (0, the general
     column pass's partials, ceil(N / PARTIAL_ROWS)). Each block or chunk
     writes one partial; the C entry sums them."""
     nv, rem = divmod(C, 32 * (16 // elem_bytes))
-    if rem or not 1 <= nv <= MAX_BWD_VEC_PER_LANE \
-            or any(ptr & 15 for ptr in ptrs):
+    most = 1 if wide_params else MAX_BWD_VEC_PER_LANE
+    if rem or not 1 <= nv <= most or any(ptr & 15 for ptr in ptrs):
         return 0, -(-N // PARTIAL_ROWS)
     return nv, min(BWD_BLOCKS, -(-N // BWD_WARPS))
 
 
+def _param_dtype_ok(x_dtype, p_dtype):
+    """Whether the kernels take gamma/beta of `p_dtype` beside x of
+    `x_dtype`: the same dtype, or f32 beside bf16."""
+    return p_dtype == x_dtype or (x_dtype == torch.bfloat16
+                                  and p_dtype == torch.float32)
+
+
 def _ok(x2d, vectors, mats=(), stats=()):
     """Whether the kernels take these tensors: CUDA tensors on x's
-    device, x [N, C] float32/bfloat16 with N, C >= 1, `vectors` [C] and
-    `mats` [N, C] of x's dtype, `stats` f32 [N], all contiguous."""
+    device, x [N, C] float32/bfloat16 with N, C >= 1, `vectors` [C] of
+    one dtype that `_param_dtype_ok` takes, `mats` [N, C] of x's dtype,
+    `stats` f32 [N], all contiguous."""
     if x2d.dim() != 2:
         return False
     N, C = x2d.shape
@@ -143,7 +156,10 @@ def _ok(x2d, vectors, mats=(), stats=()):
     if dev < 0 or dt not in _KERNEL_DTYPES or N < 1 or C < 1 \
             or not x2d.is_contiguous():
         return False
-    for ts, dtype, shape in ((vectors, dt, (C,)), (mats, dt, (N, C)),
+    pdt = vectors[0].dtype
+    if not _param_dtype_ok(dt, pdt):
+        return False
+    for ts, dtype, shape in ((vectors, pdt, (C,)), (mats, dt, (N, C)),
                              (stats, torch.float32, (N,))):
         for t in ts:
             if t.dtype != dtype or t.get_device() != dev \
@@ -163,10 +179,13 @@ def _check(x2d, vectors, mats=(), stats=()):
                          "same CUDA device; got "
                          f"{[str(t.device) for t in tensors]}")
     same = (x2d,) + tuple(vectors) + tuple(mats)
-    if x2d.dtype not in _KERNEL_DTYPES or any(t.dtype != x2d.dtype
-                                              for t in same):
-        raise ValueError("layernorm kernel takes float32 or bfloat16 x, "
-                         "gamma, beta, dy of one dtype; got "
+    if x2d.dtype not in _KERNEL_DTYPES \
+            or any(t.dtype != x2d.dtype for t in mats) \
+            or any(t.dtype != vectors[0].dtype for t in vectors) \
+            or not _param_dtype_ok(x2d.dtype, vectors[0].dtype):
+        raise ValueError("layernorm kernel takes float32 or bfloat16 x and "
+                         "dy of one dtype, and gamma, beta of x's dtype or "
+                         "f32 beside bf16 x; got "
                          f"{[t.dtype for t in same]}")
     if any(t.dtype != torch.float32 for t in stats):
         raise ValueError("layernorm kernel: mu and rstd must be f32 [N]")
@@ -202,7 +221,7 @@ def _ln_fwd(x2d, gamma, beta, eps):
     xp, gp, bp, yp = (x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                       y.data_ptr())
     _run("ln_fwd", x2d, xp, gp, bp, yp, stats.data_ptr(),
-         _KERNEL_DTYPES[x2d.dtype],
+         _KERNEL_DTYPES[x2d.dtype], _KERNEL_DTYPES[gamma.dtype],
          _fwd_plan(C, x2d.element_size(), (xp, gp, bp, yp)), N, C,
          float(eps))
     LAUNCHES["K10"] += 1
@@ -221,37 +240,50 @@ def _ln_bwd(x2d, gamma, mu, rstd, dy):
     dx = torch.empty_like(x2d)
     xp, gp, dyp, dxp = (x2d.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
                         dx.data_ptr())
-    nv, blocks = _bwd_plan(N, C, x2d.element_size(), (xp, gp, dyp, dxp))
+    nv, blocks = _bwd_plan(N, C, x2d.element_size(), (xp, gp, dyp, dxp),
+                           gamma.dtype != x2d.dtype)
     dgdb = torch.empty((1 + blocks, 2, C), dtype=torch.float32,
                        device=x2d.device)
     _run("ln_bwd", x2d, xp, gp, mu.data_ptr(), rstd.data_ptr(), dyp, dxp,
-         dgdb.data_ptr(), _KERNEL_DTYPES[x2d.dtype], nv, blocks, N, C)
+         dgdb.data_ptr(), _KERNEL_DTYPES[x2d.dtype],
+         _KERNEL_DTYPES[gamma.dtype], nv, blocks, N, C)
     LAUNCHES["K11"] += 1
     dg, db = dgdb[0].unbind(0)
     return dx, dg, db
 
 
+def _params(x, gamma, beta):
+    """gamma and beta as the kernels take them beside x: contiguous, and
+    of x's dtype or, where either differs from x's, both widened to f32
+    (exact from bf16; the JAX kernels compute with them in f32)."""
+    if gamma.dtype != x.dtype or beta.dtype != x.dtype:
+        gamma, beta = gamma.float(), beta.float()
+    return gamma.contiguous(), beta.contiguous()
+
+
 class _FusedLayerNorm(torch.autograd.Function):
     """The custom VJP of the JAX package's `fused_layer_norm`: the
-    forward saves (x, gamma, mu, rstd), the backward is K11."""
+    forward saves (x, gamma, mu, rstd), the backward is K11; dgamma and
+    dbeta come back in gamma's and beta's own dtypes."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         shape = x.shape
         x2d = x.reshape(-1, shape[-1]).contiguous()
-        y, mu, rstd = _ln_fwd(x2d, gamma.contiguous(), beta.contiguous(),
-                              eps)
-        ctx.save_for_backward(x2d, gamma, mu, rstd)
+        g, b = _params(x, gamma, beta)
+        y, mu, rstd = _ln_fwd(x2d, g, b, eps)
+        ctx.save_for_backward(x2d, g, mu, rstd)
+        ctx.dtypes = gamma.dtype, beta.dtype
         return y.reshape(shape)
 
     @staticmethod
     def backward(ctx, dy):
-        x2d, gamma, mu, rstd = ctx.saved_tensors
+        x2d, g, mu, rstd = ctx.saved_tensors
         shape = dy.shape
-        dx, dg, db = _ln_bwd(x2d, gamma.contiguous(), mu, rstd,
+        dx, dg, db = _ln_bwd(x2d, g, mu, rstd,
                              dy.reshape(-1, shape[-1]).contiguous())
-        return (dx.reshape(shape), dg.to(gamma.dtype), db.to(gamma.dtype),
-                None)
+        return (dx.reshape(shape), dg.to(ctx.dtypes[0]),
+                db.to(ctx.dtypes[1]), None)
 
 
 def fused_layer_norm(x, gamma, beta, eps=1e-5):

@@ -87,9 +87,11 @@ def _check(c, pos, neg):
 def neg_softmax_scores(c, pos, neg):
     """K13. Sigmoid'd SGNS scores for a batch of (center, positive,
     K-negatives) triples: c/pos [B, D], neg [B, K, D] -> (pos_score
-    [B], neg_score [B, K]), in c's dtype."""
+    [B], neg_score [B, K]), in c's dtype. Strided views (rows gathered
+    into a wider buffer) are copied to the rows the kernel reads."""
     if c.device.type == "cpu":
         return _neg_softmax_reference(c, pos, neg)
+    c, pos, neg = c.contiguous(), pos.contiguous(), neg.contiguous()
     _check(c, pos, neg)
     B, K, D = neg.shape
     pos_score = torch.empty(B, dtype=c.dtype, device=c.device)

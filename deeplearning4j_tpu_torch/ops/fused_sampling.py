@@ -374,13 +374,16 @@ def fused_sample(logits, noise, *, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0):
     """K12. One token id per row of logits [B, V]: the Gumbel argmax over
     the top-k / top-p kept set of the temperature-scaled logits. noise
-    [B, V] f32 is the caller's Gumbel noise (`gumbel_noise`). Returns
-    [B] int32. `temperature <= 0` ignores the noise and returns
-    `argmax(logits, -1)`."""
+    [B, V] f32 is the caller's Gumbel noise (`gumbel_noise`). Either may
+    be a strided view. Returns [B] int32. `temperature <= 0` ignores the
+    noise and returns `argmax(logits, -1)`."""
     if temperature is None or float(temperature) <= 0.0:
         return logits.argmax(-1).to(torch.int32)
     if logits.device.type == "cpu":
         return _select_reference(logits, noise, temperature, top_k, top_p)
+    # a strided view (the last position of a [B, T, V] output) is copied
+    # to the rows the kernel reads
+    logits, noise = logits.contiguous(), noise.contiguous()
     k, p = _modes(logits, top_k, top_p)
     return _launch(logits, noise, temperature, k, p)
 

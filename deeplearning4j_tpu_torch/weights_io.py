@@ -26,8 +26,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_jax(np_params: dict, device) -> dict:
     """`{layer: {"W", "b", "Wqkv", "bqkv", "Wo", "bo", "gamma", "beta",
-    "pe"}}` of numpy arrays (a JAX net's params after `np.asarray`) ->
-    the same dict of tensors on `device`, dtypes kept."""
+    "pe"}}` of numpy arrays (a JAX net's params after `np.asarray`; a
+    convolution's W is HWIO in both packages) -> the same dict of
+    tensors on `device`, dtypes kept."""
     return {layer: {name: _tensor(a, device) for name, a in p.items()}
             for layer, p in np_params.items()}
 
@@ -43,6 +44,22 @@ def params_to_numpy(params: dict) -> dict:
 
     return {layer: {name: arr(t) for name, t in p.items()}
             for layer, p in params.items()}
+
+
+def state_from_jax(np_state: dict, device) -> dict:
+    """A JAX net's layer state after `np.asarray` (batch norm's running
+    `mean`, `var` [C] and `count` [], f32; `{}` for a layer without
+    state) -> the same dict of tensors on `device`. Convolution params
+    need no such step: both packages keep `W` as [kh, kw, n_in, n_out]
+    (HWIO) and `b` as [n_out], so `params_from_jax` moves them as they
+    are."""
+    return params_from_jax(np_state, device)
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's layer state -> the same dict of numpy arrays on the
+    host, for comparing with a JAX net's `np.asarray` state."""
+    return params_to_numpy(state)
 
 
 TABLES = ("syn0", "syn1", "syn1neg")

@@ -307,7 +307,8 @@ def _offset(t):
     return out.copy_(t)
 
 
-def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
+def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None,
+                pdtype=None):
     """K10 and K11 through the emulated kernels against
     `_ln_fwd_reference` and `_ln_bwd_reference`: y, mu, rstd, dx,
     dgamma and dbeta within phase 9's LN_TOL of their largest entry (mu
@@ -316,22 +317,26 @@ def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
     block count forced to `blocks` where given (several rows a warp and
     partials from several blocks at a small N). `misaligned` ("x" or
     "dy") puts that tensor one element past a 16-byte boundary, which
-    the plans must send to the general path. K11 runs twice and must
-    repeat bit for bit. Returns (ok, report line)."""
+    the plans must send to the general path. `pdtype` (default x's) is
+    gamma's and beta's dtype: f32 beside bf16 x is the kernels' second
+    parameter type. K11 runs twice and must repeat bit for bit. Returns
+    (ok, report line)."""
     dname = str(dtype).split(".")[-1]
     x = (1.5 * torch.randn(N, C, generator=gen) + 0.3).to(dtype)
     if misaligned == "x":
         x = _offset(x)
-    g = (1 + 0.2 * torch.randn(C, generator=gen)).to(dtype)
-    b = (0.1 * torch.randn(C, generator=gen)).to(dtype)
+    pdtype = dtype if pdtype is None else pdtype
+    g = (1 + 0.2 * torch.randn(C, generator=gen)).to(pdtype)
+    b = (0.1 * torch.randn(C, generator=gen)).to(pdtype)
     dy = torch.randn(N, C, generator=gen).to(dtype)
     if misaligned == "dy":
         dy = _offset(dy)
     y, stats = torch.empty(N, C, dtype=dtype), torch.empty(2, N)
     ptrs = tuple(t.data_ptr() for t in (x, g, b, y))
     plan = fln._fwd_plan(C, x.element_size(), ptrs) if nv is None else nv
-    dt = fln._KERNEL_DTYPES[dtype]
-    rc = fns["ln_fwd"](*ptrs, stats.data_ptr(), dt, plan, N, C, 1e-5, None)
+    dt, pdt = fln._KERNEL_DTYPES[dtype], fln._KERNEL_DTYPES[pdtype]
+    rc = fns["ln_fwd"](*ptrs, stats.data_ptr(), dt, pdt, plan, N, C, 1e-5,
+                       None)
     ry, rmu, rrstd = fln._ln_fwd_reference(x, g, b, 1e-5)
     err_f = rel_err(y, ry)
     err_s = max(rel_err(stats[0], rmu), rel_err(stats[1], rrstd))
@@ -340,13 +345,13 @@ def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
     for _ in range(2):
         dx = torch.empty_like(x)
         bnv, nblocks = fln._bwd_plan(N, C, x.element_size(), tuple(
-            t.data_ptr() for t in (x, g, dy, dx)))
+            t.data_ptr() for t in (x, g, dy, dx)), pdtype != dtype)
         nblocks = nblocks if blocks is None else blocks
         dgdb = torch.full((1 + nblocks, 2, C), float("nan"))
         rc_b.append(fns["ln_bwd"](x.data_ptr(), g.data_ptr(), rmu.data_ptr(),
                                   rrstd.data_ptr(), dy.data_ptr(),
-                                  dx.data_ptr(), dgdb.data_ptr(), dt, bnv,
-                                  nblocks, N, C, None))
+                                  dx.data_ptr(), dgdb.data_ptr(), dt, pdt,
+                                  bnv, nblocks, N, C, None))
         runs.append((dx, dgdb[0, 0], dgdb[0, 1]))
     refs = fln._ln_bwd_reference(x, g, rmu, rrstd, dy)
     err_b = max(rel_err(a, r) for a, r in zip(runs[0], refs))
@@ -357,6 +362,7 @@ def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
     kind = f"vector nv={plan}" if plan else "general"
     bkind = f"vector nv={bnv}" if bnv else "general"
     line = (f"ln N={N} C={C} {dname}"
+            f"{' f32 gamma/beta' if pdtype != dtype else ''}"
             f"{f' misaligned {misaligned}' if misaligned else ''}: K10 "
             f"({kind}) y rel {err_f:.2e} mu/rstd {err_s:.2e} "
             f"{'ok' if ok else 'FAIL'}; K11 ({bkind}, {nblocks} partials) "
@@ -366,7 +372,8 @@ def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
     return ok and ok_b, line
 
 
-# (N, C, dtype, misaligned, K10's nv, K11's blocks). K10: both
+# (N, C, dtype, misaligned, K10's nv, K11's blocks, gamma's dtype or None
+# for x's). K10: both
 # instantiations (bf16 C = 256 and f32 C = 256: 1 and 2 vectors a lane;
 # the same shape forced onto the general kernel), rows that are no
 # multiple of a block's 8, the ragged C = 200 and C = 7, and an x one
@@ -375,22 +382,30 @@ def run_ln_case(fns, N, C, dtype, gen, misaligned="", nv=None, blocks=None):
 # lane), 3 blocks at N = 40 (warps of several rows, the sum over
 # blocks), N = 1 and N = 5 (fewer rows than a block's 8 warps), and its
 # general path for C = 200, C = 7, f32 C = 512 and bf16 C = 1024 (past 2
-# vectors a lane) and an unaligned x or dy
-LN_CASES = ((40, 256, torch.bfloat16, "", None, None),
-            (40, 256, torch.float32, "", None, None),
-            (40, 256, torch.bfloat16, "", 0, None),
-            (13, 512, torch.bfloat16, "", None, None),
-            (13, 200, torch.float32, "", None, None),
-            (13, 200, torch.bfloat16, "", None, None),
-            (5, 7, torch.float32, "", None, None),
-            (11, 256, torch.bfloat16, "x", None, None),
-            (40, 256, torch.bfloat16, "", None, 3),
-            (40, 256, torch.float32, "", None, 3),
-            (1, 256, torch.bfloat16, "", None, None),
-            (5, 256, torch.float32, "", None, None),
-            (13, 512, torch.float32, "", None, None),
-            (9, 1024, torch.bfloat16, "", None, None),
-            (11, 256, torch.bfloat16, "dy", None, None))
+# vectors a lane) and an unaligned x or dy. Then bf16 x with f32 gamma
+# and beta (P = f32): both vector kernels at C = 256 (K11 on 3 blocks),
+# K10's vector kernel at C = 512 and 1024 with K11's general path there
+# (its vector kernel takes one vector a lane with f32 parameters), and
+# the general path at C = 200
+LN_CASES = ((40, 256, torch.bfloat16, "", None, None, None),
+            (40, 256, torch.float32, "", None, None, None),
+            (40, 256, torch.bfloat16, "", 0, None, None),
+            (13, 512, torch.bfloat16, "", None, None, None),
+            (13, 200, torch.float32, "", None, None, None),
+            (13, 200, torch.bfloat16, "", None, None, None),
+            (5, 7, torch.float32, "", None, None, None),
+            (11, 256, torch.bfloat16, "x", None, None, None),
+            (40, 256, torch.bfloat16, "", None, 3, None),
+            (40, 256, torch.float32, "", None, 3, None),
+            (1, 256, torch.bfloat16, "", None, None, None),
+            (5, 256, torch.float32, "", None, None, None),
+            (13, 512, torch.float32, "", None, None, None),
+            (9, 1024, torch.bfloat16, "", None, None, None),
+            (11, 256, torch.bfloat16, "dy", None, None, None),
+            (40, 256, torch.bfloat16, "", None, 3, torch.float32),
+            (13, 512, torch.bfloat16, "", None, None, torch.float32),
+            (9, 1024, torch.bfloat16, "", None, None, torch.float32),
+            (13, 200, torch.bfloat16, "", None, None, torch.float32))
 
 
 def sample_entry_point(src_dir, out_dir=BUILD):
@@ -462,9 +477,9 @@ def main():
     failed = 0
     if "ln" in args.kernels:
         fns = ln_entry_points(args.src)
-        for N, C, dtype, misaligned, nv, blocks in LN_CASES:
+        for N, C, dtype, misaligned, nv, blocks, pdtype in LN_CASES:
             ok, line = run_ln_case(fns, N, C, dtype, gen, misaligned, nv,
-                                   blocks)
+                                   blocks, pdtype)
             print(line, flush=True)
             failed += not ok
     if "sample" in args.kernels:

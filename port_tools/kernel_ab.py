@@ -18,7 +18,11 @@ checkout's phase 9 records it, beside the card's name and power limit;
 then, for each kernel of csrc/layernorm.cu and csrc/sampling.cu, whether
 the two checkouts' builds hold the same machine code for it (`cuobjdump
 -sass`), which tells a kernel that changed from one whose time moved
-with the run around it. Each turn's log and the records go to
+with the run around it. Kernels are paired by their demangled names,
+with a template argument that repeats the one before it dropped, so
+that `lnv::fwd_vec<float, float, 2>` (x's type, gamma's type, vectors a
+lane) pairs with a checkout's `lnv::fwd_vec<float, 2>` from before the
+kernels took a second parameter type. Each turn's log and the records go to
 chiprun_out/kernel_ab/. Exits non-zero if a turn fails.
 """
 
@@ -58,8 +62,38 @@ def turn(root: Path) -> None:
                       "records": records}), flush=True)
 
 
+def canonical(names: list[str]) -> list[str]:
+    """The kernels' mangled `names` demangled (CUDA's cu++filt, else
+    c++filt; the anonymous namespace's name, which holds a hash of the
+    source's text, becomes "(anonymous namespace)"), with a template
+    argument equal to the one before it dropped."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build.nvcc()).with_name("cu++filt")
+    text = subprocess.run([str(tool) if tool.exists() else "c++filt"],
+                          input="\n".join(names), check=True,
+                          capture_output=True, text=True).stdout
+    plain = text.splitlines()
+    if len(plain) != len(names) or any(n.startswith("_Z") for n in plain):
+        raise SystemExit(f"kernel_ab: could not demangle {names[:3]}")
+    return [re.sub(r"([<,] ?)([\w:]+), \2(?=[,>])", r"\1\2",
+                   _without_parameters(n)) for n in plain]
+
+
+def _without_parameters(name: str) -> str:
+    """A demangled function name without its parameter list (the last
+    balanced parentheses), which cu++filt writes in template parameter
+    names (T1, T2) that differ where the template's parameters do."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
 def sass(lib: Path) -> dict[str, str]:
-    """Each kernel's SASS in `lib` by its mangled name, without the
+    """Each kernel's SASS in `lib` by its `canonical` name, without the
     instruction addresses and without the hash of the source's text that
     nvcc puts into the anonymous namespace's name."""
     from deeplearning4j_tpu_torch.ops import cuda_build
@@ -71,20 +105,25 @@ def sass(lib: Path) -> dict[str, str]:
     for line in text.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
-            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__",
-                          head.group(1))
+            name = head.group(1)
             out[name] = []
         elif name:
             out[name].append(re.sub(r"/\*[0-9a-f]{4,}\*/", "", line))
-    return {k: "\n".join(v) for k, v in out.items()}
+    return dict(zip(canonical(list(out)),
+                    ("\n".join(v) for v in out.values())))
 
 
 def compare_sass(other: Path) -> None:
     """Print, for each kernel of SOURCES, whether this checkout's build
-    and `other`'s hold the same SASS."""
+    and `other`'s hold the same SASS; both SASS listings go to
+    OUT/sass_<source>_<this|other>.txt."""
     for src in SOURCES:
         rel = Path("deeplearning4j_tpu_torch") / "_build" / f"lib{src}.so"
         mine, theirs = sass(ROOT / rel), sass(other / rel)
+        for who, table in (("this", mine), ("other", theirs)):
+            (OUT / f"sass_{src}_{who}.txt").write_text("".join(
+                f"== {name}\n{text}\n" for name, text in sorted(
+                    table.items())))
         for name in sorted(mine.keys() | theirs.keys()):
             state = ("only this" if name not in theirs else "only other"
                      if name not in mine else "same SASS"

@@ -99,14 +99,14 @@ def ln_kernels(tmp_path_factory):
 
 
 @pytest.mark.parametrize(
-    "N,C,dtype,misaligned,nv,blocks", emulate.LN_CASES,
+    "N,C,dtype,misaligned,nv,blocks,pdtype", emulate.LN_CASES,
     ids=[f"N{n}-C{c}-{str(d)[6:]}{'-misaligned' if m else ''}"
          f"{'-dy' if m == 'dy' else ''}{'-general' if v == 0 else ''}"
-         f"{f'-blocks{k}' if k else ''}"
-         for n, c, d, m, v, k in emulate.LN_CASES])
+         f"{f'-blocks{k}' if k else ''}{'-f32params' if p else ''}"
+         for n, c, d, m, v, k, p in emulate.LN_CASES])
 def test_emulated_layernorm_kernels_match_plain_versions(ln_kernels, N, C,
                                                          dtype, misaligned,
-                                                         nv, blocks):
+                                                         nv, blocks, pdtype):
     """K10 in both instantiations (the one-pass vector kernel at C = 256
     and 512, one and two 16-byte vectors a lane, and the general kernel
     at C = 200, C = 7, an x one element off its 16-byte boundary, and
@@ -116,13 +116,16 @@ def test_emulated_layernorm_kernels_match_plain_versions(ln_kernels, N, C,
     at N = 40 (several rows a warp, partials of several blocks summed),
     N = 1 and N = 5 (fewer rows than a block's warps), and its general
     path at C = 200, C = 7, f32 C = 512, bf16 C = 1024 and an unaligned
-    x or dy; against `_ln_fwd_reference` and
+    x or dy; bf16 x with f32 gamma and beta (the kernels' second
+    parameter type) through both vector kernels at C = 256, K10's at C =
+    512 and 1024 beside K11's general path, and the general path at C =
+    200; against `_ln_fwd_reference` and
     `_ln_bwd_reference` within phase 9's LN_TOL of the largest entry
     (1e-5 in f32, 2e-2 in bf16: one bf16 rounding can flip), K11 run
     twice and equal bit for bit."""
     gen = torch.Generator().manual_seed(N * 1000 + C)
     ok, line = emulate.run_ln_case(ln_kernels, N, C, dtype, gen, misaligned,
-                                   nv, blocks)
+                                   nv, blocks, pdtype)
     assert ok, line
 
 

@@ -187,6 +187,30 @@ def test_neg_softmax_matches_jax(D, dtype):
     assert tns.LAUNCHES["K13"] == 0  # CPU tensors never launch
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_neg_softmax_strided_views_match_jax(dtype):
+    """Fault C2: c and pos two columns of one [B, 2, D] buffer and neg the
+    first K of K + 2 rows a triple (strided views) score as the JAX
+    package scores the same rows, at the tolerances above."""
+    B, K, D = 16, 5, 128
+    rng = np.random.default_rng(3)
+    both = (0.3 * rng.standard_normal((B, 2, D))).astype(np.float32)
+    wide = (0.3 * rng.standard_normal((B, K + 2, D))).astype(np.float32)
+    ref = jax_scores if dtype == "float32" else jax_score_body
+    jp, jn = ref(*(jnp.asarray(a, dtype) for a in (
+        both[:, 0], both[:, 1], wide[:, :K])))
+    tdt = getattr(torch, dtype)
+    c, pos = torch.from_numpy(both).to(tdt).unbind(1)
+    neg = torch.from_numpy(wide).to(tdt)[:, :K]
+    assert not any(t.is_contiguous() for t in (c, pos, neg))
+    tp, tn = tns.neg_softmax_scores(c, pos, neg)
+    tol = 1e-6 if dtype == "float32" else 8e-3
+    for t, j in ((tp, jp), (tn, jn)):
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(j, np.float32), rtol=0,
+                                   atol=tol)
+
+
 def test_neg_softmax_cuda_tensor_never_falls_back(monkeypatch):
     """On a CUDA tensor the wrapper checks and launches; a tensor it
     does not take raises instead of computing the plain version."""

@@ -140,3 +140,20 @@ def test_serving_entry_points_default_to_cuda(make):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             make()
+
+
+@pytest.mark.parametrize("name", ["lenet5", "vgg16", "resnet20"])
+def test_image_model_entry_points_default_to_cuda(name):
+    """The same rule for the image models: with no device named, the
+    net is a CUDA net, and its params and batch-norm state go there."""
+    from deeplearning4j_tpu_torch import models
+
+    net = getattr(models, name)()
+    assert net.device == torch.device("cuda")
+    if torch.cuda.is_available():
+        net.init()
+        assert all(t.is_cuda for tree in (net.params, net.state)
+                   for p in tree.values() for t in p.values())
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            net.init()

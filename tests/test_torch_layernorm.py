@@ -205,3 +205,47 @@ def test_launch_check_names_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA device"):
         tln._check(x, (gamma,), (dy,), (x[:, 0].contiguous(),) * 2)
     assert tln.LAUNCHES == {"K10": 0, "K11": 0}
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (16, 256)],
+                         ids=["N64_C128", "N16_C256"])
+def test_bf16_x_with_f32_gamma_matches_jax_kernel(shape):
+    """Fault C2: bf16 x with f32 gamma and beta, which the JAX kernels
+    take (they cast gamma and beta to f32 inside). y and dx in bf16 equal
+    the JAX kernel's (interpret mode) within one bf16 rounding of 1e-2
+    relative to the largest entry, dgamma and dbeta in f32 within 1e-5;
+    y is computed with the f32 gamma, not one rounded to bf16."""
+    assert jax_supports(shape)
+    x, gamma, beta, dy = _inputs(shape, 5)
+    jx, jdy = (jnp.asarray(a, jnp.bfloat16) for a in (x, dy))
+    jy, vjp = jax.vjp(lambda a, g, b: jax_fused_layer_norm(a, g, b, EPS),
+                      jx, jnp.asarray(gamma), jnp.asarray(beta))
+    want = [np.asarray(jy, np.float32)] + [np.asarray(g, np.float32)
+                                           for g in vjp(jdy)]
+    tx = torch.from_numpy(x).bfloat16().requires_grad_()
+    tg, tb = (torch.from_numpy(a).requires_grad_() for a in (gamma, beta))
+    y = tln.fused_layer_norm(tx, tg, tb, eps=EPS)
+    y.backward(torch.from_numpy(dy).bfloat16())
+    assert y.dtype == tx.grad.dtype == torch.bfloat16
+    assert tg.grad.dtype == tb.grad.dtype == torch.float32
+    got = [t.float().numpy() for t in (y.detach(), tx.grad, tg.grad,
+                                       tb.grad)]
+    _close(got[:2], want[:2], tol=1e-2)
+    _close(got[2:], want[2:])
+    rounded = tln.fused_layer_norm(tx.detach(), tg.detach().bfloat16(),
+                                   tb.detach().bfloat16(), eps=EPS)
+    assert (y.detach() != torch.from_numpy(want[0]).bfloat16()).sum() < (
+        rounded != torch.from_numpy(want[0]).bfloat16()).sum()
+    assert tln.LAUNCHES == {"K10": 0, "K11": 0}
+
+
+def test_f32_params_beside_bf16_x_take_one_vector_a_lane():
+    """K11's vector kernel holds an f32 gamma in twice the registers, so
+    beside bf16 x it takes one 16-byte vector a lane (C = 256); wider
+    rows go to the general path. The forward's plan does not change."""
+    ptrs = (0, 16, 32, 48)
+    assert tln._bwd_plan(1024, 256, 2, ptrs, True) == (1, 128)
+    assert tln._bwd_plan(1024, 512, 2, ptrs, True) == (0, 16)
+    assert tln._bwd_plan(1024, 512, 2, ptrs) == (2, 128)
+    assert tln._param_dtype_ok(torch.bfloat16, torch.float32)
+    assert not tln._param_dtype_ok(torch.float32, torch.bfloat16)

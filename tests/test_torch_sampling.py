@@ -206,3 +206,24 @@ def test_launch_check_names_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA device"):
         tfs._check(logits, noise)
     assert tfs.LAUNCHES["K12"] == 0
+
+
+@pytest.mark.parametrize("mode", MODES[:5],
+                         ids=lambda m: "-".join(f"{k}{v}"
+                                                for k, v in m.items()))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_strided_logits_match_jax(dtype, mode):
+    """Fault C2: the last position of a [B, T, V] output, a strided view,
+    samples as the JAX package samples the same rows."""
+    B, T, V = 4, 3, 10000
+    rng = np.random.default_rng(11)
+    out = (3.0 * rng.normal(size=(B, T, V))).astype(np.float32)
+    noise = rng.gumbel(size=(B, 2, V)).astype(np.float32)
+    want = np.asarray(jfs.fused_sample(
+        jnp.asarray(out[:, -1, :]).astype(dtype),
+        jnp.asarray(noise[:, 1]), **mode))
+    logits = torch.from_numpy(out).to(getattr(torch, dtype))[:, -1, :]
+    tnoise = torch.from_numpy(noise)[:, 1]
+    assert not logits.is_contiguous() and not tnoise.is_contiguous()
+    got = tfs.fused_sample(logits, tnoise, **mode)
+    np.testing.assert_array_equal(got.numpy(), want)
