@@ -5,8 +5,9 @@ NVIDIA GPU (written for the H100): serving the flagship Transformer LM
 and training it (also with attention dropout and at T = 32768 through
 the chunked tier), training Word2Vec through the embedding engine, the
 speculative traffic replay, through the port's hand-written kernels,
-and training the image models (LeNet-5, VGG-16, ResNet-20), which run
-none of them.
+training the image models (LeNet-5, VGG-16, ResNet-20), which run none
+of them, and the predict path and the serving fleet (InferenceEngine,
+/predict, the traffic replays, checkpoints, hot-swap, self-healing).
 
 Run from the root of a checkout, with no arguments:
 
@@ -31,9 +32,12 @@ Phases, each of which exits non-zero when it fails:
    shapes serving, the full forward and training give it (K1 at
    BH=2 T<=1024, BH=96 T=512 D=64 and BH=8 T=4096; K2/K3 at B=8 and
    B=32), at head dims 32 and 256 (K1 BH=16 T=1024 D=32 and BH=4 T=1024
-   D=256, masked; K2 B=8 T=512 H=2 D=256) and at B*H = 65600 (T=64
-   D=32), in float32 and bfloat16, against `_flash_fwd_reference` on
-   the same inputs, each also with in-kernel dropout (rate 0.1, a fixed
+   D=256, masked; K2 B=8 T=512 H=2 D=256), at B*H = 65600 (T=64
+   D=32) and, with the predict batcher's key padding mask and one
+   all-masked sequence, K2 at B=4 T=512 H=2 D=128 and K3 at B=8 T=512
+   H=4 D=64, in float32 and bfloat16, against `_flash_fwd_reference` /
+   `_flash_fwd_qkv_reference` on the same inputs (a masked case's
+   all-masked row must give o = 0 and lse below -1e19), each also with in-kernel dropout (rate 0.1, a fixed
    seed; K1 at BH=8 T=4096 hashed at window origin (8192, 4096) of a
    sequence of 16384). Each bf16 case runs a second time and must repeat
    bit for bit; the kernel, the plain version and
@@ -190,7 +194,38 @@ Phases, each of which exits non-zero when it fails:
    largest kernels, beside the card's name and power limit. The image
    path launches none of K1-K13: every count reads 0.
 
-After phases 3-16, no attention call on the card may have taken the
+18. The predict path and the fleet (after phase 17). 18a: phase 3's
+   flagship LM (bf16, seed 0) behind `InferenceEngine` (2 replicas, the
+   (1, 2, 4) x (128, 512, 1024) lattice, max wait 4 ms), warmed with a
+   1024-token example, serving 48 requests of `make_trace(seed=0,
+   n_requests=48, burst=4, mean_gap_s=0.004, lengths=(100, 128, 400,
+   512, 900, 1024))` (tokens from numpy seed 1) from a client thread
+   pool at their offsets: every output [len, 10000] and finite; trace
+   count frozen and `reconstruct`'s recompiles 0; exactly K2 = 6 x the
+   forwards at seq 512 and K1 = 6 x those at 1024 (warmup included), no
+   K3-K13, no dense route for a head dim; p50/p99/QPS, each bucket's
+   median forward span beside the forward on the card and the host
+   fetch timed alone, a profiled (4, 1024) batch's idle share. A request
+   alone in bucket (4, T) and beside three others equal bit for bit (T =
+   512, 1024); a served batch with an all-masked padding row through the
+   kernels and through the plain versions within 2e-2 of the largest
+   probability; an f32 copy served on the card against each request
+   alone on the CPU within 1e-4. 18b: `run_replay` at bench.py's
+   `serving_replay` settings, the tiny LM and the tiny MLP, 120 of 120
+   each. 18c: `run_fleet_replay` at its defaults: the fixed arm fails
+   none; the autoscale arm fails 1-4 (the killed batch), respawns,
+   swaps once and names generations 0 and 1; no recompile. 18d: the
+   flagship saved and restored by `InferenceEngine(checkpoint=...)`
+   (outputs bit for bit); a hot swap to a seed-1 net under 24 requests
+   in flight (batch 1, max wait 0: none fails, each equals the direct
+   forward of the net its `weight_gen` names); a narrower net's
+   checkpoint refused by `validate_checkpoint_shapes` with the old
+   weights serving on; phase 3's `GenerationEngine` with
+   `r0:kill@decode5` under a `FleetSupervisor`: the killed requests
+   fail, the pool empties, the worker respawns with no new shape and the
+   later requests complete.
+
+After phases 3-18, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
@@ -270,15 +305,19 @@ def time_ms(torch, fn, windows=5, per_window=20):
     return statistics.median(samples)
 
 
-def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops):
+def flash_bound_ms(BH, T, D, elem_bytes, causal, masked, peak_flops,
+                   mask_rows=None):
     """Least time for the function: q, k, v read and o written once (lse
-    written, the key mask read) over the memory rate, against the
-    function's own operations over the peak rate: QK^T and PV over the
-    T(T+1)/2 visible (query, key) pairs when causal, all T^2 otherwise,
-    2D each. Returns (ms, what bounds it, the FLOPs counted)."""
+    written, the key mask read: `mask_rows` rows of T, default one a
+    head) over the memory rate, against the function's own operations
+    over the peak rate: QK^T and PV over the T(T+1)/2 visible (query,
+    key) pairs when causal, all T^2 otherwise, 2D each. Returns (ms,
+    what bounds it, the FLOPs counted)."""
     pairs = T * (T + 1) // 2 if causal else T * T
     flops = BH * pairs * D * 4
-    nbytes = BH * T * D * elem_bytes * 4 + BH * T * 4 * (2 if masked else 1)
+    rows = BH if mask_rows is None else mask_rows
+    nbytes = (BH * T * D * elem_bytes * 4 + BH * T * 4
+              + (rows * T * 4 if masked else 0))
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops)
@@ -393,6 +432,13 @@ def check_kernels(torch, fa, card):
                       dict(B=B, T=512, H=2, D=128)))
         cases.append(("K3", f"packed B={B} T=512 H=4 D=64",
                       dict(B=B, T=512, H=4, D=64)))
+    # packed with the predict batcher's key padding mask (phase 18: a
+    # bucket (4, 512) batch whose padding row is all masked), and K3 at
+    # the same masking
+    cases += [("K2", "packed masked B=4 T=512 H=2 D=128",
+               dict(B=4, T=512, H=2, D=128, masked=True)),
+              ("K3", "packed masked B=8 T=512 H=4 D=64",
+               dict(B=8, T=512, H=4, D=64, masked=True))]
     # head dims 32 and 256 (fault C1), and B*H past the 65535 blocks of a
     # grid's y dimension
     cases += [("K1", "flat masked causal BH=16 T=1024 D=32",
@@ -448,33 +494,43 @@ def check_kernels(torch, fa, card):
                 B, H = c["B"], c["H"]
                 n = H * D
                 qkv = rand(B, T, 3 * n).to(dtype)
+                km = ragged_mask(B, T) if c.get("masked") else None
+                km3 = None if km is None else km[:, None, :]
                 fwd = lambda: fa._flash_fwd_qkv(  # noqa: E731
-                    qkv, H, None, scale, True)
+                    qkv, H, km3, scale, True)
                 o, lse = fwd()
-                ro, rlse = fa._flash_fwd_qkv_reference(qkv, H, None, scale,
+                ro, rlse = fa._flash_fwd_qkv_reference(qkv, H, km, scale,
                                                        True)
-                run = lambda: fa.flash_attention_qkv(qkv, H)  # noqa: E731
+                run = lambda: fa.flash_attention_qkv(  # noqa: E731
+                    qkv, H, mask=km)
                 plain = lambda: fa._flash_fwd_qkv_reference(  # noqa: E731
-                    qkv, H, None, scale, True)
+                    qkv, H, km, scale, True)
                 qh, kh, vh = (t.unflatten(-1, (H, D)).transpose(1, 2)
                               for t in qkv.split(n, dim=-1))
+                if km is None:
+                    sdpa_kw = dict(is_causal=True)
+                else:
+                    sdpa_kw = dict(attn_mask=torch.ones(
+                        T, T, dtype=torch.bool, device=dev).tril()[None, None]
+                        & (km[:, None, None, :] > 0))
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qh, kh, vh, is_causal=True)
+                    qh, kh, vh, **sdpa_kw)
                 fwd_d = lambda: fa._flash_fwd_qkv(  # noqa: E731
-                    qkv, H, None, scale, True, drop)
+                    qkv, H, km3, scale, True, drop)
                 plain_d = lambda: fa._flash_fwd_qkv_reference(  # noqa: E731
-                    qkv, H, None, scale, True, drop)
+                    qkv, H, km, scale, True, drop)
                 lib_d = lambda: F.scaled_dot_product_attention(  # noqa
-                    qh, kh, vh, is_causal=True, dropout_p=DROP_RATE)
-                bh, masked = B * H, False
+                    qh, kh, vh, dropout_p=DROP_RATE, **sdpa_kw)
+                bh, masked = B * H, km is not None
             torch.cuda.synchronize()
             err_o = float((o.float() - ro.float()).abs().max())
             err_l = float((lse - rlse).abs().max())
             tol = TOL[dname]
             ok = (err_o <= tol["o"] and err_l <= tol["lse"]
                   and bool(torch.isfinite(o.float()).all()))
-            if km is not None and kern == "K1":
-                # the all-zero mask row: o = 0, lse at the -1e20 floor
+            if km is not None:
+                # the all-zero mask row (the last sequence): o = 0, lse at
+                # the -1e20 floor, for each of its heads
                 ok = ok and bool((o[-1] == 0).all()) \
                     and float(lse[-1].max()) < -1e19
             log(f"check {kern} {label} {dname}: max|o-plain|={err_o:.3e} "
@@ -491,7 +547,7 @@ def check_kernels(torch, fa, card):
             drop_worst[kern] = max(drop_worst.get(kern, 0.0), err_od)
             okd = (err_od <= tol["o"] and err_ld <= tol["lse"]
                    and bool(torch.isfinite(od.float()).all()))
-            if km is not None and kern == "K1":
+            if km is not None:
                 okd = okd and bool((od[-1] == 0).all())
             log(f"check {kern} {label} {dname} dropout {DROP_RATE} "
                 f"(origin {drop.q_origin}, {drop.k_origin}; hash_t "
@@ -513,7 +569,8 @@ def check_kernels(torch, fa, card):
             lib_ms = time_ms(torch, lib)
             lib_dev_ms = kernel_device_ms(torch, lib)
             bound_ms, bound_by, flops = flash_bound_ms(
-                bh, T, D, 2, True, masked, PEAK_BF16_FLOPS)
+                bh, T, D, 2, True, masked, PEAK_BF16_FLOPS,
+                mask_rows=None if kern == "K1" else c["B"])
             log(f"time  {kern} {label} bf16: kernel {ms:.4f} ms (device "
                 f"{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa "
                 f"{lib_ms:.4f} ms (device {fmt_ms(lib_dev_ms)}), bound "
@@ -3124,6 +3181,564 @@ def train_image_models(torch, counters, card):
     return records
 
 
+# ------------------------------------------------------------ phase 18
+
+# the predict path at the flagship's width (18a): K2 runs at the 512
+# bucket, K1 at 1024, the dense route at 128
+PREDICT_LATTICE = dict(batch_sizes=(1, 2, 4), seq_lens=(128, 512, 1024))
+PREDICT_TRACE = dict(seed=0, n_requests=48, burst=4, mean_gap_s=0.004,
+                     lengths=(100, 128, 400, 512, 900, 1024))
+# bench.py `serving_replay` (bench.py:1255-1282), for both models (18b)
+SERVING_REPLAY = dict(seed=0, n_requests=120, burst=4, mean_gap_s=0.002,
+                      lengths=(8, 16, 32), batch_sizes=(1, 2, 4),
+                      max_wait_ms=4.0, replicas=2)
+# f32 on the card against f32 on the CPU, on probabilities: the same f32
+# forward (TF32 off) summed in other orders
+PREDICT_ORACLE_TOL = 1e-4
+# kernels against their plain versions on a served bf16 batch, on
+# probabilities relative to the batch's largest: the bf16 tolerance of
+# the kernel checks (TOL), one bf16 rounding flip of an attention output
+# carried through the later layers
+PREDICT_PLAIN_TOL = TOL["bfloat16"]["o"]
+# a request's output against the direct forward of the weights its
+# weight_gen names, relative to the largest probability: bit for bit is
+# expected; any difference is reported and held to this
+SWAP_TOL = 1e-3
+
+
+def _plain_attention(torch, fa):
+    """The attention layer's two flash routes (inference only) over the
+    plain versions of K1 and K2/K3, called directly."""
+    def flash_attention_qkv(qkv, H, *, causal=True, sm_scale=None,
+                            mask=None, dropout=0.0, generator=None):
+        D = qkv.shape[-1] // 3 // H
+        km = None if mask is None else mask.float()
+        o, _ = fa._flash_fwd_qkv_reference(qkv, H, km, D ** -0.5, causal)
+        return o
+
+    def flash_attention(q, k, v, *, causal=True, sm_scale=None, mask=None,
+                        dropout=0.0, generator=None):
+        B, H, T, D = q.shape
+        km = (None if mask is None else mask.float()[:, None, :]
+              .expand(B, H, T).reshape(B * H, T))
+        o, _ = fa._flash_fwd_reference(
+            *(t.reshape(B * H, T, D) for t in (q, k, v)), km, D ** -0.5,
+            causal)
+        return o.reshape(B, H, T, D)
+
+    return {"flash_attention": flash_attention,
+            "flash_attention_qkv": flash_attention_qkv}
+
+
+def _with_plain_attention(torch, fa, fn):
+    """fn() with the attention layer's flash routes swapped for the plain
+    versions; restored after."""
+    from deeplearning4j_tpu_torch.nn.layers import attention
+
+    saved = {k: getattr(attention, k) for k in ("flash_attention",
+                                                "flash_attention_qkv")}
+    try:
+        for k, f in _plain_attention(torch, fa).items():
+            setattr(attention, k, f)
+        return fn()
+    finally:
+        for k, f in saved.items():
+            setattr(attention, k, f)
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b|."""
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _submit_trace(engine, trace, make_features, timeout=600):
+    """Submit each trace entry at its arrival offset from a client
+    thread pool (as an HTTP front end would), wait for every request;
+    returns the requests in trace order."""
+    import concurrent.futures
+
+    t_start = time.monotonic()
+
+    def one(entry):
+        i, (offset, seq_len) = entry
+        delay = offset - (time.monotonic() - t_start)
+        if delay > 0:
+            time.sleep(delay)
+        req = engine.submit(make_features(i, seq_len),
+                            request_id=f"trace-{i}")
+        req.wait(timeout)
+        return req
+
+    with concurrent.futures.ThreadPoolExecutor(32) as pool:
+        return list(pool.map(one, enumerate(trace)))
+
+
+def predict_flagship(torch, counters, fa, card):
+    """18a: the flagship LM (phase 3's, bf16, seed 0) behind
+    `InferenceEngine` with 2 replicas over the (1, 2, 4) x (128, 512,
+    1024) lattice, 48 requests of a seeded bursty trace; padding
+    invariance, the kernels against their plain versions on served
+    batches, the f32 oracle against the CPU, exact launch counts, the
+    latency scoreboard, the per-bucket forward/fetch split and a profiled
+    (4, 1024) batch's idle share. Returns the traffic window's launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.serving import replay
+    from deeplearning4j_tpu_torch.serving.batcher import (PendingRequest,
+                                                          assemble)
+    from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+
+    V = LM["vocab_size"]
+    net = transformer_lm(**LM, dtype="bfloat16", device="cuda").init(SEED)
+    tpath = Path(tempfile.mkdtemp(prefix="chip_smoke_predict_")) / "t.jsonl"
+    rec = Recorder(str(tpath))
+    engine = InferenceEngine(net, BucketLattice(**PREDICT_LATTICE),
+                             replicas=2, max_wait_ms=4.0, sequence=True,
+                             recorder=rec)
+    tokens = np.random.default_rng(1).integers(0, V, (
+        PREDICT_TRACE["n_requests"], max(PREDICT_TRACE["lengths"])))
+    trace = replay.make_trace(**PREDICT_TRACE)
+    torch.cuda.synchronize()
+    counters.reset()
+    dense0 = fa.DENSE_ROUTES["head_dim"]
+    t0 = time.perf_counter()
+    warm = engine.warmup(tokens[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    traced = engine.trace_count
+    engine.start()
+    reqs = _submit_trace(engine, trace, lambda i, n: tokens[i, :n])
+    engine.drain(600)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    rec.close()
+    failures = []
+    for r, (_, n) in zip(reqs, trace):
+        if r.error is not None or r.result is None:
+            failures.append(f"{r.request_id}: {r.error}")
+        elif r.result.shape != (n, V) or not np.isfinite(r.result).all():
+            failures.append(f"{r.request_id}: output {r.result.shape}")
+    del reqs
+    sb = replay.reconstruct(str(tpath))
+    events = [json.loads(l) for l in tpath.read_text().splitlines()
+              if l.startswith("{")]
+    spans = {}  # bucket -> forward spans (warmup compiles included)
+    for e in events:
+        if e.get("event") != "span":
+            continue
+        if e.get("name") == "forward" or (e.get("name") == "compile"
+                                          and e.get("warmup")):
+            spans.setdefault(tuple(e["bucket"]), []).append(e["seconds"])
+    n_at = {T: sum(len(v) for b, v in spans.items() if b[1] == T)
+            for T in PREDICT_LATTICE["seq_lens"]}
+    want = {"K2": 6 * n_at[512], "K1": 6 * n_at[1024]}
+    others = {k: n for k, n in launches.items() if k not in ("K1", "K2")}
+    log(f"predict: {sb['n_ok']} of {len(trace)} requests, p50 "
+        f"{sb['p50_ms']} ms, p99 {sb['p99_ms']} ms, {sb['qps']} QPS over "
+        f"{sb['span_s']} s; warmup {warm} shapes in {warm_s:.3f} s; "
+        f"trace_count {traced} -> {engine.trace_count}; recompiles after "
+        f"warmup {sb['recompiles_after_warmup']}; forwards (warmup "
+        f"included) at seq 128/512/1024 {n_at[128]}/{n_at[512]}/"
+        f"{n_at[1024]}; launches {launches}; card {card}")
+    if sb["n_ok"] != len(trace) or sb["n_failed"]:
+        failures.append(f"{sb['n_ok']} ok, {sb['n_failed']} failed")
+    if engine.trace_count != traced or sb["recompiles_after_warmup"]:
+        failures.append("a shape escaped warmup")
+    for k, n in want.items():
+        if launches[k] != n:
+            failures.append(f"{k} launched {launches[k]} times, expected {n}")
+    if any(others.values()):
+        failures.append(f"K3-K13 launched: {others}")
+    if fa.DENSE_ROUTES["head_dim"] != dense0:
+        failures.append("an attention call took the dense path for its "
+                        "head dim")
+    if failures:
+        raise PhaseFailed("18a", "; ".join(failures[:8]))
+
+    # the forward span split: the forward on the card (host clock to a
+    # synchronize) and the fetch of the f32 rows, each bucket
+    replica = engine.fleet_workers()[0]
+    ws = engine.weights.current
+    lat = BucketLattice(**PREDICT_LATTICE)
+    for b in lat.shapes():
+        x = torch.as_tensor(tokens[:b.batch, :b.seq], device="cuda")
+        m = torch.ones(b.batch, b.seq, device="cuda")
+        fwd, fetch = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = replica._fwd(ws.params, ws.state, x, m)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rows = y.float().cpu().numpy()
+            fwd.append(t1 - t0)
+            fetch.append(time.perf_counter() - t1)
+        med = statistics.median(spans.get(b.key(), [0.0]))
+        log(f"predict: bucket {b.key()}: forward_s median "
+            f"{med * 1e3:.3f} ms over {len(spans.get(b.key(), []))} spans; "
+            f"alone: forward on the card {statistics.median(fwd[1:]) * 1e3:.3f}"
+            f" ms, fetch of {rows.nbytes / 1e6:.1f} MB "
+            f"{statistics.median(fetch[1:]) * 1e3:.3f} ms; card {card}")
+    x = torch.as_tensor(tokens[:4, :1024], device="cuda")
+    m = torch.ones(4, 1024, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replica.forward(ws, x, m)
+        wall = time.perf_counter() - t0
+    _, rows = device_profile(torch, prof, wall, "predict (4, 1024) batch",
+                             top=6)
+    # the device busy time above counts the fetch's copy engine: the
+    # compute's own share leaves copies out
+    kernels = sum(r[0] for r in rows if not r[2].startswith("Memcpy")) / 1e6
+    if rows:
+        log(f"predict (4, 1024) batch: kernels alone {kernels * 1e3:.3f} ms "
+            f"of {wall * 1e3:.3f} ms (compute idle share "
+            f"{1 - kernels / wall:.4f}); card {card}")
+
+    # padding invariance and the kernels against their plain versions, on
+    # batches assembled as the batcher does, through the replica's forward
+    lat4 = BucketLattice(batch_sizes=(4,),
+                         seq_lens=PREDICT_LATTICE["seq_lens"])
+
+    def batch_of(lengths, offset=0):
+        return assemble([PendingRequest(features=tokens[offset + i, :n])
+                         for i, n in enumerate(lengths)], lat4,
+                        sequence=True)
+
+    for T, lengths in ((512, (400, 512, 130)), (1024, (900, 1024, 600))):
+        alone = batch_of(lengths[:1])
+        full = batch_of(lengths[:1] + (T - 7, T - 50, T // 2), offset=0)
+        counters.reset()
+        a = replica.forward(ws, alone.features, alone.mask)
+        f = replica.forward(ws, full.features, full.mask)
+        n = lengths[0]
+        same = np.array_equal(a[0, :n], f[0, :n])
+        served = batch_of(lengths)  # one all-masked padding row
+        k = replica.forward(ws, served.features, served.mask)
+        kern = counters.read()
+        p = _with_plain_attention(torch, fa, lambda: replica.forward(
+            ws, served.features, served.mask))
+        errs = [_rel_err(k[i, :L], p[i, :L]) for i, L in enumerate(lengths)]
+        log(f"predict: bucket (4, {T}): a request alone and beside three "
+            f"others {'bit-identical' if same else 'DIFFERENT'}; kernels "
+            f"{ {k_: v for k_, v in kern.items() if v} } against the plain "
+            f"versions on a served batch of {lengths} + an all-masked row: "
+            f"max rel err {max(errs):.3e} (tol {PREDICT_PLAIN_TOL}), "
+            f"finite {bool(np.isfinite(k).all())}")
+        if not same:
+            raise PhaseFailed("18a", f"padding changed a real row at T={T}")
+        if max(errs) > PREDICT_PLAIN_TOL or not np.isfinite(k).all():
+            raise PhaseFailed("18a", f"kernels disagree with the plain "
+                                     f"versions at T={T}: {errs}")
+        if not kern["K2" if T == 512 else "K1"]:
+            raise PhaseFailed("18a", f"no flash kernel ran at T={T}")
+
+    # the f32 oracle: an f32 copy served on the card against the CPU's
+    # output of each request alone, unpadded, with the card's params
+    net32 = transformer_lm(**LM, dtype="float32", device="cuda")
+    net32.params = {layer: {k_: t.float() for k_, t in p_.items()}
+                    for layer, p_ in net.params.items()}
+    net32.state = net.state
+    cpu = transformer_lm(**LM, dtype="float32", device="cpu")
+    cpu.params = {layer: {k_: t.cpu() for k_, t in p_.items()}
+                  for layer, p_ in net32.params.items()}
+    cpu.state = {layer: {} for layer in cpu.params}
+    eng32 = InferenceEngine(net32, BucketLattice(**PREDICT_LATTICE),
+                            max_wait_ms=4.0, sequence=True,
+                            recorder=Recorder(path=None))
+    eng32.warmup(tokens[0])
+    lengths = PREDICT_TRACE["lengths"]
+    reqs = [eng32.submit(tokens[i, :n]) for i, n in enumerate(lengths)]
+    eng32.start()
+    for r in reqs:
+        if not r.wait(600) or r.error is not None:
+            raise PhaseFailed("18a", f"f32 request failed: {r.error}")
+    eng32.drain(600)
+    worst = 0.0
+    for r, n in zip(reqs, lengths):
+        ref = cpu.output(r.features[None])[0].numpy()
+        worst = max(worst, float(np.abs(r.result - ref).max()))
+    log(f"predict: f32 oracle, {len(lengths)} requests {lengths} batched "
+        f"with padding on the card against each alone on the CPU: max "
+        f"|p - p_cpu| {worst:.3e} (tol {PREDICT_ORACLE_TOL})")
+    if worst > PREDICT_ORACLE_TOL:
+        raise PhaseFailed("18a", f"the f32 oracle differs by {worst:.3e}")
+    return launches
+
+
+def predict_replays(card):
+    """18b: `run_replay` at bench.py's `serving_replay` settings over
+    HTTP, the tiny LM and then the tiny MLP (the full-width LM is not
+    served over HTTP: one [1000, 10000] reply is about 200 MB of JSON)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving.replay import run_replay
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_replay_"))
+    for model in ("lm", "mlp"):
+        t0 = time.perf_counter()
+        sb = run_replay(model=model, telemetry_path=str(tmp / f"{model}.jsonl"),
+                        device="cuda", **SERVING_REPLAY)
+        for line in sb["lines"]:
+            log(f"predict replay {model}: {json.dumps(line)}")
+        log(f"predict replay {model}: {sb['n_ok']} ok, client "
+            f"{sb['client']['ok']}/{sb['client']['sent']} in "
+            f"{time.perf_counter() - t0:.3f} s, warmed buckets "
+            f"{sb['warmed_buckets']}; card {card}")
+        n = SERVING_REPLAY["n_requests"]
+        if (sb["n_ok"] != n or sb["client"]["failed"]
+                or sb["recompiles_after_warmup"]):
+            raise PhaseFailed("18b", f"{model}: {sb['n_ok']} of {n} ok, "
+                                     f"client errors {sb['client']['errors']},"
+                                     f" recompiles "
+                                     f"{sb['recompiles_after_warmup']}")
+
+
+def fleet_replay(card):
+    """18c: `run_fleet_replay` at its defaults (120 requests, burst 8, 4
+    ms gaps, max wait 3 ms, autoscale up to 3 replicas, chaos
+    r0:kill@batch4, a hot swap after 60 requests)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving.replay import run_fleet_replay
+
+    tpath = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_")) / "t.jsonl"
+    t0 = time.perf_counter()
+    out = run_fleet_replay(telemetry_path=str(tpath), device="cuda")
+    for line in out["lines"]:
+        log(f"fleet replay: {json.dumps(line)}")
+    fixed, auto = out["fixed"], out["autoscale"]
+    log(f"fleet replay: both arms in {time.perf_counter() - t0:.3f} s; "
+        f"autoscale arm: {auto['n_ok']} ok, {auto['n_failed']} failed, "
+        f"{auto['n_respawns']} respawns, {auto['n_swaps']} swaps, weight "
+        f"generations {auto['weight_generations']}, scale ups "
+        f"{auto['scale_ups']} downs {auto['scale_downs']}; card {card}")
+    failures = []
+    if fixed["n_failed"] or fixed["n_ok"] != 120:
+        failures.append(f"fixed arm {fixed['n_ok']} ok, "
+                        f"{fixed['n_failed']} failed")
+    if not 1 <= auto["n_failed"] <= 4:
+        failures.append(f"autoscale arm failed {auto['n_failed']}")
+    if auto["n_respawns"] < 1 or auto["n_swaps"] != 1:
+        failures.append(f"respawns {auto['n_respawns']}, swaps "
+                        f"{auto['n_swaps']}")
+    if auto["weight_generations"] != [0, 1]:
+        failures.append(f"generations {auto['weight_generations']}")
+    if fixed["recompiles_after_warmup"] or auto["recompiles_after_warmup"]:
+        failures.append("a shape escaped warmup")
+    if failures:
+        raise PhaseFailed("18c", "; ".join(failures))
+
+
+def fleet_flagship(torch, counters, card):
+    """18d: checkpoints and hot-swap at the flagship's width (round trip
+    bit for bit; a hot swap under 24 requests in flight, each matching
+    the net its weight_gen names; a narrower net's checkpoint refused
+    before any read), then phase 3's GenerationEngine killed at decode
+    step 5 and healed by a FleetSupervisor. Returns the launches of the
+    serving windows."""
+    import concurrent.futures
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.serving import fleet
+    from deeplearning4j_tpu_torch.serving.batcher import (PendingRequest,
+                                                          assemble)
+    from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
+    from deeplearning4j_tpu_torch.serving.engine import (GenerationEngine,
+                                                         InferenceEngine)
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    V = LM["vocab_size"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    tokens = np.random.default_rng(2).integers(0, V, (24, 1024))
+    lattice = dict(batch_sizes=(1,), seq_lens=(512, 1024))
+
+    def lm(seed=None, **kw):
+        net = transformer_lm(**dict(LM, **kw), dtype="bfloat16",
+                             device="cuda")
+        return net if seed is None else net.init(seed)
+
+    def engine_on(net, **kw):
+        eng = InferenceEngine(net, BucketLattice(**lattice), sequence=True,
+                              recorder=kw.pop("recorder", Recorder(None)),
+                              **kw)
+        eng.warmup(tokens[0])
+        return eng.start()
+
+    # round trip
+    saving = lm(SEED)
+    saving.iteration_count = 100
+    Checkpointer(str(tmp / "a")).save(saving)
+    totals = {}
+    counters.reset()
+    ref_eng = engine_on(saving)
+    got_eng = engine_on(lm(), checkpoint=str(tmp / "a"))
+    lengths = (400, 512, 1000)
+    outs = [(ref_eng.predict(tokens[i, :n], timeout=600),
+             got_eng.predict(tokens[i, :n], timeout=600))
+            for i, n in enumerate(lengths)]
+    ref_eng.drain(600)
+    got_eng.drain(600)
+    same = all(np.array_equal(a, b) for a, b in outs)
+    log(f"fleet: round trip of the flagship (step 100): restored_step "
+        f"{got_eng.restored_step}, outputs for {lengths} "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if got_eng.restored_step != 100 or not same:
+        raise PhaseFailed("18d", "the checkpoint round trip differs")
+
+    # hot swap under traffic
+    Checkpointer(str(tmp / "b")).save(lm(1), 200)
+    rec = Recorder(path=None)
+    eng = engine_on(lm(SEED), max_wait_ms=0.0, replicas=2, recorder=rec)
+    lens = [int(n) for n in np.random.default_rng(3).choice(
+        (300, 512, 700, 1024), 24)]
+
+    def one(i):
+        time.sleep(0.004 * i)
+        req = eng.submit(tokens[i, :lens[i]], request_id=f"swap-{i}")
+        req.wait(600)
+        return req
+
+    with concurrent.futures.ThreadPoolExecutor(24) as pool:
+        futs = [pool.submit(one, i) for i in range(24)]
+        while eng.served < 8 and not all(f.done() for f in futs):
+            time.sleep(0.001)
+        swap = fleet.hot_swap(eng, str(tmp / "b"))
+        reqs = [f.result() for f in futs]
+    eng.drain(600)
+    totals = counters.read()
+    gens = {e["id"]: e["weight_gen"] for e in rec.events
+            if e.get("event") == "request"}
+    new = eng.weights.current
+    failed = [r.request_id for r in reqs if r.error is not None]
+    lat = BucketLattice(**lattice)
+    worst, apart, n_diff = 0.0, float("inf"), 0
+    fwd = eng.net.inference_fn()
+    weights = {0: (eng.net.params, eng.net.state),
+               1: (new.params, new.state)}
+    for r in reqs:
+        if r.error is not None:
+            continue
+        b = assemble([PendingRequest(features=r.features)], lat,
+                     sequence=True)
+        rows = {}
+        for g in (0, 1):
+            p, s = weights[g]
+            rows[g] = fwd(p, s, torch.as_tensor(b.features, device="cuda"),
+                          torch.as_tensor(b.mask, device="cuda")) \
+                .float().cpu().numpy()[0, :len(r.features)]
+        g = gens[r.request_id]
+        err = _rel_err(r.result, rows[g])
+        n_diff += err > 0
+        worst = max(worst, err)
+        apart = min(apart, _rel_err(rows[1 - g], rows[g]))
+    log(f"fleet: hot swap at {swap['restore_ms']} ms under 24 requests in "
+        f"flight: generations {sorted(set(gens.values()))} "
+        f"({sum(1 for g in gens.values() if g == 1)} on the new one), "
+        f"{len(failed)} failed; against the direct forward of the named "
+        f"net: {n_diff} differ, max rel err {worst:.3e} (tol {SWAP_TOL}); "
+        f"the two nets differ by at least {apart:.3e}; launches {totals}")
+    if failed or sorted(set(gens.values())) != [0, 1]:
+        raise PhaseFailed("18d", f"swap: failed {failed}, generations "
+                                 f"{sorted(set(gens.values()))}")
+    if worst > SWAP_TOL or apart <= 100 * SWAP_TOL:
+        raise PhaseFailed("18d", f"swap outputs: max rel err {worst:.3e}, "
+                                 f"nets apart by {apart:.3e}")
+
+    # a narrower net's checkpoint: refused before any read
+    Checkpointer(str(tmp / "c")).save(lm(2, d_model=128), 300)
+    before = eng.weights.generation
+    try:
+        fleet.validate_checkpoint_shapes(eng.weights.current.params,
+                                         str(tmp / "c"), 300)
+    except fleet.WeightSwapError as exc:
+        refused = str(exc)
+    else:
+        raise PhaseFailed("18d", "a narrower net's checkpoint passed the "
+                                 "pre-restore gate")
+    x = tokens[0, :512]
+    eng2 = engine_on(eng.net)  # the old weights, served anew
+    y0 = eng2.predict(x, timeout=600)
+    try:
+        fleet.hot_swap(eng2, str(tmp / "c"))
+        raise PhaseFailed("18d", "hot_swap took a narrower checkpoint")
+    except fleet.WeightSwapError:
+        pass
+    y1 = eng2.predict(x, timeout=600)
+    eng2.drain(600)
+    log(f"fleet: narrower checkpoint refused ({refused[:120]}); the old "
+        f"weights serve on ({'bit-identical' if np.array_equal(y0, y1) else 'DIFFERENT'}"
+        f", generation {eng2.weights.generation})")
+    if not np.array_equal(y0, y1) or eng2.weights.generation != 0:
+        raise PhaseFailed("18d", "the refused swap changed the weights")
+
+    # phase 3's GenerationEngine, killed mid-decode
+    rec = Recorder(path=None)
+    gen = GenerationEngine(lm(SEED), BucketLattice((1,), seq_lens=(64, 512,
+                                                                   1024)),
+                           slots=4, max_new_tokens=64, page_size=16,
+                           prefill_chunk=1024, faults="r0:kill@decode5",
+                           recorder=rec)
+    gen.warmup()
+    traced = gen.trace_count
+    sup = fleet.FleetSupervisor(gen, death_after_s=5.0,
+                                backoff=fleet.RespawnBackoff(
+                                    base_s=0.0, jitter_frac=0.0),
+                                recorder=rec)
+    gen.start()
+    first = [gen.submit_generate(tokens[i, :n], 32)
+             for i, n in enumerate((40, 300))]
+    for r in first:
+        if not r.wait(600):
+            raise PhaseFailed("18d", "a killed request never completed")
+    worker = gen.fleet_workers()[0]
+    actions = sup.poll()
+    pool = worker.pool.describe()
+    later = [gen.submit_generate(tokens[i, :n], 32)
+             for i, n in enumerate((700, 1000, 40, 300), start=2)]
+    for r in later:
+        if not r.wait(600):
+            raise PhaseFailed("18d", "a later request timed out")
+    gen.drain(600)
+    kinds = [e["kind"] for e in rec.events if e.get("event") == "fault"]
+    log(f"fleet: generation worker killed at decode 5: first requests "
+        f"{[r.error.splitlines()[0][:60] if r.error else 'ok' for r in first]}"
+        f"; supervisor {actions}; pool after the reap {pool}; trace_count "
+        f"{traced} -> {gen.trace_count}; later requests "
+        f"{[len(r.emitted) if r.error is None else r.error for r in later]}; "
+        f"fault events {kinds}")
+    if not all(r.error for r in first):
+        raise PhaseFailed("18d", "a killed slot's request succeeded")
+    if pool["pages_in_use"] or actions["respawned"] != [0]:
+        raise PhaseFailed("18d", f"pool {pool}, supervisor {actions}")
+    if gen.trace_count != traced:
+        raise PhaseFailed("18d", "the respawn saw a new shape")
+    if any(r.error is not None or len(r.emitted) != 32 for r in later):
+        raise PhaseFailed("18d", "a later request failed")
+    return totals
+
+
+def serve_predict_fleet(torch, counters, fa, card):
+    """Phase 18: 18a-18d. Returns the launches of the flagship serving
+    windows (18a's traffic and 18d's)."""
+    t0 = time.perf_counter()
+    a = predict_flagship(torch, counters, fa, card)
+    predict_replays(card)
+    fleet_replay(card)
+    d = fleet_flagship(torch, counters, card)
+    log(f"predict and fleet: phase 18 in {time.perf_counter() - t0:.1f} s")
+    return {k: a.get(k, 0) + d.get(k, 0) for k in set(a) | set(d)}
+
+
 # ----------------------------------------------------------------- main
 
 # ------------------------------------------------------------------ A/B
@@ -3296,12 +3911,13 @@ def main() -> int:
     engine_oracle(torch, counters, ShardedEmbeddingEngine, fns)
     replay_launches = speculative_replay(torch, counters, name_power)
     train_image_models(torch, counters, name_power)
-    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s")
+    predict_launches = serve_predict_fleet(torch, counters, fa, name_power)
+    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-16", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-18", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -3309,13 +3925,14 @@ def main() -> int:
     # replay's microbench block beside it); launches summed over the
     # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
     # training, the three bench modes, the other training paths,
-    # Word2Vec, the engine and the speculative replay), each counted from
-    # 0 just before it and read just after. K1-K7 carry their dropout
+    # Word2Vec, the engine, the speculative replay and the predict
+    # path's flagship windows), each counted from 0 just before it and
+    # read just after. K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
-            replay_launches)
+            replay_launches, predict_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

@@ -9,12 +9,17 @@ nn/updater.py, ops/losses.py, datasets/); training Word2Vec through
 and training the image models, LeNet-5 through `MultiLayerNetwork`
 (nn/multilayer.py) and VGG-16 and ResNet-20 through `ComputationGraph`,
 with the CNN layers (nn/layers/convolution.py), `evaluate` (eval/) and
-the MNIST and CIFAR-10 iterators.
+the MNIST and CIFAR-10 iterators; and serving any single-input net
+through `serving.engine.InferenceEngine` (the dynamic batcher,
+`POST /predict`) with the fleet's hot-swap from the port's checkpoints
+(`util/checkpoint.py`), replica self-healing and autoscaling
+(`serving/fleet.py`).
 
 The package mirrors the JAX package's module layout and public names
 (`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/multilayer.py`,
 `nn/decode.py`, `ops/`, `models/`, `serving/`, `telemetry/`,
-`datasets/`, `eval/`, `nlp/`, `embedding/`, `data/`), so
+`datasets/`, `eval/`, `nlp/`, `embedding/`, `data/`, `util/`,
+`distributed/`), so
 each counterpart is found by path. It imports `torch` and never `jax`,
 nor anything of `deeplearning4j_tpu`.
 

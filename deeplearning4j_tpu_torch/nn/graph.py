@@ -17,7 +17,9 @@ Not carried by this slice, and raising NotImplementedError: layerwise
 pretraining, truncated BPTT, the non-SGD optimization algorithms (the
 Solver path) and `remat`, which come with the rest of `nn/` (ROADMAP
 Queue A item A6, `nn/training.check_trainable`); meshes (`set_mesh`)
-with the parallel slice (item 7).
+with the parallel slice (item 7). `resume_from` reads the port's own
+checkpoint format (util/checkpoint.py); `inference_fn` is the forward the
+predict engine's replicas call (serving/engine.py).
 """
 
 from __future__ import annotations
@@ -280,6 +282,14 @@ class ComputationGraph(LazyScore):
         if mds.labels_masks is not None:
             b["labels_masks"] = tuple(dev(m) for m in mds.labels_masks)
         return b
+
+    def resume_from(self, checkpoint_dir: str, step=None):
+        """Restore the latest (or given) checkpoint (util/checkpoint.py)
+        into this graph, as `MultiLayerNetwork.resume_from`: returns the
+        restored step, 0 when the directory holds no checkpoint yet."""
+        from deeplearning4j_tpu_torch.util.checkpoint import resume
+
+        return resume(self, checkpoint_dir, step)
 
     def set_mesh(self, mesh, **kwargs):
         """Meshes (data, tensor, pipeline, expert and sequence

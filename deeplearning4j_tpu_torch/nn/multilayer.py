@@ -19,7 +19,9 @@ itself), so a JAX net's params copy across by name (weights_io.py).
 Not carried by this slice, and raising NotImplementedError: layerwise
 pretraining, truncated BPTT, the non-SGD optimization algorithms (the
 Solver path), `rnn_time_step` and `remat` (ROADMAP Queue A item A6);
-meshes (`set_mesh`, A7); resuming from a checkpoint (`resume_from`, A5).
+meshes (`set_mesh`, A7). `resume_from` reads the port's own checkpoint
+format (util/checkpoint.py); `inference_fn` is the forward the predict
+engine's replicas call (serving/engine.py).
 """
 
 from __future__ import annotations
@@ -273,12 +275,15 @@ class MultiLayerNetwork(LazyScore):
             "meshes are not ported yet (ROADMAP Queue A item A7, parallel "
             "and distributed)")
 
-    def resume_from(self, checkpoint_dir: str, step=None, **kwargs):
-        """Resuming from a checkpoint needs the port's own checkpoint
-        format."""
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP Queue A item A5, the "
-            "port's own checkpoint format)")
+    def resume_from(self, checkpoint_dir: str, step=None):
+        """Restore params, layer state, optimizer state and the step
+        counter from a checkpoint directory (util/checkpoint.py
+        `Checkpointer` layout) into this net. Returns the restored step:
+        0 when the directory has no checkpoint yet (a cold start, not an
+        error); a named step that is missing raises FileNotFoundError."""
+        from deeplearning4j_tpu_torch.util.checkpoint import resume
+
+        return resume(self, checkpoint_dir, step)
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()
@@ -303,6 +308,21 @@ class MultiLayerNetwork(LazyScore):
     def predict(self, x):
         """Class indices (reference predict), a numpy array."""
         return self.output(x).argmax(-1).cpu().numpy()
+
+    def inference_fn(self):
+        """A ``(params, state, x, mask=None) -> y`` inference-mode
+        forward for an external owner: the predict engine's replicas
+        (serving/engine.py) call it with their published params once per
+        padded batch. No generator, no state update: inference forwards
+        are row-independent, which the serving padding relies on. Grad
+        mode is per thread, so the function enters no_grad itself."""
+        @torch.no_grad()
+        def fwd(params, state, x, mask=None):
+            if mask is not None:
+                mask = torch.as_tensor(mask, device=self.device)
+            y, _ = self._forward(params, state, x, train=False, mask=mask)
+            return y
+        return fwd
 
     @torch.no_grad()
     def score(self, dataset: DataSet = None, training: bool = False):

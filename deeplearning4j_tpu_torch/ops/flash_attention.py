@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 import warnings
 from typing import NamedTuple
 
@@ -574,6 +575,14 @@ def _launch_bwd(q, k, v, o, do, lse, kmask, dq, dk, dv, sm_scale, causal,
 # head-pair kernel (K3, K7), and the flat backward past one block is its
 # dq/dkv split (K5).
 LAUNCHES = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), 0)
+# serving replicas launch from several threads: a bare `+=` on the table
+# is a read-modify-write that can lose a count between them
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count(kernel: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _kmask_rows(kmask, rows, T):
@@ -600,7 +609,7 @@ def _flash_fwd(q, k, v, kmask, sm_scale, causal, drop=None):
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     _launch(*(_rows(t)[:, None] for t in (q, k, v)), km, o[:, None], lse,
             sm_scale, causal, drop)
-    LAUNCHES["K1"] += 1
+    _count("K1")
     return o, lse
 
 
@@ -620,7 +629,7 @@ def _flash_fwd_qkv(qkv, H, kmask, sm_scale, causal, drop=None):
     o = torch.empty((B, T, n), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=qkv.device)
     _launch(q, k, v, km, _heads(o, H), lse, sm_scale, causal, drop)
-    LAUNCHES["K3" if n // H == 64 else "K2"] += 1
+    _count("K3" if n // H == 64 else "K2")
     return o, lse.reshape(B, H, 1, T)
 
 
@@ -642,7 +651,7 @@ def _flash_bwd_impl(q, k, v, o, lse, do, kmask, sm_scale, causal,
                 lse.contiguous(), km, *(g[:, None] for g in grads),
                 sm_scale, causal,
                 None if dlse is None else dlse.float().contiguous(), drop)
-    LAUNCHES["K4" if T <= BLOCK_Q_MAX else "K5"] += 1
+    _count("K4" if T <= BLOCK_Q_MAX else "K5")
     return tuple(grads)
 
 
@@ -664,7 +673,7 @@ def _flash_bwd_qkv(qkv, o, lse, do, H, kmask, sm_scale, causal, drop=None):
     _launch_bwd(q, k, v, _heads(_rows(o), H), _heads(_rows(do), H),
                 lse.reshape(B * H, T).contiguous(), km, dq, dk, dv,
                 sm_scale, causal, drop=drop)
-    LAUNCHES["K7" if n // H == 64 else "K6"] += 1
+    _count("K7" if n // H == 64 else "K6")
     return dqkv
 
 

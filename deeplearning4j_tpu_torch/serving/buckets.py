@@ -1,13 +1,13 @@
 """The padding-bucket lattice — the shape contract between requests and
-the serving workers: the generation subset of the JAX package's
-serving/buckets.py. `Bucket`, `select` and the CLI's `from_spec` come
-with `InferenceEngine` and the CLI in later slices.
+the serving workers (JAX counterpart deeplearning4j_tpu/serving/
+buckets.py).
 
-Every prompt chunk is padded UP to the smallest lattice seq length that
-fits, so the worker sees a small fixed set of shapes: in the JAX package
-that bounds the compiles, here it bounds the kernel shapes and keeps
-prefill's flash/dense dispatch a function of the lattice alone.
-Selection is a pure function of the request shapes (no clock, no state).
+Every assembled predict batch, and every prompt chunk, is padded UP to
+the smallest lattice point that fits, so the workers see a small fixed
+set of shapes: in the JAX package that bounds the compiles, here it
+bounds the kernel shapes and keeps the flash/dense dispatch a function
+of the lattice alone. Selection is a pure function of the request shapes
+(no clock, no state).
 
 `validate_attention` checks every seq bucket against the attention
 dispatch at server start (`servable_seq`: the flash kernels up to
@@ -19,6 +19,21 @@ Pure stdlib.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class Bucket:
+    """One lattice point: the padded batch size and (for sequence
+    models) the padded time length. `seq is None` means the model takes
+    fixed-shape features and only the batch dimension is bucketed."""
+
+    batch: int
+    seq: int | None = None
+
+    def key(self) -> tuple:
+        return (self.batch, self.seq)
 
 
 class BucketLattice:
@@ -39,8 +54,23 @@ class BucketLattice:
 
     # --------------------------------------------------------- selection
     @property
+    def max_batch(self) -> int:
+        return self.batch_sizes[-1]
+
+    @property
     def max_seq(self) -> int | None:
         return None if self.seq_lens is None else self.seq_lens[-1]
+
+    def batch_bucket(self, n: int) -> int:
+        """Smallest lattice batch size >= n (the batcher never cuts more
+        than max_batch)."""
+        if n > self.max_batch:
+            raise ValueError(f"batch {n} exceeds lattice max "
+                             f"{self.max_batch}")
+        for b in self.batch_sizes:
+            if b >= n:
+                return b
+        raise AssertionError  # unreachable: guarded above
 
     def seq_bucket(self, t: int) -> int:
         """Smallest lattice seq len >= t; a prompt longer than the
@@ -56,6 +86,25 @@ class BucketLattice:
             if s >= t:
                 return s
         raise AssertionError  # unreachable: guarded above
+
+    def select(self, n_requests: int, max_len: int | None = None) -> Bucket:
+        """The bucket for a group of `n_requests` whose longest sequence
+        is `max_len` (None for fixed-shape models)."""
+        seq = None
+        if self.seq_lens is not None:
+            if max_len is None:
+                raise ValueError("sequence lattice needs the group's "
+                                 "max length")
+            seq = self.seq_bucket(max_len)
+        return Bucket(self.batch_bucket(n_requests), seq)
+
+    def shapes(self) -> list[Bucket]:
+        """Every lattice point — the predict engine's warmup set; after
+        warmup its trace count must not move."""
+        if self.seq_lens is None:
+            return [Bucket(b) for b in self.batch_sizes]
+        return [Bucket(b, s) for b in self.batch_sizes
+                for s in self.seq_lens]
 
     def prefill_buckets(self, chunk: int) -> list[int]:
         """The generation engine's prefill warmup set: every seq bucket

@@ -1,42 +1,57 @@
-"""Autoregressive generation serving: `GenerationEngine` and its workers
-(JAX counterpart deeplearning4j_tpu/serving/engine.py `GenerationEngine`,
-`_GenWorker`).
+"""The serving engines (JAX counterpart deeplearning4j_tpu/serving/
+engine.py): `InferenceEngine`, one forward per request over dynamic
+batches, and `GenerationEngine`, autoregressive generation over a paged
+KV cache.
 
-Each admitted request holds a decode SLOT: its prompt prefills the slot's
-cache row chunk by chunk, interleaved with the running decode batch so a
-long prompt never stalls the other slots' tokens; then every decode step
-extends all active slots by one greedy token. N generated tokens cost a
-prefill plus N single-token steps, not N full-sequence forwards. Page
-accounting, and exhaustion that queues instead of crashing, live in
-serving/kvcache.py.
+**Predict.** The `Batcher` (serving/batcher.py) coalesces requests into
+bucket-shaped batches; a dispatcher thread deals them round-robin over
+the replicas. One `_Replica` is one worker thread calling the net's
+inference forward (`net.inference_fn()`, nn/multilayer.py and
+nn/graph.py) on its own queue of batches, so host-side assembly of the
+next batch overlaps the current forward. Each batch goes to the card in
+one copy and comes back in one (`rows = y.float().cpu().numpy()`: numpy
+has no bf16, so a bf16 net's output widens to f32 there). The replicas
+share the card's default stream, so that fetch also waits for their
+kernels. A worker dying mid-batch fails THAT batch's requests (each
+carries the error, the HTTP layer answers 500, an `error` event keeps
+the traceback) and the replica serves the next batch.
 
-What the engine takes beyond that:
+**Generation.** Each admitted request holds a decode SLOT: its prompt
+prefills the slot's cache row chunk by chunk, interleaved with the
+running decode batch so a long prompt never stalls the other slots'
+tokens; then every decode step extends all active slots by one greedy
+token. N generated tokens cost a prefill plus N single-token steps.
+Page accounting, and exhaustion that queues instead of crashing, live
+in serving/kvcache.py. `GenerationEngine` takes `replicas` (workers on
+the one card, each with its own cache, page pool, slot machine and
+thread), `speculative_k` (0, or >= 2: a fixed-shape verify step over
+[n_slots, k] windows of the true last token and k-1 host-side n-gram
+drafts, serving/speculative.py) and `kv_dtype` ("f32" | "int8").
 
-* `replicas` — workers dealt requests round-robin on the one card, each
-  with its own cache, page pool, slot machine and thread;
-* `speculative_k` (0, or >= 2) — the decode step becomes a fixed-shape
-  verify step over [n_slots, k] windows: each active slot's true last
-  token followed by k-1 host-side n-gram drafts
-  (serving/speculative.py); the greedy acceptance mask turns the k
-  verify rows into 1..k emitted tokens, each a model argmax given
-  exactly its prefix;
-* `kv_dtype` ("f32" | "int8") — the int8 paged cache (codes plus
-  per-page scales) through the same three step functions;
-* `recorder` — the telemetry recorder (default `telemetry.get_default()`):
-  `compile`, `prefill_chunk`, `decode_step` and `verify_step` spans and
-  `page_pool`, `draft` and `request` events with the JAX package's fields.
+**Shapes.** PyTorch has no jit to count, so `trace_count` counts the
+first time each shape (a predict bucket, a prefill bucket, the decode
+or verify step) reaches a worker: warmup runs every shape the traffic
+can give, so after it the count is frozen, as the JAX contract says, and
+the first sight runs under a `compile` span. Both engines record to
+`recorder` (default `telemetry.get_default()`) with the JAX package's
+span, event and field names.
 
-PyTorch has no jit to count, so `trace_count` counts the first time each
-step shape (a prefill bucket, the decode step, the verify step) reaches
-a step function: warmup runs every shape the traffic can give, so after
-it the count is frozen, as the JAX contract says. The fleet (`checkpoint`
-restore, `faults` injection, reap/respawn, autoscaling) waits for the
-port's fleet slice; the memory sampler and the cost book for its
-telemetry slice (`stats()["memory"]` is None, `peak_flops` 0).
+**Fleet.** Every worker reads its params through the engine's
+`WeightStore` (serving/fleet.py) exactly once per batch or step, so a
+hot-swap flip lands between batches and each predict `request` event
+names its `weight_gen`. `checkpoint` restores the net before warmup
+(util/checkpoint.py); `faults` takes replica-scoped chaos specs
+(distributed/faults.py); workers carry a lifecycle (warming -> serving
+-> draining / dead -> retired) and a heartbeat, and the `fleet_*`
+methods, `add_replica` and `retire_replica` are what
+`fleet.FleetSupervisor` drives. The memory sampler and the cost book
+wait for the telemetry slice (ROADMAP Queue A item A9):
+`stats()["memory"]` is None and `peak_flops` 0.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
 import time
 import traceback
@@ -45,15 +60,17 @@ from collections import deque
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.serving.batcher import (DecodeSlots, GenRequest,
+from deeplearning4j_tpu_torch.serving.batcher import (Batch, Batcher,
+                                                      DecodeSlots, GenRequest,
                                                       _req_counter)
-from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
-from deeplearning4j_tpu_torch.serving.fleet import WeightStore
+from deeplearning4j_tpu_torch.serving.buckets import Bucket, BucketLattice
+from deeplearning4j_tpu_torch.serving.fleet import (ReplicaFaultInjector,
+                                                    ReplicaKilled,
+                                                    WeightStore,
+                                                    restore_for_serving)
 from deeplearning4j_tpu_torch.serving.kvcache import CachePlan
 from deeplearning4j_tpu_torch.serving.speculative import (NgramProposer,
                                                           accept_greedy)
-
-_FLEET_SLICE = "waits for the port's fleet slice (ROADMAP Queue A item 6)"
 
 
 class QueueFullError(RuntimeError):
@@ -66,6 +83,516 @@ def _token_ids(probs: torch.Tensor) -> np.ndarray:
     the step's one batch-boundary sync."""
     return probs.argmax(-1).to(torch.int32).cpu().numpy()
 
+
+def _injector(faults, recorder):
+    if faults is None or isinstance(faults, ReplicaFaultInjector):
+        return faults
+    return ReplicaFaultInjector(faults, recorder)
+
+
+class _Replica:
+    """One predict worker: its batch queue, its thread, its set of seen
+    bucket shapes (the trace count). Params come from the engine's
+    `WeightStore`, read once per batch. Lifecycle, heartbeat and the
+    chaos injector are what `fleet.FleetSupervisor` supervises."""
+
+    def __init__(self, index: int, net, recorder, weights: WeightStore,
+                 faults: ReplicaFaultInjector | None = None):
+        self.index = index
+        self.net = net
+        self.recorder = recorder
+        self.weights = weights
+        self.faults = faults
+        self.queue: queue.Queue = queue.Queue()
+        # guards the counters: updated on the worker thread, read by
+        # describe()/stats() on the control plane
+        self._mu = threading.Lock()
+        self.trace_count = 0
+        self.served = 0
+        self.failed = 0
+        self.batches_run = 0
+        self.alive = True
+        self.lifecycle = "warming"
+        self.last_beat = 0.0
+        self.current_batch: Batch | None = None
+        self._seen_shapes: set = set()
+        self._fwd = net.inference_fn()
+        self._thread: threading.Thread | None = None
+
+    # ----------------------------------------------------------- forward
+    @staticmethod
+    def _shape_key(feats: np.ndarray, mask) -> tuple:
+        return (feats.shape, str(feats.dtype), mask is not None)
+
+    def _first_sight(self, key) -> bool:
+        """Whether bucket shape `key` runs for the first time on this
+        replica; the first sight bumps the trace count."""
+        if key in self._seen_shapes:
+            return False
+        self._seen_shapes.add(key)
+        with self._mu:
+            self.trace_count += 1
+        return True
+
+    def forward(self, ws, features: np.ndarray, mask) -> np.ndarray:
+        """One padded batch through the net: one copy to the card, the
+        forward, one fetch of the output rows (f32) to the host."""
+        dev = self.net.device
+        x = torch.as_tensor(features, device=dev)
+        m = None if mask is None else torch.as_tensor(mask, device=dev)
+        y = self._fwd(ws.params, ws.state, x, m)
+        return y.float().cpu().numpy()  # the batch-boundary fetch
+
+    def fail_batch(self, batch: Batch, exc_or_msg, *, clock,
+                   weight_gen: int | None = None) -> None:
+        """Fail every request of one batch loudly (worker death, reaped
+        hang, drain with no live replica): each carries the error, and
+        telemetry keeps the record."""
+        with self._mu:
+            self.failed += batch.n_real
+        if isinstance(exc_or_msg, BaseException):
+            self.recorder.error(f"replica:{self.index}", exc=exc_or_msg)
+            err = "".join(traceback.format_exception_only(
+                type(exc_or_msg), exc_or_msg)).strip()
+        else:
+            err = str(exc_or_msg)
+            self.recorder.error(f"replica:{self.index}", error=err)
+        t_done = clock()
+        for r in batch.requests:
+            r.error = err
+            r.t_done = t_done
+            self._request_event(r, batch, None, ok=False, error=err,
+                                weight_gen=weight_gen)
+            r.done.set()
+
+    def run_batch(self, batch: Batch, *, clock, sequence: bool) -> None:
+        # the correlation handoff: this batch's trace was rooted by the
+        # batcher on the dispatcher thread; everything this thread emits
+        # for it joins that tree (warmup batches carry no trace)
+        with self.recorder.trace(batch.trace_id,
+                                 parent_id=batch.parent_span):
+            self._run_batch(batch, clock=clock, sequence=sequence)
+
+    def _run_batch(self, batch: Batch, *, clock, sequence: bool) -> None:
+        rec = self.recorder
+        self.current_batch = batch
+        self.last_beat = clock()
+        with self._mu:
+            self.batches_run += 1
+        # the ONE read of the published weight set this batch serves
+        # against; holding `ws` keeps a swapped-out set alive until the
+        # batch is done
+        ws = self.weights.current
+        t0 = time.perf_counter()
+        try:
+            with rec.span("forward", bucket=list(batch.bucket.key()),
+                          replica=self.index, n_real=batch.n_real):
+                if self.faults is not None:
+                    self.faults.check(self.index, "batch",
+                                      self.batches_run)
+                if self._first_sight(self._shape_key(batch.features,
+                                                     batch.mask)):
+                    with rec.span("compile",
+                                  bucket=list(batch.bucket.key()),
+                                  replica=self.index):
+                        rows = self.forward(ws, batch.features, batch.mask)
+                else:
+                    rows = self.forward(ws, batch.features, batch.mask)
+        except ReplicaKilled as exc:
+            # injected death: the in-flight batch fails (the bounded
+            # failure set) and the thread ends; the supervisor requeues
+            # this replica's queue and respawns it. Death is marked
+            # BEFORE the requests complete, so a waiter that saw the
+            # failure also sees the dead replica.
+            self.current_batch = None
+            self.alive = False
+            self.lifecycle = "dead"
+            self.fail_batch(batch, exc, clock=clock,
+                            weight_gen=ws.generation)
+            raise
+        except Exception as exc:  # a worker dying mid-batch: contain it
+            self.fail_batch(batch, exc, clock=clock,
+                            weight_gen=ws.generation)
+            self.current_batch = None
+            return
+        forward_s = time.perf_counter() - t0
+        t_done = clock()
+        for i, r in enumerate(batch.requests):
+            out = rows[i]
+            if sequence:
+                out = out[:r.length]  # drop the time padding
+            r.result = out
+            r.t_done = t_done
+            with self._mu:
+                self.served += 1
+            self._request_event(r, batch, forward_s, ok=True,
+                                weight_gen=ws.generation)
+            r.done.set()
+        self.current_batch = None
+        self.last_beat = clock()
+
+    def _request_event(self, r, batch: Batch, forward_s, *, ok,
+                       error: str | None = None,
+                       weight_gen: int | None = None) -> None:
+        """The per-request record — the only source the traffic replay
+        reads latency from (serving/replay.py `reconstruct`)."""
+        fields = dict(
+            ok=ok, bucket=list(batch.bucket.key()),
+            replica=self.index, n_real=batch.n_real,
+            queue_s=round(r.t_assembled - r.t_enqueue, 6),
+            batch_assemble_s=round(batch.assemble_seconds, 6),
+            total_s=round(r.t_done - r.t_enqueue, 6))
+        fields["weight_gen"] = (self.weights.generation if weight_gen is None
+                                else weight_gen)
+        if forward_s is not None:
+            fields["forward_s"] = round(forward_s, 6)
+        if batch.bucket.seq is not None:
+            fields["seq_len"] = r.length
+            fields["padded_seq"] = batch.bucket.seq
+        if error:
+            fields["error"] = error
+        self.recorder.request(r.request_id, **fields)
+
+    # ---------------------------------------------------------- lifecycle
+    def start(self, clock, sequence: bool) -> None:
+        self.last_beat = clock()
+
+        def loop():
+            while True:
+                batch = self.queue.get()
+                if batch is None:
+                    if self.lifecycle != "dead":
+                        self.lifecycle = "retired"
+                    return
+                try:
+                    self.run_batch(batch, clock=clock, sequence=sequence)
+                except ReplicaKilled:
+                    return  # dead: the supervisor requeues and respawns
+
+        self.lifecycle = "serving"
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name=f"serve-replica-{self.index}")
+        self._thread.start()
+
+    def join(self, timeout: float | None = None) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    def describe(self, now: float | None = None) -> dict:
+        """One /healthz row: lifecycle, counters, heartbeat age."""
+        with self._mu:
+            out = {"index": self.index, "state": self.lifecycle,
+                   "alive": self.alive, "served": self.served,
+                   "failed": self.failed,
+                   "batches_run": self.batches_run}
+        if now is not None:
+            out["last_beat_age_s"] = round(max(0.0, now - self.last_beat),
+                                           3)
+        return out
+
+
+class InferenceEngine:
+    """The predict serving core: the Batcher in front, round-robin
+    replicas behind.
+
+    `net` (a MultiLayerNetwork or a single-input, single-output
+    ComputationGraph) is shared by every replica; its params are read
+    through the `WeightStore`. `sequence=True` pads the first feature
+    axis to the lattice's seq buckets with a [B, T] key mask.
+    `checkpoint` restores the net from a checkpoint directory before
+    anything runs."""
+
+    def __init__(self, net, lattice: BucketLattice | None = None, *,
+                 replicas: int = 1, max_wait_ms: float = 5.0,
+                 sequence: bool = False, checkpoint: str | None = None,
+                 faults=None, recorder=None):
+        if recorder is None:
+            from deeplearning4j_tpu_torch.telemetry import get_default
+
+            recorder = get_default()
+        self.recorder = recorder
+        self.sequence = sequence
+        if net.params is None:
+            net.init()
+        self.restored_step = 0
+        if checkpoint is not None:
+            self.restored_step = restore_for_serving(net, checkpoint)
+        self.net = net
+        # the double-buffered published weight set every replica reads;
+        # a hot-swap (serving/fleet.hot_swap) flips it
+        self.weights = WeightStore(net.params, net.state,
+                                   step=self.restored_step)
+        self.peak_flops = 0.0  # set by the telemetry slice's cost book
+        self.lattice = lattice or BucketLattice()
+        self.batcher = Batcher(self.lattice, max_wait_ms,
+                               sequence=sequence, recorder=recorder)
+        self._clock = self.batcher._clock
+        self._faults = _injector(faults, recorder)
+        self._rcv = threading.Condition()
+        self._next_index = 0
+        self._replicas = [self._new_replica()
+                          for _ in range(max(1, int(replicas)))]
+        self._rr = 0
+        self._dispatcher: threading.Thread | None = None
+        self._started = False
+        self._draining = False
+        self._feature_template: np.ndarray | None = None
+        recorder.meta(role="serving-engine", replicas=len(self._replicas),
+                      sequence=sequence, lattice=self.lattice.describe(),
+                      restored_step=self.restored_step)
+
+    def _new_replica(self) -> _Replica:
+        r = _Replica(self._next_index, self.net, self.recorder,
+                     self.weights, faults=self._faults)
+        self._next_index += 1
+        return r
+
+    # ------------------------------------------------------------- warmup
+    def warmup(self, example_features) -> int:
+        """Run every lattice bucket on every replica once, BEFORE
+        traffic. `example_features` is one request-shaped array (its
+        trailing dims and dtype define the bucket shapes). Returns the
+        number of (replica, bucket) first sights; after this the trace
+        count and the compile-span count are frozen."""
+        self._feature_template = np.asarray(example_features)
+        return sum(self._warm_replica(r) for r in self._replicas)
+
+    def _warm_replica(self, replica: _Replica) -> int:
+        """Run every lattice bucket this replica has not yet seen
+        (warmup, add_replica and the supervisor's respawn all come here;
+        a respawn sees nothing new)."""
+        ex = self._feature_template
+        if ex is None:
+            return 0
+        if replica.lifecycle != "serving":
+            replica.lifecycle = "warming"
+        tail = ex.shape[1:] if self.sequence else ex.shape
+        ws = self.weights.current
+        compiles = 0
+        for bucket in self.lattice.shapes():
+            feats, mask = self._zeros_for(bucket, tail, ex.dtype)
+            if not replica._first_sight(replica._shape_key(feats, mask)):
+                continue
+            with self.recorder.span("compile", bucket=list(bucket.key()),
+                                    replica=replica.index, warmup=True):
+                replica.forward(ws, feats, mask)
+            compiles += 1
+        return compiles
+
+    def _zeros_for(self, bucket: Bucket, tail: tuple, dtype):
+        if self.sequence:
+            feats = np.zeros((bucket.batch, bucket.seq) + tail, dtype)
+            mask = np.ones((bucket.batch, bucket.seq), np.float32)
+            return feats, mask
+        return np.zeros((bucket.batch,) + tail, dtype), None
+
+    # ------------------------------------------------------------ serving
+    def start(self) -> "InferenceEngine":
+        if self._started:
+            return self
+        self._started = True
+        for r in self._replicas:
+            r.start(self._clock, self.sequence)
+
+        def dispatch():
+            while True:
+                batch = self.batcher.next_batch()
+                if batch is None:
+                    break  # draining and empty
+                if not self._dispatch_batch(batch):
+                    # draining with no live replica left
+                    self._replicas[0].fail_batch(
+                        batch, "no live replica during drain",
+                        clock=self._clock)
+            with self._rcv:
+                targets = list(self._replicas)
+            for r in targets:
+                r.queue.put(None)
+
+        self._dispatcher = threading.Thread(target=dispatch, daemon=True,
+                                            name="serve-dispatch")
+        self._dispatcher.start()
+        return self
+
+    def _dispatch_batch(self, batch: Batch) -> bool:
+        """Round-robin one batch over LIVE serving replicas only. The
+        pick AND the queue put happen under the replica lock, so a
+        concurrent retire's drain sentinel can never slip between them.
+        Waits (notified by respawn/add) while no replica can serve;
+        returns False only when draining with none coming back."""
+        with self._rcv:
+            while True:
+                serving = [r for r in self._replicas
+                           if r.alive and r.lifecycle == "serving"]
+                if serving:
+                    replica = serving[self._rr % len(serving)]
+                    self._rr += 1
+                    replica.queue.put(batch)
+                    return True
+                if self._draining:
+                    return False
+                self._rcv.wait(timeout=0.05)
+
+    def submit(self, features, mask=None, request_id=None):
+        features = np.asarray(features)
+        if self._feature_template is not None:
+            # the lattice fixes dtype as well as shape: a JSON round trip
+            # arrives float64/int64, so cast to the warmup template's
+            features = features.astype(self._feature_template.dtype,
+                                       copy=False)
+        return self.batcher.submit(features, mask=mask,
+                                   request_id=request_id)
+
+    def predict(self, features, mask=None, timeout: float = 30.0):
+        """Synchronous convenience: submit + wait. Raises on a failed
+        batch or a timeout."""
+        req = self.submit(features, mask=mask)
+        if not req.wait(timeout):
+            raise TimeoutError(f"request {req.request_id} timed out "
+                               f"after {timeout}s")
+        if req.error is not None:
+            raise RuntimeError(f"request {req.request_id} failed: "
+                               f"{req.error}")
+        return req.result
+
+    # ---------------------------------------------------- fleet lifecycle
+    def fleet_workers(self) -> list:
+        with self._rcv:
+            return list(self._replicas)
+
+    def fleet_snapshot(self) -> dict:
+        """The autoscale loop's engine-side signals."""
+        with self._rcv:
+            n_serving = sum(1 for r in self._replicas
+                            if r.alive and r.lifecycle == "serving")
+            n_replicas = sum(1 for r in self._replicas
+                             if r.alive and r.lifecycle
+                             in ("warming", "serving"))
+        return {"queue_depth": self.batcher.depth,
+                "n_serving": n_serving, "n_replicas": n_replicas}
+
+    def fleet_reap(self, replica: _Replica, reason: str = "died") -> int:
+        """Take a dead or hung replica out of dispatch: fail its
+        in-flight batch (a wedged thread can never finish it; the kill
+        path already failed its own), then drain its QUEUED batches back
+        to the batcher's FIFO head. Returns the requeued request count."""
+        with self._rcv:
+            replica.alive = False
+            replica.lifecycle = "dead"
+        inflight = replica.current_batch
+        if inflight is not None:
+            replica.current_batch = None
+            replica.fail_batch(inflight, f"replica {replica.index} "
+                                         f"reaped ({reason})",
+                               clock=self._clock)
+        requeued = []
+        while True:
+            try:
+                b = replica.queue.get_nowait()
+            except queue.Empty:
+                break
+            if b is not None:
+                requeued.extend(b.requests)
+        if requeued:
+            self.batcher.requeue(requeued)
+        return len(requeued)
+
+    def fleet_respawn(self, replica: _Replica) -> _Replica:
+        """Bring a reaped replica back: a fresh queue and thread, warmup
+        re-run before re-admission (no new shape: the trace count stays
+        frozen), then back into dispatch."""
+        replica.queue = queue.Queue()
+        replica.batches_run = 0
+        replica.current_batch = None
+        replica.alive = True
+        replica.lifecycle = "warming"
+        self._warm_replica(replica)
+        replica.start(self._clock, self.sequence)
+        with self._rcv:
+            self._rcv.notify_all()
+        return replica
+
+    def add_replica(self) -> _Replica:
+        """Scale UP one replica: build, warm every lattice bucket (the
+        compiles are warmup-flagged), start, admit to dispatch."""
+        with self._rcv:
+            replica = self._new_replica()
+            self._replicas.append(replica)
+        self._warm_replica(replica)
+        if self._started:
+            replica.start(self._clock, self.sequence)
+        with self._rcv:
+            self._rcv.notify_all()
+        return replica
+
+    def retire_replica(self) -> _Replica | None:
+        """Scale DOWN one replica, gracefully: the newest serving
+        replica stops receiving batches (`draining`), finishes what is
+        already queued, and its thread ends. The last live replica is
+        never retired."""
+        with self._rcv:
+            serving = [r for r in self._replicas
+                       if r.alive and r.lifecycle == "serving"]
+            if len(serving) <= 1:
+                return None
+            replica = serving[-1]
+            replica.lifecycle = "draining"
+            # the sentinel lands under the lock the dispatcher picks and
+            # puts under: no batch can follow it into the queue
+            replica.queue.put(None)
+        return replica
+
+    # -------------------------------------------------------------- drain
+    def drain(self, timeout: float = 30.0) -> None:
+        """Graceful shutdown: refuse new requests, flush every pending
+        batch through the replicas, join the threads. Every admitted
+        request completes (or fails loudly) before this returns."""
+        self._draining = True
+        with self._rcv:
+            self._rcv.notify_all()
+        self.batcher.close()
+        if self._dispatcher is not None:
+            self._dispatcher.join(timeout)
+        for r in self.fleet_workers():
+            if r.lifecycle == "dead":
+                continue  # a wedged thread never joins; it is a daemon
+            r.join(timeout)
+        self.recorder.event("span", name="drain", ok=True, seconds=0.0,
+                            served=self.served, failed=self.failed)
+
+    # -------------------------------------------------------------- stats
+    @property
+    def trace_count(self) -> int:
+        return sum(r.trace_count for r in self.fleet_workers())
+
+    @property
+    def served(self) -> int:
+        return sum(r.served for r in self.fleet_workers())
+
+    @property
+    def failed(self) -> int:
+        return sum(r.failed for r in self.fleet_workers())
+
+    def stats(self) -> dict:
+        now = self._clock()
+        fleet = [r.describe(now) for r in self.fleet_workers()]
+        return {
+            "replicas": len(fleet),
+            "served": self.served,
+            "failed": self.failed,
+            "queue_depth": self.batcher.depth,
+            "trace_count": self.trace_count,
+            "restored_step": self.restored_step,
+            "lattice": self.lattice.describe(),
+            "sequence": self.sequence,
+            "fleet": fleet,
+            "weights": self.weights.describe(),
+            "memory": None,
+            "peak_flops": self.peak_flops,
+        }
+
+
+# --------------------------------------------------------------- generation
 
 class _GenWorker:
     """One generation replica: its KV-cache allocation, page pool,
@@ -81,7 +608,8 @@ class _GenWorker:
 
     def __init__(self, index: int, net, lattice: BucketLattice,
                  plan: CachePlan, prefill_chunk: int, max_queue: int,
-                 recorder, weights: WeightStore, speculative_k: int = 0):
+                 recorder, weights: WeightStore, speculative_k: int = 0,
+                 faults: ReplicaFaultInjector | None = None):
         self.index = index
         self.net = net
         self.lattice = lattice
@@ -90,6 +618,7 @@ class _GenWorker:
         self.max_queue = max_queue
         self.recorder = recorder
         self.weights = weights
+        self.faults = faults
         self.pool = plan.make_pool()
         self.slots = DecodeSlots(plan.n_slots)
         self.speculative_k = int(speculative_k)
@@ -112,6 +641,7 @@ class _GenWorker:
         self.alive = True
         self.lifecycle = "warming"
         self.last_beat = 0.0
+        self.current_batch = None  # the active slot rows mid-step
         self._seen_shapes: set = set()
         self.pending: deque[GenRequest] = deque()
         self._cv = threading.Condition()
@@ -302,9 +832,13 @@ class _GenWorker:
         ws = self.weights.current
         with self._mu:
             self.decode_steps_run += 1
+        self.current_batch = list(active)
         try:
             with self.recorder.span("decode_step", replica=self.index,
                                     n_active=len(active)):
+                if self.faults is not None:
+                    self.faults.check(self.index, "decode",
+                                      self.decode_steps_run)
                 if self._first_sight("decode"):
                     with self.recorder.span("compile", kind="decode",
                                             shape=[B, self.plan.capacity],
@@ -312,10 +846,15 @@ class _GenWorker:
                         toks = self._run_decode(ws, padded_tokens, pos)
                 else:
                     toks = self._run_decode(ws, padded_tokens, pos)
+        except ReplicaKilled as exc:
+            self._die(active, exc, clock)
+            raise
         except Exception as exc:  # the batch's requests fail; serve on
             for i in active:
                 self._fail_slot(i, exc, clock)
+            self.current_batch = None
             return
+        self.current_batch = None
         now = clock()
         for i in active:
             slot = self.slots.slots[i]
@@ -353,9 +892,13 @@ class _GenWorker:
         with self._mu:
             self.decode_steps_run += 1
             self.verify_steps_run += 1
+        self.current_batch = list(active)
         try:
             with self.recorder.span("verify_step", replica=self.index,
                                     n_active=len(active), k=K):
+                if self.faults is not None:
+                    self.faults.check(self.index, "decode",
+                                      self.decode_steps_run)
                 if self._first_sight("verify"):
                     with self.recorder.span(
                             "compile", kind="verify",
@@ -364,10 +907,15 @@ class _GenWorker:
                         toks = self._run_verify(ws, padded_windows, pos)
                 else:
                     toks = self._run_verify(ws, padded_windows, pos)
+        except ReplicaKilled as exc:
+            self._die(active, exc, clock)
+            raise
         except Exception as exc:
             for i in active:
                 self._fail_slot(i, exc, clock)
+            self.current_batch = None
             return
+        self.current_batch = None
         now = clock()
         step_emitted = 0
         step_accepted = 0
@@ -398,6 +946,17 @@ class _GenWorker:
                             overhead_us=round(draft_s * 1e6, 2))
 
     # -------------------------------------------------------- lifecycle
+    def _die(self, active: list, exc: Exception, clock) -> None:
+        """An injected mid-step death: every active slot fails (pages
+        released) and the worker is marked dead BEFORE the requests
+        complete, so a waiter that saw the failure also sees the dead
+        worker. Pending requests stay queued for the respawned thread."""
+        self.current_batch = None
+        self.alive = False
+        self.lifecycle = "dead"
+        for i in active:
+            self._fail_slot(i, exc, clock)
+
     def _maybe_complete(self, slot_idx: int, clock) -> None:
         req = self.slots.slots[slot_idx].request
         if len(req.emitted) < req.max_new_tokens:
@@ -451,23 +1010,27 @@ class _GenWorker:
                 self.last_beat = clock()
                 self._admit(clock)
                 progressed = False
-                pi = self.slots.next_prefill()
-                if pi is not None:
-                    self._prefill_chunk(pi, clock)
-                    progressed = True
-                active = self.slots.decoding()
-                if active:
-                    if self._verify is not None:
-                        self._speculative_batch_step(active, clock)
-                    else:
-                        self._decode_batch_step(active, clock)
-                    progressed = True
+                try:
+                    pi = self.slots.next_prefill()
+                    if pi is not None:
+                        self._prefill_chunk(pi, clock)
+                        progressed = True
+                    active = self.slots.decoding()
+                    if active:
+                        if self._verify is not None:
+                            self._speculative_batch_step(active, clock)
+                        else:
+                            self._decode_batch_step(active, clock)
+                        progressed = True
+                except ReplicaKilled:
+                    return  # dead: the fleet supervisor respawns
                 if progressed:
                     continue
                 with self._cv:
                     if (self._closed and not self.pending
                             and not self.slots.busy()):
-                        self.lifecycle = "retired"
+                        if self.lifecycle != "dead":
+                            self.lifecycle = "retired"
                         return
                     if not self.pending or self.slots.free_index() is None:
                         self._cv.wait(timeout=0.05)
@@ -476,6 +1039,34 @@ class _GenWorker:
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name=f"gen-replica-{self.index}")
         self._thread.start()
+
+    def respawn(self, clock) -> None:
+        """Fleet-supervisor respawn: a fresh thread over the same step
+        functions and KV cache (warmup re-runs and sees no new shape),
+        pending requests continuing from the worker's own queue."""
+        self.alive = True
+        self.lifecycle = "warming"
+        self.current_batch = None
+        with self._mu:
+            self.decode_steps_run = 0
+        self.warmup()
+        self.start(clock)
+        with self._cv:
+            self._cv.notify_all()
+
+    def reap(self, reason: str, clock) -> int:
+        """Fail every occupied slot (pages released) — the hang case,
+        where the wedged thread can never finish them. Pending requests
+        stay queued for the respawned thread. Returns 0: nothing is
+        re-dispatched elsewhere, the queue is this worker's."""
+        self.alive = False
+        self.lifecycle = "dead"
+        self.current_batch = None
+        exc = RuntimeError(f"gen replica {self.index} reaped ({reason})")
+        for i, s in enumerate(self.slots.slots):
+            if s is not None:
+                self._fail_slot(i, exc, clock)
+        return 0
 
     def close(self) -> None:
         with self._cv:
@@ -518,7 +1109,9 @@ class GenerationEngine:
     (default: the whole allocation) is the page budget admission
     reserves from; `prefill_chunk` (a lattice seq length, default the
     largest) is the longest prompt piece run between two decode steps;
-    `replicas` workers share the card, each with its own cache."""
+    `replicas` workers share the card, each with its own cache;
+    `checkpoint` restores the net first; `faults` takes replica-scoped
+    chaos specs (`r0:kill@decode5`)."""
 
     def __init__(self, net, lattice: BucketLattice, *, slots: int = 4,
                  max_new_tokens: int = 16, page_size: int = 16,
@@ -527,12 +1120,6 @@ class GenerationEngine:
                  replicas: int = 1, checkpoint: str | None = None,
                  speculative_k: int = 0, kv_dtype: str = "f32",
                  faults=None, recorder=None):
-        if checkpoint is not None:
-            raise NotImplementedError(
-                f"GenerationEngine(checkpoint=...) {_FLEET_SLICE}")
-        if faults is not None:
-            raise NotImplementedError(
-                f"GenerationEngine(faults=...) {_FLEET_SLICE}")
         if recorder is None:
             from deeplearning4j_tpu_torch.telemetry import get_default
 
@@ -544,8 +1131,12 @@ class GenerationEngine:
         if net.params is None:
             net.init()
         self.restored_step = 0
+        if checkpoint is not None:
+            self.restored_step = restore_for_serving(net, checkpoint)
         self.net = net
-        self.weights = WeightStore(net.params, net.state)
+        self.weights = WeightStore(net.params, net.state,
+                                   step=self.restored_step)
+        self._faults = _injector(faults, recorder)
         self.lattice = lattice
         chunk = (lattice.max_seq if prefill_chunk is None
                  else int(prefill_chunk))
@@ -567,7 +1158,8 @@ class GenerationEngine:
         self._workers = [
             _GenWorker(i, net, lattice, self.plan, chunk, max_queue,
                        recorder, self.weights,
-                       speculative_k=self.speculative_k)
+                       speculative_k=self.speculative_k,
+                       faults=self._faults)
             for i in range(max(1, int(replicas)))]
         # set by the telemetry slice (cost book, memory sampler)
         self.peak_flops = 0.0
@@ -637,12 +1229,30 @@ class GenerationEngine:
                                f"{req.error}")
         return list(req.emitted)
 
+    # ---------------------------------------------------- fleet lifecycle
+    def fleet_workers(self) -> list:
+        return list(self._workers)
+
+    def fleet_snapshot(self) -> dict:
+        n_serving = sum(1 for w in self._workers
+                        if w.alive and w.lifecycle == "serving")
+        return {"queue_depth": sum(w.depth for w in self._workers),
+                "n_serving": n_serving, "n_replicas": n_serving}
+
+    def fleet_reap(self, worker, reason: str = "died") -> int:
+        return worker.reap(reason, self._clock)
+
+    def fleet_respawn(self, worker) -> None:
+        worker.respawn(self._clock)
+
     def drain(self, timeout: float = 30.0) -> None:
         """Refuse new requests, finish the admitted and queued ones, and
         stop the worker threads."""
         for w in self._workers:
             w.close()
         for w in self._workers:
+            if w.lifecycle == "dead":
+                continue  # a wedged daemon thread never joins
             w.join(timeout)
         self.recorder.event("span", name="drain", ok=True, seconds=0.0,
                             served=self.served, failed=self.failed)

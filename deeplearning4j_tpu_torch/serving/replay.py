@@ -1,6 +1,34 @@
-"""Traffic replay, the generation half (JAX counterpart
-deeplearning4j_tpu/serving/replay.py): the serving bench core behind the
-`serving_generate` and `serving_speculative` rows.
+"""Traffic replay (JAX counterpart deeplearning4j_tpu/serving/replay.py):
+the serving bench core behind the `serving_replay`, `serving_generate`,
+`serving_speculative` and fleet rows. Every scoreboard is rebuilt from
+the telemetry JSONL alone, and reads the JAX package's logs and the
+port's alike: both recorders write the same fields.
+
+The predict replay:
+
+* `make_trace` — a SEEDED mixed-length, bursty request trace: every
+  `burst`-th request opens a new exponential gap, the burst shares its
+  instant, lengths draw from a weighted set. Same seed, same trace.
+* `replay_http` — drives a running ServingServer's POST /predict at the
+  trace's arrival offsets (a thread pool wider than the burst), checking
+  only that each reply succeeded.
+* `reconstruct` — p50/p99 latency from `request` events' `total_s`,
+  sustained QPS from first enqueue to last completion, and the retrace
+  count from non-warmup `compile` spans; `metric_lines` turns it into
+  the bench rows.
+* `run_replay` — the end-to-end run (bench mode `serving_replay`): the
+  tiny LM or MLP, a warmed `InferenceEngine`, HTTP, drain, scoreboard.
+
+The fleet replay: `run_fleet_replay` drives one seeded bursty trace
+through two arms — a fixed single replica, and an autoscaling arm under
+a `FleetSupervisor` that also absorbs a replica-kill chaos spec and a
+mid-traffic weight hot-swap from a checkpoint it publishes (the port's
+format, util/checkpoint.py). `reconstruct_fleet` adds `swap_ms`,
+`respawn_ms`, the failed requests, the autoscale occupancy and the
+weight generations seen in `request` events; `fleet_metric_lines` gives
+the `fleet_*` rows.
+
+The generation half:
 
 * `make_generation_trace` — a SEEDED bursty trace with a prompt-length x
   output-length mix: same seed, same traffic.
@@ -24,15 +52,14 @@ deeplearning4j_tpu/serving/replay.py): the serving bench core behind the
   bytes-per-slot ratio).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
-Latency rows carry ``lower_is_better: true``. The /predict replay
-(`run_replay`, `reconstruct`) and the fleet replay wait for their
-slices.
+Latency rows carry ``lower_is_better: true``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import json
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -52,6 +79,156 @@ def _percentile(sorted_vals, q: float) -> float:
     k = min(len(sorted_vals) - 1,
             max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
     return float(sorted_vals[k])
+
+
+def _events(telemetry_path: str):
+    """Every JSON event of a telemetry file, skipping other lines."""
+    with open(telemetry_path) as fh:
+        for raw in fh:
+            raw = raw.strip()
+            if not raw.startswith("{"):
+                continue
+            try:
+                yield json.loads(raw)
+            except json.JSONDecodeError:
+                continue
+
+
+# --------------------------------------------------------- predict replay
+
+def make_trace(seed: int = 0, n_requests: int = 80, *,
+               mean_gap_s: float = 0.002, burst: int = 4,
+               lengths=(8, 16, 32), weights=None) -> list:
+    """[(arrival_offset_s, seq_len), ...] sorted by offset. Bursty:
+    every `burst`-th arrival opens a fresh exponential gap scaled by the
+    burst width (keeping the MEAN rate at 1/mean_gap_s); the requests
+    inside a burst land at the same instant — the pile-up the batcher's
+    coalescing exists for."""
+    rng = np.random.default_rng(seed)
+    lengths = list(lengths)
+    if weights is not None:
+        weights = np.asarray(weights, np.float64)
+        weights = weights / weights.sum()
+    t = 0.0
+    trace = []
+    for i in range(n_requests):
+        if i % max(1, burst) == 0 and i:
+            t += float(rng.exponential(mean_gap_s * burst))
+        seq_len = int(rng.choice(lengths, p=weights))
+        trace.append((round(t, 6), seq_len))
+    return trace
+
+
+def trace_stats(trace) -> dict:
+    lens = [l for _, l in trace]
+    return {"n_requests": len(trace),
+            "span_s": trace[-1][0] if trace else 0.0,
+            "len_min": min(lens), "len_max": max(lens)}
+
+
+def replay_http(url: str, trace, *, make_features, time_scale: float = 1.0,
+                timeout_s: float = 60.0) -> dict:
+    """POST every trace entry to `url`/predict at its (scaled) arrival
+    offset. `make_features(index, seq_len)` builds the request payload —
+    deterministic per index, so reruns send identical bytes. Returns
+    client-side success counts only; the scoreboard comes from
+    `reconstruct` over the telemetry log."""
+    t_start = time.monotonic()
+
+    def one(idx_entry):
+        i, (offset, seq_len) = idx_entry
+        delay = offset * time_scale - (time.monotonic() - t_start)
+        if delay > 0:
+            time.sleep(delay)
+        feats = np.asarray(make_features(i, seq_len))
+        body = json.dumps({"features": feats.tolist(),
+                           "id": f"replay-{i}"}).encode()
+        req = urllib.request.Request(
+            f"{url}/predict", data=body,
+            headers={"Content-Type": "application/json"})
+        # one retry: a burst can race the ThreadingHTTPServer's accept
+        # backlog on a loaded host — a reset on first contact is the
+        # client environment, not a serving result
+        last = None
+        for _attempt in range(2):
+            try:
+                with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+                    json.loads(resp.read())
+                    return None
+            except Exception as exc:
+                last = exc
+        return f"replay-{i}: {last!r}"
+
+    with concurrent.futures.ThreadPoolExecutor(_CLIENT_WORKERS) as pool:
+        results = list(pool.map(one, enumerate(trace)))
+    errors = [r for r in results if r is not None]
+    return {"sent": len(results), "ok": len(results) - len(errors),
+            "failed": len(errors), "errors": errors[:5],
+            "wall_s": round(time.monotonic() - t_start, 3)}
+
+
+def reconstruct(telemetry_path: str) -> dict:
+    """The predict scoreboard from the telemetry JSONL alone:
+
+    * latency percentiles (ms) over successful `request` events'
+      `total_s` (enqueue -> result: queue + assemble + forward);
+    * sustained QPS = completed / (last completion - first enqueue),
+      both from each event's `ts` (completion) and `total_s`;
+    * `recompiles_after_warmup` = `compile` spans without the warmup
+      flag — above 0 means a shape escaped the bucket lattice.
+    """
+    requests, compiles, warm_compiles = [], 0, 0
+    for ev in _events(telemetry_path):
+        kind = ev.get("event")
+        if kind == "request":
+            requests.append(ev)
+        elif kind == "span" and ev.get("name") == "compile":
+            if ev.get("warmup"):
+                warm_compiles += 1
+            else:
+                compiles += 1
+    ok = [ev for ev in requests if ev.get("ok")]
+    lat_ms = sorted(1000.0 * float(ev["total_s"]) for ev in ok
+                    if "total_s" in ev)
+    out = {
+        "n_requests": len(requests),
+        "n_ok": len(ok),
+        "n_failed": len(requests) - len(ok),
+        "p50_ms": round(_percentile(lat_ms, 50), 3),
+        "p99_ms": round(_percentile(lat_ms, 99), 3),
+        "warmup_compiles": warm_compiles,
+        "recompiles_after_warmup": compiles,
+    }
+    if ok:
+        first_enqueue = min(float(ev["ts"]) - float(ev["total_s"])
+                            for ev in ok)
+        last_done = max(float(ev["ts"]) for ev in ok)
+        span = max(last_done - first_enqueue, 1e-9)
+        out["qps"] = round(len(ok) / span, 2)
+        out["span_s"] = round(span, 3)
+    else:
+        out["qps"] = 0.0
+        out["span_s"] = 0.0
+    return out
+
+
+def metric_lines(scoreboard: dict, prefix: str = "serving_replay") -> list:
+    """The bench metric lines of a predict scoreboard: QPS is
+    higher-is-better (the default), the latency and retrace lines carry
+    ``lower_is_better``."""
+    return [
+        {"metric": f"{prefix}_qps", "value": scoreboard["qps"],
+         "unit": "req/sec", "n_ok": scoreboard["n_ok"],
+         "n_failed": scoreboard["n_failed"]},
+        {"metric": f"{prefix}_p50_ms", "value": scoreboard["p50_ms"],
+         "unit": "ms", "lower_is_better": True},
+        {"metric": f"{prefix}_p99_ms", "value": scoreboard["p99_ms"],
+         "unit": "ms", "lower_is_better": True},
+        {"metric": f"{prefix}_recompiles_after_warmup",
+         "value": scoreboard["recompiles_after_warmup"], "unit": "count",
+         "lower_is_better": True,
+         "warmup_compiles": scoreboard["warmup_compiles"]},
+    ]
 
 
 
@@ -183,35 +360,27 @@ def reconstruct_generation(telemetry_path: str) -> dict:
     occupancy_peak = 0.0
     decode_spans = []
     draft_events, verify_spans = [], []
-    with open(telemetry_path) as fh:
-        for raw in fh:
-            raw = raw.strip()
-            if not raw.startswith("{"):
-                continue
-            try:
-                ev = json.loads(raw)
-            except json.JSONDecodeError:
-                continue
-            kind = ev.get("event")
-            if kind == "request" and ev.get("kind") == "generate":
-                requests.append(ev)
-            elif kind == "span" and ev.get("name") == "compile":
-                if ev.get("warmup"):
-                    warm_compiles += 1
-                else:
-                    compiles += 1
-            elif kind == "span" and ev.get("name") == "decode_step":
-                decode_spans.append(ev)
-            elif kind == "span" and ev.get("name") == "verify_step":
-                verify_spans.append(ev)
-            elif kind == "draft":
-                draft_events.append(ev)
-            elif kind == "page_pool":
-                total = ev.get("pages_total") or 0
-                if total:
-                    occupancy_peak = max(
-                        occupancy_peak,
-                        float(ev.get("pages_in_use", 0)) / total)
+    for ev in _events(telemetry_path):
+        kind = ev.get("event")
+        if kind == "request" and ev.get("kind") == "generate":
+            requests.append(ev)
+        elif kind == "span" and ev.get("name") == "compile":
+            if ev.get("warmup"):
+                warm_compiles += 1
+            else:
+                compiles += 1
+        elif kind == "span" and ev.get("name") == "decode_step":
+            decode_spans.append(ev)
+        elif kind == "span" and ev.get("name") == "verify_step":
+            verify_spans.append(ev)
+        elif kind == "draft":
+            draft_events.append(ev)
+        elif kind == "page_pool":
+            total = ev.get("pages_total") or 0
+            if total:
+                occupancy_peak = max(
+                    occupancy_peak,
+                    float(ev.get("pages_in_use", 0)) / total)
     ok = [ev for ev in requests if ev.get("ok")]
     ttft_ms = sorted(1000.0 * float(ev["ttft_s"]) for ev in ok
                      if "ttft_s" in ev)
@@ -568,3 +737,316 @@ def _tiny_lm(max_seq: int, vocab: int = 64, device=None):
                          device=device)
     net.init()
     return net
+
+
+def _tiny_mlp(n_in: int = 8, n_out: int = 4, device=None):
+    """The predict replays' MLP: dense 8 -> 16 (relu) -> softmax 4,
+    configuration seed 7."""
+    from deeplearning4j_tpu_torch.nn.conf import (DenseLayer,
+                                                  NeuralNetConfiguration,
+                                                  OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(7).list()
+            .layer(DenseLayer(n_in=n_in, n_out=16, activation="relu"))
+            .layer(OutputLayer(n_in=16, n_out=n_out, activation="softmax",
+                               loss_function="mcxent"))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def run_replay(*, model: str = "lm", seed: int = 0, n_requests: int = 60,
+               burst: int = 4, mean_gap_s: float = 0.002,
+               lengths=(8, 16, 32), batch_sizes=(1, 2, 4),
+               max_wait_ms: float = 4.0, replicas: int = 1,
+               telemetry_path: str, artifact_path: str | None = None,
+               checkpoint: str | None = None, chaos: str | None = None,
+               emit=None, device=None) -> dict:
+    """End-to-end predict replay (bench mode `serving_replay`): build the
+    tiny model ("lm" or "mlp"), warm the bucket lattice, replay the
+    seeded trace over HTTP, drain, reconstruct from the telemetry JSONL,
+    and optionally write the SERVE artifact. `emit` receives each metric
+    line. `chaos` is a replica-scoped fault spec (`r0:kill@batch3`): the
+    faults fire inside the replicas and a FleetSupervisor heals them
+    live. Setup errors raise; a replay with failed requests is reported,
+    not raised."""
+    from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.server import ServingServer
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+
+    sequence = model == "lm"
+    rec = Recorder(telemetry_path)
+    rec.meta(role="trafficreplay", model=model, seed=seed,
+             n_requests=n_requests, burst=burst, lengths=list(lengths))
+    feat_rng = np.random.default_rng(seed + 1)
+    if sequence:
+        lattice = BucketLattice(batch_sizes=batch_sizes,
+                                seq_lens=sorted(set(lengths)))
+        net = _tiny_lm(max_seq=max(lengths), device=device)
+        # every seq bucket must have an attention path
+        lattice.validate_attention(head_dim=16)
+        tokens = feat_rng.integers(0, 64, (n_requests, max(lengths)))
+
+        def make_features(i, seq_len):
+            return tokens[i, :seq_len]
+    else:
+        lattice = BucketLattice(batch_sizes=batch_sizes)
+        net = _tiny_mlp(device=device)
+        feats = feat_rng.normal(size=(n_requests, 8)).astype(np.float32)
+
+        def make_features(i, seq_len):
+            return feats[i]
+
+    engine = InferenceEngine(net, lattice, replicas=replicas,
+                             max_wait_ms=max_wait_ms, sequence=sequence,
+                             checkpoint=checkpoint, faults=chaos,
+                             recorder=rec)
+    warm = engine.warmup(make_features(0, max(lengths) if sequence else 0))
+    server = ServingServer(engine, port=0).start()
+    supervisor = None
+    if chaos is not None:
+        # chaos without a healer would just bleed: the supervisor reaps
+        # the injected deaths and respawns, live, during the replay
+        from deeplearning4j_tpu_torch.serving.fleet import (FleetSupervisor,
+                                                            RespawnBackoff)
+
+        supervisor = FleetSupervisor(
+            engine, death_after_s=1.0,
+            backoff=RespawnBackoff(base_s=0.01, jitter_frac=0.0),
+            recorder=rec).run_in_thread(0.02)
+    trace = make_trace(seed, n_requests, mean_gap_s=mean_gap_s,
+                       burst=burst, lengths=lengths)
+    try:
+        client = replay_http(server.url, trace, make_features=make_features)
+    finally:
+        if supervisor is not None:
+            supervisor.stop()
+        server.stop()
+        rec.close()
+    scoreboard = (reconstruct_fleet(telemetry_path) if chaos is not None
+                  else reconstruct(telemetry_path))
+    scoreboard["client"] = client
+    scoreboard["warmed_buckets"] = warm
+    lines = metric_lines(scoreboard)
+    if emit is not None:
+        for line in lines:
+            emit(line)
+    if artifact_path:
+        scoreboard["summary"] = write_artifact(artifact_path, lines)
+        scoreboard["artifact"] = artifact_path
+    scoreboard["lines"] = lines
+    return scoreboard
+
+
+# ---------------------------------------------------------- fleet replay
+
+def reconstruct_fleet(telemetry_path: str) -> dict:
+    """The fleet-operations scoreboard — `reconstruct` plus, from the
+    telemetry JSONL alone:
+
+    * `swap_ms` — the slowest successful `weight_swap` restore; `n_swaps`
+      counts them, `swap_rejected` the refusals;
+    * `respawn_ms` — the slowest `replica-respawn` fault event (reap ->
+      re-warm -> re-admit), with `n_respawns` and `n_replica_deaths`;
+    * `autoscale_occupancy` — mean of `n_replicas / max_replicas` over
+      `autoscale` events, with `scale_ups` and `scale_downs`;
+    * `weight_generations` — the distinct `weight_gen` values of
+      `request` events: a hot-swap's flip shows here or it never reached
+      traffic.
+    """
+    sb = reconstruct(telemetry_path)
+    swap_ms, respawn_ms, occ = [], [], []
+    swaps_rejected = deaths = ups = downs = 0
+    gens = set()
+    for ev in _events(telemetry_path):
+        kind = ev.get("event")
+        if kind == "weight_swap":
+            if ev.get("ok"):
+                swap_ms.append(float(ev.get("restore_ms", 0.0)))
+            else:
+                swaps_rejected += 1
+        elif kind == "fault":
+            if ev.get("kind") == "replica-respawn":
+                respawn_ms.append(float(ev.get("respawn_ms", 0.0)))
+            elif ev.get("kind") == "replica-dead":
+                deaths += 1
+        elif kind == "autoscale":
+            total = ev.get("max_replicas") or 0
+            if total:
+                occ.append(float(ev.get("n_replicas", 0)) / total)
+            if ev.get("action", 0) > 0:
+                ups += 1
+            elif ev.get("action", 0) < 0:
+                downs += 1
+        elif kind == "request" and "weight_gen" in ev:
+            gens.add(int(ev["weight_gen"]))
+    sb.update({
+        "swap_ms": round(max(swap_ms), 3) if swap_ms else 0.0,
+        "n_swaps": len(swap_ms),
+        "swap_rejected": swaps_rejected,
+        "respawn_ms": round(max(respawn_ms), 3) if respawn_ms else 0.0,
+        "n_respawns": len(respawn_ms),
+        "n_replica_deaths": deaths,
+        "autoscale_occupancy": (round(sum(occ) / len(occ), 4)
+                                if occ else 0.0),
+        "scale_ups": ups,
+        "scale_downs": downs,
+        "weight_generations": sorted(gens),
+    })
+    return sb
+
+
+def fleet_metric_lines(fixed: dict, autoscale: dict,
+                       prefix: str = "fleet") -> list:
+    """Bench metric lines of the two-arm fleet replay. QPS rows are
+    higher-is-better; everything the fleet spends — latency, restore and
+    respawn time, failed requests, held replicas, retraces — carries
+    ``lower_is_better``."""
+    return [
+        {"metric": f"{prefix}_fixed_qps", "value": fixed["qps"],
+         "unit": "req/sec", "n_ok": fixed["n_ok"],
+         "n_failed": fixed["n_failed"]},
+        {"metric": f"{prefix}_fixed_p99_ms", "value": fixed["p99_ms"],
+         "unit": "ms", "lower_is_better": True},
+        {"metric": f"{prefix}_autoscale_qps", "value": autoscale["qps"],
+         "unit": "req/sec", "n_ok": autoscale["n_ok"],
+         "n_failed": autoscale["n_failed"]},
+        {"metric": f"{prefix}_autoscale_p99_ms",
+         "value": autoscale["p99_ms"], "unit": "ms",
+         "lower_is_better": True},
+        {"metric": f"{prefix}_autoscale_occupancy",
+         "value": autoscale["autoscale_occupancy"], "unit": "fraction",
+         "lower_is_better": True, "scale_ups": autoscale["scale_ups"],
+         "scale_downs": autoscale["scale_downs"]},
+        {"metric": f"{prefix}_swap_ms", "value": autoscale["swap_ms"],
+         "unit": "ms", "lower_is_better": True,
+         "n_swaps": autoscale["n_swaps"]},
+        {"metric": f"{prefix}_respawn_ms",
+         "value": autoscale["respawn_ms"], "unit": "ms",
+         "lower_is_better": True,
+         "n_respawns": autoscale["n_respawns"]},
+        {"metric": f"{prefix}_failed_requests",
+         "value": autoscale["n_failed"], "unit": "count",
+         "lower_is_better": True, "n_ok": autoscale["n_ok"]},
+        {"metric": f"{prefix}_recompiles_after_warmup",
+         "value": (fixed["recompiles_after_warmup"]
+                   + autoscale["recompiles_after_warmup"]),
+         "unit": "count", "lower_is_better": True,
+         "warmup_compiles": (fixed["warmup_compiles"]
+                             + autoscale["warmup_compiles"])},
+    ]
+
+
+def run_fleet_replay(*, seed: int = 0, n_requests: int = 120,
+                     burst: int = 8, mean_gap_s: float = 0.004,
+                     batch_sizes=(1, 2, 4), max_wait_ms: float = 3.0,
+                     autoscale_max: int = 3,
+                     chaos: str | None = "r0:kill@batch4",
+                     hot_swap_after: int | None = None,
+                     telemetry_path: str,
+                     artifact_path: str | None = None,
+                     emit=None, device=None) -> dict:
+    """The fleet bench: one seeded bursty trace through two arms —
+
+    * **fixed** — one replica, no supervisor;
+    * **autoscale** — starts at one replica under a `FleetSupervisor`
+      (AutoscalePolicy up to `autoscale_max`), absorbs the replica-kill
+      `chaos` spec mid-traffic, and hot-swaps a checkpoint it publishes
+      (the net's own weights saved at a new step, under
+      `<telemetry_path>.publish`) once `hot_swap_after` requests have
+      completed (default: half the trace).
+
+    Each arm records to its own telemetry file (`<path>.fixed` /
+    `<path>.autoscale`) and reconstructs from it alone; the artifact is
+    the `fleet_*` metric lines and the gate summary."""
+    from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
+    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.fleet import (AutoscalePolicy,
+                                                        FleetSupervisor,
+                                                        RespawnBackoff,
+                                                        hot_swap)
+    from deeplearning4j_tpu_torch.serving.server import ServingServer
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    if hot_swap_after is None:
+        hot_swap_after = n_requests // 2
+    trace = make_trace(seed, n_requests, mean_gap_s=mean_gap_s,
+                       burst=burst, lengths=(8,))
+    feat_rng = np.random.default_rng(seed + 1)
+    feats = feat_rng.normal(size=(n_requests, 8)).astype(np.float32)
+
+    def make_features(i, seq_len):
+        return feats[i]
+
+    def run_arm(arm: str) -> dict:
+        tpath = f"{telemetry_path}.{arm}"
+        rec = Recorder(tpath)
+        rec.meta(role="trafficreplay-fleet", arm=arm, seed=seed,
+                 n_requests=n_requests, burst=burst,
+                 autoscale_max=autoscale_max,
+                 chaos=chaos if arm == "autoscale" else None)
+        engine = InferenceEngine(
+            _tiny_mlp(device=device), BucketLattice(batch_sizes=batch_sizes),
+            max_wait_ms=max_wait_ms, replicas=1,
+            faults=chaos if arm == "autoscale" else None, recorder=rec)
+        engine.warmup(make_features(0, 0))
+        server = ServingServer(engine, port=0).start()
+        supervisor = swapper = None
+        if arm == "autoscale":
+            supervisor = FleetSupervisor(
+                engine, death_after_s=1.0,
+                policy=AutoscalePolicy(max_replicas=autoscale_max),
+                backoff=RespawnBackoff(base_s=0.01, jitter_frac=0.0),
+                recorder=rec).run_in_thread(0.02)
+            # the "training job publishes a step" half: the serving
+            # weights saved under a NEW step, hot-swapped once
+            # `hot_swap_after` requests have completed
+            ckdir = f"{telemetry_path}.publish"
+            publish_net = engine.net.clone()
+            publish_net.iteration_count = engine.restored_step + 1
+            Checkpointer(ckdir).save(publish_net)
+            stop = threading.Event()
+
+            def swap_when_due():
+                deadline = time.monotonic() + 60.0
+                while time.monotonic() < deadline and not stop.is_set():
+                    if engine.served >= hot_swap_after:
+                        hot_swap(engine, ckdir)
+                        return
+                    # the served counter has no notify hook to block on;
+                    # the wait is bounded by the deadline
+                    stop.wait(0.002)
+
+            swapper = threading.Thread(target=swap_when_due, daemon=True,
+                                       name="fleet-replay-swap")
+            swapper.start()
+        try:
+            client = replay_http(server.url, trace,
+                                 make_features=make_features)
+        finally:
+            if swapper is not None:
+                swapper.join(timeout=60)
+                stop.set()
+            if supervisor is not None:
+                supervisor.stop()
+            server.stop()
+            rec.close()
+        sb = reconstruct_fleet(tpath)
+        sb["client"] = client
+        sb["telemetry"] = tpath
+        return sb
+
+    fixed = run_arm("fixed")
+    autoscale = run_arm("autoscale")
+    lines = fleet_metric_lines(fixed, autoscale)
+    if emit is not None:
+        for line in lines:
+            emit(line)
+    out = {"fixed": fixed, "autoscale": autoscale, "lines": lines,
+           "n_ok": fixed["n_ok"] + autoscale["n_ok"]}
+    if artifact_path:
+        out["summary"] = write_artifact(artifact_path, lines)
+        out["artifact"] = artifact_path
+    return out

@@ -1,8 +1,20 @@
-"""The serving front door: a stdlib ThreadingHTTPServer over a
-GenerationEngine (JAX counterpart deeplearning4j_tpu/serving/server.py).
+"""The serving front door: a stdlib ThreadingHTTPServer over an
+InferenceEngine or a GenerationEngine (JAX counterpart
+deeplearning4j_tpu/serving/server.py).
 
 Endpoints (all JSON):
 
+    POST /predict       {"features": [...], "mask": [...]?, "id": "..."?}
+                        -> {"id", "output", "prediction", "timing"}.
+                        The request rides the dynamic batcher: it
+                        coalesces with concurrent requests into a bucket
+                        batch (serving/batcher.py) and returns when its
+                        batch completes. 400 on a malformed body, a
+                        prompt longer than the lattice max or a drain
+                        race; 503 while draining; 504 when the batch
+                        never completed; 500 when the batch's forward
+                        failed (the error names the cause); 404 when the
+                        engine has no predict path.
     POST /generate      {"tokens": [...], "max_new_tokens": N?, "id"?}
                         -> STREAMING NDJSON (one {"token": t, "i": k}
                         line per generated token as it decodes, then a
@@ -12,10 +24,8 @@ Endpoints (all JSON):
                         draining or when the KV-cache page pool and
                         pending queue are saturated, 404 when the engine
                         has no generation path.
-    POST /predict       404 until `InferenceEngine` is ported; the error
-    POST /embed         names the engine the route needs, as /generate
-    POST /search        does. /embed and /search need the embedding
-                        server.
+    POST /embed         404 naming the engine the route needs (the
+    POST /search        embedding server is not ported yet).
     GET  /metrics       Prometheus text exposition (version 0.0.4) from
                         the stdlib registry (telemetry/metrics.py):
                         request latency and TTFT histograms fed live off
@@ -23,10 +33,16 @@ Endpoints (all JSON):
                         KV page-pool occupancy, speculative acceptance
                         gauges, weight generation, per-replica liveness
                         and heartbeat age. The HBM, ledger and MFU
-                        families are registered and stay unset until the
-                        telemetry slice, as they are off-TPU in the JAX
-                        package.
-    GET  /healthz       the engine's stats plus "status"
+                        families (the per-forward MFU gauge needs the
+                        cost book) are registered and stay unset until
+                        the telemetry slice, as they are off-TPU in the
+                        JAX package.
+    GET  /healthz       the engine's stats plus "status": replicas,
+                        counters, per-replica rows ("fleet": index,
+                        state warming/serving/draining/dead/retired,
+                        alive, counters, last_beat_age_s) and the
+                        published weights (generation, step,
+                        last_swap_ts)
     GET  /stats         the engine's stats
     POST /drain         begin graceful drain (stop admitting); the server
                         keeps answering GETs
@@ -110,14 +126,57 @@ class _Handler(BaseHTTPRequestHandler):
             self._generate()
             return
         if route == "/predict":
-            self._json({"error": "this engine does not serve predict "
-                                 "(start an InferenceEngine)"}, 404)
+            self._predict()
             return
         if route in ("/embed", "/search"):
             self._json({"error": "this engine does not serve embeddings "
                                  "(start an EmbeddingServingEngine)"}, 404)
             return
         self._json({"error": f"unknown path {self.path}"}, 404)
+
+    def _predict(self):
+        """One request through the dynamic batcher; the reply carries
+        the output rows, their argmax and the request's timing."""
+        engine = self.serving.engine
+        if not hasattr(engine, "submit"):
+            self._json({"error": "this engine does not serve predict "
+                                 "(start an InferenceEngine)"}, 404)
+            return
+        if self.serving.draining:
+            self._json({"error": "draining; not admitting requests"}, 503)
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            features = np.asarray(payload["features"])
+            mask = payload.get("mask")
+        except (KeyError, ValueError, TypeError) as exc:
+            self._json({"error": f"bad request body: {exc!r}"}, 400)
+            return
+        try:
+            req = engine.submit(features, mask=mask,
+                                request_id=payload.get("id"))
+        except (ValueError, RuntimeError) as exc:
+            # a lattice rejection (prompt longer than the max seq
+            # bucket) or a drain race: the client's error
+            self._json({"error": str(exc)}, 400)
+            return
+        if not req.wait(REQUEST_TIMEOUT_S):
+            self._json({"id": req.request_id, "error": "timed out"}, 504)
+            return
+        if req.error is not None:
+            self._json({"id": req.request_id, "error": req.error}, 500)
+            return
+        out = np.asarray(req.result)
+        self._json({
+            "id": req.request_id,
+            "output": out.tolist(),
+            "prediction": _argmax_last(out),
+            "timing": {
+                "queue_s": round(req.t_assembled - req.t_enqueue, 6),
+                "total_s": round(req.t_done - req.t_enqueue, 6),
+            },
+        })
 
     def _generate(self):
         """Streaming generation: tokens flow to the client line-by-line
@@ -191,6 +250,15 @@ class _Handler(BaseHTTPRequestHandler):
 def _metrics_mod():
     from deeplearning4j_tpu_torch.telemetry import metrics
     return metrics
+
+
+def _argmax_last(out: np.ndarray):
+    """Class index/indices over the last axis — the `predict` view of
+    the raw output ([V] -> int, [T, V] -> [T] ints)."""
+    if out.ndim == 0:
+        return float(out)
+    am = np.argmax(out, axis=-1)
+    return int(am) if am.ndim == 0 else am.tolist()
 
 
 class ServingMetrics:
@@ -341,6 +409,14 @@ class ServingMetrics:
         return self.registry.render()
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # the listen backlog must hold a burst of concurrent connections (the
+    # replay client opens up to 32 at once): past the socketserver default
+    # of 5 the kernel drops the SYN and the client's retransmit waits a
+    # second before the request even reaches the batcher
+    request_queue_size = 128
+
+
 class ServingServer:
     """Facade owning the HTTP listener; the engine is constructed by the
     caller (CLI `serve` or a test) so its lattice/replica/checkpoint
@@ -355,7 +431,7 @@ class ServingServer:
         recorder = getattr(engine, "recorder", None)
         if recorder is not None and hasattr(recorder, "add_sink"):
             recorder.add_sink(self.metrics.on_event)
-        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd = _HTTPServer((host, port), _Handler)
         self._httpd.serving_server = self
         self._thread: Optional[threading.Thread] = None
 

@@ -12,15 +12,18 @@ both). The kinds the serving path emits:
 | `meta` | run header: argv, pid, free-form fields |
 | `span` | a timed region: `name`, `seconds` (host wall clock), `ok`, caller fields |
 | `error` | `where`, `error` (repr), `traceback` (the full string) |
-| `request` | one served request: `id`, `ok`, `kind` ("generate"), `replica`, `prompt_len`, `prompt_bucket`, `new_tokens`, `queue_s`, `ttft_s`, `total_s`, `trace_id` |
+| `request` | one served request. Generation: `id`, `ok`, `kind` ("generate"), `replica`, `prompt_len`, `prompt_bucket`, `new_tokens`, `queue_s`, `ttft_s`, `total_s`, `trace_id`. Predict: `id`, `ok`, `bucket`, `replica`, `n_real`, `queue_s`, `batch_assemble_s`, `total_s`, `forward_s`, `weight_gen`, and `seq_len` / `padded_seq` for sequence models; `error` when it failed |
+| `fault` | an injected replica fault firing (`replica-kill`, `replica-hang`, emitted before it acts) and the fleet supervisor's records (`replica-dead` with `requeued`, `replica-respawn` with `respawn_ms`) |
+| `weight_swap` | one hot-swap attempt (serving/fleet.py): `ok`, `step`, `restore_ms`, `generation`, `error` |
+| `autoscale` | one supervisor autoscale tick: `n_serving`, `n_replicas`, `queue_depth`, `p99_ms`, `action` (+1 / -1 / 0), `max_replicas` |
 | `page_pool` | KV-cache page accounting on every reserve/release: `replica`, `pages_total`, `page_size`, `pages_in_use`, `pages_peak` |
 | `draft` | one speculative verify step: `replica`, `k`, `n_active`, `emitted`, `accepted`, `drafted`, `overhead_us` |
 
 Generation serving names the spans `compile` (the first run of each step
 shape, flagged `warmup` during warmup), `prefill_chunk`, `decode_step`
-and `verify_step`. A span times host wall clock around a step that ends
-in its one batch-boundary fetch of token ids, so it covers the device
-work.
+and `verify_step`; predict serving `queue`, `batch_assemble`, `forward`
+and `compile`. A span times host wall clock around a step that ends in
+its one batch-boundary fetch to the host, so it covers the device work.
 
 **Correlation.** Every event may carry `trace_id` / `span_id` /
 `parent_id`: `span()` allocates a span id and stamps `parent_id` from
@@ -185,6 +188,13 @@ class Recorder:
         """A `request` event: one served request, the traffic replay's
         only scoreboard source."""
         return self.event("request", id=request_id, ok=bool(ok), **fields)
+
+    def fault(self, kind: str, **fields) -> dict:
+        """A `fault` event: an injected failure firing, or a fleet
+        supervisor's reap/respawn record. Emitted BEFORE the fault acts
+        (`_write` flushes per line), so the fault -> recovery timeline
+        reads from the JSONL alone."""
+        return self.event("fault", kind=kind, **fields)
 
     def memory(self, **fields) -> dict:
         raise NotImplementedError(f"Recorder.memory {_TELEMETRY_SLICE}")

@@ -499,17 +499,20 @@ def test_multilayer_params_plumbing_and_clone():
     assert not np.array_equal(twin.params_flat(), net.params_flat())
 
 
-def test_multilayer_raises_for_what_the_slice_does_not_carry():
+def test_multilayer_raises_for_what_the_slice_does_not_carry(tmp_path):
     """Pretraining, TBPTT, the Solver path, rnn_time_step and remat cite
-    A6; meshes A7; checkpoints A5."""
+    A6; meshes A7. Checkpoints came with A5: `resume_from` of a directory
+    with no checkpoint is a cold start, a missing named step raises."""
     x, y = _images(41, 2, 28, 1)
     net = lenet5(device="cpu").init()
     for call, item in ((lambda: net.pretrain(None), "A6"),
                        (lambda: net.rnn_time_step(x), "A6"),
-                       (lambda: net.set_mesh(None), "A7"),
-                       (lambda: net.resume_from("ckpt"), "A5")):
+                       (lambda: net.set_mesh(None), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    assert net.resume_from(str(tmp_path)) == 0
+    with pytest.raises(FileNotFoundError):
+        net.resume_from(str(tmp_path), step=3)
     for field, value in (("optimization_algo", "lbfgs"), ("remat", True)):
         net = lenet5(device="cpu")
         setattr(net.conf.conf, field, value)

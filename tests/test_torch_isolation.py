@@ -130,11 +130,45 @@ def _gumbel_noise():
     return [gumbel_noise(gen, 2, 8)]
 
 
-@pytest.mark.parametrize("make", [_generation_engine, _gumbel_noise],
-                         ids=["GenerationEngine", "gumbel_noise"])
+def _inference_engine():
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  InferenceEngine)
+
+    net = transformer_lm(vocab_size=32, d_model=32, n_heads=2, n_layers=1,
+                         d_ff=32, max_length=32)
+    assert net.device == torch.device("cuda")
+    eng = InferenceEngine(net, BucketLattice((1,), seq_lens=(8,)),
+                          sequence=True)
+    return [t for p in eng.weights.current.params.values()
+            for t in p.values()]
+
+
+def _checkpoint_restore():
+    import tempfile
+
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    def lm(device=None):
+        return transformer_lm(vocab_size=32, d_model=32, n_heads=2,
+                              n_layers=1, d_ff=32, max_length=32,
+                              device=device)
+
+    with tempfile.TemporaryDirectory() as d:
+        Checkpointer(d).save(lm("cpu").init(0), 1)
+        net = lm()
+        assert net.device == torch.device("cuda")
+        assert net.resume_from(d) == 1
+    return [t for p in net.params.values() for t in p.values()]
+
+
+@pytest.mark.parametrize("make", [_generation_engine, _gumbel_noise,
+                                  _inference_engine, _checkpoint_restore],
+                         ids=["GenerationEngine", "gumbel_noise",
+                              "InferenceEngine", "Checkpointer"])
 def test_serving_entry_points_default_to_cuda(make):
-    """The same rule for the speculative and int8 serving slice: with no
-    device named, the engine's cache and the sampling noise go to CUDA."""
+    """The same rule for the serving slices: with no device named, the
+    engines' cache and params, the sampling noise and a restored
+    checkpoint go to CUDA."""
     if torch.cuda.is_available():
         assert all(t.is_cuda for t in make())
     else:

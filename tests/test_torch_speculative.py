@@ -374,7 +374,7 @@ def test_engine_events_carry_the_jax_fields(engine_runs):
         assert t[key] == j[key], key
 
 
-def test_engine_refuses_bad_arguments(tiny_nets):
+def test_engine_refuses_bad_arguments(tiny_nets, tmp_path):
     _, tnet = tiny_nets
     lat = BucketLattice((1,), seq_lens=(8, 16))
     for k in (1, -1):
@@ -384,6 +384,10 @@ def test_engine_refuses_bad_arguments(tiny_nets):
         GenerationEngine(tnet, lat, max_new_tokens=4, speculative_k=6)
     with pytest.raises(ValueError, match="kv_dtype"):
         GenerationEngine(tnet, lat, kv_dtype="int4")
-    for kw in (dict(checkpoint="ckpt"), dict(faults="r0:kill@decode3")):
-        with pytest.raises(NotImplementedError, match="fleet slice"):
-            GenerationEngine(tnet, lat, **kw)
+    # the fleet hooks: a chaos spec serving cannot run is refused; a
+    # checkpoint directory with no committed step is a cold start
+    for spec in ("r0:explode@decode3", "p1:kill@step3"):
+        with pytest.raises(ValueError, match="fault spec"):
+            GenerationEngine(tnet, lat, faults=spec)
+    assert GenerationEngine(tnet, lat, checkpoint=str(tmp_path),
+                            faults="r0:kill@decode3").restored_step == 0
