@@ -6,8 +6,11 @@ and training it (also with attention dropout and at T = 32768 through
 the chunked tier), training Word2Vec through the embedding engine, the
 speculative traffic replay, through the port's hand-written kernels,
 training the image models (LeNet-5, VGG-16, ResNet-20), which run none
-of them, and the predict path and the serving fleet (InferenceEngine,
-/predict, the traffic replays, checkpoints, hot-swap, self-healing).
+of them, the predict path and the serving fleet (InferenceEngine,
+/predict, the traffic replays, checkpoints, hot-swap, self-healing), and
+the rest of nn/ (the MoE LM, remat, the GravesLSTM char model with TBPTT
+and rnn_time_step, LION/LAMB, the solvers, pretraining, nested networks,
+early stopping).
 
 Run from the root of a checkout, with no arguments:
 
@@ -224,8 +227,39 @@ Phases, each of which exits non-zero when it fails:
    `r0:kill@decode5` under a `FleetSupervisor`: the killed requests
    fail, the pool empties, the worker respawns with no new shape and the
    later requests complete.
+19. The rest of nn/ (after phase 18). 19a: the MoE LM at bench.py's
+   `moe` width (vocab 10000, d_model 256, 2 heads, 6 layers, 8 experts
+   top-2, d_expert 512, routed at capacity factor 1.25, bf16, seed 0)
+   through 5 `fit_scanned` steps on phase 6's batch: the loss finite and
+   falling, the params finite, the router's aux loss equal to the
+   training score less the inference score, exactly K2 = K6 = 6 and
+   K8 = K9 = 1 a step and no other kernel; a [4, 512] forward through
+   the kernels against the plain versions within 2e-2 of the largest
+   probability; an f32 copy on the card against the CPU within 1e-4; the
+   routed layer at capacity factor E / top_k against the dense one
+   (blk0's params, 16384 tokens, f32: output within 1e-5, gradients
+   within 1e-4 of the largest); the median CUDA-event time of 20 fit()
+   steps, tokens/s, MFU, peak memory, a profiled step's idle share and
+   five largest kernels, and the dense flagship's step in the same call
+   with the ratio (`vs_dense_ratio`, no floor). 19b: one step's
+   gradients of the MoE LM with dropout 0.1 with and without remat, bit
+   for bit; K2 = 12 with remat (forward and recompute); peak memory of
+   each, lower with remat. 19c: the GravesLSTM char model (two
+   GravesLSTM(200) over 77 characters, batch 32, sequences of 1000,
+   TBPTT 50, RMSProp, f32) on a synthetic Markov character stream from
+   numpy seed 0: 3 fit() batches (60 segments), the loss falling; the
+   forward against the CPU within 1e-4; `rnn_time_step` in three chunks
+   against the full forward within 1e-5; 4 samples of 300 characters;
+   the time a segment, characters/s and a profiled segment's idle
+   share; GRU and the bidirectional LSTM at 200 units, one forward each
+   against the CPU. 19d: 5 LION and 5 LAMB steps of the flagship (phase
+   6's batch), LBFGS, CG and line gradient descent on LeNet-5 (batch
+   512, f32, 5 iterations), greedy pretraining of an AutoEncoder and an
+   RBM (784-500-250, batch 128), an MLP NetworkLayer in a graph (3
+   steps), and early stopping of LeNet-5 over 3 epochs with the best
+   model from the in-memory and the file saver bit for bit.
 
-After phases 3-18, no attention call on the card may have taken the
+After phases 3-19, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
@@ -3739,6 +3773,653 @@ def serve_predict_fleet(torch, counters, fa, card):
     return {k: a.get(k, 0) + d.get(k, 0) for k in set(a) | set(d)}
 
 
+# ------------------------------------------------------------ phase 19
+
+# bench.py mode "moe" (`:1104-1107`): the flagship's width with each
+# block's FF an 8-expert top-2 MoE (d_expert 512), routed at capacity
+# factor 1.25, batch 32 x 512 (phase 6's)
+MOE_LM = dict(vocab_size=10000, d_model=256, n_heads=2, n_layers=6,
+              n_experts=8, top_k=2, d_expert_hidden=512)
+MOE_STEPS = 5
+MOE_TIMED = 20
+# the routed path against the dense oracle at capacity factor E / top_k:
+# the JAX package's contract (tests/test_pipeline_moe.py:73, atol 1e-5)
+MOE_ROUTED_ATOL = 1e-5
+# GravesLSTMCharModellingExample (dl4j 0.4 examples): two GravesLSTM(200)
+# over 77 characters, batch 32, sequences of 1000, TBPTT 50, RMSProp lr
+# 0.1 (decay 0.95), l2 1e-3, Xavier, seed 12345; 4 samples of 300
+CHAR = dict(vocab=77, hidden=200, batch=32, seq=1000, tbptt=50, batches=3,
+            samples=4, sample_len=300)
+CHARSET = ("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+           "!&()?-'\",.:; \n\t")
+# rnn_time_step in chunks against the full forward on the card: the same
+# f32 ops on the same inputs, one launch shape apart -> 1e-5
+STREAM_TOL = 1e-5
+
+
+def cuda_steps(torch, fn, n):
+    """(median CUDA-event ms of `n` calls of fn after 2 warm-up calls,
+    peak device MiB over them)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for a, b in events:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return (statistics.median(a.elapsed_time(b) for a, b in events),
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def profiled(torch, fn, tag, top=5):
+    """fn() once under the profiler: (idle share, kernel ms, top rows as
+    [name, ms, calls])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, rows = device_profile(torch, prof, wall, tag, top=top)
+    busy = sum(r[0] for r in rows) / 1e3 if rows else None
+    return idle, busy, [[short_name(key)[:60], us / 1e3, count]
+                        for us, count, key in rows[:top]]
+
+
+def finite_params(torch, net):
+    from deeplearning4j_tpu_torch.nn import tree
+
+    return all(bool(torch.isfinite(t).all()) for _, t in
+               tree.leaves(net.params))
+
+
+class pinned_routing:
+    """Within the block, `moe.moe_topk_from_logits` records the experts
+    each MoE call chooses (`ids`, in call order); after `replay()` the
+    calls take the recorded experts in the same order instead, with the
+    gates the renormalized softmax of their own logits at those experts.
+    Two forwards that differ by rounding (bf16 kernels against plain
+    versions, the card against the CPU) can send a token whose top-2 and
+    third logits nearly tie to another expert, a jump no tolerance
+    covers; held to one routing, the rest of the function is
+    continuous."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.ids = torch, moe, []
+        self._orig, self._replaying = moe.moe_topk_from_logits, None
+
+    def __enter__(self):
+        def topk(logits, k):
+            if self._replaying is None:
+                out = self._orig(logits, k)
+                self.ids.append(out[1].detach().cpu())
+                return out
+            ids = self._replaying.pop(0).to(logits.device)
+            probs = self.torch.softmax(logits.gather(-1, ids), dim=-1)
+            return (self.torch.zeros_like(logits).scatter(-1, ids, probs),
+                    ids, probs)
+
+        self.moe.moe_topk_from_logits = topk
+        return self
+
+    def replay(self):
+        self._replaying = list(self.ids)
+
+    def __exit__(self, *exc):
+        self.moe.moe_topk_from_logits = self._orig
+
+
+def routing_differences(torch, a, b):
+    """(token, k) expert choices that differ between two recordings."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def moe_lm(models, dtype="bfloat16", device="cuda", **kw):
+    return models.transformer_moe_lm(**MOE_LM, max_length=TRAIN["seq"],
+                                     dtype=dtype, device=device, **kw)
+
+
+def train_moe(torch, counters, fa, DataSet, card):
+    """19a: the MoE LM at bench width through fit_scanned (exact
+    launches, falling loss, the aux loss in the training loss), its
+    forward through the kernels against the plain versions, an f32 copy
+    against the CPU, the routed path against the dense one, then its
+    step time, MFU, memory and profile beside the dense flagship's step
+    in this call. Returns (launches, record)."""
+    from deeplearning4j_tpu_torch import models
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_moe_flops_per_token,
+    )
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.layers import moe
+    from deeplearning4j_tpu_torch.nn.layers.base import AUX_LOSS_KEY
+
+    c, m = TRAIN, MOE_LM
+    net = moe_lm(models).init(SEED)
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    torch.cuda.synchronize()
+    counters.reset()
+    net.fit_scanned(ds, epochs=MOE_STEPS)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    losses = net._step_losses.float().flatten().cpu().tolist()
+    S, L = MOE_STEPS, m["n_layers"]
+    want = {k: 0 for k in launches}
+    want.update({"K2": L * S, "K6": L * S, "K8": S, "K9": S, "K9 dW": S})
+    batch = net._batch_dict(net._to_mds(ds))
+    with torch.no_grad():
+        _, st, _ = net._walk(net.params, net.state,
+                             {"tokens": batch["features"][0]}, train=True)
+    aux = sum(float(s[AUX_LOSS_KEY]) for s in st.values()
+              if AUX_LOSS_KEY in s)
+    train_loss, eval_loss = net.score(ds, training=True), net.score(ds)
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and finite_params(torch, net) and launches == want
+          and aux > 0 and abs(train_loss - eval_loss - aux) < 1e-4)
+    log(f"moe: fit_scanned {S} steps, losses {[round(x, 4) for x in losses]}"
+        f"; launches {launches} (expected {want}); aux loss {aux:.6f} = "
+        f"training score {train_loss:.6f} - inference score "
+        f"{eval_loss:.6f}; params finite -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19a", "the MoE LM's training check failed")
+
+    x4 = ds.features[:4]
+    counters.reset()
+    with pinned_routing(torch, moe) as pin:
+        y_k = net.output(x4).float()
+        fwd_launches = counters.read()
+        pin.replay()
+        y_p = _with_plain_attention(torch, fa,
+                                    lambda: net.output(x4)).float()
+    err = float((y_k - y_p).abs().max() / y_p.abs().max())
+    with pinned_routing(torch, moe) as free:
+        _with_plain_attention(torch, fa, lambda: net.output(x4))
+    flips = routing_differences(torch, pin.ids, free.ids)
+    ok = err <= TOL["bfloat16"]["o"] and fwd_launches["K2"] == L
+    log(f"moe: [4, 512] forward through the kernels against the plain "
+        f"versions, the experts each token takes held to the kernel run's "
+        f"choice: {err:.3e} of the largest probability (tol "
+        f"{TOL['bfloat16']['o']}); K2 {fwd_launches['K2']}; left free, "
+        f"the plain run routes {flips} of "
+        f"{sum(int(i.numel()) for i in pin.ids)} (token, k) choices to "
+        f"another expert (bf16 near-ties) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19a", "the MoE forward's kernels disagree with "
+                                 "the plain versions")
+
+    f32 = moe_lm(models, dtype="float32").init(SEED)
+    f32.params = tree.clone(net.params)
+    cpu = moe_lm(models, dtype="float32", device="cpu").init(SEED)
+    cpu.params = tree.tree_map(lambda t: t.cpu(), net.params)
+    with pinned_routing(torch, moe) as pin:
+        y_card = f32.output(x4[:2]).cpu()
+        pin.replay()
+        y_cpu = cpu.output(x4[:2])
+    cpu_err = float((y_card - y_cpu).abs().max())
+    with pinned_routing(torch, moe) as free:
+        cpu.output(x4[:2])
+    flips = routing_differences(torch, pin.ids, free.ids)
+    log(f"moe: f32 forward on the card against the CPU, [2, 512], the "
+        f"experts held to the card's choice: {cpu_err:.3e} (tol 1e-4); "
+        f"left free, the CPU routes {flips} (token, k) choices otherwise "
+        f"-> {'ok' if cpu_err <= 1e-4 else 'FAIL'}")
+    if not cpu_err <= 1e-4:
+        raise PhaseFailed("19a", "the f32 MoE LM on the card disagrees with "
+                                 "the CPU")
+    p = {k: v.detach().float().requires_grad_()
+         for k, v in net.params["blk0_moe"].items()}
+    x = torch.randn(c["batch"] * c["seq"], m["d_model"], device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    kw = dict(top_k=m["top_k"], activation="gelu")
+    routed = moe.moe_apply_routed(
+        p, x, capacity_factor=m["n_experts"] / m["top_k"], **kw)
+    dense = moe.moe_apply_dense(p, x, **kw)
+    g_r = torch.autograd.grad((routed ** 2).sum(), list(p.values()))
+    g_d = torch.autograd.grad((dense ** 2).sum(), list(p.values()))
+    r_err = float((routed - dense).detach().abs().max())
+    g_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(g_r, g_d))
+    ok = r_err <= MOE_ROUTED_ATOL and g_err <= 1e-4
+    log(f"moe: routed (capacity factor {m['n_experts'] / m['top_k']}) "
+        f"against dense, blk0's params, N={x.shape[0]} f32: output "
+        f"{r_err:.3e} (atol {MOE_ROUTED_ATOL}), gradients {g_err:.3e} of "
+        f"the largest (tol 1e-4) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19a", "the routed MoE disagrees with the dense "
+                                 "oracle at ample capacity")
+    del f32, cpu, p, x, routed, dense, g_r, g_d
+
+    step_ms, peak = cuda_steps(torch, lambda: net.fit(ds), MOE_TIMED)
+    idle, busy, top = profiled(torch, lambda: net.fit(ds),
+                               "moe profile (one step)")
+    dense_net = models.transformer_lm(
+        vocab_size=c["vocab_size"], d_model=c["d_model"],
+        n_heads=c["n_heads"], n_layers=c["n_layers"], d_ff=c["d_ff"],
+        max_length=c["seq"], dtype="bfloat16", device="cuda").init(SEED)
+    dense_ms, dense_peak = cuda_steps(torch, lambda: dense_net.fit(ds),
+                                      MOE_TIMED)
+    del dense_net
+    fpt = transformer_moe_flops_per_token(
+        m["vocab_size"], m["d_model"], m["n_layers"], m["n_experts"],
+        m["top_k"], m["d_expert_hidden"], c["seq"])
+    tok_s = c["batch"] * c["seq"] / (step_ms / 1e3)
+    rec = {"step_ms": step_ms, "tokens_per_s": tok_s,
+           "mfu": fpt * tok_s / PEAK_BF16_FLOPS, "peak_mib": peak,
+           "idle_profiled": idle, "kernel_ms": busy,
+           "idle_median": None if busy is None else 1 - busy / step_ms,
+           "top5": top, "dense_step_ms": dense_ms,
+           "dense_peak_mib": dense_peak, "vs_dense_ratio": step_ms / dense_ms,
+           "flops_per_token": fpt}
+    log(f"moe: step {step_ms:.3f} ms (median CUDA-event time of "
+        f"{MOE_TIMED} fit() steps) -> {tok_s:.1f} tokens/s; MFU "
+        f"{rec['mfu']:.5f} ({fpt} FLOPs a token against "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s); peak device memory "
+        f"{peak:.1f} MiB; device idle share of the profiled step "
+        f"{'not measured' if idle is None else f'{idle:.4f}'}"
+        + ("" if busy is None else f", of the median step "
+           f"{rec['idle_median']:.4f}") + f"; the dense flagship's step in "
+        f"this call {dense_ms:.3f} ms ({dense_peak:.1f} MiB): "
+        f"vs_dense_ratio {rec['vs_dense_ratio']:.4f}; card {card}")
+    return launches, rec
+
+
+def remat_check(torch, counters, DataSet, card):
+    """19b: one step's gradients of the MoE LM with dropout 0.1 (input,
+    attention and expert) with remat and without, from the same seeds:
+    bit for bit; K2 = 12 with remat (the forward and its recompute);
+    peak memory of each."""
+    from deeplearning4j_tpu_torch import models
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.training import loss_and_grads
+
+    c, L = TRAIN, MOE_LM["n_layers"]
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    out = {}
+    for remat in (False, True):
+        net = moe_lm(models, dropout=0.1, remat=remat).init(SEED)
+        batch = net._batch_dict(net._to_mds(ds))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counters.reset()
+        loss, _, grads = loss_and_grads(net._loss, net.params, net.state,
+                                        net._generator, batch)
+        torch.cuda.synchronize()
+        out[remat] = dict(loss=loss.detach(), grads=grads,
+                          launches=counters.read(),
+                          peak=(torch.cuda.max_memory_allocated() - base)
+                          / 2**20)
+        # a second step, timed: the first paid for imports and warm-up
+        t0 = time.perf_counter()
+        loss_and_grads(net._loss, net.params, net.state, net._generator,
+                       batch)
+        torch.cuda.synchronize()
+        out[remat]["ms"] = (time.perf_counter() - t0) * 1e3
+        del net, batch
+    a, b = out[False], out[True]
+    diff = [k for (k, g), (_, h) in zip(tree.leaves(a["grads"]),
+                                         tree.leaves(b["grads"]))
+            if not torch.equal(g, h)]
+    same = torch.equal(a["loss"], b["loss"]) and not diff
+    want = {"K2": 2 * L, "K6": L, "K8": 1, "K9": 1}
+    got = {k: b["launches"][k] for k in want}
+    ok = same and got == want and b["peak"] < a["peak"]
+    log(f"remat: loss {float(a['loss']):.6f} / {float(b['loss']):.6f}, "
+        f"gradients bit for bit {same} (differ: {diff[:4]}); launches "
+        f"with remat {got} (expected {want}), without "
+        f"{ {k: a['launches'][k] for k in want} }; peak device memory "
+        f"above the step's start {a['peak']:.1f} MiB without, "
+        f"{b['peak']:.1f} MiB with ({1 - b['peak'] / a['peak']:.4f} "
+        f"saved); host clock of a second step {a['ms']:.3f} / "
+        f"{b['ms']:.3f} ms; card {card} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19b", "remat's gradients, launches or memory")
+    return b["launches"], {"peak_mib": a["peak"], "remat_peak_mib": b["peak"],
+                           "ms": a["ms"], "remat_ms": b["ms"]}
+
+
+def char_stream(rng, rows, length, V):
+    """`rows` sequences of `length` symbols from a first-order Markov
+    chain over V symbols with sparse (Dirichlet 0.05) transition rows,
+    drawn with numpy: text with something to learn, in place of the
+    example's corpus."""
+    cum = np.cumsum(rng.dirichlet(np.full(V, 0.05), size=V), axis=1)
+    out = np.empty((rows, length), np.int64)
+    out[:, 0] = rng.integers(0, V, rows)
+    u = rng.random((rows, length))
+    for t in range(1, length):
+        nxt = (u[:, t, None] > cum[out[:, t - 1]]).sum(1)
+        out[:, t] = np.minimum(nxt, V - 1)
+    return out
+
+
+def char_conf(conf, layer="GravesLSTM", n_layers=2):
+    b = (conf.NeuralNetConfiguration.builder().seed(12345).learning_rate(0.1)
+         .updater("rmsprop").rms_decay(0.95).l2(1e-3).weight_init("xavier")
+         .list())
+    n_in = CHAR["vocab"]
+    for _ in range(n_layers):
+        b = b.layer(getattr(conf, layer)(n_in=n_in, n_out=CHAR["hidden"],
+                                         activation="tanh"))
+        n_in = CHAR["hidden"]
+    b = b.layer(conf.RnnOutputLayer(n_in=n_in, n_out=CHAR["vocab"],
+                                    activation="softmax",
+                                    loss_function="mcxent"))
+    return (b.backprop_type("truncated_bptt")
+            .t_bptt_forward_length(CHAR["tbptt"])
+            .t_bptt_backward_length(CHAR["tbptt"]).build())
+
+
+def _cpu_twin(torch, net):
+    """The same network on the CPU with the card's params."""
+    from deeplearning4j_tpu_torch.nn import tree
+
+    twin = type(net)(net.conf, device="cpu").init()
+    twin.params = tree.tree_map(lambda t: t.cpu(), net.params)
+    return twin
+
+
+def train_char_model(torch, DataSet, card):
+    """19c: the GravesLSTM character model at the example's width:
+    3 fit() batches (60 TBPTT segments), the f32 forward against the
+    CPU, rnn_time_step in three chunks against the full forward, 4
+    samples of 300 characters, the time a segment and a profiled
+    segment's idle share; GRU and the bidirectional LSTM at 200 units,
+    one forward each against the CPU."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    V, B, T = CHAR["vocab"], CHAR["batch"], CHAR["seq"]
+    rng = np.random.default_rng(SEED)
+    eye = np.eye(V, dtype=np.float32)
+    seqs = char_stream(rng, B * (CHAR["batches"] + 1), T + 1, V)
+    sets = [DataSet(eye[s[:, :-1]], eye[s[:, 1:]])
+            for s in np.split(seqs, CHAR["batches"] + 1)]
+    net = MultiLayerNetwork(char_conf(conf), device="cuda").init()
+    stamps = []
+
+    class Segments:
+        def iteration_done(self, model, iteration):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            stamps.append((e, model._score_raw))
+
+    net.set_listeners(Segments())
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(sets[:CHAR["batches"]]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(s) for _, s in stamps]
+    n_seg = CHAR["batches"] * T // CHAR["tbptt"]
+    seg_ms = statistics.median(a.elapsed_time(b) for (a, _), (b, _) in
+                               zip(stamps[1:], stamps[2:]))
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = (len(losses) == n_seg and net.iteration_count == n_seg
+          and all(np.isfinite(losses)) and last < first
+          and finite_params(torch, net))
+    log(f"char: {CHAR['batches']} fit() batches of [{B}, {T}], {len(losses)}"
+        f" TBPTT segments of {CHAR['tbptt']} in {wall:.2f} s; mean loss of "
+        f"the first 5 segments {first:.4f}, of the last 5 {last:.4f}; "
+        f"params finite; card {card} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19c", "the char model's training check failed")
+    net.set_listeners()
+    x = sets[-1].features[:4, :300]
+    full = net.output(x)
+    cpu_err = float((full[:, :200].cpu()
+                     - _cpu_twin(torch, net).output(x[:, :200])).abs().max())
+    net.rnn_clear_previous_state()
+    parts = torch.cat([net.rnn_time_step(x[:, :100]),
+                       net.rnn_time_step(x[:, 100])[:, None],
+                       net.rnn_time_step(x[:, 101:])], dim=1)
+    stream_err = float((parts - full).abs().max())
+    ok = cpu_err <= 1e-4 and stream_err <= STREAM_TOL
+    log(f"char: f32 forward on the card against the CPU ([4, 200]) "
+        f"{cpu_err:.3e} (tol 1e-4); rnn_time_step in chunks of 100, 1 and "
+        f"199 against the full forward {stream_err:.3e} (tol {STREAM_TOL})"
+        f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19c", "the char model's forward or stream "
+                                 "disagrees")
+    samples = sample_chars(torch, net, rng)
+    for i, s in enumerate(samples):
+        log(f"char: sample {i}: {s!r}")
+    ok = (len(samples) == CHAR["samples"]
+          and all(len(s) == CHAR["sample_len"] for s in samples))
+    if not ok:
+        raise PhaseFailed("19c", "sampling did not give 4 x 300 characters")
+    seg = DataSet(sets[-1].features[:, :CHAR["tbptt"]],
+                  sets[-1].labels[:, :CHAR["tbptt"]])
+    idle, busy, top = profiled(torch, lambda: net.fit(seg),
+                               "char profile (one segment)")
+    chars_s = B * CHAR["tbptt"] / (seg_ms / 1e3)
+    log(f"char: {seg_ms:.3f} ms a TBPTT segment (median CUDA-event time "
+        f"between segments) -> {chars_s:.1f} characters/s; device idle "
+        f"share of a profiled segment "
+        f"{'not measured' if idle is None else f'{idle:.4f}'}; card {card}")
+    errs_other = {}
+    for layer in ("GRU", "GravesBidirectionalLSTM"):
+        other = MultiLayerNetwork(char_conf(conf, layer, 1),
+                                  device="cuda").init()
+        errs_other[layer] = float((other.output(x[:, :200]).cpu()
+                                   - _cpu_twin(torch, other).output(
+                                       x[:, :200])).abs().max())
+    ok = all(e <= 1e-4 for e in errs_other.values())
+    log(f"char: one forward at 200 units against the CPU {errs_other} (tol "
+        f"1e-4) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19c", "GRU or the bidirectional LSTM disagrees "
+                                 "with the CPU")
+    return {"segment_ms": seg_ms, "chars_per_s": chars_s,
+            "idle_profiled": idle, "kernel_ms": busy, "top5": top,
+            "first_loss": first, "last_loss": last,
+            "cpu_err": cpu_err, "stream_err": stream_err}
+
+
+def sample_chars(torch, net, rng):
+    """The example's sampling: a random first character a sample, then
+    one rnn_time_step a character, each drawn from the output
+    distribution with numpy."""
+    V, n = CHAR["vocab"], CHAR["samples"]
+    eye = np.eye(V, dtype=np.float32)
+    cur = rng.integers(0, V, n)
+    out = [[] for _ in range(n)]
+    net.rnn_clear_previous_state()
+    for _ in range(CHAR["sample_len"]):
+        probs = net.rnn_time_step(eye[cur]).double().cpu().numpy()
+        cum = np.cumsum(probs / probs.sum(1, keepdims=True), axis=1)
+        cur = np.minimum((rng.random(n)[:, None] > cum).sum(1), V - 1)
+        for i, ch in enumerate(cur):
+            out[i].append(CHARSET[ch])
+    net.rnn_clear_previous_state()
+    return ["".join(s) for s in out]
+
+
+def train_rest(torch, DataSet, card):
+    """19d: LION and LAMB on the flagship at phase 6's shape, the three
+    line-search solvers on LeNet-5, greedy pretraining of an AutoEncoder
+    and an RBM, a NetworkLayer in a graph, and early stopping of LeNet-5
+    with both savers."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import models
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import core as es
+    from deeplearning4j_tpu_torch.nn import conf, tree
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.nested import NetworkLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    rec = {}
+    for updater, lr in (("lion", 1e-4), ("lamb", 1e-2)):
+        net = models.transformer_lm(
+            vocab_size=c["vocab_size"], d_model=c["d_model"],
+            n_heads=c["n_heads"], n_layers=c["n_layers"], d_ff=c["d_ff"],
+            max_length=c["seq"], dtype="bfloat16", learning_rate=lr,
+            device="cuda")
+        net.conf.conf.updater = updater
+        for v in net.layer_vertices.values():
+            v.layer.updater = updater
+        net.init(SEED)
+        losses = []
+        for _ in range(5):
+            net.fit(ds)
+            losses.append(net.score_value)
+        ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+              and finite_params(torch, net))
+        rec[updater] = losses
+        log(f"rest: {updater} (lr {lr}) 5 fit() steps of the flagship, "
+            f"losses {[round(x, 4) for x in losses]} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed("19d", f"{updater} did not lower the loss")
+
+    mnist = image_data("lenet5", 512, 1).next()
+    for algo in ("lbfgs", "conjugate_gradient", "line_gradient_descent"):
+        net = models.lenet5(dtype="float32", device="cuda")
+        net.conf.conf.optimization_algo = algo
+        net.conf.conf.iterations = 5
+        net.init(SEED)
+        s0 = net.score(mnist)
+        t0 = time.perf_counter()
+        net.fit(mnist)
+        torch.cuda.synchronize()
+        s1 = net.score(mnist)
+        ok = np.isfinite(s1) and s1 < s0
+        rec[algo] = [s0, s1]
+        log(f"rest: LeNet-5 by {algo}, 5 iterations on a batch of 512 (f32)"
+            f": score {s0:.4f} -> {s1:.4f} in {time.perf_counter() - t0:.2f}"
+            f" s ({net.iteration_count} iterations); card {card} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed("19d", f"{algo} did not lower the score")
+
+    stack = (conf.NeuralNetConfiguration.builder().seed(SEED)
+             .learning_rate(0.1).updater("sgd").weight_init("xavier").list()
+             .layer(conf.AutoEncoder(n_in=784, n_out=500,
+                                     activation="sigmoid"))
+             .layer(conf.RBM(n_in=500, n_out=250))
+             .layer(conf.OutputLayer(n_in=250, n_out=10,
+                                     activation="softmax",
+                                     loss_function="mcxent"))
+             .pretrain(True).backprop(False).build())
+    net = MultiLayerNetwork(stack, device="cuda").init()
+    it = MnistDataSetIterator(128, num_examples=128 * 8)
+    x = torch.as_tensor(it.next().features, device="cuda")
+    ae, rbm = net.impls[0], net.impls[1]
+
+    def recon():
+        with torch.no_grad():
+            p0, p1 = net.params["layer_0"], net.params["layer_1"]
+            a = float(ae.pretrain_loss(net.layer_confs[0], p0, x, None))
+            h = ae.encode(net.layer_confs[0], p0, x)
+            v = rbm._prop_down(net.layer_confs[1], p1,
+                               rbm._prop_up(net.layer_confs[1], p1, h))
+            return a, float(((v - h) ** 2).mean())
+
+    before = recon()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=1)
+    net.pretrain(it, epochs=2)
+    after = recon()
+    ok = after[0] < before[0] and after[1] < before[1]
+    rec["pretrain"] = [before, after]
+    log(f"rest: greedy pretraining 784-500-250 (AutoEncoder then RBM CD-1,"
+        f" batch 128, 8 batches, 3 epochs) in "
+        f"{time.perf_counter() - t0:.2f} s: AutoEncoder reconstruction loss"
+        f" {before[0]:.4f} -> {after[0]:.4f}, RBM mean-field reconstruction"
+        f" error {before[1]:.5f} -> {after[1]:.5f}; card {card} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19d", "pretraining did not lower the losses")
+
+    inner = (conf.NeuralNetConfiguration.builder().seed(SEED).list()
+             .layer(conf.DenseLayer(n_in=784, n_out=256, activation="relu",
+                                    weight_init="xavier"))
+             .layer(conf.DenseLayer(n_in=256, n_out=128, activation="tanh",
+                                    weight_init="xavier"))
+             .build())
+    g = (conf.NeuralNetConfiguration.builder().seed(SEED).learning_rate(0.1)
+         .updater("sgd").weight_init("xavier").graph_builder()
+         .add_inputs("in")
+         .add_layer("mlp", NetworkLayer(conf=inner), "in")
+         .add_layer("out", conf.OutputLayer(n_in=128, n_out=10,
+                                            activation="softmax",
+                                            loss_function="mcxent"), "mlp")
+         .set_outputs("out").build())
+    gnet = ComputationGraph(g, device="cuda").init()
+    flat = MnistDataSetIterator(512, num_examples=512).next()
+    losses = []
+    for _ in range(3):
+        gnet.fit(flat)
+        losses.append(gnet.score_value)
+    on_card = all(t.is_cuda for _, t in tree.leaves(gnet.params))
+    ok = (on_card and all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and set(gnet.params["mlp"]) == {"layer_0", "layer_1"})
+    log(f"rest: NetworkLayer (MLP 784-256-128) in a graph, 3 fit() steps, "
+        f"losses {[round(v, 4) for v in losses]}, params on the card "
+        f"{on_card} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("19d", "the nested network did not train")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_es_") as d:
+        mem, disk = es.InMemoryModelSaver(), es.LocalFileModelSaver(d)
+
+        class Both(es.ModelSaver):
+            def save_best_model(self, n, score):
+                mem.save_best_model(n, score)
+                disk.save_best_model(n, score)
+
+            def get_best_model(self):
+                return mem.get_best_model()
+
+        net = models.lenet5(dtype="float32", device="cuda").init(SEED)
+        cfg = es.EarlyStoppingConfiguration(
+            score_calculator=es.DataSetLossCalculator(
+                image_data("lenet5", 512, 1, train=False)),
+            model_saver=Both(),
+            epoch_terminations=[es.MaxEpochsTerminationCondition(3)])
+        res = es.EarlyStoppingTrainer(cfg, net,
+                                      image_data("lenet5", 512, 4)).fit()
+        best = disk.get_best_model()
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree.leaves(best.params), tree.leaves(res.best_model.params)))
+        ok = (same and res.total_epochs == 3
+              and len(res.score_vs_epoch) == 3 and best.device.type == "cuda")
+        log(f"rest: early stopping of LeNet-5 (4 batches of 512, 3 epochs): "
+            f"{res.termination_reason}/{res.termination_details}, scores "
+            f"{ {k: round(v, 4) for k, v in res.score_vs_epoch.items()} }, "
+            f"best epoch {res.best_model_epoch}; the best model from both "
+            f"savers bit for bit {same} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed("19d", "early stopping's savers disagree")
+    return rec
+
+
+def train_nn_rest(torch, counters, fa, DataSet, card):
+    """Phase 19: the rest of nn/ (19a-19d). Returns the launches of the
+    MoE LM's training runs (19a's fit_scanned, 19b's remat step)."""
+    t0 = time.perf_counter()
+    a, moe_rec = train_moe(torch, counters, fa, DataSet, card)
+    b, remat_rec = remat_check(torch, counters, DataSet, card)
+    char_rec = train_char_model(torch, DataSet, card)
+    rest_rec = train_rest(torch, DataSet, card)
+    log("nn_rest: " + json.dumps({"card": card, "moe": moe_rec,
+                                  "remat": remat_rec, "char": char_rec,
+                                  "rest": rest_rec}))
+    log(f"nn rest: phase 19 in {time.perf_counter() - t0:.1f} s")
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
 # ----------------------------------------------------------------- main
 
 # ------------------------------------------------------------------ A/B
@@ -3912,12 +4593,13 @@ def main() -> int:
     replay_launches = speculative_replay(torch, counters, name_power)
     train_image_models(torch, counters, name_power)
     predict_launches = serve_predict_fleet(torch, counters, fa, name_power)
-    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - started:.1f} s")
+    nn_launches = train_nn_rest(torch, counters, fa, DataSet, name_power)
+    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-18", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-19", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -3925,14 +4607,14 @@ def main() -> int:
     # replay's microbench block beside it); launches summed over the
     # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
     # training, the three bench modes, the other training paths,
-    # Word2Vec, the engine, the speculative replay and the predict
-    # path's flagship windows), each counted from 0 just before it and
-    # read just after. K1-K7 carry their dropout
+    # Word2Vec, the engine, the speculative replay, the predict path's
+    # flagship windows and the MoE LM's training runs), each counted
+    # from 0 just before it and read just after. K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
-            replay_launches, predict_launches)
+            replay_launches, predict_launches, nn_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

@@ -5,10 +5,12 @@ from deeplearning4j_tpu_torch.nn.conf.enums import (  # noqa: F401
     BackpropType,
     ConvolutionMode,
     GradientNormalization,
+    HiddenUnit,
     LearningRatePolicy,
     OptimizationAlgorithm,
     PoolingType,
     Updater,
+    VisibleUnit,
     WeightInit,
 )
 from deeplearning4j_tpu_torch.nn.conf.distributions import (  # noqa: F401
@@ -21,7 +23,9 @@ from deeplearning4j_tpu_torch.nn.conf.distributions import (  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     ActivationLayer,
+    AutoEncoder,
     BaseOutputLayer,
+    BasePretrainNetwork,
     BaseRecurrentLayer,
     BatchNormalization,
     ConvolutionLayer,
@@ -29,11 +33,16 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (  # noqa: F401
     DropoutLayer,
     EmbeddingLayer,
     FeedForwardLayer,
+    GRU,
+    GravesBidirectionalLSTM,
+    GravesLSTM,
+    LSTM,
     Layer,
     LayerNormalization,
     LocalResponseNormalization,
     OutputLayer,
     PositionalEncodingLayer,
+    RBM,
     RnnOutputLayer,
     SelfAttentionLayer,
     SubsamplingLayer,

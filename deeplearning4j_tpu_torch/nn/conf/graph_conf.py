@@ -134,6 +134,26 @@ class GraphBuilder:
         self._g.network_outputs = list(_flatten(names))
         return self
 
+    def backprop(self, flag: bool) -> "GraphBuilder":
+        self._g.backprop = flag
+        return self
+
+    def pretrain(self, flag: bool) -> "GraphBuilder":
+        self._g.pretrain = flag
+        return self
+
+    def backprop_type(self, t) -> "GraphBuilder":
+        self._g.backprop_type = t
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "GraphBuilder":
+        self._g.tbptt_fwd_length = n
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "GraphBuilder":
+        self._g.tbptt_back_length = n
+        return self
+
     def set_input_types(self, **types) -> "GraphBuilder":
         self._g.input_types.update(types)
         return self

@@ -1,7 +1,7 @@
-"""Layer configuration dataclasses — the subset the Transformer LM and
-the image models (LeNet-5, VGG-16, ResNet-20) use, with their bases
-(reference conf/layers/*; JAX counterpart
-deeplearning4j_tpu/nn/conf/layers.py).
+"""Layer configuration dataclasses (reference conf/layers/*; JAX
+counterpart deeplearning4j_tpu/nn/conf/layers.py): the feed-forward,
+output, convolution, normalization, attention, recurrent and pretrain
+layers.
 
 Each config is a declarative, JSON-serializable description with the
 same fields and `@type` names as the JAX package's, so a config written
@@ -16,7 +16,12 @@ import dataclasses
 from typing import Optional
 
 from deeplearning4j_tpu_torch.nn.conf.distributions import Distribution
-from deeplearning4j_tpu_torch.nn.conf.enums import ConvolutionMode, PoolingType
+from deeplearning4j_tpu_torch.nn.conf.enums import (
+    ConvolutionMode,
+    HiddenUnit,
+    PoolingType,
+    VisibleUnit,
+)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.serde import register_config
 
@@ -45,6 +50,9 @@ class Layer:
 
     def get_output_type(self, input_type: InputType) -> InputType:
         return input_type
+
+    def is_pretrain_layer(self) -> bool:
+        return False
 
 
 @register_config
@@ -106,6 +114,40 @@ class ActivationLayer(Layer):
 @dataclasses.dataclass
 class DropoutLayer(Layer):
     """Standalone dropout layer."""
+
+
+@register_config
+@dataclasses.dataclass
+class BasePretrainNetwork(FeedForwardLayer):
+    loss_function: str = "reconstruction_crossentropy"
+    visible_bias_init: float = 0.0
+
+    def is_pretrain_layer(self) -> bool:
+        return True
+
+
+@register_config
+@dataclasses.dataclass
+class AutoEncoder(BasePretrainNetwork):
+    """Denoising autoencoder (reference
+    layers/feedforward/autoencoder/AutoEncoder.java). corruption_level =
+    input corruption probability; sparsity = KL target."""
+
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+
+
+@register_config
+@dataclasses.dataclass
+class RBM(BasePretrainNetwork):
+    """Restricted Boltzmann machine trained by CD-k (reference
+    layers/feedforward/rbm/RBM.java: contrastiveDivergence:101, Gibbs
+    sampling gibbhVh:149-151, unit types :197-205)."""
+
+    hidden_unit: str = HiddenUnit.BINARY
+    visible_unit: str = VisibleUnit.BINARY
+    k: int = 1
+    sparsity: float = 0.0
 
 
 @register_config
@@ -207,6 +249,39 @@ class BaseRecurrentLayer(FeedForwardLayer):
 
     def get_output_type(self, input_type: InputType) -> InputType:
         return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+
+@register_config
+@dataclasses.dataclass
+class GravesLSTM(BaseRecurrentLayer):
+    """LSTM with peephole connections, per Graves (2013) (reference
+    layers/recurrent/GravesLSTM.java + LSTMHelpers.java)."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register_config
+@dataclasses.dataclass
+class LSTM(BaseRecurrentLayer):
+    """Standard LSTM without peepholes."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register_config
+@dataclasses.dataclass
+class GravesBidirectionalLSTM(BaseRecurrentLayer):
+    """Bidirectional Graves LSTM (reference
+    layers/recurrent/GravesBidirectionalLSTM.java): the forward and
+    backward passes' outputs summed."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register_config
+@dataclasses.dataclass
+class GRU(BaseRecurrentLayer):
+    """Gated recurrent unit (reference layers/recurrent/GRU.java)."""
 
 
 @register_config

@@ -186,6 +186,13 @@ class Builder:
             f"{sorted(NeuralNetConfiguration.__dataclass_fields__)}"
         )
 
+    def regularization(self, flag: bool) -> "Builder":
+        """The reference's use-regularization toggle: off zeroes l1/l2."""
+        if not flag:
+            self._c.l1 = 0.0
+            self._c.l2 = 0.0
+        return self
+
     def build(self) -> NeuralNetConfiguration:
         return copy.deepcopy(self._c)
 

@@ -6,20 +6,22 @@ The forward walks the configuration's topological order eagerly on the
 net's device. Parameters are a plain dict {layer: {name: tensor}} in the
 configuration's `param_dtype`, each layer's cast to the compute `dtype`
 as it runs — the JAX package's dtype policy — and the optimizer state
-sits beside them in the same dtype. Training is SGD-family: `fit`,
-`fit_scanned`, `score` and `score_examples`, the backward by autograd
-through the layers (nn/training.py); `evaluate` scores the first output.
-Randomness (dropout) comes from one `torch.Generator` on the net's
-device, seeded from the configuration's seed, where the JAX package
-splits a PRNG key per step (`_next_rng`).
+sits beside them in the same dtype. `fit`, `fit_scanned`, `score` and
+`score_examples` train and score, the backward by autograd through the
+layers (nn/training.py); `evaluate` scores the first output. Randomness
+(dropout) comes from one `torch.Generator` on the net's device, seeded
+from the configuration's seed, where the JAX package splits a PRNG key
+per step (`_next_rng`).
 
-Not carried by this slice, and raising NotImplementedError: layerwise
-pretraining, truncated BPTT, the non-SGD optimization algorithms (the
-Solver path) and `remat`, which come with the rest of `nn/` (ROADMAP
-Queue A item A6, `nn/training.check_trainable`); meshes (`set_mesh`)
-with the parallel slice (item 7). `resume_from` reads the port's own
-checkpoint format (util/checkpoint.py); `inference_fn` is the forward the
-predict engine's replicas call (serving/engine.py).
+As in the JAX package, `fit` pretrains the AutoEncoder and RBM vertices
+first when the configuration asks for it, takes the Solver path for a
+non-SGD optimization algorithm and truncated BPTT for sequences longer
+than the window; `remat` recomputes each layer vertex's activations in
+the backward; `rnn_time_step` streams through the recurrent vertices.
+Meshes (`set_mesh`) come with the parallel slice (ROADMAP Queue A item
+7). `resume_from` reads the port's own checkpoint format
+(util/checkpoint.py); `inference_fn` is the forward the predict engine's
+replicas call (serving/engine.py).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.api import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+from deeplearning4j_tpu_torch.nn import tree
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
     ElementWiseVertexConf,
@@ -49,8 +52,15 @@ from deeplearning4j_tpu_torch.nn.layers import (
 )
 from deeplearning4j_tpu_torch.nn.training import (
     LazyScore,
-    check_trainable,
+    detach_carries,
+    is_sgd,
+    is_tbptt,
     make_train_step,
+    pretrain_layer,
+    refuse_unstreamable,
+    remat_apply,
+    streams,
+    tree_cast,
 )
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer,
@@ -61,10 +71,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
 
 
-def cast_params(p: dict, dtype) -> dict:
-    """A layer's params with every floating tensor cast to `dtype`."""
-    return {k: (v.to(dtype) if v.is_floating_point() else v)
-            for k, v in p.items()}
+# a layer's params (a nest of dicts), every floating tensor cast
+cast_params = tree_cast
 
 
 def vertex_forward(vconf, inputs):
@@ -101,6 +109,14 @@ class ComputationGraph(LazyScore):
             if isinstance(v, LayerVertexConf)}
         self.impls = {name: get_impl(v.layer)
                       for name, v in self.layer_vertices.items()}
+        # output layers no vertex reads: the training loss takes their
+        # input, so the loss's forward skips their activation (XLA drops
+        # it from the JAX package's jitted step as dead code)
+        read = {i for ins in conf.vertex_inputs.values() for i in ins}
+        self._loss_only = {
+            o for o in conf.network_outputs
+            if o in self.layer_vertices and o not in read
+            and isinstance(self.layer_vertices[o].layer, BaseOutputLayer)}
         self.params = None
         self.state = None
         self.opt_state = None
@@ -110,6 +126,7 @@ class ComputationGraph(LazyScore):
         self.score_value = float("nan")
         self._train_step = None
         self._generator = None
+        self._rnn_carries = None  # rnn_time_step's state between calls
 
     @property
     def compute_dtype(self):
@@ -130,12 +147,13 @@ class ComputationGraph(LazyScore):
         seed = g.seed if seed is None else seed
         gen = torch.Generator().manual_seed(seed)
         params, state = {}, {}
+        to_dev = lambda t: t.to(self.device)  # noqa: E731
         for name in sorted(self.layer_vertices):
             v = self.layer_vertices[name]
             validate_layer_names(v.layer)
             p, s = self.impls[name].init(v.layer, gen, self.param_dtype)
-            params[name] = {k: t.to(self.device) for k, t in p.items()}
-            state[name] = {k: t.to(self.device) for k, t in s.items()}
+            params[name] = tree.tree_map(to_dev, p)
+            state[name] = tree.tree_map(to_dev, s)
         self.params = params
         self.state = state
         self._generator = torch.Generator(device=self.device).manual_seed(
@@ -143,6 +161,7 @@ class ComputationGraph(LazyScore):
         self.tx = build_optimizer(g, named_layer_confs(self))
         self.opt_state = self.tx.init(params)
         self._train_step = None
+        self._rnn_carries = None
         return self
 
     def set_listeners(self, *listeners):
@@ -161,20 +180,24 @@ class ComputationGraph(LazyScore):
             return ot.kind == "recurrent" and ot.timeseries_length == T
         return False
 
-    def _forward(self, params, state, input_dict, masks=None, *,
-                 train=False, generator=None, collect=False):
-        """Forward over the topological order. Returns the list of
-        network outputs, or (acts {vertex: activation}, new_state) when
-        `collect`. `train` turns dropout on, drawing from `generator`."""
+    def _walk(self, params, state, input_dict, masks=None, *,
+              train=False, generator=None, carries=None, skip=()):
+        """Forward over the topological order, the vertices in `skip`
+        left out: (acts {vertex: activation}, new_state, new_carries).
+        `train` turns dropout on, drawing from `generator`; with
+        `carries` ({vertex: carry}), each recurrent vertex that can
+        stream starts from its carry (zeros where it has none) and
+        returns its last."""
         masks = dict(masks) if masks else {}
         cdtype = self.compute_dtype
+        remat = self.conf.conf.remat and torch.is_grad_enabled()
         acts = {}
         for k, v in input_dict.items():
             v = torch.as_tensor(v, device=self.device)
             acts[k] = v.to(cdtype) if v.is_floating_point() else v
-        new_state = {}
+        new_state, new_carries = {}, {}
         for name in self.topo:
-            if name in self.conf.network_inputs:
+            if name in self.conf.network_inputs or name in skip:
                 continue
             vconf = self.conf.vertices[name]
             inputs = [acts[i] for i in self.conf.vertex_inputs[name]]
@@ -185,10 +208,25 @@ class ComputationGraph(LazyScore):
                 p = params.get(name, {})
                 if cdtype != self.param_dtype:
                     p = cast_params(p, cdtype)
-                in_mask = masks.get(self.conf.vertex_inputs[name][0])
-                acts[name], new_state[name] = self.impls[name].apply(
-                    vconf.layer, p, state.get(name, {}), x, train=train,
-                    generator=generator, mask=in_mask)
+                impl = self.impls[name]
+                kw = {}
+                if carries is not None and streams(vconf.layer, impl):
+                    kw = {"initial_carry": carries.get(name),
+                          "return_carry": True}
+
+                def run(gen, _impl=impl, _lc=vconf.layer, _p=p,
+                        _s=state.get(name, {}), _x=x,
+                        _m=masks.get(self.conf.vertex_inputs[name][0]),
+                        _kw=kw):
+                    return _impl.apply(_lc, _p, _s, _x, train=train,
+                                       generator=gen, mask=_m, **_kw)
+
+                out = remat_apply(run, generator) if remat else run(
+                    generator)
+                if kw:
+                    acts[name], new_state[name], new_carries[name] = out
+                else:
+                    acts[name], new_state[name] = out
             else:
                 acts[name] = vertex_forward(vconf, inputs)
             m = masks.get(self.conf.vertex_inputs[name][0])
@@ -197,9 +235,17 @@ class ComputationGraph(LazyScore):
                     and tuple(y.shape[:2]) == tuple(m.shape)
                     and self._time_preserving(vconf, m.shape[1])):
                 masks[name] = m
+        for n in self.layer_vertices:
+            new_state.setdefault(n, state.get(n, {}))
+        return acts, new_state, new_carries
+
+    def _forward(self, params, state, input_dict, masks=None, *,
+                 train=False, generator=None, collect=False):
+        """`_walk` without carries: the list of network outputs, or
+        (acts, new_state) when `collect`."""
+        acts, new_state, _ = self._walk(params, state, input_dict, masks,
+                                        train=train, generator=generator)
         if collect:
-            for n in self.layer_vertices:
-                new_state.setdefault(n, state.get(n, {}))
             return acts, new_state
         return [acts[o] for o in self.conf.network_outputs]
 
@@ -245,19 +291,22 @@ class ComputationGraph(LazyScore):
 
     def _loss(self, params, state, generator, batch, train=True):
         """Sum of output-layer losses + L1/L2 (reference
-        computeGradientAndScore:816). Returns (loss, (new_state, {}))."""
-        acts, new_state = self._forward(
+        computeGradientAndScore:816). Returns (loss, (new_state,
+        extras)); extras holds the RNN carries when the batch brings
+        `carries` (TBPTT)."""
+        acts, new_state, new_carries = self._walk(
             params, state, dict(zip(self.conf.network_inputs,
                                     batch["features"])),
             self._input_masks(batch), train=train, generator=generator,
-            collect=True)
+            carries=batch.get("carries"), skip=self._loss_only)
         loss = self._output_losses(params, acts, batch, train=train,
                                    generator=generator)
         loss = loss + self._penalty(params)
         aux, new_state = pop_aux_losses(new_state)
         if train:
             loss = loss + aux
-        return loss, (new_state, {})
+        extras = {"carries": new_carries} if "carries" in batch else {}
+        return loss, (new_state, extras)
 
     # ------------------------------------------------------------------- fit
     @staticmethod
@@ -305,32 +354,142 @@ class ComputationGraph(LazyScore):
         return self._train_step
 
     def fit(self, data, labels=None, epochs: int = 1):
-        """Train (reference ComputationGraph.fit:545-672): one optimizer
-        pass per batch (times the config's `iterations`) over a DataSet,
-        a MultiDataSet or an iterator of them, `epochs` times."""
+        """Train (reference ComputationGraph.fit:545-672) over a DataSet,
+        a MultiDataSet or an iterator of them, `epochs` times:
+        layerwise pretraining first when the configuration asks for it;
+        then, with backprop on, one optimizer pass per batch (times the
+        config's `iterations`), the Solver path for a non-SGD
+        optimization algorithm, or truncated BPTT for 3-D sequences
+        longer than `tbptt_fwd_length`."""
         if self.params is None:
             self.init()
         if labels is not None:
             data = DataSet(data, labels)
         if isinstance(data, (DataSet, MultiDataSet)):
             data = ListDataSetIterator([data])
-        check_trainable(self.conf)
+        if self.conf.pretrain:
+            self.pretrain(data)
         if not self.conf.backprop:
             return self
+        if not is_sgd(self.conf):
+            return self._fit_with_solver(data, epochs)
         step = self._get_train_step()
+        tbptt = is_tbptt(self.conf)
         g = self.conf.conf
         for _ in range(epochs):
             data.reset()
             for ds in data:
-                batch = self._batch_dict(self._to_mds(ds))
+                mds = self._to_mds(ds)
+                if tbptt and self._needs_tbptt(mds):
+                    self._fit_tbptt(mds, step)
+                    continue
+                batch = self._batch_dict(mds)
                 for _i in range(max(1, g.iterations)):
                     self.params, self.opt_state, self.state, loss, _ = step(
                         self.params, self.opt_state, self.state,
                         self._generator, batch)
-                    self.score_value = loss
-                    self.iteration_count += 1
-                    for lst in self.listeners:
-                        lst.iteration_done(self, self.iteration_count)
+                    self._after_step(loss)
+        return self
+
+    def _fit_with_solver(self, it, epochs: int):
+        """The line-search and second-order path (reference Solver
+        dispatch): each minibatch is optimized by the configured solver
+        over the flat parameter vector."""
+        from deeplearning4j_tpu_torch.optimize.solvers import Solver
+
+        if is_tbptt(self.conf):
+            raise ValueError(
+                "TRUNCATED_BPTT requires STOCHASTIC_GRADIENT_DESCENT; "
+                "second-order solvers would differentiate the full sequence")
+        solver = Solver(self)
+        for _ in range(epochs):
+            it.reset()
+            for ds in it:
+                solver.optimize(self._batch_dict(self._to_mds(ds)),
+                                generator=self._generator)
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration_count)
+        return self
+
+    def _needs_tbptt(self, mds) -> bool:
+        L = self.conf.tbptt_fwd_length
+        return any(np.asarray(f).ndim == 3 and f.shape[1] > L
+                   for f in mds.features)
+
+    def _initial_carries(self, batch_size):
+        """Zero carries for every recurrent layer vertex that can
+        stream."""
+        return {name: self.impls[name].initial_carry(
+                    v.layer, batch_size, self.compute_dtype, self.device)
+                for name, v in self.layer_vertices.items()
+                if streams(v.layer, self.impls[name])}
+
+    def _fit_tbptt(self, mds: MultiDataSet, step):
+        """Truncated BPTT over the DAG: a `tbptt_fwd_length` window
+        slides over time, one optimizer step a window; the recurrent
+        vertices' carries flow between windows, the gradients stop at
+        their boundaries. 2-D inputs go to every window whole."""
+        for lab in mds.labels:
+            if np.asarray(lab).ndim != 3:
+                raise ValueError(
+                    "TRUNCATED_BPTT needs time-distributed labels "
+                    f"[batch, time, n_out]; got shape "
+                    f"{np.asarray(lab).shape}. A per-sequence label would "
+                    "be counted once per segment against mid-sequence "
+                    "activations — train with standard BPTT (or a "
+                    "LastTimeStep head on full sequences) instead")
+        T = max(f.shape[1] for f in mds.features if np.asarray(f).ndim == 3)
+        L = self.conf.tbptt_fwd_length
+        carries = self._initial_carries(mds.features[0].shape[0])
+
+        def window(arrs, t0, min_ndim):
+            if arrs is None:
+                return None
+            return [None if a is None else
+                    a[:, t0:t0 + L] if (np.asarray(a).ndim >= min_ndim
+                                        and a.shape[1] == T) else a
+                    for a in arrs]
+
+        for t0 in range(0, T, L):
+            batch = self._batch_dict(MultiDataSet(
+                window(mds.features, t0, 3), window(mds.labels, t0, 3),
+                window(mds.features_masks, t0, 2),
+                window(mds.labels_masks, t0, 2)))
+            batch["carries"] = carries
+            self.params, self.opt_state, self.state, loss, extras = step(
+                self.params, self.opt_state, self.state, self._generator,
+                batch)
+            carries = detach_carries(extras["carries"])
+            self._after_step(loss)
+
+    def pretrain(self, it, epochs: int = 1):
+        """Greedy layer-wise pretraining over the DAG (reference
+        ComputationGraph.pretrain): each pretrain vertex (AutoEncoder,
+        RBM) in topological order is trained on its own loss over the
+        activations feeding it."""
+        if self.params is None:
+            self.init()
+        if isinstance(it, (DataSet, MultiDataSet)):
+            it = ListDataSetIterator([it])
+        for name in self.topo:
+            v = self.conf.vertices.get(name)
+            if not (isinstance(v, LayerVertexConf)
+                    and v.layer.is_pretrain_layer()):
+                continue
+            src = self.conf.vertex_inputs[name][0]
+
+            def featurize(ds, _src=src, _v=v):
+                acts, _ = self._forward(
+                    self.params, self.state,
+                    dict(zip(self.conf.network_inputs,
+                             self._to_mds(ds).features)), collect=True)
+                x = acts[_src]
+                if _v.preprocessor is not None:
+                    x = _v.preprocessor.pre_process(x)
+                return x
+
+            pretrain_layer(self, it, epochs, name, v.layer,
+                           self.impls[name], featurize)
         return self
 
     def fit_scanned(self, data, labels=None, epochs: int = 1):
@@ -347,6 +506,80 @@ class ComputationGraph(LazyScore):
             data = ListDataSetIterator([data])
         batches = [self._batch_dict(self._to_mds(ds)) for ds in data]
         return fused_fit(self, batches, epochs)
+
+    # ------------------------------------------------- streaming RNN inference
+    def rnn_clear_previous_state(self):
+        self._rnn_carries = None
+
+    def _stream_inputs(self, inputs, rank3_only=False):
+        cdtype = self.compute_dtype
+        arrs = []
+        for x in inputs:
+            x = torch.as_tensor(x, device=self.device)
+            arrs.append(x.to(cdtype) if x.is_floating_point() else x)
+        ranks = {a.ndim for a in arrs}
+        if rank3_only and ranks != {3}:
+            raise ValueError("rnn_activate_using_stored_state expects "
+                             f"[batch, time, n_in] inputs; got ranks "
+                             f"{sorted(ranks)}")
+        if len(ranks) > 1:
+            raise ValueError(
+                f"rnn_time_step: mixed input ranks {sorted(ranks)} — pass all "
+                "inputs as [batch, n_in] or all as [batch, time, n_in]")
+        carries = self._rnn_carries
+        if carries is None:
+            carries = self._initial_carries(arrs[0].shape[0])
+        return arrs, ranks == {2}, carries
+
+    @torch.no_grad()
+    def rnn_time_step(self, *inputs):
+        """Stateful inference a step or a chunk at a time over the DAG
+        (reference ComputationGraph.rnnTimeStep): each input [batch,
+        n_in] (one step) or [batch, time, n_in], one rank for all; the
+        recurrent vertices' carries persist between calls until
+        `rnn_clear_previous_state`. Raises for a layer that cannot stream
+        causally (the bidirectional LSTM, self-attention)."""
+        refuse_unstreamable((n, v.layer, self.impls[n])
+                             for n, v in self.layer_vertices.items())
+        arrs, single, carries = self._stream_inputs(inputs)
+        if single:
+            arrs = [a[:, None, :] for a in arrs]
+        acts, _, new_carries = self._walk(
+            self.params, self.state, dict(zip(self.conf.network_inputs,
+                                              arrs)), carries=carries)
+        self._rnn_carries = {**carries, **new_carries}
+        outs = [acts[o] for o in self.conf.network_outputs]
+        outs = [y[:, -1, :] if single and y.ndim == 3 else y for y in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    @torch.no_grad()
+    def rnn_activate_using_stored_state(self, *inputs,
+                                        training: bool = False,
+                                        store_last_for_tbptt: bool = False):
+        """The acts {vertex: activation} over full sequences from the
+        stored streaming state; the state moves on only with
+        `store_last_for_tbptt`."""
+        arrs, _, carries = self._stream_inputs(inputs, rank3_only=True)
+        acts, _, new_carries = self._walk(
+            self.params, self.state, dict(zip(self.conf.network_inputs,
+                                              arrs)),
+            train=training, generator=self._generator if training else None,
+            carries=carries)
+        if store_last_for_tbptt:
+            self._rnn_carries = {**carries, **new_carries}
+        return acts
+
+    # -------------------------------------------------------- params plumbing
+    def num_params(self) -> int:
+        return tree.num_params(self.params)
+
+    def params_flat(self) -> np.ndarray:
+        """The flat parameter vector in the JAX package's order (keys
+        sorted at every level), f32 (bf16 widens exactly) or f64."""
+        return tree.params_flat(self.params)
+
+    def set_params_flat(self, flat):
+        self.params = tree.set_params_flat(self.params, flat)
 
     @torch.no_grad()
     def score(self, ds=None, training: bool = False):
@@ -456,3 +689,4 @@ class ComputationGraph(LazyScore):
         from deeplearning4j_tpu_torch.nn.decode import init_cache
 
         return init_cache(self, batch, capacity, kv_dtype, page_size)
+

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.tree import leaves
+
 _IMPL_REGISTRY: dict[type, "LayerImpl"] = {}
 
 # State-channel key for per-batch auxiliary losses: a layer may stash a
@@ -72,6 +74,11 @@ class LayerImpl:
               mask=None):
         raise NotImplementedError
 
+    def pretrain_loss(self, conf, params, x, generator):
+        """The layerwise pretraining loss (AutoEncoder, RBM)."""
+        raise NotImplementedError(f"{type(self).__name__} is not a pretrain "
+                                  "layer")
+
 
 def _keep_mask(shape, keep, generator, device):
     return torch.bernoulli(
@@ -98,13 +105,15 @@ def apply_dropconnect(w, rate, generator, *, train):
 
 def l1_l2_penalty(conf, params):
     """Per-layer L1/L2 regularization on weight params only (reference
-    BaseLayer calcL1/calcL2 — biases excluded)."""
+    BaseLayer calcL1/calcL2 — biases excluded). A nested layer's leaves
+    are named by their own key."""
     pen = 0.0
     l1 = getattr(conf, "l1", 0.0) or 0.0
     l2 = getattr(conf, "l2", 0.0) or 0.0
     if l1 == 0.0 and l2 == 0.0:
         return 0.0
-    for name, p in params.items():
+    for path, p in leaves(params):
+        name = path[-1]
         if name.startswith("b") or name in ("gamma", "beta", "mean", "var"):
             continue
         if l1:

@@ -1,8 +1,8 @@
 """Feed-forward layer implementations: Dense, Output/RnnOutput,
-Activation, Dropout and Embedding (JAX counterpart
-deeplearning4j_tpu/nn/layers/feedforward.py;
+Activation, Dropout, Embedding and the pretrain layers AutoEncoder and
+RBM (JAX counterpart deeplearning4j_tpu/nn/layers/feedforward.py;
 reference DenseLayer.java via BaseLayer.java preOutput:361,
-EmbeddingLayer.java).
+EmbeddingLayer.java, AutoEncoder.java, RBM.java).
 
 Weights keep the JAX package's [n_in, n_out] layout (`x @ W`). The
 output layer's training loss takes the fused softmax cross-entropy head
@@ -17,8 +17,11 @@ import math
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.enums import HiddenUnit, VisibleUnit
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    RBM,
     ActivationLayer,
+    AutoEncoder,
     BaseOutputLayer,
     DenseLayer,
     DropoutLayer,
@@ -166,3 +169,138 @@ class EmbeddingImpl(LayerImpl):
         if "b" in params:
             z = z + params["b"]
         return get_activation(conf.activation)(z), state
+
+
+def _pretrain_init(conf, gen, dtype):
+    params, _ = _dense_init(conf, gen, dtype)
+    params["vb"] = torch.full((conf.n_in,), float(conf.visible_bias_init),
+                              dtype=dtype)
+    return params, {}
+
+
+def _bernoulli(p, generator):
+    return torch.bernoulli(p.float(), generator=generator).to(p.dtype)
+
+
+@register_impl(AutoEncoder)
+class AutoEncoderImpl(LayerImpl):
+    """Denoising autoencoder with tied decode weights W^T (reference
+    AutoEncoder.java): pretraining minimizes the reconstruction loss of
+    the corrupted input; as a layer of the stack it encodes."""
+
+    def init(self, conf, gen, dtype):
+        return _pretrain_init(conf, gen, dtype)
+
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
+        return self.encode(conf, params, x), state
+
+    def encode(self, conf, params, x):
+        return get_activation(conf.activation)(x @ params["W"] + params["b"])
+
+    def decode(self, conf, params, h):
+        return get_activation(conf.activation)(
+            h @ params["W"].T + params["vb"])
+
+    def pretrain_loss(self, conf, params, x, generator):
+        """Reconstruction loss of x from its corruption (each input zeroed
+        with probability `corruption_level`, drawn from `generator`),
+        plus the KL sparsity penalty when `sparsity` is set."""
+        corrupted = x
+        if conf.corruption_level and generator is not None:
+            keep = torch.bernoulli(
+                torch.full(x.shape, 1.0 - conf.corruption_level,
+                           device=x.device), generator=generator).bool()
+            corrupted = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+        h = self.encode(conf, params, corrupted)
+        loss = compute_loss(conf.loss_function, x,
+                            self.decode(conf, params, h))
+        if conf.sparsity:
+            rho_hat = h.mean(0).clamp(1e-6, 1 - 1e-6)
+            rho = conf.sparsity
+            loss = loss + (rho * torch.log(rho / rho_hat)
+                           + (1 - rho) * torch.log((1 - rho) / (1 - rho_hat))
+                           ).sum()
+        return loss
+
+
+@register_impl(RBM)
+class RBMImpl(LayerImpl):
+    """RBM trained by CD-k (reference RBM.java contrastiveDivergence:101,
+    Gibbs chain gibbhVh:149-151, unit types :197-205). The CD-k update is
+    the gradient of a surrogate loss, the mean free-energy difference
+    between the data and the chain's negative sample, the sample held
+    constant (detached). As a layer of the stack it gives the hidden
+    mean."""
+
+    def init(self, conf, gen, dtype):
+        return _pretrain_init(conf, gen, dtype)
+
+    def apply(self, conf, params, state, x, *, train=False, generator=None,
+              mask=None):
+        return self._prop_up(conf, params, x), state
+
+    def _prop_up(self, conf, params, v):
+        z = v @ params["W"] + params["b"]
+        hu = conf.hidden_unit
+        if hu == HiddenUnit.BINARY:
+            return torch.sigmoid(z)
+        if hu == HiddenUnit.RECTIFIED:
+            return torch.relu(z)
+        if hu == HiddenUnit.GAUSSIAN:
+            return z
+        if hu == HiddenUnit.SOFTMAX:
+            return torch.softmax(z, dim=-1)
+        raise ValueError(f"hidden unit {hu}")
+
+    def _prop_down(self, conf, params, h):
+        z = h @ params["W"].T + params["vb"]
+        vu = conf.visible_unit
+        if vu == VisibleUnit.BINARY:
+            return torch.sigmoid(z)
+        if vu in (VisibleUnit.GAUSSIAN, VisibleUnit.LINEAR):
+            return z
+        if vu == VisibleUnit.SOFTMAX:
+            return torch.softmax(z, dim=-1)
+        raise ValueError(f"visible unit {vu}")
+
+    @staticmethod
+    def _sample(unit, mean, generator):
+        """A sample of binary (Bernoulli) or gaussian (unit variance)
+        units; the others are mean-field."""
+        if unit == "binary":
+            return _bernoulli(mean, generator)
+        if unit == "gaussian":
+            return mean + torch.randn(mean.shape, generator=generator,
+                                      device=mean.device, dtype=mean.dtype)
+        return mean
+
+    def negative_sample(self, conf, params, x, generator):
+        """The end of the k-step Gibbs chain from the data x."""
+        v = x
+        for _ in range(max(1, conf.k)):
+            h = self._sample(conf.hidden_unit,
+                             self._prop_up(conf, params, v), generator)
+            v = self._sample(conf.visible_unit,
+                             self._prop_down(conf, params, h), generator)
+        return v.detach()
+
+    def free_energy(self, conf, params, v):
+        """F(v) = -v.vb - sum softplus(vW + b) (binary hidden), plus
+        |v|^2 / 2 for gaussian visible units."""
+        z = v @ params["W"] + params["b"]
+        fe = -(v @ params["vb"]) - torch.nn.functional.softplus(z).sum(-1)
+        if conf.visible_unit == VisibleUnit.GAUSSIAN:
+            fe = fe + 0.5 * (v * v).sum(-1)
+        return fe
+
+    def cd_loss(self, conf, params, x, v_neg):
+        """The CD-k surrogate for a given negative sample: mean F(x) -
+        F(v_neg); its gradient is the CD-k update."""
+        return (self.free_energy(conf, params, x)
+                - self.free_energy(conf, params, v_neg.detach())).mean()
+
+    def pretrain_loss(self, conf, params, x, generator):
+        return self.cd_loss(conf, params, x,
+                            self.negative_sample(conf, params, x, generator))

@@ -13,17 +13,19 @@ root; its `rmsprop` keeps eps inside the root, unlike
 
 An optimizer has optax's shape: `init(params) -> state`, then
 `update(grads, state, params) -> (updates, state)` and
-`apply_updates(params, updates)`. Params and grads are
-{layer: {name: tensor}} dicts. The port updates in place: the moment
-tensors of `state` and, in `apply_updates`, the param tensors, so one
-step allocates no second copy of either.
+`apply_updates(params, updates)`. Params and grads are nested dicts
+keyed by layer name (nn/tree.py), a leaf per tensor. The port updates
+in place: the moment tensors of `state` and, in `apply_updates`, the
+param tensors, so one step allocates no second copy of either.
 
 Per-layer overrides (a layer's own updater or learning rate) give the
 layer its own rule and state, as optax.multi_transform does keyed on
 the layer name (reference MultiLayerUpdater). Left out: the JAX
 package's flat-view transform (`FlatViewTransform`, one fused update
 over the concatenated f32 params), which exists to cut the TPU's per-leaf
-fusion count; LION and LAMB raise until a later slice ports them.
+fusion count. LION and LAMB take optax's defaults (`optax.lion`: b1 0.9,
+b2 0.99, weight decay 1e-3; `optax.lamb`: b1 0.9, b2 0.999, eps 1e-6,
+weight decay 0, the trust ratio per leaf and 1 where either norm is 0).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import math
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn import tree
 from deeplearning4j_tpu_torch.nn.conf.enums import (
     GradientNormalization,
     LearningRatePolicy,
@@ -123,8 +126,10 @@ class _Rule:
         state = {"count": 0}
         if self.kind == Updater.NESTEROVS:
             state["trace"] = zeros()
-        elif self.kind in (Updater.ADAM, Updater.ADAMW):
+        elif self.kind in (Updater.ADAM, Updater.ADAMW, Updater.LAMB):
             state["mu"], state["nu"] = zeros(), zeros()
+        elif self.kind == Updater.LION:
+            state["mu"] = zeros()
         elif self.kind == Updater.ADAGRAD:
             state["sum_of_squares"] = [torch.full_like(p, 0.1)
                                        for p in params]
@@ -159,6 +164,32 @@ class _Rule:
                 if k == Updater.ADAMW:
                     u = u + (c.weight_decay or 1e-4) * p
                 ups.append(u * -lr)
+        elif k == Updater.LION:
+            # optax.lion: sign of the b1-blend, then the b2 moment, then
+            # weight decay 1e-3 on the params, all scaled by -lr
+            b1, b2, wd = 0.9, 0.99, 1e-3
+            ups = []
+            for g, mu, p in zip(grads, state["mu"], params):
+                u = torch.sign((1.0 - b1) * g + b1 * mu)
+                mu.mul_(b2).add_(g, alpha=1.0 - b2)
+                ups.append((u + wd * p) * -lr)
+        elif k == Updater.LAMB:
+            # optax.lamb: Adam's scaled moments (eps 1e-6, weight decay
+            # 0), then each leaf's trust ratio |p| / |u| (1 where either
+            # norm is 0), scaled by -lr
+            b1, b2, eps = 0.9, 0.999, 1e-6
+            bc1 = _bias_correction(b1, count + 1)
+            bc2 = _bias_correction(b2, count + 1)
+            ups = []
+            for g, mu, nu, p in zip(grads, state["mu"], state["nu"], params):
+                mu.mul_(b1).add_(g, alpha=1.0 - b1)
+                nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+                u = (mu / bc1) / ((nu / bc2).sqrt() + eps)
+                pn = torch.linalg.vector_norm(p.float())
+                un = torch.linalg.vector_norm(u.float())
+                ratio = torch.where((pn == 0) | (un == 0),
+                                    torch.ones_like(pn), pn / un)
+                ups.append(u * ratio.to(u.dtype) * -lr)
         elif k == Updater.ADAGRAD:
             ups = []
             for g, s in zip(grads, state["sum_of_squares"]):
@@ -190,11 +221,6 @@ class _Rule:
 def _single_transform(conf, updater, lr_sched):
     u = updater or Updater.SGD
     u = u.value if hasattr(u, "value") else u
-    if u in (Updater.LION, Updater.LAMB):
-        raise NotImplementedError(
-            f"updater {u} is not ported yet (ROADMAP Queue A, the slice "
-            "after training); use SGD, NESTEROVS, ADAM, ADAMW, ADAGRAD, "
-            "RMSPROP, ADADELTA or NONE")
     try:
         kind = Updater(u)
     except ValueError:
@@ -215,42 +241,39 @@ class Optimizer:
     def _label(self, layer):
         return self.labels.get(layer, "__default__")
 
-    def _groups(self, tree):
-        """[(label, [(layer, name)])] over a params-shaped dict, in a
-        fixed order."""
+    def _groups(self, params):
+        """[(label, [leaf path])] over a params-shaped dict, in a fixed
+        order; a leaf's label is its layer's (the path's first key)."""
         groups = {}
-        for layer in sorted(tree):
-            for name in sorted(tree[layer]):
-                groups.setdefault(self._label(layer), []).append(
-                    (layer, name))
+        for path, _ in tree.leaves(params):
+            groups.setdefault(self._label(path[0]), []).append(path)
         return sorted(groups.items())
 
     def init(self, params):
         state = {}
         for label, keys in self._groups(params):
             state[label] = self.rules[label].init(
-                [params[lay][n] for lay, n in keys])
+                [tree.get(params, k) for k in keys])
             state[label]["keys"] = keys
         return state
 
     def update(self, grads, state, params):
-        updates = {layer: {} for layer in params}
+        pairs = []
         for label, rule_state in state.items():
             keys = rule_state["keys"]
             ups = self.rules[label].update(
-                [grads[lay][n] for lay, n in keys], rule_state,
-                [params[lay][n] for lay, n in keys])
-            for (lay, n), u in zip(keys, ups):
-                updates[lay][n] = u
-        return updates, state
+                [tree.get(grads, k) for k in keys], rule_state,
+                [tree.get(params, k) for k in keys])
+            pairs.extend(zip(keys, ups))
+        return tree.from_leaves(pairs), state
 
 
 @torch.no_grad()
 def apply_updates(params, updates):
     """params += updates, in place."""
-    for layer, ups in updates.items():
-        for name, u in ups.items():
-            params[layer][name].add_(u.to(params[layer][name].dtype))
+    for path, u in tree.leaves(updates):
+        p = tree.get(params, path)
+        p.add_(u.to(p.dtype))
     return params
 
 
@@ -282,28 +305,30 @@ def _norm(tensors):
 
 def normalize_gradients(grads, layer_confs):
     """Apply per-layer gradient normalization (reference BaseUpdater
-    preApply / GradientNormalization.java). grads: {layer_name: {param:
-    g}}; returns a new dict (the input tensors are not modified)."""
+    preApply / GradientNormalization.java). grads: {layer_name: nested
+    dict of g}; returns a new dict (the input tensors are not
+    modified)."""
     out = {}
     for name, g in grads.items():
         lc = layer_confs.get(name)
         gn = getattr(lc, "gradient_normalization", None) if lc else None
         thr = getattr(lc, "gradient_normalization_threshold", 1.0) if lc else 1.0
+        every = [x for _, x in tree.leaves(g)]
         if gn in (None, GradientNormalization.NONE, "none"):
             out[name] = g
         elif gn == GradientNormalization.RENORMALIZE_L2_PER_LAYER:
-            n = _norm(g.values())
-            out[name] = {k: x / n for k, x in g.items()}
+            n = _norm(every)
+            out[name] = tree.tree_map(lambda x: x / n, g)
         elif gn == GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE:
-            out[name] = {k: x / _norm([x]) for k, x in g.items()}
+            out[name] = tree.tree_map(lambda x: x / _norm([x]), g)
         elif gn == GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE:
-            out[name] = {k: x.clamp(-thr, thr) for k, x in g.items()}
+            out[name] = tree.tree_map(lambda x: x.clamp(-thr, thr), g)
         elif gn == GradientNormalization.CLIP_L2_PER_LAYER:
-            scale = (thr / _norm(g.values())).clamp_max(1.0)
-            out[name] = {k: x * scale for k, x in g.items()}
+            scale = (thr / _norm(every)).clamp_max(1.0)
+            out[name] = tree.tree_map(lambda x: x * scale, g)
         elif gn == GradientNormalization.CLIP_L2_PER_PARAM_TYPE:
-            out[name] = {k: x * (thr / _norm([x])).clamp_max(1.0)
-                         for k, x in g.items()}
+            out[name] = tree.tree_map(
+                lambda x: x * (thr / _norm([x])).clamp_max(1.0), g)
         else:
             raise ValueError(f"Unknown gradient normalization {gn}")
     return out

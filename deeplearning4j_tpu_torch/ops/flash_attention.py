@@ -85,7 +85,7 @@ from typing import NamedTuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
 
 NEG_INF = -1e30
 BLOCK = 128
@@ -693,6 +693,7 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_double_backward("_FlashCore")
         q, k, v, o, lse, kmask = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do.to(o.dtype), kmask,
                                      ctx.sm_scale, ctx.causal, drop=ctx.drop)
@@ -716,6 +717,7 @@ class _FlashLse(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
+        refuse_double_backward("_FlashLse")
         q, k, v, o, lse, kmask = ctx.saved_tensors
         do = torch.zeros_like(o) if do is None else do.to(o.dtype)
         dq, dk, dv = _flash_bwd_impl(q, k, v, o, lse, do, kmask,
@@ -738,6 +740,7 @@ class _FlashQkvCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_double_backward("_FlashQkvCore")
         qkv, o, lse, kmask = ctx.saved_tensors
         dqkv = _flash_bwd_qkv(qkv, o, lse, do.to(o.dtype), ctx.H, kmask,
                               ctx.sm_scale, ctx.causal, ctx.drop)

@@ -45,7 +45,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -278,6 +278,7 @@ class _FusedLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        refuse_double_backward("_FusedLayerNorm")
         x2d, g, mu, rstd = ctx.saved_tensors
         shape = dy.shape
         dx, dg, db = _ln_bwd(x2d, g, mu, rstd,

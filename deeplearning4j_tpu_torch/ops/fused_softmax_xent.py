@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
 
 NEG_INF = -1e30
 
@@ -264,6 +264,7 @@ class _FusedHead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dloss):
+        refuse_double_backward("_FusedHead")
         x, w, b, labels, lse = ctx.saved_tensors
         dx, dw, db = _fused_bwd(x, w, b, labels, lse,
                                 dloss.float().contiguous())

@@ -168,6 +168,27 @@ class Checkpointer:
         return net
 
 
+def load_network(checkpoint_dir: str, step=None, device=None):
+    """A new network (MultiLayerNetwork or ComputationGraph, as saved) of
+    the checkpoint's own configuration on `device`, restored from the
+    latest (or given) step."""
+    from deeplearning4j_tpu_torch.nn.conf import serde
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    ck = Checkpointer(checkpoint_dir)
+    steps = ck.steps()
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {ck.directory}")
+    step = steps[-1] if step is None else step
+    kind = ck.read_meta(step)["kind"]
+    with open(os.path.join(ck.step_dir(step), "config.json")) as f:
+        conf = serde.from_json(f.read())
+    cls = {"MultiLayerNetwork": MultiLayerNetwork,
+           "ComputationGraph": ComputationGraph}[kind]
+    return ck.restore(cls(conf, device=device), step=step)
+
+
 def first_difference(want: list, have: list) -> str:
     """The first manifest row where a network (`want`) and a checkpoint
     (`have`) part, in words."""

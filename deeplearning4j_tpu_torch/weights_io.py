@@ -24,26 +24,33 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
+def _nest_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _nest_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def params_from_jax(np_params: dict, device) -> dict:
-    """`{layer: {"W", "b", "Wqkv", "bqkv", "Wo", "bo", "gamma", "beta",
-    "pe"}}` of numpy arrays (a JAX net's params after `np.asarray`; a
-    convolution's W is HWIO in both packages) -> the same dict of
-    tensors on `device`, dtypes kept."""
-    return {layer: {name: _tensor(a, device) for name, a in p.items()}
-            for layer, p in np_params.items()}
+    """`{layer: {"W", "b", "Wqkv", ...}}` of numpy arrays (a JAX net's
+    params after `np.asarray`; a convolution's W is HWIO in both
+    packages), nested as deep as the layer keeps them (the bidirectional
+    LSTM's `{"fwd": {...}, "bwd": {...}}`, a `NetworkLayer`'s inner
+    net's tree) -> the same nest of tensors on `device`, dtypes kept."""
+    return _nest_map(lambda a: _tensor(a, device), np_params)
 
 
 def params_to_numpy(params: dict) -> dict:
-    """The port's {layer: {name: tensor}} params -> the same dict of
-    numpy arrays on the host, for comparing with a JAX net's
-    `np.asarray` params. bfloat16 widens to float32 (exactly): numpy has
-    no bfloat16."""
+    """The port's params (a nest of dicts of tensors) -> the same nest
+    of numpy arrays on the host, for comparing with a JAX net's
+    `np.asarray` params: copies, which the next in-place update leaves as
+    they are. bfloat16 widens to float32 (exactly): numpy has no
+    bfloat16."""
     def arr(t):
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return np.array((t.float() if t.dtype == torch.bfloat16 else t)
+                        .numpy())
 
-    return {layer: {name: arr(t) for name, t in p.items()}
-            for layer, p in params.items()}
+    return _nest_map(arr, params)
 
 
 def state_from_jax(np_state: dict, device) -> dict:

@@ -252,3 +252,70 @@ def test_generation_engine_restores_before_warmup(tmp_path):
     for _ in range(4):
         seq.append(int(saved.output(np.asarray([seq]))[0, -1].argmax()))
     assert toks == seq[6:]
+
+
+def _nested_nets():
+    """A bidirectional-LSTM MultiLayerNetwork ({"fwd": {...}, "bwd":
+    {...}} params) and a graph with an MLP inside a NetworkLayer (its
+    params the inner net's whole tree), on the CPU."""
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.nested import NetworkLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    bi = (tconf.NeuralNetConfiguration.builder().seed(1).updater("adam")
+          .weight_init("xavier").list()
+          .layer(tconf.GravesBidirectionalLSTM(n_in=3, n_out=4,
+                                               activation="tanh"))
+          .layer(tconf.RnnOutputLayer(n_in=4, n_out=2, activation="softmax",
+                                      loss_function="mcxent"))
+          .build())
+    inner = (tconf.NeuralNetConfiguration.builder().seed(2).list()
+             .layer(tconf.DenseLayer(n_in=3, n_out=5, activation="tanh",
+                                     weight_init="xavier")).build())
+    g = (tconf.NeuralNetConfiguration.builder().seed(3).updater("adam")
+         .weight_init("xavier").graph_builder().add_inputs("in")
+         .add_layer("mlp", NetworkLayer(conf=inner), "in")
+         .add_layer("out", tconf.OutputLayer(n_in=5, n_out=2,
+                                             activation="softmax",
+                                             loss_function="mcxent"), "mlp")
+         .set_outputs("out").build())
+    rng = np.random.default_rng(0)
+    seq = DataSet(rng.standard_normal((2, 5, 3)).astype(np.float32),
+                  np.eye(2, dtype=np.float32)[rng.integers(0, 2, (2, 5))])
+    flat = DataSet(rng.standard_normal((4, 3)).astype(np.float32),
+                   np.eye(2, dtype=np.float32)[rng.integers(0, 2, 4)])
+    return ((MultiLayerNetwork(bi, device="cpu"), seq),
+            (ComputationGraph(g, device="cpu"), flat))
+
+
+def test_nested_params_round_trip_weights_io_and_checkpoints(tmp_path):
+    """Nested params go through weights_io (to numpy and back) and
+    through a Checkpointer save, restore and `load_network` unchanged,
+    optimizer state included, and the restored nets train on."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.util.checkpoint import load_network
+    from deeplearning4j_tpu_torch.weights_io import (params_from_jax,
+                                                     params_to_numpy)
+
+    for i, (net, ds) in enumerate(_nested_nets()):
+        net.init()
+        net.fit(ds)
+        paths = [p for p, _ in tree.leaves(net.params)]
+        assert max(len(p) for p in paths) == 3
+        back = params_from_jax(params_to_numpy(net.params), "cpu")
+        assert [p for p, _ in tree.leaves(back)] == paths
+        for (_, a), (_, b) in zip(tree.leaves(back), tree.leaves(net.params)):
+            assert torch.equal(a, b)
+        d = str(tmp_path / f"net{i}")
+        Checkpointer(d).save(net)
+        for other in (type(net)(net.conf, device="cpu").init(9),
+                      load_network(d, device="cpu")):
+            Checkpointer(d).restore(other)
+            for (_, a), (_, b) in zip(tree.leaves(other.params),
+                                      tree.leaves(net.params)):
+                assert torch.equal(a, b)
+            assert other.iteration_count == net.iteration_count
+            other.fit(ds)
+            net_copy_score = other.score_value
+            assert np.isfinite(net_copy_score)

@@ -500,27 +500,39 @@ def test_multilayer_params_plumbing_and_clone():
 
 
 def test_multilayer_raises_for_what_the_slice_does_not_carry(tmp_path):
-    """Pretraining, TBPTT, the Solver path, rnn_time_step and remat cite
-    A6; meshes A7. Checkpoints came with A5: `resume_from` of a directory
-    with no checkpoint is a cold start, a missing named step raises."""
+    """Meshes still cite A7, and `resume_from` of a directory with no
+    checkpoint is a cold start while a missing named step raises. What
+    once cited A6 now runs on LeNet-5: `pretrain` is a no-op without a
+    pretrain layer, `rnn_time_step` of a net with no recurrent layer is
+    its forward, the Solver path (L-BFGS) lowers the score, remat
+    trains, and fit_scanned refuses TBPTT with the JAX package's
+    ValueError."""
     x, y = _images(41, 2, 28, 1)
     net = lenet5(device="cpu").init()
-    for call, item in ((lambda: net.pretrain(None), "A6"),
-                       (lambda: net.rnn_time_step(x), "A6"),
-                       (lambda: net.set_mesh(None), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="A7"):
+        net.set_mesh(None)
     assert net.resume_from(str(tmp_path)) == 0
     with pytest.raises(FileNotFoundError):
         net.resume_from(str(tmp_path), step=3)
-    for field, value in (("optimization_algo", "lbfgs"), ("remat", True)):
-        net = lenet5(device="cpu")
-        setattr(net.conf.conf, field, value)
-        with pytest.raises(NotImplementedError, match="A6"):
-            net.fit(x, y)
+    before = net.params_flat()
+    assert net.pretrain(TDataSet(x, y)) is net
+    np.testing.assert_array_equal(net.params_flat(), before)
+    torch.testing.assert_close(net.rnn_time_step(x), net.output(x),
+                               rtol=0, atol=0)
+    ds = TDataSet(x, y)
+    net = lenet5(device="cpu")
+    net.conf.conf.optimization_algo = "lbfgs"
+    net.init()
+    s0 = net.score(ds)
+    net.fit(ds)
+    assert net.score(ds) < s0
+    net = lenet5(device="cpu")
+    net.conf.conf.remat = True
+    net.fit(x, y)
+    assert np.isfinite(net.score_value)
     net = lenet5(device="cpu")
     net.conf.backprop_type = "truncated_bptt"
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="TBPTT"):
         net.fit_scanned(x, y)
 
 

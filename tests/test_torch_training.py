@@ -229,24 +229,63 @@ def test_dropout_dense_route_trains_and_is_seeded():
 
 
 def test_untrainable_modes_raise():
-    """What this slice does not train raises, naming the queue item."""
+    """The Solver path, once refused, trains the LM: one L-BFGS
+    iteration (its line search included) lowers the score at T = 128
+    (the dense attention route). HessianFree needs second derivatives,
+    which the flash Function of the T = 512 packed route does not have:
+    it raises SecondDerivativeError, not a silent fallback."""
+    from deeplearning4j_tpu_torch.ops import SecondDerivativeError
+
     net = torch_lm(**CFG, max_length=128, device="cpu").init()
     toks, labels, _ = _tokens(60, 2, 128)
+    ds = TDataSet(toks, labels)
     net.conf.conf.optimization_algo = "lbfgs"
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    before = net.score(ds)
+    net.fit(ds)
+    assert net.score(ds) < before
+    assert net.iteration_count >= 1
+    net = torch_lm(**CFG, max_length=512, device="cpu").init()
+    toks, labels, _ = _tokens(62, 1, 512)
+    net.conf.conf.optimization_algo = "hessian_free"
+    with pytest.raises(SecondDerivativeError, match="_FlashQkvCore"):
         net.fit(TDataSet(toks, labels))
 
 
 def test_remat_and_mesh_raise():
+    """Meshes still raise (Queue A item 7). remat, once refused, trains:
+    with dropout 0.1 on the packed flash route (T = 512) two fit()
+    steps with remat leave every param bit for bit where the same steps
+    without it do, the recompute drawing the forward's keep masks; and
+    fit_scanned takes it too. One intra-op thread: the CPU's threaded
+    reductions are not bitwise repeatable from run to run."""
     net = torch_lm(**CFG, max_length=128, device="cpu").init()
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         net.set_mesh(None)
-    net.conf.conf.remat = True
-    toks, labels, _ = _tokens(61, 2, 128)
-    with pytest.raises(NotImplementedError, match="remat"):
-        net.fit(TDataSet(toks, labels))
-    with pytest.raises(NotImplementedError, match="remat"):
-        net.fit_scanned(TDataSet(toks, labels))
+    toks, labels, _ = _tokens(61, 2, 512)
+    ds = TDataSet(toks, labels)
+
+    def run(remat):
+        net = torch_lm(**CFG, max_length=512, dropout=0.1, remat=remat,
+                       device="cpu").init(3)
+        net.fit(ds)
+        net.fit(ds)
+        return net
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain, remat = run(False), run(True)
+    finally:
+        torch.set_num_threads(threads)
+    assert remat.conf.conf.remat and not plain.conf.conf.remat
+    assert plain.score_value == remat.score_value
+    pp, rp = params_to_numpy(plain.params), params_to_numpy(remat.params)
+    for layer in pp:
+        for name in pp[layer]:
+            np.testing.assert_array_equal(rp[layer][name], pp[layer][name],
+                                          err_msg=f"{layer}.{name}")
+    remat.fit_scanned(ds)
+    assert np.isfinite(remat.score_value)
 
 
 def test_fit_steps_counts_global_steps():

@@ -165,5 +165,42 @@ def test_per_layer_override_matches_jax():
 
 @pytest.mark.parametrize("updater", ["lion", "lamb"])
 def test_unported_updaters_raise(updater):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_build(TConf(updater=updater), {})
+    """LION and LAMB, once refused, now take optax's defaults and match
+    `optax.lion` / `optax.lamb` over 5 steps under the "none" and
+    "cosine" policies (LION: b1 0.9, b2 0.99, weight decay
+    1e-3; LAMB: b1 0.9, b2 0.999, eps 1e-6, the trust ratio per leaf).
+    LION takes the sign of a blend of gradient and moment: an entry
+    whose blend is within rounding of 0 could differ by 2 * lr a step;
+    these gradients keep every blend away from 0, so the tolerance is
+    the file's."""
+    for policy in ("none", "cosine"):
+        kw = dict(BASE, updater=updater, **POLICIES[policy])
+        params, grads = _problem(500 + len(updater) + len(policy))
+        _assert_same(_run_torch(TConf(**kw), {}, params, grads),
+                     _run_jax(JConf(**kw), {}, params, grads))
+
+
+@pytest.mark.parametrize("updater", ["lamb", "lion", "adam"])
+def test_nested_params_update_per_leaf_as_jax(updater):
+    """A bidirectional LSTM's {"fwd": {...}, "bwd": {...}} params: every
+    leaf gets its own moments and (LAMB) its own trust ratio, as optax
+    over the same pytree."""
+    rng = np.random.default_rng(11)
+    shapes = {"W": (3, 8), "RW": (2, 8), "b": (8,)}
+    nest = lambda: {"bi": {d: {n: rng.standard_normal(sh).astype(  # noqa: E731
+        np.float32) for n, sh in shapes.items()} for d in ("fwd", "bwd")}}
+    params, grads = nest(), [nest() for _ in range(STEPS)]
+    kw = dict(BASE, updater=updater)
+    want = _run_jax(JConf(**kw), {}, params, grads)
+    tx = torch_build(TConf(**kw), {})
+    p = jax.tree.map(lambda a: torch.from_numpy(a.copy()), params)
+    state = tx.init(p)
+    for g in grads:
+        updates, state = tx.update(jax.tree.map(torch.from_numpy, g),
+                                   state, p)
+        apply_updates(p, updates)
+    for d in ("fwd", "bwd"):
+        for n in shapes:
+            np.testing.assert_allclose(p["bi"][d][n].numpy(),
+                                       want["bi"][d][n], rtol=RTOL,
+                                       atol=ATOL, err_msg=f"{d}.{n}")
