@@ -10,7 +10,9 @@ of them, the predict path and the serving fleet (InferenceEngine,
 /predict, the traffic replays, checkpoints, hot-swap, self-healing), and
 the rest of nn/ (the MoE LM, remat, the GravesLSTM char model with TBPTT
 and rnn_time_step, LION/LAMB, the solvers, pretraining, nested networks,
-early stopping).
+early stopping), and the rest of embeddings and NLP (the Word2Vec device
+pipeline, ANN serving over /embed and /search, DeepWalk,
+ParagraphVectors, GloVe).
 
 Run from the root of a checkout, with no arguments:
 
@@ -220,8 +222,9 @@ Phases, each of which exits non-zero when it fails:
    swaps once and names generations 0 and 1; no recompile. 18d: the
    flagship saved and restored by `InferenceEngine(checkpoint=...)`
    (outputs bit for bit); a hot swap to a seed-1 net under 24 requests
-   in flight (batch 1, max wait 0: none fails, each equals the direct
-   forward of the net its `weight_gen` names); a narrower net's
+   (batch 1, max wait 0; 20 in flight through the swap, 4 sent once it
+   has landed: none fails, both generations serve, each equals the
+   direct forward of the net its `weight_gen` names); a narrower net's
    checkpoint refused by `validate_checkpoint_shapes` with the old
    weights serving on; phase 3's `GenerationEngine` with
    `r0:kill@decode5` under a `FleetSupervisor`: the killed requests
@@ -259,7 +262,40 @@ Phases, each of which exits non-zero when it fails:
    steps), and early stopping of LeNet-5 over 3 epochs with the best
    model from the in-memory and the file saver bit for bit.
 
-After phases 3-19, no attention call on the card may have taken the
+20. The rest of embeddings and NLP (after phase 19; each sub-phase
+   first runs its path at a tiny size in f32 on the card and on the CPU
+   from the same init and draws, within 1e-5 of the largest entry).
+   20a: bench.py `bench_word2vec` on the port's device pipeline (layer
+   128, window 5, negative 5, seed 1, chunk 2048 x group 4) over the
+   topic corpus (1,000,000 words): a warm fit, then a timed fit (words/s
+   beside phase 10's host path, the host packing's share, topic
+   separation); on the 8000-sentence sub-corpus the pipeline defaults,
+   unshared negatives and the host path (the defaults must keep 0.95 of
+   the host path's separation, bench.py's gate), a CBOW pipeline fit
+   (its loss falls) and a profiled pipeline fit's idle share. 20b:
+   bench mode `embed`'s serving half on phase 11's engine: a clustered
+   131072 x 64 snapshot published into it, an `EmbeddingServingEngine`
+   (1024 partitions, lattice (1, 4, 16, 128), k 10, recall floor 0.95,
+   128 calibration queries, seed 1; its build time), 16 /embed rows
+   within 1e-6 of the published ones, 20 searches of 128 queries
+   (recall@10 against `brute_force_topk` >= 0.95, no new shape after
+   warmup), ANN and brute-force queries/s and their ratio (no gate),
+   the same over HTTP through `ServingServer` and the
+   `serving_embedding_*` series on /metrics. 20c: DeepWalk at
+   BlogCatalog's size (a planted-partition graph of 10,312 vertices,
+   333,983 edges and 39 groups from numpy seed 0; d 128, walks of 40,
+   HS through the engine; cut from the paper: window 5, one walk per
+   vertex): walk tokens/s, same-group cosine above cross-group. 20d:
+   ParagraphVectors DBOW (negative 5, layer 128, one epoch) on the
+   sub-corpus with each sentence labelled by its topic: nearest_labels
+   top-1 on 200 held-out sentences at least 0.90 (chance 0.05), one HS
+   infer_vector finite. 20e: GloVe (layer 100, window 15, x_max 100,
+   alpha 0.75, batch 4096, lr 0.05, 5 epochs, cut from 25) on the
+   sub-corpus: the loss falls epoch over epoch, separation above 0,
+   triples/s and the host's co-occurrence seconds. The phase launches
+   K13 exactly 531 times (20a's host-path model) and no other kernel.
+
+After phases 3-20, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
@@ -277,7 +313,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 from pathlib import Path
@@ -2388,6 +2426,7 @@ def train_word2vec(torch, counters, Word2Vec, card):
         f"({flush_s[0] / wall:.4f}); loss {losses[0]:.6f} -> "
         f"{losses[-1]:.6f}; topic separation {sep:.4f}; nearest to w0 "
         f"{near}; launches {launches}; card {card}")
+    rate = words / wall
     failures = []
     if vocab != W2V_VOCAB:
         failures.append(f"vocab {vocab} != {W2V_VOCAB}")
@@ -2421,7 +2460,7 @@ def train_word2vec(torch, counters, Word2Vec, card):
         pwall = time.perf_counter() - t0
     device_profile(torch, prof, pwall,
                    f"word2vec profile ({len(w2v.loss_history) - n0} steps)")
-    return launches
+    return launches, rate
 
 
 # ------------------------------------------------------------ phase 11
@@ -2485,7 +2524,7 @@ def train_engine(torch, counters, ShardedEmbeddingEngine, card):
                               f"expected {want}")
     if not all(np.isfinite(losses)):
         raise PhaseFailed(11, f"a loss is not finite: {losses}")
-    return launches
+    return launches, eng
 
 
 # ------------------------------------------------------------ phase 12
@@ -3636,17 +3675,28 @@ def fleet_flagship(torch, counters, card):
     lens = [int(n) for n in np.random.default_rng(3).choice(
         (300, 512, 700, 1024), 24)]
 
+    # the last 4 requests arrive once the flip has landed, so the new
+    # weights serve some whatever the restore takes (it took 566-1063
+    # ms on the card, past the 92 ms over which the first 20 arrive)
+    swapped = threading.Event()
+
     def one(i):
-        time.sleep(0.004 * i)
+        if i < 20:
+            time.sleep(0.004 * i)
+        else:
+            swapped.wait(600)
         req = eng.submit(tokens[i, :lens[i]], request_id=f"swap-{i}")
         req.wait(600)
         return req
 
     with concurrent.futures.ThreadPoolExecutor(24) as pool:
         futs = [pool.submit(one, i) for i in range(24)]
-        while eng.served < 8 and not all(f.done() for f in futs):
+        while eng.served < 8 and not all(f.done() for f in futs[:20]):
             time.sleep(0.001)
-        swap = fleet.hot_swap(eng, str(tmp / "b"))
+        try:
+            swap = fleet.hot_swap(eng, str(tmp / "b"))
+        finally:
+            swapped.set()
         reqs = [f.result() for f in futs]
     eng.drain(600)
     totals = counters.read()
@@ -4424,6 +4474,569 @@ def train_nn_rest(torch, counters, fa, DataSet, card):
 
 # ------------------------------------------------------------------ A/B
 
+# ------------------------------------------------------------ phase 20
+
+W2V_PIPELINE = dict(chunk=2048, group=4)
+# bench.py W2V_QUALITY_RATIO: the pipeline's separation on the
+# sub-corpus must keep this share of the host path's
+W2V_QUALITY_RATIO = 0.95
+# bench.py EMBED_DIMS: the serving half of bench mode `embed`
+EMBED_SERVE = dict(vocab=131072, dim=64, n_partitions=1024, n_clusters=1024,
+                   lattice=(1, 4, 16, 128), k=10, recall_floor=0.95,
+                   query_batch=128, qps_reps=20, seed=1)
+# BlogCatalog (the DeepWalk paper's dataset): 10,312 vertices, 333,983
+# edges, 39 groups; a planted-partition graph of that size stands in,
+# with the paper's d = 128 and walk length 40 and two cuts for time:
+# window 5 (paper 10) and 1 walk per vertex (paper 80)
+BLOGCATALOG = dict(vertices=10312, edges=333983, groups=39, p_in=0.8,
+                   vector_size=128, walk_length=40, window=5,
+                   walks_per_vertex=1)
+# ParagraphVectors DBOW on the 8000-sentence sub-corpus, each sentence a
+# document labelled by its topic; nearest_labels top-1 over 200 held-out
+# sentences (chance 1/20). The floor is set from a CPU run of this same
+# configuration (1.0000 there; the card takes the same host draws from
+# the same init), with room for the card's other sum order
+PV_MIN_ACCURACY = 0.90
+PV_HELD_OUT = 200
+# GloVe on the same sub-corpus; epochs cut from the JAX default 25 to 5
+GLOVE = dict(layer_size=100, window_size=15, x_max=100.0, alpha=0.75,
+             batch_size=4096, learning_rate=0.05, epochs=5, seed=1)
+# card against CPU at a tiny size, f32: the same inputs and draws; the
+# card's index_add_ sums duplicate rows in another order (its atomics),
+# and its matmuls round in another order -> 1e-5 of the largest entry
+TINY_TOL = 1e-5
+
+
+def topic_of(sentence):
+    """The planted topic of a topic_corpus sentence (word i belongs to
+    topic i % 20)."""
+    return f"t{int(sentence[0][1:]) % 20}"
+
+
+def cpu_draws(torch, dp):
+    """Patch `dp.draw_update` to draw on a CPU generator seeded like the
+    given one and move the draws to the tables' device: the card and
+    the CPU then train on the same draws. Returns the restore hook."""
+    real = dp.draw_update
+
+    def draws(gen, u, J, q, **kw):
+        g = torch.Generator().manual_seed(1000 + u)
+        b, negs = real(g, u, J.cpu(), q.cpu(), **kw)
+        return b.to(J.device), negs.to(J.device)
+
+    dp.draw_update = draws
+    return lambda: setattr(dp, "draw_update", real)
+
+
+def max_rel(torch, a, b):
+    a = torch.as_tensor(np.asarray(a)).double()
+    b = torch.as_tensor(np.asarray(b)).double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def tiny_word2vec_pipeline(torch, Word2Vec, dp):
+    """The pipeline at a tiny size on the card and on the CPU from the
+    same tables and draws (SGNS shared, per pair, CBOW)."""
+    sents = topic_corpus(np.random.default_rng(5), 400, 6000, 12)
+    worst = 0.0
+    restore = cpu_draws(torch, dp)
+    try:
+        for kw in ({}, {"share": False}, {"cbow": True}):
+            out = []
+            for dev in ("cuda", "cpu"):
+                b = (Word2Vec.builder().layer_size(16).window_size(3)
+                     .negative_sample(4).epochs(1).seed(2)
+                     .use_device_pipeline(True).device(dev))
+                if kw.get("cbow"):
+                    b = b.elements_learning_algorithm("cbow")
+                if "share" in kw:
+                    b = b.share_negatives(False)
+                m = b.build()
+                m.pipeline_chunk, m.pipeline_group = 128, 2
+                m.fit(sents)
+                out.append((m.lookup_table.vectors(), m.loss_history))
+            worst = max(worst, max_rel(torch, out[0][0], out[1][0]),
+                        max_rel(torch, out[0][1], out[1][1]))
+    finally:
+        restore()
+    return worst
+
+
+def word2vec_pipeline(torch, Word2Vec, dp, host_rate, card):
+    """20a: bench.py `bench_word2vec` on the port's device pipeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    worst = tiny_word2vec_pipeline(torch, Word2Vec, dp)
+    log(f"20a: tiny pipeline card vs CPU (SGNS shared and per pair, CBOW; "
+        f"same tables and draws): max error {worst:.3e} of the largest "
+        f"entry (tol {TINY_TOL})")
+    if not worst <= TINY_TOL:
+        raise PhaseFailed("20a", "the pipeline on the card disagrees with "
+                                 "the CPU")
+    t0 = time.perf_counter()
+    sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000, 25)
+    n_words = sum(len(s) for s in sents)
+    w2v = (Word2Vec.builder().layer_size(128).window_size(5)
+           .min_word_frequency(1).negative_sample(5)
+           .use_device_pipeline(True).epochs(1).seed(1).device("cuda")
+           .build())
+    w2v.pipeline_chunk = W2V_PIPELINE["chunk"]
+    w2v.pipeline_group = W2V_PIPELINE["group"]
+    w2v.build_vocab(sents)
+    log(f"20a: corpus and vocab in {time.perf_counter() - t0:.3f} s")
+    pack_s = [0.0]
+    w2v._corpus_flat_indices = _timed(w2v._corpus_flat_indices, pack_s)
+    w2v.fit(sents)                       # warm fit
+    w2v.word_vector("w0")
+    torch.cuda.synchronize()
+    pack_s[0] = 0.0
+    t0 = time.perf_counter()
+    w2v.fit(sents)                       # timed fit: repack + the epoch
+    w2v.word_vector("w0")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rate = n_words / wall
+    sep = topic_separation(w2v)
+    losses = w2v.loss_history
+    log(f"20a: pipeline chunk {W2V_PIPELINE['chunk']} x group "
+        f"{W2V_PIPELINE['group']}: {n_words} words in {wall:.4f} s -> "
+        f"{rate:.1f} words/s ({rate / host_rate:.2f}x phase 10's host "
+        f"path at {host_rate:.1f} words/s); host packing "
+        f"{pack_s[0]:.4f} s ({pack_s[0] / wall:.4f} of the fit); "
+        f"{len(losses) // 2} updates a fit; loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; topic separation after the first timed fit "
+        f"{sep:.4f}; card {card}")
+    if not all(np.isfinite(losses)):
+        raise PhaseFailed("20a", "a pipeline loss is not finite")
+
+    sub = sents[:W2V_SENTENCES]
+
+    def quality(**kw):
+        b = (Word2Vec.builder().layer_size(128).window_size(5)
+             .min_word_frequency(1).negative_sample(5).epochs(1).seed(1)
+             .device("cuda"))
+        for k, v in kw.items():
+            getattr(b, k)(v)
+        m = b.build()
+        m.build_vocab(sub)
+        m.fit(sub)
+        return m
+
+    q_dev = topic_separation(quality(use_device_pipeline=True))
+    q_unshared = topic_separation(quality(use_device_pipeline=True,
+                                          share_negatives=False))
+    q_host = topic_separation(quality(use_device_pipeline=False))
+    log(f"20a: sub-corpus separation: pipeline defaults (chunk 512, group "
+        f"2) {q_dev:.4f}, unshared negatives {q_unshared:.4f}, host path "
+        f"{q_host:.4f}; ratio {q_dev / q_host:.4f} (gate "
+        f">= {W2V_QUALITY_RATIO})")
+    if not q_dev >= W2V_QUALITY_RATIO * q_host:
+        raise PhaseFailed("20a", f"pipeline separation {q_dev:.4f} < "
+                                 f"{W2V_QUALITY_RATIO} x host {q_host:.4f}")
+    cbow = quality(use_device_pipeline=True,
+                   elements_learning_algorithm="cbow")
+    cl = cbow.loss_history
+    log(f"20a: CBOW pipeline: {len(cl)} updates, loss {cl[0]:.6f} -> "
+        f"{cl[-1]:.6f}; separation {topic_separation(cbow):.4f}")
+    if not (all(np.isfinite(cl)) and cl[-1] < cl[0]):
+        raise PhaseFailed("20a", "the CBOW pipeline's loss did not fall")
+
+    m = (Word2Vec.builder().layer_size(128).window_size(5)
+         .min_word_frequency(1).negative_sample(5).epochs(1).seed(1)
+         .use_device_pipeline(True).device("cuda").build())
+    m.build_vocab(sub)
+    m.fit(sub)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        m.fit(sub)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    device_profile(torch, prof, pwall,
+                   "20a: pipeline profile (sub-corpus fit, defaults)")
+    return rate
+
+
+def embed_clustered_corpus(rng, v, d, n_clusters):
+    """bench.py `_embed_clustered_corpus`: a table snapshot with cluster
+    structure."""
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, v)
+    noise = 0.15 * rng.normal(size=(v, d))
+    return (centers[assign] + noise).astype(np.float32)
+
+
+def tiny_ann(torch, ann):
+    """A small index built and searched on the card and on the CPU:
+    the same partitions and ids, scores within TINY_TOL."""
+    vecs = embed_clustered_corpus(np.random.default_rng(3), 2048, 32, 32)
+    q = vecs[::97]
+    out = []
+    for dev in ("cuda", "cpu"):
+        idx = ann.DeviceANNIndex.build(vecs, n_partitions=32, seed=0,
+                                       device=dev)
+        ids, scores = idx.search(q, 10, nprobe=4)
+        out.append((idx.part_ids.cpu(), ids.cpu(), scores.cpu()))
+    same = bool(torch.equal(out[0][0], out[1][0])
+                and torch.equal(out[0][1], out[1][1]))
+    return same, max_rel(torch, out[0][2], out[1][2])
+
+
+def serve_embeddings(torch, engine, card):
+    """20b: bench mode `embed`'s serving half on phase 11's engine."""
+    import json as _json
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.embedding import ann
+    from deeplearning4j_tpu_torch.embedding.engine import EngineLookupView
+    from deeplearning4j_tpu_torch.embedding.serving import (
+        EmbeddingServingEngine,
+    )
+    from deeplearning4j_tpu_torch.serving import BucketLattice
+    from deeplearning4j_tpu_torch.serving.server import ServingServer
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+    from deeplearning4j_tpu_torch.telemetry.metrics import parse_exposition
+
+    same, err = tiny_ann(torch, ann)
+    log(f"20b: tiny index card vs CPU: partitions and ids equal {same}, "
+        f"scores max error {err:.3e} (tol {TINY_TOL})")
+    if not (same and err <= TINY_TOL):
+        raise PhaseFailed("20b", "the index on the card disagrees with the "
+                                 "CPU")
+    E = EMBED_SERVE
+    v, d, q, k = E["vocab"], E["dim"], E["query_batch"], E["k"]
+    rng = np.random.default_rng(0)
+    vecs = embed_clustered_corpus(rng, v, d, E["n_clusters"])
+    view = EngineLookupView(engine)
+    view.set_vectors(vecs)
+    rec = Recorder()
+    t0 = time.perf_counter()
+    serve = EmbeddingServingEngine(
+        view, n_partitions=E["n_partitions"],
+        lattice=BucketLattice(batch_sizes=E["lattice"]), k_grid=(k,),
+        recall_floor=E["recall_floor"], calibration_queries=q,
+        seed=E["seed"], recorder=rec)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    serve.start()
+    tc0 = serve.trace_count
+    log(f"20b: index of {v} x {d} in {serve.index.n_partitions} partitions "
+        f"of capacity {serve.index.capacity} built in {build_s:.4f} s; "
+        f"nprobe {serve.nprobe} (calibrated recall "
+        f"{serve.calibrated_recall:.4f}); warmup {serve.warmup_s} s; "
+        f"shapes {tc0}")
+    ids = np.asarray(rng.choice(v, size=16, replace=False), np.int64)
+    req = serve.submit_embed(ids)
+    if not req.wait(60.0) or req.error:
+        raise PhaseFailed("20b", f"/embed failed: {req.error}")
+    embed_err = float(np.abs(req.result["vectors"] - vecs[ids]).max())
+    queries = vecs[np.random.default_rng(17).choice(v, size=q,
+                                                    replace=False)]
+    t0 = time.perf_counter()
+    for _ in range(E["qps_reps"]):
+        req = serve.submit_search(queries, k)
+        if not req.wait(120.0) or req.error:
+            raise PhaseFailed("20b", f"/search failed: {req.error}")
+    ann_dt = time.perf_counter() - t0
+    ann_qps = E["qps_reps"] * q / ann_dt
+    table = torch.from_numpy(vecs).cuda()
+    qt = torch.from_numpy(queries).cuda()
+    b_ids, _ = ann.brute_force_topk(table, qt, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(E["qps_reps"]):
+        b_ids, _ = ann.brute_force_topk(table, qt, k)
+    torch.cuda.synchronize()
+    brute_qps = E["qps_reps"] * q / (time.perf_counter() - t0)
+    recall = ann.recall_at_k(req.result["ids"], b_ids.cpu().numpy())
+    new_shapes = serve.trace_count - tc0
+
+    server = ServingServer(serve).start()
+    try:
+        def post(route, payload):
+            r = urllib.request.Request(
+                f"{server.url}{route}", data=_json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(r, timeout=60) as resp:
+                return _json.loads(resp.read())
+
+        h_embed = post("/embed", {"ids": ids.tolist()})
+        h_search = post("/search", {"vectors": queries.tolist(), "k": k})
+        with urllib.request.urlopen(f"{server.url}/metrics",
+                                    timeout=30) as r:
+            metrics = parse_exposition(r.read().decode())
+    finally:
+        server.stop()
+    http_embed_err = float(np.abs(np.float32(h_embed["vectors"])
+                                  - vecs[ids]).max())
+    http_recall = ann.recall_at_k(np.asarray(h_search["ids"]),
+                                  b_ids.cpu().numpy())
+    series = sorted(m for m in metrics if m.startswith("serving_embedding_")
+                    and ("_count" in m or "bytes" in m) and metrics[m] > 0)
+    retraces = serve.trace_count - tc0
+    log(f"20b: /embed 16 rows max error {embed_err:.3e} (HTTP "
+        f"{http_embed_err:.3e}); /search {E['qps_reps']} x {q} queries: "
+        f"recall@{k} {recall:.4f} (HTTP {http_recall:.4f}; "
+        f"floor {E['recall_floor']}); ANN {ann_qps:.1f} queries/s, brute "
+        f"force {brute_qps:.1f} queries/s, ratio {ann_qps / brute_qps:.4f} "
+        f"(no gate: bench.py's 5x floor was swept on a virtual CPU mesh); "
+        f"new shapes after warmup {new_shapes} in process, {retraces} after "
+        f"HTTP; served {serve.served}, failed {serve.failed}; metrics "
+        f"{series}; card {card}")
+    failures = []
+    if not (embed_err <= 1e-6 and http_embed_err <= 1e-6):
+        failures.append("/embed rows differ from the published ones")
+    if not (recall >= E["recall_floor"]
+            and http_recall >= E["recall_floor"]):
+        failures.append(f"recall {recall} / {http_recall} below the floor")
+    if retraces or serve.failed:
+        failures.append(f"{retraces} new shapes, {serve.failed} failures")
+    want = {"serving_embedding_gather_seconds_count",
+            "serving_embedding_ann_probe_seconds_count",
+            'serving_embedding_bytes_total{span="gather"}',
+            'serving_embedding_bytes_total{span="ann_probe"}'}
+    if not want <= set(series):
+        failures.append(f"missing metrics {sorted(want - set(series))}")
+    if failures:
+        raise PhaseFailed("20b", "; ".join(failures))
+    return ann_qps, brute_qps, build_s
+
+
+def planted_partition(rng, B):
+    """A BlogCatalog-sized planted-partition graph: every vertex gets one
+    edge to a vertex of its group, then edges join two vertices of one
+    group with probability p_in, else two random vertices."""
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    n, m = B["vertices"], B["edges"]
+    group = rng.integers(0, B["groups"], n)
+    members = [np.flatnonzero(group == g) for g in range(B["groups"])]
+    src = np.concatenate([np.arange(n), rng.integers(0, n, m - n)])
+    inside = np.concatenate([np.ones(n, bool),
+                             rng.random(m - n) < B["p_in"]])
+    dst = np.empty(m, np.int64)
+    for i in range(m):
+        if inside[i]:
+            pool = members[group[src[i]]]
+            dst[i] = pool[rng.integers(len(pool))]
+        else:
+            dst[i] = rng.integers(n)
+    g = Graph(n)
+    for a, b in zip(src.tolist(), dst.tolist()):
+        if a != b:
+            g.add_edge(a, b)
+    return g, group
+
+
+def tiny_deepwalk(torch):
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        g, _ = planted_partition(np.random.default_rng(4), dict(
+            vertices=60, edges=400, groups=3, p_in=0.8))
+        dw = DeepWalk(vector_size=16, window_size=3, seed=2, device=dev)
+        dw.fit(g, walk_length=10)
+        out.append((dw.vectors.lookup_table.vectors(),
+                    dw.vectors.loss_history))
+    return max(max_rel(torch, out[0][0], out[1][0]),
+               max_rel(torch, out[0][1], out[1][1]))
+
+
+def deepwalk_blogcatalog(torch, card):
+    """20c: DeepWalk at BlogCatalog's size through the engine (HS)."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.graph import deepwalk as dw_mod
+
+    err = tiny_deepwalk(torch)
+    log(f"20c: tiny DeepWalk card vs CPU (same walks and init): max error "
+        f"{err:.3e} (tol {TINY_TOL})")
+    if not err <= TINY_TOL:
+        raise PhaseFailed("20c", "DeepWalk on the card disagrees with the "
+                                 "CPU")
+    B = BLOGCATALOG
+    t0 = time.perf_counter()
+    g, group = planted_partition(np.random.default_rng(0), B)
+    graph_s = time.perf_counter() - t0
+    dw = DeepWalk(vector_size=B["vector_size"], window_size=B["window"],
+                  seed=0, device="cuda")
+    walk_s = [0.0]
+    real_walks = dw_mod.walk_sequences
+    dw_mod.walk_sequences = _timed(real_walks, walk_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        dw.fit(g, walk_length=B["walk_length"],
+               walks_per_vertex=B["walks_per_vertex"])
+        torch.cuda.synchronize()
+    finally:
+        dw_mod.walk_sequences = real_walks
+    fit_s = time.perf_counter() - t0
+    tokens = B["vertices"] * (B["walk_length"] + 1) * B["walks_per_vertex"]
+    steps = dw.vectors.loss_history
+    vecs = dw.vectors.lookup_table.vectors()
+    rows = np.array([dw.vectors.vocab.index_of(str(i))
+                     for i in range(B["vertices"])])
+    x = vecs[rows] / np.linalg.norm(vecs[rows], axis=1, keepdims=True)
+    rng = np.random.default_rng(1)
+    a, b = rng.integers(0, B["vertices"], (2, 20000))
+    cos = (x[a] * x[b]).sum(1)
+    same = cos[group[a] == group[b]].mean()
+    cross = cos[group[a] != group[b]].mean()
+    log(f"20c: graph of {g.num_vertices()} vertices, {g.num_edges()} edges, "
+        f"{B['groups']} groups in {graph_s:.3f} s; fit {fit_s:.4f} s "
+        f"(the walks of length {B['walk_length']} {walk_s[0]:.4f} s of it; "
+        f"HS through the engine, window {B['window']}) -> "
+        f"{tokens / fit_s:.1f} walk tokens/s, {len(steps)} steps, loss "
+        f"{steps[0]:.6f} -> {steps[-1]:.6f}; same-group cosine "
+        f"{same:.4f}, cross-group {cross:.4f}; cuts from the paper: window "
+        f"5 (10), 1 walk per vertex (80); card {card}")
+    if not (np.isfinite(steps).all() and same > cross):
+        raise PhaseFailed("20c", f"same-group cosine {same} <= cross-group "
+                                 f"{cross}")
+
+
+def tiny_paragraph_vectors(torch, ParagraphVectors, sents):
+    out = []
+    docs = [" ".join(s) for s in sents]
+    labels = [topic_of(s) for s in sents]
+    for dev in ("cuda", "cpu"):
+        pv = ParagraphVectors(layer_size=16, window_size=3, negative=4,
+                              seed=2, batch_size=256, device=dev)
+        pv.fit(docs, labels)
+        out.append((pv.lookup_table.vectors(), pv.loss_history,
+                    pv.infer_vector(docs[0])))
+    return max(max_rel(torch, a, b) for a, b in zip(*out))
+
+
+def paragraph_vectors(torch, card):
+    """20d: ParagraphVectors DBOW on the sub-corpus, topic labels."""
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors,
+    )
+
+    sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000, 25)
+    err = tiny_paragraph_vectors(torch, ParagraphVectors, sents[:300])
+    log(f"20d: tiny DBOW card vs CPU (same init and host draws): max error "
+        f"{err:.3e} (tol {TINY_TOL})")
+    if not err <= TINY_TOL:
+        raise PhaseFailed("20d", "ParagraphVectors on the card disagrees "
+                                 "with the CPU")
+    sub, held = sents[:W2V_SENTENCES], sents[W2V_SENTENCES:
+                                             W2V_SENTENCES + PV_HELD_OUT]
+    pv = ParagraphVectors(layer_size=128, window_size=5, negative=5,
+                          epochs=1, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pv.fit([" ".join(s) for s in sub], [topic_of(s) for s in sub])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hits = sum(pv.nearest_labels(" ".join(s), 1)[0] == topic_of(s)
+               for s in held)
+    infer_s = time.perf_counter() - t0
+    acc = hits / len(held)
+    hs = ParagraphVectors(layer_size=128, window_size=5, negative=0,
+                          epochs=1, seed=1, device="cuda")
+    hs.fit([" ".join(s) for s in sub[:1000]],
+           [topic_of(s) for s in sub[:1000]])
+    vec = hs.infer_vector(" ".join(held[0]))
+    log(f"20d: DBOW fit on {len(sub)} documents ({len(pv.labels)} labels) "
+        f"in {fit_s:.4f} s ({sum(len(s) for s in sub) / fit_s:.1f} words/s); "
+        f"nearest_labels top-1 on {len(held)} held-out sentences "
+        f"{acc:.4f} (floor {PV_MIN_ACCURACY}, chance 0.05) in "
+        f"{infer_s:.4f} s; HS infer_vector norm "
+        f"{float(np.linalg.norm(vec)):.4f}; card {card}")
+    if not acc >= PV_MIN_ACCURACY:
+        raise PhaseFailed("20d", f"accuracy {acc} < {PV_MIN_ACCURACY}")
+    if not (np.isfinite(vec).all() and np.abs(vec).sum() > 0):
+        raise PhaseFailed("20d", "HS infer_vector is not a finite vector")
+
+
+def tiny_glove(torch, gl, sents):
+    perm_gen = {}
+
+    def perm(gen, n, device):
+        g = perm_gen.setdefault("g", torch.Generator().manual_seed(9))
+        return torch.randperm(n, generator=g).to(device)
+
+    real = gl.draw_permutation
+    gl.draw_permutation = perm
+    out = []
+    try:
+        for dev in ("cuda", "cpu"):
+            perm_gen.clear()
+            g = gl.Glove(layer_size=16, window_size=5, epochs=2, seed=2,
+                         batch_size=512, device=dev)
+            g.fit(sents)
+            out.append((g.lookup_table.vectors(), g.loss_history))
+    finally:
+        gl.draw_permutation = real
+    return max(max_rel(torch, a, b) for a, b in zip(*out))
+
+
+def train_glove(torch, card):
+    """20e: GloVe on the sub-corpus, epochs cut from 25 to 5."""
+    from deeplearning4j_tpu_torch.nlp import glove as gl
+
+    sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000,
+                         25)[:W2V_SENTENCES]
+    err = tiny_glove(torch, gl, sents[:200])
+    log(f"20e: tiny GloVe card vs CPU (same init and permutations): max "
+        f"error {err:.3e} (tol {TINY_TOL})")
+    if not err <= TINY_TOL:
+        raise PhaseFailed("20e", "GloVe on the card disagrees with the CPU")
+    G = GLOVE
+    g = gl.Glove(device="cuda", **G)
+    g.build_vocab(sents)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g.fit(sents)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_epoch = np.reshape(g.loss_history, (G["epochs"], -1)).sum(1)
+    n_triples = len(g.loss_history) // G["epochs"] * G["batch_size"]
+    train_s = wall - g.cooccurrence_seconds
+    sep = topic_separation(SimpleNamespace(word_vector=g.get_word_vector))
+    log(f"20e: GloVe ({G}) on {len(sents)} sentences: co-occurrence "
+        f"counting on the host {g.cooccurrence_seconds:.4f} s, "
+        f"{n_triples} padded triples an epoch, {G['epochs']} epochs in "
+        f"{train_s:.4f} s -> {G['epochs'] * n_triples / train_s:.1f} "
+        f"triples/s; loss by epoch {np.round(per_epoch, 4).tolist()}; "
+        f"topic separation {sep:.4f}; cut from the JAX default: 5 epochs "
+        f"(25); card {card}")
+    if not (np.isfinite(per_epoch).all() and (np.diff(per_epoch) < 0).all()):
+        raise PhaseFailed("20e", f"the loss did not fall epoch over epoch: "
+                                 f"{per_epoch}")
+    if not sep > 0:
+        raise PhaseFailed("20e", f"topic separation {sep} <= 0")
+
+
+def train_embeddings_rest(torch, counters, Word2Vec, engine, host_rate,
+                          card):
+    """Phase 20: the rest of embeddings and NLP (20a-20e)."""
+    from deeplearning4j_tpu_torch.nlp import device_pipeline as dp
+
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    word2vec_pipeline(torch, Word2Vec, dp, host_rate, card)
+    serve_embeddings(torch, engine, card)
+    deepwalk_blogcatalog(torch, card)
+    paragraph_vectors(torch, card)
+    train_glove(torch, card)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    log(f"phase 20 in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches} (K13 only in 20a's host-path model, as in phase 10)")
+    if launches["K13"] != W2V_STEPS or any(
+            n for k, n in launches.items() if k != "K13"):
+        raise PhaseFailed(20, f"launches {launches}, expected K13 = "
+                              f"{W2V_STEPS} and no other kernel")
+    return launches
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -4586,20 +5199,23 @@ def main() -> int:
     other_launches = train_other_paths(torch, counters, transformer_lm,
                                        DataSet, fsx)
     grad_oracle(torch, counters, transformer_lm, DataSet, fa, fsx)
-    w2v_launches = train_word2vec(torch, counters, Word2Vec, name_power)
-    engine_launches = train_engine(torch, counters, ShardedEmbeddingEngine,
-                                   name_power)
+    w2v_launches, host_rate = train_word2vec(torch, counters, Word2Vec,
+                                             name_power)
+    engine_launches, engine = train_engine(torch, counters,
+                                           ShardedEmbeddingEngine, name_power)
     engine_oracle(torch, counters, ShardedEmbeddingEngine, fns)
     replay_launches = speculative_replay(torch, counters, name_power)
     train_image_models(torch, counters, name_power)
     predict_launches = serve_predict_fleet(torch, counters, fa, name_power)
     nn_launches = train_nn_rest(torch, counters, fa, DataSet, name_power)
-    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - started:.1f} s")
+    emb_launches = train_embeddings_rest(torch, counters, Word2Vec, engine,
+                                         host_rate, name_power)
+    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-19", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-20", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -4608,13 +5224,14 @@ def main() -> int:
     # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
     # training, the three bench modes, the other training paths,
     # Word2Vec, the engine, the speculative replay, the predict path's
-    # flagship windows and the MoE LM's training runs), each counted
-    # from 0 just before it and read just after. K1-K7 carry their dropout
+    # flagship windows, the MoE LM's training runs and phase 20's
+    # host-path Word2Vec), each counted from 0 just before it and read
+    # just after. K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
-            replay_launches, predict_launches, nn_launches)
+            replay_launches, predict_launches, nn_launches, emb_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

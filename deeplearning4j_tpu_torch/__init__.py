@@ -13,12 +13,16 @@ the MNIST and CIFAR-10 iterators; and serving any single-input net
 through `serving.engine.InferenceEngine` (the dynamic batcher,
 `POST /predict`) with the fleet's hot-swap from the port's checkpoints
 (`util/checkpoint.py`), replica self-healing and autoscaling
-(`serving/fleet.py`).
+(`serving/fleet.py`); and the rest of embeddings and NLP: the
+whole-epoch Word2Vec pipeline (`nlp/device_pipeline.py`), the ANN index
+and the `/embed` + `/search` serving engine (`embedding/ann.py`,
+`embedding/serving.py`), DeepWalk and `graph/`, ParagraphVectors, GloVe
+and the host-side NLP modules.
 
 The package mirrors the JAX package's module layout and public names
 (`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/multilayer.py`,
 `nn/decode.py`, `ops/`, `models/`, `serving/`, `telemetry/`,
-`datasets/`, `eval/`, `nlp/`, `embedding/`, `data/`, `util/`,
+`datasets/`, `eval/`, `nlp/`, `embedding/`, `graph/`, `data/`, `util/`,
 `distributed/`), so
 each counterpart is found by path. It imports `torch` and never `jax`,
 nor anything of `deeplearning4j_tpu`.

@@ -19,7 +19,8 @@ table changes, so the order of the updates does not matter.
 
 Index arguments may be numpy arrays or tensors; they are moved to the
 table's device. The inference-only steps (`infer_sgns_step`,
-`infer_hs_step`) come with ParagraphVectors (ROADMAP Queue A item 8).
+`infer_hs_step`) train one free vector against frozen output rows, for
+ParagraphVectors.infer_vector.
 """
 
 from __future__ import annotations
@@ -164,6 +165,42 @@ def cbow_ns_step(syn0, syn1neg, context, context_mask, target, negatives,
     flat_ctx = torch.where(cmask, context, 0).reshape(B * W)
     _scatter_update(syn0, flat_ctx, grad_ctx.reshape(B * W, -1), lr)
     return syn0, syn1neg, loss
+
+
+# --------------------------------------------------------------------------
+# Inference-only variants (frozen output rows) for
+# ParagraphVectors.infer_vector
+# --------------------------------------------------------------------------
+def infer_sgns_step(vec, syn1neg, context, negatives, lr):
+    """Train a single free vector against frozen output weights.
+    vec [D]; context [B]; negatives [B, K]. Returns (new vec, loss);
+    `vec` itself is left as it was."""
+    dev = syn1neg.device
+    pos = syn1neg[_index(context, dev)]                  # [B, D]
+    neg = syn1neg[_index(negatives, dev)]                # [B, K, D]
+    pos_score = torch.sigmoid(pos @ vec)                 # [B]
+    neg_score = torch.sigmoid(torch.einsum("bkd,d->bk", neg, vec))
+    grad = (((pos_score - 1.0)[:, None] * pos).sum(0)
+            + torch.einsum("bk,bkd->d", neg_score, neg))
+    loss = -(torch.log(pos_score + 1e-10).sum()
+             + torch.log(1.0 - neg_score + 1e-10).sum())
+    return vec - lr * grad, loss
+
+
+def infer_hs_step(vec, syn1, codes, points, mask, lr):
+    """Hierarchical-softmax counterpart of infer_sgns_step: one free
+    vector against the frozen Huffman inner nodes. codes/points/mask
+    [B, L]."""
+    dev = syn1.device
+    nodes = syn1[_index(points, dev)]                    # [B, L, D]
+    codes = torch.as_tensor(np.asarray(codes), device=dev)
+    m = torch.as_tensor(np.asarray(mask), device=dev).to(vec.dtype)
+    sign = 1.0 - 2.0 * codes.to(vec.dtype)
+    p = torch.sigmoid(sign * torch.einsum("d,bld->bl", vec, nodes))
+    g = -sign * (1.0 - p) * m
+    grad = torch.einsum("bl,bld->d", g, nodes)
+    loss = -(torch.log(p + 1e-10) * m).sum()
+    return vec - lr * grad, loss
 
 
 # --------------------------------------------------------------------------

@@ -73,7 +73,10 @@ class SequenceVectors:
                  batch_size: int = 2048, seed: int = 123,
                  elements_learning_algorithm: str = "skipgram",
                  vocab_limit: Optional[int] = None,
-                 use_device_pipeline: bool = False,
+                 use_device_pipeline: bool = False, device_mesh=None,
+                 pipeline_chunk: int = 512, pipeline_group=None,
+                 pipeline_share_negatives: bool = True,
+                 pipeline_neg_oversample: float = 2.0,
                  n_workers: int = 1, use_engine: bool = False,
                  engine_ep: int = 1, engine_dp: int = 1, device=None):
         self.layer_size = layer_size
@@ -89,9 +92,18 @@ class SequenceVectors:
         self.seed = seed
         self.algorithm = elements_learning_algorithm
         self.vocab_limit = vocab_limit
-        # whole-epoch on-device training (nlp/device_pipeline.py in the
-        # JAX package) is not ported: fit() raises when it is asked for
+        # whole-epoch on-device training (nlp/device_pipeline.py); a
+        # mesh raises there (ROADMAP Queue A item 7)
         self.use_device_pipeline = use_device_pipeline
+        self.device_mesh = device_mesh
+        self.pipeline_chunk = pipeline_chunk
+        # None = auto: 2 chunks per update (1024-token updates at the
+        # default chunk, the JAX package's quality default)
+        self.pipeline_group = pipeline_group
+        self.pipeline_share_negatives = pipeline_share_negatives
+        # shared-negative variance reduction: oversample*K shared
+        # negatives per center, each weighted K/M
+        self.pipeline_neg_oversample = pipeline_neg_oversample
         self.n_workers = n_workers  # host-parallel vocab counting
         # route skip-gram flushes through the embedding engine
         # (embedding/engine.py): the K13 scoring kernel on CUDA, the
@@ -338,12 +350,7 @@ class SequenceVectors:
             self.build_vocab(vocab_src)
         corpus = seq_list
         if self.use_device_pipeline:
-            # requesting the pipeline is explicit: running the host loop
-            # instead would hide a different training path
-            raise NotImplementedError(
-                "use_device_pipeline=True: the on-device epoch pipeline "
-                "(nlp/device_pipeline.py) is not ported yet (ROADMAP "
-                "Queue A item 8); train through the host loop")
+            return self._fit_device_pipeline(corpus)
         if isinstance(corpus, list) and corpus and isinstance(corpus[0], str):
             # the host loop consumes token lists; raw sentences would be
             # iterated character-by-character (training nothing)
@@ -354,6 +361,111 @@ class SequenceVectors:
             done = self._train_corpus(corpus, total, words_done=done)
         self._finalize_losses()
         return self
+
+    def _fit_device_pipeline(self, corpus):
+        """Whole-epoch training on the device (nlp/device_pipeline.py):
+        the corpus is packed and uploaded once per epoch, and pair
+        generation, negative sampling and the updates run on the device.
+        Skip-gram and CBOW with negative sampling only; the other modes
+        raise, as in the JAX package (asking for the pipeline is
+        explicit, so a silent host-loop fallback would hide another
+        training path)."""
+        from deeplearning4j_tpu_torch.nlp.device_pipeline import (
+            _refuse_mesh,
+            build_alias_table,
+            make_cbow_epoch,
+            make_sgns_epoch,
+            pack_corpus,
+            pack_corpus_flat,
+        )
+
+        if (self.algorithm not in ("skipgram", "cbow") or self.use_hs
+                or self.negative <= 0):
+            raise ValueError(
+                "device pipeline supports skip-gram/CBOW with negative "
+                "sampling (use_hs=False, negative>0); use the host path "
+                "otherwise")
+        if self._extra_rows():
+            raise ValueError("device pipeline does not support extra label "
+                             "rows (ParagraphVectors) — use the host path")
+        _refuse_mesh(self.device_mesh)
+        group = 2 if self.pipeline_group is None else self.pipeline_group
+        if self.algorithm == "cbow":
+            epoch_fn = make_cbow_epoch(
+                window=self.window_size, negative=self.negative,
+                chunk=self.pipeline_chunk, group=group)
+        else:
+            epoch_fn = make_sgns_epoch(
+                window=self.window_size, negative=self.negative,
+                chunk=self.pipeline_chunk, group=group,
+                share_negatives=self.pipeline_share_negatives,
+                neg_oversample=self.pipeline_neg_oversample)
+        t = self.lookup_table
+        dev = t.syn0.device
+        aJ, aq = build_alias_table(np.diff(self._cum_table, prepend=0.0))
+        aJ = torch.from_numpy(aJ).to(dev)
+        aq = torch.from_numpy(aq).to(dev)
+        total = self.vocab.total_word_occurrences * self.epochs
+        per_update = self.pipeline_chunk * group
+        done = 0.0
+        packed = None
+        losses = []
+        for _ in range(self.epochs):
+            if packed is None or self.sampling > 0:
+                # subsampling redraws per epoch (host rng, like the
+                # reference); without it the packed corpus is uploaded
+                # once and reused across epochs
+                flat = self._corpus_flat_indices(corpus)
+                if flat is not None:
+                    tokens_np, sent_np = pack_corpus_flat(*flat, per_update)
+                else:
+                    tokens_np, sent_np = pack_corpus(
+                        self._corpus_indices_seq(corpus), per_update)
+                packed = (torch.from_numpy(tokens_np).to(dev),
+                          torch.from_numpy(sent_np).to(dev))
+            tokens, sent_ids = packed
+            lr0 = self._alpha(done, total)
+            lr1 = self._alpha(done + len(tokens), total)
+            gen = torch.Generator(device=dev).manual_seed(
+                self.seed + int(done) % (2**31))
+            _, _, ls, pairs = epoch_fn(
+                t.syn0, t.syn1neg, tokens, sent_ids, aJ, aq, gen, lr0, lr1)
+            losses.append((ls, pairs))
+            done += len(tokens)
+        # one host fetch for the whole run
+        for ls, pairs in losses:
+            ls = ls.cpu().numpy()
+            pairs = np.maximum(pairs.cpu().numpy(), 1.0)
+            self.loss_history.extend((ls / pairs).tolist())
+        return self
+
+    def _corpus_flat_indices(self, corpus):
+        """Corpus -> flat (ids, sentence_ids) with OOV dropped, or None
+        when only the per-sentence path applies (subsampling draws from
+        the host rng; corpora of 64 sentences or fewer). One dict lookup
+        over the whole corpus; raw-string sentences are split on
+        whitespace first (the JAX package's native encoder gives the
+        same ids)."""
+        if self.sampling != 0:
+            return None
+        if corpus and isinstance(corpus[0], str):
+            corpus = [line.split() for line in corpus]
+        if len(corpus) <= 64:
+            return None
+        get = {w: i for i, w in enumerate(self.vocab.words())}.get
+        flat_ids = np.fromiter((get(w, -1) for toks in corpus for w in toks),
+                               np.int32)
+        lengths = np.fromiter((len(t) for t in corpus), np.int64, len(corpus))
+        sent = np.repeat(np.arange(len(corpus)), lengths)
+        keep = flat_ids >= 0
+        return flat_ids[keep], sent[keep].astype(np.int32)
+
+    def _corpus_indices_seq(self, corpus):
+        """Per-sentence path: tokenize raw-string sentences, then the
+        (rng-dependent) per-sequence indices."""
+        if corpus and isinstance(corpus[0], str):
+            corpus = [line.split() for line in corpus]
+        return [self._sequence_indices(toks) for toks in corpus]
 
     def _finalize_losses(self):
         """One deferred host sync for the whole run (see _flush_sg): a

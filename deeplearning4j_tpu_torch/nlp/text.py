@@ -11,9 +11,9 @@ Reference:
 - text/stopwords/StopWords.java
 - text/inputsanitation/InputHomogenization.java
 - text/movingwindow/{Window, Windows}.java
-
-The label-aware iterators (`LabelsSource`, `LabelAwareIterator`, ...)
-come with ParagraphVectors (ROADMAP Queue A item 8).
+- text/documentiterator/{LabelsSource, LabelledDocument,
+  LabelAwareIterator, FileLabelAwareIterator},
+  sentenceiterator/labelaware/* (the corpora of ParagraphVectors)
 """
 
 from __future__ import annotations
@@ -324,6 +324,123 @@ class PrefetchingSentenceIterator(SentenceIterator):
         # full channel) before the successor touches the shared backend
         self._pf.stop()
         self._start()
+
+
+# --------------------------------------------------------------------------
+# Label-aware iterators (reference sentenceiterator/labelaware/*,
+# documentiterator/*)
+# --------------------------------------------------------------------------
+class LabelsSource:
+    """Generates/stores document labels (reference
+    documentiterator/LabelsSource)."""
+
+    def __init__(self, template: str = "DOC_%d"):
+        self.template = template
+        self.labels: List[str] = []
+
+    def next_label(self) -> str:
+        label = self.template % len(self.labels)
+        self.labels.append(label)
+        return label
+
+    def store_label(self, label: str):
+        if label not in self.labels:
+            self.labels.append(label)
+
+    def get_labels(self) -> List[str]:
+        return list(self.labels)
+
+
+class LabelledDocument:
+    def __init__(self, content: str, labels: List[str]):
+        self.content = content
+        self.labels = labels
+
+
+class LabelAwareIterator:
+    """has_next/next_document protocol (reference LabelAwareIterator)."""
+
+    def has_next(self) -> bool:
+        raise NotImplementedError
+
+    def next_document(self) -> LabelledDocument:
+        raise NotImplementedError
+
+    def reset(self):
+        raise NotImplementedError
+
+    def get_labels_source(self) -> LabelsSource:
+        raise NotImplementedError
+
+    def __iter__(self):
+        self.reset()
+        while self.has_next():
+            yield self.next_document()
+
+
+class LabelAwareListSentenceIterator(LabelAwareIterator):
+    """Sentences + parallel label list (reference
+    labelaware/LabelAwareListSentenceIterator)."""
+
+    def __init__(self, sentences: Sequence[str],
+                 labels: Optional[Sequence[str]] = None):
+        self._sentences = list(sentences)
+        self._source = LabelsSource()
+        if labels is None:
+            self._labels = [self._source.next_label() for _ in self._sentences]
+        else:
+            self._labels = list(labels)
+            for l in self._labels:
+                self._source.store_label(l)
+        self._i = 0
+
+    def has_next(self):
+        return self._i < len(self._sentences)
+
+    def next_document(self):
+        d = LabelledDocument(self._sentences[self._i], [self._labels[self._i]])
+        self._i += 1
+        return d
+
+    def reset(self):
+        self._i = 0
+
+    def get_labels_source(self):
+        return self._source
+
+
+class FileLabelAwareIterator(LabelAwareIterator):
+    """Directory-per-label corpus (reference FileLabelAwareIterator):
+    root/labelA/doc1.txt, root/labelB/doc2.txt ..."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._source = LabelsSource()
+        self.reset()
+
+    def reset(self):
+        self._docs: List[LabelledDocument] = []
+        for label in sorted(os.listdir(self.root)):
+            d = os.path.join(self.root, label)
+            if not os.path.isdir(d):
+                continue
+            self._source.store_label(label)
+            for f in sorted(os.listdir(d)):
+                with open(os.path.join(d, f), encoding="utf-8",
+                          errors="replace") as fh:
+                    self._docs.append(LabelledDocument(fh.read(), [label]))
+        self._i = 0
+
+    def has_next(self):
+        return self._i < len(self._docs)
+
+    def next_document(self):
+        d = self._docs[self._i]
+        self._i += 1
+        return d
+
+    def get_labels_source(self):
+        return self._source
 
 
 # --------------------------------------------------------------------------

@@ -102,9 +102,7 @@ class Word2Vec(SequenceVectors):
             return self
 
         def use_device_pipeline(self, flag=True):
-            """Whole-epoch on-device training (nlp/device_pipeline.py in
-            the JAX package): not ported yet, so fit() raises when it is
-            on."""
+            """Whole-epoch on-device training (see nlp/device_pipeline.py)."""
             self._kw["use_device_pipeline"] = flag
             return self
 
@@ -116,6 +114,30 @@ class Word2Vec(SequenceVectors):
             self._kw["use_engine"] = flag
             self._kw["engine_ep"] = int(ep)
             self._kw["engine_dp"] = int(dp)
+            return self
+
+        def share_negatives(self, flag=True):
+            """Per-center negative sharing in the device pipeline (default
+            on; False = strict per-pair sampling)."""
+            self._kw["pipeline_share_negatives"] = flag
+            return self
+
+        def device_mesh(self, mesh, chunk: int = 512, group=None):
+            """Implies use_device_pipeline with `chunk` and `group`; a
+            mesh (the JAX package's sharded chunk stream) raises at fit
+            until the parallel slice (ROADMAP Queue A item 7), so only
+            mesh=None trains."""
+            self._kw["use_device_pipeline"] = True
+            self._kw["device_mesh"] = mesh
+            self._kw["pipeline_chunk"] = chunk
+            self._kw["pipeline_group"] = group
+            return self
+
+        def negative_oversample(self, factor: float):
+            """Shared-negative variance reduction: draw factor*K shared
+            negatives each weighted K/M (expectation-identical to
+            per-pair SGNS; default 2.0 — see nlp/device_pipeline.py)."""
+            self._kw["pipeline_neg_oversample"] = float(factor)
             return self
 
         def device(self, device):
@@ -142,8 +164,8 @@ class Word2Vec(SequenceVectors):
     def __init__(self, **kw):
         # Word2Vec is a thin front-end over the embedding engine:
         # skip-gram flushes run the engine's step (the legacy dense
-        # step's math, scored by the K13 kernel on CUDA). CBOW keeps
-        # the legacy dense tables.
+        # step's math, scored by the K13 kernel on CUDA). CBOW and
+        # the device pipeline keep the legacy dense tables.
         kw.setdefault("use_engine", True)
         super().__init__(**kw)
         self._iterator = None

@@ -1,5 +1,6 @@
 """The serving front door: a stdlib ThreadingHTTPServer over an
-InferenceEngine or a GenerationEngine (JAX counterpart
+InferenceEngine, a GenerationEngine or an EmbeddingServingEngine (JAX
+counterpart
 deeplearning4j_tpu/serving/server.py).
 
 Endpoints (all JSON):
@@ -24,15 +25,26 @@ Endpoints (all JSON):
                         draining or when the KV-cache page pool and
                         pending queue are saturated, 404 when the engine
                         has no generation path.
-    POST /embed         404 naming the engine the route needs (the
-    POST /search        embedding server is not ported yet).
+    POST /embed         {"ids": [...], "id"?} -> {"id", "vectors",
+                        "timing"}: embedding-table rows, served by an
+                        EmbeddingServingEngine (embedding/serving.py);
+                        404 otherwise, 400 on out-of-range ids or a
+                        batch over the lattice max, 503 while draining.
+    POST /search        {"vector": [...]} or {"vectors": [[...], ...]},
+                        "k"?, "id"? -> {"id", "ids", "scores", "timing"}:
+                        ANN top-k by cosine through the partition-then-
+                        refine index (embedding/ann.py), nearest first;
+                        400 on a k off the warmed grid; the same
+                        404/400/503 envelope as /embed.
     GET  /metrics       Prometheus text exposition (version 0.0.4) from
                         the stdlib registry (telemetry/metrics.py):
                         request latency and TTFT histograms fed live off
                         the telemetry `request` events, queue depth,
                         KV page-pool occupancy, speculative acceptance
                         gauges, weight generation, per-replica liveness
-                        and heartbeat age. The HBM, ledger and MFU
+                        and heartbeat age, and the embedding engine's
+                        gather / ann_probe span latencies and bytes
+                        moved. The HBM, ledger and MFU
                         families (the per-forward MFU gauge needs the
                         cost book) are registered and stay unset until
                         the telemetry slice, as they are off-TPU in the
@@ -129,8 +141,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._predict()
             return
         if route in ("/embed", "/search"):
-            self._json({"error": "this engine does not serve embeddings "
-                                 "(start an EmbeddingServingEngine)"}, 404)
+            self._embedding(route)
             return
         self._json({"error": f"unknown path {self.path}"}, 404)
 
@@ -239,6 +250,54 @@ class _Handler(BaseHTTPRequestHandler):
             summary["error"] = req.error
         self._line(summary)
 
+    def _embedding(self, route: str):
+        """Embedding lookups and ANN vector search, served by an
+        EmbeddingServingEngine (embedding/serving.py). Gated on the
+        submit methods the same way /generate gates on
+        submit_generate."""
+        engine = self.serving.engine
+        method = "submit_embed" if route == "/embed" else "submit_search"
+        if not hasattr(engine, method):
+            self._json({"error": "this engine does not serve embeddings "
+                                 "(start an EmbeddingServingEngine)"}, 404)
+            return
+        if self.serving.draining:
+            self._json({"error": "draining; not admitting requests"}, 503)
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            if route == "/embed":
+                req = engine.submit_embed(payload["ids"],
+                                          request_id=payload.get("id"))
+            else:
+                queries = payload.get("vectors", payload.get("vector"))
+                if queries is None:
+                    raise KeyError("vector")
+                req = engine.submit_search(queries, k=payload.get("k"),
+                                           request_id=payload.get("id"))
+        except (KeyError, ValueError, TypeError) as exc:
+            self._json({"error": f"bad request body: {exc!r}"}, 400)
+            return
+        except RuntimeError as exc:
+            code = 503 if "draining" in str(exc) else 400
+            self._json({"error": str(exc)}, code)
+            return
+        if not req.wait(REQUEST_TIMEOUT_S):
+            self._json({"id": req.request_id, "error": "timed out"}, 504)
+            return
+        if req.error is not None:
+            self._json({"id": req.request_id, "error": req.error}, 500)
+            return
+        body = {"id": req.request_id,
+                "timing": {"total_s": round(req.t_done - req.t_enqueue, 6)}}
+        if route == "/embed":
+            body["vectors"] = np.asarray(req.result["vectors"]).tolist()
+        else:
+            body["ids"] = np.asarray(req.result["ids"]).tolist()
+            body["scores"] = np.asarray(req.result["scores"]).tolist()
+        self._json(body)
+
     def _line(self, obj) -> None:
         try:
             self.wfile.write((json.dumps(obj) + "\n").encode())
@@ -324,8 +383,7 @@ class ServingMetrics:
             "fraction of offered draft tokens the verify step accepted")
         # registered as in the JAX package and left unset: the memory
         # sampler and the cost book that set the gauges come with the
-        # telemetry slice, the embedding spans that feed the histograms
-        # and the byte counter with the embedding server
+        # telemetry slice
         for name, help_text in (
                 ("serving_hbm_live_bytes", "total live device bytes"),
                 ("serving_hbm_limit_bytes", "per-device memory capacity"),
@@ -336,17 +394,24 @@ class ServingMetrics:
                 ("serving_mfu_live",
                  "model FLOPs utilization over recent forwards")):
             self.registry.gauge(name, help_text)
-        for name in ("gather", "scatter_add", "ann_probe"):
-            self.registry.histogram(f"serving_embedding_{name}_seconds",
-                                    f"embedding-engine {name} span wall time")
-        self.registry.counter("serving_embedding_bytes_total",
-                              "bytes moved by embedding-engine spans")
+        # the embedding engine's data movement: one latency histogram
+        # per span kind plus a bytes-moved counter, fed live off the
+        # span events like the request latencies
+        self.embed_spans = {
+            name: self.registry.histogram(
+                f"serving_embedding_{name}_seconds",
+                f"embedding-engine {name} span wall time")
+            for name in ("gather", "scatter_add", "ann_probe")}
+        self.embed_bytes = self.registry.counter(
+            "serving_embedding_bytes_total",
+            "bytes moved by embedding-engine spans, by span kind")
         self.registry.add_collector(self._collect)
 
     # ------------------------------------------------------- live events
     def on_event(self, ev: dict) -> None:
         """The recorder sink: request events feed the latency histograms
-        on the emitting thread; anomaly events bump their counter."""
+        on the emitting thread; anomaly events bump their counter;
+        embedding spans feed their histogram and the bytes counter."""
         kind = ev.get("event")
         if kind == "request":
             outcome = "ok" if ev.get("ok") else "error"
@@ -362,6 +427,14 @@ class ServingMetrics:
         elif kind == "anomaly":
             self.registry.inc(self.anomalies, 1.0,
                               kind=str(ev.get("kind", "unknown")))
+        elif kind == "span" and ev.get("name") in self.embed_spans:
+            name = ev["name"]
+            if "seconds" in ev:
+                self.registry.observe(self.embed_spans[name],
+                                      float(ev["seconds"]))
+            if ev.get("bytes"):
+                self.registry.inc(self.embed_bytes, float(ev["bytes"]),
+                                  span=str(name))
 
     # ---------------------------------------------------------- scraping
     def _collect(self) -> None:

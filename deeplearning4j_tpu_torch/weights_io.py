@@ -85,3 +85,48 @@ def tables_to_numpy(table) -> dict:
     `syn1neg` -> numpy arrays on the host."""
     return {name: getattr(table, name).detach().to("cpu", copy=True).numpy()
             for name in TABLES}
+
+
+# ---------------------------------------------- the embeddings slice
+
+def ann_index_from_jax(index, device, recorder=None):
+    """A JAX `DeviceANNIndex` -> the port's, over the same centroids,
+    partition vectors and partition ids (copied to `device`), so both
+    search the same partitions."""
+    from deeplearning4j_tpu_torch.embedding.ann import DeviceANNIndex
+
+    return DeviceANNIndex(_tensor(index.centroids, device),
+                          _tensor(index.part_vecs, device),
+                          _tensor(index.part_ids, device), recorder=recorder)
+
+
+def glove_state_from_jax(arrays: dict, device) -> dict:
+    """GloVe's `W`, `Wc` [V, D], biases `b`, `bc` [V] and AdaGrad
+    accumulators `hW`, `hWc`, `hb`, `hbc` as numpy arrays -> tensors on
+    `device`, for `Glove.fit(..., init_state=...)` of the port."""
+    from deeplearning4j_tpu_torch.nlp.glove import GLOVE_STATE
+
+    return {name: _tensor(arrays[name], device) for name in GLOVE_STATE}
+
+
+def glove_state_to_numpy(state: dict) -> dict:
+    """The port's GloVe state (`Glove.state` after a fit) -> numpy."""
+    from deeplearning4j_tpu_torch.nlp.glove import GLOVE_STATE
+
+    return {name: state[name].detach().to("cpu", copy=True).numpy()
+            for name in GLOVE_STATE}
+
+
+def paragraph_vectors_from_jax(jax_model, model) -> None:
+    """Carry a trained JAX ParagraphVectors into the port's `model`,
+    built over the same vocabulary (`build_vocab` on the same corpus):
+    the tables with the label rows [V, V + n_labels) of syn0, and the
+    labels with their row indices."""
+    model.labels = list(jax_model.labels)
+    model._label_index = dict(jax_model._label_index)
+    model._max_labels_per_doc = jax_model._max_labels_per_doc
+    model._init_from_vocab()
+    arrays = {name: np.asarray(getattr(jax_model.lookup_table, name))
+              for name in TABLES}
+    for name, t in tables_from_jax(arrays, model.device).items():
+        setattr(model.lookup_table, name, t)

@@ -375,8 +375,15 @@ def test_word2vec_matches_jax(sents, algo):
 
 
 def test_device_pipeline_raises(sents):
-    m = Word2Vec.builder().use_device_pipeline().device("cpu").build()
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    """The pipeline trains (tests/test_torch_device_pipeline.py); it
+    raises only where the JAX package refuses too (hierarchical softmax)
+    and for a device mesh, which waits for the parallel slice."""
+    m = (Word2Vec.builder().use_device_pipeline().use_hierarchic_softmax()
+         .device("cpu").build())
+    with pytest.raises(ValueError, match="negative sampling"):
+        m.fit(sents[:20])
+    m = Word2Vec.builder().device_mesh(object()).device("cpu").build()
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
         m.fit(sents[:20])
 
 

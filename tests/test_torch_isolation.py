@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,7 +55,8 @@ def test_package_imports_without_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 20
-    missing = {f"deeplearning4j_tpu_torch.{m}" for m in NN_SLICE} - names
+    missing = {f"deeplearning4j_tpu_torch.{m}"
+               for m in NN_SLICE + EMBEDDINGS_SLICE} - names
     assert not missing, missing
 
 
@@ -62,6 +64,13 @@ def test_package_imports_without_jax():
 NN_SLICE = ("nn.tree", "nn.layers.recurrent", "nn.layers.moe",
             "nn.layers.nested", "optimize.listeners", "optimize.solvers",
             "earlystopping.core", "gradientcheck.gradient_check_util")
+# the rest of embeddings and NLP (ROADMAP A8)
+EMBEDDINGS_SLICE = (
+    "nlp.device_pipeline", "nlp.paragraph_vectors", "nlp.glove",
+    "nlp.bagofwords", "nlp.invertedindex", "nlp.movingwindow",
+    "nlp.sentiment", "nlp.treeparser", "nlp.annotation", "embedding.ann",
+    "embedding.serving", "graph", "graph.api", "graph.graph", "graph.loader",
+    "graph.walkers", "graph.deepwalk")
 
 
 def test_entry_point_defaults_to_cuda():
@@ -200,3 +209,85 @@ def test_image_model_entry_points_default_to_cuda(name):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             net.init()
+
+
+def _clustered_rows(v=64, d=8):
+    rng = np.random.default_rng(0)
+    return (rng.normal(size=(4, d))[rng.integers(0, 4, v)]
+            + 0.1 * rng.normal(size=(v, d))).astype(np.float32)
+
+
+def _pipeline_word2vec():
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+    model = (Word2Vec.builder().layer_size(8).window_size(2)
+             .use_device_pipeline(True).build())
+    assert model.device == torch.device("cuda")
+    model.fit([["a", "b", "c"], ["b", "c", "d"]] * 40)
+    return [model.lookup_table.syn0, model.lookup_table.syn1neg]
+
+
+def _ann_index():
+    from deeplearning4j_tpu_torch.embedding.ann import DeviceANNIndex
+
+    idx = DeviceANNIndex.build(_clustered_rows(), n_partitions=4)
+    return [idx.centroids, idx.part_vecs, idx.part_ids]
+
+
+def _embedding_serving():
+    from deeplearning4j_tpu_torch.embedding.serving import (
+        EmbeddingServingEngine,
+    )
+
+    eng = EmbeddingServingEngine(_clustered_rows(), n_partitions=4,
+                                 nprobe=2)
+    assert eng.device == torch.device("cuda")
+    return [eng.index.part_vecs]
+
+
+def _deepwalk():
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+
+    g = Graph(4)
+    for a, b in ((0, 1), (1, 2), (2, 3), (3, 0)):
+        g.add_edge(a, b)
+    dw = DeepWalk(vector_size=8, window_size=2)
+    dw.fit(g, walk_length=6)
+    return [dw.vectors.lookup_table.syn0]
+
+
+def _paragraph_vectors():
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors,
+    )
+
+    pv = ParagraphVectors(layer_size=8)
+    assert pv.device == torch.device("cuda")
+    pv.fit(["a b c", "b c d"], ["x", "y"])
+    return [pv.lookup_table.syn0, pv.lookup_table.syn1neg]
+
+
+def _glove():
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+
+    g = Glove(layer_size=8, epochs=1, batch_size=16)
+    assert g.device == torch.device("cuda")
+    g.fit([["a", "b", "c"], ["b", "c", "d"]])
+    return list(g.state.values())
+
+
+@pytest.mark.parametrize("make", [_pipeline_word2vec, _ann_index,
+                                  _embedding_serving, _deepwalk,
+                                  _paragraph_vectors, _glove],
+                         ids=["Word2Vec-pipeline", "DeviceANNIndex",
+                              "EmbeddingServingEngine", "DeepWalk",
+                              "ParagraphVectors", "Glove"])
+def test_embeddings_slice_entry_points_default_to_cuda(make):
+    """The same rule for the rest of embeddings and NLP: with no device
+    named, the pipeline's tables, the ANN index, the serving engine's
+    index, DeepWalk's, ParagraphVectors' and GloVe's tables go to CUDA."""
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in make())
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
