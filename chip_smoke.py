@@ -10,9 +10,11 @@ of them, the predict path and the serving fleet (InferenceEngine,
 /predict, the traffic replays, checkpoints, hot-swap, self-healing), and
 the rest of nn/ (the MoE LM, remat, the GravesLSTM char model with TBPTT
 and rnn_time_step, LION/LAMB, the solvers, pretraining, nested networks,
-early stopping), and the rest of embeddings and NLP (the Word2Vec device
+early stopping), the rest of embeddings and NLP (the Word2Vec device
 pipeline, ANN serving over /embed and /search, DeepWalk,
-ParagraphVectors, GloVe).
+ParagraphVectors, GloVe), and data and sequence parallelism at one rank
+(DataParallelTrainer's two arms, ParameterAveragingTrainer, ring
+attention, SequenceParallelTrainer, the pipelined fit).
 
 Run from the root of a checkout, with no arguments:
 
@@ -294,8 +296,41 @@ Phases, each of which exits non-zero when it fails:
    sub-corpus: the loss falls epoch over epoch, separation above 0,
    triples/s and the host's co-occurrence seconds. The phase launches
    K13 exactly 531 times (20a's host-path model) and no other kernel.
+21. Data and sequence parallelism (after phase 20) at world size 1 over
+   NCCL on the one card (the card runs one rank: an NCCL communicator
+   holds one rank a card). 21a: phase 6's batch through
+   `DataParallelTrainer` for 3 steps, the monolithic arm and the overlap
+   arm at each bucket size of bench.py's `OVERLAP_BUCKET_SWEEP` (64 KiB,
+   256 KiB, 1 GiB) each bit for bit the meshless net's (the mean
+   all-reduce of one rank is a copy and a division by 1, the bucket
+   mean a lossless f32 round trip) with phase 6's K2/K6/K8/K9 counts for
+   3 steps; each arm's bucket count and median CUDA-event step beside
+   the meshless step's. 21b: one forward and backward of ResNet-20 in
+   f64 as a data shard of one rank (batch-norm sums and the masked
+   loss's count all-reduced over NCCL) against the meshless one within
+   1e-9 of the largest gradient; then
+   bench mode `resnet_dp`'s three arms at one rank on ResNet-20 (batch
+   64, f32): monolithic, overlap (256 KiB) and
+   ParameterAveragingTrainer(averaging_frequency=1); steps/s and the
+   ratios, no gate; every arm's loss falls. 21c: ring attention through
+   the in-process transport, q, k, v [4, 2, 4096, 128] bf16 in 4 blocks
+   of 1024, forward and backward against the whole-sequence K1/K5
+   within TOL["bfloat16"] (gradients within REL_TOL), exactly 10 K1 and
+   10 K5 launches (4 diagonal and 6 full hops, 6 skipped); f32 at [1, 2,
+   512, 64] within 1e-4; dropout 0.1 with one step seed against the
+   whole-sequence kernel with that seed; the process-group ring at world
+   size 1 (one diagonal hop); the ring's and the whole-sequence
+   kernels' forward + backward times. 21d: `SequenceParallelTrainer` on
+   the flagship at bench mode `longcontext`'s dims (T 4096, batch 4,
+   bf16), 3 steps: the loss falls, and the params and every loss equal
+   plain fit's from the same init bit for bit (at T 4096 plain fit runs
+   K1/K5 over the whole sequence; a ring of one shard is one diagonal
+   hop of the same kernels), the same launches, the step time. 21e: fit
+   of the flagship over 5 batches through `iter_prefetched` (depth 2)
+   against the synchronous loop, bit for bit, with the input_wait p50
+   and p99.
 
-After phases 3-20, no attention call on the card may have taken the
+After phases 3-21, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
@@ -5037,6 +5072,457 @@ def train_embeddings_rest(torch, counters, Word2Vec, engine, host_rate,
     return launches
 
 
+# ------------------------------------------------------------ phase 21
+
+# bench.py OVERLAP_BUCKET_SWEEP: the overlap arm's bucket sizes
+OVERLAP_BUCKETS = (64 * 1024, 256 * 1024, 1 << 30)
+DP_STEPS = 3
+DP_TIMED = 5
+# bench.py bench_resnet_dp: batch 64, 8 batches a round; rounds cut to 3
+RESNET_DP = dict(batch=64, n_batches=8, rounds=3)
+# phase 2's BH = 8, T = 4096 shape as [B, H, T, D], cut into 4 blocks
+RING = dict(B=4, H=2, T=4096, D=128, n=4)
+RING_F32 = dict(B=1, H=2, T=512, D=64, n=4)
+# bench.py LM_MODE_DIMS["longcontext"]
+SP = dict(seq=4096, batch=4, steps=3)
+PIPE_STEPS = 5
+
+
+def log21(card, msg):
+    """A phase-21 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def same_params(torch, a, b):
+    """Whether two nets' params are equal bit for bit."""
+    from deeplearning4j_tpu_torch.nn import tree
+
+    return all(torch.equal(x, tree.get(b.params, p))
+               for p, x in tree.leaves(a.params))
+
+
+def event_ms(torch, fn, n):
+    """Median CUDA-event time of `n` calls of fn, after one warm call."""
+    fn()
+    samples = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def flagship(transformer_lm, **kw):
+    c = TRAIN
+    return transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                          n_heads=c["n_heads"], n_layers=c["n_layers"],
+                          d_ff=c["d_ff"], dtype="bfloat16", device="cuda",
+                          **kw)
+
+
+def dp_flagship(torch, counters, transformer_lm, DataSet, mesh, card):
+    """21a: the flagship through DataParallelTrainer at one rank, the
+    monolithic arm and the overlap arm at each bucket size bit for bit
+    against the meshless net with phase 6's launch counts; each arm's
+    step timed beside the meshless step."""
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    L, S = c["n_layers"], DP_STEPS
+    want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
+            "K12": 0, "K13": 0}
+    plain = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    arms = {"meshless": (plain, plain.fit)}
+    dp = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    arms["monolithic"] = (dp, DataParallelTrainer(dp, mesh).fit)
+    for bb in OVERLAP_BUCKETS:
+        net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+        arms[f"overlap {bb}"] = (
+            net, DataParallelTrainer(net, mesh, overlap=bb).fit)
+    runs = {}
+    for name, (net, fit) in arms.items():
+        torch.cuda.synchronize()
+        counters.reset()
+        for _ in range(S):
+            fit(ds)
+        torch.cuda.synchronize()
+        runs[name] = counters.read()
+    for name, (net, _) in arms.items():
+        if name == "meshless":
+            continue
+        same = same_params(torch, plain, net)
+        log21(card, f"21a: {name} arm (DataParallelTrainer, world size 1, "
+            f"NCCL{_buckets(net)}) {S} steps: params bit for bit against "
+            f"the meshless net's {same}; scores {plain.score_value} / "
+            f"{net.score_value}; launches {runs[name]}")
+        if not same or plain.score_value != net.score_value:
+            raise PhaseFailed("21a", f"the {name} arm at one rank is not "
+                                     "the meshless step bit for bit")
+    if any(r != want for r in runs.values()):
+        raise PhaseFailed("21a", f"launches {runs}, expected {want} each")
+    steps = {name: event_ms(torch, lambda fit=fit: fit(ds), DP_TIMED)
+             for name, (_, fit) in arms.items()}
+    log21(card, f"21a: median step ms (CUDA events, {DP_TIMED} steps after "
+        f"one warm) {steps}")
+    launches = {k: sum(r[k] for name, r in runs.items()
+                       if name != "meshless") for k in want}
+    return launches, steps
+
+
+def _buckets(net):
+    plan = net._overlap_plan
+    return "" if plan is None else f", {len(plan.buckets)} buckets"
+
+
+# 21b's shard check runs ResNet-20 in f64: in f32 on the H100 the
+# shard's gradients came within 7.7e-5 of the largest entry of the
+# meshless ones, against a 1e-4 gate (cuDNN's backward does not repeat
+# bit for bit); in f64 the two agree to ~1e-16
+SHARD_CHECK_TOL = 1e-9
+
+
+def resnet_shard_grads(torch, mesh, ds, card):
+    """21b: one forward and backward of ResNet-20 in f64 as a data shard
+    of one rank (batch-norm sums all-reduced differentiably and the
+    masked loss's count all-reduced, over NCCL) against the meshless
+    forward and backward: the loss and every gradient within
+    SHARD_CHECK_TOL of the largest entry. A second meshless pass gives
+    the run-to-run reading beside it."""
+    import contextlib
+
+    from deeplearning4j_tpu_torch.models.resnet import resnet20
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.training import loss_and_grads
+    from deeplearning4j_tpu_torch.ops.shard_scope import DataShard, sharded
+
+    net = resnet20(dtype="float64", device="cuda").init(SEED)
+    batch = net._batch_dict(net._to_mds(ds))
+    shard = DataShard(mesh.group("data"), 1, mesh.axis_index("data"))
+    got = {}
+    for name, ctx in (("meshless", contextlib.nullcontext()),
+                      ("again", contextlib.nullcontext()),
+                      ("shard", sharded(data=shard))):
+        with ctx:
+            loss, _, grads = loss_and_grads(net._loss, net.params, net.state,
+                                            None, batch)
+        got[name] = (loss.detach(), grads)
+    l0, g0 = got["meshless"]
+    # over the largest gradient entry: the biases of the convolutions
+    # before a batch norm have a gradient of 0 up to rounding
+    top = max(float(g.abs().max()) for _, g in tree.leaves(g0))
+    e = {name: (errs(loss, l0)[1], max(errs(g, tree.get(g0, p))[0]
+                                       for p, g in tree.leaves(grads)) / top)
+         for name, (loss, grads) in got.items() if name != "meshless"}
+    log21(card, f"21b: ResNet-20 f64 forward and backward as a data shard of "
+        f"one rank (NCCL collectives) against the meshless one, masked "
+        f"loss: loss relative {e['shard'][0]:.3e}, gradients max |shard - "
+        f"meshless| over the largest entry {e['shard'][1]:.3e} (tol "
+        f"{SHARD_CHECK_TOL}); a second meshless pass {e['again'][0]:.3e} / "
+        f"{e['again'][1]:.3e}")
+    if not max(e["shard"]) <= SHARD_CHECK_TOL:
+        raise PhaseFailed("21b", "the data shard's forward collectives "
+                                 "disagree with the meshless step")
+    return e
+
+
+def dp_resnet20(torch, card):
+    """21b: bench mode resnet_dp's three arms at one rank on ResNet-20
+    (batch 64, f32): monolithic, overlap (256 KiB buckets) and
+    ParameterAveragingTrainer(averaging_frequency=1); steps/s and their
+    ratios, no gate; every arm's loss falls. Before them, the shard's
+    forward collectives held against the meshless step."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.resnet import resnet20
+    from deeplearning4j_tpu_torch.parallel import (
+        DataParallelTrainer,
+        ParameterAveragingTrainer,
+        make_mesh,
+    )
+
+    c = RESNET_DP
+    mesh = make_mesh({"data": 1})
+    rng = np.random.default_rng(0)
+    x = rng.random((c["batch"], 32, 32, 3), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, c["batch"])]
+    ds = DataSet(x, y)
+    keep = (rng.random(c["batch"]) < 0.75).astype(np.float32)
+    resnet_shard_grads(torch, mesh, DataSet(x, y, labels_mask=keep), card)
+    arms = {}
+    for name in ("allreduce", "overlap", "paramavg"):
+        net = resnet20(device="cuda").init(SEED)
+        if name == "paramavg":
+            tr = ParameterAveragingTrainer(net, mesh, averaging_frequency=1)
+        else:
+            tr = DataParallelTrainer(
+                net, mesh, overlap=256 * 1024 if name == "overlap" else None)
+        arms[name] = (net, tr, [])
+    for name, (net, tr, losses) in arms.items():  # warm
+        tr.fit(ListDataSetIterator([ds] * 2))
+        losses.append(net.score_value)
+    rates = {name: [] for name in arms}
+    for _ in range(c["rounds"]):
+        for name, (net, tr, losses) in arms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(ListDataSetIterator([ds] * c["n_batches"]))
+            torch.cuda.synchronize()
+            rates[name].append(c["n_batches"] / (time.perf_counter() - t0))
+            losses.append(net.score_value)
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log21(card, f"21b: ResNet-20 batch {c['batch']} f32 at one rank, steps/s "
+        f"(median of {c['rounds']} rounds of {c['n_batches']}): "
+        f"{ {k: round(v, 3) for k, v in med.items()} }; overlap/paramavg "
+        f"{med['overlap'] / med['paramavg']:.4f}, allreduce/paramavg "
+        f"{med['allreduce'] / med['paramavg']:.4f}, overlap/allreduce "
+        f"{med['overlap'] / med['allreduce']:.4f}")
+    for name, (_, _, losses) in arms.items():
+        log21(card, f"21b: {name} losses {[round(v, 4) for v in losses]}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise PhaseFailed("21b", f"{name}: the loss does not fall: "
+                                     f"{losses}")
+    return med
+
+
+def ring_on_card(torch, counters, fa, mesh_seq, card):
+    """21c: ring attention through the in-process transport on the card:
+    4 blocks of 1024 in bf16 against the whole-sequence K1/K5, the f32
+    case, exact hop launches, dropout with one step seed against the
+    whole-sequence kernel, and the process-group ring at one rank."""
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        ring_self_attention,
+    )
+
+    def inputs(c, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn((c["B"], c["H"], c["T"], c["D"]), generator=g,
+                            device="cuda", dtype=dtype).requires_grad_()
+                for _ in range(4)]
+
+    def whole(q, k, v, drop=None):
+        B, H, T, D = q.shape
+        flat = [t.reshape(B * H, T, D) for t in (q, k, v)]
+        if drop is None:
+            o, _ = fa.flash_attention_lse(*flat, 1.0 / D ** 0.5, True)
+        else:
+            o, _ = fa.flash_attention_lse_drop(
+                *flat, None, fa._drop_ctx(drop, 0, 0), 1.0 / D ** 0.5, True,
+                DROP_RATE, T)
+        return o.reshape(B, H, T, D)
+
+    def fwd_bwd(fn, q, k, v, do):
+        o = fn(q, k, v)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        return o, dq, dk, dv
+
+    def compare(tag, got, ref, tol_o, tol_g):
+        got, ref = ([t.detach() for t in x] for x in (got, ref))
+        e_o = errs(got[0], ref[0])[0]
+        e_g = max(errs(a, b)[1] for a, b in zip(got[1:], ref[1:]))
+        log21(card, f"21c: {tag}: max |o - whole| {e_o:.3e} (tol {tol_o}), "
+            f"gradients max relative {e_g:.3e} (tol {tol_g})")
+        if not e_o <= tol_o or not e_g <= tol_g:
+            raise PhaseFailed("21c", f"{tag} disagrees with the "
+                                     "whole-sequence kernels")
+        return e_o, e_g
+
+    c, n = RING, RING["n"]
+    q, k, v, do = inputs(c, torch.bfloat16, 1)
+    ref = fwd_bwd(whole, q, k, v, do)
+
+    def ring(q, k, v, **kw):
+        return ring_self_attention(q, k, v, n_shards=n, causal=True, **kw)
+
+    torch.cuda.synchronize()
+    counters.reset()
+    o = ring(q, k, v)
+    torch.cuda.synchronize()
+    fwd_launches = counters.read()
+    counters.reset()
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    bwd_launches = counters.read()
+    log21(card, f"21c: 4-block causal ring, forward launches {fwd_launches}, "
+        f"backward {bwd_launches}")
+    if fwd_launches["K1"] != 10 or bwd_launches["K5"] != 10 or any(
+            n_ for k_, n_ in fwd_launches.items() if k_ != "K1") or any(
+            n_ for k_, n_ in bwd_launches.items() if k_ != "K5"):
+        raise PhaseFailed("21c", "expected exactly 10 K1 and 10 K5 (4 "
+                                 "diagonal + 6 full hops, 6 skipped)")
+    errors = {"bf16": compare(f"bf16 [{c['B']}, {c['H']}, {c['T']}, "
+                              f"{c['D']}] n={n}", (o, *grads),
+                              ref, TOL["bfloat16"]["o"],
+                              REL_TOL["bfloat16"])}
+    ring_ms = event_ms(torch, lambda: fwd_bwd(ring, q, k, v, do), 5)
+    whole_ms = event_ms(torch, lambda: fwd_bwd(whole, q, k, v, do), 5)
+    log21(card, f"21c: forward + backward {ring_ms:.3f} ms for the ring, "
+        f"{whole_ms:.3f} ms for the whole-sequence K1 + K5 (CUDA events, "
+        f"median of 5)")
+    c32 = RING_F32
+    q32, k32, v32, do32 = inputs(c32, torch.float32, 2)
+    errors["f32"] = compare(
+        f"f32 [{c32['B']}, {c32['H']}, {c32['T']}, {c32['D']}] "
+        f"n={c32['n']}",
+        fwd_bwd(lambda a, b, d: ring_self_attention(
+            a, b, d, n_shards=c32["n"], causal=True), q32, k32, v32, do32),
+        fwd_bwd(whole, q32, k32, v32, do32), 1e-4, 1e-4)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device="cuda")
+    errors["dropout"] = compare(
+        f"bf16 dropout {DROP_RATE}, one step seed",
+        fwd_bwd(lambda a, b, d: ring(a, b, d, dropout=DROP_RATE, seed=seed),
+                q, k, v, do),
+        fwd_bwd(lambda a, b, d: whole(a, b, d, seed), q, k, v, do),
+        TOL["bfloat16"]["o"], REL_TOL["bfloat16"])
+    counters.reset()
+    pg = fwd_bwd(lambda a, b, d: ring_self_attention(a, b, d, mesh_seq,
+                                                     causal=True),
+                 q, k, v, do)
+    torch.cuda.synchronize()
+    pg_launches = counters.read()
+    errors["process group"] = compare(
+        "process-group ring at world size 1 (one diagonal hop)", pg, ref,
+        TOL["bfloat16"]["o"], REL_TOL["bfloat16"])
+    if (pg_launches["K1"], pg_launches["K5"]) != (1, 1):
+        raise PhaseFailed("21c", f"one-hop ring launched {pg_launches}")
+    return {"errors": errors, "ring_ms": ring_ms, "whole_ms": whole_ms,
+            "launches": {k_: fwd_launches[k_] + bwd_launches[k_]
+                         + pg_launches[k_] for k_ in fwd_launches}}
+
+
+def sp_flagship(torch, counters, transformer_lm, DataSet, mesh_seq, card):
+    """21d: SequenceParallelTrainer on the flagship at bench mode
+    longcontext's dims (T 4096, batch 4, bf16) at one rank: the loss
+    falls, and the params and every step's loss equal plain fit's from
+    the same init bit for bit (at T 4096 plain fit runs K1/K5 over the
+    whole sequence, and a ring of one shard is one diagonal hop of the
+    same kernels)."""
+    from deeplearning4j_tpu_torch.parallel import SequenceParallelTrainer
+
+    c = SP
+    ds = lm_batch(DataSet, TRAIN["vocab_size"], c["batch"], c["seq"])
+    plain = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    sp = flagship(transformer_lm, max_length=c["seq"],
+                  seq_parallel_axis="seq").init(SEED)
+    trainer = SequenceParallelTrainer(sp, mesh_seq)
+    losses = {"plain": [], "sp": []}
+    runs = {}
+    for name, net, fit in (("sp", sp, trainer.fit),
+                           ("plain", plain, plain.fit)):
+        torch.cuda.synchronize()
+        counters.reset()
+        for _ in range(c["steps"]):
+            fit(ds)
+            losses[name].append(net.score_value)
+        torch.cuda.synchronize()
+        runs[name] = counters.read()
+    launches = runs["sp"]
+    L, S = TRAIN["n_layers"], c["steps"]
+    same = same_params(torch, plain, sp)
+    step_ms = event_ms(torch, lambda: trainer.fit(ds), 3)
+    plain_ms = event_ms(torch, lambda: plain.fit(ds), 3)
+    log21(card, f"21d: SequenceParallelTrainer (seq axis of 1, NCCL) at T "
+        f"{c['seq']} batch {c['batch']} bf16: losses {losses}; params bit "
+        f"for bit against plain fit's {same}; launches {runs}; step "
+        f"{step_ms:.3f} ms (CUDA events, median of 3) beside plain fit's "
+        f"{plain_ms:.3f} ms")
+    if not losses["sp"][-1] < losses["sp"][0]:
+        raise PhaseFailed("21d", "the SP loss does not fall")
+    if not same or losses["sp"] != losses["plain"]:
+        raise PhaseFailed("21d", "SP at one rank is not plain fit bit for "
+                                 "bit")
+    if (launches["K1"], launches["K5"], launches["K2"], launches["K8"]) \
+            != (L * S, L * S, 0, S) or launches != runs["plain"]:
+        raise PhaseFailed("21d", f"launches {runs}")
+    return launches, step_ms
+
+
+def pipelined_fit(torch, counters, transformer_lm, DataSet, card):
+    """21e: fit of the flagship over 5 batches through iter_prefetched
+    (depth 2) against the synchronous loop (depth 0), bit for bit, with
+    the pipelined run's input_wait p50 and p99."""
+    from deeplearning4j_tpu_torch.data.pipeline import set_prefetch_depth
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+
+    c = TRAIN
+    rng = np.random.default_rng(SEED + 21)
+    batches = []
+    for _ in range(PIPE_STEPS):
+        toks = rng.integers(0, c["vocab_size"], (c["batch"], c["seq"]))
+        toks = toks.astype(np.int32)
+        batches.append(DataSet(toks, np.roll(toks, -1, axis=1)))
+    nets = {}
+    rec = Recorder(path=None)
+    prev_rec = set_default(rec)
+    prev = set_prefetch_depth(0)
+    counters.reset()
+    try:
+        for depth in (0, 2):
+            set_prefetch_depth(depth)
+            net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+            net.fit(ListDataSetIterator(list(batches)))
+            nets[depth] = net
+    finally:
+        set_prefetch_depth(prev)
+        set_default(prev_rec)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    waits = sorted(e["seconds"] for e in rec.events
+                   if e.get("event") == "span"
+                   and e.get("name") == "input_wait" and e.get("pipelined"))
+    same = same_params(torch, nets[0], nets[2])
+    p50 = waits[len(waits) // 2] * 1e3
+    p99 = waits[min(len(waits) - 1, int(round(0.99 * (len(waits) - 1))))]
+    log21(card, f"21e: pipelined fit (depth 2) against synchronous (depth 0), "
+        f"{PIPE_STEPS} steps each: bit for bit {same}; input_wait over "
+        f"{len(waits)} dequeues p50 {p50:.3f} ms, p99 {p99 * 1e3:.3f} ms "
+        f"(host clock)")
+    if not same:
+        raise PhaseFailed("21e", "pipelined fit differs from synchronous fit")
+    return launches
+
+
+def train_parallel(torch, counters, fa, transformer_lm, DataSet, card):
+    """Phase 21: data and sequence parallelism at world size 1 over NCCL
+    on the one card (21a-21e). Returns the launches of its main-path
+    runs."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"data": 1})
+    mesh_seq = make_mesh({"seq": 1})
+    info = {"world": mesh.size, "device": str(mesh.device)}
+    log21(card, f"21: process group {info}")
+    try:
+        dp_launches, _ = dp_flagship(torch, counters, transformer_lm,
+                                     DataSet, mesh, card)
+        dp_resnet20(torch, card)
+        ring = ring_on_card(torch, counters, fa, mesh_seq, card)
+        sp_launches, _ = sp_flagship(torch, counters, transformer_lm,
+                                     DataSet, mesh_seq, card)
+        pipe_launches = pipelined_fit(torch, counters, transformer_lm,
+                                      DataSet, card)
+    finally:
+        bootstrap.shutdown()
+    runs = (dp_launches, ring["launches"], sp_launches, pipe_launches)
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in dp_launches}
+    log21(card, f"phase 21 in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    return launches
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -5210,12 +5696,14 @@ def main() -> int:
     nn_launches = train_nn_rest(torch, counters, fa, DataSet, name_power)
     emb_launches = train_embeddings_rest(torch, counters, Word2Vec, engine,
                                          host_rate, name_power)
-    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - started:.1f} s")
+    par_launches = train_parallel(torch, counters, fa, transformer_lm,
+                                  DataSet, name_power)
+    log(f"chip_smoke: phases 1-21 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-20", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-21", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -5224,14 +5712,16 @@ def main() -> int:
     # paths' runs (serving, its f32 oracle, the HTTP arms, flagship
     # training, the three bench modes, the other training paths,
     # Word2Vec, the engine, the speculative replay, the predict path's
-    # flagship windows, the MoE LM's training runs and phase 20's
-    # host-path Word2Vec), each counted from 0 just before it and read
-    # just after. K1-K7 carry their dropout
+    # flagship windows, the MoE LM's training runs, phase 20's
+    # host-path Word2Vec and phase 21's data-parallel, ring, sequence-
+    # parallel and pipelined-fit runs), each counted from 0 just before
+    # it and read just after. K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
-            replay_launches, predict_launches, nn_launches, emb_launches)
+            replay_launches, predict_launches, nn_launches, emb_launches,
+            par_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

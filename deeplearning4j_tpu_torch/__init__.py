@@ -17,13 +17,18 @@ through `serving.engine.InferenceEngine` (the dynamic batcher,
 whole-epoch Word2Vec pipeline (`nlp/device_pipeline.py`), the ANN index
 and the `/embed` + `/search` serving engine (`embedding/ann.py`,
 `embedding/serving.py`), DeepWalk and `graph/`, ParagraphVectors, GloVe
-and the host-side NLP modules.
+and the host-side NLP modules; and data and sequence parallelism, one
+process per device under `torch.distributed` (`distributed/`,
+`parallel/`: `set_mesh` for the "data" and "seq" roles,
+`DataParallelTrainer`, `ParameterAveragingTrainer`, ring attention over
+the flash kernels, `SequenceParallelTrainer`), with the sharded,
+prefetched input pipeline the fit loops ride (`data/`).
 
 The package mirrors the JAX package's module layout and public names
 (`nn/conf`, `nn/layers`, `nn/graph.py`, `nn/multilayer.py`,
 `nn/decode.py`, `ops/`, `models/`, `serving/`, `telemetry/`,
 `datasets/`, `eval/`, `nlp/`, `embedding/`, `graph/`, `data/`, `util/`,
-`distributed/`), so
+`distributed/`, `parallel/`), so
 each counterpart is found by path. It imports `torch` and never `jax`,
 nor anything of `deeplearning4j_tpu`.
 

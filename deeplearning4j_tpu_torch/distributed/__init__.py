@@ -1,7 +1,58 @@
-"""The port's distributed pieces (JAX counterpart
-deeplearning4j_tpu/distributed): so far only the replica-scoped half of
-the fault-spec grammar (`faults.py`) that the serving fleet's chaos
-hooks read. The multi-process runtime — bootstrap, launcher, elastic
-recovery and the process-scoped faults — waits for ROADMAP Queue A
-item A7.
+"""Multi-process runtime (JAX counterpart deeplearning4j_tpu/distributed):
+one process per device under `torch.distributed`.
+
+- `bootstrap`: the env-var contract and a hardened
+  `init_process_group` (retry/backoff, NCCL on CUDA and gloo on the
+  CPU, per-process telemetry).
+- `launcher`: N local OS processes, one device each, with log
+  streaming, wall-clock deadlines and straggler reaping.
+- `global_mesh`: the mesh over every rank and this rank's part of a
+  global batch.
+- `faults`: the replica-scoped fault specs the serving fleet's chaos
+  hooks read, and the exit classes the launcher reports.
+
+The elastic supervisor and the process-scoped faults wait for the rest
+of ROADMAP Queue A item 7. Only `bootstrap` (pure stdlib at import)
+loads eagerly; the rest resolve lazily.
 """
+
+from deeplearning4j_tpu_torch.distributed.bootstrap import (  # noqa: F401
+    ENV_COORDINATOR,
+    ENV_DEVICE,
+    ENV_LOCAL_DEVICE_COUNT,
+    ENV_NUM_PROCESSES,
+    ENV_PROCESS_ID,
+    Backoff,
+    contract_from_env,
+    env_contract_present,
+    initialize,
+    is_initialized,
+    rendezvous_env,
+    shutdown,
+)
+
+_LAZY = {
+    "ProcessResult": "deeplearning4j_tpu_torch.distributed.launcher",
+    "classify_exit": "deeplearning4j_tpu_torch.distributed.launcher",
+    "free_port": "deeplearning4j_tpu_torch.distributed.launcher",
+    "launch_local": "deeplearning4j_tpu_torch.distributed.launcher",
+    "launch_plan": "deeplearning4j_tpu_torch.distributed.launcher",
+    "globalize_batch": "deeplearning4j_tpu_torch.distributed.global_mesh",
+    "globalize_full": "deeplearning4j_tpu_torch.distributed.global_mesh",
+    "local_shard": "deeplearning4j_tpu_torch.distributed.global_mesh",
+    "make_global_mesh": "deeplearning4j_tpu_torch.distributed.global_mesh",
+    "spans_processes": "deeplearning4j_tpu_torch.distributed.global_mesh",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

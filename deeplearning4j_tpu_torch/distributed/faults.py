@@ -13,8 +13,11 @@ copy of the grammar, with the same `Fault` fields and `spec()` strings.
 
 Specs join with `;` into a schedule. Replica faults take only kill/hang
 with a batch/decode trigger. The process-scoped specs (`p1:kill@step3`,
-`p0:delay-connect:1.5`, ...) drive the multi-process training fleet and
-wait for ROADMAP Queue A item A7: parsing one raises ValueError.
+`p0:delay-connect:1.5`, ...) drive the elastic multi-process training
+fleet and wait for the rest of ROADMAP Queue A item A7: parsing one
+raises ValueError. The exit classes the local launcher reports
+(`EXIT_*`, `RESUMABLE_EXIT_CODE`) are here already, with the JAX
+package's spellings.
 
 Pure stdlib.
 """
@@ -25,6 +28,19 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 KINDS = ("kill", "hang")
+
+# Exit classes the launcher reports per fleet member
+# (`launcher.classify_exit`), one spelling shared with telemetry events.
+EXIT_CLEAN = "clean"
+EXIT_SIGABRT = "sigabrt"
+EXIT_DEADLINE = "deadline-reaped"
+EXIT_INJECTED_KILL = "injected-kill"
+EXIT_RESUMABLE = "resumable"
+EXIT_ERROR = "error"
+
+# Exit code a worker uses to say "I survived a peer's death and want to
+# rejoin" (sysexits EX_TEMPFAIL).
+RESUMABLE_EXIT_CODE = 75
 REPLICA_UNITS = ("batch", "decode")
 
 

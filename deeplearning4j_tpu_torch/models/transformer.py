@@ -8,8 +8,9 @@ Same layer names, shapes and config fields as the JAX package's
 `transformer_lm`, so its params copy across by name (weights_io.py), and
 the same FLOP accounting (`transformer_flops_per_token[_executed]`,
 `transformer_moe_flops_per_token`); the MoE variant
-(`transformer_moe_lm`) and `remat` as the JAX package's. The
-sequence-parallel options come with the parallel slice.
+(`transformer_moe_lm`) and `remat` as the JAX package's, and
+`seq_parallel_axis` for sequence parallelism (ring attention and offset
+positional encodings in a `seq` mesh step, parallel/sequence_parallel.py).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
 def _build_lm(vocab_size, d_model, n_heads, n_layers, max_length, dropout,
               seed, learning_rate, dtype, remat, attention_dropout,
-              ff_builder, device) -> ComputationGraph:
+              ff_builder, device, seq_parallel_axis="") -> ComputationGraph:
     """The pre-norm LM skeleton; `ff_builder(g, block, input_name)` adds
     each block's feed-forward sublayer(s) and returns the output name:
     the dense and MoE variants differ only there."""
@@ -50,7 +51,8 @@ def _build_lm(vocab_size, d_model, n_heads, n_layers, max_length, dropout,
                                         activation="identity",
                                         has_bias=False), "tokens")
     g.add_layer("posenc", PositionalEncodingLayer(
-        max_length=max_length, n_features=d_model), "embed")
+        max_length=max_length, n_features=d_model,
+        seq_parallel_axis=seq_parallel_axis), "embed")
     prev = "posenc"
     for i in range(n_layers):
         b = f"blk{i}"
@@ -61,7 +63,8 @@ def _build_lm(vocab_size, d_model, n_heads, n_layers, max_length, dropout,
             dropout=dropout,
             attention_dropout=(dropout if attention_dropout is None
                                else attention_dropout),
-            activation="identity"), f"{b}_ln1")
+            activation="identity",
+            seq_parallel_axis=seq_parallel_axis), f"{b}_ln1")
         g.add_vertex(f"{b}_res1", ElementWiseVertexConf(op="add"),
                      prev, f"{b}_attn")
         g.add_layer(f"{b}_ln2", LayerNormalization(n_in=d_model,
@@ -84,13 +87,16 @@ def transformer_lm(vocab_size: int = 10000, d_model: int = 256,
                    max_length: int = 512, dropout: float = 0.0,
                    seed: int = 12345, learning_rate: float = 3e-4,
                    dtype: str = "float32", remat: bool = False,
+                   seq_parallel_axis: str = "",
                    attention_dropout: float = None,
                    device=None) -> ComputationGraph:
     """The dense-FF LM on `device` (CUDA unless the caller names
     another), trained with Adam at `learning_rate`; `dropout` drops the
     attention and FF inputs and (unless `attention_dropout` says
     otherwise) the attention weights while training; `remat` recomputes
-    each vertex's activations in the backward."""
+    each vertex's activations in the backward; `seq_parallel_axis` names
+    the mesh axis to shard time over (an SP-ready conf for
+    parallel/sequence_parallel.py)."""
     def ff(g, b, src):
         g.add_layer(f"{b}_ff1", DenseLayer(n_in=d_model, n_out=d_ff,
                                            activation="gelu",
@@ -102,7 +108,8 @@ def transformer_lm(vocab_size: int = 10000, d_model: int = 256,
 
     return _build_lm(vocab_size, d_model, n_heads, n_layers, max_length,
                      dropout, seed, learning_rate, dtype, remat,
-                     attention_dropout, ff, device)
+                     attention_dropout, ff, device,
+                     seq_parallel_axis=seq_parallel_axis)
 
 
 def transformer_moe_lm(vocab_size: int = 10000, d_model: int = 256,

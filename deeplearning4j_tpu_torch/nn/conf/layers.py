@@ -305,8 +305,9 @@ class LayerNormalization(FeedForwardLayer):
 @dataclasses.dataclass
 class PositionalEncodingLayer(Layer):
     """Adds positional information to [batch, time, features] — sinusoidal
-    (param-free) or learned. `seq_parallel_axis` is kept for config
-    round-trips; the sequence-parallel path is not part of this port."""
+    (param-free) or learned. `seq_parallel_axis`: the mesh axis time is
+    sharded over in a sequence-parallel step, where x is a shard's block
+    and the encoding offsets by its global position."""
 
     learned: bool = False
     max_length: int = 2048
@@ -326,8 +327,9 @@ class PositionalEncodingLayer(Layer):
 class SelfAttentionLayer(BaseRecurrentLayer):
     """Multi-head self-attention over [batch, time, features] with causal
     masking. `use_flash` selects the hand-written attention kernel when
-    the case is inside its envelope; `seq_parallel_axis` is kept for
-    config round-trips only."""
+    the case is inside its envelope; `seq_parallel_axis`: the mesh axis
+    time is sharded over in a sequence-parallel step, where attention
+    runs the ring (parallel/ring_attention.py)."""
 
     n_heads: int = 8
     causal: bool = True

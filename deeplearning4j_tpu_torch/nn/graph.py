@@ -18,8 +18,12 @@ first when the configuration asks for it, takes the Solver path for a
 non-SGD optimization algorithm and truncated BPTT for sequences longer
 than the window; `remat` recomputes each layer vertex's activations in
 the backward; `rnn_time_step` streams through the recurrent vertices.
-Meshes (`set_mesh`) come with the parallel slice (ROADMAP Queue A item
-7). `resume_from` reads the port's own checkpoint format
+`fit` rides the pipelined input loader (data/pipeline.iter_prefetched):
+the next batch's conversion runs on a producer thread while the step
+computes. `set_mesh` (parallel/placement.py) takes the "data" and "seq"
+roles: each rank then steps on its rows (and time block) of the global
+batch, and `output` / `evaluate` shard the batch over the data axis.
+`resume_from` reads the port's own checkpoint format
 (util/checkpoint.py); `inference_fn` is the forward the predict engine's
 replicas call (serving/engine.py).
 """
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.data.pipeline import iter_prefetched
 from deeplearning4j_tpu_torch.datasets.api import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
 from deeplearning4j_tpu_torch.nn import tree
@@ -65,6 +70,16 @@ from deeplearning4j_tpu_torch.nn.training import (
 from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer,
     named_layer_confs,
+)
+from deeplearning4j_tpu_torch.parallel.placement import (
+    configure_mesh,
+    local_dataset,
+    mesh_axis,
+    not_ported,
+    sharded_forward,
+)
+from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+    make_sp_train_step,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -127,6 +142,9 @@ class ComputationGraph(LazyScore):
         self._train_step = None
         self._generator = None
         self._rnn_carries = None  # rnn_time_step's state between calls
+        self._mesh = None
+        self._mesh_axes = None
+        self._overlap_plan = None
 
     @property
     def compute_dtype(self):
@@ -340,17 +358,28 @@ class ComputationGraph(LazyScore):
 
         return resume(self, checkpoint_dir, step)
 
-    def set_mesh(self, mesh, **kwargs):
-        """Meshes (data, tensor, pipeline, expert and sequence
-        parallelism) come with the parallel slice of the port."""
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP Queue A item 7, parallel "
-            "and distributed)")
+    def set_mesh(self, mesh, zero1: bool = False, axes=None,
+                 n_microbatches=None, tp_rules=None, overlap=None):
+        """Map parallelism roles ("data", "seq") to mesh axis names
+        (parallel/placement.configure_mesh); `overlap` (True / bucket
+        bytes / a BucketPlan) reduces the data-parallel gradients bucket
+        by bucket during the backward. set_mesh(None) clears the mesh.
+        Returns the net."""
+        return configure_mesh(self, mesh, zero1=zero1, axes=axes,
+                              n_microbatches=n_microbatches,
+                              tp_rules=tp_rules, overlap=overlap)
 
     def _get_train_step(self):
         if self._train_step is None:
-            self._train_step = make_train_step(self._loss, self.tx,
-                                               named_layer_confs(self))
+            if mesh_axis(self, "seq") is not None:
+                self._train_step = make_sp_train_step(
+                    self, self._mesh, seq_axis=mesh_axis(self, "seq"),
+                    data_axis=mesh_axis(self, "data"))
+            else:
+                self._train_step = make_train_step(
+                    self._loss, self.tx, named_layer_confs(self),
+                    mesh=self._mesh, data_axis=mesh_axis(self, "data"),
+                    overlap=self._overlap_plan)
         return self._train_step
 
     def fit(self, data, labels=None, epochs: int = 1):
@@ -365,7 +394,10 @@ class ComputationGraph(LazyScore):
             self.init()
         if labels is not None:
             data = DataSet(data, labels)
-        if isinstance(data, (DataSet, MultiDataSet)):
+        single_batch = isinstance(data, (DataSet, MultiDataSet))
+        if single_batch:
+            # one batch: the pipeline's synchronous path skips the
+            # producer thread
             data = ListDataSetIterator([data])
         if self.conf.pretrain:
             self.pretrain(data)
@@ -376,14 +408,24 @@ class ComputationGraph(LazyScore):
         step = self._get_train_step()
         tbptt = is_tbptt(self.conf)
         g = self.conf.conf
+        local = getattr(data, "process_local", False)
+
+        def convert(ds):
+            # producer-thread work: this rank's rows, the MultiDataSet
+            # coercion, the tensors on the device; batch None = a TBPTT
+            # sequence (its windows convert on the step thread)
+            mds = self._to_mds(local_dataset(self, ds, local))
+            if tbptt and self._needs_tbptt(mds):
+                return mds, None
+            return mds, self._batch_dict(mds)
+
         for _ in range(epochs):
             data.reset()
-            for ds in data:
-                mds = self._to_mds(ds)
-                if tbptt and self._needs_tbptt(mds):
+            for _ds, (mds, batch) in iter_prefetched(
+                    data, convert, depth=0 if single_batch else None):
+                if batch is None:
                     self._fit_tbptt(mds, step)
                     continue
-                batch = self._batch_dict(mds)
                 for _i in range(max(1, g.iterations)):
                     self.params, self.opt_state, self.state, loss, _ = step(
                         self.params, self.opt_state, self.state,
@@ -401,12 +443,14 @@ class ComputationGraph(LazyScore):
             raise ValueError(
                 "TRUNCATED_BPTT requires STOCHASTIC_GRADIENT_DESCENT; "
                 "second-order solvers would differentiate the full sequence")
+        if self._mesh is not None:
+            not_ported("the Solver path under a mesh")
         solver = Solver(self)
         for _ in range(epochs):
             it.reset()
-            for ds in it:
-                solver.optimize(self._batch_dict(self._to_mds(ds)),
-                                generator=self._generator)
+            for _ds, batch in iter_prefetched(
+                    it, lambda ds: self._batch_dict(self._to_mds(ds))):
+                solver.optimize(batch, generator=self._generator)
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count)
         return self
@@ -504,7 +548,10 @@ class ComputationGraph(LazyScore):
             data = DataSet(data, labels)
         if isinstance(data, (DataSet, MultiDataSet)):
             data = ListDataSetIterator([data])
-        batches = [self._batch_dict(self._to_mds(ds)) for ds in data]
+        local = getattr(data, "process_local", False)
+        batches = [self._batch_dict(self._to_mds(local_dataset(self, ds,
+                                                               local)))
+                   for ds in data]
         return fused_fit(self, batches, epochs)
 
     # ------------------------------------------------- streaming RNN inference
@@ -632,9 +679,12 @@ class ComputationGraph(LazyScore):
     def output(self, *inputs):
         """Outputs for the given inputs (reference output), as tensors on
         the net's device: a list (one per network output), or the single
-        tensor if there is one output."""
-        ys = self._forward(self.params, self.state,
-                           dict(zip(self.conf.network_inputs, inputs)))
+        tensor if there is one output. Under a data mesh each rank runs
+        its rows and the outputs are all-gathered
+        (parallel/placement.sharded_forward)."""
+        ys = sharded_forward(self, inputs, lambda *xs: self._forward(
+            self.params, self.state,
+            dict(zip(self.conf.network_inputs, xs))))
         return ys[0] if len(ys) == 1 else ys
 
     def inference_fn(self):

@@ -11,8 +11,13 @@ MAX_FLASH_T, and the dense f32-softmax attention otherwise; the flash
 routes carry their hand-written backward kernels
 (ops/flash_attention.py). Dropout on the layer input and on the
 attention weights draws from the caller's `torch.Generator`: on the
-flash routes inside the kernels, from one step seed a call. Still to
-come with later slices: sequence parallelism and ring attention.
+flash routes inside the kernels, from one step seed a call.
+
+Inside a sequence-parallel step (ops/shard_scope.py: a `SeqShard` on the
+conf's `seq_parallel_axis`) x is this shard's block of the sequence:
+the positional encoding encodes its global positions and attention runs
+the ring over the shard's transport (parallel/ring_attention.py), its
+dropout step seeds from the generator the seq shards share.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
+from deeplearning4j_tpu_torch.ops.shard_scope import seq_shard
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     MAX_FLASH_T,
     chunked_flash_attention,
@@ -95,10 +101,21 @@ class PositionalEncodingImpl(LayerImpl):
     def apply(self, conf, params, state, x, *, train=False, generator=None,
               mask=None):
         T, d = x.shape[1], x.shape[2]
+        offset = 0
+        seq = seq_shard(conf.seq_parallel_axis)
+        if seq is not None:
+            # x is this shard's block: encode its global positions (a
+            # slice past the learned table would come back short)
+            if conf.learned and seq.size * T > conf.max_length:
+                raise ValueError(
+                    f"global sequence {seq.size}x{T} exceeds learned "
+                    f"positional table max_length={conf.max_length}")
+            offset = seq.index * T
         if conf.learned:
-            pe = params["pe"][:T]
+            pe = params["pe"][offset:offset + T]
         else:
-            pe = sinusoidal(torch.arange(T, device=x.device), d, x.dtype)
+            pe = sinusoidal(torch.arange(offset, offset + T,
+                                         device=x.device), d, x.dtype)
         return x + pe, state
 
 
@@ -146,7 +163,9 @@ class SelfAttentionImpl(LayerImpl):
         drop_attn = conf.attention_dropout if train else 0.0
         use_flash = conf.use_flash
         act = get_activation(conf.activation or "identity")
-        if use_flash and flash_supports_qkv(B, T, n, H, dropout=drop_attn):
+        seq = seq_shard(conf.seq_parallel_axis)
+        if (use_flash and seq is None
+                and flash_supports_qkv(B, T, n, H, dropout=drop_attn)):
             # packed path: the kernels read each head's column slice of
             # the projection in place, no [B,T,H,D] relayout either way;
             # attention dropout runs in the kernels
@@ -157,7 +176,22 @@ class SelfAttentionImpl(LayerImpl):
                       for t in qkv.split(n, dim=-1))
         flash_kw = dict(causal=conf.causal, mask=mask, dropout=drop_attn,
                         generator=generator)
-        if use_flash and flash_supports(qh.shape, causal=conf.causal,
+        if seq is not None:
+            # this shard's queries against the K/V blocks going round
+            # the ring; no [T, T] scores anywhere
+            if mask is not None:
+                raise ValueError(
+                    "sequence-parallel attention does not support padding "
+                    "masks — pad to full length")
+            from deeplearning4j_tpu_torch.parallel.ring_attention import (
+                ring_attention,
+            )
+
+            out = ring_attention(
+                qh, kh, vh, transport=seq.transport, causal=conf.causal,
+                dropout=drop_attn,
+                generator=seq.ring_generator or generator)
+        elif use_flash and flash_supports(qh.shape, causal=conf.causal,
                                         dropout=drop_attn, mask=mask,
                                         device=qh.device):
             out = flash_attention(qh, kh, vh, **flash_kw)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.nn.tree import leaves
+from deeplearning4j_tpu_torch.ops.shard_scope import global_rows
 
 _IMPL_REGISTRY: dict[type, "LayerImpl"] = {}
 
@@ -86,21 +87,32 @@ def _keep_mask(shape, keep, generator, device):
         generator=generator).bool()
 
 
-def apply_dropout(x, rate, generator, *, train):
-    """Inverted dropout on the layer input (reference
-    util/Dropout.applyDropout:31)."""
+def _dropout(x, rate, generator, train, batch_major):
     if not train or rate in (None, 0.0) or generator is None:
         return x
     keep = 1.0 - rate
-    m = _keep_mask(x.shape, keep, generator, x.device)
+    shape, rows = (global_rows(x.shape) if batch_major
+                   else (x.shape, None))
+    m = _keep_mask(shape, keep, generator, x.device)
+    if rows is not None:
+        m = m[rows]
     return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
                                                 device=x.device))
 
 
+def apply_dropout(x, rate, generator, *, train):
+    """Inverted dropout on the layer input (reference
+    util/Dropout.applyDropout:31), x batch-major. In a monolithic
+    data-parallel step (ops/shard_scope.py) the mask is drawn for the
+    global batch and this shard keeps its rows: the draws one device
+    over the global batch makes."""
+    return _dropout(x, rate, generator, train, True)
+
+
 def apply_dropconnect(w, rate, generator, *, train):
     """DropConnect: drop weights instead of activations (reference
-    Dropout.java)."""
-    return apply_dropout(w, rate, generator, train=train)
+    Dropout.java); one mask for every shard."""
+    return _dropout(w, rate, generator, train, False)
 
 
 def l1_l2_penalty(conf, params):

@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
+from deeplearning4j_tpu_torch.ops.shard_scope import data_shard, global_sum
 
 
 def _pads(conf, h, w, kernel, dilation=(1, 1)):
@@ -189,6 +190,20 @@ class SubsamplingImpl(LayerImpl):
         raise ValueError(f"pooling type {pt}")
 
 
+def _global_moments(x, xf, axes):
+    """Batch mean and biased variance over the GLOBAL batch of a
+    monolithic data-parallel step (ops/shard_scope.py), by the formula
+    the one-device forward uses for x's dtype, the sums all-reduced
+    differentiably over the data group."""
+    n = x.numel() // x.shape[-1] * data_shard().size
+    if x.dtype == torch.bfloat16:
+        sums = global_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+        mean = sums[0] / n
+        return mean, (sums[1] / n - mean * mean).clamp_min(0.0)
+    mean = global_sum(xf.sum(axes)) / n
+    return mean, global_sum(((xf - mean) ** 2).sum(axes)) / n
+
+
 @register_impl(BatchNormalization)
 class BatchNormImpl(LayerImpl):
     """Train: normalize by the batch's statistics and move the running
@@ -213,7 +228,9 @@ class BatchNormImpl(LayerImpl):
         if train:
             # at least f32 for the statistics, never narrower than x
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            if x.dtype == torch.bfloat16:
+            if data_shard() is not None:
+                mean, var = _global_moments(x, xf, axes)
+            elif x.dtype == torch.bfloat16:
                 # one pass, sum and sum of squares, as the JAX package
                 # takes bf16 statistics
                 n = x.numel() // x.shape[-1]

@@ -24,8 +24,11 @@ sequences longer than the window (`_fit_tbptt`: the recurrent layers'
 carries flow from segment to segment, the gradients stop at the
 boundary). `remat` recomputes each layer's activations in the backward
 (nn/training.remat_apply). `rnn_time_step` streams a sequence through
-the recurrent layers with carries kept between calls. Meshes
-(`set_mesh`) raise NotImplementedError (ROADMAP Queue A item A7).
+the recurrent layers with carries kept between calls. `fit` rides the
+pipelined input loader (data/pipeline.iter_prefetched). `set_mesh`
+(parallel/placement.py) takes the "data" role: each rank steps on its
+rows of the global batch, and `output` / `evaluate` shard the batch
+over the data axis; the other roles wait for ROADMAP Queue A item 7.
 `resume_from` reads the port's own checkpoint format
 (util/checkpoint.py); `inference_fn` is the forward the predict engine's
 replicas call (serving/engine.py).
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.data.pipeline import iter_prefetched
 from deeplearning4j_tpu_torch.datasets.api import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
 from deeplearning4j_tpu_torch.nn import tree
@@ -69,6 +73,13 @@ from deeplearning4j_tpu_torch.nn.training import (
     streams,
 )
 from deeplearning4j_tpu_torch.nn.updater import build_optimizer
+from deeplearning4j_tpu_torch.parallel.placement import (
+    configure_mesh,
+    local_dataset,
+    mesh_axis,
+    not_ported,
+    sharded_forward,
+)
 
 
 class MultiLayerNetwork(LazyScore):
@@ -90,6 +101,9 @@ class MultiLayerNetwork(LazyScore):
         self._train_step = None
         self._generator = None
         self._rnn_carries = None  # rnn_time_step's state between calls
+        self._mesh = None
+        self._mesh_axes = None
+        self._overlap_plan = None
 
     @property
     def compute_dtype(self):
@@ -254,8 +268,10 @@ class MultiLayerNetwork(LazyScore):
 
     def _get_train_step(self):
         if self._train_step is None:
-            self._train_step = make_train_step(self._loss, self.tx,
-                                               self._layer_confs_by_name())
+            self._train_step = make_train_step(
+                self._loss, self.tx, self._layer_confs_by_name(),
+                mesh=self._mesh, data_axis=mesh_axis(self, "data"),
+                overlap=self._overlap_plan)
         return self._train_step
 
     @staticmethod
@@ -276,6 +292,7 @@ class MultiLayerNetwork(LazyScore):
         longer than `tbptt_fwd_length`."""
         if self.params is None:
             self.init()
+        single_batch = labels is not None or isinstance(data, DataSet)
         it = self._iterator(data, labels)
         if self.conf.pretrain:
             self.pretrain(it)
@@ -286,13 +303,24 @@ class MultiLayerNetwork(LazyScore):
         step = self._get_train_step()
         tbptt = is_tbptt(self.conf)
         g = self.conf.conf
+        local = getattr(it, "process_local", False)
+
+        def convert(ds):
+            # producer-thread work: this rank's rows, the tensors on the
+            # device; batch None = a TBPTT sequence (its windows convert
+            # on the step thread)
+            ds = local_dataset(self, ds, local)
+            if tbptt and self._needs_tbptt(ds):
+                return ds, None
+            return ds, self._batch_dict(ds)
+
         for _ in range(epochs):
             it.reset()
-            for ds in it:
-                if tbptt and self._needs_tbptt(ds):
+            for _ds, (ds, batch) in iter_prefetched(
+                    it, convert, depth=0 if single_batch else None):
+                if batch is None:
                     self._fit_tbptt(ds, step)
                     continue
-                batch = self._batch_dict(ds)
                 for _i in range(max(1, g.iterations)):
                     self.params, self.opt_state, self.state, loss, _ = step(
                         self.params, self.opt_state, self.state,
@@ -311,8 +339,10 @@ class MultiLayerNetwork(LazyScore):
 
         if self.params is None:
             self.init()
-        batches = [self._batch_dict(ds)
-                   for ds in self._iterator(data, labels)]
+        it = self._iterator(data, labels)
+        local = getattr(it, "process_local", False)
+        batches = [self._batch_dict(local_dataset(self, ds, local))
+                   for ds in it]
         fused_fit(self, batches, epochs)
         self.epoch_count += epochs
         return self
@@ -327,17 +357,22 @@ class MultiLayerNetwork(LazyScore):
         by the configured solver over the flat parameter vector."""
         from deeplearning4j_tpu_torch.optimize.solvers import Solver
 
+        if self._mesh is not None:
+            not_ported("the Solver path under a mesh")
+
+        def convert(ds):
+            if is_tbptt(self.conf) and self._needs_tbptt(ds):
+                raise ValueError(
+                    "TRUNCATED_BPTT requires "
+                    "STOCHASTIC_GRADIENT_DESCENT; second-order solvers "
+                    "would differentiate the full sequence")
+            return self._batch_dict(ds)
+
         solver = Solver(self)
         for _ in range(epochs):
             it.reset()
-            for ds in it:
-                if is_tbptt(self.conf) and self._needs_tbptt(ds):
-                    raise ValueError(
-                        "TRUNCATED_BPTT requires "
-                        "STOCHASTIC_GRADIENT_DESCENT; second-order solvers "
-                        "would differentiate the full sequence")
-                solver.optimize(self._batch_dict(ds),
-                                generator=self._generator)
+            for _ds, batch in iter_prefetched(it, convert):
+                solver.optimize(batch, generator=self._generator)
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count)
             self.epoch_count += 1
@@ -403,11 +438,16 @@ class MultiLayerNetwork(LazyScore):
                                to_layer=_i)[0])
         return self
 
-    def set_mesh(self, mesh, **kwargs):
-        """Meshes come with the parallel slice of the port."""
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP Queue A item A7, parallel "
-            "and distributed)")
+    def set_mesh(self, mesh, zero1: bool = False, axes=None,
+                 n_microbatches=None, tp_rules=None, overlap=None):
+        """Map parallelism roles to mesh axis names
+        (parallel/placement.configure_mesh): "data" here ("seq" needs
+        the graph container); `overlap` (True / bucket bytes / a
+        BucketPlan) reduces the gradients bucket by bucket during the
+        backward. set_mesh(None) clears the mesh. Returns the net."""
+        return configure_mesh(self, mesh, zero1=zero1, axes=axes,
+                              n_microbatches=n_microbatches,
+                              tp_rules=tp_rules, overlap=overlap)
 
     def resume_from(self, checkpoint_dir: str, step=None):
         """Restore params, layer state, optimizer state and the step
@@ -434,12 +474,18 @@ class MultiLayerNetwork(LazyScore):
         """The network's output for x, a tensor on the net's device
         (reference output:1500-1582). Inference mode (batch norm's
         running statistics, no dropout) unless `train`."""
-        if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
-        y, _ = self._forward(self.params, self.state, x, train=train,
-                             generator=self._generator if train else None,
-                             mask=mask)
-        return y
+        def fwd(x, mask=None):
+            if mask is not None:
+                mask = torch.as_tensor(mask, device=self.device)
+            y, _ = self._forward(self.params, self.state, x, train=train,
+                                 generator=self._generator if train
+                                 else None, mask=mask)
+            return [y]
+
+        if train:  # a training-mode forward draws: one rank, whole batch
+            return fwd(x, mask)[0]
+        return sharded_forward(self, [x] if mask is None else [x, mask],
+                               fwd)[0]
 
     def predict(self, x):
         """Class indices (reference predict), a numpy array."""

@@ -12,8 +12,20 @@ the JAX package's buffer donation buys).
 the whole epoch in one dispatch; the port runs the same sequence of
 steps as a plain loop and reads no loss back to the host until the end.
 Like the JAX package's it refuses what only `fit()` runs (pretraining,
-the Solver path, TBPTT, iterations > 1). Meshes, ZeRO-1, bucketed
-overlap and pipelining come with the parallel slice.
+the Solver path, TBPTT, iterations > 1).
+
+Data parallelism (`make_train_step(..., mesh=...)`, one process per
+device, parallel/mesh.py): each rank steps on its rows of the global
+batch. The monolithic arm runs the forward as an `ops.shard_scope`
+data shard, so batch statistics and the masked loss's count are global
+(the JAX package's GSPMD step equals one device over the global batch),
+and mean-reduces every gradient in one all-reduce after the backward.
+The overlap arm (`overlap=BucketPlan`) is the JAX package's per-shard
+step: local loss and statistics, the gradients mean-reduced bucket by
+bucket from gradient hooks while the backward runs
+(parallel/overlap.BucketReducer), the loss and the float layer state
+mean-reduced after. ZeRO-1 and pipelining wait for ROADMAP Queue A
+item 7.
 """
 
 from __future__ import annotations
@@ -147,18 +159,26 @@ def detach_carries(carries):
     return {k: cut(c) for k, c in carries.items()}
 
 
-def loss_and_grads(loss_fn, params, state, generator, batch):
+def loss_and_grads(loss_fn, params, state, generator, batch,
+                   reducer=None):
     """(loss, aux, grads) of `loss_fn(params, state, generator, batch) ->
     (loss, aux)` at `params`: the gradient of every floating leaf, zeros
-    where the loss does not reach it, in the params' nest."""
+    where the loss does not reach it, in the params' nest. With a
+    `reducer` (parallel/overlap.BucketReducer) the gradients come back
+    reduced over its group, bucket by bucket as the backward makes
+    them."""
     keys = [path for path, t in tree.leaves(params) if t.is_floating_point()]
     live = tree.tree_map(lambda t: t, params)
     for path in keys:
         tree.put(live, path, tree.get(params, path).detach().requires_grad_())
+    if reducer is not None:
+        reducer.attach(keys, [tree.get(live, k) for k in keys])
     with torch.enable_grad():
         loss, aux = loss_fn(live, state, generator, batch)
         found = torch.autograd.grad(
             loss, [tree.get(live, k) for k in keys], allow_unused=True)
+    if reducer is not None:
+        found = reducer.finish(found)
     grads = tree.from_leaves(
         (k, torch.zeros_like(tree.get(params, k)) if g is None else g)
         for k, g in zip(keys, found))
@@ -167,23 +187,87 @@ def loss_and_grads(loss_fn, params, state, generator, batch):
     return loss, aux, grads
 
 
-def make_train_step(loss_fn, tx, layer_confs_by_name):
+def make_train_step(loss_fn, tx, layer_confs_by_name, mesh=None,
+                    data_axis="data", overlap=None):
     """loss_fn(params, state, generator, batch) -> (loss, (new_state,
     extras)).
 
     Returns step(params, opt_state, state, generator, batch) -> (params,
     opt_state, state, loss, extras): params and opt_state are the same
     dicts, updated in place; loss is a detached device scalar (no host
-    sync)."""
+    sync).
 
-    def step(params, opt_state, state, generator, batch):
-        loss, aux, grads = loss_and_grads(loss_fn, params, state, generator,
-                                          batch)
-        new_state, extras = aux if isinstance(aux, tuple) else (aux, {})
+    mesh: a parallel/mesh.Mesh with `data_axis` — batch holds this
+    rank's rows and the step is the data-parallel one (module
+    docstring); overlap: a parallel/overlap.BucketPlan for the bucketed
+    arm (which does not thread TBPTT carries: extras is empty)."""
+
+    def update(params, opt_state, grads):
         grads = normalize_gradients(grads, layer_confs_by_name)
         updates, opt_state = tx.update(grads, opt_state, params)
         apply_updates(params, updates)
-        return params, opt_state, new_state, loss.detach(), extras
+        return opt_state
+
+    def split(aux):
+        return aux if isinstance(aux, tuple) else (aux, {})
+
+    if mesh is None or data_axis not in mesh.shape:
+        if overlap is not None:
+            raise ValueError("overlap=BucketPlan requires a mesh with the "
+                             f"data axis {data_axis!r}")
+
+        def step(params, opt_state, state, generator, batch):
+            loss, aux, grads = loss_and_grads(loss_fn, params, state,
+                                              generator, batch)
+            new_state, extras = split(aux)
+            opt_state = update(params, opt_state, grads)
+            return params, opt_state, new_state, loss.detach(), extras
+
+        return step
+
+    from deeplearning4j_tpu_torch.parallel.overlap import (
+        BucketReducer,
+        pmean_float_leaves,
+        reduce_gradients,
+    )
+    from deeplearning4j_tpu_torch.ops.shard_scope import (
+        DataShard,
+        shard_generator,
+        sharded,
+    )
+
+    group, n = mesh.group(data_axis), mesh.axis_size(data_axis)
+    index = mesh.axis_index(data_axis)
+
+    def mean(t):
+        return reduce_gradients({"t": t}, [(group, n)])["t"]
+
+    if overlap is None:
+        shard = DataShard(group, n, index)
+
+        def step(params, opt_state, state, generator, batch):
+            with sharded(data=shard):
+                loss, aux, grads = loss_and_grads(loss_fn, params, state,
+                                                  generator, batch)
+            new_state, extras = split(aux)
+            grads = reduce_gradients(grads, [(group, n)])
+            opt_state = update(params, opt_state, grads)
+            return params, opt_state, new_state, mean(loss.detach()), extras
+
+        return step
+
+    reducer = BucketReducer(overlap, group, n)
+
+    def step(params, opt_state, state, generator, batch):
+        # each replica its own dropout stream (the JAX step folds the
+        # data-axis index into its key)
+        gen = shard_generator(generator, (index,), n)
+        loss, aux, grads = loss_and_grads(loss_fn, params, state, gen,
+                                          batch, reducer=reducer)
+        new_state, _extras = split(aux)
+        new_state = pmean_float_leaves(new_state, group, n)
+        opt_state = update(params, opt_state, grads)
+        return params, opt_state, new_state, mean(loss.detach()), {}
 
     return step
 

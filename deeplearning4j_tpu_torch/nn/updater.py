@@ -278,8 +278,10 @@ def apply_updates(params, updates):
 
 
 def named_layer_confs(net):
-    """{layer_name: layer_conf} of a network container."""
-    return {n: v.layer for n, v in net.layer_vertices.items()}
+    """{layer_name: layer_conf} of a network container, either kind."""
+    if hasattr(net, "layer_vertices"):
+        return {n: v.layer for n, v in net.layer_vertices.items()}
+    return dict(zip(net.layer_names, net.layer_confs))
 
 
 def build_optimizer(conf, layer_confs):

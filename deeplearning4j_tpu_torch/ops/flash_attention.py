@@ -86,6 +86,7 @@ from typing import NamedTuple
 import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
+from deeplearning4j_tpu_torch.ops.shard_scope import fold_bh_offset
 
 NEG_INF = -1e30
 BLOCK = 128
@@ -270,14 +271,21 @@ def _drop_ctx(seed, q_origin=0, k_origin=0):
     return seed, int(q_origin), int(k_origin)
 
 
-def _call_drop(dropout, generator, T):
-    """The `_Drop` of a public call at rate `dropout` (None at 0): one
-    step seed from `generator`, origin 0, hash_t = T."""
-    if not dropout:
-        return None
+def _call_seed(generator, BH):
+    """One step seed from `generator` for a call over BH slices. In a
+    monolithic data-parallel step (ops/shard_scope.py) this shard's slice
+    bh hashes as the global batch's slice: the seed folds the offset."""
     if generator is None:
         raise ValueError("dropout > 0 requires a generator")
-    return _Drop(_step_seed(generator), float(dropout), 0, 0, T)
+    return fold_bh_offset(_step_seed(generator), BH)
+
+
+def _call_drop(dropout, generator, T, BH):
+    """The `_Drop` of a public call over BH slices at rate `dropout`
+    (None at 0): one step seed from `generator`, origin 0, hash_t = T."""
+    if not dropout:
+        return None
+    return _Drop(_call_seed(generator, BH), float(dropout), 0, 0, T)
 
 
 # ------------------------------------------------------- plain version
@@ -791,7 +799,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, mask=None,
     B, H, T, D = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    drop = _call_drop(dropout, generator, T)
+    drop = _call_drop(dropout, generator, T, B * H)
     kmask = None if mask is None else _broadcast_kmask(mask, B, H, T)
     o = _FlashCore.apply(q.reshape(B * H, T, D), k.reshape(B * H, T, D),
                          v.reshape(B * H, T, D), kmask, sm_scale,
@@ -811,7 +819,7 @@ def flash_attention_qkv(qkv, n_heads, *, causal=True, sm_scale=None,
     D = three_n // 3 // n_heads
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    drop = _call_drop(dropout, generator, T)
+    drop = _call_drop(dropout, generator, T, B * n_heads)
     kmask = None if mask is None else mask.to(torch.float32)[:, None, :]
     return _FlashQkvCore.apply(qkv, kmask, n_heads, sm_scale, bool(causal),
                                drop)
@@ -963,11 +971,7 @@ def chunked_flash_attention(q, k, v, *, causal=True, sm_scale=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     kmask = None if mask is None else _broadcast_kmask(mask, B, H, T)
-    seed = None
-    if dropout:
-        if generator is None:
-            raise ValueError("dropout > 0 requires a generator")
-        seed = _step_seed(generator)
+    seed = _call_seed(generator, B * H) if dropout else None
     o, _ = chunked_flash_attention_lse(
         q.reshape(B * H, T, D), k.reshape(B * H, T, D),
         v.reshape(B * H, T, D), sm_scale, causal, kmask=kmask, chunk=chunk,

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.ops.shard_scope import data_shard, global_total
+
 _EPS = 1e-8
 
 
@@ -73,10 +75,18 @@ def _align_mask(per, mask):
 
 
 def _masked_mean(per_example, mask):
-    """Mean over examples; if mask given, weight rows and renormalize."""
+    """Mean over examples; if mask given, weight rows and renormalize.
+    In a monolithic data-parallel step (ops/shard_scope.py) the masked
+    mean divides by the GLOBAL mask count, so the mean over the shards
+    of this loss is the one device's loss on the global batch; the
+    unmasked mean needs nothing, every shard holding as many rows."""
     if mask is None:
         return per_example.mean()
     m = _align_mask(per_example, mask)
+    shard = data_shard()
+    if shard is not None:
+        return ((per_example * m).sum() * shard.size
+                / global_total(m.sum()).clamp_min(1.0))
     return (per_example * m).sum() / m.sum().clamp_min(1.0)
 
 

@@ -1,0 +1,158 @@
+"""The shard a mesh step's forward runs as: what the layers, the losses
+and the attention kernels read to behave as the JAX package's code does
+inside its jit over a mesh or its shard_map.
+
+JAX runs every shard of a mesh in one program, so a batch statistic
+under GSPMD is global and a layer inside shard_map finds its axis bound.
+The port runs one process per device, and the train step tells the
+forward which shard it is by entering `sharded(...)`:
+
+- `DataShard`: the monolithic data-parallel step (GSPMD semantics, one
+  device over the global batch). BatchNorm normalizes by statistics
+  summed over the data group, the masked loss divides by the global mask
+  count, input dropout draws the global batch's mask and keeps this
+  shard's rows, and the flash kernels' dropout hashes global b*H + h
+  slices; so the step equals one device on the global batch. A shard of
+  one rank takes the same path, its collectives over a group of one.
+- `SeqShard`: the sequence-parallel step. The attention layer runs the
+  ring over `transport` and the positional encoding offsets by the
+  shard's global position.
+
+The context is process-wide, not per thread: the autograd engine
+recomputes a remat block's forward on its own thread, inside the step,
+and must see the same shard. The module sits under ops/, below the
+layers and parallel/, which both read it; it imports torch only inside
+the functions that use it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Any, Optional
+
+# b*H + h slice stride of the flash kernels' keep hash (csrc/dropout.cuh)
+_BH_MIX = 0x9E3779B9
+_U32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class DataShard:
+    """Shard `index` of `size` along a data axis whose process group is
+    `group`."""
+
+    group: Any
+    size: int
+    index: int
+
+
+@dataclass(frozen=True)
+class SeqShard:
+    """Shard `index` of `size` along the sequence axis `axis`, with the
+    ring `transport` (parallel/ring_attention.py) and the generator the
+    ring's dropout step seeds come from (the same on every shard of the
+    axis, so the ring drops what one kernel over the whole sequence
+    would)."""
+
+    axis: str
+    transport: Any
+    index: int
+    size: int
+    ring_generator: Any = None
+
+
+_active = {"data": None, "seq": None}
+
+
+@contextlib.contextmanager
+def sharded(data: Optional[DataShard] = None,
+            seq: Optional[SeqShard] = None):
+    """Run the enclosed forward (and backward) as the given shard(s)."""
+    prev = dict(_active)
+    _active["data"] = data
+    _active["seq"] = seq
+    try:
+        yield
+    finally:
+        _active.update(prev)
+
+
+def data_shard() -> Optional[DataShard]:
+    """The monolithic data-parallel shard the forward runs as, or None."""
+    return _active["data"]
+
+
+def seq_shard(axis: str) -> Optional[SeqShard]:
+    """The sequence shard along `axis` the forward runs as, or None
+    (also when `axis` is empty: a conf built without sequence
+    parallelism)."""
+    s = _active["seq"]
+    return s if axis and s is not None and s.axis == axis else None
+
+
+def global_sum(t):
+    """Differentiable sum of `t` over the data group (the gradient flows
+    back to every shard's contribution), or `t` outside a data shard."""
+    d = data_shard()
+    if d is None:
+        return t
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=d.group)
+
+
+def global_total(t):
+    """Sum of a constant (no gradient) over the data group, or `t`."""
+    d = data_shard()
+    if d is None:
+        return t
+    import torch.distributed as dist
+
+    out = t.detach().clone()
+    dist.all_reduce(out, group=d.group)
+    return out
+
+
+def global_rows(shape):
+    """(shape of the global batch, this shard's row slice) for a
+    batch-major tensor of local `shape`, or (shape, None)."""
+    d = data_shard()
+    if d is None:
+        return tuple(shape), None
+    rows = shape[0]
+    return ((rows * d.size,) + tuple(shape[1:]),
+            slice(d.index * rows, (d.index + 1) * rows))
+
+
+def fold_bh_offset(seed, BH: int):
+    """The flash step seed under which local slice bh hashes as global
+    slice bh + index*BH: the keep hash keys slice bh on seed + bh *
+    _BH_MIX (mod 2^32), so an offset folds into the seed. `seed` is the
+    one-element int32 tensor; returned unchanged outside a data shard."""
+    d = data_shard()
+    if d is None or not d.index:
+        return seed
+    import torch
+
+    off = (d.index * BH * _BH_MIX) & _U32
+    s = (seed.long() + off) & _U32
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
+def shard_generator(generator, indices, size: int):
+    """The dropout generator of one shard of a mesh step whose shards
+    draw apart (the JAX package's `fold_in` of the axis indices into the
+    step key): `generator` itself on a mesh of one shard (`size` 1),
+    else a generator on its device seeded from one draw of `generator`
+    (so every rank's `generator` advances alike) mixed with `indices`,
+    this shard's coordinates."""
+    if generator is None or size == 1:
+        return generator
+    import torch
+
+    base = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device).item())
+    seed = base
+    for i in indices:
+        seed = (seed * 0x100000001B3 + int(i) + 1) % 2**63
+    return torch.Generator(device=generator.device).manual_seed(seed)

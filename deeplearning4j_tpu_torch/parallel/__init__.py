@@ -1,0 +1,45 @@
+"""Distributed training (JAX counterpart deeplearning4j_tpu/parallel):
+data and sequence parallelism, one process per device under
+`torch.distributed` (NCCL on CUDA, gloo on the CPU).
+
+- `mesh`: named axes over the ranks (`make_mesh`, `shard_batch`,
+  `replicate`, `spans_processes`);
+- `placement`: `set_mesh`'s body for the roles "data" and "seq";
+- `overlap`: the bucketed gradient all-reduce that overlaps the
+  backward;
+- `data_parallel`: `DataParallelTrainer` (monolithic and overlap arms)
+  and `ParameterAveragingTrainer`;
+- `ring_attention`: the ring over the flash kernels, by process group
+  or in one process;
+- `sequence_parallel`: `make_sp_train_step`, `SequenceParallelTrainer`.
+
+The shard a mesh step's forward runs as is `ops/shard_scope.py`, which
+the layers read. Tensor, expert and pipeline parallelism, ZeRO-1 and
+placement search wait for the rest of ROADMAP Queue A item 7.
+"""
+
+from deeplearning4j_tpu_torch.parallel.data_parallel import (
+    DataParallelTrainer,
+    ParameterAveragingTrainer,
+)
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    make_mesh,
+    replicate,
+    shard_batch,
+    spans_processes,
+)
+from deeplearning4j_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    ring_self_attention,
+)
+from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+    SequenceParallelTrainer,
+    make_sp_train_step,
+)
+
+__all__ = [
+    "DataParallelTrainer", "ParameterAveragingTrainer",
+    "SequenceParallelTrainer", "make_mesh", "make_sp_train_step",
+    "replicate", "ring_attention", "ring_self_attention", "shard_batch",
+    "spans_processes",
+]

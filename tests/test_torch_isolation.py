@@ -18,7 +18,7 @@ pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
 
 
@@ -56,7 +56,7 @@ def test_package_imports_without_jax():
     names = set(out.stdout.split())
     assert len(names) >= 20
     missing = {f"deeplearning4j_tpu_torch.{m}"
-               for m in NN_SLICE + EMBEDDINGS_SLICE} - names
+               for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE} - names
     assert not missing, missing
 
 
@@ -71,6 +71,49 @@ EMBEDDINGS_SLICE = (
     "nlp.sentiment", "nlp.treeparser", "nlp.annotation", "embedding.ann",
     "embedding.serving", "graph", "graph.api", "graph.graph", "graph.loader",
     "graph.walkers", "graph.deepwalk")
+
+
+# data and sequence parallelism and the process layer (ROADMAP A7)
+PARALLEL_SLICE = (
+    "parallel", "parallel.mesh", "ops.shard_scope", "parallel.overlap",
+    "parallel.placement", "parallel.data_parallel", "parallel.ring_attention",
+    "parallel.sequence_parallel", "distributed.bootstrap",
+    "distributed.launcher", "distributed.global_mesh", "data.sharding",
+    "data.pipeline", "data.bench_worker")
+
+
+def test_rank_programs_import_without_jax():
+    """The multi-rank tests' rank programs (tests/torch_*.py) import
+    with jax and the JAX package made unimportable, as the ranks run
+    them."""
+    workers = sorted((ROOT / "tests").glob("torch_*.py"))
+    assert workers
+    for path in workers:
+        code = ("import sys, runpy\n"
+                "sys.modules['jax'] = None\n"
+                "sys.modules['deeplearning4j_tpu'] = None\n"
+                f"runpy.run_path({str(path)!r}, run_name='imported')\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120,
+                             env={"PYTHONPATH": str(ROOT), "PATH": ""})
+        assert out.returncode == 0, out.stderr
+
+
+def test_parallel_slice_defaults_to_cuda():
+    """With no device named, a process of the fleet binds a CUDA device
+    (NCCL), the launcher hands process i `cuda:i`, and a mesh built
+    without a process group brings one up on CUDA: on a machine without
+    a card that fails rather than carrying on over gloo on the CPU."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap, launcher
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    assert bootstrap._resolve_process_device(None, 0).type == "cuda"
+    lines = launcher.launch_plan(["x"], 2, coordinator="127.0.0.1:1")
+    assert f"{bootstrap.ENV_DEVICE}=cuda:1" in lines[1]
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError, ValueError)):
+            make_mesh({"data": 1})
+        assert not bootstrap.is_initialized()
 
 
 def test_entry_point_defaults_to_cuda():

@@ -252,15 +252,18 @@ def test_untrainable_modes_raise():
 
 
 def test_remat_and_mesh_raise():
-    """Meshes still raise (Queue A item 7). remat, once refused, trains:
+    """set_mesh(None) returns the net, as in the JAX package; the roles
+    not ported yet still raise (Queue A item 7). remat, once refused,
+    trains:
     with dropout 0.1 on the packed flash route (T = 512) two fit()
     steps with remat leave every param bit for bit where the same steps
     without it do, the recompute drawing the forward's keep masks; and
     fit_scanned takes it too. One intra-op thread: the CPU's threaded
     reductions are not bitwise repeatable from run to run."""
     net = torch_lm(**CFG, max_length=128, device="cpu").init()
+    assert net.set_mesh(None) is net
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(None)
+        net.set_mesh(None, axes={"model": "model"})
     toks, labels, _ = _tokens(61, 2, 512)
     ds = TDataSet(toks, labels)
 

@@ -1,0 +1,245 @@
+"""Rank program of the port's multi-rank CPU tests
+(tests/test_torch_parallel.py, tests/test_torch_sequence_parallel.py).
+
+Run by `deeplearning4j_tpu_torch.distributed.launcher.launch_local` as N
+processes on the CPU (gloo), one intra-op thread each:
+
+    python tests/torch_parallel_worker.py SPEC.json
+
+SPEC names a directory and a list of cases; each case reads its inputs
+(initial params as the JAX package made them, the batches) from
+``<dir>/<case>.npz`` and every rank writes what the case produced to
+``<dir>/out_rank<r>.npz`` under ``<case>/<key>``, for the test, which
+holds it against the JAX package in its own process. This program
+imports neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+from deeplearning4j_tpu_torch.distributed import bootstrap
+from deeplearning4j_tpu_torch.models.resnet import resnet20
+from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+from deeplearning4j_tpu_torch.nn import conf as conf_mod
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.parallel.data_parallel import (
+    DataParallelTrainer,
+    ParameterAveragingTrainer,
+)
+from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+from deeplearning4j_tpu_torch.parallel.ring_attention import (
+    ProcessGroupRing,
+    ring_attention,
+    ring_self_attention,
+)
+from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+    SequenceParallelTrainer,
+)
+from deeplearning4j_tpu_torch.weights_io import (
+    params_from_jax,
+    params_to_numpy,
+    state_from_jax,
+    state_to_numpy,
+)
+
+
+def flatten(tree, prefix=""):
+    """{"layer/name": array} of a nested dict of arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def unflatten(flat, prefix):
+    """The nested dict under `prefix` of a flattened npz."""
+    out = {}
+    for key in flat.files if hasattr(flat, "files") else flat:
+        if not key.startswith(prefix):
+            continue
+        node = out
+        parts = key[len(prefix):].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(flat[key])
+    return out
+
+
+def set_updater(net, case):
+    """The case's updater, learning rate and momentum on a net's conf
+    (JAX package's or port's) before init: the global settings and every
+    layer's, which the conf builder copied from them."""
+    g = net.conf.conf
+    g.updater, g.learning_rate = case["updater"], case["lr"]
+    if "momentum" in case:
+        g.momentum = case["momentum"]
+    layers = ([v.layer for v in net.layer_vertices.values()]
+              if hasattr(net, "layer_vertices") else net.layer_confs)
+    for lc in layers:
+        lc.updater, lc.learning_rate = case["updater"], None
+    return net
+
+
+def mlp_conf(conf_mod):
+    """The two-layer classifier of the JAX package's tests/test_parallel.py
+    (`_net`), from either package's conf module."""
+    return (conf_mod.NeuralNetConfiguration.builder().seed(5)
+            .learning_rate(0.1).updater(conf_mod.Updater.SGD).list()
+            .layer(conf_mod.DenseLayer(n_in=4, n_out=8, activation="tanh"))
+            .layer(conf_mod.OutputLayer(n_in=8, n_out=2,
+                                        activation="softmax"))
+            .build())
+
+
+def _net(case, inputs):
+    """The case's net on the CPU with the JAX package's initial params
+    (and batch-norm state), its updater set as the case says."""
+    if case["model"] == "lm":
+        net = transformer_lm(**case["cfg"], device="cpu")
+    elif case["model"] == "mlp":
+        net = MultiLayerNetwork(mlp_conf(conf_mod), device="cpu")
+    else:
+        net = resnet20(device="cpu")
+    set_updater(net, case)
+    net.init()
+    # layers without params or state (npz keeps no empty dict) keep {}
+    net.params = {**{k: {} for k in net.params},
+                  **params_from_jax(unflatten(inputs, "params/"), "cpu")}
+    net.state = {**{k: {} for k in net.state},
+                 **state_from_jax(unflatten(inputs, "state/"), "cpu")}
+    net.opt_state = net.tx.init(net.params)
+    return net
+
+
+def _batches(inputs):
+    out = []
+    i = 0
+    while f"x{i}" in inputs.files:
+        kw = {}
+        if f"lmask{i}" in inputs.files:
+            kw["labels_mask"] = inputs[f"lmask{i}"]
+        out.append(DataSet(inputs[f"x{i}"], inputs[f"y{i}"], **kw))
+        i += 1
+    return out
+
+
+def _trained(net):
+    out = {f"params/{k}": v
+           for k, v in flatten(params_to_numpy(net.params)).items()}
+    out.update({f"state/{k}": v
+                for k, v in flatten(state_to_numpy(net.state)).items()})
+    out["score"] = np.asarray(net.score_value)
+    return out
+
+
+def case_dp(case, inputs):
+    """DataParallelTrainer (monolithic, or `overlap` bucket bytes) over
+    a data mesh of every rank, one fit() per batch."""
+    net = _net(case, inputs)
+    mesh = make_mesh({"data": -1}, device="cpu")
+    trainer = DataParallelTrainer(net, mesh, overlap=case.get("overlap"))
+    for ds in _batches(inputs):
+        trainer.fit(ds)
+    out = _trained(net)
+    out["n_buckets"] = np.asarray(
+        0 if net._overlap_plan is None else len(net._overlap_plan.buckets))
+    return out
+
+
+def case_pa(case, inputs):
+    """ParameterAveragingTrainer(averaging_frequency=k) over the batches
+    in one fit()."""
+    net = _net(case, inputs)
+    mesh = make_mesh({"data": -1}, device="cpu")
+    trainer = ParameterAveragingTrainer(net, mesh,
+                                        averaging_frequency=case["k"])
+    trainer.fit(ListDataSetIterator(_batches(inputs)))
+    return _trained(net)
+
+
+def case_eval(case, inputs):
+    """output() and evaluate() under a data mesh, and the same net's
+    after set_mesh(None)."""
+    net = _net(case, inputs)
+    x, y = inputs["x"], inputs["y"]
+    net.set_mesh(make_mesh({"data": -1}, device="cpu"))
+    out = {"mesh_out": net.output(x).numpy(),
+           "mesh_out_odd": net.output(x[:-1]).numpy(),
+           "mesh_cm": net.evaluate(DataSet(x, y)).confusion.matrix}
+    net.set_mesh(None)
+    out["local_out"] = net.output(x).numpy()
+    return out
+
+
+def case_ring(case, inputs):
+    """ring_self_attention over a seq mesh of every rank (both causal
+    cases), and the gradients of this rank's block through the
+    per-shard ring."""
+    mesh = make_mesh({"seq": -1}, device="cpu")
+    q, k, v = (torch.from_numpy(inputs[n]) for n in "qkv")
+    out = {}
+    for causal in (True, False):
+        out[f"out_causal{int(causal)}"] = ring_self_attention(
+            q, k, v, mesh, causal=causal).numpy()
+    ring = ProcessGroupRing(mesh.group("seq"), mesh.axis_size("seq"),
+                            mesh.axis_index("seq"))
+    Tl = q.shape[2] // ring.n
+    sl = slice(ring.index * Tl, (ring.index + 1) * Tl)
+    blocks = [t[:, :, sl].clone().requires_grad_() for t in (q, k, v)]
+    o = ring_attention(*blocks, transport=ring, causal=True,
+                       hop_chunk=case.get("hop_chunk"))
+    (o.float() ** 2).sum().backward()
+    for name, t in zip("qkv", blocks):
+        out[f"d{name}"] = t.grad.numpy()
+    out["block_out"] = o.detach().numpy()
+    return out
+
+
+def case_sp(case, inputs):
+    """SequenceParallelTrainer on a seq (or data x seq) mesh, one fit()
+    per batch."""
+    net = _net(case, inputs)
+    mesh = make_mesh(case["axes"], device="cpu")
+    trainer = SequenceParallelTrainer(net, mesh, seq_axis="seq",
+                                      data_axis=case.get("data_axis"))
+    for ds in _batches(inputs):
+        trainer.fit(ds)
+    return _trained(net)
+
+
+CASES = {"dp": case_dp, "pa": case_pa, "eval": case_eval,
+         "ring": case_ring, "sp": case_sp}
+
+
+def main(argv) -> int:
+    spec = json.loads(Path(argv[0]).read_text())
+    root = Path(spec["dir"])
+    torch.set_num_threads(1)
+    info = bootstrap.initialize(device="cpu", connect_timeout=30.0)
+    rank = info["process_id"]
+    out = {}
+    try:
+        for case in spec["cases"]:
+            inputs = np.load(root / f"{case['name']}.npz")
+            res = CASES[case["kind"]](case, inputs)
+            out.update({f"{case['name']}/{k}": v for k, v in res.items()})
+            print(f"case {case['name']} done", flush=True)
+    finally:
+        bootstrap.shutdown()
+    np.savez(root / f"out_rank{rank}.npz", **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
