@@ -12,9 +12,11 @@ the rest of nn/ (the MoE LM, remat, the GravesLSTM char model with TBPTT
 and rnn_time_step, LION/LAMB, the solvers, pretraining, nested networks,
 early stopping), the rest of embeddings and NLP (the Word2Vec device
 pipeline, ANN serving over /embed and /search, DeepWalk,
-ParagraphVectors, GloVe), and data and sequence parallelism at one rank
+ParagraphVectors, GloVe), data and sequence parallelism at one rank
 (DataParallelTrainer's two arms, ParameterAveragingTrainer, ring
-attention, SequenceParallelTrainer, the pipelined fit).
+attention, SequenceParallelTrainer, the pipelined fit), and the graph
+vertices, the MultiLayerNetwork decode steps, tensor and expert
+parallelism and ZeRO-1.
 
 Run from the root of a checkout, with no arguments:
 
@@ -319,8 +321,10 @@ Phases, each of which exits non-zero when it fails:
    10 K5 launches (4 diagonal and 6 full hops, 6 skipped); f32 at [1, 2,
    512, 64] within 1e-4; dropout 0.1 with one step seed against the
    whole-sequence kernel with that seed; the process-group ring at world
-   size 1 (one diagonal hop); the ring's and the whole-sequence
-   kernels' forward + backward times. 21d: `SequenceParallelTrainer` on
+   size 1 (one diagonal hop); head dim 96 at [1, 4, 2048, 96] bf16,
+   which takes the f32 einsum ring and launches no kernel, against
+   `sequence_sharded_attention_reference`; the ring's and the
+   whole-sequence kernels' forward + backward times. 21d: `SequenceParallelTrainer` on
    the flagship at bench mode `longcontext`'s dims (T 4096, batch 4,
    bf16), 3 steps: the loss falls, and the params and every loss equal
    plain fit's from the same init bit for bit (at T 4096 plain fit runs
@@ -329,8 +333,33 @@ Phases, each of which exits non-zero when it fails:
    of the flagship over 5 batches through `iter_prefetched` (depth 2)
    against the synchronous loop, bit for bit, with the input_wait p50
    and p99.
+22. The graph vertices, the MultiLayerNetwork decode steps, tensor and
+   expert parallelism and ZeRO-1 (after phase 21). 22a: a graph of
+   embedding (vocab 10000, d 256), causal self-attention (2 heads of
+   128, K2/K6 with a key padding mask), a dense branch merged beside
+   it, a Subset across both, LastTimeStep on the input's mask, dense and
+   softmax, trained 3 SGD steps at batch 32 x 512 in bf16 against the
+   same graph on the CPU through the plain versions from the same init
+   and batches (step losses and params within VGRAPH_LOSS_TOL /
+   VGRAPH_PARAM_TOL; exactly 3 K2 and 3 K6). 22b: a MultiLayerNetwork
+   transformer stack at the flagship's width (6 blocks, f32) served
+   through GenerationEngine, 32 greedy tokens for 4 prompts each the
+   argmax of the full forward (near-ties under ORACLE_MARGIN_TOL
+   excepted), then a sampled run through its prefill and decode steps
+   with K12 (exactly 32 launches, every draw in its row's top 8). 22c:
+   at world size 1 over NCCL, the flagship under {"data": 1, "model":
+   1}, the MoE LM at bench width under {"data": 1, "expert": 1} and the
+   flagship under zero1=True, each bit for bit the meshless net after 3
+   steps with phase 6's counts. 22d: the flagship's block 0 over 2
+   model shards in one process (`InProcessShards`; K2 and K6 on one head
+   of 128 a shard, exactly 2 each) and the MoE LM's MoE layer over 2
+   and 4 expert shards, each against the whole layer in bf16 with an
+   f32 reference: the split arm's largest relative error over the
+   output and every gradient at most SPLIT_RATIO times the whole
+   arm's; each arm's forward + backward time; K2 and K6 at a shard's
+   shape timed beside their bounds.
 
-After phases 3-21, no attention call on the card may have taken the
+After phases 3-22, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
@@ -5083,6 +5112,9 @@ RESNET_DP = dict(batch=64, n_batches=8, rounds=3)
 # phase 2's BH = 8, T = 4096 shape as [B, H, T, D], cut into 4 blocks
 RING = dict(B=4, H=2, T=4096, D=128, n=4)
 RING_F32 = dict(B=1, H=2, T=512, D=64, n=4)
+# a head dim no flash kernel is built for (d_model 384 over 4 heads): the
+# ring takes the f32 einsum route on the card (ring_route)
+RING_D96 = dict(B=1, H=4, T=2048, D=96, n=4)
 # bench.py LM_MODE_DIMS["longcontext"]
 SP = dict(seq=4096, batch=4, steps=3)
 PIPE_STEPS = 5
@@ -5297,9 +5329,12 @@ def ring_on_card(torch, counters, fa, mesh_seq, card):
     """21c: ring attention through the in-process transport on the card:
     4 blocks of 1024 in bf16 against the whole-sequence K1/K5, the f32
     case, exact hop launches, dropout with one step seed against the
-    whole-sequence kernel, and the process-group ring at one rank."""
+    whole-sequence kernel, the process-group ring at one rank, and head
+    dim 96 (the f32 einsum ring, no kernel) against
+    `sequence_sharded_attention_reference`."""
     from deeplearning4j_tpu_torch.parallel.ring_attention import (
         ring_self_attention,
+        sequence_sharded_attention_reference,
     )
 
     def inputs(c, dtype, seed):
@@ -5393,6 +5428,22 @@ def ring_on_card(torch, counters, fa, mesh_seq, card):
         TOL["bfloat16"]["o"], REL_TOL["bfloat16"])
     if (pg_launches["K1"], pg_launches["K5"]) != (1, 1):
         raise PhaseFailed("21c", f"one-hop ring launched {pg_launches}")
+    cd = RING_D96
+    qd, kd, vd, dod = inputs(cd, torch.bfloat16, 3)
+    counters.reset()
+    d96 = fwd_bwd(lambda a, b, d: ring_self_attention(
+        a, b, d, n_shards=cd["n"], causal=True), qd, kd, vd, dod)
+    torch.cuda.synchronize()
+    d96_launches = counters.read()
+    errors["D=96"] = compare(
+        f"bf16 [{cd['B']}, {cd['H']}, {cd['T']}, {cd['D']}] n={cd['n']} "
+        f"(the f32 einsum ring) against the f32 reference",
+        d96, fwd_bwd(lambda a, b, d: sequence_sharded_attention_reference(
+            a, b, d, causal=True), qd, kd, vd, dod),
+        TOL["bfloat16"]["o"], REL_TOL["bfloat16"])
+    if any(d96_launches.values()):
+        raise PhaseFailed("21c", f"the D = 96 ring launched {d96_launches}; "
+                                 "it takes the einsum ring")
     return {"errors": errors, "ring_ms": ring_ms, "whole_ms": whole_ms,
             "launches": {k_: fwd_launches[k_] + bwd_launches[k_]
                          + pg_launches[k_] for k_ in fwd_launches}}
@@ -5521,6 +5572,628 @@ def train_parallel(torch, counters, fa, transformer_lm, DataSet, card):
     log21(card, f"phase 21 in {time.perf_counter() - t0:.1f} s; launches "
         f"{launches}")
     return launches
+
+
+# ------------------------------------------------------------ phase 22
+
+# 22a: a graph of the vertices A10 ported at the flagship's width:
+# tokens -> embedding (d 256) -> causal self-attention (2 heads of 128,
+# K2/K6) merged with a dense branch -> a subset across both -> the last
+# unmasked step -> dense -> softmax over 16 classes; SGD, batch 32 x 512
+VGRAPH = dict(vocab=10000, d=256, heads=2, classes=16, batch=32, seq=512,
+              steps=3, lr=0.1)
+# the card's bf16 run (kernels) against the CPU's (plain versions), same
+# init and batches: the largest step loss apart, relative, and the
+# largest param apart over the largest update the CPU run made. Readings
+# of the first call (PR 16, call 2): 1.586e-3 and 7.863e-2; the CPU's
+# own bf16 run against its f32 run is logged beside them each run
+VGRAPH_LOSS_TOL = 1e-2
+VGRAPH_PARAM_TOL = 0.25
+# 22b: the flagship's width as a MultiLayerNetwork stack (pre-norm
+# blocks without residuals), served greedy in f32 and sampled
+MLN_LM = dict(vocab=10000, d=256, heads=2, layers=6, d_ff=1024)
+MLN_PROMPTS = (40, 300, 700, 1000)
+MLN_NEW = 32
+MLN_SAMPLED = dict(rows=4, prompt=128, top_k=8, top_p=0.9)
+# 22d: the flagship's 2 heads over 2 model shards (K2/K6 at 1 head of
+# 128 each); the MoE LM's 8 experts over 2 and 4 expert shards. A split
+# arm passes when its largest relative error against an f32 reference is
+# at most SPLIT_RATIO times the whole bf16 arm's against the same
+# reference: the split adds no more than the bf16 summation order does
+TP_SHARDS = 2
+EP_SHARDS = (2, 4)
+SPLIT_RATIO = 2.0
+
+
+def log22(card, msg):
+    """A phase-22 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def vertex_graph(device, dtype="bfloat16"):
+    """22a's graph on `device` (module constants above)."""
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    c = VGRAPH
+    d = c["d"]
+    g = (C.NeuralNetConfiguration.builder().seed(SEED)
+         .learning_rate(c["lr"]).updater(C.Updater.SGD)
+         .weight_init("xavier").dtype(dtype).graph_builder())
+    g.add_inputs("tokens")
+    g.add_layer("embed", L.EmbeddingLayer(n_in=c["vocab"], n_out=d,
+                                          activation="identity",
+                                          has_bias=False), "tokens")
+    g.add_layer("attn", L.SelfAttentionLayer(
+        n_in=d, n_out=d, n_heads=c["heads"], causal=True,
+        activation="identity"), "embed")
+    g.add_layer("side", L.DenseLayer(n_in=d, n_out=d, activation="tanh"),
+                "embed")
+    g.add_vertex("merge", C.MergeVertexConf(), "attn", "side")
+    g.add_vertex("subset", C.SubsetVertexConf(from_idx=d // 2,
+                                              to_idx=d // 2 + d - 1),
+                 "merge")
+    g.add_vertex("last", C.LastTimeStepVertexConf(mask_input="tokens"),
+                 "subset")
+    g.add_layer("dense", L.DenseLayer(n_in=d, n_out=d, activation="relu"),
+                "last")
+    g.add_layer("out", L.OutputLayer(n_in=d, n_out=c["classes"],
+                                     activation="softmax",
+                                     loss_function="mcxent"), "dense")
+    g.set_outputs("out")
+    return ComputationGraph(g.build(), device=device)
+
+
+def train_vertex_graph(torch, counters, card):
+    """22a: 22a's graph trained 3 SGD steps on the card (bf16; K2 and K6
+    with a key padding mask, the last step taken at each row's mask)
+    against the same graph on the CPU through the plain versions, from
+    the same init and batches: exact launches, the step losses and the
+    params within VGRAPH_LOSS_TOL / VGRAPH_PARAM_TOL; the CPU's bf16 run
+    against an f32 one logged beside, the bf16 rounding's own size."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import tree
+
+    c = VGRAPH
+    rng = np.random.default_rng(SEED + 22)
+    batches = []
+    for _ in range(c["steps"]):
+        toks = rng.integers(0, c["vocab"], (c["batch"], c["seq"]))
+        lengths = rng.integers(c["seq"] // 2, c["seq"] + 1, c["batch"])
+        mask = np.arange(c["seq"])[None, :] < lengths[:, None]
+        y = np.eye(c["classes"], dtype=np.float32)[
+            rng.integers(0, c["classes"], c["batch"])]
+        batches.append(DataSet(toks.astype(np.int32), y,
+                               features_mask=mask.astype(np.float32)))
+    card_net = vertex_graph("cuda").init(SEED)
+    init = tree.tree_map(lambda t: t.detach().cpu().clone(), card_net.params)
+    nets = {"cpu": vertex_graph("cpu"), "cpu f32": vertex_graph(
+        "cpu", "float32")}
+    for net in nets.values():
+        net.init(SEED)
+        net.params = tree.tree_map(lambda t: t.clone(), init)
+        net.opt_state = net.tx.init(net.params)
+    losses = {name: [] for name in ("card", *nets)}
+    torch.cuda.synchronize()
+    counters.reset()
+    for ds in batches:
+        card_net.fit(ds)
+        losses["card"].append(card_net.score_value)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    t0 = time.perf_counter()
+    for name, net in nets.items():
+        for ds in batches:
+            net.fit(ds)
+            losses[name].append(net.score_value)
+    cpu_s = time.perf_counter() - t0
+    ref = nets["cpu"].params
+    update = max(float((tree.get(ref, p) - t).abs().max())
+                 for p, t in tree.leaves(init))
+
+    def apart(a, b):
+        """(largest step loss apart, relative; the largest param apart
+        over the CPU bf16 run's largest update, and the leaf)."""
+        loss = max(abs(x - y) / abs(y) for x, y in zip(losses[a],
+                                                        losses[b]))
+        pa = card_net.params if a == "card" else nets[a].params
+        pb = nets[b].params
+        per = {"/".join(p): float((tree.get(pa, p).cpu().float()
+                                   - t.float()).abs().max()) / update
+               for p, t in tree.leaves(pb)}
+        worst = max(per, key=per.get)
+        return loss, per[worst], worst
+
+    loss_err, param_err, worst = apart("card", "cpu")
+    floor = apart("cpu", "cpu f32")
+    S = c["steps"]
+    want = {k: 0 for k in launches}
+    want.update({"K2": S, "K6": S})
+    step_ms = event_ms(torch, lambda: card_net.fit(batches[0]), 3)
+    log22(card, f"22a: graph (embedding, causal attention 2x128 with a key "
+        f"padding mask, Merge, Subset, LastTimeStep on the mask, dense, "
+        f"softmax) at batch {c['batch']} x {c['seq']} bf16, {S} SGD steps: "
+        f"losses {losses}; card against CPU: loss relative {loss_err:.3e} "
+        f"(tol {VGRAPH_LOSS_TOL}), params max |card - CPU| over the "
+        f"largest update ({update:.4e}) {param_err:.3e} at {worst} (tol "
+        f"{VGRAPH_PARAM_TOL}); the CPU's bf16 run against its f32 run "
+        f"{floor[0]:.3e} / {floor[1]:.3e} at {floor[2]}; launches "
+        f"{launches}; step {step_ms:.3f} ms (CUDA events, median of 3), "
+        f"the CPU's two runs {cpu_s:.2f} s")
+    if launches != want:
+        raise PhaseFailed("22a", f"launches {launches}, expected {want}")
+    if not loss_err <= VGRAPH_LOSS_TOL or not param_err <= VGRAPH_PARAM_TOL:
+        raise PhaseFailed("22a", "the graph on the card disagrees with the "
+                                 "CPU")
+    return launches
+
+
+def mln_lm(dtype, device):
+    """22b's MultiLayerNetwork transformer stack."""
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    m = MLN_LM
+    d = m["d"]
+    b = C.NeuralNetConfiguration.builder().seed(SEED).dtype(dtype).list()
+    b.layer(L.EmbeddingLayer(n_in=m["vocab"], n_out=d, activation="identity",
+                             has_bias=False))
+    b.layer(L.PositionalEncodingLayer(max_length=2048, n_features=d))
+    for _ in range(m["layers"]):
+        b.layer(L.LayerNormalization(n_in=d, n_out=d))
+        b.layer(L.SelfAttentionLayer(n_in=d, n_out=d, n_heads=m["heads"],
+                                     causal=True, activation="identity"))
+        b.layer(L.LayerNormalization(n_in=d, n_out=d))
+        b.layer(L.DenseLayer(n_in=d, n_out=m["d_ff"], activation="gelu"))
+        b.layer(L.DenseLayer(n_in=m["d_ff"], n_out=d, activation="identity"))
+    b.layer(L.LayerNormalization(n_in=d, n_out=d))
+    b.layer(L.RnnOutputLayer(n_in=d, n_out=m["vocab"], activation="softmax",
+                             loss_function="mcxent"))
+    return MultiLayerNetwork(b.build(), device=device)
+
+
+def serve_mln(torch, counters, card):
+    """22b: the MultiLayerNetwork stack at the flagship's width served
+    through GenerationEngine (f32, f32 cache): 32 greedy tokens for 4
+    prompts, each the argmax of the full forward (a difference allowed
+    only at a top-2 margin under ORACLE_MARGIN_TOL, where the streams
+    then part); then one sampled run through its prefill and decode
+    steps, each token drawn by K12 (T 1.0, top-k 8, top-p 0.9) and
+    inside its row's top 8. Returns the launches."""
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+
+    net = mln_lm("float32", "cuda").init(SEED)
+    engine = GenerationEngine(net, BucketLattice((1,), seq_lens=(64, 512,
+                                                                 1024)),
+                              slots=4, max_new_tokens=MLN_NEW, page_size=16,
+                              prefill_chunk=1024)
+    engine.warmup()
+    rng = torch.Generator().manual_seed(SEED + 22)
+    prompts = [torch.randint(0, MLN_LM["vocab"], (n,), generator=rng).numpy()
+               for n in MLN_PROMPTS]
+    torch.cuda.synchronize()
+    counters.reset()
+    engine.start()
+    t0 = time.perf_counter()
+    reqs = [engine.submit_generate(p, MLN_NEW) for p in prompts]
+    for r in reqs:
+        if not r.wait(600) or r.error is not None:
+            raise PhaseFailed("22b", f"request {r.request_id}: {r.error}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    engine.drain()
+    checked, parted = 0, []
+    for prompt, r in zip(prompts, reqs):
+        seq = list(prompt)
+        for i, tok in enumerate(r.emitted):
+            probs = net.output(np.asarray(seq)[None])[0, -1].float()
+            ref = int(probs.argmax())
+            if ref != tok:
+                top2 = probs.topk(2).values
+                margin = float(top2[0] - top2[1])
+                if margin >= ORACLE_MARGIN_TOL:
+                    raise PhaseFailed("22b", f"prompt of {len(prompt)}: "
+                                             f"token {i} is {tok}, the full "
+                                             f"forward gives {ref} (top-2 "
+                                             f"margin {margin:.3e})")
+                parted.append((len(prompt), i, margin))
+                break
+            checked += 1
+            seq.append(tok)
+    if launches["K1"] == 0:
+        raise PhaseFailed("22b", f"prefill launched no flash kernel: "
+                                 f"{launches}")
+    s = MLN_SAMPLED
+    toks = torch.randint(0, MLN_LM["vocab"], (s["rows"], s["prompt"]),
+                         generator=rng).numpy()
+    cap = s["prompt"] + MLN_NEW
+    cache = net.init_kv_cache(s["rows"], cap)
+    prefill, step = net.prefill_fn(), net.incremental_decode_fn()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rows = np.arange(s["rows"])
+    counters.reset()
+    probs, cache = prefill(net.params, net.state, cache, toks,
+                           np.ones_like(toks, np.float32), rows,
+                           np.zeros_like(rows), np.full_like(rows,
+                                                             s["prompt"] - 1))
+    drawn, outside = [], 0
+    for pos in range(s["prompt"], s["prompt"] + MLN_NEW):
+        logits = probs.float().clamp_min(1e-30).log()
+        noise = fsm.gumbel_noise(gen, s["rows"], MLN_LM["vocab"], "cuda")
+        tok = fsm.fused_sample(logits, noise, temperature=1.0,
+                               top_k=s["top_k"], top_p=s["top_p"])
+        top = logits.topk(s["top_k"], dim=-1).indices
+        outside += int((top != tok.long()[:, None]).all(dim=-1).sum())
+        drawn.append(tok)
+        if pos < s["prompt"] + MLN_NEW - 1:
+            probs, cache = step(net.params, net.state, cache,
+                                tok.cpu().numpy(), np.full_like(rows, pos))
+    torch.cuda.synchronize()
+    sampled = counters.read()
+    log22(card, f"22b: MultiLayerNetwork stack (vocab {MLN_LM['vocab']}, d "
+        f"{MLN_LM['d']}, {MLN_LM['heads']} heads, {MLN_LM['layers']} blocks, "
+        f"d_ff {MLN_LM['d_ff']}, f32) through GenerationEngine: "
+        f"{len(prompts)} prompts of {MLN_PROMPTS}, {MLN_NEW} greedy tokens "
+        f"each in {wall:.3f} s; {checked} tokens equal the full forward's "
+        f"argmax, streams parted at near-ties {parted}; launches "
+        f"{launches}. Sampled run ({s['rows']} rows, T 1.0, top-k "
+        f"{s['top_k']}, top-p {s['top_p']}): {len(drawn)} draws, "
+        f"{outside} outside the row's top {s['top_k']}; launches {sampled}")
+    if checked < len(prompts) * MLN_NEW // 2:
+        raise PhaseFailed("22b", f"only {checked} greedy tokens held to "
+                                 "the full forward")
+    if sampled["K12"] != MLN_NEW or outside:
+        raise PhaseFailed("22b", f"the sampled run: K12 {sampled['K12']} "
+                                 f"(expected {MLN_NEW}), {outside} draws "
+                                 f"outside the top {s['top_k']}")
+    return {k: launches[k] + sampled[k] for k in launches}
+
+
+def canonical_equal(torch, a, b):
+    """Whether two nets' canonical params are equal bit for bit."""
+    from deeplearning4j_tpu_torch.nn import tree
+
+    pb = b.canonical_params()
+    return all(torch.equal(x, tree.get(pb, p))
+               for p, x in tree.leaves(a.canonical_params()))
+
+
+def roles_at_one_rank(torch, counters, transformer_lm, DataSet, mesh, card):
+    """22c: at world size 1 over NCCL, the flagship under {"data": 1,
+    "model": 1}, the MoE LM at bench width under {"data": 1, "expert":
+    1} and the flagship under zero1=True, each against the meshless net
+    after 3 steps from the same init: canonical params and scores bit
+    for bit, phase 6's launch counts. Each placed arm runs its split
+    layers' collectives over a group of one."""
+    from deeplearning4j_tpu_torch import models
+
+    c, S, L = TRAIN, DP_STEPS, TRAIN["n_layers"]
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
+            "K12": 0, "K13": 0}
+    arms = (
+        ("flagship, model", lambda: flagship(transformer_lm,
+                                             max_length=c["seq"]),
+         dict(axes={"data": "data", "model": "model"})),
+        ("MoE LM, expert", lambda: moe_lm(models),
+         dict(axes={"data": "data", "expert": "expert"})),
+        ("flagship, zero1", lambda: flagship(transformer_lm,
+                                             max_length=c["seq"]),
+         dict(axes={"data": "data"}, zero1=True)))
+    total = {k: 0 for k in want}
+    steps = {}
+    for name, build, kw in arms:
+        plain = build().init(SEED)
+        placed = build().init(SEED)
+        placed.set_mesh(mesh, **kw)
+        runs = {}
+        for arm, net in (("meshless", plain), ("placed", placed)):
+            torch.cuda.synchronize()
+            counters.reset()
+            for _ in range(S):
+                net.fit(ds)
+            torch.cuda.synchronize()
+            runs[arm] = counters.read()
+        same = canonical_equal(torch, plain, placed)
+        split = (sorted(placed._split_plan.layers)[:3]
+                 if placed._split_plan is not None else [])
+        z1 = 0 if placed._zero1 is None else len(placed._zero1.paths)
+        steps[name] = {arm: event_ms(torch, lambda n=net: n.fit(ds), 3)
+                       for arm, net in (("meshless", plain),
+                                        ("placed", placed))}
+        for arm, net in (("meshless", plain), ("placed", placed)):
+            profiled(torch, lambda n=net: n.fit(ds),
+                     f"22c: {name}, {arm} step", top=6)
+        log22(card, f"22c: {name} at world size 1 (NCCL), {S} steps: "
+            f"canonical params bit for bit against the meshless net's "
+            f"{same}; scores {plain.score_value} / {placed.score_value}; "
+            f"split layers {split}..., ZeRO-1 leaves {z1}; launches "
+            f"{runs['placed']}; step ms (CUDA events, median of 3) "
+            f"{steps[name]}")
+        if not same or plain.score_value != placed.score_value:
+            raise PhaseFailed("22c", f"{name} at one rank is not the "
+                                     "meshless step bit for bit")
+        if runs["placed"] != want or runs["meshless"] != want:
+            raise PhaseFailed("22c", f"{name}: launches {runs}, expected "
+                                     f"{want} each")
+        placed.set_mesh(None)
+        for k in want:
+            total[k] += runs["placed"][k]
+    return total, steps
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _split_gate(card, tag, whole, split, ref):
+    """The largest relative error over the outputs and gradients of the
+    whole and the split bf16 arms against the f32 reference ({name:
+    tensor} each); the split passes at SPLIT_RATIO times the whole's."""
+    e_w = max(_rel(whole[k], ref[k]) for k in ref)
+    e_s = max(_rel(split[k], ref[k]) for k in ref)
+    e_ws = max(_rel(split[k], whole[k]) for k in ref)
+    worst = max(ref, key=lambda k: _rel(split[k], ref[k]))
+    log22(card, f"22d: {tag}: largest relative error against the f32 "
+        f"reference, whole bf16 {e_w:.3e}, split bf16 {e_s:.3e} (at "
+        f"{worst}; gate {SPLIT_RATIO} x the whole's), split against whole "
+        f"{e_ws:.3e}")
+    if not e_s <= SPLIT_RATIO * e_w:
+        raise PhaseFailed("22d", f"{tag}: the split arm is off its whole "
+                                 f"layer beyond bf16 rounding")
+    return {"whole": e_w, "split": e_s, "split_vs_whole": e_ws}
+
+
+def split_block_on_card(torch, counters, fa, transformer_lm, card):
+    """22d, "model": the flagship's block 0 (ln1, attention, ln2, ff1,
+    ff2, both residuals) at batch 32 x 512 split over TP_SHARDS model
+    shards in this process (ops/shard_comm.InProcessShards: each shard's
+    attention launches K2 and K6 on its one head of 128) against the
+    whole block, in bf16, with an f32 reference; the output and the
+    gradients of x and of every param; each arm's forward + backward
+    time; then K2 and K6 at the shard's shape timed beside their bounds.
+    Returns the split arm's launches."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.layers import get_impl
+    from deeplearning4j_tpu_torch.nn.layers.attention import attention_shards
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+        dense_columns,
+        dense_rows,
+    )
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        join_shards,
+        shard_slice,
+    )
+
+    c, m = TRAIN, TP_SHARDS
+    net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    names = ("blk0_ln1", "blk0_attn", "blk0_ln2", "blk0_ff1", "blk0_ff2")
+    confs = {n: net.layer_vertices[n].layer for n in names}
+    H = confs["blk0_attn"].n_heads
+    # the leaves the split cuts: (dim, heads of a packed QKV leaf)
+    cut = {("blk0_attn", "Wqkv"): (1, H), ("blk0_attn", "bqkv"): (0, H),
+           ("blk0_attn", "Wo"): (0, None), ("blk0_ff1", "W"): (1, None),
+           ("blk0_ff1", "b"): (0, None), ("blk0_ff2", "W"): (0, None)}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    x32 = torch.randn((c["batch"], c["seq"], c["d_model"]), generator=g,
+                      device="cuda")
+    cot32 = torch.randn(x32.shape, generator=g, device="cuda")
+
+    def layer(n, p, x):
+        return get_impl(confs[n]).apply(confs[n], p, {}, x)[0]
+
+    def whole(x, P):
+        r = x + layer("blk0_attn", P["blk0_attn"],
+                      layer("blk0_ln1", P["blk0_ln1"], x))
+        h = layer("blk0_ln2", P["blk0_ln2"], r)
+        return r + layer("blk0_ff2", P["blk0_ff2"],
+                         layer("blk0_ff1", P["blk0_ff1"], h))
+
+    def split(x, P, S, transport):
+        r = x + attention_shards(confs["blk0_attn"], S["blk0_attn"],
+                                 layer("blk0_ln1", P["blk0_ln1"], x),
+                                 transport)
+        h = layer("blk0_ln2", P["blk0_ln2"], r)
+        fs = dense_columns(confs["blk0_ff1"], S["blk0_ff1"], h, transport)
+        return r + dense_rows(confs["blk0_ff2"], S["blk0_ff2"], fs,
+                              transport)
+
+    def run(dtype, shards):
+        P = {n: {k: t.detach().to(dtype).requires_grad_()
+                 for k, t in net.params[n].items()} for n in names}
+        x = x32.to(dtype).requires_grad_()
+        names_ = ["x"] + ["/".join(p) for p, _ in tree.leaves(P)]
+        if not shards:
+            y = whole(x, P)
+            grads = torch.autograd.grad(
+                y, [x] + [t for _, t in tree.leaves(P)], cot32.to(dtype))
+            return y, dict(zip(names_, grads))
+        transport = InProcessShards(shards)
+
+        def piece(n, k, t, j):
+            if (n, k) not in cut:
+                return t  # whole: the shards read the same tensor
+            dim, heads = cut[(n, k)]
+            return shard_slice(t.detach(), dim, shards, j,
+                               heads).requires_grad_()
+
+        S = {n: [{k: piece(n, k, t, j) for k, t in P[n].items()}
+                 for j in range(shards)]
+             for n in ("blk0_attn", "blk0_ff1", "blk0_ff2")}
+        y = split(x, P, S, transport)
+        ins = [x] + [t for _, t in tree.leaves(P)] + [
+            t for n in S for s in S[n] for k, t in sorted(s.items())
+            if (n, k) in cut]
+        grads = torch.autograd.grad(y, ins, cot32.to(dtype),
+                                    allow_unused=True)
+        it = iter(grads)
+        got = {name: next(it) for name in names_}
+        for n in S:
+            for j, s in enumerate(S[n]):
+                for k in sorted(s):
+                    if (n, k) in cut:
+                        got.setdefault(f"{n}/{k}#", []).append(next(it))
+        for (n, k), (dim, heads) in cut.items():
+            got[f"{n}/{k}"] = join_shards(got.pop(f"{n}/{k}#"), dim, heads)
+        return y, got
+
+    def named(y, grads):
+        return {"y": y.detach(), **{k: v for k, v in grads.items()}}
+
+    ref = named(*run(torch.float32, 0))
+    whole_bf, gw = run(torch.bfloat16, 0)
+    torch.cuda.synchronize()
+    counters.reset()
+    split_bf, gs = run(torch.bfloat16, m)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    errors = _split_gate(card, f"flagship block 0 over {m} model shards "
+                               f"(K2/K6 at 1 head of 128 each)",
+                         named(whole_bf, gw), named(split_bf, gs), ref)
+    want = {k: 0 for k in launches}
+    want.update({"K2": m, "K6": m})
+    if launches != want:
+        raise PhaseFailed("22d", f"the split block launched {launches}, "
+                                 f"expected {want}")
+    arm_ms = {"whole": event_ms(torch, lambda: run(torch.bfloat16, 0), 3),
+              f"{m} shards": event_ms(torch, lambda: run(torch.bfloat16, m),
+                                      3)}
+    log22(card, f"22d: block forward + backward, bf16, batch {c['batch']} x "
+        f"{c['seq']}: ms (CUDA events, median of 3) {arm_ms}; split "
+        f"launches {launches}")
+    return launches, errors, arm_ms
+
+
+def shard_kernel_times(torch, fa, card):
+    """K2 and K6 at a model shard's shape (B 32, T 512, 1 head of 128,
+    bf16): event and device time a launch beside their bounds (for
+    PERF.md's kernel table). Timing launches, not counted."""
+    c = TRAIN
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    B, T, D = c["batch"], c["seq"], c["d_model"] // c["n_heads"]
+    qkv = torch.randn((B, T, 3 * D), generator=g, device="cuda",
+                      dtype=torch.bfloat16).requires_grad_()
+    do = torch.randn((B, T, D), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+
+    def fwd():
+        return fa.flash_attention_qkv(qkv, 1, causal=True)
+
+    out = fwd()
+    bound, by, _ = flash_bound_ms(B, T, D, 2, True, False, PEAK_BF16_FLOPS)
+    bbound, bby, _ = flash_bwd_bound_ms(B, T, D, 2, False, B)
+    rec = {
+        "K2": {"shape": f"packed B={B} T={T} H=1 D={D}",
+               "ms": time_ms(torch, fwd),
+               "device_ms": kernel_device_ms(torch, fwd),
+               "bound_ms": bound, "bound_by": by},
+        "K6": {"shape": f"packed B={B} T={T} H=1 D={D}",
+               "ms": grad_ms(torch, out, (qkv,), do),
+               "device_ms": kernel_device_ms(
+                   torch, lambda: torch.autograd.grad(out, qkv, do,
+                                                      retain_graph=True)),
+               "bound_ms": bbound, "bound_by": bby}}
+    log22(card, f"22d: a model shard's K2 / K6 (1 head of 128, B {B}, T "
+        f"{T}, bf16): {rec}")
+    return rec
+
+
+def split_moe_on_card(torch, card):
+    """22d, "expert": block 0's MoE layer of the MoE LM at bench width
+    (8 experts, top 2, routed at capacity 1.25) on batch 32 x 512 tokens,
+    split over 2 and 4 expert shards in this process against the whole
+    layer, bf16, with an f32 reference held to the bf16 whole arm's
+    routing (`pinned_routing`: near-tied router logits flip under
+    rounding); the output, the aux loss and the gradients of x and of
+    every param; each arm's forward + backward time."""
+    from deeplearning4j_tpu_torch import models
+    from deeplearning4j_tpu_torch.nn.layers import moe
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
+    c = TRAIN
+    net = moe_lm(models).init(SEED)
+    lc = net.layer_vertices["blk0_moe"].layer
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    x32 = torch.randn((c["batch"] * c["seq"], c["d_model"]), generator=g,
+                      device="cuda")
+    cot32 = torch.randn(x32.shape, generator=g, device="cuda")
+    kw = dict(top_k=lc.top_k, capacity_factor=lc.capacity_factor,
+              activation=lc.activation or "gelu",
+              group_size=lc.router_group_size, return_aux=True)
+    E = lc.n_experts
+
+    def run(dtype, n):
+        p = {k: t.detach().to(dtype).requires_grad_()
+             for k, t in net.params["blk0_moe"].items()}
+        x = x32.to(dtype).requires_grad_()
+        experts = None
+        if n:
+            w = E // n
+            experts = (InProcessShards(n), [
+                {k: (t[j * w:(j + 1) * w] if k != "Wg" else t)
+                 for k, t in p.items()} for j in range(n)])
+        y, aux = moe.moe_apply_routed(p, x, experts=experts, **kw)
+        grads = torch.autograd.grad((y * cot32.to(dtype)).sum() + aux,
+                                    [x] + list(p.values()))
+        return {"y": y.detach(), "aux": aux.detach().reshape(1),
+                **dict(zip(["x"] + list(p), grads))}
+
+    with pinned_routing(torch, moe) as pin:
+        whole = run(torch.bfloat16, 0)
+        pin.replay()
+        ref = run(torch.float32, 0)
+    errors, arm_ms = {}, {"whole": event_ms(torch, lambda: run(
+        torch.bfloat16, 0), 3)}
+    for n in EP_SHARDS:
+        split = run(torch.bfloat16, n)
+        if not torch.equal(split["aux"], whole["aux"]):
+            raise PhaseFailed("22d", f"{n} expert shards: the aux loss "
+                                     "differs from the whole layer's")
+        errors[n] = _split_gate(card, f"MoE layer over {n} expert shards",
+                                whole, split, ref)
+        arm_ms[f"{n} shards"] = event_ms(torch, lambda n=n: run(
+            torch.bfloat16, n), 3)
+    log22(card, f"22d: MoE layer forward + backward, bf16, "
+        f"{x32.shape[0]} tokens: ms (CUDA events, median of 3) {arm_ms}")
+    return errors, arm_ms
+
+
+def train_placements(torch, counters, fa, transformer_lm, DataSet, card):
+    """Phase 22: the graph vertices (22a), the MultiLayerNetwork decode
+    steps (22b), the "model" and "expert" roles and ZeRO-1 at world size
+    1 over NCCL (22c), and the model and expert splits run as several
+    shards in one process (22d). Returns the launches of its main-path
+    runs and K2's and K6's times at a model shard's shape."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    graph = train_vertex_graph(torch, counters, card)
+    mln = serve_mln(torch, counters, card)
+    mesh = make_mesh({"data": 1, "model": 1, "expert": 1})
+    try:
+        roles, _ = roles_at_one_rank(torch, counters, transformer_lm,
+                                     DataSet, mesh, card)
+    finally:
+        bootstrap.shutdown()
+    block, _, _ = split_block_on_card(torch, counters, fa, transformer_lm,
+                                      card)
+    shard_times = shard_kernel_times(torch, fa, card)
+    split_moe_on_card(torch, card)
+    runs = (graph, mln, roles, block)
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in graph}
+    log22(card, f"phase 22 in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    return launches, shard_times
 
 
 def ab_turn(root):
@@ -5698,12 +6371,14 @@ def main() -> int:
                                          host_rate, name_power)
     par_launches = train_parallel(torch, counters, fa, transformer_lm,
                                   DataSet, name_power)
-    log(f"chip_smoke: phases 1-21 in {time.perf_counter() - started:.1f} s")
+    place_launches, shard_times = train_placements(
+        torch, counters, fa, transformer_lm, DataSet, name_power)
+    log(f"chip_smoke: phases 1-22 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-21", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-22", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -5713,15 +6388,16 @@ def main() -> int:
     # training, the three bench modes, the other training paths,
     # Word2Vec, the engine, the speculative replay, the predict path's
     # flagship windows, the MoE LM's training runs, phase 20's
-    # host-path Word2Vec and phase 21's data-parallel, ring, sequence-
-    # parallel and pipelined-fit runs), each counted from 0 just before
-    # it and read just after. K1-K7 carry their dropout
+    # host-path Word2Vec, phase 21's data-parallel, ring, sequence-
+    # parallel and pipelined-fit runs, and phase 22's graph, MultiLayer-
+    # Network decode, placed-net and split-block runs), each counted from
+    # 0 just before it and read just after. K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
-            par_launches)
+            par_launches, place_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}
@@ -5788,6 +6464,9 @@ def main() -> int:
                for arm in ("dropout", "dlse") if arm in rec}})
         if kern in ("K1", "K5"):
             kernels[-1]["chunked_max_rel_err"] = chunked_err
+        if kern in shard_times:
+            # a model shard's shape (22d), beside the row's
+            kernels[-1]["model_shard"] = shard_times[kern]
         if kern == "K10":
             kernels[-1]["host_us"] = rec["host_us"]
         if kern == "K12":

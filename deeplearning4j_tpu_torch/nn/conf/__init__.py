@@ -55,16 +55,29 @@ from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (  # noqa:
 )
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (  # noqa: F401
     ComputationGraphConfiguration,
+    DuplicateToTimeSeriesVertexConf,
     ElementWiseVertexConf,
     GraphBuilder,
     GraphVertexConf,
+    LastTimeStepVertexConf,
     LayerVertexConf,
+    MergeVertexConf,
+    PreprocessorVertexConf,
+    ScaleVertexConf,
+    StackVertexConf,
+    SubsetVertexConf,
+    UnstackVertexConf,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (  # noqa: F401
+    BinomialSamplingPreProcessor,
     CnnToFeedForwardPreProcessor,
+    CnnToRnnPreProcessor,
+    ComposableInputPreProcessor,
     FeedForwardToCnnPreProcessor,
     FeedForwardToRnnPreProcessor,
     InputPreProcessor,
+    ReshapePreProcessor,
+    RnnToCnnPreProcessor,
     RnnToFeedForwardPreProcessor,
 )
 from deeplearning4j_tpu_torch.nn.conf.serde import (  # noqa: F401

@@ -3,11 +3,12 @@ counterpart deeplearning4j_tpu/nn/conf/graph_conf.py; reference
 nn/conf/ComputationGraphConfiguration.java GraphBuilder:446).
 
 The DAG is declared as {name: (vertex_conf, [input names])}; the
-ComputationGraph container walks it in topological order. The port
-carries the vertices the Transformer LM and ResNet-20 use: layer and
-elementwise; the other vertex kinds come with later slices. With input
-types set, `build()` infers each layer's n_in and inserts the shape
-adapters, CNN ones included (`_infer_graph_shapes`).
+ComputationGraph container walks it in topological order. Every vertex
+kind of the JAX package is here: layer, merge, elementwise, subset,
+preprocessor, last-time-step, duplicate-to-time-series, scale, stack
+and unstack (their forwards are nn/graph.py `vertex_forward`). With
+input types set, `build()` infers each layer's n_in and inserts the
+shape adapters, CNN ones included (`_infer_graph_shapes`).
 """
 
 from __future__ import annotations
@@ -54,10 +55,102 @@ class LayerVertexConf(GraphVertexConf):
 
 @serde.register_config
 @dataclasses.dataclass
+class MergeVertexConf(GraphVertexConf):
+    """Concatenate along the feature axis (reference MergeVertex)."""
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        t0 = input_types[0]
+        if t0.kind == "convolutional":
+            ch = sum(t.channels for t in input_types)
+            return InputType.convolutional(t0.height, t0.width, ch)
+        size = sum(t.flat_size() for t in input_types)
+        if t0.kind == "recurrent":
+            return InputType.recurrent(size, t0.timeseries_length)
+        return InputType.feed_forward(size)
+
+
+@serde.register_config
+@dataclasses.dataclass
 class ElementWiseVertexConf(GraphVertexConf):
     """Elementwise Add/Subtract/Product/Average/Max (reference ElementWiseVertex)."""
 
     op: str = "add"  # add | subtract | product | average | max
+
+
+@serde.register_config
+@dataclasses.dataclass
+class SubsetVertexConf(GraphVertexConf):
+    """Feature-axis slice [from, to] inclusive (reference SubsetVertex)."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        n = self.to_idx - self.from_idx + 1
+        t0 = input_types[0]
+        if t0.kind == "recurrent":
+            return InputType.recurrent(n, t0.timeseries_length)
+        return InputType.feed_forward(n)
+
+
+@serde.register_config
+@dataclasses.dataclass
+class PreprocessorVertexConf(GraphVertexConf):
+    """A preprocessor as a vertex of its own (reference PreprocessorVertex)."""
+
+    preprocessor: Optional[InputPreProcessor] = None
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        return self.preprocessor.get_output_type(input_types[0])
+
+
+@serde.register_config
+@dataclasses.dataclass
+class LastTimeStepVertexConf(GraphVertexConf):
+    """[batch, time, f] -> [batch, f] taking the last (or last unmasked)
+    timestep (reference rnn/LastTimeStepVertex). The mask is the one of
+    the network input named `mask_input`."""
+
+    mask_input: Optional[str] = None
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        return InputType.feed_forward(input_types[0].flat_size())
+
+
+@serde.register_config
+@dataclasses.dataclass
+class DuplicateToTimeSeriesVertexConf(GraphVertexConf):
+    """[batch, f] -> [batch, time, f], time taken from the activation of
+    `reference_input` (reference rnn/DuplicateToTimeSeriesVertex)."""
+
+    reference_input: Optional[str] = None
+
+    def get_output_type(self, *input_types: InputType) -> InputType:
+        return InputType.recurrent(input_types[0].flat_size())
+
+
+@serde.register_config
+@dataclasses.dataclass
+class ScaleVertexConf(GraphVertexConf):
+    """Multiply by a constant (reference ScaleVertex)."""
+
+    scale: float = 1.0
+
+
+@serde.register_config
+@dataclasses.dataclass
+class StackVertexConf(GraphVertexConf):
+    """Stack the inputs along the batch axis (reference StackVertex)."""
+
+
+@serde.register_config
+@dataclasses.dataclass
+class UnstackVertexConf(GraphVertexConf):
+    """Part `from_idx` of `stack_size` equal parts of the batch axis
+    (reference UnstackVertex)."""
+
+    from_idx: int = 0
+    stack_size: int = 1
 
 
 @serde.register_config
@@ -115,6 +208,10 @@ class GraphBuilder:
 
     def add_inputs(self, *names) -> "GraphBuilder":
         self._g.network_inputs.extend(_flatten(names))
+        return self
+
+    def set_inputs(self, *names) -> "GraphBuilder":
+        self._g.network_inputs = list(_flatten(names))
         return self
 
     def add_layer(self, name: str, layer: Layer, *inputs, preprocessor=None) -> "GraphBuilder":

@@ -37,10 +37,11 @@ near the end of a row can be) are dropped, as JAX's scatter drops them.
 Which writes survive is worked out once per step on the host, from the
 positions the caller passes, so no layer waits on the device for it.
 
-Supported graphs: single-input/single-output stacks of time-pointwise
-layers (dense / embedding / layernorm / output heads) plus causal
-SelfAttention and PositionalEncoding; elementwise vertices ride along.
-Anything else raises at build time, naming the layer.
+Supported nets, either container: single-input/single-output stacks of
+time-pointwise layers (dense / embedding / layernorm / output heads /
+activation / dropout) plus causal SelfAttention and PositionalEncoding;
+elementwise, merge, scale and subset vertices ride along. Anything else
+raises at build time, naming the layer.
 """
 
 from __future__ import annotations
@@ -51,10 +52,15 @@ import torch
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ElementWiseVertexConf,
     LayerVertexConf,
+    MergeVertexConf,
+    ScaleVertexConf,
+    SubsetVertexConf,
 )
 from deeplearning4j_tpu_torch.nn.conf.layers import (
+    ActivationLayer,
     BaseOutputLayer,
     DenseLayer,
+    DropoutLayer,
     EmbeddingLayer,
     LayerNormalization,
     PositionalEncodingLayer,
@@ -64,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.graph import cast_params, vertex_forward
 from deeplearning4j_tpu_torch.nn.layers.attention import sinusoidal
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.activations import get_activation
+from deeplearning4j_tpu_torch.ops.shard_scope import layer_shard
 from deeplearning4j_tpu_torch.ops.decode_attention import (
     cache_attention,
     cache_attention_q8,
@@ -71,7 +78,7 @@ from deeplearning4j_tpu_torch.ops.decode_attention import (
 )
 
 _POINTWISE = (DenseLayer, EmbeddingLayer, LayerNormalization,
-              BaseOutputLayer)
+              BaseOutputLayer, ActivationLayer, DropoutLayer)
 
 _NEG_INF = -1e30
 
@@ -93,35 +100,56 @@ class _Op:
 
 
 def _plan(net):
-    """-> (input_name, output_name, [_Op]), validating that every layer
-    and vertex can decode one token at a time."""
+    """-> (input_name, output_name, [_Op]) for either container,
+    validating that every layer and vertex can decode one token at a
+    time."""
     problems, ops = [], []
-    ins, outs = net.conf.network_inputs, net.conf.network_outputs
-    if len(ins) != 1 or len(outs) != 1:
-        raise ValueError(
-            "incremental decode needs a single-input/single-output graph; "
-            f"this one has inputs {list(ins)} and outputs {list(outs)}")
-    for name in net.topo:
-        if name in ins:
-            continue
-        vconf = net.conf.vertices[name]
-        inputs = list(net.conf.vertex_inputs[name])
-        if isinstance(vconf, LayerVertexConf):
-            lc = vconf.layer
+    if hasattr(net, "layer_vertices"):
+        ins, outs = net.conf.network_inputs, net.conf.network_outputs
+        if len(ins) != 1 or len(outs) != 1:
+            raise ValueError(
+                "incremental decode needs a single-input/single-output "
+                f"graph; this one has inputs {list(ins)} and outputs "
+                f"{list(outs)}")
+        for name in net.topo:
+            if name in ins:
+                continue
+            vconf = net.conf.vertices[name]
+            inputs = list(net.conf.vertex_inputs[name])
+            if isinstance(vconf, LayerVertexConf):
+                lc = vconf.layer
+                if not _decodable_layer(lc):
+                    problems.append(f"{name} ({type(lc).__name__})")
+                ops.append(_Op("layer", name, lc, net.impls[name],
+                               vconf.preprocessor, inputs))
+            elif isinstance(vconf, (ElementWiseVertexConf, MergeVertexConf,
+                                    ScaleVertexConf, SubsetVertexConf)):
+                ops.append(_Op("vertex", name, vconf, None, None, inputs))
+            else:
+                problems.append(f"{name} ({type(vconf).__name__})")
+        in_name, out_name = ins[0], outs[0]
+    else:
+        prev = "__input__"
+        for i, (name, lc, impl) in enumerate(zip(
+                net.layer_names, net.layer_confs, net.impls)):
             if not _decodable_layer(lc):
                 problems.append(f"{name} ({type(lc).__name__})")
-            ops.append(_Op("layer", name, lc, net.impls[name],
-                           vconf.preprocessor, inputs))
-        elif isinstance(vconf, ElementWiseVertexConf):
-            ops.append(_Op("vertex", name, vconf, None, None, inputs))
-        else:
-            problems.append(f"{name} ({type(vconf).__name__})")
+            ops.append(_Op("layer", name, lc, impl,
+                           net.conf.get_preprocessor(i), [prev]))
+            prev = name
+        in_name, out_name = "__input__", prev
+    if any(op.kind == "layer" and layer_shard(op.conf) is not None
+           for op in ops):
+        from deeplearning4j_tpu_torch.parallel.placement import not_ported
+
+        not_ported("incremental decode of a net whose layers a 'model' or "
+                   "'expert' placement split (set_mesh(None) first)")
     if problems:
         raise ValueError(
             "incremental decode supports transformer stacks (pointwise "
             "layers + causal SelfAttention + PositionalEncoding); these "
             "cannot stream one token at a time: " + ", ".join(problems))
-    return ins[0], outs[0], ops
+    return in_name, out_name, ops
 
 
 def _decodable_layer(lc) -> bool:

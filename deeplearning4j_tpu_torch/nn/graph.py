@@ -20,9 +20,10 @@ than the window; `remat` recomputes each layer vertex's activations in
 the backward; `rnn_time_step` streams through the recurrent vertices.
 `fit` rides the pipelined input loader (data/pipeline.iter_prefetched):
 the next batch's conversion runs on a producer thread while the step
-computes. `set_mesh` (parallel/placement.py) takes the "data" and "seq"
-roles: each rank then steps on its rows (and time block) of the global
-batch, and `output` / `evaluate` shard the batch over the data axis.
+computes. `set_mesh` (parallel/placement.py) takes the "data", "seq",
+"model" and "expert" roles and ZeRO-1: each rank then steps on its rows
+(and time block) of the global batch with its shares of the split
+layers, and `output` / `evaluate` shard the batch over the data axis.
 `resume_from` reads the port's own checkpoint format
 (util/checkpoint.py); `inference_fn` is the forward the predict engine's
 replicas call (serving/engine.py).
@@ -42,8 +43,16 @@ from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
 from deeplearning4j_tpu_torch.nn import tree
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration,
+    DuplicateToTimeSeriesVertexConf,
     ElementWiseVertexConf,
+    LastTimeStepVertexConf,
     LayerVertexConf,
+    MergeVertexConf,
+    PreprocessorVertexConf,
+    ScaleVertexConf,
+    StackVertexConf,
+    SubsetVertexConf,
+    UnstackVertexConf,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
@@ -72,6 +81,8 @@ from deeplearning4j_tpu_torch.nn.updater import (
     named_layer_confs,
 )
 from deeplearning4j_tpu_torch.parallel.placement import (
+    canonical_opt_state,
+    canonical_params,
     configure_mesh,
     local_dataset,
     mesh_axis,
@@ -90,9 +101,23 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 cast_params = tree_cast
 
 
-def vertex_forward(vconf, inputs):
-    """Non-layer vertex semantics (reference graph/vertex/impl/*): the
-    elementwise vertex the Transformer LM's residual adds use."""
+def pre_process(proc, x, train=False, generator=None):
+    """A preprocessor's forward: its training forward (which may draw
+    from `generator`) while training, its inference forward otherwise."""
+    if train:
+        return proc.pre_process_train(x, generator)
+    return proc.pre_process(x)
+
+
+def vertex_forward(vconf, inputs, masks=None, acts=None, *, train=False,
+                   generator=None):
+    """Non-layer vertex semantics (reference graph/vertex/impl/*; the
+    JAX package's `_vertex_forward`). `masks` ({vertex or input: [B, T]
+    mask}) gives LastTimeStep the mask of its `mask_input`; `acts`
+    ({vertex: activation}) gives DuplicateToTimeSeries the time length
+    of its `reference_input`."""
+    if isinstance(vconf, MergeVertexConf):
+        return torch.cat(inputs, dim=-1)
     if isinstance(vconf, ElementWiseVertexConf):
         op = vconf.op
         out = inputs[0]
@@ -110,8 +135,29 @@ def vertex_forward(vconf, inputs):
         if op == "average":
             out = out / len(inputs)
         return out
-    raise ValueError(f"unhandled vertex {type(vconf).__name__} in this "
-                     "port")
+    if isinstance(vconf, SubsetVertexConf):
+        return inputs[0][..., vconf.from_idx:vconf.to_idx + 1]
+    if isinstance(vconf, PreprocessorVertexConf):
+        return pre_process(vconf.preprocessor, inputs[0], train, generator)
+    if isinstance(vconf, ScaleVertexConf):
+        return inputs[0] * vconf.scale
+    if isinstance(vconf, LastTimeStepVertexConf):
+        x = inputs[0]                                      # [B, T, f]
+        mask = (masks or {}).get(vconf.mask_input) if vconf.mask_input \
+            else None
+        if mask is None:
+            return x[:, -1, :]
+        idx = (mask.to(torch.int32).sum(dim=1) - 1).clamp_min(0)
+        return x[torch.arange(x.shape[0], device=x.device), idx.long(), :]
+    if isinstance(vconf, DuplicateToTimeSeriesVertexConf):
+        T = acts[vconf.reference_input].shape[1]
+        x = inputs[0]
+        return x[:, None, :].expand(x.shape[0], T, x.shape[1])
+    if isinstance(vconf, StackVertexConf):
+        return torch.cat(inputs, dim=0)
+    if isinstance(vconf, UnstackVertexConf):
+        return inputs[0].chunk(vconf.stack_size, dim=0)[vconf.from_idx]
+    raise ValueError(f"unhandled vertex type {type(vconf).__name__}")
 
 
 class ComputationGraph(LazyScore):
@@ -145,6 +191,8 @@ class ComputationGraph(LazyScore):
         self._mesh = None
         self._mesh_axes = None
         self._overlap_plan = None
+        self._split_plan = None  # the "model" / "expert" placement
+        self._zero1 = None
 
     @property
     def compute_dtype(self):
@@ -188,8 +236,11 @@ class ComputationGraph(LazyScore):
     # --------------------------------------------------------------- forward
     def _time_preserving(self, vconf, T):
         """Whether a vertex maps [B, T, f] -> [B, T, f'] keeping the time
-        axis, so a time mask carries through it."""
-        if isinstance(vconf, ElementWiseVertexConf):
+        axis, so a time mask carries through it: elementwise, merge and
+        scale vertices by construction, layer vertices by their declared
+        output type."""
+        if isinstance(vconf, (ElementWiseVertexConf, MergeVertexConf,
+                              ScaleVertexConf)):
             return True
         if isinstance(vconf, LayerVertexConf):
             lc = vconf.layer
@@ -222,7 +273,7 @@ class ComputationGraph(LazyScore):
             if isinstance(vconf, LayerVertexConf):
                 x = inputs[0]
                 if vconf.preprocessor is not None:
-                    x = vconf.preprocessor.pre_process(x)
+                    x = pre_process(vconf.preprocessor, x, train, generator)
                 p = params.get(name, {})
                 if cdtype != self.param_dtype:
                     p = cast_params(p, cdtype)
@@ -246,7 +297,8 @@ class ComputationGraph(LazyScore):
                 else:
                     acts[name], new_state[name] = out
             else:
-                acts[name] = vertex_forward(vconf, inputs)
+                acts[name] = vertex_forward(vconf, inputs, masks, acts,
+                                            train=train, generator=generator)
             m = masks.get(self.conf.vertex_inputs[name][0])
             y = acts[name]
             if (m is not None and y.ndim == 3
@@ -285,7 +337,7 @@ class ComputationGraph(LazyScore):
                                  "layer")
             x = acts[self.conf.vertex_inputs[out_name][0]]
             if vconf.preprocessor is not None:
-                x = vconf.preprocessor.pre_process(x)
+                x = pre_process(vconf.preprocessor, x, train, generator)
             p_out = params[out_name]
             if cdtype != self.param_dtype:
                 p_out = cast_params(p_out, cdtype)
@@ -360,8 +412,10 @@ class ComputationGraph(LazyScore):
 
     def set_mesh(self, mesh, zero1: bool = False, axes=None,
                  n_microbatches=None, tp_rules=None, overlap=None):
-        """Map parallelism roles ("data", "seq") to mesh axis names
-        (parallel/placement.configure_mesh); `overlap` (True / bucket
+        """Map parallelism roles ("data", "seq", "model", "expert") to
+        mesh axis names (parallel/placement.configure_mesh); `zero1`
+        splits the optimizer state over "data"; `tp_rules` are placement
+        rules that come before the roles' own; `overlap` (True / bucket
         bytes / a BucketPlan) reduces the data-parallel gradients bucket
         by bucket during the backward. set_mesh(None) clears the mesh.
         Returns the net."""
@@ -379,7 +433,7 @@ class ComputationGraph(LazyScore):
                 self._train_step = make_train_step(
                     self._loss, self.tx, named_layer_confs(self),
                     mesh=self._mesh, data_axis=mesh_axis(self, "data"),
-                    overlap=self._overlap_plan)
+                    overlap=self._overlap_plan, zero1=self._zero1)
         return self._train_step
 
     def fit(self, data, labels=None, epochs: int = 1):
@@ -618,15 +672,30 @@ class ComputationGraph(LazyScore):
 
     # -------------------------------------------------------- params plumbing
     def num_params(self) -> int:
+        if self._split_plan is not None:
+            return self._split_plan.num_params(self.params)
         return tree.num_params(self.params)
+
+    def canonical_params(self):
+        """The params whole in the JAX layout, under a "model" / "expert"
+        placement too (parallel/placement.canonical_params; every rank
+        calls it)."""
+        return canonical_params(self)
+
+    def canonical_opt_state(self):
+        """The optimizer state whole (placement.canonical_opt_state)."""
+        return canonical_opt_state(self)
 
     def params_flat(self) -> np.ndarray:
         """The flat parameter vector in the JAX package's order (keys
-        sorted at every level), f32 (bf16 widens exactly) or f64."""
-        return tree.params_flat(self.params)
+        sorted at every level), f32 (bf16 widens exactly) or f64; whole
+        under a placement."""
+        return tree.params_flat(self.canonical_params())
 
     def set_params_flat(self, flat):
-        self.params = tree.set_params_flat(self.params, flat)
+        params = tree.set_params_flat(self.canonical_params(), flat)
+        split = self._split_plan
+        self.params = params if split is None else split.local(params)
 
     @torch.no_grad()
     def score(self, ds=None, training: bool = False):
@@ -686,6 +755,15 @@ class ComputationGraph(LazyScore):
             self.params, self.state,
             dict(zip(self.conf.network_inputs, xs))))
         return ys[0] if len(ys) == 1 else ys
+
+    def predict(self, *inputs):
+        """The argmax over the last axis of `output`, as numpy: an array,
+        or a list of them for several outputs (the JAX package's
+        `predict`)."""
+        out = self.output(*inputs)
+        if isinstance(out, list):
+            return [o.argmax(dim=-1).cpu().numpy() for o in out]
+        return out.argmax(dim=-1).cpu().numpy()
 
     def inference_fn(self):
         """A ``(params, state, x, mask=None) -> y`` inference forward for

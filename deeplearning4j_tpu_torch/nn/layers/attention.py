@@ -17,7 +17,9 @@ Inside a sequence-parallel step (ops/shard_scope.py: a `SeqShard` on the
 conf's `seq_parallel_axis`) x is this shard's block of the sequence:
 the positional encoding encodes its global positions and attention runs
 the ring over the shard's transport (parallel/ring_attention.py), its
-dropout step seeds from the generator the seq shards share.
+dropout step seeds from the generator the seq shards share. A layer a
+"model" placement split (ops/shard_scope.py `layer_shard`) runs its
+heads' share on each shard (`attention_shards`).
 """
 
 from __future__ import annotations
@@ -36,7 +38,11 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
-from deeplearning4j_tpu_torch.ops.shard_scope import seq_shard
+from deeplearning4j_tpu_torch.ops.shard_scope import (
+    layer_shard,
+    seq_shard,
+    shard_generator,
+)
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     MAX_FLASH_T,
     chunked_flash_attention,
@@ -155,68 +161,105 @@ class SelfAttentionImpl(LayerImpl):
               mask=None):
         if conf.dropout:
             x = apply_dropout(x, conf.dropout, generator, train=train)
-        B, T, _ = x.shape
-        H = conf.n_heads
-        n = conf.n_out
-        D = n // H
+        shard = layer_shard(conf)
+        if shard is not None:
+            return attention_shards(conf, [params], x, shard.transport,
+                                    train=train, generator=generator,
+                                    mask=mask), state
         qkv = x @ params["Wqkv"] + params["bqkv"]              # [B, T, 3n]
-        drop_attn = conf.attention_dropout if train else 0.0
-        use_flash = conf.use_flash
+        out = _attend(conf, qkv, conf.n_heads, train=train,
+                      generator=generator, mask=mask)
         act = get_activation(conf.activation or "identity")
-        seq = seq_shard(conf.seq_parallel_axis)
-        if (use_flash and seq is None
-                and flash_supports_qkv(B, T, n, H, dropout=drop_attn)):
-            # packed path: the kernels read each head's column slice of
-            # the projection in place, no [B,T,H,D] relayout either way;
-            # attention dropout runs in the kernels
-            out = flash_attention_qkv(qkv, H, causal=conf.causal, mask=mask,
-                                      dropout=drop_attn, generator=generator)
-            return act(out @ params["Wo"] + params["bo"]), state
-        qh, kh, vh = (t.unflatten(-1, (H, D)).transpose(1, 2)
-                      for t in qkv.split(n, dim=-1))
-        flash_kw = dict(causal=conf.causal, mask=mask, dropout=drop_attn,
-                        generator=generator)
-        if seq is not None:
-            # this shard's queries against the K/V blocks going round
-            # the ring; no [T, T] scores anywhere
-            if mask is not None:
-                raise ValueError(
-                    "sequence-parallel attention does not support padding "
-                    "masks — pad to full length")
-            from deeplearning4j_tpu_torch.parallel.ring_attention import (
-                ring_attention,
-            )
-
-            out = ring_attention(
-                qh, kh, vh, transport=seq.transport, causal=conf.causal,
-                dropout=drop_attn,
-                generator=seq.ring_generator or generator)
-        elif use_flash and flash_supports(qh.shape, causal=conf.causal,
-                                        dropout=drop_attn, mask=mask,
-                                        device=qh.device):
-            out = flash_attention(qh, kh, vh, **flash_kw)
-        elif use_flash and flash_supports_chunked(
-                qh.shape, causal=conf.causal, dropout=drop_attn, mask=mask):
-            # T beyond the whole-sequence envelope: chunk-length tiles
-            # merged by their lse; masks and dropout ride the tiles
-            out = chunked_flash_attention(qh, kh, vh, **flash_kw)
-        elif (use_flash and T > MAX_FLASH_T
-              and flash_supports_monolithic_fallback(
-                  qh.shape, causal=conf.causal, dropout=drop_attn,
-                  mask=mask)):
-            # a length no tiling takes, at D <= 128: the whole-sequence
-            # kernels
-            out = flash_attention(qh, kh, vh, **flash_kw)
-        elif use_flash and T > MAX_FLASH_T:
-            # dense [T, T] scores at these lengths would exhaust device
-            # memory: fail with the reason instead
-            raise ValueError(chunked_unsupported_reason(
-                T, dropout=drop_attn, mask=mask, causal=conf.causal,
-                head_dim=D))
-        else:
-            out = dot_product_attention(
-                qh, kh, vh, causal=conf.causal, mask=mask,
-                dropout=conf.attention_dropout, generator=generator,
-                train=train)
-        out = out.transpose(1, 2).reshape(B, T, n)
         return act(out @ params["Wo"] + params["bo"]), state
+
+
+def _attend(conf, qkv, H, *, train, generator, mask):
+    """Attention over H heads of the packed projection qkv [B, T, 3·H·D]
+    (q | k | v, each head's D columns in a row): [B, T, H·D], the heads'
+    outputs side by side, by the layer's dispatch ladder."""
+    B, T, _ = qkv.shape
+    D = conf.n_out // conf.n_heads
+    n = H * D
+    drop_attn = conf.attention_dropout if train else 0.0
+    use_flash = conf.use_flash
+    seq = seq_shard(conf.seq_parallel_axis)
+    if (use_flash and seq is None
+            and flash_supports_qkv(B, T, n, H, dropout=drop_attn)):
+        # packed path: the kernels read each head's column slice of
+        # the projection in place, no [B,T,H,D] relayout either way;
+        # attention dropout runs in the kernels
+        return flash_attention_qkv(qkv, H, causal=conf.causal, mask=mask,
+                                   dropout=drop_attn, generator=generator)
+    qh, kh, vh = (t.unflatten(-1, (H, D)).transpose(1, 2)
+                  for t in qkv.split(n, dim=-1))
+    flash_kw = dict(causal=conf.causal, mask=mask, dropout=drop_attn,
+                    generator=generator)
+    if seq is not None:
+        # this shard's queries against the K/V blocks going round
+        # the ring; no [T, T] scores anywhere
+        if mask is not None:
+            raise ValueError(
+                "sequence-parallel attention does not support padding "
+                "masks — pad to full length")
+        from deeplearning4j_tpu_torch.parallel.ring_attention import (
+            ring_attention,
+        )
+
+        out = ring_attention(
+            qh, kh, vh, transport=seq.transport, causal=conf.causal,
+            dropout=drop_attn,
+            generator=seq.ring_generator or generator)
+    elif use_flash and flash_supports(qh.shape, causal=conf.causal,
+                                    dropout=drop_attn, mask=mask,
+                                    device=qh.device):
+        out = flash_attention(qh, kh, vh, **flash_kw)
+    elif use_flash and flash_supports_chunked(
+            qh.shape, causal=conf.causal, dropout=drop_attn, mask=mask):
+        # T beyond the whole-sequence envelope: chunk-length tiles
+        # merged by their lse; masks and dropout ride the tiles
+        out = chunked_flash_attention(qh, kh, vh, **flash_kw)
+    elif (use_flash and T > MAX_FLASH_T
+          and flash_supports_monolithic_fallback(
+              qh.shape, causal=conf.causal, dropout=drop_attn,
+              mask=mask)):
+        # a length no tiling takes, at D <= 128: the whole-sequence
+        # kernels
+        out = flash_attention(qh, kh, vh, **flash_kw)
+    elif use_flash and T > MAX_FLASH_T:
+        # dense [T, T] scores at these lengths would exhaust device
+        # memory: fail with the reason instead
+        raise ValueError(chunked_unsupported_reason(
+            T, dropout=drop_attn, mask=mask, causal=conf.causal,
+            head_dim=D))
+    else:
+        out = dot_product_attention(
+            qh, kh, vh, causal=conf.causal, mask=mask,
+            dropout=conf.attention_dropout, generator=generator,
+            train=train)
+    return out.transpose(1, 2).reshape(B, T, n)
+
+
+def attention_shards(conf, ps, x, transport, *, train=False, generator=None,
+                     mask=None):
+    """Self-attention with its heads split over the shards of
+    `transport` (ops/shard_comm.py): ps[j] holds shard
+    `transport.shards[j]`'s params — the q, k and v columns of its heads
+    in Wqkv and bqkv (parallel/tensor_parallel.qkv_columns), their rows
+    of Wo, and bo whole. x is the replicated input (its dropout drawn);
+    each shard projects it, attends over its heads with the layer's
+    kernels and multiplies by its rows of Wo; the partial products sum
+    over the shards (Megatron's column- then row-parallel block). The
+    attention dropout of shard j draws from `generator` folded with j
+    (`shard_generator`)."""
+    D = conf.n_out // conf.n_heads
+    drop = train and conf.attention_dropout
+    parts = []
+    for j, p, xj in zip(transport.shards, ps, transport.copy(x)):
+        qkv = xj @ p["Wqkv"] + p["bqkv"]
+        gen = (shard_generator(generator, (j,), transport.n) if drop
+               else generator)
+        out = _attend(conf, qkv, p["Wqkv"].shape[-1] // (3 * D),
+                      train=train, generator=gen, mask=mask)
+        parts.append(out @ p["Wo"])
+    act = get_activation(conf.activation or "identity")
+    return act(transport.reduce(parts) + ps[0]["bo"])

@@ -9,6 +9,15 @@ output layer's training loss takes the fused softmax cross-entropy head
 (ops/fused_softmax_xent.py, the K8/K9 kernels) for large-vocab sparse
 labels on CUDA tensors (`_use_fused_head`), and `compute_loss` on the
 preactivation otherwise.
+
+A layer a "model" placement split (ops/shard_scope.py `layer_shard`;
+parallel/tensor_parallel.py) computes its shard's share: a dense layer
+split on its outputs is column-parallel (`dense_columns`: the replicated
+input in, this shard's output columns out), one split on its inputs
+row-parallel (`dense_rows`: the shards' input columns in, the summed
+replicated output out); an embedding split on its features gathers
+them after the lookup; an output layer split on its classes gathers W
+and b, so its softmax and the fused head see every class.
 """
 
 from __future__ import annotations
@@ -42,6 +51,10 @@ from deeplearning4j_tpu_torch.ops.losses import (
     _is_index,
     compute_loss,
 )
+from deeplearning4j_tpu_torch.ops.shard_scope import (
+    layer_shard,
+    shard_generator,
+)
 
 
 def _dense_init(conf, gen, dtype):
@@ -63,6 +76,67 @@ def _dense_forward(conf, params, x, train=False, generator=None):
     return get_activation(conf.activation)(z), z
 
 
+def dense_columns(conf, ps, x, transport, *, train=False, generator=None):
+    """A dense layer split on its outputs over the shards of `transport`
+    (ops/shard_comm.py): ps[j] holds shard `transport.shards[j]`'s
+    columns of W and b; x is the replicated input. Returns each shard's
+    activation columns. Input dropout is drawn on the replicated x, as
+    the whole layer draws it; DropConnect on each shard's W from
+    `generator` folded with the shard (`shard_generator`)."""
+    if conf.dropout and not getattr(conf, "drop_connect", False):
+        x = apply_dropout(x, conf.dropout, generator, train=train)
+    act = get_activation(conf.activation)
+    out = []
+    for j, p, xj in zip(transport.shards, ps, transport.copy(x)):
+        W = p["W"]
+        if getattr(conf, "drop_connect", False):
+            W = apply_dropconnect(W, conf.dropout, shard_generator(
+                generator, (j,), transport.n), train=train)
+        out.append(act(xj @ W + p["b"]))
+    return out
+
+
+def dense_rows(conf, ps, xs, transport, *, train=False, generator=None):
+    """A dense layer split on its inputs over the shards of `transport`:
+    xs[j] and ps[j] are shard `transport.shards[j]`'s input columns and
+    rows of W (b whole). The partial products sum over the shards, then
+    b and the activation. Input dropout on each shard's columns draws
+    from `generator` folded with the shard."""
+    drop_connect = getattr(conf, "drop_connect", False)
+    parts = []
+    for j, p, xj in zip(transport.shards, ps, xs):
+        W = p["W"]
+        if conf.dropout:
+            gen = shard_generator(generator, (j,), transport.n)
+            if drop_connect:
+                W = apply_dropconnect(W, conf.dropout, gen, train=train)
+            else:
+                xj = apply_dropout(xj, conf.dropout, gen, train=train)
+        parts.append(xj @ W)
+    return get_activation(conf.activation)(transport.reduce(parts)
+                                           + ps[0]["b"])
+
+
+def _split_dense(conf, params, x, shard, train, generator):
+    if shard.split.get("W") == 1:
+        (y,) = dense_columns(conf, [params], x, shard.transport,
+                             train=train, generator=generator)
+        return y
+    return dense_rows(conf, [params], [x], shard.transport, train=train,
+                      generator=generator)
+
+
+def _whole_head(params, shard):
+    """An output layer's W and b whole: gathered over the shards where
+    the placement split them on the classes."""
+    if shard is None:
+        return params
+    out = dict(params)
+    for name, dim in shard.split.items():
+        out[name] = shard.transport.gather([params[name]], dim)
+    return out
+
+
 @register_impl(DenseLayer)
 class DenseImpl(LayerImpl):
     def init(self, conf, gen, dtype):
@@ -70,6 +144,10 @@ class DenseImpl(LayerImpl):
 
     def apply(self, conf, params, state, x, *, train=False, generator=None,
               mask=None):
+        shard = layer_shard(conf)
+        if shard is not None:
+            return _split_dense(conf, params, x, shard, train,
+                                generator), state
         y, _ = _dense_forward(conf, params, x, train, generator)
         return y, state
 
@@ -85,10 +163,12 @@ class OutputImpl(LayerImpl):
 
     def apply(self, conf, params, state, x, *, train=False, generator=None,
               mask=None):
+        params = _whole_head(params, layer_shard(conf))
         y, _ = _dense_forward(conf, params, x, train, generator)
         return y, state
 
     def preactivation(self, conf, params, x, *, train=False, generator=None):
+        params = _whole_head(params, layer_shard(conf))
         _, z = _dense_forward(conf, params, x, train, generator)
         return z
 
@@ -96,6 +176,7 @@ class OutputImpl(LayerImpl):
              mask=None, per_example=False):
         """Scalar training loss; ``per_example=True`` returns one score
         per example [B] instead (reference ScoreExamplesFunction)."""
+        params = _whole_head(params, layer_shard(conf))
         act = (conf.activation or "").lower()
         if self._use_fused_head(conf, params, x, labels, act):
             if conf.dropout:
@@ -165,6 +246,16 @@ class EmbeddingImpl(LayerImpl):
         idx = x.long()
         if idx.ndim == 2 and idx.shape[-1] == 1:
             idx = idx[..., 0]
+        shard = layer_shard(conf)
+        if shard is not None:
+            # W split on the features: each shard looks up its columns,
+            # gathered into the whole rows
+            z = shard.transport.gather([params["W"][idx]], -1)
+            if "b" in params:
+                b = params["b"]
+                z = z + (shard.transport.gather([b], 0)
+                         if "b" in shard.split else b)
+            return get_activation(conf.activation)(z), state
         z = params["W"][idx]
         if "b" in params:
             z = z + params["b"]

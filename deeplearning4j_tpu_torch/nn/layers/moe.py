@@ -30,6 +30,21 @@ takes them from a strictly-lower-triangular product accumulated in
 float32), so a group of more than 256 tokens cannot mis-slot one in
 bf16; the top-k is k passes of argmax-and-mask, the first index winning
 a tie, as in the JAX package (torch.topk makes no such promise).
+
+Expert parallelism (the "expert" placement, parallel/expert_parallel.py;
+ops/shard_scope.py `layer_shard`): We1, be1, We2 and be2 split on their
+leading expert dim, Wg whole. The router and the routing run replicated;
+each shard runs its experts on the tokens routed to them (both paths,
+both dispatches) and weights them by its slice of the gates, and the
+partial outputs sum over the shards (the JAX package's
+`expert_parallel_apply`, the combine's psum). In a monolithic
+data-parallel step (ops/shard_scope.py `DataShard`) the routed path
+routes the global batch's tokens (`global_batch`): the groups, the
+capacity and the aux loss are one device's on the global batch, as
+under GSPMD; each data rank runs the layer over every rank's tokens and
+keeps its rows' outputs. Both functions take the
+split as `experts=(transport, shard params)`; without it the layer is
+one shard holding every expert, the same code.
 """
 
 from __future__ import annotations
@@ -50,6 +65,15 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 )
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
+from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+from deeplearning4j_tpu_torch.ops.shard_scope import (
+    global_batch,
+    global_rows,
+    layer_shard,
+)
+
+# the layer whole: one shard holding every expert
+_WHOLE = InProcessShards(1)
 
 
 @register_config
@@ -107,11 +131,26 @@ def moe_expert_outputs(params, x2d, activation):
     return torch.einsum("neh,eho->neo", h, params["We2"]) + params["be2"]
 
 
-def moe_apply_dense(params, x2d, *, top_k, activation):
-    """Dense-path MoE forward: every expert, gate-masked combine."""
+def _shards(params, experts):
+    """(transport, [(first expert, shard params)]) of a split (or whole)
+    layer."""
+    transport, ps = experts or (_WHOLE, [params])
+    return transport, [(j * p["We1"].shape[0], p)
+                       for j, p in zip(transport.shards, ps)]
+
+
+def moe_apply_dense(params, x2d, *, top_k, activation, experts=None):
+    """Dense-path MoE forward: every expert, gate-masked combine.
+    `experts`: (transport, shard params) of an expert split."""
     gates = moe_gates(x2d, params["Wg"], top_k)            # [N, E]
-    outs = moe_expert_outputs(params, x2d, activation)     # [N, E, O]
-    return torch.einsum("ne,neo->no", gates, outs)
+    transport, shards = _shards(params, experts)
+    parts = []
+    for (lo, p), xj, gj in zip(shards, transport.copy(x2d),
+                               transport.copy(gates)):
+        outs = moe_expert_outputs(p, xj, activation)       # [N, El, O]
+        parts.append(torch.einsum(
+            "ne,neo->no", gj[:, lo:lo + p["We1"].shape[0]], outs))
+    return transport.reduce(parts)
 
 
 def expert_capacity(group_size, top_k, capacity_factor, n_experts):
@@ -147,14 +186,17 @@ def _experts(params, expert_in, act):
 
 
 def moe_apply_routed(params, x2d, *, top_k, capacity_factor, activation,
-                     group_size=0, return_aux=False, dispatch=None):
+                     group_size=0, return_aux=False, dispatch=None,
+                     experts=None):
     """Token-routed MoE forward by capacity-factor dispatch. Returns y
     [N, O] (and the unweighted load-balance aux loss when `return_aux`).
     Within each group, slots are claimed in token order; a token whose
-    expert buffer is full gets a zero output row."""
+    expert buffer is full gets a zero output row. `experts`: (transport,
+    shard params) of an expert split."""
     N, D = x2d.shape
-    E = params["We1"].shape[0]
+    E = params["Wg"].shape[-1]
     O = params["We2"].shape[-1]
+    transport, shards = _shards(params, experts)
     S = group_size or min(N, 256)
     G = -(-N // S)
     pad = G * S - N
@@ -181,10 +223,17 @@ def moe_apply_routed(params, x2d, *, top_k, capacity_factor, activation,
         keep_f = (routed & (pos < C)).to(cdt)              # [G, S, E]
         slots = torch.arange(C, dtype=torch.float32, device=xp.device)
         disp = keep_f[..., None] * (pos[..., None] == slots).to(cdt)
-        combine = disp * gg[..., None].to(cdt)             # [G, S, E, C]
-        expert_in = torch.einsum("gsec,gsd->egcd", disp, xg)
-        out = _experts(params, expert_in, act)
-        y = torch.einsum("gsec,egco->gso", combine, out).reshape(G * S, O)
+        parts = []
+        for (lo, p), xj, gj in zip(shards, transport.copy(xg),
+                                   transport.copy(gg)):
+            hi = lo + p["We1"].shape[0]
+            d = disp[:, :, lo:hi]
+            combine = d * gj[:, :, lo:hi, None].to(cdt)    # [G, S, El, C]
+            expert_in = torch.einsum("gsec,gsd->egcd", d, xj)
+            out = _experts(p, expert_in, act)
+            parts.append(torch.einsum("gsec,egco->gso", combine,
+                                      out).reshape(G * S, O))
+        y = transport.reduce(parts)
         y = y[:N] if pad else y
         return (y, aux) if return_aux else y
 
@@ -208,16 +257,24 @@ def moe_apply_routed(params, x2d, *, top_k, capacity_factor, activation,
     idx_buf[flat_slot[kept_k]] = s_idx[kept_k]
     xg_pad = torch.nn.functional.pad(xg, (0, 0, 0, 1))     # [G, S+1, D]
     rows = torch.arange(G, device=dev)[:, None]
-    expert_in = xg_pad[rows, idx_buf.reshape(G, E * C)]    # [G, E*C, D]
-    expert_in = expert_in.reshape(G, E, C, D).movedim(1, 0)
-    out = _experts(params, expert_in, act)                 # [E, G, C, O]
-    out_pad = torch.nn.functional.pad(
-        out.movedim(0, 1).reshape(G, E * C, O), (0, 0, 0, 1))
-    flat = torch.where(kept_k, e_k * C + slot_k,
-                       torch.full_like(e_k, E * C))        # [G, S, k]
-    picked = out_pad[rows, flat.reshape(G, S * top_k)].reshape(
-        G, S, top_k, O)
-    y = torch.einsum("gsk,gsko->gso", prob_k, picked).reshape(G * S, O)
+    idx3 = idx_buf.reshape(G, E, C)
+    parts = []
+    for (lo, p), xj, pj in zip(shards, transport.copy(xg_pad),
+                               transport.copy(prob_k)):
+        El = p["We1"].shape[0]
+        expert_in = xj[rows, idx3[:, lo:lo + El].reshape(G, El * C)]
+        expert_in = expert_in.reshape(G, El, C, D).movedim(1, 0)
+        out = _experts(p, expert_in, act)                  # [El, G, C, O]
+        out_pad = torch.nn.functional.pad(
+            out.movedim(0, 1).reshape(G, El * C, O), (0, 0, 0, 1))
+        mine = kept_k & (e_k >= lo) & (e_k < lo + El)
+        flat = torch.where(mine, (e_k - lo) * C + slot_k,
+                           torch.full_like(e_k, El * C))   # [G, S, k]
+        picked = out_pad[rows, flat.reshape(G, S * top_k)].reshape(
+            G, S, top_k, O)
+        parts.append(torch.einsum("gsk,gsko->gso", pj,
+                                  picked).reshape(G * S, O))
+    y = transport.reduce(parts)
     y = y[:N] if pad else y
     return (y, aux) if return_aux else y
 
@@ -249,18 +306,27 @@ class MixtureOfExpertsImpl(LayerImpl):
         x2d = x.reshape(-1, shape[-1])
         new_state = {k: v for k, v in state.items() if k != AUX_LOSS_KEY}
         activation = conf.activation or "gelu"
+        shard = layer_shard(conf)
+        experts = None if shard is None else (shard.transport, [params])
         if conf.routing == "dense":
             y = moe_apply_dense(params, x2d, top_k=conf.top_k,
-                                activation=activation)
+                                activation=activation, experts=experts)
         else:
+            # in a monolithic data-parallel step the routing groups, the
+            # capacity and the aux loss are the global batch's (as one
+            # device on it): route every rank's tokens, keep this rank's
+            _, rows = global_rows(x2d.shape)
             want_aux = train and conf.router_aux_weight > 0
             out = moe_apply_routed(
-                params, x2d, top_k=conf.top_k,
+                params, global_batch(x2d), top_k=conf.top_k,
                 capacity_factor=conf.capacity_factor, activation=activation,
-                group_size=conf.router_group_size, return_aux=want_aux)
+                group_size=conf.router_group_size, return_aux=want_aux,
+                experts=experts)
             if want_aux:
                 y, aux = out
                 new_state[AUX_LOSS_KEY] = conf.router_aux_weight * aux
             else:
                 y = out
+            if rows is not None:
+                y = y[rows]
         return y.reshape(*shape[:-1], y.shape[-1]), new_state

@@ -26,9 +26,13 @@ boundary). `remat` recomputes each layer's activations in the backward
 (nn/training.remat_apply). `rnn_time_step` streams a sequence through
 the recurrent layers with carries kept between calls. `fit` rides the
 pipelined input loader (data/pipeline.iter_prefetched). `set_mesh`
-(parallel/placement.py) takes the "data" role: each rank steps on its
+(parallel/placement.py) takes the "data" role — each rank steps on its
 rows of the global batch, and `output` / `evaluate` shard the batch
-over the data axis; the other roles wait for ROADMAP Queue A item 7.
+over the data axis — ZeRO-1, and the "model" and "expert" roles where
+the placement rules name its layers ("seq" needs the graph container,
+"pipe" waits for ROADMAP Queue A item 7). A transformer stack decodes
+incrementally (`incremental_decode_fn`, `prefill_fn`, `verify_decode_fn`,
+`init_kv_cache`; nn/decode.py), so `GenerationEngine` serves it.
 `resume_from` reads the port's own checkpoint format
 (util/checkpoint.py); `inference_fn` is the forward the predict engine's
 replicas call (serving/engine.py).
@@ -55,7 +59,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 from deeplearning4j_tpu_torch.nn.conf.neural_net_configuration import (
     MultiLayerConfiguration,
 )
-from deeplearning4j_tpu_torch.nn.graph import DTYPES, cast_params
+from deeplearning4j_tpu_torch.nn.graph import DTYPES, cast_params, pre_process
 from deeplearning4j_tpu_torch.nn.layers import (
     get_impl,
     l1_l2_penalty,
@@ -74,6 +78,8 @@ from deeplearning4j_tpu_torch.nn.training import (
 )
 from deeplearning4j_tpu_torch.nn.updater import build_optimizer
 from deeplearning4j_tpu_torch.parallel.placement import (
+    canonical_opt_state,
+    canonical_params,
     configure_mesh,
     local_dataset,
     mesh_axis,
@@ -104,6 +110,8 @@ class MultiLayerNetwork(LazyScore):
         self._mesh = None
         self._mesh_axes = None
         self._overlap_plan = None
+        self._split_plan = None  # the "model" / "expert" placement
+        self._zero1 = None
 
     @property
     def compute_dtype(self):
@@ -170,7 +178,7 @@ class MultiLayerNetwork(LazyScore):
                               self.impls[i])
             proc = self.conf.get_preprocessor(i)
             if proc is not None:
-                x = proc.pre_process(x)
+                x = pre_process(proc, x, train, generator)
             p = params.get(name, {})
             if cdtype != self.param_dtype:
                 p = cast_params(p, cdtype)
@@ -220,7 +228,7 @@ class MultiLayerNetwork(LazyScore):
             to_layer=n - 1)
         proc = self.conf.get_preprocessor(n - 1)
         if proc is not None:
-            h = proc.pre_process(h)
+            h = pre_process(proc, h, train, generator)
         mask = lmask if lmask is not None else (
             fmask if isinstance(out_conf, RnnOutputLayer) else None)
         out_name = self.layer_names[-1]
@@ -271,7 +279,7 @@ class MultiLayerNetwork(LazyScore):
             self._train_step = make_train_step(
                 self._loss, self.tx, self._layer_confs_by_name(),
                 mesh=self._mesh, data_axis=mesh_axis(self, "data"),
-                overlap=self._overlap_plan)
+                overlap=self._overlap_plan, zero1=self._zero1)
         return self._train_step
 
     @staticmethod
@@ -441,10 +449,12 @@ class MultiLayerNetwork(LazyScore):
     def set_mesh(self, mesh, zero1: bool = False, axes=None,
                  n_microbatches=None, tp_rules=None, overlap=None):
         """Map parallelism roles to mesh axis names
-        (parallel/placement.configure_mesh): "data" here ("seq" needs
-        the graph container); `overlap` (True / bucket bytes / a
-        BucketPlan) reduces the gradients bucket by bucket during the
-        backward. set_mesh(None) clears the mesh. Returns the net."""
+        (parallel/placement.configure_mesh): "data", "model" and
+        "expert" here ("seq" needs the graph container); `zero1` splits
+        the optimizer state over "data"; `overlap` (True / bucket bytes
+        / a BucketPlan) reduces the gradients bucket by bucket during
+        the backward. set_mesh(None) clears the mesh. Returns the
+        net."""
         return configure_mesh(self, mesh, zero1=zero1, axes=axes,
                               n_microbatches=n_microbatches,
                               tp_rules=tp_rules, overlap=overlap)
@@ -505,6 +515,42 @@ class MultiLayerNetwork(LazyScore):
             y, _ = self._forward(params, state, x, train=False, mask=mask)
             return y
         return fwd
+
+    def incremental_decode_fn(self, kv_dtype: str = "f32",
+                              page_size: int = 16):
+        """The decode step ``(params, state, cache, token, pos) -> (probs,
+        cache)`` over the KV cache of a transformer stack
+        (nn/decode.make_decode_fn; the same contract as
+        ComputationGraph.incremental_decode_fn): what `rnn_time_step`
+        refuses for attention layers. kv_dtype="int8" reads and writes
+        the quantized paged cache."""
+        from deeplearning4j_tpu_torch.nn.decode import make_decode_fn
+
+        return make_decode_fn(self, kv_dtype, page_size)
+
+    def prefill_fn(self, kv_dtype: str = "f32", page_size: int = 16):
+        """The chunked-prefill step ``(params, state, cache, tokens, kmask,
+        rows, start, last_idx) -> (probs_last, cache)``
+        (nn/decode.make_prefill_fn)."""
+        from deeplearning4j_tpu_torch.nn.decode import make_prefill_fn
+
+        return make_prefill_fn(self, kv_dtype, page_size)
+
+    def verify_decode_fn(self, kv_dtype: str = "f32", page_size: int = 16):
+        """The speculative verification step ``(params, state, cache,
+        tokens [B, K], pos) -> (probs [B, K, V], cache)``
+        (nn/decode.make_verify_fn)."""
+        from deeplearning4j_tpu_torch.nn.decode import make_verify_fn
+
+        return make_verify_fn(self, kv_dtype, page_size)
+
+    def init_kv_cache(self, batch: int, capacity: int,
+                      kv_dtype: str = "f32", page_size: int = 16):
+        """Zeroed decode cache for `batch` rows of `capacity` key slots
+        (nn/decode.init_cache)."""
+        from deeplearning4j_tpu_torch.nn.decode import init_cache
+
+        return init_cache(self, batch, capacity, kv_dtype, page_size)
 
     @torch.no_grad()
     def score(self, dataset: DataSet = None, training: bool = False):
@@ -596,18 +642,32 @@ class MultiLayerNetwork(LazyScore):
 
     # -------------------------------------------------------- params plumbing
     def num_params(self) -> int:
+        if self._split_plan is not None:
+            return self._split_plan.num_params(self.params)
         return tree.num_params(self.params)
+
+    def canonical_params(self):
+        """The params whole in the JAX layout, under a "model" / "expert"
+        placement too (parallel/placement.canonical_params; every rank
+        calls it)."""
+        return canonical_params(self)
+
+    def canonical_opt_state(self):
+        """The optimizer state whole (placement.canonical_opt_state)."""
+        return canonical_opt_state(self)
 
     def params_flat(self) -> np.ndarray:
         """The flat parameter vector (reference params()), in the JAX
         package's order (keys sorted at every level), as f32 (bf16
-        widens exactly) or f64 numpy."""
-        return tree.params_flat(self.params)
+        widens exactly) or f64 numpy; whole under a placement."""
+        return tree.params_flat(self.canonical_params())
 
     def set_params_flat(self, flat):
         """Set every param from a flat vector in `params_flat`'s order,
         each in its own dtype."""
-        self.params = tree.set_params_flat(self.params, flat)
+        params = tree.set_params_flat(self.canonical_params(), flat)
+        split = self._split_plan
+        self.params = params if split is None else split.local(params)
 
     def clone(self) -> "MultiLayerNetwork":
         """A new net of a copy of this configuration with copies of its
@@ -615,8 +675,8 @@ class MultiLayerNetwork(LazyScore):
         net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device)
         net.init()
         if self.params is not None:
-            net.params = tree.clone(self.params)
+            net.params = tree.clone(self.canonical_params())
             net.state = tree.clone(self.state)
-            net.opt_state = copy.deepcopy(self.opt_state)
+            net.opt_state = copy.deepcopy(self.canonical_opt_state())
         return net
 

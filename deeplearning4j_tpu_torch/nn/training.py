@@ -24,8 +24,20 @@ The overlap arm (`overlap=BucketPlan`) is the JAX package's per-shard
 step: local loss and statistics, the gradients mean-reduced bucket by
 bucket from gradient hooks while the backward runs
 (parallel/overlap.BucketReducer), the loss and the float layer state
-mean-reduced after. ZeRO-1 and pipelining wait for ROADMAP Queue A
-item 7.
+mean-reduced after.
+
+ZeRO-1 (`Zero1`, `set_mesh(..., zero1=True)`; arXiv:2004.13336 as the
+JAX package's `zero1_opt_shardings`): an optimizer-state leaf whose
+leading dim is at least the data axis's size n and divisible by it is
+split over the axis, each rank keeping 1/n of its rows. The monolithic
+arm then reduce-scatters those leaves' gradients (one flat collective),
+updates its rows of each with its rows of the state, and all-gathers the
+new params; the overlap arm takes its rows of the bucket-reduced
+gradients. The other leaves are all-reduced and updated whole, as
+before. Tensor and expert parallelism need nothing here: the split
+layers run their collectives themselves (ops/shard_scope.py), and the
+norms of split leaves sum over their groups (nn/updater.py). Pipelining
+waits for ROADMAP Queue A item 7.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.nn.updater import (
     apply_updates,
     build_optimizer,
+    map_param_state,
     normalize_gradients,
 )
 
@@ -187,8 +200,125 @@ def loss_and_grads(loss_fn, params, state, generator, batch,
     return loss, aux, grads
 
 
+def zero1_opt_shardings(params, mesh, axis: str = "data"):
+    """The leaves ZeRO-1 splits over `axis` (the JAX package's rule on
+    the optimizer state, whose leaves mirror the params): the paths of
+    the floating leaves whose leading dim is at least the axis's size
+    and divisible by it; every other leaf stays whole."""
+    n = mesh.axis_size(axis)
+    return [path for path, t in tree.leaves(params)
+            if t.is_floating_point() and t.ndim >= 1
+            and t.shape[0] >= n and t.shape[0] % n == 0]
+
+
+class Zero1:
+    """A ZeRO-1 split of a net's optimizer state over the data axis
+    `axis` of `mesh` (module docstring): `paths` the split leaves, each
+    rank holding rows [index * s0/n, (index + 1) * s0/n) of their
+    moments."""
+
+    def __init__(self, params, mesh, axis: str = "data"):
+        self.group = mesh.group(axis)
+        self.n = mesh.axis_size(axis)
+        self.index = mesh.axis_index(axis)
+        self.paths = zero1_opt_shardings(params, mesh, axis)
+        self._split = set(self.paths)
+
+    def rows(self, t):
+        w = t.shape[0] // self.n
+        return t[self.index * w:(self.index + 1) * w]
+
+    def local_state(self, opt_state):
+        """A whole optimizer state cut to this rank's rows."""
+        return map_param_state(opt_state, lambda path, t: self.rows(
+            t).clone() if path in self._split else t)
+
+    def whole_state(self, opt_state):
+        """The whole optimizer state, gathered (every rank calls it)."""
+        from deeplearning4j_tpu_torch.parallel.overlap import all_gather
+
+        def gather(path, t):
+            if path not in self._split:
+                return t
+            out = t.new_empty((t.shape[0] * self.n,) + tuple(t.shape[1:]))
+            all_gather(out, t.contiguous(), self.group)
+            return out
+
+        return map_param_state(opt_state, gather)
+
+    def groups(self):
+        """{leaf path: the data group}: LAMB's and the gradient
+        normalizations' norms of a split leaf sum over it."""
+        return {path: self.group for path in self.paths}
+
+    def reduce(self, grads):
+        """The mean gradients over the data group: this rank's rows of
+        each split leaf (one reduce-scatter of them all, laid out rank by
+        rank), the other leaves whole (one all-reduce)."""
+        from deeplearning4j_tpu_torch.parallel.overlap import (
+            reduce_gradients,
+            reduce_scatter,
+        )
+
+        whole = {p: g for p, g in tree.leaves(grads)
+                 if p not in self._split and g.is_floating_point()}
+        out = reduce_gradients(tree.from_leaves(whole.items()),
+                               [(self.group, self.n)]) if whole else {}
+        gs = [tree.get(grads, p) for p in self.paths]
+        if gs:
+            cols = [g.reshape(self.n, -1).to(torch.float32) for g in gs]
+            flat = torch.cat(cols, dim=1).reshape(-1)
+            mine = flat.new_empty(flat.numel() // self.n)
+            reduce_scatter(mine, flat, self.group)
+            mine = mine / self.n
+            off = 0
+            for p, g, c in zip(self.paths, gs, cols):
+                w = c.shape[1]
+                rows = (g.shape[0] // self.n,) + tuple(g.shape[1:])
+                tree.put(out, p, mine[off:off + w].reshape(rows).to(g.dtype))
+                off += w
+        for layer in grads:
+            out.setdefault(layer, {})
+        return out
+
+    def local_grads(self, grads):
+        """This rank's rows of already reduced gradients (the overlap
+        arm's)."""
+        out = tree.tree_map(lambda t: t, grads)
+        for p in self.paths:
+            tree.put(out, p, self.rows(tree.get(grads, p)))
+        return out
+
+    def views(self, params):
+        """`params` with each split leaf replaced by the view of this
+        rank's rows (an update of the view writes the param)."""
+        out = tree.tree_map(lambda t: t, params)
+        for p in self.paths:
+            tree.put(out, p, self.rows(tree.get(params, p)))
+        return out
+
+    @torch.no_grad()
+    def gather_params(self, params):
+        """All-gather every split leaf's updated rows into the whole
+        param, in place (one collective)."""
+        from deeplearning4j_tpu_torch.parallel.overlap import all_gather
+
+        if not self.paths:
+            return
+        ps = [tree.get(params, p) for p in self.paths]
+        mine = torch.cat([self.rows(t).reshape(-1) for t in ps])
+        every = mine.new_empty(mine.numel() * self.n)
+        all_gather(every, mine, self.group)
+        every = every.reshape(self.n, -1)
+        off = 0
+        for t in ps:
+            w = t.numel() // self.n
+            t.copy_(every[:, off:off + w].reshape(t.shape))
+            off += w
+
+
 def make_train_step(loss_fn, tx, layer_confs_by_name, mesh=None,
-                    data_axis="data", overlap=None):
+                    data_axis="data", overlap=None, zero1=None):
     """loss_fn(params, state, generator, batch) -> (loss, (new_state,
     extras)).
 
@@ -200,21 +330,30 @@ def make_train_step(loss_fn, tx, layer_confs_by_name, mesh=None,
     mesh: a parallel/mesh.Mesh with `data_axis` — batch holds this
     rank's rows and the step is the data-parallel one (module
     docstring); overlap: a parallel/overlap.BucketPlan for the bucketed
-    arm (which does not thread TBPTT carries: extras is empty)."""
+    arm (which does not thread TBPTT carries: extras is empty); zero1: a
+    `Zero1` split of the optimizer state over the data axis."""
+    groups = getattr(tx, "split_groups", None)
 
     def update(params, opt_state, grads):
-        grads = normalize_gradients(grads, layer_confs_by_name)
+        grads = normalize_gradients(grads, layer_confs_by_name, groups)
         updates, opt_state = tx.update(grads, opt_state, params)
         apply_updates(params, updates)
+        return opt_state
+
+    def update_rows(params, opt_state, grads):
+        # ZeRO-1: this rank's rows of the split leaves, then the
+        # all-gather of the new params
+        opt_state = update(zero1.views(params), opt_state, grads)
+        zero1.gather_params(params)
         return opt_state
 
     def split(aux):
         return aux if isinstance(aux, tuple) else (aux, {})
 
     if mesh is None or data_axis not in mesh.shape:
-        if overlap is not None:
-            raise ValueError("overlap=BucketPlan requires a mesh with the "
-                             f"data axis {data_axis!r}")
+        if overlap is not None or zero1 is not None:
+            raise ValueError("overlap=BucketPlan and zero1 require a mesh "
+                             f"with the data axis {data_axis!r}")
 
         def step(params, opt_state, state, generator, batch):
             loss, aux, grads = loss_and_grads(loss_fn, params, state,
@@ -250,8 +389,12 @@ def make_train_step(loss_fn, tx, layer_confs_by_name, mesh=None,
                 loss, aux, grads = loss_and_grads(loss_fn, params, state,
                                                   generator, batch)
             new_state, extras = split(aux)
-            grads = reduce_gradients(grads, [(group, n)])
-            opt_state = update(params, opt_state, grads)
+            if zero1 is None:
+                grads = reduce_gradients(grads, [(group, n)])
+                opt_state = update(params, opt_state, grads)
+            else:
+                opt_state = update_rows(params, opt_state,
+                                        zero1.reduce(grads))
             return params, opt_state, new_state, mean(loss.detach()), extras
 
         return step
@@ -266,7 +409,11 @@ def make_train_step(loss_fn, tx, layer_confs_by_name, mesh=None,
                                           batch, reducer=reducer)
         new_state, _extras = split(aux)
         new_state = pmean_float_leaves(new_state, group, n)
-        opt_state = update(params, opt_state, grads)
+        if zero1 is None:
+            opt_state = update(params, opt_state, grads)
+        else:
+            opt_state = update_rows(params, opt_state,
+                                    zero1.local_grads(grads))
         return params, opt_state, new_state, mean(loss.detach()), {}
 
     return step

@@ -111,10 +111,35 @@ def _bias_correction(decay, count):
                                             np.float32(count)))
 
 
+def _sq_sum(items):
+    """The sum of squares over [(tensor, group)]: a tensor split over a
+    process group (a tensor- or expert-parallel shard, a ZeRO-1 slice)
+    adds its shards' squares summed over the group, one all-reduce a
+    group; a whole tensor (group None) adds its own once."""
+    import torch.distributed as dist
+
+    total = None
+    by_group = {}
+    for t, group in items:
+        sq = (t.float() ** 2).sum()
+        if group is None:
+            total = sq if total is None else total + sq
+        else:
+            key = id(group)
+            prev = by_group.get(key, (group, None))[1]
+            by_group[key] = (group, sq if prev is None else prev + sq)
+    for group, sq in by_group.values():
+        sq = sq.clone()
+        dist.all_reduce(sq, group=group)
+        total = sq if total is None else total + sq
+    return torch.zeros(()) if total is None else total
+
+
 class _Rule:
     """One update rule over a list of f32 tensors: optax's transform for
     it followed by its scale by the (scheduled) negative learning
-    rate."""
+    rate. `groups` (one per tensor, None for a whole one) are the process
+    groups a tensor is split over, which LAMB's norms sum over."""
 
     def __init__(self, kind, conf, schedule):
         self.kind = kind
@@ -139,8 +164,9 @@ class _Rule:
             state["e_g"], state["e_x"] = zeros(), zeros()
         return state
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, groups=None):
         c = self.conf
+        groups = groups or [None] * len(grads)
         count = state["count"]
         lr = self.schedule(count)
         k = self.kind
@@ -181,12 +207,17 @@ class _Rule:
             bc1 = _bias_correction(b1, count + 1)
             bc2 = _bias_correction(b2, count + 1)
             ups = []
-            for g, mu, nu, p in zip(grads, state["mu"], state["nu"], params):
+            for g, mu, nu, p, grp in zip(grads, state["mu"], state["nu"],
+                                         params, groups):
                 mu.mul_(b1).add_(g, alpha=1.0 - b1)
                 nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
                 u = (mu / bc1) / ((nu / bc2).sqrt() + eps)
-                pn = torch.linalg.vector_norm(p.float())
-                un = torch.linalg.vector_norm(u.float())
+                if grp is None:
+                    pn = torch.linalg.vector_norm(p.float())
+                    un = torch.linalg.vector_norm(u.float())
+                else:
+                    pn = torch.sqrt(_sq_sum([(p, grp)]))
+                    un = torch.sqrt(_sq_sum([(u, grp)]))
                 ratio = torch.where((pn == 0) | (un == 0),
                                     torch.ones_like(pn), pn / un)
                 ups.append(u * ratio.to(u.dtype) * -lr)
@@ -232,11 +263,15 @@ def _single_transform(conf, updater, lr_sched):
 
 class Optimizer:
     """A rule per label, a label per layer (optax.multi_transform keyed
-    on the layer name). state: {label: {"layers": [...], rule state}}."""
+    on the layer name). state: {label: {"keys": [leaf path], "count",
+    rule state: a tensor a key}}. `split_groups` {leaf path: process
+    group} names the leaves a placement split (parallel/), whose norms
+    sum over their group."""
 
     def __init__(self, rules, labels):
         self.rules = rules          # {label: _Rule}
         self.labels = labels        # {layer: label}
+        self.split_groups = {}
 
     def _label(self, layer):
         return self.labels.get(layer, "__default__")
@@ -263,9 +298,26 @@ class Optimizer:
             keys = rule_state["keys"]
             ups = self.rules[label].update(
                 [tree.get(grads, k) for k in keys], rule_state,
-                [tree.get(params, k) for k in keys])
+                [tree.get(params, k) for k in keys],
+                [self.split_groups.get(tuple(k)) for k in keys])
             pairs.extend(zip(keys, ups))
         return tree.from_leaves(pairs), state
+
+
+def map_param_state(opt_state, fn):
+    """A copy of an Optimizer state with `fn(leaf path, tensor)` applied
+    to each per-leaf tensor (the moments; counts and keys pass)."""
+    out = {}
+    for label, st in opt_state.items():
+        keys = st["keys"]
+        new = {}
+        for name, v in st.items():
+            if (isinstance(v, list) and len(v) == len(keys)
+                    and all(isinstance(t, torch.Tensor) for t in v)):
+                v = [fn(tuple(k), t) for k, t in zip(keys, v)]
+            new[name] = v
+        out[label] = new
+    return out
 
 
 @torch.no_grad()
@@ -301,36 +353,47 @@ def build_optimizer(conf, layer_confs):
     return Optimizer(rules, labels)
 
 
-def _norm(tensors):
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors) + 1e-20)
+def _norm(items):
+    """The gradient norm of [(tensor, group)] (`_sq_sum`), floored as
+    the JAX package's."""
+    return torch.sqrt(_sq_sum(items) + 1e-20)
 
 
-def normalize_gradients(grads, layer_confs):
+def normalize_gradients(grads, layer_confs, split_groups=None):
     """Apply per-layer gradient normalization (reference BaseUpdater
     preApply / GradientNormalization.java). grads: {layer_name: nested
-    dict of g}; returns a new dict (the input tensors are not
-    modified)."""
+    dict of g}; returns a new dict (the input tensors are not modified).
+    `split_groups` {leaf path: process group}: the leaves a placement
+    split, whose norms are those of the whole leaves."""
+    split_groups = split_groups or {}
     out = {}
     for name, g in grads.items():
         lc = layer_confs.get(name)
         gn = getattr(lc, "gradient_normalization", None) if lc else None
         thr = getattr(lc, "gradient_normalization_threshold", 1.0) if lc else 1.0
-        every = [x for _, x in tree.leaves(g)]
+        every = [(x, split_groups.get((name,) + p))
+                 for p, x in tree.leaves(g)]
+
+        def per_leaf(fn):
+            return tree.from_leaves(
+                (p, fn(x, split_groups.get((name,) + p)))
+                for p, x in tree.leaves(g)) if every else g
+
         if gn in (None, GradientNormalization.NONE, "none"):
             out[name] = g
         elif gn == GradientNormalization.RENORMALIZE_L2_PER_LAYER:
             n = _norm(every)
             out[name] = tree.tree_map(lambda x: x / n, g)
         elif gn == GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE:
-            out[name] = tree.tree_map(lambda x: x / _norm([x]), g)
+            out[name] = per_leaf(lambda x, grp: x / _norm([(x, grp)]))
         elif gn == GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE:
             out[name] = tree.tree_map(lambda x: x.clamp(-thr, thr), g)
         elif gn == GradientNormalization.CLIP_L2_PER_LAYER:
             scale = (thr / _norm(every)).clamp_max(1.0)
             out[name] = tree.tree_map(lambda x: x * scale, g)
         elif gn == GradientNormalization.CLIP_L2_PER_PARAM_TYPE:
-            out[name] = tree.tree_map(
-                lambda x: x * (thr / _norm([x])).clamp_max(1.0), g)
+            out[name] = per_leaf(
+                lambda x, grp: x * (thr / _norm([(x, grp)])).clamp_max(1.0))
         else:
             raise ValueError(f"Unknown gradient normalization {gn}")
     return out

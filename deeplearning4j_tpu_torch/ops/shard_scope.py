@@ -12,11 +12,22 @@ forward which shard it is by entering `sharded(...)`:
   summed over the data group, the masked loss divides by the global mask
   count, input dropout draws the global batch's mask and keeps this
   shard's rows, and the flash kernels' dropout hashes global b*H + h
-  slices; so the step equals one device on the global batch. A shard of
-  one rank takes the same path, its collectives over a group of one.
+  slices, and a capacity-routed MoE layer routes the global batch's
+  tokens (`global_batch`); so the step equals one device on the global
+  batch. A shard of one rank takes the same path, its collectives over a
+  group of one.
 - `SeqShard`: the sequence-parallel step. The attention layer runs the
   ring over `transport` and the positional encoding offsets by the
   shard's global position.
+- `ModelShard`: a layer whose params a "model" or "expert" placement
+  split (parallel/tensor_parallel.py, parallel/expert_parallel.py): the
+  transport of its collectives (ops/shard_comm.py) and which param is
+  split on which dim. Unlike the two above it is not a step's context
+  but the placement's, kept from `set_mesh` to the next: `place(conf,
+  shard)` registers it for the layer conf, `layer_shard(conf)` is what
+  the layer reads in every forward (training, inference, the remat
+  recompute), `unplace(conf)` ends it. A layer no placement registered
+  runs whole.
 
 The context is process-wide, not per thread: the autograd engine
 recomputes a remat block's forward on its own thread, inside the step,
@@ -28,6 +39,7 @@ the functions that use it.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -61,7 +73,43 @@ class SeqShard:
     ring_generator: Any = None
 
 
+@dataclass(frozen=True)
+class ModelShard:
+    """A layer split over the shards of a mesh axis (a "model" or
+    "expert" role): its collectives go through `transport`
+    (ops/shard_comm.py), and `split` maps each split param's name to the
+    dim it is split on (the rest are whole)."""
+
+    transport: Any
+    split: Any
+
+
 _active = {"data": None, "seq": None}
+# id(layer conf) -> (a weak reference to the conf, its ModelShard)
+_placed = {}
+
+
+def place(conf, shard: ModelShard):
+    """Register `shard` as the split of the layer `conf`."""
+    _placed[id(conf)] = (weakref.ref(conf), shard)
+
+
+def unplace(conf):
+    """End the split of the layer `conf` (no-op when it has none)."""
+    _placed.pop(id(conf), None)
+
+
+def layer_shard(conf) -> Optional[ModelShard]:
+    """The ModelShard a placement registered for the layer `conf`, or
+    None: the layer runs whole."""
+    entry = _placed.get(id(conf))
+    if entry is None:
+        return None
+    ref, shard = entry
+    if ref() is not conf:  # a dead conf whose id was reused
+        del _placed[id(conf)]
+        return None
+    return shard
 
 
 @contextlib.contextmanager
@@ -122,6 +170,19 @@ def global_rows(shape):
     rows = shape[0]
     return ((rows * d.size,) + tuple(shape[1:]),
             slice(d.index * rows, (d.index + 1) * rows))
+
+
+def global_batch(t):
+    """The global batch of a batch-major tensor under a data shard:
+    every rank's rows, in rank order, differentiable (each rank's rows
+    collect the gradients of every rank's loss); `t` itself outside
+    one."""
+    d = data_shard()
+    if d is None:
+        return t
+    from deeplearning4j_tpu_torch.ops.shard_comm import gather_rows
+
+    return gather_rows(t, d.group, d.size)
 
 
 def fold_bh_offset(seed, BH: int):

@@ -1,10 +1,14 @@
 """Distributed training (JAX counterpart deeplearning4j_tpu/parallel):
-data and sequence parallelism, one process per device under
-`torch.distributed` (NCCL on CUDA, gloo on the CPU).
+data, sequence, tensor and expert parallelism and ZeRO-1, one process
+per device under `torch.distributed` (NCCL on CUDA, gloo on the CPU).
 
 - `mesh`: named axes over the ranks (`make_mesh`, `shard_batch`,
   `replicate`, `spans_processes`);
-- `placement`: `set_mesh`'s body for the roles "data" and "seq";
+- `placement`: `set_mesh`'s body for the roles "data", "seq", "model"
+  and "expert" and for ZeRO-1;
+- `tensor_parallel`: the placement rules and `SplitPlan`, which cuts a
+  net's params to this rank's shards and gathers them whole;
+- `expert_parallel`: the MoE layer with its experts split;
 - `overlap`: the bucketed gradient all-reduce that overlaps the
   backward;
 - `data_parallel`: `DataParallelTrainer` (monolithic and overlap arms)
@@ -13,8 +17,9 @@ data and sequence parallelism, one process per device under
   or in one process;
 - `sequence_parallel`: `make_sp_train_step`, `SequenceParallelTrainer`.
 
-The shard a mesh step's forward runs as is `ops/shard_scope.py`, which
-the layers read. Tensor, expert and pipeline parallelism, ZeRO-1 and
+The shard a mesh step's forward runs as, and the split of each placed
+layer, are `ops/shard_scope.py`, which the layers read; the split
+layers' collectives are `ops/shard_comm.py`. Pipeline parallelism and
 placement search wait for the rest of ROADMAP Queue A item 7.
 """
 

@@ -10,8 +10,11 @@ that share every other coordinate. Axis conventions:
 
 - "data": data parallelism (the gradient all-reduce);
 - "seq":  sequence parallelism (ring attention);
-- "model", "expert", "pipe": the JAX package's other roles, which the
-  port's `set_mesh` does not take yet (ROADMAP Queue A item 7).
+- "model": tensor parallelism (Megatron's split of attention heads and
+  feed-forward units);
+- "expert": expert parallelism (a MoE layer's experts split);
+- "pipe": pipeline parallelism, which the port's `set_mesh` does not
+  take yet (ROADMAP Queue A item 7).
 
 `make_mesh` brings the process group up itself when it is not yet
 (`distributed.bootstrap.initialize`: from the launcher's env contract,

@@ -15,7 +15,9 @@ still computes.
 and sizes — identical on every rank by construction, and equal to the
 JAX package's plan of the same tree (`summary()`), since the port's
 params nest like the JAX package's and flatten in its order (sorted
-keys).
+keys). A plan of mode "psum_scatter" reduces each bucket as a
+reduce-scatter then an all-gather (the same sums, the decomposed
+collective); a ZeRO-1 step takes this rank's rows of the result.
 """
 
 from __future__ import annotations
@@ -75,6 +77,27 @@ class BucketPlan:
             "buckets": [{"index": b.index, "n_leaves": len(b.paths),
                          "bytes": b.n_bytes} for b in self.buckets],
         }
+
+
+def reduce_scatter(out, inp, group, async_op=False):
+    """`out` = this rank's 1/n of the sum of `inp` over `group`
+    (torch.distributed's reduce-scatter into one tensor, by whichever
+    name this torch gives it)."""
+    import torch.distributed as dist
+
+    fn = (getattr(dist, "reduce_scatter_single", None)
+          or dist.reduce_scatter_tensor)
+    return fn(out, inp, group=group, async_op=async_op)
+
+
+def all_gather(out, inp, group, async_op=False):
+    """`out` = every rank's `inp` concatenated in rank order (the
+    all-gather into one tensor)."""
+    import torch.distributed as dist
+
+    fn = (getattr(dist, "all_gather_single", None)
+          or dist.all_gather_into_tensor)
+    return fn(out, inp, group=group, async_op=async_op)
 
 
 def _keystr(path) -> str:
@@ -149,7 +172,8 @@ class BucketReducer:
     hook on each live leaf (in the plan's flatten order); a hook stores
     its leaf's gradient and launches, in plan order, every bucket whose
     leaves all have theirs, as one flat asynchronous all-reduce over
-    `group`. `finish(grads)` takes the backward's gradients (None where
+    `group` (mode "psum_scatter": a reduce-scatter, whose all-gather
+    `finish` runs). `finish(grads)` takes the backward's gradients (None where
     the loss does not reach a leaf: zeros then, filled only now, so no
     launch races the fill), launches what is left, waits, and returns
     the reduced (mean over the group when `mean`) gradients in the
@@ -158,11 +182,6 @@ class BucketReducer:
 
     def __init__(self, plan: BucketPlan, group, size: int, *,
                  mean: bool = True):
-        if plan.mode != "psum":
-            raise NotImplementedError(
-                "the reduce-scatter bucket mode (psum_scatter) waits for "
-                "ZeRO-1 (ROADMAP Queue A item 7; gloo has no "
-                "reduce-scatter)")
         import torch
 
         self.plan = plan
@@ -205,9 +224,18 @@ class BucketReducer:
                 return
             vec = torch.cat([self._grads[i].reshape(-1).to(self._dtype)
                              for i in ids])
-            self._vecs[self._next] = vec
-            self._works[self._next] = dist.all_reduce(
-                vec, group=self.group, async_op=True)
+            if self.plan.mode == "psum_scatter":
+                pad = (-vec.numel()) % self.size
+                if pad:
+                    vec = torch.cat([vec, vec.new_zeros(pad)])
+                part = vec.new_empty(vec.numel() // self.size)
+                self._works[self._next] = reduce_scatter(
+                    part, vec, self.group, async_op=True)
+                self._vecs[self._next] = part
+            else:
+                self._works[self._next] = dist.all_reduce(
+                    vec, group=self.group, async_op=True)
+                self._vecs[self._next] = vec
             self._next += 1
 
     def finish(self, grads):
@@ -226,6 +254,10 @@ class BucketReducer:
         out = [None] * len(self._leaves)
         for ids, vec, work in zip(self._ids, self._vecs, self._works):
             work.wait()
+            if self.plan.mode == "psum_scatter":
+                part = vec
+                vec = part.new_empty(part.numel() * self.size)
+                all_gather(vec, part, self.group)
             if self.mean:
                 vec = vec / self.size
             off = 0

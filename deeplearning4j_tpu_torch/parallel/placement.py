@@ -7,6 +7,9 @@ Roles map to mesh axis names:
     net.set_mesh(mesh, axes={"data": "data"})              # DP
     net.set_mesh(mesh, axes={"seq": "seq"})                # SP
     net.set_mesh(mesh, axes={"data": "data", "seq": "seq"})  # DP x SP
+    net.set_mesh(mesh, axes={"data": "data", "model": "model"})  # DP x TP
+    net.set_mesh(mesh, axes={"data": "data", "expert": "expert"})  # DP x EP
+    net.set_mesh(mesh, zero1=True)                         # DP, ZeRO-1
     net.set_mesh(mesh, overlap=True | bucket_bytes | BucketPlan)
 
 - "data": each rank steps on its contiguous rows of the global batch
@@ -18,11 +21,25 @@ Roles map to mesh axis names:
 - "seq": time shards over the axis — ring attention and offset
   positional encodings (parallel/sequence_parallel.py). Needs a conf
   built with seq_parallel_axis; composes with "data".
+- "model": Megatron tensor parallelism by the placement rules
+  (tensor_parallel.TRANSFORMER_TP_RULES, or `tp_rules` first): each
+  rank keeps its slice of the split params and the split layers run
+  their collectives over the axis (parallel/tensor_parallel.py).
+- "expert": the MoE layers' experts split over the axis
+  (tensor_parallel.MOE_EP_RULES; parallel/expert_parallel.py).
+  "model" and "expert" compose with "data" and with each other: the
+  gradients are mean-reduced over the data axis only.
+- `zero1=True`: the optimizer state split over "data" (ZeRO-1,
+  nn/training.Zero1); composes with "data" only.
 
-The roles "model", "expert" and "pipe", ZeRO-1 and a
-`reshard.Placement` raise NotImplementedError: they wait for the rest of
-ROADMAP Queue A item 7. `set_mesh(None)` clears the mesh and returns the
-net.
+A placed net hands back canonical params — whole leaves in the JAX
+layout — through `canonical_params` / `canonical_opt_state` (and so
+`params_flat`, checkpoints and `weights_io.params_to_numpy`), and
+`set_mesh(None)` or a new `set_mesh` puts them back whole first. The
+"pipe" role and `n_microbatches`, "seq" with "model" or "expert", and a
+`reshard.Placement` raise NotImplementedError: they wait for the rest
+of ROADMAP Queue A item 7. `set_mesh(None)` clears the mesh and returns
+the net.
 """
 
 from __future__ import annotations
@@ -32,7 +49,7 @@ import numpy as np
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, local_slice
 
 ROLES = ("data", "model", "pipe", "expert", "seq")
-_PORTED_ROLES = ("data", "seq")
+_PORTED_ROLES = ("data", "seq", "model", "expert")
 
 
 def not_ported(what: str):
@@ -106,6 +123,14 @@ def _check_roles(net, mesh, axes):
                 f"(mesh has {mesh.axis_names})")
     if "seq" not in axes:
         return
+    if "expert" in axes:
+        raise ValueError(
+            "the 'seq' axis composes with 'data', 'model' and 'pipe' "
+            "(time-sharded ring attention runs manual inside the SP step; "
+            "'expert' needs a different schedule)")
+    if "model" in axes:
+        not_ported("the 'seq' axis with the 'model' role (ring attention "
+                   "over tensor-parallel heads)")
     if not hasattr(net, "layer_vertices"):
         raise ValueError(
             "the 'seq' axis requires the ComputationGraph container "
@@ -131,38 +156,96 @@ def _check_roles(net, mesh, axes):
                 f"{axes['seq']!r}")
 
 
+def _check_zero1(mesh, axes):
+    if set(axes or ()) - {"data"}:
+        raise ValueError("zero1 currently composes with the 'data' axis "
+                         "only — drop it or the model/pipe/expert/seq axes")
+    data_ax = (axes or {}).get("data", "data")
+    if data_ax not in mesh.shape:
+        raise ValueError(f"zero1 needs the data axis {data_ax!r} on the "
+                         f"mesh (mesh has {mesh.axis_names})")
+    return data_ax
+
+
+def leave_placement(net):
+    """Put a placed net's params and optimizer state back whole (the
+    canonical layout) and end its layers' splits; a no-op for a net
+    without one. Every rank of the old mesh calls it."""
+    split = getattr(net, "_split_plan", None)
+    zero1 = getattr(net, "_zero1", None)
+    if split is None and zero1 is None:
+        return
+    if net.opt_state is not None:
+        net.opt_state = canonical_opt_state(net)
+    if split is not None:
+        net.params = split.whole(net.params)
+        split.unregister()
+    net._split_plan = None
+    net._zero1 = None
+    net.tx.split_groups = {}
+
+
+def canonical_params(net):
+    """The net's params whole, in the JAX layout: gathered over the
+    mesh where a placement split them (every rank calls it), else the
+    params themselves."""
+    split = getattr(net, "_split_plan", None)
+    return net.params if split is None else split.whole(net.params)
+
+
+def canonical_opt_state(net):
+    """The net's optimizer state whole (ZeRO-1's rows and split leaves'
+    moments gathered), as a meshless net of the same params holds it."""
+    state = net.opt_state
+    zero1 = getattr(net, "_zero1", None)
+    if zero1 is not None:
+        state = zero1.whole_state(state)
+    split = getattr(net, "_split_plan", None)
+    if split is not None:
+        state = split.whole_state(state)
+    return state
+
+
 def configure_mesh(net, mesh, *, zero1=False, axes=None,
                    n_microbatches=None, tp_rules=None, overlap=None):
     """The body of MultiLayerNetwork/ComputationGraph.set_mesh.
-    Validates before it changes anything; on success the net's params,
-    layer state and optimizer state are made rank 0's on every rank
-    (`replicate`), and the next step is built for the mesh."""
+    Validates before it changes anything; then a placed net is put back
+    whole (`leave_placement`), its params, layer state and optimizer
+    state are made rank 0's on every rank (`replicate`), the "model" /
+    "expert" placement and ZeRO-1 cut them to this rank's shares, and
+    the next step is built for the mesh. A split that cannot run
+    (experts that do not divide) raises after the old placement ended:
+    the net is then left without a mesh."""
+    from deeplearning4j_tpu_torch.nn.training import Zero1
     from deeplearning4j_tpu_torch.parallel.mesh import replicate
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        SplitPlan,
+        resolve_rules,
+    )
 
     if mesh is not None and not isinstance(mesh, Mesh):
         if hasattr(mesh, "mesh_axes") and hasattr(mesh, "roles"):
             not_ported("a reshard.Placement (automatic placement search)")
         raise TypeError(f"set_mesh takes a parallel.mesh.Mesh or None, got "
                         f"{type(mesh).__name__}")
-    if zero1:
-        not_ported("ZeRO-1 (zero1=True; gloo has no reduce-scatter)")
-    if n_microbatches is not None or tp_rules is not None:
-        not_ported("n_microbatches / tp_rules (pipeline and tensor "
-                   "parallelism)")
+    if n_microbatches is not None:
+        not_ported("n_microbatches (pipeline parallelism)")
     later = sorted(set(axes or ()) & (set(ROLES) - set(_PORTED_ROLES)))
     if later:
-        not_ported(f"the mesh role(s) {later} (tensor, expert and "
-                   "pipeline parallelism)")
+        not_ported(f"the mesh role(s) {later} (pipeline parallelism)")
     plan = (None if overlap is None
             else _check_overlap(net, mesh, axes, overlap))
     if mesh is not None and axes is not None:
         _check_roles(net, mesh, axes)
+    data_ax = (_check_zero1(mesh, axes) if zero1 and mesh is not None
+               else None)
     if mesh is not None and mesh.device.type != net.device.type:
         raise ValueError(f"the net lives on {net.device} but this rank's "
                          f"mesh device is {mesh.device}")
-    net._mesh = mesh
-    net._mesh_axes = dict(axes) if axes else None
-    net._overlap_plan = plan
+    leave_placement(net)
+    net._mesh = None
+    net._mesh_axes = None
+    net._overlap_plan = None
     net._train_step = None
     if mesh is None:
         return net
@@ -171,6 +254,23 @@ def configure_mesh(net, mesh, *, zero1=False, axes=None,
         net.init()
     for t in (net.params, net.state, net.opt_state):
         replicate(t, mesh)
+    split = None
+    if set(axes or ()) & {"model", "expert"}:
+        split = SplitPlan(net, mesh, resolve_rules(axes, tp_rules))
+    z1 = Zero1(net.params, mesh, data_ax) if data_ax else None
+    net._mesh = mesh
+    net._mesh_axes = dict(axes) if axes else None
+    net._overlap_plan = plan
+    if split is not None:
+        net.params = split.local(net.params)
+        net.opt_state = split.local_state(net.opt_state)
+        split.register()
+        net._split_plan = split
+    if z1 is not None:
+        net.opt_state = z1.local_state(net.opt_state)
+        net._zero1 = z1
+    net.tx.split_groups = {**(split.groups() if split else {}),
+                           **(z1.groups() if z1 else {})}
     return net
 
 

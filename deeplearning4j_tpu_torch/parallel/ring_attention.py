@@ -11,7 +11,9 @@ the lse cotangent, or K4 at Tl <= BLOCK_Q_MAX), or the chunked tier
 past MAX_FLASH_T (`chunked_flash_attention_lse`, `hop_chunk`). Under
 causal attention a hop takes the full, the diagonal or no case by its
 source block; a skipped hop launches nothing. Local blocks whose length
-is not a multiple of 128 run the f32 einsum path instead.
+is not a multiple of 128, and on CUDA head dims the kernels are not
+built for (outside `KERNEL_HEAD_DIMS`), run the f32 einsum ring instead
+(`ring_route`).
 
 Dropout hashes GLOBAL coordinates: every hop keys its window at origin
 (idx*Tl, src*Tl) with hash_t = n*Tl, so the ring drops exactly what one
@@ -36,6 +38,7 @@ import math
 import torch
 
 from deeplearning4j_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
     MAX_FLASH_T,
     MONOLITHIC_COMPILE_MAX,
     NEG_INF,
@@ -237,21 +240,34 @@ def _ring_einsum(qs, ks, vs, transport, causal, dropout, seed):
             for (o, _, l), q in zip(state, qs)]
 
 
+def ring_route(Tl: int, D: int, device_type: str) -> str:
+    """Which ring runs local blocks of Tl x D on a device of
+    `device_type`: "flash" (the kernel hops, `_ring_flash`) when Tl is a
+    multiple of 128 and, on CUDA, D is a head dim the kernels are built
+    for; "einsum" (the f32 ring, `_ring_einsum`, any D) otherwise. On the
+    CPU the hops run the kernels' plain versions, which take any D."""
+    if Tl % 128:
+        return "einsum"
+    if device_type == "cuda" and D not in KERNEL_HEAD_DIMS:
+        return "einsum"
+    return "flash"
+
+
 def ring_attention_blocks(qs, ks, vs, transport, *, causal: bool = True,
                           hop_chunk=None, dropout: float = 0.0,
                           generator=None, seed=None):
     """Ring attention over this process's blocks: qs, ks, vs lists of
     [B, H, Tl, D] blocks, one per shard of `transport.shards`. Returns
-    the output blocks. Kernel hops when Tl % 128 == 0, else the f32
-    einsum ring. dropout: one step seed for the whole ring (`seed`, a
+    the output blocks. Kernel hops or the f32 einsum ring as `ring_route`
+    picks. dropout: one step seed for the whole ring (`seed`, a
     one-element int32 tensor, else drawn from `generator`), hashed on
     global coordinates."""
     if dropout and seed is None:
         if generator is None:
             raise ValueError("dropout > 0 requires a generator or a seed")
         seed = _step_seed(generator)
-    Tl = qs[0].shape[2]
-    if Tl % 128 == 0:
+    _, _, Tl, D = qs[0].shape
+    if ring_route(Tl, D, qs[0].device.type) == "flash":
         return _ring_flash(list(qs), list(ks), list(vs), transport, causal,
                            hop_chunk, dropout, seed)
     return _ring_einsum(list(qs), list(ks), list(vs), transport, causal,

@@ -21,8 +21,11 @@ or one whose model file is cut short, is rejected before any read.
 
 Arrays load with `torch.load(weights_only=True, map_location=
 net.device)`: tensors, dicts, lists, tuples, strings and numbers only,
-straight onto the net's device. There is no mesh and no resharding here:
-that comes with the parallel slice (ROADMAP Queue A item A7).
+straight onto the net's device. A net placed on a mesh ("model" /
+"expert" splits, ZeRO-1) saves its canonical trees — gathered whole, so
+the file is the meshless net's — and every rank of the mesh calls
+`save`. Restoring into a placed net waits for ROADMAP Queue A item 7
+(A7, resharding).
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ class Checkpointer:
         meta_path = os.path.join(d, "meta.json")
         if os.path.exists(meta_path):
             os.remove(meta_path)  # uncommit before overwriting the arrays
-        trees = {name: getattr(net, name) for name in TREES}
+        trees = _canonical_trees(net)
         model_path = os.path.join(d, MODEL_FILE)
         torch.save(trees, model_path)
         with open(os.path.join(d, "config.json"), "w") as f:
@@ -149,6 +152,14 @@ class Checkpointer:
                 f"(have {steps})")
         if net.params is None:
             net.init()
+        if (getattr(net, "_split_plan", None) is not None
+                or getattr(net, "_zero1", None) is not None):
+            from deeplearning4j_tpu_torch.parallel.placement import (
+                not_ported,
+            )
+
+            not_ported("restoring a checkpoint into a net placed on a mesh "
+                       "(set_mesh(None) first, then set_mesh again)")
         meta = self.read_meta(step)
         for name in ("params", "state"):
             want = manifest(getattr(net, name), name)
@@ -166,6 +177,16 @@ class Checkpointer:
         if hasattr(net, "epoch_count"):
             net.epoch_count = meta.get("epoch", 0)
         return net
+
+
+def _canonical_trees(net) -> dict:
+    """The three trees a checkpoint holds, whole: a placed net's params
+    and optimizer state gathered (parallel/placement.py)."""
+    trees = {name: getattr(net, name) for name in TREES}
+    if hasattr(net, "canonical_params"):
+        trees["params"] = net.canonical_params()
+        trees["opt_state"] = net.canonical_opt_state()
+    return trees
 
 
 def load_network(checkpoint_dir: str, step=None, device=None):

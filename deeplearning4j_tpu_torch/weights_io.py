@@ -39,12 +39,16 @@ def params_from_jax(np_params: dict, device) -> dict:
     return _nest_map(lambda a: _tensor(a, device), np_params)
 
 
-def params_to_numpy(params: dict) -> dict:
-    """The port's params (a nest of dicts of tensors) -> the same nest
-    of numpy arrays on the host, for comparing with a JAX net's
+def params_to_numpy(params) -> dict:
+    """The port's params (a nest of dicts of tensors, or a network, whose
+    canonical params — whole under a mesh placement — are taken) -> the
+    same nest of numpy arrays on the host, for comparing with a JAX net's
     `np.asarray` params: copies, which the next in-place update leaves as
     they are. bfloat16 widens to float32 (exactly): numpy has no
     bfloat16."""
+    if hasattr(params, "canonical_params"):
+        params = params.canonical_params()
+
     def arr(t):
         t = t.detach().cpu()
         return np.array((t.float() if t.dtype == torch.bfloat16 else t)

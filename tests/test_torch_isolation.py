@@ -56,7 +56,8 @@ def test_package_imports_without_jax():
     names = set(out.stdout.split())
     assert len(names) >= 20
     missing = {f"deeplearning4j_tpu_torch.{m}"
-               for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE} - names
+               for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
+               + PLACEMENT_SLICE} - names
     assert not missing, missing
 
 
@@ -80,6 +81,12 @@ PARALLEL_SLICE = (
     "parallel.sequence_parallel", "distributed.bootstrap",
     "distributed.launcher", "distributed.global_mesh", "data.sharding",
     "data.pipeline", "data.bench_worker")
+# graph vertices, decode of both containers, tensor and expert
+# parallelism, ZeRO-1 (ROADMAP A10, A7.1, A7.2)
+PLACEMENT_SLICE = (
+    "nn.conf.graph_conf", "nn.conf.preprocessors", "nn.decode",
+    "ops.shard_comm", "parallel.tensor_parallel", "parallel.expert_parallel",
+    "nn.training")
 
 
 def test_rank_programs_import_without_jax():

@@ -24,10 +24,6 @@ statistics through three batch norms a block: the sums are taken in
 another order, split over the ranks); the loss 1e-5 relative.
 """
 
-import json
-import sys
-from pathlib import Path
-
 import jax
 import numpy as np
 import pytest
@@ -37,26 +33,21 @@ from deeplearning4j_tpu.datasets.api import DataSet as JDataSet
 from deeplearning4j_tpu.datasets.iterators import (
     ListDataSetIterator as JListIt,
 )
-from deeplearning4j_tpu.models.resnet import resnet20 as jax_resnet20
 from deeplearning4j_tpu.models.transformer import transformer_lm as jax_lm
-from deeplearning4j_tpu.nn import conf as jconf
-from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxMLN
 from deeplearning4j_tpu.parallel import data_parallel as jdp
 from deeplearning4j_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from deeplearning4j_tpu.parallel.overlap import plan_buckets as jax_plan
-from deeplearning4j_tpu_torch.distributed.launcher import launch_local
 from deeplearning4j_tpu_torch.models.transformer import (
     transformer_lm as torch_lm,
 )
 from deeplearning4j_tpu_torch.parallel.overlap import plan_buckets
+from fleet_util import assert_trained_close as _assert_trained_close
+from fleet_util import jax_net as _jax_net
+from fleet_util import run_fleet
 from torch_parallel_worker import flatten as _flatten
-from torch_parallel_worker import mlp_conf, set_updater
+from torch_parallel_worker import set_updater
 
 pytestmark = pytest.mark.port
-
-ROOT = Path(__file__).resolve().parents[1]
-WORKER = ROOT / "tests" / "torch_parallel_worker.py"
-LAUNCH_TIMEOUT = 120.0
 
 LM_CFG = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64,
               max_length=16)
@@ -67,18 +58,6 @@ B, STEPS = 8, 3
 LM_TOL = 1e-5
 RESNET_TOL = 1e-4
 BUCKETS = (4096, 1 << 30)
-
-
-def _jax_net(case):
-    """The case's JAX net, its updater set as the case says, initialized
-    from the model's seed (every call gives the same params)."""
-    if case["model"] == "lm":
-        net = jax_lm(**case["cfg"])
-    elif case["model"] == "mlp":
-        net = JaxMLN(mlp_conf(jconf))
-    else:
-        net = jax_resnet20()
-    return set_updater(net, case).init()
 
 
 def _lm_batches(seed, masked, cfg=LM_CFG, rows=B):
@@ -101,23 +80,6 @@ def _image_batches(seed, n, rows):
     return [(rng.random((rows, 32, 32, 3), dtype=np.float32),
              np.eye(10, dtype=np.float32)[rng.integers(0, 10, rows)], None)
             for _ in range(n)]
-
-
-def _inputs(case):
-    """What the ranks read: the JAX net's initial params (and state),
-    the batches."""
-    net = _jax_net(case)
-    arrays = {f"params/{k}": v for k, v in _flatten(
-        jax.tree.map(np.asarray, net.params)).items()}
-    arrays.update({f"state/{k}": v for k, v in _flatten(
-        jax.tree.map(np.asarray, net.state)).items()})
-    for i, (x, y, m) in enumerate(case["batches"]):
-        arrays[f"x{i}"], arrays[f"y{i}"] = x, y
-        if m is not None:
-            arrays[f"lmask{i}"] = m
-    if "eval" in case:
-        arrays["x"], arrays["y"] = case["eval"]
-    return arrays
 
 
 def _lm_case(name, kind, masked=False, updater="sgd", cfg=LM_CFG, **kw):
@@ -165,25 +127,6 @@ CASES = {
 }
 
 
-def run_fleet(tmp_path, n, cases):
-    """Write the cases' inputs, run the worker on n gloo ranks under the
-    launcher's deadline, and return each rank's outputs."""
-    spec = []
-    for case in cases:
-        np.savez(tmp_path / f"{case['name']}.npz", **_inputs(case))
-        spec.append({k: v for k, v in case.items()
-                     if k not in ("batches", "eval")})
-    spec_path = tmp_path / "spec.json"
-    spec_path.write_text(json.dumps({"dir": str(tmp_path), "cases": spec}))
-    results = launch_local(
-        [sys.executable, str(WORKER), str(spec_path)], n_processes=n,
-        device="cpu", timeout=LAUNCH_TIMEOUT, death_grace=5.0, cwd=ROOT,
-        extra_env={"PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"})
-    for r in results:
-        assert r.exit_class == "clean", "\n".join(r.lines[-60:])
-    return [dict(np.load(tmp_path / f"out_rank{i}.npz")) for i in range(n)]
-
-
 @pytest.fixture(scope="module")
 def fleets(tmp_path_factory):
     """{n: [rank outputs]} for the 2- and 4-rank fleets."""
@@ -212,28 +155,6 @@ def _jax_trained(case, n):
     for ds in _jax_batches(case):
         trainer.fit(ds)
     return net
-
-
-def _assert_trained_close(outs, name, jnet, tol):
-    """Every rank holds the same params; they, the batch-norm state and
-    the score match the JAX net's."""
-    ref = _flatten(jax.tree.map(np.asarray, jnet.params))
-    scale = max(float(np.abs(a).max()) for a in ref.values())
-    for key, want in ref.items():
-        got = outs[0][f"{name}/params/{key}"]
-        for other in outs[1:]:
-            np.testing.assert_array_equal(other[f"{name}/params/{key}"],
-                                          got, err_msg=key)
-        err = float(np.abs(got - want).max())
-        assert err <= tol * scale, (name, key, err, scale)
-    for key, want in _flatten(jax.tree.map(np.asarray, jnet.state)).items():
-        got = outs[0][f"{name}/state/{key}"]
-        if np.issubdtype(want.dtype, np.floating):
-            err = float(np.abs(got - want).max())
-            assert err <= tol * max(float(np.abs(want).max()), 1e-12), (
-                name, key, err)
-    np.testing.assert_allclose(float(outs[0][f"{name}/score"]),
-                               float(jnet.score_value), rtol=1e-5)
 
 
 @pytest.mark.parametrize("n,name", [(2, "lm_mono"), (2, "lm_mono_masked"),
@@ -400,19 +321,22 @@ def test_set_mesh_validation_errors(world1):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(axes={"model": "data"}),
-    dict(axes={"data": "data", "expert": "data"}),
     dict(axes={"pipe": "data"}),
-    dict(zero1=True),
     dict(n_microbatches=4),
+    dict(axes={"seq": "seq", "model": "model"}),
 ])
 def test_unported_roles_raise_citing_a7(world1, kwargs):
-    """Tensor, expert and pipeline parallelism, ZeRO-1 and the pipeline's
-    knobs wait for the rest of A7: NotImplementedError, and the net is
-    left as it was."""
-    net = torch_lm(**LM_CFG, device="cpu").init()
+    """Pipeline parallelism and its knob, and sequence parallelism with
+    the "model" role, wait for the rest of A7: NotImplementedError, and
+    the net is left as it was. (Tensor and expert parallelism and
+    ZeRO-1 run: tests/test_torch_tensor_parallel.py,
+    test_torch_expert_parallel.py, test_torch_zero1.py.)"""
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    net = torch_lm(**LM_CFG, seq_parallel_axis="seq", device="cpu").init()
+    mesh = make_mesh({"data": 1, "seq": 1, "model": 1}, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(world1, **kwargs)
+        net.set_mesh(mesh, **kwargs)
     assert net._mesh is None
 
 

@@ -19,6 +19,7 @@ same keep mask, merged in another order); the SP step's f32 params
 after three SGD steps 1e-5 of the largest entry.
 """
 
+import importlib
 import json
 import math
 import sys
@@ -131,6 +132,53 @@ def test_in_process_ring_launches_per_hop_case(monkeypatch):
     _torch_grads(lambda q, k, v: ring_self_attention(q, k, v, n_shards=4),
                  _qkv(1, 1, 2, 512, 32))
     assert calls == {"fwd": 10, "bwd": 10}
+
+
+@pytest.mark.parametrize("Tl,D,device,want", [
+    (128, 128, "cuda", "flash"), (256, 32, "cuda", "flash"),
+    (128, 96, "cuda", "einsum"), (512, 48, "cuda", "einsum"),
+    (128, 512, "cuda", "einsum"), (8, 64, "cuda", "einsum"),
+    (128, 96, "cpu", "flash"), (8, 96, "cpu", "einsum")])
+def test_ring_route_by_block_head_dim_and_device(Tl, D, device, want):
+    """On CUDA a head dim the flash kernels are not built for takes the
+    f32 einsum ring, as a block length off the 128 grid does; the CPU's
+    hops run the kernels' plain versions at any head dim."""
+    ra = importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.ring_attention")
+
+    assert ra.ring_route(Tl, D, device) == want
+
+
+def test_einsum_ring_at_head_dim_96_matches_references(monkeypatch):
+    """The route the card takes at D = 96 (d_model 384 over 4 heads),
+    forced on the CPU: the f32 einsum ring over 4 blocks of 128 against
+    the port's and the JAX package's whole-sequence references and the
+    JAX ring, forward, and the reference's gradients."""
+    ra = importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.ring_attention")
+
+    route = ra.ring_route
+    taken = []
+
+    def as_on_cuda(Tl, D, device_type):
+        taken.append(route(Tl, D, "cuda"))
+        return taken[-1]
+
+    monkeypatch.setattr(ra, "ring_route", as_on_cuda)
+    arrays = _qkv(2, 1, 2, 512, 96)
+    out, grads = _torch_grads(
+        lambda q, k, v: ring_self_attention(q, k, v, n_shards=4), arrays)
+    assert taken == ["einsum"]
+    ref, ref_grads = _torch_grads(sequence_sharded_attention_reference,
+                                  arrays)
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    _close(out, ref, OUT_TOL, "port reference")
+    _close(out, jax_reference(jq, jk, jv, causal=True), OUT_TOL,
+           "JAX reference")
+    _close(out, jax_ring(jq, jk, jv, jax_make_mesh({"seq": 4})), OUT_TOL,
+           "JAX ring")
+    for g, r in zip(grads, ref_grads):
+        _close(g, r, GRAD_TOL, "gradients")
 
 
 def test_ring_chunked_hop_matches_reference():

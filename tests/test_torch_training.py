@@ -263,7 +263,7 @@ def test_remat_and_mesh_raise():
     net = torch_lm(**CFG, max_length=128, device="cpu").init()
     assert net.set_mesh(None) is net
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(None, axes={"model": "model"})
+        net.set_mesh(None, axes={"pipe": "pipe"})
     toks, labels, _ = _tokens(61, 2, 512)
     ds = TDataSet(toks, labels)
 

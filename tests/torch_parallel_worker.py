@@ -27,7 +27,10 @@ from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
 from deeplearning4j_tpu_torch.distributed import bootstrap
 from deeplearning4j_tpu_torch.models.resnet import resnet20
-from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+from deeplearning4j_tpu_torch.models.transformer import (
+    transformer_lm,
+    transformer_moe_lm,
+)
 from deeplearning4j_tpu_torch.nn import conf as conf_mod
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.parallel.data_parallel import (
@@ -35,6 +38,7 @@ from deeplearning4j_tpu_torch.parallel.data_parallel import (
     ParameterAveragingTrainer,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+from deeplearning4j_tpu_torch.parallel.overlap import plan_buckets
 from deeplearning4j_tpu_torch.parallel.ring_attention import (
     ProcessGroupRing,
     ring_attention,
@@ -43,6 +47,7 @@ from deeplearning4j_tpu_torch.parallel.ring_attention import (
 from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     SequenceParallelTrainer,
 )
+from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
 from deeplearning4j_tpu_torch.weights_io import (
     params_from_jax,
     params_to_numpy,
@@ -79,15 +84,21 @@ def unflatten(flat, prefix):
 def set_updater(net, case):
     """The case's updater, learning rate and momentum on a net's conf
     (JAX package's or port's) before init: the global settings and every
-    layer's, which the conf builder copied from them."""
+    layer's, which the conf builder copied from them (a case without an
+    updater keeps the model's); and its gradient normalization
+    (`grad_norm`) on every layer."""
     g = net.conf.conf
-    g.updater, g.learning_rate = case["updater"], case["lr"]
-    if "momentum" in case:
-        g.momentum = case["momentum"]
     layers = ([v.layer for v in net.layer_vertices.values()]
               if hasattr(net, "layer_vertices") else net.layer_confs)
-    for lc in layers:
-        lc.updater, lc.learning_rate = case["updater"], None
+    if "updater" in case:
+        g.updater, g.learning_rate = case["updater"], case["lr"]
+        if "momentum" in case:
+            g.momentum = case["momentum"]
+        for lc in layers:
+            lc.updater, lc.learning_rate = case["updater"], None
+    if "grad_norm" in case:
+        for lc in layers:
+            lc.gradient_normalization = case["grad_norm"]
     return net
 
 
@@ -107,6 +118,8 @@ def _net(case, inputs):
     (and batch-norm state), its updater set as the case says."""
     if case["model"] == "lm":
         net = transformer_lm(**case["cfg"], device="cpu")
+    elif case["model"] == "moe":
+        net = transformer_moe_lm(**case["cfg"], device="cpu")
     elif case["model"] == "mlp":
         net = MultiLayerNetwork(mlp_conf(conf_mod), device="cpu")
     else:
@@ -136,7 +149,7 @@ def _batches(inputs):
 
 def _trained(net):
     out = {f"params/{k}": v
-           for k, v in flatten(params_to_numpy(net.params)).items()}
+           for k, v in flatten(params_to_numpy(net)).items()}
     out.update({f"state/{k}": v
                 for k, v in flatten(state_to_numpy(net.state)).items()})
     out["score"] = np.asarray(net.score_value)
@@ -218,8 +231,80 @@ def case_sp(case, inputs):
     return _trained(net)
 
 
+def flat_opt_state(opt_state):
+    """{"label/moment/leaf path": array} of an Optimizer state."""
+    out = {}
+    for label, st in opt_state.items():
+        for name, v in st.items():
+            if name == "keys" or not isinstance(v, list):
+                continue
+            for key, t in zip(st["keys"], v):
+                out[f"{label}/{name}/{'/'.join(key)}"] = (
+                    t.detach().float().numpy())
+    return out
+
+
+def case_mesh(case, inputs):
+    """set_mesh with the case's mesh, roles, zero1 and overlap (a
+    "psum_scatter" bucket plan when `overlap_mode` says so), one fit()
+    per batch. Returns the canonical params and optimizer state, the
+    local shape of every split param and ZeRO-1 moment, and whether the
+    checkpoint this rank saves holds exactly the canonical trees."""
+    net = _net(case, inputs)
+    mesh = make_mesh(case["mesh"], device="cpu")
+    overlap = case.get("overlap")
+    if case.get("overlap_mode"):
+        overlap = plan_buckets(net.params, overlap,
+                               layer_order=list(net.params),
+                               mode=case["overlap_mode"])
+    net.set_mesh(mesh, axes=case.get("axes"), zero1=case.get("zero1", False),
+                 overlap=overlap)
+    for ds in _batches(inputs):
+        net.fit(ds)
+    out = _trained(net)
+    out.update({f"opt/{k}": v for k, v in flat_opt_state(
+        net.canonical_opt_state()).items()})
+    if net._split_plan is not None:
+        for path in net._split_plan.leaves:
+            t = net.params[path[0]]["/".join(path[1:])]
+            out[f"split/{'/'.join(path)}"] = np.asarray(t.shape)
+    if net._zero1 is not None:
+        for k, t in flat_opt_state(net.opt_state).items():
+            out[f"zero1/{k}"] = np.asarray(t.shape)
+    d = Path(case["ckpt"]) / f"rank{mesh.rank}"
+    Checkpointer(str(d)).save(net)
+    saved = torch.load(d / f"step_{net.iteration_count}" / "model.pt",
+                       weights_only=True)
+    same = all(np.array_equal(a, out[f"params/{k}"]) for k, a in flatten(
+        params_to_numpy(saved["params"])).items())
+    same &= all(np.array_equal(a, out[f"opt/{k}"]) for k, a in
+                flat_opt_state(saved["opt_state"]).items())
+    out["ckpt_is_canonical"] = np.asarray(same)
+    return out
+
+
+def case_before_init(case, inputs):
+    """set_mesh before init (the JAX package's test_tp_set_mesh_before_init):
+    the placement follows the automatic init; the net then trains as a
+    meshless net of the same (port-made) init on the same batches."""
+    out = {}
+    for arm in ("meshless", "placed"):
+        net = transformer_lm(**case["cfg"], device="cpu")
+        set_updater(net, case)
+        if arm == "placed":
+            net.set_mesh(make_mesh(case["mesh"], device="cpu"),
+                         axes=case["axes"])
+            out["placed_before_fit"] = np.asarray(
+                net._split_plan is not None and bool(net._split_plan.layers))
+        for ds in _batches(inputs):
+            net.fit(ds)
+        out.update({f"{arm}/{k}": v for k, v in _trained(net).items()})
+    return out
+
+
 CASES = {"dp": case_dp, "pa": case_pa, "eval": case_eval,
-         "ring": case_ring, "sp": case_sp}
+         "ring": case_ring, "sp": case_sp, "mesh": case_mesh,
+         "before_init": case_before_init}
 
 
 def main(argv) -> int:
