@@ -16,7 +16,8 @@ ParagraphVectors, GloVe), data and sequence parallelism at one rank
 (DataParallelTrainer's two arms, ParameterAveragingTrainer, ring
 attention, SequenceParallelTrainer, the pipelined fit), and the graph
 vertices, the MultiLayerNetwork decode steps, tensor and expert
-parallelism and ZeRO-1.
+parallelism and ZeRO-1, pipeline parallelism, resharding and the
+placement search.
 
 Run from the root of a checkout, with no arguments:
 
@@ -358,8 +359,23 @@ Phases, each of which exits non-zero when it fails:
    output and every gradient at most SPLIT_RATIO times the whole
    arm's; each arm's forward + backward time; K2 and K6 at a shard's
    shape timed beside their bounds.
+23. Pipeline parallelism and the resharding engine (after phase 22), at
+   world size 1 over NCCL. 23a: phase 6's flagship, 3 steps an arm:
+   "pipe" 1 at M = 1 bit for bit with the meshless net and phase 6's
+   counts; M = 8 at "pipe" 1 and over 2 and 3 stages in one process
+   with exactly 6·M·3 K2 and K6 and M·3 K8 and K9, their f32 twins
+   within PIPE_PARITY_TOL of the meshless net; each arm's step, idle
+   share and the bubble S cards would idle; K2/K6 (packed B 4) and
+   K8/K9 (N 2048) at a microbatch's shape against their plain versions
+   in f32 and bf16 at phase 2's tolerances, then timed. 23b: the params
+   moved between 2 "model" shards in one process and one, both ways,
+   bit for bit, each move's bytes its plan's; a {data, model}
+   checkpoint restored into {pipe} reading its plan's bytes, one step
+   bit for bit with a twin, then re-placed by set_mesh on the record.
+   23c: `search_placement` on FleetShape(1, 1), its winner trained 3
+   steps bit for bit, and `reshard/bench_arm` in its own process.
 
-After phases 3-22, no attention call on the card may have taken the
+After phases 3-23, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
@@ -373,6 +389,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -6196,6 +6213,547 @@ def train_placements(torch, counters, fa, transformer_lm, DataSet, card):
     return launches, shard_times
 
 
+# ------------------------------------------------------------ phase 23
+
+# 23a: phase 6's flagship (batch 32 x 512, bf16) pipelined, 3 steps an
+# arm; 8 microbatches of 4 rows; the in-process pipeline at 2 and 3
+# stages (the 6 blocks divide into 1, 2, 3 and 6)
+PIPE = dict(M=8, steps=3, stages=(2, 3), timed=3)
+# tests/test_torch_pipeline.py's gate (the JAX package's PP-against-dense
+# tolerance), held in f32: in bf16 a gradient's rounding flips Adam's
+# step on its near-zero elements, which moves a weight by up to 2·lr a
+# step whatever the pipeline does
+PIPE_PARITY_TOL = 5e-4
+
+
+def log23(card, msg):
+    """A phase-23 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def pipe_want(M, steps, L):
+    """The launches of `steps` pipelined flagship steps of M microbatches:
+    K2 and K6 once a block a microbatch, K8 and K9 once a microbatch."""
+    want = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                           "K9", "K9 dW", "K10", "K11", "K12", "K13")}
+    want.update({"K2": L * M * steps, "K6": L * M * steps,
+                 "K8": M * steps, "K9": M * steps, "K9 dW": M * steps})
+    return want
+
+
+def pipe_net(torch, transformer_lm, mesh, arm, dtype="bfloat16"):
+    """The flagship from SEED, placed as `arm` says: "meshless", "pipe 1
+    M=<m>" (set_mesh over the world-of-one mesh) or "in-process S=<s>"
+    (parallel/pipeline.place_in_process, PIPE's M)."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import place_in_process
+
+    c = TRAIN
+    net = transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                         n_heads=c["n_heads"], n_layers=c["n_layers"],
+                         d_ff=c["d_ff"], max_length=c["seq"], dtype=dtype,
+                         device="cuda").init(SEED)
+    if arm.startswith("pipe 1"):
+        net.set_mesh(mesh, axes={"pipe": "pipe"},
+                     n_microbatches=int(arm.split("M=")[1]))
+    elif arm.startswith("in-process"):
+        place_in_process(net, int(arm.split("S=")[1]), PIPE["M"])
+    return net
+
+
+def max_param_diff(torch, a, b):
+    from deeplearning4j_tpu_torch.nn import tree
+
+    pb = b.canonical_params()
+    return max(float((x.float() - tree.get(pb, p).float()).abs().max())
+               for p, x in tree.leaves(a.canonical_params()))
+
+
+def pipelined_flagship(torch, counters, transformer_lm, DataSet, mesh,
+                       card):
+    """23a: the flagship pipelined at world size 1 over NCCL: (i) "pipe"
+    1 with M = 1 bit for bit with the meshless step and with phase 6's
+    launch counts; (ii) M = 8 at "pipe" 1; (iii) S = 2 and S = 3 stages
+    through the in-process transport, M = 8. Exact launch counts (K2 =
+    K6 = 6·M·3, K8 = K9 = M·3); the canonical params of (ii) and (iii)
+    within PIPE_PARITY_TOL of the meshless net's after 3 f32 steps (the
+    bf16 arms' distance logged beside); each arm's step time, idle
+    share, its time beside the meshless step's and the GPipe bubble S
+    cards would idle, (S - 1) / (M + S - 1). Returns the launches of the
+    pipelined arms and the step times."""
+    c, n, M, L = TRAIN, PIPE["steps"], PIPE["M"], TRAIN["n_layers"]
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    arms = ["meshless", "pipe 1 M=1", f"pipe 1 M={M}"] + [
+        f"in-process S={s}" for s in PIPE["stages"]]
+    nets, runs, losses = {}, {}, {}
+    for arm in arms:
+        net = pipe_net(torch, transformer_lm, mesh, arm)
+        torch.cuda.synchronize()
+        counters.reset()
+        losses[arm] = []
+        for _ in range(n):
+            net.fit(ds)
+            losses[arm].append(net._score_raw)
+        torch.cuda.synchronize()
+        runs[arm] = counters.read()
+        losses[arm] = [float(x) for x in losses[arm]]
+        nets[arm] = net
+    same = (canonical_equal(torch, nets["meshless"], nets["pipe 1 M=1"])
+            and losses["meshless"] == losses["pipe 1 M=1"])
+    log23(card, f"23a(i): \"pipe\" 1, M = 1 (NCCL, world size 1), {n} "
+          f"steps: params and every loss bit for bit with the meshless "
+          f"net's {same}; losses {losses['pipe 1 M=1']}; launches "
+          f"{runs['pipe 1 M=1']}")
+    if not same:
+        raise PhaseFailed("23a", "\"pipe\" 1 at M = 1 is not the meshless "
+                                 "step bit for bit")
+    for arm in arms:
+        want = pipe_want(1 if arm in ("meshless", "pipe 1 M=1") else M, n,
+                         L)
+        if runs[arm] != want:
+            raise PhaseFailed("23a", f"{arm}: launches {runs[arm]}, "
+                                     f"expected {want}")
+    bf16_gap = {arm: max_param_diff(torch, nets["meshless"], nets[arm])
+                for arm in arms[2:]}
+    f32 = {arm: pipe_net(torch, transformer_lm, mesh, arm, "float32")
+           for arm in ["meshless"] + arms[2:]}
+    for net in f32.values():
+        for _ in range(n):
+            net.fit(ds)
+    gap = {arm: max_param_diff(torch, f32["meshless"], f32[arm])
+           for arm in arms[2:]}
+    log23(card, f"23a(ii, iii): M = {M}, {n} steps: launches "
+          f"{runs[arms[2]]} each arm (exact); canonical params' largest "
+          f"distance from the meshless net's, f32 twins {gap} (gate "
+          f"{PIPE_PARITY_TOL}), bf16 arms {bf16_gap}; losses "
+          f"{ {a: losses[a] for a in arms[2:]} } against meshless "
+          f"{losses['meshless']}")
+    bad = {a: g for a, g in gap.items() if not g <= PIPE_PARITY_TOL}
+    if bad:
+        raise PhaseFailed("23a", f"pipelined params off the meshless net's "
+                                 f"by {bad} (f32)")
+    del f32
+    steps, idle = {}, {}
+    for arm in arms:
+        net = nets[arm]
+        steps[arm] = event_ms(torch, lambda nt=net: nt.fit(ds), PIPE["timed"])
+        idle[arm], _, _ = profiled(torch, lambda nt=net: nt.fit(ds),
+                                   f"23a: {arm} step", top=5)
+    base = steps["meshless"]
+    rows = {}
+    for arm in arms:
+        S = int(arm.split("S=")[1]) if "S=" in arm else 1
+        m = 1 if arm in ("meshless", "pipe 1 M=1") else M
+        rows[arm] = {"step_ms": steps[arm], "idle_share": idle[arm],
+                     "against_meshless": steps[arm] / base,
+                     "gpipe_bubble_on_S_cards": (S - 1) / (m + S - 1)}
+    log23(card, f"23a: median step ms (CUDA events, {PIPE['timed']} steps "
+          f"after one warm), idle share of a profiled step, step against "
+          f"the meshless step's, and the bubble S cards would idle: "
+          f"{rows}")
+    launches = {k: sum(runs[a][k] for a in arms[1:]) for k in runs[arms[0]]}
+    return launches, rows
+
+
+def reshard_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
+    """23b: the flagship's params moved live on the card between "model"
+    2 in-process shards and one (reshard/executor.reshard_in_process),
+    both ways, bit for bit (each shard its tensor_parallel slice); the
+    bytes moved beside the plan's and its lower bound, and the reshard
+    spans' time. Then a checkpoint written under {"data": 1, "model": 1}
+    restored into a net under {"pipe": 1} (M = 2), and one step, bit for
+    bit with a twin restored meshless and placed the same way; then that
+    net re-placed by set_mesh (reshard_net_live, on the record), its
+    params unchanged and its span's bytes the plan's. Returns that
+    step's launches."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        SplitPlan,
+        resolve_rules,
+        shard_slice,
+    )
+    from deeplearning4j_tpu_torch.reshard import executor as ex
+    from deeplearning4j_tpu_torch.reshard.planner import Placement
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    net = pipe_net(torch, transformer_lm, mesh, "meshless")
+    net.fit(ds)
+    like = {p: (tuple(t.shape), t.dtype) for p, t in tree.leaves(net.params)}
+    vmesh = ex.virtual_mesh({"model": 2}, "cuda")
+    split = SplitPlan(net, vmesh, resolve_rules({"model": "model"}))
+    one, two = ex.PortLayout(like, 1), ex.PortLayout(like, 2, vmesh, split)
+    solo = Placement.solo()
+    m2 = Placement.of({"model": 2}, {"model": "model"}, process_count=2)
+    rec = Recorder(path=None)
+    prev = set_default(rec)
+    try:
+        torch.cuda.synchronize()
+        out = ex.reshard_in_process({0: net.params}, one, two, src_pl=solo,
+                                    dst_pl=m2)
+        torch.cuda.synchronize()
+        back = ex.reshard_in_process(out[2], two, one, src_pl=m2,
+                                     dst_pl=solo)
+        torch.cuda.synchronize()
+    finally:
+        set_default(prev)
+    same = all(torch.equal(tree.get(back[2][0], p), t)
+               for p, t in tree.leaves(net.params))
+    for r in (0, 1):
+        for p, t in tree.leaves(net.params):
+            if p in split.leaves:
+                _, dim, heads = split.leaves[p]
+                t = shard_slice(t, dim, 2, r, heads)
+            same &= torch.equal(tree.get(out[2][r], p), t)
+    spans = [e["seconds"] for e in rec.events
+             if e.get("event") == "span" and e.get("name") == "reshard"]
+    moves = {"1 -> model 2": out, "model 2 -> 1": back}
+    log23(card, "23b: live moves of the flagship's params on the card: "
+          + "; ".join(f"{k}: {v[1]} bytes moved, plan {v[0].bytes_moved} "
+                      f"(lower bound {v[0].bytes_lower_bound}, actions "
+                      f"{v[0].actions()})" for k, v in moves.items())
+          + f"; reshard spans {spans} s; bit for bit {same}")
+    if not same or len(spans) != 2:
+        raise PhaseFailed("23b", "the live moves changed the params")
+    if any(v[1] != v[0].bytes_moved for v in moves.values()):
+        raise PhaseFailed("23b", "the live moves did not move the plan's "
+                                 "bytes")
+    with tempfile.TemporaryDirectory() as d:
+        src = pipe_net(torch, transformer_lm, mesh, "meshless")
+        src.set_mesh(mesh, axes={"data": "data", "model": "model"})
+        src.fit(ds)
+        Checkpointer(d).save(src)
+        placed = pipe_net(torch, transformer_lm, mesh, "pipe 1 M=2")
+        rec = Recorder(path=None)
+        prev = set_default(rec)
+        try:
+            Checkpointer(d).restore(placed)
+        finally:
+            set_default(prev)
+        twin = pipe_net(torch, transformer_lm, mesh, "meshless")
+        Checkpointer(d).restore(twin)
+        twin.set_mesh(mesh, axes={"pipe": "pipe"}, n_microbatches=2)
+    plans = [e for e in rec.events if e.get("event") == "reshard_plan"]
+    read = [(e["seconds"], e["bytes_moved"], e["bytes_planned"])
+            for e in rec.events
+            if e.get("event") == "span" and e.get("name") == "reshard"]
+    restored = (canonical_equal(torch, placed, src) and len(read) == 1
+                and read[0][1] == read[0][2])
+    torch.cuda.synchronize()
+    counters.reset()
+    placed.fit(ds)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    twin.fit(ds)
+    stepped = (canonical_equal(torch, placed, twin)
+               and placed.score_value == twin.score_value)
+    log23(card, f"23b: checkpoint of {{data 1, model 1}} restored into "
+          f"{{pipe 1}} (M = 2): canonical params equal the source's "
+          f"{restored}, plan "
+          f"{[(p['src'], p['dst'], p['bytes_moved']) for p in plans]}, "
+          f"reshard span {read} (s, bytes read, planned); "
+          f"one step bit for bit with the twin restored meshless and "
+          f"placed the same way {stepped}; launches {launches}")
+    if not (restored and stepped and plans):
+        raise PhaseFailed("23b", "the restore into a placed net is not bit "
+                                 "for bit")
+    # the placed net re-placed by set_mesh: reshard_net_live, on the record
+    rec = Recorder(path=None)
+    prev = set_default(rec)
+    try:
+        placed.set_mesh(mesh, axes={"data": "data", "model": "model"})
+    finally:
+        set_default(prev)
+    live = [e for e in rec.events if e.get("event") == "span"
+            and e.get("name") == "reshard"]
+    replaced = (canonical_equal(torch, placed, twin) and len(live) == 1
+                and live[0]["bytes_moved"] == live[0]["bytes_planned"])
+    spans = [(e["seconds"], e["bytes_moved"], e["bytes_planned"])
+             for e in live]
+    log23(card, f"23b: set_mesh of the restored net from {{pipe 1}} to "
+          f"{{data 1, model 1}} (reshard_net_live): reshard spans {spans} "
+          f"(s, bytes moved, planned); params bit for bit {replaced}")
+    if not replaced:
+        raise PhaseFailed("23b", "set_mesh of a placed net did not move it "
+                                 "by its plan")
+    for nt in (src, placed, twin):
+        nt.set_mesh(None)
+    return launches
+
+
+def search_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
+    """23c: search_placement for the flagship on FleetShape(1, 1), its
+    winner fed to set_mesh, 3 steps bit for bit with the meshless net's
+    and phase 6's launch counts. Returns the launches and the winner."""
+    from deeplearning4j_tpu_torch.reshard import (
+        FleetShape,
+        Objective,
+        search_placement,
+    )
+    from deeplearning4j_tpu_torch.reshard.search import emit_search_event
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+
+    c, n = TRAIN, PIPE["steps"]
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    net = pipe_net(torch, transformer_lm, mesh, "meshless")
+    plain = pipe_net(torch, transformer_lm, mesh, "meshless")
+    t0 = time.perf_counter()
+    res = search_placement(net, FleetShape(1, 1),
+                           objective=Objective(global_batch=c["batch"]))
+    search_ms = (time.perf_counter() - t0) * 1e3
+    rec = Recorder(path=None)
+    prev = set_default(rec)
+    try:
+        emit_search_event(res, path="chip_smoke", search_ms=search_ms)
+    finally:
+        set_default(prev)
+    events = [e for e in rec.events if e.get("event") == "placement_search"]
+    net.set_mesh(res.winner)
+    runs = {}
+    for arm, nt in (("meshless", plain), ("winner", net)):
+        torch.cuda.synchronize()
+        counters.reset()
+        for _ in range(n):
+            nt.fit(ds)
+        torch.cuda.synchronize()
+        runs[arm] = counters.read()
+    same = (canonical_equal(torch, plain, net)
+            and plain.score_value == net.score_value)
+    log23(card, f"23c: search on FleetShape(1, 1): {len(res.candidates)} "
+          f"feasible, {len(res.pruned)} pruned, winner "
+          f"{res.winner.describe()} (score {float(res.best.score):.0f}), "
+          f"{search_ms:.2f} ms (host); placement_search events "
+          f"{len(events)}; {n} steps under it bit for bit with the "
+          f"meshless net {same}; launches {runs['winner']}")
+    if not same or len(events) != 1 or runs["winner"] != pipe_want(1, n,
+                                                                   c["n_layers"]):
+        raise PhaseFailed("23c", "the searched placement's steps are not "
+                                 "the meshless steps")
+    net.set_mesh(None)
+    return runs["winner"], res.winner
+
+
+def bench_arm_on_card(winner, card):
+    """23c: reshard/bench_arm in a process of its own, the winner's
+    placement at the flagship's dims (bf16, batch 32 x 512): its median
+    step time."""
+    c = TRAIN
+    spec = {"placement": winner.to_json(), "dtype": "bfloat16",
+            "dims": dict(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                         n_heads=c["n_heads"], n_layers=c["n_layers"],
+                         d_ff=c["d_ff"], max_length=c["seq"]),
+            "batch": c["batch"], "seed": SEED, "warm": 2, "repeats": 5,
+            "device": "cuda"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.reshard.bench_arm",
+         json.dumps(spec)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if out.returncode or not lines:
+        raise PhaseFailed("23c", f"bench_arm exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+    result = json.loads(lines[-1][len("RESULT "):])
+    log23(card, f"23c: bench_arm (its own process) {result['placement']}: "
+          f"median step {result['ms_per_step']:.3f} ms of "
+          f"{[round(t, 3) for t in result['times_ms']]} (host clock, the "
+          f"card synchronized), loss {result['loss']:.4f}")
+    return result
+
+
+def check_microbatch_kernels(torch, fa, fsx, card):
+    """K2 and K6 at a microbatch's shape (packed B 4, T 512, 2 heads of
+    128) and K8 and K9 at its rows (N = 2048, d 256, V 10000; K9's dW
+    slices of N follow N), f32 and bf16, each against its plain version
+    on the same inputs at phase 2's tolerances: K2's o and lse within
+    TOL, K6's dqkv and K9's dx/dW/db within REL_TOL of their largest
+    entry, K8's loss and lse within XENT_FWD_TOL (o and lse from the
+    plain forward feed both backwards, as in phase 2). Returns the
+    largest absolute errors."""
+    c = TRAIN
+    B, T, H = c["batch"] // PIPE["M"], c["seq"], c["n_heads"]
+    D = c["d_model"] // H
+    N, d, V = B * T, c["d_model"], c["vocab_size"]
+    scale = D ** -0.5
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 25)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        qkv = torch.randn(B, T, 3 * H * D, generator=gen).to("cuda", dtype)
+        do = torch.randn(B, T, H * D, generator=gen).to("cuda", dtype)
+        x, w, b = (t.to("cuda", dtype) for t in (
+            torch.randn(N, d, generator=gen),
+            0.05 * torch.randn(d, V, generator=gen),
+            0.01 * torch.randn(V, generator=gen)))
+        labels = torch.randint(0, V, (N,), generator=gen).to(
+            "cuda", torch.int32)
+        g = (torch.rand(N, generator=gen) / N).to("cuda")
+        o, lse = fa._flash_fwd_qkv(qkv, H, None, scale, True)
+        ro, rlse = fa._flash_fwd_qkv_reference(qkv, H, None, scale, True)
+        dqkv = fa._flash_bwd_qkv(qkv, ro, rlse, do, H, None, scale, True)
+        rdqkv = fa._flash_bwd_qkv_reference(qkv, ro, rlse, do, H, None,
+                                            scale, True)
+        loss, xlse = fsx._fused_fwd(x, w, b, labels)
+        rloss, rxlse = fsx._xent_fwd_reference(x, w, b, labels)
+        grads = fsx._fused_bwd(x, w, b, labels, rxlse, g)
+        refs = fsx._xent_bwd_reference(x, w, b, labels, rxlse, g)
+        torch.cuda.synchronize()
+        tol = TOL[dname]
+        err_o = float((o.float() - ro.float()).abs().max())
+        err_l = float((lse - rlse).abs().max())
+        k6_abs, k6 = errs(dqkv, rdqkv)
+        k8_abs, k8 = (max(e) for e in zip(errs(loss, rloss),
+                                          errs(xlse, rxlse)))
+        k9_abs, k9 = (max(e) for e in zip(
+            *(errs(a, r) for a, r in zip(grads, refs))))
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (o, dqkv, loss, *grads))
+        rows = [("K2", f"o {err_o:.3e}, lse {err_l:.3e} (tol o "
+                       f"{tol['o']}, lse {tol['lse']})",
+                 err_o <= tol["o"] and err_l <= tol["lse"]),
+                ("K6", f"dqkv rel {k6:.3e} (tol {REL_TOL[dname]})",
+                 k6 <= REL_TOL[dname]),
+                ("K8", f"loss/lse rel {k8:.3e} (tol {XENT_FWD_TOL})",
+                 k8 <= XENT_FWD_TOL),
+                ("K9", f"dx/dW/db rel {k9:.3e} (tol {REL_TOL[dname]})",
+                 k9 <= REL_TOL[dname])]
+        for kern, err in (("K2", err_o), ("K6", k6_abs), ("K8", k8_abs),
+                          ("K9", k9_abs)):
+            worst[kern] = max(worst.get(kern, 0.0), err)
+        for kern, what, ok in rows:
+            log23(card, f"check {kern} at a microbatch (B={B} T={T} H={H} "
+                  f"D={D}; N={N} d={d} V={V}) {dname}: {what}, finite "
+                  f"{finite} -> {'ok' if ok and finite else 'FAIL'}")
+            if not (ok and finite):
+                raise PhaseFailed("23a", f"{kern} at a microbatch's shape "
+                                         f"({dname}) disagrees with its "
+                                         f"plain version")
+    return worst
+
+
+def microbatch_kernel_times(torch, fa, fsx, card):
+    """K2 and K6 at a microbatch's shape (B 4, T 512, 2 heads of 128) and
+    K8 and K9 at its rows (N = 2048, d 256, V 10000), bf16: event time,
+    device time a launch, the bound and one PyTorch call's time (SDPA,
+    F.cross_entropy forward and backward) and the plain version's time,
+    for PERF.md's kernel table. Timing launches, not counted."""
+    import torch.nn.functional as F
+
+    c = TRAIN
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    B, T, H = c["batch"] // PIPE["M"], c["seq"], c["n_heads"]
+    D = c["d_model"] // H
+    qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda",
+                      dtype=torch.bfloat16).requires_grad_()
+    do = torch.randn((B, T, H * D), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, T, H, D).transpose(1, 2).contiguous()
+               .requires_grad_() for t in qkv.detach().chunk(3, dim=-1))
+    do4 = do.reshape(B, T, H, D).transpose(1, 2).contiguous()
+
+    def fwd():
+        return fa.flash_attention_qkv(qkv, H, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    scale = D ** -0.5
+    out, lib_out = fwd(), sdpa()
+    ro, rlse = fa._flash_fwd_qkv_reference(qkv.detach(), H, None, scale,
+                                           True)
+
+    def plain_fwd():
+        return fa._flash_fwd_qkv_reference(qkv.detach(), H, None, scale,
+                                           True)
+
+    def plain_bwd():
+        return fa._flash_bwd_qkv_reference(qkv.detach(), ro, rlse, do, H,
+                                           None, scale, True)
+
+    bound, by, _ = flash_bound_ms(B * H, T, D, 2, True, False,
+                                  PEAK_BF16_FLOPS)
+    bbound, bby, _ = flash_bwd_bound_ms(B * H, T, D, 2, False, B)
+    shape = f"packed B={B} T={T} H={H} D={D}"
+    rec = {
+        "K2": {"shape": shape, "ms": time_ms(torch, fwd),
+               "device_ms": kernel_device_ms(torch, fwd),
+               "library_ms": time_ms(torch, sdpa), "bound_ms": bound,
+               "bound_by": by, "plain_ms": time_ms(torch, plain_fwd)},
+        "K6": {"shape": shape,
+               "ms": grad_ms(torch, out, (qkv,), do),
+               "device_ms": kernel_device_ms(
+                   torch, lambda: torch.autograd.grad(out, qkv, do,
+                                                      retain_graph=True)),
+               "library_ms": grad_ms(torch, lib_out, (q, k, v), do4),
+               "bound_ms": bbound, "bound_by": bby,
+               "plain_ms": time_ms(torch, plain_bwd)}}
+    N, d, V = B * T, c["d_model"], c["vocab_size"]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 24)
+    x = torch.randn(N, d, generator=gen).to("cuda", torch.bfloat16)
+    w = (0.05 * torch.randn(d, V, generator=gen)).to("cuda", torch.bfloat16)
+    b = (0.01 * torch.randn(V, generator=gen)).to("cuda", torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=gen).to("cuda", torch.int32)
+    gl = (torch.rand(N, generator=gen) / N).to("cuda")
+    _, lse = fsx._fused_fwd(x, w, b, labels)
+    lab64 = labels.long()
+    lx, lw, lb = (t.clone().requires_grad_() for t in (x, w, b))
+    lib_loss = F.cross_entropy(lx @ lw + lb, lab64, reduction="none")
+    for kern, run, plain, lib, backward in (
+            ("K8", lambda: fsx._fused_fwd(x, w, b, labels),
+             lambda: fsx._xent_fwd_reference(x, w, b, labels),
+             lambda: F.cross_entropy(x @ w + b, lab64, reduction="none"),
+             False),
+            ("K9", lambda: fsx._fused_bwd(x, w, b, labels, lse, gl),
+             lambda: fsx._xent_bwd_reference(x, w, b, labels, lse, gl),
+             lambda: torch.autograd.grad(lib_loss, (lx, lw, lb), gl,
+                                         retain_graph=True), True)):
+        bms, bby2, _ = xent_bound_ms(N, d, V, 2, backward)
+        rec[kern] = {"shape": f"N={N} d={d} V={V}", "ms": time_ms(torch, run),
+                     "device_ms": kernel_device_ms(torch, run),
+                     "plain_ms": time_ms(torch, plain),
+                     "library_ms": time_ms(torch, lib), "bound_ms": bms,
+                     "bound_by": bby2}
+    log23(card, f"23a: the kernels at a microbatch's shape (bf16): {rec}")
+    return rec
+
+
+def train_pipeline(torch, counters, fa, fsx, transformer_lm, DataSet, card):
+    """Phase 23: pipeline parallelism (23a), the resharding engine (23b)
+    and the placement search (23c) at world size 1 over NCCL on the one
+    card. Returns the launches of its main-path runs and the kernels'
+    times at a microbatch's shape."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"data": 1, "model": 1, "pipe": 1})
+    try:
+        pipe_launches, _ = pipelined_flagship(torch, counters,
+                                              transformer_lm, DataSet,
+                                              mesh, card)
+        restore_launches = reshard_on_card(torch, counters, transformer_lm,
+                                           DataSet, mesh, card)
+        search_launches, winner = search_on_card(
+            torch, counters, transformer_lm, DataSet, mesh, card)
+    finally:
+        bootstrap.shutdown()
+    bench_arm_on_card(winner, card)
+    worst = check_microbatch_kernels(torch, fa, fsx, card)
+    times = microbatch_kernel_times(torch, fa, fsx, card)
+    for kern, err in worst.items():
+        times[kern]["max_abs_err"] = err
+    runs = (pipe_launches, restore_launches, search_launches)
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in pipe_launches}
+    log23(card, f"phase 23 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return launches, times
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -6373,12 +6931,14 @@ def main() -> int:
                                   DataSet, name_power)
     place_launches, shard_times = train_placements(
         torch, counters, fa, transformer_lm, DataSet, name_power)
-    log(f"chip_smoke: phases 1-22 in {time.perf_counter() - started:.1f} s")
+    pipe_launches, micro_times = train_pipeline(
+        torch, counters, fa, fsx, transformer_lm, DataSet, name_power)
+    log(f"chip_smoke: phases 1-23 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-22", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-23", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -6389,15 +6949,16 @@ def main() -> int:
     # Word2Vec, the engine, the speculative replay, the predict path's
     # flagship windows, the MoE LM's training runs, phase 20's
     # host-path Word2Vec, phase 21's data-parallel, ring, sequence-
-    # parallel and pipelined-fit runs, and phase 22's graph, MultiLayer-
-    # Network decode, placed-net and split-block runs), each counted from
+    # parallel and pipelined-fit runs, phase 22's graph, MultiLayer-
+    # Network decode, placed-net and split-block runs, and phase 23's
+    # pipelined, restored and searched-placement runs), each counted from
     # 0 just before it and read just after. K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
-            par_launches, place_launches)
+            par_launches, place_launches, pipe_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}
@@ -6467,6 +7028,9 @@ def main() -> int:
         if kern in shard_times:
             # a model shard's shape (22d), beside the row's
             kernels[-1]["model_shard"] = shard_times[kern]
+        if kern in micro_times:
+            # a pipeline microbatch's shape (23a), beside the row's
+            kernels[-1]["microbatch"] = micro_times[kern]
         if kern == "K10":
             kernels[-1]["host_us"] = rec["host_us"]
         if kern == "K12":

@@ -21,9 +21,12 @@ the backward; `rnn_time_step` streams through the recurrent vertices.
 `fit` rides the pipelined input loader (data/pipeline.iter_prefetched):
 the next batch's conversion runs on a producer thread while the step
 computes. `set_mesh` (parallel/placement.py) takes the "data", "seq",
-"model" and "expert" roles and ZeRO-1: each rank then steps on its rows
-(and time block) of the global batch with its shares of the split
-layers, and `output` / `evaluate` shard the batch over the data axis.
+"model", "expert" and "pipe" roles and ZeRO-1: each rank then steps on
+its rows (and time block) of the global batch with its shares of the
+split layers, a pipelined net through the GPipe step of its stage
+(parallel/pipeline.py); `output`, `score` and `evaluate` run on the
+params with the other stages gathered, and shard the batch over the
+data axis.
 `resume_from` reads the port's own checkpoint format
 (util/checkpoint.py); `inference_fn` is the forward the predict engine's
 replicas call (serving/engine.py).
@@ -84,6 +87,9 @@ from deeplearning4j_tpu_torch.parallel.placement import (
     canonical_opt_state,
     canonical_params,
     configure_mesh,
+    inference_params,
+    num_params as placement_num_params,
+    set_canonical_params,
     local_dataset,
     mesh_axis,
     not_ported,
@@ -193,6 +199,9 @@ class ComputationGraph(LazyScore):
         self._overlap_plan = None
         self._split_plan = None  # the "model" / "expert" placement
         self._zero1 = None
+        self._pipe = None  # the "pipe" placement (parallel/pipeline.py)
+        self._pipe_mesh = None
+        self._canonical_like = None
 
     @property
     def compute_dtype(self):
@@ -259,15 +268,32 @@ class ComputationGraph(LazyScore):
         returns its last."""
         masks = dict(masks) if masks else {}
         cdtype = self.compute_dtype
-        remat = self.conf.conf.remat and torch.is_grad_enabled()
         acts = {}
         for k, v in input_dict.items():
             v = torch.as_tensor(v, device=self.device)
             acts[k] = v.to(cdtype) if v.is_floating_point() else v
         new_state, new_carries = {}, {}
-        for name in self.topo:
-            if name in self.conf.network_inputs or name in skip:
-                continue
+        names = [n for n in self.topo
+                 if n not in self.conf.network_inputs and n not in skip]
+        self._run_vertices(names, params, state, acts, masks, new_state,
+                           train=train, generator=generator, carries=carries,
+                           new_carries=new_carries)
+        for n in self.layer_vertices:
+            new_state.setdefault(n, state.get(n, {}))
+        return acts, new_state, new_carries
+
+    def _run_vertices(self, names, params, state, acts, masks, new_state, *,
+                      train=False, generator=None, carries=None,
+                      new_carries=None):
+        """Run the vertices `names` (in topological order) on `acts`
+        ({vertex: activation}, which must hold their inputs), adding
+        their activations to `acts`, their layer state to `new_state`
+        and the masks that carry through them to `masks`: the body of
+        `_walk`, which a pipeline stage runs over its own region
+        (parallel/pipeline.py)."""
+        cdtype = self.compute_dtype
+        remat = self.conf.conf.remat and torch.is_grad_enabled()
+        for name in names:
             vconf = self.conf.vertices[name]
             inputs = [acts[i] for i in self.conf.vertex_inputs[name]]
             if isinstance(vconf, LayerVertexConf):
@@ -305,9 +331,6 @@ class ComputationGraph(LazyScore):
                     and tuple(y.shape[:2]) == tuple(m.shape)
                     and self._time_preserving(vconf, m.shape[1])):
                 masks[name] = m
-        for n in self.layer_vertices:
-            new_state.setdefault(n, state.get(n, {}))
-        return acts, new_state, new_carries
 
     def _forward(self, params, state, input_dict, masks=None, *,
                  train=False, generator=None, collect=False):
@@ -425,7 +448,13 @@ class ComputationGraph(LazyScore):
 
     def _get_train_step(self):
         if self._train_step is None:
-            if mesh_axis(self, "seq") is not None:
+            if self._pipe is not None:
+                from deeplearning4j_tpu_torch.parallel.pipeline import (
+                    make_pp_train_step,
+                )
+
+                self._train_step = make_pp_train_step(self, self._pipe)
+            elif mesh_axis(self, "seq") is not None:
                 self._train_step = make_sp_train_step(
                     self, self._mesh, seq_axis=mesh_axis(self, "seq"),
                     data_axis=mesh_axis(self, "data"))
@@ -672,9 +701,7 @@ class ComputationGraph(LazyScore):
 
     # -------------------------------------------------------- params plumbing
     def num_params(self) -> int:
-        if self._split_plan is not None:
-            return self._split_plan.num_params(self.params)
-        return tree.num_params(self.params)
+        return placement_num_params(self)
 
     def canonical_params(self):
         """The params whole in the JAX layout, under a "model" / "expert"
@@ -693,9 +720,8 @@ class ComputationGraph(LazyScore):
         return tree.params_flat(self.canonical_params())
 
     def set_params_flat(self, flat):
-        params = tree.set_params_flat(self.canonical_params(), flat)
-        split = self._split_plan
-        self.params = params if split is None else split.local(params)
+        set_canonical_params(
+            self, tree.set_params_flat(self.canonical_params(), flat))
 
     @torch.no_grad()
     def score(self, ds=None, training: bool = False):
@@ -703,7 +729,7 @@ class ComputationGraph(LazyScore):
         when `ds` is None."""
         if ds is None:
             return self.score_value
-        loss, _ = self._loss(self.params, self.state, None,
+        loss, _ = self._loss(inference_params(self), self.state, None,
                              self._batch_dict(self._to_mds(ds)),
                              train=training)
         return float(loss)
@@ -714,14 +740,15 @@ class ComputationGraph(LazyScore):
         (reference ScoreExamplesFunction); inference-mode forward.
         `add_regularization` adds the network L1/L2 penalty to each."""
         batch = self._batch_dict(self._to_mds(ds))
+        params = inference_params(self)
         acts, _ = self._forward(
-            self.params, self.state,
+            params, self.state,
             dict(zip(self.conf.network_inputs, batch["features"])),
             self._input_masks(batch), collect=True)
-        per = self._output_losses(self.params, acts, batch, train=False,
+        per = self._output_losses(params, acts, batch, train=False,
                                   generator=None, per_example=True)
         if add_regularization:
-            per = per + self._penalty(self.params)
+            per = per + self._penalty(params)
         return per.float().cpu().numpy()
 
     def evaluate(self, it, top_n: int = 1):
@@ -751,9 +778,9 @@ class ComputationGraph(LazyScore):
         tensor if there is one output. Under a data mesh each rank runs
         its rows and the outputs are all-gathered
         (parallel/placement.sharded_forward)."""
+        params = inference_params(self)
         ys = sharded_forward(self, inputs, lambda *xs: self._forward(
-            self.params, self.state,
-            dict(zip(self.conf.network_inputs, xs))))
+            params, self.state, dict(zip(self.conf.network_inputs, xs))))
         return ys[0] if len(ys) == 1 else ys
 
     def predict(self, *inputs):

@@ -29,8 +29,9 @@ pipelined input loader (data/pipeline.iter_prefetched). `set_mesh`
 (parallel/placement.py) takes the "data" role — each rank steps on its
 rows of the global batch, and `output` / `evaluate` shard the batch
 over the data axis — ZeRO-1, and the "model" and "expert" roles where
-the placement rules name its layers ("seq" needs the graph container,
-"pipe" waits for ROADMAP Queue A item 7). A transformer stack decodes
+the placement rules name its layers ("seq" and "pipe" need the graph
+container and raise the JAX package's ValueError). A transformer stack
+decodes
 incrementally (`incremental_decode_fn`, `prefill_fn`, `verify_decode_fn`,
 `init_kv_cache`; nn/decode.py), so `GenerationEngine` serves it.
 `resume_from` reads the port's own checkpoint format
@@ -81,6 +82,8 @@ from deeplearning4j_tpu_torch.parallel.placement import (
     canonical_opt_state,
     canonical_params,
     configure_mesh,
+    num_params as placement_num_params,
+    set_canonical_params,
     local_dataset,
     mesh_axis,
     not_ported,
@@ -112,6 +115,9 @@ class MultiLayerNetwork(LazyScore):
         self._overlap_plan = None
         self._split_plan = None  # the "model" / "expert" placement
         self._zero1 = None
+        self._pipe = None  # the "pipe" placement (parallel/pipeline.py)
+        self._pipe_mesh = None
+        self._canonical_like = None
 
     @property
     def compute_dtype(self):
@@ -642,9 +648,7 @@ class MultiLayerNetwork(LazyScore):
 
     # -------------------------------------------------------- params plumbing
     def num_params(self) -> int:
-        if self._split_plan is not None:
-            return self._split_plan.num_params(self.params)
-        return tree.num_params(self.params)
+        return placement_num_params(self)
 
     def canonical_params(self):
         """The params whole in the JAX layout, under a "model" / "expert"
@@ -665,9 +669,8 @@ class MultiLayerNetwork(LazyScore):
     def set_params_flat(self, flat):
         """Set every param from a flat vector in `params_flat`'s order,
         each in its own dtype."""
-        params = tree.set_params_flat(self.canonical_params(), flat)
-        split = self._split_plan
-        self.params = params if split is None else split.local(params)
+        set_canonical_params(
+            self, tree.set_params_flat(self.canonical_params(), flat))
 
     def clone(self) -> "MultiLayerNetwork":
         """A new net of a copy of this configuration with copies of its

@@ -36,8 +36,8 @@ new params; the overlap arm takes its rows of the bucket-reduced
 gradients. The other leaves are all-reduced and updated whole, as
 before. Tensor and expert parallelism need nothing here: the split
 layers run their collectives themselves (ops/shard_scope.py), and the
-norms of split leaves sum over their groups (nn/updater.py). Pipelining
-waits for ROADMAP Queue A item 7.
+norms of split leaves sum over their groups (nn/updater.py). A
+pipelined net takes its own step (parallel/pipeline.make_pp_train_step).
 """
 
 from __future__ import annotations
@@ -54,7 +54,6 @@ from deeplearning4j_tpu_torch.nn.conf.layers import BaseRecurrentLayer
 from deeplearning4j_tpu_torch.nn.updater import (
     apply_updates,
     build_optimizer,
-    map_param_state,
     normalize_gradients,
 )
 
@@ -218,6 +217,7 @@ class Zero1:
     moments."""
 
     def __init__(self, params, mesh, axis: str = "data"):
+        self.axis = axis
         self.group = mesh.group(axis)
         self.n = mesh.axis_size(axis)
         self.index = mesh.axis_index(axis)
@@ -227,24 +227,6 @@ class Zero1:
     def rows(self, t):
         w = t.shape[0] // self.n
         return t[self.index * w:(self.index + 1) * w]
-
-    def local_state(self, opt_state):
-        """A whole optimizer state cut to this rank's rows."""
-        return map_param_state(opt_state, lambda path, t: self.rows(
-            t).clone() if path in self._split else t)
-
-    def whole_state(self, opt_state):
-        """The whole optimizer state, gathered (every rank calls it)."""
-        from deeplearning4j_tpu_torch.parallel.overlap import all_gather
-
-        def gather(path, t):
-            if path not in self._split:
-                return t
-            out = t.new_empty((t.shape[0] * self.n,) + tuple(t.shape[1:]))
-            all_gather(out, t.contiguous(), self.group)
-            return out
-
-        return map_param_state(opt_state, gather)
 
     def groups(self):
         """{leaf path: the data group}: LAMB's and the gradient

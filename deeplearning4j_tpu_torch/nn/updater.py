@@ -31,6 +31,7 @@ weight decay 0, the trust ratio per leaf and 1 where either norm is 0).
 from __future__ import annotations
 
 import math
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -135,11 +136,39 @@ def _sq_sum(items):
     return torch.zeros(()) if total is None else total
 
 
+def _tied_norms(params, us, ties):
+    """{index: (|p|, |u|)} of the tensors that `ties` (one entry a
+    tensor: None, or (key, stage)) ties to others of the same key: the
+    norms over all of them, their squares summed in stage order (the
+    stage leaves of one stacked leaf of the JAX layout, run in one
+    process by the in-process pipeline)."""
+    if not ties or not any(ties):
+        return {}
+    members = defaultdict(list)
+    for i, tie in enumerate(ties):
+        if tie is not None:
+            members[tie[0]].append((tie[1], i))
+    out = {}
+    for group in members.values():
+        group.sort()
+        pn = un = None
+        for _, i in group:
+            ps = (params[i].float() ** 2).sum()
+            uq = (us[i].float() ** 2).sum()
+            pn = ps if pn is None else pn + ps
+            un = uq if un is None else un + uq
+        for _, i in group:
+            out[i] = (torch.sqrt(pn), torch.sqrt(un))
+    return out
+
+
 class _Rule:
     """One update rule over a list of f32 tensors: optax's transform for
     it followed by its scale by the (scheduled) negative learning
     rate. `groups` (one per tensor, None for a whole one) are the process
-    groups a tensor is split over, which LAMB's norms sum over."""
+    groups a tensor is split over, which LAMB's norms sum over; `ties`
+    (one per tensor, None or (key, stage)) the tensors of one process
+    whose norms LAMB takes together."""
 
     def __init__(self, kind, conf, schedule):
         self.kind = kind
@@ -164,7 +193,7 @@ class _Rule:
             state["e_g"], state["e_x"] = zeros(), zeros()
         return state
 
-    def update(self, grads, state, params, groups=None):
+    def update(self, grads, state, params, groups=None, ties=None):
         c = self.conf
         groups = groups or [None] * len(grads)
         count = state["count"]
@@ -206,13 +235,17 @@ class _Rule:
             b1, b2, eps = 0.9, 0.999, 1e-6
             bc1 = _bias_correction(b1, count + 1)
             bc2 = _bias_correction(b2, count + 1)
-            ups = []
-            for g, mu, nu, p, grp in zip(grads, state["mu"], state["nu"],
-                                         params, groups):
+            us = []
+            for g, mu, nu in zip(grads, state["mu"], state["nu"]):
                 mu.mul_(b1).add_(g, alpha=1.0 - b1)
                 nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-                u = (mu / bc1) / ((nu / bc2).sqrt() + eps)
-                if grp is None:
+                us.append((mu / bc1) / ((nu / bc2).sqrt() + eps))
+            tied = _tied_norms(params, us, ties)
+            ups = []
+            for i, (u, p, grp) in enumerate(zip(us, params, groups)):
+                if i in tied:
+                    pn, un = tied[i]
+                elif grp is None:
                     pn = torch.linalg.vector_norm(p.float())
                     un = torch.linalg.vector_norm(u.float())
                 else:
@@ -266,12 +299,15 @@ class Optimizer:
     on the layer name). state: {label: {"keys": [leaf path], "count",
     rule state: a tensor a key}}. `split_groups` {leaf path: process
     group} names the leaves a placement split (parallel/), whose norms
-    sum over their group."""
+    sum over their group; `norm_ties` {leaf path: (key, stage)} the
+    leaves of one process whose norms LAMB takes together (the stages
+    of an in-process pipeline, parallel/pipeline.place_in_process)."""
 
     def __init__(self, rules, labels):
         self.rules = rules          # {label: _Rule}
         self.labels = labels        # {layer: label}
         self.split_groups = {}
+        self.norm_ties = {}
 
     def _label(self, layer):
         return self.labels.get(layer, "__default__")
@@ -299,25 +335,10 @@ class Optimizer:
             ups = self.rules[label].update(
                 [tree.get(grads, k) for k in keys], rule_state,
                 [tree.get(params, k) for k in keys],
-                [self.split_groups.get(tuple(k)) for k in keys])
+                [self.split_groups.get(tuple(k)) for k in keys],
+                [self.norm_ties.get(tuple(k)) for k in keys])
             pairs.extend(zip(keys, ups))
         return tree.from_leaves(pairs), state
-
-
-def map_param_state(opt_state, fn):
-    """A copy of an Optimizer state with `fn(leaf path, tensor)` applied
-    to each per-leaf tensor (the moments; counts and keys pass)."""
-    out = {}
-    for label, st in opt_state.items():
-        keys = st["keys"]
-        new = {}
-        for name, v in st.items():
-            if (isinstance(v, list) and len(v) == len(keys)
-                    and all(isinstance(t, torch.Tensor) for t in v)):
-                v = [fn(tuple(k), t) for k, t in zip(keys, v)]
-            new[name] = v
-        out[label] = new
-    return out
 
 
 @torch.no_grad()

@@ -1,11 +1,14 @@
 """Distributed training (JAX counterpart deeplearning4j_tpu/parallel):
-data, sequence, tensor and expert parallelism and ZeRO-1, one process
-per device under `torch.distributed` (NCCL on CUDA, gloo on the CPU).
+data, sequence, tensor, expert and pipeline parallelism and ZeRO-1,
+one process per device under `torch.distributed` (NCCL on CUDA, gloo
+on the CPU).
 
 - `mesh`: named axes over the ranks (`make_mesh`, `shard_batch`,
   `replicate`, `spans_processes`);
-- `placement`: `set_mesh`'s body for the roles "data", "seq", "model"
-  and "expert" and for ZeRO-1;
+- `placement`: `set_mesh`'s body for the roles "data", "seq", "model",
+  "expert" and "pipe", for ZeRO-1 and for a `reshard.Placement`;
+- `pipeline`: the stage partition (`PipelinePlan`) and the GPipe step
+  over a process-group or an in-process transport (`place_in_process`);
 - `tensor_parallel`: the placement rules and `SplitPlan`, which cuts a
   net's params to this rank's shards and gathers them whole;
 - `expert_parallel`: the MoE layer with its experts split;
@@ -19,8 +22,8 @@ per device under `torch.distributed` (NCCL on CUDA, gloo on the CPU).
 
 The shard a mesh step's forward runs as, and the split of each placed
 layer, are `ops/shard_scope.py`, which the layers read; the split
-layers' collectives are `ops/shard_comm.py`. Pipeline parallelism and
-placement search wait for the rest of ROADMAP Queue A item 7.
+layers' collectives are `ops/shard_comm.py`; moving a placed net to
+another placement is `reshard/`.
 """
 
 from deeplearning4j_tpu_torch.parallel.data_parallel import (

@@ -13,8 +13,8 @@ that share every other coordinate. Axis conventions:
 - "model": tensor parallelism (Megatron's split of attention heads and
   feed-forward units);
 - "expert": expert parallelism (a MoE layer's experts split);
-- "pipe": pipeline parallelism, which the port's `set_mesh` does not
-  take yet (ROADMAP Queue A item 7).
+- "pipe": pipeline parallelism (a stage of the layer stack a rank,
+  parallel/pipeline.py).
 
 `make_mesh` brings the process group up itself when it is not yet
 (`distributed.bootstrap.initialize`: from the launcher's env contract,
@@ -59,6 +59,47 @@ class Mesh:
 
     def axis_size(self, axis: str) -> int:
         return self.shape[axis]
+
+    def coords_of(self, rank: int) -> dict:
+        """{axis: coordinate} of any rank of the mesh."""
+        sizes = [self.shape[a] for a in self.axis_names]
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(
+            rank, sizes))))
+
+    def rank_of(self, coords: dict) -> int:
+        """The rank at `coords` ({axis: coordinate}; an axis left out
+        takes this rank's own coordinate)."""
+        sizes = [self.shape[a] for a in self.axis_names]
+        full = [int(coords.get(a, self._coords[a])) for a in self.axis_names]
+        return int(np.ravel_multi_index(full, sizes))
+
+    def subgroup(self, axes):
+        """The process group of the ranks that share every coordinate
+        but those of `axes` (one axis: `group(axis)`). Every rank must
+        make the first call for a set of axes, in the same order: the
+        groups are created collectively."""
+        import torch.distributed as dist
+
+        axes = tuple(a for a in self.axis_names if a in set(axes))
+        if len(axes) == 1:
+            return self._groups[axes[0]]
+        cache = self.__dict__.setdefault("_subgroups", {})
+        if axes not in cache:
+            others = [a for a in self.axis_names if a not in axes]
+            mine = None
+            for rest in itertools.product(*(range(self.shape[a])
+                                            for a in others)):
+                fixed = dict(zip(others, rest))
+                members = sorted(
+                    self.rank_of({**fixed, **dict(zip(axes, c))})
+                    for c in itertools.product(*(range(self.shape[a])
+                                                 for a in axes)))
+                g = (dist.group.WORLD if len(members) == self.size
+                     else dist.new_group(members))
+                if self.rank in members:
+                    mine = g
+            cache[axes] = mine
+        return cache[axes]
 
     def __repr__(self):
         return (f"Mesh({self.shape}, rank={self.rank}, "

@@ -9,16 +9,19 @@ is a tuple of axis names and None, the PartitionSpec's entries) and runs
 one process per device, so a placement does by hand what XLA did:
 
 - `SplitPlan` resolves, for every param of a net, the mesh axis and the
-  dim it is split on, checks that its layer has a split form and that
-  the split divides, and keeps this rank's slice of each split leaf in
-  `net.params` (and of its optimizer state).
+  dim it is split on and checks that its layer has a split form and
+  that the split divides; each rank keeps its slice of each split leaf
+  in `net.params` (and of its optimizer state), cut by the resharding
+  executor (reshard/executor.py `PortLayout`).
 - Each split layer is registered with its collectives' transport
   (ops/shard_scope.py `ModelShard`, ops/shard_comm.py) and computes its
   share: attention over its heads, a column- or row-parallel dense
   layer, an embedding or LM head that gathers its slices, a MoE layer
   over its experts (nn/layers/*).
-- `SplitPlan.whole` gathers the canonical params: whole leaves in the
-  JAX layout, for `params_flat`, checkpoints and `weights_io`.
+- The canonical params — whole leaves in the JAX layout, for
+  `params_flat`, checkpoints and `weights_io` — are gathered by the
+  resharding executor from the ranks' slices (reshard/executor.py, which
+  reads this plan's `leaves` and `shapes`).
 
 Where the port parts from the rules' plain reading:
 
@@ -197,17 +200,20 @@ def _split_form(lc, dims):
 class SplitPlan:
     """The leaves of a net that a "model" / "expert" placement splits:
     `leaves` {(layer, param): (axis, dim, n_heads or None)}, `shapes`
-    {(layer, param): whole shape}, `layers` {layer: axis}."""
+    {(layer, param): whole shape}, `layers` {layer: axis}; resolved on
+    `params`, the canonical params (the net's by default; only their
+    shapes are read)."""
 
-    def __init__(self, net, mesh, rules):
+    def __init__(self, net, mesh, rules, params=None):
         from deeplearning4j_tpu_torch.nn.updater import named_layer_confs
 
         self.mesh = mesh
         self.leaves, self.shapes, self.layers = {}, {}, {}
         self._confs = named_layer_confs(net)
+        params = net.params if params is None else params
         for layer, lc in self._confs.items():
             found = {}
-            for path, t in tree.leaves(net.params.get(layer, {})):
+            for path, t in tree.leaves(params.get(layer, {})):
                 name = "/".join((layer,) + path)
                 split = _split_dim(spec_for(name, mesh, rules))
                 if split is not None:
@@ -248,60 +254,6 @@ class SplitPlan:
             self.leaves[(layer,) + path] = (axis, d, qkv)
             self.shapes[(layer,) + path] = shape
         self.layers[layer] = axis
-
-    # ---------------------------------------------------------- leaves
-    def _slice(self, path, t):
-        axis, dim, heads = self.leaves[path]
-        return shard_slice(t, dim, self.mesh.axis_size(axis),
-                           self.mesh.axis_index(axis), heads)
-
-    def _gather(self, path, t):
-        import torch.distributed as dist
-
-        axis, dim, heads = self.leaves[path]
-        n = self.mesh.axis_size(axis)
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t.contiguous(), group=self.mesh.group(axis))
-        return join_shards(parts, dim, heads)
-
-    def _map(self, params, fn):
-        out = tree.tree_map(lambda t: t, params)
-        for path, t in tree.leaves(params):
-            if path in self.leaves:
-                tree.put(out, path, fn(path, t))
-        return out
-
-    def local(self, params):
-        """`params` (whole) with each split leaf cut to this rank's
-        slice."""
-        return self._map(params, self._slice)
-
-    def whole(self, params):
-        """The canonical params: each split leaf gathered whole (every
-        rank of the leaf's axis must call it)."""
-        return self._map(params, self._gather)
-
-    def local_state(self, opt_state):
-        """An optimizer state of the whole params cut like `local`."""
-        from deeplearning4j_tpu_torch.nn.updater import map_param_state
-
-        return map_param_state(opt_state, lambda path, t: self._slice(
-            path, t) if path in self.leaves else t)
-
-    def whole_state(self, opt_state):
-        from deeplearning4j_tpu_torch.nn.updater import map_param_state
-
-        return map_param_state(opt_state, lambda path, t: self._gather(
-            path, t) if path in self.leaves else t)
-
-    def num_params(self, params) -> int:
-        """The whole params' count, from the local ones."""
-        n = 0
-        for path, t in tree.leaves(params):
-            shape = self.shapes.get(path)
-            n += t.numel() if shape is None else int(
-                torch.Size(shape).numel())
-        return n
 
     # ---------------------------------------------------------- layers
     def groups(self):

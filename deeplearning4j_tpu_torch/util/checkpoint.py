@@ -22,10 +22,13 @@ or one whose model file is cut short, is rejected before any read.
 Arrays load with `torch.load(weights_only=True, map_location=
 net.device)`: tensors, dicts, lists, tuples, strings and numbers only,
 straight onto the net's device. A net placed on a mesh ("model" /
-"expert" splits, ZeRO-1) saves its canonical trees — gathered whole, so
-the file is the meshless net's — and every rank of the mesh calls
-`save`. Restoring into a placed net waits for ROADMAP Queue A item 7
-(A7, resharding).
+"expert" splits, ZeRO-1, "pipe" stages) saves its canonical trees —
+gathered whole, so the file is the meshless net's — and every rank of
+the mesh calls `save`. Restoring into a placed net (every rank calls
+`restore`) reads the file memory-mapped and keeps each rank's part of
+every leaf, as `reshard/executor.checkpoint_template` plans it, with the
+plan on the record; a checkpoint of any placement restores into any
+other, the meshless net's included.
 """
 
 from __future__ import annotations
@@ -118,8 +121,11 @@ class Checkpointer:
         torch.save(trees, model_path)
         with open(os.path.join(d, "config.json"), "w") as f:
             f.write(serde.to_json(net.conf))
+        from deeplearning4j_tpu_torch.reshard.executor import net_placement
+
         meta = {
             "format": FORMAT,
+            "placement": net_placement(net).to_json(),
             "iteration": int(net.iteration_count),
             "epoch": int(getattr(net, "epoch_count", 0)),
             "kind": type(net).__name__,
@@ -152,31 +158,76 @@ class Checkpointer:
                 f"(have {steps})")
         if net.params is None:
             net.init()
-        if (getattr(net, "_split_plan", None) is not None
-                or getattr(net, "_zero1", None) is not None):
-            from deeplearning4j_tpu_torch.parallel.placement import (
-                not_ported,
-            )
+        from deeplearning4j_tpu_torch.parallel.placement import (
+            _placed,
+            canonical_template,
+        )
 
-            not_ported("restoring a checkpoint into a net placed on a mesh "
-                       "(set_mesh(None) first, then set_mesh again)")
+        placed = _placed(net)
         meta = self.read_meta(step)
         for name in ("params", "state"):
-            want = manifest(getattr(net, name), name)
+            tree_ = canonical_template(net) if name == "params" else net.state
+            want = manifest(tree_, name)
             have = meta["leaves"][name]
             if want != have:
                 raise ValueError(
                     f"checkpoint step {step} {name} do not match this "
                     f"network: {first_difference(want, have)}")
-        trees = torch.load(os.path.join(self.step_dir(step), MODEL_FILE),
-                           weights_only=True, map_location=net.device)
-        net.params = trees["params"]
-        net.state = trees["state"]
-        net.opt_state = trees["opt_state"]
+        path = os.path.join(self.step_dir(step), MODEL_FILE)
+        if placed:
+            _restore_placed(net, torch.load(path, weights_only=True,
+                                            mmap=True, map_location="cpu"),
+                            meta)
+        else:
+            if "placement" in meta:
+                _record_plan(net, meta)
+            trees = torch.load(path, weights_only=True,
+                               map_location=net.device)
+            net.params = trees["params"]
+            net.state = trees["state"]
+            net.opt_state = trees["opt_state"]
         net.iteration_count = meta.get("iteration", 0)
         if hasattr(net, "epoch_count"):
             net.epoch_count = meta.get("epoch", 0)
         return net
+
+
+def _record_plan(net, meta):
+    """The `reshard_plan` event of a restore into an unplaced net: every
+    rank reads every leaf whole from the checkpoint."""
+    from deeplearning4j_tpu_torch.parallel.placement import current_layout
+    from deeplearning4j_tpu_torch.reshard.executor import (
+        checkpoint_template,
+        net_placement,
+    )
+    from deeplearning4j_tpu_torch.reshard.planner import Placement
+    from deeplearning4j_tpu_torch.telemetry import get_default
+
+    plan = checkpoint_template(net, current_layout(net)).plan.plan(
+        Placement.from_json(meta["placement"]), net_placement(net))
+    get_default().event("reshard_plan", path="checkpoint", **plan.summary())
+
+
+def _restore_placed(net, trees, meta):
+    """A checkpoint's canonical trees (memory-mapped) into a placed net:
+    each rank copies out its part of every leaf
+    (reshard/executor.restore_placed); the layer state whole."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.parallel.placement import current_layout
+    from deeplearning4j_tpu_torch.reshard.executor import (
+        net_placement,
+        restore_placed,
+    )
+    from deeplearning4j_tpu_torch.reshard.planner import Placement
+
+    src = (Placement.from_json(meta["placement"]) if "placement" in meta
+           else Placement.solo())
+    net.params, opt = restore_placed(net, trees, src, current_layout(net),
+                                     net_placement(net))
+    if net.opt_state is not None:
+        net.opt_state = opt
+    net.state = tree.tree_map(lambda t: t.to(net.device, copy=True),
+                              trees["state"])
 
 
 def _canonical_trees(net) -> dict:

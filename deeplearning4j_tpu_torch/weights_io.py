@@ -39,9 +39,27 @@ def params_from_jax(np_params: dict, device) -> dict:
     return _nest_map(lambda a: _tensor(a, device), np_params)
 
 
+def canonical_from_jax(jax_net) -> dict:
+    """A JAX net's canonical params as a nest of numpy arrays: the
+    per-layer tree, which a pipelined JAX net keeps restacked ({pre,
+    stages, post}) and hands back through `_canonical_params()`."""
+    if getattr(jax_net, "_pp_plan", None) is not None:
+        params = jax_net._canonical_params()
+    else:
+        params = jax_net.params
+    return _nest_map(np.asarray, params)
+
+
+def params_from_jax_net(jax_net, device) -> dict:
+    """`params_from_jax` of a JAX net's canonical params, pipelined or
+    not (`canonical_from_jax`)."""
+    return params_from_jax(canonical_from_jax(jax_net), device)
+
+
 def params_to_numpy(params) -> dict:
     """The port's params (a nest of dicts of tensors, or a network, whose
-    canonical params — whole under a mesh placement — are taken) -> the
+    canonical params — whole under a mesh placement, every pipeline
+    stage's included — are taken) -> the
     same nest of numpy arrays on the host, for comparing with a JAX net's
     `np.asarray` params: copies, which the next in-place update leaves as
     they are. bfloat16 widens to float32 (exactly): numpy has no

@@ -1,19 +1,24 @@
 // CPU emulation of the part of the CUDA runtime that the port's kernels
-// use (see emulate.py): each CUDA thread is a host thread, the blocks of
-// a grid run one after another (the blocks of one thread-block cluster
-// together, launched by cudaLaunchKernelEx), and a warp's collective
-// operations (shuffles, ballots, ldmatrix, mma.sync) meet at a barrier of
-// its 32 threads.
+// use (see emulate.py): each CUDA thread is a fiber (a stack of its own,
+// ucontext) of the launching host thread, the blocks of a grid run one
+// after another (the blocks of one thread-block cluster together,
+// launched by cudaLaunchKernelEx), and a warp's collective operations
+// (shuffles, ballots, ldmatrix, mma.sync) meet at a barrier of its 32
+// threads. A fiber runs until it waits at a barrier, then the next one
+// runs, round robin: one host thread a launch, so the emulation's speed
+// does not hang on how many cores the host has free.
 #pragma once
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <deque>
+#include <functional>
 #include <stdexcept>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -109,17 +114,59 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
 using std::max;
 using std::min;
 
+// a CUDA thread: its fiber, its coordinates and rendezvous, and a slot
+// for per-thread emulation state (emu_tc.h's cp.async groups)
+struct EmuBlock;
+struct EmuCluster;
+struct EmuFiber {
+  ucontext_t ctx;
+  ucontext_t* back = nullptr;
+  void* stack = nullptr;
+  std::function<void()> body;
+  uint3e tid{}, bid{};
+  EmuBlock* blk = nullptr;
+  EmuCluster* cluster = nullptr;
+  unsigned rank = 0;
+  unsigned char* smem = nullptr;
+  void* slot = nullptr;
+  void (*slot_free)(void*) = nullptr;
+  bool done = false;
+};
+inline thread_local EmuFiber* g_fiber = nullptr;
+// arrivals at barriers and returns of fibers: a round of every waiting
+// fiber that adds none is a deadlock (a barrier some threads skip)
+inline thread_local unsigned long g_emu_events = 0;
+// a running fiber gives the host thread back to the scheduler
+inline void emu_yield() { swapcontext(&g_fiber->ctx, g_fiber->back); }
+
+// a barrier of n fibers: each arrival waits until the n-th has arrived
+struct EmuBarrier {
+  unsigned n, arrived = 0;
+  unsigned long phase = 0;
+  explicit EmuBarrier(unsigned count) : n(count) {}
+  void arrive_and_wait() {
+    const unsigned long mine = phase;
+    ++g_emu_events;
+    if (++arrived == n) {
+      arrived = 0;
+      ++phase;
+      return;
+    }
+    while (phase == mine) emu_yield();
+  }
+};
+
 // the rendezvous of one block: a barrier of all its threads, one of each
 // warp, and exchange slots (16 words a lane)
 struct EmuBlock {
-  std::barrier<>* block;
-  std::barrier<>* warps[32];
+  EmuBarrier* block;
+  EmuBarrier* warps[32];
   uint64_t slots[32][32][16];
 };
 // a thread-block cluster: a barrier of all its threads, and each block's
 // dynamic shared memory (its distributed shared memory)
 struct EmuCluster {
-  std::barrier<>* all;
+  EmuBarrier* all;
   unsigned blocks;
   size_t bytes;
   unsigned char* smem[8];
@@ -134,6 +181,60 @@ extern void (*emu_poison)();
 
 // the dynamic shared memory of a block in a cudaLaunchKernelEx launch
 inline void* emu_block_smem() { return g_smem; }
+
+// each fiber's stack: reserved, not committed, so a block of 1024
+// threads costs only the pages its kernel touches
+constexpr size_t kEmuStack = 4u << 20;
+
+inline void emu_fiber_entry() {
+  EmuFiber* f = g_fiber;
+  f->body();
+  f->done = true;
+  ++g_emu_events;
+  swapcontext(&f->ctx, f->back);
+}
+
+// run the fibers round robin until every one has returned, each resumed
+// with its thread's coordinates in place; then free their stacks and
+// slots
+inline void emu_run(std::vector<EmuFiber>& fibers) {
+  ucontext_t main;
+  for (auto& f : fibers) {
+    f.stack = mmap(nullptr, kEmuStack, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (f.stack == MAP_FAILED) throw std::runtime_error("fiber stack");
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = f.stack;
+    f.ctx.uc_stack.ss_size = kEmuStack;
+    f.ctx.uc_link = nullptr;
+    makecontext(&f.ctx, emu_fiber_entry, 0);
+    f.back = &main;
+  }
+  size_t live = fibers.size();
+  while (live) {
+    const unsigned long before = g_emu_events;
+    for (auto& f : fibers) {
+      if (f.done) continue;
+      g_fiber = &f;
+      threadIdx = f.tid;
+      blockIdx = f.bid;
+      g_blk = f.blk;
+      g_cluster = f.cluster;
+      g_rank = f.rank;
+      g_smem = f.smem;
+      swapcontext(&main, &f.ctx);
+      if (f.done) --live;
+    }
+    if (live && g_emu_events == before)
+      throw std::runtime_error("emulated threads wait at barriers that "
+                               "no other thread reaches");
+  }
+  g_fiber = nullptr;
+  for (auto& f : fibers) {
+    munmap(f.stack, kEmuStack);
+    if (f.slot) f.slot_free(f.slot);
+  }
+}
 
 inline void __syncthreads() { g_blk->block->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -196,24 +297,23 @@ void emu_launch(void (*k)(P...), dim3 grid, int block, size_t smem,
     const unsigned bx = bi % grid.x, by = bi / grid.x % grid.y,
                    bz = bi / grid.x / grid.y;
     EmuBlock blk;
-    std::barrier<> bb(n);
-    std::vector<std::barrier<>*> wb;
+    EmuBarrier bb(n);
+    std::vector<EmuBarrier> wb;
+    wb.reserve((n + 31) / 32);
     for (unsigned w = 0; w < (n + 31) / 32; ++w)
-      wb.push_back(new std::barrier<>(std::min(32u, n - 32 * w)));
+      wb.emplace_back(std::min(32u, n - 32 * w));
     blk.block = &bb;
-    for (unsigned w = 0; w < wb.size(); ++w) blk.warps[w] = wb[w];
+    for (unsigned w = 0; w < wb.size(); ++w) blk.warps[w] = &wb[w];
     emu_poison();
-    std::vector<std::thread> th;
-    for (unsigned tx = 0; tx < n; ++tx)
-      th.emplace_back([&, tx, bx, by, bz] {
-        threadIdx = {tx, 0, 0};
-        blockIdx = {bx, by, bz};
-        g_blk = &blk;
-        g_cluster = nullptr;
-        k(args...);
-      });
-    for (auto& t : th) t.join();
-    for (auto* p : wb) delete p;
+    std::vector<EmuFiber> fibers(n);
+    for (unsigned tx = 0; tx < n; ++tx) {
+      EmuFiber& f = fibers[tx];
+      f.tid = {tx, 0, 0};
+      f.bid = {bx, by, bz};
+      f.blk = &blk;
+      f.body = [&] { k(args...); };
+    }
+    emu_run(fibers);
   }
 }
 
@@ -235,32 +335,28 @@ void emu_launch_cluster(void (*k)(P...), dim3 grid, unsigned block,
     std::vector<std::vector<unsigned char>> mem(
         cl, std::vector<unsigned char>(std::max<size_t>(smem, 1), 0xff));
     std::vector<EmuBlock> blks(cl);
-    std::vector<std::barrier<>*> bars;
-    std::barrier<> all(cl * n);
+    std::deque<EmuBarrier> bars;
+    EmuBarrier all(cl * n);
     EmuCluster cluster{&all, cl, smem, {}};
     for (unsigned r = 0; r < cl; ++r) {
       cluster.smem[r] = mem[r].data();
-      bars.push_back(new std::barrier<>(n));
-      blks[r].block = bars.back();
-      for (unsigned w = 0; w < (n + 31) / 32; ++w) {
-        bars.push_back(new std::barrier<>(std::min(32u, n - 32 * w)));
-        blks[r].warps[w] = bars.back();
-      }
+      blks[r].block = &bars.emplace_back(n);
+      for (unsigned w = 0; w < (n + 31) / 32; ++w)
+        blks[r].warps[w] = &bars.emplace_back(std::min(32u, n - 32 * w));
     }
-    std::vector<std::thread> th;
+    std::vector<EmuFiber> fibers(cl * n);
     for (unsigned r = 0; r < cl; ++r)
-      for (unsigned tx = 0; tx < n; ++tx)
-        th.emplace_back([&, r, tx] {
-          threadIdx = {tx, 0, 0};
-          blockIdx = {c0 + r, 0, 0};
-          g_blk = &blks[r];
-          g_cluster = &cluster;
-          g_rank = r;
-          g_smem = mem[r].data();
-          k(args...);
-        });
-    for (auto& t : th) t.join();
-    for (auto* b : bars) delete b;
+      for (unsigned tx = 0; tx < n; ++tx) {
+        EmuFiber& f = fibers[r * n + tx];
+        f.tid = {tx, 0, 0};
+        f.bid = {c0 + r, 0, 0};
+        f.blk = &blks[r];
+        f.cluster = &cluster;
+        f.rank = r;
+        f.smem = mem[r].data();
+        f.body = [&] { k(args...); };
+      }
+    emu_run(fibers);
   }
 }
 

@@ -1,37 +1,49 @@
 // The inline-PTX helpers of csrc/mma_bf16.cuh, emulated: emulate.py
 // puts these definitions in place of the real ones, inside namespace tc.
 // cp.async copies run at the wait that retires their group, so a read
-// that comes before its wait sees the poisoned tile, not the data.
+// that comes before its wait sees the poisoned tile, not the data. Each
+// CUDA thread keeps its own groups, in its fiber's slot.
 struct EmuCopy {
   void* dst;
   const void* src;
   int n, bytes;
 };
-extern thread_local std::deque<std::vector<EmuCopy>> emu_groups;
-extern thread_local std::vector<EmuCopy> emu_open;
+struct EmuCopies {
+  std::deque<std::vector<EmuCopy>> groups;
+  std::vector<EmuCopy> open;
+};
+inline EmuCopies& emu_copies() {
+  if (!g_fiber->slot) {
+    g_fiber->slot = new EmuCopies;
+    g_fiber->slot_free = [](void* p) { delete static_cast<EmuCopies*>(p); };
+  }
+  return *static_cast<EmuCopies*>(g_fiber->slot);
+}
 
 inline uint32_t smem_addr(const void*) { return 0; }
 
 template <int BYTES>
 inline void cp_async(void* dst, const void* src, bool pred) {
-  emu_open.push_back({dst, src, pred ? BYTES : 0, BYTES});
+  emu_copies().open.push_back({dst, src, pred ? BYTES : 0, BYTES});
 }
 
 inline void cp_async_commit() {
-  emu_groups.push_back(emu_open);
-  emu_open.clear();
+  EmuCopies& c = emu_copies();
+  c.groups.push_back(c.open);
+  c.open.clear();
 }
 
 template <int N>
 inline void cp_async_wait() {
-  while ((int)emu_groups.size() > N) {
-    for (auto& c : emu_groups.front()) {
+  auto& groups = emu_copies().groups;
+  while ((int)groups.size() > N) {
+    for (auto& c : groups.front()) {
       if (c.n)
         std::memcpy(c.dst, c.src, c.bytes);
       else
         std::memset(c.dst, 0, c.bytes);
     }
-    emu_groups.pop_front();
+    groups.pop_front();
   }
 }
 

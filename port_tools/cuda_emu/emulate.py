@@ -14,10 +14,12 @@ front of CUDA's: `kernel<<<grid, block, smem, stream>>>(...)` becomes
 of csrc/mma_bf16.cuh (cp.async, ldmatrix, mma.sync) are replaced by
 emulations of their PTX semantics (emu_tc.h); everything else of the
 header (the swizzle, the fragment addressing, the bf16 packing) is
-compiled as written. Each CUDA thread is a host thread and the blocks
-of a grid run one after another, except the blocks of a thread-block
-cluster (a cudaLaunchKernelEx launch, csrc/sampling.cu), which run
-together, each with its own dynamic shared memory, with cluster.sync()
+compiled as written. Each CUDA thread is a fiber of the launching host
+thread (its own stack, switched at every barrier, round robin), so a
+case's time does not depend on how busy the host's other cores are; the
+blocks of a grid run one after another, except the blocks of a
+thread-block cluster (a cudaLaunchKernelEx launch, csrc/sampling.cu),
+which run together, each with its own dynamic shared memory, with cluster.sync()
 a barrier of all their threads and map_shared_rank the address in
 another block's (cooperative_groups.h). Use small shapes (T = 128 and
 192 for the flash kernels, each without and with the dropout keep mask
@@ -35,6 +37,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import fcntl
+import hashlib
+import os
 import re
 import subprocess
 import sys
@@ -81,14 +86,6 @@ static void poison() {
 }
 void (*emu_poison)() = poison;
 """
-# the cp.async groups of emu_tc.h, for the sources that include
-# csrc/mma_bf16.cuh
-TC_DEFS = """
-thread_local std::deque<std::vector<tc::EmuCopy>> tc::emu_groups;
-thread_local std::vector<tc::EmuCopy> tc::emu_open;
-"""
-
-
 def emulated_header(src_dir):
     """csrc/mma_bf16.cuh with its inline-PTX helpers swapped for
     emu_tc.h."""
@@ -114,9 +111,40 @@ def emulated_header(src_dir):
     return "".join(out)
 
 
+def source_hash(name, src_dir) -> str:
+    """The hash a build of csrc/<name>.cu is keyed by: the source, every
+    header beside it and every file of the emulation (this script
+    included)."""
+    h = hashlib.sha256()
+    files = [src_dir / f"{name}.cu", *sorted(src_dir.glob("*.cuh")),
+             *sorted(p for p in HERE.iterdir() if p.is_file())]
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build(name, src_dir, out_dir=BUILD):
-    """csrc/<name>.cu compiled for the emulation into out_dir, loaded."""
+    """csrc/<name>.cu compiled for the emulation into out_dir, loaded.
+    A library whose `.hash` stamp equals `source_hash` is loaded as it
+    is; builds run under one lock on out_dir, so test processes that
+    share out_dir compile each source once, and the new library replaces
+    the old one by a rename (a process that loaded the old one keeps
+    it)."""
     out_dir.mkdir(parents=True, exist_ok=True)
+    key = source_hash(name, src_dir)
+    lib, stamp = out_dir / f"lib{name}.so", out_dir / f"lib{name}.hash"
+    with open(out_dir / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (lib.exists() and stamp.exists()
+                and stamp.read_text() == key):
+            return ctypes.CDLL(str(lib))
+        _compile(name, src_dir, out_dir)
+        stamp.write_text(key)
+    return ctypes.CDLL(str(lib))
+
+
+def _compile(name, src_dir, out_dir):
     (out_dir / "mma_bf16.cuh").write_text(emulated_header(src_dir))
     src = (src_dir / f"{name}.cu").read_text()
     src = src.replace('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : '
@@ -125,16 +153,16 @@ def build(name, src_dir, out_dir=BUILD):
                       "  return static_cast<uint32_t*>(emu_block_smem());\n}")
     src = LAUNCH.sub(lambda m: f"emu_launch({m.group(1)}, {m.group(2)}, "
                      f"{m.group(3)}, {m.group(4)}, ", src)
-    cpp, lib = out_dir / f"{name}.cpp", out_dir / f"lib{name}.so"
-    cpp.write_text(src + DEFS + (TC_DEFS if '"mma_bf16.cuh"' in src else ""))
+    cpp, tmp = out_dir / f"{name}.cpp", out_dir / f".lib{name}.so.tmp"
+    cpp.write_text(src + DEFS)
     out = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-         f"-I{out_dir}", f"-I{HERE}", f"-I{src_dir}", "-o", str(lib),
+         f"-I{out_dir}", f"-I{HERE}", f"-I{src_dir}", "-o", str(tmp),
          str(cpp)],
         capture_output=True, text=True)
     if out.returncode:
         raise SystemExit(f"g++ failed for {name}.cu:\n{out.stderr[:6000]}")
-    return ctypes.CDLL(str(lib))
+    os.replace(tmp, out_dir / f"lib{name}.so")
 
 
 def bht(t):

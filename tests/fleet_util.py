@@ -3,9 +3,9 @@ and inputs, the gloo fleet that runs tests/torch_parallel_worker.py on
 them, and the comparison of what the ranks trained with the JAX net.
 
 A case is a dict: `name`, the worker's `kind`, `model` ("lm", "moe",
-"mlp" or "resnet") with its `cfg`, the updater settings
+"mlp", "bn" or "resnet") with its `cfg`, the updater settings
 (torch_parallel_worker.set_updater) and `batches` [(x, y, labels mask or
-None)]. The ranks start from the JAX net's initial params (copied with
+None[, features mask])]. The ranks start from the JAX net's initial params (copied with
 `weights_io`) and write their results under `<case name>/`.
 """
 
@@ -22,9 +22,15 @@ from deeplearning4j_tpu.models.transformer import (
     transformer_moe_lm as jax_moe_lm,
 )
 from deeplearning4j_tpu.nn import conf as jconf
+from deeplearning4j_tpu.nn.graph import ComputationGraph as JaxGraph
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxMLN
 from deeplearning4j_tpu_torch.distributed.launcher import launch_local
-from torch_parallel_worker import flatten, mlp_conf, set_updater
+from torch_parallel_worker import (
+    bn_graph_conf,
+    flatten,
+    mlp_conf,
+    set_updater,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_parallel_worker.py"
@@ -40,6 +46,8 @@ def jax_net(case):
         net = jax_moe_lm(**case["cfg"])
     elif case["model"] == "mlp":
         net = JaxMLN(mlp_conf(jconf))
+    elif case["model"] == "bn":
+        net = JaxGraph(bn_graph_conf(jconf))
     else:
         net = jax_resnet20()
     return set_updater(net, case).init()
@@ -53,10 +61,12 @@ def fleet_inputs(case):
         jax.tree.map(np.asarray, net.params)).items()}
     arrays.update({f"state/{k}": v for k, v in flatten(
         jax.tree.map(np.asarray, net.state)).items()})
-    for i, (x, y, m) in enumerate(case["batches"]):
+    for i, (x, y, m, *fm) in enumerate(case["batches"]):
         arrays[f"x{i}"], arrays[f"y{i}"] = x, y
         if m is not None:
             arrays[f"lmask{i}"] = m
+        if fm and fm[0] is not None:
+            arrays[f"fmask{i}"] = fm[0]
     if "eval" in case:
         arrays["x"], arrays["y"] = case["eval"]
     return arrays

@@ -512,7 +512,7 @@ def test_multilayer_raises_for_what_the_slice_does_not_carry(tmp_path):
     net = lenet5(device="cpu").init()
     assert net.set_mesh(None) is net
     with pytest.raises(NotImplementedError, match="A7"):
-        net.set_mesh(None, axes={"pipe": "pipe"})
+        net.set_mesh(None, axes={"seq": "seq", "model": "model"})
     assert net.resume_from(str(tmp_path)) == 0
     with pytest.raises(FileNotFoundError):
         net.resume_from(str(tmp_path), step=3)

@@ -57,7 +57,7 @@ def test_package_imports_without_jax():
     assert len(names) >= 20
     missing = {f"deeplearning4j_tpu_torch.{m}"
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
-               + PLACEMENT_SLICE} - names
+               + PLACEMENT_SLICE + PIPELINE_SLICE} - names
     assert not missing, missing
 
 
@@ -87,6 +87,11 @@ PLACEMENT_SLICE = (
     "nn.conf.graph_conf", "nn.conf.preprocessors", "nn.decode",
     "ops.shard_comm", "parallel.tensor_parallel", "parallel.expert_parallel",
     "nn.training")
+# pipeline parallelism and the resharding engine with placement search
+# (ROADMAP A7.3, A7.4)
+PIPELINE_SLICE = (
+    "parallel.pipeline", "reshard", "reshard.planner", "reshard.search",
+    "reshard.executor", "reshard.bench_arm")
 
 
 def test_rank_programs_import_without_jax():

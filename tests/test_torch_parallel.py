@@ -321,36 +321,37 @@ def test_set_mesh_validation_errors(world1):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(axes={"pipe": "data"}),
-    dict(n_microbatches=4),
+    dict(axes={"seq": "seq", "pipe": "pipe"}),
+    dict(axes={"seq": "seq", "pipe": "pipe"}, n_microbatches=4),
     dict(axes={"seq": "seq", "model": "model"}),
 ])
 def test_unported_roles_raise_citing_a7(world1, kwargs):
-    """Pipeline parallelism and its knob, and sequence parallelism with
-    the "model" role, wait for the rest of A7: NotImplementedError, and
-    the net is left as it was. (Tensor and expert parallelism and
-    ZeRO-1 run: tests/test_torch_tensor_parallel.py,
-    test_torch_expert_parallel.py, test_torch_zero1.py.)"""
+    """Sequence parallelism with the "pipe" or the "model" role waits
+    for the rest of A7: NotImplementedError, and the net is left as it
+    was. (Tensor, expert and pipeline parallelism and ZeRO-1 run:
+    tests/test_torch_tensor_parallel.py, test_torch_expert_parallel.py,
+    test_torch_pipeline.py, test_torch_zero1.py.)"""
     from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
 
     net = torch_lm(**LM_CFG, seq_parallel_axis="seq", device="cpu").init()
-    mesh = make_mesh({"data": 1, "seq": 1, "model": 1}, device="cpu")
+    mesh = make_mesh({"data": 1, "seq": 1, "model": 1, "pipe": 1},
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         net.set_mesh(mesh, **kwargs)
     assert net._mesh is None
 
 
 def test_placement_and_sparse_buckets_raise_citing_a7(world1):
-    """A reshard.Placement (placement search's winner) and the embedding
-    engine's sparse gradient buckets are not ported yet."""
-    from types import SimpleNamespace
-
+    """A reshard.Placement (placement search's winner) of "seq" with
+    "pipe" and the embedding engine's sparse gradient buckets are not
+    ported yet."""
     from deeplearning4j_tpu_torch.parallel import overlap
+    from deeplearning4j_tpu_torch.reshard import Placement
 
-    net = torch_lm(**LM_CFG, device="cpu").init()
+    net = torch_lm(**LM_CFG, seq_parallel_axis="seq", device="cpu").init()
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(SimpleNamespace(mesh_axes=(("data", 1),),
-                                     roles=(("data", "data"),)))
+        net.set_mesh(Placement.of({"seq": 1, "pipe": 1},
+                                  {"seq": "seq", "pipe": "pipe"}))
     for fn in (overlap.plan_sparse_bucket, overlap.sparse_bucket_reduce):
         with pytest.raises(NotImplementedError, match="A7"):
             fn("emb", 4, 8)

@@ -252,8 +252,9 @@ def test_untrainable_modes_raise():
 
 
 def test_remat_and_mesh_raise():
-    """set_mesh(None) returns the net, as in the JAX package; the roles
-    not ported yet still raise (Queue A item 7). remat, once refused,
+    """set_mesh(None) returns the net, as in the JAX package; "seq" with
+    "pipe", not ported yet, still raises (Queue A item 7). remat, once
+    refused,
     trains:
     with dropout 0.1 on the packed flash route (T = 512) two fit()
     steps with remat leave every param bit for bit where the same steps
@@ -263,7 +264,7 @@ def test_remat_and_mesh_raise():
     net = torch_lm(**CFG, max_length=128, device="cpu").init()
     assert net.set_mesh(None) is net
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(None, axes={"pipe": "pipe"})
+        net.set_mesh(None, axes={"seq": "seq", "pipe": "pipe"})
     toks, labels, _ = _tokens(61, 2, 512)
     ds = TDataSet(toks, labels)
 

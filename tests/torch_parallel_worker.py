@@ -1,5 +1,7 @@
 """Rank program of the port's multi-rank CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_sequence_parallel.py).
+(tests/test_torch_parallel.py, test_torch_sequence_parallel.py,
+test_torch_tensor_parallel.py, test_torch_pipeline.py,
+test_torch_reshard.py and others).
 
 Run by `deeplearning4j_tpu_torch.distributed.launcher.launch_local` as N
 processes on the CPU (gloo), one intra-op thread each:
@@ -113,10 +115,34 @@ def mlp_conf(conf_mod):
             .build())
 
 
+def bn_graph_conf(conf_mod):
+    """The batch-norm stack of the JAX package's tests/test_unified_mesh.py
+    (`test_pp_batchnorm_stack_trains`): four uniform dense + batch-norm
+    blocks and a softmax head, from either package's conf module."""
+    g = (conf_mod.NeuralNetConfiguration.builder().seed(7)
+         .learning_rate(0.01).updater("sgd").graph_builder())
+    g.add_inputs("in")
+    src = "in"
+    for b in range(4):
+        g.add_layer(f"blk{b}_fc", conf_mod.DenseLayer(
+            n_in=16, n_out=16, activation="relu"), src)
+        g.add_layer(f"blk{b}_bn", conf_mod.BatchNormalization(
+            n_in=16, n_out=16), f"blk{b}_fc")
+        src = f"blk{b}_bn"
+    g.add_layer("out", conf_mod.OutputLayer(
+        n_in=16, n_out=3, activation="softmax", loss_function="mcxent"), src)
+    g.set_outputs("out")
+    return g.build()
+
+
 def _net(case, inputs):
     """The case's net on the CPU with the JAX package's initial params
     (and batch-norm state), its updater set as the case says."""
-    if case["model"] == "lm":
+    if case["model"] == "bn":
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+        net = ComputationGraph(bn_graph_conf(conf_mod), device="cpu")
+    elif case["model"] == "lm":
         net = transformer_lm(**case["cfg"], device="cpu")
     elif case["model"] == "moe":
         net = transformer_moe_lm(**case["cfg"], device="cpu")
@@ -142,6 +168,8 @@ def _batches(inputs):
         kw = {}
         if f"lmask{i}" in inputs.files:
             kw["labels_mask"] = inputs[f"lmask{i}"]
+        if f"fmask{i}" in inputs.files:
+            kw["features_mask"] = inputs[f"fmask{i}"]
         out.append(DataSet(inputs[f"x{i}"], inputs[f"y{i}"], **kw))
         i += 1
     return out
@@ -232,14 +260,15 @@ def case_sp(case, inputs):
 
 
 def flat_opt_state(opt_state):
-    """{"label/moment/leaf path": array} of an Optimizer state."""
+    """{"label/moment/leaf path": array} of an Optimizer state: copies,
+    which the next in-place update leaves as they are."""
     out = {}
     for label, st in opt_state.items():
         for name, v in st.items():
             if name == "keys" or not isinstance(v, list):
                 continue
             for key, t in zip(st["keys"], v):
-                out[f"{label}/{name}/{'/'.join(key)}"] = (
+                out[f"{label}/{name}/{'/'.join(key)}"] = np.array(
                     t.detach().float().numpy())
     return out
 
@@ -302,9 +331,223 @@ def case_before_init(case, inputs):
     return out
 
 
+def _fit_all(net, batches, scanned=False):
+    """Fit the batches (one fit() each, or one fit_scanned over them);
+    the loss of every step."""
+    if scanned:
+        net.fit_scanned(ListDataSetIterator(batches))
+        return np.asarray([float(x) for x in net._step_losses.reshape(-1)])
+    losses = []
+    for ds in batches:
+        net.fit(ds)
+        losses.append(float(net.score_value))
+    return np.asarray(losses)
+
+
+def case_pipe(case, inputs):
+    """set_mesh with a "pipe" role (and the case's other roles) and M
+    microbatches, then the batches (`scanned`: through fit_scanned).
+    Returns the canonical params, state and optimizer state, each step's
+    loss, the layers this rank holds, the output and score of the eval
+    batch; with `inproc`, rank 0 also trains a twin through the
+    in-process pipeline of as many stages and reports whether params,
+    optimizer state and losses equal the fleet's bit for bit."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import place_in_process
+
+    net = _net(case, inputs)
+    mesh = make_mesh(case["mesh"], device="cpu")
+    net.set_mesh(mesh, axes=case["axes"], n_microbatches=case["M"])
+    batches = _batches(inputs)
+    losses = _fit_all(net, batches, case.get("scanned", False))
+    out = _trained(net)
+    out["losses"] = losses
+    out["held"] = np.asarray(sorted(net.params))
+    opt = flat_opt_state(net.canonical_opt_state())
+    out.update({f"opt/{k}": v for k, v in opt.items()})
+    if "x" in inputs.files:
+        x, y = inputs["x"], inputs["y"]
+        out["output"] = net.output(x).float().numpy()
+        out["eval_score"] = np.asarray(net.score(DataSet(x, y)))
+    if case.get("inproc") and mesh.rank == 0:
+        twin = _net(case, inputs)
+        place_in_process(twin, mesh.axis_size(case["axes"]["pipe"]),
+                         case["M"])
+        twin_losses = _fit_all(twin, batches, case.get("scanned", False))
+        mine = flatten(params_to_numpy(twin))
+        same = all(np.array_equal(mine[k[len("params/"):]], v)
+                   for k, v in out.items() if k.startswith("params/"))
+        same &= all(np.array_equal(v, opt[k]) for k, v in flat_opt_state(
+            twin.opt_state).items())
+        out["inproc_same"] = np.asarray(
+            same and np.array_equal(twin_losses, losses))
+    return out
+
+
+def _placed_net(case, inputs, spec):
+    """The case's net from the JAX params, placed as `spec` {"mesh",
+    "axes", "zero1", "M"} says (no set_mesh for a spec of None)."""
+    net = _net(case, inputs)
+    if spec is not None:
+        net.set_mesh(make_mesh(spec["mesh"], device="cpu"),
+                     axes=spec.get("axes"), zero1=spec.get("zero1", False),
+                     n_microbatches=spec.get("M"))
+    return net
+
+
+def _canonical(net, prefix=""):
+    out = {f"{prefix}params/{k}": v
+           for k, v in flatten(params_to_numpy(net)).items()}
+    out.update({f"{prefix}opt/{k}": v for k, v in flat_opt_state(
+        net.canonical_opt_state()).items()})
+    return out
+
+
+def _recorded(fn):
+    """fn() under an in-memory telemetry recorder: (its result, the
+    recorder's events)."""
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+
+    rec = Recorder(path=None)
+    prev = set_default(rec)
+    try:
+        return fn(), list(rec.events)
+    finally:
+        set_default(prev)
+
+
+def _span_bytes(events):
+    spans = [e for e in events if e.get("event") == "span"
+             and e.get("name") == "reshard"]
+    plans = [e for e in events if e.get("event") == "reshard_plan"]
+    return (len(plans), sum(e.get("bytes_moved", 0) for e in spans),
+            sum(e.get("bytes_planned", 0) for e in spans),
+            sum(e.get("bytes_lower_bound", 0) for e in spans))
+
+
+def case_reshard(case, inputs):
+    """The resharding matrix on this fleet. mode "save": the net placed
+    as `src`, `fit` steps, its checkpoint under <ckpt>/rank<r>; "restore":
+    a fresh net placed as `dst` restores <src_ckpt> (rank 0's), then
+    takes one step, against a twin restored meshless and placed the same
+    way; "live": the net placed as each of `chain` in turn (one step
+    under the first), the canonical trees after every move, its
+    reshard_plan events and the bytes its spans moved and planned, and
+    the plans' lower bounds."""
+    batches = _batches(inputs)
+    rank = bootstrap_rank()
+    out = {}
+    if case["mode"] == "save":
+        net = _placed_net(case, inputs, case["src"])
+        for ds in batches[:case.get("fit", 1)]:
+            net.fit(ds)
+        out.update(_canonical(net))
+        Checkpointer(str(Path(case["ckpt"]) / f"rank{rank}")).save(net)
+    elif case["mode"] == "restore":
+        src = str(Path(case["src_ckpt"]) / "rank0")
+        net = _placed_net(case, inputs, case["dst"])
+        _, events = _recorded(lambda: Checkpointer(src).restore(net))
+        out.update(_canonical(net, "restored/"))
+        out["restore_plans"] = np.asarray(len(
+            [e for e in events if e.get("event") == "reshard_plan"
+             and e.get("path") == "checkpoint"]))
+        _, moved, planned, _ = _span_bytes(events)
+        out["restore_moved"] = np.asarray(moved)
+        out["restore_planned"] = np.asarray(planned)
+        twin = _placed_net(case, inputs, None)
+        Checkpointer(src).restore(twin)
+        dst = case["dst"]
+        twin.set_mesh(make_mesh(dst["mesh"], device="cpu"),
+                      axes=dst.get("axes"), zero1=dst.get("zero1", False),
+                      n_microbatches=dst.get("M"))
+        net.fit(batches[0])
+        twin.fit(batches[0])
+        out.update(_canonical(net, "stepped/"))
+        out.update(_canonical(twin, "twin/"))
+        out["stepped_score"] = np.asarray(net.score_value)
+        out["twin_score"] = np.asarray(twin.score_value)
+    else:
+        chain = case["chain"]
+        net = _placed_net(case, inputs, chain[0])
+        net.fit(batches[0])
+        out.update(_canonical(net, "0/"))
+        for i, spec in enumerate(chain[1:], start=1):
+            mesh = (None if spec is None
+                    else make_mesh(spec["mesh"], device="cpu"))
+            _, events = _recorded(lambda: net.set_mesh(
+                mesh, axes=None if spec is None else spec.get("axes"),
+                zero1=False if spec is None else spec.get("zero1", False),
+                n_microbatches=None if spec is None else spec.get("M")))
+            out.update(_canonical(net, f"{i}/"))
+            n_plans, moved, planned, bound = _span_bytes(events)
+            out[f"{i}/plans"] = np.asarray(n_plans)
+            out[f"{i}/bytes_moved"] = np.asarray(moved)
+            out[f"{i}/bytes_planned"] = np.asarray(planned)
+            out[f"{i}/bytes_lower_bound"] = np.asarray(bound)
+        net.fit(batches[1])
+        out["after_score"] = np.asarray(net.score_value)
+    return out
+
+
+def case_search(case, inputs):
+    """search_placement of the case's net for the fleet of every rank
+    (`FleetShape(1, world)`, the global batch of the case's batches):
+    its winner fed to set_mesh unmodified, then the batches; and each
+    of `placements` (JSON) fed likewise. Returns the winner, the
+    placement_search events, and each arm's canonical params and
+    score."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.reshard import (
+        FleetShape,
+        Objective,
+        Placement,
+        search_placement,
+    )
+    from deeplearning4j_tpu_torch.reshard.search import emit_search_event
+
+    batches = _batches(inputs)
+    out = {}
+    net = _net(case, inputs)
+    B = int(np.asarray(inputs["x0"]).shape[0])
+
+    def search():
+        res = search_placement(net, FleetShape(1, dist.get_world_size()),
+                               objective=Objective(global_batch=B))
+        emit_search_event(res, path="test", search_ms=0.0)
+        return res
+
+    result, events = _recorded(search)
+    out["winner"] = np.asarray(result.winner.describe())
+    out["search_events"] = np.asarray(len(
+        [e for e in events if e.get("event") == "placement_search"]))
+    arms = [("winner", result.winner)] + [
+        (f"p{i}", Placement.from_json(pl))
+        for i, pl in enumerate(case.get("placements", []))]
+    for name, placement in arms:
+        arm = net if name == "winner" else _net(case, inputs)
+        arm.set_mesh(placement)
+        out[f"{name}/split"] = np.asarray(
+            0 if arm._split_plan is None else len(arm._split_plan.leaves))
+        out[f"{name}/pipe"] = np.asarray(
+            0 if arm._pipe is None else arm._pipe.S)
+        for ds in batches:
+            arm.fit(ds)
+        out.update({f"{name}/params/{k}": v
+                    for k, v in flatten(params_to_numpy(arm)).items()})
+        out[f"{name}/score"] = np.asarray(arm.score_value)
+    return out
+
+
+def bootstrap_rank():
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 CASES = {"dp": case_dp, "pa": case_pa, "eval": case_eval,
          "ring": case_ring, "sp": case_sp, "mesh": case_mesh,
-         "before_init": case_before_init}
+         "before_init": case_before_init, "pipe": case_pipe,
+         "reshard": case_reshard, "search": case_search}
 
 
 def main(argv) -> int:
