@@ -17,7 +17,10 @@ ParagraphVectors, GloVe), data and sequence parallelism at one rank
 attention, SequenceParallelTrainer, the pipelined fit), and the graph
 vertices, the MultiLayerNetwork decode steps, tensor and expert
 parallelism and ZeRO-1, pipeline parallelism, resharding and the
-placement search.
+placement search, and the elastic fleet (ElasticSupervisor with an
+injected kill, parameter averaging through the ClusterCoordinator), the
+sharded embedding engine and the data meshes of the device pipeline and
+GloVe.
 
 Run from the root of a checkout, with no arguments:
 
@@ -375,12 +378,44 @@ Phases, each of which exits non-zero when it fails:
    23c: `search_placement` on FleetShape(1, 1), its winner trained 3
    steps bit for bit, and `reshard/bench_arm` in its own process.
 
-After phases 3-23, no attention call on the card may have taken the
+24. The elastic fleet and the sharded embedding engine (after phase
+   23). 24a: phase 6's flagship trained 6 steps by ElasticSupervisor at
+   world size 1 over NCCL (this file re-invoked as `--elastic-worker`), a
+   checkpoint a step, uninterrupted and with `p0:kill@step3`: the killed
+   generation's replacement adopts rank 0 through the supervisor's
+   coordinator, restores step 3 and ends bit for bit on the uninterrupted
+   run's params, the launches summed over the generations equal its
+   (6 steps of phase 6's counts), the journal holds both generations and
+   the `reform` event; each generation's wall time, the restore's time
+   and bytes, the replacement's start-to-first-step time. 24b: two
+   `run_elastic_worker` processes (`--average-worker`) average the
+   flagship through a ClusterCoordinator on the card, 3 rounds on half
+   of phase 6's rows each, worker 1 killed at its second round and
+   restarted from its checkpoint: both end bit for bit equal, worker 0
+   bit for bit with two nets averaged in numpy in this process (worker
+   1's restored from the checkpoint its restart resumed from), the
+   restarted one resumed at its checkpoint's step; one worker through a
+   coordinator equals plain fit bit for bit; a round's seconds; two
+   processes (`--build-worker`) on an empty kernel cache build
+   neg_softmax.cu once (`cuda_build`'s file lock). 24c:
+   bench mode `embed`'s train half (131,072 x 64, batch 1024, 20 steps)
+   through the engine at ep = 1, ep = 2 and 4 and dp = 2 as shards in
+   one process: table bytes a shard 1/ep of ep = 1's, one K13 launch a
+   step, tables within ENGINE_SHARD_TOL of ep = 1, pairs/s; an /embed
+   round trip over the ep = 2 engine returns its rows exactly; K13 at
+   B=1024 K=5 D=64 f32 against its plain version and timed. 24d: 20a's
+   device pipeline and 20e's GloVe (one epoch) with "data" = 2 in one
+   process within MESH_TOL of their meshless runs, the sub-corpus
+   separation at least 0.95 of phase 20a's host path's; words/s and
+   triples/s beside phases 20a and 20e.
+
+After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
 [4, 10000] with top_k 8 and top_p 0.9, the replay's [8, 128] and the
-temperature-only mode beside it), the
+temperature-only mode beside it; K13's `embed` entry at bench mode
+embed's engine shape), the
 card's name and power limit as nvidia-smi gives them, and `{"ok": true,
 "device": ...}`. With no CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -4582,6 +4617,10 @@ PV_HELD_OUT = 200
 # GloVe on the same sub-corpus; epochs cut from the JAX default 25 to 5
 GLOVE = dict(layer_size=100, window_size=15, x_max=100.0, alpha=0.75,
              batch_size=4096, learning_rate=0.05, epochs=5, seed=1)
+# what phase 20 measured that phase 24 reports beside its own: the host
+# path's topic separation on the sub-corpus, 20a's words/s, 20e's
+# triples/s
+PHASE20 = {}
 # card against CPU at a tiny size, f32: the same inputs and draws; the
 # card's index_add_ sums duplicate rows in another order (its atomics),
 # and its matmuls round in another order -> 1e-5 of the largest entry
@@ -4707,6 +4746,7 @@ def word2vec_pipeline(torch, Word2Vec, dp, host_rate, card):
     q_unshared = topic_separation(quality(use_device_pipeline=True,
                                           share_negatives=False))
     q_host = topic_separation(quality(use_device_pipeline=False))
+    PHASE20.update(host_separation=q_host, pipeline_words_s=rate)
     log(f"20a: sub-corpus separation: pipeline defaults (chunk 512, group "
         f"2) {q_dev:.4f}, unshared negatives {q_unshared:.4f}, host path "
         f"{q_host:.4f}; ratio {q_dev / q_host:.4f} (gate "
@@ -5080,6 +5120,7 @@ def train_glove(torch, card):
     n_triples = len(g.loss_history) // G["epochs"] * G["batch_size"]
     train_s = wall - g.cooccurrence_seconds
     sep = topic_separation(SimpleNamespace(word_vector=g.get_word_vector))
+    PHASE20["glove_triples_s"] = G["epochs"] * n_triples / train_s
     log(f"20e: GloVe ({G}) on {len(sents)} sentences: co-occurrence "
         f"counting on the host {g.cooccurrence_seconds:.4f} s, "
         f"{n_triples} padded triples an epoch, {G['epochs']} epochs in "
@@ -6754,6 +6795,768 @@ def train_pipeline(torch, counters, fa, fsx, transformer_lm, DataSet, card):
     return launches, times
 
 
+# ------------------------------------------------------------ phase 24
+
+# 24a: phase 6's flagship trained by ElasticSupervisor at world size 1
+# over NCCL: 6 steps, a checkpoint every step, the one worker killed
+# after step 3 and replaced
+ELASTIC = dict(steps=6, faults="p0:kill@step3", gen_timeout=600.0)
+# 24b: run_elastic_worker, two workers on the card averaging through a
+# ClusterCoordinator, each on half of phase 6's rows, 3 rounds; worker 1
+# dies at its second round and is restarted from its checkpoint
+AVERAGING = dict(rounds=3, crash_after=1, heartbeat_timeout=15.0,
+                 proc_timeout=600)
+# 24c: bench mode `embed`'s train half (EMBED) through the engine at ep =
+# 1, at ep = 2 and 4 as shards in one process, and at dp = 2 in one
+# process
+ENGINE_ARMS = ((1, 1), (2, 1), (4, 1), (1, 2))
+# the arms' tables after EMBED["train_steps"] steps against ep = 1's,
+# relative to the largest entry: index_add_'s atomics sum duplicate rows
+# in an order that changes from run to run (the card's tables stood
+# 9.208e-7 from the CPU's after 20 steps on an H100), and dp = 2 joins
+# the data shards' pairs in another order -> 1e-5
+ENGINE_SHARD_TOL = 1e-5
+# 24d: 20a's pipeline and 20e's GloVe with "data" = 2 shards in one
+# process against their meshless runs from the same init and draws: the
+# shards' sums, and index_add_'s atomics in both runs, add in another
+# order over a whole epoch -> 1e-4 of the largest table entry (phase
+# 12's bound for 50 engine steps of atomic order); the per-update losses
+# 1e-4 relative
+MESH_TOL = 1e-4
+
+
+def log24(card, msg):
+    """A phase-24 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def _kernel_modules():
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_layernorm as fln
+    from deeplearning4j_tpu_torch.ops import fused_neg_softmax as fns
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
+    from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
+
+    return fa, fsx, fns, fln, fsm
+
+
+def _write_json(path, obj):
+    tmp = Path(f"{path}.tmp")
+    tmp.write_text(json.dumps(obj))
+    os.replace(tmp, path)
+
+
+def elastic_worker(ckpt, out, started):
+    """`--elastic-worker CKPT OUT`: one member of 24a's fleet, launched by
+    ElasticSupervisor. Restores the latest checkpoint, trains the
+    flagship to the supervisor's step budget through
+    `run_elastic_steps` on the searched placement of its fleet, and
+    writes OUT/<worker>.json after every step (its launch counts, the
+    restore's time and bytes, the time from its start to its first
+    step) and OUT/<worker>_params.pt at the end."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.distributed import bootstrap, elastic
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.reshard.search import Objective
+    from deeplearning4j_tpu_torch.telemetry import get_default
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = elastic.worker_total_steps()
+    info = bootstrap.initialize()
+    worker = os.environ[elastic.ENV_MEMBERS].split(",")[info["process_id"]]
+    counters = Counters(*_kernel_modules())
+    counters.reset()
+    c = TRAIN
+    net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    t0 = time.perf_counter()
+    start = net.resume_from(ckpt)
+    torch.cuda.synchronize()
+    progress = {"worker": worker, "start_step": start,
+                "restore_s": time.perf_counter() - t0,
+                "restore_bytes": (Checkpointer(ckpt).read_meta(start)[
+                    "model_bytes"] if start else 0),
+                "first_step_s": None, "steps": [], "launches": {}}
+    mesh, axes, result = elastic.searched_global_mesh(
+        net, objective=Objective(global_batch=c["batch"]))
+    progress["placement"] = result.winner.describe()
+    net.set_mesh(mesh, axes=axes)
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    path = Path(out) / f"{worker}.json"
+
+    def on_event(ev):
+        if ev.get("event") != "step":
+            return
+        if progress["first_step_s"] is None:
+            progress["first_step_s"] = time.time() - started
+        progress["steps"].append(ev["iteration"])
+        progress["launches"] = counters.read()
+        _write_json(path, progress)
+
+    get_default().add_sink(on_event)
+    elastic.run_elastic_steps(net, lambda step: ds, total,
+                              checkpoint_dir=ckpt, checkpoint_every=1)
+    torch.cuda.synchronize()
+    torch.save(net.canonical_params(), Path(out) / f"{worker}_params.pt")
+    bootstrap.shutdown()
+    return 0
+
+
+def _same_trees(torch, a, b):
+    """(equal bit for bit, largest absolute difference) of two param
+    trees of the same nest."""
+    from deeplearning4j_tpu_torch.nn import tree
+
+    worst, same = 0.0, True
+    for p, x in tree.leaves(a):
+        y = tree.get(b, p)
+        same &= bool(torch.equal(x, y))
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return same, worst
+
+
+def _supervised(torch, tmp, tag, card, faults=None):
+    """One ElasticSupervisor run of `--elastic-worker` on the card:
+    (result, its journal, the supervisor's events, the workers'
+    progress, the fleet's telemetry dir)."""
+    from deeplearning4j_tpu_torch.distributed import elastic
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+
+    d = tmp / tag
+    ckpt, out = d / "ckpt", d / "out"
+    ckpt.mkdir(parents=True)
+    out.mkdir()
+    rec = Recorder(path=None)
+    prev = set_default(rec)
+    sup = elastic.ElasticSupervisor(
+        elastic.main_argv(str(Path(__file__).resolve()), "--elastic-worker",
+                          str(ckpt), str(out)),
+        n_processes=1, min_processes=1, max_reforms=2, device="cuda",
+        total_steps=ELASTIC["steps"], checkpoint_dir=str(ckpt),
+        gen_timeout=ELASTIC["gen_timeout"], death_grace=30.0,
+        faults=faults, snapshot_path=str(d / "coord.json"),
+        extra_env={"PYTHONPATH": str(ROOT),
+                   "DL4J_TPU_TELEMETRY": str(d / "fleet.jsonl")},
+        cwd=str(ROOT))
+    try:
+        result = sup.run()
+        journal = {g.gen: sup.coordinator.read_config(
+            f"elastic/members/{g.gen}") for g in result.generations}
+    finally:
+        set_default(prev)
+        sup.close()
+    progress = {p.stem: json.loads(p.read_text())
+                for p in sorted(out.glob("w*.json"))}
+    for g in result.generations:
+        for r in g.results:
+            if r.exit_class not in ("clean", "injected-kill"):
+                log("\n".join(r.lines[-40:]))
+    return result, journal, rec.events, progress, out, d
+
+
+def elastic_on_card(torch, card):
+    """24a: the flagship under ElasticSupervisor at world size 1 over
+    NCCL, uninterrupted and with its worker killed after step 3 and
+    replaced; returns the launches of both runs' workers."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import tree
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    whole = _supervised(torch, tmp, "whole", card)
+    killed = _supervised(torch, tmp, "killed", card, ELASTIC["faults"])
+    S, L = ELASTIC["steps"], TRAIN["n_layers"]
+    want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
+            "K12": 0, "K13": 0}
+    failures = []
+    w_res, _, _, w_prog, w_out, _ = whole
+    k_res, journal, sup_events, k_prog, k_out, k_dir = killed
+    classes = [g.exit_classes for g in k_res.generations]
+    members = [g.members for g in k_res.generations]
+    if [g.exit_classes for g in w_res.generations] != [["clean"]]:
+        failures.append(f"uninterrupted run {w_res.generations}")
+    if classes != [["injected-kill"], ["clean"]] or \
+            members != [["w0"], ["w1"]]:
+        failures.append(f"generations {classes} of members {members}")
+    w_launch = w_prog["w0"]["launches"]
+    summed = {k: k_prog["w0"]["launches"].get(k, 0)
+              + k_prog.get("w1", {}).get("launches", {}).get(k, 0)
+              for k in want}
+    if w_launch != want or summed != want:
+        failures.append(f"launches uninterrupted {w_launch}, summed over "
+                        f"the generations {summed}; expected {want}")
+    if k_prog["w0"]["steps"] != [1, 2, 3] or \
+            k_prog.get("w1", {}).get("start_step") != 3:
+        failures.append(f"steps {k_prog['w0']['steps']}, the replacement "
+                        f"resumed at {k_prog.get('w1', {}).get('start_step')}")
+    fleet = [json.loads(line) for line in
+             (k_dir / "fleet.jsonl.p0").read_text().splitlines()]
+    resumes = [(e["worker"], e["start_step"], e["coordinator_rank"],
+                e["reassigned_from"]) for e in fleet
+               if e.get("name") == "elastic_resume"]
+    if resumes != [("w0", 0, 0, None), ("w1", 3, 0, "w0")]:
+        failures.append(f"elastic_resume records {resumes}")
+    reform = [e for e in sup_events if e["event"] == "fault"
+              and e["kind"] == "reform"]
+    if len(reform) != 1 or sorted(journal) != [0, 1] or \
+            journal[1]["replacements"] != ["w1"]:
+        failures.append(f"journal {journal}, reform events {reform}")
+    a = torch.load(w_out / "w0_params.pt", map_location="cpu")
+    b = torch.load(k_out / "w1_params.pt", map_location="cpu")
+    same, dist = _same_trees(torch, a, b)
+    n_params = sum(t.numel() for _, t in tree.leaves(a))
+    gate = "bit for bit"
+    if not same:
+        # only a nondeterministic op on the path explains a difference:
+        # the gate becomes the distance of two uninterrupted runs
+        again = _supervised(torch, tmp, "whole2", card)
+        floor = _same_trees(torch, a, torch.load(
+            again[4] / "w0_params.pt", map_location="cpu"))[1]
+        gate = f"within two uninterrupted runs' distance {floor:.3e}"
+        if not (floor > 0 and dist <= floor):
+            failures.append(f"params {dist:.3e} from the uninterrupted "
+                            f"run's (two uninterrupted runs: {floor:.3e})")
+    gen_s = [round(g.seconds, 3) for g in k_res.generations]
+    rep = k_prog.get("w1", {})
+    log24(card, f"24a: ElasticSupervisor, flagship ({n_params} params, "
+          f"bf16, batch {TRAIN['batch']} x {TRAIN['seq']}), {S} steps, a "
+          f"checkpoint a step, faults {ELASTIC['faults']}: generations "
+          f"{classes} of members {members}, wall {gen_s} s "
+          f"(uninterrupted {[round(g.seconds, 3) for g in w_res.generations]}"
+          f" s); placement {rep.get('placement')}; the replacement restored "
+          f"step {rep.get('start_step')} ({rep.get('restore_bytes')} bytes) "
+          f"in {rep.get('restore_s', 0):.4f} s and took its first step "
+          f"{rep.get('first_step_s', 0):.3f} s after its start (host "
+          f"clock); resumes {resumes}; final params against the "
+          f"uninterrupted run: equal {same}, largest difference "
+          f"{dist:.3e} (gate: {gate}); launches {summed} summed over the "
+          f"generations, uninterrupted {w_launch}")
+    if failures:
+        raise PhaseFailed("24a", "; ".join(failures))
+    return {k: w_launch[k] + summed[k] for k in want}
+
+
+def average_worker(address, worker, shard, ckpt, out, crash_after):
+    """`--average-worker ADDRESS WORKER SHARD CKPT OUT CRASH_AFTER`: one
+    of 24b's workers. Trains the flagship on its half of phase 6's rows
+    through `run_elastic_worker` (averaging every step through the
+    coordinator at ADDRESS, a checkpoint after each round); with
+    CRASH_AFTER > 0 it dies at that round's next average. Writes
+    OUT/<worker>.json and OUT/<worker>_params.pt."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.parallel import cluster
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    counters = Counters(*_kernel_modules())
+    counters.reset()
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    half = c["batch"] // 2
+    rows = slice(0, half) if shard == "0" else slice(half, c["batch"])
+    mine = DataSet(ds.features[rows], ds.labels[rows])
+    net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    resumed = (Checkpointer(ckpt).steps() or [0])[-1]
+    rounds, calls = [], [0]
+    real = cluster.ClusterClient.average
+
+    def average(self, step, flat):
+        calls[0] += 1
+        if crash_after and calls[0] > crash_after:
+            os._exit(1)
+        t = time.perf_counter()
+        avg = real(self, step, flat)
+        rounds.append([step, time.perf_counter() - t, int(flat.nbytes)])
+        return avg
+
+    cluster.ClusterClient.average = average
+    net = cluster.run_elastic_worker(
+        address, worker, net, [mine] * AVERAGING["rounds"], sync_every=1,
+        checkpoint_path=ckpt)
+    torch.cuda.synchronize()
+    torch.save(net.canonical_params(), Path(out) / f"{worker}_params.pt")
+    _write_json(Path(out) / f"{worker}.json",
+                {"resumed_at": resumed, "iteration": net.iteration_count,
+                 "rounds": rounds, "launches": counters.read()})
+    return 0
+
+
+def averaged_reference(torch, transformer_lm, DataSet, ck_round,
+                       contributors):
+    """24b's reference, in this process: two flagships from the same
+    init, each fit on its half of phase 6's rows, their flat params
+    averaged in plain numpy after every step over the workers the
+    coordinator counted in that round (`contributors`: step -> worker
+    ids); worker 1's net after its crash a fresh one restored from its
+    checkpoint (`ck_round`), as its restart was. Returns (the final
+    params of worker 0's net, the restored net equal to the averaged
+    params it left)."""
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    A, c = AVERAGING, TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    half = c["batch"] // 2
+    shards = [DataSet(ds.features[r], ds.labels[r])
+              for r in (slice(0, half), slice(half, c["batch"]))]
+    nets = [flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+            for _ in shards]
+    restored_same = None
+    for step in range(1, A["rounds"] + 1):
+        if step == A["crash_after"] + 1:
+            fresh = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+            Checkpointer(str(ck_round)).restore(fresh)
+            restored_same = _same_trees(torch, fresh.canonical_params(),
+                                        nets[1].canonical_params())[0]
+            nets[1] = fresh
+        for net, shard in zip(nets, shards):
+            net.fit(shard)
+        flats = {f"w{i}": net.params_flat() for i, net in enumerate(nets)}
+        avg = np.mean([flats[w] for w in contributors[step]], axis=0)
+        for net in nets:
+            net.set_params_flat(avg.copy())  # each its own, as a worker's
+    torch.cuda.synchronize()
+    return nets[0].canonical_params(), restored_same
+
+
+def averaging_on_card(torch, counters, transformer_lm, DataSet, card):
+    """24b: two run_elastic_worker processes averaging through a
+    ClusterCoordinator on the card, one killed and restarted, held
+    against an in-process reference that averages in plain numpy; then
+    one worker in this process against plain fit. Returns the launches
+    of the workers and of the in-process runs."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel.cluster import (
+        ClusterCoordinator,
+        run_elastic_worker,
+    )
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_average_"))
+    A = AVERAGING
+    coord = ClusterCoordinator(
+        heartbeat_timeout=A["heartbeat_timeout"]).start()
+    # both workers are in the alive set before either starts (a round
+    # completes with whoever is alive, and a worker's start on the card
+    # takes some 9 s); the heartbeat bound outlasts that start
+    for w in ("w0", "w1"):
+        coord.register(w)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def spawn(worker, shard, crash):
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--average-worker", coord.address, worker, shard,
+             str(tmp / f"ck_{worker}"), str(tmp), str(crash)],
+            env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def wait(p):
+        try:
+            out, _ = p.communicate(timeout=A["proc_timeout"])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+        return out
+
+    failures = []
+    t0 = time.perf_counter()
+    try:
+        p0, p1 = spawn("w0", "0", 0), spawn("w1", "1", A["crash_after"])
+        out1 = wait(p1)
+        died_s = time.perf_counter() - t0
+        ck_steps = Checkpointer(str(tmp / "ck_w1")).steps()
+        if p1.returncode != 1 or ck_steps != [A["crash_after"]]:
+            failures.append(f"worker 1 exit {p1.returncode}, checkpoints "
+                            f"{ck_steps}: {out1[-2000:]}")
+        # the checkpoint the restart resumes from (the worker keeps only
+        # its newest), for the reference
+        shutil.copytree(tmp / "ck_w1", tmp / "ck_w1_crash")
+        p1 = spawn("w1", "1", 0)
+        outs = [wait(p0), wait(p1)]
+        wall = time.perf_counter() - t0
+        # the workers each round averaged over (completed rounds stay
+        # cached in the coordinator)
+        contributors = {step: sorted(rnd.contributions)
+                        for step, rnd in coord._avg_rounds.items()}
+    finally:
+        coord.shutdown()
+    for p, out in zip((p0, p1), outs):
+        if p.returncode != 0:
+            failures.append(f"a worker exited {p.returncode}: {out[-3000:]}")
+    if failures:
+        raise PhaseFailed("24b", "; ".join(failures))
+    info = {w: json.loads((tmp / f"{w}.json").read_text())
+            for w in ("w0", "w1")}
+    same, dist = _same_trees(
+        torch, torch.load(tmp / "w0_params.pt", map_location="cpu"),
+        torch.load(tmp / "w1_params.pt", map_location="cpu"))
+    if not same:
+        failures.append(f"the workers end {dist:.3e} apart")
+    if info["w1"]["resumed_at"] != A["crash_after"] or \
+            info["w1"]["iteration"] != A["rounds"]:
+        failures.append(f"the restarted worker resumed at "
+                        f"{info['w1']['resumed_at']} and ended at "
+                        f"{info['w1']['iteration']}")
+    # the mean the coordinator computed, against two nets averaged here
+    ref, restored_same = averaged_reference(
+        torch, transformer_lm, DataSet, tmp / "ck_w1_crash", contributors)
+    torch.save(ref, tmp / "ref_params.pt")
+    ref_same, ref_dist = _same_trees(
+        torch, torch.load(tmp / "w0_params.pt", map_location="cpu"),
+        torch.load(tmp / "ref_params.pt", map_location="cpu"))
+    if sorted(contributors) != list(range(1, A["rounds"] + 1)) or \
+            not restored_same or not ref_same:
+        failures.append(f"against the in-process reference: rounds' "
+                        f"workers {contributors}, restored checkpoint equal "
+                        f"to the averaged params {restored_same}, worker 0 "
+                        f"{ref_dist:.3e} from the reference")
+    # one worker through a coordinator against plain fit, in process
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    solo_coord = ClusterCoordinator().start()
+    try:
+        torch.cuda.synchronize()
+        counters.reset()
+        solo = run_elastic_worker(
+            solo_coord.address, "solo",
+            flagship(transformer_lm, max_length=c["seq"]).init(SEED),
+            [ds] * A["rounds"], sync_every=1)
+        plain = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+        for _ in range(A["rounds"]):
+            plain.fit(ds)
+        torch.cuda.synchronize()
+        in_process = counters.read()
+    finally:
+        solo_coord.shutdown()
+    solo_same, solo_dist = _same_trees(torch, solo.params, plain.params)
+    if not solo_same:
+        failures.append(f"one worker through the coordinator is "
+                        f"{solo_dist:.3e} from plain fit")
+    rounds = [r for w in ("w0", "w1") for r in info[w]["rounds"]]
+    log24(card, f"24b: run_elastic_worker x 2 on one card through "
+          f"ClusterCoordinator, {A['rounds']} rounds of {c['batch'] // 2} "
+          f"rows each, worker 1 died at its round {A['crash_after'] + 1} "
+          f"({died_s:.2f} s in) and rejoined from step "
+          f"{info['w1']['resumed_at']}: workers equal bit for bit {same}; "
+          f"rounds' workers {contributors}; worker 0 against the in-process "
+          f"reference (two nets averaged in numpy, worker 1's restored "
+          f"from its checkpoint, equal to the averaged params "
+          f"{restored_same}): equal bit for bit {ref_same}, largest "
+          f"difference {ref_dist:.3e}; "
+          f"rounds [step, seconds, vector bytes] w0 {info['w0']['rounds']}, "
+          f"w1 restarted {info['w1']['rounds']} (a round waits for the "
+          f"other worker's step; the round worker 1 died in, for its "
+          f"restart to rejoin or for the {A['heartbeat_timeout']} s "
+          f"heartbeat timeout); median round "
+          f"{statistics.median(r[1] for r in rounds):.4f} s; wall "
+          f"{wall:.2f} s; one worker through a coordinator equals plain "
+          f"fit bit for bit {solo_same}; launches w0 "
+          f"{info['w0']['launches']}, w1 restarted "
+          f"{info['w1']['launches']}, in process {in_process}")
+    if failures:
+        raise PhaseFailed("24b", "; ".join(failures))
+    return {k: info["w0"]["launches"].get(k, 0)
+            + info["w1"]["launches"].get(k, 0) + in_process.get(k, 0)
+            for k in in_process}
+
+
+def engine_shards(torch, counters, fns, card):
+    """24c: bench mode `embed`'s train half through the engine at ep = 1,
+    ep = 2 and 4 in one process and dp = 2 in one process; an /embed
+    round trip over the ep = 2 engine; K13 at the arms' shape against
+    its plain version and timed. Returns the launches and K13's
+    record."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.embedding.engine import (
+        EngineLookupView,
+        ShardedEmbeddingEngine,
+    )
+    from deeplearning4j_tpu_torch.embedding.serving import (
+        EmbeddingServingEngine,
+    )
+    from deeplearning4j_tpu_torch.serving.server import ServingServer
+
+    E = EMBED
+    steps = E["train_steps"]
+    feed = engine_feed(E, steps, E["seed"] + 200)
+    try:
+        batches = [next(feed) for _ in range(steps)]
+    finally:
+        feed.close()
+
+    def arm(ep, dp):
+        eng = ShardedEmbeddingEngine(E["vocab"], E["dim"], ep=ep, dp=dp,
+                                     negative=E["negative"], seed=3,
+                                     device="cuda", in_process=True)
+        torch.cuda.synchronize()
+        counters.reset()
+        eng.sgns_step(*batches[0], E["lr"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            eng.sgns_step(*b, E["lr"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return eng, counters.read(), (steps - 1) * E["batch"] / wall
+
+    arms = {a: arm(*a) for a in ENGINE_ARMS}
+    again = arm(1, 1)[0]
+    ref = arms[(1, 1)][0]
+    full = ref.table_bytes_per_device()
+
+    def table_err(eng):
+        return max(errs(getattr(eng, n)[:E["vocab"]],
+                        getattr(ref, n)[:E["vocab"]])[1]
+                   for n in ("syn0", "syn1neg"))
+
+    failures = []
+    launches = {}
+    report = []
+    for (ep, dp), (eng, got, rate) in arms.items():
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        err = table_err(eng)
+        share = eng.table_bytes_per_device() / full
+        report.append(f"ep {ep} dp {dp}: {rate:.1f} pairs/s, table bytes "
+                      f"{eng.table_bytes_per_device()} ({share:.2f} of ep "
+                      f"1), K13 {got['K13']}, tables {err:.3e} from ep 1")
+        if got["K13"] != steps or any(n for k, n in got.items()
+                                      if k != "K13"):
+            failures.append(f"ep {ep} dp {dp} launches {got}")
+        if share != 1 / ep:
+            failures.append(f"ep {ep} holds {share} of the table bytes")
+        if (ep, dp) != (1, 1) and not err <= ENGINE_SHARD_TOL:
+            failures.append(f"ep {ep} dp {dp} tables {err:.3e} from ep 1")
+    floor = table_err(again)
+    eng2 = arms[(2, 1)][0]
+    serve = EmbeddingServingEngine(EngineLookupView(eng2),
+                                   recall_floor=0.5, calibration_queries=16)
+    serve.start()
+    server = ServingServer(serve).start()
+    ids = np.random.default_rng(5).choice(E["vocab"], 16, replace=False)
+    try:
+        r = urllib.request.Request(
+            f"{server.url}/embed",
+            data=json.dumps({"ids": ids.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            got_rows = np.float32(json.loads(resp.read())["vectors"])
+    finally:
+        server.stop()
+    want_rows = eng2.syn0[torch.as_tensor(ids, device="cuda")].cpu().numpy()
+    exact = bool(np.array_equal(got_rows, want_rows))
+    if not exact:
+        failures.append("/embed over ep 2 did not return its rows exactly")
+    gathers = [e for e in serve.recorder.events if e.get("name") == "gather"]
+    rec = k13_embed_shape(torch, fns)
+    log24(card, f"24c: engine at bench mode embed ({E['vocab']} x "
+          f"{E['dim']}, batch {E['batch']}, negative {E['negative']}, "
+          f"{steps} steps, f32): " + "; ".join(report)
+          + f"; two ep 1 runs {floor:.3e} apart (gate "
+          f"{ENGINE_SHARD_TOL} of the largest entry); /embed over ep 2 "
+          f"exact {exact}, gather spans ep "
+          f"{sorted({e.get('ep') for e in gathers})}")
+    if failures:
+        raise PhaseFailed("24c", "; ".join(failures))
+    return launches, rec
+
+
+def k13_embed_shape(torch, fns):
+    """K13 at the engine's shape of bench mode `embed` (B = 1024, K = 5,
+    D = 64, f32) against its plain version, then timed."""
+    B, K, D = EMBED["batch"], EMBED["negative"], EMBED["dim"]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 240)
+    c, pos = ((0.3 * torch.randn(B, D, generator=gen)).cuda()
+              for _ in range(2))
+    neg = (0.3 * torch.randn(B, K, D, generator=gen)).cuda()
+    got = fns.neg_softmax_scores(c, pos, neg)
+    ref = fns._neg_softmax_reference(c, pos, neg)
+    torch.cuda.synchronize()
+    abs_err, err = (max(e) for e in zip(*(errs(g, r)
+                                           for g, r in zip(got, ref))))
+    if not err <= K13_TOL["float32"]:
+        raise PhaseFailed("24c", f"K13 at B={B} K={K} D={D} is {err:.3e} "
+                                 "from its plain version")
+    run = lambda: fns.neg_softmax_scores(c, pos, neg)  # noqa: E731
+    ms = time_ms(torch, run)
+    dev_ms = kernel_device_ms(torch, run)
+    plain_ms = time_ms(torch, lambda: fns._neg_softmax_reference(c, pos, neg))
+    lib_ms = time_ms(torch, lambda: torch.sigmoid(torch.bmm(
+        torch.cat([pos[:, None], neg], 1), c[..., None])))
+    bound_ms, bound_by = bound((2 * B * D + B * K * D + B * (K + 1)) * 4,
+                               2 * (K + 1) * B * D, "float32")
+    log(f"time  K13 neg_softmax embed B={B} K={K} D={D} f32: max rel err "
+        f"{err:.3e} (tol {K13_TOL['float32']}); kernel {ms:.4f} ms (device "
+        f"time {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sigmoid(bmm) "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return dict(label=f"embed B={B} K={K} D={D}", max_abs_err=abs_err, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def data_meshes(torch, counters, card):
+    """24d: 20a's device pipeline and 20e's GloVe (one epoch) with
+    "data" = 2 shards in one process against their meshless runs; the
+    pipeline's quality on the sub-corpus against phase 20a's host path.
+    Returns the launches (none: neither runs a kernel)."""
+    from deeplearning4j_tpu_torch.nlp import glove as gl
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
+    sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000, 25)
+    n_words = sum(len(s) for s in sents)
+    torch.cuda.synchronize()
+    counters.reset()
+
+    def pipeline(mesh):
+        b = (Word2Vec.builder().layer_size(128).window_size(5)
+             .min_word_frequency(1).negative_sample(5)
+             .use_device_pipeline(True).epochs(1).seed(1).device("cuda"))
+        if mesh is not None:
+            b = b.device_mesh(mesh, chunk=W2V_PIPELINE["chunk"],
+                              group=W2V_PIPELINE["group"])
+        m = b.build()
+        m.pipeline_chunk = W2V_PIPELINE["chunk"]
+        m.pipeline_group = W2V_PIPELINE["group"]
+        m.build_vocab(sents)
+        m.fit(sents)
+        torch.cuda.synchronize()
+        tables = [m.lookup_table.syn0.clone(), m.lookup_table.syn1neg.clone()]
+        losses = list(m.loss_history)
+        t0 = time.perf_counter()
+        m.fit(sents)                     # timed: repack + the epoch
+        m.word_vector("w0")
+        torch.cuda.synchronize()
+        return tables, losses, n_words / (time.perf_counter() - t0)
+
+    (t_a, l_a, r_a), (t_b, l_b, r_b) = pipeline(None), pipeline(
+        InProcessShards(2))
+    pipe_err = max(errs(b, a)[1] for a, b in zip(t_a, t_b))
+    loss_err = float(np.max(np.abs(np.subtract(l_b, l_a))
+                            / np.maximum(np.abs(l_a), 1e-12)))
+    sub = sents[:W2V_SENTENCES]
+    q = (Word2Vec.builder().layer_size(128).window_size(5)
+         .min_word_frequency(1).negative_sample(5).epochs(1).seed(1)
+         .device_mesh(InProcessShards(2)).device("cuda").build())
+    q.build_vocab(sub)
+    q.fit(sub)
+    sep = topic_separation(q)
+    host = PHASE20.get("host_separation")
+
+    def glove(mesh):
+        g = gl.Glove(device="cuda", device_mesh=mesh,
+                     **dict(GLOVE, epochs=1))
+        g.build_vocab(sub)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.fit(sub)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0 - g.cooccurrence_seconds
+        return g, len(g.loss_history) * GLOVE["batch_size"] / train_s
+
+    (g_a, tr_a), (g_b, tr_b) = glove(None), glove(InProcessShards(2))
+    glove_err = max(errs(g_b.state[n], g_a.state[n])[1]
+                    for n in gl.GLOVE_STATE)
+    glove_loss = float(np.max(np.abs(np.subtract(g_b.loss_history,
+                                                  g_a.loss_history))
+                              / np.maximum(np.abs(g_a.loss_history),
+                                           1e-12)))
+    torch.cuda.synchronize()
+    launches = counters.read()
+    log24(card, f"24d: device pipeline (chunk {W2V_PIPELINE['chunk']} x "
+          f"group {W2V_PIPELINE['group']}, {n_words} words) with data = 2 "
+          f"in one process: tables {pipe_err:.3e} of the largest entry "
+          f"from the meshless run's, losses {loss_err:.3e} relative (gate "
+          f"{MESH_TOL}); {r_b:.1f} words/s against the meshless "
+          f"{r_a:.1f} (phase 20a {PHASE20.get('pipeline_words_s')}); "
+          f"sub-corpus separation with data = 2 {sep:.4f} against the host "
+          f"path's {host} (gate >= {W2V_QUALITY_RATIO}x); GloVe one epoch "
+          f"with data = 2: state {glove_err:.3e} of the largest entry, "
+          f"losses {glove_loss:.3e} relative; {tr_b:.1f} triples/s "
+          f"against the meshless {tr_a:.1f} (phase 20e "
+          f"{PHASE20.get('glove_triples_s')}); launches {launches}")
+    failures = []
+    if not (pipe_err <= MESH_TOL and loss_err <= MESH_TOL):
+        failures.append("the pipeline with data = 2 left the meshless run")
+    if not (glove_err <= MESH_TOL and glove_loss <= MESH_TOL):
+        failures.append("GloVe with data = 2 left the meshless run")
+    if host is None or not sep >= W2V_QUALITY_RATIO * host:
+        failures.append(f"separation {sep} against the host path's {host}")
+    if any(launches.values()):
+        failures.append(f"launches {launches}, expected none")
+    if failures:
+        raise PhaseFailed("24d", "; ".join(failures))
+    return launches
+
+
+def build_worker(build_dir):
+    """`--build-worker DIR`: builds csrc/neg_softmax.cu into DIR (a
+    fresh cache) and prints what this process compiled, then loads it."""
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    cuda_build.BUILD_DIR = Path(build_dir)
+    built = sorted(cuda_build.build(["neg_softmax"]))
+    cuda_build.load("neg_softmax")
+    print(json.dumps({"built": built}), flush=True)
+    return 0
+
+
+def build_lock_on_card(card):
+    """24b's build check: two processes that start together on an empty
+    kernel cache build it once (`cuda_build`'s file lock): one compiles,
+    the other waits and loads the library the first built."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_build_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--build-worker", d],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _ in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    built = sorted(json.loads(o.strip().splitlines()[-1])["built"]
+                   if p.returncode == 0 else None
+                   for p, o in zip(procs, outs))
+    log24(card, f"24b: two processes on an empty kernel cache built "
+          f"{built} in {time.perf_counter() - t0:.2f} s")
+    if built != [[], ["neg_softmax"]]:
+        raise PhaseFailed("24b", f"the build lock let {built} build: "
+                                 f"{[o[-1500:] for o in outs]}")
+
+
+def train_fleet(torch, counters, fns, transformer_lm, DataSet, card):
+    """Phase 24: the elastic fleet (24a), parameter averaging through
+    the cluster coordinator (24b), the sharded embedding engine (24c)
+    and the data meshes of NLP (24d). Returns the launches of its runs
+    and K13's record at the engine's shape."""
+    t0 = time.perf_counter()
+    runs = [elastic_on_card(torch, card),
+            averaging_on_card(torch, counters, transformer_lm, DataSet,
+                              card)]
+    build_lock_on_card(card)
+    engine_launches, k13 = engine_shards(torch, counters, fns, card)
+    runs += [engine_launches, data_meshes(torch, counters, card)]
+    keys = sorted({k for r in runs for k in r})
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in keys}
+    log24(card, f"phase 24 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return launches, k13
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -6817,17 +7620,33 @@ def ab(other):
     return 0
 
 
+# the worker roles phase 24 re-invokes this file in, and their argument
+# counts
+ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
+         "--average-worker": 6, "--build-worker": 1}
+
+
 def main() -> int:
+    started = time.time()
     import torch
 
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] not in ("--ab", "--ab-turn")):
+    if args and (args[0] not in ROLES or len(args) != 1 + ROLES[args[0]]):
         print("usage: chip_smoke.py [--ab OTHER_CHECKOUT]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
+    if args and args[0] in ("--elastic-worker", "--average-worker",
+                            "--build-worker"):
+        sys.path.insert(0, str(ROOT))
+        if args[0] == "--elastic-worker":
+            return elastic_worker(*args[1:], started)
+        if args[0] == "--build-worker":
+            return build_worker(args[1])
+        *rest, crash = args[1:]
+        return average_worker(*rest, int(crash))
     if args:
         root = Path(args[1]).resolve()
         if args[0] == "--ab-turn":
@@ -6933,12 +7752,16 @@ def main() -> int:
         torch, counters, fa, transformer_lm, DataSet, name_power)
     pipe_launches, micro_times = train_pipeline(
         torch, counters, fa, fsx, transformer_lm, DataSet, name_power)
-    log(f"chip_smoke: phases 1-23 in {time.perf_counter() - started:.1f} s")
+    # phase 24's workers share the card with this process
+    torch.cuda.empty_cache()
+    fleet_launches, k13_embed = train_fleet(
+        torch, counters, fns, transformer_lm, DataSet, name_power)
+    log(f"chip_smoke: phases 1-24 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
     if fa.DENSE_ROUTES["head_dim"]:
-        raise PhaseFailed("3-23", f"{fa.DENSE_ROUTES['head_dim']} attention "
+        raise PhaseFailed("3-24", f"{fa.DENSE_ROUTES['head_dim']} attention "
                               "calls on the card took the dense path")
 
     # one entry per TPU kernel, timed at the heaviest shape a path gives
@@ -6950,15 +7773,18 @@ def main() -> int:
     # flagship windows, the MoE LM's training runs, phase 20's
     # host-path Word2Vec, phase 21's data-parallel, ring, sequence-
     # parallel and pipelined-fit runs, phase 22's graph, MultiLayer-
-    # Network decode, placed-net and split-block runs, and phase 23's
-    # pipelined, restored and searched-placement runs), each counted from
-    # 0 just before it and read just after. K1-K7 carry their dropout
+    # Network decode, placed-net and split-block runs, phase 23's
+    # pipelined, restored and searched-placement runs, and phase 24's
+    # elastic fleet's workers, the averaging workers and its in-process
+    # twin, the sharded engine's arms and the data meshes), each counted
+    # from 0 just before it and read just after (in the process that
+    # ran it). K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
     # the chunked check's largest error.
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
-            par_launches, place_launches, pipe_launches)
+            par_launches, place_launches, pipe_launches, fleet_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}
@@ -7031,6 +7857,9 @@ def main() -> int:
         if kern in micro_times:
             # a pipeline microbatch's shape (23a), beside the row's
             kernels[-1]["microbatch"] = micro_times[kern]
+        if kern == "K13":
+            # bench mode `embed`'s engine shape (24c), beside the row's
+            kernels[-1]["embed"] = k13_embed
         if kern == "K10":
             kernels[-1]["host_us"] = rec["host_us"]
         if kern == "K12":

@@ -8,12 +8,16 @@ one process per device under `torch.distributed`.
   streaming, wall-clock deadlines and straggler reaping.
 - `global_mesh`: the mesh over every rank and this rank's part of a
   global batch.
-- `faults`: the replica-scoped fault specs the serving fleet's chaos
-  hooks read, and the exit classes the launcher reports.
+- `faults`: deterministic fault injection (kill@step / hang@step /
+  delay-connect / drop-heartbeat for fleet processes, kill / hang
+  @batch / @decode for serving replicas) through the same env contract,
+  and the exit classes the launcher reports.
+- `elastic`: the recovery supervisor — checkpoint cadence, exit
+  classification, generational re-form at N' processes, resume with a
+  continuous step counter.
 
-The elastic supervisor and the process-scoped faults wait for the rest
-of ROADMAP Queue A item 7. Only `bootstrap` (pure stdlib at import)
-loads eagerly; the rest resolve lazily.
+Only `bootstrap` (pure stdlib at import) loads eagerly; the rest
+resolve lazily.
 """
 
 from deeplearning4j_tpu_torch.distributed.bootstrap import (  # noqa: F401
@@ -37,6 +41,11 @@ _LAZY = {
     "free_port": "deeplearning4j_tpu_torch.distributed.launcher",
     "launch_local": "deeplearning4j_tpu_torch.distributed.launcher",
     "launch_plan": "deeplearning4j_tpu_torch.distributed.launcher",
+    "Fault": "deeplearning4j_tpu_torch.distributed.faults",
+    "FaultSchedule": "deeplearning4j_tpu_torch.distributed.faults",
+    "active_faults": "deeplearning4j_tpu_torch.distributed.faults",
+    "ElasticSupervisor": "deeplearning4j_tpu_torch.distributed.elastic",
+    "run_elastic_steps": "deeplearning4j_tpu_torch.distributed.elastic",
     "globalize_batch": "deeplearning4j_tpu_torch.distributed.global_mesh",
     "globalize_full": "deeplearning4j_tpu_torch.distributed.global_mesh",
     "local_shard": "deeplearning4j_tpu_torch.distributed.global_mesh",

@@ -37,6 +37,11 @@ ENV_FAULTS = "DL4J_TPU_FAULTS"
 ENV_DEVICE = "DL4J_TPU_DEVICE"
 # how long shutdown's barrier waits for the slowest rank on gloo
 SHUTDOWN_BARRIER_S = 30.0
+# the process group's timeout for one collective when the caller names
+# none: a peer that died or hangs surfaces in the survivors as an
+# exception within this bound (torch's own default is 30 minutes), which
+# is what lets an elastic fleet's survivors take their rescue path
+PROCESS_GROUP_TIMEOUT_S = 300.0
 
 # the device `initialize` bound this process to (None before it runs)
 _device = None
@@ -244,12 +249,18 @@ def initialize(coordinator_address: Optional[str] = None,
     failures, full-jitter backoff capped at max_backoff seconds a wait
     under a connect_timeout total (`Backoff`). init_timeout: the
     process group's own timeout for one attempt and for its
-    collectives (torch's default when None)."""
+    collectives (PROCESS_GROUP_TIMEOUT_S when None). An injected
+    `delay-connect` fault (distributed/faults.py) sleeps before the
+    rendezvous is dialed."""
     global _device
     import torch
     import torch.distributed as dist
 
+    from deeplearning4j_tpu_torch.distributed.faults import active_faults
     from deeplearning4j_tpu_torch.telemetry.recorder import get_default
+
+    # a late worker racing the rendezvous, before anything is dialed
+    active_faults().delay_connect()
 
     contract = contract_from_env()
     if coordinator_address is None:
@@ -283,8 +294,9 @@ def initialize(coordinator_address: Optional[str] = None,
     kwargs = {"backend": backend,
               "init_method": f"tcp://{coordinator_address}",
               "world_size": int(num_processes), "rank": int(process_id)}
-    if init_timeout is not None:
-        kwargs["timeout"] = timedelta(seconds=init_timeout)
+    kwargs["timeout"] = timedelta(
+        seconds=PROCESS_GROUP_TIMEOUT_S if init_timeout is None
+        else init_timeout)
 
     backoff = Backoff(base=0.25, cap=max_backoff,
                       max_elapsed=connect_timeout)

@@ -12,8 +12,9 @@ terminates and then kills stragglers, so a wedged rendezvous or
 collective can never hang a test run.
 
 ``launch_plan`` renders the same fleet as copy-pastable shell lines.
-Process-scoped fault injection (``faults=``) comes with the elastic
-half of ROADMAP Queue A item 7.
+``faults=`` hands a process-scoped fault schedule (distributed/faults.py)
+to the members it names through the env contract, and a SIGKILL the
+schedule named is classified ``injected-kill``.
 """
 
 from __future__ import annotations
@@ -104,7 +105,9 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
                  extra_env: Optional[dict] = None,
                  echo: Optional[Callable[[str], None]] = None,
                  cwd: Optional[str] = None,
-                 death_grace: Optional[float] = None
+                 faults=None,
+                 death_grace: Optional[float] = None,
+                 on_poll: Optional[Callable[[], None]] = None
                  ) -> List[ProcessResult]:
     """Run ``argv`` as an N-process rendezvous fleet on this host.
 
@@ -118,13 +121,28 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
     classified exit, each also echoed as a ``[pN] -- exit: <class>``
     epilogue line; ``echo`` (e.g. ``print``) streams lines live.
 
+    ``faults``: a `faults.FaultSchedule` (or spec string / list) given
+    to the processes it names through `bootstrap.ENV_FAULTS`; every
+    injected fault and every observed exit class is a typed telemetry
+    ``fault`` event, so the run reads from the JSONL alone.
+
     ``death_grace``: once any member exits with neither 0 nor the
     resumable code, the rest get this many seconds to exit on their own
-    before being reaped (survivors of a dead peer otherwise wait in the
-    broken collective until the deadline). None keeps the deadline as
-    the sole reaper."""
+    (the rescue path) before being reaped (survivors of a dead peer
+    otherwise wait in the broken collective until the process group's
+    timeout or the deadline). None keeps the deadline as the sole
+    reaper.
+
+    ``on_poll``: called on every monitor pass while the fleet runs (the
+    elastic supervisor's straggler and memory watches tail the
+    per-process telemetry there). Its exceptions are contained: a
+    broken watcher never kills the launch, and each distinct failure is
+    put on the record once as an ``error`` event (where ``on_poll``)."""
     from deeplearning4j_tpu_torch.telemetry.recorder import get_default
 
+    if faults is not None and not isinstance(faults,
+                                             faults_mod.FaultSchedule):
+        faults = faults_mod.FaultSchedule.parse(faults)
     coordinator = f"127.0.0.1:{coordinator_port or free_port()}"
     argv = list(argv)
     procs: List[subprocess.Popen] = []
@@ -133,11 +151,17 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
     rec = get_default()
     with rec.span("distributed_launch", n_processes=n_processes,
                   argv0=argv[0], coordinator=coordinator) as span:
+        if faults is not None:
+            for f in faults:
+                rec.fault(f.kind, process_id=f.process_id, step=f.step,
+                          spec=f.spec(), injected=True)
         base = dict(os.environ)
         for i in range(n_processes):
             env = dict(base)
             env.update(_process_env(coordinator, i, n_processes, device,
                                     extra_env))
+            if faults is not None and faults.for_process(i):
+                env[bootstrap.ENV_FAULTS] = faults.to_env()
             p = subprocess.Popen(argv, env=env, cwd=cwd,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
@@ -149,6 +173,7 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
             threads.append(t)
         deadline = time.monotonic() + timeout
         death_at = None
+        poll_errors = set()
         pending = set(range(n_processes))
         while pending:
             now = time.monotonic()
@@ -165,6 +190,13 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
                         rc not in (0, faults_mod.RESUMABLE_EXIT_CODE):
                     death_at = time.monotonic() + death_grace
                     span["death_grace_tripped_by"] = i
+            if on_poll is not None:
+                try:
+                    on_poll()
+                except Exception as exc:  # advisory: the launch goes on
+                    if repr(exc) not in poll_errors:
+                        poll_errors.add(repr(exc))
+                        rec.error("on_poll", exc=exc)
             if pending:
                 time.sleep(0.05)
         stragglers = [i for i, p in enumerate(procs) if p.poll() is None]
@@ -186,7 +218,10 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
         for t in threads:
             t.join(timeout=2.0)
         for r in results:
-            r.exit_class = classify_exit(r.returncode, r.timed_out)
+            injected = (faults is not None
+                        and faults.kill_scheduled(r.process_id))
+            r.exit_class = classify_exit(r.returncode, r.timed_out,
+                                         kill_injected=injected)
             epilogue = (f"-- exit: {r.exit_class} "
                         f"(rc={r.returncode}, timed_out={r.timed_out})")
             r.lines.append(epilogue)
@@ -197,6 +232,7 @@ def launch_local(argv: Sequence[str], n_processes: int = 2, *,
                       observed_exit=True)
             if r.exit_class not in (faults_mod.EXIT_CLEAN,
                                     faults_mod.EXIT_RESUMABLE,
+                                    faults_mod.EXIT_INJECTED_KILL,
                                     faults_mod.EXIT_DEADLINE):
                 rec.error("distributed_launch",
                           error=f"p{r.process_id} {r.exit_class}",

@@ -2,8 +2,9 @@
 deeplearning4j_tpu/embedding):
 
 * `engine.py`  — SGNS + hierarchical-softmax train steps over
-  device-resident tables (ep = dp = 1), scored by the K13 kernel; the
-  lookup-table view.
+  device-resident tables row-sharded over ep and batch-split over dp
+  (a shard a rank, or every shard in one process), scored by the K13
+  kernel; the lookup-table view.
 * `ann.py`     — the fixed-shape partition-then-refine ANN index
   (coarse centroid routing + exact top-k inside the probed partitions).
 * `walks.py`   — ragged DeepWalk walks bucketed into fixed shapes +

@@ -213,7 +213,8 @@ class EmbeddingServingEngine:
         snapshot sources a device-resident copy."""
         n = int(ids.shape[0])
         self._embed_seen.add(n)
-        with self.recorder.span("gather", rows=n, ep=1,
+        ep = self._view.engine.ep if self._view is not None else 1
+        with self.recorder.span("gather", rows=n, ep=ep,
                                 bytes=n * (self.dim * 4 + 4)):
             if self._view is not None:
                 return self._view.engine.embed(ids)

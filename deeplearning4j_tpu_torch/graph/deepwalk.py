@@ -6,9 +6,9 @@ deeplearning4j_tpu/graph/deepwalk.py).
 
 Walks are generated on the host and fed to the port's SequenceVectors,
 so training is the same batched skip-gram step as Word2Vec: hierarchical
-softmax (as the reference) through the embedding engine's `hs_step` at
-ep = 1, with the tables on `device` (CUDA unless the caller names
-another).
+softmax (as the reference) through the embedding engine's `hs_step`
+(row-sharded at `engine_ep` > 1, see `Builder.use_engine`), with the
+tables on `device` (CUDA unless the caller names another).
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ class DeepWalk:
             return self
 
         def use_engine(self, flag=True, ep: int = 1, dp: int = 1):
-            """Embedding-engine training (on by default); ep > 1 / dp > 1
-            raise — see Word2Vec.Builder.use_engine."""
+            """Embedding-engine training (on by default), row-sharded
+            over ep and batch-split over dp over the process group of
+            ep * dp ranks — see Word2Vec.Builder.use_engine."""
             self._kw["use_engine"] = flag
             self._kw["engine_ep"] = int(ep)
             self._kw["engine_dp"] = int(dp)
@@ -78,7 +79,7 @@ class DeepWalk:
         self.seed = seed
         # DeepWalk is a thin front-end over the embedding engine
         # (embedding/engine.py): its HS step is the legacy dense step's
-        # math at ep = 1
+        # math, row-sharded at ep > 1
         self.use_engine = use_engine
         self.engine_ep = engine_ep
         self.engine_dp = engine_dp

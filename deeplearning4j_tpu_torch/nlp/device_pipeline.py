@@ -35,8 +35,16 @@ shares each center's negatives across its context slots with pair-count
 weighting (`share_negatives=True`), drawing `neg_oversample * K` of them
 each weighted K/M; `share_negatives=False` draws K per pair.
 
-A device mesh (the JAX package's sharded chunk stream) needs NCCL and
-waits for the parallel slice (ROADMAP Queue A item 7): `mesh` raises.
+**Mesh.** With `mesh` (a `parallel.Mesh` with a "data" axis over the
+process group, or `ops.shard_comm.InProcessShards(n)` for n shards in
+this process; `parallel.mesh.data_shards`), each update's `group`
+chunks split over the "data" shards — shard s takes chunks
+[s * group/n, (s + 1) * group/n) — and their gradient tables, losses
+and pair counts are summed (an f32 all-reduce over the group, or in
+shard order in process), as the JAX package's psum over "data" does.
+Each shard takes its slice of the update's draws, the ones the meshless
+epoch draws for those chunks, so the two agree up to the order of the
+sums. `group % data` != 0 raises.
 """
 
 from __future__ import annotations
@@ -49,12 +57,18 @@ import torch
 from deeplearning4j_tpu_torch.nlp.lookup import MAX_ROW_STEP
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "device_pipeline: a device mesh (the sharded chunk stream) "
-            "needs NCCL and waits for the parallel slice (ROADMAP Queue A "
-            "item 7); the port trains on one device (mesh=None)")
+def _mesh_split(mesh, group: int):
+    """`parallel.mesh.data_shards` of the epoch's mesh (None without
+    one); the group must divide over its "data" axis."""
+    if mesh is None:
+        return None
+    from deeplearning4j_tpu_torch.parallel.mesh import data_shards
+
+    n, shards, pg = data_shards(mesh)
+    if group % n:
+        raise ValueError(f"group={group} not divisible by mesh data "
+                         f"axis size {n}")
+    return n, shards, pg
 
 
 def build_alias_table(probs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -242,25 +256,66 @@ def _ramp(lr0: float, lr1: float, n_up: int) -> List[float]:
         np.float32).tolist()
 
 
-def _build_epoch(scatter, *, chunk, group, window, neg_shape):
+def _build_epoch(scatter, *, chunk, group, window, neg_shape, mesh=None):
     """The update loop shared by the SGNS and CBOW epochs: `scatter(s0,
-    s1, tokens, sent_ids, start, b, negs, g0, g1)` sums one update's
-    gradients into the zeroed g0/g1 and returns its (loss, count)."""
+    s1, tokens, sent_ids, start, b, negs, g0, g1)` sums the gradients of
+    the len(b) centers from `start` into g0/g1 and returns their (loss,
+    count). With a mesh, each "data" shard scatters its chunks and the
+    shards' sums are summed (module docstring)."""
     per_update = chunk * group
+    split = _mesh_split(mesh, group)
+
+    def sharded(syn0, syn1neg, tokens, sent_ids, start, b, negs, g0, g1,
+                tmp):
+        """One update's gradients summed over the data shards."""
+        n, shards, pg = split
+        per_shard = per_update // n
+        loss = count = None
+        for s in shards:
+            lo = s * per_shard
+            if loss is None:
+                out0, out1 = g0, g1
+            else:
+                out0, out1 = tmp
+                out0.zero_()
+                out1.zero_()
+            ls, ct = scatter(syn0, syn1neg, tokens, sent_ids, start + lo,
+                             b[lo:lo + per_shard], negs[lo:lo + per_shard],
+                             out0, out1)
+            if loss is None:
+                loss, count = ls, ct
+            else:
+                g0.add_(out0)
+                g1.add_(out1)
+                loss, count = loss + ls, count + ct
+        if pg is not None:
+            import torch.distributed as dist
+
+            totals = torch.stack([loss, count.to(loss.dtype)])
+            for t in (g0, g1, totals):
+                dist.all_reduce(t, group=pg)
+            loss, count = totals[0], totals[1]
+        return loss, count
 
     def epoch(syn0, syn1neg, tokens, sent_ids, aJ, aq, gen, lr0, lr1):
         """(syn0, syn1neg, per-update loss sums [U], pair counts [U]);
         the tables are updated in place."""
         n_up = max(tokens.shape[0] // per_update, 1)
         g0, g1 = torch.empty_like(syn0), torch.empty_like(syn1neg)
+        tmp = ((torch.empty_like(syn0), torch.empty_like(syn1neg))
+               if split is not None and len(split[1]) > 1 else None)
         losses, counts = [], []
         for u, lr in enumerate(_ramp(lr0, lr1, n_up)):
             b, negs = draw_update(gen, u, aJ, aq, chunk=chunk, group=group,
                                   window=window, neg_shape=neg_shape)
             g0.zero_()
             g1.zero_()
-            loss, count = scatter(syn0, syn1neg, tokens, sent_ids,
-                                  u * per_update, b, negs, g0, g1)
+            if split is None:
+                loss, count = scatter(syn0, syn1neg, tokens, sent_ids,
+                                      u * per_update, b, negs, g0, g1)
+            else:
+                loss, count = sharded(syn0, syn1neg, tokens, sent_ids,
+                                      u * per_update, b, negs, g0, g1, tmp)
             _trust_region_apply(syn0, g0, lr)
             _trust_region_apply(syn1neg, g1, lr)
             losses.append(loss)
@@ -282,8 +337,8 @@ def make_sgns_epoch(*, window: int, negative: int, chunk: int = 512,
     chunk * group, on the tables' device; alias_J / alias_q from
     build_alias_table over the unigram^0.75 distribution; gen a
     torch.Generator on that device.) One update = `group` chunks of
-    `chunk` centers with summed gradients."""
-    _refuse_mesh(mesh)
+    `chunk` centers with summed gradients; with `mesh` the chunks split
+    over its "data" shards (module docstring)."""
     K = negative
     neg_shape = ((max(int(round(K * neg_oversample)), 1),) if share_negatives
                  else (2 * window, K))
@@ -300,7 +355,7 @@ def make_sgns_epoch(*, window: int, negative: int, chunk: int = 512,
         return loss, pairs
 
     return _build_epoch(scatter, chunk=chunk, group=group, window=window,
-                        neg_shape=neg_shape)
+                        neg_shape=neg_shape, mesh=mesh)
 
 
 def make_cbow_epoch(*, window: int, negative: int, chunk: int = 512,
@@ -308,7 +363,6 @@ def make_cbow_epoch(*, window: int, negative: int, chunk: int = 512,
     """CBOW analogue of make_sgns_epoch (same signature and contract);
     syn0 receives the context rows' gradients, syn1neg the center's and
     the negatives'."""
-    _refuse_mesh(mesh)
     K = negative
 
     def scatter(s0, s1, tokens, sent_ids, start, b, negs, g0, g1):
@@ -322,4 +376,4 @@ def make_cbow_epoch(*, window: int, negative: int, chunk: int = 512,
         return loss, n
 
     return _build_epoch(scatter, chunk=chunk, group=group, window=window,
-                        neg_shape=(K,))
+                        neg_shape=(K,), mesh=mesh)

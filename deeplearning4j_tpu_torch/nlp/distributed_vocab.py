@@ -1,13 +1,18 @@
-"""Parallel vocabulary counting (JAX counterpart
-deeplearning4j_tpu/nlp/distributed_vocab.py, lines 35-97).
+"""Parallel and distributed vocabulary construction (JAX counterpart
+deeplearning4j_tpu/nlp/distributed_vocab.py).
 
-`parallel_count` / `VocabConstructor(n_workers=...)` count corpus
-chunks in a host process pool (workers tokenize, optionally, and
-count); Counters merge associatively, so the result equals the serial
-pass. `cache_from_counts` is the shared tail that finishes a VocabCache
-(filter, index order, Huffman). The cluster-wide
-`build_vocab_distributed` waits for the distributed runtime
-(ROADMAP Queue A item 7).
+- `parallel_count` / `VocabConstructor(n_workers=...)` count corpus
+  chunks in a host process pool (workers tokenize, optionally, and
+  count); Counters merge associatively, so the result equals the serial
+  pass. `cache_from_counts` is the shared tail that finishes a
+  VocabCache (filter, index order, Huffman).
+- `build_vocab_distributed`: every cluster worker counts ITS corpus
+  shard, publishes the counts through the coordinator's config registry
+  (parallel/cluster.py), barriers, and merges all shards in
+  sorted-worker order — each worker ends with the IDENTICAL VocabCache
+  (same counts, same index order, same Huffman codes), the invariant
+  the device pipeline needs for device-count-invariant training
+  (reference: spark/dl4j-spark-nlp TextPipeline.buildVocabCache).
 """
 
 from __future__ import annotations
@@ -82,3 +87,30 @@ def cache_from_counts(counts: Counter, n_sequences: int,
         Huffman(cache.vocab_words()).build()
     cache.n_sequences = n_sequences
     return cache
+
+
+def build_vocab_distributed(client, local_sequences: Iterable[List[str]],
+                            *, min_word_frequency: int = 1,
+                            limit: Optional[int] = None,
+                            build_huffman: bool = True,
+                            n_workers: int = 1,
+                            key: str = "vocab") -> VocabCache:
+    """Cluster-wide vocabulary from per-worker corpus shards.
+
+    client: a connected parallel.cluster.ClusterClient. Every worker
+    calls this with its OWN shard; all workers return the same cache.
+    """
+    counts, n_seq = parallel_count(local_sequences, n_workers=n_workers)
+    client.set_config(f"{key}/counts/{client.worker_id}",
+                      {"counts": dict(counts), "n_sequences": n_seq})
+    client.barrier(f"{key}/counted")
+    merged: Counter = Counter()
+    total_seq = 0
+    for wid in sorted(client.workers()):
+        shard = client.get_config(f"{key}/counts/{wid}")
+        if shard is None:
+            continue  # worker died between counting and the barrier
+        merged.update(shard["counts"])
+        total_seq += int(shard["n_sequences"])
+    return cache_from_counts(merged, total_seq, min_word_frequency, limit,
+                             build_huffman)

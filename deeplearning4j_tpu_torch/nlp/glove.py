@@ -14,9 +14,15 @@ before any row update reads it back, as in the JAX step. Each epoch is a
 Python loop of eager launches over the batches of one permutation of the
 triples. The permutation is the epoch's one draw: it comes from
 `draw_permutation` and a torch.Generator (tests swap in the JAX
-package's permutation). A device mesh (the JAX package's sharded
-triples) waits for the parallel slice (ROADMAP Queue A item 7) and
-raises. Final vectors are w + w̃ (standard GloVe practice).
+package's permutation). With a device mesh (a `parallel.Mesh` with a
+"data" axis, or `ops.shard_comm.InProcessShards(n)`;
+`parallel.mesh.data_shards`) each batch's triples split over the "data"
+shards: every shard computes the gradients of its triples against the
+replicated tables, the shards' (row, gradient) pairs are joined in
+shard order (all-gathered over the process group) and every shard
+applies the whole batch's summed updates — the JAX package's sharded
+triples with psum'd scatter-adds. Final vectors are w + w̃ (standard
+GloVe practice).
 """
 
 from __future__ import annotations
@@ -62,21 +68,24 @@ class AbstractCoOccurrences:
         return ij[:, 0].copy(), ij[:, 1].copy(), x
 
 
-def _glove_update(state: dict, i, j, logx, fx, lr):
-    """AdaGrad step on a batch of (i, j, log X_ij, f(X_ij)) triples, in
-    place on `state` (the GLOVE_STATE tensors); returns the batch loss.
-    Padded triples carry fx == 0 (and logx == 0), so they contribute
-    neither loss nor updates."""
-    W, Wc, b, bc, hW, hWc, hb, hbc = (state[n] for n in GLOVE_STATE)
+def _glove_grads(state: dict, i, j, logx, fx):
+    """The gradients of a batch of (i, j, log X_ij, f(X_ij)) triples:
+    (gwi, gwj, gb, loss). Padded triples carry fx == 0 (and logx == 0),
+    so they contribute neither loss nor updates."""
+    W, Wc, b, bc = (state[n] for n in GLOVE_STATE[:4])
     wi, wj = W[i], Wc[j]                                  # [B, D]
     diff = (wi * wj).sum(1) + b[i] + bc[j] - logx
     wdiff = fx * diff                                     # [B]
     loss = 0.5 * (wdiff * diff).sum()
-    gwi = wdiff[:, None] * wj
-    gwj = wdiff[:, None] * wi
-    gb = wdiff
-    # AdaGrad: accumulate squared grads, then scale the updates by the
-    # accumulators read after the whole batch has landed
+    return wdiff[:, None] * wj, wdiff[:, None] * wi, wdiff, loss
+
+
+def _glove_apply(state: dict, i, j, gwi, gwj, gb, lr):
+    """AdaGrad step of a batch's gradients, in place on `state`: the
+    accumulators take every triple's squared gradient, then the rows
+    move by their gradients scaled by the accumulators read after the
+    whole batch has landed."""
+    W, Wc, b, bc, hW, hWc, hb, hbc = (state[n] for n in GLOVE_STATE)
     hW.index_add_(0, i, gwi ** 2)
     hWc.index_add_(0, j, gwj ** 2)
     hb.index_add_(0, i, gb ** 2)
@@ -85,6 +94,44 @@ def _glove_update(state: dict, i, j, logx, fx, lr):
     Wc.index_add_(0, j, -lr * gwj / torch.sqrt(hWc[j] + 1e-8))
     b.index_add_(0, i, -lr * gb / torch.sqrt(hb[i] + 1e-8))
     bc.index_add_(0, j, -lr * gb / torch.sqrt(hbc[j] + 1e-8))
+
+
+def _glove_update(state: dict, i, j, logx, fx, lr):
+    """AdaGrad step on a batch of (i, j, log X_ij, f(X_ij)) triples, in
+    place on `state` (the GLOVE_STATE tensors); returns the batch loss."""
+    gwi, gwj, gb, loss = _glove_grads(state, i, j, logx, fx)
+    _glove_apply(state, i, j, gwi, gwj, gb, lr)
+    return loss
+
+
+def _glove_update_sharded(state: dict, split, i, j, logx, fx, lr):
+    """`_glove_update` with the batch's triples split over the "data"
+    shards of `split` (`parallel.mesh.data_shards`): each shard's
+    gradients, the pairs joined in shard order, the whole batch's
+    update on every shard; returns the summed loss."""
+    n, shards, pg = split
+    per = i.shape[0] // n
+    parts, loss = [], None
+    for s in shards:
+        rows = slice(s * per, (s + 1) * per)
+        gwi, gwj, gb, ls = _glove_grads(state, i[rows], j[rows],
+                                        logx[rows], fx[rows])
+        parts.append((gwi, gwj, gb))
+        loss = ls if loss is None else loss + ls
+    if pg is None:
+        gwi, gwj, gb = (torch.cat([p[k] for p in parts]) for k in range(3))
+    else:
+        import torch.distributed as dist
+
+        mine = parts[0]
+        gathered = []
+        for t in mine:
+            out = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(out, t.contiguous(), group=pg)
+            gathered.append(torch.cat(out))
+        gwi, gwj, gb = gathered
+        dist.all_reduce(loss, group=pg)
+    _glove_apply(state, i, j, gwi, gwj, gb, lr)
     return loss
 
 
@@ -99,20 +146,30 @@ def make_glove_epoch(batch: int, shuffle: bool, mesh=None):
 
     epoch(state, ii, jj, logx, fx, gen, lr) -> per-batch losses [n]
     (the triples padded to a multiple of `batch`, on the state's
-    device; `state` updated in place)."""
+    device; `state` updated in place). With `mesh` each batch's triples
+    split over its "data" shards (module docstring); `batch` must
+    divide over them."""
+    split = None
     if mesh is not None:
-        raise NotImplementedError(
-            "make_glove_epoch: a device mesh (the sharded triples) needs "
-            "NCCL and waits for the parallel slice (ROADMAP Queue A item "
-            "7); the port trains on one device (mesh=None)")
+        from deeplearning4j_tpu_torch.parallel.mesh import data_shards
+
+        split = data_shards(mesh)
+        if batch % split[0]:
+            raise ValueError(f"batch={batch} not divisible by mesh data "
+                             f"axis size {split[0]}")
 
     def epoch(state, ii, jj, logx, fx, gen, lr):
         n = ii.shape[0]
         perm = (draw_permutation(gen, n, ii.device) if shuffle
                 else torch.arange(n, device=ii.device))
         xs = [a[perm].reshape(-1, batch) for a in (ii, jj, logx, fx)]
-        return torch.stack([_glove_update(state, *(x[s] for x in xs), lr)
-                            for s in range(xs[0].shape[0])])
+        if split is None:
+            return torch.stack([_glove_update(state, *(x[s] for x in xs),
+                                              lr)
+                                for s in range(xs[0].shape[0])])
+        return torch.stack([_glove_update_sharded(
+            state, split, *(x[s] for x in xs), lr)
+            for s in range(xs[0].shape[0])])
 
     return epoch
 

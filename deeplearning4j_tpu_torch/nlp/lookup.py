@@ -69,62 +69,105 @@ def _plain_scores(c, pos, neg):
             torch.sigmoid(torch.einsum("bd,bkd->bk", c, neg)))
 
 
-def _ns_update(syn1neg, h, pos, neg, target, negatives, lr, scores):
+def _join(parts):
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+class DenseTables:
+    """How a training step reaches its tables. This default is the dense
+    single-device step: a table is a tensor, read by plain indexing and
+    updated by `_scatter_update`, and the loss sums run over the batch's
+    rows. The sharded embedding engine (embedding/engine.py) passes its
+    own: the K13 kernel's scores, gathers and updates over its row
+    shards, and the data shards' pairs exchanged before an update. The
+    steps' arithmetic lives here only."""
+
+    scores = staticmethod(_plain_scores)
+
+    def device(self, table):
+        return table.device
+
+    def gather(self, table, idx):
+        return table[idx]
+
+    def update(self, table, idx_parts, val_parts, lr):
+        """Apply a table's (indices, grads) pairs, given as pieces that
+        run row-major over the batch (e.g. the context rows, then the
+        negatives')."""
+        _scatter_update(table, _join(idx_parts), _join(val_parts), lr)
+
+    def batch_sum(self, x):
+        """The sum of x over the batch's rows."""
+        return x.sum()
+
+    def batch_rows(self, rows: int) -> int:
+        """The rows of the whole batch, of which a step computes `rows`."""
+        return rows
+
+
+DENSE = DenseTables()
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.as_tensor(a if torch.is_tensor(a) else np.asarray(a),
+                           device=device)
+
+
+def _ns_update(syn1neg, h, pos, neg, target, negatives, lr, tables):
     """The negative-sampling half shared by skip-gram and CBOW: scores
     of the hidden rows h [B, D] against pos [B, D] and neg [B, K, D],
     the syn1neg update, and the loss. Returns (grad_h, loss)."""
-    pos_score, neg_score = scores(h, pos, neg)
+    pos_score, neg_score = tables.scores(h, pos, neg)
     g_pos = (pos_score - 1.0)[:, None]           # dL/d(h.pos)
     g_neg = neg_score[:, :, None]                # dL/d(h.neg)
     grad_h = g_pos * pos + torch.einsum("bk,bkd->bd", neg_score, neg)
     B, K = negatives.shape
-    out_idx = torch.cat([target, negatives.reshape(B * K)])
-    out_grad = torch.cat([g_pos * h, (g_neg * h[:, None, :])
-                          .reshape(B * K, -1)])
-    _scatter_update(syn1neg, out_idx, out_grad, lr)
-    loss = -(torch.log(pos_score + 1e-10).sum()
-             + torch.log(1.0 - neg_score + 1e-10).sum())
-    return grad_h, loss / B
+    tables.update(syn1neg, [target, negatives.reshape(B * K)],
+                  [g_pos * h, (g_neg * h[:, None, :]).reshape(B * K, -1)],
+                  lr)
+    loss = -(tables.batch_sum(torch.log(pos_score + 1e-10))
+             + tables.batch_sum(torch.log(1.0 - neg_score + 1e-10)))
+    return grad_h, loss / tables.batch_rows(B)
 
 
 # --------------------------------------------------------------------------
 # Skip-gram with negative sampling — batched
 # --------------------------------------------------------------------------
 def sgns_step(syn0, syn1neg, center, context, negatives, lr,
-              scores=_plain_scores):
+              tables=DENSE):
     """One SGD step on a batch of skip-gram pairs with K negatives each.
 
-    center [B], context [B], negatives [B,K]; lr scalar. `scores` maps
-    (c, pos, neg) to the sigmoid'd scores (the embedding engine passes
-    the K13 kernel's wrapper).
+    center [B], context [B], negatives [B,K]; lr scalar. `tables` says
+    how the step reaches syn0 and syn1neg (`DenseTables`; the embedding
+    engine passes its shards' and the K13 kernel's scores).
     loss = -log sigma(c.v_pos) - sum_k log sigma(-c.v_negk)   (word2vec)
     Returns (syn0, syn1neg, loss) with the tables updated in place."""
-    dev = syn0.device
+    dev = tables.device(syn0)
     center, context, negatives = (_index(a, dev)
                                   for a in (center, context, negatives))
-    c = syn0[center]                             # [B, D]
-    grad_c, loss = _ns_update(syn1neg, c, syn1neg[context],
-                              syn1neg[negatives], context, negatives, lr,
-                              scores)
-    _scatter_update(syn0, center, grad_c, lr)
+    c = tables.gather(syn0, center)              # [B, D]
+    grad_c, loss = _ns_update(syn1neg, c, tables.gather(syn1neg, context),
+                              tables.gather(syn1neg, negatives), context,
+                              negatives, lr, tables)
+    tables.update(syn0, [center], [grad_c], lr)
     return syn0, syn1neg, loss
 
 
 # --------------------------------------------------------------------------
 # Skip-gram with hierarchical softmax — batched
 # --------------------------------------------------------------------------
-def sg_hs_step(syn0, syn1, center, codes, points, mask, lr):
+def sg_hs_step(syn0, syn1, center, codes, points, mask, lr, tables=DENSE):
     """Hierarchical-softmax step (reference SkipGram.iterateSample:181-197).
 
     center [B]; codes [B,L] (0/1 per tree branch); points [B,L] inner-node
-    rows of syn1; mask [B,L] valid-depth mask.
+    rows of syn1; mask [B,L] valid-depth mask; `tables` as `sgns_step`.
     loss = -sum_d log sigma((1-2*code_d) * c.syn1[point_d])"""
-    dev = syn0.device
+    dev = tables.device(syn0)
     center, points = _index(center, dev), _index(points, dev)
-    codes = torch.as_tensor(np.asarray(codes), device=dev)
-    mask = torch.as_tensor(np.asarray(mask), device=dev).bool()
-    c = syn0[center]                             # [B, D]
-    nodes = syn1[points]                         # [B, L, D]
+    codes = _tensor(codes, dev)
+    mask = _tensor(mask, dev).bool()
+    c = tables.gather(syn0, center)              # [B, D]
+    nodes = tables.gather(syn1, points)          # [B, L, D]
     sign = 1.0 - 2.0 * codes.to(c.dtype)         # [B, L]
     p = torch.sigmoid(sign * torch.einsum("bd,bld->bl", c, nodes))
     m = mask.to(c.dtype)
@@ -132,13 +175,13 @@ def sg_hs_step(syn0, syn1, center, codes, points, mask, lr):
     grad_c = torch.einsum("bl,bld->bd", g, nodes)
     grad_nodes = g[:, :, None] * c[:, None, :]
     B, L = codes.shape
-    _scatter_update(syn0, center, grad_c, lr)
+    tables.update(syn0, [center], [grad_c], lr)
     # masked-out depths carry zero grads; route them to row 0
     flat_pts = torch.where(mask, points, 0).reshape(B * L)
-    _scatter_update(syn1, flat_pts,
-                    (grad_nodes * m[:, :, None]).reshape(B * L, -1), lr)
-    loss = -(torch.log(p + 1e-10) * m).sum()
-    return syn0, syn1, loss / B
+    tables.update(syn1, [flat_pts],
+                  [(grad_nodes * m[:, :, None]).reshape(B * L, -1)], lr)
+    loss = -tables.batch_sum(torch.log(p + 1e-10) * m)
+    return syn0, syn1, loss / tables.batch_rows(B)
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +202,7 @@ def cbow_ns_step(syn0, syn1neg, context, context_mask, target, negatives,
     h = (ctx * m).sum(1) / denom                 # [B, D]
     grad_h, loss = _ns_update(syn1neg, h, syn1neg[target],
                               syn1neg[negatives], target, negatives, lr,
-                              _plain_scores)
+                              DENSE)
     grad_ctx = (grad_h[:, None, :] / denom[:, None, :]) * m   # [B, W, D]
     B, W = context.shape
     flat_ctx = torch.where(cmask, context, 0).reshape(B * W)

@@ -92,8 +92,8 @@ class SequenceVectors:
         self.seed = seed
         self.algorithm = elements_learning_algorithm
         self.vocab_limit = vocab_limit
-        # whole-epoch on-device training (nlp/device_pipeline.py); a
-        # mesh raises there (ROADMAP Queue A item 7)
+        # whole-epoch on-device training (nlp/device_pipeline.py), its
+        # chunk groups split over a mesh's "data" axis when one is set
         self.use_device_pipeline = use_device_pipeline
         self.device_mesh = device_mesh
         self.pipeline_chunk = pipeline_chunk
@@ -107,7 +107,8 @@ class SequenceVectors:
         self.n_workers = n_workers  # host-parallel vocab counting
         # route skip-gram flushes through the embedding engine
         # (embedding/engine.py): the K13 scoring kernel on CUDA, the
-        # legacy dense step's math otherwise; ep>1 / dp>1 raise there
+        # legacy dense step's math otherwise; ep / dp shards over the
+        # process group
         self.use_engine = use_engine
         self.engine_ep = engine_ep
         self.engine_dp = engine_dp
@@ -371,13 +372,13 @@ class SequenceVectors:
         explicit, so a silent host-loop fallback would hide another
         training path)."""
         from deeplearning4j_tpu_torch.nlp.device_pipeline import (
-            _refuse_mesh,
             build_alias_table,
             make_cbow_epoch,
             make_sgns_epoch,
             pack_corpus,
             pack_corpus_flat,
         )
+        from deeplearning4j_tpu_torch.parallel.mesh import data_shards
 
         if (self.algorithm not in ("skipgram", "cbow") or self.use_hs
                 or self.negative <= 0):
@@ -388,16 +389,29 @@ class SequenceVectors:
         if self._extra_rows():
             raise ValueError("device pipeline does not support extra label "
                              "rows (ParagraphVectors) — use the host path")
-        _refuse_mesh(self.device_mesh)
-        group = 2 if self.pipeline_group is None else self.pipeline_group
+        group = self.pipeline_group
+        n_dev = (data_shards(self.device_mesh)[0]
+                 if self.device_mesh is not None else 1)
+        if group is None:
+            # auto: 2 chunks an update, rounded up to a multiple of the
+            # mesh's data axis; pin a group for results that do not
+            # depend on the shard count
+            group = -(-2 // n_dev) * n_dev
+        elif group % n_dev:
+            raise ValueError(
+                f"pipeline_group={group} does not divide over the "
+                f"{n_dev}-way mesh data axis — set pipeline_group to a "
+                f"multiple of {n_dev} (or leave it None for auto)")
         if self.algorithm == "cbow":
             epoch_fn = make_cbow_epoch(
                 window=self.window_size, negative=self.negative,
-                chunk=self.pipeline_chunk, group=group)
+                chunk=self.pipeline_chunk, group=group,
+                mesh=self.device_mesh)
         else:
             epoch_fn = make_sgns_epoch(
                 window=self.window_size, negative=self.negative,
                 chunk=self.pipeline_chunk, group=group,
+                mesh=self.device_mesh,
                 share_negatives=self.pipeline_share_negatives,
                 neg_oversample=self.pipeline_neg_oversample)
         t = self.lookup_table

@@ -109,8 +109,10 @@ class Word2Vec(SequenceVectors):
         def use_engine(self, flag=True, ep: int = 1, dp: int = 1):
             """Route skip-gram training through the embedding engine
             (embedding/engine.py; on by default), which scores with the
-            K13 kernel on CUDA. ep > 1 / dp > 1 (row-sharded tables, the
-            sparse gradient exchange) raise NotImplementedError."""
+            K13 kernel on CUDA. ep > 1 row-shards the tables over the
+            "expert" axis and dp > 1 splits each batch over "data" with
+            the sparse gradient exchange, one shard a rank over the
+            process group of ep * dp ranks."""
             self._kw["use_engine"] = flag
             self._kw["engine_ep"] = int(ep)
             self._kw["engine_dp"] = int(dp)
@@ -123,10 +125,11 @@ class Word2Vec(SequenceVectors):
             return self
 
         def device_mesh(self, mesh, chunk: int = 512, group=None):
-            """Implies use_device_pipeline with `chunk` and `group`; a
-            mesh (the JAX package's sharded chunk stream) raises at fit
-            until the parallel slice (ROADMAP Queue A item 7), so only
-            mesh=None trains."""
+            """Implies use_device_pipeline with `chunk` and `group`; each
+            update's `group` chunks split over the mesh's "data" axis (a
+            `parallel.Mesh` over the process group, or
+            `ops.shard_comm.InProcessShards(n)` for n shards in this
+            process) and their gradients summed."""
             self._kw["use_device_pipeline"] = True
             self._kw["device_mesh"] = mesh
             self._kw["pipeline_chunk"] = chunk

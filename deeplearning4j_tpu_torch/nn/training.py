@@ -467,7 +467,13 @@ def fit_steps(net, batch_for_step, total_steps, *, on_step=None):
     (``net.iteration_count``), and ``batch_for_step(step)`` (1-based)
     gives the DataSet of that step, so a run resumed at its counter
     optimizes the same sequence as an uninterrupted one.
-    ``on_step(step)`` fires after each completed step."""
+    ``on_step(step)`` fires after each completed step (where
+    `distributed/elastic.py` hangs its checkpoint cadence and the fault
+    harness its kill/hang triggers). Emits one telemetry ``step`` event
+    per step (no host sync: the device score is not read here)."""
+    from deeplearning4j_tpu_torch.telemetry import get_default
+
+    rec = get_default()
     while net.iteration_count < total_steps:
         step = net.iteration_count + 1
         net.fit(batch_for_step(step))
@@ -477,6 +483,7 @@ def fit_steps(net, batch_for_step, total_steps, *, on_step=None):
                 f"{net.iteration_count - step + 1} optimizer passes — "
                 "fit_steps needs exactly one DataSet per step (check "
                 "`iterations` in the net config)")
+        rec.step(step)
         if on_step is not None:
             on_step(step)
     return net

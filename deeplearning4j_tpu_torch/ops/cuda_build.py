@@ -6,7 +6,10 @@ the package, listed in .gitignore) and loaded with `ctypes`. Builds
 happen at first use, from the sources in the checkout only; a library
 older than its source is rebuilt. `build()` starts one `nvcc` per
 source, all at once, so several kernels build in the time of the
-slowest.
+slowest. Processes that share the cache (the ranks of a fleet, an
+elastic supervisor's workers) build under one file lock
+(`_build/.build.lock`): the first builds, the others wait and find the
+libraries up to date.
 
 Nothing here runs at import: the CPU tests import every module, and the
 machines without a card have no `nvcc`.
@@ -20,6 +23,7 @@ a lock, and the current stream's handle is read without building a
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -73,10 +77,19 @@ def build(names=None, *, verbose: bool = False) -> dict[str, str]:
     registers, shared memory and spills per kernel). Raises with the
     compiler's output if any build fails."""
     names = sources() if names is None else list(names)
-    todo = [n for n in names if _stale(n)]
-    if not todo:
+    if not any(_stale(n) for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # another process may have built them while this one waited
+        todo = [n for n in names if _stale(n)]
+        return _compile(todo, verbose) if todo else {}
+
+
+def _compile(todo, verbose):
+    """One nvcc a source, started together; each library moved into
+    place when its build succeeds."""
     compiler = nvcc()
     procs = {}
     for n in todo:

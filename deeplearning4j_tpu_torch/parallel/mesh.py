@@ -165,6 +165,22 @@ def make_mesh(axes: dict | None = None, *, device=None) -> Mesh:
     return Mesh(shape, bootstrap.process_device(), groups, coords, rank)
 
 
+def data_shards(mesh, axis: str = "data"):
+    """The "data" split of a sharded loop, as (n, the shard indices this
+    process computes, the process group or None): a `Mesh` gives its
+    `axis` over the process group (this rank's one shard);
+    `ops.shard_comm.InProcessShards(n)` gives n shards in this process
+    (the caller sums their results in shard order)."""
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
+    if isinstance(mesh, InProcessShards):
+        return mesh.n, tuple(range(mesh.n)), None
+    if not isinstance(mesh, Mesh) or axis not in mesh.shape:
+        raise ValueError(f"a data-sharded loop needs a parallel.Mesh with a "
+                         f"{axis!r} axis or an InProcessShards, got {mesh!r}")
+    return mesh.shape[axis], (mesh.axis_index(axis),), mesh.group(axis)
+
+
 def spans_processes(mesh: Mesh) -> bool:
     """True when the mesh's devices live in more than one OS process —
     in the port, whenever it has more than one device."""

@@ -18,6 +18,12 @@ params nest like the JAX package's and flatten in its order (sorted
 keys). A plan of mode "psum_scatter" reduces each bucket as a
 reduce-scatter then an all-gather (the same sums, the decomposed
 collective); a ZeRO-1 step takes this rank's rows of the result.
+
+The sparse kind (`SparseBucket`, `sparse_bucket_reduce`) carries an
+embedding table's gradient as a fixed-shape COO pair — row indices and
+their gradient rows — all-gathered over the "data" group (or joined in
+shard order for n shards in one process) and never expanded to the
+table's shape.
 """
 
 from __future__ import annotations
@@ -288,21 +294,111 @@ def bucketed_reduce(grads, plan: BucketPlan, group, size: int, *,
     return result
 
 
-def _not_ported(name):
-    raise NotImplementedError(
-        f"{name}: the embedding engine's sparse gradient buckets at dp > 1 "
-        "wait for the rest of ROADMAP Queue A item 7 (A7)")
+@dataclass(frozen=True)
+class SparseBucket:
+    """One sparse reduction unit: a gradient that travels as a fixed-shape
+    COO pair — `indices [n_rows]` naming embedding-table rows and
+    `values [n_rows, dim]` carrying their gradients — and is NEVER
+    materialized at the table's shape on the wire. Pure metadata like
+    `Bucket`: derived from static batch shapes, identical on every
+    process."""
+
+    name: str
+    n_rows: int                   # rows per participant (fixed shape)
+    dim: int
+    n_participants: int = 1
+    index_dtype: str = "int32"
+    value_dtype: str = "float32"
+
+    @property
+    def n_bytes(self) -> int:
+        """Per-participant wire bytes: indices + values."""
+        return self.n_rows * (np.dtype(self.index_dtype).itemsize
+                              + self.dim * np.dtype(self.value_dtype).itemsize)
+
+    @property
+    def gathered_bytes(self) -> int:
+        """Bytes each participant holds after the all-gather."""
+        return self.n_bytes * self.n_participants
+
+    def summary(self) -> dict:
+        """Telemetry-ready description (rides the `bucket_plan` event
+        next to the dense BucketPlan summaries)."""
+        return {
+            "kind": "sparse", "name": self.name, "n_rows": self.n_rows,
+            "dim": self.dim, "n_participants": self.n_participants,
+            "bytes": self.n_bytes, "gathered_bytes": self.gathered_bytes,
+        }
 
 
-def plan_sparse_bucket(*args, **kwargs):
-    """The embedding engine's sparse (indices, values) bucket at
-    dp > 1: not ported yet."""
-    _not_ported("plan_sparse_bucket")
+def plan_sparse_bucket(name: str, n_rows: int, dim: int, *,
+                       n_participants: int = 1,
+                       index_dtype: str = "int32",
+                       value_dtype: str = "float32") -> SparseBucket:
+    """Plan one sparse (indices, values) bucket. Like `plan_buckets`,
+    this is pure static metadata — every process derives the identical
+    plan from the identical batch shapes."""
+    if n_rows <= 0 or dim <= 0:
+        raise ValueError(f"sparse bucket needs positive n_rows/dim, got "
+                         f"({n_rows}, {dim})")
+    if n_participants <= 0:
+        raise ValueError(f"n_participants must be positive, "
+                         f"got {n_participants}")
+    return SparseBucket(name=name, n_rows=int(n_rows), dim=int(dim),
+                        n_participants=int(n_participants),
+                        index_dtype=index_dtype, value_dtype=value_dtype)
 
 
-def sparse_bucket_reduce(*args, **kwargs):
-    """The all-gather of a sparse gradient bucket: not ported yet."""
-    _not_ported("sparse_bucket_reduce")
+def _check_pair(indices, values, bucket):
+    if values.ndim != 2 or indices.ndim != 1 \
+            or values.shape[0] != indices.shape[0]:
+        raise ValueError(
+            f"sparse bucket expects indices [R] + values [R, D], got "
+            f"{tuple(indices.shape)} / {tuple(values.shape)}")
+    if bucket is not None:
+        if (indices.shape[0] != bucket.n_rows
+                or values.shape[1] != bucket.dim):
+            raise ValueError(
+                f"sparse bucket plan {bucket.name!r} is for "
+                f"({bucket.n_rows}, {bucket.dim}) rows, traced shapes are "
+                f"{tuple(indices.shape)} / {tuple(values.shape)}")
+
+
+def sparse_bucket_reduce(indices, values, group=None, size: int = 1, *,
+                         bucket: Optional[SparseBucket] = None):
+    """Cross-replica exchange of a sparse gradient bucket: every
+    participant's (indices, values) COO pair, joined in participant
+    order, so each can scatter-add the rows it owns.
+
+    Over a process group: `indices` [R] and `values` [R, D] are this
+    rank's pair, all-gathered over `group` of `size` ranks. In one
+    process (``group=None``): `indices` and `values` are lists of every
+    participant's pairs in shard order, concatenated. The pair stays COO
+    — ``(n * R)`` indices and ``(n * R, D)`` values — and is never
+    expanded to the table's shape. Duplicate indices across
+    participants are fine: the owner's scatter-add sums them, which is
+    the dense formulation's semantics. A `bucket` plan checks each
+    pair's shapes against it."""
+    import torch
+
+    if group is None:
+        pairs = list(zip(indices, values))
+        for idx, vals in pairs:
+            _check_pair(idx, vals, bucket)
+        if len(pairs) == 1:
+            return pairs[0]
+        return (torch.cat([p[0] for p in pairs]),
+                torch.cat([p[1] for p in pairs]))
+    import torch.distributed as dist
+
+    _check_pair(indices, values, bucket)
+    if size == 1:
+        return indices, values
+    idx_parts = [torch.empty_like(indices) for _ in range(size)]
+    val_parts = [torch.empty_like(values) for _ in range(size)]
+    dist.all_gather(idx_parts, indices.contiguous(), group=group)
+    dist.all_gather(val_parts, values.contiguous(), group=group)
+    return torch.cat(idx_parts), torch.cat(val_parts)
 
 
 def _flat_mean(tensors, group, size, mean=True):

@@ -13,7 +13,9 @@ both). The kinds the serving path emits:
 | `span` | a timed region: `name`, `seconds` (host wall clock), `ok`, caller fields |
 | `error` | `where`, `error` (repr), `traceback` (the full string) |
 | `request` | one served request. Generation: `id`, `ok`, `kind` ("generate"), `replica`, `prompt_len`, `prompt_bucket`, `new_tokens`, `queue_s`, `ttft_s`, `total_s`, `trace_id`. Predict: `id`, `ok`, `bucket`, `replica`, `n_real`, `queue_s`, `batch_assemble_s`, `total_s`, `forward_s`, `weight_gen`, and `seq_len` / `padded_seq` for sequence models; `error` when it failed |
-| `fault` | an injected replica fault firing (`replica-kill`, `replica-hang`, emitted before it acts) and the fleet supervisor's records (`replica-dead` with `requeued`, `replica-respawn` with `respawn_ms`) |
+| `fault` | an injected replica or process fault firing (`replica-kill`, `replica-hang`; `kill`, `hang`, `delay-connect`, `drop-heartbeat` with `process_id`, `step`, `spec`, `fired`), emitted before it acts; the launcher's exit classes (`observed_exit`); the fleet supervisor's records (`replica-dead` with `requeued`, `replica-respawn` with `respawn_ms`) and the elastic supervisor's (`reform`, `peer-loss-exit`) |
+| `step` | one completed training step of `fit_steps`: `iteration`, `trace_id` ("step-N") |
+| `anomaly` | one detector finding put on the record live (telemetry/trace.py `StragglerWatch`, `MemoryWatch`): `kind` and the finding's fields |
 | `weight_swap` | one hot-swap attempt (serving/fleet.py): `ok`, `step`, `restore_ms`, `generation`, `error` |
 | `autoscale` | one supervisor autoscale tick: `n_serving`, `n_replicas`, `queue_depth`, `p99_ms`, `action` (+1 / -1 / 0), `max_replicas` |
 | `page_pool` | KV-cache page accounting on every reserve/release: `replica`, `pages_total`, `page_size`, `pages_in_use`, `pages_peak` |
@@ -172,6 +174,17 @@ class Recorder:
         fields.setdefault("pid", os.getpid())
         return self.event("meta", **fields)
 
+    def step(self, iteration: int, score=None, **fields) -> dict:
+        """A `step` event: one completed training step
+        (`nn/training.fit_steps`). Every fleet member's step N carries
+        the trace id ``step-N``, the key on which the merged timeline
+        joins step completions (telemetry/trace.py's straggler
+        detector)."""
+        if score is not None:
+            fields["score"] = float(score)
+        fields.setdefault("trace_id", f"step-{int(iteration)}")
+        return self.event("step", iteration=int(iteration), **fields)
+
     def error(self, where: str, exc: BaseException | None = None,
               traceback_str: str | None = None, **fields) -> dict:
         """An `error` event with the full traceback string."""
@@ -195,6 +208,12 @@ class Recorder:
         (`_write` flushes per line), so the fault -> recovery timeline
         reads from the JSONL alone."""
         return self.event("fault", kind=kind, **fields)
+
+    def anomaly(self, kind: str, **fields) -> dict:
+        """An `anomaly` event: one detector finding (telemetry/trace.py)
+        put on the record live — the elastic supervisor's straggler
+        watch emits these while a generation still runs."""
+        return self.event("anomaly", kind=kind, **fields)
 
     def memory(self, **fields) -> dict:
         raise NotImplementedError(f"Recorder.memory {_TELEMETRY_SLICE}")

@@ -24,8 +24,12 @@ net.device)`: tensors, dicts, lists, tuples, strings and numbers only,
 straight onto the net's device. A net placed on a mesh ("model" /
 "expert" splits, ZeRO-1, "pipe" stages) saves its canonical trees —
 gathered whole, so the file is the meshless net's — and every rank of
-the mesh calls `save`. Restoring into a placed net (every rank calls
-`restore`) reads the file memory-mapped and keeps each rank's part of
+the mesh calls `save`. Under a mesh of more than one rank, when every
+rank names the same directory, rank 0 alone writes and commits and a
+barrier of every rank follows: a rank killed mid-save never leaves a
+second writer or a half-committed step. Ranks that name directories of
+their own each write their own. Restoring into a placed net (every rank
+calls `restore`) reads the file memory-mapped and keeps each rank's part of
 every leaf, as `reshard/executor.checkpoint_template` plans it, with the
 plan on the record; a checkpoint of any placement restores into any
 other, the meshless net's included.
@@ -39,6 +43,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 MODEL_FILE = "model.pt"
 FORMAT = 1
@@ -112,11 +117,17 @@ class Checkpointer:
 
         step = net.iteration_count if step is None else int(step)
         d = self.step_dir(step)
+        # every rank builds the canonical trees: under a placement they
+        # gather
+        trees = _canonical_trees(net)
+        shared = self._shared_directory(net)
+        if shared and dist.get_rank() != 0:
+            dist.barrier()
+            return d
         os.makedirs(d, exist_ok=True)
         meta_path = os.path.join(d, "meta.json")
         if os.path.exists(meta_path):
             os.remove(meta_path)  # uncommit before overwriting the arrays
-        trees = _canonical_trees(net)
         model_path = os.path.join(d, MODEL_FILE)
         torch.save(trees, model_path)
         with open(os.path.join(d, "config.json"), "w") as f:
@@ -138,7 +149,22 @@ class Checkpointer:
         os.replace(tmp, meta_path)
         for old in self.steps()[:-self.keep or None]:
             shutil.rmtree(self.step_dir(old), ignore_errors=True)
+        if shared:
+            dist.barrier()
         return d
+
+    def _shared_directory(self, net) -> bool:
+        """The writer rule of `save`: True when the net is on a mesh of
+        more than one rank and every rank names this directory (rank 0
+        then writes for all); False without such a mesh or when the
+        ranks name directories of their own. A collective under a mesh:
+        every rank of it calls `save`."""
+        mesh = getattr(net, "_mesh", None)
+        if mesh is None or mesh.size < 2:
+            return False
+        dirs = [None] * dist.get_world_size()
+        dist.all_gather_object(dirs, self.directory)
+        return len(set(dirs)) == 1
 
     # ------------------------------------------------------------- restore
     def restore(self, net, step: Optional[int] = None):

@@ -320,8 +320,21 @@ def test_device_pipeline_refuses_what_jax_refuses():
         m = b.use_device_pipeline(True).device("cpu").build()
         with pytest.raises(ValueError, match="negative sampling"):
             m.fit(sents)
-    m = Word2Vec.builder().device_mesh(object()).device("cpu").build()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # a mesh whose "data" axis does not divide the chunk group: both
+    # packages refuse it with the same words
+    from types import SimpleNamespace
+
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
+    m = (Word2Vec.builder().device_mesh(InProcessShards(3), group=4)
+         .device("cpu").build())
+    with pytest.raises(ValueError, match="does not divide over the 3-way"):
         m.fit(sents)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    for make, mesh in ((tdp.make_cbow_epoch, InProcessShards(3)),
+                       (jdp.make_cbow_epoch,
+                        SimpleNamespace(shape={"data": 3}))):
+        with pytest.raises(ValueError, match="group=4 not divisible by mesh "
+                                             "data axis size 3"):
+            make(window=2, negative=2, group=4, mesh=mesh)
+    with pytest.raises(ValueError, match="'data' axis"):
         tdp.make_cbow_epoch(window=2, negative=2, mesh=object())

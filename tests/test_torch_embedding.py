@@ -310,9 +310,15 @@ def test_engine_matches_legacy_dense_path(kind):
 
 
 def test_engine_refuses_sharding():
+    """ep or dp > 1 runs one shard a rank over a process group, or every
+    shard in this process when the caller asks (in_process=True:
+    tests/test_torch_embedding_sharded.py); with neither it raises."""
     for kw in ({"ep": 2}, {"dp": 2}):
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        with pytest.raises(ValueError, match="in_process=True"):
             ShardedEmbeddingEngine(16, 8, device="cpu", **kw)
+        eng = ShardedEmbeddingEngine(16, 8, device="cpu", in_process=True,
+                                     **kw)
+        assert (eng.ep, eng.dp) == (kw.get("ep", 1), kw.get("dp", 1))
 
 
 # ----------------------------------------------------- (e) the whole slice
@@ -376,14 +382,18 @@ def test_word2vec_matches_jax(sents, algo):
 
 def test_device_pipeline_raises(sents):
     """The pipeline trains (tests/test_torch_device_pipeline.py); it
-    raises only where the JAX package refuses too (hierarchical softmax)
-    and for a device mesh, which waits for the parallel slice."""
+    raises only where the JAX package refuses too: hierarchical softmax,
+    and a chunk group that does not divide over the mesh's "data" axis
+    (the mesh itself trains: tests/test_torch_embedding_sharded.py)."""
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
     m = (Word2Vec.builder().use_device_pipeline().use_hierarchic_softmax()
          .device("cpu").build())
     with pytest.raises(ValueError, match="negative sampling"):
         m.fit(sents[:20])
-    m = Word2Vec.builder().device_mesh(object()).device("cpu").build()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    m = (Word2Vec.builder().device_mesh(InProcessShards(2), group=3)
+         .device("cpu").build())
+    with pytest.raises(ValueError, match="pipeline_group=3 does not divide"):
         m.fit(sents[:20])
 
 

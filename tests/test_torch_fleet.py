@@ -107,16 +107,19 @@ def test_fault_spec_parse_matches_jax(spec):
                                   "r0:kill@batchX", "p1:kill@step3"])
 def test_fault_spec_rejects_what_serving_cannot_run(spec):
     """Specs the JAX grammar refuses for a replica are refused here too;
-    process-scoped specs (valid in the JAX package) wait for the
-    multi-process slice and are refused by name."""
-    with pytest.raises(ValueError) as err:
-        tfaults.parse_fault(spec)
+    a process-scoped spec parses as in the JAX package, and serving
+    takes no replica fault from it (its chaos hooks read replica faults
+    only)."""
     if spec.startswith("p"):
-        jfaults.parse_fault(spec)  # a process fault in the JAX package
-        assert "A7" in str(err.value)
-    else:
-        with pytest.raises(ValueError):
-            jfaults.parse_fault(spec)
+        got, ref = tfaults.parse_fault(spec), jfaults.parse_fault(spec)
+        assert vars(got) == vars(ref) and got.spec() == spec
+        sched = tfaults.FaultSchedule.parse(spec)
+        assert [sched.for_replica(i) for i in range(4)] == [[]] * 4
+        return
+    with pytest.raises(ValueError):
+        tfaults.parse_fault(spec)
+    with pytest.raises(ValueError):
+        jfaults.parse_fault(spec)
 
 
 # (policy kwargs, [(queue_depth, p99_ms, n_replicas, now, headroom)])

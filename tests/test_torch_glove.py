@@ -154,9 +154,16 @@ def test_glove_learns_on_its_own_draws():
 
 
 def test_glove_mesh_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    """A device mesh trains (tests/test_torch_embedding_sharded.py); what
+    raises is a mesh without a "data" axis and a batch that does not
+    split over it."""
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
+    with pytest.raises(ValueError, match="'data' axis"):
         tglove.make_glove_epoch(64, True, mesh=object())
+    with pytest.raises(ValueError, match="batch=64 not divisible"):
+        tglove.make_glove_epoch(64, True, mesh=InProcessShards(3))
     g = tglove.Glove(layer_size=4, epochs=1, device_mesh=object(),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(ValueError, match="'data' axis"):
         g.fit(_corpus(np.random.default_rng(6), 10))

@@ -57,7 +57,7 @@ def test_package_imports_without_jax():
     assert len(names) >= 20
     missing = {f"deeplearning4j_tpu_torch.{m}"
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
-               + PLACEMENT_SLICE + PIPELINE_SLICE} - names
+               + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE} - names
     assert not missing, missing
 
 
@@ -92,14 +92,34 @@ PLACEMENT_SLICE = (
 PIPELINE_SLICE = (
     "parallel.pipeline", "reshard", "reshard.planner", "reshard.search",
     "reshard.executor", "reshard.bench_arm")
+# the elastic fleet and its control plane, the sharded embedding engine
+# and the data meshes of NLP (ROADMAP A7.5, A7.6)
+ELASTIC_SLICE = (
+    "distributed.faults", "distributed.elastic", "parallel.cluster",
+    "telemetry.trace", "telemetry.recorder", "util.checkpoint",
+    "nlp.distributed_vocab", "embedding.engine", "nlp.sequencevectors",
+    "nlp.word2vec")
+
+
+def test_elastic_slice_imports_nothing_of_jax():
+    """The stdlib-only modules the slice copies from the JAX package
+    (its cluster protocol, fault grammar and trace tools) are the
+    port's own copies: each names its JAX counterpart and imports none
+    of it."""
+    for mod in ELASTIC_SLICE:
+        path = ROOT / "deeplearning4j_tpu_torch" / (
+            mod.replace(".", "/") + ".py")
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (mod, bad)
 
 
 def test_rank_programs_import_without_jax():
-    """The multi-rank tests' rank programs (tests/torch_*.py) import
-    with jax and the JAX package made unimportable, as the ranks run
-    them."""
+    """The multi-rank tests' rank programs (tests/torch_*.py, the fleets'
+    tests/torch_fleet_worker.py among them) import with jax and the JAX
+    package made unimportable, as the ranks run them."""
     workers = sorted((ROOT / "tests").glob("torch_*.py"))
-    assert workers
+    assert ROOT / "tests" / "torch_fleet_worker.py" in workers
     for path in workers:
         code = ("import sys, runpy\n"
                 "sys.modules['jax'] = None\n"

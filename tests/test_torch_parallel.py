@@ -343,8 +343,12 @@ def test_unported_roles_raise_citing_a7(world1, kwargs):
 
 def test_placement_and_sparse_buckets_raise_citing_a7(world1):
     """A reshard.Placement (placement search's winner) of "seq" with
-    "pipe" and the embedding engine's sparse gradient buckets are not
-    ported yet."""
+    "pipe" is not ported yet. The embedding engine's sparse gradient
+    buckets are (tests/test_torch_embedding_sharded.py): they raise only
+    what the JAX package's raise, a bad plan or a pair of the wrong
+    shape."""
+    import torch
+
     from deeplearning4j_tpu_torch.parallel import overlap
     from deeplearning4j_tpu_torch.reshard import Placement
 
@@ -352,9 +356,12 @@ def test_placement_and_sparse_buckets_raise_citing_a7(world1):
     with pytest.raises(NotImplementedError, match="Queue A item 7"):
         net.set_mesh(Placement.of({"seq": 1, "pipe": 1},
                                   {"seq": "seq", "pipe": "pipe"}))
-    for fn in (overlap.plan_sparse_bucket, overlap.sparse_bucket_reduce):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn("emb", 4, 8)
+    with pytest.raises(ValueError, match="positive n_rows/dim"):
+        overlap.plan_sparse_bucket("emb", 0, 8)
+    plan = overlap.plan_sparse_bucket("emb", 4, 8)
+    with pytest.raises(ValueError, match="plan 'emb' is for"):
+        overlap.sparse_bucket_reduce([torch.zeros(5, dtype=torch.long)],
+                                     [torch.zeros(5, 8)], bucket=plan)
 
 
 def test_bucketed_reduce_of_one_rank_is_the_identity(world1):
