@@ -20,7 +20,8 @@ parallelism and ZeRO-1, pipeline parallelism, resharding and the
 placement search, and the elastic fleet (ElasticSupervisor with an
 injected kill, parameter averaging through the ClusterCoordinator), the
 sharded embedding engine and the data meshes of the device pipeline and
-GloVe.
+GloVe, and the cost and memory telemetry with the CLI (train, test,
+predict and serve as processes of their own, ModelSerializer zips).
 
 Run from the root of a checkout, with no arguments:
 
@@ -408,6 +409,28 @@ Phases, each of which exits non-zero when it fails:
    process within MESH_TOL of their meshless runs, the sub-corpus
    separation at least 0.95 of phase 20a's host path's; words/s and
    triples/s beside phases 20a and 20e.
+25. The cost and memory telemetry, ModelSerializer zips and the CLI
+   (after phase 24; each `python -m deeplearning4j_tpu_torch.cli` a
+   process on the card, its default device). 25a: a synthetic 3-class
+   CSV (4096 rows x 64 features, from SEED) through `cli train` with
+   DL4J_TPU_TELEMETRY set and DL4J_TPU_MEM_EVERY=1, then `cli test` and
+   `cli predict` together: a `memory` event a step with the card's
+   bytes_in_use <= peak_bytes_in_use < bytes_limit, a `cost` event,
+   test's accuracy at least 0.9, and predict's CSV equal, byte for byte,
+   to `ModelSerializer.restore(zip).output` in this process on the card.
+   25b: the flagship LM (bf16) written as a zip and served by `cli serve
+   --generate-slots 4` on a 1x512 lattice (the prefill's flat flash
+   forward, K1): greedy /generate requests equal this process's
+   GenerationEngine on the same zip token for token; /metrics'
+   serving_mfu_live in (0, 1] and serving_hbm_live_bytes > 0; /stats'
+   peak_flops 989e12 and the server's own K1 launches > 0. /generate is
+   greedy in both packages, so `cli serve` launches no K12. 25c: the
+   cost book's flops of the flagship's forward (one [1, 512] bucket of
+   InferenceEngine's warmup) and training step (32 x 512) equal
+   `lm_counted_flops`; the forward's and the step's MFU; the step's
+   peak_temp_bytes against max_memory_allocated; `reconcile` emits a
+   `cost_drift` event with the measured peak. `--phase 25` runs the
+   build and this phase alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -6529,7 +6552,7 @@ def reshard_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
 def search_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
     """23c: search_placement for the flagship on FleetShape(1, 1), its
     winner fed to set_mesh, 3 steps bit for bit with the meshless net's
-    and phase 6's launch counts. Returns the launches and the winner."""
+    and phase 6's launch counts. Returns the launches and the search."""
     from deeplearning4j_tpu_torch.reshard import (
         FleetShape,
         Objective,
@@ -6575,20 +6598,22 @@ def search_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
         raise PhaseFailed("23c", "the searched placement's steps are not "
                                  "the meshless steps")
     net.set_mesh(None)
-    return runs["winner"], res.winner
+    return runs["winner"], res
 
 
-def bench_arm_on_card(winner, card):
-    """23c: reshard/bench_arm in a process of its own, the winner's
-    placement at the flagship's dims (bf16, batch 32 x 512): its median
-    step time."""
+def bench_arm_on_card(search, card):
+    """23c: reshard/bench_arm in a process of its own, the search's
+    winner at the flagship's dims (bf16, batch 32 x 512): its median
+    step time, and its measured peak bytes against the search's
+    predicted per-device bytes (the bench arm's `cost_drift`)."""
     c = TRAIN
-    spec = {"placement": winner.to_json(), "dtype": "bfloat16",
+    spec = {"placement": search.winner.to_json(), "dtype": "bfloat16",
             "dims": dict(vocab_size=c["vocab_size"], d_model=c["d_model"],
                          n_heads=c["n_heads"], n_layers=c["n_layers"],
                          d_ff=c["d_ff"], max_length=c["seq"]),
             "batch": c["batch"], "seed": SEED, "warm": 2, "repeats": 5,
-            "device": "cuda"}
+            "device": "cuda",
+            "predicted_bytes": float(search.best.memory_bytes)}
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-m", "deeplearning4j_tpu_torch.reshard.bench_arm",
@@ -6603,7 +6628,12 @@ def bench_arm_on_card(winner, card):
     log23(card, f"23c: bench_arm (its own process) {result['placement']}: "
           f"median step {result['ms_per_step']:.3f} ms of "
           f"{[round(t, 3) for t in result['times_ms']]} (host clock, the "
-          f"card synchronized), loss {result['loss']:.4f}")
+          f"card synchronized), loss {result['loss']:.4f}; measured peak "
+          f"{result['measured_bytes']} bytes against the search's "
+          f"predicted {result['predicted_bytes']:.0f} (ratio "
+          f"{result['measured_bytes'] / result['predicted_bytes']:.4f})")
+    if not result["measured_bytes"] > 0:
+        raise PhaseFailed("23c", f"bench_arm measured {result}")
     return result
 
 
@@ -6779,11 +6809,11 @@ def train_pipeline(torch, counters, fa, fsx, transformer_lm, DataSet, card):
                                               mesh, card)
         restore_launches = reshard_on_card(torch, counters, transformer_lm,
                                            DataSet, mesh, card)
-        search_launches, winner = search_on_card(
+        search_launches, search = search_on_card(
             torch, counters, transformer_lm, DataSet, mesh, card)
     finally:
         bootstrap.shutdown()
-    bench_arm_on_card(winner, card)
+    bench_arm_on_card(search, card)
     worst = check_microbatch_kernels(torch, fa, fsx, card)
     times = microbatch_kernel_times(torch, fa, fsx, card)
     for kern, err in worst.items():
@@ -7557,6 +7587,394 @@ def train_fleet(torch, counters, fns, transformer_lm, DataSet, card):
     return launches, k13
 
 
+# ------------------------------------------------------------------ phase 25
+# the cost and memory telemetry, ModelSerializer zips and the CLI: a
+# 3-class CSV through `cli train`, `test` and `predict` (25a), the
+# flagship LM's zip behind `cli serve` (25b), the cost book's counts of
+# the flagship's forward and training step (25c)
+
+CLI_CSV = dict(rows=4096, features=64, classes=3, hidden=128, epochs=3,
+               batch=128)
+# `cli serve`'s lattice: one 512-token prompt bucket, whose prefill runs
+# the flat flash forward (K1: T >= 512); SERVE_PROMPTS greedy requests of
+# SERVE_LEN tokens, SERVE_NEW new tokens each
+SERVE = dict(buckets="1x512", slots=4, new=16, prompts=3, prompt_len=300)
+CLI_TIMEOUT_S = 300
+
+
+def log25(card, msg):
+    """A phase-25 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def cli_env(**extra):
+    return dict(os.environ, PYTHONPATH=str(ROOT), **extra)
+
+
+def run_cli(phase, env, *commands):
+    """`python -m deeplearning4j_tpu_torch.cli ...` once for each of
+    `commands`, all started together, on the card (the CLI's default
+    device); their stdouts, or the phase fails."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", *args],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for args in commands]
+    outs = []
+    for args, p in zip(commands, procs):
+        try:
+            out, err = p.communicate(timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        if p.returncode != 0:
+            for q in procs:
+                q.kill()
+            raise PhaseFailed(phase, f"cli {args[0]} exited {p.returncode}: "
+                                     f"{out[-1500:]} {err[-3000:]}")
+        outs.append(out)
+    return outs
+
+
+def read_events(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()
+            if line.strip()]
+
+
+def lm_counted_flops(c, B, T, train):
+    """The cost book's count of the LM at batch B x T (telemetry/
+    costbook.py: 2mnk a torch product, forward and backward, plus the
+    kernels' analytic counts, ops/opcount.py): the QKV, output and two FF
+    products of each block (their dx and dW in the backward), the packed
+    flash forward 4·B·H·P·Dh over P = T(T+1)/2 causal pairs and its
+    backward 10·B·H·P·Dh, and the head: a [N, d] x [d, V] product in
+    inference, K8's 2·N·d·V and K9's 6·N·d·V in training."""
+    N, d, F, V = B * T, c["d_model"], c["d_ff"], c["vocab_size"]
+    H, L = c["n_heads"], c["n_layers"]
+    P, Dh = T * (T + 1) // 2, d // H
+    mm = L * (2 * N * d * 3 * d + 2 * N * d * d + 2 * 2 * N * d * F)
+    attn = L * 4 * B * H * P * Dh
+    if not train:
+        return mm + attn + 2 * N * d * V
+    return 3 * mm + attn + L * 10 * B * H * P * Dh + 8 * N * d * V
+
+
+def cli_train_test_predict(torch, card):
+    """25a: a synthetic 3-class CSV through `cli train` (telemetry on,
+    memory at every step), `cli test` and `cli predict`, each a process
+    on the card; the memory events carry the card's stats, a cost event
+    exists, and predict's CSV equals this process's restore of the zip."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.cli.driver import write_predictions
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer,
+    )
+
+    c = CLI_CSV
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(size=(c["rows"], c["features"])).astype(np.float32)
+    y = np.argmax(x @ rng.normal(size=(c["features"], c["classes"])), 1)
+    np.savetxt(tmp / "train.csv", np.column_stack([x, y]), delimiter=",",
+               fmt="%.6g")
+    np.savetxt(tmp / "features.csv", x, delimiter=",", fmt="%.6g")
+    conf = (NeuralNetConfiguration.builder().seed(SEED).learning_rate(0.01)
+            .updater("adam").list()
+            .layer(0, DenseLayer(n_in=c["features"], n_out=c["hidden"],
+                                 activation="relu"))
+            .layer(1, OutputLayer(n_in=c["hidden"], n_out=c["classes"],
+                                  activation="softmax",
+                                  loss_function="mcxent")).build())
+    (tmp / "conf.json").write_text(conf.to_json())
+    tlog, model = tmp / "telemetry.jsonl", str(tmp / "model.zip")
+    env = cli_env(DL4J_TPU_TELEMETRY=str(tlog), DL4J_TPU_MEM_EVERY="1")
+    common = ["--num-classes", str(c["classes"]), "--batch", str(c["batch"])]
+    t0 = time.perf_counter()
+    run_cli("25a", env, ["train", "--conf", str(tmp / "conf.json"),
+                         "--input", str(tmp / "train.csv"), "--model",
+                         model, "--epochs", str(c["epochs"]), *common])
+    t_train = time.perf_counter() - t0
+    # test and predict read the zip in processes of their own, together
+    report, _ = run_cli(
+        "25a", env,
+        ["test", "--model", model, "--input", str(tmp / "train.csv"),
+         *common],
+        ["predict", "--model", model, "--input", str(tmp / "features.csv"),
+         "--output", str(tmp / "preds.csv"), "--batch", str(c["batch"])])
+    wall = time.perf_counter() - t0
+    events = read_events(tlog)
+    mem = [e for e in events if e["event"] == "memory"
+           and e.get("source") == "fit"]
+    devs = [e["devices"].get("0", {}) for e in mem]
+    costs = [e for e in events if e["event"] == "cost"]
+    evals = [e["stats"] for e in events if e["event"] == "eval"]
+    steps = (c["rows"] // c["batch"]) * c["epochs"]
+    last = devs[-1] if devs else {}
+    log25(card, f"25a: cli train ({steps} steps) in {t_train:.2f} s, train + "
+          f"test + predict in {wall:.2f} s; {len(mem)} fit memory events, "
+          f"the last: bytes_in_use {last.get('bytes_in_use')}, "
+          f"peak_bytes_in_use {last.get('peak_bytes_in_use')}, bytes_limit "
+          f"{last.get('bytes_limit')}, ledger {mem[-1]['ledger'] if mem else None}; "
+          f"cost events {[(e['entry'], e['shape'], e['flops']) for e in costs]}; "
+          f"eval {evals}")
+    if len(mem) != steps or not all(
+            0 < d.get("bytes_in_use", 0) <= d.get("peak_bytes_in_use", 0)
+            < d.get("bytes_limit", 0) for d in devs):
+        raise PhaseFailed("25a", f"{len(mem)} fit memory events for {steps} "
+                                 f"steps, devices {devs[:3]}")
+    if not costs or not all(e["flops"] > 0 for e in costs):
+        raise PhaseFailed("25a", f"no cost event with flops: {costs}")
+    if not evals or evals[-1].get("accuracy", 0) < 0.9:
+        raise PhaseFailed("25a", f"cli test: {evals} {report[-800:]}")
+    net = ModelSerializer.restore(model, device="cuda")
+    feats = np.loadtxt(tmp / "features.csv", delimiter=",",
+                       dtype=np.float64).astype(np.float32)
+    rows = [net.output(feats[s:s + c["batch"]]).float().cpu().numpy()
+            for s in range(0, len(feats), c["batch"])]
+    write_predictions(str(tmp / "mine.csv"), np.concatenate(rows))
+    theirs = (tmp / "preds.csv").read_text()
+    mine = (tmp / "mine.csv").read_text()
+    log25(card, f"25a: cli predict's {len(theirs.splitlines())} rows "
+          f"{'equal' if theirs == mine else 'DIFFER from'} this process's "
+          "restore of the zip on the card")
+    if theirs != mine:
+        raise PhaseFailed("25a", "cli predict's CSV differs from "
+                                 "ModelSerializer.restore(zip).output")
+
+
+def _read_lines(proc, lines):
+    for line in proc.stdout:
+        lines.put(line)
+    lines.put(None)
+
+
+def _http(url, payload=None, timeout=120):
+    import urllib.request
+
+    if payload is None:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.read().decode()
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def cli_serve_flagship(torch, counters, transformer_lm, GenerationEngine,
+                       BucketLattice, Recorder, card):
+    """25b: the flagship LM (bf16) written as a zip and served by `cli
+    serve --generate-slots` in a process of its own; greedy /generate
+    requests equal this process's GenerationEngine on the same zip; the
+    server's /metrics MFU and memory gauges and its /stats peak and
+    launches. Returns the launches of both processes' runs."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+
+    from deeplearning4j_tpu_torch.distributed.bootstrap import free_port
+    from deeplearning4j_tpu_torch.telemetry.costbook import PEAK_BF16_FLOPS
+    from deeplearning4j_tpu_torch.telemetry.metrics import parse_exposition
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer,
+    )
+
+    s = SERVE
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    model = str(tmp / "flagship.zip")
+    net = transformer_lm(**LM, dtype="bfloat16", device="cuda").init(SEED)
+    ModelSerializer.write_model(net, model)
+    del net
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, LM["vocab_size"],
+                           (s["prompts"], s["prompt_len"])).tolist()
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "serve",
+         "--model", model, "--buckets", s["buckets"], "--generate-slots",
+         str(s["slots"]), "--max-new-tokens", str(s["new"]), "--port",
+         str(port)],
+        cwd=str(ROOT), env=cli_env(DL4J_TPU_TELEMETRY=str(tmp / "t.jsonl")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=_read_lines, args=(proc, lines),
+                     daemon=True).start()
+    out, served = [], []
+    t0 = time.perf_counter()
+    try:
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        while True:
+            line = lines.get(timeout=max(1.0, deadline - time.monotonic()))
+            if line is None:
+                raise PhaseFailed("25b", f"cli serve exited "
+                                         f"{proc.wait()}: {''.join(out)[-3000:]}")
+            out.append(line)
+            if "serving on" in line:
+                break
+        t_up = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        for p in prompts:
+            body = _http(f"{url}/generate",
+                         {"tokens": p, "max_new_tokens": s["new"]})
+            done = json.loads(body.strip().splitlines()[-1])
+            if not done.get("done") or done.get("error"):
+                raise PhaseFailed("25b", f"/generate: {body[-1000:]}")
+            served.append(done["tokens"])
+        metrics = parse_exposition(_http(f"{url}/metrics"))
+        stats = json.loads(_http(f"{url}/stats"))
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    mfu = metrics.get("serving_mfu_live")
+    live = metrics.get("serving_hbm_live_bytes")
+    sub = stats.get("kernel_launches", {})
+    log25(card, f"25b: cli serve up in {t_up:.2f} s; {len(served)} greedy "
+          f"requests; serving_mfu_live {mfu}, serving_hbm_live_bytes {live}, "
+          f"headroom {metrics.get('serving_hbm_headroom_ratio{device=\"0\"}')}, "
+          f"ledger params "
+          f"{metrics.get('serving_memory_ledger_bytes{subsystem=\"params\"}')} "
+          f"kv_pages "
+          f"{metrics.get('serving_memory_ledger_bytes{subsystem=\"kv_pages\"}')}; "
+          f"/stats peak_flops {stats.get('peak_flops')}; the server's "
+          f"launches {sub}")
+    if not (mfu is not None and 0.0 < mfu <= 1.0 and live and live > 0):
+        raise PhaseFailed("25b", f"/metrics MFU {mfu}, live bytes {live}")
+    if stats.get("peak_flops") != PEAK_BF16_FLOPS["H100"]:
+        raise PhaseFailed("25b", f"/stats peak_flops {stats.get('peak_flops')}")
+    if not sub.get("K1", 0) > 0:
+        raise PhaseFailed("25b", f"the server launched no K1: {sub}")
+    counters.reset()
+    engine = GenerationEngine(
+        ModelSerializer.restore(model, device="cuda"),
+        BucketLattice.from_spec(s["buckets"]), slots=s["slots"],
+        max_new_tokens=s["new"], recorder=Recorder(path=None))
+    engine.warmup()
+    engine.start()
+    try:
+        mine = [engine.generate(p, s["new"]) for p in prompts]
+    finally:
+        engine.drain()
+    here = counters.read()
+    log25(card, f"25b: greedy tokens {'equal' if mine == served else 'DIFFER'}"
+          f" between cli serve and this process's GenerationEngine on the "
+          f"zip; this process's launches {here}")
+    if mine != served:
+        raise PhaseFailed("25b", f"served {served} != in-process {mine}")
+    return {k: here.get(k, 0) + sub.get(k, 0) for k in here}
+
+
+def costbook_flagship(torch, counters, transformer_lm, DataSet,
+                      InferenceEngine, BucketLattice, Recorder, card):
+    """25c: the cost book's flops of the flagship's forward (one [1, 512]
+    bucket of InferenceEngine's warmup) and of its training step (32 x
+    512) against `lm_counted_flops`; the step's and the forward's MFU,
+    the book's peak temporary bytes against max_memory_allocated; a
+    `cost_drift` event from `reconcile`. Returns the launches."""
+    from deeplearning4j_tpu_torch.telemetry.costbook import (
+        CostBook,
+        device_kind,
+        measured_peak_bytes,
+        peak_flops,
+        reconcile,
+    )
+
+    c = TRAIN
+    rec = Recorder(path=None)
+    counters.reset()
+    net = transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                         n_heads=c["n_heads"], n_layers=c["n_layers"],
+                         d_ff=c["d_ff"], max_length=c["seq"],
+                         dtype="bfloat16", device="cuda").init(SEED)
+    peak = peak_flops(device_kind(net.device))
+    engine = InferenceEngine(net, BucketLattice((1,), seq_lens=(c["seq"],)),
+                             sequence=True, recorder=rec)
+    engine.warmup(np.zeros(c["seq"], np.int32))
+    fwd = engine.costbook.entries()[("forward", (1, c["seq"]))]
+    want_fwd = lm_counted_flops(c, 1, c["seq"], train=False)
+    infer = net.inference_fn()
+    ws = engine.weights.current
+    toks = torch.zeros((1, c["seq"]), dtype=torch.int64, device="cuda")
+    mask = torch.ones((1, c["seq"]), device="cuda")
+    fwd_ms = time_ms(torch, lambda: infer(ws.params, ws.state, toks, mask),
+                     windows=5, per_window=5)
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    net.fit(ds)  # first call: the train step's buffers
+    book = CostBook(rec)
+    torch.cuda.synchronize()
+    step = book.record("fit", [c["batch"], c["seq"]], net.fit, (ds,),
+                       device=net.device)
+    want_step = lm_counted_flops(c, c["batch"], c["seq"], train=True)
+    max_alloc = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    step_s = statistics.median(one_step() for _ in range(5))
+    measured = measured_peak_bytes()
+    drift = reconcile(rec, step["peak_temp_bytes"], source="chip_smoke")
+    launches = counters.read()
+    log25(card, f"25c: forward [1, {c['seq']}] counted {fwd['flops']} flops "
+          f"(torch {fwd['torch_flops']}, kernels {fwd['kernel_flops']}) "
+          f"against {want_fwd}; {fwd_ms:.4f} ms -> MFU "
+          f"{CostBook.mfu(fwd['flops'], fwd_ms * 1e-3, peak):.5f}")
+    log25(card, f"25c: train step [{c['batch']}, {c['seq']}] counted "
+          f"{step['flops']} flops (torch {step['torch_flops']}, kernels "
+          f"{step['kernel_flops']}) against {want_step}; step "
+          f"{step_s * 1e3:.3f} ms (host clock to synchronize, median of 5 "
+          f"fit() calls) -> MFU {CostBook.mfu(step['flops'], step_s, peak):.5f} "
+          f"against {peak / 1e12:.0f} TFLOP/s; peak_temp_bytes "
+          f"{step['peak_temp_bytes']} (the book's {book.peak_temp_bytes()}) "
+          f"against max_memory_allocated {max_alloc}; cost_drift {drift}; "
+          f"launches {launches}")
+    if fwd["flops"] != want_fwd or step["flops"] != want_step:
+        raise PhaseFailed("25c", f"counted {fwd['flops']} / {step['flops']},"
+                                 f" analytic {want_fwd} / {want_step}")
+    if not 0 < step["peak_temp_bytes"] <= max_alloc:
+        raise PhaseFailed("25c", f"peak_temp_bytes {step['peak_temp_bytes']}"
+                                 f" against max_memory_allocated {max_alloc}")
+    if (drift.get("event") != "cost_drift"
+            or drift["measured_bytes"] != measured
+            or abs(drift["ratio"] - measured / step["peak_temp_bytes"])
+            > 1e-6):
+        raise PhaseFailed("25c", f"reconcile gave {drift}")
+    return launches
+
+
+def telemetry_and_cli(torch, counters, transformer_lm, DataSet, card):
+    """Phase 25. Returns the launches of its runs."""
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine,
+                                                  InferenceEngine)
+    from deeplearning4j_tpu_torch.telemetry import Recorder
+
+    t0 = time.perf_counter()
+    cli_train_test_predict(torch, card)
+    runs = [cli_serve_flagship(torch, counters, transformer_lm,
+                               GenerationEngine, BucketLattice, Recorder,
+                               card),
+            costbook_flagship(torch, counters, transformer_lm, DataSet,
+                              InferenceEngine, BucketLattice, Recorder,
+                              card)]
+    keys = sorted({k for r in runs for k in r})
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in keys}
+    log25(card, f"phase 25 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -7623,7 +8041,35 @@ def ab(other):
 # the worker roles phase 24 re-invokes this file in, and their argument
 # counts
 ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
-         "--average-worker": 6, "--build-worker": 1}
+         "--average-worker": 6, "--build-worker": 1, "--phase": 1}
+
+
+def only_phase(torch, phase):
+    """`chip_smoke.py --phase 25`: the kernels built, then that phase
+    alone (a quick check of one phase; the full run is the contract)."""
+    if phase != "25":
+        print(f"chip_smoke: --phase takes 25, not {phase}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_layernorm as fln
+    from deeplearning4j_tpu_torch.ops import fused_neg_softmax as fns
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
+    from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name_power = nvidia_smi("name,power.limit")
+    log(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"nvidia-smi: {name_power}")
+    t0 = time.perf_counter()
+    log(f"build: {sorted(cuda_build.build())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = Counters(fa, fsx, fns, fln, fsm)
+    telemetry_and_cli(torch, counters, transformer_lm, DataSet, name_power)
+    return 0
 
 
 def main() -> int:
@@ -7647,6 +8093,8 @@ def main() -> int:
             return build_worker(args[1])
         *rest, crash = args[1:]
         return average_worker(*rest, int(crash))
+    if args and args[0] == "--phase":
+        return only_phase(torch, args[1])
     if args:
         root = Path(args[1]).resolve()
         if args[0] == "--ab-turn":
@@ -7756,7 +8204,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fleet_launches, k13_embed = train_fleet(
         torch, counters, fns, transformer_lm, DataSet, name_power)
-    log(f"chip_smoke: phases 1-24 in {time.perf_counter() - started:.1f} s")
+    tel_launches = telemetry_and_cli(torch, counters, transformer_lm,
+                                     DataSet, name_power)
+    log(f"chip_smoke: phases 1-25 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -7784,7 +8234,8 @@ def main() -> int:
     runs = (serve_launches, oracle_launches, http_launches, train_launches,
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
-            par_launches, place_launches, pipe_launches, fleet_launches)
+            par_launches, place_launches, pipe_launches, fleet_launches,
+            tel_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

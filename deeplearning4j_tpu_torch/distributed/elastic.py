@@ -356,8 +356,10 @@ class ElasticSupervisor:
         # completions skew (or a member stalls)
         tpath = env.get(ENV_VAR) or os.environ.get(ENV_VAR)
         watch = StragglerWatch(tpath, recorder=rec) if tpath else None
-        # the memory-path consumer, same shape (finds nothing until the
-        # port's recorder emits `memory` events, ROADMAP item 9)
+        # the memory-path consumer, same shape: the leak / headroom /
+        # cost-drift detectors over the shards' `memory` and
+        # `cost_drift` events (a worker's fit samples memory at the
+        # DL4J_TPU_MEM_EVERY cadence)
         memwatch = MemoryWatch(tpath, recorder=rec) if tpath else None
 
         def on_poll():

@@ -8,10 +8,10 @@ terminations → save best), saver/{InMemoryModelSaver,LocalFileModelSaver},
 scorecalc/DataSetLossCalculator, termination/* (MaxEpochs, MaxTime,
 MaxScore, ScoreImprovement, BestScoreEpoch, InvalidScore).
 
-`LocalFileModelSaver` writes the port's own checkpoint format
-(util/checkpoint.py) under `bestModel/` and `latestModel/`, where the
-JAX package writes ModelSerializer zips; the best model comes back as a
-new network of the saved configuration on the saving net's device.
+`LocalFileModelSaver` writes `bestModel.zip` and `latestModel.zip`
+(util/model_serializer.py, the JAX package's zip format); the best model
+comes back as a new network of the saved configuration on the saving
+net's device.
 """
 
 from __future__ import annotations
@@ -158,11 +158,10 @@ class InMemoryModelSaver(ModelSaver):
 
 
 class LocalFileModelSaver(ModelSaver):
-    """Writes bestModel/ and latestModel/ checkpoints (reference
-    LocalFileModelSaver; covers the graph's LocalFileGraphSaver too) in
-    the port's checkpoint format (util/checkpoint.py). The best model
-    loads onto `device`, else the device of the net last saved, else
-    CUDA."""
+    """Writes bestModel.zip / latestModel.zip (reference
+    LocalFileModelSaver; covers the graph's LocalFileGraphSaver too — one
+    serializer handles both). The best model loads onto `device`, else
+    the device of the net last saved, else CUDA."""
 
     def __init__(self, directory: Optional[str] = None, device=None):
         self.directory = directory or tempfile.mkdtemp(prefix="dl4j_tpu_es_")
@@ -170,22 +169,27 @@ class LocalFileModelSaver(ModelSaver):
         self._device = device
 
     def _save(self, net, name):
-        from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+        from deeplearning4j_tpu_torch.util.model_serializer import (
+            ModelSerializer,
+        )
 
         self._device = self._device or net.device
-        Checkpointer(os.path.join(self.directory, name), keep=1).save(net)
+        ModelSerializer.write_model(net, os.path.join(self.directory, name))
 
     def save_best_model(self, net, score):
-        self._save(net, "bestModel")
+        self._save(net, "bestModel.zip")
 
     def save_latest_model(self, net, score):
-        self._save(net, "latestModel")
+        self._save(net, "latestModel.zip")
 
     def get_best_model(self):
-        from deeplearning4j_tpu_torch.util.checkpoint import load_network
+        from deeplearning4j_tpu_torch.util.model_serializer import (
+            ModelSerializer,
+        )
 
-        return load_network(os.path.join(self.directory, "bestModel"),
-                            device=self._device)
+        return ModelSerializer.restore(
+            os.path.join(self.directory, "bestModel.zip"),
+            device=self._device)
 
 
 # ------------------------------------------------------------ config/result

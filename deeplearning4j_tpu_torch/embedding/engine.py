@@ -12,7 +12,9 @@ arXiv:2004.13336 applied to the embedding table itself:
 * `syn0` / `syn1` / `syn1neg` rows are partitioned across the "expert"
   (ep) axis: the tables pad to an ep multiple and shard e holds rows
   [e * V/ep, (e + 1) * V/ep). `table_bytes_per_device` is one shard's
-  three tables, so ep = 2 halves the footprint.
+  three tables, so ep = 2 halves the footprint; it reads through the
+  engine's memory ledger (`ledger`, telemetry/memstat.py), where the
+  first shard's tables stand under "params".
 * Forward is a SPARSE GATHER (`_ep_gather`): each shard takes the rows
   it owns (a masked take: other rows give zeros) and the shards' strips
   are summed into the full [B, D] strips. The K13 kernel
@@ -61,6 +63,7 @@ from deeplearning4j_tpu_torch.nlp.lookup import (
     to_numpy,
 )
 from deeplearning4j_tpu_torch.ops.fused_neg_softmax import neg_softmax_scores
+from deeplearning4j_tpu_torch.telemetry.memstat import MemoryLedger
 from deeplearning4j_tpu_torch.parallel.overlap import (
     plan_sparse_bucket,
     sparse_bucket_reduce,
@@ -160,6 +163,8 @@ class ShardedEmbeddingEngine:
         self._mu = threading.Lock()
         self.loss_history = []
         self.reset_weights()
+        self.ledger = MemoryLedger()
+        self.ledger.register("params", self._first_shards)
 
     def _make_mesh(self, device):
         from deeplearning4j_tpu_torch.distributed import bootstrap
@@ -234,10 +239,15 @@ class ShardedEmbeddingEngine:
     syn1neg = property(lambda self: self._whole("syn1neg"),
                        lambda self, v: self._set_whole("syn1neg", v))
 
+    def _first_shards(self) -> list:
+        """The ledger's source: the first shard's three tables (what each
+        device holds)."""
+        return [self._shards[n][0] for n in TABLES]
+
     def table_bytes_per_device(self) -> int:
-        """Bytes of one shard's three tables: what each device holds."""
-        return sum(self._shards[n][0].numel()
-                   * self._shards[n][0].element_size() for n in TABLES)
+        """Bytes of one shard's three tables: what each device holds,
+        read through the memory ledger."""
+        return int(self.ledger.attributed().get("params", 0))
 
     # ------------------------------------------------------- train steps
     def _gather(self, name, idx):

@@ -69,7 +69,9 @@ from deeplearning4j_tpu_torch.nn.layers import (
 )
 from deeplearning4j_tpu_torch.nn.training import (
     LazyScore,
+    batch_shape,
     detach_carries,
+    fit_telemetry,
     is_sgd,
     is_tbptt,
     make_train_step,
@@ -502,6 +504,9 @@ class ComputationGraph(LazyScore):
                 return mds, None
             return mds, self._batch_dict(mds)
 
+        # the first step of each batch shape is counted (cost book); the
+        # memory sampler runs at the DL4J_TPU_MEM_EVERY cadence
+        book, mem = fit_telemetry(self)
         for _ in range(epochs):
             data.reset()
             for _ds, (mds, batch) in iter_prefetched(
@@ -510,10 +515,13 @@ class ComputationGraph(LazyScore):
                     self._fit_tbptt(mds, step)
                     continue
                 for _i in range(max(1, g.iterations)):
-                    self.params, self.opt_state, self.state, loss, _ = step(
-                        self.params, self.opt_state, self.state,
-                        self._generator, batch)
+                    with book.count("fit", batch_shape(batch),
+                                    device=self.device, args=(batch,)):
+                        self.params, self.opt_state, self.state, loss, _ = \
+                            step(self.params, self.opt_state, self.state,
+                                 self._generator, batch)
                     self._after_step(loss)
+                    mem.on_step(self.iteration_count)
         return self
 
     def _fit_with_solver(self, it, epochs: int):
@@ -768,6 +776,9 @@ class ComputationGraph(LazyScore):
             ev.eval(mds.labels[0], outs[0].float().cpu().numpy(),
                     mask=None if mds.labels_masks is None
                     else mds.labels_masks[0])
+        from deeplearning4j_tpu_torch.telemetry import get_default
+
+        get_default().eval(ev, top_n=top_n)  # a no-op unless telemetry is on
         return ev
 
     # ------------------------------------------------------------- inference

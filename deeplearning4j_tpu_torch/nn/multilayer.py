@@ -68,7 +68,9 @@ from deeplearning4j_tpu_torch.nn.layers import (
 )
 from deeplearning4j_tpu_torch.nn.training import (
     LazyScore,
+    batch_shape,
     detach_carries,
+    fit_telemetry,
     is_sgd,
     is_tbptt,
     make_train_step,
@@ -328,6 +330,9 @@ class MultiLayerNetwork(LazyScore):
                 return ds, None
             return ds, self._batch_dict(ds)
 
+        # the first step of each batch shape is counted (cost book); the
+        # memory sampler runs at the DL4J_TPU_MEM_EVERY cadence
+        book, mem = fit_telemetry(self)
         for _ in range(epochs):
             it.reset()
             for _ds, (ds, batch) in iter_prefetched(
@@ -336,10 +341,13 @@ class MultiLayerNetwork(LazyScore):
                     self._fit_tbptt(ds, step)
                     continue
                 for _i in range(max(1, g.iterations)):
-                    self.params, self.opt_state, self.state, loss, _ = step(
-                        self.params, self.opt_state, self.state,
-                        self._generator, batch)
+                    with book.count("fit", batch_shape(batch),
+                                    device=self.device, args=(batch,)):
+                        self.params, self.opt_state, self.state, loss, _ = \
+                            step(self.params, self.opt_state, self.state,
+                                 self._generator, batch)
                     self._after_step(loss)
+                    mem.on_step(self.iteration_count)
             self.epoch_count += 1
         return self
 
@@ -595,6 +603,9 @@ class MultiLayerNetwork(LazyScore):
             out = self.output(ds.features)
             ev.eval(ds.labels, out.float().cpu().numpy(),
                     mask=ds.labels_mask)
+        from deeplearning4j_tpu_torch.telemetry import get_default
+
+        get_default().eval(ev, top_n=top_n)  # a no-op unless telemetry is on
         return ev
 
     # ------------------------------------------------- streaming RNN inference

@@ -38,6 +38,14 @@ before. Tensor and expert parallelism need nothing here: the split
 layers run their collectives themselves (ops/shard_scope.py), and the
 norms of split leaves sum over their groups (nn/updater.py). A
 pipelined net takes its own step (parallel/pipeline.make_pp_train_step).
+
+Telemetry (telemetry/costbook.py, telemetry/memstat.py): `fit` counts
+the first step of each batch shape into the net's cost book (entry
+"fit"), `fused_fit` its first step for the whole dispatch (entry
+"fit_scanned", shape [epochs, n_batches]); both are no-ops under a
+NullRecorder. `fit` samples memory at batch boundaries at the
+`DL4J_TPU_MEM_EVERY` cadence, and `fused_fit` once after the dispatch
+when that cadence is on.
 """
 
 from __future__ import annotations
@@ -56,6 +64,31 @@ from deeplearning4j_tpu_torch.nn.updater import (
     build_optimizer,
     normalize_gradients,
 )
+
+
+def batch_shape(batch) -> list:
+    """The shape key of a step's batch dict: every tensor's shape, in
+    sorted key order ([] for an absent mask)."""
+    out = []
+    for _k, v in sorted(batch.items()):
+        for t in (v if isinstance(v, (tuple, list)) else (v,)):
+            out.append([] if t is None else list(t.shape))
+    return out
+
+
+def fit_telemetry(net):
+    """(cost book, memory sampler) of one fit() call: the net's own,
+    rebuilt when the process recorder changed (a test installing its
+    own)."""
+    from deeplearning4j_tpu_torch.telemetry import get_default
+    from deeplearning4j_tpu_torch.telemetry.costbook import CostBook
+    from deeplearning4j_tpu_torch.telemetry.memstat import sampler_for_net
+
+    rec = get_default()
+    book = getattr(net, "_cost_book", None)
+    if book is None or book.recorder is not rec:
+        book = net._cost_book = CostBook(rec)
+    return book, sampler_for_net(net, rec)
 
 
 def is_tbptt(conf) -> bool:
@@ -439,9 +472,19 @@ def fused_fit(net, batches, epochs):
             "fit_scanned needs uniform batch shapes — drop or pad the "
             "ragged tail batch, or use fit()")
     step = net._get_train_step()
+    book, mem = fit_telemetry(net)
     losses = []
-    for _ in range(epochs):
-        for batch in batches:
+    # the first step is counted for the dispatch: every step has its shape
+    count = book.count("fit_scanned", [int(epochs), len(batches)],
+                       device=net.device, args=(batches[0],),
+                       scale=int(epochs) * len(batches))
+    with count:
+        net.params, net.opt_state, net.state, loss, _ = step(
+            net.params, net.opt_state, net.state, net._generator,
+            batches[0])
+    losses.append(loss)
+    for e in range(epochs):
+        for batch in batches[1 if e == 0 else 0:]:
             net.params, net.opt_state, net.state, loss, _ = step(
                 net.params, net.opt_state, net.state, net._generator, batch)
             losses.append(loss)
@@ -459,6 +502,10 @@ def fused_fit(net, batches, epochs):
     net.score_value = losses[-1, -1]
     net._epoch_losses = per_epoch
     net._step_losses = losses
+    # the whole dispatch is one batch boundary: one memory event when
+    # the env cadence is on
+    if mem.mem_every > 0:
+        mem.sample("fit", iteration=net.iteration_count)
     return net
 
 

@@ -27,3 +27,22 @@ def refuse_double_backward(kernel: str) -> None:
             f"{kernel}: no second derivative through this kernel; a "
             "Hessian-vector product (HessianFree) needs a network that "
             "takes no kernel route")
+
+
+def launch_counts() -> dict:
+    """The launch counters of every kernel wrapper (K1–K13, and K9's
+    dW/db kernel as "K9 dW") merged into one dict: what a process has
+    launched on the card since its counters were last reset."""
+    from deeplearning4j_tpu_torch.ops import (
+        flash_attention,
+        fused_layernorm,
+        fused_neg_softmax,
+        fused_sampling,
+        fused_softmax_xent,
+    )
+
+    out = {}
+    for mod in (flash_attention, fused_softmax_xent, fused_layernorm,
+                fused_sampling, fused_neg_softmax):
+        out.update(mod.LAUNCHES)
+    return out

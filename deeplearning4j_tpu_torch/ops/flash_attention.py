@@ -85,7 +85,8 @@ from typing import NamedTuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
+from deeplearning4j_tpu_torch.ops import (cuda_build, opcount,
+                                          refuse_double_backward)
 from deeplearning4j_tpu_torch.ops.shard_scope import fold_bh_offset
 
 NEG_INF = -1e30
@@ -610,15 +611,17 @@ def _flash_fwd(q, k, v, kmask, sm_scale, causal, drop=None):
     (> 0 = visible key) or None; drop a `_Drop` or None. Returns (o
     [BH, T, D] in q's dtype, lse [BH, T] f32)."""
     BH, T, D = q.shape
-    km = _kmask_rows(kmask, BH, T)
-    if q.device.type == "cpu":
-        return _flash_fwd_reference(q, k, v, km, sm_scale, causal, drop)
-    o = torch.empty((BH, T, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
-    _launch(*(_rows(t)[:, None] for t in (q, k, v)), km, o[:, None], lse,
-            sm_scale, causal, drop)
-    _count("K1")
-    return o, lse
+    with opcount.kernel("K1", opcount.flash_fwd_ops(BH, T, D, causal)):
+        km = _kmask_rows(kmask, BH, T)
+        if q.device.type == "cpu":
+            return _flash_fwd_reference(q, k, v, km, sm_scale, causal,
+                                        drop)
+        o = torch.empty((BH, T, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+        _launch(*(_rows(t)[:, None] for t in (q, k, v)), km, o[:, None],
+                lse, sm_scale, causal, drop)
+        _count("K1")
+        return o, lse
 
 
 def _flash_fwd_qkv(qkv, H, kmask, sm_scale, causal, drop=None):
@@ -630,15 +633,20 @@ def _flash_fwd_qkv(qkv, H, kmask, sm_scale, causal, drop=None):
     [B, T, n]."""
     B, T, three_n = qkv.shape
     n = three_n // 3
-    km = _kmask_rows(kmask, B, T)
-    if qkv.device.type == "cpu":
-        return _flash_fwd_qkv_reference(qkv, H, km, sm_scale, causal, drop)
-    q, k, v = (_heads(t, H) for t in qkv.split(n, dim=-1))
-    o = torch.empty((B, T, n), dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty((B * H, T), dtype=torch.float32, device=qkv.device)
-    _launch(q, k, v, km, _heads(o, H), lse, sm_scale, causal, drop)
-    _count("K3" if n // H == 64 else "K2")
-    return o, lse.reshape(B, H, 1, T)
+    label = "K3" if n // H == 64 else "K2"
+    with opcount.kernel(label, opcount.flash_fwd_ops(B * H, T, n // H,
+                                                     causal)):
+        km = _kmask_rows(kmask, B, T)
+        if qkv.device.type == "cpu":
+            return _flash_fwd_qkv_reference(qkv, H, km, sm_scale, causal,
+                                            drop)
+        q, k, v = (_heads(t, H) for t in qkv.split(n, dim=-1))
+        o = torch.empty((B, T, n), dtype=qkv.dtype, device=qkv.device)
+        lse = torch.empty((B * H, T), dtype=torch.float32,
+                          device=qkv.device)
+        _launch(q, k, v, km, _heads(o, H), lse, sm_scale, causal, drop)
+        _count(label)
+        return o, lse.reshape(B, H, 1, T)
 
 
 def _flash_bwd_impl(q, k, v, o, lse, do, kmask, sm_scale, causal,
@@ -649,18 +657,21 @@ def _flash_bwd_impl(q, k, v, o, lse, do, kmask, sm_scale, causal,
     lse cotangent, folded into delta) or None; drop a `_Drop` or None.
     Returns (dq, dk, dv)."""
     BH, T, D = q.shape
-    km = _kmask_rows(kmask, BH, T)
-    if q.device.type == "cpu":
-        return _flash_bwd_reference(q, k, v, o, lse, do, km, sm_scale,
-                                    causal, dlse, drop)
-    grads = [torch.empty((BH, T, D), dtype=q.dtype, device=q.device)
-             for _ in range(3)]
-    _launch_bwd(*(_rows(t)[:, None] for t in (q, k, v, o, do)),
-                lse.contiguous(), km, *(g[:, None] for g in grads),
-                sm_scale, causal,
-                None if dlse is None else dlse.float().contiguous(), drop)
-    _count("K4" if T <= BLOCK_Q_MAX else "K5")
-    return tuple(grads)
+    label = "K4" if T <= BLOCK_Q_MAX else "K5"
+    with opcount.kernel(label, opcount.flash_bwd_ops(BH, T, D, causal)):
+        km = _kmask_rows(kmask, BH, T)
+        if q.device.type == "cpu":
+            return _flash_bwd_reference(q, k, v, o, lse, do, km, sm_scale,
+                                        causal, dlse, drop)
+        grads = [torch.empty((BH, T, D), dtype=q.dtype, device=q.device)
+                 for _ in range(3)]
+        _launch_bwd(*(_rows(t)[:, None] for t in (q, k, v, o, do)),
+                    lse.contiguous(), km, *(g[:, None] for g in grads),
+                    sm_scale, causal,
+                    None if dlse is None else dlse.float().contiguous(),
+                    drop)
+        _count(label)
+        return tuple(grads)
 
 
 def _flash_bwd_qkv(qkv, o, lse, do, H, kmask, sm_scale, causal, drop=None):
@@ -671,18 +682,22 @@ def _flash_bwd_qkv(qkv, o, lse, do, H, kmask, sm_scale, causal, drop=None):
     gradient."""
     B, T, three_n = qkv.shape
     n = three_n // 3
-    km = _kmask_rows(kmask, B, T)
-    if qkv.device.type == "cpu":
-        return _flash_bwd_qkv_reference(qkv, o, lse, do, H, km, sm_scale,
-                                        causal, drop)
-    q, k, v = (_heads(t, H) for t in qkv.split(n, dim=-1))
-    dqkv = torch.empty((B, T, three_n), dtype=qkv.dtype, device=qkv.device)
-    dq, dk, dv = (_heads(t, H) for t in dqkv.split(n, dim=-1))
-    _launch_bwd(q, k, v, _heads(_rows(o), H), _heads(_rows(do), H),
-                lse.reshape(B * H, T).contiguous(), km, dq, dk, dv,
-                sm_scale, causal, drop=drop)
-    _count("K7" if n // H == 64 else "K6")
-    return dqkv
+    label = "K7" if n // H == 64 else "K6"
+    with opcount.kernel(label, opcount.flash_bwd_ops(B * H, T, n // H,
+                                                     causal)):
+        km = _kmask_rows(kmask, B, T)
+        if qkv.device.type == "cpu":
+            return _flash_bwd_qkv_reference(qkv, o, lse, do, H, km,
+                                            sm_scale, causal, drop)
+        q, k, v = (_heads(t, H) for t in qkv.split(n, dim=-1))
+        dqkv = torch.empty((B, T, three_n), dtype=qkv.dtype,
+                           device=qkv.device)
+        dq, dk, dv = (_heads(t, H) for t in dqkv.split(n, dim=-1))
+        _launch_bwd(q, k, v, _heads(_rows(o), H), _heads(_rows(do), H),
+                    lse.reshape(B * H, T).contiguous(), km, dq, dk, dv,
+                    sm_scale, causal, drop=drop)
+        _count(label)
+        return dqkv
 
 
 # ------------------------------------------------- autograd and public

@@ -45,7 +45,8 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
+from deeplearning4j_tpu_torch.ops import (cuda_build, opcount,
+                                          refuse_double_backward)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -212,6 +213,11 @@ def _run(name, x, *args):
 def _ln_fwd(x2d, gamma, beta, eps):
     """K10. x [N, C], gamma/beta [C] -> (y, mu f32 [N], rstd f32 [N]);
     mu and rstd are the two rows of one [2, N] tensor."""
+    with opcount.kernel("K10", 8 * x2d.numel()):
+        return _ln_fwd_dispatch(x2d, gamma, beta, eps)
+
+
+def _ln_fwd_dispatch(x2d, gamma, beta, eps):
     if x2d.is_cpu:
         return _ln_fwd_reference(x2d, gamma, beta, eps)
     _check(x2d, (gamma, beta))
@@ -233,6 +239,11 @@ def _ln_bwd(x2d, gamma, mu, rstd, dy):
     """K11. -> (dx in x's dtype, dgamma f32 [C], dbeta f32 [C]); dgamma
     and dbeta are the two rows of one tensor that also holds the
     kernels' partials."""
+    with opcount.kernel("K11", 12 * x2d.numel()):
+        return _ln_bwd_dispatch(x2d, gamma, mu, rstd, dy)
+
+
+def _ln_bwd_dispatch(x2d, gamma, mu, rstd, dy):
     if x2d.is_cpu:
         return _ln_bwd_reference(x2d, gamma, mu, rstd, dy)
     _check(x2d, (gamma,), (dy,), (mu, rstd))

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import cuda_build, opcount
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -89,6 +89,12 @@ def neg_softmax_scores(c, pos, neg):
     K-negatives) triples: c/pos [B, D], neg [B, K, D] -> (pos_score
     [B], neg_score [B, K]), in c's dtype. Strided views (rows gathered
     into a wider buffer) are copied to the rows the kernel reads."""
+    B, K, D = neg.shape
+    with opcount.kernel("K13", 2 * (K + 1) * B * D):
+        return _scores_dispatch(c, pos, neg)
+
+
+def _scores_dispatch(c, pos, neg):
     if c.device.type == "cpu":
         return _neg_softmax_reference(c, pos, neg)
     c, pos, neg = c.contiguous(), pos.contiguous(), neg.contiguous()

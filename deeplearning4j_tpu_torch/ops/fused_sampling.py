@@ -47,7 +47,7 @@ import ctypes
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
-from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.ops import cuda_build, opcount
 
 NEG_INF = -1e30
 BISECT_STEPS = 24
@@ -379,6 +379,13 @@ def fused_sample(logits, noise, *, temperature: float = 1.0,
     noise and returns `argmax(logits, -1)`."""
     if temperature is None or float(temperature) <= 0.0:
         return logits.argmax(-1).to(torch.int32)
+    B, V = logits.shape
+    with opcount.kernel("K12", opcount.sample_ops(
+            B, V, *_modes(logits, top_k, top_p))):
+        return _sample_dispatch(logits, noise, temperature, top_k, top_p)
+
+
+def _sample_dispatch(logits, noise, temperature, top_k, top_p):
     if logits.device.type == "cpu":
         return _select_reference(logits, noise, temperature, top_k, top_p)
     # a strided view (the last position of a [B, T, V] output) is copied

@@ -37,7 +37,8 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import cuda_build, refuse_double_backward
+from deeplearning4j_tpu_torch.ops import (cuda_build, opcount,
+                                          refuse_double_backward)
 
 NEG_INF = -1e30
 
@@ -172,9 +173,11 @@ def _run(name, args, x):
 def _fused_fwd(x, w, b, labels):
     """K8. x [N, d], w [d, V], b [V], labels int32 [N] -> (loss [N],
     lse [N]) f32."""
-    if x.device.type == "cpu":
-        return _xent_fwd_reference(x, w, b, labels)
-    return _xent_fwd(x, w, b, labels)
+    N, d = x.shape
+    with opcount.kernel("K8", 2 * N * d * w.shape[1]):
+        if x.device.type == "cpu":
+            return _xent_fwd_reference(x, w, b, labels)
+        return _xent_fwd(x, w, b, labels)
 
 
 def _xent_fwd(x, w, b, labels):
@@ -245,11 +248,13 @@ def _xent_dwdb(x, w, b, labels, lse, g):
 
 def _fused_bwd(x, w, b, labels, lse, g):
     """K9. g: the loss cotangent [N] f32. Returns (dx, dW, db f32)."""
-    if x.device.type == "cpu":
-        return _xent_bwd_reference(x, w, b, labels, lse, g)
-    dx = _xent_dx(x, w, b, labels, lse, g)
-    dw, db = _xent_dwdb(x, w, b, labels, lse, g)
-    return dx, dw, db
+    N, d = x.shape
+    with opcount.kernel("K9", 6 * N * d * w.shape[1]):
+        if x.device.type == "cpu":
+            return _xent_bwd_reference(x, w, b, labels, lse, g)
+        dx = _xent_dx(x, w, b, labels, lse, g)
+        dw, db = _xent_dwdb(x, w, b, labels, lse, g)
+        return dx, dw, db
 
 
 class _FusedHead(torch.autograd.Function):

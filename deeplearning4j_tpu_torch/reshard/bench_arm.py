@@ -12,8 +12,13 @@ mesh spans the process group's ranks; run alone, the process forms a
 fleet of one (so a placement of one device). The arm takes `warm`
 steps, then times each of `repeats` steps (the card synchronized before
 and after), and prints one `RESULT {json}` line: {"placement",
-"devices", "ms_per_step", "times_ms", "loss"}; the median is
-`ms_per_step`. Where the JAX arm timed the forward (its container could
+"devices", "ms_per_step", "times_ms", "loss", "measured_bytes"}; the
+median is `ms_per_step`. `measured_bytes` is the card's peak allocated
+bytes (off the card, the net's params and optimizer state). A spec
+with `predicted_bytes` (the search's winner) also reconciles that
+prediction against the measurement: a `cost_drift` event on the
+process recorder (telemetry/costbook.py), and `predicted_bytes` in the
+result. Where the JAX arm timed the forward (its container could
 not run tensor-parallel train steps), this one times the train step,
 which is what the port runs.
 """
@@ -72,13 +77,31 @@ def run_arm(spec: dict) -> dict:
             sync()
             times.append((time.perf_counter() - t0) * 1e3)
         loss = float(net.score_value)
+        from deeplearning4j_tpu_torch.telemetry import costbook, get_default
+        from deeplearning4j_tpu_torch.telemetry.memstat import (
+            MemoryLedger,
+        )
+
+        ledger = MemoryLedger()
+        ledger.register("params", lambda: net.params)
+        ledger.register("opt_state", lambda: net.opt_state)
+        measured = costbook.measured_peak_bytes(ledger)
     finally:
         bootstrap.shutdown()
     ordered = sorted(times)
-    return {"placement": placement.describe(),
-            "devices": placement.n_devices,
-            "ms_per_step": ordered[len(ordered) // 2],
-            "times_ms": times, "loss": loss}
+    result = {"placement": placement.describe(),
+              "devices": placement.n_devices,
+              "ms_per_step": ordered[len(ordered) // 2],
+              "times_ms": times, "loss": loss,
+              "measured_bytes": int(measured)}
+    predicted = float(spec.get("predicted_bytes") or 0.0)
+    if predicted > 0:
+        # the winner arm only: the search's predicted per-device bytes
+        # against this arm's measured peak
+        costbook.reconcile(get_default(), int(predicted),
+                           measured_bytes=measured, source="placement")
+        result["predicted_bytes"] = predicted
+    return result
 
 
 def main(argv=None) -> int:

@@ -52,6 +52,31 @@ class BucketLattice:
                 raise ValueError(f"seq lens must be >= 1, got {seq_lens}")
             self.seq_lens = tuple(lens)
 
+    # ------------------------------------------------------- construction
+    @classmethod
+    def from_spec(cls, spec: str) -> "BucketLattice":
+        """Parse a CLI `--buckets` spec. Two grammars:
+
+        * ``"1,2,4,8"``          — batch sizes only (fixed-shape model)
+        * ``"1x64,4x64,4x256"``  — explicit BxT pairs; the lattice is the
+          cross product of the batch sizes and seq lens named.
+        """
+        entries = [e.strip() for e in spec.split(",") if e.strip()]
+        if not entries:
+            raise ValueError(f"empty bucket spec {spec!r}")
+        if any("x" in e for e in entries):
+            if not all("x" in e for e in entries):
+                raise ValueError(
+                    f"bucket spec {spec!r} mixes BxT pairs with bare batch "
+                    "sizes; use one grammar")
+            batches, seqs = [], []
+            for e in entries:
+                b, _, t = e.partition("x")
+                batches.append(int(b))
+                seqs.append(int(t))
+            return cls(batch_sizes=batches, seq_lens=seqs)
+        return cls(batch_sizes=[int(e) for e in entries])
+
     # --------------------------------------------------------- selection
     @property
     def max_batch(self) -> int:

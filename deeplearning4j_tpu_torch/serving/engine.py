@@ -44,9 +44,15 @@ names its `weight_gen`. `checkpoint` restores the net before warmup
 (distributed/faults.py); workers carry a lifecycle (warming -> serving
 -> draining / dead -> retired) and a heartbeat, and the `fleet_*`
 methods, `add_replica` and `retire_replica` are what
-`fleet.FleetSupervisor` drives. The memory sampler and the cost book
-wait for the telemetry slice (ROADMAP Queue A item A9):
-`stats()["memory"]` is None and `peak_flops` 0.
+`fleet.FleetSupervisor` drives.
+
+**Telemetry.** Each engine keeps a `MemoryLedger` (the published params;
+the generation workers' KV caches under "kv_pages"), a `MemorySampler`
+that emits a `memory` event after warmup and on the rate-limited stats
+tick (`stats()["memory"]` is its latest snapshot), and a `CostBook`
+that counts each warmed shape's first run once (entries "forward",
+"prefill", "decode", "verify"; telemetry/costbook.py). `peak_flops` is
+set at warmup from the device's name: the MFU gauge's denominator.
 """
 
 from __future__ import annotations
@@ -71,6 +77,11 @@ from deeplearning4j_tpu_torch.serving.fleet import (ReplicaFaultInjector,
 from deeplearning4j_tpu_torch.serving.kvcache import CachePlan
 from deeplearning4j_tpu_torch.serving.speculative import (NgramProposer,
                                                           accept_greedy)
+from deeplearning4j_tpu_torch.telemetry.costbook import (CostBook,
+                                                         device_kind,
+                                                         peak_flops)
+from deeplearning4j_tpu_torch.telemetry.memstat import (MemoryLedger,
+                                                        MemorySampler)
 
 
 class QueueFullError(RuntimeError):
@@ -322,7 +333,14 @@ class InferenceEngine:
         # a hot-swap (serving/fleet.hot_swap) flips it
         self.weights = WeightStore(net.params, net.state,
                                    step=self.restored_step)
-        self.peak_flops = 0.0  # set by the telemetry slice's cost book
+        # the ledger reads the published params (a hot-swap's flip is
+        # attributed), the sampler emits `memory` events at warmup and on
+        # the stats tick, the book counts each bucket's warm forward
+        ledger = MemoryLedger()
+        ledger.register("params", lambda: self.weights.current.params)
+        self.memsampler = MemorySampler(recorder, ledger)
+        self.costbook = CostBook(recorder)
+        self.peak_flops = 0.0  # set at warmup from the device's name
         self.lattice = lattice or BucketLattice()
         self.batcher = Batcher(self.lattice, max_wait_ms,
                                sequence=sequence, recorder=recorder)
@@ -355,7 +373,12 @@ class InferenceEngine:
         number of (replica, bucket) first sights; after this the trace
         count and the compile-span count are frozen."""
         self._feature_template = np.asarray(example_features)
-        return sum(self._warm_replica(r) for r in self._replicas)
+        compiles = sum(self._warm_replica(r) for r in self._replicas)
+        if compiles:
+            # one post-warmup snapshot, and the MFU gauge's denominator
+            self.peak_flops = peak_flops(device_kind(self.net.device))
+            self.memsampler.sample("warmup", peak_flops=self.peak_flops)
+        return compiles
 
     def _warm_replica(self, replica: _Replica) -> int:
         """Run every lattice bucket this replica has not yet seen
@@ -374,7 +397,10 @@ class InferenceEngine:
             if not replica._first_sight(replica._shape_key(feats, mask)):
                 continue
             with self.recorder.span("compile", bucket=list(bucket.key()),
-                                    replica=replica.index, warmup=True):
+                                    replica=replica.index, warmup=True), \
+                    self.costbook.count("forward", list(bucket.key()),
+                                        device=self.net.device,
+                                        args=(feats,)):
                 replica.forward(ws, feats, mask)
             compiles += 1
         return compiles
@@ -576,6 +602,9 @@ class InferenceEngine:
     def stats(self) -> dict:
         now = self._clock()
         fleet = [r.describe(now) for r in self.fleet_workers()]
+        # the stats tick is a batch boundary: rate-limited, so a tight
+        # scrape loop cannot turn /stats into an allocator-read storm
+        self.memsampler.maybe_sample("stats_tick")
         return {
             "replicas": len(fleet),
             "served": self.served,
@@ -587,7 +616,7 @@ class InferenceEngine:
             "sequence": self.sequence,
             "fleet": fleet,
             "weights": self.weights.describe(),
-            "memory": None,
+            "memory": self.memsampler.last,
             "peak_flops": self.peak_flops,
         }
 
@@ -609,7 +638,8 @@ class _GenWorker:
     def __init__(self, index: int, net, lattice: BucketLattice,
                  plan: CachePlan, prefill_chunk: int, max_queue: int,
                  recorder, weights: WeightStore, speculative_k: int = 0,
-                 faults: ReplicaFaultInjector | None = None):
+                 faults: ReplicaFaultInjector | None = None,
+                 costbook: CostBook | None = None):
         self.index = index
         self.net = net
         self.lattice = lattice
@@ -617,6 +647,7 @@ class _GenWorker:
         self.prefill_chunk = prefill_chunk
         self.max_queue = max_queue
         self.recorder = recorder
+        self.costbook = costbook or CostBook(recorder)
         self.weights = weights
         self.faults = faults
         self.pool = plan.make_pool()
@@ -701,32 +732,42 @@ class _GenWorker:
         Returns the number of shapes run."""
         ws = self.weights.current
         rows = np.zeros(1, np.int64)
+        dev = self.net.device
         compiles = 0
         for Tb in self.chunk_buckets():
             if not self._first_sight(("prefill", Tb)):
                 continue
+            tokens = np.zeros((1, Tb), np.int64)
             with self.recorder.span("compile", kind="prefill",
                                     bucket=[1, Tb], replica=self.index,
-                                    warmup=True):
-                self._run_prefill(ws, np.zeros((1, Tb), np.int64),
-                                  np.zeros((1, Tb), np.float32), rows, rows,
-                                  np.asarray([Tb - 1]))
+                                    warmup=True), \
+                    self.costbook.count("prefill", [1, Tb], device=dev,
+                                        args=(tokens,)):
+                self._run_prefill(ws, tokens, np.zeros((1, Tb), np.float32),
+                                  rows, rows, np.asarray([Tb - 1]))
             compiles += 1
         B = self.plan.n_slots
         scratch = np.full(B, self.plan.capacity - 1, np.int64)
         if self._verify is not None:
             if self._first_sight("verify"):
                 K = self.speculative_k
+                shape = [B, K, self.plan.capacity]
+                windows = np.zeros((B, K), np.int64)
                 with self.recorder.span("compile", kind="verify",
-                                        shape=[B, K, self.plan.capacity],
-                                        replica=self.index, warmup=True):
-                    self._run_verify(ws, np.zeros((B, K), np.int64), scratch)
+                                        shape=shape, replica=self.index,
+                                        warmup=True), \
+                        self.costbook.count("verify", shape, device=dev,
+                                            args=(windows,)):
+                    self._run_verify(ws, windows, scratch)
                 compiles += 1
         elif self._first_sight("decode"):
-            with self.recorder.span("compile", kind="decode",
-                                    shape=[B, self.plan.capacity],
-                                    replica=self.index, warmup=True):
-                self._run_decode(ws, np.zeros(B, np.int64), scratch)
+            shape = [B, self.plan.capacity]
+            tokens = np.zeros(B, np.int64)
+            with self.recorder.span("compile", kind="decode", shape=shape,
+                                    replica=self.index, warmup=True), \
+                    self.costbook.count("decode", shape, device=dev,
+                                        args=(tokens,)):
+                self._run_decode(ws, tokens, scratch)
             compiles += 1
         return compiles
 
@@ -1155,14 +1196,20 @@ class GenerationEngine:
                               max(1, int(slots)), page_size,
                               pool_pages=pool_pages, kv_dtype=kv_dtype)
         self._clock = time.monotonic
+        self.costbook = CostBook(recorder)
         self._workers = [
             _GenWorker(i, net, lattice, self.plan, chunk, max_queue,
                        recorder, self.weights,
                        speculative_k=self.speculative_k,
-                       faults=self._faults)
+                       faults=self._faults, costbook=self.costbook)
             for i in range(max(1, int(replicas)))]
-        # set by the telemetry slice (cost book, memory sampler)
-        self.peak_flops = 0.0
+        # the ledger: the published weights and every worker's KV cache
+        ledger = MemoryLedger()
+        ledger.register("params", lambda: self.weights.current.params)
+        ledger.register("kv_pages",
+                        lambda: [w.cache for w in self._workers])
+        self.memsampler = MemorySampler(recorder, ledger)
+        self.peak_flops = 0.0  # set at warmup from the device's name
         self._rr = 0
         self._rr_lock = threading.Lock()
         self._started = False
@@ -1178,7 +1225,11 @@ class GenerationEngine:
     def warmup(self) -> int:
         """Run every (replica, prefill bucket) and (replica, step) shape
         once; returns the count. After this the trace count is frozen."""
-        return sum(w.warmup() for w in self._workers)
+        compiles = sum(w.warmup() for w in self._workers)
+        if compiles:
+            self.peak_flops = peak_flops(device_kind(self.net.device))
+            self.memsampler.sample("warmup", peak_flops=self.peak_flops)
+        return compiles
 
     # ------------------------------------------------------------ serving
     def start(self) -> "GenerationEngine":
@@ -1281,6 +1332,8 @@ class GenerationEngine:
 
     def stats(self) -> dict:
         now = self._clock()
+        # rate-limited memory tick: the stats path is a batch boundary
+        self.memsampler.maybe_sample("stats_tick")
         return {
             "replicas": len(self._workers),
             "served": self.served,
@@ -1296,7 +1349,7 @@ class GenerationEngine:
             "weights": self.weights.describe(),
             "generate": True,
             "speculative": self._speculative_stats(),
-            "memory": None,
+            "memory": self.memsampler.last,
             "peak_flops": self.peak_flops,
         }
 

@@ -33,9 +33,10 @@ self-healing and telemetry-driven autoscaling, all off the request path.
   `autoscale` event per tick, and grows or drains replicas through
   `engine.add_replica()` / `engine.retire_replica()` (a retiring replica
   finishes its queued work first). The device-memory headroom signal
-  (`recent_headroom`) reads `memory` events, which the port emits only
-  with the telemetry slice (ROADMAP Queue A item A9); until then it is
-  None, as the JAX package's is off the TPU.
+  (`recent_headroom`) reads the `memory` events of the engine's memory
+  sampler (telemetry/memstat.py): on the card they carry the device's
+  bytes in use and its limit; off the card they carry none and the
+  signal is None, as the JAX package's is off the TPU.
 
 Every decision surface is a pure function or takes an injectable clock,
 so the tests drive the whole state machine with fake clocks and no
@@ -455,9 +456,8 @@ def recent_p99_ms(recorder, n: int = 64) -> float:
 def recent_headroom(recorder) -> Optional[float]:
     """Min per-device memory headroom (1 - bytes_in_use/bytes_limit) of
     the LATEST `memory` event in the recorder's ring, or None when no
-    memory event carries device limits: no signal, not "plenty of room".
-    The port emits no `memory` event before the telemetry slice, so this
-    is None for now."""
+    memory event carries device limits: no signal, not "plenty of room"
+    (off the card a `memory` event carries no devices)."""
     for ev in reversed(list(recorder.events)):
         if ev.get("event") != "memory":
             continue

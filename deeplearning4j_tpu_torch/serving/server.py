@@ -44,18 +44,25 @@ Endpoints (all JSON):
                         gauges, weight generation, per-replica liveness
                         and heartbeat age, and the embedding engine's
                         gather / ann_probe span latencies and bytes
-                        moved. The HBM, ledger and MFU
-                        families (the per-forward MFU gauge needs the
-                        cost book) are registered and stay unset until
-                        the telemetry slice, as they are off-TPU in the
-                        JAX package.
+                        moved, the device-memory gauges from the
+                        engine's memory sampler (serving_hbm_live_bytes,
+                        serving_hbm_limit_bytes and
+                        serving_hbm_headroom_ratio on the card,
+                        serving_memory_ledger_bytes by subsystem) and
+                        serving_mfu_live: the mean of recent samples of
+                        the cost book's counted flops over a measured
+                        forward (predict) or step (generation: the
+                        prefill_chunk, decode_step and verify_step
+                        spans) and the device's peak.
     GET  /healthz       the engine's stats plus "status": replicas,
                         counters, per-replica rows ("fleet": index,
                         state warming/serving/draining/dead/retired,
                         alive, counters, last_beat_age_s) and the
                         published weights (generation, step,
                         last_swap_ts)
-    GET  /stats         the engine's stats
+    GET  /stats         the engine's stats, plus "kernel_launches":
+                        this process's launch counts of K1–K13
+                        (ops.launch_counts)
     POST /drain         begin graceful drain (stop admitting); the server
                         keeps answering GETs
 
@@ -116,7 +123,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(stats)
             return
         if route == "/stats":
-            self._json(engine.stats())
+            # the engine's stats, plus this process's kernel launch
+            # counts (ops.launch_counts): how a client sees which
+            # kernels its requests ran
+            from deeplearning4j_tpu_torch.ops import launch_counts
+
+            self._json({**engine.stats(), "kernel_launches": launch_counts()})
             return
         if route == "/metrics":
             body = self.serving.metrics.render().encode()
@@ -306,6 +318,13 @@ class _Handler(BaseHTTPRequestHandler):
             pass  # client went away mid-stream; the engine finishes anyway
 
 
+# the generation step spans whose seconds sample the MFU gauge, and the
+# cost-book entry each one ran (the JAX package samples predict
+# forwards only)
+_STEP_ENTRIES = {"prefill_chunk": "prefill", "decode_step": "decode",
+                 "verify_step": "verify"}
+
+
 def _metrics_mod():
     from deeplearning4j_tpu_torch.telemetry import metrics
     return metrics
@@ -381,19 +400,29 @@ class ServingMetrics:
         self.spec_acceptance = self.registry.gauge(
             "serving_speculative_acceptance_rate",
             "fraction of offered draft tokens the verify step accepted")
-        # registered as in the JAX package and left unset: the memory
-        # sampler and the cost book that set the gauges come with the
-        # telemetry slice
-        for name, help_text in (
-                ("serving_hbm_live_bytes", "total live device bytes"),
-                ("serving_hbm_limit_bytes", "per-device memory capacity"),
-                ("serving_hbm_headroom_ratio",
-                 "per-device 1 - bytes_in_use/bytes_limit"),
-                ("serving_memory_ledger_bytes",
-                 "live bytes attributed per subsystem"),
-                ("serving_mfu_live",
-                 "model FLOPs utilization over recent forwards")):
-            self.registry.gauge(name, help_text)
+        self.hbm_live = self.registry.gauge(
+            "serving_hbm_live_bytes",
+            "total live device bytes (the card's allocated bytes) from "
+            "the engine's memory sampler")
+        self.hbm_limit = self.registry.gauge(
+            "serving_hbm_limit_bytes",
+            "per-device memory capacity (absent off the card)")
+        self.hbm_headroom = self.registry.gauge(
+            "serving_hbm_headroom_ratio",
+            "per-device 1 - bytes_in_use/bytes_limit, the autoscaler's "
+            "memory signal (absent off the card)")
+        self.ledger_bytes = self.registry.gauge(
+            "serving_memory_ledger_bytes",
+            "live bytes attributed per subsystem (params/opt_state/"
+            "kv_pages/prefetch/activations/other)")
+        self.mfu_live = self.registry.gauge(
+            "serving_mfu_live",
+            "model FLOPs utilization over recent forwards and steps: "
+            "cost-book flops / measured seconds / device peak FLOPs")
+        # recent MFU samples, appended by on_event; the gauge publishes
+        # their mean at collection time
+        from collections import deque
+        self._mfu_window = deque(maxlen=64)
         # the embedding engine's data movement: one latency histogram
         # per span kind plus a bytes-moved counter, fed live off the
         # span events like the request latencies
@@ -424,6 +453,12 @@ class ServingMetrics:
                                       float(ev["queue_s"]))
             if "ttft_s" in ev:
                 self.registry.observe(self.ttft, float(ev["ttft_s"]))
+            if "forward_s" in ev and "bucket" in ev:
+                self._observe_mfu("forward", ev["bucket"], ev["forward_s"])
+        elif kind == "span" and ev.get("name") in _STEP_ENTRIES and \
+                ev.get("ok"):
+            self._observe_mfu(_STEP_ENTRIES[ev["name"]], ev.get("bucket"),
+                              ev.get("seconds"))
         elif kind == "anomaly":
             self.registry.inc(self.anomalies, 1.0,
                               kind=str(ev.get("kind", "unknown")))
@@ -435,6 +470,20 @@ class ServingMetrics:
             if ev.get("bytes"):
                 self.registry.inc(self.embed_bytes, float(ev["bytes"]),
                                   span=str(name))
+
+    def _observe_mfu(self, entry: str, shape, seconds) -> None:
+        """One MFU sample: the warmed cost book's flops for the entry
+        (and shape, where the event names one) over the measured seconds
+        and the device's peak. Dict lookups only."""
+        book = getattr(self.engine, "costbook", None)
+        peak = float(getattr(self.engine, "peak_flops", 0.0) or 0.0)
+        if book is None or peak <= 0.0:
+            return
+        flops = book.flops(entry, shape)
+        seconds = float(seconds or 0.0)
+        if flops <= 0.0 or seconds <= 0.0:
+            return
+        self._mfu_window.append(book.mfu(flops, seconds, peak))
 
     # ---------------------------------------------------------- scraping
     def _collect(self) -> None:
@@ -477,6 +526,25 @@ class ServingMetrics:
                 float(spec.get("accepted_tokens_per_step", 0.0)))
             self.spec_acceptance.set(
                 float(spec.get("draft_acceptance_rate", 0.0)))
+        mem = stats.get("memory") or {}
+        if mem:
+            self.hbm_live.set(float(mem.get("live_array_bytes", 0)))
+            self.ledger_bytes.clear()
+            for subsystem, nbytes in (mem.get("ledger") or {}).items():
+                self.ledger_bytes.set(float(nbytes),
+                                      subsystem=str(subsystem))
+            self.hbm_limit.clear()
+            self.hbm_headroom.clear()
+            for dev, row in (mem.get("devices") or {}).items():
+                limit = float(row.get("bytes_limit", 0) or 0)
+                if limit > 0:
+                    self.hbm_limit.set(limit, device=str(dev))
+                    self.hbm_headroom.set(
+                        1.0 - float(row.get("bytes_in_use", 0)) / limit,
+                        device=str(dev))
+        if self._mfu_window:
+            window = list(self._mfu_window)
+            self.mfu_live.set(sum(window) / len(window))
 
     def render(self) -> str:
         return self.registry.render()

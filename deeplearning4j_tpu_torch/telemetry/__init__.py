@@ -6,10 +6,14 @@
 * `artifact.py` — bench-artifact parsing and the summary line (copied,
   stdlib);
 * `trace.py`    — the fleet timeline: shard merge, span statistics, the
-  anomaly detectors, `StragglerWatch` / `MemoryWatch` (copied, stdlib).
+  anomaly detectors, `StragglerWatch` / `MemoryWatch` (copied, stdlib);
+* `memstat.py`  — `MemoryLedger` and `MemorySampler`, the `memory`
+  events from the card's allocator;
+* `costbook.py` — `CostBook`, the counted flops and peak temporary bytes
+  of each warmed step (`cost` events), MFU and `cost_drift`;
+* `listener.py` — `TelemetryListener`, `step` events from fit().
 
-The cost book, the memory ledger and sampler and the training listener
-wait for the port's telemetry slice.
+The last five resolve lazily, as in the JAX package.
 """
 
 from deeplearning4j_tpu_torch.telemetry.recorder import (  # noqa: F401
@@ -19,3 +23,22 @@ from deeplearning4j_tpu_torch.telemetry.recorder import (  # noqa: F401
     get_default,
     set_default,
 )
+
+
+def __getattr__(name):
+    if name == "TelemetryListener":
+        from deeplearning4j_tpu_torch.telemetry.listener import (
+            TelemetryListener,
+        )
+        return TelemetryListener
+    if name in ("MemoryLedger", "MemorySampler"):
+        from deeplearning4j_tpu_torch.telemetry import memstat
+        return getattr(memstat, name)
+    if name == "CostBook":
+        from deeplearning4j_tpu_torch.telemetry.costbook import CostBook
+        return CostBook
+    if name in ("trace", "metrics", "memstat", "costbook", "listener"):
+        import importlib
+        return importlib.import_module(
+            f"deeplearning4j_tpu_torch.telemetry.{name}")
+    raise AttributeError(name)

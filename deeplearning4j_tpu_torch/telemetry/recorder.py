@@ -20,6 +20,11 @@ both). The kinds the serving path emits:
 | `autoscale` | one supervisor autoscale tick: `n_serving`, `n_replicas`, `queue_depth`, `p99_ms`, `action` (+1 / -1 / 0), `max_replicas` |
 | `page_pool` | KV-cache page accounting on every reserve/release: `replica`, `pages_total`, `page_size`, `pages_in_use`, `pages_peak` |
 | `draft` | one speculative verify step: `replica`, `k`, `n_active`, `emitted`, `accepted`, `drafted`, `overhead_us` |
+| `metric` | a bench metric line verbatim (any dict with a `metric` key) |
+| `eval` | evaluation results: `stats` (accuracy / precision / recall / f1, or the dict given) |
+| `memory` | a device-memory snapshot (telemetry/memstat.py): `live_array_bytes` and `live_array_count` (the card's allocated bytes and active blocks; off the card, the ledger's attributed bytes), `devices` ({id: `bytes_in_use`, `peak_bytes_in_use`, `bytes_limit`} from `torch.cuda.memory_stats`, `max_memory_allocated` and `mem_get_info`; empty off the card), and from a sampler `ledger` ({params, opt_state, kv_pages, prefetch, activations, other} bytes), `ledger_total_bytes` and `source` ("warmup", "stats_tick", "fit", "sampler") |
+| `cost` | one cost-book entry (telemetry/costbook.py), counted once per (entry, shape) at warmup or a fit's first step: `entry`, `shape`, `flops`, `torch_flops`, `kernel_flops`, `peak_temp_bytes` (on the card), `argument_bytes`, `output_bytes` |
+| `cost_drift` | the placement cost model's predicted per-device bytes against a measured peak: `predicted_bytes`, `measured_bytes`, `ratio`, `factor`, `source` |
 
 Generation serving names the spans `compile` (the first run of each step
 shape, flagged `warmup` during warmup), `prefill_chunk`, `decode_step`
@@ -37,9 +42,9 @@ The file is append-only JSONL at the path `$DL4J_TPU_TELEMETRY` names
 `$DL4J_TPU_PROCESS_ID` is set, so processes that share one setting keep
 separate logs.
 
-The device-memory, cost-book and kernel-tune events (`memory`, `cost`,
-`cost_drift`, `kernel_tune`) wait for the port's telemetry slice: their
-methods raise NotImplementedError.
+The kernel-tune event (`kernel_tune`) waits for the port's
+`ops/autotune.py` (ROADMAP Queue A item 9): its method raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,8 +65,8 @@ ENV_PROCESS_ID = "DL4J_TPU_PROCESS_ID"
 # ring-buffer length of the in-memory mirror of emitted events
 DEFAULT_KEEP = 4096
 
-_TELEMETRY_SLICE = ("waits for the port's telemetry slice (ROADMAP Queue A "
-                    "item 9)")
+_AUTOTUNE = ("waits for the port's ops/autotune.py (ROADMAP Queue A "
+             "item 9)")
 
 
 class Recorder:
@@ -196,6 +201,26 @@ class Recorder:
             error=repr(exc) if exc is not None else fields.pop("error", ""),
             traceback=traceback_str or "", **fields)
 
+    def metric(self, line: dict) -> dict:
+        """A bench metric line verbatim, flattened into the event."""
+        return self.event("metric", **line)
+
+    def eval(self, stats, **fields) -> dict:
+        """An `eval` event. `stats` is a dict, or an Evaluation-like
+        object whose accuracy / precision / recall / f1 are taken (one
+        that fails to give one leaves it out)."""
+        if not isinstance(stats, dict):
+            summary = {}
+            for name in ("accuracy", "precision", "recall", "f1"):
+                fn = getattr(stats, name, None)
+                if callable(fn):
+                    try:
+                        summary[name] = float(fn())
+                    except Exception:
+                        pass
+            stats = summary
+        return self.event("eval", stats=stats, **fields)
+
     def request(self, request_id: str, *, ok: bool = True,
                 **fields) -> dict:
         """A `request` event: one served request, the traffic replay's
@@ -216,18 +241,45 @@ class Recorder:
         return self.event("anomaly", kind=kind, **fields)
 
     def memory(self, **fields) -> dict:
-        raise NotImplementedError(f"Recorder.memory {_TELEMETRY_SLICE}")
+        """A device-memory snapshot without a ledger: the card's
+        allocated bytes and its per-device stats (telemetry/memstat.py);
+        off the card no device stats and nothing live. Reads allocator
+        counters only — no device sync — so it is safe between steps."""
+        from deeplearning4j_tpu_torch.telemetry.memstat import (
+            device_memory_stats,
+            live_array_totals,
+        )
+
+        live_bytes, count = live_array_totals()
+        return self.event("memory", live_array_bytes=int(live_bytes),
+                          live_array_count=count,
+                          devices=device_memory_stats(), **fields)
 
     def cost(self, entry: str, shape, **fields) -> dict:
-        raise NotImplementedError(f"Recorder.cost {_TELEMETRY_SLICE}")
+        """A `cost` event: one cost-book entry (telemetry/costbook.py),
+        counted at warmup or a fit's first step, never in the steady
+        state."""
+        return self.event("cost", entry=entry, shape=shape, **fields)
 
-    def cost_drift(self, **fields) -> dict:
-        raise NotImplementedError(f"Recorder.cost_drift {_TELEMETRY_SLICE}")
+    def cost_drift(self, *, predicted_bytes: int, measured_bytes: int,
+                   factor: float, source: str = "placement",
+                   **fields) -> dict:
+        """A `cost_drift` event: the placement cost model's predicted
+        per-device bytes against a measured peak. `ratio`
+        (measured/predicted) outside [1/factor, factor] is the
+        detector's trigger (telemetry/trace.py `detect_cost_drift`)."""
+        predicted = max(1, int(predicted_bytes))
+        ratio = float(measured_bytes) / float(predicted)
+        return self.event("cost_drift",
+                          predicted_bytes=int(predicted_bytes),
+                          measured_bytes=int(measured_bytes),
+                          ratio=round(ratio, 6), factor=float(factor),
+                          source=source, **fields)
 
     def kernel_tune(self, kernel: str, key: str, params: dict,
                     seconds: float | None = None, role: str = "candidate",
                     **fields) -> dict:
-        raise NotImplementedError(f"Recorder.kernel_tune {_TELEMETRY_SLICE}")
+        raise NotImplementedError(f"Recorder.kernel_tune {_AUTOTUNE}")
 
     # -------------------------------------------------------------- spans
     @contextlib.contextmanager
@@ -271,6 +323,12 @@ class NullRecorder(Recorder):
 
     def event(self, kind: str, /, **fields) -> dict:  # noqa: D102
         return {}
+
+    def eval(self, stats, **fields) -> dict:
+        return {}  # skip the stats-dict build, not just the write
+
+    def memory(self, **fields) -> dict:
+        return {}  # skip the allocator reads
 
     @contextlib.contextmanager
     def span(self, name: str, **fields):

@@ -52,9 +52,8 @@ whole fleet:
 Pure stdlib: the port's copy of the JAX package's trace tools
 (deeplearning4j_tpu/telemetry/trace.py), over the same event schema.
 `MemoryWatch` and the leak, headroom and cost-drift detectors read
-`memory` and `cost_drift` events, which the port's recorder does not
-emit until the telemetry slice (ROADMAP Queue A item 9) brings them:
-until then they find nothing in a log of the port.
+the `memory` events of telemetry/memstat.py and the `cost_drift`
+events of telemetry/costbook.py `reconcile`.
 """
 
 from __future__ import annotations
@@ -657,8 +656,7 @@ class MemoryWatch:
     and emits each NEW finding exactly once as a typed `anomaly` event
     — so a leaking or HBM-starved worker is in the journal while the
     run is still alive. Its detectors read `memory` and `cost_drift`
-    events, which the port emits only once ROADMAP Queue A item 9 brings
-    them: over a log of the port it finds nothing yet."""
+    events (telemetry/memstat.py, telemetry/costbook.py)."""
 
     def __init__(self, path: str, recorder=None,
                  config: AnomalyConfig = AnomalyConfig(),

@@ -57,7 +57,8 @@ def test_package_imports_without_jax():
     assert len(names) >= 20
     missing = {f"deeplearning4j_tpu_torch.{m}"
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
-               + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE} - names
+               + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE
+               + TELEMETRY_SLICE} - names
     assert not missing, missing
 
 
@@ -101,14 +102,24 @@ ELASTIC_SLICE = (
     "nlp.word2vec")
 
 
+# the cost and memory telemetry, ModelSerializer zips, the records and
+# the CLI (ROADMAP A9, first part)
+TELEMETRY_SLICE = (
+    "telemetry.memstat", "telemetry.costbook", "telemetry.listener",
+    "ops.opcount", "util.model_serializer", "datasets.records",
+    "datasets.cloud", "cli", "cli.driver", "cli.__main__")
+
+
 def test_elastic_slice_imports_nothing_of_jax():
     """The stdlib-only modules the slice copies from the JAX package
     (its cluster protocol, fault grammar and trace tools) are the
     port's own copies: each names its JAX counterpart and imports none
     of it."""
-    for mod in ELASTIC_SLICE:
+    for mod in ELASTIC_SLICE + TELEMETRY_SLICE:
         path = ROOT / "deeplearning4j_tpu_torch" / (
             mod.replace(".", "/") + ".py")
+        if not path.exists():  # a package: its __init__.py
+            path = path.with_suffix("") / "__init__.py"
         bad = [m for m in _imported_modules(path)
                if m.split(".")[0] in FORBIDDEN]
         assert not bad, (mod, bad)

@@ -523,7 +523,16 @@ def test_healthz_stats_and_metrics_carry_the_predict_fleet(mlp_stack):
     assert health["fleet"][0]["alive"]
     assert "last_beat_age_s" in health["fleet"][0]
     assert health["weights"]["generation"] == 0
-    assert health["memory"] is None and health["peak_flops"] == 0.0
+    # the memory sampler's latest snapshot and the off-card peak (the
+    # JAX package's 1e12 fallback): live bytes off the card are the
+    # ledger's, all of them the published params
+    from deeplearning4j_tpu_torch.telemetry.memstat import tree_bytes
+
+    mem = health["memory"]
+    assert mem["devices"] == {} and mem["source"] in ("warmup", "stats_tick")
+    assert mem["ledger"]["params"] == mem["live_array_bytes"] == tree_bytes(
+        engine.net.params)
+    assert health["peak_flops"] == 1e12
     with urllib.request.urlopen(f"{server.url}/metrics",
                                 timeout=DEADLINE_S) as r:
         parsed = parse_exposition(r.read().decode())
@@ -531,6 +540,10 @@ def test_healthz_stats_and_metrics_carry_the_predict_fleet(mlp_stack):
         >= 3
     assert parsed['serving_replica_up{replica="0"}'] == 1.0
     assert parsed["serving_trace_count"] == engine.trace_count == 3
+    assert parsed["serving_hbm_live_bytes"] == mem["live_array_bytes"]
+    assert parsed['serving_memory_ledger_bytes{subsystem="params"}'] == \
+        mem["ledger"]["params"]
+    assert 0.0 < parsed["serving_mfu_live"] <= 1.0
 
 
 def test_predict_503_with_retry_after_while_draining():
