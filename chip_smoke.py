@@ -20,8 +20,10 @@ parallelism and ZeRO-1, pipeline parallelism, resharding and the
 placement search, and the elastic fleet (ElasticSupervisor with an
 injected kill, parameter averaging through the ClusterCoordinator), the
 sharded embedding engine and the data meshes of the device pipeline and
-GloVe, and the cost and memory telemetry with the CLI (train, test,
-predict and serve as processes of their own, ModelSerializer zips).
+GloVe, the cost and memory telemetry with the CLI (train, test,
+predict and serve as processes of their own, ModelSerializer zips), and
+kernel autotuning (the tuning table and the kerneltune sweep), KMeans
+and t-SNE over word vectors and the training UI.
 
 Run from the root of a checkout, with no arguments:
 
@@ -431,6 +433,36 @@ Phases, each of which exits non-zero when it fails:
    peak_temp_bytes against max_memory_allocated; `reconcile` emits a
    `cost_drift` event with the measured peak. `--phase 25` runs the
    build and this phase alone.
+26. Autotuning, clustering and the UI (`tuning_clustering_ui`). 26a:
+   `port_tools/kerneltune.py --quick` as a process on the card (its
+   table valid, every chosen params a default or a candidate that passed
+   its plain-version check, its `kernel_tune` events and spans in its
+   telemetry file); the checked-in table's resolved params for K9 at N
+   = 16384 and 2048 (V 10000, d 256), K11 at 16384 x 256, K12 at [4,
+   10000] and [8, 128] and the chunk tile at T = 32768 (D 128, causal,
+   with and without dropout and the mask), each checked against its
+   plain version at phases 2b/9/13/2c's limits and timed against the
+   heuristic's params (forced by `autotune.override`) in turns (table,
+   default, default, table; CUDA events behind a sleep, L2 warm); with
+   DL4J_TPU_TUNING=off every resolution equals the heuristic; one
+   flagship training step under the table with exact launch counts.
+   26b: the word vectors of phase 20a's host-path model (under `--phase
+   26` trained first): KMeansClustering (k = 10) over the whole
+   vocabulary on the card (distortion never rising, the memberships
+   within KMEANS_MEMBERSHIP_TOL of a CPU run of the port from the same
+   start), exact Tsne over 2000 of them (1000 iterations, perplexity
+   30: the KL falling, the time a step), BarnesHutTsne over 300 (100
+   iterations, host; a spawned process started after phase 20, beside
+   phases 21-26, read here) and a VPTree search equal to brute force.
+   26c: a
+   UiServer; 3 flagship training steps with the histogram, flow and
+   activation listeners posting over HTTP; /weights, /flow,
+   /activations and /tsne (26b's coordinates posted to /tsne/coords)
+   render (200, the SVG renderer and the posted data in the page: the
+   SVG is drawn in the browser, as the JAX package's pages do);
+   /nearestneighbors/query on 26b's vectors equal to brute force; and
+   /timeline over phase 25's telemetry (under `--phase 26`, 26a's)
+   listing spans. `--phase 26` runs the build and this phase alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -438,7 +470,8 @@ dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
 The last lines are a `{"kernels": [...]}` JSON line (K1-K13; K12 at
 [4, 10000] with top_k 8 and top_p 0.9, the replay's [8, 128] and the
 temperature-only mode beside it; K13's `embed` entry at bench mode
-embed's engine shape), the
+embed's engine shape; K1, K5, K9, K11 and K12 with 26a's `tuned`
+launch params against the heuristic's), the
 card's name and power limit as nvidia-smi gives them, and `{"ok": true,
 "device": ...}`. With no CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
@@ -1773,9 +1806,13 @@ def train_bench_modes(torch, counters, transformer_lm, DataSet, fa,
         ds = lm_batch(DataSet, c0["vocab_size"], c["batch"], c["seq"],
                       masked=c["masked"])
         if c["seq"] > fa.MAX_FLASH_T:
-            n = c["seq"] // fa.pick_chunk(c["seq"], True,
-                                          head_dim=c0["d_model"]
-                                          // c0["n_heads"])
+            # the tile the chunked tier resolves (a tuning table's
+            # flash_chunk entry, or pick_chunk)
+            tile = fa.resolve_chunk(c["seq"], c0["d_model"] // c0["n_heads"],
+                                    True, bool(c["attention_dropout"]),
+                                    c["masked"])
+            log(f"train {mode}: the chunked tier's tile {tile}")
+            n = c["seq"] // tile
             attn = {"K1": L * S * n * (n + 1) // 2,
                     "K5": L * S * n * (n + 1) // 2}
         else:
@@ -2286,8 +2323,9 @@ def check_layernorm(torch, fln):
                 torch.empty_like(x).data_ptr()))
             want_plan = 0 if misaligned or C % 128 else (
                 1 if dtype is torch.bfloat16 else 2)
-            # K11: 264 blocks of 8 rows, or partials of 64 rows
-            want_bwd = (want_plan, min(264, -(-N // 8)) if want_plan
+            # K11: min(264, N / 8) blocks of 8-row warps (or the tuning
+            # table's blocks), or partials of 64 rows
+            want_bwd = (want_plan, fln.bwd_blocks(N, C) if want_plan
                         else -(-N // 64))
             runs = []
             for _ in range(2):
@@ -2412,7 +2450,8 @@ def check_layernorm_f32_params(torch, fln, gen):
                                     b.data_ptr(), out))
         bwd_plan = fln._bwd_plan(N, C, 2, (x.data_ptr(), g.data_ptr(),
                                            dy.data_ptr(), out), True)
-        want = (1, (1, 264)) if C == 256 else (0, (0, -(-N // 64)))
+        want = ((1, (1, fln.bwd_blocks(N, C))) if C == 256
+                else (0, (0, -(-N // 64))))
         runs = []
         for _ in range(2):
             leaves = [t.clone().requires_grad_() for t in (x, g, b)]
@@ -4768,8 +4807,11 @@ def word2vec_pipeline(torch, Word2Vec, dp, host_rate, card):
     q_dev = topic_separation(quality(use_device_pipeline=True))
     q_unshared = topic_separation(quality(use_device_pipeline=True,
                                           share_negatives=False))
-    q_host = topic_separation(quality(use_device_pipeline=False))
-    PHASE20.update(host_separation=q_host, pipeline_words_s=rate)
+    host_model = quality(use_device_pipeline=False)
+    q_host = topic_separation(host_model)
+    # phase 26b clusters the host-path model's vectors
+    PHASE20.update(host_separation=q_host, pipeline_words_s=rate,
+                   host_model=host_model)
     log(f"20a: sub-corpus separation: pipeline defaults (chunk 512, group "
         f"2) {q_dev:.4f}, unshared negatives {q_unshared:.4f}, host path "
         f"{q_host:.4f}; ratio {q_dev / q_host:.4f} (gate "
@@ -7602,6 +7644,10 @@ SERVE = dict(buckets="1x512", slots=4, new=16, prompts=3, prompt_len=300)
 CLI_TIMEOUT_S = 300
 
 
+# what later phases read of phase 25: its CLI telemetry path
+PHASE25 = {}
+
+
 def log25(card, msg):
     """A phase-25 line, every number in it beside the card's name and
     power limit."""
@@ -7691,6 +7737,7 @@ def cli_train_test_predict(torch, card):
                                   loss_function="mcxent")).build())
     (tmp / "conf.json").write_text(conf.to_json())
     tlog, model = tmp / "telemetry.jsonl", str(tmp / "model.zip")
+    PHASE25["telemetry"] = str(tlog)  # phase 26c's /timeline reads it
     env = cli_env(DL4J_TPU_TELEMETRY=str(tlog), DL4J_TPU_MEM_EVERY="1")
     common = ["--num-classes", str(c["classes"]), "--batch", str(c["batch"])]
     t0 = time.perf_counter()
@@ -7975,6 +8022,513 @@ def telemetry_and_cli(torch, counters, transformer_lm, DataSet, card):
     return launches
 
 
+# ------------------------------------------------------------ phase 26
+
+# 26a: repeats of each timing window of the tuned-against-default turns
+TUNE_REPEATS = 3
+# 26b: the share of the vocabulary that may sit in another cluster on the
+# card than in the CPU run from the same initial centers (index_add_ sums
+# with atomics on the card, so a word at a near-tie may change cluster),
+# and the relative rise of the distortion a Lloyd step may show (f32
+# rounding of a converged step; the distortion never rises in exact math)
+KMEANS = dict(k=10, max_iterations=100)
+KMEANS_MEMBERSHIP_TOL = 0.01
+KMEANS_RISE_TOL = 1e-6
+# exact t-SNE's learning rate at about N / 10 (the default 500 is for
+# larger N; at small N the gains scheme can overshoot into overflow, in
+# both packages alike)
+TSNE = dict(n=2000, max_iter=1000, perplexity=30.0, learning_rate=200.0)
+BH_TSNE = dict(n=300, max_iter=100, perplexity=30.0)
+VP_QUERIES, VP_K = 20, 10
+# 26c: flagship training steps with the UI listeners, probe rows, and
+# the nearest-neighbour queries
+UI = dict(steps=3, probe_rows=2, queries=5, k=10)
+SVG_RENDERER = "http://www.w3.org/2000/svg"
+
+
+def log26(card, msg):
+    """A phase-26 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def kerneltune_module():
+    """port_tools/kerneltune.py as a module (its configs, `Case`,
+    `measure` and `default_params`)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "kerneltune", ROOT / "port_tools" / "kerneltune.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quick_sweep(card):
+    """26a: `kerneltune.py --quick` as a process on the card. Its table
+    must be valid, each entry's params the default's or a candidate's
+    that passed its plain-version check (never a rejected one), each
+    entry's candidate count that of its `candidate` events, and each
+    config a `kerneltune_config` span in its telemetry. Returns the
+    telemetry path."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.ops import autotune
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kerneltune_"))
+    out, tel = tmp / "quick.json", tmp / "quick.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "port_tools" / "kerneltune.py"),
+         "--quick", "--out", str(out), "--telemetry", str(tel)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"26a: kerneltune --quick: {line}")
+    if proc.returncode:
+        raise PhaseFailed("26a", f"kerneltune --quick exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+    table = json.loads(out.read_text())
+    events = read_events(tel)
+    tunes = [e for e in events if e["event"] == "kernel_tune"]
+    spans = [e for e in events if e["event"] == "span"
+             and e.get("name") == "kerneltune_config"]
+    bad = autotune.validate_table(table)
+    for key, entry in table["entries"].items():
+        params = {k: v for k, v in entry.items()
+                  if k not in autotune.ENTRY_META_FIELDS}
+        evs = [e for e in tunes if e["key"] == key]
+        passed = [e["params"] for e in evs
+                  if e["role"] in ("default", "candidate")]
+        rejected = [e["params"] for e in evs if e["role"] == "rejected"]
+        chosen = [e["params"] for e in evs if e["role"] == "chosen"]
+        timed = sum(e["role"] == "candidate" for e in evs)
+        if (chosen != [params] or params not in passed
+                or params in rejected or timed != entry["candidates"]):
+            bad.append(f"{key}: chosen {chosen}, entry {params}, passed "
+                       f"{passed}, rejected {rejected}, {timed} timed")
+    if len(spans) != len(table["entries"]):
+        bad.append(f"{len(spans)} kerneltune_config spans for "
+                   f"{len(table['entries'])} entries")
+    if bad:
+        raise PhaseFailed("26a", f"the quick sweep's table or telemetry: "
+                                 f"{bad}")
+    n_rej = sum(e["role"] == "rejected" for e in tunes)
+    log26(card, f"26a: kerneltune --quick in {wall:.1f} s: "
+          f"{len(table['entries'])} valid entries, {len(tunes)} "
+          f"kernel_tune events ({n_rej} candidates rejected by their "
+          f"plain-version check, none chosen), {len(spans)} spans; chosen "
+          + "; ".join(f"{k} {e['best_us']} us (default {e['default_us']})"
+                      for k, e in sorted(table["entries"].items())))
+    return str(tel)
+
+
+def _parent_launch_params(fsx, fa, cfg):
+    """The launch params of the parent commit, before the table existed:
+    K9's slices from the C heuristic, K11's min(264, N / 8) blocks, K12's
+    plan rule, the chunk tile from `pick_chunk`."""
+    fam = cfg["family"]
+    if fam == "softmax_xent":
+        return [{"slices": fsx._kernel("xent_dw_slices")(N, cfg["d"],
+                                                         cfg["V"])}
+                for N in cfg["rows"]]
+    if fam == "fused_layer_norm":
+        return [{"blocks": min(264, -(-cfg["N"] // 8))}]
+    if fam == "sample":
+        B, V = cfg["B"], cfg["V"]
+        cluster = min(8, max(1, -(-V // (128 * 8))))
+        wide = cluster == 8 and B * cluster <= 132
+        return [{"threads": 256 if wide else 128, "cluster": cluster}]
+    return [{"chunk": fa.pick_chunk(cfg["T"], cfg["causal"],
+                                    head_dim=cfg["D"])}]
+
+
+def _resolved(fsx, fln, fsm, fa, cfg):
+    """What the dispatch launches for `cfg` now (the table, where one
+    applies, else the heuristic)."""
+    fam = cfg["family"]
+    if fam == "softmax_xent":
+        return [{"slices": fsx.dw_slices(N, cfg["d"], cfg["V"])}
+                for N in cfg["rows"]]
+    if fam == "fused_layer_norm":
+        return [{"blocks": fln.bwd_blocks(cfg["N"], cfg["C"])}]
+    if fam == "sample":
+        t, c = fsm._plan(cfg["B"], cfg["V"])
+        return [{"threads": t, "cluster": c}]
+    return [{"chunk": fa.resolve_chunk(cfg["T"], cfg["D"], cfg["causal"],
+                                       cfg["dropout"], cfg["masked"])}]
+
+
+# the kernels each tuned family launches, for the kernels line
+TUNED_KERNELS = {"softmax_xent": ("K9",), "fused_layer_norm": ("K11",),
+                 "sample": ("K12",), "flash_chunk": ("K1", "K5")}
+
+
+def tuned_launches(torch, card):
+    """26a: the checked-in table's params at the main path's shapes,
+    each checked against its plain version and timed against the
+    heuristic's in turns; with the table off, the parent's params.
+    Returns {kernel: [{key, shape, params, us, heuristic_params,
+    heuristic_us}]} for the kernels line."""
+    from deeplearning4j_tpu_torch.ops import autotune
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_layernorm as fln
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
+    from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
+
+    kt = kerneltune_module()
+    table = autotune.reload_table(autotune.TABLE_PATH)
+    prov = table["provenance"]
+    log26(card, f"26a: the checked-in table: {len(table['entries'])} "
+          f"entries from {prov.get('tool')} on {prov.get('nvidia_smi')} "
+          f"({prov.get('date')}); it applies on this card: "
+          f"{autotune.table_active()}")
+    prev = os.environ.get(autotune.ENV_TUNING)
+    tuned = {}
+    for cfg in kt.sweep_configs(False):
+        key = kt.config_key(cfg)
+        tab = _resolved(fsx, fln, fsm, fa, cfg)
+        os.environ[autotune.ENV_TUNING] = "off"
+        try:
+            off = _resolved(fsx, fln, fsm, fa, cfg)
+            dflt = kt.default_params(cfg)
+        finally:
+            if prev is None:
+                os.environ.pop(autotune.ENV_TUNING)
+            else:
+                os.environ[autotune.ENV_TUNING] = prev
+        parent = _parent_launch_params(fsx, fa, cfg)
+        if not off == dflt == parent:
+            raise PhaseFailed("26a", f"{key}: with DL4J_TPU_TUNING=off the "
+                                     f"dispatch resolves {off}, the "
+                                     f"heuristic {dflt}, the parent "
+                                     f"launched {parent}")
+        case = kt.Case(torch, cfg)
+        times = {"table": [], "default": []}
+        notes = []
+        for arm in ("table", "default", "default", "table"):
+            ok, t, notes = kt.measure(torch, case,
+                                      None if arm == "table" else dflt,
+                                      TUNE_REPEATS)
+            if not ok:
+                raise PhaseFailed("26a", f"{key} ({arm} params): {notes}")
+            times[arm].append(t)
+        for i, row in enumerate(case.rows):
+            tt = min(t[i] for t in times["table"])
+            td = min(t[i] for t in times["default"])
+            log26(card, f"26a: tuned launch {key} {row['label']}: table "
+                  f"{tab[i]} {tt:.3f} us, heuristic {dflt[i]} {td:.3f} us "
+                  f"(table/heuristic {tt / td:.4f}; CUDA events, L2 warm, "
+                  f"least of {TUNE_REPEATS} windows, best of 2 turns); "
+                  f"with DL4J_TPU_TUNING=off {off[i]} = the parent's; "
+                  f"against the plain version: {notes[i]}")
+            for kern in TUNED_KERNELS[cfg["family"]]:
+                tuned.setdefault(kern, []).append(dict(
+                    key=key, shape=row["label"], params=tab[i], us=tt,
+                    heuristic_params=dflt[i], heuristic_us=td))
+        del case
+        torch.cuda.empty_cache()
+    return tuned
+
+
+def flagship_step_under_table(torch, counters, transformer_lm, DataSet,
+                              card):
+    """26a: one training step of the flagship (phase 6's batch) under the
+    checked-in table, its launches exact. Returns them."""
+    c = TRAIN
+    net = transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                         n_heads=c["n_heads"], n_layers=c["n_layers"],
+                         d_ff=c["d_ff"], max_length=c["seq"],
+                         dtype="bfloat16", device="cuda").init(SEED)
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    torch.cuda.synchronize()
+    counters.reset()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    L = c["n_layers"]
+    want = {**{f"K{i}": 0 for i in range(1, 14)}, "K2": L, "K6": L,
+            "K8": 1, "K9": 1, "K9 dW": 1}
+    log26(card, f"26a: a flagship step under the table: loss "
+          f"{float(net.score_value):.5f}, launches {launches}")
+    if launches != want or not np.isfinite(float(net.score_value)):
+        raise PhaseFailed("26a", f"flagship step launches {launches}, "
+                                 f"expected {want}")
+    return launches
+
+
+def host_path_vectors(torch, Word2Vec):
+    """Phase 20a's host-path Word2Vec model (trained here when phase 20
+    did not run in this process): the sub-corpus of bench.py's topic
+    corpus, layer 128. Returns (words, vectors [V, 128] f32 on the
+    card)."""
+    model = PHASE20.get("host_model")
+    if model is None:
+        sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000, 25)
+        model = (Word2Vec.builder().layer_size(128).window_size(5)
+                 .min_word_frequency(1).negative_sample(5).epochs(1).seed(1)
+                 .device("cuda").build())
+        model.build_vocab(sents[:W2V_SENTENCES])
+        model.fit(sents[:W2V_SENTENCES])
+        PHASE20["host_model"] = model
+    return (model.vocab.words(),
+            model.lookup_table.syn0.detach().float().contiguous())
+
+
+def barnes_hut_tsne(x):
+    """26b's Barnes-Hut t-SNE of x [m, D] (float64, numpy) on the host,
+    in a process of its own (the SpTree walks are Python, about a second
+    an iteration at m = 300): (y, KL history, seconds)."""
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+
+    bh = BarnesHutTsne(max_iter=BH_TSNE["max_iter"],
+                       perplexity=BH_TSNE["perplexity"], seed=SEED)
+    t0 = time.perf_counter()
+    y = bh.fit(x, 2)
+    return y, bh.kl_divergences, time.perf_counter() - t0
+
+
+def start_barnes_hut(torch, Word2Vec):
+    """Start 26b's Barnes-Hut t-SNE of the first BH_TSNE["n"] host-path
+    vectors in a spawned process, so it runs beside the phases that
+    follow: (pool, future). The pool is shut down where the result is
+    read (`tuning_clustering_ui`)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    _, vecs = host_path_vectors(torch, Word2Vec)
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(barnes_hut_tsne, vecs[:BH_TSNE["n"]].cpu()
+                             .numpy().astype(np.float64))
+
+
+def check_barnes_hut(job, card):
+    """26b: the Barnes-Hut t-SNE process's result."""
+    y, kl, seconds = job.result(timeout=900)
+    m = BH_TSNE["n"]
+    log26(card, f"26b: Barnes-Hut t-SNE of {m} vectors on the host (its "
+          f"own process, started after phase 20), {BH_TSNE['max_iter']} "
+          f"iterations: {seconds:.3f} s; KL {[round(k, 4) for k in kl]}")
+    if y.shape != (m, 2) or not np.isfinite(y).all():
+        raise PhaseFailed("26b", "Barnes-Hut t-SNE: not finite")
+
+
+def clustering_on_card(torch, words, vecs, card):
+    """26b: KMeans over the whole vocabulary and exact t-SNE on the card,
+    a VP-tree on the host. Returns (words, vectors [n, 128] numpy, t-SNE
+    coordinates [n, 2]) of the t-SNE's n words."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, VPTree
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    V, D = vecs.shape
+    km = KMeansClustering(KMEANS["k"], KMEANS["max_iterations"], seed=SEED,
+                          device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km.apply_to(vecs)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    cpu = KMeansClustering(KMEANS["k"], KMEANS["max_iterations"], seed=SEED,
+                           device="cpu")
+    t0 = time.perf_counter()
+    cpu.apply_to(vecs.cpu())
+    cpu_s = time.perf_counter() - t0
+    h = km.distortion_history
+    rises = [i for i in range(len(h) - 1)
+             if h[i + 1] > h[i] * (1 + KMEANS_RISE_TOL)]
+    moved = float((km.assignments.cpu() != cpu.assignments).float().mean())
+    sizes = torch.bincount(km.assignments, minlength=KMEANS["k"]).tolist()
+    log26(card, f"26b: KMeans k={KMEANS['k']} over {V} words x {D} on the "
+          f"card: {km.iteration_count} Lloyd steps in {km_s:.3f} s "
+          f"({km_s / km.iteration_count * 1e3:.3f} ms a step, the host's "
+          f"k-means++ seeding included), distortion {h[0]:.4f} -> "
+          f"{h[-1]:.4f}, cluster sizes {sizes}; the CPU run "
+          f"{cpu.iteration_count} steps in {cpu_s:.3f} s, distortion "
+          f"{cpu.distortion_history[-1]:.4f}; {moved:.5f} of the words in "
+          f"another cluster (tol {KMEANS_MEMBERSHIP_TOL})")
+    if rises or moved > KMEANS_MEMBERSHIP_TOL:
+        raise PhaseFailed("26b", f"KMeans: distortion rises at steps "
+                                 f"{rises} or {moved} of the memberships "
+                                 "differ from the CPU's")
+
+    n = TSNE["n"]
+    x = vecs[:n]
+    ts = Tsne(max_iter=TSNE["max_iter"], perplexity=TSNE["perplexity"],
+              learning_rate=TSNE["learning_rate"], seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = ts.calculate(x, 2)
+    tsne_s = time.perf_counter() - t0
+    kl = ts.kl_history
+    after_lying = ts.stop_lying_iteration // 50  # the first KL after it
+    log26(card, f"26b: exact t-SNE of {n} x {D} on the card, "
+          f"{TSNE['max_iter']} iterations, perplexity {TSNE['perplexity']}:"
+          f" {tsne_s:.3f} s ({tsne_s / TSNE['max_iter'] * 1e3:.4f} ms a "
+          f"step, the perplexity search included); KL every 50 iterations "
+          f"{[round(k, 4) for k in kl]}")
+    if (y.shape != (n, 2) or not np.isfinite(y).all()
+            or not kl[-1] < kl[after_lying]):
+        raise PhaseFailed("26b", "exact t-SNE: the coordinates are not "
+                                 "finite or the KL did not fall")
+
+    xn = x.cpu().numpy().astype(np.float64)
+    tree = VPTree(xn, labels=words[:n], seed=SEED)
+    rng = np.random.default_rng(SEED)
+    wrong = 0
+    for q in rng.choice(n, VP_QUERIES, replace=False):
+        got = [i for _, i in tree.search(xn[q], VP_K)]
+        want = np.argsort(np.linalg.norm(xn - xn[q], axis=1),
+                          kind="stable")[:VP_K].tolist()
+        wrong += got != want
+    log26(card, f"26b: VPTree over {n} vectors: {VP_QUERIES} {VP_K}-NN "
+          f"searches, {wrong} differ from brute force")
+    if wrong:
+        raise PhaseFailed("26b", "a VPTree search differs from brute force")
+    return words[:n], x.cpu().numpy(), y
+
+
+def _get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.status, r.read().decode()
+
+
+def ui_on_card(torch, counters, transformer_lm, DataSet, words, vecs, coords,
+               telemetry, card):
+    """26c: the UI server over 3 flagship training steps with the three
+    listeners posting over HTTP, the rendered views, the t-SNE
+    coordinates, the nearest neighbours and the fleet timeline. Returns
+    the launches of the steps (and the activation probe's forwards)."""
+    from deeplearning4j_tpu_torch.nn.tree import leaves
+    from deeplearning4j_tpu_torch.ui import (ActivationMeanIterationListener,
+                                             FlowIterationListener,
+                                             HistogramIterationListener,
+                                             UiServer)
+
+    srv = UiServer(port=0, telemetry_path=telemetry).start()
+    try:
+        c = TRAIN
+        net = transformer_lm(vocab_size=c["vocab_size"],
+                             d_model=c["d_model"], n_heads=c["n_heads"],
+                             n_layers=c["n_layers"], d_ff=c["d_ff"],
+                             max_length=c["seq"], dtype="bfloat16",
+                             device="cuda").init(SEED)
+        ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+        kw = dict(url=srv.url, session_id="flagship")
+        net.set_listeners(
+            HistogramIterationListener(**kw), FlowIterationListener(**kw),
+            ActivationMeanIterationListener(
+                np.asarray(ds.features)[:UI["probe_rows"]], **kw))
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        for _ in range(UI["steps"]):
+            net.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        S, L = UI["steps"], c["n_layers"]
+        log26(card, f"26c: {S} flagship steps with the histogram, flow and "
+              f"activation listeners posting to {srv.url} in {wall:.3f} s; "
+              f"launches {launches} (the probe's forwards add K2)")
+        if (launches["K6"] != S * L or launches["K2"] < S * L
+                or any(launches[k] != S for k in ("K8", "K9", "K9 dW"))):
+            raise PhaseFailed("26c", f"launches {launches}")
+        weights = json.loads(_get(f"{srv.url}/weights/data?sid=flagship")[1])
+        flow = json.loads(_get(f"{srv.url}/flow/data?sid=flagship")[1])
+        acts = json.loads(_get(f"{srv.url}/activations/data?sid=flagship")[1])
+        n_leaves = len(leaves(net.params))
+        _http(f"{srv.url}/tsne/coords?sid=flagship",
+              {"coords": np.asarray(coords).tolist(),
+               "labels": list(words)})
+        pages = {}
+        for view, marker in (("weights", "ChartHistogram"),
+                             ("flow", "ComponentTable"),
+                             ("activations", "ChartLine"),
+                             ("tsne", "ChartScatter")):
+            status, body = _get(f"{srv.url}/{view}?sid=flagship")
+            pages[view] = (status, len(body))
+            if status != 200 or SVG_RENDERER not in body \
+                    or marker not in body:
+                raise PhaseFailed("26c", f"/{view} did not render: status "
+                                         f"{status}, {marker} or the SVG "
+                                         "renderer missing")
+        if (weights.get("iteration") is None
+                or len(weights["parameters"]) != n_leaves
+                or len(flow["layers"]) != len(net.params)
+                or not acts.get("activation_means")):
+            raise PhaseFailed("26c", "the listeners' payloads are "
+                                     "incomplete")
+        _http(f"{srv.url}/nearestneighbors/vectors",
+              {"labels": list(words), "vectors": np.asarray(vecs).tolist()})
+        v = np.asarray(vecs, np.float32)
+        vn = v / (np.linalg.norm(v, axis=1, keepdims=True) + 1e-12)
+        wrong = 0
+        for i in range(UI["queries"]):
+            got = json.loads(_http(f"{srv.url}/nearestneighbors/query",
+                                   {"word": words[i], "k": UI["k"]}))
+            sims = vn @ vn[i]
+            sims[i] = -np.inf
+            want = [words[j] for j in np.argsort(-sims)[:UI["k"]]]
+            wrong += got["words"] != want
+        status, page = _get(f"{srv.url}/timeline")
+        timeline = json.loads(_get(f"{srv.url}/timeline/data")[1])
+        log26(card, f"26c: views {pages} (status, bytes); weights payload "
+              f"of {len(weights['parameters'])} params at iteration "
+              f"{weights['iteration']}, flow {len(flow['layers'])} "
+              f"vertices, activation means of "
+              f"{len(acts['activation_means'])} vertices; "
+              f"{len(coords)} t-SNE points posted; {UI['queries']} "
+              f"nearest-neighbour queries, {wrong} differ from brute force;"
+              f" /timeline ({status}) over {telemetry}: "
+              f"{len(timeline['span_stats'])} span kinds, "
+              f"{len(timeline['anomalies'])} anomalies")
+        if wrong:
+            raise PhaseFailed("26c", "a nearest-neighbour query differs "
+                                     "from brute force")
+        if status != 200 or not timeline["span_stats"]:
+            raise PhaseFailed("26c", f"/timeline over {telemetry} lists no "
+                                     "span")
+        return launches
+    finally:
+        srv.stop()
+
+
+def tuning_clustering_ui(torch, counters, Word2Vec, transformer_lm, DataSet,
+                         card, barnes_hut=None):
+    """Phase 26. Returns the launches of its runs on the main path (the
+    flagship step under the table, the UI's steps and, when phase 20 did
+    not run first, the host-path Word2Vec) and 26a's tuned launches
+    (`tuned_launches`). `barnes_hut`: `start_barnes_hut`'s (pool,
+    future), started here when None."""
+    t0 = time.perf_counter()
+    counters.reset()
+    words, vecs = host_path_vectors(torch, Word2Vec)
+    torch.cuda.synchronize()
+    runs = [counters.read()]
+    pool, bh_job = barnes_hut or start_barnes_hut(torch, Word2Vec)
+    try:
+        quick_tel = quick_sweep(card)
+        tuned = tuned_launches(torch, card)
+        runs.append(flagship_step_under_table(torch, counters,
+                                              transformer_lm, DataSet,
+                                              card))
+        words, vecs, coords = clustering_on_card(torch, words, vecs, card)
+        runs.append(ui_on_card(torch, counters, transformer_lm, DataSet,
+                               words, vecs, coords,
+                               PHASE25.get("telemetry", quick_tel), card))
+        check_barnes_hut(bh_job, card)
+    finally:
+        pool.shutdown()
+    keys = sorted({k for r in runs for k in r})
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in keys}
+    log26(card, f"phase 26 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return launches, tuned
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -8045,10 +8599,13 @@ ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
 
 
 def only_phase(torch, phase):
-    """`chip_smoke.py --phase 25`: the kernels built, then that phase
-    alone (a quick check of one phase; the full run is the contract)."""
-    if phase != "25":
-        print(f"chip_smoke: --phase takes 25, not {phase}", file=sys.stderr)
+    """`chip_smoke.py --phase 25` (or 26): the kernels built, then that
+    phase alone (a quick check of one phase; the full run is the
+    contract). Phase 26 alone trains phase 20a's host-path Word2Vec
+    first and reads its own quick sweep's telemetry at /timeline."""
+    if phase not in ("25", "26"):
+        print(f"chip_smoke: --phase takes 25 or 26, not {phase}",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.datasets import DataSet
@@ -8068,7 +8625,14 @@ def only_phase(torch, phase):
     log(f"build: {sorted(cuda_build.build())} in "
         f"{time.perf_counter() - t0:.2f} s")
     counters = Counters(fa, fsx, fns, fln, fsm)
-    telemetry_and_cli(torch, counters, transformer_lm, DataSet, name_power)
+    if phase == "25":
+        telemetry_and_cli(torch, counters, transformer_lm, DataSet,
+                          name_power)
+    else:
+        from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+        tuning_clustering_ui(torch, counters, Word2Vec, transformer_lm,
+                             DataSet, name_power)
     return 0
 
 
@@ -8194,6 +8758,9 @@ def main() -> int:
     nn_launches = train_nn_rest(torch, counters, fa, DataSet, name_power)
     emb_launches = train_embeddings_rest(torch, counters, Word2Vec, engine,
                                          host_rate, name_power)
+    # 26b's Barnes-Hut t-SNE of 20a's vectors (minutes of Python on the
+    # host) runs in its own process beside phases 21-26
+    barnes_hut = start_barnes_hut(torch, Word2Vec)
     par_launches = train_parallel(torch, counters, fa, transformer_lm,
                                   DataSet, name_power)
     place_launches, shard_times = train_placements(
@@ -8206,7 +8773,10 @@ def main() -> int:
         torch, counters, fns, transformer_lm, DataSet, name_power)
     tel_launches = telemetry_and_cli(torch, counters, transformer_lm,
                                      DataSet, name_power)
-    log(f"chip_smoke: phases 1-25 in {time.perf_counter() - started:.1f} s")
+    tune_launches, tuned = tuning_clustering_ui(
+        torch, counters, Word2Vec, transformer_lm, DataSet, name_power,
+        barnes_hut)
+    log(f"chip_smoke: phases 1-26 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -8226,7 +8796,9 @@ def main() -> int:
     # Network decode, placed-net and split-block runs, phase 23's
     # pipelined, restored and searched-placement runs, and phase 24's
     # elastic fleet's workers, the averaging workers and its in-process
-    # twin, the sharded engine's arms and the data meshes), each counted
+    # twin, the sharded engine's arms and the data meshes, phase 25's
+    # CLI server and cost book, phase 26's flagship step under the
+    # tuning table and the UI's steps), each counted
     # from 0 just before it and read just after (in the process that
     # ran it). K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
@@ -8235,7 +8807,7 @@ def main() -> int:
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
             par_launches, place_launches, pipe_launches, fleet_launches,
-            tel_launches)
+            tel_launches, tune_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}
@@ -8313,6 +8885,10 @@ def main() -> int:
             kernels[-1]["embed"] = k13_embed
         if kern == "K10":
             kernels[-1]["host_us"] = rec["host_us"]
+        if kern in tuned:
+            # the tuning table's launch params at the main path's shapes
+            # against the heuristic's, timed in turns (26a)
+            kernels[-1]["tuned"] = tuned[kern]
         if kern == "K12":
             # beside the headline: the replay's microbench block, and the
             # temperature-only mode against the Gumbel argmax call

@@ -1113,8 +1113,10 @@ extern "C" int xent_bwd_dwdb(const void* x, const void* w, const void* b,
     return launch(xent_dwdb_kernel,
                   dim3((V + BV - 1) / BV, (d + DT - 1) / DT), dw_smem(), s,
                   NTHREADS, a);
+  // the slices (the wrapper's, from `dw_slices` or a tuning table) must
+  // be from 1 to the row blocks: the workspace holds `slices` partials
   if (dtype != 1 || work == nullptr || slices < 1 ||
-      slices > (N + BN - 1) / BN)
+      slices > (N + tcx::BN - 1) / tcx::BN)
     return -1;
   const int Vw = (V + tcx::BV - 1) / tcx::BV * tcx::BV;
   const dim3 grid(Vw / tcx::BV, (d + tcx::DT - 1) / tcx::DT, slices);

@@ -85,7 +85,7 @@ from typing import NamedTuple
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import (cuda_build, opcount,
+from deeplearning4j_tpu_torch.ops import (autotune, cuda_build, opcount,
                                           refuse_double_backward)
 from deeplearning4j_tpu_torch.ops.shard_scope import fold_bh_offset
 
@@ -115,14 +115,15 @@ _L_FLOOR = 1e-30
 # and ops/autotune.py). T in (MAX_FLASH_T, MONOLITHIC_COMPILE_MAX] that no
 # tiling takes runs the monolithic kernels at D <= 128; chunk loops are
 # capped at MAX_CHUNKS chunks (MAX_CHUNK_PAIRS causal tile pairs); the
-# tile lengths are CHUNK_TILES, shorter past head dim 128
-# (`max_tile_for_dim`).
+# tile lengths are CHUNK_TILES, owned by the tuning layer
+# (autotune.CHUNK_TILES) and re-exported here as the envelope quoted in
+# errors, shorter past head dim 128 (`max_tile_for_dim`); a tuning
+# table's `flash_chunk` entry may pick another of them (`resolve_chunk`).
 MONOLITHIC_COMPILE_MAX = 14336
 MAX_CHUNKS = 16
 MAX_CHUNK_PAIRS = MAX_CHUNKS * (MAX_CHUNKS + 1) // 2
-CHUNK_TILES = (8192, 4096, 2048, 1024, 512)
-_LANES = 128
-_TILE_ELEM_BUDGET = CHUNK_TILES[0] * _LANES
+CHUNK_TILES = autotune.CHUNK_TILES
+max_tile_for_dim = autotune.max_tile_for_dim
 
 # calls on CUDA tensors inside the JAX package's flash envelope whose
 # head dim no kernel is instantiated for: they take the dense path
@@ -842,18 +843,6 @@ def flash_attention_qkv(qkv, n_heads, *, causal=True, sm_scale=None,
 
 # ------------------------------------------------- the chunked tier
 
-def max_tile_for_dim(D) -> int:
-    """Largest chunk tile for a head dim: tile * max(D, 128) <=
-    8192 * 128 (the JAX package's `autotune.max_tile_for_dim`); None
-    means D <= 128."""
-    if not D or D <= _LANES:
-        return CHUNK_TILES[0]
-    for c in CHUNK_TILES:
-        if c * D <= _TILE_ELEM_BUDGET:
-            return c
-    return 0
-
-
 def chunk_pairs(n: int, causal: bool) -> int:
     """Tile-pair kernel calls of an n-chunk loop a direction."""
     return n * (n + 1) // 2 if causal else n * n
@@ -877,8 +866,8 @@ def pick_chunk(T: int, causal: bool = True, head_dim: int | None = None) \
         -> int:
     """Largest tile in CHUNK_TILES (within the head-dim bound when
     `head_dim` is given) that divides T into 2+ chunks within the
-    budget; 0 when none does. The JAX package's `chunk_tile` reads a
-    tuning table only on a TPU, so both packages take this choice."""
+    budget; 0 when none does: the heuristic, which a tuning table's
+    entry may override (`resolve_chunk`)."""
     cap = max_tile_for_dim(head_dim)
     for c in CHUNK_TILES:
         if c > cap:
@@ -886,6 +875,26 @@ def pick_chunk(T: int, causal: bool = True, head_dim: int | None = None) \
         if T % c == 0 and 2 <= T // c and _fits_unroll(T // c, causal):
             return c
     return 0
+
+
+def _chunk_fits(cand, T, D, causal) -> bool:
+    """Whether `cand` is a tile the loop takes at T: a positive multiple
+    of BLOCK dividing T into 2+ tiles within the head dim's bound and the
+    loop's budget."""
+    return (isinstance(cand, int) and cand > 0 and T % cand == 0
+            and cand % BLOCK == 0 and cand <= max_tile_for_dim(D)
+            and T // cand >= 2 and _fits_unroll(T // cand, causal))
+
+
+def resolve_chunk(T, D, causal=True, dropout=False, masked=False) -> int:
+    """The tile the chunked tier runs at T and head dim D when the caller
+    names none: the tuning table's `flash_chunk` entry for (T, D, causal,
+    dropout, masked) where one applies and fits (ops/autotune.py
+    `chunk_tile`), else `pick_chunk`."""
+    return (autotune.chunk_tile(
+        T, D, causal=causal, dropout=bool(dropout), masked=bool(masked),
+        fits=lambda c: _chunk_fits(c, T, D, causal))
+        or pick_chunk(T, causal, head_dim=D))
 
 
 def _tiles_str(head_dim=None) -> str:
@@ -981,7 +990,7 @@ def chunked_flash_attention(q, k, v, *, causal=True, sm_scale=None,
     padding mask, sliced per kv tile. dropout: one step seed from
     `generator` for the whole call; each tile hashes its global
     coordinates, so the keep mask is the one the whole sequence's kernel
-    would draw, whatever the chunk. `chunk` defaults to `pick_chunk`."""
+    would draw, whatever the chunk. `chunk` defaults to `resolve_chunk`."""
     B, H, T, D = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
@@ -1007,15 +1016,9 @@ def chunked_flash_attention_lse(q, k, v, sm_scale, causal, kmask=None,
     ones merge every kv tile into a (0, NEG_INF) carry in the same j
     order, as the JAX package's scan does."""
     BH, T, D = q.shape
-
-    def _fits(cand):
-        return (isinstance(cand, int) and cand > 0 and T % cand == 0
-                and cand % BLOCK == 0 and cand <= max_tile_for_dim(D)
-                and T // cand >= 2 and _fits_unroll(T // cand, causal))
-
-    c = chunk or pick_chunk(T, causal, head_dim=D)
+    c = chunk or resolve_chunk(T, D, causal, dropout, kmask is not None)
     n = T // c if c else 0
-    if not _fits(c):
+    if not _chunk_fits(c, T, D, causal):
         raise ValueError(
             f"T={T} not divisible into 2-{max_chunks(causal)} kernel tiles"
             + (f" of {chunk}" if chunk else "")

@@ -45,7 +45,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import (cuda_build, opcount,
+from deeplearning4j_tpu_torch.ops import (autotune, cuda_build, opcount,
                                           refuse_double_backward)
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,7 +55,8 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PARTIAL_ROWS = 64
 # the backward's vector kernel: warps a block, and blocks (each one
 # partial): 2 blocks on each of an H100's 132 SMs, a constant so that the
-# sums' order, and so their bits, do not depend on the card
+# sums' order, and so their bits, do not depend on the card (a tuning
+# table's `blocks`, ops/autotune.py, applies only on the card it names)
 BWD_WARPS = 8
 BWD_BLOCKS = 264
 # its most 16-byte vectors a lane (csrc/layernorm.cu lnv::MAX_BWD_NV): C
@@ -128,14 +129,22 @@ def _bwd_plan(N, C, elem_bytes, ptrs, wide_params=False):
     cover the row in 1 to MAX_BWD_VEC_PER_LANE whole vectors each (1
     with `wide_params`, an f32 gamma beside bf16 x, whose registers
     double) and every pointer is 16-byte aligned, on a grid of
-    min(BWD_BLOCKS, ceil(N / BWD_WARPS)) blocks; else (0, the general
-    column pass's partials, ceil(N / PARTIAL_ROWS)). Each block or chunk
-    writes one partial; the C entry sums them."""
+    `bwd_blocks(N, C)` blocks; else (0, the general column pass's
+    partials, ceil(N / PARTIAL_ROWS)). Each block or chunk writes one
+    partial; the C entry sums them."""
     nv, rem = divmod(C, 32 * (16 // elem_bytes))
     most = 1 if wide_params else MAX_BWD_VEC_PER_LANE
     if rem or not 1 <= nv <= most or any(ptr & 15 for ptr in ptrs):
         return 0, -(-N // PARTIAL_ROWS)
-    return nv, min(BWD_BLOCKS, -(-N // BWD_WARPS))
+    return nv, bwd_blocks(N, C)
+
+
+def bwd_blocks(N, C):
+    """The vector backward's grid for N rows of C: min(BWD_BLOCKS,
+    ceil(N / BWD_WARPS)), or the tuning table's `blocks` for (N, C)
+    (ops/autotune.py `ln_bwd_blocks`, from 1 to ceil(N / BWD_WARPS))."""
+    rows = -(-N // BWD_WARPS)
+    return autotune.ln_bwd_blocks(N, C, min(BWD_BLOCKS, rows), rows)
 
 
 def _param_dtype_ok(x_dtype, p_dtype):

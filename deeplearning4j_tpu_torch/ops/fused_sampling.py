@@ -47,7 +47,7 @@ import ctypes
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
-from deeplearning4j_tpu_torch.ops import cuda_build, opcount
+from deeplearning4j_tpu_torch.ops import autotune, cuda_build, opcount
 
 NEG_INF = -1e30
 BISECT_STEPS = 24
@@ -305,12 +305,16 @@ PLAN_THREADS = (THREADS, WIDE_THREADS)  # the kernel's instantiations
 
 def _plan(batch: int, vocab: int):
     """(threads a block, blocks in a row's cluster) for [batch, vocab]
-    logits: 8 blocks of 256 threads at [4, 10000], of 128 at [32,
-    10000]; one block of 128 up to V = 1024."""
+    logits: the tuning table's plan for (batch, vocab) where it has one
+    (ops/autotune.py `sample_plan`), else the heuristic: 8 blocks of 256
+    threads at [4, 10000], of 128 at [32, 10000]; one block of 128 up to
+    V = 1024."""
     cluster = min(MAX_CLUSTER,
                   max(1, -(-vocab // (THREADS * ELEMS_PER_THREAD))))
     wide = cluster == MAX_CLUSTER and batch * cluster <= SMS
-    return (WIDE_THREADS if wide else THREADS), cluster
+    return autotune.sample_plan(batch, vocab,
+                                ((WIDE_THREADS if wide else THREADS),
+                                 cluster), PLAN_THREADS, MAX_CLUSTER)
 
 
 def _check(logits, noise):

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import (cuda_build, opcount,
+from deeplearning4j_tpu_torch.ops import (autotune, cuda_build, opcount,
                                           refuse_double_backward)
 
 NEG_INF = -1e30
@@ -53,6 +53,9 @@ FORCE_FUSED = None
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_D_MULTIPLE = 32
+# rows of N a tile of the bf16 dW/db kernel (csrc/softmax_xent.cu
+# tcx::BN): its slices of N are at most the row blocks, ceil(N / 64)
+DW_ROW_BLOCK = 64
 
 # launches counted where a wrapper launches its kernel, and nowhere else
 LAUNCHES = {"K8": 0, "K9": 0, "K9 dW": 0}
@@ -210,18 +213,27 @@ def _xent_dx(x, w, b, labels, lse, g):
     return dx
 
 
+def dw_slices(N, d, V, device=None):
+    """Slices of N for the bf16 dW/db kernel: the tuning table's target
+    for (V, d) clamped to the row blocks (ops/autotune.py
+    `xent_slices`), else the C heuristic `dw_slices`, which reads the
+    card's SM count (on `device`, the current one by default)."""
+    with torch.cuda.device(device):
+        default = _kernel("xent_dw_slices")(N, d, V)
+    if default < 1:
+        raise RuntimeError(f"xent_dw_slices refused N={N} d={d} V={V}")
+    return autotune.xent_slices(N, d, V, default, -(-N // DW_ROW_BLOCK))
+
+
 def _dw_workspace(x, V):
     """The bf16 dW/db kernel's f32 workspace: one [d + 1, Vw] partial
     (dW, then db) per slice of the N reduction, which its reduce kernel
-    sums in a fixed order. Returns (workspace, slices); (None, 0) for
-    f32, whose kernel needs none."""
+    sums in a fixed order; sized from the resolved slices. Returns
+    (workspace, slices); (None, 0) for f32, whose kernel needs none."""
     if x.dtype != torch.bfloat16:
         return None, 0
     N, d = x.shape
-    with torch.cuda.device(x.device):
-        slices = _kernel("xent_dw_slices")(N, d, V)
-    if slices < 1:
-        raise RuntimeError(f"xent_dw_slices refused N={N} d={d} V={V}")
+    slices = dw_slices(N, d, V, x.device)
     vw = -(-V // 64) * 64
     return (torch.empty(slices * (d + 1) * vw, dtype=torch.float32,
                         device=x.device), slices)

@@ -42,9 +42,9 @@ The file is append-only JSONL at the path `$DL4J_TPU_TELEMETRY` names
 `$DL4J_TPU_PROCESS_ID` is set, so processes that share one setting keep
 separate logs.
 
-The kernel-tune event (`kernel_tune`) waits for the port's
-`ops/autotune.py` (ROADMAP Queue A item 9): its method raises
-NotImplementedError.
+The kernel-tune event (`kernel_tune`) records one measurement of a
+kernel's launch-parameter variant by `port_tools/kerneltune.py`, and an
+entry of the tuning table that `ops/autotune.py` rejected.
 """
 
 from __future__ import annotations
@@ -64,10 +64,6 @@ ENV_PROCESS_ID = "DL4J_TPU_PROCESS_ID"
 
 # ring-buffer length of the in-memory mirror of emitted events
 DEFAULT_KEEP = 4096
-
-_AUTOTUNE = ("waits for the port's ops/autotune.py (ROADMAP Queue A "
-             "item 9)")
-
 
 class Recorder:
     """Appends typed JSONL events to a per-run file (and an in-memory
@@ -279,7 +275,16 @@ class Recorder:
     def kernel_tune(self, kernel: str, key: str, params: dict,
                     seconds: float | None = None, role: str = "candidate",
                     **fields) -> dict:
-        raise NotImplementedError(f"Recorder.kernel_tune {_AUTOTUNE}")
+        """A `kernel_tune` event: one micro-bench measurement of a
+        kernel's launch-parameter variant (port_tools/kerneltune.py), or
+        a tuning entry that ops/autotune.py rejected (role "rejected").
+        The telemetry log is the provenance trail behind
+        ops/tuning_table.json: every candidate's timing survives even if
+        the sweep crashes before writing the table."""
+        if seconds is not None:
+            fields["seconds"] = round(float(seconds), 9)
+        return self.event("kernel_tune", kernel=kernel, key=key,
+                          params=dict(params), role=role, **fields)
 
     # -------------------------------------------------------------- spans
     @contextlib.contextmanager

@@ -274,14 +274,15 @@ def rel_err(x, ref):
     return float((x.float() - ref).abs().max()) / float(ref.abs().max())
 
 
-def run_xent_case(fns, N, d, V, gen):
+def run_xent_case(fns, N, d, V, gen, slices=None):
     """The bf16 head through the emulated kernels: K8 (`xent_fwd`)
     against `_xent_fwd_reference`, and K9 (`xent_bwd_dx`,
     `xent_bwd_dwdb` with its slices and reduce) against
     `_xent_bwd_reference` on the reference's lse; each output within
     phase 2b's limit of its largest entry: 1e-4 for K8's loss and lse
     (f32 in both, from the same exact products), 2e-2 for K9's bf16
-    gradients. Returns (ok, report line)."""
+    gradients. K9's dW/db kernel takes `slices` of N where given (else
+    `xent_dw_slices`'s). Returns (ok, report line)."""
     x = torch.randn(N, d, generator=gen).bfloat16()
     w = (0.05 * torch.randn(d, V, generator=gen)).bfloat16()
     b = (0.01 * torch.randn(V, generator=gen)).bfloat16()
@@ -296,7 +297,8 @@ def run_xent_case(fns, N, d, V, gen):
     err_f = max(rel_err(loss, rloss), rel_err(lse, rlse))
 
     dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty(V)
-    slices = fns["xent_dw_slices"](N, d, V)
+    if slices is None:
+        slices = fns["xent_dw_slices"](N, d, V)
     work = torch.empty(max(slices, 1) * (d + 1) * (-(-V // 64) * 64))
     rc_b = [fns["xent_bwd_dx"](*ptr, rlse.data_ptr(), g.data_ptr(),
                                dx.data_ptr(), 1, N, d, V, None),

@@ -3,7 +3,7 @@ telemetry/{costbook,recorder,listener}.py, ops/opcount.py) on the CPU,
 against the JAX package's.
 
 * The `memory`, `cost`, `cost_drift`, `metric` and `eval` events carry
-  the JAX recorder's keys; `kernel_tune` still raises.
+  the JAX recorder's keys; so does `kernel_tune` (ops/autotune.py).
 * The flop count of a 2-layer LM's forward and training step equals the
   analytic count exactly: 2mnk a torch product (forward, dx and dW) plus
   the kernels' own counts (K3/K7 packed flash at head dim 64, K8/K9 the
@@ -120,10 +120,19 @@ def test_event_schemas_match_the_jax_recorder(kind):
 
 
 def test_null_recorder_skips_eval_and_memory_and_kernel_tune_raises():
+    """The null recorder records no eval, memory or kernel_tune event;
+    `Recorder.kernel_tune` no longer raises (the name is kept from when
+    it did): it emits the JAX recorder's event."""
     null = NullRecorder()
     assert null.eval({"accuracy": 1.0}) == {} and null.memory() == {}
-    with pytest.raises(NotImplementedError, match="autotune"):
-        Recorder().kernel_tune("flash", "k", {"block": 128})
+    assert null.kernel_tune("sample", "k", {"threads": 128}) == {}
+    ours = Recorder().kernel_tune("sample", "k", {"threads": 128},
+                                  seconds=1e-5, role="default")
+    theirs = JRecorder().kernel_tune("sample", "k", {"threads": 128},
+                                     seconds=1e-5, role="default")
+    assert _keys(ours) == _keys(theirs)
+    for k in ("event", "kernel", "key", "params", "role", "seconds"):
+        assert ours[k] == theirs[k], k
 
 
 # ------------------------------------------------------------- the count

@@ -1,7 +1,8 @@
-"""The port stands alone: no file of deeplearning4j_tpu_torch/ nor
-chip_smoke.py imports jax or the JAX package, the whole package imports
-with jax made unimportable, and an entry point called without a device
-asks for CUDA (no silent CPU fallback)."""
+"""The port stands alone: no file of deeplearning4j_tpu_torch/, nor
+chip_smoke.py, nor the port's sweep port_tools/kerneltune.py imports jax
+or the JAX package, the whole package imports with jax made
+unimportable, and an entry point called without a device asks for CUDA
+(no silent CPU fallback)."""
 
 import ast
 import subprocess
@@ -18,7 +19,8 @@ pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tests").glob("torch_*.py"))
+    ROOT / "chip_smoke.py", ROOT / "port_tools" / "kerneltune.py"] + sorted(
+    (ROOT / "tests").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
 
 
@@ -58,7 +60,7 @@ def test_package_imports_without_jax():
     missing = {f"deeplearning4j_tpu_torch.{m}"
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
                + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE
-               + TELEMETRY_SLICE} - names
+               + TELEMETRY_SLICE + TUNING_UI_SLICE} - names
     assert not missing, missing
 
 
@@ -110,12 +112,22 @@ TELEMETRY_SLICE = (
     "datasets.cloud", "cli", "cli.driver", "cli.__main__")
 
 
+# kernel autotuning, clustering with t-SNE and the training UI (ROADMAP
+# A9, second part)
+TUNING_UI_SLICE = (
+    "ops.autotune", "clustering", "clustering.cluster", "clustering.kdtree",
+    "clustering.vptree", "clustering.quadtree", "clustering.sptree",
+    "clustering.kmeans", "plot", "plot.tsne", "plot.barnes_hut_tsne",
+    "plot.filters", "ui", "ui.storage", "ui.components", "ui.standalone",
+    "ui.views", "ui.listeners", "ui.server")
+
+
 def test_elastic_slice_imports_nothing_of_jax():
     """The stdlib-only modules the slice copies from the JAX package
     (its cluster protocol, fault grammar and trace tools) are the
     port's own copies: each names its JAX counterpart and imports none
     of it."""
-    for mod in ELASTIC_SLICE + TELEMETRY_SLICE:
+    for mod in ELASTIC_SLICE + TELEMETRY_SLICE + TUNING_UI_SLICE:
         path = ROOT / "deeplearning4j_tpu_torch" / (
             mod.replace(".", "/") + ".py")
         if not path.exists():  # a package: its __init__.py
@@ -372,6 +384,37 @@ def test_embeddings_slice_entry_points_default_to_cuda(make):
     """The same rule for the rest of embeddings and NLP: with no device
     named, the pipeline's tables, the ANN index, the serving engine's
     index, DeepWalk's, ParagraphVectors' and GloVe's tables go to CUDA."""
+    if torch.cuda.is_available():
+        assert all(t.is_cuda for t in make())
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
+
+
+def _kmeans():
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+
+    km = KMeansClustering(2, max_iterations=2)
+    assert km.device == torch.device("cuda")
+    km.apply_to(np.random.default_rng(0).normal(size=(8, 3)))
+    return [km.centers, km.assignments]
+
+
+def _tsne():
+    from deeplearning4j_tpu_torch.plot import Tsne
+
+    ts = Tsne(max_iter=2, perplexity=2.0)
+    assert ts.device == torch.device("cuda")
+    ts.calculate(np.random.default_rng(0).normal(size=(8, 3)))
+    return [torch.zeros(1, device="cuda")]
+
+
+@pytest.mark.parametrize("make", [_kmeans, _tsne],
+                         ids=["KMeansClustering", "Tsne"])
+def test_clustering_entry_points_default_to_cuda(make):
+    """The same rule for KMeans and exact t-SNE: with no device named
+    they run on CUDA, and without a card they fail rather than carrying
+    on on the CPU."""
     if torch.cuda.is_available():
         assert all(t.is_cuda for t in make())
     else:
