@@ -23,7 +23,9 @@ sharded embedding engine and the data meshes of the device pipeline and
 GloVe, the cost and memory telemetry with the CLI (train, test,
 predict and serve as processes of their own, ModelSerializer zips), and
 kernel autotuning (the tuning table and the kerneltune sweep), KMeans
-and t-SNE over word vectors and the training UI.
+and t-SNE over word vectors and the training UI, and the port's own
+trace tools, profiler, JAX zips resuming with their updater, and the
+native IO core.
 
 Run from the root of a checkout, with no arguments:
 
@@ -394,7 +396,8 @@ Phases, each of which exits non-zero when it fails:
    `run_elastic_worker` processes (`--average-worker`) average the
    flagship through a ClusterCoordinator on the card, 3 rounds on half
    of phase 6's rows each, worker 1 killed at its second round and
-   restarted from its checkpoint: both end bit for bit equal, worker 0
+   restarted from its checkpoint (a ModelSerializer zip the worker
+   rewrites after every round): both end bit for bit equal, worker 0
    bit for bit with two nets averaged in numpy in this process (worker
    1's restored from the checkpoint its restart resumed from), the
    restarted one resumed at its checkpoint's step; one worker through a
@@ -463,6 +466,35 @@ Phases, each of which exits non-zero when it fails:
    /nearestneighbors/query on 26b's vectors equal to brute force; and
    /timeline over phase 25's telemetry (under `--phase 26`, 26a's)
    listing spans. `--phase 26` runs the build and this phase alone.
+27. Tracing the port without the JAX package, JAX zips resuming, the
+   native IO core (`tracing_and_resume`). 27a: phase 6's flagship
+   trained 6 fit() steps with a Recorder under
+   `util/profiler.ProfilerIterationListener(start_iteration=2,
+   n_iterations=3)`: exact launch counts (K2 = K6 = 36, K8 = K9 = 6),
+   exactly one `profiler_trace` span, its Chrome trace holding the
+   flash (`tcf::`) and softmax-xent (`tcx::`) kernels; the net saved by
+   the Checkpointer; then `port_tools/tracetool.py` stats, check,
+   export --perfetto, tree and mem in a process of their own (no jax, no
+   torch imported) over that log and over phases 18c's and 24a's (their
+   injected faults make stragglers, so `check` gates on retraces there);
+   each exits 0 and the Perfetto JSON loads. 27b: `port_tools/
+   trafficreplay.py --generate --checkpoint` of 27a's checkpoint (the
+   flagship, prompts of 8-32, 16 new tokens) as a process on the card:
+   exit 0, requests ok, its telemetry clean under `tracetool check`.
+   27c: the committed JAX zip (tests/fixtures/torch_port/, a narrow LM
+   at T 512 the JAX package trained 3 Adam steps) restored on the card
+   with `updater_restored` True, 3 more steps through K1/K4 (exact
+   counts) within ADAM_ATOL of the JAX continuation stored beside it,
+   while the same zip with a fresh updater, or unstepped, ends outside
+   it; and the flagship written as a zip
+   whose updater is the JAX package's flat-view `updater.npz`, restored
+   through the mapping with its Adam state bit for bit and stepped 3
+   more times bit for bit with the original (K2/K6/K8/K9 exact). 27d:
+   `native.available()`; phase 25a's CSV through `to_matrix` equal bit
+   for bit to the per-record path; 20a's corpus as raw strings encoded
+   by `native.encode_corpus` with the Python split's ids (both timed);
+   20a's host-path Word2Vec fit on raw strings, one K13 launch a step.
+   `--phase 27` runs the build and this phase alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -3761,6 +3793,9 @@ def fleet_replay(card):
     from deeplearning4j_tpu_torch.serving.replay import run_fleet_replay
 
     tpath = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_")) / "t.jsonl"
+    # the autoscaling arm's log (the kill and the hot swap), which phase
+    # 27a's tools read
+    TRACES["18c fleet replay"] = f"{tpath}.autoscale"
     t0 = time.perf_counter()
     out = run_fleet_replay(telemetry_path=str(tpath), device="cuda")
     for line in out["lines"]:
@@ -7048,6 +7083,8 @@ def elastic_on_card(torch, card):
     failures = []
     w_res, _, _, w_prog, w_out, _ = whole
     k_res, journal, sup_events, k_prog, k_out, k_dir = killed
+    # the killed run's shards, which phase 27a's tools read
+    TRACES["24a elastic fleet"] = str(k_dir / "fleet.jsonl")
     classes = [g.exit_classes for g in k_res.generations]
     members = [g.members for g in k_res.generations]
     if [g.exit_classes for g in w_res.generations] != [["clean"]]:
@@ -7113,19 +7150,27 @@ def elastic_on_card(torch, card):
     return {k: w_launch[k] + summed[k] for k in want}
 
 
+def zip_step(path):
+    """The step counter a ModelSerializer zip holds (its meta.json)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return json.loads(zf.read("meta.json"))["iteration"]
+
+
 def average_worker(address, worker, shard, ckpt, out, crash_after):
     """`--average-worker ADDRESS WORKER SHARD CKPT OUT CRASH_AFTER`: one
     of 24b's workers. Trains the flagship on its half of phase 6's rows
     through `run_elastic_worker` (averaging every step through the
     coordinator at ADDRESS, a checkpoint after each round); with
     CRASH_AFTER > 0 it dies at that round's next average. Writes
-    OUT/<worker>.json and OUT/<worker>_params.pt."""
+    OUT/<worker>.json and OUT/<worker>_params.pt. CKPT is the worker's
+    ModelSerializer zip."""
     import torch
 
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.models.transformer import transformer_lm
     from deeplearning4j_tpu_torch.parallel import cluster
-    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7138,7 +7183,7 @@ def average_worker(address, worker, shard, ckpt, out, crash_after):
     rows = slice(0, half) if shard == "0" else slice(half, c["batch"])
     mine = DataSet(ds.features[rows], ds.labels[rows])
     net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
-    resumed = (Checkpointer(ckpt).steps() or [0])[-1]
+    resumed = zip_step(ckpt) if os.path.exists(ckpt) else 0
     rounds, calls = [], [0]
     real = cluster.ClusterClient.average
 
@@ -7170,10 +7215,10 @@ def averaged_reference(torch, transformer_lm, DataSet, ck_round,
     averaged in plain numpy after every step over the workers the
     coordinator counted in that round (`contributors`: step -> worker
     ids); worker 1's net after its crash a fresh one restored from its
-    checkpoint (`ck_round`), as its restart was. Returns (the final
+    checkpoint zip (`ck_round`), as its restart was. Returns (the final
     params of worker 0's net, the restored net equal to the averaged
     params it left)."""
-    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+    from deeplearning4j_tpu_torch.parallel.cluster import restore_zip_into
 
     A, c = AVERAGING, TRAIN
     ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
@@ -7186,7 +7231,7 @@ def averaged_reference(torch, transformer_lm, DataSet, ck_round,
     for step in range(1, A["rounds"] + 1):
         if step == A["crash_after"] + 1:
             fresh = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
-            Checkpointer(str(ck_round)).restore(fresh)
+            restore_zip_into(fresh, str(ck_round))
             restored_same = _same_trees(torch, fresh.canonical_params(),
                                         nets[1].canonical_params())[0]
             nets[1] = fresh
@@ -7213,7 +7258,6 @@ def averaging_on_card(torch, counters, transformer_lm, DataSet, card):
         ClusterCoordinator,
         run_elastic_worker,
     )
-    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_average_"))
     A = AVERAGING
@@ -7230,7 +7274,7 @@ def averaging_on_card(torch, counters, transformer_lm, DataSet, card):
         return subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()),
              "--average-worker", coord.address, worker, shard,
-             str(tmp / f"ck_{worker}"), str(tmp), str(crash)],
+             str(tmp / f"ck_{worker}.zip"), str(tmp), str(crash)],
             env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
 
@@ -7248,13 +7292,14 @@ def averaging_on_card(torch, counters, transformer_lm, DataSet, card):
         p0, p1 = spawn("w0", "0", 0), spawn("w1", "1", A["crash_after"])
         out1 = wait(p1)
         died_s = time.perf_counter() - t0
-        ck_steps = Checkpointer(str(tmp / "ck_w1")).steps()
-        if p1.returncode != 1 or ck_steps != [A["crash_after"]]:
-            failures.append(f"worker 1 exit {p1.returncode}, checkpoints "
-                            f"{ck_steps}: {out1[-2000:]}")
-        # the checkpoint the restart resumes from (the worker keeps only
-        # its newest), for the reference
-        shutil.copytree(tmp / "ck_w1", tmp / "ck_w1_crash")
+        ck = tmp / "ck_w1.zip"
+        ck_step = zip_step(ck) if ck.exists() else None
+        if p1.returncode != 1 or ck_step != A["crash_after"]:
+            failures.append(f"worker 1 exit {p1.returncode}, checkpoint "
+                            f"of step {ck_step}: {out1[-2000:]}")
+        # the zip the restart resumes from (the worker rewrites it every
+        # round), for the reference
+        shutil.copy(ck, tmp / "ck_w1_crash.zip")
         p1 = spawn("w1", "1", 0)
         outs = [wait(p0), wait(p1)]
         wall = time.perf_counter() - t0
@@ -7283,7 +7328,8 @@ def averaging_on_card(torch, counters, transformer_lm, DataSet, card):
                         f"{info['w1']['iteration']}")
     # the mean the coordinator computed, against two nets averaged here
     ref, restored_same = averaged_reference(
-        torch, transformer_lm, DataSet, tmp / "ck_w1_crash", contributors)
+        torch, transformer_lm, DataSet, tmp / "ck_w1_crash.zip",
+        contributors)
     torch.save(ref, tmp / "ref_params.pt")
     ref_same, ref_dist = _same_trees(
         torch, torch.load(tmp / "w0_params.pt", map_location="cpu"),
@@ -7722,11 +7768,8 @@ def cli_train_test_predict(torch, card):
 
     c = CLI_CSV
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
-    rng = np.random.default_rng(SEED)
-    x = rng.normal(size=(c["rows"], c["features"])).astype(np.float32)
-    y = np.argmax(x @ rng.normal(size=(c["features"], c["classes"])), 1)
-    np.savetxt(tmp / "train.csv", np.column_stack([x, y]), delimiter=",",
-               fmt="%.6g")
+    x, y = write_cli_csv(tmp)
+    PHASE25["csv"] = str(tmp / "train.csv")  # phase 27d reads it
     np.savetxt(tmp / "features.csv", x, delimiter=",", fmt="%.6g")
     conf = (NeuralNetConfiguration.builder().seed(SEED).learning_rate(0.01)
             .updater("adam").list()
@@ -8529,6 +8572,537 @@ def tuning_clustering_ui(torch, counters, Word2Vec, transformer_lm, DataSet,
     return launches, tuned
 
 
+# ------------------------------------------------------------ phase 27
+
+# 27a: phase 6's flagship trained `steps` steps through fit() under a
+# ProfilerIterationListener whose window opens at iteration `start` and
+# closes `window` iterations later (steps 3-5)
+TRACE_FIT = dict(steps=6, start=2, window=3)
+# 27b: trafficreplay --generate over 27a's checkpoint (the flagship)
+REPLAY27 = dict(requests=6, prompt_lens="8,16,32", output_lens="16",
+                slots=4)
+# 27c: the tolerance of the port's Adam parity tests
+# (tests/test_torch_tensor_parallel.py ADAM_ATOL), in absolute terms
+ADAM_ATOL = 2e-4
+FIXTURE_DIR = ROOT / "tests" / "fixtures" / "torch_port"
+RESUME_STEPS = 3
+TOOL_TIMEOUT_S = 300
+# the telemetry logs of phases 18c and 24a, which 27a's tools read
+TRACES = {}
+# runs a port tool's main() over each argv of a JSON list in this one
+# process; prints a JSON line a run (exit code, stdout) and then whether
+# jax, the JAX package or torch was imported
+TOOL_PROBE = """
+import contextlib, importlib.util, io, json, sys
+spec = importlib.util.spec_from_file_location("tool", sys.argv[1])
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+for argv in json.loads(sys.argv[2]):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tool.main(argv)
+    print(json.dumps({"argv": argv, "rc": rc, "out": out.getvalue()}))
+print(json.dumps({"jax": "jax" in sys.modules,
+                  "jax_package": "deeplearning4j_tpu" in sys.modules,
+                  "torch": "torch" in sys.modules}))
+"""
+
+
+def log27(card, msg):
+    """Phase 27's log line; the card's name and power limit close it."""
+    log(f"{msg}; card {card}")
+
+
+def profiled_flagship(torch, counters, transformer_lm, DataSet, tmp, card):
+    """27a: phase 6's flagship, 6 fit() steps under a Recorder's
+    TelemetryListener and a ProfilerIterationListener over steps 3-5,
+    then saved by the Checkpointer for 27b. Returns (launches, the
+    telemetry path, the checkpoint directory, the profiled window's
+    seconds)."""
+    from deeplearning4j_tpu_torch.telemetry import (
+        Recorder,
+        TelemetryListener,
+    )
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+    from deeplearning4j_tpu_torch.util.profiler import (
+        ProfilerIterationListener,
+    )
+
+    c, t = TRAIN, TRACE_FIT
+    tel, ckpt = tmp / "fit.jsonl", tmp / "ckpt"
+    rec = Recorder(str(tel))
+    net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    prof = ProfilerIterationListener(str(tmp / "profile"),
+                                     start_iteration=t["start"],
+                                     n_iterations=t["window"], recorder=rec)
+    listener = TelemetryListener(rec, frequency=1)
+    net.set_listeners(listener, prof)
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    for _ in range(t["steps"]):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    prof.close()  # a no-op: the window closed at iteration 5
+    listener.flush()
+    Checkpointer(str(ckpt)).save(net, net.iteration_count)
+    rec.close()
+    S, L = t["steps"], c["n_layers"]
+    want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
+            "K12": 0, "K13": 0}
+    spans = [e for e in map(json.loads, tel.read_text().splitlines())
+             if e.get("event") == "span" and e.get("name") == "profiler_trace"]
+    failures = []
+    if launches != want:
+        failures.append(f"launches {launches}, expected {want}")
+    if len(spans) != 1 or spans[0].get("start_iteration") != t["start"]:
+        failures.append(f"profiler_trace spans {spans}")
+    names = set()
+    if prof.trace_path is None or not os.path.exists(prof.trace_path):
+        failures.append(f"no trace file ({prof.trace_path})")
+    else:
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {short_name(e.get("name", "")) for e in events
+                 if e.get("cat") == "kernel"}
+        need = {"flash forward": lambda k: k.startswith("tcf::fwd_tc"),
+                "flash backward": lambda k: k.startswith("tcf::")
+                and "fwd" not in k,
+                "xent forward": lambda k: k.startswith("tcx::xent_fwd"),
+                "xent backward": lambda k: k.startswith("tcx::xent_dx")}
+        missing = [what for what, ok in need.items()
+                   if not any(ok(k) for k in names)]
+        if missing:
+            failures.append(f"the trace's kernels lack the {missing} "
+                            f"kernels: {sorted(names)[:40]}")
+    window_s = spans[0]["seconds"] if spans else None
+    log27(card, f"27a: the flagship, {S} fit() steps in {wall:.3f} s under "
+          f"ProfilerIterationListener(start_iteration={t['start']}, "
+          f"n_iterations={t['window']}): window {window_s} s, trace "
+          f"{prof.trace_path} with {len(names)} kernel names "
+          f"({sorted(k for k in names if k.startswith(('tcf::', 'tcx::')))}"
+          f"); launches {launches}")
+    if failures:
+        raise PhaseFailed("27a", "; ".join(failures))
+    return launches, str(tel), str(ckpt), window_s
+
+
+def run_tool(rel, argvs, env=None):
+    """Each argv of `argvs` through port_tools/<rel>'s main() in one
+    process of its own (TOOL_PROBE): ([{argv, rc, out}], modules)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", TOOL_PROBE, str(ROOT / "port_tools" / rel),
+         json.dumps(argvs)], capture_output=True, text=True,
+        timeout=TOOL_TIMEOUT_S, cwd=str(ROOT),
+        env=env or dict(os.environ, PYTHONPATH=str(ROOT)))
+    if proc.returncode != 0:
+        raise PhaseFailed("27", f"port_tools/{rel} exited "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    return lines[:-1], lines[-1]
+
+
+def trace_tools_on_card(logs, tmp, card):
+    """27a: port_tools/tracetool.py's stats, check, export --perfetto,
+    tree and mem over each telemetry log, in a process of its own that
+    imports neither jax nor torch. `check` exits 0 on 27a's clean run; on
+    the chaos and kill runs of phases 18c and 24a, whose stragglers and
+    stalls were injected, it gates on retraces only (`--fail-on
+    retrace`) and its findings are logged."""
+    failures = []
+    for tag, (path, fail_on) in logs.items():
+        out = str(tmp / f"{tag.split()[0]}.perfetto.json")
+        check = ["check", path] + (["--fail-on", fail_on] if fail_on else [])
+        argvs = [["stats", path], check,
+                 ["export", path, "--perfetto", "-o", out],
+                 ["tree", path], ["mem", path]]
+        t0 = time.perf_counter()
+        runs, mods = run_tool("tracetool.py", argvs)
+        secs = time.perf_counter() - t0
+        rcs = [r["rc"] for r in runs]
+        if any(rcs) or mods["jax"] or mods["jax_package"] or mods["torch"]:
+            failures.append(f"{tag}: exit codes {rcs}, modules {mods}: "
+                            f"{[r['out'][-1500:] for r in runs if r['rc']]}")
+        try:
+            with open(out) as f:
+                n_events = len(json.load(f)["traceEvents"])
+        except (OSError, ValueError, KeyError) as exc:
+            failures.append(f"{tag}: the Perfetto JSON does not load: {exc!r}")
+            n_events = None
+        head = runs[0]["out"].splitlines()[0] if runs[0]["out"] else ""
+        findings = runs[1]["out"].strip().splitlines()[-1:]
+        log27(card, f"27a: tracetool over {tag} ({path}) in {secs:.2f} s: "
+              f"exit codes {rcs}, modules {mods}; stats '{head}'; check "
+              f"{findings}; Perfetto {n_events} events")
+    if failures:
+        raise PhaseFailed("27a", "; ".join(failures))
+
+
+def replay_checkpoint(ckpt, tmp, card):
+    """27b: port_tools/trafficreplay.py --generate --checkpoint over 27a's
+    checkpoint (the flagship) on the card, as a process; its telemetry
+    through tracetool check. Returns the replay's summary line."""
+    r = REPLAY27
+    tel = str(tmp / "replay.jsonl")
+    t0 = time.perf_counter()
+    runs, mods = run_tool("trafficreplay.py", [[
+        "--generate", "--checkpoint", ckpt, "--requests",
+        str(r["requests"]), "--prompt-lens", r["prompt_lens"],
+        "--output-lens", r["output_lens"], "--slots", str(r["slots"]),
+        "--telemetry", tel]])
+    secs = time.perf_counter() - t0
+    (run,) = runs
+    lines = [json.loads(x) for x in run["out"].splitlines()
+             if x.startswith("{")]
+    summary = lines[-1] if lines else {}
+    requests = [e for e in map(json.loads, open(tel).read().splitlines())
+                if e.get("event") == "request"]
+    n_ok = sum(1 for e in requests if e.get("ok"))
+    checks, _ = run_tool("tracetool.py", [["check", tel]])
+    log27(card, f"27b: trafficreplay --generate --checkpoint (the flagship "
+          f"of 27a) in {secs:.2f} s: exit {run['rc']}, {n_ok} of "
+          f"{len(requests)} requests ok, modules {mods}; summary "
+          f"{json.dumps(summary)}; tracetool check exit {checks[0]['rc']}: "
+          f"{checks[0]['out'].strip().splitlines()[-1:]}")
+    if run["rc"] != 0 or n_ok == 0 or mods["jax"] or mods["jax_package"] \
+            or summary.get("telemetry") != tel or checks[0]["rc"] != 0:
+        raise PhaseFailed("27b", f"exit {run['rc']}, {n_ok} ok, modules "
+                                 f"{mods}, check {checks[0]}: "
+                                 f"{run['out'][-2000:]}")
+    return summary
+
+
+def fixture_differences(got, nxt):
+    """(the largest |got - nxt| over the params of the JAX continuation
+    `nxt` but the key slices of the packed attention biases, the largest
+    over those slices). The key slice's gradient is zero but for rounding
+    (softmax ignores a shift shared by every key), and Adam scales that
+    noise up to a step of about lr in a direction rounding picks.
+    tests/test_torch_updater_map.py uses it on the CPU."""
+    worst = key = 0.0
+    for k in nxt.files:
+        if not k.startswith("params/"):
+            continue
+        _, layer, name = k.split("/")
+        diff = np.abs(got[layer][name] - nxt[k])
+        if name == "bqkv":
+            d = diff.shape[0] // 3
+            key = max(key, float(diff[d:2 * d].max()))
+            diff = np.concatenate([diff[:d], diff[2 * d:]])
+        worst = max(worst, float(diff.max()))
+    return worst, key
+
+
+def resume_jax_fixture(torch, counters, card):
+    """27c: the committed JAX zip (tests/fixtures/torch_port/, made by
+    tests/torch_zip_fixture.py with the JAX package on the CPU: 2 layers,
+    one head of 32, T 512, vocab 64, Adam at lr 1e-3) restored on the
+    card with its Adam state, 3 more steps through the flat flash kernels
+    (K1, K4: the packed K2/K6 need head dim 128, or 64 in pairs), the
+    params against the JAX continuation stored beside it (read with
+    numpy) within ADAM_ATOL. Two controls must end outside it: the zip
+    resumed with a fresh updater state (`tx.init`) and the zip left
+    unstepped. Returns (the largest difference, the launches of the
+    resumed steps)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer,
+    )
+    from deeplearning4j_tpu_torch.weights_io import params_to_numpy
+
+    nxt = np.load(FIXTURE_DIR / "jax_lm_next.npz")
+    n_layers = sum(k.endswith("_attn/Wqkv") for k in nxt.files)
+
+    def run(mode):
+        net = ModelSerializer.restore(str(FIXTURE_DIR / "jax_lm.zip"),
+                                      device="cuda")
+        restored = (net.updater_restored, net.iteration_count)
+        if mode == "fresh":
+            net.opt_state = net.tx.init(net.params)
+        if mode != "still":
+            for step in range(3, 3 + RESUME_STEPS):
+                net.fit(DataSet(nxt[f"x{step}"], nxt[f"y{step}"]))
+        torch.cuda.synchronize()
+        return restored, fixture_differences(params_to_numpy(net), nxt)
+
+    torch.cuda.synchronize()
+    counters.reset()
+    restored, (worst, key) = run("resumed")
+    launches = counters.read()
+    controls = {mode: run(mode)[1][0] for mode in ("fresh", "still")}
+    want = {k: 0 for k in launches}
+    want.update(K1=n_layers * RESUME_STEPS, K4=n_layers * RESUME_STEPS)
+    log27(card, f"27c: the JAX fixture zip restored on the card "
+          f"(updater_restored, iteration) {restored}, {RESUME_STEPS} more "
+          f"Adam steps: largest param difference from the JAX continuation "
+          f"{worst:.3e} (limit {ADAM_ATOL}; key-bias slices {key:.3e}); "
+          f"controls: fresh updater {controls['fresh']:.3e}, unstepped "
+          f"{controls['still']:.3e}; launches {launches}")
+    failures = []
+    if restored != (True, 3) or not worst <= ADAM_ATOL:
+        failures.append(f"restored {restored}, largest difference {worst} "
+                        f"> {ADAM_ATOL}")
+    if not all(c > ADAM_ATOL for c in controls.values()):
+        failures.append(f"a control ended within the limit: {controls}")
+    if launches != want:
+        failures.append(f"launches {launches}, expected {want}")
+    if failures:
+        raise PhaseFailed("27c", "; ".join(failures))
+    return worst, launches
+
+
+def jax_flat_updater(torch, net):
+    """The leaves the JAX package's ModelSerializer writes to updater.npz
+    for `net`'s optimizer state (Adam, no per-layer override) at the
+    flagship's size, where it trains through the flat view
+    (`FlatViewTransform`): optax's order (nn/updater.py OPTAX_LEAVES), a
+    moment one f32 vector over the params in sorted order, lane-hostile
+    leaves axis-rotated (layout 2). tests/test_torch_updater_map.py holds
+    it to the JAX package's own updater.npz bit for bit on the CPU."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.updater import OPTAX_LEAVES, lane_hostile
+
+    (label, st), = net.opt_state.items()
+    keys = [tuple(k) for k in st["keys"]]
+    order = [keys.index(p) for p, _ in tree.leaves(net.params)]
+    leaves = []
+    for field in OPTAX_LEAVES[net.tx.rules[label].kind]:
+        if field == "count":
+            leaves.append(np.asarray(st["count"], np.int32))
+            continue
+        parts = []
+        for i in order:
+            t = st[field][i].detach().float()
+            if lane_hostile(tuple(t.shape)):
+                t = t.movedim(-1, 0)
+            parts.append(t.reshape(-1).cpu().numpy())
+        leaves.append(np.concatenate(parts))
+    return leaves
+
+
+def resume_flagship_zip(torch, counters, transformer_lm, DataSet, tmp, card):
+    """27c at the flagship's width: phase 6's flagship trained 3 steps,
+    written as a zip whose updater is the JAX package's flat-view
+    `updater.npz` (`jax_flat_updater`, `flat_layout` 2, no
+    port_updater.pt), restored through the mapping on the card; the
+    restored optimizer state equals the trained net's bit for bit, and 3
+    more steps of both nets end bit for bit equal, launching K2/K6 and
+    K8/K9. Returns the launches of the 6 resumed steps."""
+    import io
+    import zipfile
+
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        PORT_UPDATER,
+        ModelSerializer,
+    )
+
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+    for _ in range(RESUME_STEPS):
+        net.fit(ds)
+    path = tmp / "flagship_jax_layout.zip"
+    ModelSerializer.write_model(net, str(path))
+    with zipfile.ZipFile(path) as zf:
+        entries = {n: zf.read(n) for n in zf.namelist() if n != PORT_UPDATER}
+    buf = io.BytesIO()
+    np.savez(buf, *jax_flat_updater(torch, net))
+    entries["updater.npz"] = buf.getvalue()
+    meta = json.loads(entries["meta.json"])
+    meta["flat_layout"] = 2
+    entries["meta.json"] = json.dumps(meta).encode()
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        for n, data in entries.items():
+            zf.writestr(n, data)
+    t0 = time.perf_counter()
+    twin = ModelSerializer.restore(str(path), device="cuda")
+    restore_s = time.perf_counter() - t0
+    failures = []
+    same_state = twin.updater_restored and all(
+        twin.opt_state[label]["count"] == st["count"]
+        and all(torch.equal(a, b) for f in ("mu", "nu")
+                for a, b in zip(twin.opt_state[label][f], st[f]))
+        for label, st in net.opt_state.items())
+    torch.cuda.synchronize()
+    counters.reset()
+    for _ in range(RESUME_STEPS):
+        net.fit(ds)
+        twin.fit(ds)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    same, worst = _same_trees(torch, net.params, twin.params)
+    n, L = 2 * RESUME_STEPS, c["n_layers"]
+    want = {"K1": 0, "K2": L * n, "K3": 0, "K4": 0, "K5": 0, "K6": L * n,
+            "K7": 0, "K8": n, "K9": n, "K9 dW": n, "K10": 0, "K11": 0,
+            "K12": 0, "K13": 0}
+    log27(card, f"27c: the flagship ({tree.num_params(net.params)} params) "
+          f"as a zip with the JAX package's flat-view updater.npz "
+          f"({path.stat().st_size} bytes), restored in {restore_s:.3f} s: "
+          f"updater_restored {twin.updater_restored}, optimizer state equal "
+          f"bit for bit {same_state}; {RESUME_STEPS} more steps of both: "
+          f"params equal bit for bit {same} (largest difference "
+          f"{worst:.3e}); launches {launches}")
+    if not same_state or not same:
+        failures.append(f"state equal {same_state}, params equal {same} "
+                        f"({worst})")
+    if launches != want:
+        failures.append(f"launches {launches}, expected {want}")
+    if failures:
+        raise PhaseFailed("27c", "; ".join(failures))
+    return launches
+
+
+def write_cli_csv(tmp):
+    """Phase 25a's synthetic 3-class CSV (from SEED) at tmp/train.csv;
+    returns (x, y)."""
+    c = CLI_CSV
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(size=(c["rows"], c["features"])).astype(np.float32)
+    y = np.argmax(x @ rng.normal(size=(c["features"], c["classes"])), 1)
+    np.savetxt(tmp / "train.csv", np.column_stack([x, y]), delimiter=",",
+               fmt="%.6g")
+    return x, y
+
+
+class _PerRecord:
+    """A record reader with the per-record path only."""
+
+    def __init__(self, reader):
+        self.reader = reader
+
+    def reset(self):
+        pass
+
+    def __iter__(self):
+        return iter(self.reader)
+
+
+def native_io_on_card(torch, counters, Word2Vec, tmp, card):
+    """27d: the native IO core built (g++ on the card's machine); phase
+    25a's CSV through `to_matrix` equal bit for bit to the per-record
+    path; 20a's corpus as raw strings encoded by `native.encode_corpus`
+    with the ids of the Python split (both timed); 20a's host-path
+    Word2Vec fit on that corpus as raw strings (K13 a step). Returns
+    (the launches, the encoder's and the Python path's seconds)."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets.records import (
+        CSVRecordReader,
+        RecordReaderDataSetIterator,
+    )
+
+    if not native.available():
+        raise PhaseFailed("27d", f"the native IO core did not build: "
+                                 f"{native.build_error()}")
+    csv_path = PHASE25.get("csv")
+    if csv_path is None:
+        write_cli_csv(tmp)
+        csv_path = str(tmp / "train.csv")
+    t0 = time.perf_counter()
+    fast = RecordReaderDataSetIterator(CSVRecordReader(csv_path),
+                                       CLI_CSV["batch"],
+                                       num_classes=CLI_CSV["classes"])
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = RecordReaderDataSetIterator(_PerRecord(CSVRecordReader(csv_path)),
+                                       CLI_CSV["batch"],
+                                       num_classes=CLI_CSV["classes"])
+    n_batches, csv_same = 0, fast._matrix is not None
+    while fast.has_next() and slow.has_next():
+        a, b = fast.next(), slow.next()
+        csv_same &= bool(np.array_equal(a.features, b.features)
+                         and np.array_equal(a.labels, b.labels))
+        n_batches += 1
+    slow_s = time.perf_counter() - t0
+    csv_same &= not fast.has_next() and not slow.has_next()
+    sents = topic_corpus(np.random.default_rng(0), 10000, 1_000_000,
+                         25)[:W2V_SENTENCES]
+    raw = [" ".join(s) for s in sents]
+    model = (Word2Vec.builder().layer_size(128).window_size(5)
+             .min_word_frequency(1).negative_sample(5).epochs(1).seed(1)
+             .device("cuda").build())
+    model.build_vocab(sents)
+    vocab = model.vocab.words()
+    t0 = time.perf_counter()
+    ids, sent = native.encode_corpus(raw, vocab)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = {w: i for i, w in enumerate(vocab)}
+    py_ids = np.fromiter((index.get(w, -1) for line in raw
+                          for w in line.split()), np.int32)
+    py_sent = np.repeat(np.arange(len(raw)),
+                        [len(line.split()) for line in raw])
+    python_s = time.perf_counter() - t0
+    ids_same = (np.array_equal(ids, py_ids) and np.array_equal(sent, py_sent)
+                and int(ids.min()) >= 0)
+    torch.cuda.synchronize()
+    counters.reset()
+    model.fit(raw)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    steps = len(model.loss_history)
+    log27(card, f"27d: native core {native.BUILD_DIR}; phase 25a's CSV "
+          f"({CLI_CSV['rows']} x {CLI_CSV['features'] + 1}) in {n_batches} "
+          f"batches: whole-file path (to_matrix) {fast_s:.4f} s, per-record "
+          f"path {slow_s:.4f} s, equal bit for bit {csv_same}; 20a's corpus "
+          f"({len(raw)} raw sentences, {len(ids)} words): encode_corpus "
+          f"{native_s:.4f} s against the Python split and lookup "
+          f"{python_s:.4f} s ({python_s / native_s:.2f}x), ids equal "
+          f"{ids_same}; host-path Word2Vec on the raw sentences: "
+          f"{steps} steps, loss {model.loss_history[0]:.6f} -> "
+          f"{model.loss_history[-1]:.6f}, launches {launches}")
+    failures = []
+    if not csv_same or not ids_same:
+        failures.append(f"CSV paths equal {csv_same}, ids equal {ids_same}")
+    if not steps or launches.get("K13") != steps or any(
+            n for k, n in launches.items() if k != "K13"):
+        failures.append(f"{steps} steps, launches {launches}")
+    if not np.isfinite(model.loss_history).all():
+        failures.append("a loss is not finite")
+    if failures:
+        raise PhaseFailed("27d", "; ".join(failures))
+    return launches, native_s, python_s
+
+
+def tracing_and_resume(torch, counters, transformer_lm, DataSet, Word2Vec,
+                       card):
+    """Phase 27. Returns the launches of its main-path runs (27a's
+    profiled steps, 27c's resumed flagship steps and fixture steps, 27d's
+    Word2Vec) and its numbers for the record."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    runs = []
+    launches, tel, ckpt, window_s = profiled_flagship(
+        torch, counters, transformer_lm, DataSet, tmp, card)
+    runs.append(launches)
+    logs = {"27a's fit": (tel, None)}
+    for tag, path in TRACES.items():
+        logs[tag] = (path, "retrace")
+    trace_tools_on_card(logs, tmp, card)
+    replay_checkpoint(ckpt, tmp, card)
+    worst, fixture_launches = resume_jax_fixture(torch, counters, card)
+    runs.append(fixture_launches)
+    runs.append(resume_flagship_zip(torch, counters, transformer_lm,
+                                    DataSet, tmp, card))
+    w2v_launches, native_s, python_s = native_io_on_card(
+        torch, counters, Word2Vec, tmp, card)
+    runs.append(w2v_launches)
+    keys = sorted({k for r in runs for k in r})
+    total = {k: sum(r.get(k, 0) for r in runs) for k in keys}
+    log27(card, f"phase 27 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{total}; profiled window {window_s} s; fixture resume "
+          f"{worst:.3e}; encode_corpus {native_s:.4f} s against "
+          f"{python_s:.4f} s")
+    return total
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -8599,12 +9173,14 @@ ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
 
 
 def only_phase(torch, phase):
-    """`chip_smoke.py --phase 25` (or 26): the kernels built, then that
-    phase alone (a quick check of one phase; the full run is the
+    """`chip_smoke.py --phase 25` (or 26, 27): the kernels built, then
+    that phase alone (a quick check of one phase; the full run is the
     contract). Phase 26 alone trains phase 20a's host-path Word2Vec
-    first and reads its own quick sweep's telemetry at /timeline."""
-    if phase not in ("25", "26"):
-        print(f"chip_smoke: --phase takes 25 or 26, not {phase}",
+    first and reads its own quick sweep's telemetry at /timeline; phase
+    27 alone writes phase 25a's CSV itself and runs the tools over its
+    own logs only (phases 18c and 24a leave none)."""
+    if phase not in ("25", "26", "27"):
+        print(f"chip_smoke: --phase takes 25, 26 or 27, not {phase}",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -8628,6 +9204,11 @@ def only_phase(torch, phase):
     if phase == "25":
         telemetry_and_cli(torch, counters, transformer_lm, DataSet,
                           name_power)
+    elif phase == "27":
+        from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+
+        tracing_and_resume(torch, counters, transformer_lm, DataSet,
+                           Word2Vec, name_power)
     else:
         from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 
@@ -8776,7 +9357,9 @@ def main() -> int:
     tune_launches, tuned = tuning_clustering_ui(
         torch, counters, Word2Vec, transformer_lm, DataSet, name_power,
         barnes_hut)
-    log(f"chip_smoke: phases 1-26 in {time.perf_counter() - started:.1f} s")
+    trace_launches = tracing_and_resume(torch, counters, transformer_lm,
+                                        DataSet, Word2Vec, name_power)
+    log(f"chip_smoke: phases 1-27 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -8798,7 +9381,8 @@ def main() -> int:
     # elastic fleet's workers, the averaging workers and its in-process
     # twin, the sharded engine's arms and the data meshes, phase 25's
     # CLI server and cost book, phase 26's flagship step under the
-    # tuning table and the UI's steps), each counted
+    # tuning table and the UI's steps, phase 27's profiled steps, resumed
+    # zips and raw-string Word2Vec), each counted
     # from 0 just before it and read just after (in the process that
     # ran it). K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
@@ -8807,7 +9391,7 @@ def main() -> int:
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
             par_launches, place_launches, pipe_launches, fleet_launches,
-            tel_launches, tune_launches)
+            tel_launches, tune_launches, trace_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

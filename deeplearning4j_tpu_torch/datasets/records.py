@@ -5,11 +5,13 @@ Reference: external canova-api record readers (CSV, SVMLight, image) bridged
 by datasets/canova/RecordReaderDataSetIterator.java:47,
 SequenceRecordReaderDataSetIterator and RecordReaderMultiDataSetIterator.
 
-Pure NumPy host-side parsing; the batches are numpy arrays, which the
-networks move to their device. The JAX package also has a native
-whole-file fast path (its `native/` IO core, `to_matrix` / `to_arrays`)
-that yields the same batches; it waits for the port's `native/` (ROADMAP
-Queue A item 9), so every batch here comes from the per-record path.
+Host-side parsing; the batches are numpy arrays, which the networks
+move to their device. A CSV or SVMLight reader also reads its whole file
+at once through the port's native IO core (`to_matrix` / `to_arrays`,
+deeplearning4j_tpu_torch/native), and `RecordReaderDataSetIterator`
+takes that path where it applies, as the JAX package's does; otherwise
+(no core, a non-numeric cell) it iterates the records, which gives the
+same batches.
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ class CSVRecordReader(RecordReader):
         self.skip_lines = skip_lines
         self.delimiter = delimiter
 
+    def to_matrix(self):
+        """The whole file as a float32 matrix via the native IO core
+        (deeplearning4j_tpu_torch/native), or None when the file has a
+        non-numeric cell or the core is unavailable: callers then
+        iterate the records."""
+        from deeplearning4j_tpu_torch import native
+
+        return native.load_csv(self.path, self.skip_lines, self.delimiter)
+
     def __iter__(self):
         with open(self.path, newline="") as f:
             r = csv.reader(f, delimiter=self.delimiter)
@@ -57,6 +68,12 @@ class SVMLightRecordReader(RecordReader):
     def __init__(self, path: str, num_features: int):
         self.path = path
         self.num_features = num_features
+
+    def to_arrays(self):
+        """(labels, dense features) via the native IO core, or None."""
+        from deeplearning4j_tpu_torch import native
+
+        return native.load_svmlight(self.path, self.num_features)
 
     def __iter__(self):
         with open(self.path) as f:
@@ -104,11 +121,48 @@ class RecordReaderDataSetIterator(DataSetIterator):
 
     def reset(self):
         self.reader.reset()
-        self._it = iter(self.reader)
+        self._matrix = self._try_native()
+        self._mat_pos = 0
+        self._it = iter(self.reader) if self._matrix is None else None
         self._done = False
         self._pending = None
 
+    def _try_native(self):
+        """The whole-file path (native IO core) when the reader has one;
+        None leaves the per-record iteration."""
+        if hasattr(self.reader, "to_matrix"):
+            m = self.reader.to_matrix()
+            if m is not None:
+                li = self.label_index if self.label_index >= 0 else m.shape[1] - 1
+                feats = np.delete(m, li, axis=1)
+                return feats, m[:, li]
+        if hasattr(self.reader, "to_arrays"):
+            arrs = self.reader.to_arrays()
+            if arrs is not None:
+                labels, feats = arrs
+                return feats, labels
+        return None
+
+    def _native_batch(self):
+        feats, labels = self._matrix
+        if self._mat_pos >= len(feats):
+            self._done = True
+            return None
+        sl = slice(self._mat_pos, self._mat_pos + self.batch_size)
+        self._mat_pos += self.batch_size
+        x, l = feats[sl], labels[sl]
+        if self.regression:
+            y = np.asarray(l, np.float32)[:, None]
+        elif self.num_classes > 0:
+            y = np.eye(self.num_classes, dtype=np.float32)[
+                np.asarray(l, np.int64)]
+        else:
+            y = np.asarray(l, np.float32)[:, None]
+        return DataSet(np.ascontiguousarray(x), y)
+
     def _read_batch(self):
+        if self._matrix is not None:
+            return self._native_batch()
         feats, labels = [], []
         while len(feats) < self.batch_size:
             try:

@@ -126,7 +126,7 @@ class ShardedEmbeddingEngine:
                  ep: int = 1, dp: int = 1, negative: int = 5,
                  use_hs: bool = False, seed: int = 123,
                  dtype=torch.float32, device=None,
-                 in_process: bool = False):
+                 in_process: bool = False, recorder=None):
         if vocab_size <= 0 or vector_length <= 0:
             raise ValueError("vocab_size and vector_length must be positive")
         if int(ep) < 1 or int(dp) < 1:
@@ -158,7 +158,7 @@ class ShardedEmbeddingEngine:
             self._dp_group = self.mesh.group(DP_AXIS)
         from deeplearning4j_tpu_torch.telemetry import get_default
 
-        self._recorder = get_default()
+        self._recorder = recorder if recorder is not None else get_default()
         self._buckets = {}          # (kind, *shape) -> sparse bucket plans
         self._mu = threading.Lock()
         self.loss_history = []

@@ -456,13 +456,23 @@ class SequenceVectors:
     def _corpus_flat_indices(self, corpus):
         """Corpus -> flat (ids, sentence_ids) with OOV dropped, or None
         when only the per-sentence path applies (subsampling draws from
-        the host rng; corpora of 64 sentences or fewer). One dict lookup
-        over the whole corpus; raw-string sentences are split on
-        whitespace first (the JAX package's native encoder gives the
-        same ids)."""
+        the host rng; pre-tokenized corpora of 64 sentences or fewer).
+        Raw-string sentences go through the native one-pass corpus
+        encoder (native.encode_corpus: the whitespace split and the vocab
+        hash lookups of the whole corpus in one call), as the JAX
+        package's do; without the core they are split in Python, which
+        gives the same ids. Pre-tokenized corpora take one dict lookup
+        over the whole corpus."""
         if self.sampling != 0:
             return None
         if corpus and isinstance(corpus[0], str):
+            from deeplearning4j_tpu_torch import native
+
+            enc = native.encode_corpus(corpus, self.vocab.words())
+            if enc is not None:
+                ids, sent = enc
+                keep = ids >= 0
+                return ids[keep], sent[keep]
             corpus = [line.split() for line in corpus]
         if len(corpus) <= 64:
             return None

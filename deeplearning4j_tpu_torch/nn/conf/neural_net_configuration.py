@@ -186,6 +186,20 @@ class Builder:
             f"{sorted(NeuralNetConfiguration.__dataclass_fields__)}"
         )
 
+    def optimization_algo(self, v) -> "Builder":
+        """The reference's optimization-algorithm setter: a name that is
+        not an `OptimizationAlgorithm` value raises ValueError here, at
+        build time, naming the valid values."""
+        v = _coerce_enum(v)
+        try:
+            v = OptimizationAlgorithm(v)
+        except ValueError:
+            raise ValueError(
+                f"Unknown optimization algorithm {v!r}; one of "
+                f"{[a.value for a in OptimizationAlgorithm]}") from None
+        self._c.optimization_algo = str(v)
+        return self
+
     def regularization(self, flag: bool) -> "Builder":
         """The reference's use-regularization toggle: off zeroes l1/l2."""
         if not flag:

@@ -241,6 +241,15 @@ class ComputationGraph(LazyScore):
         self._rnn_carries = None
         return self
 
+    def set_optimizer(self, tx):
+        """Custom updater hook (reference Updater.CUSTOM): train with
+        `tx`, any object with the port's optimizer protocol
+        (nn/updater.py `Optimizer`: `init`, `update`), from a fresh
+        optimizer state (nn/updater.set_optimizer)."""
+        from deeplearning4j_tpu_torch.nn.updater import set_optimizer
+
+        set_optimizer(self, tx)
+
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
 

@@ -23,9 +23,13 @@ layer its own rule and state, as optax.multi_transform does keyed on
 the layer name (reference MultiLayerUpdater). Left out: the JAX
 package's flat-view transform (`FlatViewTransform`, one fused update
 over the concatenated f32 params), which exists to cut the TPU's per-leaf
-fusion count. LION and LAMB take optax's defaults (`optax.lion`: b1 0.9,
-b2 0.99, weight decay 1e-3; `optax.lamb`: b1 0.9, b2 0.999, eps 1e-6,
-weight decay 0, the trust ratio per leaf and 1 where either norm is 0).
+fusion count; its state layout is read all the same, with optax's leaf
+order of every rule (`OPTAX_LEAVES`), when a JAX zip's updater is mapped
+into the port's (weights_io.py `opt_state_from_jax`). `set_optimizer`
+gives a net a custom rule (reference Updater.CUSTOM). LION and LAMB take
+optax's defaults (`optax.lion`: b1 0.9, b2 0.99, weight decay 1e-3;
+`optax.lamb`: b1 0.9, b2 0.999, eps 1e-6, weight decay 0, the trust
+ratio per leaf and 1 where either norm is 0).
 """
 
 from __future__ import annotations
@@ -372,6 +376,108 @@ def build_optimizer(conf, layer_confs):
                                             make_schedule(conf, layer_lr=lr))
             labels[name] = name
     return Optimizer(rules, labels)
+
+
+# ------------------------------------------ the JAX package's updater state
+# What a JAX zip's `updater.npz` holds: optax's state leaves as arr_0 ..
+# arr_n, with no tree structure. optax flattens each rule's state in a
+# fixed order (`optax.adam` is chain(scale_by_adam, scale_by_schedule):
+# ScaleByAdamState(count, mu, nu), then the schedule's count), so the
+# configuration alone gives the order. A name below is a leaf: "count" a
+# scalar step counter, any other name a param-shaped tree (keys sorted,
+# a leaf per param) that fills the port's state entry of that name.
+OPTAX_LEAVES = {
+    Updater.SGD: ("count",),
+    Updater.NONE: ("count",),
+    Updater.NESTEROVS: ("trace", "count"),
+    Updater.ADAM: ("count", "mu", "nu", "count"),
+    Updater.ADAMW: ("count", "mu", "nu", "count"),
+    Updater.LAMB: ("count", "mu", "nu", "count"),
+    Updater.LION: ("count", "mu", "count"),
+    Updater.RMSPROP: ("nu", "count"),
+    Updater.ADAGRAD: ("sum_of_squares", "count"),
+    Updater.ADADELTA: ("e_g", "e_x"),     # optax's fixed lr: no counter
+}
+
+# The JAX package's flat view (`FlatViewTransform`): for an elementwise
+# rule with no per-layer override, each param-shaped tree of the state is
+# ONE f32 vector of total-param length, the leaves concatenated in sorted
+# order. Layout 2 stores a lane-hostile leaf (2-D and up, last dim under
+# 128) axis-rotated, last dim first; layout 1 (`flat_layout` 1 zips)
+# stores every leaf row-major.
+FLAT_OK = frozenset({Updater.SGD, Updater.NESTEROVS, Updater.ADAM,
+                     Updater.ADAMW, Updater.ADADELTA, Updater.ADAGRAD,
+                     Updater.RMSPROP, Updater.LION, Updater.NONE})
+
+
+def lane_hostile(shape) -> bool:
+    """Whether the flat view stores a leaf of `shape` axis-rotated."""
+    return len(shape) >= 2 and shape[-1] < 128
+
+
+def upgrade_flat_layout(vec: np.ndarray, shapes) -> np.ndarray:
+    """A layout-1 flat vector (every leaf row-major) in layout 2, given
+    the param shapes in flatten order."""
+    outs, off = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape, dtype=np.int64))
+        seg = vec[off:off + n]
+        if lane_hostile(shape):
+            seg = np.moveaxis(seg.reshape(shape), -1, 0).ravel()
+        outs.append(seg)
+        off += n
+    return np.concatenate(outs) if outs else vec[:0]
+
+
+def unflatten_flat(vec: np.ndarray, shapes) -> list:
+    """A layout-2 flat vector cut into one array a leaf (the JAX
+    package's `_unflatten_into`)."""
+    outs, off = [], 0
+    for shape in shapes:
+        shape = tuple(shape)
+        n = int(np.prod(shape, dtype=np.int64))
+        seg = vec[off:off + n]
+        if lane_hostile(shape):
+            rot = (shape[-1],) + shape[:-1]
+            outs.append(np.moveaxis(seg.reshape(rot), 0, -1))
+        else:
+            outs.append(seg.reshape(shape))
+        off += n
+    return outs
+
+
+class OptimizerPlacementError(ValueError):
+    """A custom optimizer where a mesh placement holds the optimizer
+    state in its own layout: the placement rebuilds only the port's
+    `Optimizer` (its labels, split groups and norm ties)."""
+
+
+def set_optimizer(net, tx) -> None:
+    """The body of both containers' `set_optimizer` (reference
+    Updater.CUSTOM; the JAX package takes an optax transform): `tx` is
+    any object with the port's optimizer protocol, `init(params) ->
+    state` and `update(grads, state, params) -> (updates, state)` (an
+    `Optimizer`, or a rule set built like one). The net's optimizer
+    state starts fresh from `tx.init`, and the cached training step is
+    dropped so the next step runs `tx`. A net placed on a mesh that
+    splits its state ("model", "expert", ZeRO-1, "pipe") raises
+    OptimizerPlacementError, as does a mesh with a `tx` that is not an
+    `Optimizer`: call `set_mesh(None)` first, or set the optimizer
+    before `set_mesh`."""
+    from deeplearning4j_tpu_torch.parallel.placement import _placed
+
+    if getattr(net, "_mesh", None) is not None and (
+            _placed(net) or not isinstance(tx, Optimizer)):
+        raise OptimizerPlacementError(
+            "set_optimizer on a net placed on a mesh: the placement keeps "
+            "the optimizer state in its own layout and rebuilds only the "
+            "port's Optimizer; call set_mesh(None) first, or set the "
+            "optimizer before set_mesh")
+    if net.params is None:
+        net.init()
+    net.tx = tx
+    net.opt_state = tx.init(net.params)
+    net._train_step = None
 
 
 def _norm(items):

@@ -596,6 +596,38 @@ class ClusterClient:
 
 # ---------------------------------------------------------------- training
 
+def restore_zip_into(net, checkpoint_path: str) -> int:
+    """Copy a `ModelSerializer` zip's params, layer state, optimizer state
+    and step counter into the CALLER's `net` (initialised first if it is
+    not), so its runtime configuration (mesh, listeners, a custom
+    optimizer) survives a restart where a new object would drop it. A zip
+    of the JAX package resumes with its updater's moments
+    (util/model_serializer.py). A zip of another architecture (param
+    tree or shapes) raises ValueError. Returns the restored step."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer,
+    )
+
+    if net.params is None:
+        net.init()
+    restored = ModelSerializer.restore(checkpoint_path, device=net.device)
+
+    def layout(params):
+        return [(p, tuple(t.shape)) for p, t in tree.leaves(params)]
+
+    if layout(restored.params) != layout(net.params):
+        raise ValueError(
+            f"checkpoint {checkpoint_path} holds a different architecture "
+            "than the worker's net — delete the stale checkpoint or pass "
+            "the matching configuration")
+    net.params = restored.params
+    net.opt_state = restored.opt_state
+    net.state = restored.state
+    net.iteration_count = restored.iteration_count
+    return net.iteration_count
+
+
 def run_elastic_worker(address: str, worker_id: str, net, batches, *,
                        sync_every: int = 1, checkpoint_path: Optional[str] = None,
                        epochs: int = 1, client: Optional["ClusterClient"] = None):
@@ -606,25 +638,22 @@ def run_elastic_worker(address: str, worker_id: str, net, batches, *,
     Every `sync_every` local steps the flat parameter vector
     (`params_flat`, f32) is averaged across alive workers through the
     coordinator and written back (`set_params_flat`); after each sync
-    the model is checkpointed into the directory `checkpoint_path`
-    (util/checkpoint.py, the newest step kept), and a restarted worker
-    resumes from the checkpoint's step counter (reference: the Spark
-    master's fault tolerance came from RDD lineage; here it is
-    checkpoint-and-rejoin).
+    the model is checkpointed as a `ModelSerializer` zip at
+    `checkpoint_path` (written to `<path>.tmp`, then moved into place),
+    and a restarted worker resumes from the zip's step counter
+    (`restore_zip_into`; a zip the JAX package's worker wrote resumes
+    too). Reference: the Spark master's fault tolerance came from RDD
+    lineage; here it is checkpoint-and-rejoin.
 
     Returns the trained net.
     """
-    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        ModelSerializer,
+    )
 
-    ckptr = Checkpointer(checkpoint_path, keep=1) if checkpoint_path \
-        else None
     start_step = 0
-    if ckptr is not None and ckptr.steps():
-        # restore INTO the caller's net so runtime configuration (mesh,
-        # listeners) survives the restart; a checkpoint of another
-        # architecture fails the manifest check with a ValueError
-        ckptr.restore(net)
-        start_step = net.iteration_count
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        start_step = restore_zip_into(net, checkpoint_path)
     # accepting a live client keeps a claimed shard slot heartbeating
     # through the caller's setup gap — a fresh registration here would
     # leave the slot sweepable for one heartbeat_timeout
@@ -642,8 +671,10 @@ def run_elastic_worker(address: str, worker_id: str, net, batches, *,
                 if step % sync_every == 0:
                     avg = client.average(step, net.params_flat())
                     net.set_params_flat(avg)
-                    if ckptr is not None:
-                        ckptr.save(net)
+                    if checkpoint_path:
+                        tmp = checkpoint_path + ".tmp"
+                        ModelSerializer.write_model(net, tmp)
+                        os.replace(tmp, checkpoint_path)
     finally:
         client.close()
     return net

@@ -457,6 +457,17 @@ def configure_mesh(net, mesh, *, zero1=False, axes=None,
 
     mesh, axes, zero1 = _as_mesh(net, mesh, axes, zero1)
     _check_unported(axes)
+    if mesh is not None and net.tx is not None:
+        from deeplearning4j_tpu_torch.nn.updater import (
+            Optimizer,
+            OptimizerPlacementError,
+        )
+
+        if not isinstance(net.tx, Optimizer):
+            raise OptimizerPlacementError(
+                "set_mesh places the port's Optimizer state only; this "
+                f"net trains with a custom {type(net.tx).__name__} "
+                "(set_optimizer): set an Optimizer, or train it meshless")
     plan = (None if overlap is None
             else _check_overlap(net, mesh, axes, overlap))
     if mesh is not None and axes is not None:

@@ -171,3 +171,8 @@ class BucketLattice:
                 "seq_lens": (None if self.seq_lens is None
                              else list(self.seq_lens))}
 
+
+# The default serving lattice: powers of two up to batch 8; sequence
+# models take their lattice from the CLI or the engine's configuration
+# (a sequence grid depends on the model).
+DEFAULT_BATCH_SIZES = (1, 2, 4, 8)

@@ -92,6 +92,10 @@ class PagePool:
         self.peak_in_use = 0
         self._lock = threading.Lock()
 
+    def pages_for(self, n_tokens: int) -> int:
+        """Pages of this pool's size covering `n_tokens` key slots."""
+        return pages_for(n_tokens, self.page_size)
+
     def try_reserve(self, n_pages: int) -> bool:
         with self._lock:
             if self._in_use + n_pages > self.n_pages:

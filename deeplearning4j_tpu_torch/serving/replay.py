@@ -485,12 +485,16 @@ def run_generation_replay(*, seed: int = 0, n_requests: int = 24,
                           kv_dtype: str = "f32",
                           telemetry_path: str,
                           artifact_path: str | None = None,
+                          checkpoint: str | None = None,
                           emit=None, device=None) -> dict:
     """End-to-end generation replay: the tiny LM, a GenerationEngine
     warmed over the prompt-bucket lattice, the seeded trace over real
     HTTP with streaming reads, drain, the scoreboard from telemetry
     alone, and optionally a SERVE artifact. `speculative_k`/`kv_dtype`
-    pass straight through to the engine."""
+    pass straight through to the engine. `checkpoint` (a checkpoint
+    directory, util/checkpoint.py) serves a trained net instead: the net
+    of the newest step's own configuration, which the engine restores
+    before warmup."""
     from deeplearning4j_tpu_torch.serving.buckets import BucketLattice
     from deeplearning4j_tpu_torch.serving.engine import GenerationEngine
     from deeplearning4j_tpu_torch.serving.server import ServingServer
@@ -504,14 +508,19 @@ def run_generation_replay(*, seed: int = 0, n_requests: int = 24,
              speculative_k=speculative_k, kv_dtype=kv_dtype)
     lattice = BucketLattice(batch_sizes=(1,),
                             seq_lens=sorted(set(prompt_lengths)))
-    lattice.validate_attention(head_dim=16)
-    net = _tiny_lm(max_seq=max(prompt_lengths) + max(output_lengths),
-                   device=device)
+    if checkpoint is None:
+        net = _tiny_lm(max_seq=max(prompt_lengths) + max(output_lengths),
+                       device=device)
+    else:  # the engine restores it before warmup
+        from deeplearning4j_tpu_torch.util.checkpoint import network_of
+
+        net = network_of(checkpoint, device=device)[0].init()
+    lattice.validate_attention(head_dim=_head_dim(net))
     make_prompt = _prompt_maker(seed, n_requests, max(prompt_lengths))
     engine = GenerationEngine(
         net, lattice, slots=slots, max_new_tokens=max(output_lengths),
         page_size=page_size, prefill_chunk=prefill_chunk,
-        max_queue=max_queue, replicas=replicas,
+        max_queue=max_queue, replicas=replicas, checkpoint=checkpoint,
         speculative_k=speculative_k, kv_dtype=kv_dtype, recorder=rec)
     warm = engine.warmup()
     server = ServingServer(engine, port=0).start()
@@ -737,6 +746,18 @@ def _tiny_lm(max_seq: int, vocab: int = 64, device=None):
                          device=device)
     net.init()
     return net
+
+
+def _head_dim(net) -> int:
+    """The head dim of the net's first self-attention layer."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import SelfAttentionLayer
+    from deeplearning4j_tpu_torch.nn.updater import named_layer_confs
+
+    for lc in named_layer_confs(net).values():
+        if isinstance(lc, SelfAttentionLayer):
+            return lc.n_out // lc.n_heads
+    raise ValueError("the generation replay serves a net with a "
+                     "self-attention layer")
 
 
 def _tiny_mlp(n_in: int = 8, n_out: int = 4, device=None):

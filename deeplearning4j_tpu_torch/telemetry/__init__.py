@@ -1,7 +1,8 @@
 """Run telemetry (JAX counterpart deeplearning4j_tpu/telemetry):
 
 * `recorder.py` — the typed JSONL event recorder (`Recorder`,
-  `NullRecorder`, the process default from `$DL4J_TPU_TELEMETRY`);
+  `NullRecorder`, the process default from `$DL4J_TPU_TELEMETRY`) and
+  the registered schema (`EVENT_KINDS`, `SPAN_NAMES`);
 * `metrics.py`  — the Prometheus /metrics registry (copied, stdlib);
 * `artifact.py` — bench-artifact parsing and the summary line (copied,
   stdlib);
@@ -18,6 +19,8 @@ The last five resolve lazily, as in the JAX package.
 
 from deeplearning4j_tpu_torch.telemetry.recorder import (  # noqa: F401
     ENV_VAR,
+    EVENT_KINDS,
+    SPAN_NAMES,
     NullRecorder,
     Recorder,
     get_default,

@@ -62,6 +62,40 @@ from collections import deque
 ENV_VAR = "DL4J_TPU_TELEMETRY"
 ENV_PROCESS_ID = "DL4J_TPU_PROCESS_ID"
 
+# ------------------------------------------------------ registered schema
+# The closed set of event kinds and span names the port emits, the JAX
+# package's sets (its telemetry/recorder.py): telemetry/trace.py
+# classifies every record it merges by them, and
+# tests/test_torch_telemetry_schema.py holds every string-literal
+# `event("...")` / `span("...")` of the port to them. A new kind or name
+# is registered here first.
+EVENT_KINDS = frozenset({
+    "meta", "step", "span", "metric", "eval", "memory", "error", "fault",
+    "bucket_plan", "kernel_tune", "request", "page_pool", "draft",
+    "reshard_plan",
+    "placement_search", "host_gather", "weight_swap", "autoscale",
+    "anomaly", "cost", "cost_drift",
+})
+
+SPAN_NAMES = frozenset({
+    # compile/step spine (nn/, the profiler)
+    "compile", "step_scan", "profiler_trace",
+    # serving batch pipeline (serving/batcher.py, engine.py)
+    "queue", "batch_assemble", "forward", "prefill_chunk", "decode_step",
+    "verify_step", "drain",
+    # input pipeline (data/pipeline.py)
+    "input_wait",
+    # resharding + placement (reshard/)
+    "reshard",
+    # distributed runtime + elastic recovery (distributed/)
+    "distributed_init", "distributed_launch", "elastic_generation",
+    "elastic_resume",
+    # bench harness spans
+    "bucket_reduce", "bucket_reduce_capped", "overlap_sweep", "ab_repeat",
+    # embedding engine + ANN serving (embedding/)
+    "gather", "scatter_add", "ann_probe",
+})
+
 # ring-buffer length of the in-memory mirror of emitted events
 DEFAULT_KEEP = 4096
 

@@ -266,10 +266,9 @@ def _canonical_trees(net) -> dict:
     return trees
 
 
-def load_network(checkpoint_dir: str, step=None, device=None):
-    """A new network (MultiLayerNetwork or ComputationGraph, as saved) of
-    the checkpoint's own configuration on `device`, restored from the
-    latest (or given) step."""
+def network_of(checkpoint_dir: str, step=None, device=None):
+    """(a new, unrestored network of the configuration the latest (or
+    given) step holds, on `device`; that step)."""
     from deeplearning4j_tpu_torch.nn.conf import serde
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -284,7 +283,15 @@ def load_network(checkpoint_dir: str, step=None, device=None):
         conf = serde.from_json(f.read())
     cls = {"MultiLayerNetwork": MultiLayerNetwork,
            "ComputationGraph": ComputationGraph}[kind]
-    return ck.restore(cls(conf, device=device), step=step)
+    return cls(conf, device=device), step
+
+
+def load_network(checkpoint_dir: str, step=None, device=None):
+    """A new network (MultiLayerNetwork or ComputationGraph, as saved) of
+    the checkpoint's own configuration on `device`, restored from the
+    latest (or given) step."""
+    net, step = network_of(checkpoint_dir, step, device)
+    return Checkpointer(checkpoint_dir).restore(net, step=step)
 
 
 def first_difference(want: list, have: list) -> str:

@@ -22,17 +22,19 @@ The updater. The port's optimizer state goes under `port_updater.pt`
 entry the JAX reader does not read: a port zip restores in the JAX
 package with a fresh optax state, as a zip written with
 `save_updater=False` does, and in the port it resumes training bit for
-bit. A JAX zip's `updater.npz` (optax leaves, `flat_layout` 2) is not
-mapped into the port's updater (ROADMAP Queue A item 9): restoring one
-starts a fresh updater, warns, and sets `updater_restored = False` on
-the returned network.
+bit. A JAX zip's `updater.npz` (optax's leaves, per-leaf trees or the
+flat view, `flat_layout` 1 or 2) is mapped into the port's optimizer
+state from the configuration (`weights_io.opt_state_from_jax`), so a
+JAX zip resumes training in the port with its moments; leaves that match
+no layout raise `weights_io.UpdaterMappingError`. `updater_restored` on
+the returned network says whether an updater state was read (False
+only for a zip written without one).
 """
 
 from __future__ import annotations
 
 import io
 import json
-import warnings
 import zipfile
 
 import numpy as np
@@ -160,19 +162,23 @@ class ModelSerializer:
             net.state = _restore_tree(net.state,
                                       _load_leaves(zf, "state.npz"))
             names = zf.namelist()
-            net.updater_restored = PORT_UPDATER in names
-            if net.updater_restored:
+            net.updater_restored = True
+            if PORT_UPDATER in names:
                 net.opt_state = torch.load(
                     io.BytesIO(zf.read(PORT_UPDATER)), weights_only=True,
                     map_location=net.device)
+            elif "updater.npz" in names:
+                from deeplearning4j_tpu_torch.weights_io import (
+                    opt_state_from_jax,
+                )
+
+                net.opt_state = opt_state_from_jax(
+                    net, _load_leaves(zf, "updater.npz"),
+                    flat_layout=meta.get("flat_layout", 1),
+                    iteration=meta.get("iteration", 0))
             else:
                 net.opt_state = net.tx.init(net.params)
-                if "updater.npz" in names:
-                    warnings.warn(
-                        f"{path}: the JAX package's updater.npz is not "
-                        "mapped into the port's updater (ROADMAP Queue A "
-                        "item 9): training resumes with a fresh updater "
-                        "state", stacklevel=2)
+                net.updater_restored = False
             net.iteration_count = meta.get("iteration", 0)
             if hasattr(net, "epoch_count"):
                 net.epoch_count = meta.get("epoch", 0)

@@ -8,6 +8,9 @@ same function. The same holds for an embedding lookup table's `syn0`,
 `syn1` and `syn1neg` rows [V, D]. The two packages initialise with
 different random bits (jax.random against a torch.Generator), so a
 comparison copies the JAX tables or params in first.
+
+An optimizer's state crosses too: `opt_state_from_jax` rebuilds the
+port's from the leaves a JAX zip's `updater.npz` holds.
 """
 
 from __future__ import annotations
@@ -152,3 +155,109 @@ def paragraph_vectors_from_jax(jax_model, model) -> None:
               for name in TABLES}
     for name, t in tables_from_jax(arrays, model.device).items():
         setattr(model.lookup_table, name, t)
+
+
+# ------------------------------------------------- the updater's state
+
+class UpdaterMappingError(ValueError):
+    """A JAX `updater.npz` whose leaves match none of the layouts the
+    net's configuration gives (optax's per-leaf trees, the flat view)."""
+
+
+def _optax_plan(net, flat: bool):
+    """[(label, field, path, shape)] of the leaves optax's state holds
+    for the net's configuration, in optax's flatten order: `path` is the
+    param a moment leaf belongs to (None for a counter, or under the flat
+    view for the whole vector). The JAX package takes per-layer overrides
+    through optax.multi_transform over the labels (sorted), each masked
+    to its layers' params; without an override, one rule."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.updater import OPTAX_LEAVES
+
+    tx = net.tx
+    leaves = tree.leaves(net.params)
+    total = sum(t.numel() for _, t in leaves)
+    plan = []
+    for label in sorted(tx.rules):
+        mine = [(p, t) for p, t in leaves if tx._label(p[0]) == label]
+        for field in OPTAX_LEAVES[tx.rules[label].kind]:
+            if field == "count":
+                plan.append((label, field, None, ()))
+            elif flat:
+                plan.append((label, field, None, (total,)))
+            else:
+                plan.extend((label, field, p, tuple(t.shape))
+                            for p, t in mine)
+    return plan
+
+
+def opt_state_from_jax(net, leaves: list, flat_layout: int = 2,
+                       iteration: int = 0) -> dict:
+    """The optimizer state of the port's `net` from the leaves of a JAX
+    zip's `updater.npz` (numpy arrays, arr_0 .. arr_n), rebuilt from the
+    configuration alone: optax's leaf order of each rule
+    (nn/updater.py `OPTAX_LEAVES`), under optax.multi_transform where a
+    layer overrides the updater or learning rate, in the per-leaf tree
+    layout or the JAX package's flat view (one f32 vector a moment; the
+    layout is read off the leaves' shapes, a `flat_layout` 1 vector
+    reordered first). Counters come from the zip's; a rule without one
+    (AdaDelta) takes `iteration`. Leaves that match no layout raise
+    UpdaterMappingError naming their count and shapes."""
+    from deeplearning4j_tpu_torch.nn import tree
+    from deeplearning4j_tpu_torch.nn.updater import (
+        FLAT_OK,
+        Optimizer,
+        unflatten_flat,
+        upgrade_flat_layout,
+    )
+    from deeplearning4j_tpu_torch.util.model_serializer import _tensor
+
+    got = [tuple(np.shape(a)) for a in leaves]
+
+    def fail(why):
+        raise UpdaterMappingError(
+            f"updater.npz holds {len(leaves)} leaves of shapes {got}: "
+            f"{why}")
+
+    if not isinstance(net.tx, Optimizer):
+        fail(f"the net's optimizer is a custom {type(net.tx).__name__}")
+    layouts = [False]
+    if len(net.tx.rules) == 1 and net.tx.rules["__default__"].kind in FLAT_OK:
+        layouts.append(True)
+    for flat in layouts:
+        plan = _optax_plan(net, flat)
+        if [entry[3] for entry in plan] == got:
+            break
+    else:
+        kinds = {label: str(rule.kind) for label, rule
+                 in sorted(net.tx.rules.items())}
+        fail(f"no layout of the configuration's rules {kinds} (optax's "
+             f"per-leaf trees or the flat view) has these shapes")
+    state = net.tx.init(net.params)
+    shapes = [tuple(t.shape) for _, t in tree.leaves(net.params)]
+    paths = [p for p, _ in tree.leaves(net.params)]
+    seen_count = set()
+    for (label, field, path, _), arr in zip(plan, leaves):
+        st = state.get(label)
+        if st is None:
+            continue  # a label of no params: optax keeps its counters only
+        if field == "count":
+            if label not in seen_count:  # the rule's own counter first
+                st["count"] = int(np.asarray(arr).reshape(()))
+                seen_count.add(label)
+            continue
+        keys = [tuple(k) for k in st["keys"]]
+        if flat:
+            vec = np.asarray(arr, np.float32)
+            if flat_layout < 2:
+                vec = upgrade_flat_layout(vec, shapes)
+            pieces = zip(paths, unflatten_flat(vec, shapes))
+        else:
+            pieces = [(path, arr)]
+        for p, a in pieces:
+            slot = st[field][keys.index(tuple(p))]
+            slot.copy_(_tensor(np.ascontiguousarray(a), slot))
+    for label, st in state.items():
+        if label not in seen_count:
+            st["count"] = int(iteration)
+    return state

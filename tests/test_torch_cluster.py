@@ -191,12 +191,19 @@ def test_two_process_training_matches_single_process(tmp_path, kind):
     np.testing.assert_allclose(flat0, _jax_fit(kind), atol=5e-4)
 
 
+def _zip_step(path):
+    """The step counter of a ModelSerializer zip (its meta.json)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return json.loads(zf.read("meta.json"))["iteration"]
+
+
 def test_kill_one_worker_then_resume_from_checkpoint(tmp_path):
     """One worker crashes after 2 syncs; the survivor finishes its rounds
-    elastically; the crashed worker restarts from its checkpoint at the
-    checkpointed step and completes the remaining steps."""
-    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
-
+    elastically; the crashed worker restarts from its checkpoint (a
+    ModelSerializer zip) at the checkpointed step and completes the
+    remaining steps."""
     inputs = _inputs(tmp_path)
     coord = ClusterCoordinator(heartbeat_timeout=3.0).start()
     ckpt = str(tmp_path / "ck1")
@@ -207,7 +214,7 @@ def test_kill_one_worker_then_resume_from_checkpoint(tmp_path):
                     ckpt=ckpt, crash_at="2")
         _wait(pb)
         assert pb.returncode == 1  # crashed as scripted
-        assert Checkpointer(ckpt).steps() == [2], "no checkpoint of step 2"
+        assert _zip_step(ckpt) == 2, "no checkpoint of step 2"
         err = _wait(pa)
         assert pa.returncode == 0, err
         pb2 = _spawn(inputs, coord.address, "w1", "1", tmp_path / "w1.npz",
@@ -217,7 +224,7 @@ def test_kill_one_worker_then_resume_from_checkpoint(tmp_path):
         out = np.load(tmp_path / "w1.npz")
         assert int(out["iteration"]) == 6  # resumed at 2, trained 3..6
         assert np.isfinite(out["params"]).all()
-        assert Checkpointer(ckpt).steps() == [6]
+        assert _zip_step(ckpt) == 6
     finally:
         coord.shutdown()
 

@@ -1,8 +1,8 @@
 """The port stands alone: no file of deeplearning4j_tpu_torch/, nor
-chip_smoke.py, nor the port's sweep port_tools/kerneltune.py imports jax
-or the JAX package, the whole package imports with jax made
-unimportable, and an entry point called without a device asks for CUDA
-(no silent CPU fallback)."""
+chip_smoke.py, nor any file under port_tools/ (the sweep, the trace and
+traffic tools among them) imports jax or the JAX package, the whole
+package imports with jax made unimportable, and an entry point called
+without a device asks for CUDA (no silent CPU fallback)."""
 
 import ast
 import subprocess
@@ -19,8 +19,9 @@ pytestmark = pytest.mark.port
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "port_tools" / "kerneltune.py"] + sorted(
-    (ROOT / "tests").glob("torch_*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "port_tools").rglob("*.py")) \
+    + sorted(p for p in (ROOT / "tests").glob("torch_*.py")
+             if p.name != "torch_zip_fixture.py")
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
 
 
@@ -60,7 +61,7 @@ def test_package_imports_without_jax():
     missing = {f"deeplearning4j_tpu_torch.{m}"
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
                + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE
-               + TELEMETRY_SLICE + TUNING_UI_SLICE} - names
+               + TELEMETRY_SLICE + TUNING_UI_SLICE + TRACING_SLICE} - names
     assert not missing, missing
 
 
@@ -122,12 +123,30 @@ TUNING_UI_SLICE = (
     "ui.views", "ui.listeners", "ui.server")
 
 
+# the profiler, the registered event schema and the native IO core
+# (ROADMAP A9.10, A9.6)
+TRACING_SLICE = ("util.profiler", "telemetry.recorder", "native",
+                 "datasets.records")
+
+
+def test_tracing_slice_files_are_covered():
+    """The slice's files, the two tools under port_tools/ included, are
+    among the files held to no JAX import above, and the native core's
+    C++ source is the port's own copy."""
+    for rel in ("deeplearning4j_tpu_torch/util/profiler.py",
+                "deeplearning4j_tpu_torch/native/__init__.py",
+                "port_tools/tracetool.py", "port_tools/trafficreplay.py"):
+        assert ROOT / rel in PORT_FILES, rel
+    assert (ROOT / "deeplearning4j_tpu_torch/native/io_core.cpp").exists()
+
+
 def test_elastic_slice_imports_nothing_of_jax():
     """The stdlib-only modules the slice copies from the JAX package
     (its cluster protocol, fault grammar and trace tools) are the
     port's own copies: each names its JAX counterpart and imports none
     of it."""
-    for mod in ELASTIC_SLICE + TELEMETRY_SLICE + TUNING_UI_SLICE:
+    for mod in (ELASTIC_SLICE + TELEMETRY_SLICE + TUNING_UI_SLICE
+                + TRACING_SLICE):
         path = ROOT / "deeplearning4j_tpu_torch" / (
             mod.replace(".", "/") + ".py")
         if not path.exists():  # a package: its __init__.py
@@ -143,6 +162,7 @@ def test_rank_programs_import_without_jax():
     package made unimportable, as the ranks run them."""
     workers = sorted((ROOT / "tests").glob("torch_*.py"))
     assert ROOT / "tests" / "torch_fleet_worker.py" in workers
+    # the fixture maker imports the JAX package only inside make()
     for path in workers:
         code = ("import sys, runpy\n"
                 "sys.modules['jax'] = None\n"

@@ -10,13 +10,16 @@ model_serializer.py) against the JAX package's on the CPU.
   order for the same weights.
 * A port zip resumes training in the port bit for bit: 3 Adam steps,
   save, restore, 3 more steps on each equal exactly.
-* A JAX zip's `updater.npz` is not mapped: the port's restore warns and
-  says so on the net; a zip without an updater restores a fresh one
-  silently. The wrong-kind restores raise ValueError, as in JAX.
+* A JAX zip's `updater.npz` is mapped into the port's optimizer state
+  (`updater_restored` True, no warning; the mapping's own parity cases
+  are tests/test_torch_updater_map.py); a zip without an updater
+  restores a fresh one silently. The wrong-kind restores raise
+  ValueError, as in JAX.
 * `LocalFileModelSaver` writes zips the JAX package restores.
 """
 
 import io
+import warnings
 import zipfile
 
 import jax
@@ -126,16 +129,17 @@ def test_a_jax_zip_restores_in_the_port_with_the_same_outputs(kind,
     jnet.fit(JDataSet(*_data(kind)))
     path = str(tmp_path / "jax.zip")
     JSerializer.write_model(jnet, path)
-    with pytest.warns(UserWarning, match="ROADMAP Queue A item 9"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         net = ModelSerializer.restore(path, device="cpu")
     assert type(net).__name__ == type(jnet).__name__
-    assert net.updater_restored is False
+    assert net.updater_restored is True
     assert net.iteration_count == jnet.iteration_count == 1
     assert getattr(net, "epoch_count", 1) == getattr(jnet, "epoch_count", 1)
     x, _ = _data(kind, 1)
     np.testing.assert_allclose(_out(net.output(x)), _out(jnet.output(x)),
                                rtol=RTOL, atol=ATOL)
-    # the restored updater is a fresh one the port trains with
+    # the port trains on with the restored updater state
     net.fit(TDataSet(*_data(kind, 2)))
     assert np.isfinite(net.score_value)
 
@@ -167,8 +171,7 @@ def test_both_packages_write_the_same_leaves_in_the_same_order(kind,
     jnet = _jax_net(kind)
     jpath, tpath = str(tmp_path / "j.zip"), str(tmp_path / "t.zip")
     JSerializer.write_model(jnet, jpath)
-    with pytest.warns(UserWarning):
-        net = ModelSerializer.restore(jpath, device="cpu")
+    net = ModelSerializer.restore(jpath, device="cpu")
     ModelSerializer.write_model(net, tpath)
     for name in ("params.npz", "state.npz"):
         with zipfile.ZipFile(jpath) as a, zipfile.ZipFile(tpath) as b:
@@ -207,8 +210,6 @@ def test_a_port_zip_resumes_training_bit_for_bit(kind, tmp_path):
 
 
 def test_a_zip_without_updater_restores_a_fresh_one_silently(tmp_path):
-    import warnings
-
     net = _port_net("mln")
     net.fit(TDataSet(*_data("mln")))
     path = str(tmp_path / "m.zip")
