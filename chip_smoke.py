@@ -23,9 +23,11 @@ sharded embedding engine and the data meshes of the device pipeline and
 GloVe, the cost and memory telemetry with the CLI (train, test,
 predict and serve as processes of their own, ModelSerializer zips), and
 kernel autotuning (the tuning table and the kerneltune sweep), KMeans
-and t-SNE over word vectors and the training UI, and the port's own
+and t-SNE over word vectors and the training UI, the port's own
 trace tools, profiler, JAX zips resuming with their updater, and the
-native IO core.
+native IO core, and the rest of the data loaders (Iris, LFW, Curves,
+image records, the async, multiple-epoch and sampling iterators, the
+disk queue) fed into fits.
 
 Run from the root of a checkout, with no arguments:
 
@@ -439,10 +441,10 @@ Phases, each of which exits non-zero when it fails:
 26. Autotuning, clustering and the UI (`tuning_clustering_ui`). 26a:
    `port_tools/kerneltune.py --quick` as a process on the card (its
    table valid, every chosen params a default or a candidate that passed
-   its plain-version check, its `kernel_tune` events and spans in its
-   telemetry file); the checked-in table's resolved params for K9 at N
-   = 16384 and 2048 (V 10000, d 256), K11 at 16384 x 256, K12 at [4,
-   10000] and [8, 128] and the chunk tile at T = 32768 (D 128, causal,
+   its plain-version check, exactly one `chosen` `kernel_tune` event an
+   entry in its telemetry file and no unregistered span name); the
+   checked-in table's resolved params for K9 at N = 16384 and 2048 (V
+   10000, d 256), K11 at 16384 x 256, K12 at [4, 10000] and [8, 128] and the chunk tile at T = 32768 (D 128, causal,
    with and without dropout and the mask), each checked against its
    plain version at phases 2b/9/13/2c's limits and timed against the
    heuristic's params (forced by `autotune.override`) in turns (table,
@@ -464,8 +466,8 @@ Phases, each of which exits non-zero when it fails:
    render (200, the SVG renderer and the posted data in the page: the
    SVG is drawn in the browser, as the JAX package's pages do);
    /nearestneighbors/query on 26b's vectors equal to brute force; and
-   /timeline over phase 25's telemetry (under `--phase 26`, 26a's)
-   listing spans. `--phase 26` runs the build and this phase alone.
+   /timeline over phase 25's telemetry (under `--phase 26`, that of
+   26a's flagship step) listing spans. `--phase 26` runs the build and this phase alone.
 27. Tracing the port without the JAX package, JAX zips resuming, the
    native IO core (`tracing_and_resume`). 27a: phase 6's flagship
    trained 6 fit() steps with a Recorder under
@@ -495,6 +497,38 @@ Phases, each of which exits non-zero when it fails:
    by `native.encode_corpus` with the Python split's ids (both timed);
    20a's host-path Word2Vec fit on raw strings, one K13 launch a step.
    `--phase 27` runs the build and this phase alone.
+28. The rest of datasets/ and util/ fed into fits
+   (`datasets_and_utils`). 28a: `IrisDataSetIterator(150)` (the port's
+   own copy of the Iris CSV) feeding a 4-16-3 MLP (tanh, softmax,
+   mcxent, Adam) on the card through `MultipleEpochsIterator(200, ...)`,
+   and from the same init through `SamplingDataSetIterator(iris, 32,
+   150 x 200)`: accuracy on the 150 at least 0.95 in each arm, each
+   arm's seconds and steps/s. 28b: LFW at its usual training subset's
+   size (62 people; 48 synthetic 64 x 64 x 3 images each through
+   `generate_synthetic_lfw`, with Pillow or, without it, the PNM codec,
+   which the log names), split 0.8 / 0.2 by
+   `LocalUnstructuredDataFormatter` (directory labels), a LeNet-style
+   net (conv 20 5x5, pool, conv 50 5x5, pool, dense 500, softmax 62)
+   trained 3 epochs at batch 64 through
+   `AsyncDataSetIterator(ImageRecordReaderDataSetIterator(
+   ImageRecordReader(split/train), shuffle=True))`: the loss smoothed by
+   `time_series.moving_average` falls, test accuracy (`eval/`) above
+   0.16 (10 x chance), and one test file through
+   `ImageVectorizer(...).normalize()` and `net.output` equal to its row
+   of the batched output within VECTORIZER_ATOL; seconds to synthesize,
+   split, read and train. 28c: phase 6's flagship fed 4 fixed token
+   batches (after a `DiskBasedQueue` round trip that must return them
+   equal) twice over by `MultipleEpochsIterator(2, AsyncDataSetIterator(
+   ListDataSetIterator(batches), queue_size=2))` and, from the same
+   init, by a plain `ListDataSetIterator` of the same 8 batches: exactly
+   K2 = K6 = 48 and K8 = K9 = 8 in each arm, the final params bit for
+   bit, each arm's step median. 28d: `CurvesDataSetIterator(100,
+   10000)` (cut from the paper's 20,000) feeding greedy CD-1
+   pretraining of the curves RBM stack 784-400-200-100-50-25-6 on the
+   card, one epoch a layer: each layer's reconstruction error of its
+   input falls from its initial params to its trained ones; the
+   synthesis seconds apart from the card's. `--phase 28` runs the build
+   and this phase alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -8109,14 +8143,13 @@ def kerneltune_module():
 
 def quick_sweep(card):
     """26a: `kerneltune.py --quick` as a process on the card. Its table
-    must be valid, each entry's params the default's or a candidate's
-    that passed its plain-version check (never a rejected one), each
-    entry's candidate count that of its `candidate` events, and each
-    config a `kerneltune_config` span in its telemetry. Returns the
-    telemetry path."""
+    must be valid and agree with its telemetry (`kerneltune.audit`):
+    each entry's params the default's or a candidate's that passed its
+    plain-version check (never a rejected one), each entry's candidate
+    count that of its `candidate` events, exactly one `chosen` event an
+    entry (with the config's wall seconds) and no unregistered span
+    name. Returns the telemetry path."""
     import tempfile
-
-    from deeplearning4j_tpu_torch.ops import autotune
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kerneltune_"))
     out, tel = tmp / "quick.json", tmp / "quick.jsonl"
@@ -8134,25 +8167,8 @@ def quick_sweep(card):
     table = json.loads(out.read_text())
     events = read_events(tel)
     tunes = [e for e in events if e["event"] == "kernel_tune"]
-    spans = [e for e in events if e["event"] == "span"
-             and e.get("name") == "kerneltune_config"]
-    bad = autotune.validate_table(table)
-    for key, entry in table["entries"].items():
-        params = {k: v for k, v in entry.items()
-                  if k not in autotune.ENTRY_META_FIELDS}
-        evs = [e for e in tunes if e["key"] == key]
-        passed = [e["params"] for e in evs
-                  if e["role"] in ("default", "candidate")]
-        rejected = [e["params"] for e in evs if e["role"] == "rejected"]
-        chosen = [e["params"] for e in evs if e["role"] == "chosen"]
-        timed = sum(e["role"] == "candidate" for e in evs)
-        if (chosen != [params] or params not in passed
-                or params in rejected or timed != entry["candidates"]):
-            bad.append(f"{key}: chosen {chosen}, entry {params}, passed "
-                       f"{passed}, rejected {rejected}, {timed} timed")
-    if len(spans) != len(table["entries"]):
-        bad.append(f"{len(spans)} kerneltune_config spans for "
-                   f"{len(table['entries'])} entries")
+    chosen = {e["key"]: e for e in tunes if e["role"] == "chosen"}
+    bad = kerneltune_module().audit(table, events)
     if bad:
         raise PhaseFailed("26a", f"the quick sweep's table or telemetry: "
                                  f"{bad}")
@@ -8160,8 +8176,10 @@ def quick_sweep(card):
     log26(card, f"26a: kerneltune --quick in {wall:.1f} s: "
           f"{len(table['entries'])} valid entries, {len(tunes)} "
           f"kernel_tune events ({n_rej} candidates rejected by their "
-          f"plain-version check, none chosen), {len(spans)} spans; chosen "
-          + "; ".join(f"{k} {e['best_us']} us (default {e['default_us']})"
+          f"plain-version check, none chosen), one chosen event an entry; "
+          f"chosen "
+          + "; ".join(f"{k} {e['best_us']} us (default {e['default_us']}; "
+                      f"{chosen[k]['wall_seconds']} s swept)"
                       for k, e in sorted(table["entries"].items())))
     return str(tel)
 
@@ -8275,20 +8293,30 @@ def tuned_launches(torch, card):
 
 
 def flagship_step_under_table(torch, counters, transformer_lm, DataSet,
-                              card):
+                              card, telemetry=None):
     """26a: one training step of the flagship (phase 6's batch) under the
-    checked-in table, its launches exact. Returns them."""
+    checked-in table, its launches exact; with `telemetry`, recorded
+    there (its `input_wait` span among the events). Returns them."""
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+
     c = TRAIN
     net = transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
                          n_heads=c["n_heads"], n_layers=c["n_layers"],
                          d_ff=c["d_ff"], max_length=c["seq"],
                          dtype="bfloat16", device="cuda").init(SEED)
     ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
-    torch.cuda.synchronize()
-    counters.reset()
-    net.fit(ds)
-    torch.cuda.synchronize()
-    launches = counters.read()
+    rec = Recorder(telemetry) if telemetry else None
+    prev = set_default(rec) if rec else None
+    try:
+        torch.cuda.synchronize()
+        counters.reset()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        launches = counters.read()
+    finally:
+        if rec:
+            set_default(prev)
+            rec.close()
     L = c["n_layers"]
     want = {**{f"K{i}": 0 for i in range(1, 14)}, "K2": L, "K6": L,
             "K8": 1, "K9": 1, "K9 dW": 1}
@@ -8555,13 +8583,17 @@ def tuning_clustering_ui(torch, counters, Word2Vec, transformer_lm, DataSet,
     try:
         quick_tel = quick_sweep(card)
         tuned = tuned_launches(torch, card)
+        # run alone, /timeline reads the step's telemetry: the quick
+        # sweep's log holds kernel_tune events and no span
+        step_tel = (None if "telemetry" in PHASE25 else
+                    str(Path(quick_tel).with_name("step.jsonl")))
         runs.append(flagship_step_under_table(torch, counters,
                                               transformer_lm, DataSet,
-                                              card))
+                                              card, telemetry=step_tel))
         words, vecs, coords = clustering_on_card(torch, words, vecs, card)
         runs.append(ui_on_card(torch, counters, transformer_lm, DataSet,
                                words, vecs, coords,
-                               PHASE25.get("telemetry", quick_tel), card))
+                               PHASE25.get("telemetry", step_tel), card))
         check_barnes_hut(bh_job, card)
     finally:
         pool.shutdown()
@@ -9103,6 +9135,430 @@ def tracing_and_resume(torch, counters, transformer_lm, DataSet, Word2Vec,
     return total
 
 
+# ------------------------------------------------------------ phase 28
+
+# 28a: the Iris MLP (4-16-3, tanh, softmax, mcxent, Adam) over the whole
+# set 200 times, then fed by the sampling iterator for as many rows
+IRIS = dict(epochs=200, hidden=16, lr=0.01, sample_batch=32, min_acc=0.95)
+# 28b: LFW at the size of its usual training subset (the people with at
+# least 20 images: 62 people, 3,023 images), cut to 64 x 64 synthetic
+# pixels; a LeNet-style net, 3 epochs at batch 64; test accuracy above
+# 10 x chance (1 / 62); the loss smoothed over `smooth` steps must fall
+LFW28 = dict(people=62, per_person=48, size=64, channels=3, train=0.8,
+             batch=64, epochs=3, lr=1e-3, min_acc=0.16, smooth=10,
+             queue_size=4)
+# 28b: one test file through ImageVectorizer and net.output against its
+# row of the batched output (softmax outputs in [0, 1], f32: a batch of
+# 1 and of 64 may take other cuDNN algorithms)
+VECTORIZER_ATOL = 1e-5
+# 28c: phase 6's flagship fed 4 fixed batches twice through the new
+# iterators (after a DiskBasedQueue round trip), against a plain list
+FEED = dict(batches=4, epochs=2, queue_size=2)
+# 28d: the curves RBM stack of Hinton and Salakhutdinov (2006),
+# 784-400-200-100-50-25-6, greedy CD-1 pretraining one epoch a layer at
+# batch 100; cut from the paper's 20,000 training images to 10,000 (the
+# synthesis is host numpy, a few ms an image)
+CURVES = dict(examples=10000, batch=100,
+              sizes=(784, 400, 200, 100, 50, 25, 6), lr=0.1)
+# the rows 28d measures each layer's reconstruction on
+CURVES_PROBE = 500
+
+
+def log28(card, msg):
+    """Phase 28's log line; the card's name and power limit close it."""
+    log(f"{msg}; card {card}")
+
+
+class StepClock:
+    """An iteration listener that times each step on the card: a
+    synchronize and a host clock read after every iteration."""
+
+    def __init__(self, torch):
+        self.torch, self.stamps = torch, []
+
+    def start(self):
+        self.torch.cuda.synchronize()
+        self.stamps = [time.perf_counter()]
+
+    def iteration_done(self, model, iteration):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+    def median_ms(self):
+        return statistics.median(
+            (b - a) * 1e3 for a, b in zip(self.stamps, self.stamps[1:]))
+
+
+def _no_launches(launches):
+    return not any(launches.values())
+
+
+def iris_mlp(conf, MultiLayerNetwork):
+    c = IRIS
+    cfg = (conf.NeuralNetConfiguration.builder().seed(SEED)
+           .learning_rate(c["lr"]).updater("adam").weight_init("xavier")
+           .list()
+           .layer(conf.DenseLayer(n_in=4, n_out=c["hidden"],
+                                  activation="tanh"))
+           .layer(conf.OutputLayer(n_in=c["hidden"], n_out=3,
+                                   activation="softmax",
+                                   loss_function="mcxent"))
+           .build())
+    return MultiLayerNetwork(cfg, device="cuda").init()
+
+
+def iris_on_card(torch, counters, card):
+    """28a: the Iris MLP on the card, fed by `MultipleEpochsIterator(200,
+    IrisDataSetIterator(150))` and, from the same init, by
+    `SamplingDataSetIterator(iris, 32, 150 x 200, SEED)`; each arm's
+    accuracy on the 150 at least IRIS["min_acc"], no kernel launched (the
+    head's shape is not the fused head's). Returns the arms' numbers."""
+    from deeplearning4j_tpu_torch.datasets import (
+        IrisDataSetIterator,
+        MultipleEpochsIterator,
+        SamplingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.iris import load_iris_dataset
+    from deeplearning4j_tpu_torch.nn import conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    c = IRIS
+    iris = load_iris_dataset()
+    arms = {
+        "multiple_epochs": lambda: MultipleEpochsIterator(
+            c["epochs"], IrisDataSetIterator(batch_size=150)),
+        "sampling": lambda: SamplingDataSetIterator(
+            iris, c["sample_batch"], 150 * c["epochs"], seed=SEED),
+    }
+    out, failures = {}, []
+    for arm, make in arms.items():
+        net = iris_mlp(conf, MultiLayerNetwork)
+        it = make()
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        net.fit(it)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = counters.read()
+        acc = net.evaluate(iris).accuracy()
+        steps = net.iteration_count
+        out[arm] = dict(accuracy=acc, steps=steps, seconds=secs,
+                        steps_per_s=steps / secs)
+        log28(card, f"28a: Iris 4-{c['hidden']}-3 by {arm} ({steps} steps) "
+              f"in {secs:.3f} s, {steps / secs:.1f} steps/s: accuracy on "
+              f"the 150 {acc:.4f} (limit {c['min_acc']}); launches "
+              f"{launches}")
+        if acc < c["min_acc"] or not _no_launches(launches):
+            failures.append(f"{arm}: accuracy {acc}, launches {launches}")
+    if failures:
+        raise PhaseFailed("28a", "; ".join(failures))
+    return out
+
+
+def lfw_net(conf, MultiLayerNetwork, classes):
+    """The LeNet-style net of 28b: conv 20 5x5, pool 2, conv 50 5x5, pool
+    2, dense 500, softmax over the people."""
+    c = LFW28
+    cfg = (conf.NeuralNetConfiguration.builder().seed(SEED)
+           .learning_rate(c["lr"]).updater("adam").weight_init("xavier")
+           .list()
+           .layer(conf.ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                        stride=(1, 1), activation="relu"))
+           .layer(conf.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+           .layer(conf.ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                        stride=(1, 1), activation="relu"))
+           .layer(conf.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+           .layer(conf.DenseLayer(n_out=500, activation="relu"))
+           .layer(conf.OutputLayer(n_out=classes, activation="softmax",
+                                   loss_function="mcxent"))
+           .set_input_type(conf.InputType.convolutional(
+               c["size"], c["size"], c["channels"]))
+           .build())
+    return MultiLayerNetwork(cfg, device="cuda").init()
+
+
+def lfw_on_card(torch, counters, card):
+    """28b: a synthetic LFW corpus of 62 people x 48 images (64 x 64 x 3)
+    split by `LocalUnstructuredDataFormatter` (directory labels, 0.8
+    train, SEED), read by `ImageRecordReader` and trained 3 epochs on the
+    card through `AsyncDataSetIterator(ImageRecordReaderDataSetIterator
+    (..., shuffle=True))`; evaluated on the test split (`eval/`); one
+    test file through `ImageVectorizer(...).normalize()` and
+    `net.output` against its row of the batched output. Returns its
+    numbers."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import (
+        AsyncDataSetIterator,
+        ImageRecordReader,
+        ImageRecordReaderDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.lfw import generate_synthetic_lfw
+    from deeplearning4j_tpu_torch.datasets.rearrange import (
+        LabelingType,
+        LocalUnstructuredDataFormatter,
+    )
+    from deeplearning4j_tpu_torch.datasets.vectorizer import ImageVectorizer
+    from deeplearning4j_tpu_torch.nn import conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+    from deeplearning4j_tpu_torch.util import image_loader
+    from deeplearning4j_tpu_torch.util.time_series import moving_average
+
+    c = LFW28
+    size, ch = c["size"], c["channels"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lfw_"))
+    try:
+        corpus = tmp / "lfw"
+        t0 = time.perf_counter()
+        generate_synthetic_lfw(str(corpus), n_people=c["people"],
+                               images_per_person=c["per_person"], size=size,
+                               seed=SEED)
+        synth_s = time.perf_counter() - t0
+        people = sorted(d.name for d in corpus.iterdir() if d.is_dir())
+        decoder = ("Pillow (PNG files)" if image_loader._HAVE_PIL else
+                   "the PNM codec (PNM bytes under .png names; no Pillow)")
+        t0 = time.perf_counter()
+        fmt = LocalUnstructuredDataFormatter(
+            str(tmp / "out"), str(corpus), LabelingType.DIRECTORY,
+            percent_train=c["train"], seed=SEED)
+        fmt.rearrange()
+        split_s = time.perf_counter() - t0
+        # the corpus's people name the classes in both splits (the
+        # corpus's marker file lands in a directory of its own)
+        train = ImageRecordReader(fmt.get_train(), size, size, ch,
+                                  labels=people)
+        test = ImageRecordReader(fmt.get_test(), size, size, ch,
+                                 labels=people)
+        train_it = ImageRecordReaderDataSetIterator(train, c["batch"],
+                                                    shuffle=True, seed=SEED)
+        t0 = time.perf_counter()
+        train_it.reset()  # reads and decodes every training file
+        read_s = time.perf_counter() - t0
+        net = lfw_net(conf, MultiLayerNetwork, len(people))
+        scores = CollectScoresIterationListener(1)
+        net.set_listeners(scores)
+        feed = AsyncDataSetIterator(train_it, queue_size=c["queue_size"])
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        net.fit(feed, epochs=c["epochs"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = counters.read()
+        losses = [float(s) for _, s in scores.scores]
+        smooth = moving_average(losses, c["smooth"])
+        test_it = ImageRecordReaderDataSetIterator(test, c["batch"])
+        acc = net.evaluate(test_it).accuracy()
+        path, label = test._files[0]
+        vec = ImageVectorizer(path, len(people), label).normalize().vectorize()
+        test_it.reset()
+        first = test_it.next()
+        same_x = np.array_equal(vec.features[0], first.features[0])
+        same_y = np.array_equal(vec.labels[0], first.labels[0])
+        row = net.output(vec.features).float().cpu().numpy()[0]
+        batched = net.output(first.features).float().cpu().numpy()[0]
+        diff = float(np.abs(row - batched).max())
+        steps = net.iteration_count
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log28(card, f"28b: LFW {c['people']} people x {c['per_person']} images "
+          f"({size} x {size} x {ch}), Pillow present "
+          f"{image_loader._HAVE_PIL}, decoded by {decoder}: synthesized in "
+          f"{synth_s:.3f} s, split {fmt.num_examples_to_train_on} / "
+          f"{fmt.num_test_examples} in {split_s:.3f} s, the training split "
+          f"read in {read_s:.3f} s; {c['epochs']} epochs ({steps} steps at "
+          f"batch {c['batch']}) through AsyncDataSetIterator in "
+          f"{train_s:.3f} s ({steps / train_s:.1f} steps/s); loss smoothed "
+          f"over {c['smooth']} steps {smooth[0]:.4f} -> {smooth[-1]:.4f}; "
+          f"test accuracy {acc:.4f} (limit {c['min_acc']}); the vectorizer's "
+          f"row: features equal {same_x}, label equal {same_y}, output "
+          f"within {diff:.3e} of the batched row (limit {VECTORIZER_ATOL}); "
+          f"launches {launches}")
+    failures = []
+    if not smooth[-1] < smooth[0] or not np.isfinite(losses).all():
+        failures.append(f"the smoothed loss did not fall ({smooth[0]} -> "
+                        f"{smooth[-1]})")
+    if acc <= c["min_acc"]:
+        failures.append(f"test accuracy {acc}")
+    if not (same_x and same_y and diff <= VECTORIZER_ATOL):
+        failures.append(f"vectorizer row: features {same_x}, label "
+                        f"{same_y}, output {diff}")
+    if not _no_launches(launches):
+        failures.append(f"launches {launches}")
+    if failures:
+        raise PhaseFailed("28b", "; ".join(failures))
+    return dict(synth_s=synth_s, split_s=split_s, read_s=read_s,
+                train_s=train_s, accuracy=acc, pillow=image_loader._HAVE_PIL)
+
+
+def feed_flagship(torch, counters, transformer_lm, DataSet, card):
+    """28c: 4 fixed token batches of phase 6's shape through a
+    DiskBasedQueue (polled back equal), then phase 6's flagship from one
+    init trained on them twice over by `MultipleEpochsIterator(2,
+    AsyncDataSetIterator(ListDataSetIterator(batches), queue_size=2))`
+    and by a plain `ListDataSetIterator` of the same 8 batches: exact
+    launches in each arm (K2 = K6 = 48, K8 = K9 = 8) and the final params
+    bit for bit. Returns (the launches of both arms, the arms' step
+    medians)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import (
+        AsyncDataSetIterator,
+        ListDataSetIterator,
+        MultipleEpochsIterator,
+    )
+    from deeplearning4j_tpu_torch.util.disk_queue import DiskBasedQueue
+
+    c, f = TRAIN, FEED
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(f["batches"]):
+        toks = np.asarray(rng.integers(0, c["vocab_size"],
+                                       (c["batch"], c["seq"])), np.int32)
+        batches.append(DataSet(toks, np.roll(toks, -1, axis=1)))
+    q = DiskBasedQueue(tempfile.mkdtemp(prefix="chip_smoke_queue_"))
+    t0 = time.perf_counter()
+    q.add_all(batches)
+    polled = [q.poll() for _ in batches]
+    queue_s = time.perf_counter() - t0
+    same_queue = q.is_empty() and all(
+        np.array_equal(a.features, b.features)
+        and np.array_equal(a.labels, b.labels)
+        for a, b in zip(batches, polled))
+    q.close()
+    feeds = {
+        "iterators": lambda: MultipleEpochsIterator(
+            f["epochs"], AsyncDataSetIterator(ListDataSetIterator(polled),
+                                              queue_size=f["queue_size"])),
+        "list": lambda: ListDataSetIterator(polled * f["epochs"]),
+    }
+    S, L = f["batches"] * f["epochs"], c["n_layers"]
+    want = {"K1": 0, "K2": L * S, "K3": 0, "K4": 0, "K5": 0, "K6": L * S,
+            "K7": 0, "K8": S, "K9": S, "K9 dW": S, "K10": 0, "K11": 0,
+            "K12": 0, "K13": 0}
+    nets, runs, medians, failures = {}, [], {}, []
+    for arm, make in feeds.items():
+        net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
+        clock = StepClock(torch)
+        net.set_listeners(clock)
+        it = make()
+        counters.reset()
+        clock.start()
+        net.fit(it)
+        torch.cuda.synchronize()
+        wall = clock.stamps[-1] - clock.stamps[0]
+        launches = counters.read()
+        runs.append(launches)
+        nets[arm] = net
+        medians[arm] = clock.median_ms()
+        log28(card, f"28c: the flagship fed by {arm} ({net.iteration_count} "
+              f"steps) in {wall:.3f} s, step median {medians[arm]:.3f} ms; "
+              f"launches {launches}")
+        if launches != want or net.iteration_count != S:
+            failures.append(f"{arm}: {net.iteration_count} steps, launches "
+                            f"{launches}, expected {want}")
+    same, worst = _same_trees(torch, nets["iterators"].params,
+                              nets["list"].params)
+    log28(card, f"28c: DiskBasedQueue round trip of {len(batches)} batches "
+          f"in {queue_s:.3f} s, equal {same_queue}; the two arms' params "
+          f"equal bit for bit {same} (largest difference {worst:.3e})")
+    if not same_queue:
+        failures.append("the queue's polled batches differ from the written")
+    if not same:
+        failures.append(f"the arms' params differ by up to {worst}")
+    if failures:
+        raise PhaseFailed("28c", "; ".join(failures))
+    return runs, medians
+
+
+def curves_on_card(torch, counters, card):
+    """28d: `CurvesDataSetIterator(100, 10000)` feeding greedy CD-1
+    pretraining of the curves RBM stack on the card, one epoch a layer;
+    each layer's mean-field reconstruction error of its own input (the
+    trained stack below it, CURVES_PROBE rows) falls from its initial
+    params to its trained ones. Returns its numbers."""
+    from deeplearning4j_tpu_torch.datasets import CurvesDataSetIterator
+    from deeplearning4j_tpu_torch.nn import conf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    c = CURVES
+    t0 = time.perf_counter()
+    it = CurvesDataSetIterator(batch_size=c["batch"],
+                               num_examples=c["examples"], seed=SEED)
+    synth_s = time.perf_counter() - t0
+    b = (conf.NeuralNetConfiguration.builder().seed(SEED)
+         .learning_rate(c["lr"]).updater("sgd").weight_init("xavier").list())
+    for n_in, n_out in zip(c["sizes"], c["sizes"][1:]):
+        b = b.layer(conf.RBM(n_in=n_in, n_out=n_out))
+    net = MultiLayerNetwork(b.pretrain(True).backprop(False).build(),
+                            device="cuda").init()
+    start = {k: {n: t.clone() for n, t in p.items()}
+             for k, p in net.params.items()}
+    x = torch.as_tensor(it.next().features, device="cuda")
+    x = torch.cat([x] + [torch.as_tensor(it.next().features, device="cuda")
+                         for _ in range(CURVES_PROBE // c["batch"] - 1)])
+    it.reset()
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    net.fit(it)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    launches = counters.read()
+    rows = []
+    with torch.no_grad():
+        for i, (name, lc, rbm) in enumerate(zip(
+                net.layer_names, net.layer_confs, net.impls)):
+            h = net._forward(net.params, net.state, x, to_layer=i)[0]
+            errs = []
+            for p in (start[name], net.params[name]):
+                v = rbm._prop_down(lc, p, rbm._prop_up(lc, p, h))
+                errs.append(float(((v - h) ** 2).mean()))
+            rows.append((f"{lc.n_in}-{lc.n_out}", *errs))
+    log28(card, f"28d: curves {c['examples']} images synthesized in "
+          f"{synth_s:.3f} s (host); the RBM stack "
+          f"{'-'.join(map(str, c['sizes']))} pretrained one epoch a layer "
+          f"({c['examples'] // c['batch']} steps a layer at batch "
+          f"{c['batch']}, CD-1) in {device_s:.3f} s on the card; "
+          f"reconstruction error (initial -> trained) "
+          + ", ".join(f"{k} {a:.5f} -> {t:.5f}" for k, a, t in rows)
+          + f"; launches {launches}")
+    bad = [k for k, a, t in rows if not (np.isfinite(t) and t < a)]
+    if bad or not _no_launches(launches):
+        raise PhaseFailed("28d", f"reconstruction did not fall for {bad}; "
+                                 f"launches {launches}")
+    return dict(synth_s=synth_s, device_s=device_s)
+
+
+def datasets_and_utils(torch, counters, transformer_lm, DataSet, card):
+    """Phase 28. Returns the launches of its main-path runs (28c's two
+    arms; 28a, 28b and 28d launch none) and its numbers for the
+    record."""
+    t0 = time.perf_counter()
+    iris = iris_on_card(torch, counters, card)
+    lfw = lfw_on_card(torch, counters, card)
+    runs, medians = feed_flagship(torch, counters, transformer_lm, DataSet,
+                                  card)
+    curves = curves_on_card(torch, counters, card)
+    keys = sorted({k for r in runs for k in r})
+    total = {k: sum(r.get(k, 0) for r in runs) for k in keys}
+    log28(card, f"phase 28 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{total}; Iris accuracy "
+          + ", ".join(f"{a} {r['accuracy']:.4f} ({r['steps_per_s']:.1f} "
+                      f"steps/s)" for a, r in iris.items())
+          + f"; LFW test accuracy {lfw['accuracy']:.4f} (synthesis "
+          f"{lfw['synth_s']:.3f} s, read {lfw['read_s']:.3f} s, train "
+          f"{lfw['train_s']:.3f} s, Pillow {lfw['pillow']}); flagship step "
+          f"medians {medians}; curves synthesis {curves['synth_s']:.3f} s "
+          f"against {curves['device_s']:.3f} s on the card")
+    return total
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -9173,14 +9629,14 @@ ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
 
 
 def only_phase(torch, phase):
-    """`chip_smoke.py --phase 25` (or 26, 27): the kernels built, then
-    that phase alone (a quick check of one phase; the full run is the
-    contract). Phase 26 alone trains phase 20a's host-path Word2Vec
-    first and reads its own quick sweep's telemetry at /timeline; phase
+    """`chip_smoke.py --phase 25` (or 26, 27, 28): the kernels built,
+    then that phase alone (a quick check of one phase; the full run is
+    the contract). Phase 26 alone trains phase 20a's host-path Word2Vec
+    first and reads its flagship step's telemetry at /timeline; phase
     27 alone writes phase 25a's CSV itself and runs the tools over its
     own logs only (phases 18c and 24a leave none)."""
-    if phase not in ("25", "26", "27"):
-        print(f"chip_smoke: --phase takes 25, 26 or 27, not {phase}",
+    if phase not in ("25", "26", "27", "28"):
+        print(f"chip_smoke: --phase takes 25, 26, 27 or 28, not {phase}",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -9209,6 +9665,9 @@ def only_phase(torch, phase):
 
         tracing_and_resume(torch, counters, transformer_lm, DataSet,
                            Word2Vec, name_power)
+    elif phase == "28":
+        datasets_and_utils(torch, counters, transformer_lm, DataSet,
+                           name_power)
     else:
         from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 
@@ -9359,7 +9818,9 @@ def main() -> int:
         barnes_hut)
     trace_launches = tracing_and_resume(torch, counters, transformer_lm,
                                         DataSet, Word2Vec, name_power)
-    log(f"chip_smoke: phases 1-27 in {time.perf_counter() - started:.1f} s")
+    data_launches = datasets_and_utils(torch, counters, transformer_lm,
+                                       DataSet, name_power)
+    log(f"chip_smoke: phases 1-28 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -9382,7 +9843,8 @@ def main() -> int:
     # twin, the sharded engine's arms and the data meshes, phase 25's
     # CLI server and cost book, phase 26's flagship step under the
     # tuning table and the UI's steps, phase 27's profiled steps, resumed
-    # zips and raw-string Word2Vec), each counted
+    # zips and raw-string Word2Vec, phase 28's flagship fed through the
+    # async and multiple-epoch iterators and its plain twin), each counted
     # from 0 just before it and read just after (in the process that
     # ran it). K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
@@ -9391,7 +9853,7 @@ def main() -> int:
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
             par_launches, place_launches, pipe_launches, fleet_launches,
-            tel_launches, tune_launches, trace_launches)
+            tel_launches, tune_launches, trace_launches, data_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

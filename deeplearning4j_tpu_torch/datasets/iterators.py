@@ -3,9 +3,8 @@ deeplearning4j_tpu/datasets/iterators.py; the port's own copy of that
 numpy-only module).
 
 Reference: datasets/iterator/DataSetIterator.java (next(n)/batch/
-totalExamples/inputColumns/reset/setPreProcessor), ListDataSetIterator.
-MultipleEpochsIterator and SamplingDataSetIterator come with a later
-slice.
+totalExamples/inputColumns/reset/setPreProcessor), ListDataSetIterator,
+MultipleEpochsIterator, SamplingDataSetIterator.
 """
 
 from __future__ import annotations
@@ -180,3 +179,63 @@ class ExistingDataSetIterator(DataSetIterator):
 
     def batch(self):
         return -1
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replays an underlying iterator N times (reference MultipleEpochsIterator)."""
+
+    def __init__(self, epochs: int, underlying: DataSetIterator):
+        super().__init__()
+        self._epochs = epochs
+        self._under = underlying
+        self._epoch = 0
+
+    def has_next(self):
+        if self._under.has_next():
+            return True
+        if self._epoch + 1 < self._epochs:
+            self._epoch += 1
+            self._under.reset()
+            return self._under.has_next()
+        return False
+
+    def next(self, num=None):
+        return self._apply_pre(self._under.next(num))
+
+    def reset(self):
+        self._epoch = 0
+        self._under.reset()
+
+    def batch(self):
+        return self._under.batch()
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """Sample `batch` examples with replacement per step (reference
+    SamplingDataSetIterator)."""
+
+    def __init__(self, dataset: DataSet, batch_size: int, total_samples: int, seed=0):
+        super().__init__()
+        self._ds = dataset
+        self._batch = batch_size
+        self._total = total_samples
+        self._given = 0
+        self._rng = np.random.default_rng(seed)
+
+    def has_next(self):
+        return self._given < self._total
+
+    def next(self, num=None):
+        n = num or self._batch
+        idx = self._rng.integers(0, self._ds.num_examples(), size=n)
+        self._given += n
+        return self._apply_pre(DataSet(
+            self._ds.features[idx],
+            None if self._ds.labels is None else self._ds.labels[idx],
+        ))
+
+    def reset(self):
+        self._given = 0
+
+    def batch(self):
+        return self._batch

@@ -497,18 +497,18 @@ def measure(torch, case, params_by_row, repeats):
 def sweep(torch, configs: list[dict], repeats: int, margin: float,
           recorder) -> dict:
     """Check and time the default and each candidate per config ->
-    {key: entry}."""
+    {key: entry}. The provenance is the `kernel_tune` events alone, as
+    in the JAX sweep: each config's `chosen` event carries the config's
+    wall seconds (`wall_seconds`)."""
     entries: dict[str, dict] = {}
     for cfg in configs:
-        with recorder.span("kerneltune_config", kernel=cfg["family"],
-                           key=config_key(cfg)):
-            entries.update(_sweep_one(torch, cfg, repeats, margin,
-                                      recorder))
+        entries.update(_sweep_one(torch, cfg, repeats, margin, recorder))
     return entries
 
 
 def _sweep_one(torch, cfg, repeats, margin, recorder) -> dict:
     """One config of `sweep` -> {key: entry}."""
+    t_wall = time.perf_counter()
     key = config_key(cfg)
     fam = cfg["family"]
     case = Case(torch, cfg)
@@ -551,7 +551,8 @@ def _sweep_one(torch, cfg, repeats, margin, recorder) -> dict:
         for row, tb, td in zip(case.rows, t_best, t_dflt))
     recorder.kernel_tune(fam, key, best, seconds=sum(t_best) * 1e-6,
                          role="chosen",
-                         default_seconds=round(sum(t_dflt) * 1e-6, 9))
+                         default_seconds=round(sum(t_dflt) * 1e-6, 9),
+                         wall_seconds=round(time.perf_counter() - t_wall, 6))
     won = "tuned" if best != dflt[0] else "default"
     print(f"{key}: {won} {best} best={sum(t_best):.3f}us "
           f"default={sum(t_dflt):.3f}us ({n_cand} candidates timed)",
@@ -581,6 +582,47 @@ def provenance(torch, repeats: int, margin: float, quick: bool) -> dict:
         "quick": quick,
         "timing": "CUDA events, L2 warm, least of the repeats' means",
     }
+
+
+def audit(table: dict, events: list[dict]) -> list[str]:
+    """What is wrong with a sweep's table beside its telemetry (the
+    events of its `--telemetry` file) -> problems, none when the table is
+    valid, each entry has exactly one `chosen` event with its wall
+    seconds, its params are the default's or a candidate's that passed
+    its plain-version check (never a rejected one), its candidate count
+    is that of its `candidate` events, no `chosen` event names a key the
+    table lacks, and every span name is a registered one."""
+    from deeplearning4j_tpu_torch.ops import autotune
+    from deeplearning4j_tpu_torch.telemetry.recorder import SPAN_NAMES
+
+    bad = autotune.validate_table(table)
+    tunes = [e for e in events if e.get("event") == "kernel_tune"]
+    for key, entry in table["entries"].items():
+        params = {k: v for k, v in entry.items()
+                  if k not in autotune.ENTRY_META_FIELDS}
+        evs = [e for e in tunes if e["key"] == key]
+        passed = [e["params"] for e in evs
+                  if e["role"] in ("default", "candidate")]
+        rejected = [e["params"] for e in evs if e["role"] == "rejected"]
+        chosen = [e for e in evs if e["role"] == "chosen"]
+        timed = sum(e["role"] == "candidate" for e in evs)
+        if ([e["params"] for e in chosen] != [params]
+                or params not in passed or params in rejected
+                or timed != entry["candidates"]):
+            bad.append(f"{key}: chosen {[e['params'] for e in chosen]}, "
+                       f"entry {params}, passed {passed}, rejected "
+                       f"{rejected}, {timed} timed")
+        elif not isinstance(chosen[0].get("wall_seconds"), (int, float)):
+            bad.append(f"{key}: the chosen event has no wall_seconds")
+    stray = sorted({e["key"] for e in tunes if e["role"] == "chosen"}
+                   - set(table["entries"]))
+    if stray:
+        bad.append(f"chosen events for keys the table lacks: {stray}")
+    names = sorted({e.get("name") for e in events if e.get("event") == "span"}
+                   - SPAN_NAMES)
+    if names:
+        bad.append(f"unregistered span names: {names}")
+    return bad
 
 
 def main(argv=None) -> int:

@@ -61,7 +61,8 @@ def test_package_imports_without_jax():
     missing = {f"deeplearning4j_tpu_torch.{m}"
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
                + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE
-               + TELEMETRY_SLICE + TUNING_UI_SLICE + TRACING_SLICE} - names
+               + TELEMETRY_SLICE + TUNING_UI_SLICE + TRACING_SLICE
+               + DATA_UTIL_SLICE} - names
     assert not missing, missing
 
 
@@ -127,6 +128,46 @@ TUNING_UI_SLICE = (
 # (ROADMAP A9.10, A9.6)
 TRACING_SLICE = ("util.profiler", "telemetry.recorder", "native",
                  "datasets.records")
+
+
+# the rest of datasets/ and util/ (ROADMAP A9.4, A9.5)
+DATA_UTIL_SLICE = (
+    "datasets", "datasets.iterators", "datasets.async_iterator",
+    "datasets.iris", "datasets.curves", "datasets.image_records",
+    "datasets.lfw", "datasets.vectorizer", "datasets.rearrange",
+    "util.image_loader", "util.disk_queue", "util.moving_window",
+    "util.sloppy_math", "util.string_grid", "util.time_series",
+    "util.viterbi")
+
+
+def test_data_util_slice_leaves_no_sklearn_or_jax():
+    """Importing the datasets package and every new util module leaves
+    neither scikit-learn nor jax (nor the JAX package) in sys.modules:
+    Iris reads the port's own CSV, and Pillow is the image loader's only
+    optional import."""
+    mods = " ".join(f"deeplearning4j_tpu_torch.{m}" for m in DATA_UTIL_SLICE)
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}.split():\n"
+            "    importlib.import_module(m)\n"
+            "from deeplearning4j_tpu_torch.datasets import "
+            "IrisDataSetIterator\n"
+            "assert IrisDataSetIterator().next().features.shape == (150, 4)\n"
+            "print(sorted(m for m in ('sklearn', 'jax', 'deeplearning4j_tpu')"
+            " if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[-2] == "[]", out.stdout
+    for mod in DATA_UTIL_SLICE:
+        path = ROOT / "deeplearning4j_tpu_torch" / (
+            mod.replace(".", "/") + ".py")
+        if not path.exists():
+            path = path.with_suffix("") / "__init__.py"
+        assert path in PORT_FILES, mod
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in FORBIDDEN + ("sklearn",)]
+        assert not bad, (mod, bad)
+    assert (ROOT / "deeplearning4j_tpu_torch/datasets/iris.csv").exists()
 
 
 def test_tracing_slice_files_are_covered():

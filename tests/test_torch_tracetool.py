@@ -246,10 +246,12 @@ def _literal(node):
 
 
 def test_every_literal_event_and_span_is_registered():
-    """Over every .py of the port's package, as the JAX package's G023
-    lints its own package (the tools under port_tools/ are scripts; the
-    sweep's `kerneltune_config` span is listed in ROADMAP Queue C)."""
-    files = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py"))
+    """Over every .py of the port's package and of port_tools/ (the
+    sweep, the trace and traffic tools), as the JAX package's G023 lints
+    its own package."""
+    files = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) \
+        + sorted((ROOT / "port_tools").glob("*.py"))
+    assert ROOT / "port_tools" / "kerneltune.py" in files
     bad, seen = [], 0
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
