@@ -27,7 +27,10 @@ and t-SNE over word vectors and the training UI, the port's own
 trace tools, profiler, JAX zips resuming with their updater, and the
 native IO core, and the rest of the data loaders (Iris, LFW, Curves,
 image records, the async, multiple-epoch and sampling iterators, the
-disk queue) fed into fits.
+disk queue) fed into fits, and the rest of the parallel compositions
+(sequence parallelism with tensor and with pipeline parallelism,
+resuming into another placement, the split net's decode, the solvers
+under a mesh).
 
 Run from the root of a checkout, with no arguments:
 
@@ -393,8 +396,12 @@ Phases, each of which exits non-zero when it fails:
    coordinator, restores step 3 and ends bit for bit on the uninterrupted
    run's params, the launches summed over the generations equal its
    (6 steps of phase 6's counts), the journal holds both generations and
-   the `reform` event; each generation's wall time, the restore's time
-   and bytes, the replacement's start-to-first-step time. 24b: two
+   the `reform` event; each generation's wall time, the replacement's
+   resume_from(target_mesh=...) time (placement included) and its
+   restore's record (its `reshard_plan`; where the placement splits a
+   leaf, the `reshard` span's seconds and bytes read, the plan's or the
+   phase fails; else the whole checkpoint's bytes), the replacement's
+   start-to-first-step time. 24b: two
    `run_elastic_worker` processes (`--average-worker`) average the
    flagship through a ClusterCoordinator on the card, 3 rounds on half
    of phase 6's rows each, worker 1 killed at its second round and
@@ -529,6 +536,27 @@ Phases, each of which exits non-zero when it fails:
    input falls from its initial params to its trained ones; the
    synthesis seconds apart from the card's. `--phase 28` runs the build
    and this phase alone.
+29. The rest of A7, at world size 1 over NCCL and in one process
+   (`compositions`). 29a: the flagship at bench mode longcontext's dims
+   (T 4096, batch 4, bf16) under {"seq": 1, "model": 1} bit for bit
+   with plain fit and with its launches; block 0's attention over 2
+   model shards, each a ring of 4 blocks of 1024 on its head, against
+   the whole layer with an f32 reference (exactly 20 K1 and 20 K5).
+   29b: {"pipe": 1, "seq": 1} at M = 1 bit for bit with the meshless
+   net at the same dims; 2 in-process stages with a ring of 2 blocks in
+   each, M = 4, with and without a labels mask: launches stated before
+   the run, f32 twins within PIPE_PARITY_TOL of the meshless nets. 29c:
+   `resume_from(target_mesh=..., target_axes=...)` of a {"data": 1,
+   "model": 1} flagship checkpoint into {"pipe": 1}, and of an MLP's
+   into a ZeRO-1 placement: the bytes read are the plan's, one step bit
+   for bit with a whole restore then set_mesh (24a's workers restore
+   through it too). 29d: the serving flagship split over 2 model shards
+   in this process through GenerationEngine, greedy tokens held to the
+   whole net's full forward, a sampled run of exactly 32 K12 launches,
+   each shard's cache half the whole's. 29e: LeNet-5 by LBFGS under
+   {"data": 1} bit for bit with the meshless solve (deterministic
+   cuDNN; a failure reports two meshless solves' distance beside the
+   difference). `--phase 29` runs the build and this phase alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -6993,8 +7021,12 @@ def elastic_worker(ckpt, out, started):
     ElasticSupervisor. Restores the latest checkpoint, trains the
     flagship to the supervisor's step budget through
     `run_elastic_steps` on the searched placement of its fleet, and
-    writes OUT/<worker>.json after every step (its launch counts, the
-    restore's time and bytes, the time from its start to its first
+    writes OUT/<worker>.json after every step (its launch counts; the
+    restore's record: its `reshard_plan` and, where the placement
+    splits a leaf, its `reshard` span's seconds and the bytes this rank
+    read against the plan's, else the whole checkpoint's bytes, which a
+    rank that keeps every leaf whole reads; the whole resume_from's
+    seconds, placement included; the time from its start to its first
     step) and OUT/<worker>_params.pt at the end."""
     import torch
 
@@ -7014,18 +7046,38 @@ def elastic_worker(ckpt, out, started):
     counters.reset()
     c = TRAIN
     net = flagship(transformer_lm, max_length=c["seq"]).init(SEED)
-    t0 = time.perf_counter()
-    start = net.resume_from(ckpt)
-    torch.cuda.synchronize()
-    progress = {"worker": worker, "start_step": start,
-                "restore_s": time.perf_counter() - t0,
-                "restore_bytes": (Checkpointer(ckpt).read_meta(start)[
-                    "model_bytes"] if start else 0),
-                "first_step_s": None, "steps": [], "launches": {}}
     mesh, axes, result = elastic.searched_global_mesh(
         net, objective=Objective(global_batch=c["batch"]))
+    # the restore through the resharding engine into the searched
+    # placement (29c): the net is left placed on the global mesh, and
+    # the restore is on the record
+    record = []
+    get_default().add_sink(lambda ev: record.append(ev) if (
+        ev.get("event") == "reshard_plan" or (
+            ev.get("event") == "span" and ev.get("name") == "reshard"))
+        else None)
+    t0 = time.perf_counter()
+    start = net.resume_from(ckpt, target_mesh=mesh, target_axes=axes)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    read = [e for e in record if e["event"] == "span"]
+    progress = {"worker": worker, "start_step": start,
+                "resume_s": resume_s,
+                "restore_plans": [(e["src"], e["dst"], e["bytes_moved"])
+                                  for e in record
+                                  if e["event"] == "reshard_plan"],
+                "restore_spans": len(read),
+                "first_step_s": None, "steps": [], "launches": {}}
+    if read:  # a split placement: each rank reads its part
+        progress.update(
+            restore_s=sum(e["seconds"] for e in read),
+            restore_bytes=sum(e["bytes_moved"] for e in read),
+            restore_planned=sum(e["bytes_planned"] for e in read))
+    elif start:  # every leaf whole on this rank: the whole file read
+        progress.update(restore_s=None, restore_planned=None,
+                        restore_bytes=Checkpointer(ckpt).read_meta(start)[
+                            "model_bytes"])
     progress["placement"] = result.winner.describe()
-    net.set_mesh(mesh, axes=axes)
     ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
     path = Path(out) / f"{worker}.json"
 
@@ -7166,14 +7218,31 @@ def elastic_on_card(torch, card):
                             f"run's (two uninterrupted runs: {floor:.3e})")
     gen_s = [round(g.seconds, 3) for g in k_res.generations]
     rep = k_prog.get("w1", {})
+    if not rep.get("restore_plans") or (
+            rep.get("restore_spans")
+            and rep.get("restore_bytes") != rep.get("restore_planned")):
+        failures.append(f"the replacement's restore: plans "
+                        f"{rep.get('restore_plans')}, "
+                        f"{rep.get('restore_spans')} reshard spans, "
+                        f"{rep.get('restore_bytes')} bytes read, "
+                        f"{rep.get('restore_planned')} planned")
+    if rep.get("restore_spans"):
+        read = (f"its reshard span read {rep.get('restore_bytes')} bytes "
+                f"(planned {rep.get('restore_planned')}) in "
+                f"{rep.get('restore_s'):.4f} s")
+    else:
+        read = (f"the placement keeps every leaf whole, so it read the "
+                f"whole checkpoint ({rep.get('restore_bytes')} bytes; no "
+                f"reshard span)")
     log24(card, f"24a: ElasticSupervisor, flagship ({n_params} params, "
           f"bf16, batch {TRAIN['batch']} x {TRAIN['seq']}), {S} steps, a "
           f"checkpoint a step, faults {ELASTIC['faults']}: generations "
           f"{classes} of members {members}, wall {gen_s} s "
           f"(uninterrupted {[round(g.seconds, 3) for g in w_res.generations]}"
-          f" s); placement {rep.get('placement')}; the replacement restored "
-          f"step {rep.get('start_step')} ({rep.get('restore_bytes')} bytes) "
-          f"in {rep.get('restore_s', 0):.4f} s and took its first step "
+          f" s); placement {rep.get('placement')}; the replacement's "
+          f"resume_from(target_mesh=...) of step {rep.get('start_step')} "
+          f"took {rep.get('resume_s', 0):.4f} s, placement included, plan "
+          f"{rep.get('restore_plans')}; {read}; it took its first step "
           f"{rep.get('first_step_s', 0):.3f} s after its start (host "
           f"clock); resumes {resumes}; final params against the "
           f"uninterrupted run: equal {same}, largest difference "
@@ -9559,6 +9628,577 @@ def datasets_and_utils(torch, counters, transformer_lm, DataSet, card):
     return total
 
 
+# ------------------------------------------------------------ phase 29
+
+# the compositions of the rest of A7 at world size 1 over NCCL and in one
+# process: 29a/29b at bench mode longcontext's dims (T 4096, batch 4),
+# where the meshless flagship runs the ring's kernels (K1/K5 over the
+# whole sequence: 21d), so a ring of one block is its step bit for bit
+COMPOSE = dict(seq=4096, batch=4, steps=2, timed=2, ring_blocks=4,
+               shards=2, pipe_M=4, pipe_blocks=2)
+# 29d's greedy and sampled tokens
+SPLIT_NEW = 32
+
+
+def log29(card, msg):
+    """A phase-29 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def no_launches(counters):
+    return {k: 0 for k in counters.read()}
+
+
+def compose_net(transformer_lm, dtype="bfloat16", seq_axis="", T=None):
+    c = TRAIN
+    return transformer_lm(vocab_size=c["vocab_size"], d_model=c["d_model"],
+                          n_heads=c["n_heads"], n_layers=c["n_layers"],
+                          d_ff=c["d_ff"], max_length=T or COMPOSE["seq"],
+                          dtype=dtype, device="cuda",
+                          seq_parallel_axis=seq_axis).init(SEED)
+
+
+def labels_masked(DataSet, ds, seed):
+    """`ds` with a labels mask (each label kept with probability 0.7,
+    the first of a row always: the JAX package's
+    test_seq_pipe_masked_loss_matches_dense), so each time block holds
+    its own count of valid labels."""
+    rng = np.random.default_rng(seed)
+    m = (rng.random(ds.labels.shape) < 0.7).astype(np.float32)
+    m[:, 0] = 1.0
+    return DataSet(ds.features, ds.labels, labels_mask=m)
+
+
+def seq_model_on_card(torch, counters, transformer_lm, DataSet, mesh,
+                      card):
+    """29a: "seq" with "model". (i) The flagship at longcontext's dims
+    under {"seq": 1, "model": 1} (NCCL, world size 1; set_mesh, the SP
+    step over the split layers): COMPOSE's steps bit for bit with plain
+    fit and with 21d's launches (K1 = K5 = 6 a step, K8 = K9 = 1). (ii)
+    Block 0's attention over 2 model shards in this process, each shard
+    (its one head of 128) running the ring over 4 blocks of 1024
+    (`attention_shards` under a `SeqShard` of an `InProcessRing`),
+    against the whole layer (K1/K5 over the whole sequence) with an f32
+    reference: the split's largest relative error over the output and
+    every gradient at most SPLIT_RATIO x the whole's; exactly 20 K1 and
+    20 K5 (10 of each a shard); each arm's forward + backward time.
+    Returns the launches of (i) and of the split arm."""
+    from deeplearning4j_tpu_torch.nn.layers import get_impl
+    from deeplearning4j_tpu_torch.nn.layers.attention import attention_shards
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+    from deeplearning4j_tpu_torch.ops.shard_scope import SeqShard, sharded
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        InProcessRing,
+    )
+
+    c, L = COMPOSE, TRAIN["n_layers"]
+    ds = lm_batch(DataSet, TRAIN["vocab_size"], c["batch"], c["seq"])
+    plain = compose_net(transformer_lm)
+    sm = compose_net(transformer_lm, seq_axis="seq")
+    sm.set_mesh(mesh, axes={"seq": "seq", "model": "model"})
+    runs, losses = {}, {}
+    for name, net in (("seq x model", sm), ("plain", plain)):
+        torch.cuda.synchronize()
+        counters.reset()
+        losses[name] = []
+        for _ in range(c["steps"]):
+            net.fit(ds)
+            losses[name].append(net.score_value)
+        torch.cuda.synchronize()
+        runs[name] = counters.read()
+    same = canonical_equal(torch, plain, sm) and (
+        losses["plain"] == losses["seq x model"])
+    fit = runs["seq x model"]
+    log29(card, f"29a(i): {{seq 1, model 1}} (NCCL, world size 1), T "
+          f"{c['seq']} batch {c['batch']} bf16, {c['steps']} steps: "
+          f"losses {losses}; params bit for bit with plain fit's {same}; "
+          f"launches {runs}")
+    if not same:
+        raise PhaseFailed("29a", "seq x model at one rank is not plain fit "
+                                 "bit for bit")
+    if (fit["K1"], fit["K5"], fit["K2"], fit["K8"]) != (
+            L * c["steps"], L * c["steps"], 0, c["steps"]) \
+            or fit != runs["plain"]:
+        raise PhaseFailed("29a", f"launches {runs}")
+    sm.set_mesh(None)
+
+    conf = sm.layer_vertices["blk0_attn"].layer
+    P = sm.params["blk0_attn"]
+    split = {"Wqkv": 1, "bqkv": 0, "Wo": 0}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    x32 = torch.randn((c["batch"], c["seq"], TRAIN["d_model"]),
+                      generator=g, device="cuda")
+    cot32 = torch.randn(x32.shape, generator=g, device="cuda")
+    names = ["x"] + sorted(P)
+
+    def run(dtype, shards):
+        p = {k: t.detach().to(dtype).requires_grad_() for k, t in P.items()}
+        x = x32.to(dtype).requires_grad_()
+        if shards:
+            tr = InProcessShards(shards)
+            with sharded(seq=SeqShard(conf.seq_parallel_axis,
+                                      InProcessRing(c["ring_blocks"]), 0,
+                                      1)):
+                y = attention_shards(
+                    conf, tr.pieces(p, split, conf.n_heads), x, tr)
+        else:
+            y = get_impl(conf).apply(conf, p, {}, x)[0]
+        grads = torch.autograd.grad(y, [x] + [p[k] for k in sorted(p)],
+                                    cot32.to(dtype))
+        return {"y": y.detach(), **dict(zip(names, grads))}
+
+    ref = run(torch.float32, 0)
+    whole = run(torch.bfloat16, 0)
+    torch.cuda.synchronize()
+    counters.reset()
+    parts = run(torch.bfloat16, c["shards"])
+    torch.cuda.synchronize()
+    launches = counters.read()
+    e_w = max(_rel(whole[k], ref[k]) for k in ref)
+    e_s = max(_rel(parts[k], ref[k]) for k in ref)
+    per_shard = c["ring_blocks"] * (c["ring_blocks"] + 1) // 2
+    want = no_launches(counters)
+    want.update({"K1": c["shards"] * per_shard,
+                 "K5": c["shards"] * per_shard})
+    arm_ms = {"whole": event_ms(torch, lambda: run(torch.bfloat16, 0),
+                                c["timed"]),
+              f"{c['shards']} shards x ring of {c['ring_blocks']}":
+                  event_ms(torch, lambda: run(torch.bfloat16, c["shards"]),
+                           c["timed"])}
+    log29(card, f"29a(ii): block 0's attention at T {c['seq']} batch "
+          f"{c['batch']} over {c['shards']} model shards in this process, "
+          f"each a ring of {c['ring_blocks']} blocks of "
+          f"{c['seq'] // c['ring_blocks']} on its head of 128: largest "
+          f"relative error against the f32 reference, whole bf16 "
+          f"{e_w:.3e}, split bf16 {e_s:.3e} (gate {SPLIT_RATIO} x the "
+          f"whole's); launches {launches} (expected {want}); forward + "
+          f"backward ms (CUDA events, median of {c['timed']}) {arm_ms}")
+    if not e_s <= SPLIT_RATIO * e_w:
+        raise PhaseFailed("29a", "the split ring is off the whole layer "
+                                 "beyond bf16 rounding")
+    if launches != want:
+        raise PhaseFailed("29a", f"the split ring launched {launches}, "
+                                 f"expected {want}")
+    return [fit, launches], {"errors": (e_w, e_s), "ms": arm_ms}
+
+
+def pipe_seq_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
+    """29b: "seq" with "pipe" at longcontext's dims. (i) {"pipe": 1,
+    "seq": 1} at M = 1 (NCCL, world size 1): COMPOSE's steps bit for bit
+    with the meshless net, with its launches. (ii) S = 2 stages in this
+    process, each stage's attention the ring over 2 blocks of 2048
+    (`place_in_process(..., seq_blocks=2)`), M = 4, without and with a
+    labels mask: the launches stated before the run (3 ring hops a block
+    a microbatch: K1 = K5 = 3·6·M a step; K8 = K9 = M), and f32 twins
+    within PIPE_PARITY_TOL of the meshless f32 nets (the masked arm of
+    the masked meshless net). Each arm's step time. Returns the
+    launches of the composed arms."""
+    from deeplearning4j_tpu_torch.parallel.pipeline import place_in_process
+
+    c, L, M = COMPOSE, TRAIN["n_layers"], COMPOSE["pipe_M"]
+    n = c["steps"]
+    ds = lm_batch(DataSet, TRAIN["vocab_size"], c["batch"], c["seq"])
+    dsm = labels_masked(DataSet, ds, SEED + 29)
+    hops = c["pipe_blocks"] * (c["pipe_blocks"] + 1) // 2
+
+    def arm_net(arm, dtype="bfloat16"):
+        if arm.startswith("meshless"):
+            return compose_net(transformer_lm, dtype)
+        net = compose_net(transformer_lm, dtype, seq_axis="seq")
+        if arm.startswith("pipe 1"):
+            net.set_mesh(mesh, axes={"pipe": "pipe", "seq": "seq"},
+                         n_microbatches=1)
+        else:
+            place_in_process(net, 2, M, seq_blocks=c["pipe_blocks"])
+        return net
+
+    arms = {"meshless": ds, "pipe 1 seq 1 M=1": ds,
+            "in-process S=2 ring 2": ds, "meshless masked": dsm,
+            "in-process S=2 ring 2 masked": dsm}
+    want = no_launches(counters)
+    want.update({"K1": hops * L * M * n, "K5": hops * L * M * n,
+                 "K8": M * n, "K9": M * n, "K9 dW": M * n})
+    log29(card, f"29b: expected launches of each in-process arm over {n} "
+          f"steps: {want}")
+    nets, runs, losses = {}, {}, {}
+    for arm, data in arms.items():
+        net = arm_net(arm)
+        torch.cuda.synchronize()
+        counters.reset()
+        losses[arm] = []
+        for _ in range(n):
+            net.fit(data)
+            losses[arm].append(float(net._score_raw))
+        torch.cuda.synchronize()
+        runs[arm] = counters.read()
+        nets[arm] = net
+    same = (canonical_equal(torch, nets["meshless"],
+                            nets["pipe 1 seq 1 M=1"])
+            and losses["meshless"] == losses["pipe 1 seq 1 M=1"])
+    log29(card, f"29b(i): {{pipe 1, seq 1}} at M = 1 (NCCL, world size 1), "
+          f"{n} steps: params and every loss bit for bit with the meshless "
+          f"net's {same}; launches {runs['pipe 1 seq 1 M=1']} (meshless "
+          f"{runs['meshless']})")
+    if not same or runs["pipe 1 seq 1 M=1"] != runs["meshless"]:
+        raise PhaseFailed("29b", "pipe x seq at M = 1 is not the meshless "
+                                 "step bit for bit")
+    for arm in ("in-process S=2 ring 2", "in-process S=2 ring 2 masked"):
+        if runs[arm] != want:
+            raise PhaseFailed("29b", f"{arm}: launches {runs[arm]}, "
+                                     f"expected {want}")
+    gap = {}
+    for arm, base in (("in-process S=2 ring 2", "meshless"),
+                      ("in-process S=2 ring 2 masked", "meshless masked")):
+        a, b = arm_net(arm, "float32"), arm_net(base, "float32")
+        for _ in range(n):
+            a.fit(arms[arm])
+            b.fit(arms[base])
+        gap[arm] = max_param_diff(torch, b, a)
+        del a, b
+    steps = {arm: event_ms(torch, lambda nt=nets[arm], d=data: nt.fit(d),
+                           c["timed"]) for arm, data in arms.items()}
+    log29(card, f"29b(ii): S = 2 in-process stages, a ring of "
+          f"{c['pipe_blocks']} blocks of {c['seq'] // c['pipe_blocks']} in "
+          f"each, M = {M}, {n} steps: launches {runs['in-process S=2 ring 2']}"
+          f" and masked {runs['in-process S=2 ring 2 masked']} (exact); "
+          f"the f32 twins' largest param distance from the meshless f32 "
+          f"nets {gap} (gate {PIPE_PARITY_TOL}); losses "
+          f"{ {a: losses[a] for a in arms} }; step ms (CUDA events, median "
+          f"of {c['timed']} after one warm) {steps}")
+    bad = {a: g for a, g in gap.items() if not g <= PIPE_PARITY_TOL}
+    if bad:
+        raise PhaseFailed("29b", f"pipe x seq params off the meshless "
+                                 f"net's by {bad} (f32)")
+    total = {k: runs["pipe 1 seq 1 M=1"][k]
+             + runs["in-process S=2 ring 2"][k]
+             + runs["in-process S=2 ring 2 masked"][k] for k in want}
+    return total, {"steps_ms": steps, "gap": gap}
+
+
+def resume_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
+    """29c: resume_from(target_mesh=..., target_axes=...) on both
+    containers. The flagship's checkpoint written under {"data": 1,
+    "model": 1} restored into {"pipe": 1} through the resharding engine:
+    the restored params are the source's, the bytes read are the plan's,
+    and one step is bit for bit the step of a twin restored whole and
+    then placed (23b's restore). A MultiLayerNetwork (an Adam MLP)
+    checkpoint under {"data": 1} restored into a ZeRO-1 placement (a
+    `reshard.Placement`) likewise. A missing named step raises
+    FileNotFoundError; an empty directory resumes from 0. 24a's elastic
+    workers restore through it. Returns the graph step's launches."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import conf as C
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.reshard.planner import Placement
+    from deeplearning4j_tpu_torch.telemetry import Recorder, set_default
+    from deeplearning4j_tpu_torch.util.checkpoint import Checkpointer
+
+    c = TRAIN
+    ds = lm_batch(DataSet, c["vocab_size"], c["batch"], c["seq"])
+    rng = np.random.default_rng(SEED + 29)
+    xm = rng.standard_normal((256, 4)).astype(np.float32)
+    ym = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 256)]
+    mlp = DataSet(xm, ym)
+    out, launches = {}, None
+    for kind in ("graph", "mln"):
+        if kind == "graph":
+            def make():
+                return pipe_net(torch, transformer_lm, mesh, "meshless")
+            src_axes, data = {"data": "data", "model": "model"}, ds
+            target = dict(target_mesh=mesh, target_axes={"pipe": "pipe"})
+        else:
+            def make():
+                return iris_mlp(C, MultiLayerNetwork)
+            src_axes, data = {"data": "data"}, mlp
+            target = dict(target_mesh=Placement.of(
+                {"data": 1}, {"data": "data"}, zero1=True))
+        with tempfile.TemporaryDirectory() as d:
+            src = make()
+            src.set_mesh(mesh, axes=src_axes)
+            src.fit(data)
+            Checkpointer(d).save(src)
+            placed = make()
+            rec = Recorder(path=None)
+            prev = set_default(rec)
+            try:
+                t0 = time.perf_counter()
+                start = placed.resume_from(d, **target)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            finally:
+                set_default(prev)
+            twin = make()
+            twin.resume_from(d)
+            twin.set_mesh(target["target_mesh"],
+                          axes=target.get("target_axes"))
+            try:
+                make().resume_from(d, 99, **target)
+                missing = False
+            except FileNotFoundError:
+                missing = True
+            with tempfile.TemporaryDirectory() as empty:
+                cold = make().resume_from(empty, **target)
+        plans = [e for e in rec.events if e.get("event") == "reshard_plan"]
+        read = [(e["seconds"], e["bytes_moved"], e["bytes_planned"])
+                for e in rec.events
+                if e.get("event") == "span" and e.get("name") == "reshard"]
+        restored = canonical_equal(torch, placed, src) and start == 1
+        torch.cuda.synchronize()
+        counters.reset()
+        placed.fit(data)
+        torch.cuda.synchronize()
+        if kind == "graph":
+            launches = counters.read()
+        twin.fit(data)
+        stepped = (canonical_equal(torch, placed, twin)
+                   and placed.score_value == twin.score_value)
+        out[kind] = {"restore_s": restore_s, "read": read}
+        log29(card, f"29c: {kind}: checkpoint of {src_axes} restored by "
+              f"resume_from({ {k: str(v) for k, v in target.items()} }): "
+              f"step {start}, params equal the source's {restored}, plan "
+              f"{[(p['src'], p['dst'], p['bytes_moved']) for p in plans]}, "
+              f"reshard span {read} (s, bytes read, planned), {restore_s:.3f}"
+              f" s; one step bit for bit with the twin restored whole and "
+              f"placed {stepped}; a missing step raises FileNotFoundError "
+              f"{missing}; an empty directory resumes from {cold}")
+        if not (restored and stepped and plans and read and missing
+                and cold == 0 and all(r[1] == r[2] for r in read)):
+            raise PhaseFailed("29c", f"{kind}: resume_from into a target "
+                                     "placement")
+        for nt in (src, placed, twin):
+            nt.set_mesh(None)
+    return launches, out
+
+
+def split_decode_on_card(torch, counters, transformer_lm, card):
+    """29d: the serving flagship (f32, f32 cache) split over 2 "model"
+    shards in this process (tensor_parallel.place_in_process), served
+    through GenerationEngine: SPLIT_NEW greedy tokens for 4 prompts, each
+    the argmax of the whole net's full forward (a difference allowed only
+    at a top-2 margin under ORACLE_MARGIN_TOL, where the streams then
+    part); the prefill's K1 launches at a shard's one head of 128; one
+    sampled run through the split prefill and decode steps with exactly
+    SPLIT_NEW K12 launches; each shard's cache bytes half the whole
+    net's. The MoE LM's decode raises the JAX package's ValueError
+    meshless and split alike (its decode is not supported in either
+    package). Returns the launches."""
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_moe_lm,
+    )
+    from deeplearning4j_tpu_torch.nn.decode import make_decode_fn
+    from deeplearning4j_tpu_torch.ops import fused_sampling as fsm
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        place_in_process,
+    )
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+
+    m = COMPOSE["shards"]
+    whole = transformer_lm(**LM, dtype="float32", device="cuda").init(SEED)
+    net = transformer_lm(**LM, dtype="float32", device="cuda").init(SEED)
+    place_in_process(net, m)
+    engine = GenerationEngine(net, BucketLattice((1,), seq_lens=(64, 512,
+                                                                 1024)),
+                              slots=4, max_new_tokens=SPLIT_NEW,
+                              page_size=16, prefill_chunk=1024)
+    engine.warmup()
+    rng = torch.Generator().manual_seed(SEED + 29)
+    prompts = [torch.randint(0, LM["vocab_size"], (n,), generator=rng)
+               .numpy() for n in MLN_PROMPTS]
+    torch.cuda.synchronize()
+    counters.reset()
+    engine.start()
+    t0 = time.perf_counter()
+    reqs = [engine.submit_generate(p, SPLIT_NEW) for p in prompts]
+    for r in reqs:
+        if not r.wait(600) or r.error is not None:
+            raise PhaseFailed("29d", f"request {r.request_id}: {r.error}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    engine.drain()
+    checked, parted = 0, []
+    for prompt, r in zip(prompts, reqs):
+        seq = list(prompt)
+        for i, tok in enumerate(r.emitted):
+            probs = whole.output(np.asarray(seq)[None])[0, -1].float()
+            ref = int(probs.argmax())
+            if ref != tok:
+                top2 = probs.topk(2).values
+                margin = float(top2[0] - top2[1])
+                if margin >= ORACLE_MARGIN_TOL:
+                    raise PhaseFailed("29d", f"prompt of {len(prompt)}: "
+                                             f"token {i} is {tok}, the "
+                                             f"whole net gives {ref} (top-2 "
+                                             f"margin {margin:.3e})")
+                parted.append((len(prompt), i, margin))
+                break
+            checked += 1
+            seq.append(tok)
+    s = MLN_SAMPLED
+    toks = torch.randint(0, LM["vocab_size"], (s["rows"], s["prompt"]),
+                         generator=rng).numpy()
+    cap = s["prompt"] + SPLIT_NEW
+    cache = net.init_kv_cache(s["rows"], cap)
+    whole_cache = whole.init_kv_cache(s["rows"], cap)
+
+    def nbytes(entry):
+        return sum(t.numel() * t.element_size() for t in entry.values())
+
+    halves = all(nbytes(e) * m == nbytes(whole_cache[name])
+                 for name, entries in cache.items() for e in entries)
+    shard_bytes = sum(nbytes(e) for e in cache["blk0_attn"][:1])
+    prefill, step = net.prefill_fn(), net.incremental_decode_fn()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rows = np.arange(s["rows"])
+    counters.reset()
+    probs, cache = prefill(net.params, net.state, cache, toks,
+                           np.ones_like(toks, np.float32), rows,
+                           np.zeros_like(rows),
+                           np.full_like(rows, s["prompt"] - 1))
+    outside = 0
+    for pos in range(s["prompt"], s["prompt"] + SPLIT_NEW):
+        logits = probs.float().clamp_min(1e-30).log()
+        noise = fsm.gumbel_noise(gen, s["rows"], LM["vocab_size"], "cuda")
+        tok = fsm.fused_sample(logits, noise, temperature=1.0,
+                               top_k=s["top_k"], top_p=s["top_p"])
+        top = logits.topk(s["top_k"], dim=-1).indices
+        outside += int((top != tok.long()[:, None]).all(dim=-1).sum())
+        if pos < s["prompt"] + SPLIT_NEW - 1:
+            probs, cache = step(net.params, net.state, cache,
+                                tok.cpu().numpy(), np.full_like(rows, pos))
+    torch.cuda.synchronize()
+    sampled = counters.read()
+    # one decode step of the rows, split and whole, at the same position
+    tok_h = tok.cpu().numpy()
+    pos_h = np.full_like(rows, s["prompt"] + SPLIT_NEW - 1)
+    whole_step = whole.incremental_decode_fn()
+    step_ms = {
+        "whole": event_ms(torch, lambda: whole_step(
+            whole.params, whole.state, whole_cache, tok_h, pos_h), 20),
+        f"{m} shards": event_ms(torch, lambda: step(
+            net.params, net.state, cache, tok_h, pos_h), 20)}
+    moe_refusals = []
+    moe = transformer_moe_lm(vocab_size=64, d_model=32, n_heads=2,
+                             n_layers=2, n_experts=4, max_length=64,
+                             device="cuda").init(SEED)
+    for arm in ("meshless", "expert 2 in-process"):
+        if arm != "meshless":
+            place_in_process(moe, 2, role="expert")
+        try:
+            make_decode_fn(moe)
+        except ValueError as e:
+            moe_refusals.append("cannot stream one token" in str(e))
+    log29(card, f"29d: the serving flagship (f32) over {m} model shards in "
+          f"this process through GenerationEngine: {len(prompts)} prompts "
+          f"of {MLN_PROMPTS}, {SPLIT_NEW} greedy tokens each in {wall:.3f} "
+          f"s; {checked} tokens equal the whole net's full-forward argmax, "
+          f"streams parted at near-ties {parted}; launches {launches} (K1: "
+          f"the prefill's chunks at a shard's one head of 128). Sampled "
+          f"run ({s['rows']} rows, T 1.0, top-k {s['top_k']}, top-p "
+          f"{s['top_p']}): {outside} draws outside the row's top "
+          f"{s['top_k']}; launches {sampled}. Cache: each shard's entry "
+          f"half the whole layer's {halves} ({shard_bytes} bytes a shard "
+          f"of blk0_attn for {s['rows']} rows x {cap}); a decode step of "
+          f"the {s['rows']} rows, ms (CUDA events, median of 20) {step_ms}"
+          f"; the MoE LM's decode refused meshless and split "
+          f"{moe_refusals}")
+    if checked < len(prompts) * SPLIT_NEW // 2:
+        raise PhaseFailed("29d", f"only {checked} greedy tokens held to the "
+                                 "whole net")
+    if launches["K1"] == 0 or launches["K2"]:
+        raise PhaseFailed("29d", f"the split prefill launched {launches}")
+    if sampled["K12"] != SPLIT_NEW or outside:
+        raise PhaseFailed("29d", f"the sampled run: K12 {sampled['K12']} "
+                                 f"(expected {SPLIT_NEW}), {outside} draws "
+                                 f"outside the top {s['top_k']}")
+    if not halves or moe_refusals != [True, True]:
+        raise PhaseFailed("29d", f"cache halves {halves}, MoE refusals "
+                                 f"{moe_refusals}")
+    return {k: launches[k] + sampled[k] for k in launches}, step_ms
+
+
+def solver_on_card(torch, mesh, card):
+    """29e: phase 19d's LBFGS on LeNet-5 (5 iterations, a batch of 512,
+    f32) under {"data": 1} (NCCL, world size 1; the solve over the
+    mesh, optimize/solvers.MeshSpace) against the meshless solve, with
+    cuDNN's deterministic convolutions: bit for bit. A second meshless
+    solve gives the card's own spread, which a failure reports beside
+    the difference."""
+    from deeplearning4j_tpu_torch import models
+
+    mnist = image_data("lenet5", 512, 1).next()
+    nets, secs = {}, {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arm in ("meshless", "data 1", "meshless again"):
+            net = models.lenet5(dtype="float32", device="cuda")
+            net.conf.conf.optimization_algo = "lbfgs"
+            net.conf.conf.iterations = 5
+            net.init(SEED)
+            if arm == "data 1":
+                net.set_mesh(mesh, axes={"data": "data"})
+            t0 = time.perf_counter()
+            net.fit(mnist)
+            torch.cuda.synchronize()
+            secs[arm] = time.perf_counter() - t0
+            nets[arm] = net
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    dist = max_param_diff(torch, nets["meshless"], nets["data 1"])
+    floor = max_param_diff(torch, nets["meshless"], nets["meshless again"])
+    same = (dist == 0.0 and nets["meshless"].score_value
+            == nets["data 1"].score_value)
+    log29(card, f"29e: LeNet-5 by LBFGS (5 iterations, batch 512, f32, "
+          f"deterministic cuDNN) under {{data 1}} (NCCL, world size 1): "
+          f"params and score bit for bit with the meshless solve {same} "
+          f"(largest difference {dist:.3e}; two meshless solves "
+          f"{floor:.3e}); score {nets['data 1'].score_value:.6f}; seconds "
+          f"{secs}")
+    if not same:
+        raise PhaseFailed("29e", f"the solve under a mesh is not the "
+                                 f"meshless one: largest difference "
+                                 f"{dist:.3e}, two meshless solves "
+                                 f"{floor:.3e}")
+    nets["data 1"].set_mesh(None)
+    return secs
+
+
+def compositions(torch, counters, transformer_lm, DataSet, card):
+    """Phase 29: the rest of A7 — "seq" with "model" (29a) and with
+    "pipe" (29b), resume_from into a target placement (29c), the split
+    net's decode (29d) and the Solver under a mesh (29e) — at world size
+    1 over NCCL and in one process. Returns the launches of its
+    main-path runs and its numbers for the record."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh({"data": 1, "seq": 1, "model": 1, "pipe": 1})
+    rec = {}
+    try:
+        runs, rec["29a"] = seq_model_on_card(torch, counters,
+                                             transformer_lm, DataSet, mesh,
+                                             card)
+        pipe, rec["29b"] = pipe_seq_on_card(torch, counters, transformer_lm,
+                                            DataSet, mesh, card)
+        resume, rec["29c"] = resume_on_card(torch, counters, transformer_lm,
+                                            DataSet, mesh, card)
+        rec["29e"] = solver_on_card(torch, mesh, card)
+    finally:
+        bootstrap.shutdown()
+    decode, rec["29d"] = split_decode_on_card(torch, counters,
+                                              transformer_lm, card)
+    runs = runs + [pipe, resume, decode]
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+    log29(card, f"phase 29 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return launches, rec
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -9629,15 +10269,15 @@ ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
 
 
 def only_phase(torch, phase):
-    """`chip_smoke.py --phase 25` (or 26, 27, 28): the kernels built,
+    """`chip_smoke.py --phase 25` (or 26, 27, 28, 29): the kernels built,
     then that phase alone (a quick check of one phase; the full run is
     the contract). Phase 26 alone trains phase 20a's host-path Word2Vec
     first and reads its flagship step's telemetry at /timeline; phase
     27 alone writes phase 25a's CSV itself and runs the tools over its
     own logs only (phases 18c and 24a leave none)."""
-    if phase not in ("25", "26", "27", "28"):
-        print(f"chip_smoke: --phase takes 25, 26, 27 or 28, not {phase}",
-              file=sys.stderr)
+    if phase not in ("25", "26", "27", "28", "29"):
+        print(f"chip_smoke: --phase takes 25, 26, 27, 28 or 29, not "
+              f"{phase}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.datasets import DataSet
@@ -9668,6 +10308,8 @@ def only_phase(torch, phase):
     elif phase == "28":
         datasets_and_utils(torch, counters, transformer_lm, DataSet,
                            name_power)
+    elif phase == "29":
+        compositions(torch, counters, transformer_lm, DataSet, name_power)
     else:
         from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 
@@ -9820,7 +10462,9 @@ def main() -> int:
                                         DataSet, Word2Vec, name_power)
     data_launches = datasets_and_utils(torch, counters, transformer_lm,
                                        DataSet, name_power)
-    log(f"chip_smoke: phases 1-28 in {time.perf_counter() - started:.1f} s")
+    compose_launches, _ = compositions(torch, counters, transformer_lm,
+                                       DataSet, name_power)
+    log(f"chip_smoke: phases 1-29 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -9844,7 +10488,9 @@ def main() -> int:
     # CLI server and cost book, phase 26's flagship step under the
     # tuning table and the UI's steps, phase 27's profiled steps, resumed
     # zips and raw-string Word2Vec, phase 28's flagship fed through the
-    # async and multiple-epoch iterators and its plain twin), each counted
+    # async and multiple-epoch iterators and its plain twin, phase 29's
+    # seq x model steps and split ring, pipe x seq arms, resumed steps
+    # and split net's served and sampled tokens), each counted
     # from 0 just before it and read just after (in the process that
     # ran it). K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
@@ -9853,7 +10499,8 @@ def main() -> int:
             mode_launches, other_launches, w2v_launches, engine_launches,
             replay_launches, predict_launches, nn_launches, emb_launches,
             par_launches, place_launches, pipe_launches, fleet_launches,
-            tel_launches, tune_launches, trace_launches, data_launches)
+            tel_launches, tune_launches, trace_launches, data_launches,
+            compose_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

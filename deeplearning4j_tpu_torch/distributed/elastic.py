@@ -86,7 +86,8 @@ def searched_global_mesh(net=None, *, objective=None):
     mesh exists.
 
     Returns ``(mesh, axes, result)``: the mesh over every rank, the
-    role->axis dict for ``net.set_mesh(mesh, axes=axes)``, and the full
+    role->axis dict for ``net.resume_from(..., target_mesh=mesh,
+    target_axes=axes)`` or ``set_mesh(mesh, axes=axes)``, and the full
     ranked `SearchResult` (``result.winner`` is the Placement). Call
     after `bootstrap.initialize`."""
     import torch.distributed as dist
@@ -160,8 +161,10 @@ def join_control_plane():
 def run_elastic_steps(net, batch_for_step, total_steps: int, *,
                       checkpoint_dir: str, checkpoint_every: int = 1):
     """The worker-side elastic fit loop (call after
-    `bootstrap.initialize`, the restore of the latest checkpoint and
-    `set_mesh` on the global mesh).
+    `bootstrap.initialize` and `net.resume_from(checkpoint_dir,
+    target_mesh=mesh, target_axes=axes)` with the generation's searched
+    placement (`searched_global_mesh`): the restore through the
+    resharding engine, which leaves the net placed on the global mesh).
 
     Runs `nn/training.fit_steps` from the net's restored step to
     ``total_steps``; after each completed step the canonical trees are

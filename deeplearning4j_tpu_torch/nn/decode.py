@@ -41,7 +41,19 @@ Supported nets, either container: single-input/single-output stacks of
 time-pointwise layers (dense / embedding / layernorm / output heads /
 activation / dropout) plus causal SelfAttention and PositionalEncoding;
 elementwise, merge, scale and subset vertices ride along. Anything else
-raises at build time, naming the layer.
+raises at build time, naming the layer (a MoE layer too, as in the JAX
+package).
+
+A net whose layers a "model" placement split (set_mesh, one shard a
+rank; or `parallel.tensor_parallel.place_in_process`, n shards in this
+process) decodes split: the dense layers, the embedding and the head run
+their split forms (nn/layers/feedforward.py), and a split attention
+layer runs each held shard's heads on that shard's q, k and v columns
+against a cache entry of its own — `init_cache` gives such a layer one
+entry a held shard, [B, S, H/n, D] each, so a shard's cache holds its
+heads only — then multiplies by the shard's rows of Wo and sums the
+partial products over the shards (the row-parallel reduction), once a
+layer a step.
 """
 
 from __future__ import annotations
@@ -138,12 +150,6 @@ def _plan(net):
                            net.conf.get_preprocessor(i), [prev]))
             prev = name
         in_name, out_name = "__input__", prev
-    if any(op.kind == "layer" and layer_shard(op.conf) is not None
-           for op in ops):
-        from deeplearning4j_tpu_torch.parallel.placement import not_ported
-
-        not_ported("incremental decode of a net whose layers a 'model' or "
-                   "'expert' placement split (set_mesh(None) first)")
     if problems:
         raise ValueError(
             "incremental decode supports transformer stacks (pointwise "
@@ -160,45 +166,66 @@ def _decodable_layer(lc) -> bool:
     return isinstance(lc, _POINTWISE)
 
 
+def _cache_layout(net):
+    """[(layer_name, n_heads, heads of each cache entry or None,
+    head_dim)] for every attention layer: None for a whole layer (one
+    entry of all its heads), else the heads of each shard this process
+    holds of a split one."""
+    _, _, ops = _plan(net)
+    out = []
+    for op in ops:
+        if op.kind != "layer" or not isinstance(op.conf, SelfAttentionLayer):
+            continue
+        H, D = op.conf.n_heads, op.conf.n_out // op.conf.n_heads
+        shard = layer_shard(op.conf)
+        split = (None if shard is None else
+                 [H // shard.transport.n] * len(shard.transport.shards))
+        out.append((op.name, H, split, D))
+    return out
+
+
 def attention_specs(net):
     """[(layer_name, n_heads, head_dim)] for every attention layer — the
-    cache layout contract init_cache allocates by."""
-    _, _, ops = _plan(net)
-    return [(op.name, op.conf.n_heads, op.conf.n_out // op.conf.n_heads)
-            for op in ops
-            if op.kind == "layer" and isinstance(op.conf,
-                                                 SelfAttentionLayer)]
+    cache layout contract init_cache allocates by; a split layer counts
+    the heads of the shards this process holds."""
+    return [(name, sum(split) if split else H, D)
+            for name, H, split, D in _cache_layout(net)]
 
 
 def init_cache(net, batch: int, capacity: int, kv_dtype: str = "f32",
                page_size: int = 16):
     """Zeroed KV cache {layer: {"k": [batch, capacity, H, D], "v": ...}}
-    in the net's compute dtype, on the net's device. `capacity` is the
-    per-row key budget (prompt + generated, page-quantized by the
+    in the net's compute dtype, on the net's device (a split layer: a
+    list of such entries, one a held shard, of its heads). `capacity` is
+    the per-row key budget (prompt + generated, page-quantized by the
     serving layer). kv_dtype="int8" stores int8 codes plus per-(row,
     page, head) f32 scales ({"k", "k_scale", "v", "v_scale"}); capacity
     must then sit on the page grid."""
     dev = net.device
-    if kv_dtype == "int8":
-        if capacity % page_size != 0:
-            raise ValueError(
-                f"int8 cache needs page-quantized capacity; {capacity} "
-                f"is not a multiple of page_size {page_size}")
-        n_pages = capacity // page_size
-        return {name: {
-            "k": torch.zeros((batch, capacity, H, D), dtype=torch.int8,
-                             device=dev),
-            "k_scale": torch.zeros((batch, n_pages, H), device=dev),
-            "v": torch.zeros((batch, capacity, H, D), dtype=torch.int8,
-                             device=dev),
-            "v_scale": torch.zeros((batch, n_pages, H), device=dev)}
-            for name, H, D in attention_specs(net)}
-    dtype = net.compute_dtype
-    return {name: {"k": torch.zeros((batch, capacity, H, D), dtype=dtype,
-                                    device=dev),
-                   "v": torch.zeros((batch, capacity, H, D), dtype=dtype,
-                                    device=dev)}
-            for name, H, D in attention_specs(net)}
+    if kv_dtype == "int8" and capacity % page_size != 0:
+        raise ValueError(
+            f"int8 cache needs page-quantized capacity; {capacity} "
+            f"is not a multiple of page_size {page_size}")
+
+    def entry(H, D):
+        if kv_dtype == "int8":
+            n_pages = capacity // page_size
+            return {
+                "k": torch.zeros((batch, capacity, H, D), dtype=torch.int8,
+                                 device=dev),
+                "k_scale": torch.zeros((batch, n_pages, H), device=dev),
+                "v": torch.zeros((batch, capacity, H, D), dtype=torch.int8,
+                                 device=dev),
+                "v_scale": torch.zeros((batch, n_pages, H), device=dev)}
+        dtype = net.compute_dtype
+        return {"k": torch.zeros((batch, capacity, H, D), dtype=dtype,
+                                 device=dev),
+                "v": torch.zeros((batch, capacity, H, D), dtype=dtype,
+                                 device=dev)}
+
+    return {name: (entry(H, D) if split is None
+                   else [entry(h, D) for h in split])
+            for name, H, split, D in _cache_layout(net)}
 
 
 def _host(x) -> np.ndarray:
@@ -232,7 +259,32 @@ class _Writes:
 
 
 def _capacity(cache) -> int:
-    return next(iter(cache.values()))["k"].shape[1]
+    entry = next(iter(cache.values()))
+    return (entry[0] if isinstance(entry, list) else entry)["k"].shape[1]
+
+
+def _head_groups(conf, p, entry, x):
+    """The shards an attention layer computes in this process: [(params,
+    cache entry, heads, input)] — the whole layer, or each held shard of
+    a split one (its q, k, v columns and Wo rows, its cache entry) — and
+    the transport whose `reduce` sums the shards' partial products (None
+    for a whole layer)."""
+    shard = layer_shard(conf)
+    if shard is None:
+        return [(p, entry, conf.n_heads, x)], None
+    tr = shard.transport
+    ps = tr.pieces(p, shard.split, conf.n_heads)
+    H = conf.n_heads // tr.n
+    return [(pj, ej, H, xj)
+            for pj, ej, xj in zip(ps, entry, tr.copy(x))], tr
+
+
+def _out_proj(conf, p, ys, tr):
+    """Each shard's attention rows [..., H_j·D] through its rows of Wo,
+    summed over the shards, then bo and the activation."""
+    parts = [y @ pj["Wo"] for y, pj in ys]
+    y = (parts[0] if tr is None else tr.reduce(parts)) + p["bo"]
+    return get_activation(conf.activation or "identity")(y)
 
 
 def _cache_write(entry, k_new, v_new, writes: _Writes, kv_dtype,
@@ -396,20 +448,20 @@ def make_decode_fn(net, kv_dtype: str = "f32", page_size: int = 16):
         positions = writes.positions                        # [B, 1]
 
         def attn(name, conf, p, x):
-            H, n = conf.n_heads, conf.n_out
-            Dh = n // H
-            x = _as_seq(x)
-            qkv = x[:, 0, :] @ p["Wqkv"] + p["bqkv"]        # [B, 3n]
-            q, k_new, v_new = qkv.split(n, dim=-1)
-            entry = cache[name]
-            _cache_write(entry, k_new.reshape(B, 1, H, Dh),
-                         v_new.reshape(B, 1, H, Dh), writes, kv_dtype,
-                         page_size)
-            o, _ = _cache_attend(entry, q.reshape(B, H, 1, Dh),
-                                 positions + 1, kv_dtype, page_size)
-            y = o[:, :, 0, :].reshape(B, n) @ p["Wo"] + p["bo"]
-            return get_activation(conf.activation or "identity")(
-                y)[:, None, :]
+            Dh = conf.n_out // conf.n_heads
+            groups, tr = _head_groups(conf, p, cache[name], _as_seq(x))
+            ys = []
+            for pj, entry, H, xj in groups:
+                n = H * Dh
+                qkv = xj[:, 0, :] @ pj["Wqkv"] + pj["bqkv"]  # [B, 3n]
+                q, k_new, v_new = qkv.split(n, dim=-1)
+                _cache_write(entry, k_new.reshape(B, 1, H, Dh),
+                             v_new.reshape(B, 1, H, Dh), writes, kv_dtype,
+                             page_size)
+                o, _ = _cache_attend(entry, q.reshape(B, H, 1, Dh),
+                                     positions + 1, kv_dtype, page_size)
+                ys.append((o[:, :, 0, :].reshape(B, n), pj))
+            return _out_proj(conf, p, ys, tr)[:, None, :]
 
         def posenc(name, conf, p, x):
             x = _as_seq(x)
@@ -449,29 +501,30 @@ def make_prefill_fn(net, kv_dtype: str = "f32", page_size: int = 16):
         last_idx = _as_tensor(last_idx, net, torch.long)
 
         def attn(name, conf, p, x):
-            H, n = conf.n_heads, conf.n_out
-            x = _as_seq(x)
-            qkv = x @ p["Wqkv"] + p["bqkv"]                 # [b, Tc, 3n]
-            q, k, v = qkv.split(n, dim=-1)
-            keep = kmask[..., None, None].to(k.dtype)
-            entry = cache[name]
-            _cache_write(entry, _split_heads(k, H) * keep,
-                         _split_heads(v, H) * keep, writes, kv_dtype,
-                         page_size)
-            qh = _split_heads(q, H).transpose(1, 2)         # [b, H, Tc, Dh]
-            kh = _split_heads(k, H).transpose(1, 2)
-            vh = _split_heads(v, H).transpose(1, 2)
-            o1, lse1 = _chunk_self_lse(qh, kh, vh, kmask)
-            # cross-chunk half: queries against the cache prefix this row
-            # wrote before `start` (empty on the first chunk: its lse
-            # sits at the floor and merges to weight zero)
-            limit = start[:, None].expand(b, Tc)
-            o2, lse2 = _cache_attend(entry, qh, limit, kv_dtype, page_size,
-                                     rows=rows)
-            o = _merge_lse(o1, lse1, o2, lse2)
-            y = o.transpose(1, 2).reshape(b, Tc, n)
-            y = y @ p["Wo"] + p["bo"]
-            return get_activation(conf.activation or "identity")(y)
+            Dh = conf.n_out // conf.n_heads
+            groups, tr = _head_groups(conf, p, cache[name], _as_seq(x))
+            ys = []
+            for pj, entry, H, xj in groups:
+                n = H * Dh
+                qkv = xj @ pj["Wqkv"] + pj["bqkv"]           # [b, Tc, 3n]
+                q, k, v = qkv.split(n, dim=-1)
+                keep = kmask[..., None, None].to(k.dtype)
+                _cache_write(entry, _split_heads(k, H) * keep,
+                             _split_heads(v, H) * keep, writes, kv_dtype,
+                             page_size)
+                qh = _split_heads(q, H).transpose(1, 2)     # [b, H, Tc, Dh]
+                kh = _split_heads(k, H).transpose(1, 2)
+                vh = _split_heads(v, H).transpose(1, 2)
+                o1, lse1 = _chunk_self_lse(qh, kh, vh, kmask)
+                # cross-chunk half: queries against the cache prefix this
+                # row wrote before `start` (empty on the first chunk: its
+                # lse sits at the floor and merges to weight zero)
+                limit = start[:, None].expand(b, Tc)
+                o2, lse2 = _cache_attend(entry, qh, limit, kv_dtype,
+                                         page_size, rows=rows)
+                o = _merge_lse(o1, lse1, o2, lse2)
+                ys.append((o.transpose(1, 2).reshape(b, Tc, n), pj))
+            return _out_proj(conf, p, ys, tr)
 
         def posenc(name, conf, p, x):
             x = _as_seq(x)
@@ -504,19 +557,20 @@ def make_verify_fn(net, kv_dtype: str = "f32", page_size: int = 16):
         positions = writes.positions                        # [B, K]
 
         def attn(name, conf, p, x):
-            H, n = conf.n_heads, conf.n_out
-            x = _as_seq(x)
-            qkv = x @ p["Wqkv"] + p["bqkv"]                 # [B, K, 3n]
-            q, k, v = qkv.split(n, dim=-1)
-            entry = cache[name]
-            _cache_write(entry, _split_heads(k, H), _split_heads(v, H),
-                         writes, kv_dtype, page_size)
-            qh = _split_heads(q, H).transpose(1, 2)         # [B, H, K, Dh]
-            o, _ = _cache_attend(entry, qh, positions + 1, kv_dtype,
-                                 page_size)
-            y = o.transpose(1, 2).reshape(B, K, n)
-            y = y @ p["Wo"] + p["bo"]
-            return get_activation(conf.activation or "identity")(y)
+            Dh = conf.n_out // conf.n_heads
+            groups, tr = _head_groups(conf, p, cache[name], _as_seq(x))
+            ys = []
+            for pj, entry, H, xj in groups:
+                n = H * Dh
+                qkv = xj @ pj["Wqkv"] + pj["bqkv"]           # [B, K, 3n]
+                q, k, v = qkv.split(n, dim=-1)
+                _cache_write(entry, _split_heads(k, H), _split_heads(v, H),
+                             writes, kv_dtype, page_size)
+                qh = _split_heads(q, H).transpose(1, 2)     # [B, H, K, Dh]
+                o, _ = _cache_attend(entry, qh, positions + 1, kv_dtype,
+                                     page_size)
+                ys.append((o.transpose(1, 2).reshape(B, K, n), pj))
+            return _out_proj(conf, p, ys, tr)
 
         def posenc(name, conf, p, x):
             x = _as_seq(x)

@@ -94,7 +94,6 @@ from deeplearning4j_tpu_torch.parallel.placement import (
     set_canonical_params,
     local_dataset,
     mesh_axis,
-    not_ported,
     sharded_forward,
 )
 from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
@@ -436,13 +435,16 @@ class ComputationGraph(LazyScore):
             b["labels_masks"] = tuple(dev(m) for m in mds.labels_masks)
         return b
 
-    def resume_from(self, checkpoint_dir: str, step=None):
+    def resume_from(self, checkpoint_dir: str, step=None, *,
+                    target_mesh=None, target_axes=None):
         """Restore the latest (or given) checkpoint (util/checkpoint.py)
         into this graph, as `MultiLayerNetwork.resume_from`: returns the
-        restored step, 0 when the directory holds no checkpoint yet."""
+        restored step, 0 when the directory holds no checkpoint yet;
+        `target_mesh` / `target_axes` restore into that placement."""
         from deeplearning4j_tpu_torch.util.checkpoint import resume
 
-        return resume(self, checkpoint_dir, step)
+        return resume(self, checkpoint_dir, step, target_mesh=target_mesh,
+                      target_axes=target_axes)
 
     def set_mesh(self, mesh, zero1: bool = False, axes=None,
                  n_microbatches=None, tp_rules=None, overlap=None):
@@ -468,7 +470,8 @@ class ComputationGraph(LazyScore):
             elif mesh_axis(self, "seq") is not None:
                 self._train_step = make_sp_train_step(
                     self, self._mesh, seq_axis=mesh_axis(self, "seq"),
-                    data_axis=mesh_axis(self, "data"))
+                    data_axis=mesh_axis(self, "data"),
+                    model_axis=mesh_axis(self, "model"))
             else:
                 self._train_step = make_train_step(
                     self._loss, self.tx, named_layer_confs(self),
@@ -543,13 +546,15 @@ class ComputationGraph(LazyScore):
             raise ValueError(
                 "TRUNCATED_BPTT requires STOCHASTIC_GRADIENT_DESCENT; "
                 "second-order solvers would differentiate the full sequence")
-        if self._mesh is not None:
-            not_ported("the Solver path under a mesh")
         solver = Solver(self)
+        local = getattr(it, "process_local", False)
         for _ in range(epochs):
             it.reset()
+            # on a mesh this rank's part of the batch (Solver: the solve
+            # runs over the mesh)
             for _ds, batch in iter_prefetched(
-                    it, lambda ds: self._batch_dict(self._to_mds(ds))):
+                    it, lambda ds: self._batch_dict(self._to_mds(
+                        local_dataset(self, ds, local)))):
                 solver.optimize(batch, generator=self._generator)
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count)

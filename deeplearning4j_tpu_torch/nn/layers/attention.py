@@ -39,12 +39,14 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.shard_scope import (
+    fold_slices,
     layer_shard,
     seq_shard,
     shard_generator,
 )
 from deeplearning4j_tpu_torch.ops.flash_attention import (
     MAX_FLASH_T,
+    _step_seed,
     chunked_flash_attention,
     chunked_unsupported_reason,
     flash_attention,
@@ -163,7 +165,8 @@ class SelfAttentionImpl(LayerImpl):
             x = apply_dropout(x, conf.dropout, generator, train=train)
         shard = layer_shard(conf)
         if shard is not None:
-            return attention_shards(conf, [params], x, shard.transport,
+            ps = shard.transport.pieces(params, shard.split, conf.n_heads)
+            return attention_shards(conf, ps, x, shard.transport,
                                     train=train, generator=generator,
                                     mask=mask), state
         qkv = x @ params["Wqkv"] + params["bqkv"]              # [B, T, 3n]
@@ -173,10 +176,12 @@ class SelfAttentionImpl(LayerImpl):
         return act(out @ params["Wo"] + params["bo"]), state
 
 
-def _attend(conf, qkv, H, *, train, generator, mask):
+def _attend(conf, qkv, H, *, train, generator, mask, ring_seed=None):
     """Attention over H heads of the packed projection qkv [B, T, 3·H·D]
     (q | k | v, each head's D columns in a row): [B, T, H·D], the heads'
-    outputs side by side, by the layer's dispatch ladder."""
+    outputs side by side, by the layer's dispatch ladder. `ring_seed`:
+    the ring's dropout step seed under a sequence shard (drawn from the
+    shard's ring generator when None)."""
     B, T, _ = qkv.shape
     D = conf.n_out // conf.n_heads
     n = H * D
@@ -202,13 +207,18 @@ def _attend(conf, qkv, H, *, train, generator, mask):
                 "sequence-parallel attention does not support padding "
                 "masks — pad to full length")
         from deeplearning4j_tpu_torch.parallel.ring_attention import (
-            ring_attention,
+            ring_attention_blocks,
         )
 
-        out = ring_attention(
-            qh, kh, vh, transport=seq.transport, causal=conf.causal,
-            dropout=drop_attn,
-            generator=seq.ring_generator or generator)
+        ring = seq.transport
+        # a ring of one block a rank, or an in-process ring whose n
+        # blocks this call holds side by side along time
+        blocks = len(ring.shards)
+        outs = ring_attention_blocks(
+            *(t.chunk(blocks, dim=2) for t in (qh, kh, vh)), ring,
+            causal=conf.causal, dropout=drop_attn,
+            generator=seq.ring_generator or generator, seed=ring_seed)
+        out = outs[0] if blocks == 1 else torch.cat(outs, dim=2)
     elif use_flash and flash_supports(qh.shape, causal=conf.causal,
                                     dropout=drop_attn, mask=mask,
                                     device=qh.device):
@@ -250,16 +260,28 @@ def attention_shards(conf, ps, x, transport, *, train=False, generator=None,
     kernels and multiplies by its rows of Wo; the partial products sum
     over the shards (Megatron's column- then row-parallel block). The
     attention dropout of shard j draws from `generator` folded with j
-    (`shard_generator`)."""
+    (`shard_generator`). Under a sequence shard each shard's heads run
+    the ring, whose keep masks hash global coordinates: one step seed
+    from the ring generator (common to the seq shards of a sequence),
+    folded for shard j past the slices of shards 0..j-1 (j·B·H_j,
+    `fold_slices`), so no two heads of the layer share a mask and the
+    seq shards of one head agree."""
     D = conf.n_out // conf.n_heads
     drop = train and conf.attention_dropout
+    seq = seq_shard(conf.seq_parallel_axis)
+    base = None
+    if drop and seq is not None:
+        base = _step_seed(seq.ring_generator or generator)
     parts = []
     for j, p, xj in zip(transport.shards, ps, transport.copy(x)):
         qkv = xj @ p["Wqkv"] + p["bqkv"]
-        gen = (shard_generator(generator, (j,), transport.n) if drop
-               else generator)
-        out = _attend(conf, qkv, p["Wqkv"].shape[-1] // (3 * D),
-                      train=train, generator=gen, mask=mask)
+        Hj = p["Wqkv"].shape[-1] // (3 * D)
+        gen = (shard_generator(generator, (j,), transport.n)
+               if drop and seq is None else generator)
+        seed = (None if base is None
+                else fold_slices(base, j * qkv.shape[0] * Hj))
+        out = _attend(conf, qkv, Hj, train=train, generator=gen,
+                      mask=mask, ring_seed=seed)
         parts.append(out @ p["Wo"])
     act = get_activation(conf.activation or "identity")
     return act(transport.reduce(parts) + ps[0]["bo"])

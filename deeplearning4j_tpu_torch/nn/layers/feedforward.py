@@ -118,12 +118,17 @@ def dense_rows(conf, ps, xs, transport, *, train=False, generator=None):
 
 
 def _split_dense(conf, params, x, shard, train, generator):
+    """A split dense layer in a layer walk, which hands one activation
+    from layer to layer: this process's shards' columns side by side
+    (one shard a rank: its own columns)."""
+    tr = shard.transport
+    ps = tr.pieces(params, shard.split)
     if shard.split.get("W") == 1:
-        (y,) = dense_columns(conf, [params], x, shard.transport,
-                             train=train, generator=generator)
-        return y
-    return dense_rows(conf, [params], [x], shard.transport, train=train,
-                      generator=generator)
+        ys = dense_columns(conf, ps, x, tr, train=train,
+                           generator=generator)
+        return ys[0] if len(ys) == 1 else torch.cat(ys, dim=-1)
+    xs = [x] if len(ps) == 1 else list(x.chunk(len(ps), dim=-1))
+    return dense_rows(conf, ps, xs, tr, train=train, generator=generator)
 
 
 def _whole_head(params, shard):
@@ -132,8 +137,9 @@ def _whole_head(params, shard):
     if shard is None:
         return params
     out = dict(params)
+    ps = shard.transport.pieces(params, shard.split)
     for name, dim in shard.split.items():
-        out[name] = shard.transport.gather([params[name]], dim)
+        out[name] = shard.transport.gather([p[name] for p in ps], dim)
     return out
 
 
@@ -250,11 +256,11 @@ class EmbeddingImpl(LayerImpl):
         if shard is not None:
             # W split on the features: each shard looks up its columns,
             # gathered into the whole rows
-            z = shard.transport.gather([params["W"][idx]], -1)
+            ps = shard.transport.pieces(params, shard.split)
+            z = shard.transport.gather([p["W"][idx] for p in ps], -1)
             if "b" in params:
-                b = params["b"]
-                z = z + (shard.transport.gather([b], 0)
-                         if "b" in shard.split else b)
+                z = z + (shard.transport.gather([p["b"] for p in ps], 0)
+                         if "b" in shard.split else params["b"])
             return get_activation(conf.activation)(z), state
         z = params["W"][idx]
         if "b" in params:

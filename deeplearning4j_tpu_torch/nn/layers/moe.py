@@ -307,7 +307,8 @@ class MixtureOfExpertsImpl(LayerImpl):
         new_state = {k: v for k, v in state.items() if k != AUX_LOSS_KEY}
         activation = conf.activation or "gelu"
         shard = layer_shard(conf)
-        experts = None if shard is None else (shard.transport, [params])
+        experts = None if shard is None else (
+            shard.transport, shard.transport.pieces(params, shard.split))
         if conf.routing == "dense":
             y = moe_apply_dense(params, x2d, top_k=conf.top_k,
                                 activation=activation, experts=experts)

@@ -88,7 +88,6 @@ from deeplearning4j_tpu_torch.parallel.placement import (
     set_canonical_params,
     local_dataset,
     mesh_axis,
-    not_ported,
     sharded_forward,
 )
 
@@ -388,8 +387,7 @@ class MultiLayerNetwork(LazyScore):
         by the configured solver over the flat parameter vector."""
         from deeplearning4j_tpu_torch.optimize.solvers import Solver
 
-        if self._mesh is not None:
-            not_ported("the Solver path under a mesh")
+        local = getattr(it, "process_local", False)
 
         def convert(ds):
             if is_tbptt(self.conf) and self._needs_tbptt(ds):
@@ -397,7 +395,9 @@ class MultiLayerNetwork(LazyScore):
                     "TRUNCATED_BPTT requires "
                     "STOCHASTIC_GRADIENT_DESCENT; second-order solvers "
                     "would differentiate the full sequence")
-            return self._batch_dict(ds)
+            # on a mesh this rank's part of the batch (Solver: the solve
+            # runs over the mesh)
+            return self._batch_dict(local_dataset(self, ds, local))
 
         solver = Solver(self)
         for _ in range(epochs):
@@ -482,15 +482,20 @@ class MultiLayerNetwork(LazyScore):
                               n_microbatches=n_microbatches,
                               tp_rules=tp_rules, overlap=overlap)
 
-    def resume_from(self, checkpoint_dir: str, step=None):
+    def resume_from(self, checkpoint_dir: str, step=None, *,
+                    target_mesh=None, target_axes=None):
         """Restore params, layer state, optimizer state and the step
         counter from a checkpoint directory (util/checkpoint.py
         `Checkpointer` layout) into this net. Returns the restored step:
         0 when the directory has no checkpoint yet (a cold start, not an
-        error); a named step that is missing raises FileNotFoundError."""
+        error); a named step that is missing raises FileNotFoundError.
+        `target_mesh` / `target_axes`: restore through the resharding
+        engine into that placement, each rank reading only its part
+        (util/checkpoint.resume); the net is left placed on it."""
         from deeplearning4j_tpu_torch.util.checkpoint import resume
 
-        return resume(self, checkpoint_dir, step)
+        return resume(self, checkpoint_dir, step, target_mesh=target_mesh,
+                      target_axes=target_axes)
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()

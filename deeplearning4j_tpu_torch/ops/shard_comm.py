@@ -25,7 +25,13 @@ Two transports carry them:
   same tensor to every shard (autograd then sums their gradients),
   reduce sums the parts in f32 in shard order, gather concatenates. It
   is what the card can run at one rank to check a split of n shards
-  against the whole layer; nothing picks it unless the caller passes it.
+  against the whole layer, and what `tensor_parallel.place_in_process`
+  registers: the process then holds each split layer's params whole and
+  `pieces` cuts every shard's slices from them.
+
+`pieces(params, split, n_heads)` gives the shard params a split layer
+computes with: a rank's own under `ProcessGroupShards`, every shard's
+slices under `InProcessShards`.
 """
 
 from __future__ import annotations
@@ -135,6 +141,10 @@ class ProcessGroupShards:
         dim = dim % p.ndim
         return _GatherFrom.apply(p, self.group, self.n, self.index, dim)
 
+    def pieces(self, params, split, n_heads=None):
+        """The shard params of a split layer this rank holds: its own."""
+        return [params]
+
 
 class InProcessShards:
     """All `n` shards in this process, in order."""
@@ -156,3 +166,23 @@ class InProcessShards:
 
     def gather(self, parts, dim: int):
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+    def pieces(self, params, split, n_heads=None):
+        """Every shard's params of a split layer whose `params` this
+        process holds whole: shard j's slice of each leaf `split` names
+        ({name: dim}; a packed QKV leaf by `n_heads`), the rest shared.
+        The slices are cut anew on every call, so under autograd the
+        gradients reach the whole leaf."""
+        if self.n == 1:
+            return [params]
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            shard_slice,
+        )
+
+        out = [dict(params) for _ in range(self.n)]
+        for name, dim in split.items():
+            heads = n_heads if name in ("Wqkv", "bqkv") else None
+            for j in range(self.n):
+                out[j][name] = shard_slice(params[name], dim, self.n, j,
+                                           heads)
+        return out

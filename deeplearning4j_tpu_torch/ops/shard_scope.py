@@ -18,7 +18,9 @@ forward which shard it is by entering `sharded(...)`:
   group of one.
 - `SeqShard`: the sequence-parallel step. The attention layer runs the
   ring over `transport` and the positional encoding offsets by the
-  shard's global position.
+  shard's global position. It composes with a `ModelShard`: each model
+  shard's heads run the ring, their keep masks folded apart
+  (`fold_slices`).
 - `ModelShard`: a layer whose params a "model" or "expert" placement
   split (parallel/tensor_parallel.py, parallel/expert_parallel.py): the
   transport of its collectives (ops/shard_comm.py) and which param is
@@ -64,7 +66,9 @@ class SeqShard:
     ring `transport` (parallel/ring_attention.py) and the generator the
     ring's dropout step seeds come from (the same on every shard of the
     axis, so the ring drops what one kernel over the whole sequence
-    would)."""
+    would). An `InProcessRing` transport (index 0 of size 1) means this
+    process holds the whole sequence and the attention runs the ring
+    over its n blocks."""
 
     axis: str
     transport: Any
@@ -185,19 +189,28 @@ def global_batch(t):
     return gather_rows(t, d.group, d.size)
 
 
-def fold_bh_offset(seed, BH: int):
-    """The flash step seed under which local slice bh hashes as global
-    slice bh + index*BH: the keep hash keys slice bh on seed + bh *
-    _BH_MIX (mod 2^32), so an offset folds into the seed. `seed` is the
-    one-element int32 tensor; returned unchanged outside a data shard."""
-    d = data_shard()
-    if d is None or not d.index:
+def fold_slices(seed, offset: int):
+    """The flash step seed under which local slice bh hashes as slice bh
+    + `offset`: the keep hash keys slice bh on seed + bh * _BH_MIX (mod
+    2^32), so an offset folds into the seed. `seed` is the one-element
+    int32 tensor; returned unchanged at offset 0."""
+    if not offset:
         return seed
     import torch
 
-    off = (d.index * BH * _BH_MIX) & _U32
+    off = (int(offset) * _BH_MIX) & _U32
     s = (seed.long() + off) & _U32
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
+def fold_bh_offset(seed, BH: int):
+    """The flash step seed under which local slice bh hashes as global
+    slice bh + index*BH (`fold_slices`); returned unchanged outside a
+    data shard."""
+    d = data_shard()
+    if d is None or not d.index:
+        return seed
+    return fold_slices(seed, d.index * BH)
 
 
 def shard_generator(generator, indices, size: int):

@@ -40,9 +40,15 @@ same bits.
 Each pipe rank keeps only its stage's layers (and PRE and POST, which
 stay replicated over "pipe"); the gradients of PRE and POST are summed
 over "pipe", a stage's stay on its rank; every gradient is summed over
-"data". The loss is the JAX step's: the mean of the microbatch means,
-or, with a labels mask, each microbatch's masked mean weighted by its
-count of valid labels against the count over all microbatches and data
+"data" and "seq". With a "seq" axis (the JAX step's stream P(None, data,
+seq)) each rank holds its time block of its rows of every microbatch,
+and the whole step runs as its `SeqShard`: the stages' attention is the
+ring over the stage's seq group, the positional encoding offsets by the
+block. A stage's ring hops and its pipe hops run on communicators of
+their own, and every rank of a stage issues both in the same order.
+The loss is the JAX step's: the mean of the microbatch means, or, with
+a labels mask, each microbatch's masked mean weighted by its count of
+valid labels against the count over all microbatches and data and seq
 shards; an L1/L2 penalty is added once; MoE aux losses as the JAX step
 combines them. Layer state (batch norm) runs through the microbatches
 in order, stage by stage, each stage's state then handed to every rank.
@@ -584,9 +590,11 @@ class _Recv(torch.autograd.Function):
 @dataclasses.dataclass
 class PipeRuntime:
     """What a pipelined net runs with: its plan, transport, microbatch
-    count, and its mesh with the "pipe" and "data" axes (None in one
-    process); `owns(layer)` whether this process holds the layer's
-    params."""
+    count, and its mesh with the "pipe", "data" and "seq" axes (None in
+    one process); `owns(layer)` whether this process holds the layer's
+    params. `seq_axis`: the conf's sequence-parallel axis when the
+    stages run ring attention (`seq_blocks` blocks in this process
+    without a mesh)."""
 
     plan: PipelinePlan
     transport: object
@@ -594,6 +602,8 @@ class PipeRuntime:
     mesh: object = None
     pipe_axis: str = None
     data_axis: str = None
+    seq_axis: str = None
+    seq_blocks: int = 1
 
     @property
     def S(self):
@@ -603,15 +613,59 @@ class PipeRuntime:
     def local_stages(self):
         return self.transport.local_stages
 
-    @property
-    def n_data(self):
-        if self.mesh is None or self.data_axis is None:
+    def _size(self, axis):
+        if self.mesh is None or axis is None:
             return 1
-        return self.mesh.axis_size(self.data_axis)
+        return self.mesh.axis_size(axis)
 
     @property
-    def data_group(self):
-        return None if self.n_data == 1 else self.mesh.group(self.data_axis)
+    def n_data(self):
+        return self._size(self.data_axis)
+
+    @property
+    def n_shards(self):
+        """The batch shards a microbatch is cut into: its data rows
+        times its seq blocks (each a rank)."""
+        return self.n_data * self._size(self.seq_axis)
+
+    @property
+    def shard_group(self):
+        """The process group over the data and seq axes (the ranks of
+        one stage that hold the other parts of each microbatch), or
+        None on a single shard; made collectively on first use, which
+        `configure_mesh` makes on every rank."""
+        if self.n_shards == 1:
+            return None
+        return self.mesh.subgroup(tuple(
+            a for a in (self.data_axis, self.seq_axis)
+            if a is not None and self.mesh.axis_size(a) > 1))
+
+    def seq_shard(self, generator):
+        """(the SeqShard the stages' layers run as, the generator of
+        their other dropout) for a step drawing from `generator`; (None,
+        generator) without a seq axis. The ring generator is common to
+        the seq shards of a microbatch; the other draws fold in this
+        shard's seq index (the JAX step's `fold_in`)."""
+        from deeplearning4j_tpu_torch.ops.shard_scope import (
+            SeqShard,
+            shard_generator,
+        )
+        from deeplearning4j_tpu_torch.parallel.ring_attention import (
+            InProcessRing,
+            ProcessGroupRing,
+        )
+
+        if self.seq_axis is None:
+            return None, generator
+        if self.mesh is None:
+            return SeqShard(self.seq_axis, InProcessRing(self.seq_blocks),
+                            0, 1, generator), generator
+        n, i = self.mesh.axis_size(self.seq_axis), self.mesh.axis_index(
+            self.seq_axis)
+        ring = ProcessGroupRing(self.mesh.group(self.seq_axis), n, i)
+        ring_gen = shard_generator(generator, (), n)
+        return (SeqShard(self.seq_axis, ring, i, n, ring_gen),
+                shard_generator(generator, (i,), n))
 
     def owns(self, layer) -> bool:
         g = self.plan.stage_of.get(layer)
@@ -653,12 +707,15 @@ def make_pp_train_step(net, rt: PipeRuntime):
         pop_aux_losses,
     )
     from deeplearning4j_tpu_torch.nn.updater import apply_updates
+    from deeplearning4j_tpu_torch.ops.shard_scope import sharded
     from deeplearning4j_tpu_torch.parallel.overlap import pmean_float_leaves
 
     plan, tr = rt.plan, rt.transport
     S, M = plan.S, rt.n_microbatches
     tx = net.tx
-    n_data, dgroup = rt.n_data, rt.data_group
+    # the data rows and seq blocks of each microbatch: the loss weights,
+    # the gradients, the loss and the layer state combine over them
+    n_data, dgroup = rt.n_shards, rt.shard_group
     pipe_layers = plan.pre_layers + plan.post_layers
 
     def layer_leaves(layers, params):
@@ -670,6 +727,11 @@ def make_pp_train_step(net, rt: PipeRuntime):
         return tree.tree_map(lambda t: t.detach(), state)
 
     def step(params, opt_state, state, generator, batch):
+        seq, generator = rt.seq_shard(generator)
+        with sharded(seq=seq):
+            return run(params, opt_state, state, generator, batch)
+
+    def run(params, opt_state, state, generator, batch):
         toks = batch["features"][0]
         labs = batch["labels"][0]
         fmask = _first_mask(batch.get("features_masks"))
@@ -685,7 +747,7 @@ def make_pp_train_step(net, rt: PipeRuntime):
 
         # the loss weights: each microbatch's mean, or its masked mean
         # weighted by its count of valid labels against the count over
-        # every pipe device's microbatches and every data shard
+        # every pipe device's microbatches and every data and seq shard
         if lmask is None:
             weights = [1.0 / (M * n_data)] * M
         else:
@@ -790,9 +852,10 @@ def make_pp_train_step(net, rt: PipeRuntime):
         tr.flush()
 
         # the L1/L2 penalty, once: a stage's on its rank, PRE's and
-        # POST's on stage 0, all on data shard 0
-        lead = rt.mesh is None or rt.data_axis is None or \
-            rt.mesh.axis_index(rt.data_axis) == 0
+        # POST's on stage 0, all on data and seq shard 0
+        lead = rt.mesh is None or all(
+            rt.mesh.axis_index(a) == 0 for a in (rt.data_axis, rt.seq_axis)
+            if a is not None)
         if lead:
             for g in tr.local_stages:
                 layers = plan.group_layers[g] + (pipe_layers if g == 0
@@ -806,7 +869,8 @@ def make_pp_train_step(net, rt: PipeRuntime):
                         pen.backward()
                     report[g].append(pen.detach())
 
-        # gradients: PRE and POST summed over pipe, all over data
+        # gradients: PRE and POST summed over pipe, all over data and
+        # seq
         def grad_of(g, path):
             t = tree.get(live[g], path)
             return torch.zeros_like(t) if t.grad is None else t.grad
@@ -879,11 +943,15 @@ def stage_ties(plan, params):
     return out
 
 
-def place_in_process(net, n_stages: int, n_microbatches=None):
+def place_in_process(net, n_stages: int, n_microbatches=None,
+                     seq_blocks=None):
     """Pipeline `net` over S = `n_stages` stages run in this process
     (`InProcessPipe`): `fit` and `fit_scanned` then take the GPipe step
     of M = `n_microbatches` (2·S by default) with the params whole.
-    `set_mesh` (None or a mesh) ends it. Returns the net."""
+    `seq_blocks`: the stages' attention runs the ring over that many
+    blocks of each microbatch in this process (`InProcessRing`; a conf
+    built with seq_parallel_axis). `set_mesh` (None or a mesh) ends it.
+    Returns the net."""
     from deeplearning4j_tpu_torch.parallel.placement import configure_mesh
 
     configure_mesh(net, None)
@@ -895,9 +963,20 @@ def place_in_process(net, n_stages: int, n_microbatches=None):
     if net.params is None:
         net.init()
     check_pp_supported(net)
+    seq_axis = None
+    if seq_blocks:
+        seq_axis = next((v.layer.seq_parallel_axis
+                         for v in net.layer_vertices.values()
+                         if getattr(v.layer, "seq_parallel_axis", "")),
+                        None)
+        if seq_axis is None:
+            raise ValueError(
+                "seq_blocks needs a sequence-parallel-ready conf: build "
+                "the model with seq_parallel_axis set")
     plan = PipelinePlan(net, n_stages)
     M = 2 * plan.S if n_microbatches is None else int(n_microbatches)
-    net._pipe = PipeRuntime(plan, InProcessPipe(plan.S), M)
+    net._pipe = PipeRuntime(plan, InProcessPipe(plan.S), M,
+                            seq_axis=seq_axis, seq_blocks=seq_blocks or 1)
     net.tx.norm_ties = stage_ties(plan, net.params) if plan.S > 1 else {}
     net._train_step = None
     return net

@@ -23,7 +23,10 @@ Roles map to mesh axis names:
   step, parallel/overlap.py).
 - "seq": time shards over the axis — ring attention and offset
   positional encodings (parallel/sequence_parallel.py). Needs a conf
-  built with seq_parallel_axis; composes with "data".
+  built with seq_parallel_axis; composes with "data", with "model" (the
+  ring over each rank's heads) and with "pipe" (the ring inside the
+  stages; parallel/pipeline.py), not with "expert" (as in the JAX
+  package).
 - "model": Megatron tensor parallelism by the placement rules
   (tensor_parallel.TRANSFORMER_TP_RULES, or `tp_rules` first): each
   rank keeps its slice of the split params and the split layers run
@@ -47,9 +50,7 @@ layout — through `canonical_params` / `canonical_opt_state` (and so
 net moves its params and optimizer state from where they are to where
 the new placement keeps them (reshard/executor.py): an unplaced net
 cuts its own shares; a placed one goes through `reshard_net_live`, with
-the plan on the record; `set_mesh(None)` puts them back whole. "seq"
-with "model" or "pipe" raises NotImplementedError: it waits for the
-rest of ROADMAP Queue A item 7.
+the plan on the record; `set_mesh(None)` puts them back whole.
 """
 
 from __future__ import annotations
@@ -59,13 +60,6 @@ import numpy as np
 from deeplearning4j_tpu_torch.parallel.mesh import Mesh, local_slice
 
 ROLES = ("data", "model", "pipe", "expert", "seq")
-_PORTED_ROLES = ROLES
-
-
-def not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it waits for the rest of ROADMAP "
-        "Queue A item 7 (A7, parallel and distributed)")
 
 
 def _iter_layer_confs(net):
@@ -161,16 +155,6 @@ def _check_roles(net, mesh, axes):
                 f"conf layer '{getattr(lc, 'name', '?')}' is built for seq "
                 f"axis {lc.seq_parallel_axis!r} but axes['seq'] is "
                 f"{axes['seq']!r}")
-
-
-def _check_unported(axes):
-    roles = set(axes or ())
-    if "seq" in roles and "model" in roles:
-        not_ported("the 'seq' axis with the 'model' role (ring attention "
-                   "over tensor-parallel heads)")
-    if "seq" in roles and "pipe" in roles:
-        not_ported("the 'seq' axis with the 'pipe' role (ring attention "
-                   "inside the pipeline's stages)")
 
 
 def _check_zero1(mesh, axes):
@@ -345,6 +329,10 @@ def leave_placement(net):
     if pipe is not None and getattr(net, "_pipe_mesh", None) is None:
         net._pipe = None  # an in-process pipeline holds whole params
         net.tx.norm_ties = {}
+    split = getattr(net, "_inproc_split", None)
+    if split is not None:  # an in-process split holds whole params too
+        split.unregister()
+        net._inproc_split = None
     if not _placed(net):
         return
     params, opt = _gather(net, _whole_layout(net), True)
@@ -456,7 +444,6 @@ def configure_mesh(net, mesh, *, zero1=False, axes=None,
     from deeplearning4j_tpu_torch.reshard import executor as ex
 
     mesh, axes, zero1 = _as_mesh(net, mesh, axes, zero1)
-    _check_unported(axes)
     if mesh is not None and net.tx is not None:
         from deeplearning4j_tpu_torch.nn.updater import (
             Optimizer,
@@ -506,7 +493,9 @@ def configure_mesh(net, mesh, *, zero1=False, axes=None,
     pipe = None
     if pipe_plan is not None:
         pipe = PipeRuntime(pipe_plan, ProcessGroupPipe(mesh, axes["pipe"]),
-                           M, mesh, axes["pipe"], (axes or {}).get("data"))
+                           M, mesh, axes["pipe"], axes.get("data"),
+                           axes.get("seq"))
+        pipe.shard_group  # made here, on every rank in one order
     dst_layout = ex.PortLayout(like_map, mesh.size, mesh, split, z1, pipe)
     if was_placed:
         old = net._split_plan
@@ -566,6 +555,16 @@ def local_dataset(net, ds, process_local: bool = False):
     if mesh is None:
         return ds
     pipe, data_ax = getattr(net, "_pipe", None), mesh_axis(net, "data")
+    seq_ax = mesh_axis(net, "seq")
+    if pipe is not None and seq_ax is not None:
+        from deeplearning4j_tpu_torch.datasets.api import MultiDataSet
+
+        T = np.asarray(ds.features[0] if isinstance(ds, MultiDataSet)
+                       else ds.features).shape[1]
+        if T % mesh.axis_size(seq_ax):
+            raise ValueError(
+                f"sequence length {T} not divisible over the "
+                f"{mesh.axis_size(seq_ax)}-way seq axis")
     if pipe is not None and data_ax is not None and not process_local:
         # the pipelined step's rows: this shard's part of every
         # microbatch (pipeline.microbatch_rows)
@@ -580,18 +579,20 @@ def local_dataset(net, ds, process_local: bool = False):
         rows = microbatch_rows(B, pipe.n_microbatches,
                                mesh.axis_size(data_ax),
                                mesh.axis_index(data_ax))
-        return shard_dataset(ds, mesh, None, None, rows=rows)
+        return shard_dataset(ds, mesh, None, seq_ax, rows=rows,
+                             masks_ok=True)
     return shard_dataset(
-        ds, mesh, None if process_local else data_ax,
-        mesh_axis(net, "seq"))
+        ds, mesh, None if process_local else data_ax, seq_ax,
+        masks_ok=pipe is not None)
 
 
 def shard_dataset(ds, mesh, data_axis=None, seq_axis=None, n_rows=None,
-                  rows=None):
+                  rows=None, masks_ok=False):
     """This rank's rows of `ds` along `data_axis` (of its first `n_rows`
     rows, all by default: the rest are dropped) and its time block along
     `seq_axis`; an axis of None is left whole. `rows`: the row indices
-    to keep instead."""
+    to keep instead. Masks are cut along time too where `masks_ok` (the
+    pipelined step takes them); else a mask under `seq_axis` raises."""
     from deeplearning4j_tpu_torch.datasets.api import DataSet, MultiDataSet
 
     multi = isinstance(ds, MultiDataSet)
@@ -611,12 +612,15 @@ def shard_dataset(ds, mesh, data_axis=None, seq_axis=None, n_rows=None,
         fm = None if fm is None else [_rows(a, sl) for a in fm]
         lm = None if lm is None else [_rows(a, sl) for a in lm]
     if seq_axis is not None:
-        if any(m is not None for m in (fm or []) + (lm or [])):
+        if not masks_ok and any(m is not None
+                                for m in (fm or []) + (lm or [])):
             raise ValueError("masks are not supported under sequence "
                              "parallelism — pad to full length")
         sl = local_slice(np.asarray(feats[0]).shape[1], mesh, seq_axis)
         feats = [_rows(a, sl, 1) for a in feats]
         labs = [_rows(a, sl, 1) for a in labs]
+        fm = None if fm is None else [_rows(a, sl, 1) for a in fm]
+        lm = None if lm is None else [_rows(a, sl, 1) for a in lm]
     if multi:
         return MultiDataSet(feats, labs, fm, lm)
     return DataSet(feats[0], labs[0], None if fm is None else fm[0],

@@ -14,15 +14,21 @@ update:
     SequenceParallelTrainer(net, mesh).fit(iterator, epochs=3)
 
 Combined with a "data" axis (batch x sequence mesh): pass
-data_axis="data". Constraints: the global sequence length must divide
-by the seq-axis size, no padding masks (pad to full length).
+data_axis="data". With a "model" axis (`net.set_mesh(mesh, axes={"seq":
+"seq", "model": "model"[, "data": "data"]})`, the JAX package's
+GSPMD-auto model axis inside its manual seq/data shard_map) each rank
+holds its slice of the split layers (parallel/tensor_parallel.py) and
+runs the ring over its own heads; the split layers' collectives run
+over the model group in the forward and backward, so a whole leaf's
+gradient is already the same on every model shard and a split leaf's is
+its shard's; every gradient is then mean-reduced over data and seq
+only. Constraints: the global sequence length must divide by the
+seq-axis size, no padding masks (pad to full length).
 """
 
 from __future__ import annotations
 
 from typing import Optional
-
-from deeplearning4j_tpu_torch.parallel.placement import not_ported
 
 
 def make_sp_train_step(net, mesh, seq_axis: str = "seq",
@@ -36,7 +42,10 @@ def make_sp_train_step(net, mesh, seq_axis: str = "seq",
     so the ring drops what one kernel over it would; the loss, the
     gradients and the float layer state are mean-reduced over the axes
     (each shard's loss is a mean over equally many tokens, so the mean
-    of means is the global mean)."""
+    of means is the global mean). `model_axis`: the mesh axis of a
+    "model" placement the net already holds (set_mesh); its shards'
+    heads draw apart (nn/layers/attention.py `attention_shards`) and it
+    joins no gradient reduction."""
     from deeplearning4j_tpu_torch.nn.training import loss_and_grads
     from deeplearning4j_tpu_torch.nn.updater import apply_updates
     from deeplearning4j_tpu_torch.parallel.overlap import (
@@ -52,8 +61,9 @@ def make_sp_train_step(net, mesh, seq_axis: str = "seq",
         sharded,
     )
 
-    if model_axis is not None:
-        not_ported("sequence parallelism composed with a 'model' axis")
+    if model_axis is not None and model_axis not in mesh.shape:
+        raise ValueError(f"model_axis {model_axis!r} is not a mesh axis "
+                         f"(mesh has {mesh.axis_names})")
     axes = ((data_axis,) if data_axis else ()) + (seq_axis,)
     groups = [(mesh.group(a), mesh.axis_size(a)) for a in axes]
     indices = tuple(mesh.axis_index(a) for a in axes)

@@ -262,9 +262,10 @@ class SplitPlan:
         return {path: self.mesh.group(axis)
                 for path, (axis, _, _) in self.leaves.items()}
 
-    def register(self):
+    def register(self, transport=None):
         """Register every split layer's ModelShard (ops/shard_scope.py),
-        its collectives over its axis's process group."""
+        its collectives over its axis's process group, or over
+        `transport` (every shard in this process: `place_in_process`)."""
         from deeplearning4j_tpu_torch.ops.shard_comm import (
             ProcessGroupShards,
         )
@@ -276,7 +277,7 @@ class SplitPlan:
         transports = {}
         for layer, axis in self.layers.items():
             if axis not in transports:
-                transports[axis] = ProcessGroupShards(
+                transports[axis] = transport or ProcessGroupShards(
                     self.mesh.group(axis), self.mesh.axis_size(axis),
                     self.mesh.axis_index(axis))
             split = {"/".join(p[1:]): d
@@ -289,3 +290,30 @@ class SplitPlan:
 
         for layer in self.layers:
             unplace(self._confs[layer])
+
+
+def place_in_process(net, n_shards: int, role: str = "model",
+                     tp_rules=None):
+    """Split `net`'s layers by the rules of `role` ("model" or "expert";
+    `tp_rules` first) over `n_shards` shards that this process holds
+    (ops/shard_comm `InProcessShards`): the params stay whole in
+    `net.params` and each split layer computes every shard's share from
+    its slices (`InProcessShards.pieces`) with the collectives summed in
+    this process — the split of `set_mesh({role: n})` on one device, for
+    the forward, training and the split decode (nn/decode.py: each
+    shard's cache holds its own heads). `set_mesh` (None or a mesh) ends
+    it. Returns the net."""
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+    from deeplearning4j_tpu_torch.parallel.placement import configure_mesh
+    from deeplearning4j_tpu_torch.reshard.executor import virtual_mesh
+
+    configure_mesh(net, None)
+    if net.params is None:
+        net.init()
+    plan = SplitPlan(net, virtual_mesh({role: int(n_shards)}, net.device),
+                     resolve_rules({role: role}, tp_rules))
+    plan.register(InProcessShards(n_shards))
+    net._inproc_split = plan
+    net._train_step = None
+    return net
+

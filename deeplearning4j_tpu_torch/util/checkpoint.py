@@ -304,11 +304,30 @@ def first_difference(want: list, have: list) -> str:
     return f"network has {len(want)} leaves, checkpoint {len(have)}"
 
 
-def resume(net, checkpoint_dir: str, step=None) -> int:
+def resume(net, checkpoint_dir: str, step=None, *, target_mesh=None,
+           target_axes=None) -> int:
     """`resume_from` of both containers: restore the latest (or given)
     step into `net` and return its iteration count; 0 when the directory
     holds no checkpoint (a cold start). A named step that is missing
-    raises FileNotFoundError."""
+    raises FileNotFoundError.
+
+    `target_mesh` (a Mesh or a `reshard.Placement`, as `set_mesh` takes)
+    and `target_axes` (its roles): the restore goes through the
+    resharding engine into that placement. The net is placed first
+    (`set_mesh(target_mesh, axes=target_axes)`, on its own device; every
+    rank of the mesh calls it), then each rank reads from the
+    memory-mapped checkpoint only the part of every leaf its placement
+    keeps (`restore_placed`, the plan and the bytes on the record). The
+    checkpoint may come from any placement; the result is that of a
+    whole restore followed by the same `set_mesh`. A cold start leaves
+    the net placed on the target."""
+    if target_mesh is not None:
+        ck = Checkpointer(checkpoint_dir)
+        if step is not None and step not in ck.steps():
+            raise FileNotFoundError(
+                f"no checkpoint for step {step} under {ck.directory} "
+                f"(have {ck.steps()})")
+        net.set_mesh(target_mesh, axes=target_axes)
     try:
         Checkpointer(checkpoint_dir).restore(net, step=step)
     except FileNotFoundError:

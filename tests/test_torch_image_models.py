@@ -500,8 +500,9 @@ def test_multilayer_params_plumbing_and_clone():
 
 
 def test_multilayer_raises_for_what_the_slice_does_not_carry(tmp_path):
-    """set_mesh(None) returns the net, as in the JAX package, and the
-    mesh roles not ported yet still cite A7; `resume_from` of a
+    """set_mesh(None) returns the net, as in the JAX package, also with
+    the "seq" and "model" roles (which once raised, citing A7; they
+    compose now): the net stays unplaced; `resume_from` of a
     directory with no checkpoint is a cold start while a missing named
     step raises. What once cited A6 now runs on LeNet-5: `pretrain` is a
     no-op without a pretrain layer, `rnn_time_step` of a net with no
@@ -511,8 +512,8 @@ def test_multilayer_raises_for_what_the_slice_does_not_carry(tmp_path):
     x, y = _images(41, 2, 28, 1)
     net = lenet5(device="cpu").init()
     assert net.set_mesh(None) is net
-    with pytest.raises(NotImplementedError, match="A7"):
-        net.set_mesh(None, axes={"seq": "seq", "model": "model"})
+    assert net.set_mesh(None, axes={"seq": "seq", "model": "model"}) is net
+    assert net._mesh is None and net._split_plan is None
     assert net.resume_from(str(tmp_path)) == 0
     with pytest.raises(FileNotFoundError):
         net.resume_from(str(tmp_path), step=3)

@@ -62,7 +62,7 @@ def test_package_imports_without_jax():
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
                + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE
                + TELEMETRY_SLICE + TUNING_UI_SLICE + TRACING_SLICE
-               + DATA_UTIL_SLICE} - names
+               + DATA_UTIL_SLICE + COMPOSE_SLICE} - names
     assert not missing, missing
 
 
@@ -138,6 +138,32 @@ DATA_UTIL_SLICE = (
     "util.image_loader", "util.disk_queue", "util.moving_window",
     "util.sloppy_math", "util.string_grid", "util.time_series",
     "util.viterbi")
+
+
+# the rest of A7: "seq" with "model" and "pipe", the split net's decode,
+# the Solver under a mesh, resume_from into a placement (ROADMAP A7)
+COMPOSE_SLICE = (
+    "nn.layers.attention", "nn.layers.feedforward", "nn.layers.moe",
+    "nn.decode", "nn.graph", "nn.multilayer", "ops.shard_comm",
+    "ops.shard_scope", "optimize.solvers", "parallel.pipeline",
+    "parallel.placement", "parallel.sequence_parallel",
+    "parallel.tensor_parallel", "util.checkpoint", "distributed.elastic")
+
+
+def test_compose_slice_files_are_covered():
+    """Every module the slice touched, chip_smoke.py and the rank
+    programs the slice's fleets run are among the files held to no JAX
+    import above, and each imports none."""
+    paths = [ROOT / "deeplearning4j_tpu_torch" / (m.replace(".", "/")
+                                                  + ".py")
+             for m in COMPOSE_SLICE] + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py",
+        ROOT / "tests" / "torch_fleet_worker.py"]
+    for path in paths:
+        assert path in PORT_FILES, path
+        bad = [m for m in _imported_modules(path)
+               if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (path, bad)
 
 
 def test_data_util_slice_leaves_no_sklearn_or_jax():

@@ -21,7 +21,12 @@ Tolerances, after three steps, each against the largest entry of the
 JAX array (or, for params, of the JAX net's params): f32 params 1e-5
 for the LM, 1e-4 for ResNet-20 and its batch-norm state (global batch
 statistics through three batch norms a block: the sums are taken in
-another order, split over the ranks); the loss 1e-5 relative.
+another order, split over the ranks); the loss 1e-5 relative. The
+Solver path under a mesh (the MLP, 3 line-searched iterations a batch)
+is held to the JAX package's solve under the same mesh (1e-5 of the
+largest entry on each param) and to the port's meshless solve (1e-5),
+of the same params and batches, and 1e-5 relative on the score
+(tests/test_torch_solvers.py's X_ATOL and SCORE_RTOL).
 """
 
 import jax
@@ -45,7 +50,7 @@ from fleet_util import assert_trained_close as _assert_trained_close
 from fleet_util import jax_net as _jax_net
 from fleet_util import run_fleet
 from torch_parallel_worker import flatten as _flatten
-from torch_parallel_worker import set_updater
+from torch_parallel_worker import mlp_conf, set_updater
 
 pytestmark = pytest.mark.port
 
@@ -58,6 +63,12 @@ B, STEPS = 8, 3
 LM_TOL = 1e-5
 RESNET_TOL = 1e-4
 BUCKETS = (4096, 1 << 30)
+# tests/test_torch_solvers.py's tolerances of a solve
+X_ATOL, SCORE_RTOL = 1e-5, 1e-5
+# the MLP's head split on its classes over "model" (a gathered head):
+# the solver's inner products sum the split leaves over the axis
+SOLVER_TP_RULES = [(r"layer_1/W$", (None, "model")),
+                   (r"layer_1/b$", ("model",))]
 
 
 def _lm_batches(seed, masked, cfg=LM_CFG, rows=B):
@@ -116,6 +127,14 @@ CASES = {
         dict(_lm_case("lm_dropout", "dp", cfg=DROP_CFG),
              batches=_lm_batches(4, False, DROP_CFG, rows=4)),
         _mlp_case("mlp_mono", "dp"),
+        _mlp_case("mlp_lbfgs", "solver", algo="lbfgs",
+                  mesh={"data": 2}, axes={"data": "data"}),
+        _mlp_case("mlp_cg", "solver", algo="conjugate_gradient",
+                  mesh={"data": 2}, axes={"data": "data"}),
+        _mlp_case("mlp_lbfgs_m2", "solver", algo="lbfgs", mesh={"model": 2},
+                  axes={"model": "model"}, tp_rules=SOLVER_TP_RULES),
+        _mlp_case("mlp_lbfgs_z1", "solver", algo="lbfgs", mesh={"data": 2},
+                  zero1=True),
         _mlp_case("mlp_pa_k1", "pa", k=1),
         _mlp_case("mlp_pa_odd", "pa", rows=B + 1, k=1),
         _resnet_case("resnet_mono", "dp"),
@@ -236,6 +255,65 @@ def test_parameter_averaging_matches_jax(fleets, n, name):
     _assert_trained_close(fleets[n], name, _jax_trained(case, n), LM_TOL)
 
 
+@pytest.mark.parametrize("name", ["mlp_lbfgs", "mlp_cg", "mlp_lbfgs_m2",
+                                  "mlp_lbfgs_z1"])
+def test_solver_under_a_mesh_matches_the_meshless_solve(fleets, name):
+    """fit() through the Solver path (3 iterations a batch, three
+    batches) under {"data": 2} (LBFGS and CG: each rank's rows, the loss
+    and gradient means over "data"; LBFGS with ZeRO-1 too), and under
+    {"model": 2} with the head split on its classes (LBFGS: the inner
+    products sum the split leaves over "model"): every rank's params
+    equal, within 1e-5 of the largest entry (X_ATOL of
+    tests/test_torch_solvers.py) of the JAX package's solve under the
+    same mesh, roles, rules and ZeRO-1, and within 1e-5 of the meshless
+    port's solve on the global batches; the score within 1e-5 relative
+    (SCORE_RTOL) of both. (The 2-rank gloo fleet, launch deadline 120 s.)"""
+    from deeplearning4j_tpu.nn import conf as jconf
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JNet
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.weights_io import (
+        params_from_jax,
+        params_to_numpy,
+    )
+
+    case = _case(2, name)
+    jnet = set_updater(JNet(mlp_conf(jconf)), case)
+    tnet = set_updater(MultiLayerNetwork(mlp_conf(tconf), device="cpu"),
+                       case)
+    for net in (jnet, tnet):
+        net.conf.conf.optimization_algo = case["algo"]
+        net.conf.conf.iterations = 3
+    jnet.init()
+    tnet.init()
+    tnet.params = params_from_jax(jax.tree.map(np.asarray, jnet.params),
+                                  "cpu")
+    jnet.set_mesh(jax_make_mesh(case["mesh"]), axes=case.get("axes"),
+                  tp_rules=case.get("tp_rules"),
+                  zero1=case.get("zero1", False))
+    for x, y, _ in case["batches"]:
+        jnet.fit(JDataSet(x, y))
+        tnet.fit(DataSet(x, y))
+    ref = _flatten(jax.tree.map(np.asarray, jnet.params))
+    want = _flatten(params_to_numpy(tnet))
+    scale = max(float(np.abs(a).max()) for a in ref.values())
+    outs = fleets[2]
+    assert int(outs[0][f"{name}/n_split"]) == (2 if "m2" in name else 0)
+    for key, v in want.items():
+        got = outs[0][f"{name}/params/{key}"]
+        for other in outs[1:]:
+            np.testing.assert_array_equal(other[f"{name}/params/{key}"],
+                                          got)
+        np.testing.assert_allclose(got, ref[key], rtol=0,
+                                   atol=X_ATOL * scale, err_msg=key)
+        np.testing.assert_allclose(got, v, rtol=0, atol=1e-5, err_msg=key)
+    for score in (tnet.score_value, float(jnet.score_value)):
+        np.testing.assert_allclose(float(outs[0][f"{name}/score"]), score,
+                                   rtol=SCORE_RTOL)
+    assert int(outs[0][f"{name}/iterations"]) == tnet.iteration_count
+
+
 def test_evaluation_under_data_mesh_matches_single_device(fleets):
     """output() and evaluate() under a 2-rank data mesh: each rank runs
     its rows and the outputs are gathered (an indivisible batch padded
@@ -326,36 +404,51 @@ def test_set_mesh_validation_errors(world1):
     dict(axes={"seq": "seq", "model": "model"}),
 ])
 def test_unported_roles_raise_citing_a7(world1, kwargs):
-    """Sequence parallelism with the "pipe" or the "model" role waits
-    for the rest of A7: NotImplementedError, and the net is left as it
-    was. (Tensor, expert and pipeline parallelism and ZeRO-1 run:
-    tests/test_torch_tensor_parallel.py, test_torch_expert_parallel.py,
-    test_torch_pipeline.py, test_torch_zero1.py.)"""
+    """Sequence parallelism composes with the "pipe" and the "model"
+    role (the rest of A7, once refused): the net is placed (its pipeline
+    runs the seq axis, or its split layers run the SP step) and one
+    step moves its params. (The multi-rank parity is in
+    tests/test_torch_sequence_parallel.py and test_torch_pipeline.py.)"""
+    from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
 
     net = torch_lm(**LM_CFG, seq_parallel_axis="seq", device="cpu").init()
     mesh = make_mesh({"data": 1, "seq": 1, "model": 1, "pipe": 1},
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(mesh, **kwargs)
-    assert net._mesh is None
+    assert net.set_mesh(mesh, **kwargs) is net and net._mesh is mesh
+    if "pipe" in kwargs["axes"]:
+        assert net._pipe.seq_axis == "seq"
+        assert net._pipe.n_microbatches == kwargs.get("n_microbatches", 2)
+    else:
+        assert net._split_plan.layers
+    x, y, _ = _lm_batches(9, False)[0]
+    before = net.params_flat()
+    net.fit(DataSet(x, y))
+    assert np.isfinite(net.score_value)
+    assert not np.array_equal(before, net.params_flat())
 
 
 def test_placement_and_sparse_buckets_raise_citing_a7(world1):
     """A reshard.Placement (placement search's winner) of "seq" with
-    "pipe" is not ported yet. The embedding engine's sparse gradient
-    buckets are (tests/test_torch_embedding_sharded.py): they raise only
-    what the JAX package's raise, a bad plan or a pair of the wrong
-    shape."""
+    "pipe" places the net as set_mesh with those roles does: a pipeline
+    over the seq axis, which takes a step. The embedding engine's
+    sparse gradient buckets (tests/test_torch_embedding_sharded.py)
+    raise only what the JAX package's raise, a bad plan or a pair of
+    the wrong shape."""
     import torch
 
+    from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.parallel import overlap
     from deeplearning4j_tpu_torch.reshard import Placement
 
     net = torch_lm(**LM_CFG, seq_parallel_axis="seq", device="cpu").init()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(Placement.of({"seq": 1, "pipe": 1},
-                                  {"seq": "seq", "pipe": "pipe"}))
+    net.set_mesh(Placement.of({"seq": 1, "pipe": 1},
+                              {"seq": "seq", "pipe": "pipe"}))
+    assert net._mesh_axes == {"seq": "seq", "pipe": "pipe"}
+    assert net._pipe.seq_axis == "seq" and net._pipe.S == 1
+    x, y, _ = _lm_batches(9, False)[0]
+    net.fit(DataSet(x, y))
+    assert np.isfinite(net.score_value)
     with pytest.raises(ValueError, match="positive n_rows/dim"):
         overlap.plan_sparse_bucket("emb", 0, 8)
     plan = overlap.plan_sparse_bucket("emb", 4, 8)

@@ -50,17 +50,23 @@ MOE = dict(vocab_size=64, d_model=16, n_heads=2, n_layers=4, n_experts=4,
 B, STEPS = 8, 3
 
 
-def _batches(seed=0, masked=False):
+# "pipe" 2 x "seq" 2: T 256, so each rank's block of 128 takes the ring's
+# flash hops inside its stage
+SEQ_CFG = dict(CFG, max_length=256)
+
+
+def _batches(seed=0, masked=False, cfg=CFG, features_mask=True):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(STEPS):
-        x = rng.integers(0, CFG["vocab_size"], (B, CFG["max_length"]))
+        x = rng.integers(0, cfg["vocab_size"], (B, cfg["max_length"]))
         x = x.astype(np.int32)
         m = None
         if masked:
             m = (rng.random(x.shape) < 0.8).astype(np.float32)
             m[:, 0] = 1.0
-        out.append((x, np.roll(x, -1, axis=1), m, m))
+        out.append((x, np.roll(x, -1, axis=1), m)
+                   + ((m,) if features_mask else ()))
     return out
 
 
@@ -93,6 +99,11 @@ CASES = {
               inproc=True)],
     4: [_case("pp_d2p2", {"data": 2, "pipe": 2}, 2),
         _case("pp_m2p2", {"model": 2, "pipe": 2}, 4),
+        _case("pp_p2s2", {"pipe": 2, "seq": 2}, 2, cfg=SEQ_CFG,
+              sp_axis="seq", batches=_batches(cfg=SEQ_CFG), odd_T=True),
+        _case("pp_p2s2_mask", {"pipe": 2, "seq": 2}, 2, cfg=SEQ_CFG,
+              sp_axis="seq", batches=_batches(masked=True, cfg=SEQ_CFG,
+                                              features_mask=False)),
         _case("pp_e2p2", {"expert": 2, "pipe": 2}, 2, model="moe",
               cfg=MOE)],
 }
@@ -145,13 +156,18 @@ def _assert_close(outs, name, ref, ref_losses, tol=TOL):
 
 @pytest.mark.parametrize("n,name", [(2, "pp2"), (2, "pp2_mask"),
                                     (2, "pp2_scanned"), (4, "pp_d2p2"),
-                                    (4, "pp_m2p2")])
+                                    (4, "pp_m2p2"), (4, "pp_p2s2"),
+                                    (4, "pp_p2s2_mask")])
 def test_pipelined_fit_matches_jax_meshless(fleets, n, name):
-    """Three Adam steps pipelined over 2 stages (with "data" or "model"
-    at 4 ranks; masked; through fit_scanned): every step's loss and the
-    canonical params on every rank within 5e-4 of the JAX net trained
-    meshless; each rank holds PRE, POST and only its own stage's
-    blocks."""
+    """Three Adam steps pipelined over 2 stages (with "data", "model" or
+    "seq" at 4 ranks — "seq": the ring over each stage's seq group, the
+    JAX package's test_seq_pipe_via_set_mesh_matches_dense and, with a
+    labels mask whose valid count differs from block to block,
+    test_seq_pipe_masked_loss_matches_dense at M = 2; masked; through
+    fit_scanned): every step's loss and the canonical params on every
+    rank within 5e-4 of the JAX net trained meshless; each rank holds
+    PRE, POST and only its own stage's blocks. (Gloo fleets of 2 and 4
+    ranks, launch deadline 120 s each.)"""
     case = _case_of(name)
     ref, losses, _ = _jax_trained(case)
     _assert_close(fleets[n], name, ref, losses)
@@ -190,6 +206,15 @@ def test_pipelined_fit_matches_jax_pipelined(fleets, n, name):
                                - np.asarray(v)).max())
                   for k, v in dense.items())
         assert gap > TOL
+
+
+def test_seq_pipe_refuses_a_length_the_seq_axis_does_not_divide(fleets):
+    """Under {"pipe": 2, "seq": 2} a batch of T = 255 raises the JAX
+    package's ValueError, word for word, on every rank. (The 4-rank gloo
+    fleet, launch deadline 120 s.)"""
+    for out in fleets[4]:
+        assert str(out["pp_p2s2/odd_T_error"]) == (
+            "sequence length 255 not divisible over the 2-way seq axis")
 
 
 def test_in_process_transport_equals_the_process_group(fleets):
@@ -386,7 +411,9 @@ def test_refusals_carry_the_jax_texts(what):
 
 def test_multilayer_network_and_seq_refused():
     """"pipe" on a MultiLayerNetwork raises the JAX package's ValueError
-    naming the graph container; "seq" with "pipe" waits for A7."""
+    naming the graph container; "seq" with "pipe" places the graph (its
+    pipeline runs the seq axis) and takes a step."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.distributed import bootstrap
     from deeplearning4j_tpu_torch.models.lenet import lenet5
     from deeplearning4j_tpu_torch.models.transformer import transformer_lm
@@ -399,8 +426,13 @@ def test_multilayer_network_and_seq_refused():
             lenet5(device="cpu").init().set_mesh(mesh, axes={"pipe": "pipe"})
         net = transformer_lm(**CFG, seq_parallel_axis="seq",
                              device="cpu").init()
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            net.set_mesh(mesh, axes={"pipe": "pipe", "seq": "seq"})
+        net.set_mesh(mesh, axes={"pipe": "pipe", "seq": "seq"})
+        assert net._pipe is not None and net._pipe.seq_axis == "seq"
+        x, y, _, _ = _batches(5)[0]
+        before = net.params_flat()
+        net.fit(DataSet(x, y))
+        assert np.isfinite(net.score_value)
+        assert not np.array_equal(before, net.params_flat())
     finally:
         bootstrap.shutdown()
 

@@ -16,6 +16,9 @@ The matrix, on gloo fleets of 4 and 2 ranks (tests/torch_parallel_worker.py
   state equal the saved ones bit for bit, with a `reshard_plan` event;
   one step of the restored placed net equals, bit for bit, one step of
   a twin restored meshless and placed the same way;
+- `resume_from(dir, target_mesh=..., target_axes=...)`: a {"data": 2}
+  checkpoint into {"model": 2} and into {"pipe": 2}, bit for bit with a
+  whole resume followed by the same set_mesh, the bytes read the plan's;
 - live moves (`set_mesh` of a placed net, SGD): {"model": 2, "data": 2}
   -> {"model": 4} -> {"data": 2, "model": 2} -> {"model": 4} -> None: the
   canonical params equal the source's bit for bit after every move, each
@@ -57,6 +60,8 @@ P2M2 = {"mesh": {"pipe": 2, "model": 2},
 P2 = {"mesh": {"pipe": 2}, "axes": {"pipe": "pipe"}, "M": 2}
 Z4 = {"mesh": {"data": 4}, "axes": {"data": "data"}, "zero1": True}
 Z2 = {"mesh": {"data": 2}, "axes": {"data": "data"}, "zero1": True}
+D2 = {"mesh": {"data": 2}, "axes": {"data": "data"}}
+M2 = {"mesh": {"model": 2}, "axes": {"model": "model"}}
 
 
 def _batches(seed=0):
@@ -199,7 +204,13 @@ def matrix(tmp_path_factory):
                 chain=[M2D2, M4, D2M2, M4, None])]
     out4 = run_fleet(d, 4, c4)
     c2 = [_case("z4_to_z2", mode="restore", dst=Z2, src_ckpt=str(d / "z4")),
-          _case("to_p2", mode="restore", dst=P2, src_ckpt=str(d / "solo"))]
+          _case("to_p2", mode="restore", dst=P2, src_ckpt=str(d / "solo")),
+          _case("save_d2", mode="save", src=D2, ckpt=str(d / "d2")),
+          _case("resume_to_m2", mode="resume", dst=M2,
+                src_ckpt=str(d / "d2")),
+          _case("resume_to_p2", mode="resume",
+                dst={k: v for k, v in P2.items() if k != "M"},
+                src_ckpt=str(d / "d2"))]
     out2 = run_fleet(tmp_path_factory.mktemp("reshard2"), 2, c2)
     return {"dir": d, "solo": want, 4: out4, 2: out2}
 
@@ -235,6 +246,32 @@ def test_solo_checkpoint_restores_into_placed_nets(matrix, name, n):
         _equal(out, f"{name}/stepped/", twin)
         assert float(out[f"{name}/stepped_score"]) == float(
             out[f"{name}/twin_score"])
+
+
+@pytest.mark.parametrize("name", ["resume_to_m2", "resume_to_p2"])
+def test_resume_from_into_a_target_placement(matrix, name):
+    """A checkpoint written under {"data": 2} restored by
+    resume_from(dir, target_mesh=..., target_axes=...) into {"model":
+    2} and into {"pipe": 2}: the net is left placed, every rank's
+    canonical params and Adam moments equal the saved net's bit for
+    bit, the restore records its plan and the bytes each rank read are
+    the plan's, and one step equals, bit for bit, the step of a twin
+    that resumes whole and then takes the same set_mesh. A missing named
+    step raises FileNotFoundError; an empty directory resumes from 0.
+    (The 2-rank gloo fleet, launch deadline 120 s.)"""
+    saved = _saved(matrix[2][0], "save_d2")
+    for out in matrix[2]:
+        assert int(out[f"{name}/start"]) == 1
+        assert bool(out[f"{name}/placed"])
+        _equal(out, f"{name}/restored/", saved)
+        assert int(out[f"{name}/restore_plans"]) == 1
+        assert 0 < int(out[f"{name}/restore_moved"]) == int(
+            out[f"{name}/restore_planned"])
+        _equal(out, f"{name}/stepped/", _saved(out, f"{name}/twin"))
+        assert float(out[f"{name}/stepped_score"]) == float(
+            out[f"{name}/twin_score"])
+        assert bool(out[f"{name}/missing_raises"])
+        assert int(out[f"{name}/cold_start"]) == 0
 
 
 def test_placed_checkpoint_restores_on_one_rank(matrix):

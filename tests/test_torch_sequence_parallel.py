@@ -16,7 +16,17 @@ Tolerances: f32 attention outputs 2e-5 and gradients 5e-5 absolute
 the reference takes one softmax); dropout against the whole-sequence
 kernel's plain version with the same step seed, 2e-5 / 5e-5 too (the
 same keep mask, merged in another order); the SP step's f32 params
-after three SGD steps 1e-5 of the largest entry.
+after three SGD steps 1e-5 of the largest entry; the Solver over the
+ring (LBFGS under {"seq": 2}) 1e-5 of the largest entry from the JAX
+package's solve under the same mesh and from the port's meshless one.
+
+"seq" 2 x "model" 2 (the 4-rank fleet, set_mesh with both roles; V 128,
+d 64, 4 heads, 2 blocks, T 256, B 4): three SGD steps against the JAX
+net under set_mesh({"seq": 2, "model": 2}), the same 1e-5; with
+attention dropout 0.1 the ring seeds each rank folded show the model
+shards' masks apart and the seq shards of one head together. The
+in-process split ring (2 model shards, each a ring of 2 blocks) holds
+the whole layer's output and gradients within 2e-5 / 5e-5.
 """
 
 import importlib
@@ -60,10 +70,19 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_parallel_worker.py"
 OUT_TOL, GRAD_TOL = 2e-5, 5e-5
 SP_TOL = 1e-5
+# tests/test_torch_solvers.py's tolerances of a solve
+X_ATOL, SCORE_RTOL = 1e-5, 1e-5
 VOCAB, SP_T, SP_B = 101, 32, 4
 SP_CFG = dict(vocab_size=VOCAB, d_model=32, n_heads=2, n_layers=2, d_ff=64,
               max_length=SP_T, seed=99)
 SP_CASE = dict(updater="sgd", lr=0.1)
+# "seq" 2 x "model" 2 (4 ranks): 4 heads of 16, T 256, so each rank's
+# block of 128 takes the ring's flash hops on its 2 heads
+SM_T, SM_B = 256, 4
+SM_CFG = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+              max_length=SM_T, seed=99)
+SM_AXES = {"seq": 2, "model": 2}
+SM_ROLES = {"seq": "seq", "model": "model"}
 
 
 def _qkv(seed, B, H, T, D):
@@ -239,6 +258,48 @@ def test_ring_blocks_take_a_generator_seed():
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 
+def test_split_heads_ring_in_process_matches_whole_layer():
+    """attention_shards over 2 model shards in this process, each
+    running the ring over 2 blocks (a `SeqShard` of an `InProcessRing`),
+    against the whole layer: the output within 2e-5 and the gradients of
+    x and of every param within 5e-5 (f32, T 256, 4 heads of 16)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import SelfAttentionLayer
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        attention_shards,
+    )
+    from deeplearning4j_tpu_torch.ops.shard_comm import InProcessShards
+
+    conf = SelfAttentionLayer(n_in=64, n_out=64, n_heads=4, causal=True,
+                              activation="identity", weight_init="xavier",
+                              seq_parallel_axis="seq")
+    impl = get_impl(conf)
+    params, _ = impl.init(conf, torch.Generator().manual_seed(3),
+                          torch.float32)
+    for k in params:
+        params[k] = params[k] + 0.01 * torch.randn(
+            params[k].shape, generator=torch.Generator().manual_seed(4))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 256, 64)).astype(np.float32))
+
+    def run(split):
+        p = {k: t.clone().requires_grad_() for k, t in params.items()}
+        xi = x.clone().requires_grad_()
+        if split:
+            tr = InProcessShards(2)
+            with sharded(seq=SeqShard("seq", InProcessRing(2), 0, 1)):
+                y = attention_shards(conf, tr.pieces(
+                    p, {"Wqkv": 1, "bqkv": 0, "Wo": 0}, 4), xi, tr)
+        else:
+            y, _ = impl.apply(conf, p, {}, xi)
+        (y ** 2).sum().backward()
+        return y.detach(), [xi.grad] + [p[k].grad for k in sorted(p)]
+
+    (y0, g0), (y1, g1) = run(False), run(True)
+    _close(y1.numpy(), y0.numpy(), OUT_TOL, "output")
+    for a, b in zip(g1, g0):
+        _close(a.numpy(), b.numpy(), GRAD_TOL, "gradient")
+
+
 # ---------------------------------------------------- positional offsets
 
 def test_posenc_offsets_match_dense():
@@ -320,13 +381,48 @@ def _write_inputs(tmp, n):
     cases.append({"name": "sp", "kind": "sp", "model": "lm",
                   "cfg": dict(SP_CFG, seq_parallel_axis="seq"),
                   "axes": axes, "data_axis": data_axis, **SP_CASE})
+    if n == 2:
+        # the Solver path over the ring: LBFGS under {"seq": 2}
+        np.savez(tmp / "sp_solver.npz", **dict(np.load(tmp / "sp.npz")))
+        cases.append({"name": "sp_solver", "kind": "solver", "model": "lm",
+                      "cfg": dict(SP_CFG, seq_parallel_axis="seq"),
+                      "mesh": {"seq": 2}, "axes": {"seq": "seq"},
+                      "algo": "lbfgs", "iterations": 2, **SP_CASE})
+    if n == 4:
+        arrays = {f"params/{k}": v for k, v in flatten(jax.tree.map(
+            np.asarray, _jax_sm_net().params)).items()}
+        for i, (x, y) in enumerate(_sm_batches()):
+            arrays[f"x{i}"], arrays[f"y{i}"] = x, y
+        for name, drop in (("sp_model", 0.0), ("sp_model_drop", 0.1)):
+            np.savez(tmp / f"{name}.npz", **arrays)
+            cases.append({"name": name, "kind": "sp", "model": "lm",
+                          "cfg": dict(SM_CFG, attention_dropout=drop),
+                          "sp_axis": "seq", "axes": SM_AXES,
+                          "roles": SM_ROLES, "record_seeds": bool(drop),
+                          **SP_CASE})
     return cases
+
+
+def _sm_batches():
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(3):
+        toks = rng.integers(0, SM_CFG["vocab_size"], (SM_B, SM_T))
+        toks = toks.astype(np.int32)
+        out.append((toks, np.roll(toks, -1, axis=1)))
+    return out
+
+
+def _jax_sm_net(axis=""):
+    return set_updater(jax_lm(**SM_CFG, seq_parallel_axis=axis),
+                       SP_CASE).init()
 
 
 @pytest.fixture(scope="module")
 def fleets(tmp_path_factory):
     """{n: [rank outputs]} of the 2- and 4-rank fleets (deadline 120 s a
-    launch; a rank that fails or is reaped fails the tests)."""
+    launch, the 4-rank fleet's "seq" x "model" cases included; a rank
+    that fails or is reaped fails the tests)."""
     out = {}
     for n in RING_CASES:
         tmp = tmp_path_factory.mktemp(f"sp{n}")
@@ -401,6 +497,106 @@ def test_sp_step_matches_jax(fleets, n):
                                float(jnet.score_value), rtol=1e-5)
 
 
+def test_seq_model_step_matches_jax(fleets):
+    """"seq" 2 x "model" 2 through set_mesh (the SP step over the split
+    layers: each rank runs the ring over its 2 heads) against the JAX
+    net under set_mesh({"seq": 2, "model": 2}): three SGD steps, every
+    rank's canonical params equal, within SP_TOL of the largest entry
+    of the JAX net's; the loss 1e-5 relative. (The 4-rank gloo fleet,
+    launch deadline 120 s.)"""
+    jnet = _jax_sm_net("seq")
+    jnet.set_mesh(jax_make_mesh(SM_AXES), axes=SM_ROLES)
+    for x, y in _sm_batches():
+        jnet.fit(JDataSet(x, y))
+    ref = flatten(jax.tree.map(np.asarray, jnet.params))
+    scale = max(float(np.abs(a).max()) for a in ref.values())
+    outs = fleets[4]
+    for key, want in ref.items():
+        got = outs[0][f"sp_model/params/{key}"]
+        for other in outs[1:]:
+            np.testing.assert_array_equal(other[f"sp_model/params/{key}"],
+                                          got)
+        _close(got, want, SP_TOL * scale, key)
+    np.testing.assert_allclose(float(outs[0]["sp_model/score"]),
+                               float(jnet.score_value), rtol=1e-5)
+
+
+def test_solver_over_the_ring_matches_the_meshless_solve(fleets):
+    """fit() through LBFGS (2 line-searched iterations a batch, three
+    batches) under {"seq": 2}: each rank's time block through the ring,
+    the loss and gradient means over "seq"; every rank's params equal
+    and within 1e-5 of the largest entry (tests/test_torch_solvers.py's
+    X_ATOL) of the JAX package's solve under set_mesh({"seq": 2}) and
+    of the meshless port's solve, from the same params on the same
+    batches; the score 1e-5 relative (SCORE_RTOL) to both. (The 2-rank
+    gloo fleet, launch deadline 120 s.)"""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.weights_io import (
+        params_from_jax,
+        params_to_numpy,
+    )
+
+    jnet = set_updater(jax_lm(**SP_CFG, seq_parallel_axis="seq"), SP_CASE)
+    net = set_updater(transformer_lm(**SP_CFG, device="cpu"), SP_CASE)
+    for each in (jnet, net):
+        each.conf.conf.optimization_algo = "lbfgs"
+        each.conf.conf.iterations = 2
+    jnet.init()
+    net.init()
+    net.params = params_from_jax(jax.tree.map(np.asarray,
+                                              _jax_sp_net().params), "cpu")
+    jnet.set_mesh(jax_make_mesh({"seq": 2}), axes={"seq": "seq"})
+    for x, y in _sp_batches(7):
+        jnet.fit(JDataSet(x, y))
+        net.fit(DataSet(x, y))
+    ref = flatten(jax.tree.map(np.asarray, jnet.params))
+    want = flatten(params_to_numpy(net))
+    scale = max(float(np.abs(a).max()) for a in ref.values())
+    own = max(float(np.abs(a).max()) for a in want.values())
+    outs = fleets[2]
+    for key, v in want.items():
+        got = outs[0][f"sp_solver/params/{key}"]
+        np.testing.assert_array_equal(outs[1][f"sp_solver/params/{key}"],
+                                      got)
+        _close(got, ref[key], X_ATOL * scale, ("JAX", key))
+        _close(got, v, SP_TOL * own, ("meshless", key))
+    for score in (float(jnet.score_value), net.score_value):
+        np.testing.assert_allclose(float(outs[0]["sp_solver/score"]), score,
+                                   rtol=SCORE_RTOL)
+
+
+def test_seq_model_dropout_masks_part_by_head_and_agree_by_block(fleets):
+    """Attention dropout 0.1 under "seq" 2 x "model" 2: each ring takes
+    one step seed a layer call, the same on the two seq shards of a
+    model shard (so their blocks' keep masks are slices of one
+    whole-sequence mask, as test_ring_dropout_hashes_global_coordinates
+    holds) and folded past the other model shard's slices on the other
+    (so no two heads share a mask); the ranks' params stay equal and
+    the dropout moves the loss. (The 4-rank gloo fleet, launch deadline
+    120 s.)"""
+    outs = fleets[4]
+    by_coords = {tuple(o["sp_model_drop/coords"]): o["sp_model_drop/seeds"]
+                 for o in outs}
+    assert sorted(by_coords) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for m in (0, 1):
+        a, b = by_coords[(0, m)], by_coords[(1, m)]
+        assert len(a) == 3 * SM_CFG["n_layers"]
+        np.testing.assert_array_equal(a, b)
+    s0, s1 = by_coords[(0, 0)], by_coords[(0, 1)]
+    np.testing.assert_array_equal(s0[:, 0], s1[:, 0])  # one step seed
+    assert (s0[:, 1] == 0).all()
+    heads = SM_CFG["n_heads"] // SM_AXES["model"]
+    assert (s1[:, 1] == SM_B * heads).all()  # past shard 0's slices
+    assert (s0[:, 2] != s1[:, 2]).all()
+    keys = [k for k in outs[0] if k.startswith("sp_model_drop/params/")]
+    for other in outs[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(other[k], outs[0][k])
+    assert abs(float(outs[0]["sp_model_drop/score"])
+               - float(outs[0]["sp_model/score"])) > 1e-4
+
+
 def _ListIt(items):
     from deeplearning4j_tpu.datasets.iterators import ListDataSetIterator
 
@@ -423,20 +619,34 @@ def world1():
 
 def test_sp_refuses_masks_and_model_axis(world1):
     """Padding masks under SP raise ValueError (pad to full length), as
-    in the JAX package; a 'model' axis waits for A7."""
+    in the JAX package, and so does "seq" with "expert"; a 'model' axis
+    composes: the SP step over a net placed on {"seq": 1, "model": 1}
+    takes a step (make_sp_train_step(model_axis=...) builds it)."""
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
     from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
         SequenceParallelTrainer,
         make_sp_train_step,
     )
 
+    x, y = _sp_batches(1, 1)[0]
+    mesh = make_mesh({"seq": 1, "model": 1}, device="cpu")
+    placed = transformer_lm(**SP_CFG, seq_parallel_axis="seq",
+                            device="cpu").init()
+    placed.set_mesh(mesh, axes={"seq": "seq", "model": "model"})
+    assert placed._split_plan.layers
+    step = make_sp_train_step(placed, mesh, model_axis="model")
+    placed._train_step = step
+    before = placed.params_flat()
+    placed.fit(DataSet(x, y))
+    assert np.isfinite(placed.score_value)
+    assert not np.array_equal(before, placed.params_flat())
+    with pytest.raises(ValueError, match="'seq' axis composes with"):
+        placed.set_mesh(mesh, axes={"seq": "seq", "expert": "model"})
     net = transformer_lm(**SP_CFG, seq_parallel_axis="seq",
                          device="cpu").init()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        make_sp_train_step(net, world1, model_axis="model")
     trainer = SequenceParallelTrainer(net, world1, data_axis="data")
-    x, y = _sp_batches(1, 1)[0]
     with pytest.raises(ValueError, match="masks are not supported"):
         trainer.fit(DataSet(x, y, features_mask=np.ones_like(x,
                                                               np.float32)))

@@ -24,6 +24,7 @@ param and the score 1e-5 relative; with the model's Adam (lr 3e-4), the
 score within 2e-4 of the JAX dense net's (the JAX contract's ATOL).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -368,8 +369,9 @@ def test_one_rank_placement_is_the_meshless_step(name):
 
 def test_model_role_validation(tmp_path):
     """A layer a rule splits in a way it cannot compute raises naming
-    the layer; seq with model waits for A7; decode of a placed net
-    waits for A7; set_mesh(None) gives the whole params back."""
+    the layer; a placed net's decode function is built and its greedy
+    tokens are the meshless net's; set_mesh(None) gives the whole params
+    back."""
     from deeplearning4j_tpu_torch.distributed import bootstrap
     from deeplearning4j_tpu_torch.models.transformer import transformer_lm
     from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
@@ -382,12 +384,151 @@ def test_model_role_validation(tmp_path):
         with pytest.raises(ValueError, match="blk0_ln1.*no split form"):
             net.set_mesh(mesh, axes={"model": "model"},
                          tp_rules=[(r".*_ln1/gamma$", ("model",))])
+        want = _greedy(net, _PROMPT, 6)
         net.set_mesh(mesh, axes={"model": "model"})
         assert net._split_plan.layers
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            net.incremental_decode_fn()
+        assert callable(net.incremental_decode_fn())
+        assert _greedy(net, _PROMPT, 6) == want
         net.set_mesh(None)
         assert net._split_plan is None
         assert net.params_flat().tobytes() == before.tobytes()
     finally:
         bootstrap.shutdown()
+
+
+# ------------------------------------------------------- split decode
+
+_PROMPT = np.array([3, 17, 41, 5, 9], np.int32)
+DECODE_CFG = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2,
+                  d_ff=128, max_length=64)
+
+
+def _greedy(net, prompt, k, kv_dtype="f32", bucket=8, cap=32, wrap=None):
+    """One prefill of `prompt` then k - 1 decode steps: the greedy
+    tokens (the JAX package's nets, their steps under `wrap` = jax.jit,
+    and the port's alike)."""
+    prefill = net.prefill_fn(kv_dtype=kv_dtype)
+    step = net.incremental_decode_fn(kv_dtype=kv_dtype)
+    if wrap is not None:
+        prefill, step = wrap(prefill), wrap(step)
+    cache = net.init_kv_cache(1, cap, kv_dtype=kv_dtype)
+    L = len(prompt)
+    tokens = np.zeros((1, bucket), np.int32)
+    tokens[0, :L] = prompt
+    kmask = (np.arange(bucket) < L).astype(np.float32)[None]
+    probs, cache = prefill(net.params, net.state, cache, tokens, kmask,
+                           np.array([0], np.int32), np.array([0], np.int32),
+                           np.array([L - 1], np.int32))
+    out = [int(np.argmax(np.asarray(probs)[0]))]
+    while len(out) < k:
+        probs, cache = step(net.params, net.state, cache,
+                            np.array([out[-1]], np.int32),
+                            np.array([L + len(out) - 1], np.int32))
+        out.append(int(np.argmax(np.asarray(probs)[0])))
+    return out
+
+
+def _decode_pair():
+    from deeplearning4j_tpu.models.transformer import transformer_lm as jlm
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.weights_io import params_from_jax
+
+    jnet = jlm(**DECODE_CFG).init()
+    tnet = transformer_lm(**DECODE_CFG, device="cpu").init()
+    tnet.params = params_from_jax(
+        {k: {n: np.asarray(v) for n, v in d.items()}
+         for k, d in jnet.params.items()}, "cpu")
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_split_decode_matches_meshless_and_jax(kv_dtype):
+    """The LM split over 2 "model" shards in this process
+    (tensor_parallel.place_in_process: each shard's q, k and v columns
+    and Wo rows, the dense layers' columns and rows, the embedding and
+    the head gathered): 16 greedy tokens through the split prefill and
+    decode steps equal the meshless port's and the JAX package's; each
+    shard's cache entry holds its 2 heads, half the whole layer's
+    bytes."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        place_in_process,
+    )
+
+    jnet, tnet = _decode_pair()
+    want = _greedy(tnet, _PROMPT, 16, kv_dtype)
+    assert want == _greedy(jnet, _PROMPT, 16, kv_dtype, wrap=jax.jit)
+    whole = tnet.init_kv_cache(2, 32, kv_dtype=kv_dtype)
+    place_in_process(tnet, 2)
+    assert _greedy(tnet, _PROMPT, 16, kv_dtype) == want
+    split = tnet.init_kv_cache(2, 32, kv_dtype=kv_dtype)
+    for name, entries in split.items():
+        assert len(entries) == 2
+        for e in entries:
+            assert e["k"].shape[2] == DECODE_CFG["n_heads"] // 2
+            assert 2 * sum(t.numel() * t.element_size()
+                           for t in e.values()) == sum(
+                t.numel() * t.element_size() for t in whole[name].values())
+    tnet.set_mesh(None)
+    assert not any(isinstance(v, list)
+                   for v in tnet.init_kv_cache(1, 16).values())
+
+
+def test_generation_engine_serves_a_split_net():
+    """GenerationEngine over the LM split over 2 "model" shards in this
+    process, unchanged: the greedy tokens of 3 requests equal the
+    meshless engine's."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        place_in_process,
+    )
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+
+    _, tnet = _decode_pair()
+    prompts = [np.random.default_rng(i).integers(0, 64, n).astype(np.int32)
+               for i, n in enumerate((5, 11, 20))]
+
+    def served(net):
+        engine = GenerationEngine(net, BucketLattice((1,), seq_lens=(
+            8, 16, 32)), slots=2, max_new_tokens=12)
+        engine.warmup()
+        engine.start()
+        try:
+            return [list(engine.generate(p, 12, timeout=120))
+                    for p in prompts]
+        finally:
+            engine.drain()
+
+    want = served(tnet)
+    place_in_process(tnet, 2)
+    assert served(tnet) == want
+
+
+def test_moe_decode_is_refused_as_in_jax():
+    """The MoE LM's layers cannot stream one token at a time in the JAX
+    package's decode: the port raises its ValueError, word for word,
+    meshless and with the experts split over 2 "expert" shards."""
+    from deeplearning4j_tpu.models.transformer import (
+        transformer_moe_lm as jmoe,
+    )
+    from deeplearning4j_tpu.nn.decode import make_decode_fn as jdecode
+    from deeplearning4j_tpu_torch.models.transformer import (
+        transformer_moe_lm,
+    )
+    from deeplearning4j_tpu_torch.nn.decode import make_decode_fn
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        place_in_process,
+    )
+
+    cfg = dict(vocab_size=64, d_model=16, n_heads=2, n_layers=2,
+               n_experts=4, max_length=16)
+    with pytest.raises(ValueError) as e:
+        jdecode(jmoe(**cfg).init())
+    net = transformer_moe_lm(**cfg, device="cpu").init()
+    for split in (False, True):
+        if split:
+            place_in_process(net, 2, role="expert")
+            assert net._inproc_split.layers
+        with pytest.raises(ValueError) as got:
+            make_decode_fn(net)
+        assert str(got.value) == str(e.value)
+

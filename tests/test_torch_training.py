@@ -253,18 +253,30 @@ def test_untrainable_modes_raise():
 
 def test_remat_and_mesh_raise():
     """set_mesh(None) returns the net, as in the JAX package; "seq" with
-    "pipe", not ported yet, still raises (Queue A item 7). remat, once
-    refused,
+    "pipe" (once refused) places a net built for sequence parallelism
+    on a world of one and takes a step. remat, once refused,
     trains:
     with dropout 0.1 on the packed flash route (T = 512) two fit()
     steps with remat leave every param bit for bit where the same steps
     without it do, the recompute drawing the forward's keep masks; and
     fit_scanned takes it too. One intra-op thread: the CPU's threaded
     reductions are not bitwise repeatable from run to run."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
     net = torch_lm(**CFG, max_length=128, device="cpu").init()
     assert net.set_mesh(None) is net
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        net.set_mesh(None, axes={"seq": "seq", "pipe": "pipe"})
+    sp = torch_lm(**CFG, max_length=128, seq_parallel_axis="seq",
+                  device="cpu").init()
+    try:
+        sp.set_mesh(make_mesh({"pipe": 1, "seq": 1}, device="cpu"),
+                    axes={"seq": "seq", "pipe": "pipe"})
+        assert sp._pipe.seq_axis == "seq"
+        toks, labels, _ = _tokens(60, 2, 128)
+        sp.fit(TDataSet(toks, labels))
+        assert np.isfinite(sp.score_value)
+    finally:
+        bootstrap.shutdown()
     toks, labels, _ = _tokens(61, 2, 512)
     ds = TDataSet(toks, labels)
 

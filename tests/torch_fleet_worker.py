@@ -124,11 +124,12 @@ def elastic_main(args) -> int:
                                 init_timeout=20.0)
     pid = info["process_id"]
     net = build_net(inputs)
-    start = net.resume_from(ckpt_dir)
-    print(f"p{pid}: resuming from step {start}/{total}", flush=True)
     mesh, axes, _ = elastic.searched_global_mesh(
         net, objective=Objective(global_batch=GLOBAL_BATCH))
-    net.set_mesh(mesh, axes=axes)
+    # the restore into this generation's placement: each rank reads only
+    # its part of the checkpoint a fleet of another size wrote
+    start = net.resume_from(ckpt_dir, target_mesh=mesh, target_axes=axes)
+    print(f"p{pid}: resuming from step {start}/{total}", flush=True)
     elastic.run_elastic_steps(
         net, lambda s: DataSet(inputs[f"x{s}"], inputs[f"y{s}"]), total,
         checkpoint_dir=ckpt_dir, checkpoint_every=1)

@@ -143,7 +143,12 @@ def _net(case, inputs):
 
         net = ComputationGraph(bn_graph_conf(conf_mod), device="cpu")
     elif case["model"] == "lm":
-        net = transformer_lm(**case["cfg"], device="cpu")
+        # `sp_axis`: the port's conf built for sequence parallelism (the
+        # JAX package's params are the same with or without it)
+        cfg = dict(case["cfg"])
+        if case.get("sp_axis"):
+            cfg["seq_parallel_axis"] = case["sp_axis"]
+        net = transformer_lm(**cfg, device="cpu")
     elif case["model"] == "moe":
         net = transformer_moe_lm(**case["cfg"], device="cpu")
     elif case["model"] == "mlp":
@@ -248,15 +253,59 @@ def case_ring(case, inputs):
 
 
 def case_sp(case, inputs):
-    """SequenceParallelTrainer on a seq (or data x seq) mesh, one fit()
-    per batch."""
+    """SequenceParallelTrainer on a seq (or data x seq) mesh, or with
+    `roles` set_mesh with those roles ("seq" with "model"), one fit()
+    per batch. With `record_seeds`: every ring dropout seed the split
+    attention layers folded (the step seed, the slice offset, the
+    folded seed), and this rank's mesh coordinates."""
     net = _net(case, inputs)
     mesh = make_mesh(case["axes"], device="cpu")
-    trainer = SequenceParallelTrainer(net, mesh, seq_axis="seq",
-                                      data_axis=case.get("data_axis"))
+    seeds = []
+    if case.get("record_seeds"):
+        from deeplearning4j_tpu_torch.nn.layers import attention
+
+        fold = attention.fold_slices
+
+        def recording(seed, offset):
+            out = fold(seed, offset)
+            seeds.append((int(seed), int(offset), int(out)))
+            return out
+
+        attention.fold_slices = recording
+    if case.get("roles"):
+        net.set_mesh(mesh, axes=case["roles"])
+        fit = net.fit
+    else:
+        fit = SequenceParallelTrainer(net, mesh, seq_axis="seq",
+                                      data_axis=case.get("data_axis")).fit
     for ds in _batches(inputs):
-        trainer.fit(ds)
-    return _trained(net)
+        fit(ds)
+    out = _trained(net)
+    if case.get("record_seeds"):
+        attention.fold_slices = fold
+        out["seeds"] = np.asarray(seeds, np.int64).reshape(-1, 3)
+        out["coords"] = np.asarray([mesh.axis_index(a)
+                                    for a in ("seq", "model")])
+    return out
+
+
+def case_solver(case, inputs):
+    """fit() through the Solver path (`algo`, `iterations` a batch) under
+    set_mesh with the case's mesh, roles, tp_rules and zero1, one fit()
+    per batch; the number of split leaves."""
+    net = _net(case, inputs)
+    net.conf.conf.optimization_algo = case["algo"]
+    net.conf.conf.iterations = case.get("iterations", 3)
+    mesh = make_mesh(case["mesh"], device="cpu")
+    net.set_mesh(mesh, axes=case.get("axes"), tp_rules=case.get("tp_rules"),
+                 zero1=case.get("zero1", False))
+    for ds in _batches(inputs):
+        net.fit(ds)
+    out = _trained(net)
+    out["iterations"] = np.asarray(net.iteration_count)
+    out["n_split"] = np.asarray(0 if net._split_plan is None
+                                else len(net._split_plan.leaves))
+    return out
 
 
 def flat_opt_state(opt_state):
@@ -368,6 +417,15 @@ def case_pipe(case, inputs):
         x, y = inputs["x"], inputs["y"]
         out["output"] = net.output(x).float().numpy()
         out["eval_score"] = np.asarray(net.score(DataSet(x, y)))
+    if case.get("odd_T"):
+        # a sequence length the seq axis does not divide: the JAX
+        # package's error text
+        ds = batches[0]
+        try:
+            net.fit(DataSet(ds.features[:, :-1], ds.labels[:, :-1]))
+            out["odd_T_error"] = np.asarray("")
+        except ValueError as e:
+            out["odd_T_error"] = np.asarray(str(e))
     if case.get("inproc") and mesh.rank == 0:
         twin = _net(case, inputs)
         place_in_process(twin, mesh.axis_size(case["axes"]["pipe"]),
@@ -432,7 +490,11 @@ def case_reshard(case, inputs):
     way; "live": the net placed as each of `chain` in turn (one step
     under the first), the canonical trees after every move, its
     reshard_plan events and the bytes its spans moved and planned, and
-    the plans' lower bounds."""
+    the plans' lower bounds; "resume": a fresh net restores <src_ckpt>
+    (rank 0's) by `resume_from(target_mesh=..., target_axes=...)` into
+    `dst`, against a twin that resumes whole and then takes set_mesh,
+    both then one step; a missing named step and an empty directory
+    beside."""
     batches = _batches(inputs)
     rank = bootstrap_rank()
     out = {}
@@ -442,6 +504,44 @@ def case_reshard(case, inputs):
             net.fit(ds)
         out.update(_canonical(net))
         Checkpointer(str(Path(case["ckpt"]) / f"rank{rank}")).save(net)
+    elif case["mode"] == "resume":
+        import tempfile
+
+        src = str(Path(case["src_ckpt"]) / "rank0")
+        dst = case["dst"]
+        mesh = make_mesh(dst["mesh"], device="cpu")
+        net = _placed_net(case, inputs, None)
+        start, events = _recorded(lambda: net.resume_from(
+            src, target_mesh=mesh, target_axes=dst.get("axes")))
+        out["start"] = np.asarray(start)
+        out.update(_canonical(net, "restored/"))
+        out["restore_plans"] = np.asarray(len(
+            [e for e in events if e.get("event") == "reshard_plan"
+             and e.get("path") == "checkpoint"]))
+        _, moved, planned, _ = _span_bytes(events)
+        out["restore_moved"] = np.asarray(moved)
+        out["restore_planned"] = np.asarray(planned)
+        out["placed"] = np.asarray(net._split_plan is not None
+                                   or net._pipe is not None)
+        twin = _placed_net(case, inputs, None)
+        twin.resume_from(src)
+        twin.set_mesh(mesh, axes=dst.get("axes"))
+        net.fit(batches[0])
+        twin.fit(batches[0])
+        out.update(_canonical(net, "stepped/"))
+        out.update(_canonical(twin, "twin/"))
+        out["stepped_score"] = np.asarray(net.score_value)
+        out["twin_score"] = np.asarray(twin.score_value)
+        try:
+            _placed_net(case, inputs, None).resume_from(
+                src, 99, target_mesh=mesh, target_axes=dst.get("axes"))
+            out["missing_raises"] = np.asarray(False)
+        except FileNotFoundError:
+            out["missing_raises"] = np.asarray(True)
+        with tempfile.TemporaryDirectory() as empty:
+            out["cold_start"] = np.asarray(_placed_net(
+                case, inputs, None).resume_from(
+                    empty, target_mesh=mesh, target_axes=dst.get("axes")))
     elif case["mode"] == "restore":
         src = str(Path(case["src_ckpt"]) / "rank0")
         net = _placed_net(case, inputs, case["dst"])
@@ -546,6 +646,7 @@ def bootstrap_rank():
 
 CASES = {"dp": case_dp, "pa": case_pa, "eval": case_eval,
          "ring": case_ring, "sp": case_sp, "mesh": case_mesh,
+         "solver": case_solver,
          "before_init": case_before_init, "pipe": case_pipe,
          "reshard": case_reshard, "search": case_search}
 
