@@ -557,6 +557,21 @@ Phases, each of which exits non-zero when it fails:
    {"data": 1} bit for bit with the meshless solve (deterministic
    cuDNN; a failure reports two meshless solves' distance beside the
    difference). `--phase 29` runs the build and this phase alone.
+30. The port's graftlint on the card (`graftlint_on_card`): (a)
+   `port_tools/graftlint.py --check --stage ast` and `--stage
+   concurrency` over the port, each a process of its own that must exit
+   0 (`lint_on_card`); (b) every entry of analysis/op_audit.py (the JAX
+   audit's 16: the flash variants, the chunked tier at T = 4096, the
+   fused LayerNorm and softmax-xent head at the JAX audit's shapes, and
+   the train step of each LM bench mode at its full dims in bf16) run
+   once to warm and once recorded (`op_audit_on_card`), each printed
+   with its aten ops (and those of its backward), launches by kernel,
+   host syncs (op and port frame, `torch.cuda.set_sync_debug_mode`'s
+   included) and milliseconds; (c) it fails if an entry takes the dense
+   attention path, launches none of a group of its expected kernels, or
+   breaks J001 (outside the budget's known syncs), J002 (the "cuda"
+   bounds of analysis/op_budget.json) or J003. `--phase 30` runs the
+   build and this phase alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -10199,6 +10214,79 @@ def compositions(torch, counters, transformer_lm, DataSet, card):
     return launches, rec
 
 
+def log30(card, msg):
+    """A phase-30 line, every number in it beside the card's name and
+    power limit."""
+    log(f"{msg} [{card}]")
+
+
+def lint_on_card(card):
+    """30a: the port's AST and concurrency stages over the port, each a
+    process of its own (neither imports torch); both must exit 0."""
+    for stage in ("ast", "concurrency"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "port_tools" / "graftlint.py"),
+             "--check", "--stage", stage], cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        log30(card, f"30a graftlint --stage {stage}: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.2f} s; "
+              f"{last}")
+        if proc.returncode:
+            raise PhaseFailed(30, f"graftlint --stage {stage} exited "
+                                  f"{proc.returncode}:\n{proc.stdout}"
+                                  f"{proc.stderr}")
+
+
+def op_audit_on_card(torch, counters, card):
+    """30b-c: every op-audit entry on the card against the "cuda"
+    budget. Returns the launches of the phase's run (counted from 0)."""
+    from deeplearning4j_tpu_torch.analysis import op_audit
+
+    budget = op_audit.budget_for("cuda")
+    known = op_audit.known_syncs("cuda")
+    failures = []
+    counters.reset()
+    for name in op_audit.entry_names():
+        rec = op_audit.record_entry(name, "cuda")
+        findings = op_audit.check_entry(rec, budget.get(name),
+                                        known.get(name, []))
+        missing = [sorted(g) for g in op_audit.EXPECTED_KERNELS[name]
+                   if not any(rec.launches.get(k) for k in g)]
+        syncs = [f"{op} @ {frame}" for op, frame in rec.syncs]
+        log30(card, f"30b {name}: {rec.ops} aten ops ({rec.backward_ops} in "
+              f"the backward) + {sum(rec.launches.values())} launches = "
+              f"{rec.count} (bound {budget.get(name)}); launches "
+              f"{rec.launches}; syncs {syncs or 'none'}; float64 "
+              f"{rec.f64 or 'none'}; {rec.ms:.3f} ms a call; top ops "
+              f"{rec.top_ops[:4]}")
+        for f in findings:
+            failures.append(f.format())
+        if missing:
+            failures.append(f"{name}: none of {missing} launched "
+                            f"(launches {rec.launches})")
+        if rec.dense_routes:
+            failures.append(f"{name}: {rec.dense_routes} attention calls "
+                            "took the dense path")
+    launches = counters.read()
+    if failures:
+        raise PhaseFailed(30, "op audit:\n" + "\n".join(failures))
+    return launches
+
+
+def graftlint_on_card(torch, counters, card):
+    """Phase 30: the port's graftlint — the AST and concurrency stages as
+    processes (30a), the op audit of every entry on the card (30b-c).
+    Returns the launches of its main-path run."""
+    t0 = time.perf_counter()
+    lint_on_card(card)
+    launches = op_audit_on_card(torch, counters, card)
+    log30(card, f"phase 30 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -10269,14 +10357,14 @@ ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
 
 
 def only_phase(torch, phase):
-    """`chip_smoke.py --phase 25` (or 26, 27, 28, 29): the kernels built,
+    """`chip_smoke.py --phase 25` (or 26-30): the kernels built,
     then that phase alone (a quick check of one phase; the full run is
     the contract). Phase 26 alone trains phase 20a's host-path Word2Vec
     first and reads its flagship step's telemetry at /timeline; phase
     27 alone writes phase 25a's CSV itself and runs the tools over its
     own logs only (phases 18c and 24a leave none)."""
-    if phase not in ("25", "26", "27", "28", "29"):
-        print(f"chip_smoke: --phase takes 25, 26, 27, 28 or 29, not "
+    if phase not in ("25", "26", "27", "28", "29", "30"):
+        print(f"chip_smoke: --phase takes 25, 26, 27, 28, 29 or 30, not "
               f"{phase}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -10310,6 +10398,8 @@ def only_phase(torch, phase):
                            name_power)
     elif phase == "29":
         compositions(torch, counters, transformer_lm, DataSet, name_power)
+    elif phase == "30":
+        graftlint_on_card(torch, counters, name_power)
     else:
         from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 
@@ -10464,7 +10554,8 @@ def main() -> int:
                                        DataSet, name_power)
     compose_launches, _ = compositions(torch, counters, transformer_lm,
                                        DataSet, name_power)
-    log(f"chip_smoke: phases 1-29 in {time.perf_counter() - started:.1f} s")
+    lint_launches = graftlint_on_card(torch, counters, name_power)
+    log(f"chip_smoke: phases 1-30 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -10490,7 +10581,8 @@ def main() -> int:
     # zips and raw-string Word2Vec, phase 28's flagship fed through the
     # async and multiple-epoch iterators and its plain twin, phase 29's
     # seq x model steps and split ring, pipe x seq arms, resumed steps
-    # and split net's served and sampled tokens), each counted
+    # and split net's served and sampled tokens, phase 30's op-audit
+    # entries, each warmed, recorded and timed), each counted
     # from 0 just before it and read just after (in the process that
     # ran it). K1-K7 carry their dropout
     # arm at the same shape, K4/K5 their dlse arm's device time, K1/K5
@@ -10500,7 +10592,7 @@ def main() -> int:
             replay_launches, predict_launches, nn_launches, emb_launches,
             par_launches, place_launches, pipe_launches, fleet_launches,
             tel_launches, tune_launches, trace_launches, data_launches,
-            compose_launches)
+            compose_launches, lint_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

@@ -589,8 +589,10 @@ def _cmd_coordinator(args) -> int:
     coord = ClusterCoordinator(host=args.host, port=args.port,
                                heartbeat_timeout=args.heartbeat_timeout)
     coord.start()
-    print(f"coordinator listening on {coord.address}", flush=True)
     try:
+        # announced inside the try: a caller may interrupt as soon as it
+        # reads the line
+        print(f"coordinator listening on {coord.address}", flush=True)
         threading.Event().wait()
     except KeyboardInterrupt:
         coord.shutdown()

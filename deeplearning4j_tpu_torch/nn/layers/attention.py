@@ -87,7 +87,9 @@ def sinusoidal(positions, d, dtype):
     the two roundings of the f32 angle move sin/cos by up to 6e-5."""
     pos = positions.to(torch.float32)[..., None]
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
-    inv_freq = 1.0 / torch.pow(torch.tensor(10000.0, device=pos.device),
+    # the base filled on the device: a tensor made from host data would
+    # be a host->device copy, which syncs the host on every call
+    inv_freq = 1.0 / torch.pow(torch.full((), 10000.0, device=pos.device),
                                dim / d)
     angle = pos * inv_freq
     pe = torch.zeros(positions.shape + (d,), dtype=torch.float32,

@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 import threading
 import warnings
 from typing import NamedTuple
@@ -198,8 +199,10 @@ def keep_threshold(rate) -> int:
 
 def keep_scale(rate) -> float:
     """1 / (1 - rate), computed in double and rounded to float32, as the
-    JAX package's weak-typed product rounds it."""
-    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+    JAX package's weak-typed product rounds it: on the host, with no
+    tensor and no scalar read (struct's "f" rounds to nearest even, as a
+    float32 cast does)."""
+    return struct.unpack("f", struct.pack("f", 1.0 / (1.0 - rate)))[0]
 
 
 def _keep_mask(seed, bh, q0, k0, rows, cols, hash_t, rate):

@@ -206,7 +206,7 @@ def shard_batch(batch, mesh: Mesh, axis: str = "data"):
     def leaf(x):
         if x is None:
             return None
-        t = torch.as_tensor(np.asarray(x) if not isinstance(
+        t = torch.as_tensor(np.asarray(x) if not isinstance(  # graftlint: disable=G002 — host arrays
             x, torch.Tensor) else x)
         if t.ndim:
             t = t[local_slice(t.shape[0], mesh, axis)]

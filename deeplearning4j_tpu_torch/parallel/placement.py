@@ -538,7 +538,7 @@ def mesh_axis(net, role: str):
 def _rows(a, sl, dim=0):
     if a is None:
         return None
-    a = np.asarray(a)
+    a = np.asarray(a)  # graftlint: disable=G002 — host arrays
     if a.ndim <= dim:
         return a
     idx = [slice(None)] * a.ndim
@@ -559,7 +559,7 @@ def local_dataset(net, ds, process_local: bool = False):
     if pipe is not None and seq_ax is not None:
         from deeplearning4j_tpu_torch.datasets.api import MultiDataSet
 
-        T = np.asarray(ds.features[0] if isinstance(ds, MultiDataSet)
+        T = np.asarray(ds.features[0] if isinstance(ds, MultiDataSet)  # graftlint: disable=G002 — host arrays
                        else ds.features).shape[1]
         if T % mesh.axis_size(seq_ax):
             raise ValueError(
@@ -574,7 +574,7 @@ def local_dataset(net, ds, process_local: bool = False):
 
         from deeplearning4j_tpu_torch.datasets.api import MultiDataSet
 
-        B = np.asarray(ds.features[0] if isinstance(ds, MultiDataSet)
+        B = np.asarray(ds.features[0] if isinstance(ds, MultiDataSet)  # graftlint: disable=G002 — host arrays
                        else ds.features).shape[0]
         rows = microbatch_rows(B, pipe.n_microbatches,
                                mesh.axis_size(data_ax),
@@ -604,7 +604,7 @@ def shard_dataset(ds, mesh, data_axis=None, seq_axis=None, n_rows=None,
           else [ds.labels_mask] if not multi else None)
     if data_axis is not None or rows is not None:
         if n_rows is None:
-            n_rows = np.asarray(feats[0]).shape[0]
+            n_rows = np.asarray(feats[0]).shape[0]  # graftlint: disable=G002 — host arrays
         sl = rows if rows is not None else local_slice(n_rows, mesh,
                                                        data_axis)
         feats, labs = [_rows(a, sl) for a in feats], [_rows(a, sl)
@@ -616,7 +616,7 @@ def shard_dataset(ds, mesh, data_axis=None, seq_axis=None, n_rows=None,
                                 for m in (fm or []) + (lm or [])):
             raise ValueError("masks are not supported under sequence "
                              "parallelism — pad to full length")
-        sl = local_slice(np.asarray(feats[0]).shape[1], mesh, seq_axis)
+        sl = local_slice(np.asarray(feats[0]).shape[1], mesh, seq_axis)  # graftlint: disable=G002 — host arrays
         feats = [_rows(a, sl, 1) for a in feats]
         labs = [_rows(a, sl, 1) for a in labs]
         fm = None if fm is None else [_rows(a, sl, 1) for a in fm]

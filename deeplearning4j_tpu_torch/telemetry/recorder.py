@@ -60,7 +60,6 @@ import traceback as _tb
 from collections import deque
 
 ENV_VAR = "DL4J_TPU_TELEMETRY"
-ENV_PROCESS_ID = "DL4J_TPU_PROCESS_ID"
 
 # ------------------------------------------------------ registered schema
 # The closed set of event kinds and span names the port emits, the JAX
@@ -397,8 +396,11 @@ def set_default(recorder: Recorder | None) -> Recorder | None:
 
 
 def _process_scoped(path: str) -> str:
-    """`<path>.p<id>` when `$DL4J_TPU_PROCESS_ID` names this process,
-    else `path`."""
+    """`<path>.p<id>` when the rendezvous contract's process-id variable
+    (distributed/bootstrap.py ENV_PROCESS_ID, its one spelling) names
+    this process, else `path`."""
+    from deeplearning4j_tpu_torch.distributed.bootstrap import ENV_PROCESS_ID
+
     process_id = os.environ.get(ENV_PROCESS_ID)
     return path if process_id is None else f"{path}.p{process_id}"
 

@@ -1,0 +1,11 @@
+# lint-path: deeplearning4j_tpu_torch/parallel/_fixture.py
+"""graftlint fixture: G013 must fire here (torch spelling),
+linted as deeplearning4j_tpu_torch/parallel/_fixture.py."""
+
+import torch.distributed as dist
+
+
+def report(loss):
+    if dist.get_rank() == 0:
+        return loss.item()
+    return None

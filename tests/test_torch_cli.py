@@ -530,3 +530,28 @@ def test_coordinator_runs_until_interrupted():
         p.send_signal(signal.SIGINT)
         rc = p.wait(timeout=60)
     assert rc == 0
+
+
+def test_coordinator_interrupted_right_after_its_announcement():
+    """Queue C, C14: an interrupt that lands as soon as the coordinator
+    prints its listening line (what a loaded host showed the test above:
+    rc -2) must still shut it down cleanly. The interrupt is raised from
+    inside print, right after the line is written."""
+    from deeplearning4j_tpu_torch.distributed.bootstrap import free_port
+
+    code = ("import builtins, os, runpy, signal, sys\n"
+            "_print = builtins.print\n"
+            "def announce(*a, **k):\n"
+            "    _print(*a, **k)\n"
+            "    if a and str(a[0]).startswith('coordinator listening'):\n"
+            "        os.kill(os.getpid(), signal.SIGINT)\n"
+            "builtins.print = announce\n"
+            "sys.argv = ['cli', 'coordinator', '--host', '127.0.0.1', "
+            f"'--port', '{free_port()}']\n"
+            "runpy.run_module('deeplearning4j_tpu_torch.cli', "
+            "run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "coordinator listening on 127.0.0.1:" in proc.stdout

@@ -62,7 +62,7 @@ def test_package_imports_without_jax():
                for m in NN_SLICE + EMBEDDINGS_SLICE + PARALLEL_SLICE
                + PLACEMENT_SLICE + PIPELINE_SLICE + ELASTIC_SLICE
                + TELEMETRY_SLICE + TUNING_UI_SLICE + TRACING_SLICE
-               + DATA_UTIL_SLICE + COMPOSE_SLICE} - names
+               + DATA_UTIL_SLICE + COMPOSE_SLICE + ANALYSIS_SLICE} - names
     assert not missing, missing
 
 
@@ -507,3 +507,11 @@ def test_clustering_entry_points_default_to_cuda(make):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             make()
+
+
+# graftlint for the port (ROADMAP A9.11): the analysis stages and the op
+# audit
+ANALYSIS_SLICE = (
+    "analysis", "analysis.core", "analysis.ast_pass", "analysis.ast_rules",
+    "analysis.spmd_rules", "analysis.concurrency_rules",
+    "analysis.precision_rules", "analysis.lock_audit", "analysis.op_audit")
