@@ -570,8 +570,17 @@ Phases, each of which exits non-zero when it fails:
    included) and milliseconds; (c) it fails if an entry takes the dense
    attention path, launches none of a group of its expected kernels, or
    breaks J001 (outside the budget's known syncs), J002 (the "cuda"
-   bounds of analysis/op_budget.json) or J003. `--phase 30` runs the
-   build and this phase alone.
+   bounds of analysis/op_budget.json) or J003; (d) the collective
+   audit's five entries (analysis/collective_audit.py) with CUDA tensors
+   as simulated ranks of torch's fake process group, each signature the
+   frozen one with no C003, and C13's check: a split `shard_generator`
+   of a CUDA generator makes no sync (`collectives_on_card`); (e) the
+   precision audit's 21 entries (analysis/precision_audit.py: 30b's
+   recorded calls and the five extras, which launch K12 and K13) against
+   the "cuda" section of analysis/precision_budget.json with no P
+   finding, the bf16 LM steps' product dtypes among the JAX package's
+   (`precision_on_card`). `--phase 30` runs the build and this phase
+   alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -10239,17 +10248,17 @@ def lint_on_card(card):
                                   f"{proc.stderr}")
 
 
-def op_audit_on_card(torch, counters, card):
+def op_audit_on_card(torch, card):
     """30b-c: every op-audit entry on the card against the "cuda"
-    budget. Returns the launches of the phase's run (counted from 0)."""
+    budget. Returns {entry: EntryRecord}, whose precision profiles 30e
+    reads."""
     from deeplearning4j_tpu_torch.analysis import op_audit
 
     budget = op_audit.budget_for("cuda")
     known = op_audit.known_syncs("cuda")
-    failures = []
-    counters.reset()
+    failures, records = [], {}
     for name in op_audit.entry_names():
-        rec = op_audit.record_entry(name, "cuda")
+        rec = records[name] = op_audit.record_entry(name, "cuda")
         findings = op_audit.check_entry(rec, budget.get(name),
                                         known.get(name, []))
         missing = [sorted(g) for g in op_audit.EXPECTED_KERNELS[name]
@@ -10269,19 +10278,94 @@ def op_audit_on_card(torch, counters, card):
         if rec.dense_routes:
             failures.append(f"{name}: {rec.dense_routes} attention calls "
                             "took the dense path")
-    launches = counters.read()
     if failures:
         raise PhaseFailed(30, "op audit:\n" + "\n".join(failures))
-    return launches
+    return records
+
+
+def collectives_on_card(torch, card):
+    """30d: the collective audit's five entries with CUDA tensors, each
+    run as simulated ranks of torch's fake process group (NCCL holds one
+    rank a card and this machine has one): every signature must equal
+    the frozen one, with no C003 (rank 0 against rank 1; the reshard
+    entry's sends and recvs matched over its 8 ranks). Then C13: a split
+    mesh step's `shard_generator` of a CUDA generator makes no sync
+    (recorded under the sync debug mode, J001's hook)."""
+    from deeplearning4j_tpu_torch.analysis import collective_audit, op_audit
+    from deeplearning4j_tpu_torch.ops.shard_scope import shard_generator
+
+    t0 = time.perf_counter()
+    findings, sigs = collective_audit.audit(device="cuda")
+    for name, sig in sigs.items():
+        log30(card, f"30d {name}: {len(sig)} c10d ops "
+              f"(world {collective_audit.world_of(name)}): {sig}")
+    log30(card, f"30d collective audit in {time.perf_counter() - t0:.2f} s")
+    if findings:
+        raise PhaseFailed(30, "collective audit on the card:\n"
+                          + "\n".join(f.format() for f in findings))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = op_audit.record_call(
+        "c13/shard_generator", lambda: shard_generator(gen, (1,), 2),
+        "cuda")
+    log30(card, f"30d C13: shard_generator(cuda generator, (1,), 2): "
+          f"{rec.ops} aten ops, syncs {rec.syncs or 'none'}")
+    if rec.syncs:
+        raise PhaseFailed(30, f"shard_generator synced on the card: "
+                              f"{rec.syncs}")
+
+
+def precision_on_card(torch, records, card):
+    """30e: the precision audit's 21 entries on the card against the
+    "cuda" section of analysis/precision_budget.json, with no P finding:
+    the op-audit entries' profiles from 30b's recorded calls (the LM
+    steps at their full dims in bf16), the five extras recorded here
+    (K12 and K13 launched, rank 0 against rank 1 for P005). The bf16 LM
+    steps' product dtypes must be among the JAX package's for the step
+    (its frozen precision_budget.json, read as data)."""
+    from deeplearning4j_tpu_torch.analysis import op_audit, precision_audit
+
+    t0 = time.perf_counter()
+    findings, profiles = precision_audit.audit(device="cuda",
+                                               records=records)
+    failures = [f.format() for f in findings]
+    with open(ROOT / "deeplearning4j_tpu" / "analysis"
+              / "precision_budget.json") as fh:
+        jax = json.load(fh)["entries"]
+    for name, prof in profiles.items():
+        log30(card, f"30e {name}: products {prof['dots']}; reductions "
+              f"{sum(prof['reductions'].values())}; converts "
+              f"{sum(prof['converts'].values())}; collectives "
+              f"{prof['collectives']}; q8 {prof['q8']}; launches "
+              f"{prof['launches']}")
+        missing = [sorted(g) for g in op_audit.EXPECTED_KERNELS[name]
+                   if not any(prof["launches"].get(k) for k in g)]
+        if missing:
+            failures.append(f"{name}: none of {missing} launched "
+                            f"(launches {prof['launches']})")
+        if name.startswith("lm_step/") and \
+                not set(prof["dots"]) <= set(jax[name]["dots"]):
+            failures.append(f"{name}: products {sorted(prof['dots'])} "
+                            f"outside JAX's {sorted(jax[name]['dots'])}")
+    log30(card, f"30e precision audit: {len(profiles)} entries, "
+          f"{len(findings)} findings, in {time.perf_counter() - t0:.2f} s")
+    if failures:
+        raise PhaseFailed(30, "precision audit on the card:\n"
+                          + "\n".join(failures))
 
 
 def graftlint_on_card(torch, counters, card):
     """Phase 30: the port's graftlint — the AST and concurrency stages as
-    processes (30a), the op audit of every entry on the card (30b-c).
-    Returns the launches of its main-path run."""
+    processes (30a), the op audit of every entry on the card (30b-c),
+    the collective audit under the simulated group with C13's check
+    (30d) and the precision audit (30e). Returns the launches of its
+    main-path run (30b-e, counted from 0)."""
     t0 = time.perf_counter()
     lint_on_card(card)
-    launches = op_audit_on_card(torch, counters, card)
+    counters.reset()
+    records = op_audit_on_card(torch, card)
+    collectives_on_card(torch, card)
+    precision_on_card(torch, records, card)
+    launches = counters.read()
     log30(card, f"phase 30 in {time.perf_counter() - t0:.1f} s; launches "
           f"{launches}")
     return launches

@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import importlib.util
 import json
+import os
 import re
 
 # `# graftlint: disable=G001` or `# graftlint: disable=G001,G005` on the
@@ -114,3 +116,19 @@ def split_baselined(findings, baseline: set[str]):
     for f in findings:
         (old if f.key in baseline else new).append(f)
     return new, old
+
+
+def load_hook(path: str, hook: str) -> dict:
+    """The {entry name: builder} dict a fixture .py exposes under `hook`
+    (the trace stages' GRAFTLINT_SPMD_ENTRIES and
+    GRAFTLINT_PRECISION_ENTRIES), or {}. A file whose text never names
+    the hook is not executed."""
+    with open(path, encoding="utf-8") as fh:
+        if hook not in fh.read():
+            return {}
+    modname = f"_graftlint_{hook.lower()}_" + re.sub(
+        r"\W", "_", os.path.abspath(path))
+    spec = importlib.util.spec_from_file_location(modname, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, hook, {})

@@ -14,7 +14,10 @@ call may sync for those reasons), then runs it a second time under an
   backward records no op is an error, not a pass);
 - every hand-written kernel it launched, as deltas of the kernel
   wrappers' LAUNCHES counters (`ops.launch_counts`): the ctypes kernels
-  never pass through the dispatcher.
+  never pass through the dispatcher;
+- the call as a graph of `OpNode`s (each op's input and output tensors
+  as versioned serials) and its c10d ops in order, which the collective
+  audit (stage 3) and the precision audit (stage 5) read.
 
 The rules (the JAX IDs and meanings):
 
@@ -57,6 +60,7 @@ import os
 import time
 import traceback
 import warnings
+import weakref
 
 from deeplearning4j_tpu_torch.analysis.core import Finding
 
@@ -109,8 +113,9 @@ KERNEL_ENTRIES = (
     "softmax_xent_head",
 )
 
-# The kernels each entry must launch on the card: every group needs at
-# least one launch (K1-K13 as in PERF.md). The LM steps run the packed
+# The kernels each entry (of this audit and of the precision audit)
+# must launch on the card: every group needs at least one launch (K1-K13
+# as in PERF.md). The LM steps run the packed
 # K2/K6 at head dim 128, the pair kernels K3/K7 at 64, and the flat
 # K1/K5 at T = 4096 and past it (the chunked tier's tiles).
 _PACKED = ({"K8"}, {"K9"}, {"K2"}, {"K6"})
@@ -130,6 +135,13 @@ EXPECTED_KERNELS = {
     **{_LM_STEP_PREFIX + m: _FLAT for m in (
         "longcontext", "longcontext_chunked",
         "longcontext_chunked_dropout")},
+    # the precision audit's extras (precision_audit.PRECISION_EXTRA):
+    # the decode path is plain PyTorch, the serving kernels are K12, K13
+    "decode_attention/cached": (),
+    "decode_attention/q8": (),
+    "decode_attention/q8_update": (),
+    "fused_sampling/sample": ({"K12"},),
+    "fused_neg_softmax/scores": ({"K13"},),
 }
 
 # torch.cuda.set_sync_debug_mode("warn") warns of every synchronizing
@@ -315,6 +327,83 @@ def _sync_reason(func, args, kwargs):
     return None
 
 
+def dtype_name(dtype) -> str:
+    """'float32' for torch.float32: the dtype spelling the profiles and
+    signatures use (the JAX package's)."""
+    return str(dtype).replace("torch.", "")
+
+
+class OpNode:
+    """One op of a recorded call: its schema name ('aten::mm',
+    'c10d::allreduce_'), the tensors it read and wrote as (serial,
+    dtype, shape) — a serial names one version of one tensor: every op's
+    outputs get new ones, in-place outputs too —, whether it ran inside
+    autograd's backward, and for a c10d op its signature item and the
+    dtypes of its operand."""
+
+    __slots__ = ("idx", "name", "ins", "outs", "backward", "item",
+                 "operand")
+
+    def __init__(self, idx, name, ins, outs, backward, item=None,
+                 operand=()):
+        self.idx, self.name, self.ins, self.outs = idx, name, ins, outs
+        self.backward, self.item, self.operand = backward, item, operand
+
+    @property
+    def op(self) -> str:
+        """The name without its namespace ('mm', 'allreduce_')."""
+        return self.name.split("::", 1)[-1]
+
+
+# the argument of a c10d op that holds its operand (else argument 0)
+_C10D_OPERAND = {"_allgather_base_": 1, "allgather_": 1,
+                 "_reduce_scatter_base_": 1}
+# point-to-point c10d ops: their signature item names the peer relative
+# to this rank, so a ring's signature is the same on every rank
+P2P_OPS = frozenset({"send", "recv_", "recv_any_source_"})
+
+
+def _process_group(obj):
+    """The ProcessGroup a c10d op's ScriptObject argument boxes, or None
+    (a ReduceOp, a Work)."""
+    import torch
+    import torch.distributed as dist
+
+    if not isinstance(obj, torch.ScriptObject):
+        return None
+    try:
+        return dist.ProcessGroup.unbox(obj)
+    except RuntimeError:
+        return None
+
+
+def c10d_item(func, args):
+    """(signature item, operand dtypes) of one c10d op: a collective as
+    'op@group-size dtype[shape]', a point-to-point op as 'send@+k
+    dtype[shape]' with k = (peer - rank) mod the group's size."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    op = func._schema.name.split("::", 1)[-1]
+    pg = next((g for g in map(_process_group, args) if g is not None),
+              None)
+    size, rank = (pg.size(), pg.rank()) if pg is not None else (1, 0)
+    if op in P2P_OPS:
+        peer = next((a for a in args[2:] if isinstance(a, int)), None)
+        where = "+?" if peer is None else f"+{(peer - rank) % size}"
+    else:
+        where = str(size)
+    pos = _C10D_OPERAND.get(op, 0)
+    flat, _ = tree_flatten(args[pos] if pos < len(args) else ())
+    tensors = [t for t in flat if isinstance(t, torch.Tensor)]
+    if op == "barrier":
+        tensors = []
+    desc = ",".join(f"{dtype_name(t.dtype)}[{','.join(map(str, t.shape))}]"
+                    for t in tensors)
+    return (f"{op}@{where} {desc}".strip(),
+            tuple(dtype_name(t.dtype) for t in tensors))
+
+
 def _recorder_class():
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -322,8 +411,15 @@ def _recorder_class():
 
     class OpRecorder(TorchDispatchMode):
         """Counts every aten op dispatched under it (and those of the
-        backward it reaches), and records host syncs and float64
-        tensors with the port frame that made them."""
+        backward it reaches), records host syncs and float64 tensors
+        with the port frame that made them, the c10d ops in order
+        (`collectives`, the collective audit's signature), and the call
+        as a graph of `OpNode`s: `producer` maps a tensor serial to the
+        node that wrote it, `consumers` to the nodes that read it (the
+        precision audit's chain walks). Tensors map to their serials
+        weakly (`_serials`: id -> (weak reference, serial), an entry
+        whose tensor died and whose id was reused is stale): the
+        recorder keeps none alive."""
 
         def __init__(self):
             super().__init__()
@@ -331,23 +427,70 @@ def _recorder_class():
             self.backward_ops = 0
             self.syncs: list[tuple[str, str]] = []
             self.f64: dict[str, str] = {}
+            self.collectives: list[str] = []
+            self.nodes: list[OpNode] = []
+            self.producer: dict[int, OpNode] = {}
+            self.consumers: dict[int, list] = {}
+            self.leaves: dict[int, str] = {}     # serial -> dtype
+            self._serials: dict[int, tuple] = {}
+            self._next = 0
+
+        def _new(self, t):
+            self._next += 1
+            self._serials[id(t)] = (weakref.ref(t), self._next)
+            return self._next
+
+        def _read(self, t):
+            serial = self.serial_of(t)
+            if serial is None:
+                serial = self._new(t)
+                self.leaves[serial] = dtype_name(t.dtype)
+            return (serial, dtype_name(t.dtype), tuple(t.shape))
+
+        def serial_of(self, t):
+            """The serial of `t`'s last version, or None."""
+            entry = self._serials.get(id(t))
+            return entry[1] if entry is not None and entry[0]() is t \
+                else None
+
+        @property
+        def aten_ops(self) -> int:
+            return sum(n for k, n in self.ops.items()
+                       if k.startswith("aten."))
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             key = str(func)
             self.ops[key] = self.ops.get(key, 0) + 1
-            if torch._C._current_autograd_node() is not None:
+            backward = torch._C._current_autograd_node() is not None
+            if backward:
                 self.backward_ops += 1
             reason = _sync_reason(func, args, kwargs)
+            flat_in, _ = tree_flatten((args, kwargs))
+            ins = tuple(self._read(x) for x in flat_in
+                        if isinstance(x, torch.Tensor))
+            item, operand = (c10d_item(func, args)
+                             if func.namespace == "c10d" else (None, ()))
             out = func(*args, **kwargs)
+            flat_out, _ = tree_flatten(out)
+            outs = tuple((self._new(x), dtype_name(x.dtype), tuple(x.shape))
+                         for x in flat_out if isinstance(x, torch.Tensor))
+            node = OpNode(len(self.nodes), func._schema.name, ins, outs,
+                          backward, item, operand)
+            self.nodes.append(node)
+            for serial, _, _ in ins:
+                self.consumers.setdefault(serial, []).append(node)
+            for serial, _, _ in outs:
+                self.producer[serial] = node
+            if item is not None:
+                self.collectives.append(item)
             if reason is not None:
                 self.syncs.append(
                     (reason, _port_frame(traceback.extract_stack())))
-            if key not in self.f64:
-                flat, _ = tree_flatten((args, kwargs, out))
-                if any(isinstance(x, torch.Tensor)
-                       and x.dtype == torch.float64 for x in flat):
-                    self.f64[key] = _port_frame(traceback.extract_stack())
+            if key not in self.f64 and any(
+                    isinstance(x, torch.Tensor) and x.dtype == torch.float64
+                    for x in flat_in + flat_out):
+                self.f64[key] = _port_frame(traceback.extract_stack())
             return out
 
     return OpRecorder
@@ -367,6 +510,10 @@ class EntryRecord:
     ms: float                # CUDA: one unrecorded call, CUDA events;
                              # CPU: the recorded call's wall time
     top_ops: list            # [(op, count)], the 8 most frequent
+    profile: dict = dataclasses.field(default_factory=dict)
+                             # the precision profile (precision_audit)
+    precision: list = dataclasses.field(default_factory=list)
+                             # its P001-P004 findings
 
     @property
     def count(self) -> int:
@@ -390,9 +537,12 @@ def record_entry(name: str, device: str = "cuda") -> EntryRecord:
 def record_call(name: str, run, device: str) -> EntryRecord:
     """`run()` once to warm, once under the OpRecorder (with the sync
     debug mode on CUDA), and on CUDA a third time unrecorded, timed with
-    events; on the CPU `ms` is the recorded call's wall time."""
+    events; on the CPU `ms` is the recorded call's wall time. The one
+    recorded call also gives the precision profile with its findings
+    (analysis/precision_audit.py), so stage 2 and stage 5 share it."""
     import torch
 
+    from deeplearning4j_tpu_torch.analysis import precision_audit
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import launch_counts
 
@@ -423,12 +573,14 @@ def record_call(name: str, run, device: str) -> EntryRecord:
         t0 = time.perf_counter()
         try:
             with rec:
-                run()
+                result = run()
         finally:
             if cuda:
                 torch.cuda.set_sync_debug_mode(mode)
         ms = (time.perf_counter() - t0) * 1e3
     after = launch_counts()
+    escapes = precision_audit.returned_serials(rec, result)
+    del result
     if cuda:
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True)
@@ -441,6 +593,8 @@ def record_call(name: str, run, device: str) -> EntryRecord:
     launches = {k: after[k] - before.get(k, 0) for k in after
                 if after[k] != before.get(k, 0)}
     top = sorted(rec.ops.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
+    profile, pfindings = precision_audit.profile_record(rec, name, launches,
+                                                        escapes)
     del run
     if cuda:
         torch.cuda.empty_cache()
@@ -449,7 +603,7 @@ def record_call(name: str, run, device: str) -> EntryRecord:
         backward_ops=rec.backward_ops, launches=launches,
         syncs=rec.syncs + sync_warnings, f64=dict(rec.f64),
         dense_routes=fa.DENSE_ROUTES["head_dim"] - dense0, ms=ms,
-        top_ops=top)
+        top_ops=top, profile=profile, precision=pfindings)
 
 
 # ------------------------------------------------------------ budget

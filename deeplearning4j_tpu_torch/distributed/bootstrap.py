@@ -21,6 +21,7 @@ Pure stdlib at import; torch is imported inside the functions.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import socket
@@ -180,6 +181,46 @@ def shutdown() -> None:
             dist.barrier()
     dist.destroy_process_group()
     _device = None
+
+
+@contextlib.contextmanager
+def simulated_group(rank: int, world: int, device="cpu"):
+    """Run the enclosed code as process `rank` of a fleet of `world`, in
+    this process alone: the env contract's process id and count, torch's
+    fake process group as the default group (collectives are issued and
+    nothing moves: a received buffer keeps what it held) and `device` as
+    this process's device. The group is destroyed and the environment
+    restored on exit. Refuses to run while a process group is up: its
+    collectives would reach real peers. What graftlint's trace stages
+    run an entry under (analysis/collective_audit.py)."""
+    global _device
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if is_initialized():
+        raise RuntimeError("a simulated process group runs only where no "
+                           "process group is up: a live group's "
+                           "collectives would reach its real peers")
+    saved = {var: os.environ.get(var)
+             for var in (ENV_PROCESS_ID, ENV_NUM_PROCESSES)}
+    os.environ[ENV_PROCESS_ID] = str(int(rank))
+    os.environ[ENV_NUM_PROCESSES] = str(int(world))
+    bound = _device
+    try:
+        dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                                world_size=int(world))
+        _device = torch.device(device)
+        yield
+    finally:
+        _device = bound
+        if is_initialized():
+            dist.destroy_process_group()
+        for var, val in saved.items():
+            if val is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = val
 
 
 def process_device():

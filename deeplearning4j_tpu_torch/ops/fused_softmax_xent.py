@@ -298,6 +298,10 @@ def softmax_xent_head(x, w, b, labels):
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d).contiguous()
-    lf = labels.reshape(-1).to(torch.int32).contiguous()
+    lf = labels.reshape(-1)
+    if lf.device.type != "cpu":
+        # the kernels read int32 labels; the plain versions index with
+        # the labels as they come (an int32 copy would be cast back)
+        lf = lf.to(torch.int32).contiguous()
     loss = _FusedHead.apply(xf, w.contiguous(), b.contiguous(), lf)
     return loss.reshape(lead)

@@ -213,20 +213,36 @@ def fold_bh_offset(seed, BH: int):
     return fold_slices(seed, d.index * BH)
 
 
+def shard_seed(state, indices) -> int:
+    """The 63-bit seed of the shard at `indices` whose parent generator
+    is in `state` (`Generator.get_state()`): a hash of the state's
+    bytes and the indices. The state is a CPU byte tensor for a CPU and
+    a CUDA generator alike (a CUDA generator's Philox seed and offset
+    live on the host), so the seed is made without reading the card."""
+    import hashlib
+
+    # the state is a CPU tensor on every device: no read of the card
+    h = hashlib.blake2b(state.numpy().tobytes(),  # graftlint: disable=G002
+                        digest_size=8)
+    for i in indices:
+        h.update(int(i).to_bytes(8, "little", signed=True))
+    return int.from_bytes(h.digest(), "little") % 2**63
+
+
 def shard_generator(generator, indices, size: int):
     """The dropout generator of one shard of a mesh step whose shards
     draw apart (the JAX package's `fold_in` of the axis indices into the
     step key): `generator` itself on a mesh of one shard (`size` 1),
-    else a generator on its device seeded from one draw of `generator`
-    (so every rank's `generator` advances alike) mixed with `indices`,
-    this shard's coordinates."""
+    else a generator on its device seeded from `generator`'s state mixed
+    with `indices`, this shard's coordinates (`shard_seed`). The parent
+    then advances by one draw that stays on its device and is never
+    read, so every rank's `generator` advances alike and the next call
+    gets a new seed."""
     if generator is None or size == 1:
         return generator
     import torch
 
-    base = int(torch.randint(0, 2**62, (1,), generator=generator,
-                             device=generator.device).item())
-    seed = base
-    for i in indices:
-        seed = (seed * 0x100000001B3 + int(i) + 1) % 2**63
+    seed = shard_seed(generator.get_state(), indices)
+    torch.randint(0, 2**62, (1,), generator=generator,
+                  device=generator.device)
     return torch.Generator(device=generator.device).manual_seed(seed)

@@ -9,10 +9,12 @@ package).
     graftlint.py --check --stage ops                # op audit on the card
     graftlint.py --check --stage spmd               # rank divergence
     graftlint.py --check --stage concurrency        # host threads
-    graftlint.py --check --stage precision          # dtype discipline
+    graftlint.py --check --stage precision --device cpu|cuda  # dtypes
     graftlint.py --json ...                         # machine output
     graftlint.py --write-baseline ...               # grandfather
     graftlint.py --update-budget --device cpu|cuda  # refreeze op bounds
+    graftlint.py --update-collectives               # refreeze stage 3
+    graftlint.py --update-precision --device cpu|cuda  # refreeze stage 5
     graftlint.py --update-locks                     # refreeze stage 4
     graftlint.py --changed                          # diff-scoped, fast
     graftlint.py --rules                            # rule inventory
@@ -26,9 +28,19 @@ every entry point of analysis/op_audit.py twice on `--device` (default
 cuda, the card; `cpu` runs the plain versions) and audits the second
 call against analysis/op_budget.json (J001 syncs, J002 op count, J003
 float64, J004 missing). Stage `spmd` runs the rank-divergence rules
-G010-G015, G018; stage `precision` the dtype rules G031-G034 (their
-trace halves, the collective and precision audits, are not ported yet,
-so --update-collectives and --update-precision exit 2). Stage
+G010-G015, G018, then the collective audit (analysis/collective_audit.py:
+each entry's ordered c10d signature, recorded on the CPU as simulated
+ranks of a fake process group, against analysis/collective_budget.json;
+C001 drift, C002 missing, C003 rank divergence). Stage `precision` runs
+the dtype rules G031-G034, then the precision audit
+(analysis/precision_audit.py) of every entry on `--device`: each
+recorded call's dtype profile against analysis/precision_budget.json
+(P001 sub-f32 accumulation, P002 the int8 pairing, P003 convert churn,
+P004 widened collectives, P005 rank divergence, PB01 drift). Explicit
+.py paths that define GRAFTLINT_SPMD_ENTRIES or
+GRAFTLINT_PRECISION_ENTRIES are audited in place of the built-in
+entries, without the frozen files. `--stage all` records each entry
+once for the op and precision audits. Stage
 `concurrency` (pure stdlib, like `ast`) runs the host-thread rules
 G025-G028 plus the lock-order audit (analysis/lock_audit.py): edges
 frozen in analysis/lock_order.json, a lock-order CYCLE (D001) always
@@ -51,10 +63,9 @@ sys.path.insert(0, ROOT)
 PKG = "deeplearning4j_tpu_torch"
 DEFAULT_BASELINE = os.path.join(ROOT, "port_tools", "graftlint_baseline.json")
 
-# the trace halves of stages 3 and 5, not ported yet (ROADMAP A9.11)
-_NOT_PORTED = ("the trace half of stage {stage} ({module}) is not ported "
-               "yet: ROADMAP Queue A, A9.11 item 6 (the collective and "
-               "precision audits on the op recorder)")
+# the hook a fixture .py defines for each trace stage
+_HOOKS = {"spmd": "GRAFTLINT_SPMD_ENTRIES",
+          "precision": "GRAFTLINT_PRECISION_ENTRIES"}
 
 
 def _stub_packages() -> None:
@@ -88,8 +99,9 @@ def main(argv=None) -> int:
                              "precision", "all"),
                     default="ast")
     ap.add_argument("--device", default="cuda",
-                    help="where stage `ops` runs its entries (default "
-                         "cuda, the card; cpu runs the plain versions)")
+                    help="where stages `ops` and `precision` run their "
+                         "entries (default cuda, the card; cpu runs the "
+                         "plain versions)")
     ap.add_argument("--baseline", default=DEFAULT_BASELINE)
     ap.add_argument("--write-baseline", action="store_true",
                     help="grandfather all current AST findings into the "
@@ -98,13 +110,16 @@ def main(argv=None) -> int:
                     help="rerun every op-audit entry on --device and "
                          "refreeze its op-count budget")
     ap.add_argument("--update-collectives", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="rerun every collective-audit entry and refreeze "
+                         "its signature (analysis/collective_budget.json)")
     ap.add_argument("--update-locks", action="store_true",
                     help="rescan the package lock-order graph and "
                          "refreeze the blessed edge set "
                          "(analysis/lock_order.json)")
     ap.add_argument("--update-precision", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="rerun every precision-audit entry on --device "
+                         "and refreeze its profile "
+                         "(analysis/precision_budget.json)")
     ap.add_argument("--changed", nargs="?", const="HEAD", default=None,
                     metavar="REF",
                     help="lint only .py files touched since REF "
@@ -113,15 +128,15 @@ def main(argv=None) -> int:
                     help="print the per-stage rule inventory and exit")
     args = ap.parse_args(argv)
 
-    if args.update_collectives or args.update_precision:
-        stage, module = (("3", "analysis/collective_audit.py")
-                         if args.update_collectives
-                         else ("5", "analysis/precision_audit.py"))
-        print(f"graftlint: {_NOT_PORTED.format(stage=stage, module=module)}"
-              "; nothing was frozen", file=sys.stderr)
-        return 2
-
-    needs_torch = args.stage in ("ops", "all") or args.update_budget
+    # explicit .py paths are audited as fixtures: the trace stages run
+    # the entries they expose (none: no trace), not the built-in ones
+    explicit_py = [p for p in (args.paths or []) if p.endswith(".py")]
+    fixtures = bool(explicit_py) and len(explicit_py) == len(args.paths)
+    trace = args.stage in _HOOKS and (not fixtures or any(
+        _defines(p, _HOOKS[args.stage]) for p in explicit_py))
+    needs_torch = (args.stage in ("ops", "all") or trace
+                   or args.update_budget or args.update_collectives
+                   or args.update_precision)
     if not needs_torch:
         # Pre-commit path: stub the package parents so the analysis
         # modules load WITHOUT the root __init__ (which imports torch).
@@ -143,8 +158,10 @@ def main(argv=None) -> int:
     new, old = [], []
     records: dict = {}
 
+    updating = (args.update_budget or args.update_locks
+                or args.update_collectives or args.update_precision)
     if args.stage in ("ast", "all", "spmd", "concurrency", "precision") \
-            and not args.update_budget and not args.update_locks:
+            and not updating:
         # the spmd, concurrency and precision stages lint their own rule
         # family only
         from deeplearning4j_tpu_torch.analysis import ast_rules
@@ -160,15 +177,31 @@ def main(argv=None) -> int:
         new.extend(n)
         old.extend(o)
 
-    if args.stage in ("ops", "all") or args.update_budget:
+    if args.update_collectives:
+        from deeplearning4j_tpu_torch.analysis import collective_audit
+        _, signatures = collective_audit.audit(divergence=False)
+        collective_audit.write_budget(signatures)
+        print(f"froze collective signatures for {len(signatures)} entry "
+              f"points -> {collective_audit.BUDGET_PATH}")
+        for name, sig in sorted(signatures.items()):
+            print(f"  {name}: {len(sig)} c10d op(s)")
+        return 0
+
+    run_ops = args.stage in ("ops", "all") or args.update_budget
+    run_precision = (args.stage == "all" or args.update_precision
+                     or (args.stage == "precision" and trace))
+    if (run_ops or run_precision) and args.device.startswith("cuda"):
         import torch
 
-        from deeplearning4j_tpu_torch.analysis import op_audit
-        if args.device.startswith("cuda") and not torch.cuda.is_available():
-            print("graftlint: stage `ops` on cuda needs a CUDA device "
+        if not torch.cuda.is_available():
+            stage = "ops" if run_ops else "precision"
+            print(f"graftlint: stage `{stage}` on cuda needs a CUDA device "
                   "(pass --device cpu to audit the plain versions)",
                   file=sys.stderr)
             return 2
+
+    if run_ops:
+        from deeplearning4j_tpu_torch.analysis import op_audit
         ofindings, records = op_audit.audit(device=args.device)
         if args.update_budget:
             counts = {n: r.count for n, r in records.items()}
@@ -179,6 +212,41 @@ def main(argv=None) -> int:
                 print(f"  {name}: {count} ops + launches")
             return 0
         new.extend(ofindings)
+
+    signatures: dict = {}
+    if args.stage == "all" or (args.stage == "spmd" and trace):
+        from deeplearning4j_tpu_torch.analysis import collective_audit
+        if fixtures:
+            cfindings, signatures = collective_audit.audit_paths(explicit_py)
+        else:
+            cfindings, signatures = collective_audit.audit()
+        new.extend(cfindings)
+
+    profiles: dict = {}
+    if run_precision:
+        from deeplearning4j_tpu_torch.analysis import precision_audit
+        if args.update_precision:
+            _, profiles = precision_audit.audit(device=args.device,
+                                                divergence=False)
+            precision_audit.write_budget(profiles, args.device)
+            print(f"froze precision profiles for {len(profiles)} entry "
+                  f"points on {args.device} -> "
+                  f"{precision_audit.BUDGET_PATH}")
+            for name, prof in sorted(profiles.items()):
+                print(f"  {name}: {sum(prof['dots'].values())} product(s), "
+                      f"{sum(prof['converts'].values())} convert(s), "
+                      f"q8 {prof['q8']['quantize']}q/"
+                      f"{prof['q8']['dequantize']}dq, launches "
+                      f"{prof['launches']}")
+            return 0
+        if fixtures and args.stage == "precision":
+            pfindings, profiles = precision_audit.audit_paths(
+                explicit_py, args.device)
+        else:
+            # one recorded call serves stage 2 and stage 5
+            pfindings, profiles = precision_audit.audit(
+                device=args.device, records=records)
+        new.extend(pfindings)
 
     lock_edges: list[str] = []
     if args.stage in ("concurrency", "all") or args.update_locks:
@@ -206,7 +274,9 @@ def main(argv=None) -> int:
             "findings": [f.to_json() for f in new],
             "grandfathered": [f.to_json() for f in old],
             "op_audit": {n: r.to_json() for n, r in records.items()},
+            "collective_signatures": signatures,
             "lock_order_edges": lock_edges,
+            "precision_profiles": profiles,
         }, indent=1))
     else:
         for f in new:
@@ -216,14 +286,29 @@ def main(argv=None) -> int:
         if records:
             print(f"op audit: {len(records)} entry points run on "
                   f"{args.device}")
+        if signatures:
+            print(f"collective audit: {len(signatures)} entry points "
+                  "recorded")
         if lock_edges:
             print(f"lock-order audit: {len(lock_edges)} edge(s)")
+        if profiles:
+            print(f"precision audit: {len(profiles)} entry points "
+                  f"profiled on {args.device}")
         print(f"graftlint: {len(new)} finding(s)")
     # a lock-order cycle is a deadlock waiting for load — never
     # reportable-only, regardless of --check or baseline
     if any(f.rule == "D001" for f in new):
         return 1
     return 1 if (new and args.check) else 0
+
+
+def _defines(path: str, hook: str) -> bool:
+    """Whether the .py file at `path` names a trace stage's hook."""
+    try:
+        with open(path, encoding="utf-8") as fh:
+            return hook in fh.read()
+    except OSError:
+        return False
 
 
 def _changed_paths(ref: str) -> list[str]:
@@ -266,14 +351,27 @@ def _print_rules() -> int:
         "J002": "op count plus kernel launches over the frozen budget",
         "J003": "float64 tensor into or out of an op",
         "J004": "entry point missing from the budget for its device",
+        "C001": "collective signature drift from the frozen one",
+        "C002": "entry point missing from the frozen signatures",
+        "C003": "rank-divergent collective sequence or program, or an "
+                "unmatched point-to-point move (deadlock class)",
+        "P001": "sub-f32 accumulation (a chained reduction, a cumulative "
+                "op, a collective sum, a loop-carried add)",
+        "P002": "broken int8 quantize/dequantize pairing",
+        "P003": "convert round trip whose middle value nothing reads",
+        "P004": "collective operand wider than the entry's inputs",
+        "P005": "rank-divergent precision profile (deadlock class)",
+        "PB01": "precision profile drift from the frozen manifest, or "
+                "missing",
     }
     stages = [
         ("ast", sorted(set(RULE_DOCS) - SPMD_RULE_IDS - CONC_RULE_IDS
                        - PRECISION_RULE_IDS)),
         ("ops", ["J001", "J002", "J003", "J004"]),
-        ("spmd", sorted(SPMD_RULE_IDS)),
+        ("spmd", sorted(SPMD_RULE_IDS) + ["C001", "C002", "C003"]),
         ("concurrency", sorted(CONC_RULE_IDS) + sorted(LOCK_DOCS)),
-        ("precision", sorted(PRECISION_RULE_IDS)),
+        ("precision", sorted(PRECISION_RULE_IDS)
+         + ["P001", "P002", "P003", "P004", "P005", "PB01"]),
     ]
     for stage, ids in stages:
         print(f"stage {stage}:")

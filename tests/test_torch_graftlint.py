@@ -260,10 +260,31 @@ def test_cli_check_fails_on_findings_and_stages_filter(tmp_path):
 
 @pytest.mark.parametrize("flag,stage", [("--update-collectives", "3"),
                                         ("--update-precision", "5")])
-def test_cli_unported_trace_halves_exit_two(flag, stage):
-    proc = _cli(flag)
-    assert proc.returncode == 2
-    assert f"stage {stage}" in proc.stderr and "A9.11" in proc.stderr
+def test_cli_unported_trace_halves_exit_two(flag, stage, tmp_path,
+                                            monkeypatch, capsys):
+    """The trace halves of stages 3 and 5 are ported (they exited 2
+    before): each update flag records its stage's entries (here one
+    cheap entry each) and writes its frozen file, at a temporary path,
+    and exits 0."""
+    import importlib.util
+
+    from deeplearning4j_tpu_torch.analysis import (collective_audit,
+                                                   precision_audit)
+    mod, entry, args = {
+        "3": (collective_audit, "ring_attention/seq4", [flag]),
+        "5": (precision_audit, "fused_neg_softmax/scores",
+              [flag, "--device", "cpu"])}[stage]
+    path = tmp_path / f"stage{stage}.json"
+    monkeypatch.setattr(mod, "BUDGET_PATH", str(path))
+    monkeypatch.setattr(mod, "entry_names", lambda: [entry])
+    spec = importlib.util.spec_from_file_location("_port_cli", CLI)
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    assert cli.main(args) == 0
+    assert "froze" in capsys.readouterr().out
+    frozen = (mod.load_budget(str(path)) if stage == "3"
+              else mod.load_budget(str(path), "cpu"))
+    assert list(frozen) == [entry] and frozen[entry]
 
 
 def test_cli_rules_inventory_lists_every_stage():

@@ -509,9 +509,10 @@ def test_clustering_entry_points_default_to_cuda(make):
             make()
 
 
-# graftlint for the port (ROADMAP A9.11): the analysis stages and the op
-# audit
+# graftlint for the port (ROADMAP A9.11): the analysis stages, the op
+# audit and the trace halves of stages 3 and 5
 ANALYSIS_SLICE = (
     "analysis", "analysis.core", "analysis.ast_pass", "analysis.ast_rules",
     "analysis.spmd_rules", "analysis.concurrency_rules",
-    "analysis.precision_rules", "analysis.lock_audit", "analysis.op_audit")
+    "analysis.precision_rules", "analysis.lock_audit", "analysis.op_audit",
+    "analysis.collective_audit", "analysis.precision_audit")

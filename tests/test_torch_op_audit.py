@@ -15,7 +15,7 @@ import torch
 
 import bench
 from deeplearning4j_tpu.analysis import jaxpr_audit
-from deeplearning4j_tpu_torch.analysis import op_audit
+from deeplearning4j_tpu_torch.analysis import op_audit, precision_audit
 
 pytestmark = [pytest.mark.port, pytest.mark.lint]
 
@@ -42,7 +42,9 @@ def test_entries_are_the_jax_audit_entries():
         jax_keys = set(json.load(fh)["ops"])
     assert op_audit.entry_names() == jaxpr_audit.entry_names()
     assert set(op_audit.entry_names()) == jax_keys
-    assert set(op_audit.EXPECTED_KERNELS) == jax_keys
+    # EXPECTED_KERNELS also names the precision audit's five extras
+    assert set(op_audit.EXPECTED_KERNELS) == jax_keys | set(
+        precision_audit.PRECISION_EXTRA)
     budget = op_audit.load_budget()
     assert set(budget["ops"]["cpu"]) == set(budget["ops"]["cuda"]) == \
         jax_keys
@@ -156,17 +158,33 @@ def test_keep_scale_rounds_on_the_host():
     assert rec.ops == 0
 
 
-def test_shard_generator_syncs_once_a_split_step():
-    """Queue C, C13 (open): a mesh step whose shards draw dropout apart
-    seeds each shard's generator from one draw read back to the host
-    (ops/shard_scope.py shard_generator), a sync the JAX package's
-    fold_in does not make. Grandfathered (G001/G002) until it is
-    redesigned."""
-    from deeplearning4j_tpu_torch.ops.shard_scope import shard_generator
+def test_shard_generator_makes_no_sync():
+    """Queue C, C13 (fixed): a mesh step whose shards draw dropout apart
+    seeded each shard's generator from one draw read back to the host, a
+    sync the JAX package's fold_in does not make. The seed is now a hash
+    of the parent's host-held state (`get_state()`, a CPU byte tensor for
+    a CUDA generator too) and the shard's indices, and the parent
+    advances by one draw that is never read."""
+    from deeplearning4j_tpu_torch.ops.shard_scope import (shard_generator,
+                                                          shard_seed)
     gen = torch.Generator().manual_seed(0)
     rec = op_audit.record_call("fixture/shard_generator",
                                lambda: shard_generator(gen, (1,), 2), "cpu")
-    assert [(op, op_audit.frame_key(fr)) for op, fr in rec.syncs] == [
-        ("aten::_local_scalar_dense",
-         "deeplearning4j_tpu_torch/ops/shard_scope.py:shard_generator")]
+    assert rec.syncs == []
     assert shard_generator(gen, (0,), 1) is gen
+    # the same (state, indices) gives the same seed; other indices others
+    state = gen.get_state()
+    assert shard_seed(state, (1,)) == shard_seed(state.clone(), (1,))
+    seeds = {shard_seed(state, idx) for idx in
+             [(), (0,), (1,), (0, 1), (1, 0), (1, 1)]}
+    assert len(seeds) == 6 and all(0 <= s < 2**63 for s in seeds)
+    # two parents seeded alike advance alike (every rank's step draws
+    # the same next seed), each step a new one
+    a, b = (torch.Generator().manual_seed(7) for _ in range(2))
+    first = [torch.rand(4, generator=shard_generator(g, (1,), 2))
+             for g in (a, b)]
+    second = [torch.rand(4, generator=shard_generator(g, (1,), 2))
+              for g in (a, b)]
+    assert torch.equal(*first) and torch.equal(*second)
+    assert not torch.equal(first[0], second[0])
+    assert torch.equal(a.get_state(), b.get_state())
