@@ -581,6 +581,32 @@ Phases, each of which exits non-zero when it fails:
    finding, the bf16 LM steps' product dtypes among the JAX package's
    (`precision_on_card`). `--phase 30` runs the build and this phase
    alone.
+31. A split net served in lockstep (`lockstep_and_benchdiff`): (a) the
+   serving flagship (f32, 29d's net) placed with a "model" role over a
+   one-rank NCCL group, served by GenerationEngine in lockstep (each
+   step's plan broadcast over the group first, serving/lockstep.py): 29d's
+   4 greedy prompts, each token the whole net's full-forward argmax, and
+   one sampled request (top-k 8, top-p 0.9) of exactly 32 K12 launches,
+   each token among the whole net's 8 most likely at its position;
+   the prefill launches K1, the worker retires at the stop plan; tokens/s
+   and latencies go into a SERVE artifact; (b) port_tools/benchdiff.py
+   over that artifact against itself exits 0, and against a copy with its
+   p50 doubled exits 1 naming that row. `--phase 31` runs it alone.
+32. The example twins (`examples_on_card`): each script of
+   examples/torch/ (the eight of examples/, against the port) as a
+   process of its own (`--example-worker SCRIPT OUT`), four at a time on
+   the card, to its end, with the envelopes its layers ask wrapped to
+   record what they took (`record_envelopes`), after K1 and K4 at the
+   sequence-parallel twin's ring hop (f32, head dim 16, which only the
+   f32 kernels take) against their plain versions; it fails if one exits
+   non-zero, takes the dense attention path or the einsum ring for want
+   of a kernel at its head dim, or launches none of the
+   flash forward kernels where an envelope took an attention call or a
+   ring (the backward kernels where that call ran under autograd), or
+   none of K8 (K9) where fused_softmax_xent.supports took its output
+   head.
+   Each one's seconds and launches by kernel are logged. `--phase 32`
+   runs it alone.
 
 After phases 3-24, no attention call on the card may have taken the
 dense path for a head dim no flash kernel takes (`DENSE_ROUTES`).
@@ -2290,18 +2316,22 @@ def check_neg_softmax(torch, fns):
             dev_ms = kernel_device_ms(torch, run)
             plain_ms = time_ms(torch, lambda: fns._neg_softmax_reference(
                 c, pos, neg))
-            lib_ms = time_ms(torch, lambda: torch.sigmoid(torch.bmm(
-                torch.cat([pos[:, None], neg], 1), c[..., None])))
+            lib = lambda: torch.sigmoid(torch.bmm(  # noqa: E731
+                torch.cat([pos[:, None], neg], 1), c[..., None]))
+            lib_ms = time_ms(torch, lib)
+            lib_dev_ms = kernel_device_ms(torch, lib)
             # c, pos, neg read and both scores written once; 2 (K+1) D
             # FLOPs per row
             bound_ms, bound_by = bound((2 * B * D + B * K * D + B * (K + 1))
                                        * 4, 2 * (K + 1) * B * D, dname)
             log(f"time  K13 neg_softmax {label} f32: kernel {ms:.4f} ms "
                 f"(device time {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
-                f"sigmoid(bmm) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"sigmoid(bmm) {lib_ms:.4f} ms (device time "
+                f"{fmt_ms(lib_dev_ms)}), bound {bound_ms:.5f} ms "
                 f"({bound_by})")
             records.append(dict(label=label, ms=ms, device_ms=dev_ms,
                                 plain_ms=plain_ms, library_ms=lib_ms,
+                                library_device_ms=lib_dev_ms,
                                 bound_ms=bound_ms, bound_by=bound_by))
     # fault C2: c and pos two columns of one [B, 2, D] buffer and neg the
     # first K of K + 2 rows a triple, equal to the launch on contiguous
@@ -9996,6 +10026,33 @@ def resume_on_card(torch, counters, transformer_lm, DataSet, mesh, card):
     return launches, out
 
 
+def greedy_oracle(phase, whole, prompts, reqs):
+    """Each served greedy token against the argmax of the whole net's
+    full forward over the prompt and the tokens before it; a difference
+    is allowed only at a top-2 margin under ORACLE_MARGIN_TOL, where the
+    stream then parts. Returns (tokens checked, [(prompt length, index,
+    margin)] of the parted streams)."""
+    checked, parted = 0, []
+    for prompt, r in zip(prompts, reqs):
+        seq = list(prompt)
+        for i, tok in enumerate(r.emitted):
+            probs = whole.output(np.asarray(seq)[None])[0, -1].float()
+            ref = int(probs.argmax())
+            if ref != tok:
+                top2 = probs.topk(2).values
+                margin = float(top2[0] - top2[1])
+                if margin >= ORACLE_MARGIN_TOL:
+                    raise PhaseFailed(phase, f"prompt of {len(prompt)}: "
+                                             f"token {i} is {tok}, the "
+                                             f"whole net gives {ref} (top-2 "
+                                             f"margin {margin:.3e})")
+                parted.append((len(prompt), i, margin))
+                break
+            checked += 1
+            seq.append(tok)
+    return checked, parted
+
+
 def split_decode_on_card(torch, counters, transformer_lm, card):
     """29d: the serving flagship (f32, f32 cache) split over 2 "model"
     shards in this process (tensor_parallel.place_in_process), served
@@ -10043,24 +10100,7 @@ def split_decode_on_card(torch, counters, transformer_lm, card):
     wall = time.perf_counter() - t0
     launches = counters.read()
     engine.drain()
-    checked, parted = 0, []
-    for prompt, r in zip(prompts, reqs):
-        seq = list(prompt)
-        for i, tok in enumerate(r.emitted):
-            probs = whole.output(np.asarray(seq)[None])[0, -1].float()
-            ref = int(probs.argmax())
-            if ref != tok:
-                top2 = probs.topk(2).values
-                margin = float(top2[0] - top2[1])
-                if margin >= ORACLE_MARGIN_TOL:
-                    raise PhaseFailed("29d", f"prompt of {len(prompt)}: "
-                                             f"token {i} is {tok}, the "
-                                             f"whole net gives {ref} (top-2 "
-                                             f"margin {margin:.3e})")
-                parted.append((len(prompt), i, margin))
-                break
-            checked += 1
-            seq.append(tok)
+    checked, parted = greedy_oracle("29d", whole, prompts, reqs)
     s = MLN_SAMPLED
     toks = torch.randint(0, LM["vocab_size"], (s["rows"], s["prompt"]),
                          generator=rng).numpy()
@@ -10371,6 +10411,366 @@ def graftlint_on_card(torch, counters, card):
     return launches
 
 
+# 31a: the serving flagship (f32, 29d's net) served in lockstep over a
+# one-rank "model" group: 29d's greedy prompts, and one sampled request
+# whose SPLIT_NEW tokens are each one K12 draw
+LOCKSTEP_SAMPLED = dict(temperature=1.0, top_k=8, top_p=0.9)
+
+
+def log31(card, msg):
+    """A phase-31 or -32 line, every number in it beside the card's name
+    and power limit."""
+    log(f"{msg} [{card}]")
+
+
+def lockstep_on_card(torch, counters, transformer_lm, card):
+    """31a: GenerationEngine over the serving flagship (f32, f32 cache)
+    placed with a "model" role over a one-rank NCCL group, in lockstep
+    (serving/lockstep.py: every step broadcast as a plan first): 29d's
+    greedy prompts, each token the whole net's full-forward argmax
+    (`greedy_oracle`), and one sampled request (top-k 8, top-p 0.9) of
+    exactly SPLIT_NEW K12 launches, each token among the 8 most likely of
+    the whole net's distribution at its position; the prefill launches
+    K1; the worker
+    stepped a plan for each prefill chunk and decode step and retired at
+    the stop plan. The prefill chunks of T >= 512 launch K1 (the cache
+    prefill runs the flat kernel, as 29d's). Returns (launches, the numbers of the SERVE artifact,
+    the record)."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+
+    whole = transformer_lm(**LM, dtype="float32", device="cuda").init(SEED)
+    net = transformer_lm(**LM, dtype="float32", device="cuda").init(SEED)
+    rng = torch.Generator().manual_seed(SEED + 29)
+    prompts = [torch.randint(0, LM["vocab_size"], (n,), generator=rng)
+               .numpy() for n in MLN_PROMPTS]
+    try:
+        net.set_mesh(make_mesh({"model": 1}), axes={"model": "model"})
+        engine = GenerationEngine(
+            net, BucketLattice((1,), seq_lens=(64, 512, 1024)), slots=4,
+            max_new_tokens=SPLIT_NEW, page_size=16, prefill_chunk=1024)
+        (worker,) = engine.fleet_workers()
+        if not engine.leader or type(worker).__name__ != "LockstepWorker":
+            raise PhaseFailed("31a", "the engine over a one-rank model "
+                                     "group does not lead a lockstep worker")
+        engine.warmup()
+        torch.cuda.synchronize()
+        counters.reset()
+        engine.start()
+        t0 = time.perf_counter()
+        reqs = [engine.submit_generate(p, SPLIT_NEW) for p in prompts]
+        sampled = engine.submit_generate(prompts[1], SPLIT_NEW,
+                                         **LOCKSTEP_SAMPLED)
+        for r in reqs + [sampled]:
+            if not r.wait(600) or r.error is not None:
+                raise PhaseFailed("31a", f"request {r.request_id}: "
+                                         f"{r.error}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        engine.drain()
+        plans, state = worker.plans, worker.lifecycle
+        net.set_mesh(None)
+    finally:
+        bootstrap.shutdown()
+    checked, parted = greedy_oracle("31a", whole, prompts, reqs)
+    # each sampled token's rank in the whole net's distribution at its
+    # position: top-k 8 keeps only the 8 most likely
+    seq, ranks = list(prompts[1]), []
+    for tok in sampled.emitted:
+        probs = whole.output(np.asarray(seq)[None])[0, -1].float()
+        ranks.append(int((probs > probs[tok]).sum()))
+        seq.append(tok)
+    # a plan a prefill chunk (each prompt fits one chunk of <= 1024) and
+    # a decode step a token after each request's first, the steps shared
+    # by the slots decoding together
+    n_req = len(reqs) + 1
+    tokens = sum(len(r.emitted) for r in reqs + [sampled])
+    ttft = sorted(1e3 * (r.t_first_token - r.t_enqueue)
+                  for r in reqs + [sampled])
+    total = sorted(1e3 * (r.t_done - r.t_enqueue) for r in reqs + [sampled])
+    in_vocab = all(0 <= t < LM["vocab_size"] for t in sampled.emitted)
+    log31(card, f"31a: the serving flagship (f32) placed over a one-rank "
+          f"\"model\" group (NCCL) served in lockstep: {len(reqs)} greedy "
+          f"prompts of {list(MLN_PROMPTS)} and 1 sampled request "
+          f"({LOCKSTEP_SAMPLED}), {tokens} tokens in {wall:.3f} s "
+          f"({tokens / wall:.1f} tokens/s); {checked} greedy tokens equal "
+          f"the whole net's argmax, streams parted at near-ties {parted}; "
+          f"{plans} plans broadcast, worker {state}; the sampled tokens' "
+          f"ranks in the whole net's distribution {ranks}; launches "
+          f"{launches}")
+    if checked < len(reqs) * SPLIT_NEW // 2:
+        raise PhaseFailed("31a", f"only {checked} greedy tokens held to the "
+                                 "whole net's argmax")
+    if (len(sampled.emitted) != SPLIT_NEW or not in_vocab
+            or max(ranks) >= LOCKSTEP_SAMPLED["top_k"]):
+        raise PhaseFailed("31a", f"the sampled request gave "
+                                 f"{sampled.emitted}, of ranks {ranks} in "
+                                 "the whole net's distribution")
+    if launches["K12"] != SPLIT_NEW or not launches["K1"]:
+        raise PhaseFailed("31a", f"expected K12 = {SPLIT_NEW} and K1 > 0, "
+                                 f"got {launches}")
+    if plans < n_req + SPLIT_NEW - 1 or state != "retired":
+        raise PhaseFailed("31a", f"{plans} plans, worker {state}")
+    serve = [
+        {"metric": "lockstep_tokens_per_sec", "value": tokens / wall},
+        {"metric": "lockstep_ttft_p50_ms", "value": ttft[len(ttft) // 2],
+         "lower_is_better": True},
+        {"metric": "lockstep_request_p50_ms", "value": total[len(total) // 2],
+         "lower_is_better": True},
+        {"metric": "lockstep_recompiles", "value": 0,
+         "lower_is_better": True}]
+    return launches, serve, dict(tokens=tokens, seconds=wall, plans=plans,
+                                 checked=checked, parted=parted)
+
+
+def benchdiff_on_card(serve, card):
+    """31b: port_tools/benchdiff.py, a process of its own, over this
+    run's SERVE artifact (31a's numbers, written by serving/replay.py
+    `write_artifact`) against itself: exit 0 and no change; against a
+    copy whose p50 latency doubled: exit 1, naming that row."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving.replay import write_artifact
+
+    tool = str(ROOT / "port_tools" / "benchdiff.py")
+    with tempfile.TemporaryDirectory() as d:
+        art, slow = os.path.join(d, "SERVE.json"), os.path.join(d, "slow.json")
+        write_artifact(art, serve)
+        write_artifact(slow, [dict(line, value=2 * line["value"])
+                              if line["metric"] == "lockstep_request_p50_ms"
+                              else line for line in serve])
+        runs = {}
+        for name, other in (("self", art), ("p50 doubled", slow)):
+            proc = subprocess.run([sys.executable, tool, art, other,
+                                   "--json"], capture_output=True,
+                                  text=True, timeout=120)
+            runs[name] = (proc.returncode, json.loads(proc.stdout)
+                          if proc.stdout.strip() else proc.stderr)
+    log31(card, f"31b: port_tools/benchdiff.py over 31a's SERVE artifact "
+          f"({len(serve)} rows): against itself exit {runs['self'][0]}, "
+          f"against a copy with its p50 doubled exit "
+          f"{runs['p50 doubled'][0]} naming "
+          f"{[r['metric'] for r in runs['p50 doubled'][1]['regressions']]}")
+    rc, res = runs["self"]
+    if rc != 0 or res["regressions"] or res["changes"]:
+        raise PhaseFailed("31b", f"self diff: exit {rc}, {res}")
+    rc, res = runs["p50 doubled"]
+    if rc != 1 or [r["metric"] for r in res["regressions"]] != [
+            "lockstep_request_p50_ms"]:
+        raise PhaseFailed("31b", f"doubled p50: exit {rc}, {res}")
+
+
+def lockstep_and_benchdiff(torch, counters, transformer_lm, card):
+    """Phase 31: a split net served over the ranks of a "model" group in
+    lockstep (31a) and the port's benchdiff over this run's SERVE
+    artifact (31b). Returns the launches of 31a's run."""
+    t0 = time.perf_counter()
+    launches, serve, _ = lockstep_on_card(torch, counters, transformer_lm,
+                                          card)
+    benchdiff_on_card(serve, card)
+    log31(card, f"phase 31 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# phase 32: the example twins (examples/torch/), each run as a process of
+# its own on the card to its end. The kernels an example must launch
+# follow from what its run asked of the wrappers' own envelopes
+# (`record_envelopes`): a flash forward kernel where `supports_qkv`,
+# `supports` or `supports_chunked` took an attention call or `ring_route`
+# sent a ring to the kernel hops, and a flash backward kernel where that
+# call ran under autograd; K8 (and K9 under autograd) where
+# fused_softmax_xent.supports took an output head. An attention call
+# sent to the dense path for its head dim (`DENSE_ROUTES`), or a ring to
+# the einsum ring, fails the phase. The Word2Vec twin trains through
+# the device pipeline, which runs no kernel in either package (K13 is the
+# host path's).
+EXAMPLES_DIR = ROOT / "examples" / "torch"
+FLASH_FWD, FLASH_BWD = ("K1", "K2", "K3"), ("K4", "K5", "K6", "K7")
+# example processes at a time: each spends most of its seconds starting
+# (torch, the CUDA context, the kernels' libraries) on the host's cores
+EXAMPLE_WORKERS = 4
+
+
+def record_envelopes(seen):
+    """Wrap the envelopes the port's attention layers, ring and output
+    head ask before they pick a route, where those callers look them up,
+    so that each call adds to `seen` ({route: [calls taken, taken under
+    autograd]}, and the head dims of rings sent to the einsum ring)."""
+    import importlib
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.layers import attention as att
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import fused_softmax_xent as fsx
+
+    # the package re-exports a function of the module's name
+    ra = importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.ring_attention")
+
+    def wrap(mod, name, route):
+        fn = getattr(mod, name)
+
+        def recorded(*args, **kw):
+            answer = fn(*args, **kw)
+            if route == "ring" and answer != "flash":
+                Tl, D = args[:2]
+                if Tl % 128 == 0:
+                    seen["einsum_ring_head_dims"].add(int(D))
+            elif answer:
+                took = seen.setdefault(
+                    "head" if route == "head" else "flash", [0, 0])
+                took[0] += 1
+                took[1] += torch.is_grad_enabled()
+            return answer
+        setattr(mod, name, recorded)
+
+    seen["einsum_ring_head_dims"] = set()
+    for mod, name, route in (
+            (att, "flash_supports_qkv", "flash"),
+            (att, "flash_supports", "flash"),
+            (att, "flash_supports_chunked", "flash"),
+            (fa, "supports", "flash"),  # nn/decode.py's prefill
+            (ra, "ring_route", "ring"),
+            (fsx, "supports", "head")):
+        wrap(mod, name, route)
+
+
+def example_worker(script, out):
+    """`--example-worker SCRIPT OUT`: run one example twin as `__main__`
+    in this process, with no arguments (so on the card), then write its
+    exit code, seconds, launches by kernel, what it asked of the
+    envelopes (`record_envelopes`) and its dense attention routes to
+    OUT. The launch tables start at 0 with the process."""
+    import runpy
+
+    from deeplearning4j_tpu_torch.ops import launch_counts
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    seen = {}
+    record_envelopes(seen)
+    sys.argv = [script]
+    t0 = time.perf_counter()
+    code = 0
+    try:
+        runpy.run_path(script, run_name="__main__")
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (1 if e.code else 0)
+    seen["einsum_ring_head_dims"] = sorted(seen["einsum_ring_head_dims"])
+    Path(out).write_text(json.dumps({
+        "rc": code, "seconds": time.perf_counter() - t0,
+        "launches": {k: n for k, n in launch_counts().items() if n},
+        "envelopes": seen, "dense": fa.DENSE_ROUTES["head_dim"]}))
+    return code
+
+
+# the sequence-parallel twin's ring hop: batch 4 x 4 heads of 16, one
+# causal block of 256, f32 (the head dim only the f32 kernels take)
+RING_D16 = dict(BH=16, T=256, D=16)
+
+
+def check_head_dim16(torch, card):
+    """K1 and K4 at RING_D16 on the card, through `_flash_fwd` and
+    `_flash_bwd_impl` with an lse cotangent (the ring's hops), against
+    `_flash_fwd_reference` and `_flash_bwd_reference` on the same inputs:
+    o and lse within TOL["float32"], each gradient within
+    REL_TOL["float32"] of its largest entry."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 32)
+    BH, T, D = RING_D16["BH"], RING_D16["T"], RING_D16["D"]
+    q, k, v, do = (torch.randn(BH, T, D, generator=gen).to(dev)
+                   for _ in range(4))
+    dlse = torch.randn(BH, T, generator=gen).to(dev)
+    scale = D ** -0.5
+    o, lse = fa._flash_fwd(q, k, v, None, scale, True)
+    ro, rlse = fa._flash_fwd_reference(q, k, v, None, scale, True)
+    grads = fa._flash_bwd_impl(q, k, v, ro, rlse, do, None, scale, True,
+                               dlse)
+    refs = fa._flash_bwd_reference(q, k, v, ro, rlse, do, None, scale, True,
+                                   dlse)
+    torch.cuda.synchronize()
+    err_o = float((o - ro).abs().max())
+    err_l = float((lse - rlse).abs().max())
+    err_g = [float((g - r).abs().max() / r.abs().max())
+             for g, r in zip(grads, refs)]
+    tol = TOL["float32"]
+    log31(card, f"32: K1 and K4 at head dim 16 (f32, BH={BH}, T={T}, "
+          f"causal, dlse) against their plain versions: o {err_o:.2e}, "
+          f"lse {err_l:.2e} (limits {tol['o']}, {tol['lse']}); dq, dk, dv "
+          f"{', '.join(f'{e:.2e}' for e in err_g)} of their largest entry "
+          f"(limit {REL_TOL['float32']})")
+    if (err_o > tol["o"] or err_l > tol["lse"]
+            or max(err_g) > REL_TOL["float32"]):
+        raise PhaseFailed("32", "the f32 kernels at head dim 16 disagree "
+                                "with their plain versions")
+
+
+def examples_on_card(torch, card):
+    """Phase 32: each example twin of examples/torch/ as a process of its
+    own (`--example-worker`), EXAMPLE_WORKERS at a time on the one card,
+    to its end, writing its files into a temporary directory. Fails if
+    one exits non-zero, sends attention to the dense path, or launches
+    none of the kernels that its calls the envelopes took need (see
+    above). Logs each one's seconds and launches by kernel. Returns the
+    launches summed."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    check_head_dim16(torch, card)
+    names = sorted(p.stem for p in EXAMPLES_DIR.glob("*.py"))
+    total = {}
+    with tempfile.TemporaryDirectory() as d:
+        def run(name):
+            out = os.path.join(d, f"{name}.json")
+            started = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--example-worker", str(EXAMPLES_DIR / f"{name}.py"), out],
+                capture_output=True, text=True, timeout=600, cwd=d,
+                env=dict(os.environ, TMPDIR=d))
+            return proc, out, time.perf_counter() - started
+
+        with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+            runs = dict(zip(names, pool.map(run, names)))
+        for name in names:
+            proc, out, wall = runs[name]
+            if proc.returncode or not os.path.exists(out):
+                log(proc.stdout[-3000:] + proc.stderr[-3000:])
+                raise PhaseFailed("32", f"{name} exited {proc.returncode}")
+            res = json.loads(Path(out).read_text())
+            got, env = res["launches"], res["envelopes"]
+            flash, head = env.get("flash", [0, 0]), env.get("head", [0, 0])
+            want = ([FLASH_FWD] * bool(flash[0]) + [FLASH_BWD] * bool(flash[1])
+                    + [("K8",)] * bool(head[0]) + [("K9",)] * bool(head[1]))
+            missing = [g for g in want if not any(got.get(k) for k in g)]
+            log31(card, f"32: examples/torch/{name}.py: exit {res['rc']}, "
+                  f"{res['seconds']:.2f} s in the script ({wall:.2f} s with "
+                  f"the process; {EXAMPLE_WORKERS} at a time), launches "
+                  f"{got}; envelopes took flash {flash} and head {head} "
+                  f"calls [all, under autograd]; dense routes "
+                  f"{res['dense']}; rings on the einsum ring for want of a "
+                  f"kernel at head dim {env['einsum_ring_head_dims']}; "
+                  f"last line: "
+                  f"{proc.stdout.strip().splitlines()[-1][:160]!r}")
+            if res["dense"] or env["einsum_ring_head_dims"] or missing:
+                raise PhaseFailed("32", f"{name}: dense routes "
+                                        f"{res['dense']}, einsum rings at "
+                                        f"head dim "
+                                        f"{env['einsum_ring_head_dims']}, "
+                                        f"launched none of {missing}")
+            for k, n in got.items():
+                total[k] = total.get(k, 0) + n
+    log31(card, f"phase 32 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{total}")
+    return total
+
+
 def ab_turn(root):
     """One turn of `--ab`: phase 6 with the port of the checkout at
     `root`, in this process; prints its result as one JSON line."""
@@ -10437,19 +10837,20 @@ def ab(other):
 # the worker roles phase 24 re-invokes this file in, and their argument
 # counts
 ROLES = {"--ab": 1, "--ab-turn": 1, "--elastic-worker": 2,
-         "--average-worker": 6, "--build-worker": 1, "--phase": 1}
+         "--average-worker": 6, "--build-worker": 1, "--phase": 1,
+         "--example-worker": 2}
 
 
 def only_phase(torch, phase):
-    """`chip_smoke.py --phase 25` (or 26-30): the kernels built,
+    """`chip_smoke.py --phase 25` (or 26-32): the kernels built,
     then that phase alone (a quick check of one phase; the full run is
     the contract). Phase 26 alone trains phase 20a's host-path Word2Vec
     first and reads its flagship step's telemetry at /timeline; phase
     27 alone writes phase 25a's CSV itself and runs the tools over its
     own logs only (phases 18c and 24a leave none)."""
-    if phase not in ("25", "26", "27", "28", "29", "30"):
-        print(f"chip_smoke: --phase takes 25, 26, 27, 28, 29 or 30, not "
-              f"{phase}", file=sys.stderr)
+    if phase not in ("25", "26", "27", "28", "29", "30", "31", "32"):
+        print(f"chip_smoke: --phase takes 25 to 32, not {phase}",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.datasets import DataSet
@@ -10484,6 +10885,10 @@ def only_phase(torch, phase):
         compositions(torch, counters, transformer_lm, DataSet, name_power)
     elif phase == "30":
         graftlint_on_card(torch, counters, name_power)
+    elif phase == "31":
+        lockstep_and_benchdiff(torch, counters, transformer_lm, name_power)
+    elif phase == "32":
+        examples_on_card(torch, name_power)
     else:
         from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 
@@ -10505,8 +10910,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if args and args[0] in ("--elastic-worker", "--average-worker",
-                            "--build-worker"):
+                            "--build-worker", "--example-worker"):
         sys.path.insert(0, str(ROOT))
+        if args[0] == "--example-worker":
+            return example_worker(*args[1:])
         if args[0] == "--elastic-worker":
             return elastic_worker(*args[1:], started)
         if args[0] == "--build-worker":
@@ -10639,7 +11046,10 @@ def main() -> int:
     compose_launches, _ = compositions(torch, counters, transformer_lm,
                                        DataSet, name_power)
     lint_launches = graftlint_on_card(torch, counters, name_power)
-    log(f"chip_smoke: phases 1-30 in {time.perf_counter() - started:.1f} s")
+    lockstep_launches = lockstep_and_benchdiff(torch, counters,
+                                               transformer_lm, name_power)
+    example_launches = examples_on_card(torch, name_power)
+    log(f"chip_smoke: phases 1-32 in {time.perf_counter() - started:.1f} s")
     # every path above runs head dims the kernels take: none may have
     # been sent to the dense attention for its head dim
     log(f"dense routes for a head dim no kernel takes: {fa.DENSE_ROUTES}")
@@ -10676,7 +11086,8 @@ def main() -> int:
             replay_launches, predict_launches, nn_launches, emb_launches,
             par_launches, place_launches, pipe_launches, fleet_launches,
             tel_launches, tune_launches, trace_launches, data_launches,
-            compose_launches, lint_launches)
+            compose_launches, lint_launches, lockstep_launches,
+            example_launches)
     launches = {k: sum(run.get(k, 0) for run in runs)
                 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
                           "K9", "K10", "K11", "K12", "K13")}

@@ -54,7 +54,34 @@ PyTorch versions; on CUDA tensors they launch the kernels or raise.
 
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+__version__ = "0.1.0"
+
+# The JAX package's root names (deeplearning4j_tpu/__init__.py), imported
+# at first use (PEP 562) so that `import deeplearning4j_tpu_torch` stays
+# as cheap as torch's own import.
+_LAZY = {
+    "NeuralNetConfiguration": "deeplearning4j_tpu_torch.nn.conf",
+    "MultiLayerConfiguration": "deeplearning4j_tpu_torch.nn.conf",
+    "ComputationGraphConfiguration": "deeplearning4j_tpu_torch.nn.conf",
+    "MultiLayerNetwork": "deeplearning4j_tpu_torch.nn.multilayer",
+    "ComputationGraph": "deeplearning4j_tpu_torch.nn.graph",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
 
 
 def resolve_device(device=None) -> torch.device:

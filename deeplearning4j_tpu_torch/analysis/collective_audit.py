@@ -50,7 +50,11 @@ import json
 import os
 import re
 
-from deeplearning4j_tpu_torch.analysis.core import Finding, load_hook
+from deeplearning4j_tpu_torch.analysis.core import (
+    Finding,
+    audit_device,
+    load_hook,
+)
 
 BUDGET_PATH = os.path.join(os.path.dirname(__file__),
                            "collective_budget.json")
@@ -77,23 +81,25 @@ def entry_names() -> list[str]:
 # ----------------------------------------------------- rank simulation
 
 @contextlib.contextmanager
-def simulated_process_group(rank: int, world: int, device="cpu"):
+def simulated_process_group(rank: int, world: int, device=None):
     """Run the enclosed code as rank `rank` of a fleet of `world`, in
     this process (the twin of the JAX `simulated_process_index`): the
     env contract's process id and count, torch's fake process group as
     the default group (collectives are issued, nothing moves) and
     `device` as this process's device; restored on exit. Refuses to run
     inside a live group (`distributed/bootstrap.py` `simulated_group`)."""
+    device = audit_device(device)
     from deeplearning4j_tpu_torch.distributed import bootstrap
 
     with bootstrap.simulated_group(rank, world, device):
         yield
 
 
-def record_signature(build, rank: int, world: int, device="cpu"):
+def record_signature(build, rank: int, world: int, device=None):
     """-> (signature, aten op count) of one call of `fn(*args)` (from
     `build()`, called under the simulation) as rank `rank` of
     `world`."""
+    device = audit_device(device)
     from deeplearning4j_tpu_torch.analysis import op_audit
 
     with simulated_process_group(rank, world, device):
@@ -104,7 +110,7 @@ def record_signature(build, rank: int, world: int, device="cpu"):
         return list(rec.collectives), rec.aten_ops
 
 
-def check_divergence(name: str, build, world: int = 2, device="cpu", *,
+def check_divergence(name: str, build, world: int = 2, device=None, *,
                      same_program: bool = True,
                      first=None) -> list[Finding]:
     """Record one entry as simulated rank 0 and rank 1 and hold the two
@@ -112,6 +118,7 @@ def check_divergence(name: str, build, world: int = 2, device="cpu", *,
     naming both; with `same_program`, equal signatures with different
     aten op counts are the same class. `first`: rank 0's (signature,
     count) when the caller has it."""
+    device = audit_device(device)
     results = {0: first} if first is not None else {}
     for pid in SIMULATED_PROCESSES:
         if pid not in results:
@@ -167,10 +174,11 @@ def unmatched_moves(signatures: dict, world: int) -> list[str]:
     return out
 
 
-def check_moves(name: str, build_at, world: int, device="cpu",
+def check_moves(name: str, build_at, world: int, device=None,
                 first=None) -> list[Finding]:
     """Record the entry at every rank of `world` (`build_at(rank)` ->
     builder) and match its sends with its recvs (C003)."""
+    device = audit_device(device)
     sigs = {0: first[0]} if first is not None else {}
     for r in range(world):
         if r not in sigs:
@@ -234,10 +242,12 @@ def _reshard(device, rank):
     from deeplearning4j_tpu_torch.reshard import executor as tex
 
     like = {("w",): ((8, 8), torch.float32), ("b",): ((8,), torch.float32)}
-    src = tex.PortLayout(like, 8, tex.virtual_mesh({"data": 2, "model": 4}),
+    src = tex.PortLayout(like, 8, tex.virtual_mesh({"data": 2, "model": 4},
+                                                  device),
                          SimpleNamespace(leaves={("w",): ("model", 1, None),
                                                  ("b",): ("model", 0, None)}))
-    dst = tex.PortLayout(like, 8, tex.virtual_mesh({"data": 4, "model": 2}),
+    dst = tex.PortLayout(like, 8, tex.virtual_mesh({"data": 4, "model": 2},
+                                                  device),
                          SimpleNamespace(leaves={("w",): ("model", 0, None)}))
     mplan = tex.MovePlan(tex.leaf_keys(like, {}, {}), src, dst,
                          lambda k: like[k[-1]])
@@ -345,8 +355,9 @@ def write_budget(signatures: dict[str, list[str]],
 
 
 def audit(names=None, budget_path: str | None = None, *,
-          divergence: bool = True, device="cpu"):
+          divergence: bool = True, device=None):
     """Run the stage-3 audit -> (findings, {entry: signature})."""
+    device = audit_device(device)
     budget = load_budget(budget_path)
     findings, signatures = [], {}
     for name in names if names is not None else entry_names():
@@ -390,10 +401,11 @@ def load_entry_module(path: str) -> dict:
     return load_hook(path, ENTRY_HOOK)
 
 
-def audit_paths(paths, device="cpu"):
+def audit_paths(paths, device=None):
     """Divergence-check every external entry the given .py files expose
     at a world of two (no frozen-signature requirement: fixture entries)
     -> (findings, {entry: rank 0's signature})."""
+    device = audit_device(device)
     findings, signatures = [], {}
     world = len(SIMULATED_PROCESSES)
     for path in paths:

@@ -62,6 +62,14 @@ class Finding:
         return dataclasses.asdict(self)
 
 
+def audit_device(device=None) -> str:
+    """The device an audit entry point runs on, as its name: CUDA unless
+    the caller names another (the package's `resolve_device`)."""
+    from deeplearning4j_tpu_torch import resolve_device
+
+    return str(resolve_device(device))
+
+
 def walk(node) -> list:
     """`ast.walk(node)` as a list, memoized on the node: every rule walks
     the same trees and subtrees, so each is walked once per lint."""

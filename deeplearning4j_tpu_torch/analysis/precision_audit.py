@@ -68,7 +68,11 @@ from __future__ import annotations
 import json
 import os
 
-from deeplearning4j_tpu_torch.analysis.core import Finding, load_hook
+from deeplearning4j_tpu_torch.analysis.core import (
+    Finding,
+    audit_device,
+    load_hook,
+)
 
 BUDGET_PATH = os.path.join(os.path.dirname(__file__),
                            "precision_budget.json")
@@ -153,10 +157,11 @@ def _bump(d: dict, key: str) -> None:
 
 # ------------------------------------------------------- extra builders
 
-def build_extra(name, device="cpu"):
+def build_extra(name, device=None):
     """-> (fn, args) for one PRECISION_EXTRA entry at the JAX audit's
     shapes (JAX precision_audit.py `_build_extra`), concrete from numpy
     seed 0 on `device`."""
+    device = audit_device(device)
     import numpy as np
     import torch
 
@@ -228,10 +233,11 @@ def _runner(build):
     return lambda: fn(*args)
 
 
-def record(name: str, device: str = "cpu", build=None):
+def record(name: str, device=None, build=None):
     """The op audit's record of one stage-5 entry (warmed, recorded once;
     its `profile` and `precision` fields are this stage's): an op-audit
     entry, an extra, or a fixture's `build`."""
+    device = audit_device(device)
     from deeplearning4j_tpu_torch.analysis import op_audit
 
     if build is not None:
@@ -519,11 +525,12 @@ def profile_record(rec, name: str, launches=None, escapes=()):
 # ----------------------------------------------------- rank simulation
 
 def check_rank_independence(name: str, build=None,
-                            device: str = "cpu") -> list[Finding]:
+                            device=None) -> list[Finding]:
     """Record the entry under simulated rank 0 and rank 1 of a world of
     two (collective_audit.simulated_process_group) and compare the
     profiles. A divergent profile is deadlock-class (P005), as stage 3's
     C003: the replicas would run different mixed-precision programs."""
+    device = audit_device(device)
     from deeplearning4j_tpu_torch.analysis.collective_audit import (
         SIMULATED_PROCESSES,
         simulated_process_group,
@@ -555,8 +562,9 @@ def _dev(device) -> str:
     return "cuda" if str(device).startswith("cuda") else "cpu"
 
 
-def load_budget(path: str | None = None, device: str = "cpu") -> dict:
+def load_budget(path: str | None = None, device=None) -> dict:
     """{entry: frozen profile} of `device`'s section."""
+    device = audit_device(device)
     try:
         with open(path or BUDGET_PATH) as fh:
             data = json.load(fh)
@@ -595,11 +603,12 @@ def _diff_keys(frozen: dict, got: dict) -> list[str]:
                   if frozen.get(k) != got.get(k))
 
 
-def audit(names=None, device: str = "cpu", budget_path: str | None = None,
+def audit(names=None, device=None, budget_path: str | None = None,
           *, divergence: bool = True, records=None):
     """Run the stage-5 audit on `device` -> (findings, {entry: profile}).
     `records` {entry: EntryRecord} are the op audit's records of the same
     run (`--stage all`): an entry recorded there is not run again."""
+    device = audit_device(device)
     budget = load_budget(budget_path, device)
     findings, profiles = [], {}
     records = records or {}
@@ -640,10 +649,11 @@ def load_entry_module(path: str) -> dict:
     return load_hook(path, ENTRY_HOOK)
 
 
-def audit_paths(paths, device: str = "cpu"):
+def audit_paths(paths, device=None):
     """Profile and P-check every external entry the given .py files
     expose (no frozen-manifest requirement: fixture entries) ->
     (findings, {entry: profile})."""
+    device = audit_device(device)
     findings, profiles = [], {}
     for path in paths:
         if not (path.endswith(".py") and os.path.isfile(path)):

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): one source for the flat
 // [BH, T, D] layout and the packed [B, T, 3n] projection layout, at head
-// dims 32, 64, 128 and 256 and any T that is a multiple of 64.
+// dims 32, 64, 128 and 256 (and 16 in f32, whose scalar kernels take any
+// multiple of 16) and any T that is a multiple of 64.
 //
 // Replaces the TPU kernels (deeplearning4j_tpu/ops/flash_attention.py)
 //   `_flash_bwd_fused` -> `_bwd_fused_kernel` (flat, T <= 512; K4),
@@ -1186,6 +1187,7 @@ template <bool DROP>
 int dispatch(const Args& a, int dtype, int D, cudaStream_t s) {
   if (dtype == 0) {
     switch (D) {
+      case 16: return launch<16, 64, DROP>(a, s);
       case 32: return launch<32, 64, DROP>(a, s);
       case 64: return launch<64, 64, DROP>(a, s);
       case 128: return launch<128, 64, DROP>(a, s);

@@ -1,6 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a): one source for the flat
 // [BH, T, D] layout and the packed [B, T, 3n] projection layout, at head
-// dims 32, 64, 128 and 256 and any T that is a multiple of 64.
+// dims 32, 64, 128 and 256 (and 16 in f32, whose scalar kernels take any
+// multiple of 16) and any T that is a multiple of 64.
 //
 // Replaces the TPU kernels
 //   deeplearning4j_tpu/ops/flash_attention.py `_flash_fwd` -> `_fwd_kernel`
@@ -570,6 +571,7 @@ template <bool DROP>
 int dispatch(const Args& a, int dtype, int D, int B, cudaStream_t s) {
   if (dtype == 0) {
     switch (D) {
+      case 16: return launch_f32<16, DROP>(a, B, s);
       case 32: return launch_f32<32, DROP>(a, B, s);
       case 64: return launch_f32<64, DROP>(a, B, s);
       case 128: return launch_f32<128, DROP>(a, B, s);

@@ -34,6 +34,9 @@ ENV_COORDINATOR = "DL4J_TPU_COORDINATOR"
 ENV_PROCESS_ID = "DL4J_TPU_PROCESS_ID"
 ENV_NUM_PROCESSES = "DL4J_TPU_NUM_PROCESSES"
 ENV_LOCAL_DEVICE_COUNT = "DL4J_TPU_LOCAL_DEVICE_COUNT"
+# the rendezvous half of the contract, as the JAX package names it
+RENDEZVOUS_ENV_VARS = (ENV_COORDINATOR, ENV_PROCESS_ID, ENV_NUM_PROCESSES,
+                       ENV_LOCAL_DEVICE_COUNT)
 ENV_FAULTS = "DL4J_TPU_FAULTS"
 ENV_DEVICE = "DL4J_TPU_DEVICE"
 # how long shutdown's barrier waits for the slowest rank on gloo
@@ -184,20 +187,23 @@ def shutdown() -> None:
 
 
 @contextlib.contextmanager
-def simulated_group(rank: int, world: int, device="cpu"):
+def simulated_group(rank: int, world: int, device=None):
     """Run the enclosed code as process `rank` of a fleet of `world`, in
     this process alone: the env contract's process id and count, torch's
     fake process group as the default group (collectives are issued and
     nothing moves: a received buffer keeps what it held) and `device` as
     this process's device. The group is destroyed and the environment
     restored on exit. Refuses to run while a process group is up: its
-    collectives would reach real peers. What graftlint's trace stages
-    run an entry under (analysis/collective_audit.py)."""
+    collectives would reach real peers. `device` is CUDA unless the
+    caller names another. What graftlint's trace stages run an entry
+    under (analysis/collective_audit.py)."""
     global _device
-    import torch
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    from deeplearning4j_tpu_torch import resolve_device
+
+    dev = resolve_device(device)
     if is_initialized():
         raise RuntimeError("a simulated process group runs only where no "
                            "process group is up: a live group's "
@@ -210,7 +216,7 @@ def simulated_group(rank: int, world: int, device="cpu"):
     try:
         dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
                                 world_size=int(world))
-        _device = torch.device(device)
+        _device = dev
         yield
     finally:
         _device = bound

@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
-from deeplearning4j_tpu_torch.nlp.lookup import (
+from deeplearning4j_tpu_torch.nlp.lookup import (  # noqa: F401
+    MAX_ROW_STEP,
     DenseTables,
     _index,
     _scatter_update,
@@ -63,6 +64,8 @@ from deeplearning4j_tpu_torch.nlp.lookup import (
     to_numpy,
 )
 from deeplearning4j_tpu_torch.ops.fused_neg_softmax import neg_softmax_scores
+from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+from deeplearning4j_tpu_torch.telemetry import get_default
 from deeplearning4j_tpu_torch.telemetry.memstat import MemoryLedger
 from deeplearning4j_tpu_torch.parallel.overlap import (
     plan_sparse_bucket,
@@ -156,8 +159,6 @@ class ShardedEmbeddingEngine:
             self._dp_ids = (self.mesh.axis_index(DP_AXIS),)
             self._ep_group = self.mesh.group(EP_AXIS)
             self._dp_group = self.mesh.group(DP_AXIS)
-        from deeplearning4j_tpu_torch.telemetry import get_default
-
         self._recorder = recorder if recorder is not None else get_default()
         self._buckets = {}          # (kind, *shape) -> sparse bucket plans
         self._mu = threading.Lock()
@@ -168,7 +169,6 @@ class ShardedEmbeddingEngine:
 
     def _make_mesh(self, device):
         from deeplearning4j_tpu_torch.distributed import bootstrap
-        from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
 
         if not bootstrap.is_initialized():
             raise ValueError(

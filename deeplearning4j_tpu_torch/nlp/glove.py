@@ -36,6 +36,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nlp.lookup import InMemoryLookupTable
 from deeplearning4j_tpu_torch.nlp.sequencevectors import SequenceVectors
+from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor  # noqa: F401
 
 GLOVE_STATE = ("W", "Wc", "b", "bc", "hW", "hWc", "hb", "hbc")
 

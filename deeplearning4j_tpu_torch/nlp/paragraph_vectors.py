@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.nlp.sequencevectors import SequenceVectors
 from deeplearning4j_tpu_torch.nlp.text import (
     LabelAwareIterator,
     LabelAwareListSentenceIterator,
+    SentenceTransformer,  # noqa: F401
     TokenizerFactory,
 )
 from deeplearning4j_tpu_torch.nlp.vocab import sample_negatives

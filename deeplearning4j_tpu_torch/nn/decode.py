@@ -80,6 +80,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
 )
 from deeplearning4j_tpu_torch.nn.graph import cast_params, vertex_forward
 from deeplearning4j_tpu_torch.nn.layers.attention import sinusoidal
+from deeplearning4j_tpu_torch.nn.training import tree_cast  # noqa: F401
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.shard_scope import layer_shard

@@ -58,8 +58,13 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     UnstackVertexConf,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.enums import (  # noqa: F401
+    BackpropType,
+    OptimizationAlgorithm,
+)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     BaseOutputLayer,
+    BaseRecurrentLayer,  # noqa: F401
     validate_layer_names,
 )
 from deeplearning4j_tpu_torch.nn.layers import (

@@ -2,6 +2,7 @@
 
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     LayerImpl,
+    apply_dropout,
     get_impl,
     l1_l2_penalty,
     pop_aux_losses,

@@ -52,8 +52,13 @@ from deeplearning4j_tpu_torch.data.pipeline import iter_prefetched
 from deeplearning4j_tpu_torch.datasets.api import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
 from deeplearning4j_tpu_torch.nn import tree
+from deeplearning4j_tpu_torch.nn.conf.enums import (  # noqa: F401
+    BackpropType,
+    OptimizationAlgorithm,
+)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     BaseOutputLayer,
+    BaseRecurrentLayer,  # noqa: F401
     RnnOutputLayer,
     validate_layer_names,
 )
@@ -78,6 +83,7 @@ from deeplearning4j_tpu_torch.nn.training import (
     refuse_unstreamable,
     remat_apply,
     streams,
+    tree_cast,  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.updater import build_optimizer
 from deeplearning4j_tpu_torch.parallel.placement import (

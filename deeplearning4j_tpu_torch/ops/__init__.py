@@ -7,6 +7,11 @@ from deeplearning4j_tpu_torch.ops.activations import (  # noqa: F401
     Activations,
     get_activation,
 )
+from deeplearning4j_tpu_torch.ops.losses import (  # noqa: F401
+    LossFunction,
+    compute_loss,
+    loss_fn,
+)
 
 
 class SecondDerivativeError(RuntimeError):

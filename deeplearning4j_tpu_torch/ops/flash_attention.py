@@ -16,7 +16,8 @@ Forward (csrc/flash_fwd.cu):
   head-pair kernel (`_flash_fwd_qkv_pair`) for its 128-lane tile; here
   `_flash_fwd_qkv` on the same kernel, instantiated at D = 64.
 
-Both sources take head dims 32, 64, 128 and 256 (`KERNEL_HEAD_DIMS`).
+Both sources take head dims 32, 64, 128 and 256 (`KERNEL_HEAD_DIMS`),
+and 16 in f32 (`kernel_head_dims`), which only the ring's hops ask for.
 `supports` and `supports_qkv` keep the JAX package's envelope but for
 one difference: they send every other head dim to the dense path, where
 the JAX package would run its flash kernels. On CUDA tensors `supports`
@@ -103,6 +104,9 @@ MAX_FLASH_T = 8192
 # dims they are instantiated for, their query/key tile, and the element
 # types
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# the f32 kernels, scalar and generic in a head dim that is a multiple of
+# 16, also take 16; the bf16 kernels' swizzled tiles need rows of 32
+F32_HEAD_DIMS = (16,) + KERNEL_HEAD_DIMS
 KERNEL_TILE = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -130,6 +134,11 @@ max_tile_for_dim = autotune.max_tile_for_dim
 # head dim no kernel is instantiated for: they take the dense path
 DENSE_ROUTES = {"head_dim": 0}
 _dense_warned = False
+
+
+def kernel_head_dims(dtype) -> tuple:
+    """The head dims the kernels are built for at operand `dtype`."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else KERNEL_HEAD_DIMS
 
 
 def supports(q_shape, *, causal, dropout, mask, device=None) -> bool:
@@ -457,9 +466,10 @@ def _check_launch(views, lse, kmask, dlse=None, drop=None):
         raise ValueError("flash kernel takes float32 or bfloat16 operands "
                          "of one dtype; got "
                          f"{ {k: str(t.dtype) for k, t in views.items()} }")
-    if D not in KERNEL_HEAD_DIMS:
+    if D not in kernel_head_dims(q.dtype):
         raise ValueError(f"flash kernel is built for head_dim "
-                         f"{KERNEL_HEAD_DIMS}; got {D}")
+                         f"{kernel_head_dims(q.dtype)} at {q.dtype}; got "
+                         f"{D}")
     if T % KERNEL_TILE:
         raise ValueError(f"flash kernel needs T % {KERNEL_TILE} == 0; "
                          f"got T={T}")

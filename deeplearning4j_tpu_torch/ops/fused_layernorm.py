@@ -42,6 +42,7 @@ it: see the note at the top of csrc/layernorm.cu.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -152,6 +153,20 @@ def _param_dtype_ok(x_dtype, p_dtype):
     `x_dtype`: the same dtype, or f32 beside bf16."""
     return p_dtype == x_dtype or (x_dtype == torch.bfloat16
                                   and p_dtype == torch.float32)
+
+
+def supports(shape, dtype=None) -> bool:
+    """Whether K10/K11 (csrc/layernorm.cu) take an x of `shape` and
+    `dtype` (None: either kernel dtype): float32 or bfloat16, at least
+    two dims, every dim >= 1, and the rows N (the leading dims' product)
+    and width C in int32. This is the CUDA kernels' envelope, not the
+    Pallas one of the JAX `supports` (C % 128 == 0, N % 8 == 0): the
+    kernels take ragged rows and any width."""
+    if len(shape) < 2 or min(shape) < 1:
+        return False
+    if dtype is not None and dtype not in _KERNEL_DTYPES:
+        return False
+    return math.prod(shape[:-1]) < 2 ** 31 and shape[-1] < 2 ** 31
 
 
 def _ok(x2d, vectors, mats=(), stats=()):

@@ -60,6 +60,16 @@ def _kernel():
     return fn
 
 
+def supports(batch: int, k: int, dim: int) -> bool:
+    """Whether K13 (csrc/neg_softmax.cu) takes a (c [batch, dim], pos
+    [batch, dim], neg [batch, k, dim]) triple: every size >= 1 and the
+    elements of neg in int32. This is the CUDA kernel's envelope, not the
+    Pallas one of the JAX `supports` (dim a lane multiple, batch % 8 ==
+    0, k within one lane tile): the kernel takes any of them, in float32
+    or bfloat16."""
+    return min(batch, k, dim) >= 1 and batch * k * dim < 2 ** 31
+
+
 def _check(c, pos, neg):
     """Raise on what the kernel does not take: CUDA tensors on one
     device, c/pos [B, D] and neg [B, K, D] of one float32/bfloat16

@@ -44,10 +44,16 @@ from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     SequenceParallelTrainer,
     make_sp_train_step,
 )
+from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+    TRANSFORMER_TP_RULES,
+    shard_params,
+    sharding_for,
+)
 
 __all__ = [
     "DataParallelTrainer", "ParameterAveragingTrainer",
-    "SequenceParallelTrainer", "make_mesh", "make_sp_train_step",
-    "replicate", "ring_attention", "ring_self_attention", "shard_batch",
+    "SequenceParallelTrainer", "TRANSFORMER_TP_RULES", "make_mesh",
+    "make_sp_train_step", "replicate", "ring_attention",
+    "ring_self_attention", "shard_batch", "shard_params", "sharding_for",
     "spans_processes",
 ]

@@ -21,7 +21,10 @@ from __future__ import annotations
 import warnings
 
 from deeplearning4j_tpu_torch.datasets.api import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.datasets.iterators import ListDataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    DataSetIterator,  # noqa: F401
+    ListDataSetIterator,
+)
 
 
 class DataParallelTrainer:

@@ -19,7 +19,11 @@ the JAX package's standalone form over one layer's params.
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.nn.layers.moe import moe_apply_dense
+from deeplearning4j_tpu_torch.nn.layers.moe import (  # noqa: F401
+    moe_apply_dense,
+    moe_expert_outputs,
+    moe_gates,
+)
 from deeplearning4j_tpu_torch.ops.shard_comm import (
     InProcessShards,
     ProcessGroupShards,

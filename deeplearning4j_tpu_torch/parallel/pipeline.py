@@ -66,6 +66,7 @@ import torch
 from deeplearning4j_tpu_torch.nn import tree
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import LayerVertexConf
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
+from deeplearning4j_tpu_torch.nn.layers import l1_l2_penalty  # noqa: F401
 
 
 def _chain_cuts(conf):

@@ -12,8 +12,8 @@ past MAX_FLASH_T (`chunked_flash_attention_lse`, `hop_chunk`). Under
 causal attention a hop takes the full, the diagonal or no case by its
 source block; a skipped hop launches nothing. Local blocks whose length
 is not a multiple of 128, and on CUDA head dims the kernels are not
-built for (outside `KERNEL_HEAD_DIMS`), run the f32 einsum ring instead
-(`ring_route`).
+built for at the blocks' dtype (`kernel_head_dims`: 16 in f32 besides
+`KERNEL_HEAD_DIMS`), run the f32 einsum ring instead (`ring_route`).
 
 Dropout hashes GLOBAL coordinates: every hop keys its window at origin
 (idx*Tl, src*Tl) with hash_t = n*Tl, so the ring drops exactly what one
@@ -38,7 +38,6 @@ import math
 import torch
 
 from deeplearning4j_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIMS,
     MAX_FLASH_T,
     MONOLITHIC_COMPILE_MAX,
     NEG_INF,
@@ -50,6 +49,7 @@ from deeplearning4j_tpu_torch.ops.flash_attention import (
     flash_attention_lse,
     flash_attention_lse_drop,
     keep_scale,
+    kernel_head_dims,
     lse_combine,
     max_chunks,
     pick_chunk,
@@ -240,15 +240,16 @@ def _ring_einsum(qs, ks, vs, transport, causal, dropout, seed):
             for (o, _, l), q in zip(state, qs)]
 
 
-def ring_route(Tl: int, D: int, device_type: str) -> str:
+def ring_route(Tl: int, D: int, device_type: str, dtype=None) -> str:
     """Which ring runs local blocks of Tl x D on a device of
     `device_type`: "flash" (the kernel hops, `_ring_flash`) when Tl is a
     multiple of 128 and, on CUDA, D is a head dim the kernels are built
-    for; "einsum" (the f32 ring, `_ring_einsum`, any D) otherwise. On the
-    CPU the hops run the kernels' plain versions, which take any D."""
+    for at the blocks' `dtype` (`kernel_head_dims`; None: at every
+    dtype); "einsum" (the f32 ring, `_ring_einsum`, any D) otherwise. On
+    the CPU the hops run the kernels' plain versions, which take any D."""
     if Tl % 128:
         return "einsum"
-    if device_type == "cuda" and D not in KERNEL_HEAD_DIMS:
+    if device_type == "cuda" and D not in kernel_head_dims(dtype):
         return "einsum"
     return "flash"
 
@@ -267,7 +268,7 @@ def ring_attention_blocks(qs, ks, vs, transport, *, causal: bool = True,
             raise ValueError("dropout > 0 requires a generator or a seed")
         seed = _step_seed(generator)
     _, _, Tl, D = qs[0].shape
-    if ring_route(Tl, D, qs[0].device.type) == "flash":
+    if ring_route(Tl, D, qs[0].device.type, qs[0].dtype) == "flash":
         return _ring_flash(list(qs), list(ks), list(vs), transport, causal,
                            hop_chunk, dropout, seed)
     return _ring_einsum(list(qs), list(ks), list(vs), transport, causal,

@@ -30,6 +30,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from deeplearning4j_tpu_torch.datasets.api import (  # noqa: F401
+    DataSet,
+    MultiDataSet,
+)
+
 
 def make_sp_train_step(net, mesh, seq_axis: str = "seq",
                        data_axis: Optional[str] = None,

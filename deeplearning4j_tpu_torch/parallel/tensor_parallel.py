@@ -174,6 +174,24 @@ def sharding_for(name: str, t, mesh, rules=None, *, n_heads=None):
                        n_heads)
 
 
+def shard_params(params, mesh, rules=None):
+    """This rank's slice of every param of `params` under `rules`
+    (TRANSFORMER_TP_RULES by default), in the same tree: the closest
+    counterpart of the JAX `shard_params`, which `device_put`s each leaf
+    with its rule's sharding and returns the global arrays. A process
+    here holds its own slice, which is what this returns (`sharding_for`
+    of each leaf). A packed QKV leaf is cut by columns, as GSPMD cuts the
+    JAX one; to place a net, with its heads kept whole in each shard and
+    the layers' collectives registered, call `net.set_mesh(mesh,
+    axes={"model": ...})` or `place_in_process`."""
+    def walk(node, prefix=""):
+        return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else sharding_for(f"{prefix}{k}", v, mesh, rules)
+                for k, v in node.items()}
+
+    return walk(params)
+
+
 def _split_form(lc, dims):
     """Whether a layer of conf `lc` computes split as {param: dim} says,
     and the layer's kind."""

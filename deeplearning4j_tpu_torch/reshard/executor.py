@@ -47,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.nn import tree
 from deeplearning4j_tpu_torch.reshard.planner import (
     ALLGATHER_SHARD,
@@ -692,12 +693,13 @@ def restore_placed(net, trees, src_placement: Placement, dst: PortLayout,
 
 # ------------------------------------------------------------ in process
 
-def virtual_mesh(shape: dict, device="cpu"):
+def virtual_mesh(shape: dict, device=None):
     """A Mesh of `shape` whose ranks are all held by this process (no
-    process group: its layouts only read coordinates)."""
+    process group: its layouts only read coordinates), on `device` (CUDA
+    unless the caller names another)."""
     from deeplearning4j_tpu_torch.parallel.mesh import Mesh
 
-    return Mesh(dict(shape), torch.device(device), {},
+    return Mesh(dict(shape), resolve_device(device), {},
                 {a: 0 for a in shape}, 0)
 
 

@@ -181,6 +181,8 @@ class GenRequest:
     t_done: float = 0.0
     emitted: list = field(default_factory=list)
     error: str | None = None
+    # fused_sample's keywords for a sampled request, None for greedy
+    sampling: dict | None = None
     done: threading.Event = field(default_factory=threading.Event)
     stream: queue.Queue = field(default_factory=queue.Queue)
 

@@ -66,6 +66,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.ops.fused_sampling import (fused_sample,
+                                                        gumbel_noise)
 from deeplearning4j_tpu_torch.serving.batcher import (Batch, Batcher,
                                                       DecodeSlots, GenRequest,
                                                       _req_counter)
@@ -89,10 +91,26 @@ class QueueFullError(RuntimeError):
     are both full — a graceful refusal (HTTP 503), never a crash."""
 
 
-def _token_ids(probs: torch.Tensor) -> np.ndarray:
-    """The argmax token ids of a step's output rows, fetched to the host:
-    the step's one batch-boundary sync."""
-    return probs.argmax(-1).to(torch.int32).cpu().numpy()
+def _token_ids(probs: torch.Tensor, requests=(), generator=None
+               ) -> np.ndarray:
+    """The next token of each of a step's output rows, fetched to the
+    host in one copy (the step's one batch-boundary sync): the argmax,
+    or where `requests` (aligned with the rows) holds a sampled request,
+    a K12 draw (`fused_sample` over the log-probs) with noise from
+    `generator`."""
+    ids = probs.argmax(-1)
+    for j, req in enumerate(requests):
+        if req is not None and req.sampling:
+            logits = probs[j:j + 1].float().clamp_min(1e-30).log()
+            noise = gumbel_noise(generator, 1, logits.shape[-1],
+                                 probs.device)
+            ids[j] = fused_sample(logits, noise, **req.sampling)[0]
+    return ids.to(torch.int32).cpu().numpy()
+
+
+class NotLeaderError(RuntimeError):
+    """A request reached a follower of a lockstep engine: only rank 0 of
+    the net's "model" group takes requests (serving/lockstep.py)."""
 
 
 def _injector(faults, recorder):
@@ -669,6 +687,9 @@ class _GenWorker:
         self.drafted_tokens = 0
         self.draft_overhead_s = 0.0
         self.proposer = NgramProposer()
+        # sampled requests' Gumbel noise (K12)
+        self.generator = torch.Generator(device=net.device).manual_seed(
+            index)
         self.alive = True
         self.lifecycle = "warming"
         self.last_beat = 0.0
@@ -695,16 +716,17 @@ class _GenWorker:
             self.trace_count += 1
         return True
 
-    def _run_prefill(self, ws, tokens, kmask, rows, start, last_idx):
+    def _run_prefill(self, ws, tokens, kmask, rows, start, last_idx,
+                     requests=()):
         probs, self.cache = self._prefill(ws.params, ws.state, self.cache,
                                           tokens, kmask, rows, start,
                                           last_idx)
-        return _token_ids(probs)
+        return _token_ids(probs, requests, self.generator)
 
-    def _run_decode(self, ws, tokens, pos):
+    def _run_decode(self, ws, tokens, pos, requests=()):
         probs, self.cache = self._decode(ws.params, ws.state, self.cache,
                                          tokens, pos)
-        return _token_ids(probs)
+        return _token_ids(probs, requests, self.generator)
 
     def _run_verify(self, ws, windows, pos):
         probs, self.cache = self._verify(ws.params, ws.state, self.cache,
@@ -833,7 +855,8 @@ class _GenWorker:
         final = slot.start + n_real >= L
         ws = self.weights.current
         args = (ws, padded_tokens, bucket_kmask, np.asarray([slot_idx]),
-                np.asarray([slot.start]), np.asarray([n_real - 1]))
+                np.asarray([slot.start]), np.asarray([n_real - 1]),
+                [req] if final else [])
         try:
             with self.recorder.span("prefill_chunk", bucket=[1, Tc],
                                     start=slot.start, replica=self.index,
@@ -845,6 +868,9 @@ class _GenWorker:
                         toks = self._run_prefill(*args)
                 else:
                     toks = self._run_prefill(*args)
+        except ReplicaKilled as exc:
+            self._die([slot_idx], exc, clock)
+            raise
         except Exception as exc:  # the request fails; the worker serves on
             self._fail_slot(slot_idx, exc, clock)
             return
@@ -866,10 +892,12 @@ class _GenWorker:
         B = self.plan.n_slots
         padded_tokens = np.zeros(B, np.int64)
         pos = np.full(B, self.plan.capacity - 1, np.int64)  # scratch
+        requests = [None] * B
         for i in active:
             slot = self.slots.slots[i]
             padded_tokens[i] = slot.last_token
             pos[i] = slot.pos
+            requests[i] = slot.request
         ws = self.weights.current
         with self._mu:
             self.decode_steps_run += 1
@@ -884,9 +912,11 @@ class _GenWorker:
                     with self.recorder.span("compile", kind="decode",
                                             shape=[B, self.plan.capacity],
                                             replica=self.index):
-                        toks = self._run_decode(ws, padded_tokens, pos)
+                        toks = self._run_decode(ws, padded_tokens, pos,
+                                                requests)
                 else:
-                    toks = self._run_decode(ws, padded_tokens, pos)
+                    toks = self._run_decode(ws, padded_tokens, pos,
+                                            requests)
         except ReplicaKilled as exc:
             self._die(active, exc, clock)
             raise
@@ -1076,10 +1106,20 @@ class _GenWorker:
                     if not self.pending or self.slots.free_index() is None:
                         self._cv.wait(timeout=0.05)
 
+        def run():
+            try:
+                loop()
+            finally:
+                self._loop_ended()
+
         self.lifecycle = "serving"
-        self._thread = threading.Thread(target=loop, daemon=True,
+        self._thread = threading.Thread(target=run, daemon=True,
                                         name=f"gen-replica-{self.index}")
         self._thread.start()
+
+    def _loop_ended(self) -> None:
+        """Called by the thread as it ends, however it ends (a lockstep
+        leader tells its followers to stop)."""
 
     def respawn(self, clock) -> None:
         """Fleet-supervisor respawn: a fresh thread over the same step
@@ -1152,7 +1192,14 @@ class GenerationEngine:
     largest) is the longest prompt piece run between two decode steps;
     `replicas` workers share the card, each with its own cache;
     `checkpoint` restores the net first; `faults` takes replica-scoped
-    chaos specs (`r0:kill@decode5`)."""
+    chaos specs (`r0:kill@decode5`).
+
+    A net placed with a "model" role over the ranks of a process group
+    (`net.set_mesh(mesh, axes={"model": ...})`, a group of one
+    included) is served by those ranks in lockstep: every rank builds
+    this engine and calls `warmup` and `start`, rank 0 of the "model"
+    group alone takes requests and broadcasts each step's plan, and the
+    others follow it (serving/lockstep.py)."""
 
     def __init__(self, net, lattice: BucketLattice, *, slots: int = 4,
                  max_new_tokens: int = 16, page_size: int = 16,
@@ -1197,11 +1244,17 @@ class GenerationEngine:
                               pool_pages=pool_pages, kv_dtype=kv_dtype)
         self._clock = time.monotonic
         self.costbook = CostBook(recorder)
+        worker, self.leader = _GenWorker, True
+        if getattr(net, "_mesh", None) is not None:
+            from deeplearning4j_tpu_torch.serving import lockstep as ls
+
+            worker, self.leader = ls.lockstep_worker(
+                net, replicas=replicas, speculative_k=speculative_k,
+                faults=self._faults)
         self._workers = [
-            _GenWorker(i, net, lattice, self.plan, chunk, max_queue,
-                       recorder, self.weights,
-                       speculative_k=self.speculative_k,
-                       faults=self._faults, costbook=self.costbook)
+            worker(i, net, lattice, self.plan, chunk, max_queue, recorder,
+                   self.weights, speculative_k=self.speculative_k,
+                   faults=self._faults, costbook=self.costbook)
             for i in range(max(1, int(replicas)))]
         # the ledger: the published weights and every worker's KV cache
         ledger = MemoryLedger()
@@ -1237,15 +1290,34 @@ class GenerationEngine:
             return self
         self._started = True
         for w in self._workers:
-            w.start(self._clock)
+            if self.leader:
+                w.start(self._clock)
+            else:
+                w.follow(self._clock)
         return self
 
     def submit_generate(self, tokens, max_new_tokens: int | None = None,
-                        request_id: str | None = None) -> GenRequest:
+                        request_id: str | None = None, *,
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 1.0) -> GenRequest:
         """Admit one generation request. Validates the prompt against
         the lattice (a too-long prompt is the client's 400) and the
         output budget against the cache geometry; a saturated pool and
-        full queue raise QueueFullError (HTTP 503)."""
+        full queue raise QueueFullError (HTTP 503). Greedy unless
+        `temperature` > 0: then each token is drawn by `fused_sample`
+        (K12) with `top_k` / `top_p`. A follower of a lockstep engine
+        raises NotLeaderError."""
+        if not self.leader:
+            raise NotLeaderError(
+                "this rank follows the lockstep plan of rank 0 of the "
+                "net's \"model\" group, which alone takes requests")
+        sampling = None
+        if temperature and float(temperature) > 0.0:
+            if self.speculative_k:
+                raise ValueError("speculative decoding is greedy: a "
+                                 "sampled request needs speculative_k=0")
+            sampling = {"temperature": float(temperature),
+                        "top_k": int(top_k), "top_p": float(top_p)}
         toks = np.asarray(tokens)
         if toks.ndim != 1:
             raise ValueError(
@@ -1260,7 +1332,7 @@ class GenerationEngine:
         req = GenRequest(tokens=toks.astype(np.int64),
                          max_new_tokens=max_new,
                          request_id=request_id or f"g{next(_req_counter)}",
-                         t_enqueue=self._clock())
+                         t_enqueue=self._clock(), sampling=sampling)
         with self._rr_lock:  # HTTP handler threads submit concurrently
             worker = self._workers[self._rr % len(self._workers)]
             self._rr += 1
@@ -1268,10 +1340,10 @@ class GenerationEngine:
         return req
 
     def generate(self, tokens, max_new_tokens: int | None = None,
-                 timeout: float = 60.0) -> list:
+                 timeout: float = 60.0, **sampling) -> list:
         """Synchronous convenience: submit + wait; returns the emitted
         token list. Raises on failure or timeout."""
-        req = self.submit_generate(tokens, max_new_tokens)
+        req = self.submit_generate(tokens, max_new_tokens, **sampling)
         if not req.wait(timeout):
             raise TimeoutError(f"request {req.request_id} timed out "
                                f"after {timeout}s")
@@ -1298,7 +1370,8 @@ class GenerationEngine:
 
     def drain(self, timeout: float = 30.0) -> None:
         """Refuse new requests, finish the admitted and queued ones, and
-        stop the worker threads."""
+        stop the worker threads (a lockstep follower's ends at its
+        leader's stop plan)."""
         for w in self._workers:
             w.close()
         for w in self._workers:

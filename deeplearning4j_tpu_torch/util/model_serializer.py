@@ -40,6 +40,8 @@ import zipfile
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf import serde
+
 _FORMAT_VERSION = 1
 PORT_UPDATER = "port_updater.pt"
 
@@ -113,7 +115,6 @@ class ModelSerializer:
         collective) and rank 0 alone writes."""
         import torch.distributed as dist
 
-        from deeplearning4j_tpu_torch.nn.conf import serde
         from deeplearning4j_tpu_torch.util.checkpoint import _canonical_trees
 
         if net.params is None:
@@ -142,7 +143,6 @@ class ModelSerializer:
         """Restore either network kind (the stored `kind` picks it) on
         `device` (CUDA unless the caller names another);
         `expected_kind` rejects the other kind with a ValueError."""
-        from deeplearning4j_tpu_torch.nn.conf import serde
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 

@@ -5,7 +5,7 @@ and hold them against their plain PyTorch versions, so that fragment
 addresses, swizzles, masks, pipelines and cluster reductions can be
 checked where there is no nvcc and no card.
 
-    python3 port_tools/cuda_emu/emulate.py [--dims 32 64 128 256]
+    python3 port_tools/cuda_emu/emulate.py [--dims 16 32 64 128 256]
         [--kernels flash xent ln sample] [--src DIR]
 
 Each source is compiled by g++ (C++20) with this directory's headers in
@@ -496,7 +496,7 @@ SAMPLE_TIES = ((2, 1000), (128, 4), 200)
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dims", type=int, nargs="*",
-                    default=[32, 64, 128, 256])
+                    default=list(fa.F32_HEAD_DIMS))
     ap.add_argument("--kernels", nargs="*",
                     choices=["flash", "xent", "ln", "sample"],
                     default=["flash", "xent", "ln", "sample"])
@@ -538,6 +538,8 @@ def main():
         None, None)
     for D in args.dims if "flash" in args.kernels else ():
         for dtype in (torch.bfloat16, torch.float32):
+            if D not in fa.kernel_head_dims(dtype):
+                continue
             for causal, masked, packed in ((True, True, False),
                                            (True, False, True),
                                            (False, False, False)):

@@ -179,7 +179,10 @@ def main(argv=None) -> int:
 
     if args.update_collectives:
         from deeplearning4j_tpu_torch.analysis import collective_audit
-        _, signatures = collective_audit.audit(divergence=False)
+        # the signatures are the same on every device (one frozen
+        # section), so the collective audit records on the CPU
+        _, signatures = collective_audit.audit(divergence=False,
+                                               device="cpu")
         collective_audit.write_budget(signatures)
         print(f"froze collective signatures for {len(signatures)} entry "
               f"points -> {collective_audit.BUDGET_PATH}")
@@ -217,9 +220,10 @@ def main(argv=None) -> int:
     if args.stage == "all" or (args.stage == "spmd" and trace):
         from deeplearning4j_tpu_torch.analysis import collective_audit
         if fixtures:
-            cfindings, signatures = collective_audit.audit_paths(explicit_py)
+            cfindings, signatures = collective_audit.audit_paths(
+                explicit_py, "cpu")
         else:
-            cfindings, signatures = collective_audit.audit()
+            cfindings, signatures = collective_audit.audit(device="cpu")
         new.extend(cfindings)
 
     profiles: dict = {}

@@ -137,7 +137,7 @@ def test_signature_relates_to_the_jax_one(entry):
         assert moves and {_shape(i) for i in moves} == hop
     else:
         assert [i.split()[0] for i in jax] == ["hlo:all-gather"] * 2
-        with collective_audit.simulated_process_group(0, 8):
+        with collective_audit.simulated_process_group(0, 8, "cpu"):
             fn, args = collective_audit._builder(entry, "cpu", 0)()
             out, _ = fn(*args)
         shapes = {k[-1]: tuple(t.shape) for k, t in out[0].items()}
@@ -160,7 +160,8 @@ def test_signature_drift_trips_named_finding_and_cli_exit(tmp_path,
     bad.write_text(json.dumps({"signatures": mutated}))
 
     findings, _ = collective_audit.audit(
-        ["ring_attention/seq4"], budget_path=str(bad), divergence=False)
+        ["ring_attention/seq4"], budget_path=str(bad), divergence=False,
+        device="cpu")
     assert [f.rule for f in findings] == ["C001"]
     assert findings[0].path == "ring_attention/seq4"
     assert findings[0].stage == "spmd"
@@ -180,7 +181,8 @@ def test_missing_signature_is_a_finding(tmp_path):
     empty = tmp_path / "collective_budget.json"
     empty.write_text(json.dumps({"signatures": {}}))
     findings, _ = collective_audit.audit(
-        ["ring_attention/seq4"], budget_path=str(empty), divergence=False)
+        ["ring_attention/seq4"], budget_path=str(empty), divergence=False,
+        device="cpu")
     assert [f.rule for f in findings] == ["C002"]
     assert "--update-collectives" in findings[0].fixit
 
@@ -188,7 +190,7 @@ def test_missing_signature_is_a_finding(tmp_path):
 # ------------------------------------------------- divergence/deadlock
 
 def test_rank_conditional_collective_is_a_deadlock_finding():
-    findings, sigs = collective_audit.audit_paths([FIXTURE])
+    findings, sigs = collective_audit.audit_paths([FIXTURE], "cpu")
     assert [f.rule for f in findings] == ["C003"]
     msg = findings[0].message
     assert "DEADLOCK" in msg
@@ -212,13 +214,15 @@ def test_rank_divergent_op_count_is_the_same_class():
 
         return fn, (torch.ones(2),)
 
-    findings = collective_audit.check_divergence("toy/op_count", build)
+    findings = collective_audit.check_divergence("toy/op_count", build,
+                                                device="cpu")
     assert [f.rule for f in findings] == ["C003"]
     assert "aten ops" in findings[0].message
     # a program allowed to differ by rank (a causal ring) is held to its
     # collectives only
     assert collective_audit.check_divergence("toy/op_count", build,
-                                             same_program=False) == []
+                                             same_program=False,
+                                             device="cpu") == []
 
 
 def test_unmatched_point_to_point_move_is_a_deadlock_finding():
@@ -241,7 +245,7 @@ def test_unmatched_point_to_point_move_is_a_deadlock_finding():
             return fn, (torch.ones(3),)
         return build
 
-    findings = collective_audit.check_moves("toy/moves", build_at, 2)
+    findings = collective_audit.check_moves("toy/moves", build_at, 2, "cpu")
     assert [f.rule for f in findings] == ["C003"]
     assert "0->1" in findings[0].message
 
@@ -254,20 +258,20 @@ def test_simulated_process_group_restores_state():
     before_env = {v: os.environ.get(v) for v in (
         bootstrap.ENV_PROCESS_ID, bootstrap.ENV_NUM_PROCESSES)}
     before_dev = bootstrap._device
-    with collective_audit.simulated_process_group(3, 4):
+    with collective_audit.simulated_process_group(3, 4, "cpu"):
         assert dist.get_rank() == 3 and dist.get_world_size() == 4
         assert os.environ[bootstrap.ENV_PROCESS_ID] == "3"
         assert os.environ[bootstrap.ENV_NUM_PROCESSES] == "4"
         assert bootstrap.process_device() == torch.device("cpu")
         with pytest.raises(RuntimeError, match="no process group"):
-            with collective_audit.simulated_process_group(0, 2):
+            with collective_audit.simulated_process_group(0, 2, "cpu"):
                 pass
     assert not dist.is_initialized()
     assert bootstrap._device is before_dev
     assert {v: os.environ.get(v) for v in before_env} == before_env
     # an exception inside tears it down as well
     with pytest.raises(ValueError):
-        with collective_audit.simulated_process_group(1, 2):
+        with collective_audit.simulated_process_group(1, 2, "cpu"):
             raise ValueError("boom")
     assert not dist.is_initialized()
 

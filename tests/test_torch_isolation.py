@@ -1,6 +1,7 @@
 """The port stands alone: no file of deeplearning4j_tpu_torch/, nor
-chip_smoke.py, nor any file under port_tools/ (the sweep, the trace and
-traffic tools among them) imports jax or the JAX package, the whole
+chip_smoke.py, nor any file under port_tools/ (the sweep, the trace,
+traffic and benchdiff tools among them) or examples/torch/ imports jax
+or the JAX package, the whole
 package imports with jax made unimportable, and an entry point called
 without a device asks for CUDA (no silent CPU fallback)."""
 
@@ -20,6 +21,7 @@ pytestmark = pytest.mark.port
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + sorted((ROOT / "port_tools").rglob("*.py")) \
+    + sorted((ROOT / "examples" / "torch").glob("*.py")) \
     + sorted(p for p in (ROOT / "tests").glob("torch_*.py")
              if p.name != "torch_zip_fixture.py")
 FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
@@ -205,6 +207,16 @@ def test_tracing_slice_files_are_covered():
                 "port_tools/tracetool.py", "port_tools/trafficreplay.py"):
         assert ROOT / rel in PORT_FILES, rel
     assert (ROOT / "deeplearning4j_tpu_torch/native/io_core.cpp").exists()
+
+
+def test_benchdiff_and_example_twins_are_covered():
+    """The port's benchdiff and every example twin are among the files
+    held to no JAX import above."""
+    twins = [f"examples/torch/{p.name}"
+             for p in sorted((ROOT / "examples").glob("*.py"))]
+    assert len(twins) == 8
+    for rel in ["port_tools/benchdiff.py"] + twins:
+        assert ROOT / rel in PORT_FILES, rel
 
 
 def test_elastic_slice_imports_nothing_of_jax():

@@ -160,7 +160,7 @@ def test_profile_drift_trips_named_finding_and_cli_exit(tmp_path,
 
     findings, _ = precision_audit.audit(
         ["fused_neg_softmax/scores"], budget_path=str(bad),
-        divergence=False)
+        divergence=False, device="cpu")
     assert [f.rule for f in findings] == ["PB01"]
     assert findings[0].path == "fused_neg_softmax/scores"
     assert findings[0].stage == "precision"
@@ -181,7 +181,7 @@ def test_missing_profile_is_a_finding(tmp_path):
     empty.write_text(json.dumps({"entries": {"cpu": {}}}))
     findings, _ = precision_audit.audit(
         ["fused_neg_softmax/scores"], budget_path=str(empty),
-        divergence=False)
+        divergence=False, device="cpu")
     assert [f.rule for f in findings] == ["PB01"]
     assert "--update-precision" in findings[0].fixit
 
@@ -210,7 +210,8 @@ def test_rank_branching_dtype_is_a_deadlock_finding():
 
         return fn, (_t(4, dtype=BF16),)
 
-    findings = precision_audit.check_rank_independence("toy/dtype", build)
+    findings = precision_audit.check_rank_independence("toy/dtype", build,
+                                                       "cpu")
     assert [f.rule for f in findings] == ["P005"]
     assert "DEADLOCK" in findings[0].message
     assert findings[0].stage == "precision"
@@ -218,7 +219,7 @@ def test_rank_branching_dtype_is_a_deadlock_finding():
 
 def test_rank_invariant_entry_is_clean():
     assert precision_audit.check_rank_independence(
-        "decode_attention/q8") == []
+        "decode_attention/q8", device="cpu") == []
 
 
 # ------------------------------------------------ the rules, one by one
@@ -377,7 +378,7 @@ def test_p004_widening_collective_fires_width_preserving_does_not():
             return v
         return fn
 
-    with simulated_process_group(0, 2):
+    with simulated_process_group(0, 2, "cpu"):
         _, found = _findings(reduced(_t(4, 8, dtype=BF16), True))
         assert _rules(found) == {"P004"}
         assert "wire" in found[0].message
@@ -402,7 +403,7 @@ def test_cli_precision_demo_exits_nonzero_with_p001():
 
 
 def test_fixture_audit_in_process():
-    findings, profiles = precision_audit.audit_paths([FIXTURE])
+    findings, profiles = precision_audit.audit_paths([FIXTURE], "cpu")
     assert [f.rule for f in findings] == ["P001"]
     assert "loop carry" in findings[0].message
     prof = profiles["demo/bf16_sum_over_mm"]

@@ -436,7 +436,7 @@ def test_in_process_moves_of_model_shards():
 
     net = transformer_lm(**CFG, device="cpu").init()
     like = {p: (tuple(t.shape), t.dtype) for p, t in tree.leaves(net.params)}
-    mesh = tex.virtual_mesh({"model": 2})
+    mesh = tex.virtual_mesh({"model": 2}, "cpu")
     split = SplitPlan(net, mesh, resolve_rules({"model": "model"}))
     whole = tex.PortLayout(like, 1)
     two = tex.PortLayout(like, 2, mesh, split)

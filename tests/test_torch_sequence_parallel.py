@@ -168,6 +168,17 @@ def test_ring_route_by_block_head_dim_and_device(Tl, D, device, want):
     assert ra.ring_route(Tl, D, device) == want
 
 
+@pytest.mark.parametrize("dtype,want", [(torch.float32, "flash"),
+                                        (torch.bfloat16, "einsum")])
+def test_ring_route_at_head_dim_16_follows_the_dtype(dtype, want):
+    """Head dim 16 (examples/sequence_parallel_lm.py's 4 heads of 16): on
+    CUDA the f32 kernels take it, the bf16 kernels do not."""
+    ra = importlib.import_module(
+        "deeplearning4j_tpu_torch.parallel.ring_attention")
+
+    assert ra.ring_route(256, 16, "cuda", dtype) == want
+
+
 def test_einsum_ring_at_head_dim_96_matches_references(monkeypatch):
     """The route the card takes at D = 96 (d_model 384 over 4 heads),
     forced on the CPU: the f32 einsum ring over 4 blocks of 128 against
@@ -179,8 +190,8 @@ def test_einsum_ring_at_head_dim_96_matches_references(monkeypatch):
     route = ra.ring_route
     taken = []
 
-    def as_on_cuda(Tl, D, device_type):
-        taken.append(route(Tl, D, "cuda"))
+    def as_on_cuda(Tl, D, device_type, dtype=None):
+        taken.append(route(Tl, D, "cuda", dtype))
         return taken[-1]
 
     monkeypatch.setattr(ra, "ring_route", as_on_cuda)

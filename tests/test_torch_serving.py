@@ -104,6 +104,56 @@ def test_engine_tokens_match_full_forward_argmax(nets, port_tokens):
             seq.append(tok)
 
 
+SAMPLED = dict(temperature=0.8, top_k=8, top_p=0.9)
+
+
+def test_sampled_request_holds_to_the_plain_sampler(nets):
+    """One sampled request (temperature, top-k and top-p) served between
+    two greedy ones, the three slots decoding together: each sampled
+    token is the plain version of K12 (`_select_reference`) over the log
+    of the whole net's distribution at its position (the full forward
+    over the prompt and the tokens before it), with the Gumbel noise
+    rebuilt from the worker's generator in draw order; each greedy token
+    of the same steps is the full forward's argmax."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops.fused_sampling import (
+        _select_reference,
+        gumbel_noise,
+    )
+
+    _, tnet = nets
+    engine = GenerationEngine(tnet, BucketLattice((1,), seq_lens=(16,)),
+                              slots=3, max_new_tokens=8, page_size=16)
+    (worker,) = engine.fleet_workers()
+    engine.warmup()
+    draws = torch.Generator().set_state(worker.generator.get_state())
+    engine.start()
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(0, CFG["vocab_size"], n) for n in (5, 13, 9)]
+    reqs = [engine.submit_generate(p, 8, **(SAMPLED if i == 1 else {}))
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        assert r.wait(300) and r.error is None, r.error
+    engine.drain()
+    argmax_run = True
+    for i, (prompt, r) in enumerate(zip(prompts, reqs)):
+        seq = list(prompt)
+        for tok in r.emitted:
+            probs = tnet.output(np.asarray(seq)[None])[0, -1]
+            if i == 1:
+                logits = probs.float().clamp_min(1e-30).log()[None]
+                noise = gumbel_noise(draws, 1, CFG["vocab_size"], "cpu")
+                want = int(_select_reference(logits, noise, **SAMPLED)[0])
+                assert tok == want, (len(seq), tok, want)
+                assert tok in probs.topk(SAMPLED["top_k"]).indices
+                argmax_run &= tok == int(probs.argmax())
+            else:
+                assert tok == int(probs.argmax()), (i, len(seq))
+            seq.append(tok)
+    assert not argmax_run  # the draws left the argmax
+
+
 def test_engine_stats_account_every_token(port_tokens):
     _, stats, rec = port_tokens
     assert stats["served"] == len(PROMPT_LENS) and stats["failed"] == 0

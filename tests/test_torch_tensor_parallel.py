@@ -441,6 +441,22 @@ def _decode_pair():
     return jnet, tnet
 
 
+# A7: the decode net split over a 2-rank "model" group, served in
+# lockstep by GenerationEngine (tests/torch_parallel_worker.py
+# case_serve); it rides the 2-rank fleet above
+SERVE = dict(name="serve_m2", kind="serve", model="lm", cfg=DECODE_CFG,
+             mesh={"model": 2}, axes={"model": "model"}, batches=[],
+             prompts=[np.random.default_rng(i).integers(0, 64, n).tolist()
+                      for i, n in enumerate((5, 11, 20))],
+             new=12, seq_lens=[8, 16, 32], kv_dtypes=["f32", "int8"])
+CASES[2].append(SERVE)
+# the same engine over a group whose collectives time out after 3 s, with
+# one rank's decode step failing (case_serve_fault)
+SERVE_FAULT = dict(SERVE, name="serve_fault_m2", kind="serve_fault",
+                   kv_dtypes=["f32"], timeout_s=3.0)
+CASES[2].append(SERVE_FAULT)
+
+
 @pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
 def test_split_decode_matches_meshless_and_jax(kv_dtype):
     """The LM split over 2 "model" shards in this process
@@ -501,6 +517,108 @@ def test_generation_engine_serves_a_split_net():
     want = served(tnet)
     place_in_process(tnet, 2)
     assert served(tnet) == want
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+def test_lockstep_engine_over_two_ranks_serves_the_jax_tokens(fleets,
+                                                              kv_dtype):
+    """Rank 0 of a 2-rank gloo "model" group serves 3 prompts (2 slots,
+    so prefills interleave with decode steps) through the lockstep
+    GenerationEngine over the f32 or the int8 cache: each request's
+    greedy tokens equal the JAX package's on the same params (f32), or
+    the meshless port's over the int8 cache, which
+    test_split_decode_matches_meshless_and_jax holds to the JAX
+    package's. Rank 1's follower refuses a request, steps the same
+    number of plans and retires at the stop plan."""
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.weights_io import params_from_jax
+
+    outs = fleets[2]
+    net = jax_net(SERVE)
+    wrap = jax.jit
+    if kv_dtype == "int8":
+        params = {k: {n: np.asarray(v) for n, v in d.items()}
+                  for k, d in net.params.items()}
+        net = transformer_lm(**DECODE_CFG, device="cpu").init()
+        net.params, wrap = params_from_jax(params, "cpu"), None
+    key = f"serve_m2/{kv_dtype}"
+    for i, prompt in enumerate(SERVE["prompts"]):
+        want = _greedy(net, np.asarray(prompt, np.int32), SERVE["new"],
+                       kv_dtype, bucket=32, cap=64, wrap=wrap)
+        assert outs[0][f"{key}/tokens{i}"].tolist() == want, i
+    assert bool(outs[1][f"{key}/refused"])
+    plans = int(outs[0][f"{key}/plans"])
+    # at least one prefill a prompt and a decode step a token after each
+    # prompt's first
+    assert plans >= len(SERVE["prompts"]) + SERVE["new"] - 1
+    assert int(outs[1][f"{key}/plans"]) == plans
+    assert bool(outs[0][f"{key}/retired"])
+    assert bool(outs[1][f"{key}/retired"])
+
+
+@pytest.mark.parametrize("bad", [0, 1])
+def test_lockstep_step_failure_ends_both_ranks(fleets, bad):
+    """In a 2-rank lockstep engine over a gloo group whose collectives
+    time out after 3 s, a step of rank `bad` raises after its plan went
+    out (0: the leader's second prefill chunk; 1: the follower's second
+    decode step): its peer, left in the step's collective, raises at the
+    timeout, and neither sends another plan. Both workers end dead, neither thread is left running, and
+    each of rank 0's requests finishes with an error instead of
+    hanging."""
+    outs = fleets[2]
+    key = f"serve_fault_m2/{bad}"
+    for rank in (0, 1):
+        assert str(outs[rank][f"{key}/state"]) == "dead", rank
+        assert bool(outs[rank][f"{key}/ended"]), rank
+    assert outs[0][f"{key}/failed"].tolist() == [True] * len(
+        SERVE["prompts"])
+
+
+def test_lockstep_follower_refuses_requests():
+    """In this process, as rank 1 of a simulated 2-rank group (torch's
+    fake process group): the engine over the split net follows, and its
+    submit_generate and generate raise NotLeaderError; options the plan
+    does not carry are refused at construction. A meshless net gets the
+    plain worker, and a net placed over a "model" group of one the
+    lockstep worker, whose rank leads."""
+    from deeplearning4j_tpu_torch.distributed import bootstrap
+    from deeplearning4j_tpu_torch.models.transformer import transformer_lm
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+    from deeplearning4j_tpu_torch.serving.engine import (NotLeaderError,
+                                                         _GenWorker)
+    from deeplearning4j_tpu_torch.serving.lockstep import (
+        LockstepBroken,
+        LockstepUnsupported,
+        LockstepWorker,
+    )
+
+    lattice = BucketLattice((1,), seq_lens=(8,))
+    with bootstrap.simulated_group(1, 2, "cpu"):
+        net = transformer_lm(**CFG, device="cpu").init()
+        net.set_mesh(make_mesh({"model": 2}), axes={"model": "model"})
+        engine = GenerationEngine(net, lattice, slots=1, max_new_tokens=4)
+        assert not engine.leader
+        with pytest.raises(NotLeaderError):
+            engine.submit_generate([1, 2, 3])
+        with pytest.raises(NotLeaderError):
+            engine.generate([1, 2, 3], 2)
+        with pytest.raises(LockstepUnsupported, match="speculative"):
+            GenerationEngine(net, lattice, slots=1, max_new_tokens=4,
+                             speculative_k=2)
+    meshless = transformer_lm(**CFG, device="cpu").init()
+    assert type(GenerationEngine(meshless, lattice).fleet_workers()[0]) \
+        is _GenWorker
+    with bootstrap.simulated_group(0, 1, "cpu"):
+        net = transformer_lm(**CFG, device="cpu").init()
+        net.set_mesh(make_mesh({"model": 1}), axes={"model": "model"})
+        engine = GenerationEngine(net, lattice, slots=1, max_new_tokens=4)
+        assert engine.leader
+        (worker,) = engine.fleet_workers()
+        assert type(worker) is LockstepWorker
+        with pytest.raises(LockstepBroken):  # no rejoining the steps
+            engine.fleet_respawn(worker)
 
 
 def test_moe_decode_is_refused_as_in_jax():

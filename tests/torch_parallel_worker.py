@@ -638,6 +638,105 @@ def case_search(case, inputs):
     return out
 
 
+def case_serve(case, inputs):
+    """GenerationEngine over the LM split over the case's "model" ranks,
+    in lockstep, once over each of the case's cache dtypes: rank 0
+    serves the prompts greedily, all submitted at once over 2 slots; a
+    follower's generate raises NotLeaderError. Every rank returns the
+    plans its worker stepped and whether it retired at the end."""
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+    from deeplearning4j_tpu_torch.serving.engine import NotLeaderError
+
+    net = _net(case, inputs)
+    net.set_mesh(make_mesh(case["mesh"], device="cpu"), axes=case["axes"])
+    out = {}
+    for kv in case["kv_dtypes"]:
+        engine = GenerationEngine(net, BucketLattice(
+            (1,), seq_lens=tuple(case["seq_lens"])), slots=2,
+            max_new_tokens=case["new"], kv_dtype=kv)
+        engine.warmup()
+        engine.start()
+        if engine.leader:
+            reqs = [engine.submit_generate(np.asarray(p), case["new"])
+                    for p in case["prompts"]]
+            for i, r in enumerate(reqs):
+                if not r.wait(120) or r.error is not None:
+                    raise RuntimeError(f"{kv} request {i}: {r.error}")
+                out[f"{kv}/tokens{i}"] = np.asarray(r.emitted)
+        else:
+            try:
+                engine.generate(np.asarray(case["prompts"][0]), 1)
+                out[f"{kv}/refused"] = np.asarray(False)
+            except NotLeaderError:
+                out[f"{kv}/refused"] = np.asarray(True)
+        engine.drain(timeout=120)
+        (worker,) = engine.fleet_workers()
+        out[f"{kv}/plans"] = np.asarray(worker.plans)
+        out[f"{kv}/retired"] = np.asarray(worker.lifecycle == "retired")
+    return out
+
+
+def _fails_at(n, step):
+    """`step`, raising on its n-th call before it runs."""
+    calls = [0]
+
+    def wrapped(*args):
+        calls[0] += 1
+        if calls[0] == n:
+            raise RuntimeError("injected step failure")
+        return step(*args)
+    return wrapped
+
+
+def case_serve_fault(case, inputs):
+    """case_serve's lockstep engine over a "model" group of its own whose
+    collectives time out after the case's `timeout_s`, once for each
+    rank as the one whose step raises before any collective of the step:
+    rank 0's second prefill chunk after warmup, another rank's second
+    decode step. Every rank returns, for each failing rank, its worker's
+    lifecycle and whether its thread ended; rank 0 which of its requests
+    finished with an error."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    from deeplearning4j_tpu_torch.serving import (BucketLattice,
+                                                  GenerationEngine)
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+    for bad in range(world):
+        dist.barrier()  # the short timeout binds the group's setup too
+        group = dist.new_group(list(range(world)), timeout=timedelta(
+            seconds=case["timeout_s"]))
+        mesh = Mesh({"model": world}, bootstrap.process_device(),
+                    {"model": group}, {"model": rank}, rank)
+        net = _net(case, inputs)
+        net.set_mesh(mesh, axes=case["axes"])
+        engine = GenerationEngine(net, BucketLattice(
+            (1,), seq_lens=tuple(case["seq_lens"])), slots=2,
+            max_new_tokens=case["new"])
+        dist.barrier(group=group)
+        engine.warmup()
+        (worker,) = engine.fleet_workers()
+        if rank == bad:
+            step = "_prefill" if bad == 0 else "_decode"
+            setattr(worker, step, _fails_at(2, getattr(worker, step)))
+        engine.start()
+        if engine.leader:
+            reqs = [engine.submit_generate(np.asarray(p), case["new"])
+                    for p in case["prompts"]]
+            out[f"{bad}/failed"] = np.asarray(
+                [r.wait(120) and r.error is not None for r in reqs])
+        engine.drain(timeout=120)
+        worker.join(120)
+        out[f"{bad}/state"] = np.asarray(worker.lifecycle)
+        out[f"{bad}/ended"] = np.asarray(not worker._thread.is_alive())
+    return out
+
+
 def bootstrap_rank():
     import torch.distributed as dist
 
@@ -648,7 +747,8 @@ CASES = {"dp": case_dp, "pa": case_pa, "eval": case_eval,
          "ring": case_ring, "sp": case_sp, "mesh": case_mesh,
          "solver": case_solver,
          "before_init": case_before_init, "pipe": case_pipe,
-         "reshard": case_reshard, "search": case_search}
+         "reshard": case_reshard, "search": case_search,
+         "serve": case_serve, "serve_fault": case_serve_fault}
 
 
 def main(argv) -> int:
